@@ -1,0 +1,6 @@
+from repro_torch.core.local_update import (client_updates,  # noqa: F401
+                                           device_update)
+from repro_torch.core.mifa import MIFA  # noqa: F401
+from repro_torch.core.participation import (BernoulliParticipation,  # noqa: F401
+                                            TauStats, label_correlated_probs)
+from repro_torch.core.runner import FLHistory, RoundRunner, run_fl  # noqa: F401

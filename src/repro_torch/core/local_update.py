@@ -1,0 +1,60 @@
+"""K-step local SGD (paper Algorithm 1, DeviceUpdate).
+
+An active device receives w_t, runs K steps of SGD at learning rate η_t on its
+local objective, and returns G^i = (w_t − w^i_{t,K}) / η_t — which is exactly
+the sum of its K stochastic gradients. The gradient sum is accumulated
+directly, as in `repro/core/local_update.py`.
+
+`client_updates` vmaps the device update over the leading client axis with
+`torch.func.vmap`; the reference's `lax.scan` over the K steps is a Python
+loop.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.tree import tree_map
+
+
+def device_update(loss_fn: Callable, params, client_batch, eta: float,
+                  weight_decay: float = 0.0):
+    """Run K local SGD steps for ONE device.
+
+    client_batch: dict whose leaves have leading axis K (one minibatch per
+    local step). Returns (G = Σ_k (∇f(w_{t,k}) + λ·w_{t,k}), mean local loss).
+    Weight decay joins the gradient before both the step and the sum; the
+    step is taken in f32.
+    """
+    grad_fn = grad_and_value(loss_fn, has_aux=True)
+    k_steps = next(iter(client_batch.values())).shape[0]
+    w = params
+    acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    losses = []
+    for k in range(k_steps):
+        mb = {key: v[k] for key, v in client_batch.items()}
+        g, (loss, _) = grad_fn(w, mb)
+        if weight_decay:
+            g = tree_map(lambda gg, ww: gg + weight_decay * ww, g, w)
+        w = tree_map(lambda ww, gg: (ww.float() - eta * gg.float()
+                                     ).to(ww.dtype), w, g)
+        acc = tree_map(lambda aa, gg: aa + gg.to(aa.dtype), acc, g)
+        losses.append(loss)
+    return acc, torch.stack(losses).mean()
+
+
+def client_updates(loss_fn: Callable, params, batches, eta: float, K: int,
+                   weight_decay: float = 0.0):
+    """vmap device_update over clients.
+
+    batches: dict with leaves (N, K, ...) on the params' device.
+    Returns (G (N, ...) f32, losses (N,)).
+    """
+    for v in batches.values():
+        if v.shape[1] != K:
+            raise ValueError(f"batch leaf has {v.shape[1]} local steps, "
+                             f"expected K={K}")
+    return vmap(lambda b: device_update(loss_fn, params, b, eta,
+                                        weight_decay))(batches)

@@ -1,0 +1,96 @@
+"""MIFA — Memory-augmented Impatient Federated Averaging (paper Algorithm 1).
+
+Server state: the update array {G^i}_{i=1..N}, a tree whose leaves carry a
+leading client axis (N, *param_shape). Each round:
+
+    G^i_t = G^i_{t-1}                  if i ∉ A(t)
+          = (w_t − w^i_{t,K}) / η_t    if i ∈ A(t)      (fresh K-step update)
+    w_{t+1} = w_t − η_t · (1/N) Σ_i G^i_t
+
+Dense memory layouts (counterpart of `repro/core/mifa.py`):
+  * "array" — paper-faithful float update array (fp32/bf16). The server
+    step is `kernels.ops.mifa_aggregate_tree`: the hand-written CUDA kernel
+    on the card, its plain version on the CPU.
+  * "delta" — the paper's §4 memory-efficient variant: the server keeps the
+    running mean Ḡ and per-client previous updates. Plain PyTorch; the
+    reference has no kernel for it.
+  * "int8" is not ported yet (ROADMAP Queue 1 item 10).
+
+For O(|A(t)|·d) cohort rounds use `repro_torch.bank.BankedMIFA`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.kernels.ops import mifa_aggregate_tree
+from repro_torch.tree import tree_map
+
+
+def _bcast(active: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """active (N,) -> broadcastable to leaf (N, ...)."""
+    return active.reshape((active.shape[0],) + (1,) * (leaf.ndim - 1))
+
+
+@dataclass(frozen=True)
+class MIFA:
+    """memory: 'array' | 'delta'; memory_dtype for the stored updates."""
+
+    memory: str = "array"
+    memory_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.memory == "int8":
+            raise NotImplementedError(
+                "MIFA(memory='int8') is not ported yet: it needs "
+                "core/quantized_memory.py (ROADMAP Queue 1 item 10)")
+        if self.memory not in ("array", "delta"):
+            raise ValueError(f"unknown memory {self.memory!r}")
+        if self.memory_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported memory_dtype {self.memory_dtype!r}")
+
+    def init_state(self, params, n_clients: int) -> dict:
+        dt = getattr(torch, self.memory_dtype)
+
+        def zeros_n(p, dtype):
+            return torch.zeros((n_clients,) + tuple(p.shape), dtype=dtype,
+                               device=p.device)
+
+        if self.memory == "array":
+            return {"G": tree_map(lambda p: zeros_n(p, dt), params), "t": 0}
+        return {"G_prev": tree_map(lambda p: zeros_n(p, dt), params),
+                "G_bar": tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params),
+                "t": 0}
+
+    def round_step(self, state: dict, params, updates, losses: torch.Tensor,
+                   active: torch.Tensor, eta: float):
+        """updates: tree (N, ...) f32 — fresh K-step updates for ALL clients
+        (the active mask selects which are used). `active` (N,) bool on the
+        params' device. The reference's `rng` feeds only int8 memory, which
+        is not ported. On the card the array layout updates G in place; the
+        state passed in must not be reused.
+        """
+        act = active.float()
+        n = act.shape[0]
+        if self.memory == "array":
+            G, new_params = mifa_aggregate_tree(state["G"], updates, active,
+                                                params, eta)
+            new_state = {"G": G, "t": state["t"] + 1}
+        else:
+            # Ḡ_t = Ḡ_{t-1} + (1/N) Σ_{i∈A} (G^i_t − G^i_{t'_i})
+            deltas = tree_map(lambda u, gp: (u - gp.float()) * _bcast(act, u),
+                              updates, state["G_prev"])
+            G_bar = tree_map(lambda gb, d: gb + d.sum(0) / n,
+                             state["G_bar"], deltas)
+            G_prev = tree_map(
+                lambda gp, u: torch.where(_bcast(active, u), u.to(gp.dtype),
+                                          gp),
+                state["G_prev"], updates)
+            new_params = tree_map(lambda w, g: (w - eta * g).to(w.dtype),
+                                  params, G_bar)
+            new_state = {"G_prev": G_prev, "G_bar": G_bar,
+                         "t": state["t"] + 1}
+        loss = (losses * act).sum() / act.sum().clamp(min=1.0)
+        return new_state, new_params, {"loss": loss, "n_active": act.sum()}

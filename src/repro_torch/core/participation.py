@@ -1,0 +1,108 @@
+"""Device-availability processes A(t) and the paper's τ statistics.
+
+numpy only, array-equal to `repro/core/participation.py`. Ported:
+`label_correlated_probs`, `BernoulliParticipation`, `TauStats` and
+`_check_first_round`. `AdversarialParticipation`, `TraceParticipation` and
+`tau_matrix` are not ported yet (ROADMAP Queue 1 item 2).
+
+All processes return the all-active mask at round 0 (paper Remark 5.2 /
+Definition 5.2(1): every device responds in the first round).
+τ statistics (Definition 5.1): τ(t,i) = t - max{t' <= t : i in A(t')}.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+def label_correlated_probs(client_labels: np.ndarray, p_min: float,
+                           n_label_values: int = 10) -> np.ndarray:
+    """Paper §7: label-correlated participation probabilities,
+
+        p_i = p_min + (1 − p_min) · min(j,k) / 9
+
+    so min(j,k)=0 ⇒ p_i = p_min (rare stragglers holding the small labels) and
+    min(j,k)=9 ⇒ p_i = 1 (the reading of the paper's formula consistent with
+    its text; see the reference docstring). client_labels: (N,2) int classes.
+    """
+    m = np.minimum(client_labels[:, 0], client_labels[:, 1]).astype(np.float64)
+    return p_min + (1.0 - p_min) * m / (n_label_values - 1)
+
+
+class BernoulliParticipation:
+    """i.i.d. Bernoulli participation (Definition 5.2)."""
+
+    def __init__(self, probs: np.ndarray, seed: int = 0):
+        self.probs = np.asarray(probs, np.float64)
+        self.n = len(self.probs)
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, t: int) -> np.ndarray:
+        """(N,) bool mask for round t (round 0 is forced all-active)."""
+        if t == 0:
+            return np.ones(self.n, bool)
+        return self.rng.random(self.n) < self.probs
+
+
+def _check_first_round(active: np.ndarray, strict: bool, what: str) -> None:
+    """τ is undefined for a device never active; the paper assumes every
+    device responds at round 0. Raise unless `strict=False`, which treats
+    devices as active at a virtual round −1 (the memory's zero init)."""
+    if strict and not np.all(active):
+        missing = np.flatnonzero(~np.asarray(active, bool))[:8].tolist()
+        raise ValueError(
+            f"{what}: round 0 must be all-active (Definition 5.2(1)); "
+            f"devices {missing}... are inactive. Pass strict=False to use "
+            "the init convention (τ counts from a virtual round −1).")
+
+
+@dataclass
+class TauStats:
+    """Streaming tracker of the paper's inactivity statistics."""
+
+    n: int
+    strict: bool = True
+
+    def __post_init__(self):
+        self.tau = np.zeros(self.n, np.int64)         # current τ(t, i)
+        self.tau_max_per_dev = np.zeros(self.n, np.int64)
+        self.sum_tau = 0.0                            # Σ_t Σ_i τ(t,i)
+        self.sum_tau_sq = 0.0                         # Σ_t Σ_i τ(t,i)^2
+        self.rounds = 0
+
+    def update(self, active: np.ndarray):
+        """Call once per round with the round's availability mask."""
+        if self.rounds == 0:
+            _check_first_round(np.asarray(active, bool), self.strict,
+                               "TauStats.update")
+        self.tau = np.where(active, 0, self.tau + 1)
+        self.tau_max_per_dev = np.maximum(self.tau_max_per_dev, self.tau)
+        self.sum_tau += float(self.tau.sum())
+        self.sum_tau_sq += float((self.tau.astype(np.float64) ** 2).sum())
+        self.rounds += 1
+
+    @property
+    def tau_bar(self) -> float:
+        """τ̄_T: mean τ(t,i) over all rounds × devices seen so far."""
+        return self.sum_tau / max(self.rounds * self.n, 1)
+
+    @property
+    def tau_max(self) -> int:
+        """τ_max,T: the largest τ(t,i) seen by any device."""
+        return int(self.tau_max_per_dev.max(initial=0))
+
+    @property
+    def d_bar(self) -> float:
+        """\\bar d_T (App. C): mean of τ(t,i)² over rounds × devices."""
+        return self.sum_tau_sq / max(self.rounds * self.n, 1)
+
+    @property
+    def d_max_bar(self) -> float:
+        """\\bar d_max,T (App. B): mean over devices of (max_t τ(t,i))²."""
+        return float((self.tau_max_per_dev.astype(np.float64) ** 2).mean())
+
+    @property
+    def tau_max_bar(self) -> float:
+        """\\bar τ_max,T (App. C): mean over devices of max_t τ(t,i)."""
+        return float(self.tau_max_per_dev.astype(np.float64).mean())

@@ -1,0 +1,108 @@
+"""Fused memory-bank row gather / delta / scatter: the CUDA kernel's wrapper
+and its plain version.
+
+    dsum = Σ_{valid a} (cast(u_a) − bank[ids[a]]);   bank[ids[a]] = cast(u_a)
+
+`bank_scatter` decides by the tensors' device: CUDA tensors launch the
+hand-written kernel `csrc/bank_scatter.cu` (which replaces the TPU kernel
+`repro/kernels/bank_scatter.py::bank_scatter`), CPU tensors take
+`bank_scatter_ref`. On the card the bank is updated in place and returned;
+callers must not reuse the bank they passed in. The batched, paged,
+paged-batched and paged-gather kernels are not ported yet (ROADMAP Queue 2
+items 3-6).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.backend import (current_stream_handle,
+                                         kernel_library, vector_ok)
+
+
+def bank_scatter_ref(bank: torch.Tensor, updates: torch.Tensor,
+                     ids: torch.Tensor, valid: torch.Tensor):
+    """Plain version (the reference's `bank/dense.py::_scatter_jnp` body):
+    bank (R, M); updates (C, M) f32; ids (C,) int64; valid (C,) bool.
+    Returns (new_bank (R, M) [bank.dtype], dsum (M,) f32)."""
+    old = bank[ids]                                   # (C, M) bank dtype
+    u_st = updates.to(bank.dtype)
+    vb = valid.reshape(-1, 1)
+    delta = torch.where(vb, u_st.float() - old.float(), 0.0)
+    new_bank = bank.clone()
+    new_bank[ids] = torch.where(vb, u_st, old)
+    return new_bank, delta.sum(0)
+
+
+def _check(bank, updates, ids, valid) -> None:
+    if bank.ndim != 2 or updates.ndim != 2:
+        raise ValueError(f"bank (R, M) and updates (C, M) expected, got "
+                         f"{tuple(bank.shape)}, {tuple(updates.shape)}")
+    r, m = bank.shape
+    c = updates.shape[0]
+    if r == 0 or m == 0 or c == 0:
+        raise ValueError(f"empty scatter: bank {(r, m)}, cohort {c}")
+    if updates.shape[1] != m or ids.shape != (c,) or valid.shape != (c,):
+        raise ValueError(
+            f"shape mismatch: bank {tuple(bank.shape)}, updates "
+            f"{tuple(updates.shape)}, ids {tuple(ids.shape)}, valid "
+            f"{tuple(valid.shape)}")
+    if bank.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bank must be float32 or bfloat16, got {bank.dtype}")
+    if updates.dtype != torch.float32:
+        raise TypeError(f"updates must be float32, got {updates.dtype}")
+    if ids.dtype != torch.int64:
+        raise TypeError(f"ids must be int64, got {ids.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool, got {valid.dtype}")
+    for name, t in (("bank", bank), ("updates", updates), ("ids", ids),
+                    ("valid", valid)):
+        if t.device != bank.device:
+            raise ValueError(f"{name} is on {t.device}, bank on "
+                             f"{bank.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _lib():
+    fn = kernel_library("bank_scatter").bank_scatter
+    if fn.argtypes is None:
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bank_scatter(bank: torch.Tensor, updates: torch.Tensor,
+                 ids: torch.Tensor, valid: torch.Tensor):
+    """bank (R, M) f32|bf16; updates (C, M) f32; ids (C,) int64 rows < R,
+    distinct among valid slots (pad slots may all alias a dummy row);
+    valid (C,) bool. The caller checks the ids on the host.
+
+    Returns (new_bank, dsum (M,) f32). CPU tensors take the plain version;
+    CUDA tensors launch the kernel, which writes the valid rows of `bank`
+    in place (new_bank is bank) and dsum into a fresh tensor.
+    """
+    _check(bank, updates, ids, valid)
+    if bank.device.type == "cpu":
+        return bank_scatter_ref(bank, updates, ids, valid)
+    if bank.device.type != "cuda":
+        raise ValueError(f"no bank_scatter for device {bank.device}")
+    c, m = updates.shape
+    dsum = torch.empty(m, dtype=torch.float32, device=bank.device)
+    fn = _lib()
+    with torch.cuda.device(bank.device):
+        rc = fn(bank.data_ptr(), updates.data_ptr(), ids.data_ptr(),
+                valid.data_ptr(), dsum.data_ptr(), c, m,
+                int(bank.dtype == torch.bfloat16),
+                int(vector_ok(m, bank, updates)),
+                current_stream_handle(bank.device))
+    if rc != 0:
+        raise RuntimeError(f"bank_scatter launch failed: CUDA error {rc}")
+    bank_scatter.launches += 1
+    return bank, dsum
+
+
+bank_scatter.launches = 0

@@ -1,0 +1,146 @@
+// Fused memory-bank row gather / delta / scatter for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/bank_scatter.py (_kernel and its
+// pallas_call in _bank_scatter). For a bank (R, M) in the bank dtype, the
+// cohort's updates U (C, M) f32, row ids (C,) and a valid mask (C,):
+//
+//     for every valid slot a:
+//         old = bank[ids[a]];  u_st = cast(U[a])  (to the bank dtype)
+//         dsum += u_st - old   (in f32)
+//         bank[ids[a]] = u_st  (in place)
+//
+// Invalid (pad) slots contribute nothing and leave their row as it was; all
+// of them may alias the dummy row N. The delta uses the value as stored, so
+// G_sum stays the exact sum of the rows for bf16 banks too. Valid ids must
+// be distinct (the caller checks on the host), which makes the row writes
+// independent.
+//
+// What bounds it: bytes. It moves 3 * |A_valid| * M elements (read the old
+// row, read the update, write the new row) plus M for dsum, with one
+// subtract and one add per element moved in — far below the card's f32
+// flops/byte balance — so the least time is that traffic over 3.35 TB/s.
+//
+// What the design does about it:
+//   * A block owns a tile of 128 columns and walks the cohort rows inside
+//     the block, standing in for the TPU kernel's sequential inner grid
+//     axis. Rows are split over TY row groups (row a goes to group a % TY,
+//     each group in increasing a), and the groups' f32 partial sums are
+//     added in a fixed order through shared memory: dsum is the same on
+//     every run. There are no atomics across cohort rows.
+//   * Pad slots are skipped before any load, so the traffic is that of the
+//     valid rows only, and the bank is never copied: untouched rows cost
+//     nothing whatever N is.
+//   * A warp reads 128 consecutive columns of a row with 16-byte (f32) or
+//     8-byte (bf16) vector loads. The kernel masks the ragged column edge
+//     itself; the caller pads nothing (the TPU wrapper pads wide leaves,
+//     which copies the bank).
+//   * It allocates nothing: the wrapper allocates dsum with torch.empty.
+#include "common.cuh"
+
+namespace {
+
+using repro::COLS_PER_BLOCK;
+using repro::TX;
+using repro::TY;
+using repro::VEC;
+
+template <typename TB, bool VECTOR>
+__global__ void __launch_bounds__(TX * TY)
+bank_scatter_kernel(TB* __restrict__ bank, const float* __restrict__ u,
+                    const int64_t* __restrict__ ids,
+                    const uint8_t* __restrict__ valid,
+                    float* __restrict__ dsum, int c, int64_t m) {
+  __shared__ float partial[TY][COLS_PER_BLOCK];
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int64_t col0 = (int64_t(blockIdx.x) * TX + tx) * VEC;
+
+  float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
+  if (VECTOR) {
+    // m % VEC == 0 here, so a thread's columns are all in range or all out
+    if (col0 < m) {
+      for (int a = ty; a < c; a += TY) {
+        if (!valid[a]) continue;
+        TB* row = bank + ids[a] * m + col0;
+        float old[VEC], v[VEC];
+        repro::load4(row, old);
+        repro::load4(u + int64_t(a) * m + col0, v);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          v[k] = repro::round_to<TB>(v[k]);
+          acc[k] += v[k] - old[k];
+        }
+        repro::store4(row, v);
+      }
+    }
+  } else {
+    for (int a = ty; a < c; a += TY) {
+      if (!valid[a]) continue;
+      const int64_t id = ids[a];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const int64_t col = col0 + k;
+        if (col < m) {
+          const int64_t off = id * m + col;
+          const float old = repro::to_f32(bank[off]);
+          const TB s = repro::from_f32<TB>(u[int64_t(a) * m + col]);
+          acc[k] += repro::to_f32(s) - old;
+          bank[off] = s;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) partial[ty][tx * VEC + k] = acc[k];
+  __syncthreads();
+  if (ty == 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int64_t col = col0 + k;
+      if (col < m) {
+        float s = 0.f;
+#pragma unroll
+        for (int y = 0; y < TY; ++y) s += partial[y][tx * VEC + k];
+        dsum[col] = s;
+      }
+    }
+  }
+}
+
+template <typename TB>
+void launch(void* bank, const void* u, const void* ids, const void* valid,
+            void* dsum, int c, int64_t m, bool vector, cudaStream_t stream) {
+  const dim3 block(TX, TY);
+  const dim3 grid(unsigned((m + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK));
+  auto* bb = static_cast<TB*>(bank);
+  auto* uu = static_cast<const float*>(u);
+  auto* ii = static_cast<const int64_t*>(ids);
+  auto* vv = static_cast<const uint8_t*>(valid);
+  auto* ds = static_cast<float*>(dsum);
+  if (vector) {
+    bank_scatter_kernel<TB, true><<<grid, block, 0, stream>>>(
+        bb, uu, ii, vv, ds, c, m);
+  } else {
+    bank_scatter_kernel<TB, false><<<grid, block, 0, stream>>>(
+        bb, uu, ii, vv, ds, c, m);
+  }
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. bank_bf16 selects the bank's
+// element type (0: f32, 1: bf16); vector selects the 4-wide variant, which
+// needs m % 4 == 0 and aligned pointers (the wrapper checks). Returns
+// cudaGetLastError() after the launch.
+extern "C" int bank_scatter(void* bank, const void* u, const void* ids,
+                            const void* valid, void* dsum, int c, int64_t m,
+                            int bank_bf16, int vector, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = vector != 0;
+  if (bank_bf16)
+    launch<__nv_bfloat16>(bank, u, ids, valid, dsum, c, m, vec, s);
+  else
+    launch<float>(bank, u, ids, valid, dsum, c, m, vec, s);
+  return int(cudaGetLastError());
+}

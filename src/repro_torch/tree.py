@@ -1,0 +1,39 @@
+"""Minimal pytree helpers for parameter trees: nested dicts and lists of
+tensors, the same structure the JAX package uses (`{"w","b"}`,
+`{"layers": [{"w","b"}, ...], "out": {"w","b"}}`). Anything that is not a
+dict or a list is a leaf."""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply `fn` leaf-wise over `tree` and trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves in `jax.tree.leaves` order (dict keys sorted), so leaf lists of
+    the two packages zip together."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unzip2(tree: Any) -> tuple[Any, Any]:
+    """A tree whose leaves are pairs -> a pair of trees."""
+    if isinstance(tree, dict):
+        pairs = {k: tree_unzip2(v) for k, v in tree.items()}
+        return ({k: p[0] for k, p in pairs.items()},
+                {k: p[1] for k, p in pairs.items()})
+    if isinstance(tree, list):
+        pairs = [tree_unzip2(v) for v in tree]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    return tree

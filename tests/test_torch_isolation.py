@@ -1,0 +1,112 @@
+"""The port stands alone and never runs quietly on the wrong device.
+
+* No module of `src/repro_torch` and not `chip_smoke.py` imports `jax` or
+  anything of the JAX package `repro` (the card's machine has no JAX).
+* Entry points default to device="cuda" and raise without a GPU unless the
+  caller passes device="cpu".
+* What the slice leaves for later raises NotImplementedError naming it.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bank import DenseBank
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import MIFA, BernoulliParticipation, run_fl
+from repro_torch.data import ClientBatcher
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import build_model
+from repro_torch.optim import constant
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_round.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_isolation_walk_sees_the_whole_port():
+    mods = {p.stem for p in PORT_FILES}
+    assert {"runner", "mifa", "dense", "mifa_aggregate", "bank_scatter",
+            "ops", "backend", "chip_smoke"} <= mods
+    assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
+
+
+def _tiny(cfg):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, cfg.d_model)).astype(np.float32)
+    y = rng.integers(0, 10, 40).astype(np.int32)
+    idx = np.array_split(np.arange(40), 4)
+    return ClientBatcher(X, y, idx, batch_size=4, k_steps=2)
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks what happens without a GPU")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    cfg = get_smoke_config("paper_logistic")
+    model = build_model(cfg)
+    kw = dict(model=model, algo=MIFA(), batcher=_tiny(cfg),
+              schedule=constant(0.1), n_rounds=1,
+              participation=BernoulliParticipation(np.full(4, 0.5)))
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        run_fl(**kw)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        DenseBank()
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_run_takes_the_plain_path():
+    cfg = get_smoke_config("paper_logistic")
+    params, hist = run_fl(model=build_model(cfg), algo=MIFA(),
+                          batcher=_tiny(cfg), schedule=constant(0.1),
+                          n_rounds=3,
+                          participation=BernoulliParticipation(np.full(4, .5)),
+                          device="cpu")
+    assert params["w"].device.type == "cpu" and len(hist.train_loss) == 3
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"scenario": object()}, "13"), ({"sim": object()}, "16"),
+    ({"checkpoint": object()}, "17"), ({"mesh": object()}, "19"),
+    ({"engine": "scan"}, "12")])
+def test_unported_run_options_raise(kw, item):
+    cfg = get_smoke_config("paper_logistic")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        run_fl(model=build_model(cfg), algo=MIFA(), batcher=_tiny(cfg),
+               schedule=constant(0.1), n_rounds=1,
+               participation=BernoulliParticipation(np.full(4, 0.5)),
+               device="cpu", **kw)
+
+
+def test_unported_modules_raise():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        MIFA(memory="int8")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        get_config("gemma3_4b")

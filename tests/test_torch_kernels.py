@@ -1,0 +1,232 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+side runs its Pallas kernels in interpret mode, as `tests/test_kernels.py`
+does. The same numpy inputs go to both. Selected and copied values (G, bank
+rows) must match exactly; sums (w, delta sums) within rtol 1e-5, atol 1e-6
+in fp32 (the two sum in another order) and 1e-2 for bf16 results.
+
+The `cuda` tests hold the hand-written CUDA kernels against the plain
+versions on the card. They skip without one. JAX is imported inside the
+parity tests only, so the `cuda` tests also run where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.bank_scatter import bank_scatter, bank_scatter_ref
+from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
+                                                mifa_aggregate_ref)
+from repro_torch.kernels.ops import bank_update_tree, mifa_aggregate_tree
+from repro_torch.tree import tree_leaves
+
+torch.set_num_threads(1)
+
+TOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-2, 1e-2)}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _f32(x):
+    """Any tensor or array -> float32 numpy (bf16 widens exactly)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _mifa_inputs(n, m, active, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n, m)).astype(np.float32)
+    u = rng.normal(size=(n, m)).astype(np.float32)
+    w = rng.normal(size=(m,)).astype(np.float32)
+    act = rng.random(n) < 0.5 if active == "random" else np.full(n, active)
+    return g, u, act, w
+
+
+def _bank_inputs(r, m, c, n_valid, seed):
+    """Bank of r rows (the last is the dummy row); a cohort of c slots, the
+    first n_valid distinct real rows, the rest pads at the dummy row."""
+    rng = np.random.default_rng(seed)
+    bank = rng.normal(size=(r, m)).astype(np.float32)
+    u = rng.normal(size=(c, m)).astype(np.float32)
+    ids = np.full(c, r - 1, np.int64)
+    ids[:n_valid] = rng.permutation(r - 1)[:n_valid]
+    valid = np.arange(c) < n_valid
+    return bank, u, ids, valid
+
+
+# --------------------------------------------------------------------------- #
+# plain versions against the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("n,m,gdt,wdt,active", [
+    (8, 256, "float32", "float32", "random"),
+    (16, 384, "bfloat16", "float32", "random"),
+    (7, 128, "bfloat16", "bfloat16", "random"),
+    (4, 128, "float32", "float32", False),
+])
+def test_mifa_aggregate_matches_pallas(n, m, gdt, wdt, active):
+    import jax.numpy as jnp
+    from repro.kernels.mifa_aggregate import mifa_aggregate as pallas
+    g, u, act, w = _mifa_inputs(n, m, active, seed=n * m)
+    eta = 0.07
+    g_j, w_j = pallas(jnp.asarray(g, gdt), jnp.asarray(u), jnp.asarray(act),
+                      jnp.asarray(w, wdt), eta, block_m=128, interpret=True)
+    g_t, w_t = mifa_aggregate(torch.from_numpy(g).to(TORCH_DT[gdt]),
+                              torch.from_numpy(u), torch.from_numpy(act),
+                              torch.from_numpy(w).to(TORCH_DT[wdt]), eta)
+    assert g_t.dtype == TORCH_DT[gdt] and w_t.dtype == TORCH_DT[wdt]
+    np.testing.assert_array_equal(_f32(g_t), _f32(g_j))
+    rtol, atol = TOL[wdt]
+    np.testing.assert_allclose(_f32(w_t), _f32(w_j), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("m,bdt,n_valid", [
+    (256, "float32", 5),
+    (384, "bfloat16", 6),
+    (128, "float32", 0),         # only pad slots
+])
+def test_bank_scatter_matches_pallas(m, bdt, n_valid):
+    import jax.numpy as jnp
+    from repro.kernels.bank_scatter import bank_scatter as pallas
+    bank, u, ids, valid = _bank_inputs(r=11, m=m, c=8, n_valid=n_valid,
+                                       seed=m)
+    b_j, d_j = pallas(jnp.asarray(bank, bdt), jnp.asarray(u),
+                      jnp.asarray(ids, jnp.int32), jnp.asarray(valid),
+                      block_m=128, interpret=True)
+    b_t, d_t = bank_scatter(torch.from_numpy(bank).to(TORCH_DT[bdt]),
+                            torch.from_numpy(u), torch.from_numpy(ids),
+                            torch.from_numpy(valid))
+    assert b_t.dtype == TORCH_DT[bdt] and d_t.dtype == torch.float32
+    np.testing.assert_array_equal(_f32(b_t), _f32(b_j))
+    np.testing.assert_allclose(_f32(d_t), _f32(d_j), rtol=1e-5, atol=1e-6)
+    if n_valid == 0:
+        np.testing.assert_array_equal(_f32(b_t), _f32(
+            torch.from_numpy(bank).to(TORCH_DT[bdt])))
+        assert not d_t.any()
+
+
+def _tree(seed, lead=()):
+    rng = np.random.default_rng(seed)
+    return {"a": rng.normal(size=lead + (17, 9)).astype(np.float32),
+            "b": {"c": rng.normal(size=lead + (33,)).astype(np.float32)},
+            "layers": [{"w": rng.normal(size=lead + (5, 3)).astype(
+                np.float32)}]}
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_torch(v) for v in tree]
+    return torch.from_numpy(tree)
+
+
+def test_mifa_aggregate_tree_matches_reference_tree():
+    """Ragged leaves: the reference pads them to the block, the port's
+    kernel masks the edge itself."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.ops import mifa_aggregate_tree as jax_tree
+    n = 6
+    params, g, u = _tree(0), _tree(1, (n,)), _tree(2, (n,))
+    active = np.array([1, 0, 1, 1, 0, 1], bool)
+    jt = lambda t: jax.tree.map(jnp.asarray, t)  # noqa: E731
+    g_j, p_j = jax_tree(jt(g), jt(u), jnp.asarray(active), jt(params), 0.1,
+                        block_m=64, interpret=True)
+    g_t, p_t = mifa_aggregate_tree(_to_torch(g), _to_torch(u),
+                                   torch.from_numpy(active),
+                                   _to_torch(params), 0.1)
+    for a, b in zip(tree_leaves(g_t), jax.tree.leaves(g_j)):
+        np.testing.assert_array_equal(_f32(a), _f32(b))
+    for a, b in zip(tree_leaves(p_t), jax.tree.leaves(p_j)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=1e-5, atol=1e-6)
+
+
+def test_bank_update_tree_matches_reference_tree():
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.ops import bank_update_tree as jax_tree
+    r, c = 9, 4
+    rows, upd = _tree(3, (r,)), _tree(4, (c,))
+    ids = np.array([2, 6, r - 1, r - 1], np.int64)
+    valid = np.array([True, True, False, False])
+    jt = lambda t: jax.tree.map(jnp.asarray, t)  # noqa: E731
+    rows_j, ds_j = jax_tree(jt(rows), jt(upd), jnp.asarray(ids, jnp.int32),
+                            jnp.asarray(valid), interpret=True)
+    rows_t, ds_t = bank_update_tree(_to_torch(rows), _to_torch(upd),
+                                    torch.from_numpy(ids),
+                                    torch.from_numpy(valid))
+    for a, b in zip(tree_leaves(rows_t), jax.tree.leaves(rows_j)):
+        np.testing.assert_array_equal(_f32(a), _f32(b))
+    for a, b in zip(tree_leaves(ds_t), jax.tree.leaves(ds_j)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=1e-5, atol=1e-6)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    g, u, act, w = (torch.from_numpy(x) for x in _mifa_inputs(4, 8, True, 0))
+    with pytest.raises(TypeError, match="updates must be float32"):
+        mifa_aggregate(g, u.double(), act, w, 0.1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        mifa_aggregate(g, u, act[:3], w, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mifa_aggregate(g.t().contiguous().t(), u, act, w, 0.1)
+    bank, upd, ids, valid = (torch.from_numpy(x)
+                             for x in _bank_inputs(5, 8, 3, 2, 0))
+    with pytest.raises(TypeError, match="ids must be int64"):
+        bank_scatter(bank, upd, ids.int(), valid)
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernels against their plain versions (needs a card)
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no "
+                    "CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,gdt,wdt", [(1000, "float32", "float32"),
+                                       (4096, "bfloat16", "float32"),
+                                       (10, "bfloat16", "bfloat16")])
+def test_mifa_aggregate_cuda_matches_plain(cuda_device, m, gdt, wdt):
+    g, u, act, w = (torch.from_numpy(x).to(cuda_device)
+                    for x in _mifa_inputs(100, m, "random", m))
+    g, w = g.to(TORCH_DT[gdt]), w.to(TORCH_DT[wdt])
+    g_ref, w_ref = mifa_aggregate_ref(g, u, act, w, 0.07)
+    before = mifa_aggregate.launches
+    g_k, w_k = mifa_aggregate(g.clone(), u, act, w, 0.07)
+    torch.cuda.synchronize()
+    assert mifa_aggregate.launches == before + 1
+    assert torch.equal(g_k, g_ref)
+    rtol, atol = TOL[wdt]
+    # the reordered f32 sum: tolerance relative to the summed magnitudes
+    scale = w.float().abs() + 0.07 * g_ref.float().abs().mean(0)
+    assert bool(((w_k.float() - w_ref.float()).abs()
+                 <= atol + rtol * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,bdt,n_valid", [(1000, "float32", 37),
+                                           (4096, "bfloat16", 37),
+                                           (128, "float32", 0)])
+def test_bank_scatter_cuda_matches_plain(cuda_device, m, bdt, n_valid):
+    bank, u, ids, valid = (torch.from_numpy(x).to(cuda_device)
+                           for x in _bank_inputs(101, m, 64, n_valid, m))
+    bank = bank.to(TORCH_DT[bdt])
+    b_ref, d_ref = bank_scatter_ref(bank, u, ids, valid)
+    before = bank_scatter.launches
+    b_k, d_k = bank_scatter(bank.clone(), u, ids, valid)
+    torch.cuda.synchronize()
+    assert bank_scatter.launches == before + 1
+    assert torch.equal(b_k, b_ref)
+    terms = (u.to(bank.dtype).float() - bank[ids].float()).abs()
+    scale = (terms * valid.reshape(-1, 1)).sum(0)
+    assert bool(((d_k - d_ref).abs() <= 1e-6 + 1e-5 * scale).all())
