@@ -10,9 +10,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
      with nvcc (one process per source, in parallel), timed;
   3. holds every kernel against its plain PyTorch version on the card, at
      the main path's leaf shapes and at edge cases (ragged width, nothing
-     active, only pad slots, bf16 storage), and times kernel and plain
-     version per round of the main path beside the least time the card
-     could take for the same bytes and operations;
+     active, only pad slots, bf16 storage, and for the paged kernels a
+     shuffled page table with pages that are not resident), and times
+     kernel and plain version per round of the main path beside the least
+     time the card could take for the same bytes and operations (and,
+     for the paged gather, one `torch.index_select`);
   4. runs the main path — the paper's experiment (`paper_mlp` at full
      width: N=100 clients, d=256, 2x128 hidden, K=5 local steps, batch 100,
      label-correlated Bernoulli availability with p_min=0.1, inv_t(1.0),
@@ -21,8 +23,22 @@ Run from the root of a checkout on a machine with a CUDA card. It
      same initial params and participation seed, and checks the losses,
      the anchor property (both algorithms give the same trajectory) and
      that each path launched its kernel once per leaf per round;
-  5. runs 5 rounds of both algorithms on the CPU (plain versions) and on
-     the card (kernels) and holds them together.
+  5. runs the same 100 rounds through
+     `BankedMIFA(PagedDeviceBank(page_size=8))`, after a second dense run
+     that shows whether the card repeats a run bit for bit, and holds the
+     paged run bit-equal to the dense one (600 `paged_bank_scatter`
+     launches, no other kernel);
+  6. drives eviction on the card: 40 cohorts of 64 (half hot) through a
+     paged bank of 48 slots over 128 logical pages, against `DenseBank`:
+     faults, evictions and re-faults, every row (through the gather kernel)
+     and G_sum bit-equal;
+  7. drives N = 10⁶ paper_mlp clients at full width for 20 rounds of
+     `RoundRunner.step_cohort` through `ProceduralBatcher` and
+     `PagedDeviceBank(page_size=8, n_slots=256)`: ms per round, the
+     416,940,352-byte page pool, peak device memory, host spill, and G_sum
+     against the sum of every written row;
+  8. runs 5 rounds of the three bank/array algorithms on the CPU (plain
+     versions) and on the card (kernels) and holds them together.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -69,6 +85,17 @@ DEVICE_RTOL, DEVICE_ATOL = 1e-4, 1e-4
 # rtol 1e-5, atol 1e-6; bf16 results may land one bf16 rounding apart,
 # rtol 1e-2.
 TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-2)}
+# rows per page on every paged run
+PAGE_SIZE = 8
+# eviction phase: N=1024 clients in 128 logical pages. A round's 64 ids (32
+# from the hot set of ids < 128, i.e. 16 pages, and 32 uniform over the
+# rest) span at most 16 + 32 = 48 pages, so 48 slots is the least that holds
+# every round; 128 pages over 48 slots force evictions and re-faults
+EVICT_N, EVICT_HOT, EVICT_C, EVICT_SLOTS, EVICT_ROUNDS = 1024, 128, 64, 48, 40
+# million-client phase; its page pool is (n_slots+1)·page_size·d·4 bytes
+# with d = sum(PATH_WIDTHS) = 50,698
+MILLION_N, MILLION_C, MILLION_SLOTS, MILLION_ROUNDS = 10**6, 64, 256, 20
+MILLION_POOL_BYTES = 416_940_352
 
 
 def check(cond: bool, msg: str) -> None:
@@ -213,27 +240,30 @@ def check_mifa(gen, active_path) -> tuple[float, list]:
     return max_err, rows
 
 
-def time_path(kernel, plain, sets, leaf_bytes, leaf_ops) -> dict:
-    """Time `kernel` and `plain` over the main path's leaves: per round
-    (the 6 leaves back to back) and per launch at each leaf's shape. `sets`
-    holds copies of the per-leaf arguments, cycled so that each launch
-    finds its inputs cold."""
+def time_path(kernel, plain, sets, leaf_bytes, leaf_ops,
+              library=None) -> dict:
+    """Time `kernel` and `plain` (and `library`, one PyTorch call for the
+    same function, where there is one) over the main path's leaves: per
+    round (the 6 leaves back to back) and per launch at each leaf's shape.
+    `sets` holds copies of the per-leaf arguments, cycled so that each
+    launch finds its inputs cold."""
     n = len(sets)
-    out = {"ms": time_round_ms([lambda a=a: kernel(*a)
-                                for s in sets for a in s]) / n,
-           "plain_ms": time_round_ms([lambda a=a: plain(*a)
-                                      for s in sets for a in s]) / n}
+    fns = {"": kernel, "plain_": plain}
+    if library is not None:
+        fns["library_"] = library
+    out = {f"{k}ms": time_round_ms([lambda a=a, f=f: f(*a)
+                                    for s in sets for a in s]) / n
+           for k, f in fns.items()}
+    out["library_ms"] = out.get("library_ms")
     out["bound_ms"], out["bound_by"] = bound(sum(leaf_bytes), sum(leaf_ops))
     out["bytes"] = sum(leaf_bytes)
     out["leaves"] = []
     for j, m in enumerate(PATH_WIDTHS):
-        out["leaves"].append({
-            "M": m,
-            "us": time_round_ms([lambda a=s[j]: kernel(*a)
-                                 for s in sets]) / n * 1e3,
-            "plain_us": time_round_ms([lambda a=s[j]: plain(*a)
-                                       for s in sets]) / n * 1e3,
-            "bound_us": bound(leaf_bytes[j], leaf_ops[j])[0] * 1e3})
+        leaf = {f"{k}us": time_round_ms([lambda a=s[j], f=f: f(*a)
+                                         for s in sets]) / n * 1e3
+                for k, f in fns.items()}
+        leaf["bound_us"] = bound(leaf_bytes[j], leaf_ops[j])[0] * 1e3
+        out["leaves"].append({"M": m, **leaf})
     return out
 
 
@@ -330,6 +360,156 @@ def time_bank(gen, active_path) -> dict:
                      leaf_ops)
 
 
+def path_table() -> tuple[torch.Tensor, int]:
+    """The paged paper path's page table: N=100 clients in 13 pages of 8,
+    all resident (n_slots=None), faulted in at round 0 in page order, so
+    page p sits in slot p; entry 13 is the dummy page. Returns (table,
+    n_slots)."""
+    lp = -(-N_CLIENTS // PAGE_SIZE)
+    return torch.arange(lp + 1, dtype=torch.int32, device="cuda"), lp
+
+
+def path_lids(active_path) -> tuple[torch.Tensor, torch.Tensor]:
+    """The runner's padded cohort as the paged bank hands it to the
+    kernels: pad slots remapped to the dummy logical row."""
+    ids, valid = cohort(active_path)
+    dummy_lrow = -(-N_CLIENTS // PAGE_SIZE) * PAGE_SIZE
+    return torch.where(ids >= N_CLIENTS, dummy_lrow, ids).int(), valid
+
+
+def shuffled_layout(rng, n_valid: int, n_slots: int = 16, lp: int = 32,
+                    c: int = 64):
+    """A non-identity page table: 16 of 32 logical pages resident in
+    shuffled slots, the others at the sentinel (the dummy slot). A cohort of
+    c slots: n_valid distinct rows of resident pages, five pads at rows of
+    non-resident pages (a gather reads zeros there), the rest at the dummy
+    logical row. Returns (table, n_slots, lids, valid) on the card."""
+    pt = np.full(lp + 1, n_slots, np.int32)
+    res = rng.choice(lp, n_slots, replace=False)
+    pt[res] = rng.permutation(n_slots)
+    res_rows = (res[:, None] * PAGE_SIZE + np.arange(PAGE_SIZE)).ravel()
+    away = np.setdiff1d(np.arange(lp), res)
+    lids = np.full(c, lp * PAGE_SIZE, np.int32)
+    lids[:n_valid] = rng.choice(res_rows, n_valid, replace=False)
+    lids[n_valid:n_valid + 5] = away[:5] * PAGE_SIZE + 3
+    return (torch.from_numpy(pt).cuda(), n_slots,
+            torch.from_numpy(lids).cuda(),
+            torch.from_numpy(np.arange(c) < n_valid).cuda())
+
+
+def pages_inputs(gen, n_slots, m, c, dtype):
+    """Random pages with the dummy page at zero, and f32 updates."""
+    pages = torch.randn(((n_slots + 1) * PAGE_SIZE, m), generator=gen,
+                        device="cuda").to(dtype)
+    pages[n_slots * PAGE_SIZE:] = 0
+    return pages, torch.randn((c, m), generator=gen, device="cuda")
+
+
+def check_paged(gen, active_path) -> tuple[float, float, list]:
+    """Both paged kernels against their plain versions on the card: pages
+    and gathered rows bit-equal, dsum within TOL."""
+    from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                                paged_bank_gather_ref,
+                                                paged_bank_scatter,
+                                                paged_bank_scatter_ref)
+    rng = np.random.default_rng(5)
+    pt, n_slots = path_table()
+    path = (pt, n_slots, *path_lids(active_path))
+    cases = [(m, torch.float32, path, "path")
+             for m in sorted(set(PATH_WIDTHS))]
+    cases += [(1000, torch.float32, shuffled_layout(rng, 37),
+               "shuffled ragged"),
+              (1000, torch.float32, shuffled_layout(rng, 0),
+               "shuffled pad"),
+              (32768, torch.float32, shuffled_layout(rng, 37),
+               "C=64, 37 valid"),
+              (32768, torch.bfloat16, path, "bf16 pages"),
+              (1000, torch.bfloat16, shuffled_layout(rng, 37),
+               "bf16 shuffled")]
+    ps = PAGE_SIZE
+    s_err, g_err, rows = 0.0, 0.0, []
+    for m, dt, (pt, n_slots, lids, val), label in cases:
+        pages, u = pages_inputs(gen, n_slots, m, len(lids), dt)
+        p_ref, d_ref = paged_bank_scatter_ref(pages, u, pt, lids, val,
+                                              page_size=ps)
+        p_k, d_k = paged_bank_scatter(pages.clone(), u, pt, lids, val,
+                                      page_size=ps)
+        r_ref = paged_bank_gather_ref(pages, pt, lids, page_size=ps)
+        r_k = paged_bank_gather(pages, pt, lids, page_size=ps)
+        torch.cuda.synchronize()
+        where = f"({label}, M={m}, {dt})"
+        check(torch.equal(p_k, p_ref), f"paged_bank_scatter pages differ "
+                                       f"{where}")
+        check(not p_k[n_slots * ps:].any(), f"paged_bank_scatter wrote the "
+                                            f"dummy page {where}")
+        check(torch.equal(r_k, r_ref), f"paged_bank_gather rows differ "
+                                       f"{where}")
+        rtol, atol = TOL[torch.float32]           # dsum is f32 for any pages
+        err = (d_k - d_ref).abs()
+        terms = (u.to(dt).float() - r_ref).abs() * val.reshape(-1, 1)
+        check(bool((err <= atol + rtol * terms.sum(0)).all()),
+              f"paged_bank_scatter dsum off by {err.max().item():.3e} "
+              f"{where}")
+        s_err = max(s_err, err.max().item())
+        g_err = max(g_err, (r_k - r_ref).abs().max().item())
+        rows.append(f"paged_bank     {label:<15} slots={n_slots} "
+                    f"C={len(lids)} valid={int(val.sum())} M={m:<6} pages "
+                    f"{dt}: pages and gathered rows bit-equal, max |d dsum| "
+                    f"{err.max().item():.3e}")
+    return s_err, g_err, rows
+
+
+def paged_sets(gen, active_path):
+    """Per-leaf inputs of the paged paper path (pages of the N=100 bank,
+    the path's page table and padded cohort), copied to cycle past L2."""
+    pt, n_slots = path_table()
+    lids, valid = path_lids(active_path)
+    c = len(lids)
+    set_bytes = sum(((n_slots + 1) * PAGE_SIZE + c) * m * 4
+                    for m in PATH_WIDTHS)
+    sets = [[(*pages_inputs(gen, n_slots, m, c, torch.float32), pt, lids,
+              valid) for m in PATH_WIDTHS]
+            for _ in range(n_copies(set_bytes))]
+    return sets, c, int(valid.sum())
+
+
+def time_paged_scatter(gen, active_path) -> dict:
+    """The paged bank's cohort update on the paper path: one launch per
+    leaf, the runner's padded cohort for this run's active mask."""
+    from repro_torch.kernels.paged_bank import (paged_bank_scatter,
+                                                paged_bank_scatter_ref)
+    sets, c, n_valid = paged_sets(gen, active_path)
+    # rows (read old, read update, write new), dsum, lids, valid and the
+    # page-table entry of each slot
+    leaf_bytes = [3 * n_valid * m * 4 + m * 4 + c * 9 for m in PATH_WIDTHS]
+    leaf_ops = [2 * n_valid * m for m in PATH_WIDTHS]
+    return time_path(
+        lambda *a: paged_bank_scatter(*a, page_size=PAGE_SIZE),
+        lambda *a: paged_bank_scatter_ref(*a, page_size=PAGE_SIZE),
+        sets, leaf_bytes, leaf_ops)
+
+
+def time_paged_gather(gen, active_path) -> dict:
+    """The paged bank's row gather at the paper path's shapes (the padded
+    cohort's rows of each leaf), beside one `torch.index_select` on the
+    precomputed physical rows (the library call for the same function)."""
+    from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                                paged_bank_gather_ref,
+                                                phys_rows)
+    sets, c, _ = paged_sets(gen, active_path)
+    sets = [[(pages, pt, lids) for pages, _, pt, lids, _ in s] for s in sets]
+    pt, lids = sets[0][0][1:]
+    phys = phys_rows(pt, lids, PAGE_SIZE)
+    # each output row read once (f32 pages) and written once as f32, the
+    # lids and the page-table entry of each slot
+    leaf_bytes = [c * m * 8 + c * 8 for m in PATH_WIDTHS]
+    return time_path(
+        lambda *a: paged_bank_gather(*a, page_size=PAGE_SIZE),
+        lambda *a: paged_bank_gather_ref(*a, page_size=PAGE_SIZE),
+        sets, leaf_bytes, [0] * len(PATH_WIDTHS),
+        library=lambda pages, *_: torch.index_select(pages, 0, phys))
+
+
 # --------------------------------------------------------------------------- #
 # the main path
 # --------------------------------------------------------------------------- #
@@ -355,69 +535,289 @@ def run_path(name, algo, problem, params0, n_rounds, device, eval_every):
     return params, hist, np.diff(part.stamps)
 
 
-def main_path(params0, problem) -> tuple[dict, list]:
-    from repro_torch.bank import BankedMIFA, DenseBank
-    from repro_torch.core import MIFA
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
     from repro_torch.kernels.bank_scatter import bank_scatter
     from repro_torch.kernels.mifa_aggregate import mifa_aggregate
-    from repro_torch.tree import tree_leaves
+    from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                                paged_bank_scatter)
+    return {"mifa_aggregate": mifa_aggregate, "bank_scatter": bank_scatter,
+            "paged_bank_scatter": paged_bank_scatter,
+            "paged_bank_gather": paged_bank_gather}
 
-    n_leaves = len(tree_leaves(params0))
-    check([p.numel() for p in tree_leaves(params0)] == PATH_WIDTHS,
-          "paper_mlp leaf widths changed")
-    counters = {"mifa_aggregate": mifa_aggregate, "bank_scatter": bank_scatter}
-    paths = {"mifa_array": (MIFA(memory="array"), "mifa_aggregate"),
-             "banked_dense": (BankedMIFA(DenseBank(device="cuda")),
-                              "bank_scatter")}
-    launches, hists, rows = {}, {}, []
-    for name, (algo, kernel) in paths.items():
-        for fn in counters.values():
-            fn.launches = 0
-        params, hist, dts = run_path(name, algo, problem, params0, ROUNDS,
-                                     "cuda", ROUNDS)
-        counts = {k: fn.launches for k, fn in counters.items()}
-        launches[kernel] = counts[kernel]
-        check(counts[kernel] == ROUNDS * n_leaves,
-              f"{name}: {kernel} launched {counts[kernel]} times, expected "
-              f"{ROUNDS} rounds x {n_leaves} leaves")
-        others = {k: v for k, v in counts.items() if k != kernel}
-        check(not any(others.values()), f"{name}: other kernels ran {others}")
-        losses = np.asarray(hist.train_loss)
-        check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
-        check(all(math.isfinite(p.float().abs().max().item())
-                  for p in tree_leaves(params)), f"{name}: non-finite params")
-        (t_first, el0), (t_last, el1) = hist.eval_loss[0], hist.eval_loss[-1]
-        check(el1 < el0, f"{name}: eval loss {el1:.4f} at round {t_last} is "
-                         f"not below {el0:.4f} at round {t_first}")
-        hists[name] = hist
-        steady = dts[10:]           # rounds 10..98: past warm-up and eval
-        rows.append(
-            f"main path {name}: {ROUNDS} rounds, median "
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def check_run(name, params, hist, dts, counts, kernel) -> str:
+    """A 100-round run of the paper path: its kernel launched once per leaf
+    per round and no other kernel, finite losses and params, eval loss
+    falling. Returns the run's summary line."""
+    from repro_torch.tree import tree_leaves
+    n_leaves = len(PATH_WIDTHS)
+    check(counts[kernel] == ROUNDS * n_leaves,
+          f"{name}: {kernel} launched {counts[kernel]} times, expected "
+          f"{ROUNDS} rounds x {n_leaves} leaves")
+    others = {k: v for k, v in counts.items() if k != kernel}
+    check(not any(others.values()), f"{name}: other kernels ran {others}")
+    losses = np.asarray(hist.train_loss)
+    check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
+    check(all(math.isfinite(p.float().abs().max().item())
+              for p in tree_leaves(params)), f"{name}: non-finite params")
+    (t_first, el0), (t_last, el1) = hist.eval_loss[0], hist.eval_loss[-1]
+    check(el1 < el0, f"{name}: eval loss {el1:.4f} at round {t_last} is "
+                     f"not below {el0:.4f} at round {t_first}")
+    steady = dts[10:]           # rounds 10..98: past warm-up and eval
+    return (f"main path {name}: {ROUNDS} rounds, median "
             f"{np.median(steady) * 1e3:.3f} ms/round (rounds 10-{ROUNDS - 2}, "
             f"host clock), mean |A(t)| {np.mean(hist.n_active):.2f}, "
             f"eval loss {el0:.4f} -> {el1:.4f}, acc "
             f"{hist.eval_acc[-1][1]:.4f}, tau_bar {hist.tau_bar:.4f}, "
             f"{kernel} launches {counts[kernel]}")
-    a = np.asarray(hists["mifa_array"].train_loss)
-    b = np.asarray(hists["banked_dense"].train_loss)
+
+
+def main_path(params0, problem) -> tuple[dict, list, tuple]:
+    from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.core import MIFA
+    from repro_torch.tree import tree_leaves
+
+    check([p.numel() for p in tree_leaves(params0)] == PATH_WIDTHS,
+          "paper_mlp leaf widths changed")
+    paths = {"mifa_array": (MIFA(memory="array"), "mifa_aggregate"),
+             "banked_dense": (BankedMIFA(DenseBank(device="cuda")),
+                              "bank_scatter")}
+    launches, runs, rows = {}, {}, []
+    for name, (algo, kernel) in paths.items():
+        reset_counts()
+        params, hist, dts = run_path(name, algo, problem, params0, ROUNDS,
+                                     "cuda", ROUNDS)
+        counts = read_counts()
+        launches[kernel] = counts[kernel]
+        rows.append(check_run(name, params, hist, dts, counts, kernel))
+        runs[name] = (params, hist)
+    a = np.asarray(runs["mifa_array"][1].train_loss)
+    b = np.asarray(runs["banked_dense"][1].train_loss)
     rel = np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-12))
     rows.append(f"anchor: max rel train-loss gap MIFA(array) vs "
                 f"BankedMIFA(dense) over {ROUNDS} rounds {rel:.3e} "
                 f"(rtol {ANCHOR_RTOL}, atol {ANCHOR_ATOL})")
     check(np.allclose(a, b, rtol=ANCHOR_RTOL, atol=ANCHOR_ATOL),
           "anchor property: MIFA(array) and BankedMIFA(dense) diverge")
-    check(hists["mifa_array"].n_active == hists["banked_dense"].n_active,
+    check(runs["mifa_array"][1].n_active == runs["banked_dense"][1].n_active,
           "the two paths saw different masks")
-    return launches, rows
+    return launches, rows, runs["banked_dense"]
+
+
+def run_gaps(run_a, run_b) -> tuple[float, float]:
+    """Largest |difference| of two runs' train losses and final params."""
+    from repro_torch.tree import tree_leaves
+    (pa, ha), (pb, hb) = run_a, run_b
+    dloss = float(np.max(np.abs(np.subtract(ha.train_loss, hb.train_loss))))
+    dparam = max((x - y).abs().max().item()
+                 for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+    return dloss, dparam
+
+
+def paged_path(params0, problem, dense) -> tuple[int, list]:
+    """The paper path through BankedMIFA(PagedDeviceBank(page_size=8)):
+    first two BankedMIFA(DenseBank) runs are held bit-equal to each other
+    (is local training on the card run-to-run deterministic?), then the
+    paged run is held bit-equal to the dense one, or, if the two dense runs
+    differ, within twice their gap."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    dense2 = run_path("banked_dense", BankedMIFA(DenseBank(device="cuda")),
+                      problem, params0, ROUNDS, "cuda", ROUNDS)[:2]
+    d_loss, d_param = run_gaps(dense, dense2)
+    rows = [f"dense run-to-run: two BankedMIFA(DenseBank) runs of {ROUNDS} "
+            f"rounds, max |dloss| {d_loss:.3e}, max |dparam| {d_param:.3e}"
+            f" ({'bit-equal' if d_loss == d_param == 0 else 'NOT bit-equal'})"]
+    bank = PagedDeviceBank(page_size=PAGE_SIZE, device="cuda")
+    reset_counts()
+    params, hist, dts = run_path("banked_paged", BankedMIFA(bank), problem,
+                                 params0, ROUNDS, "cuda", ROUNDS)
+    counts = read_counts()
+    rows.append(check_run("banked_paged", params, hist, dts, counts,
+                          "paged_bank_scatter")
+                + f", page faults {bank.faults}, evictions {bank.evictions}")
+    p_loss, p_param = run_gaps(dense, (params, hist))
+    rows.append(f"paged vs dense: max |dloss| {p_loss:.3e}, max |dparam| "
+                f"{p_param:.3e} over {ROUNDS} rounds")
+    check(hist.n_active == dense[1].n_active,
+          "the paged and dense runs saw different masks")
+    check(p_loss <= 2 * d_loss and p_param <= 2 * d_param,
+          f"BankedMIFA(PagedDeviceBank) is not "
+          f"{'bit-equal to' if d_loss == d_param == 0 else 'as close as'} "
+          f"BankedMIFA(DenseBank)")
+    return counts["paged_bank_scatter"], rows
+
+
+def eviction_phase(params0) -> tuple[dict, list]:
+    """Eviction on the card against DenseBank: EVICT_ROUNDS cohorts of 64
+    unique ids (half from a hot set of ids < 128, half uniform over the
+    rest) through a bank of EVICT_SLOTS slots of 8 rows over 128 logical
+    pages, with random f32 updates drawn on the card. Every row (read
+    through `gather`: the gather kernel and the spill patch) and G_sum must
+    be bit-equal to the dense bank's."""
+    from repro_torch.bank import DenseBank, PagedDeviceBank
+    from repro_torch.tree import tree_leaves, tree_map
+    n, c = EVICT_N, EVICT_C
+    paged = PagedDeviceBank(page_size=PAGE_SIZE, n_slots=EVICT_SLOTS,
+                            device="cuda")
+    dense = DenseBank(device="cuda")
+    p_state, d_state = paged.init(params0, n), dense.init(params0, n)
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    reset_counts()
+    for _ in range(EVICT_ROUNDS):
+        hot = rng.choice(EVICT_HOT, c // 2, replace=False)
+        rest = rng.choice(np.setdiff1d(np.arange(n), hot), c - c // 2,
+                          replace=False)
+        ids = np.concatenate([hot, rest])
+        upd = tree_map(lambda p: torch.randn((c,) + tuple(p.shape),
+                                             generator=gen, device="cuda"),
+                       params0)
+        p_state = paged.scatter(p_state, ids, upd)
+        d_state = dense.scatter(d_state, ids, upd)
+    everyone = np.arange(n)
+    p_rows, d_rows = paged.gather(p_state, everyone), dense.gather(
+        d_state, everyone)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(paged.faults > 0 and paged.evictions > 0 and paged.refaults > 0,
+          f"eviction phase did not evict and re-fault: faults "
+          f"{paged.faults}, evictions {paged.evictions}, re-faults "
+          f"{paged.refaults}")
+    paged.check_invariants(p_state)
+    check(counts["paged_bank_scatter"] == EVICT_ROUNDS * len(PATH_WIDTHS)
+          and counts["paged_bank_gather"] == len(PATH_WIDTHS),
+          f"eviction phase launches {counts}")
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p_rows),
+                                                tree_leaves(d_rows))),
+          "eviction phase: paged rows differ from DenseBank's")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(p_state["g_sum"]), tree_leaves(d_state["g_sum"]))),
+          "eviction phase: paged G_sum differs from DenseBank's")
+    mem = paged.memory_bytes(p_state)
+    return counts, [
+        f"eviction: N={n}, page_size={PAGE_SIZE}, {paged.lp} logical pages, "
+        f"n_slots={EVICT_SLOTS}, {EVICT_ROUNDS} rounds of C={c} (half hot "
+        f"ids < {EVICT_HOT}): faults {paged.faults}, evictions "
+        f"{paged.evictions}, re-faults {paged.refaults}, spilled pages "
+        f"{paged.evictions - paged.refaults} ({mem['host']} B on the host); "
+        f"all {n} rows "
+        f"and G_sum bit-equal to DenseBank, invariants hold; launches "
+        f"{counts}"]
+
+
+def million_runner(model, params0):
+    """The million-client run: N = 10⁶ paper_mlp clients at full width,
+    `ProceduralBatcher` data and BankedMIFA(PagedDeviceBank(page_size=8,
+    n_slots=256)). Returns (runner, bank, draw), where draw() gives the next
+    cohort: <= 64 unique ids drawn in O(C), as benchmarks/bank_scale.py
+    draws them."""
+    from repro_torch.bank import BankedMIFA, PagedDeviceBank
+    from repro_torch.core import RoundRunner
+    from repro_torch.data import ProceduralBatcher
+    from repro_torch.optim import inv_t
+    bank = PagedDeviceBank(page_size=PAGE_SIZE, n_slots=MILLION_SLOTS,
+                           device="cuda")
+    batcher = ProceduralBatcher(n_clients=MILLION_N, dim=256, n_classes=10,
+                                batch_size=100, k_steps=5)
+    # the procedural features are not scaled by 1/sqrt(dim) as
+    # make_classification's are, and inv_t(1.0) overshoots on them in round
+    # 0 (train loss ~2e4 before it recovers); inv_t(0.1) keeps the losses
+    # near log(10)
+    runner = RoundRunner(model=model, algo=BankedMIFA(bank), batcher=batcher,
+                         schedule=inv_t(0.1), weight_decay=1e-3,
+                         params=clone_tree(params0, "cuda"), device="cuda")
+    rng = np.random.default_rng(0)
+    return runner, bank, lambda: np.unique(
+        rng.integers(0, MILLION_N, size=2 * MILLION_C))[:MILLION_C]
+
+
+def million_phase(params0, model) -> tuple[dict, list]:
+    """N = 10⁶ paper_mlp clients at full width through
+    BankedMIFA(PagedDeviceBank(page_size=8, n_slots=256)):
+    `RoundRunner.step_cohort` with 64 unique ids a round, drawn in O(C)."""
+    from repro_torch.tree import tree_leaves
+    n, c = MILLION_N, MILLION_C
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner, bank, draw = million_runner(model, params0)
+    written, dts = set(), []
+    reset_counts()
+    for t in range(MILLION_ROUNDS):
+        ids = draw()
+        t0 = time.perf_counter()
+        runner.step_cohort(t, ids)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        written.update(ids.tolist())
+    in_rounds = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = runner.state["bank"]
+    mem = bank.memory_bytes(state)
+    check(mem["device_pages"] == MILLION_POOL_BYTES,
+          f"device_pages {mem['device_pages']} != {MILLION_POOL_BYTES}")
+    check(in_rounds["paged_bank_scatter"] == MILLION_ROUNDS * len(PATH_WIDTHS)
+          and not in_rounds["bank_scatter"]
+          and not in_rounds["mifa_aggregate"],
+          f"million-client rounds launched {in_rounds}")
+    losses = runner.hist.train_loss
+    check(bool(np.isfinite(losses).all()), "million-client: non-finite loss")
+    # G_sum against the sum of every written client's final row, read
+    # through the gather kernel and the spill patch; the f32 running sum
+    # takes ~40 roundings per column, far inside TOL's rtol of the summed
+    # magnitudes
+    ids = np.fromiter(sorted(written), np.int64)
+    rows = bank.gather(state, ids)
+    rtol, atol = TOL[torch.float32]
+    g_err = 0.0
+    for g, r in zip(tree_leaves(state["g_sum"]), tree_leaves(rows)):
+        err = (g.double() - r.double().sum(0)).abs()
+        check(bool((err <= atol + rtol * r.double().abs().sum(0)).all()),
+              f"million-client: G_sum off the sum of rows by "
+              f"{err.max().item():.3e}")
+        g_err = max(g_err, err.max().item())
+    bank.check_invariants(state)
+    counts = read_counts()
+    d = sum(PATH_WIDTHS)
+    return counts, [
+        f"million clients: N={n}, paper_mlp d={d}, page_size={PAGE_SIZE}, "
+        f"n_slots={MILLION_SLOTS}, {MILLION_ROUNDS} rounds of C={c} through "
+        f"RoundRunner.step_cohort: median {np.median(dts) * 1e3:.3f} "
+        f"ms/round (host clock, all rounds; first "
+        f"{dts[0] * 1e3:.3f}, max {max(dts) * 1e3:.3f}), train loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}",
+        f"million clients: memory_bytes {mem} (device_pages "
+        f"{mem['device_pages']} B), peak device allocation "
+        f"{peak} B (torch.cuda.max_memory_allocated), host spill "
+        f"{mem['host']} B; faults {bank.faults}, evictions "
+        f"{bank.evictions}, re-faults {bank.refaults}; a DenseBank for this "
+        f"run would hold (N+1)*d*4 = {(n + 1) * d * 4} B = "
+        f"{(n + 1) * d * 4 / 1e9:.1f} GB",
+        f"million clients: G_sum vs the sum of {len(ids)} written rows "
+        f"(gathered): max |err| {g_err:.3e} (rtol {rtol} of the summed "
+        f"magnitudes, atol {atol}); invariants hold; launches in the rounds "
+        f"{in_rounds}, with the check {counts}"]
 
 
 def card_vs_cpu(params0, problem_cuda, problem_cpu) -> None:
-    from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
     from repro_torch.core import MIFA
     from repro_torch.tree import tree_leaves
     for name, make in (("mifa_array", lambda d: MIFA(memory="array")),
                        ("banked_dense",
-                        lambda d: BankedMIFA(DenseBank(device=d)))):
+                        lambda d: BankedMIFA(DenseBank(device=d))),
+                       ("banked_paged",
+                        lambda d: BankedMIFA(PagedDeviceBank(
+                            page_size=PAGE_SIZE, device=d)))):
         out = {}
         for dev, prob in (("cpu", problem_cpu), ("cuda", problem_cuda)):
             out[dev] = run_path(name, make(dev), prob, params0, CPU_ROUNDS,
@@ -475,41 +875,77 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     mifa_err, rows = check_mifa(gen, active_path)
     bank_err, more = check_bank(gen, active_path)
-    for row in rows + more:
+    pscat_err, pgath_err, paged_rows = check_paged(gen, active_path)
+    for row in rows + more + paged_rows:
         print(row)
     timing = {"mifa_aggregate": time_mifa(gen, active_path),
-              "bank_scatter": time_bank(gen, active_path)}
+              "bank_scatter": time_bank(gen, active_path),
+              "paged_bank_scatter": time_paged_scatter(gen, active_path),
+              "paged_bank_gather": time_paged_gather(gen, active_path)}
     for name, t in timing.items():
+        lib = ("" if t["library_ms"] is None
+               else f", library {t['library_ms'] * 1e3:.2f} us")
         print(f"{name} per round (6 leaves of paper_mlp, |A|="
               f"{int(active_path.sum())}): kernel {t['ms'] * 1e3:.2f} us, "
-              f"plain {t['plain_ms'] * 1e3:.2f} us, bound "
+              f"plain {t['plain_ms'] * 1e3:.2f} us{lib}, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
               f"{t['bytes']} bytes)")
         for leaf in t["leaves"]:
+            lib = ("" if "library_us" not in leaf
+                   else f", library {leaf['library_us']:.2f} us")
             print(f"  {name} M={leaf['M']:<6} per launch: kernel "
-                  f"{leaf['us']:.2f} us, plain {leaf['plain_us']:.2f} us, "
-                  f"bound {leaf['bound_us']:.2f} us")
+                  f"{leaf['us']:.2f} us, plain {leaf['plain_us']:.2f} us"
+                  f"{lib}, bound {leaf['bound_us']:.2f} us")
 
-    launches, rows = main_path(params0, problem)
+    launches, rows, dense = main_path(params0, problem)
     for row in rows:
         print(row)
+    launches["paged_bank_scatter"], rows = paged_path(params0, problem,
+                                                      dense)
+    for row in rows:
+        print(row)
+    evict_counts, rows = eviction_phase(params0)
+    for row in rows:
+        print(row)
+    million_counts, rows = million_phase(params0, problem[0])
+    for row in rows:
+        print(row)
+    launches["paged_bank_gather"] = (evict_counts["paged_bank_gather"]
+                                     + million_counts["paged_bank_gather"])
     card_vs_cpu(params0, problem, paper_problem(device="cpu"))
 
+    # which run each count comes from: no path's rounds read bank rows, so
+    # the gather kernel's launches are those of PagedDeviceBank.gather in
+    # the two phases that check every written row
+    launches_from = {
+        "mifa_aggregate": f"main path MIFA(array), {ROUNDS} rounds",
+        "bank_scatter": f"main path BankedMIFA(DenseBank), {ROUNDS} rounds",
+        "paged_bank_scatter":
+            f"paged path BankedMIFA(PagedDeviceBank), {ROUNDS} rounds",
+        "paged_bank_gather": "checks only: PagedDeviceBank.gather of all "
+                             "rows in the eviction and million-client "
+                             "phases"}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
              "src/repro/kernels/mifa_aggregate.py:24", mifa_err),
             ("bank_scatter", "bank_scatter.cu",
-             "src/repro/kernels/bank_scatter.py:44", bank_err)):
+             "src/repro/kernels/bank_scatter.py:44", bank_err),
+            ("paged_bank_scatter", "paged_bank.cu",
+             "src/repro/kernels/bank_scatter.py:211", pscat_err),
+            ("paged_bank_gather", "paged_bank.cu",
+             "src/repro/kernels/bank_scatter.py:291", pgath_err)):
         t = timing[name]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu, "launches": launches[name],
+            "launches_from": launches_from[name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            # no single PyTorch call computes either function (PERF.md)
-            "library_ms": None,
+            # None where no single PyTorch call computes the function
+            # (PERF.md); the gather's is one index_select per leaf
+            "library_ms": t["library_ms"],
             # ms, plain_ms and bound_ms are per round (one launch per
             # leaf); this is per launch at each leaf's width
             "per_launch_us": t["leaves"]})

@@ -4,9 +4,10 @@
     python3 scripts/profile_round.py [--rounds 20]
 
 Builds the paper's problem at full width as `chip_smoke.py` does (paper_mlp,
-N=100, K=5, batch 100, p_min=0.1) and, for MIFA(array) and
-BankedMIFA(DenseBank()), drives `RoundRunner.step` round by round under
-torch.profiler. The runner marks its phases with profiler ranges
+N=100, K=5, batch 100, p_min=0.1) and, for MIFA(array),
+BankedMIFA(DenseBank()) and BankedMIFA(PagedDeviceBank(page_size=8)),
+drives `RoundRunner.step` round by round under torch.profiler. The
+runner marks its phases with profiler ranges
 (`core.runner.ROUND_PHASES`): the round's batches assembled on the host and
 copied to the card, local training (`client_updates`, K-step SGD vmapped
 over clients) and the server step (MIFA / bank kernels, the weight update
@@ -14,7 +15,11 @@ and the sync that reads the round's loss). For each phase the script gives
 its median host ms and the device ms of the work launched inside it; for
 the round, its median host ms, the device's busy time and idle share, the
 device time of the port's own kernels, and the device ops that take the
-most time. Prints one JSON object per algorithm; needs a CUDA card.
+most time. Then it does the same for the million-client run of
+`chip_smoke.py` (N = 10⁶, `RoundRunner.step_cohort` through the paged bank),
+whose page-in (evictions to the host, uploads) the bank marks with its own
+range (`bank.paged_device.PAGE_IN_RANGE`, nested in `round.batch`). Prints
+one JSON object per algorithm; needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -30,7 +35,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 # the hand-written kernels' CUDA names (src/repro_torch/kernels/csrc)
-PORT_KERNELS = ("mifa_aggregate_kernel", "bank_scatter_kernel")
+PORT_KERNELS = ("mifa_aggregate_kernel", "bank_scatter_kernel",
+                "paged_scatter_kernel", "paged_gather_kernel")
+# profiled rounds of the million-client run, all past the warm-up that fills
+# the free slots, so each of them evicts
+MILLION_PROFILE_ROUNDS = 8
 
 
 def phase_split(prof, phases, n_rounds: int) -> dict:
@@ -46,6 +55,50 @@ def phase_split(prof, phases, n_rounds: int) -> dict:
                 "ranges": len(host[p])} for p in phases}
 
 
+def profile_rounds(name, inputs, step, warmup: int, rounds: int,
+                   phases) -> None:
+    """Run `warmup` rounds, then profile `rounds` rounds of
+    `step(t, inputs(t))` (each ends in a device sync) and print the JSON
+    line of the phase split, device busy/idle, the port's kernels and the
+    top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    for t in range(warmup):
+        step(t, inputs(t))
+    torch.cuda.synchronize()
+    round_ms = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(warmup, warmup + rounds):
+            x = inputs(t)
+            t0 = time.perf_counter()
+            step(t, x)                              # ends in a device sync
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+    split = phase_split(prof, phases, rounds)
+    # device ops, without the phase ranges' own device-side copies
+    ops = [e for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and e.key not in phases]
+    device_us = sum(e.self_device_time_total for e in ops)
+    wall_ms = sum(round_ms)
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    port = {k: {"us": sum(e.self_device_time_total for e in ops
+                          if k in e.key) / rounds,
+                "launches": sum(e.count for e in ops
+                                if k in e.key) / rounds}
+            for k in PORT_KERNELS}
+    print(json.dumps({
+        "algo": name, "rounds": rounds,
+        "round_ms_median": float(np.median(round_ms)),
+        "phases": split,
+        "device_busy_ms_per_round": device_us / rounds / 1e3,
+        "device_idle_share": 1 - device_us / 1e3 / wall_ms,
+        "port_kernels_per_round": port,
+        "top_device_ops_us_per_round": [
+            {"op": e.key[:80], "us": e.self_device_time_total / rounds,
+             "calls": e.count // rounds}
+            for e in top],
+    }), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=20)
@@ -55,13 +108,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import paper_problem
-    from repro_torch.bank import BankedMIFA, DenseBank
+    from chip_smoke import MILLION_SLOTS, million_runner, paper_problem
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.bank.paged_device import PAGE_IN_RANGE
     from repro_torch.core import MIFA, BernoulliParticipation, RoundRunner
     from repro_torch.core.runner import ROUND_PHASES
     from repro_torch.kernels.backend import build_kernels
     from repro_torch.optim import inv_t
-    from torch.profiler import ProfilerActivity, profile
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -70,46 +123,23 @@ def main() -> int:
     model, batcher, probs, _ = paper_problem(device="cuda")
     for name, algo in (("mifa_array", MIFA()),
                        ("banked_dense",
-                        BankedMIFA(DenseBank(device="cuda")))):
+                        BankedMIFA(DenseBank(device="cuda"))),
+                       ("banked_paged",
+                        BankedMIFA(PagedDeviceBank(page_size=8,
+                                                   device="cuda")))):
         runner = RoundRunner(model=model, algo=algo, batcher=batcher,
                              schedule=inv_t(1.0), weight_decay=1e-3,
                              device="cuda")
         part = BernoulliParticipation(probs, seed=1)
-        for t in range(5):                                  # warm-up
-            runner.step(t, part.sample(t))
-        torch.cuda.synchronize()
-        round_ms = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for t in range(5, 5 + args.rounds):
-                active = part.sample(t)
-                t0 = time.perf_counter()
-                runner.step(t, active)          # ends in a device sync
-                round_ms.append((time.perf_counter() - t0) * 1e3)
-        split = phase_split(prof, ROUND_PHASES, args.rounds)
-        # device ops, without the phase ranges' own device-side copies
-        ops = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.key not in ROUND_PHASES]
-        device_us = sum(e.self_device_time_total for e in ops)
-        wall_ms = sum(round_ms)
-        top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
-        port = {k: {"us": sum(e.self_device_time_total for e in ops
-                              if k in e.key) / args.rounds,
-                    "launches": sum(e.count for e in ops
-                                    if k in e.key) / args.rounds}
-                for k in PORT_KERNELS}
-        print(json.dumps({
-            "algo": name, "rounds": args.rounds,
-            "round_ms_median": float(np.median(round_ms)),
-            "phases": split,
-            "device_busy_ms_per_round": device_us / args.rounds / 1e3,
-            "device_idle_share": 1 - device_us / 1e3 / wall_ms,
-            "port_kernels_per_round": port,
-            "top_device_ops_us_per_round": [
-                {"op": e.key[:80], "us": e.self_device_time_total
-                 / args.rounds, "calls": e.count // args.rounds}
-                for e in top],
-        }))
+        profile_rounds(name, part.sample, runner.step, 5, args.rounds,
+                       ROUND_PHASES)
+    # the million-client run: its first rounds fill free slots, so the
+    # profiled rounds are past them and evict every round
+    runner, _, draw = million_runner(model, model.init(0, device="cuda"))
+    warmup = -(-MILLION_SLOTS // 64)
+    profile_rounds("million_paged", lambda t: draw(), runner.step_cohort,
+                   warmup, MILLION_PROFILE_ROUNDS,
+                   ROUND_PHASES + (PAGE_IN_RANGE,))
     return 0
 
 

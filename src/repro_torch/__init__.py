@@ -2,9 +2,11 @@
 
 The JAX package `repro` is the reference; this package mirrors its layout
 (`configs`, `data`, `optim`, `core`, `models`, `kernels`, `bank`) for the
-slice that has been ported: the paper's round-synchronous experiment
-(`core.runner.run_fl` with `MIFA(memory="array"|"delta")` and
-`BankedMIFA(DenseBank())` on the tabular paper models).
+slices that have been ported: the paper's round-synchronous experiment
+(`core.runner.run_fl` with `MIFA(memory="array"|"delta")`,
+`BankedMIFA(DenseBank())` and `BankedMIFA(PagedDeviceBank(...))` on the
+tabular paper models), and million-client cohort rounds through the paged
+bank and `data.ProceduralBatcher`.
 
 Device rule: every entry point takes `device=` and defaults to "cuda"; with
 no GPU it raises unless the caller passes `device="cpu"`. Kernel wrappers

@@ -9,9 +9,10 @@ only the active cohort A(t):
 and maintains the running sum  G_sum = Σ_i G^i  incrementally via the delta
 identity  G_sum += Σ_{a ∈ A} (u_a − G_old_a), so the server step's
 mean_G = G_sum / N is O(d). Counterpart of `repro/bank/base.py`; the ported
-backend is `DenseBank`. Host, int8-paged and paged-device banks (with
-`gather`, `memory_bytes` and `prepare` residency), the fleet entry points
-and `host_state` are not ported yet (ROADMAP Queue 1 items 9-11, 15, 17).
+backends are `DenseBank` and `PagedDeviceBank` (which pages rows on and off
+the card in `prepare`). The host and int8-paged banks, the fleet entry
+points and `host_state` are not ported yet (ROADMAP Queue 1 items 9, 10,
+15, 17).
 
 Padding convention: the round loop pads a cohort to a fixed capacity. Pad slots
 carry `valid=False` and point `ids` at the dummy row index N; they never
@@ -24,6 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_leaves
+
 
 class MemoryBank:
     """Interface; `scatter` is a template method that enforces the
@@ -32,6 +35,11 @@ class MemoryBank:
 
     def init(self, params: Any, n_clients: int) -> dict:
         """Zero-filled bank state for `n_clients` rows shaped like `params`."""
+        raise NotImplementedError
+
+    def gather(self, state: dict, ids) -> Any:
+        """Read rows `ids` (C,) (host numpy) out of the bank `state`: an f32
+        tree with leading axis C = len(ids). Never mutates the state."""
         raise NotImplementedError
 
     def scatter(self, state: dict, ids, updates, *, valid=None) -> dict:
@@ -55,6 +63,15 @@ class MemoryBank:
     def mean_g(self, state: dict) -> Any:
         """G_sum / N as a tree with param-shaped leaves."""
         raise NotImplementedError
+
+    def memory_bytes(self, state: dict) -> dict:
+        """{'device': bytes, 'host': bytes} currently held by the bank."""
+        raise NotImplementedError
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes held by the tensors of a tree."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def broadcast_valid(valid: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:

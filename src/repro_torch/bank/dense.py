@@ -8,6 +8,7 @@ State layout (counterpart of `repro/bank/dense.py`):
 `scatter` goes through `kernels.ops.bank_update_tree`: on the card the
 hand-written `bank_scatter` kernel updates the cohort's rows in place and
 returns the delta sum; on the CPU its plain version does the same work.
+`gather` is plain tensor indexing, as in the reference (no kernel).
 Mesh-sharded rows and the fleet scatter are not ported yet (ROADMAP Queue 1
 items 15 and 19).
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.bank.base import MemoryBank
+from repro_torch.bank.base import MemoryBank, tree_nbytes
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.ops import bank_update_tree
 from repro_torch.tree import tree_leaves, tree_map
@@ -47,6 +48,10 @@ class DenseBank(MemoryBank):
             p.shape, dtype=torch.float32, device=p.device), params)
         return {"rows": rows, "g_sum": g_sum}
 
+    def gather(self, state: dict, ids):
+        ids_t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return tree_map(lambda r: r[ids_t].float(), state["rows"])
+
     def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
         ids = np.asarray(ids, np.int64)
         if ids.size and (ids.min() < 0 or ids.max() >= self.n_rows):
@@ -62,3 +67,7 @@ class DenseBank(MemoryBank):
 
     def mean_g(self, state: dict):
         return tree_map(lambda g: g / self.n, state["g_sum"])
+
+    def memory_bytes(self, state: dict) -> dict:
+        return {"device": tree_nbytes(state["rows"])
+                + tree_nbytes(state["g_sum"]), "host": 0}

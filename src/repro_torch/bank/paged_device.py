@@ -1,0 +1,355 @@
+"""PagedDeviceBank — a bounded pool of device pages behind a page table.
+
+Counterpart of `repro/bank/paged_device.py`. The bank keeps `n_slots`
+fixed-size pages of `page_size` rows per leaf on the device, plus one dummy
+page, and addresses logical row `lid` through a page table:
+
+    phys(lid) = page_table[lid // page_size] * page_size + lid % page_size
+
+So device memory is (n_slots+1)·page_size rows per leaf whatever N is: at
+paper_mlp's width (d = 50,698) and N = 10⁶ a dense bank would need 202.8 GB,
+a `PagedDeviceBank(page_size=8, n_slots=256)` holds 416,940,352 B of pages
+and spills the rest to host memory.
+
+Residency is managed on the host by `prepare(state, ids)`, which the runner
+calls before each cohort round (and `scatter` calls again): it pages the
+cohort's logical pages in, evicting deterministic-LRU victims (the oldest
+stamp, ties by page id) to a host spill store. Evicted pages leave the card
+in one `index_select` and one copy to the host per leaf; pages faulted back
+from the spill store go up in one `index_copy_` per leaf; pages never
+written are zeroed in place on the device (one `index_fill_` per leaf), so
+a slot never shows a former tenant's rows.
+
+Why paging never changes the numbers: a gather returns the same values
+whatever slot a row occupies, and the delta sum runs over the cohort axis,
+never over physical rows. The scatter goes through `paged_bank_scatter`,
+whose CUDA kernel shares its body (and so its summation order) with the
+dense bank's `bank_scatter`: on the card a paged trajectory is bit-equal to
+a dense one, as long as every row a round touches is resident (`scatter`
+checks this on the host mirror and raises otherwise).
+
+State layout (tensors on the bank's device):
+    pages      : tree, leaves ((n_slots+1)·page_size, *shape) `dtype`; the
+                 last page is the dummy page, exact zeros, which pad slots
+                 and non-resident reads resolve to.
+    page_table : (logical_pages+1,) int32; the sentinel (= n_slots, the
+                 dummy slot) marks non-resident pages; the last entry is the
+                 dummy logical page, pinned to the dummy slot.
+    g_sum      : tree, leaves (*shape,) f32 — running Σ_i G^i.
+
+Host bookkeeping: a numpy mirror of the page table, a slot → logical page
+map, the free list (popped 0, 1, 2, …), LRU stamps, and the spill store
+{logical page: per-leaf CPU tensors (page_size, *shape)}.
+
+Not ported yet: int8 pages (ROADMAP Queue 1 item 10), `scatter_fleet`
+(item 15) and `host_state` / `load_host_state` (item 17).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.bank.base import MemoryBank, tree_nbytes
+from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels.ops import (paged_bank_gather_tree,
+                                     paged_bank_update_tree)
+from repro_torch.tree import tree_leaves, tree_map
+
+# Profiler range around a fault's page-in (evictions to the host, uploads,
+# the page-table update); `scripts/profile_round.py` reads it. With no
+# profiler active it costs one small host call per faulting round.
+PAGE_IN_RANGE = "bank.page_in"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"PagedDeviceBank {what} is not ported yet "
+                               f"(ROADMAP Queue 1 item {item})")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+class PagedDeviceBank(MemoryBank):
+    """Bounded device memory behind a page table; see the module docstring.
+
+    page_size : rows per page (a power of two).
+    n_slots   : device pages resident at once (None => enough for all of N,
+                i.e. fully resident).
+    dtype     : "float32" | "bfloat16".
+    device    : where the pages live ("cuda" by default; "cpu" runs the
+                kernels' plain versions).
+    """
+
+    def __init__(self, *, page_size: int = 64, n_slots: int | None = None,
+                 dtype: str = "float32",
+                 device: str | torch.device = DEFAULT_DEVICE):
+        if page_size <= 0 or page_size & (page_size - 1):
+            raise ValueError(f"page_size must be a power of two, got "
+                             f"{page_size}")
+        if n_slots is not None and n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if dtype == "int8":
+            raise _not_ported("dtype='int8'", "10")
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported bank dtype {dtype!r}")
+        self.page_size = page_size
+        self._n_slots_cfg = n_slots
+        self.dtype = getattr(torch, dtype)
+        self.device = resolve_device(device)
+        self.n = 0
+        self.n_slots = 0
+        self.lp = 0            # logical pages holding real rows
+        self.dummy_lrow = 0    # logical row that pad slots are remapped to
+        self.sentinel = 0      # page-table value meaning "not resident"
+        self._pt = np.zeros(0, np.int32)     # mirror of state["page_table"]
+        self._slot_lp = np.zeros(0, np.int64)
+        self._free: list[int] = []
+        self._lru: dict[int, int] = {}
+        self._clock = 0
+        self._spill: dict[int, list[torch.Tensor]] = {}
+        self.faults = 0
+        self.evictions = 0
+        self.refaults = 0      # faults served from the spill store
+
+    def init(self, params, n_clients: int) -> dict:
+        for p in tree_leaves(params):
+            if p.device.type != self.device.type:
+                raise ValueError(f"params on {p.device}, bank on "
+                                 f"{self.device}: pass the run's device to "
+                                 "PagedDeviceBank(device=...)")
+        ps = self.page_size
+        self.n = n_clients
+        self.lp = -(-n_clients // ps)
+        self.n_slots = (self.lp if self._n_slots_cfg is None
+                        else self._n_slots_cfg)
+        self.dummy_lrow = self.lp * ps
+        self.sentinel = self.n_slots         # the dummy slot doubles as it
+        n_rows = (self.n_slots + 1) * ps
+        self._pt = np.full(self.lp + 1, self.sentinel, np.int32)
+        self._pt[self.lp] = self.n_slots     # dummy logical page, pinned
+        self._slot_lp = np.full(self.n_slots, -1, np.int64)
+        self._free = list(range(self.n_slots - 1, -1, -1))   # pop() -> 0,1,..
+        self._lru = {}
+        self._clock = 0
+        self._spill = {}
+        self.faults = self.evictions = self.refaults = 0
+        return {
+            "pages": tree_map(lambda p: torch.zeros(
+                (n_rows,) + tuple(p.shape), dtype=self.dtype,
+                device=self.device), params),
+            "page_table": torch.tensor(self._pt, device=self.device),
+            "g_sum": tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=self.device), params),
+        }
+
+    # ------------------------------------------------------------------ #
+    # residency: host bookkeeping, then a few batched device copies
+    # ------------------------------------------------------------------ #
+
+    def _page_rows(self, slots) -> torch.Tensor:
+        ps = self.page_size
+        rows = np.concatenate([np.arange(s * ps, (s + 1) * ps)
+                               for s in slots])
+        return torch.from_numpy(rows).to(self.device)
+
+    def prepare(self, state: dict, ids) -> dict:
+        """Make every logical page that `ids` touches device-resident.
+
+        Evicts deterministic-LRU victims to the spill store and brings the
+        faulted pages in (spilled data, or zeros for pages never written).
+        Updates the state's tensors in place and returns the state. Raises
+        when the working set cannot fit in `n_slots`.
+        """
+        ps = self.page_size
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        ids = ids[(ids >= 0) & (ids < self.n)]
+        need = np.unique(ids // ps)
+        if len(need) > self.n_slots:
+            raise ValueError(
+                f"cohort working set spans {len(need)} pages but "
+                f"PagedDeviceBank has only {self.n_slots} slots "
+                f"(page_size={ps}); raise n_slots or lower page_size")
+        self._clock += 1
+        for lp in need:
+            self._lru[int(lp)] = self._clock
+        missing = [int(lp) for lp in need if self._pt[lp] == self.sentinel]
+        if missing:
+            self.faults += len(missing)
+            with record_function(PAGE_IN_RANGE):
+                self._page_in(state, need, missing)
+        return state
+
+    def _page_in(self, state: dict, need: np.ndarray,
+                 missing: list[int]) -> None:
+        """Bring the `missing` pages of the working set `need` in."""
+        ps = self.page_size
+        # 1) host bookkeeping: a slot per faulted page, evicting the
+        #    deterministic-LRU victim (oldest stamp, ties by page id) when
+        #    the free list is empty
+        needset = {int(lp) for lp in need}
+        assign: list[tuple[int, int]] = []   # (lp, slot)
+        evict: list[tuple[int, int]] = []    # (victim lp, slot)
+        for lp in missing:
+            if self._free:
+                slot = self._free.pop()
+            else:
+                cands = [(t, v) for v, t in self._lru.items()
+                         if self._pt[v] != self.sentinel and v not in needset]
+                if not cands:
+                    raise ValueError(
+                        "no evictable page — all resident pages are in the "
+                        "current working set (internal invariant violation)")
+                _, victim = min(cands)
+                slot = int(self._pt[victim])
+                evict.append((victim, slot))
+                self._pt[victim] = self.sentinel
+                self._slot_lp[slot] = -1
+                del self._lru[victim]
+                self.evictions += 1
+            assign.append((lp, slot))
+
+        leaves = tree_leaves(state["pages"])
+        # 2) evicted pages to the host: one gather and one copy per leaf
+        if evict:
+            rows = self._page_rows(s for _, s in evict)
+            host = [leaf.index_select(0, rows).cpu() for leaf in leaves]
+            for k, (victim, _) in enumerate(evict):
+                self._spill[victim] = [h[k * ps:(k + 1) * ps].clone()
+                                       for h in host]
+
+        # 3) faulted pages in: spilled data goes up with one index_copy_
+        #    per leaf; pages never written are zeroed on the device, which
+        #    is REQUIRED, since the slot may hold an evicted page's rows
+        spilled = {lp: self._spill.pop(lp) for lp, _ in assign
+                   if lp in self._spill}
+        self.refaults += len(spilled)
+        fresh = [s for lp, s in assign if lp not in spilled]
+        if fresh:
+            rows = self._page_rows(fresh)
+            for leaf in leaves:
+                leaf.index_fill_(0, rows, 0)
+        back = [(lp, s) for lp, s in assign if lp in spilled]
+        if back:
+            rows = self._page_rows(s for _, s in back)
+            for j, leaf in enumerate(leaves):
+                vals = torch.cat([spilled[lp][j] for lp, _ in back])
+                leaf.index_copy_(0, rows, vals.to(self.device))
+
+        # 4) the page table: the mirror, then the changed entries on device
+        for lp, slot in assign:
+            self._pt[lp] = slot
+            self._slot_lp[slot] = lp
+        changed = np.asarray([v for v, _ in evict] + [lp for lp, _ in assign],
+                             np.int64)
+        state["page_table"].index_copy_(
+            0, torch.from_numpy(changed).to(self.device),
+            torch.from_numpy(self._pt[changed]).to(self.device))
+
+    # ------------------------------------------------------------------ #
+    def _lids(self, ids: np.ndarray) -> torch.Tensor:
+        """Logical rows for the kernels: pad ids (>= N) go to the dummy
+        logical row, which sits in the dummy page."""
+        lids = np.where(ids >= self.n, self.dummy_lrow, ids).astype(np.int32)
+        return torch.from_numpy(lids).to(self.device)
+
+    def gather(self, state: dict, ids):
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if ids.size and ids.min() < 0:
+            raise IndexError(f"bank row ids must be >= 0, got {ids.min()}")
+        out = paged_bank_gather_tree(state["pages"], state["page_table"],
+                                     self._lids(ids),
+                                     page_size=self.page_size)
+        # rows whose page lives in the spill store read the dummy page's
+        # zeros on the device; patch them from the host
+        ps = self.page_size
+        pos = np.flatnonzero((ids < self.n)
+                             & np.isin(ids // ps, list(self._spill)))
+        if pos.size:
+            pos_t = torch.from_numpy(pos).to(self.device)
+            for j, leaf in enumerate(tree_leaves(out)):
+                rows = torch.stack([self._spill[int(ids[c] // ps)][j]
+                                    [int(ids[c] % ps)] for c in pos])
+                leaf.index_copy_(0, pos_t,
+                                 rows.to(self.device, torch.float32))
+        return out
+
+    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
+        ids = np.asarray(ids, np.int64)
+        valid = (np.ones(ids.shape, bool) if valid is None
+                 else np.asarray(valid, bool))
+        if ids.size and (ids.min() < 0 or (ids[valid] >= self.n).any()):
+            raise IndexError(f"valid bank row ids must lie in [0, {self.n}) "
+                             f"and pad ids be >= 0, got [{ids.min()}, "
+                             f"{ids.max()}]")
+        state = self.prepare(state, ids[valid])
+        # a valid row whose page is not resident would land in the dummy
+        # page; the kernels do not check, so check the mirror here (O(C))
+        if (self._pt[ids[valid] // self.page_size] == self.sentinel).any():
+            raise RuntimeError("a valid cohort row's page is not resident "
+                               "after prepare (page-table invariant broken)")
+        pages, dsum = paged_bank_update_tree(
+            state["pages"], updates, state["page_table"], self._lids(ids),
+            torch.from_numpy(valid).to(self.device), page_size=self.page_size)
+        return {"pages": pages, "page_table": state["page_table"],
+                "g_sum": tree_map(torch.add, state["g_sum"], dsum)}
+
+    def scatter_fleet(self, state: dict, ids, updates, *, valid=None):
+        raise _not_ported("scatter_fleet", "15")
+
+    def host_state(self) -> dict:
+        raise _not_ported("host_state", "17")
+
+    def load_host_state(self, tree: dict) -> None:
+        raise _not_ported("load_host_state", "17")
+
+    def mean_g(self, state: dict):
+        return tree_map(lambda g: g / self.n, state["g_sum"])
+
+    # ------------------------------------------------------------------ #
+    def n_resident(self) -> int:
+        return int((self._pt[:self.lp] != self.sentinel).sum())
+
+    def memory_bytes(self, state: dict) -> dict:
+        """{'device', 'host', 'device_pages'}: device_pages is the bounded
+        page pool, (n_slots+1)·page_size rows per leaf, independent of N."""
+        pages_b = tree_nbytes(state["pages"])
+        dev = (pages_b + tree_nbytes(state["page_table"])
+               + tree_nbytes(state["g_sum"]))
+        host = sum(t.numel() * t.element_size()
+                   for blocks in self._spill.values() for t in blocks)
+        return {"device": dev, "host": host, "device_pages": pages_b}
+
+    def check_invariants(self, state: dict | None = None) -> None:
+        """Page-table invariants: no aliased slots, free-list conservation,
+        mirror consistency, no page both resident and spilled; with `state`,
+        also that the device table matches the mirror and the dummy page is
+        exact zeros. Raises AssertionError on the first one broken."""
+        resident = {int(lp): int(s) for lp, s in enumerate(self._pt[:self.lp])
+                    if s != self.sentinel}
+        slots = list(resident.values())
+        _require(len(slots) == len(set(slots)), "aliased physical slots")
+        _require(all(0 <= s < self.n_slots for s in slots),
+                 "slot out of range")
+        _require(int(self._pt[self.lp]) == self.n_slots,
+                 "dummy page unpinned")
+        _require(len(self._free) + len(resident) == self.n_slots,
+                 "free-list conservation violated")
+        _require(set(self._free).isdisjoint(slots),
+                 "slot both free and mapped")
+        for lp, s in resident.items():
+            _require(int(self._slot_lp[s]) == lp, "slot->page mirror drifted")
+        for s in self._free:
+            _require(int(self._slot_lp[s]) == -1, "free slot still mapped")
+        _require(set(self._spill).isdisjoint(resident),
+                 "page both resident and spilled")
+        if state is not None:
+            _require(bool((state["page_table"].cpu().numpy()
+                           == self._pt).all()),
+                     "device page table != host mirror")
+            start = self.n_slots * self.page_size
+            for leaf in tree_leaves(state["pages"]):
+                _require(not (leaf[start:] != 0).any(),
+                         "dummy page not zero")

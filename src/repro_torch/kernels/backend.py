@@ -35,7 +35,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("mifa_aggregate", "bank_scatter")
+KERNELS = ("mifa_aggregate", "bank_scatter", "paged_bank")
+# the dtypes the kernels keep stored rows (G, banks, pages, w) in
+FLOAT_STORES = (torch.float32, torch.bfloat16)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -126,6 +128,47 @@ def kernel_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_kernels((name,))[name]))
         _LIBS[name] = lib
     return lib
+
+
+def check_tensors(device: torch.device, named: dict) -> None:
+    """The input rules every kernel wrapper holds: `named` maps a name to
+    (tensor, allowed dtypes, expected shape), and each tensor must have one
+    of those dtypes and that shape, lie on `device` and be contiguous."""
+    for name, (t, dtypes, shape) in named.items():
+        if t.dtype not in dtypes:
+            allowed = " or ".join(str(d).removeprefix("torch.")
+                                  for d in dtypes)
+            raise TypeError(f"{name} must be {allowed}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"shape mismatch: {name} {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def entry_point(library: str, symbol: str, argtypes, device: torch.device):
+    """Kernel entry point `symbol` of `library`, typed as `argtypes` plus
+    the trailing stream handle and returning the CUDA error code. Raises
+    unless `device` is a CUDA device: the wrappers hand CPU tensors to
+    their plain versions before they get here."""
+    if device.type != "cuda":
+        raise ValueError(f"no {symbol} kernel for device {device}")
+    fn = getattr(kernel_library(library), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the entry point `fn(*args, stream)` on `device`'s current
+    stream; raises if the launch fails."""
+    with torch.cuda.device(device):
+        rc = fn(*args, current_stream_handle(device))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 def vector_ok(m: int, *tensors: torch.Tensor) -> bool:

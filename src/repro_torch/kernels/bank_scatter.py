@@ -7,9 +7,10 @@ and its plain version.
 hand-written kernel `csrc/bank_scatter.cu` (which replaces the TPU kernel
 `repro/kernels/bank_scatter.py::bank_scatter`), CPU tensors take
 `bank_scatter_ref`. On the card the bank is updated in place and returned;
-callers must not reuse the bank they passed in. The batched, paged,
-paged-batched and paged-gather kernels are not ported yet (ROADMAP Queue 2
-items 3-6).
+callers must not reuse the bank they passed in. The paged scatter and
+gather are in `kernels.paged_bank` (the kernel body is shared, see
+`csrc/scatter_rows.cuh`); the batched kernels wait for the fleet (ROADMAP
+Queue 2 items 3 and 5).
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.backend import (current_stream_handle,
-                                         kernel_library, vector_ok)
+from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
+                                         entry_point, launch, vector_ok)
 
 
 def bank_scatter_ref(bank: torch.Tensor, updates: torch.Tensor,
@@ -39,40 +40,14 @@ def _check(bank, updates, ids, valid) -> None:
     if bank.ndim != 2 or updates.ndim != 2:
         raise ValueError(f"bank (R, M) and updates (C, M) expected, got "
                          f"{tuple(bank.shape)}, {tuple(updates.shape)}")
-    r, m = bank.shape
-    c = updates.shape[0]
+    (r, m), c = bank.shape, updates.shape[0]
     if r == 0 or m == 0 or c == 0:
         raise ValueError(f"empty scatter: bank {(r, m)}, cohort {c}")
-    if updates.shape[1] != m or ids.shape != (c,) or valid.shape != (c,):
-        raise ValueError(
-            f"shape mismatch: bank {tuple(bank.shape)}, updates "
-            f"{tuple(updates.shape)}, ids {tuple(ids.shape)}, valid "
-            f"{tuple(valid.shape)}")
-    if bank.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"bank must be float32 or bfloat16, got {bank.dtype}")
-    if updates.dtype != torch.float32:
-        raise TypeError(f"updates must be float32, got {updates.dtype}")
-    if ids.dtype != torch.int64:
-        raise TypeError(f"ids must be int64, got {ids.dtype}")
-    if valid.dtype != torch.bool:
-        raise TypeError(f"valid must be bool, got {valid.dtype}")
-    for name, t in (("bank", bank), ("updates", updates), ("ids", ids),
-                    ("valid", valid)):
-        if t.device != bank.device:
-            raise ValueError(f"{name} is on {t.device}, bank on "
-                             f"{bank.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _lib():
-    fn = kernel_library("bank_scatter").bank_scatter
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
-    return fn
+    check_tensors(bank.device, {
+        "bank": (bank, FLOAT_STORES, (r, m)),
+        "updates": (updates, (torch.float32,), (c, m)),
+        "ids": (ids, (torch.int64,), (c,)),
+        "valid": (valid, (torch.bool,), (c,))})
 
 
 def bank_scatter(bank: torch.Tensor, updates: torch.Tensor,
@@ -88,19 +63,15 @@ def bank_scatter(bank: torch.Tensor, updates: torch.Tensor,
     _check(bank, updates, ids, valid)
     if bank.device.type == "cpu":
         return bank_scatter_ref(bank, updates, ids, valid)
-    if bank.device.type != "cuda":
-        raise ValueError(f"no bank_scatter for device {bank.device}")
+    fn = entry_point("bank_scatter", "bank_scatter",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int64,
+                                              ctypes.c_int, ctypes.c_int],
+                     bank.device)
     c, m = updates.shape
     dsum = torch.empty(m, dtype=torch.float32, device=bank.device)
-    fn = _lib()
-    with torch.cuda.device(bank.device):
-        rc = fn(bank.data_ptr(), updates.data_ptr(), ids.data_ptr(),
-                valid.data_ptr(), dsum.data_ptr(), c, m,
-                int(bank.dtype == torch.bfloat16),
-                int(vector_ok(m, bank, updates)),
-                current_stream_handle(bank.device))
-    if rc != 0:
-        raise RuntimeError(f"bank_scatter launch failed: CUDA error {rc}")
+    launch(fn, bank.device, bank.data_ptr(), updates.data_ptr(),
+           ids.data_ptr(), valid.data_ptr(), dsum.data_ptr(), c, m,
+           int(bank.dtype == torch.bfloat16), int(vector_ok(m, bank, updates)))
     bank_scatter.launches += 1
     return bank, dsum
 

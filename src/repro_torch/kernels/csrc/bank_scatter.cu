@@ -20,7 +20,8 @@
 // subtract and one add per element moved in — far below the card's f32
 // flops/byte balance — so the least time is that traffic over 3.35 TB/s.
 //
-// What the design does about it:
+// What the design does about it (the body is `scatter_rows.cuh`, shared
+// with the paged kernel so both sum in the same order):
 //   * A block owns a tile of 128 columns and walks the cohort rows inside
 //     the block, standing in for the TPU kernel's sequential inner grid
 //     axis. Rows are split over TY row groups (row a goes to group a % TY,
@@ -35,14 +36,14 @@
 //     itself; the caller pads nothing (the TPU wrapper pads wide leaves,
 //     which copies the bank).
 //   * It allocates nothing: the wrapper allocates dsum with torch.empty.
-#include "common.cuh"
+#include "scatter_rows.cuh"
 
 namespace {
 
 using repro::COLS_PER_BLOCK;
+using repro::FlatRows;
 using repro::TX;
 using repro::TY;
-using repro::VEC;
 
 template <typename TB, bool VECTOR>
 __global__ void __launch_bounds__(TX * TY)
@@ -50,62 +51,7 @@ bank_scatter_kernel(TB* __restrict__ bank, const float* __restrict__ u,
                     const int64_t* __restrict__ ids,
                     const uint8_t* __restrict__ valid,
                     float* __restrict__ dsum, int c, int64_t m) {
-  __shared__ float partial[TY][COLS_PER_BLOCK];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int64_t col0 = (int64_t(blockIdx.x) * TX + tx) * VEC;
-
-  float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
-  if (VECTOR) {
-    // m % VEC == 0 here, so a thread's columns are all in range or all out
-    if (col0 < m) {
-      for (int a = ty; a < c; a += TY) {
-        if (!valid[a]) continue;
-        TB* row = bank + ids[a] * m + col0;
-        float old[VEC], v[VEC];
-        repro::load4(row, old);
-        repro::load4(u + int64_t(a) * m + col0, v);
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          v[k] = repro::round_to<TB>(v[k]);
-          acc[k] += v[k] - old[k];
-        }
-        repro::store4(row, v);
-      }
-    }
-  } else {
-    for (int a = ty; a < c; a += TY) {
-      if (!valid[a]) continue;
-      const int64_t id = ids[a];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const int64_t col = col0 + k;
-        if (col < m) {
-          const int64_t off = id * m + col;
-          const float old = repro::to_f32(bank[off]);
-          const TB s = repro::from_f32<TB>(u[int64_t(a) * m + col]);
-          acc[k] += repro::to_f32(s) - old;
-          bank[off] = s;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) partial[ty][tx * VEC + k] = acc[k];
-  __syncthreads();
-  if (ty == 0) {
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const int64_t col = col0 + k;
-      if (col < m) {
-        float s = 0.f;
-#pragma unroll
-        for (int y = 0; y < TY; ++y) s += partial[y][tx * VEC + k];
-        dsum[col] = s;
-      }
-    }
-  }
+  repro::scatter_rows<TB, VECTOR>(bank, u, FlatRows{ids}, valid, dsum, c, m);
 }
 
 template <typename TB>

@@ -1,5 +1,5 @@
 // Shared helpers for the hand-written Hopper kernels: element types,
-// 4-wide vector loads/stores, and the block shape both kernels use.
+// 4-wide vector loads/stores, and the block shape every kernel uses.
 #pragma once
 
 #include <cuda_bf16.h>

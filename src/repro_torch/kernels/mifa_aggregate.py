@@ -14,8 +14,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.backend import (current_stream_handle,
-                                         kernel_library, vector_ok)
+from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
+                                         entry_point, launch, vector_ok)
 
 
 def mifa_aggregate_ref(g_old: torch.Tensor, updates: torch.Tensor,
@@ -35,37 +35,11 @@ def _check(g_old, updates, active, w) -> None:
     n, m = g_old.shape
     if n == 0 or m == 0:
         raise ValueError(f"empty aggregation {(n, m)}")
-    if updates.shape != (n, m) or active.shape != (n,) or w.shape != (m,):
-        raise ValueError(
-            f"shape mismatch: g {tuple(g_old.shape)}, updates "
-            f"{tuple(updates.shape)}, active {tuple(active.shape)}, "
-            f"w {tuple(w.shape)}")
-    if g_old.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"G must be float32 or bfloat16, got {g_old.dtype}")
-    if w.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
-    if updates.dtype != torch.float32:
-        raise TypeError(f"updates must be float32, got {updates.dtype}")
-    if active.dtype != torch.bool:
-        raise TypeError(f"active must be bool, got {active.dtype}")
-    for name, t in (("g_old", g_old), ("updates", updates),
-                    ("active", active), ("w", w)):
-        if t.device != g_old.device:
-            raise ValueError(f"{name} is on {t.device}, G on {g_old.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _lib():
-    lib = kernel_library("mifa_aggregate")
-    fn = lib.mifa_aggregate
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
-    return fn
+    check_tensors(g_old.device, {
+        "g_old": (g_old, FLOAT_STORES, (n, m)),
+        "updates": (updates, (torch.float32,), (n, m)),
+        "active": (active, (torch.bool,), (n,)),
+        "w": (w, FLOAT_STORES, (m,))})
 
 
 def mifa_aggregate(g_old: torch.Tensor, updates: torch.Tensor,
@@ -80,20 +54,17 @@ def mifa_aggregate(g_old: torch.Tensor, updates: torch.Tensor,
     _check(g_old, updates, active, w)
     if g_old.device.type == "cpu":
         return mifa_aggregate_ref(g_old, updates, active, w, eta)
-    if g_old.device.type != "cuda":
-        raise ValueError(f"no mifa_aggregate for device {g_old.device}")
+    vp = ctypes.c_void_p
+    fn = entry_point("mifa_aggregate", "mifa_aggregate",
+                     [vp] * 5 + [ctypes.c_int, ctypes.c_int64, ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                     g_old.device)
     n, m = g_old.shape
     w_new = torch.empty_like(w)
-    fn = _lib()
-    with torch.cuda.device(g_old.device):
-        rc = fn(updates.data_ptr(), g_old.data_ptr(), active.data_ptr(),
-                w.data_ptr(), w_new.data_ptr(), n, m, float(eta),
-                int(g_old.dtype == torch.bfloat16),
-                int(w.dtype == torch.bfloat16),
-                int(vector_ok(m, g_old, updates)),
-                current_stream_handle(g_old.device))
-    if rc != 0:
-        raise RuntimeError(f"mifa_aggregate launch failed: CUDA error {rc}")
+    launch(fn, g_old.device, updates.data_ptr(), g_old.data_ptr(),
+           active.data_ptr(), w.data_ptr(), w_new.data_ptr(), n, m,
+           float(eta), int(g_old.dtype == torch.bfloat16),
+           int(w.dtype == torch.bfloat16), int(vector_ok(m, g_old, updates)))
     mifa_aggregate.launches += 1
     return g_old, w_new
 

@@ -6,12 +6,15 @@
   `kernels.mifa_aggregate`.
 * `bank_update_tree` — the fused cohort gather/delta/scatter over a
   memory-bank tree, each leaf flattened to (R, M) and (C, M).
+* `paged_bank_update_tree` / `paged_bank_gather_tree` — the same scatter,
+  and the row gather, through a paged bank's page table
+  (`kernels.paged_bank`).
 
 Unlike the reference wrappers these pad nothing: the CUDA kernels mask the
 ragged column edge themselves, so no leaf (and no bank) is copied. Flattening
 a contiguous leaf is a view, so in-place kernel writes land in the leaf. The
-attention, SSD, paged and fleet wrappers wait for their kernels (ROADMAP
-Queue 2 items 3-8).
+attention, SSD and fleet wrappers wait for their kernels (ROADMAP Queue 2
+items 3, 5, 7 and 8).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch.kernels.bank_scatter import bank_scatter
 from repro_torch.kernels.mifa_aggregate import mifa_aggregate
+from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                            paged_bank_scatter)
 from repro_torch.tree import tree_map, tree_unzip2
 
 
@@ -54,3 +59,36 @@ def bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,
         return rn.reshape(rows.shape), ds.reshape(rows.shape[1:])
 
     return tree_unzip2(tree_map(one, rows_tree, upd_tree))
+
+
+def paged_bank_update_tree(pages_tree, upd_tree, page_table: torch.Tensor,
+                           lids: torch.Tensor, valid: torch.Tensor, *,
+                           page_size: int):
+    """Fused cohort bank update through a page table.
+
+    pages_tree: leaves (R, *shape), R = (slots+1)·page_size; upd_tree:
+    leaves (C, *shape) f32; page_table (P,) int32; lids (C,) int32
+    sanitized logical rows (pad slots -> dummy logical page); valid (C,)
+    bool. Returns (new_pages_tree, delta_sum_tree with leaves (*shape,)
+    f32); on the card the pages are updated in place.
+    """
+    def one(pages, u):
+        pn, ds = paged_bank_scatter(pages.reshape(pages.shape[0], -1),
+                                    u.reshape(u.shape[0], -1), page_table,
+                                    lids, valid, page_size=page_size)
+        return pn.reshape(pages.shape), ds.reshape(pages.shape[1:])
+
+    return tree_unzip2(tree_map(one, pages_tree, upd_tree))
+
+
+def paged_bank_gather_tree(pages_tree, page_table: torch.Tensor,
+                           lids: torch.Tensor, *, page_size: int):
+    """Row gather through the page table over a tree: leaves (C, *shape)
+    f32 for the logical rows `lids` (int32, sanitized); rows of pages that
+    are not resident read the dummy page's zeros."""
+    def one(pages):
+        rows = paged_bank_gather(pages.reshape(pages.shape[0], -1),
+                                 page_table, lids, page_size=page_size)
+        return rows.reshape((lids.shape[0],) + pages.shape[1:])
+
+    return tree_map(one, pages_tree)

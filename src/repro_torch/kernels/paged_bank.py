@@ -1,0 +1,132 @@
+"""Paged memory-bank kernels: the cohort gather / delta / scatter and the
+row gather through a page table, each the CUDA kernel's wrapper beside its
+plain version.
+
+    phys(lid) = page_table[lid // page_size] * page_size + lid % page_size
+    paged_bank_scatter:  dsum = Σ_{valid a} (cast(u_a) − pages[phys(lids[a])])
+                         pages[phys(lids[a])] = cast(u_a)   (valid a only)
+    paged_bank_gather:   rows[a] = f32(pages[phys(lids[a])])
+
+The wrappers decide by the tensors' device: CUDA tensors launch the
+hand-written kernels of `csrc/paged_bank.cu` (which replace the TPU kernels
+`repro/kernels/bank_scatter.py::paged_bank_scatter` and
+`paged_bank_gather`), CPU tensors take the `_ref` versions. On the card the
+scatter updates the pages in place and returns them; callers must not reuse
+the pages they passed in. `lids` are sanitized logical rows: the caller has
+remapped pad slots to the dummy logical page, and a logical page that is not
+resident maps to the dummy slot through the page table.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
+                                         entry_point, launch, vector_ok)
+from repro_torch.kernels.bank_scatter import bank_scatter_ref
+
+
+def phys_rows(page_table: torch.Tensor, lids: torch.Tensor,
+              page_size: int) -> torch.Tensor:
+    """Physical rows (int64) of the logical rows `lids`."""
+    return (page_table[lids // page_size].long() * page_size
+            + lids % page_size)
+
+
+def paged_bank_scatter_ref(pages: torch.Tensor, updates: torch.Tensor,
+                           page_table: torch.Tensor, lids: torch.Tensor,
+                           valid: torch.Tensor, *, page_size: int):
+    """Plain version: `bank_scatter_ref` on the physically addressed rows
+    (the reference's `_scatter_pure` fp body). Returns (new_pages (R, M)
+    [pages.dtype], dsum (M,) f32)."""
+    return bank_scatter_ref(pages, updates,
+                            phys_rows(page_table, lids, page_size), valid)
+
+
+def paged_bank_gather_ref(pages: torch.Tensor, page_table: torch.Tensor,
+                          lids: torch.Tensor, *, page_size: int):
+    """Plain version: (C, M) f32 rows for `lids`."""
+    return pages[phys_rows(page_table, lids, page_size)].float()
+
+
+def _check(pages, page_table, lids, page_size, named) -> None:
+    """The kernels' input rules; `named` holds the other tensors as
+    `check_tensors` takes them."""
+    if page_size <= 0 or page_size & (page_size - 1):
+        raise ValueError(f"page_size must be a power of two, got {page_size}")
+    if pages.ndim != 2 or pages.shape[0] % page_size or 0 in pages.shape:
+        raise ValueError(f"pages must be (R, M) with R a multiple of "
+                         f"page_size={page_size}, got {tuple(pages.shape)}")
+    c = lids.shape[0] if lids.ndim == 1 else -1
+    if c <= 0 or page_table.ndim != 1:
+        raise ValueError(f"lids (C,) with C > 0 and page_table (P,) "
+                         f"expected, got {tuple(lids.shape)}, "
+                         f"{tuple(page_table.shape)}")
+    check_tensors(pages.device, {
+        "pages": (pages, FLOAT_STORES, pages.shape),
+        "page_table": (page_table, (torch.int32,), page_table.shape),
+        "lids": (lids, (torch.int32,), (c,)), **named})
+
+
+# the entry points' arguments after their pointers: C, M, page_size,
+# pages are bf16, vector path
+_SIZES = [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+          ctypes.c_int]
+
+
+def paged_bank_scatter(pages: torch.Tensor, updates: torch.Tensor,
+                       page_table: torch.Tensor, lids: torch.Tensor,
+                       valid: torch.Tensor, *, page_size: int):
+    """pages (R, M) f32|bf16, R = (slots+1)·page_size; updates (C, M) f32;
+    page_table (P,) int32; lids (C,) int32 sanitized logical rows, distinct
+    among valid slots; valid (C,) bool. The caller checks on the host that
+    every valid row's page is resident.
+
+    Returns (new_pages, dsum (M,) f32). CPU tensors take the plain version;
+    CUDA tensors launch the kernel, which writes the valid rows of `pages`
+    in place (new_pages is pages) and dsum into a fresh tensor.
+    """
+    c = lids.shape[0] if lids.ndim == 1 else -1
+    m = pages.shape[1] if pages.ndim == 2 else -1
+    _check(pages, page_table, lids, page_size,
+           {"updates": (updates, (torch.float32,), (c, m)),
+            "valid": (valid, (torch.bool,), (c,))})
+    if pages.device.type == "cpu":
+        return paged_bank_scatter_ref(pages, updates, page_table, lids, valid,
+                                      page_size=page_size)
+    fn = entry_point("paged_bank", "paged_bank_scatter",
+                     [ctypes.c_void_p] * 6 + _SIZES, pages.device)
+    dsum = torch.empty(m, dtype=torch.float32, device=pages.device)
+    launch(fn, pages.device, pages.data_ptr(), updates.data_ptr(),
+           page_table.data_ptr(), lids.data_ptr(), valid.data_ptr(),
+           dsum.data_ptr(), c, m, page_size,
+           int(pages.dtype == torch.bfloat16),
+           int(vector_ok(m, pages, updates)))
+    paged_bank_scatter.launches += 1
+    return pages, dsum
+
+
+def paged_bank_gather(pages: torch.Tensor, page_table: torch.Tensor,
+                      lids: torch.Tensor, *, page_size: int) -> torch.Tensor:
+    """pages (R, M) f32|bf16; page_table (P,) int32; lids (C,) int32
+    sanitized logical rows. Returns (C, M) f32 rows (rows of pages that are
+    not resident read the dummy page's zeros). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    _check(pages, page_table, lids, page_size, {})
+    if pages.device.type == "cpu":
+        return paged_bank_gather_ref(pages, page_table, lids,
+                                     page_size=page_size)
+    fn = entry_point("paged_bank", "paged_bank_gather",
+                     [ctypes.c_void_p] * 4 + _SIZES, pages.device)
+    c, m = lids.shape[0], pages.shape[1]
+    out = torch.empty((c, m), dtype=torch.float32, device=pages.device)
+    launch(fn, pages.device, pages.data_ptr(), page_table.data_ptr(),
+           lids.data_ptr(), out.data_ptr(), c, m, page_size,
+           int(pages.dtype == torch.bfloat16), int(vector_ok(m, pages, out)))
+    paged_bank_gather.launches += 1
+    return out
+
+
+paged_bank_scatter.launches = 0
+paged_bank_gather.launches = 0

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bank import DenseBank
+from repro_torch.bank import DenseBank, PagedDeviceBank
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import MIFA, BernoulliParticipation, run_fl
 from repro_torch.data import ClientBatcher
@@ -46,8 +46,9 @@ def test_no_jax_and_no_reference_imports(path):
 
 def test_isolation_walk_sees_the_whole_port():
     mods = {p.stem for p in PORT_FILES}
-    assert {"runner", "mifa", "dense", "mifa_aggregate", "bank_scatter",
-            "ops", "backend", "chip_smoke"} <= mods
+    assert {"runner", "mifa", "dense", "paged_device", "mifa_aggregate",
+            "bank_scatter", "paged_bank", "pipeline", "ops", "backend",
+            "chip_smoke"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -77,6 +78,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         model.init(0)
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         DenseBank()
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        PagedDeviceBank()
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

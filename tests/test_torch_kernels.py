@@ -20,6 +20,10 @@ from repro_torch.kernels.bank_scatter import bank_scatter, bank_scatter_ref
 from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
                                                 mifa_aggregate_ref)
 from repro_torch.kernels.ops import bank_update_tree, mifa_aggregate_tree
+from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                            paged_bank_gather_ref,
+                                            paged_bank_scatter,
+                                            paged_bank_scatter_ref)
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -178,6 +182,33 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                              for x in _bank_inputs(5, 8, 3, 2, 0))
     with pytest.raises(TypeError, match="ids must be int64"):
         bank_scatter(bank, upd, ids.int(), valid)
+    pt = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(TypeError, match="lids must be int32"):
+        paged_bank_gather(bank[:4], pt, ids, page_size=2)
+    with pytest.raises(ValueError, match="multiple of page_size"):
+        paged_bank_gather(bank, pt, ids.int(), page_size=2)
+    with pytest.raises(ValueError, match="power of two"):
+        paged_bank_scatter(bank[:4], upd, pt, ids.int(), valid, page_size=3)
+
+
+@pytest.mark.parametrize("kernel", ["mifa_aggregate", "bank_scatter",
+                                    "paged_bank_scatter",
+                                    "paged_bank_gather"])
+def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
+    """A tensor on another device neither takes the plain version nor
+    reaches the kernel library: the wrapper raises before any build."""
+    meta = lambda x: torch.from_numpy(x).to("meta")  # noqa: E731
+    g, u, act, w = map(meta, _mifa_inputs(4, 8, True, 0))
+    bank, upd, ids, valid = map(meta, _bank_inputs(4, 8, 3, 2, 0))
+    pt, lids = torch.zeros(2, dtype=torch.int32), ids.int()
+    call = {"mifa_aggregate": lambda: mifa_aggregate(g, u, act, w, 0.1),
+            "bank_scatter": lambda: bank_scatter(bank, upd, ids, valid),
+            "paged_bank_scatter": lambda: paged_bank_scatter(
+                bank, upd, pt.to("meta"), lids, valid, page_size=2),
+            "paged_bank_gather": lambda: paged_bank_gather(
+                bank, pt.to("meta"), lids, page_size=2)}[kernel]
+    with pytest.raises(ValueError, match=f"no {kernel} kernel for device"):
+        call()
 
 
 # --------------------------------------------------------------------------- #
@@ -230,3 +261,59 @@ def test_bank_scatter_cuda_matches_plain(cuda_device, m, bdt, n_valid):
     terms = (u.to(bank.dtype).float() - bank[ids].float()).abs()
     scale = (terms * valid.reshape(-1, 1)).sum(0)
     assert bool(((d_k - d_ref).abs() <= 1e-6 + 1e-5 * scale).all())
+
+
+def _paged_inputs(m, n_valid, seed, ps=8, n_slots=16):
+    """A pool of n_slots pages (+ the zero dummy page) holding 2·n_slots
+    logical pages, the first n_slots of them resident in shuffled slots and
+    the rest mapped to the dummy slot; a cohort of 64 slots, n_valid
+    distinct rows of resident pages, then pads at the dummy logical row."""
+    rng = np.random.default_rng(seed)
+    pages = rng.normal(size=((n_slots + 1) * ps, m)).astype(np.float32)
+    pages[n_slots * ps:] = 0.0
+    lp = 2 * n_slots
+    pt = np.full(lp + 1, n_slots, np.int32)
+    pt[:n_slots] = rng.permutation(n_slots)
+    u = rng.normal(size=(64, m)).astype(np.float32)
+    lids = np.full(64, lp * ps, np.int32)
+    lids[:n_valid] = rng.permutation(n_slots * ps)[:n_valid]
+    return pages, u, pt, lids, np.arange(64) < n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,bdt,n_valid", [(1000, "float32", 37),
+                                           (4096, "bfloat16", 37),
+                                           (128, "float32", 0)])
+def test_paged_bank_scatter_cuda_matches_plain(cuda_device, m, bdt, n_valid):
+    pages, u, pt, lids, valid = (torch.from_numpy(x).to(cuda_device) for x in
+                                 _paged_inputs(m, n_valid, m))
+    pages = pages.to(TORCH_DT[bdt])
+    p_ref, d_ref = paged_bank_scatter_ref(pages, u, pt, lids, valid,
+                                          page_size=8)
+    before = paged_bank_scatter.launches
+    p_k, d_k = paged_bank_scatter(pages.clone(), u, pt, lids, valid,
+                                  page_size=8)
+    torch.cuda.synchronize()
+    assert paged_bank_scatter.launches == before + 1
+    assert torch.equal(p_k, p_ref)
+    old = paged_bank_gather_ref(pages, pt, lids, page_size=8)
+    terms = (u.to(pages.dtype).float() - old).abs()
+    scale = (terms * valid.reshape(-1, 1)).sum(0)
+    assert bool(((d_k - d_ref).abs() <= 1e-6 + 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,bdt", [(1000, "float32"), (4096, "bfloat16"),
+                                   (10, "float32")])
+def test_paged_bank_gather_cuda_matches_plain(cuda_device, m, bdt):
+    pages, _, pt, lids, _ = (torch.from_numpy(x).to(cuda_device) for x in
+                             _paged_inputs(m, 37, m))
+    lids[40] = 20 * 8 + 3               # a row of a non-resident page
+    pages = pages.to(TORCH_DT[bdt])
+    before = paged_bank_gather.launches
+    rows = paged_bank_gather(pages, pt, lids, page_size=8)
+    torch.cuda.synchronize()
+    assert paged_bank_gather.launches == before + 1
+    assert torch.equal(rows, paged_bank_gather_ref(pages, pt, lids,
+                                                   page_size=8))
+    assert not rows[37:].any()
