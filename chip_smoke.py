@@ -18,15 +18,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
   4. runs the main path — the paper's experiment (`paper_mlp` at full
      width: N=100 clients, d=256, 2x128 hidden, K=5 local steps, batch 100,
      label-correlated Bernoulli availability with p_min=0.1, inv_t(1.0),
-     weight decay 1e-3) for 100 rounds of `run_fl(engine="loop")` with
+     weight decay 1e-3) for 50 rounds of `run_fl(engine="loop")` with
      `MIFA(memory="array")` and with `BankedMIFA(DenseBank())`, from the
      same initial params and participation seed, and checks the losses,
      the anchor property (both algorithms give the same trajectory) and
      that each path launched its kernel once per leaf per round;
-  5. runs the same 100 rounds through
+  5. runs the same 50 rounds through
      `BankedMIFA(PagedDeviceBank(page_size=8))`, after a second dense run
      that shows whether the card repeats a run bit for bit, and holds the
-     paged run bit-equal to the dense one (600 `paged_bank_scatter`
+     paged run bit-equal to the dense one (300 `paged_bank_scatter`
      launches, no other kernel);
   6. drives eviction on the card: 40 cohorts of 64 (half hot) through a
      paged bank of 48 slots over 128 logical pages, against `DenseBank`:
@@ -38,7 +38,22 @@ Run from the root of a checkout on a machine with a CUDA card. It
      416,940,352-byte page pool, peak device memory, host spill, and G_sum
      against the sum of every written row;
   8. runs 5 rounds of the three bank/array algorithms on the CPU (plain
-     versions) and on the card (kernels) and holds them together.
+     versions) and on the card (kernels) and holds them together;
+  9. holds the batched (fleet) bank kernels against their plain versions
+     and, trial by trial, against the single-trial kernels (K=3 trials,
+     C=64, a different cohort per trial and one trial of pads only), and
+     times them per round of the cohort fleet path;
+ 10. drives the paper's Figure 2 sweep as fleets
+     (`benchmarks/fig2_convergence.py::run("paper_mlp", 0.1)`, seeds 0-2,
+     participation seeds 100+s): MIFA(array), BiasedFedAvg,
+     FedAvgSampling(S=50) and (S=100) on the update clock, FedAvgIS, and
+     the cohort fleets BankedMIFA(DenseBank) and
+     BankedMIFA(PagedDeviceBank(page_size=8)), 50 rounds each through
+     `fleet.run_fleet`. Eval loss must fall in every trial; checked trials
+     must match sequential `run_fl` runs on the card; the paged fleet must
+     be bit-equal to the dense one; each batched kernel launches once per
+     leaf per round; then the FedAvgSampling(S=50) fleet runs 10 rounds on
+     the CPU and on the card, held together.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -67,11 +82,16 @@ N_CLIENTS = 100
 # layers[0].w (256x128), layers[1].b, layers[1].w (128x128), out.b,
 # out.w (128x10)
 PATH_WIDTHS = [128, 32768, 128, 16384, 10, 1280]
-ROUNDS = 100
+ROUNDS = 50
 CPU_ROUNDS = 5
+# the Figure 2 fleets: trials of seeds 0-2 with participation seeds 100+s
+# (benchmarks/fig2_convergence.py:41); the cohort fleets and their
+# sequential runs pin the cohort width at 64 (a round's |A| is about 38)
+FLEET_SEEDS = (0, 1, 2)
+FLEET_ROUNDS, FLEET_CPU_ROUNDS, FLEET_CAP = 50, 10, 64
 # MIFA(array) and BankedMIFA(dense) agree in exact arithmetic; in fp32 the
 # bank keeps G_sum incrementally while the dense step re-sums all N rows, so
-# the trajectories drift apart by reduction-order rounding over 100 rounds.
+# the trajectories drift apart by reduction-order rounding over the rounds.
 ANCHOR_RTOL, ANCHOR_ATOL = 1e-3, 1e-5
 # card vs CPU: fp32 on both, with matmuls and reductions blocked
 # differently; the rounding differences pass through 25 SGD steps at
@@ -139,6 +159,7 @@ def paper_problem(model_name: str = "paper_mlp", *, n_clients: int = N_CLIENTS,
             loss, _ = model.loss_fn(params, test)
             return float(loss), float(model.accuracy(params, test))
 
+    eval_fn.eval_batch = test            # for the fleets' vmapped eval
     return model, batcher, probs, eval_fn
 
 
@@ -537,13 +558,17 @@ def run_path(name, algo, problem, params0, n_rounds, device, eval_every):
 
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from repro_torch.kernels.bank_scatter import bank_scatter
+    from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                                  bank_scatter_batched)
     from repro_torch.kernels.mifa_aggregate import mifa_aggregate
     from repro_torch.kernels.paged_bank import (paged_bank_gather,
-                                                paged_bank_scatter)
+                                                paged_bank_scatter,
+                                                paged_bank_scatter_batched)
     return {"mifa_aggregate": mifa_aggregate, "bank_scatter": bank_scatter,
             "paged_bank_scatter": paged_bank_scatter,
-            "paged_bank_gather": paged_bank_gather}
+            "paged_bank_gather": paged_bank_gather,
+            "bank_scatter_batched": bank_scatter_batched,
+            "paged_bank_scatter_batched": paged_bank_scatter_batched}
 
 
 def reset_counts() -> None:
@@ -556,7 +581,7 @@ def read_counts() -> dict:
 
 
 def check_run(name, params, hist, dts, counts, kernel) -> str:
-    """A 100-round run of the paper path: its kernel launched once per leaf
+    """A ROUNDS-round run of the paper path: its kernel launched once per leaf
     per round and no other kernel, finite losses and params, eval loss
     falling. Returns the run's summary line."""
     from repro_torch.tree import tree_leaves
@@ -573,7 +598,7 @@ def check_run(name, params, hist, dts, counts, kernel) -> str:
     (t_first, el0), (t_last, el1) = hist.eval_loss[0], hist.eval_loss[-1]
     check(el1 < el0, f"{name}: eval loss {el1:.4f} at round {t_last} is "
                      f"not below {el0:.4f} at round {t_first}")
-    steady = dts[10:]           # rounds 10..98: past warm-up and eval
+    steady = dts[10:]           # rounds 10..ROUNDS-2: past warm-up and eval
     return (f"main path {name}: {ROUNDS} rounds, median "
             f"{np.median(steady) * 1e3:.3f} ms/round (rounds 10-{ROUNDS - 2}, "
             f"host clock), mean |A(t)| {np.mean(hist.n_active):.2f}, "
@@ -839,6 +864,386 @@ def card_vs_cpu(params0, problem_cuda, problem_cpu) -> None:
               f"{name}: card and CPU losses differ")
 
 
+# --------------------------------------------------------------------------- #
+# the fleet: batched kernels and the Figure 2 sweep
+# --------------------------------------------------------------------------- #
+
+def fleet_cohorts(masks, n_clients=N_CLIENTS, cap=FLEET_CAP):
+    """The fleet's padded cohorts for K masks: (K, cap) ids and valid, pads
+    at the dummy row, as `FleetRunner.step_cohort` pads them."""
+    from repro_torch.core.runner import pad_cohort
+    pairs = [pad_cohort(np.flatnonzero(m), n_clients, cap) for m in masks]
+    return (torch.from_numpy(np.stack([p for p, _ in pairs])).cuda(),
+            torch.from_numpy(np.stack([v for _, v in pairs])).cuda())
+
+
+def check_batch_cohorts(active_path):
+    """Three trials' cohorts of C=64: the path's typical mask, another mask
+    of 45 clients, and only pads."""
+    other = torch.zeros(N_CLIENTS, dtype=torch.bool)
+    other[torch.randperm(N_CLIENTS, generator=torch.Generator().manual_seed(
+        45))[:45]] = True
+    none = torch.zeros(N_CLIENTS, dtype=torch.bool)
+    return fleet_cohorts([active_path.cpu().numpy(), other.numpy(),
+                          none.numpy()])
+
+
+def check_dsum(d_k, d_ref, terms, valid, what) -> float:
+    """dsum of the kernel within TOL of the plain version's, relative to
+    the summed magnitudes of each trial's valid terms."""
+    rtol, atol = TOL[torch.float32]
+    err = (d_k - d_ref).abs()
+    scale = (terms.abs() * valid.unsqueeze(-1)).sum(1)
+    check(bool((err <= atol + rtol * scale).all()),
+          f"{what} dsum off by {err.max().item():.3e}")
+    return err.max().item()
+
+
+def check_batched(gen, active_path) -> tuple[float, float, list]:
+    """Both batched kernels against their plain versions and, trial by
+    trial, against the single-trial kernels on the card: K=3 trials of
+    C=64 with different cohorts (one only pads), the path's six widths,
+    width 1000 (ragged for the vector path), bf16 storage, and for the
+    paged kernel per-trial shuffled page tables with pages that are not
+    resident. Rows and pages bit-equal; dsum within TOL of the plain
+    version and bit-equal to the single-trial kernel."""
+    from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                                  bank_scatter_batched,
+                                                  bank_scatter_batched_ref)
+    from repro_torch.kernels.paged_bank import (paged_bank_gather_ref,
+                                                paged_bank_scatter,
+                                                paged_bank_scatter_batched,
+                                                paged_bank_scatter_batched_ref)
+    k_trials, r, ps = len(FLEET_SEEDS), N_CLIENTS + 1, PAGE_SIZE
+    ids, valid = check_batch_cohorts(active_path)
+    c = ids.shape[1]
+    cases = [(m, torch.float32) for m in sorted(set(PATH_WIDTHS))]
+    cases += [(1000, torch.float32), (32768, torch.bfloat16),
+              (1000, torch.bfloat16)]
+    b_err, rows = 0.0, []
+    for m, dt in cases:
+        banks = torch.randn((k_trials, r, m), generator=gen,
+                            device="cuda").to(dt)
+        u = torch.randn((k_trials, c, m), generator=gen, device="cuda")
+        b_ref, d_ref = bank_scatter_batched_ref(banks, u, ids, valid)
+        b_k, d_k = bank_scatter_batched(banks.clone(), u, ids, valid)
+        torch.cuda.synchronize()
+        where = f"(M={m}, {dt})"
+        check(torch.equal(b_k, b_ref), f"bank_scatter_batched rows differ "
+                                       f"{where}")
+        for k in range(k_trials):
+            b1, d1 = bank_scatter(banks[k].clone(), u[k], ids[k], valid[k])
+            check(torch.equal(b_k[k], b1) and torch.equal(d_k[k], d1),
+                  f"bank_scatter_batched trial {k} is not bit-equal to "
+                  f"bank_scatter {where}")
+        terms = u.to(dt).float() - torch.stack(
+            [banks[k][ids[k]] for k in range(k_trials)]).float()
+        b_err = max(b_err, check_dsum(d_k, d_ref, terms, valid,
+                                      f"bank_scatter_batched {where}"))
+        rows.append(f"bank_scatter_batched K={k_trials} R={r} C={c} valid="
+                    f"{valid.sum(1).tolist()} M={m:<6} bank {dt}: rows "
+                    f"bit-equal, per trial bit-equal to bank_scatter")
+    # the paged kernel: the path's table in every trial, then per-trial
+    # shuffled tables (16 of 32 pages resident) with 37 / 20 / 0 valid rows
+    rng = np.random.default_rng(9)
+    pt, n_slots = path_table()
+    lids = torch.where(ids >= N_CLIENTS, n_slots * ps, ids).int()
+    path = (pt.expand(k_trials, -1).contiguous(), n_slots, lids, valid)
+    shuffled = [shuffled_layout(rng, n) for n in (37, 20, 0)]
+    shuf = (torch.stack([s[0] for s in shuffled]), shuffled[0][1],
+            torch.stack([s[2] for s in shuffled]),
+            torch.stack([s[3] for s in shuffled]))
+    p_err = 0.0
+    for m, dt, layout, label in (
+            [(m, torch.float32, path, "path") for m in sorted(
+                set(PATH_WIDTHS))]
+            + [(1000, torch.float32, shuf, "shuffled ragged"),
+               (32768, torch.float32, shuf, "shuffled"),
+               (32768, torch.bfloat16, path, "bf16 pages"),
+               (1000, torch.bfloat16, shuf, "bf16 shuffled")]):
+        tabs, slots, lid, val = layout
+        pages = torch.stack([pages_inputs(gen, slots, m, 1, dt)[0]
+                             for _ in range(k_trials)])
+        u = torch.randn((k_trials, lid.shape[1], m), generator=gen,
+                        device="cuda")
+        p_ref, d_ref = paged_bank_scatter_batched_ref(
+            pages, u, tabs, lid, val, page_size=ps)
+        p_k, d_k = paged_bank_scatter_batched(pages.clone(), u, tabs, lid,
+                                              val, page_size=ps)
+        torch.cuda.synchronize()
+        where = f"({label}, M={m}, {dt})"
+        check(torch.equal(p_k, p_ref), f"paged_bank_scatter_batched pages "
+                                       f"differ {where}")
+        check(not p_k[:, slots * ps:].any(), f"paged_bank_scatter_batched "
+                                             f"wrote a dummy page {where}")
+        old = []
+        for k in range(k_trials):
+            p1, d1 = paged_bank_scatter(pages[k].clone(), u[k], tabs[k],
+                                        lid[k], val[k], page_size=ps)
+            check(torch.equal(p_k[k], p1) and torch.equal(d_k[k], d1),
+                  f"paged_bank_scatter_batched trial {k} is not bit-equal "
+                  f"to paged_bank_scatter {where}")
+            old.append(paged_bank_gather_ref(pages[k], tabs[k], lid[k],
+                                             page_size=ps))
+        p_err = max(p_err, check_dsum(
+            d_k, d_ref, u.to(dt).float() - torch.stack(old), val,
+            f"paged_bank_scatter_batched {where}"))
+        rows.append(f"paged_bank_scatter_batched {label:<15} K={k_trials} "
+                    f"slots={slots} C={lid.shape[1]} valid="
+                    f"{val.sum(1).tolist()} M={m:<6} pages {dt}: pages "
+                    f"bit-equal, per trial bit-equal to paged_bank_scatter")
+    return b_err, p_err, rows
+
+
+def fleet_path_cohorts(probs):
+    """A typical round of the cohort fleet path: the three trials' masks
+    (participation seeds 100+s) at the round among 1-21 whose summed |A|
+    is the median, padded to the shared width 64."""
+    from repro_torch.core import BernoulliParticipation
+    parts = [BernoulliParticipation(probs, seed=100 + s) for s in FLEET_SEEDS]
+    rounds = [np.stack([p.sample(t) for p in parts]) for t in range(22)][1:]
+    typical = sorted(rounds, key=lambda m: m.sum())[len(rounds) // 2]
+    return fleet_cohorts(typical)
+
+
+def time_batched(gen, probs) -> dict:
+    """Both batched kernels per round of the cohort fleet path: one launch
+    per leaf of paper_mlp for all three trials, the trials' cohorts of a
+    typical round padded to 64, the N=100 bank (dense) and its 13-page
+    pool (paged); inputs cycled past L2."""
+    from repro_torch.kernels.bank_scatter import (bank_scatter_batched,
+                                                  bank_scatter_batched_ref)
+    from repro_torch.kernels.paged_bank import (paged_bank_scatter_batched,
+                                                paged_bank_scatter_batched_ref)
+    ids, valid = fleet_path_cohorts(probs)
+    k_trials, c = ids.shape
+    n_valid = int(valid.sum())
+    r = N_CLIENTS + 1
+    pt, n_slots = path_table()
+    pts = pt.expand(k_trials, -1).contiguous()
+    lids = torch.where(ids >= N_CLIENTS, n_slots * PAGE_SIZE, ids).int()
+    rp = (n_slots + 1) * PAGE_SIZE
+
+    def sets(rows):
+        set_bytes = sum(k_trials * (rows + c) * m * 4 for m in PATH_WIDTHS)
+        return [[(torch.randn((k_trials, rows, m), generator=gen,
+                              device="cuda"),
+                  torch.randn((k_trials, c, m), generator=gen,
+                              device="cuda")) for m in PATH_WIDTHS]
+                for _ in range(n_copies(set_bytes))]
+
+    # valid rows of all trials (read old, read update, write new), K dsum
+    # rows, ids (or lids, page-table entries) and valid
+    leaf_bytes = [3 * n_valid * m * 4 + k_trials * m * 4
+                  + k_trials * c * 9 for m in PATH_WIDTHS]
+    leaf_ops = [2 * n_valid * m for m in PATH_WIDTHS]
+    dense = [[(b, u, ids, valid) for b, u in s] for s in sets(r)]
+    paged = [[(p, u, pts, lids, valid) for p, u in s] for s in sets(rp)]
+    return {
+        "bank_scatter_batched": time_path(
+            bank_scatter_batched, bank_scatter_batched_ref, dense,
+            leaf_bytes, leaf_ops),
+        "paged_bank_scatter_batched": time_path(
+            lambda *a: paged_bank_scatter_batched(*a, page_size=PAGE_SIZE),
+            lambda *a: paged_bank_scatter_batched_ref(*a,
+                                                      page_size=PAGE_SIZE),
+            paged, leaf_bytes, leaf_ops),
+        "valid": valid.sum(1).tolist(), "cohort": c}
+
+
+# name -> (update clock, every trial checked against its sequential run
+# (else trial 0), the kernel its rounds launch)
+FIG2 = {"mifa_array": (False, True, "mifa_aggregate"),
+        "biased_fedavg": (False, False, None),
+        "fedavg_s50": (True, True, None),
+        "fedavg_s100": (True, False, None),
+        "fedavg_is": (False, False, None),
+        "banked_dense": (False, True, "bank_scatter_batched"),
+        "banked_paged": (False, False, "paged_bank_scatter_batched")}
+
+
+def fig2_algo(name, probs, device):
+    """A fresh instance of a Figure 2 algorithm (fig2_convergence.py:33-39)
+    and of the cohort fleets' banks (fleet_scale.py)."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.core import MIFA, BiasedFedAvg, FedAvgIS, FedAvgSampling
+    return {"mifa_array": lambda: MIFA(memory="array"),
+            "biased_fedavg": BiasedFedAvg,
+            "fedavg_s50": lambda: FedAvgSampling(s=N_CLIENTS // 2),
+            "fedavg_s100": lambda: FedAvgSampling(s=N_CLIENTS),
+            "fedavg_is": lambda: FedAvgIS(tuple(probs.tolist())),
+            "banked_dense": lambda: BankedMIFA(DenseBank(device=device)),
+            "banked_paged": lambda: BankedMIFA(PagedDeviceBank(
+                page_size=PAGE_SIZE, device=device))}[name]()
+
+
+def fleet_kw(name, problem, n_rounds, device) -> dict:
+    """run_fl / run_fleet arguments shared by a fleet and its sequential
+    runs: the cohort algorithms pin the cohort width."""
+    from repro_torch.optim import inv_t
+    model, batcher, probs, _ = problem
+    clock = FIG2[name][0]
+    cohort = name.startswith("banked")
+    return dict(model=model, algo=fig2_algo(name, probs, device),
+                batcher=batcher,
+                schedule=inv_t(1.0), n_rounds=n_rounds, weight_decay=1e-3,
+                uses_update_clock=clock,
+                cohort_capacity=FLEET_CAP if cohort else None, device=device)
+
+
+def run_fig2_fleet(name, problem, n_rounds, device, eval_fn=None):
+    """One Figure 2 algorithm as one `run_fleet` over seeds 0-2; returns
+    (params, history, per-round host seconds)."""
+    from repro_torch.core import BernoulliParticipation
+    from repro_torch.fleet import Trial, run_fleet
+    probs = problem[2]
+    parts = [BernoulliParticipation(probs, seed=100 + s) for s in FLEET_SEEDS]
+    parts[0] = TimedParticipation(parts[0])
+    trials = [Trial(seed=s, participation=p, label=f"{name}/seed{s}")
+              for s, p in zip(FLEET_SEEDS, parts)]
+    params, hist = run_fleet(trials=trials, eval_fn=eval_fn,
+                             eval_every=n_rounds,
+                             **fleet_kw(name, problem, n_rounds, device))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return params, hist, np.diff(parts[0].stamps)
+
+
+def run_fig2_trial(name, problem, k, n_rounds, device):
+    """Trial k of a Figure 2 fleet as a sequential `run_fl`."""
+    from repro_torch.core import BernoulliParticipation, run_fl
+    s = FLEET_SEEDS[k]
+    part = TimedParticipation(BernoulliParticipation(problem[2],
+                                                     seed=100 + s))
+    params, hist = run_fl(participation=part, seed=s,
+                          **fleet_kw(name, problem, n_rounds, device))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return params, hist, np.diff(part.stamps)
+
+
+def trial_gaps(fleet, k, seq) -> tuple[float, float]:
+    """Largest |difference| of fleet trial k and a sequential run: train
+    losses and final params."""
+    from repro_torch.tree import tree_index
+    return run_gaps((tree_index(fleet[0], k), fleet[1].trial(k)), seq)
+
+
+def fig2_phase(problem) -> tuple[dict, dict, list]:
+    """The Figure 2 sweep as seven fleets of three trials, FLEET_ROUNDS
+    rounds each, on the card. Returns (launches of each batched kernel in
+    its fleet's run, the fleets, report rows)."""
+    from repro_torch.fleet import make_fleet_eval
+    from repro_torch.tree import tree_leaves, tree_stack
+    model = problem[0]
+    fleet_eval = make_fleet_eval(model, problem[3].eval_batch,
+                                 device="cuda")
+    # the trials' initial params, as FleetRunner makes them
+    init_loss, _ = fleet_eval(tree_stack([
+        model.init(torch.Generator().manual_seed(s), device="cuda")
+        for s in FLEET_SEEDS]))
+    k_trials, n_leaves = len(FLEET_SEEDS), len(PATH_WIDTHS)
+    runs, launches, rows = {}, {}, []
+    for name, (clock, check_all, kernel) in FIG2.items():
+        reset_counts()
+        params, hist, dts = run_fig2_fleet(name, problem, FLEET_ROUNDS,
+                                           "cuda", fleet_eval)
+        counts = read_counts()
+        want = {"mifa_aggregate": FLEET_ROUNDS * n_leaves * k_trials,
+                "bank_scatter_batched": FLEET_ROUNDS * n_leaves,
+                "paged_bank_scatter_batched": FLEET_ROUNDS * n_leaves}
+        expected = {key: want[key] if key == kernel else 0 for key in counts}
+        check(counts == expected, f"fleet {name}: launches {counts}, "
+                                  f"expected {expected}")
+        if kernel in ("bank_scatter_batched", "paged_bank_scatter_batched"):
+            launches[kernel] = counts[kernel]
+        st = hist.stacked()
+        check(bool(np.isfinite(st["train_loss"]).all()) and all(
+            bool(torch.isfinite(p).all()) for p in tree_leaves(params)),
+              f"fleet {name}: non-finite losses or params")
+        final = st["eval_loss"][:, -1]
+        check(bool((final < init_loss).all()),
+              f"fleet {name}: eval loss {final} not below the initial "
+              f"{init_loss} in every trial")
+        runs[name] = (params, hist, dts)
+        # sequential runs of the checked trials, on the card
+        seq_dts, gaps = [], []
+        for k in (range(k_trials) if check_all else (0,)):
+            seq = run_fig2_trial(name, problem, k, FLEET_ROUNDS, "cuda")
+            seq_dts.append(np.median(seq[2][10:]))
+            d_loss, d_param = trial_gaps((params, hist), k, seq[:2])
+            gaps.append((d_loss, d_param))
+            check(d_loss <= DEVICE_ATOL and d_param <= DEVICE_ATOL,
+                  f"fleet {name} trial {k} vs its sequential run: |dloss| "
+                  f"{d_loss:.3e}, |dparam| {d_param:.3e} > {DEVICE_ATOL}")
+            check(hist.trial(k).n_active == seq[1].n_active
+                  and hist.trial(k).global_updates == seq[1].global_updates,
+                  f"fleet {name} trial {k}: masks or global updates differ "
+                  "from its sequential run")
+        fleet_ms = np.median(dts[10:]) * 1e3
+        seq_ms = float(np.mean(seq_dts)) * 1e3
+        gu = (f", global updates {st['global_updates'][:, -1].tolist()}"
+              if clock else "")
+        rows.append(
+            f"fleet {name}: K={k_trials} x {FLEET_ROUNDS} rounds, median "
+            f"{fleet_ms:.3f} ms/round (rounds 10-{FLEET_ROUNDS - 2}, host "
+            f"clock) vs K x sequential {k_trials * seq_ms:.3f} ms "
+            f"({seq_ms:.3f} ms/round, mean of the medians of "
+            f"{len(seq_dts)} run(s)); eval loss "
+            f"{[round(float(v), 4) for v in init_loss]} -> "
+            f"{[round(float(v), 4) for v in final]}; vs sequential trials "
+            f"{list(range(len(gaps)))}: max |dloss| "
+            f"{max(g[0] for g in gaps):.3e}, max |dparam| "
+            f"{max(g[1] for g in gaps):.3e}{gu}; launches {counts}")
+    # the cohort fleets: paged bit-equal to dense, dense near MIFA(array)
+    dense, paged = runs["banked_dense"], runs["banked_paged"]
+    p_loss = float(np.abs(paged[1].stacked()["train_loss"]
+                          - dense[1].stacked()["train_loss"]).max())
+    p_param = max((x - y).abs().max().item() for x, y in zip(
+        tree_leaves(paged[0]), tree_leaves(dense[0])))
+    check(p_loss == 0 and p_param == 0,
+          f"paged fleet is not bit-equal to the dense fleet: |dloss| "
+          f"{p_loss:.3e}, |dparam| {p_param:.3e}")
+    a = runs["mifa_array"][1].stacked()["train_loss"]
+    b = runs["banked_dense"][1].stacked()["train_loss"]
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-12)))
+    check(np.allclose(a, b, rtol=ANCHOR_RTOL, atol=ANCHOR_ATOL),
+          f"anchor property: the MIFA(array) and BankedMIFA(dense) fleets "
+          f"diverge (max rel gap {rel:.3e})")
+    rows.append(f"cohort fleets: BankedMIFA(PagedDeviceBank) bit-equal to "
+                f"BankedMIFA(DenseBank) over {FLEET_ROUNDS} rounds x "
+                f"{k_trials} trials; dense-bank fleet vs MIFA(array) fleet "
+                f"max rel train-loss gap {rel:.3e} (rtol {ANCHOR_RTOL})")
+    return launches, runs, rows
+
+
+def fleet_card_vs_cpu(problem_cuda, problem_cpu) -> str:
+    """The FedAvgSampling(S=50) fleet for FLEET_CPU_ROUNDS rounds on the
+    CPU (plain versions) and on the card, held together."""
+    from repro_torch.tree import tree_leaves
+    (p_cpu, h_cpu, _), (p_gpu, h_gpu, _) = (
+        run_fig2_fleet("fedavg_s50", prob, FLEET_CPU_ROUNDS, dev)
+        for dev, prob in (("cpu", problem_cpu), ("cuda", problem_cuda)))
+    s_cpu, s_gpu = h_cpu.stacked(), h_gpu.stacked()
+    check((s_cpu["global_updates"] == s_gpu["global_updates"]).all()
+          and (s_cpu["n_active"] == s_gpu["n_active"]).all(),
+          "fleet card vs CPU: global updates or masks differ")
+    check(np.allclose(s_cpu["train_loss"], s_gpu["train_loss"],
+                      rtol=DEVICE_RTOL, atol=DEVICE_ATOL),
+          "fleet card vs CPU: losses differ")
+    dparam = []
+    for x, y in zip(tree_leaves(p_cpu), tree_leaves(p_gpu)):
+        check(torch.allclose(x, y.cpu(), rtol=DEVICE_RTOL, atol=DEVICE_ATOL),
+              "fleet card vs CPU: params differ")
+        dparam.append((x - y.cpu()).abs().max().item())
+    dloss = np.abs(s_cpu["train_loss"] - s_gpu["train_loss"]).max()
+    return (f"fleet card vs CPU fedavg_s50: K={len(FLEET_SEEDS)} x "
+            f"{FLEET_CPU_ROUNDS} rounds, max |dparam| per leaf "
+            f"{['%.2e' % d for d in dparam]}, max |dloss| {dloss:.2e}, "
+            f"global updates {s_gpu['global_updates'][:, -1].tolist()} "
+            f"(rtol {DEVICE_RTOL}, atol {DEVICE_ATOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -876,17 +1281,24 @@ def main() -> int:
     mifa_err, rows = check_mifa(gen, active_path)
     bank_err, more = check_bank(gen, active_path)
     pscat_err, pgath_err, paged_rows = check_paged(gen, active_path)
-    for row in rows + more + paged_rows:
+    bb_err, pb_err, batched_rows = check_batched(gen, active_path)
+    for row in rows + more + paged_rows + batched_rows:
         print(row)
     timing = {"mifa_aggregate": time_mifa(gen, active_path),
               "bank_scatter": time_bank(gen, active_path),
               "paged_bank_scatter": time_paged_scatter(gen, active_path),
               "paged_bank_gather": time_paged_gather(gen, active_path)}
+    batched = time_batched(gen, problem[2])
+    timing.update({k: batched[k] for k in ("bank_scatter_batched",
+                                           "paged_bank_scatter_batched")})
     for name, t in timing.items():
         lib = ("" if t["library_ms"] is None
                else f", library {t['library_ms'] * 1e3:.2f} us")
-        print(f"{name} per round (6 leaves of paper_mlp, |A|="
-              f"{int(active_path.sum())}): kernel {t['ms'] * 1e3:.2f} us, "
+        shape = (f"K=3 trials, C={batched['cohort']}, valid "
+                 f"{batched['valid']}" if name.endswith("batched")
+                 else f"|A|={int(active_path.sum())}")
+        print(f"{name} per round (6 leaves of paper_mlp, {shape}): "
+              f"kernel {t['ms'] * 1e3:.2f} us, "
               f"plain {t['plain_ms'] * 1e3:.2f} us{lib}, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
               f"{t['bytes']} bytes)")
@@ -912,7 +1324,13 @@ def main() -> int:
         print(row)
     launches["paged_bank_gather"] = (evict_counts["paged_bank_gather"]
                                      + million_counts["paged_bank_gather"])
-    card_vs_cpu(params0, problem, paper_problem(device="cpu"))
+    problem_cpu = paper_problem(device="cpu")
+    card_vs_cpu(params0, problem, problem_cpu)
+    fleet_launches, _, rows = fig2_phase(problem)
+    launches.update(fleet_launches)
+    for row in rows:
+        print(row)
+    print(fleet_card_vs_cpu(problem, problem_cpu))
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -924,7 +1342,13 @@ def main() -> int:
             f"paged path BankedMIFA(PagedDeviceBank), {ROUNDS} rounds",
         "paged_bank_gather": "checks only: PagedDeviceBank.gather of all "
                              "rows in the eviction and million-client "
-                             "phases"}
+                             "phases",
+        "bank_scatter_batched":
+            f"Figure 2 fleet BankedMIFA(DenseBank), K=3, {FLEET_ROUNDS} "
+            "rounds",
+        "paged_bank_scatter_batched":
+            f"Figure 2 fleet BankedMIFA(PagedDeviceBank), K=3, "
+            f"{FLEET_ROUNDS} rounds"}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
@@ -934,7 +1358,11 @@ def main() -> int:
             ("paged_bank_scatter", "paged_bank.cu",
              "src/repro/kernels/bank_scatter.py:211", pscat_err),
             ("paged_bank_gather", "paged_bank.cu",
-             "src/repro/kernels/bank_scatter.py:291", pgath_err)):
+             "src/repro/kernels/bank_scatter.py:291", pgath_err),
+            ("bank_scatter_batched", "bank_scatter.cu",
+             "src/repro/kernels/bank_scatter.py:114", bb_err),
+            ("paged_bank_scatter_batched", "paged_bank.cu",
+             "src/repro/kernels/bank_scatter.py:342", pb_err)):
         t = timing[name]
         entries.append({
             "name": name, "route": "cuda",

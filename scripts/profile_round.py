@@ -18,8 +18,12 @@ device time of the port's own kernels, and the device ops that take the
 most time. Then it does the same for the million-client run of
 `chip_smoke.py` (N = 10⁶, `RoundRunner.step_cohort` through the paged bank),
 whose page-in (evictions to the host, uploads) the bank marks with its own
-range (`bank.paged_device.PAGE_IN_RANGE`, nested in `round.batch`). Prints
-one JSON object per algorithm; needs a CUDA card.
+range (`bank.paged_device.PAGE_IN_RANGE`, nested in `round.batch`). Last,
+two fleets of `chip_smoke.py`'s Figure 2 phase, K=3 trials (seeds 0-2,
+participation seeds 100+s) through `fleet.FleetRunner.step`, which marks
+the same phases: MIFA(array), and the cohort fleet BankedMIFA(DenseBank())
+at the pinned cohort width 64. Prints one JSON object per row; needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 # the hand-written kernels' CUDA names (src/repro_torch/kernels/csrc)
 PORT_KERNELS = ("mifa_aggregate_kernel", "bank_scatter_kernel",
-                "paged_scatter_kernel", "paged_gather_kernel")
+                "paged_scatter_kernel", "paged_gather_kernel",
+                "bank_scatter_batched_kernel", "paged_scatter_batched_kernel")
 # profiled rounds of the million-client run, all past the warm-up that fills
 # the free slots, so each of them evicts
 MILLION_PROFILE_ROUNDS = 8
@@ -108,11 +113,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import MILLION_SLOTS, million_runner, paper_problem
+    from chip_smoke import (FLEET_CAP, FLEET_SEEDS, MILLION_SLOTS,
+                            million_runner, paper_problem)
     from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
     from repro_torch.bank.paged_device import PAGE_IN_RANGE
     from repro_torch.core import MIFA, BernoulliParticipation, RoundRunner
     from repro_torch.core.runner import ROUND_PHASES
+    from repro_torch.fleet import FleetRunner
     from repro_torch.kernels.backend import build_kernels
     from repro_torch.optim import inv_t
 
@@ -140,6 +147,20 @@ def main() -> int:
     profile_rounds("million_paged", lambda t: draw(), runner.step_cohort,
                    warmup, MILLION_PROFILE_ROUNDS,
                    ROUND_PHASES + (PAGE_IN_RANGE,))
+    # two Figure 2 fleets of K=3 trials
+    for name, algo, cap in (
+            ("fleet_mifa_array", MIFA(), None),
+            ("fleet_banked_dense", BankedMIFA(DenseBank(device="cuda")),
+             FLEET_CAP)):
+        fleet = FleetRunner(model=model, algo=algo, batcher=batcher,
+                            schedule=inv_t(1.0), seeds=FLEET_SEEDS,
+                            weight_decay=1e-3, cohort_capacity=cap,
+                            device="cuda")
+        parts = [BernoulliParticipation(probs, seed=100 + s)
+                 for s in FLEET_SEEDS]
+        profile_rounds(name, lambda t, ps=parts: np.stack(
+            [p.sample(t) for p in ps]), fleet.step, 5, args.rounds,
+            ROUND_PHASES)
     return 0
 
 

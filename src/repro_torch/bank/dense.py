@@ -9,8 +9,10 @@ State layout (counterpart of `repro/bank/dense.py`):
 hand-written `bank_scatter` kernel updates the cohort's rows in place and
 returns the delta sum; on the CPU its plain version does the same work.
 `gather` is plain tensor indexing, as in the reference (no kernel).
-Mesh-sharded rows and the fleet scatter are not ported yet (ROADMAP Queue 1
-items 15 and 19).
+`scatter_fleet` takes stacked states (leaves (K, N+1, ...) and (K, ...))
+through `kernels.ops.fleet_bank_update_tree`: the batched kernel, one
+launch per leaf for all K trials, per trial bit-equal to `bank_scatter`.
+Mesh-sharded rows are not ported yet (ROADMAP Queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.bank.base import MemoryBank, tree_nbytes
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
-from repro_torch.kernels.ops import bank_update_tree
+from repro_torch.kernels.ops import bank_update_tree, fleet_bank_update_tree
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -52,16 +54,27 @@ class DenseBank(MemoryBank):
         ids_t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
         return tree_map(lambda r: r[ids_t].float(), state["rows"])
 
-    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
+    def _ids_on_device(self, ids, valid) -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
         ids = np.asarray(ids, np.int64)
         if ids.size and (ids.min() < 0 or ids.max() >= self.n_rows):
             raise IndexError(f"bank row ids must lie in [0, {self.n_rows}), "
                              f"got [{ids.min()}, {ids.max()}]")
         valid = (np.ones(ids.shape, bool) if valid is None
                  else np.asarray(valid, bool))
-        ids_t = torch.from_numpy(ids).to(self.device)
-        valid_t = torch.from_numpy(valid).to(self.device)
-        rows, dsum = bank_update_tree(state["rows"], updates, ids_t, valid_t)
+        return (torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(valid).to(self.device))
+
+    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
+        rows, dsum = bank_update_tree(state["rows"], updates,
+                                      *self._ids_on_device(ids, valid))
+        g_sum = tree_map(torch.add, state["g_sum"], dsum)
+        return {"rows": rows, "g_sum": g_sum}
+
+    def _scatter_fleet_rows(self, state: dict, ids, updates, *,
+                            valid) -> dict:
+        rows, dsum = fleet_bank_update_tree(state["rows"], updates,
+                                            *self._ids_on_device(ids, valid))
         g_sum = tree_map(torch.add, state["g_sum"], dsum)
         return {"rows": rows, "g_sum": g_sum}
 

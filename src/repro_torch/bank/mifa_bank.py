@@ -3,8 +3,9 @@
 Mathematically identical to `core.mifa.MIFA(memory="array")`: each round the
 cohort's fresh updates replace their stored rows, and the server moves by
 η · G_sum / N. `RoundRunner` detects `cohort_based = True` and switches to
-the compact round path. Counterpart of `repro/bank/mifa_bank.py`; the fleet
-step `round_step_cohort_fleet` is not ported yet (ROADMAP Queue 1 item 15).
+the compact round path, and `fleet.FleetRunner` to
+`round_step_cohort_fleet`, which applies K trials' cohorts in one batched
+scatter. Counterpart of `repro/bank/mifa_bank.py`.
 """
 from __future__ import annotations
 
@@ -39,4 +40,19 @@ class BankedMIFA:
         v = torch.as_tensor(valid, dtype=torch.float32, device=losses.device)
         loss = (losses * v).sum() / v.sum().clamp(min=1.0)
         metrics = {"loss": loss, "n_active": v.sum()}
+        return ({"bank": bank_state, "t": state["t"] + 1}, mean_g, metrics)
+
+    def round_step_cohort_fleet(self, state: dict, ids, valid, updates,
+                                losses: torch.Tensor):
+        """Stacked-trial cohort round: ids/valid (K, C) host numpy, update
+        leaves (K, C, ...), losses (K, C). Per trial the math of
+        `round_step_cohort`; the bank applies all K scatters in one batched
+        call. Returns (new_state, mean_G (K, ...), metrics with (K,)
+        leaves)."""
+        bank_state = self.bank.scatter_fleet(state["bank"], ids, updates,
+                                             valid=valid)
+        mean_g = self.bank.mean_g(bank_state)
+        v = torch.as_tensor(valid, dtype=torch.float32, device=losses.device)
+        loss = (losses * v).sum(1) / v.sum(1).clamp(min=1.0)
+        metrics = {"loss": loss, "n_active": v.sum(1)}
         return ({"bank": bank_state, "t": state["t"] + 1}, mean_g, metrics)

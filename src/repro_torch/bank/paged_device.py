@@ -41,8 +41,16 @@ Host bookkeeping: a numpy mirror of the page table, a slot → logical page
 map, the free list (popped 0, 1, 2, …), LRU stamps, and the spill store
 {logical page: per-leaf CPU tensors (page_size, *shape)}.
 
-Not ported yet: int8 pages (ROADMAP Queue 1 item 10), `scatter_fleet`
-(item 15) and `host_state` / `load_host_state` (item 17).
+Fleets: a fleet state stacks K trials' states, so pages leaves are
+(K, R, *shape), g_sum (K, *shape) and the page table (K, P), K identical
+copies of one table. All trials share one residency map (this object's
+host bookkeeping): `prepare` faults in the union of the trials' cohorts,
+evicts and pages in along axis 1, and a spill block holds the page of
+every trial, (K, page_size, *shape). `scatter_fleet` goes through the
+batched kernel, one launch per leaf for all K trials.
+
+Not ported yet: int8 pages (ROADMAP Queue 1 item 10) and `host_state` /
+`load_host_state` (item 17).
 """
 from __future__ import annotations
 
@@ -52,9 +60,10 @@ from torch.profiler import record_function
 
 from repro_torch.bank.base import MemoryBank, tree_nbytes
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
-from repro_torch.kernels.ops import (paged_bank_gather_tree,
+from repro_torch.kernels.ops import (fleet_paged_bank_update_tree,
+                                     paged_bank_gather_tree,
                                      paged_bank_update_tree)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 # Profiler range around a fault's page-in (evictions to the host, uploads,
 # the page-table update); `scripts/profile_round.py` reads it. With no
@@ -149,6 +158,10 @@ class PagedDeviceBank(MemoryBank):
     # residency: host bookkeeping, then a few batched device copies
     # ------------------------------------------------------------------ #
 
+    @staticmethod
+    def _is_fleet(state: dict) -> bool:
+        return state["page_table"].ndim == 2
+
     def _page_rows(self, slots) -> torch.Tensor:
         ps = self.page_size
         rows = np.concatenate([np.arange(s * ps, (s + 1) * ps)
@@ -161,7 +174,8 @@ class PagedDeviceBank(MemoryBank):
         Evicts deterministic-LRU victims to the spill store and brings the
         faulted pages in (spilled data, or zeros for pages never written).
         Updates the state's tensors in place and returns the state. Raises
-        when the working set cannot fit in `n_slots`.
+        when the working set cannot fit in `n_slots`. For a fleet state
+        `ids` are the union of the trials' cohorts.
         """
         ps = self.page_size
         ids = np.asarray(ids, np.int64).reshape(-1)
@@ -212,12 +226,13 @@ class PagedDeviceBank(MemoryBank):
             assign.append((lp, slot))
 
         leaves = tree_leaves(state["pages"])
+        ax = 1 if self._is_fleet(state) else 0     # the row axis
         # 2) evicted pages to the host: one gather and one copy per leaf
         if evict:
             rows = self._page_rows(s for _, s in evict)
-            host = [leaf.index_select(0, rows).cpu() for leaf in leaves]
+            host = [leaf.index_select(ax, rows).cpu() for leaf in leaves]
             for k, (victim, _) in enumerate(evict):
-                self._spill[victim] = [h[k * ps:(k + 1) * ps].clone()
+                self._spill[victim] = [h.narrow(ax, k * ps, ps).clone()
                                        for h in host]
 
         # 3) faulted pages in: spilled data goes up with one index_copy_
@@ -230,23 +245,24 @@ class PagedDeviceBank(MemoryBank):
         if fresh:
             rows = self._page_rows(fresh)
             for leaf in leaves:
-                leaf.index_fill_(0, rows, 0)
+                leaf.index_fill_(ax, rows, 0)
         back = [(lp, s) for lp, s in assign if lp in spilled]
         if back:
             rows = self._page_rows(s for _, s in back)
             for j, leaf in enumerate(leaves):
-                vals = torch.cat([spilled[lp][j] for lp, _ in back])
-                leaf.index_copy_(0, rows, vals.to(self.device))
+                vals = torch.cat([spilled[lp][j] for lp, _ in back], dim=ax)
+                leaf.index_copy_(ax, rows, vals.to(self.device))
 
         # 4) the page table: the mirror, then the changed entries on device
+        #    (in every trial's copy of a fleet's table)
         for lp, slot in assign:
             self._pt[lp] = slot
             self._slot_lp[slot] = lp
         changed = np.asarray([v for v, _ in evict] + [lp for lp, _ in assign],
                              np.int64)
-        state["page_table"].index_copy_(
-            0, torch.from_numpy(changed).to(self.device),
-            torch.from_numpy(self._pt[changed]).to(self.device))
+        state["page_table"][..., torch.from_numpy(changed).to(
+            self.device)] = torch.from_numpy(self._pt[changed]).to(
+                self.device)
 
     # ------------------------------------------------------------------ #
     def _lids(self, ids: np.ndarray) -> torch.Tensor:
@@ -256,6 +272,14 @@ class PagedDeviceBank(MemoryBank):
         return torch.from_numpy(lids).to(self.device)
 
     def gather(self, state: dict, ids):
+        return self._gather(state, ids)
+
+    def _gather_trial(self, state: dict, k: int, ids):
+        return self._gather(tree_index(state, k), ids, trial=k)
+
+    def _gather(self, state: dict, ids, trial: int | None = None):
+        """Rows `ids` of a single-trial state; `trial` is the state's slot
+        in a fleet, whose spill blocks hold every trial's page."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ids.size and ids.min() < 0:
             raise IndexError(f"bank row ids must be >= 0, got {ids.min()}")
@@ -270,13 +294,19 @@ class PagedDeviceBank(MemoryBank):
         if pos.size:
             pos_t = torch.from_numpy(pos).to(self.device)
             for j, leaf in enumerate(tree_leaves(out)):
-                rows = torch.stack([self._spill[int(ids[c] // ps)][j]
-                                    [int(ids[c] % ps)] for c in pos])
+                blocks = [self._spill[int(ids[c] // ps)][j] for c in pos]
+                if trial is not None:
+                    blocks = [b[trial] for b in blocks]
+                rows = torch.stack([b[int(ids[c] % ps)]
+                                    for b, c in zip(blocks, pos)])
                 leaf.index_copy_(0, pos_t,
                                  rows.to(self.device, torch.float32))
         return out
 
-    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
+    def _resident_cohort(self, state: dict, ids, valid):
+        """Page the cohort in (for a fleet, the union of the trials') and
+        check it: returns (state, lids, valid) on the device for the
+        kernels."""
         ids = np.asarray(ids, np.int64)
         valid = (np.ones(ids.shape, bool) if valid is None
                  else np.asarray(valid, bool))
@@ -290,14 +320,25 @@ class PagedDeviceBank(MemoryBank):
         if (self._pt[ids[valid] // self.page_size] == self.sentinel).any():
             raise RuntimeError("a valid cohort row's page is not resident "
                                "after prepare (page-table invariant broken)")
+        return state, self._lids(ids), torch.from_numpy(valid).to(
+            self.device)
+
+    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
+        state, lids, valid_t = self._resident_cohort(state, ids, valid)
         pages, dsum = paged_bank_update_tree(
-            state["pages"], updates, state["page_table"], self._lids(ids),
-            torch.from_numpy(valid).to(self.device), page_size=self.page_size)
+            state["pages"], updates, state["page_table"], lids, valid_t,
+            page_size=self.page_size)
         return {"pages": pages, "page_table": state["page_table"],
                 "g_sum": tree_map(torch.add, state["g_sum"], dsum)}
 
-    def scatter_fleet(self, state: dict, ids, updates, *, valid=None):
-        raise _not_ported("scatter_fleet", "15")
+    def _scatter_fleet_rows(self, state: dict, ids, updates, *,
+                            valid) -> dict:
+        state, lids, valid_t = self._resident_cohort(state, ids, valid)
+        pages, dsum = fleet_paged_bank_update_tree(
+            state["pages"], updates, state["page_table"], lids, valid_t,
+            page_size=self.page_size)
+        return {"pages": pages, "page_table": state["page_table"],
+                "g_sum": tree_map(torch.add, state["g_sum"], dsum)}
 
     def host_state(self) -> dict:
         raise _not_ported("host_state", "17")
@@ -326,7 +367,8 @@ class PagedDeviceBank(MemoryBank):
         """Page-table invariants: no aliased slots, free-list conservation,
         mirror consistency, no page both resident and spilled; with `state`,
         also that the device table matches the mirror and the dummy page is
-        exact zeros. Raises AssertionError on the first one broken."""
+        exact zeros (for a fleet state, that every trial's copy of the table
+        is the mirror). Raises AssertionError on the first one broken."""
         resident = {int(lp): int(s) for lp, s in enumerate(self._pt[:self.lp])
                     if s != self.sentinel}
         slots = list(resident.values())
@@ -346,10 +388,15 @@ class PagedDeviceBank(MemoryBank):
         _require(set(self._spill).isdisjoint(resident),
                  "page both resident and spilled")
         if state is not None:
-            _require(bool((state["page_table"].cpu().numpy()
-                           == self._pt).all()),
+            fleet = self._is_fleet(state)
+            pt = state["page_table"].cpu().numpy()
+            if fleet:
+                _require(bool((pt == pt[0]).all()),
+                         "fleet page tables diverged")
+                pt = pt[0]
+            _require(bool((pt == self._pt).all()),
                      "device page table != host mirror")
             start = self.n_slots * self.page_size
             for leaf in tree_leaves(state["pages"]):
-                _require(not (leaf[start:] != 0).any(),
-                         "dummy page not zero")
+                dummy = leaf[:, start:] if fleet else leaf[start:]
+                _require(not dummy.any(), "dummy page not zero")

@@ -1,3 +1,6 @@
+from repro_torch.core.baselines import (CAFed, BiasedFedAvg,  # noqa: F401
+                                        FedAR, FedAvgIS, FedAvgSampling,
+                                        FedBuffAvg, SCAFFOLDSampling)
 from repro_torch.core.local_update import (client_updates,  # noqa: F401
                                            device_update)
 from repro_torch.core.mifa import MIFA  # noqa: F401

@@ -1,0 +1,246 @@
+"""FedAvg baselines under device unavailability (paper §3 / Algorithm 2).
+
+Counterpart of `repro/core/baselines.py`, for the baselines of the paper's
+Figure 2:
+
+  * BiasedFedAvg      — average the *active* devices' updates only. Fast but
+                        biased when availability correlates with data.
+  * FedAvgIS          — importance sampling: weight active updates by 1/p_i.
+                        Unbiased but needs the participation probabilities.
+  * FedAvgSampling    — the original FedAvg protocol: sample S devices, then
+                        *wait* across rounds until all S have responded; only
+                        then apply a global update (paper Eq. 3). Its state
+                        counts applied updates in `t_updates`, which the
+                        runner's update clock reads.
+  * SCAFFOLDSampling  — SCAFFOLD control variates on the S-device sampling
+                        protocol.
+
+All share MIFA's round API: init_state / round_step(state, params, updates,
+losses, active, eta, rng=None), plain torch on the run's device. `rng` is
+the run's round generator, a CPU `torch.Generator` seeded from the run's
+seed; FedAvgSampling draws its selection from it every round, used or not,
+as the reference draws `jax.random.permutation` every round. Torch cannot
+reproduce the reference's threefry bits, so parity tests inject the
+reference's selections through `FedAvgSampling._resample`.
+
+`FedAR`, `CAFed` and `FedBuffAvg` are not ported yet (ROADMAP Queue 1 item
+14): constructing one raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from repro_torch.core.mifa import _bcast
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _apply(params, mean_g, eta: float):
+    """w <- w - η·mean_G, in the params' dtype."""
+    return tree_map(lambda w, g: (w - eta * g).to(w.dtype), params, mean_g)
+
+
+def _active_loss(losses: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """Mean local loss of the active devices (0 when none is active)."""
+    return (losses * act).sum() / act.sum().clamp(min=1.0)
+
+
+def _zero_count(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _device_of(params) -> torch.device:
+    return tree_leaves(params)[0].device
+
+
+@dataclass(frozen=True)
+class BiasedFedAvg:
+    assumes: ClassVar[str] = "none"
+
+    def init_state(self, params, n_clients: int) -> dict:
+        return {"t": _zero_count(_device_of(params))}
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        act = active.float()
+        denom = act.sum().clamp(min=1.0)
+        mean_g = tree_map(lambda u: (u * _bcast(act, u)).sum(0) / denom,
+                          updates)
+        return ({"t": state["t"] + 1}, _apply(params, mean_g, eta),
+                {"loss": (losses * act).sum() / denom,
+                 "n_active": act.sum()})
+
+
+@dataclass(frozen=True)
+class FedAvgIS:
+    """Needs the true participation probabilities (N,).
+
+    `probs` rides the algorithm state, as in the reference, so trials with
+    different probability vectors stack along the fleet's trial axis.
+    Zero-probability clients are excluded from the importance sum rather
+    than divided by: a p_i = 0 device can never legitimately participate.
+    """
+
+    probs: tuple
+    assumes: ClassVar[str] = "iid_known_probs"
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "probs",
+            tuple(float(p) for p in np.atleast_1d(np.asarray(self.probs))))
+
+    def init_state(self, params, n_clients: int) -> dict:
+        if len(self.probs) != n_clients:
+            raise ValueError(f"FedAvgIS has {len(self.probs)} probabilities "
+                             f"for {n_clients} clients")
+        dev = _device_of(params)
+        return {"t": _zero_count(dev),
+                "probs": torch.tensor(self.probs, dtype=torch.float32,
+                                      device=dev)}
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        act = active.float()
+        p = state["probs"]
+        w_is = torch.where(p > 0, act / p.clamp(min=1e-12),
+                           torch.zeros_like(p))
+        n = act.shape[0]
+        mean_g = tree_map(lambda u: (u * _bcast(w_is, u)).sum(0) / n,
+                          updates)
+        return ({"t": state["t"] + 1, "probs": p},
+                _apply(params, mean_g, eta),
+                {"loss": _active_loss(losses, act), "n_active": act.sum()})
+
+
+@dataclass(frozen=True)
+class FedAvgSampling:
+    """FedAvg with device sampling: wait for the S selected devices."""
+
+    s: int
+    assumes: ClassVar[str] = "none"
+
+    def init_state(self, params, n_clients: int) -> dict:
+        dev = _device_of(params)
+        return {
+            "selected": torch.zeros(n_clients, dtype=torch.bool, device=dev),
+            "received": torch.zeros(n_clients, dtype=torch.bool, device=dev),
+            "U": tree_map(lambda p: torch.zeros(
+                (n_clients,) + tuple(p.shape), dtype=torch.float32,
+                device=dev), params),
+            "t": _zero_count(dev),                 # communication rounds
+            "t_updates": _zero_count(dev),         # applied global updates
+            "need_resample": torch.ones((), dtype=torch.bool, device=dev),
+        }
+
+    def _resample(self, rng: torch.Generator, n: int) -> torch.Tensor:
+        """(n,) bool CPU mask of S devices drawn without replacement."""
+        perm = torch.randperm(n, generator=rng)
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[perm[:self.s]] = True
+        return mask
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        if rng is None:
+            raise ValueError("FedAvgSampling needs the round generator "
+                             "(rng=) to sample devices")
+        n = active.shape[0]
+        need = state["need_resample"]
+        fresh = self._resample(rng, n).to(active.device)
+        selected = torch.where(need, fresh, state["selected"])
+        received = state["received"] & ~need
+
+        newly = selected & active & ~received
+        U = tree_map(lambda u_old, u: torch.where(_bcast(newly, u), u, u_old),
+                     state["U"], updates)
+        received = received | newly
+        complete = (~selected | received).all()
+
+        sel = selected.float()
+        mean_g = tree_map(lambda u: (u * _bcast(sel, u)).sum(0) / self.s, U)
+        new_params = tree_map(
+            lambda w, g: torch.where(complete, (w - eta * g).to(w.dtype), w),
+            params, mean_g)
+        act = active.float()
+        t_updates = state["t_updates"] + complete.int()
+        new_state = {"selected": selected, "received": received, "U": U,
+                     "t": state["t"] + 1, "t_updates": t_updates,
+                     "need_resample": complete}
+        return new_state, new_params, {
+            "loss": _active_loss(losses, act), "n_active": act.sum(),
+            "global_updates": t_updates.float()}
+
+
+_SAMPLING_KEYS = ("selected", "received", "U", "t", "t_updates",
+                  "need_resample")
+
+
+@dataclass(frozen=True)
+class SCAFFOLDSampling:
+    """SCAFFOLD (Karimireddy et al. 2020) on the S-device sampling protocol.
+
+    Control variates c_i (per device) and c (server). The corrected update
+    of device i is u_i − K·(c_i − c); on completion
+       c_i ← c_i + (u_i/K − c_i)·1[i∈S],   c ← c + (S/N)·mean_{i∈S}(Δc_i).
+    """
+
+    s: int
+    k_steps: int
+    assumes: ClassVar[str] = "none"
+
+    def init_state(self, params, n_clients: int) -> dict:
+        st = FedAvgSampling(self.s).init_state(params, n_clients)
+        st["c_i"] = tree_map(lambda u: torch.zeros_like(u), st["U"])
+        st["c"] = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        return st
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        if rng is None:
+            raise ValueError("SCAFFOLDSampling needs the round generator "
+                             "(rng=) to sample devices")
+        n = active.shape[0]
+        k = float(self.k_steps)
+        vr_updates = tree_map(lambda u, ci, c: u - k * (ci - c[None]),
+                              updates, state["c_i"], state["c"])
+        sub = {key: state[key] for key in _SAMPLING_KEYS}
+        new_sub, new_params, metrics = FedAvgSampling(self.s).round_step(
+            sub, params, vr_updates, losses, active, eta, rng)
+
+        complete = new_sub["need_resample"]
+        sel = new_sub["selected"]
+        upd = sel & complete
+        # U holds the corrected update; invert the (c - c_i) correction
+        c_i_new = tree_map(
+            lambda ui, ci, c: torch.where(_bcast(upd, ui),
+                                          ui / k + (ci - c[None]), ci),
+            new_sub["U"], state["c_i"], state["c"])
+        sel32 = sel.float()
+        dc = tree_map(lambda cin, ci: (cin - ci) * _bcast(sel32, cin),
+                      c_i_new, state["c_i"])
+        c_new = tree_map(
+            lambda c, d: torch.where(complete, c + d.sum(0) / n, c),
+            state["c"], dc)
+        new_state = dict(new_sub)
+        new_state["c_i"] = tree_map(
+            lambda a, b: torch.where(complete, a, b), c_i_new, state["c_i"])
+        new_state["c"] = c_new
+        return new_state, new_params, metrics
+
+
+def _not_ported(name: str):
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 "
+                                  "item 14)")
+    return type(name, (), {"__init__": __init__,
+                           "__doc__": f"Not ported yet: {name} (ROADMAP "
+                                      "Queue 1 item 14)."})
+
+
+FedAR = _not_ported("FedAR")
+CAFed = _not_ported("CAFed")
+FedBuffAvg = _not_ported("FedBuffAvg")

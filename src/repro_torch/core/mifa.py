@@ -65,11 +65,10 @@ class MIFA:
                 "t": 0}
 
     def round_step(self, state: dict, params, updates, losses: torch.Tensor,
-                   active: torch.Tensor, eta: float):
+                   active: torch.Tensor, eta: float, rng=None):
         """updates: tree (N, ...) f32 — fresh K-step updates for ALL clients
         (the active mask selects which are used). `active` (N,) bool on the
-        params' device. The reference's `rng` feeds only int8 memory, which
-        is not ported. On the card the array layout updates G in place; the
+        params' device. `rng` feeds only int8 memory, which is not ported. On the card the array layout updates G in place; the
         state passed in must not be reused.
         """
         act = active.float()

@@ -14,6 +14,12 @@ Two round paths, selected by the algorithm:
     a power-of-two bucket, applied through the algorithm's memory bank. Pad slots carry valid=False and point at the
     bank's dummy row N.
 
+Each run keeps a round generator, a CPU `torch.Generator` seeded with the
+run's seed, and passes it to `algo.round_step(..., rng=)`: the sampling
+baselines draw their device selection from it. With `uses_update_clock`
+the schedules count applied global updates (`state["t_updates"]`, read on
+the host before each round) instead of rounds.
+
 Not ported yet: scenarios (`scenario=`, ROADMAP Queue 1 item 13), the
 runtime simulator (`sim=`, item 16), checkpoints (`checkpoint=`, item 17),
 meshes (`mesh=`, item 19) and the scan engine (`engine="scan"`, item 12).
@@ -38,15 +44,16 @@ from repro_torch.tree import tree_map
 
 @dataclass
 class FLHistory:
-    """Per-round history. The reference's `global_updates`, `sim_seconds`
-    and `eval_seconds` come with the baselines and the simulator (ROADMAP
-    Queue 1 items 6, 16)."""
+    """Per-round history. `global_updates` is filled by algorithms that
+    report it (the sampling baselines). The reference's `sim_seconds` and
+    `eval_seconds` come with the simulator (ROADMAP Queue 1 item 16)."""
 
     rounds: list = field(default_factory=list)
     train_loss: list = field(default_factory=list)
     eval_loss: list = field(default_factory=list)
     eval_acc: list = field(default_factory=list)
     n_active: list = field(default_factory=list)
+    global_updates: list = field(default_factory=list)
     wall_time: float = 0.0
     tau_bar: float = 0.0
     tau_max: int = 0
@@ -55,13 +62,16 @@ class FLHistory:
         """Plain-dict view of every history field (JSON-serialisable)."""
         return {k: getattr(self, k) for k in
                 ("rounds", "train_loss", "eval_loss", "eval_acc", "n_active",
-                 "wall_time", "tau_bar", "tau_max")}
+                 "global_updates", "wall_time", "tau_bar", "tau_max")}
 
     def record_round(self, t: int, metrics: dict) -> None:
-        """Append round t's metrics dict (loss, n_active)."""
+        """Append round t's metrics dict (loss, n_active, optional
+        global_updates)."""
         self.rounds.append(t)
         self.train_loss.append(float(metrics["loss"]))
         self.n_active.append(float(metrics["n_active"]))
+        if "global_updates" in metrics:
+            self.global_updates.append(float(metrics["global_updates"]))
 
     def record_eval(self, t: int, eval_loss: float, eval_acc: float) -> None:
         """Append an (round, value) eval point."""
@@ -74,12 +84,21 @@ def _pow2_bucket(c: int) -> int:
     return 1 << max(int(np.ceil(np.log2(max(c, 1)))), 0)
 
 
-def pad_cohort(ids: np.ndarray,
-               n_clients: int) -> tuple[np.ndarray, np.ndarray]:
-    """Pad the cohort `ids` to its power-of-two bucket. Pad slots point at
-    the dummy row `n_clients` and are invalid. Returns (padded, valid)."""
+def cohort_width(c: int, capacity: int | None) -> int:
+    """Pad width of a cohort of c: `capacity` when pinned and c fits, else
+    the power-of-two bucket of c."""
+    return capacity if capacity is not None and c <= capacity \
+        else _pow2_bucket(c)
+
+
+def pad_cohort(ids: np.ndarray, n_clients: int,
+               capacity: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Pad the cohort `ids` to `capacity` (a pinned pad width), or to its
+    power-of-two bucket when none is pinned or the cohort overflows it. Pad
+    slots point at the dummy row `n_clients` and are invalid. Returns
+    (padded, valid)."""
     c = len(ids)
-    cap = _pow2_bucket(c)
+    cap = cohort_width(c, capacity)
     padded = np.full(cap, n_clients, np.int64)
     padded[:c] = ids
     return padded, np.arange(cap) < c
@@ -107,14 +126,18 @@ class RoundRunner:
     """One federated round + bookkeeping.
 
     `params` (optional) is a tree of tensors, moved to `device`; without it
-    the model is initialised from a torch.Generator seeded with `seed`. The
-    reference's per-round RNG only feeds int8 memory, which is not ported,
-    so the port keeps none.
+    the model is initialised from a torch.Generator seeded with `seed`.
+    The round generator `rng` is a second CPU generator seeded with `seed`,
+    the same whether or not `params` is given (the reference splits its
+    round key from PRNGKey(seed) either way). `cohort_capacity` pins the
+    cohort path's pad width.
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
                  eta_local: Callable | float | None = None,
                  weight_decay: float = 0.0, seed: int = 0, params=None,
+                 uses_update_clock: bool = False,
+                 cohort_capacity: int | None = None,
                  device: str | torch.device = DEFAULT_DEVICE):
         self.device = resolve_device(device)
         set_numerics()
@@ -124,6 +147,9 @@ class RoundRunner:
         self.schedule = schedule
         self.eta_local = eta_local
         self.weight_decay = weight_decay
+        self.uses_update_clock = uses_update_clock
+        self.cohort_capacity = cohort_capacity
+        self.rng = torch.Generator().manual_seed(seed)
         if params is None:
             self.params = model.init(torch.Generator().manual_seed(seed),
                                      device=self.device)
@@ -138,8 +164,12 @@ class RoundRunner:
         self.cohort_mode = getattr(algo, "cohort_based", False)
 
     def learning_rates(self, t: int) -> tuple[float, float]:
-        """η_local, η_server for round t (schedules count from 1)."""
-        clock = t + 1
+        """η_local, η_server for round t (schedules count from 1; with the
+        update clock they count applied global updates instead)."""
+        if self.uses_update_clock and "t_updates" in self.state:
+            clock = int(self.state["t_updates"]) + 1
+        else:
+            clock = t + 1
         eta_srv = float(self.schedule(clock))
         if self.eta_local is None:
             eta_loc = eta_srv
@@ -170,7 +200,8 @@ class RoundRunner:
         with record_function(server_ph):
             self.state, self.params, metrics = self.algo.round_step(
                 self.state, self.params, updates, losses,
-                torch.from_numpy(active).to(self.device), eta_srv)
+                torch.from_numpy(active).to(self.device), eta_srv,
+                rng=self.rng)
             self.hist.record_round(t, metrics)
         return metrics
 
@@ -187,7 +218,8 @@ class RoundRunner:
         with record_function(batch_ph):
             ids = np.asarray(ids, np.int64)
             check_unique_ids(ids)    # duplicates would corrupt G_sum
-            padded, valid = pad_cohort(ids, self.n_clients)
+            padded, valid = pad_cohort(ids, self.n_clients,
+                                       self.cohort_capacity)
             # pad slots still need some real client's batch; row 0's content
             # is computed then discarded by the valid mask
             batch = _to_device(self.batcher.sample_round(
@@ -226,7 +258,9 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
            eta_local: Callable | float | None = None,
            weight_decay: float = 0.0, seed: int = 0,
            eval_fn: Callable | None = None, eval_every: int = 10,
-           params=None, engine: str = "loop", checkpoint=None, mesh=None,
+           params=None, uses_update_clock: bool = False,
+           cohort_capacity: int | None = None, engine: str = "loop",
+           checkpoint=None, mesh=None,
            device: str | torch.device = DEFAULT_DEVICE
            ) -> tuple[Any, FLHistory]:
     """Run T round-synchronous rounds of federated training on `device`.
@@ -234,12 +268,15 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     Availability comes from `participation` (``.sample(t) -> (N,) bool``),
     one draw per round on the host. `batcher.sample_round(t)` gives numpy
     batches with leaves (N, K, mb, ...); `schedule(t)` the server learning
-    rate (`eta_local` overrides the client-side rate). The update-clock
-    schedules of the sampling baselines come with them (ROADMAP Queue 1
-    item 6). `seed` keys model
-    init (or pass `params`); `weight_decay` applies to the K local steps.
-    `eval_fn(params) -> (loss, acc)` runs every `eval_every` rounds and at
-    the last round.
+    rate (`eta_local` overrides the client-side rate);
+    `uses_update_clock` drives the schedules off applied global updates
+    (FedAvgSampling-style). `seed` keys model init (or pass `params`) and
+    the round generator; `weight_decay` applies to the K local steps.
+    `cohort_capacity` pins the cohort path's pad width (default: per-round
+    power-of-two buckets); pad slots are inert, but the reduction grouping
+    of local training depends on the padded length, so pin it when holding
+    two drivers' trajectories together. `eval_fn(params) -> (loss, acc)`
+    runs every `eval_every` rounds and at the last round.
     """
     if scenario is not None:
         raise _not_ported("scenario=", "13")
@@ -256,7 +293,8 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     runner = RoundRunner(model=model, algo=algo, batcher=batcher,
                          schedule=schedule, eta_local=eta_local,
                          weight_decay=weight_decay, seed=seed, params=params,
-                         device=device)
+                         uses_update_clock=uses_update_clock,
+                         cohort_capacity=cohort_capacity, device=device)
     t0 = time.time()
     for t in range(n_rounds):
         active = participation.sample(t)

@@ -1,16 +1,17 @@
-"""Fused memory-bank row gather / delta / scatter: the CUDA kernel's wrapper
-and its plain version.
+"""Fused memory-bank row gather / delta / scatter: the CUDA kernels'
+wrappers and their plain versions, for one bank and for K stacked banks.
 
     dsum = Σ_{valid a} (cast(u_a) − bank[ids[a]]);   bank[ids[a]] = cast(u_a)
 
-`bank_scatter` decides by the tensors' device: CUDA tensors launch the
-hand-written kernel `csrc/bank_scatter.cu` (which replaces the TPU kernel
-`repro/kernels/bank_scatter.py::bank_scatter`), CPU tensors take
-`bank_scatter_ref`. On the card the bank is updated in place and returned;
-callers must not reuse the bank they passed in. The paged scatter and
-gather are in `kernels.paged_bank` (the kernel body is shared, see
-`csrc/scatter_rows.cuh`); the batched kernels wait for the fleet (ROADMAP
-Queue 2 items 3 and 5).
+`bank_scatter` and `bank_scatter_batched` decide by the tensors' device:
+CUDA tensors launch the hand-written kernels of `csrc/bank_scatter.cu`
+(which replace the TPU kernels `repro/kernels/bank_scatter.py::bank_scatter`
+and `bank_scatter_batched`), CPU tensors take the `_ref` versions. On the
+card the banks are updated in place and returned; callers must not reuse
+the banks they passed in. The batched kernel runs trial k through the same
+body as the single-trial one, so per trial it is bit-equal to it. The paged
+scatter and gather are in `kernels.paged_bank` (the kernel body is shared,
+see `csrc/scatter_rows.cuh`).
 """
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ def bank_scatter_ref(bank: torch.Tensor, updates: torch.Tensor,
     new_bank = bank.clone()
     new_bank[ids] = torch.where(vb, u_st, old)
     return new_bank, delta.sum(0)
+
+
+def bank_scatter_batched_ref(banks: torch.Tensor, updates: torch.Tensor,
+                             ids: torch.Tensor, valid: torch.Tensor):
+    """Plain version: `bank_scatter_ref` on each trial (the reference's
+    vmapped `_scatter_jnp`). banks (K, R, M); updates (K, C, M); ids, valid
+    (K, C). Returns (new_banks (K, R, M), dsum (K, M) f32)."""
+    out = [bank_scatter_ref(b, u, i, v)
+           for b, u, i, v in zip(banks, updates, ids, valid)]
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]))
 
 
 def _check(bank, updates, ids, valid) -> None:
@@ -77,3 +89,42 @@ def bank_scatter(bank: torch.Tensor, updates: torch.Tensor,
 
 
 bank_scatter.launches = 0
+
+
+def bank_scatter_batched(banks: torch.Tensor, updates: torch.Tensor,
+                         ids: torch.Tensor, valid: torch.Tensor):
+    """banks (K, R, M) f32|bf16; updates (K, C, M) f32; ids (K, C) int64,
+    per trial as `bank_scatter` takes them; valid (K, C) bool.
+
+    Returns (new_banks, dsum (K, M) f32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel once for all K trials, which
+    writes the valid rows of `banks` in place (new_banks is banks).
+    """
+    if banks.ndim != 3 or updates.ndim != 3:
+        raise ValueError(f"banks (K, R, M) and updates (K, C, M) expected, "
+                         f"got {tuple(banks.shape)}, {tuple(updates.shape)}")
+    (k, r, m), c = banks.shape, updates.shape[1]
+    if 0 in (k, r, m, c):
+        raise ValueError(f"empty scatter: banks {(k, r, m)}, cohort {c}")
+    check_tensors(banks.device, {
+        "banks": (banks, FLOAT_STORES, (k, r, m)),
+        "updates": (updates, (torch.float32,), (k, c, m)),
+        "ids": (ids, (torch.int64,), (k, c)),
+        "valid": (valid, (torch.bool,), (k, c))})
+    if banks.device.type == "cpu":
+        return bank_scatter_batched_ref(banks, updates, ids, valid)
+    fn = entry_point("bank_scatter", "bank_scatter_batched",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int64, ctypes.c_int64,
+                                              ctypes.c_int, ctypes.c_int],
+                     banks.device)
+    dsum = torch.empty((k, m), dtype=torch.float32, device=banks.device)
+    launch(fn, banks.device, banks.data_ptr(), updates.data_ptr(),
+           ids.data_ptr(), valid.data_ptr(), dsum.data_ptr(), k, c, m, r,
+           int(banks.dtype == torch.bfloat16),
+           int(vector_ok(m, banks, updates)))
+    bank_scatter_batched.launches += 1
+    return banks, dsum
+
+
+bank_scatter_batched.launches = 0

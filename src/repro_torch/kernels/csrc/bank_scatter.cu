@@ -1,7 +1,9 @@
-// Fused memory-bank row gather / delta / scatter for Hopper (sm_90a).
+// Fused memory-bank row gather / delta / scatter for Hopper (sm_90a), for
+// one bank and for K stacked banks (a fleet of K trials).
 //
-// Replaces the TPU kernel repro/kernels/bank_scatter.py (_kernel and its
-// pallas_call in _bank_scatter). For a bank (R, M) in the bank dtype, the
+// bank_scatter_kernel replaces the TPU kernel repro/kernels/bank_scatter.py
+// (_kernel and its pallas_call in _bank_scatter). For a bank (R, M) in the
+// bank dtype, the
 // cohort's updates U (C, M) f32, row ids (C,) and a valid mask (C,):
 //
 //     for every valid slot a:
@@ -36,6 +38,15 @@
 //     itself; the caller pads nothing (the TPU wrapper pads wide leaves,
 //     which copies the bank).
 //   * It allocates nothing: the wrapper allocates dsum with torch.empty.
+//
+// bank_scatter_batched_kernel replaces `_kernel_batched` (pallas_call in
+// `_bank_scatter_batched`): the same work for K banks (K, R, M), updates
+// (K, C, M), ids and valid (K, C) and dsum (K, M), in one launch. The grid
+// is (column tiles, K): block (x, k) runs the same `scatter_rows` body on
+// trial k, its pointers offset by k's strides. So trial k sums the same
+// rows in the same order as `bank_scatter_kernel` on its slice, and its
+// rows and dsum are bit-equal to the single-trial kernel's. Bound by bytes:
+// 3 * (valid slots over all trials) * M elements, plus K * M for dsum.
 #include "scatter_rows.cuh"
 
 namespace {
@@ -52,6 +63,21 @@ bank_scatter_kernel(TB* __restrict__ bank, const float* __restrict__ u,
                     const uint8_t* __restrict__ valid,
                     float* __restrict__ dsum, int c, int64_t m) {
   repro::scatter_rows<TB, VECTOR>(bank, u, FlatRows{ids}, valid, dsum, c, m);
+}
+
+// Trial k = blockIdx.y of K stacked banks of r rows.
+template <typename TB, bool VECTOR>
+__global__ void __launch_bounds__(TX * TY)
+bank_scatter_batched_kernel(TB* __restrict__ bank,
+                            const float* __restrict__ u,
+                            const int64_t* __restrict__ ids,
+                            const uint8_t* __restrict__ valid,
+                            float* __restrict__ dsum, int c, int64_t m,
+                            int64_t r) {
+  const int64_t k = blockIdx.y;
+  repro::scatter_rows<TB, VECTOR>(bank + k * r * m, u + k * c * m,
+                                  FlatRows{ids + k * c}, valid + k * c,
+                                  dsum + k * m, c, m);
 }
 
 template <typename TB>
@@ -73,6 +99,27 @@ void launch(void* bank, const void* u, const void* ids, const void* valid,
   }
 }
 
+template <typename TB>
+void launch_batched(void* bank, const void* u, const void* ids,
+                    const void* valid, void* dsum, int k, int c, int64_t m,
+                    int64_t r, bool vector, cudaStream_t stream) {
+  const dim3 block(TX, TY);
+  const dim3 grid(unsigned((m + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK),
+                  unsigned(k));
+  auto* bb = static_cast<TB*>(bank);
+  auto* uu = static_cast<const float*>(u);
+  auto* ii = static_cast<const int64_t*>(ids);
+  auto* vv = static_cast<const uint8_t*>(valid);
+  auto* ds = static_cast<float*>(dsum);
+  if (vector) {
+    bank_scatter_batched_kernel<TB, true><<<grid, block, 0, stream>>>(
+        bb, uu, ii, vv, ds, c, m, r);
+  } else {
+    bank_scatter_batched_kernel<TB, false><<<grid, block, 0, stream>>>(
+        bb, uu, ii, vv, ds, c, m, r);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. bank_bf16 selects the bank's
@@ -88,5 +135,21 @@ extern "C" int bank_scatter(void* bank, const void* u, const void* ids,
     launch<__nv_bfloat16>(bank, u, ids, valid, dsum, c, m, vec, s);
   else
     launch<float>(bank, u, ids, valid, dsum, c, m, vec, s);
+  return int(cudaGetLastError());
+}
+
+// The K-trial entry point: bank (K, R, M), u (K, C, M), ids and valid
+// (K, C), dsum (K, M); the other arguments as bank_scatter's.
+extern "C" int bank_scatter_batched(void* bank, const void* u, const void* ids,
+                                    const void* valid, void* dsum, int k,
+                                    int c, int64_t m, int64_t r,
+                                    int bank_bf16, int vector, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = vector != 0;
+  if (bank_bf16)
+    launch_batched<__nv_bfloat16>(bank, u, ids, valid, dsum, k, c, m, r, vec,
+                                  s);
+  else
+    launch_batched<float>(bank, u, ids, valid, dsum, k, c, m, r, vec, s);
   return int(cudaGetLastError());
 }

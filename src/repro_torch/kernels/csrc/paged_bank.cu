@@ -21,6 +21,14 @@
 // dense bank's. Bound by bytes: 3 * |A_valid| * M elements, as
 // bank_scatter.
 //
+// paged_scatter_batched_kernel replaces `_paged_kernel_batched` (pallas_call
+// in `_paged_bank_scatter_batched`): the paged scatter for K stacked page
+// pools (K, R, M) with per-trial page tables (K, P), lids and valid (K, C)
+// and dsum (K, M), in one launch. The grid is (column tiles, K): block
+// (x, k) runs the same `scatter_rows` body through a `PagedRows` functor
+// over row k of the page table, so trial k's pages and dsum are bit-equal
+// to `paged_scatter_kernel` on its slice. Bound by bytes, as the flat one.
+//
 // paged_gather_kernel replaces `_paged_gather_kernel` (pallas_call in
 // `_paged_bank_gather`): out[a] = f32(pages[phys(lids[a])]) for all C
 // slots. A pure copy with a cast, bound by bytes: C * M * (sizeof(page
@@ -50,6 +58,22 @@ paged_scatter_kernel(TB* __restrict__ pages, const float* __restrict__ u,
                      float* __restrict__ dsum, int c, int64_t m, int ps) {
   repro::scatter_rows<TB, VECTOR>(pages, u, PagedRows{pt, lids, ps}, valid,
                                   dsum, c, m);
+}
+
+// Trial k = blockIdx.y of K stacked pools of r rows and tables of p pages.
+template <typename TB, bool VECTOR>
+__global__ void __launch_bounds__(TX * TY)
+paged_scatter_batched_kernel(TB* __restrict__ pages,
+                             const float* __restrict__ u,
+                             const int32_t* __restrict__ pt,
+                             const int32_t* __restrict__ lids,
+                             const uint8_t* __restrict__ valid,
+                             float* __restrict__ dsum, int c, int64_t m,
+                             int ps, int64_t r, int p) {
+  const int64_t k = blockIdx.y;
+  repro::scatter_rows<TB, VECTOR>(pages + k * r * m, u + k * c * m,
+                                  PagedRows{pt + k * p, lids + k * c, ps},
+                                  valid + k * c, dsum + k * m, c, m);
 }
 
 template <typename TB, bool VECTOR>
@@ -103,6 +127,28 @@ void launch_scatter(void* pages, const void* u, const void* pt,
 }
 
 template <typename TB>
+void launch_scatter_batched(void* pages, const void* u, const void* pt,
+                            const void* lids, const void* valid, void* dsum,
+                            int k, int c, int64_t m, int ps, int64_t r, int p,
+                            bool vector, cudaStream_t stream) {
+  auto* pp = static_cast<TB*>(pages);
+  auto* uu = static_cast<const float*>(u);
+  auto* tt = static_cast<const int32_t*>(pt);
+  auto* ll = static_cast<const int32_t*>(lids);
+  auto* vv = static_cast<const uint8_t*>(valid);
+  auto* ds = static_cast<float*>(dsum);
+  const dim3 grid(tiles(m).x, unsigned(k));
+  if (vector) {
+    paged_scatter_batched_kernel<TB, true><<<grid, dim3(TX, TY), 0, stream>>>(
+        pp, uu, tt, ll, vv, ds, c, m, ps, r, p);
+  } else {
+    paged_scatter_batched_kernel<TB, false>
+        <<<grid, dim3(TX, TY), 0, stream>>>(pp, uu, tt, ll, vv, ds, c, m, ps,
+                                            r, p);
+  }
+}
+
+template <typename TB>
 void launch_gather(const void* pages, const void* pt, const void* lids,
                    void* out, int c, int64_t m, int ps, bool vector,
                    cudaStream_t stream) {
@@ -136,6 +182,25 @@ extern "C" int paged_bank_scatter(void* pages, const void* u, const void* pt,
                                   vec, s);
   else
     launch_scatter<float>(pages, u, pt, lids, valid, dsum, c, m, ps, vec, s);
+  return int(cudaGetLastError());
+}
+
+// The K-trial scatter: pages (K, R, M), u (K, C, M), pt (K, P), lids and
+// valid (K, C), dsum (K, M); the other arguments as paged_bank_scatter's.
+extern "C" int paged_bank_scatter_batched(void* pages, const void* u,
+                                          const void* pt, const void* lids,
+                                          const void* valid, void* dsum,
+                                          int k, int c, int64_t m, int ps,
+                                          int64_t r, int p, int pages_bf16,
+                                          int vector, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = vector != 0;
+  if (pages_bf16)
+    launch_scatter_batched<__nv_bfloat16>(pages, u, pt, lids, valid, dsum, k,
+                                          c, m, ps, r, p, vec, s);
+  else
+    launch_scatter_batched<float>(pages, u, pt, lids, valid, dsum, k, c, m,
+                                  ps, r, p, vec, s);
   return int(cudaGetLastError());
 }
 

@@ -9,21 +9,26 @@
 * `paged_bank_update_tree` / `paged_bank_gather_tree` — the same scatter,
   and the row gather, through a paged bank's page table
   (`kernels.paged_bank`).
+* `fleet_bank_update_tree` / `fleet_paged_bank_update_tree` — the scatters
+  for K stacked trials, each leaf flattened to (K, R, M) and (K, C, M) and
+  sent through one batched launch.
 
 Unlike the reference wrappers these pad nothing: the CUDA kernels mask the
 ragged column edge themselves, so no leaf (and no bank) is copied. Flattening
 a contiguous leaf is a view, so in-place kernel writes land in the leaf. The
-attention, SSD and fleet wrappers wait for their kernels (ROADMAP Queue 2
-items 3, 5, 7 and 8).
+attention and SSD wrappers wait for their kernels (ROADMAP Queue 2 items 7
+and 8).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bank_scatter import bank_scatter
+from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                              bank_scatter_batched)
 from repro_torch.kernels.mifa_aggregate import mifa_aggregate
 from repro_torch.kernels.paged_bank import (paged_bank_gather,
-                                            paged_bank_scatter)
+                                            paged_bank_scatter,
+                                            paged_bank_scatter_batched)
 from repro_torch.tree import tree_map, tree_unzip2
 
 
@@ -92,3 +97,39 @@ def paged_bank_gather_tree(pages_tree, page_table: torch.Tensor,
         return rows.reshape((lids.shape[0],) + pages.shape[1:])
 
     return tree_map(one, pages_tree)
+
+
+def fleet_bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,
+                           valid: torch.Tensor):
+    """Fused cohort bank update for K stacked trials over a tree.
+
+    rows_tree: leaves (K, R, *shape); upd_tree: leaves (K, C, *shape) f32;
+    ids (K, C) int64; valid (K, C) bool. Returns (new_rows_tree,
+    delta_sum_tree with leaves (K, *shape) f32), per trial what
+    `bank_update_tree` returns; on the card the rows are updated in place.
+    """
+    def one(rows, u):
+        k, r, c = rows.shape[0], rows.shape[1], u.shape[1]
+        rn, ds = bank_scatter_batched(rows.reshape(k, r, -1),
+                                      u.reshape(k, c, -1), ids, valid)
+        return rn.reshape(rows.shape), ds.reshape((k,) + rows.shape[2:])
+
+    return tree_unzip2(tree_map(one, rows_tree, upd_tree))
+
+
+def fleet_paged_bank_update_tree(pages_tree, upd_tree,
+                                 page_table: torch.Tensor, lids: torch.Tensor,
+                                 valid: torch.Tensor, *, page_size: int):
+    """Fused cohort bank update through the page tables of K stacked
+    trials: pages leaves (K, R, *shape); upd leaves (K, C, *shape) f32;
+    page_table (K, P) int32; lids (K, C) int32 sanitized logical rows;
+    valid (K, C) bool. Returns (new_pages_tree, delta_sum_tree with leaves
+    (K, *shape) f32); on the card the pages are updated in place."""
+    def one(pages, u):
+        k, r, c = pages.shape[0], pages.shape[1], u.shape[1]
+        pn, ds = paged_bank_scatter_batched(
+            pages.reshape(k, r, -1), u.reshape(k, c, -1), page_table, lids,
+            valid, page_size=page_size)
+        return pn.reshape(pages.shape), ds.reshape((k,) + pages.shape[2:])
+
+    return tree_unzip2(tree_map(one, pages_tree, upd_tree))

@@ -1,16 +1,19 @@
-"""Paged memory-bank kernels: the cohort gather / delta / scatter and the
-row gather through a page table, each the CUDA kernel's wrapper beside its
-plain version.
+"""Paged memory-bank kernels: the cohort gather / delta / scatter (for one
+page pool and for K stacked pools) and the row gather through a page
+table, each the CUDA kernel's wrapper beside its plain version.
 
     phys(lid) = page_table[lid // page_size] * page_size + lid % page_size
     paged_bank_scatter:  dsum = Σ_{valid a} (cast(u_a) − pages[phys(lids[a])])
                          pages[phys(lids[a])] = cast(u_a)   (valid a only)
     paged_bank_gather:   rows[a] = f32(pages[phys(lids[a])])
+    paged_bank_scatter_batched: the scatter for trial k = 0..K-1 through
+                         row k of a (K, P) page table, in one launch
 
 The wrappers decide by the tensors' device: CUDA tensors launch the
 hand-written kernels of `csrc/paged_bank.cu` (which replace the TPU kernels
-`repro/kernels/bank_scatter.py::paged_bank_scatter` and
-`paged_bank_gather`), CPU tensors take the `_ref` versions. On the card the
+`repro/kernels/bank_scatter.py::paged_bank_scatter`,
+`paged_bank_scatter_batched` and `paged_bank_gather`), CPU tensors take the
+`_ref` versions. On the card the
 scatter updates the pages in place and returns them; callers must not reuse
 the pages they passed in. `lids` are sanitized logical rows: the caller has
 remapped pad slots to the dummy logical page, and a logical page that is not
@@ -42,6 +45,19 @@ def paged_bank_scatter_ref(pages: torch.Tensor, updates: torch.Tensor,
     [pages.dtype], dsum (M,) f32)."""
     return bank_scatter_ref(pages, updates,
                             phys_rows(page_table, lids, page_size), valid)
+
+
+def paged_bank_scatter_batched_ref(pages: torch.Tensor, updates: torch.Tensor,
+                                   page_table: torch.Tensor,
+                                   lids: torch.Tensor, valid: torch.Tensor, *,
+                                   page_size: int):
+    """Plain version: `paged_bank_scatter_ref` on each trial. pages
+    (K, R, M); updates (K, C, M); page_table (K, P); lids, valid (K, C).
+    Returns (new_pages (K, R, M), dsum (K, M) f32)."""
+    out = [paged_bank_scatter_ref(p, u, t, i, v, page_size=page_size)
+           for p, u, t, i, v in zip(pages, updates, page_table, lids, valid)]
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]))
 
 
 def paged_bank_gather_ref(pages: torch.Tensor, page_table: torch.Tensor,
@@ -128,5 +144,55 @@ def paged_bank_gather(pages: torch.Tensor, page_table: torch.Tensor,
     return out
 
 
+def paged_bank_scatter_batched(pages: torch.Tensor, updates: torch.Tensor,
+                               page_table: torch.Tensor, lids: torch.Tensor,
+                               valid: torch.Tensor, *, page_size: int):
+    """pages (K, R, M) f32|bf16; updates (K, C, M) f32; page_table (K, P)
+    int32 (the fleet keeps identical per-trial copies); lids (K, C) int32
+    and valid (K, C) bool, per trial as `paged_bank_scatter` takes them.
+
+    Returns (new_pages, dsum (K, M) f32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel once for all K trials, which
+    writes the valid rows of `pages` in place (new_pages is pages).
+    """
+    if pages.ndim != 3 or updates.ndim != 3 or page_table.ndim != 2:
+        raise ValueError(f"pages (K, R, M), updates (K, C, M) and "
+                         f"page_table (K, P) expected, got "
+                         f"{tuple(pages.shape)}, {tuple(updates.shape)}, "
+                         f"{tuple(page_table.shape)}")
+    (k, r, m), c = pages.shape, updates.shape[1]
+    if page_size <= 0 or page_size & (page_size - 1):
+        raise ValueError(f"page_size must be a power of two, got {page_size}")
+    if 0 in (k, r, m, c) or r % page_size:
+        raise ValueError(f"pages (K, R, M) with R a multiple of page_size="
+                         f"{page_size} and a cohort of C > 0 expected, got "
+                         f"{(k, r, m)}, C={c}")
+    check_tensors(pages.device, {
+        "pages": (pages, FLOAT_STORES, (k, r, m)),
+        "updates": (updates, (torch.float32,), (k, c, m)),
+        "page_table": (page_table, (torch.int32,),
+                       (k, page_table.shape[1])),
+        "lids": (lids, (torch.int32,), (k, c)),
+        "valid": (valid, (torch.bool,), (k, c))})
+    if pages.device.type == "cpu":
+        return paged_bank_scatter_batched_ref(pages, updates, page_table,
+                                              lids, valid,
+                                              page_size=page_size)
+    fn = entry_point("paged_bank", "paged_bank_scatter_batched",
+                     [ctypes.c_void_p] * 6
+                     + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int], pages.device)
+    dsum = torch.empty((k, m), dtype=torch.float32, device=pages.device)
+    launch(fn, pages.device, pages.data_ptr(), updates.data_ptr(),
+           page_table.data_ptr(), lids.data_ptr(), valid.data_ptr(),
+           dsum.data_ptr(), k, c, m, page_size, r, page_table.shape[1],
+           int(pages.dtype == torch.bfloat16),
+           int(vector_ok(m, pages, updates)))
+    paged_bank_scatter_batched.launches += 1
+    return pages, dsum
+
+
 paged_bank_scatter.launches = 0
+paged_bank_scatter_batched.launches = 0
 paged_bank_gather.launches = 0

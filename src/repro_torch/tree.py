@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply `fn` leaf-wise over `tree` and trees of the same structure."""
@@ -25,6 +27,22 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, list):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_stack(trees: list) -> Any:
+    """Trees of the same structure -> one tree whose leaves stack theirs on
+    a new leading axis. Tensor leaves go through `torch.stack`; Python
+    numbers become a CPU tensor of the values."""
+    def stack(*leaves):
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.stack(leaves)
+        return torch.tensor(leaves)
+    return tree_map(stack, trees[0], *trees[1:])
+
+
+def tree_index(tree: Any, k: int) -> Any:
+    """Slice k of every leaf along the leading axis (views of the leaves)."""
+    return tree_map(lambda leaf: leaf[k], tree)
 
 
 def tree_unzip2(tree: Any) -> tuple[Any, Any]:

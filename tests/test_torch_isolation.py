@@ -17,6 +17,8 @@ from repro_torch.bank import DenseBank, PagedDeviceBank
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import MIFA, BernoulliParticipation, run_fl
 from repro_torch.data import ClientBatcher
+from repro_torch.fleet import (FleetRunner, Trial, make_fleet_eval,
+                               run_fleet)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import constant
@@ -48,7 +50,7 @@ def test_isolation_walk_sees_the_whole_port():
     mods = {p.stem for p in PORT_FILES}
     assert {"runner", "mifa", "dense", "paged_device", "mifa_aggregate",
             "bank_scatter", "paged_bank", "pipeline", "ops", "backend",
-            "chip_smoke"} <= mods
+            "baselines", "sgd", "spec", "executor", "chip_smoke"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -83,6 +85,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    fleet = dict(model=model, algo=MIFA(), batcher=kw["batcher"],
+                 schedule=constant(0.1))
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        run_fleet(**fleet, n_rounds=1, trials=[
+            Trial(seed=0, participation=kw["participation"])])
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        FleetRunner(**fleet, seeds=(0, 1))
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        make_fleet_eval(model, {"x": np.zeros((2, 64), np.float32)})
 
 
 def test_cpu_run_takes_the_plain_path():

@@ -16,13 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.bank_scatter import bank_scatter, bank_scatter_ref
+from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                              bank_scatter_batched,
+                                              bank_scatter_batched_ref,
+                                              bank_scatter_ref)
 from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
                                                 mifa_aggregate_ref)
 from repro_torch.kernels.ops import bank_update_tree, mifa_aggregate_tree
 from repro_torch.kernels.paged_bank import (paged_bank_gather,
                                             paged_bank_gather_ref,
                                             paged_bank_scatter,
+                                            paged_bank_scatter_batched,
+                                            paged_bank_scatter_batched_ref,
                                             paged_bank_scatter_ref)
 from repro_torch.tree import tree_leaves
 
@@ -193,7 +198,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 @pytest.mark.parametrize("kernel", ["mifa_aggregate", "bank_scatter",
                                     "paged_bank_scatter",
-                                    "paged_bank_gather"])
+                                    "paged_bank_gather",
+                                    "bank_scatter_batched",
+                                    "paged_bank_scatter_batched"])
 def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
     """A tensor on another device neither takes the plain version nor
     reaches the kernel library: the wrapper raises before any build."""
@@ -206,7 +213,12 @@ def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
             "paged_bank_scatter": lambda: paged_bank_scatter(
                 bank, upd, pt.to("meta"), lids, valid, page_size=2),
             "paged_bank_gather": lambda: paged_bank_gather(
-                bank, pt.to("meta"), lids, page_size=2)}[kernel]
+                bank, pt.to("meta"), lids, page_size=2),
+            "bank_scatter_batched": lambda: bank_scatter_batched(
+                bank[None], upd[None], ids[None], valid[None]),
+            "paged_bank_scatter_batched": lambda: paged_bank_scatter_batched(
+                bank[None], upd[None], pt.to("meta")[None], lids[None],
+                valid[None], page_size=2)}[kernel]
     with pytest.raises(ValueError, match=f"no {kernel} kernel for device"):
         call()
 
@@ -317,3 +329,70 @@ def test_paged_bank_gather_cuda_matches_plain(cuda_device, m, bdt):
     assert torch.equal(rows, paged_bank_gather_ref(pages, pt, lids,
                                                    page_size=8))
     assert not rows[37:].any()
+
+
+def _batched_bank_inputs(m, seed, k=3, r=101, c=64):
+    """K stacked banks of r rows (the last is the dummy row) and a cohort
+    of c slots per trial: 37, 20, ... distinct rows, the last trial only
+    pads."""
+    rng = np.random.default_rng(seed)
+    banks = rng.normal(size=(k, r, m)).astype(np.float32)
+    u = rng.normal(size=(k, c, m)).astype(np.float32)
+    ids = np.full((k, c), r - 1, np.int64)
+    valid = np.zeros((k, c), bool)
+    for j, n_valid in enumerate([37, 20, 0][:k]):
+        ids[j, :n_valid] = rng.permutation(r - 1)[:n_valid]
+        valid[j, :n_valid] = True
+    return banks, u, ids, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,bdt", [(1000, "float32"), (4096, "bfloat16"),
+                                   (10, "float32")])
+def test_bank_scatter_batched_cuda_matches_plain_and_single(cuda_device, m,
+                                                            bdt):
+    banks, u, ids, valid = (torch.from_numpy(x).to(cuda_device)
+                            for x in _batched_bank_inputs(m, m))
+    banks = banks.to(TORCH_DT[bdt])
+    b_ref, d_ref = bank_scatter_batched_ref(banks, u, ids, valid)
+    before = bank_scatter_batched.launches
+    b_k, d_k = bank_scatter_batched(banks.clone(), u, ids, valid)
+    torch.cuda.synchronize()
+    assert bank_scatter_batched.launches == before + 1
+    assert torch.equal(b_k, b_ref)
+    for k in range(banks.shape[0]):
+        # trial k through the single-trial kernel: bit-equal
+        b1, d1 = bank_scatter(banks[k].clone(), u[k], ids[k], valid[k])
+        assert torch.equal(b_k[k], b1) and torch.equal(d_k[k], d1)
+        terms = (u[k].to(banks.dtype).float() - banks[k][ids[k]].float())
+        scale = (terms.abs() * valid[k].reshape(-1, 1)).sum(0)
+        assert bool(((d_k[k] - d_ref[k]).abs() <= 1e-6 + 1e-5 * scale).all())
+    assert not d_k[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,bdt", [(1000, "float32"), (4096, "bfloat16")])
+def test_paged_bank_scatter_batched_cuda_matches_plain_and_single(
+        cuda_device, m, bdt):
+    per_trial = [_paged_inputs(m, n_valid, m + j)
+                 for j, n_valid in enumerate([37, 20, 0])]
+    pages, u, pt, lids, valid = (
+        torch.from_numpy(np.stack(x)).to(cuda_device)
+        for x in zip(*per_trial))
+    pages = pages.to(TORCH_DT[bdt])
+    p_ref, d_ref = paged_bank_scatter_batched_ref(pages, u, pt, lids, valid,
+                                                  page_size=8)
+    before = paged_bank_scatter_batched.launches
+    p_k, d_k = paged_bank_scatter_batched(pages.clone(), u, pt, lids, valid,
+                                          page_size=8)
+    torch.cuda.synchronize()
+    assert paged_bank_scatter_batched.launches == before + 1
+    assert torch.equal(p_k, p_ref)
+    for k in range(pages.shape[0]):
+        p1, d1 = paged_bank_scatter(pages[k].clone(), u[k], pt[k], lids[k],
+                                    valid[k], page_size=8)
+        assert torch.equal(p_k[k], p1) and torch.equal(d_k[k], d1)
+        old = paged_bank_gather_ref(pages[k], pt[k], lids[k], page_size=8)
+        terms = (u[k].to(pages.dtype).float() - old).abs()
+        scale = (terms * valid[k].reshape(-1, 1)).sum(0)
+        assert bool(((d_k[k] - d_ref[k]).abs() <= 1e-6 + 1e-5 * scale).all())

@@ -265,11 +265,10 @@ def test_make_bank_and_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 10"):
         PagedDeviceBank(dtype="int8", device="cpu")
     bank = PagedDeviceBank(page_size=2, device="cpu")
-    state = bank.init(_to_torch(_params()), N)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        bank.scatter_fleet(state, np.zeros((2, 1)), None)
     with pytest.raises(NotImplementedError, match="item 17"):
         bank.host_state()
+    with pytest.raises(NotImplementedError, match="item 17"):
+        bank.load_host_state({})
 
 
 # --------------------------------------------------------------------------- #
