@@ -53,7 +53,25 @@ Run from the root of a checkout on a machine with a CUDA card. It
      must match sequential `run_fl` runs on the card; the paged fleet must
      be bit-equal to the dense one; each batched kernel launches once per
      leaf per round; then the FedAvgSampling(S=50) fleet runs 10 rounds on
-     the CPU and on the card, held together.
+     the CPU and on the card, held together;
+ 11. holds the model zoo's kernels against their plain versions on the card:
+     `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
+     H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
+     non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
+     mamba2-1.3b's shapes (p=64, n=64 and 128, Q=256), f32 and a chunk of
+     96; times both per call at the served shapes beside their bounds and,
+     for attention, one `scaled_dot_product_attention` call;
+ 12. serves zamba2-7b at full width and depth (81 layers, bf16, random
+     params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
+     greedy tokens; every prefill attention call and SSD scan must launch
+     the kernels (13 and 68), decode none, no other kernel; then
+     mamba2-1.3b (48 scans) and granite-3-8b cut to 4 layers (4 attention
+     calls, GQA g=4), printing prefill and decode times, tok/s and the
+     peak device allocation;
+ 13. runs zamba2-7b at full width in f32, its first 6 layers, on the card
+     and on the CPU (prefill logits, every cache leaf, two decode steps),
+     and its first 12 layers as 2048 prompt tokens plus 128 teacher-forced
+     decode steps against one prefill of 2176 tokens.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -71,10 +89,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 outside the tensor
-# cores; both kernels do f32 adds and subtracts only.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the tensor
+# cores (the bank kernels' adds and subtracts, the SSD scan's f32 math) and
+# dense bf16 on the tensor cores (flash attention in bf16).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 L2_BYTES = 50e6
 
 N_CLIENTS = 100
@@ -116,6 +136,32 @@ EVICT_N, EVICT_HOT, EVICT_C, EVICT_SLOTS, EVICT_ROUNDS = 1024, 128, 64, 48, 40
 # with d = sum(PATH_WIDTHS) = 50,698
 MILLION_N, MILLION_C, MILLION_SLOTS, MILLION_ROUNDS = 10**6, 64, 256, 20
 MILLION_POOL_BYTES = 416_940_352
+# the served models: SERVE_B prompts of SERVE_PROMPT tokens, SERVE_NEW
+# greedy tokens; granite-3-8b's depth cut to GRANITE_LAYERS
+SERVE_B, SERVE_PROMPT, SERVE_NEW, GRANITE_LAYERS = 4, 2048, 32, 4
+# card vs CPU at ZOO_CHECK_S tokens; decode vs prefill over DVP_PROMPT
+# prompt tokens and DVP_STEPS decode steps (2176 = 17 chunks of 128)
+ZOO_CHECK_S, DVP_PROMPT, DVP_STEPS = 512, 2048, 128
+# kernel vs plain version, |err| <= atol + rtol·|ref| as (atol, rtol).
+# Attention: f32 (2e-5, 0), FMAs and einsum sum in other orders; bf16
+# (2e-2, 1e-2), the kernel rounds the probabilities to bf16 before P·V, as
+# the TPU kernel does, where the plain version keeps f32, and that can move
+# the bf16 output by one step, up to 2^-7 of |out|.
+# The scan: |err| <= rtol · scale + 1e-6, scale being the plain version
+# run on |x|, |B|, |C| (the summed magnitudes of the terms). The
+# within-chunk cumsum of dA runs in another order on each side; at |cum| ~
+# 200 one f32 step is 1.5e-5 and the two sums drift apart by up to about
+# 1e-4, which exp(cum_i - cum_j) turns into a relative error of every term:
+# f32 rtol 5e-4 (also h_final, always f32). bf16 y can land one bf16 step
+# (up to 2^-7 of |y| <= scale) from the plain version's: rtol 1e-2.
+ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 1e-2)}
+SSD_RTOL = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+# served models in f32, card against CPU and decode against prefill: max
+# |d| / max |value| <= 1e-3. Both sides are f32, but zamba2's A reaches
+# -112, so the within-chunk cumsum of dA reaches |cum| ~ 1e3 where one f32
+# step is 1.2e-4, and exp(cum_i - cum_j) (or the decode recurrence's
+# product of exp(dA)) carries that relative error into the scan
+ZOO_RTOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -213,8 +259,9 @@ def n_copies(set_bytes: int) -> int:
     return int(min(32, max(2, math.ceil(3 * L2_BYTES / set_bytes))))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -560,15 +607,18 @@ def kernel_counters() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from repro_torch.kernels.bank_scatter import (bank_scatter,
                                                   bank_scatter_batched)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mifa_aggregate import mifa_aggregate
     from repro_torch.kernels.paged_bank import (paged_bank_gather,
                                                 paged_bank_scatter,
                                                 paged_bank_scatter_batched)
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"mifa_aggregate": mifa_aggregate, "bank_scatter": bank_scatter,
             "paged_bank_scatter": paged_bank_scatter,
             "paged_bank_gather": paged_bank_gather,
             "bank_scatter_batched": bank_scatter_batched,
-            "paged_bank_scatter_batched": paged_bank_scatter_batched}
+            "paged_bank_scatter_batched": paged_bank_scatter_batched,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
 def reset_counts() -> None:
@@ -1244,6 +1294,344 @@ def fleet_card_vs_cpu(problem_cuda, problem_cpu) -> str:
             f"(rtol {DEVICE_RTOL}, atol {DEVICE_ATOL})")
 
 
+# --------------------------------------------------------------------------- #
+# the model zoo: flash_attention and ssd_scan, served models
+# --------------------------------------------------------------------------- #
+
+def attn_inputs(gen, b, s, h, kv, hd, dtype, t=None):
+    t = s if t is None else t
+    shapes = [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)]
+    return [torch.randn(shp, generator=gen, device="cuda").to(dtype)
+            for shp in shapes]
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype):
+    """As the tests draw them: x normal, dA = -softplus(normal), B and C
+    normal times 0.5; x, B, C in `dtype`, dA f32."""
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dA = -torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device="cuda"))
+    B, C = (0.5 * torch.randn((b, s, n), generator=gen, device="cuda")
+            for _ in range(2))
+    return x, dA, B.to(dtype), C.to(dtype)
+
+
+def check_flash(gen) -> tuple[float, list]:
+    """flash_attention against its plain version: the served models'
+    shapes (zamba2-7b: H=KV=32, hd=112; granite-3-8b: GQA g=4, hd=128),
+    ragged S, non-causal S != T, small heads, f32 and bf16."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [((SERVE_B, SERVE_PROMPT, 32, 32, 112), bf, True, "zamba2 path"),
+             ((SERVE_B, SERVE_PROMPT, 32, 8, 128), bf, True,
+              "granite path, GQA g=4"),
+             ((1, 512, 32, 32, 112), f32, True, "zamba2 heads f32"),
+             ((1, 512, 32, 8, 128), f32, True, "GQA g=4 f32"),
+             ((2, 1000, 8, 2, 112), bf, True, "ragged S"),
+             ((2, 1000, 8, 2, 112), f32, True, "ragged S f32"),
+             ((2, 300, 4, 4, 64), bf, False, "non-causal, T=200"),
+             ((2, 96, 4, 4, 32), f32, False, "smoke heads f32")]
+    max_err, rows = 0.0, []
+    for (b, s, h, kv, hd), dt, causal, label in cases:
+        t = 200 if label.startswith("non-causal") else s
+        q, k, v = attn_inputs(gen, b, s, h, kv, hd, dt, t)
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(out.dtype == dt and out.shape == ref.shape,
+              f"flash_attention output {out.dtype} {tuple(out.shape)}")
+        atol, rtol = ATTN_TOL[dt]
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+              f"flash_attention off by {err:.3e} ({label})")
+        max_err = max(max_err, err)
+        rows.append(f"flash_attention {label:<22} B={b} S={s} T={t} H={h} "
+                    f"KV={kv} hd={hd} {str(dt)[6:]} causal={causal}: max "
+                    f"|err| {err:.3e} (atol {atol}, rtol {rtol})")
+    return max_err, rows
+
+
+def check_ssd(gen) -> tuple[float, list]:
+    """ssd_scan against its plain version: the served models' shapes
+    (zamba2-7b: h=112, p=64, n=64; mamba2-1.3b: h=64, n=128; Q=256), f32,
+    a chunk that is not a power of two and the smoke heads."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [((SERVE_B, SERVE_PROMPT, 112, 64, 64), 256, bf, "zamba2 path"),
+             ((SERVE_B, SERVE_PROMPT, 64, 64, 128), 256, bf, "mamba2 path"),
+             ((1, 512, 112, 64, 64), 256, f32, "zamba2 heads f32"),
+             ((1, 512, 64, 64, 128), 256, f32, "mamba2 heads f32"),
+             ((2, 192, 4, 64, 64), 96, f32, "chunk 96"),
+             ((2, 96, 8, 32, 16), 32, bf, "smoke heads")]
+    max_err, rows = 0.0, []
+    for (b, s, h, p, n), q, dt, label in cases:
+        x, dA, B, C = ssd_inputs(gen, b, s, h, p, n, dt)
+        y_ref, h_ref = ssd_scan_ref(x, dA, B, C, chunk=q)
+        y_mag, h_mag = ssd_scan_ref(x.float().abs(), dA, B.float().abs(),
+                                    C.float().abs(), chunk=q)
+        y, hf = ssd_scan(x, dA, B, C, chunk=q)
+        torch.cuda.synchronize()
+        errs, rels = [], []
+        for got, ref, mag, rtol in ((y, y_ref, y_mag, SSD_RTOL[dt]),
+                                    (hf, h_ref, h_mag,
+                                     SSD_RTOL[torch.float32])):
+            err = (got.float() - ref.float()).abs()
+            rel = (err / mag).max().item()
+            check(bool((err <= 1e-6 + rtol * mag).all()),
+                  f"ssd_scan off by {err.max().item():.3e}, {rel:.3e} of "
+                  f"the summed magnitudes ({label})")
+            errs.append(err.max().item())
+            rels.append(rel)
+        max_err = max(max_err, *errs)
+        rows.append(f"ssd_scan {label:<17} b={b} S={s} h={h} p={p} n={n} "
+                    f"Q={q} {str(dt)[6:]}: max |err| y {errs[0]:.3e} "
+                    f"({rels[0]:.2e} of |terms|), h_final {errs[1]:.3e} "
+                    f"({rels[1]:.2e}) (rtol {SSD_RTOL[dt]})")
+    return max_err, rows
+
+
+def flash_work(b, s, h, kv, hd, itemsize) -> tuple[int, int]:
+    """Bytes (q, k, v read once, out written once) and the flops a causal
+    call needs: Q·Kᵀ and P·V over the S(S+1)/2 pairs on or below the
+    diagonal."""
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
+    return nbytes, 4 * b * h * hd * s * (s + 1) // 2
+
+
+def ssd_work(b, s, h, p, n, q, itemsize) -> tuple[int, int]:
+    """Bytes (x, B, C, dA read once; y, h_final written once) and the f32
+    flops the scan needs: C·Bᵀ once per (batch row, chunk) on the lower
+    triangle; per head its masked product with x, C·hᵀ and the state
+    update."""
+    nc, tri = s // q, q * (q + 1) // 2
+    nbytes = (2 * b * s * h * p + 2 * b * s * n) * itemsize \
+        + b * s * h * 4 + b * h * p * n * 4
+    ops = b * nc * (tri * n * 2 + h * (tri * p * 2 + 4 * q * p * n))
+    return nbytes, ops
+
+
+def time_calls(fns: dict, sets) -> dict:
+    """Device ms per call of each fn in `fns` (name -> f(*args)), cycled
+    over the input `sets`, from a CUDA graph replayed between events."""
+    return {name: time_round_ms([lambda a=a, f=f: f(*a) for a in sets])
+            / len(sets) for name, f in fns.items()}
+
+
+def time_flash(gen, b, s, h, kv, hd) -> dict:
+    """flash_attention at a served shape (bf16, causal): kernel, plain
+    version and one scaled_dot_product_attention call on the same values
+    in its (B,H,S,hd) layout, prepared beforehand."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes, ops = flash_work(b, s, h, kv, hd, 2)
+    sets = [attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
+            for _ in range(n_copies(nbytes))]
+    lib_sets = [[x.transpose(1, 2).contiguous() for x in st] for st in sets]
+    t = time_calls({"ms": lambda *a: flash_attention(*a, causal=True),
+                    "plain_ms": lambda *a: flash_attention_ref(*a,
+                                                               causal=True)},
+                   sets)
+    t["library_ms"] = time_calls({"lib": lambda *a: sdpa(
+        *a, is_causal=True, enable_gqa=kv != h)}, lib_sets)["lib"]
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops, BF16_OPS_PER_S)
+    t.update(bytes=nbytes, ops=ops)
+    return t
+
+
+def time_ssd(gen, b, s, h, p, n, q) -> dict:
+    """ssd_scan at a served shape (bf16): kernel and plain version. No
+    single PyTorch call computes the chunked scan, so no library time."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    nbytes, ops = ssd_work(b, s, h, p, n, q, 2)
+    sets = [ssd_inputs(gen, b, s, h, p, n, torch.bfloat16)
+            for _ in range(n_copies(nbytes))]
+    t = time_calls({"ms": lambda *a: ssd_scan(*a, chunk=q),
+                    "plain_ms": lambda *a: ssd_scan_ref(*a, chunk=q)}, sets)
+    t["library_ms"] = None
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+    t.update(bytes=nbytes, ops=ops)
+    return t
+
+
+def serve_phase(label, cfg, expect) -> tuple[dict, list]:
+    """`launch.serve.serve` at SERVE_B prompts of SERVE_PROMPT tokens and
+    SERVE_NEW greedy tokens, every count set to 0 just before and read just
+    after: prefill launches exactly `expect`, decode none, no other kernel
+    runs; logits finite."""
+    from repro_torch.launch.serve import report, serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(cfg=cfg, batch=SERVE_B, prompt_len=SERVE_PROMPT,
+                new_tokens=SERVE_NEW, seed=0, device="cuda")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    zero = {k: 0 for k in expect}
+    check(out["launches"]["prefill"] == expect,
+          f"{label} prefill launches {out['launches']['prefill']}, "
+          f"expected {expect}")
+    check(out["launches"]["decode"] == zero,
+          f"{label} decode launched {out['launches']['decode']}")
+    others = {k: v for k, v in counts.items() if k not in expect}
+    check({k: counts[k] for k in expect} == expect
+          and not any(others.values()), f"{label}: kernel counts {counts}")
+    logits = out["logits"]
+    check(tuple(logits.shape) == (SERVE_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{label}: prefill logits {tuple(logits.shape)} not finite")
+    check(tuple(out["tokens"].shape) == (SERVE_B, SERVE_NEW),
+          f"{label}: generated {tuple(out['tokens'].shape)}")
+    rows = [f"serve {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{out['n_params']} params, {cfg.param_dtype}"]
+    rows += report(out)
+    rows.append(f"  prefill {out['prefill_s'] * 1e3:.3f} ms, "
+                f"{SERVE_B * SERVE_PROMPT / out['prefill_s']:.1f} tok/s; "
+                f"decode {out['decode_s'] / SERVE_NEW * 1e3:.3f} ms/token "
+                f"step ({SERVE_B} sequences), "
+                f"{SERVE_B * SERVE_NEW / out['decode_s']:.1f} tok/s; peak "
+                f"device allocation {peak} B")
+    return counts, rows
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def zoo_f32_config(n_layers: int):
+    """zamba2-7b at full width in f32 with its depth cut to n_layers."""
+    from repro_torch.configs import get_config
+    return get_config("zamba2_7b").replace(
+        n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+
+
+def zoo_card_vs_cpu() -> list:
+    """zamba2-7b at full width, its first 6 layers (five Mamba2 layers and
+    the shared attention block), B=1, S=512, f32: prefill logits and every
+    cache leaf, then two decode steps, on the card (kernels) and on the CPU
+    (plain versions) from the same params."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = zoo_f32_config(6)
+    model = build_model(cfg)
+    p_gpu = model.init(1, device="cuda")
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    toks = torch.randint(0, cfg.vocab_size, (1, ZOO_CHECK_S + 2),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        cache = model.init_cache(1, ZOO_CHECK_S + 2, device=dev)
+        t = toks.to(dev)
+        logits, _ = model.prefill(params, {"tokens": t[:, :ZOO_CHECK_S]},
+                                  cache)
+        steps = [logits]
+        for i in range(2):
+            pos = ZOO_CHECK_S + i
+            lg, _ = model.decode_step(params, t[:, pos:pos + 1], pos, cache)
+            steps.append(lg)
+        out[dev] = (steps, cache)
+    gaps = [rel_gap(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0])]
+    cache_gap = max(rel_gap(a, b) for a, b in zip(
+        tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])))
+    check(max(gaps) <= ZOO_RTOL and cache_gap <= ZOO_RTOL,
+          f"zamba2 card vs CPU: logits gaps {gaps}, cache {cache_gap}")
+    return [f"zamba2-7b card vs CPU (6 layers, full width, f32, S="
+            f"{ZOO_CHECK_S}): max |dlogits| / max |logits| prefill "
+            f"{gaps[0]:.3e}, decode steps {gaps[1]:.3e} {gaps[2]:.3e}; "
+            f"worst cache leaf {cache_gap:.3e} (tol {ZOO_RTOL})"]
+
+
+def zoo_decode_vs_prefill() -> list:
+    """zamba2-7b at full width, its first 12 layers (ten Mamba2 layers and
+    two insertions of the shared block), f32, on the card: a prefill of
+    DVP_PROMPT tokens and DVP_STEPS teacher-forced decode steps give the
+    last position's logits of one prefill of DVP_PROMPT + DVP_STEPS."""
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import ssd_chunk
+    cfg = zoo_f32_config(12)
+    total = DVP_PROMPT + DVP_STEPS
+    chunk = ssd_chunk(total, cfg.ssm_chunk)
+    check(chunk >= cfg.ssm_chunk // 2,
+          f"{total} tokens would cut the SSD chunk to {chunk}")
+    model = build_model(cfg)
+    params = model.init(2, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, total),
+                         generator=torch.Generator().manual_seed(2)).cuda()
+    full, _ = model.prefill(params, {"tokens": toks},
+                            model.init_cache(1, total, device="cuda"))
+    cache = model.init_cache(1, total, device="cuda")
+    model.prefill(params, {"tokens": toks[:, :DVP_PROMPT]}, cache)
+    for pos in range(DVP_PROMPT, total):
+        logits, _ = model.decode_step(params, toks[:, pos:pos + 1], pos,
+                                      cache)
+    gap = rel_gap(logits, full)
+    check(gap <= ZOO_RTOL, f"zamba2 decode vs prefill gap {gap:.3e}")
+    return [f"zamba2-7b decode vs prefill (12 layers, full width, f32): "
+            f"prefill {DVP_PROMPT} + {DVP_STEPS} decode steps vs one "
+            f"prefill of {total} (SSD chunk {chunk}): max "
+            f"|dlogits| / max |logits| {gap:.3e} (tol {ZOO_RTOL})"]
+
+
+def zoo_phases(gen, timing: dict) -> tuple[dict, dict, dict]:
+    """The model zoo: both kernels against their plain versions and timed
+    at the served shapes (their times land in `timing`), the main path of
+    this slice (zamba2-7b served at full width and depth, every count set
+    to 0 just before and read just after), mamba2-1.3b and granite-3-8b
+    served, then the model path against the CPU and decode against
+    prefill. Returns the kernels' max errors, their timed shapes and the
+    main path's launches."""
+    flash_err, rows = check_flash(gen)
+    ssd_err, more = check_ssd(gen)
+    for row in rows + more:
+        print(row)
+    zoo_timing = {
+        "flash_attention": time_flash(gen, SERVE_B, SERVE_PROMPT, 32, 32,
+                                      112),
+        "ssd_scan": time_ssd(gen, SERVE_B, SERVE_PROMPT, 112, 64, 64, 256),
+        "flash_attention granite": time_flash(gen, SERVE_B, SERVE_PROMPT,
+                                              32, 8, 128),
+        "ssd_scan mamba2": time_ssd(gen, SERVE_B, SERVE_PROMPT, 64, 64, 128,
+                                    256)}
+    shapes = {"flash_attention": "zamba2-7b: B=4 S=T=2048 H=KV=32 hd=112",
+              "ssd_scan": "zamba2-7b: b=4 S=2048 h=112 p=64 n=64 Q=256",
+              "flash_attention granite":
+                  "granite-3-8b: B=4 S=T=2048 H=32 KV=8 hd=128",
+              "ssd_scan mamba2": "mamba2-1.3b: b=4 S=2048 h=64 p=64 n=128 "
+                                 "Q=256"}
+    for name, t in zoo_timing.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms'] * 1e3:.2f} us (sdpa)")
+        print(f"{name.split()[0]} per call ({shapes[name]}, bf16): kernel "
+              f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}: {t['bytes']} bytes, {t['ops']} flops)")
+    timing.update({k: zoo_timing[k] for k in ("flash_attention",
+                                              "ssd_scan")})
+    from repro_torch.configs import get_config
+    counts, rows = serve_phase("zamba2-7b", get_config("zamba2_7b"),
+                               {"flash_attention": 13, "ssd_scan": 68})
+    launches = {k: counts[k] for k in ("flash_attention", "ssd_scan")}
+    for row in rows:
+        print(row)
+    for label, cfg, expect in (
+            ("mamba2-1.3b", get_config("mamba2_1_3b"),
+             {"flash_attention": 0, "ssd_scan": 48}),
+            (f"granite-3-8b, depth cut to {GRANITE_LAYERS}",
+             get_config("granite_3_8b").replace(n_layers=GRANITE_LAYERS),
+             {"flash_attention": GRANITE_LAYERS, "ssd_scan": 0})):
+        for row in serve_phase(label, cfg, expect)[1]:
+            print(row)
+    for row in zoo_card_vs_cpu() + zoo_decode_vs_prefill():
+        print(row)
+
+    return ({"flash_attention": flash_err, "ssd_scan": ssd_err}, shapes,
+            launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -1332,6 +1720,11 @@ def main() -> int:
         print(row)
     print(fleet_card_vs_cpu(problem, problem_cpu))
 
+    del problem, problem_cpu, params0
+    torch.cuda.empty_cache()
+    zoo_errs, zoo_shapes, zoo_launches = zoo_phases(gen, timing)
+    launches.update(zoo_launches)
+
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
     # the two phases that check every written row
@@ -1348,7 +1741,13 @@ def main() -> int:
             "rounds",
         "paged_bank_scatter_batched":
             f"Figure 2 fleet BankedMIFA(PagedDeviceBank), K=3, "
-            f"{FLEET_ROUNDS} rounds"}
+            f"{FLEET_ROUNDS} rounds",
+        "flash_attention": f"zamba2-7b serve prefill, {SERVE_B} x "
+                           f"{SERVE_PROMPT} tokens (13 shared-attention "
+                           "insertions; decode launches none)",
+        "ssd_scan": f"zamba2-7b serve prefill, {SERVE_B} x {SERVE_PROMPT} "
+                    "tokens (68 Mamba2 layers; decode launches none)"}
+    per_call = {k: zoo_shapes[k] + ", bf16" for k in zoo_launches}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
@@ -1362,8 +1761,24 @@ def main() -> int:
             ("bank_scatter_batched", "bank_scatter.cu",
              "src/repro/kernels/bank_scatter.py:114", bb_err),
             ("paged_bank_scatter_batched", "paged_bank.cu",
-             "src/repro/kernels/bank_scatter.py:342", pb_err)):
+             "src/repro/kernels/bank_scatter.py:342", pb_err),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:26",
+             zoo_errs["flash_attention"]),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:25",
+             zoo_errs["ssd_scan"])):
         t = timing[name]
+        if name in per_call:
+            # ms, plain_ms and bound_ms are per call at the served shape
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": tpu, "launches": launches[name],
+                "launches_from": launches_from[name],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "per_call_at": per_call[name]})
+            continue
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

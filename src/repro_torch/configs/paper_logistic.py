@@ -11,11 +11,16 @@ CONFIG = ArchConfig(
     family="tabular",
     n_layers=0,
     d_model=64,       # feature dim
+    n_heads=0,
+    n_kv_heads=0,
     d_ff=0,
     vocab_size=10,    # n classes
+    encoder_only=True,
+    modality="tabular",
     fl_clients=100,
     fl_local_steps=5,
     param_dtype="float32",
+    compute_dtype="float32",
     source="paper §7 (MNIST/logistic), synthetic stand-in",
 )
 

@@ -10,11 +10,16 @@ CONFIG = ArchConfig(
     family="tabular",
     n_layers=2,       # hidden layers
     d_model=256,      # feature dim
+    n_heads=0,
+    n_kv_heads=0,
     d_ff=128,         # hidden width
     vocab_size=10,
+    encoder_only=True,
+    modality="tabular",
     fl_clients=100,
     fl_local_steps=5,
     param_dtype="float32",
+    compute_dtype="float32",
     source="paper §7 (CIFAR-10/LeNet-5), synthetic MLP stand-in",
 )
 

@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("mifa_aggregate", "bank_scatter", "paged_bank")
+KERNELS = ("mifa_aggregate", "bank_scatter", "paged_bank", "flash_attention",
+           "ssd_scan")
 # the dtypes the kernels keep stored rows (G, banks, pages, w) in
 FLOAT_STORES = (torch.float32, torch.bfloat16)
 

@@ -1,0 +1,100 @@
+"""Forward online-softmax attention: the CUDA kernel's wrapper and its plain
+version.
+
+    out[b,s,h] = softmax_t(q[b,s,h]·k[b,t,h//g] / sqrt(hd), mask) · v[b,t,h//g]
+
+for q (B,S,H,hd) and k, v (B,T,KV,hd) with g = H // KV (grouped-query
+attention reads a key/value head per group; nothing is repeated in memory)
+and, when `causal`, the mask key <= query. The causal mask is top-left
+aligned, as the TPU kernel's `kpos <= qpos`; the reference's oracle aligns
+it bottom-right (`tril(k=T-S)`), and the two agree only when S == T, so a
+causal call with S != T raises.
+
+`flash_attention` decides by the tensors' device: CUDA tensors launch the
+hand-written kernel `csrc/flash_attention.cu` (which replaces the TPU kernel
+`repro/kernels/flash_attention.py`), CPU tensors take
+`flash_attention_ref`. Scores, the softmax and the accumulator are f32; in
+bf16 the kernel rounds the probabilities to bf16 before P·V, as the TPU
+kernel does, while the plain version keeps them in f32.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
+                                         entry_point, launch)
+
+# the kernel keeps a head's row in registers in 16-wide slices
+MAX_HEAD_DIM = 128
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Plain version: exact softmax attention in f32 with the top-left
+    causal mask, returned in q's dtype."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float().reshape(B, S, KV, g, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(hd)
+    if causal:
+        mask = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _check(q, k, v, causal: bool) -> None:
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"q and k must be (B,S,H,hd) and (B,T,KV,hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if min(B, S, H, T, KV) == 0:
+        raise ValueError(f"empty attention q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if H % KV:
+        raise ValueError(f"{H} query heads do not split into {KV} kv heads")
+    if hd % 8 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} must be a multiple of 8 and at "
+                         f"most {MAX_HEAD_DIM}")
+    if causal and S != T:
+        raise ValueError(f"causal attention needs S == T (got S={S}, "
+                         f"T={T}): the kernel's mask is top-left aligned")
+    check_tensors(q.device, {
+        "q": (q, FLOAT_STORES, (B, S, H, hd)),
+        "k": (k, (q.dtype,), (B, T, KV, hd)),
+        "v": (v, (q.dtype,), (B, T, KV, hd))})
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B,S,H,hd) f32|bf16; k, v (B,T,KV,hd) of q's dtype, H % KV == 0,
+    hd a multiple of 8 up to 128, all contiguous. Returns (B,S,H,hd) in q's
+    dtype. CPU tensors take the plain version; CUDA tensors launch the
+    kernel into a fresh output."""
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = entry_point("flash_attention", "flash_attention",
+                     [vp] * 4 + [ci] * 7, q.device)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel reads rows 16 bytes at a time: q, k "
+                         "and v must start 16-byte aligned")
+    out = torch.empty_like(q)
+    launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), B, S, T, H, KV, hd,
+           int(causal) | (int(q.dtype == torch.bfloat16) << 1))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -15,9 +15,11 @@
 
 Unlike the reference wrappers these pad nothing: the CUDA kernels mask the
 ragged column edge themselves, so no leaf (and no bank) is copied. Flattening
-a contiguous leaf is a view, so in-place kernel writes land in the leaf. The
-attention and SSD wrappers wait for their kernels (ROADMAP Queue 2 items 7
-and 8).
+a contiguous leaf is a view, so in-place kernel writes land in the leaf.
+
+* `attention` / `ssd` — the model zoo's prefill attention and SSD scan
+  (`kernels.flash_attention`, `kernels.ssd_scan`), the counterparts of the
+  reference's `ops.attention` and `ops.ssd`.
 """
 from __future__ import annotations
 
@@ -25,10 +27,12 @@ import torch
 
 from repro_torch.kernels.bank_scatter import (bank_scatter,
                                               bank_scatter_batched)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mifa_aggregate import mifa_aggregate
 from repro_torch.kernels.paged_bank import (paged_bank_gather,
                                             paged_bank_scatter,
                                             paged_bank_scatter_batched)
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.tree import tree_map, tree_unzip2
 
 
@@ -133,3 +137,22 @@ def fleet_paged_bank_update_tree(pages_tree, upd_tree,
         return pn.reshape(pages.shape), ds.reshape((k,) + pages.shape[2:])
 
     return tree_unzip2(tree_map(one, pages_tree, upd_tree))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """Prefill attention: q (B,S,H,hd), k, v (B,T,KV,hd) -> (B,S,H,hd)."""
+    return flash_attention(q, k, v, causal=causal)
+
+
+def ssd(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+        *, chunk: int = 256):
+    """Chunked SSD scan: x (b,S,h,p), dA (b,S,h), B, C (b,S,n), S % chunk
+    == 0 -> (y (b,S,h,p), h_final (b,h,p,n) f32)."""
+    return ssd_scan(x, dA, B, C, chunk=chunk)
+
+
+def model_kernel_launches() -> dict:
+    """Launch counts of the model zoo's kernels, by name."""
+    return {"flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches}

@@ -1,17 +1,21 @@
 """Shared layers for the ported models (counterpart of
-`repro/models/layers.py`, cut to what the tabular path uses).
+`repro/models/layers.py`): norms, rope, the SwiGLU MLP, embeddings and the
+tabular loss.
 
 Pure-functional: params are nested dicts of tensors. Initializers draw from
-an explicit `torch.Generator` on the CPU and then move to the target device,
-so an init is the same on every device. They do not reproduce the JAX
-package's `jax.random` draws: parity tests pass the reference's params in
-through `repro_torch.convert.params_from_jax`. Norms, rope, attention MLPs
-and the chunked LM loss are not ported yet (ROADMAP Queue 1 item 18).
+an explicit `torch.Generator`. They do not reproduce the JAX package's
+`jax.random` draws: parity tests pass the reference's params in through
+`repro_torch.convert.params_from_jax`. The tabular models draw on the CPU
+and move the result (`_dense_init`), so their init is the same on every
+device; the zoo draws each leaf on its target device with a generator that
+lives there (`_device_init`), so a 7B model never passes through host f32.
+The chunked LM loss waits for training (ROADMAP Queue 1 item 18).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
@@ -22,6 +26,91 @@ def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
     w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
     return w.to(device=device, dtype=dtype)
 
+
+def _device_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
+                 scale: float | None = None) -> torch.Tensor:
+    """The reference's `_dense_init` scaling, drawn in f32 on `gen`'s
+    device and cast there."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(scale).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# RMSNorm
+# --------------------------------------------------------------------------- #
+
+def rmsnorm_init(d: int, dtype: torch.dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Rotary position embeddings
+# --------------------------------------------------------------------------- #
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., :, None].float() * inv           # (..., S, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]                  # (..., S, 1, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# SwiGLU MLP
+# --------------------------------------------------------------------------- #
+
+def mlp_init(gen: torch.Generator, d: int, f: int, dtype: torch.dtype
+             ) -> dict:
+    return {"w1": _device_init(gen, (d, f), dtype),
+            "w3": _device_init(gen, (d, f), dtype),
+            "w2": _device_init(gen, (f, d), dtype)}
+
+
+def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ params["w1"]) * (x @ params["w3"])
+    return h @ params["w2"]
+
+
+# --------------------------------------------------------------------------- #
+# Embedding / head
+# --------------------------------------------------------------------------- #
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype
+               ) -> torch.Tensor:
+    return _device_init(gen, (vocab, d), dtype, scale=0.02)
+
+
+def head_init(gen: torch.Generator, d: int, vocab: int, dtype: torch.dtype
+              ) -> torch.Tensor:
+    return _device_init(gen, (d, vocab), dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Losses
+# --------------------------------------------------------------------------- #
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Public model API for the ported tabular paper models.
+"""Public model API (counterpart of `repro/models/model.py`).
 
-Counterpart of `repro/models/model.py` for `family == "tabular"`: batch
-format {'x': (B, d) float32, 'y': (B,) int}. Params are nested dicts of
-tensors under the JAX package's keys — {"w","b"} for logistic regression,
-{"layers": [{"w","b"}, ...], "out": {"w","b"}} for the MLP — so parity
-tests compare leaf by leaf. The text/vision/audio families and serving are
-not ported yet (ROADMAP Queue 1 item 18).
+`Model` wraps an ArchConfig. Batch formats by modality:
+  text:    {'tokens': (B,S) int}
+  tabular: {'x': (B,d) float32, 'y': (B,) int}     (paper models)
+
+Tabular models train (`init`, `loss_fn`, `accuracy`). Text models serve:
+`init`, `init_cache`, `prefill` and `decode_step` for the block kinds that
+`models.transformer` ports. Params are nested dicts of tensors under the
+JAX package's keys, so parity tests compare leaf by leaf. The text
+families' training loss, and the vision_text and audio modalities, are not
+ported yet (ROADMAP Queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -14,25 +18,60 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
-from repro_torch.models.layers import _dense_init, softmax_cross_entropy
+from repro_torch.models import transformer
+from repro_torch.models.layers import (_dense_init, embed_init, head_init,
+                                       rmsnorm, rmsnorm_init,
+                                       softmax_cross_entropy)
 from repro_torch.tree import tree_leaves
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        if cfg.family != "tabular":
+        if cfg.modality in ("vision_text", "audio"):
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported; the port has "
-                "the tabular paper models (ROADMAP Queue 1 item 18)")
+                f"model modality {cfg.modality!r} is not ported; the port "
+                "has the tabular paper models and text models (ROADMAP "
+                "Queue 1 item 18)")
+        if cfg.family != "tabular":
+            transformer.check_ported(cfg)
         self.cfg = cfg
+        self.param_dtype = DTYPES[cfg.param_dtype]
+        self.compute_dtype = DTYPES[cfg.compute_dtype]
 
+    # ------------------------------------------------------------------ #
+    # init
+    # ------------------------------------------------------------------ #
     def init(self, gen: torch.Generator | int = 0, *,
              device: str | torch.device = DEFAULT_DEVICE) -> dict:
         """Fresh params on `device`. `gen` is a torch.Generator or a seed.
-        Logistic regression starts at zeros, as in the reference."""
+        Tabular models draw on the CPU and move (logistic regression starts
+        at zeros, as in the reference); text models draw every leaf on
+        `device` from a generator that lives there (a seed makes one)."""
         dev = resolve_device(device)
+        cfg = self.cfg
+        if cfg.family == "tabular":
+            if not isinstance(gen, torch.Generator):
+                gen = torch.Generator().manual_seed(int(gen))
+            return self._init_tabular(gen, dev)
         if not isinstance(gen, torch.Generator):
-            gen = torch.Generator().manual_seed(int(gen))
+            gen = torch.Generator(device=dev).manual_seed(int(gen))
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, params on {dev}: "
+                             "text models draw on the params' device")
+        params = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                self.param_dtype),
+            "final_norm": rmsnorm_init(cfg.d_model, self.param_dtype, dev),
+            "lm_head": head_init(gen, cfg.d_model, cfg.vocab_size,
+                                 self.param_dtype),
+        }
+        params.update(transformer.init_segments(gen, cfg, self.param_dtype))
+        return params
+
+    def _init_tabular(self, gen: torch.Generator, dev: torch.device) -> dict:
         cfg = self.cfg
         f32 = torch.float32
         if cfg.n_layers == 0:  # logistic regression
@@ -52,6 +91,9 @@ class Model:
                         "b": torch.zeros((cfg.vocab_size,), dtype=f32,
                                          device=dev)}}
 
+    # ------------------------------------------------------------------ #
+    # tabular training
+    # ------------------------------------------------------------------ #
     def _tabular_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.n_layers == 0:
             return x @ params["w"] + params["b"]
@@ -62,6 +104,11 @@ class Model:
 
     def loss_fn(self, params: dict, batch: dict):
         """(loss, aux) — the reference's `_loss_tabular` contract."""
+        if self.cfg.family != "tabular":
+            raise NotImplementedError(
+                f"training loss of the {self.cfg.family} family is not "
+                "ported; it comes with launch/train.py (ROADMAP Queue 1 "
+                "item 18)")
         logits = self._tabular_logits(params, batch["x"])
         ce = softmax_cross_entropy(logits, batch["y"])
         return ce, {"loss": ce, "ce": ce, "aux": torch.zeros_like(ce)}
@@ -70,6 +117,44 @@ class Model:
         logits = self._tabular_logits(params, batch["x"])
         return (logits.argmax(-1) == batch["y"].long()).float().mean()
 
+    # ------------------------------------------------------------------ #
+    # serving
+    # ------------------------------------------------------------------ #
+    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        """Token embeddings (B,S,d) in the compute dtype."""
+        return params["embed"][batch["tokens"]].to(self.compute_dtype)
+
+    def init_cache(self, batch: int, cache_len: int, *,
+                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
+        return transformer.init_cache(self.cfg, batch, cache_len,
+                                      self.compute_dtype,
+                                      resolve_device(device))
+
+    def _logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(params["final_norm"], h)
+        return (h @ params["lm_head"].to(h.dtype))[:, 0]
+
+    def prefill(self, params: dict, batch: dict, cache: dict):
+        """Returns (last-position logits (B,V), cache), the cache filled in
+        place."""
+        cfg = self.cfg
+        if not cfg.supports_decode:
+            raise ValueError(f"{cfg.name} is encoder-only")
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        h, _, cache = transformer.prefill(params, x, positions, cache, cfg)
+        return self._logits(params, h[:, -1:]), cache
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, pos: int,
+                    cache: dict):
+        """tokens (B,1) int at position `pos` (a Python int). Returns
+        (logits (B,V), cache), the cache updated in place."""
+        x = params["embed"][tokens].to(self.compute_dtype)
+        h, _, cache = transformer.decode(params, x, int(pos), cache,
+                                         self.cfg)
+        return self._logits(params, h), cache
+
+    # ------------------------------------------------------------------ #
     def param_count(self, params) -> int:
         return sum(int(np.prod(p.shape)) for p in tree_leaves(params))
 

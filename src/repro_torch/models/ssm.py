@@ -1,0 +1,152 @@
+"""Mamba2 (SSD, state-space duality) block: chunked prefill scan and O(1)
+decode (counterpart of `repro/models/ssm.py`). Single SSM group (G=1).
+
+The prefill scan goes through `kernels.ops.ssd`: the hand-written CUDA
+kernel on the card, its plain version (the reference's `ssd_chunked` in
+f32) on the CPU. The chunk is chosen as the reference chooses it: the
+configured chunk, halved until it divides S.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _device_init
+
+
+def mamba2_dims(d_model: int, expand: int, headdim: int, d_state: int,
+                conv_width: int):
+    d_inner = expand * d_model
+    n_heads = d_inner // headdim
+    conv_ch = d_inner + 2 * d_state          # conv over [x, B, C]
+    proj_dim = 2 * d_inner + 2 * d_state + n_heads  # z, x, B, C, dt
+    return d_inner, n_heads, conv_ch, proj_dim
+
+
+def mamba2_init(gen: torch.Generator, d_model: int, expand: int,
+                headdim: int, d_state: int, conv_width: int,
+                dtype: torch.dtype) -> dict:
+    d_inner, n_heads, conv_ch, proj_dim = mamba2_dims(
+        d_model, expand, headdim, d_state, conv_width)
+    dev, f32 = gen.device, torch.float32
+    # dt bias initialised so softplus(dt_bias) spans [1e-3, 1e-1]
+    u = torch.rand((n_heads,), generator=gen, dtype=f32, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    return {
+        "in_proj": _device_init(gen, (d_model, proj_dim), dtype),
+        "conv_w": _device_init(gen, (conv_width, conv_ch), dtype, scale=0.1),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "A_log": torch.log(torch.arange(1, n_heads + 1, dtype=f32,
+                                        device=dev)),
+        "D": torch.ones((n_heads,), dtype=f32, device=dev),
+        "dt_bias": dt_bias,
+        "norm_scale": torch.ones((d_inner,), dtype=dtype, device=dev),
+        "out_proj": _device_init(gen, (d_inner, d_model), dtype),
+    }
+
+
+def _split_proj(proj: torch.Tensor, d_inner: int, d_state: int,
+                n_heads: int):
+    z = proj[..., :d_inner]
+    xbc = proj[..., d_inner:d_inner + d_inner + 2 * d_state]
+    dt = proj[..., -n_heads:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv over time. xbc (B,S,C); w (W,C)."""
+    W, S = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    out = pad[:, 0:S, :] * w[0]
+    for i in range(1, W):
+        out = out + pad[:, i:i + S, :] * w[i]
+    return F.silu(out + b)
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    y = y * F.silu(z.float()).to(y.dtype)
+    y32 = y.float()
+    var = y32.square().mean(-1, keepdim=True)
+    return (y32 * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+def ssd_chunk(S: int, chunk: int) -> int:
+    """The chunk the reference's `ssd_chunked` uses for length S: the
+    configured chunk (at most S), halved until it divides S."""
+    q = min(chunk, S)
+    while S % q:
+        q //= 2
+    return q
+
+
+def mamba2_prefill(params: dict, x: torch.Tensor, *, expand: int,
+                   headdim: int, d_state: int, chunk: int, conv_width: int):
+    """x (B,S,d) -> (y (B,S,d), (ssm_state (B,H,P,N) f32,
+    conv_state (B,W-1,C)))."""
+    Bsz, S, d_model = x.shape
+    d_inner, n_heads, _, _ = mamba2_dims(d_model, expand, headdim, d_state,
+                                         conv_width)
+    proj = x @ params["in_proj"]
+    z, xbc, dt = _split_proj(proj, d_inner, d_state, n_heads)
+    if S >= conv_width - 1:
+        conv_state = xbc[:, S - (conv_width - 1):, :]
+    else:
+        conv_state = F.pad(xbc, (0, 0, conv_width - 1 - S, 0))
+    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xs = xbc[..., :d_inner].reshape(Bsz, S, n_heads, headdim)
+    Bmat = xbc[..., d_inner:d_inner + d_state].contiguous()
+    Cmat = xbc[..., d_inner + d_state:].contiguous()
+
+    dt = F.softplus(dt.float() + params["dt_bias"])              # (B,S,H)
+    A = -torch.exp(params["A_log"])                              # (H,)
+    y, h_final = ops.ssd((xs * dt[..., None].to(xs.dtype)).contiguous(),
+                         (dt * A).contiguous(), Bmat, Cmat,
+                         chunk=ssd_chunk(S, chunk))
+    y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
+    y = y.reshape(Bsz, S, d_inner)
+    y = _gated_rmsnorm(y, z, params["norm_scale"])
+    return y @ params["out_proj"], (h_final, conv_state)
+
+
+def mamba2_decode(params: dict, x: torch.Tensor, ssm_state: torch.Tensor,
+                  conv_state: torch.Tensor, *, expand: int, headdim: int,
+                  d_state: int, conv_width: int):
+    """Single-token recurrent step.
+
+    x (B,1,d); ssm_state (B,H,P,N) f32; conv_state (B,W-1,conv_ch).
+    Returns (y (B,1,d), (ssm_state, conv_state)) as new tensors.
+    """
+    Bsz, _, d_model = x.shape
+    d_inner, n_heads, _, _ = mamba2_dims(d_model, expand, headdim, d_state,
+                                         conv_width)
+    proj = (x @ params["in_proj"])[:, 0]                  # (B, proj)
+    z, xbc, dt = _split_proj(proj, d_inner, d_state, n_heads)
+
+    # conv: append the new channel vector, take the causal window
+    win = torch.cat([conv_state, xbc[:, None, :].to(conv_state.dtype)],
+                    dim=1)                                # (B,W,C)
+    conv_state = win[:, 1:, :]
+    conv_out = torch.einsum("bwc,wc->bc", win.float(),
+                            params["conv_w"].float())
+    xbc = F.silu(conv_out + params["conv_b"].float()).to(x.dtype)
+
+    xs = xbc[:, :d_inner].reshape(Bsz, n_heads, headdim)
+    Bv = xbc[:, d_inner:d_inner + d_state].float()
+    Cv = xbc[:, d_inner + d_state:].float()
+
+    dt = F.softplus(dt.float() + params["dt_bias"])               # (B,H)
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt * A)                                        # (B,H)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, Bv, xs.float())
+    ssm_state = ssm_state * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", ssm_state, Cv)
+    y = y + params["D"][None, :, None] * xs.float()
+    y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
+    y = _gated_rmsnorm(y, z[:, None, :], params["norm_scale"])
+    return y @ params["out_proj"], (ssm_state, conv_state)

@@ -1,0 +1,278 @@
+"""Layer-stack assembly for serving: segments of homogeneous blocks
+(counterpart of `repro/models/transformer.py`).
+
+A model is a sequence of *segments*, each a maximal run of layers with the
+same (block kind, ffn kind). A segment's params and cache leaves are
+stacked along a leading layer axis under the reference's keys
+(`{"segments": {"0": ...}, "shared_attn": ...}`), so trees map leaf by leaf
+between the two packages; where the reference scans a segment with
+`lax.scan`, the port loops over the layer axis. Zamba2's shared attention
+block is stored once at the top level and used by every `shared_attn`
+segment.
+
+Ported block kinds: 'attn' (GQA, full), 'shared_attn' and 'ssm' (Mamba2);
+FFN kinds 'mlp' and None. 'local_attn', 'mla' and 'moe' raise, and so does
+the training `forward` (ROADMAP Queue 1 item 18).
+
+Caches are written in place: `prefill` and `decode` fill the cache tree
+they are given and return it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init)
+from repro_torch.tree import tree_index, tree_stack
+
+
+def _radd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Residual add that keeps the activation dtype."""
+    return x + y.to(x.dtype)
+
+
+def _attn_out(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    B, S, H, hd = ctx.shape
+    return ctx.reshape(B, S, H * hd) @ wo
+
+
+@dataclass(frozen=True)
+class SegmentSpec:
+    index: int
+    kind: str        # attn | local_attn | mla | ssm | shared_attn
+    ffn: str | None  # mlp | moe | None
+    n_layers: int
+    window: int = 0  # >0 for local_attn
+
+
+def build_segments(cfg: ArchConfig) -> list[SegmentSpec]:
+    specs: list[tuple[str, str | None, int]] = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind == "attn" and cfg.kv_lora_rank:
+            kind = "mla"
+        if kind in ("ssm", "shared_attn"):
+            ffn = None
+        elif cfg.is_moe and i >= cfg.first_dense_layers:
+            ffn = "moe"
+        else:
+            ffn = "mlp"
+        if kind == "local_attn":
+            window = cfg.swa_window
+        elif kind == "shared_attn":
+            window = cfg.shared_attn_window
+        else:
+            window = 0
+        specs.append((kind, ffn, window))
+
+    segments: list[SegmentSpec] = []
+    run_start = 0
+    for i in range(1, len(specs) + 1):
+        if i == len(specs) or specs[i] != specs[run_start]:
+            kind, ffn, window = specs[run_start]
+            segments.append(SegmentSpec(len(segments), kind, ffn,
+                                        i - run_start, window))
+            run_start = i
+    return segments
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for what the port cannot serve yet: block kinds other than
+    full attention, shared attention and Mamba2; MoE; windows; the
+    compute-layout head padding of the sharded reference."""
+    for seg in build_segments(cfg):
+        if seg.kind in ("local_attn", "mla") or seg.ffn == "moe":
+            what = seg.kind if seg.ffn != "moe" else "moe"
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {what!r} is not ported; the port "
+                "serves attn, shared_attn and ssm blocks with an mlp or no "
+                "FFN (ROADMAP Queue 1 item 18)")
+        if seg.window:
+            raise NotImplementedError(
+                f"{cfg.name}: windowed {seg.kind} is not ported (ROADMAP "
+                "Queue 1 item 18)")
+    if cfg.pad_q_heads or cfg.pad_kv_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: head padding for tensor-parallel meshes is not "
+            "ported (ROADMAP Queue 1 item 19)")
+
+
+# --------------------------------------------------------------------------- #
+# Parameter init
+# --------------------------------------------------------------------------- #
+
+def _layer_init(gen: torch.Generator, spec: SegmentSpec, cfg: ArchConfig,
+                dtype: torch.dtype) -> dict:
+    dev = gen.device
+    p: dict = {}
+    if spec.kind in ("attn", "shared_attn"):
+        p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.resolved_head_dim,
+                                      cfg.qkv_bias, dtype)
+    elif spec.kind == "ssm":
+        p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["mixer"] = ssm_lib.mamba2_init(gen, cfg.d_model, cfg.ssm_expand,
+                                         cfg.ssm_headdim, cfg.ssm_state,
+                                         cfg.ssm_conv_width, dtype)
+    if spec.kind == "shared_attn" or spec.ffn == "mlp":
+        p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def init_segments(gen: torch.Generator, cfg: ArchConfig,
+                  dtype: torch.dtype) -> dict:
+    """Returns {'segments': {str(i): stacked params}, 'shared_attn': ...?},
+    every leaf drawn on `gen`'s device."""
+    check_ported(cfg)
+    out: dict = {"segments": {}}
+    segments = build_segments(cfg)
+    shared = next((s for s in segments if s.kind == "shared_attn"), None)
+    if shared is not None:
+        out["shared_attn"] = _layer_init(gen, shared, cfg, dtype)
+    for seg in segments:
+        if seg.kind == "shared_attn":
+            out["segments"][str(seg.index)] = {}  # params live at top level
+            continue
+        layers = [_layer_init(gen, seg, cfg, dtype)
+                  for _ in range(seg.n_layers)]
+        out["segments"][str(seg.index)] = tree_stack(layers)
+        del layers
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Caches
+# --------------------------------------------------------------------------- #
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               dtype: torch.dtype, device) -> dict:
+    """Zero caches for every segment, stacked along the segment's layer
+    axis (a shared_attn segment's has no layer axis, as in the reference)."""
+    check_ported(cfg)
+    cache: dict = {}
+    hd = cfg.resolved_head_dim
+    for seg in build_segments(cfg):
+        n = seg.n_layers
+        if seg.kind in ("attn", "shared_attn"):
+            shp = (batch, cache_len, cfg.n_kv_heads, hd)
+            if seg.kind == "attn":
+                shp = (n,) + shp
+            cache[str(seg.index)] = {
+                "k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
+        elif seg.kind == "ssm":
+            _, n_heads, conv_ch, _ = ssm_lib.mamba2_dims(
+                cfg.d_model, cfg.ssm_expand, cfg.ssm_headdim, cfg.ssm_state,
+                cfg.ssm_conv_width)
+            cache[str(seg.index)] = {
+                "state": torch.zeros((n, batch, n_heads, cfg.ssm_headdim,
+                                      cfg.ssm_state), dtype=torch.float32,
+                                     device=device),
+                "conv": torch.zeros((n, batch, cfg.ssm_conv_width - 1,
+                                     conv_ch), dtype=dtype, device=device)}
+    return cache
+
+
+# --------------------------------------------------------------------------- #
+# Prefill (fill caches) and decode (consume caches)
+# --------------------------------------------------------------------------- #
+
+def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec) -> torch.Tensor:
+    if spec.kind == "shared_attn" or spec.ffn == "mlp":
+        x = _radd(x, mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x)))
+    return x
+
+
+def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                   entry: dict, spec: SegmentSpec, cfg: ArchConfig
+                   ) -> torch.Tensor:
+    """One layer over the prompt; writes this layer's cache `entry` (no
+    layer axis) in place."""
+    h = rmsnorm(lp["ln1"], x)
+    if spec.kind in ("attn", "shared_attn"):
+        q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
+                                       cfg.rope_theta, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.resolved_head_dim)
+        ctx = attn_lib.prefill_attention(q, k, v, causal=cfg.causal,
+                                         window=spec.window)
+        x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+        S = k.shape[1]
+        entry["k"][:, :S] = k
+        entry["v"][:, :S] = v
+    else:
+        out, (state, conv) = ssm_lib.mamba2_prefill(
+            lp["mixer"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+            d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+            conv_width=cfg.ssm_conv_width)
+        x = _radd(x, out)
+        entry["state"].copy_(state)
+        entry["conv"].copy_(conv)
+    return _ffn(lp, x, spec)
+
+
+def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
+                  spec: SegmentSpec, cfg: ArchConfig) -> torch.Tensor:
+    """Single-token step through one layer; updates `entry` in place."""
+    h = rmsnorm(lp["ln1"], x)
+    if spec.kind in ("attn", "shared_attn"):
+        positions = torch.tensor([pos], device=x.device)
+        q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
+                                       cfg.rope_theta, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.resolved_head_dim)
+        attn_lib.cache_write(entry["k"], entry["v"], k, v, pos,
+                             window=spec.window)
+        ctx = attn_lib.decode_attend(q, entry["k"], entry["v"], pos,
+                                     window=spec.window)
+        x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+    else:
+        out, (state, conv) = ssm_lib.mamba2_decode(
+            lp["mixer"], h, entry["state"], entry["conv"],
+            expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+            d_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width)
+        x = _radd(x, out)
+        entry["state"].copy_(state)
+        entry["conv"].copy_(conv)
+    return _ffn(lp, x, spec)
+
+
+def _run(layer_fn, params: dict, x: torch.Tensor, step, cache: dict,
+         cfg: ArchConfig) -> torch.Tensor:
+    for seg in build_segments(cfg):
+        entry = cache[str(seg.index)]
+        if seg.kind == "shared_attn":
+            x = layer_fn(params["shared_attn"], x, step, entry, seg, cfg)
+            continue
+        seg_params = params["segments"][str(seg.index)]
+        for i in range(seg.n_layers):
+            x = layer_fn(tree_index(seg_params, i), x, step,
+                         tree_index(entry, i), seg, cfg)
+    return x
+
+
+def prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
+            cache: dict, cfg: ArchConfig):
+    """x (B,S,d) through every layer, filling `cache` in place.
+    Returns (x, aux, cache); aux is 0 (no MoE layer is ported)."""
+    x = _run(_layer_prefill, params, x, positions, cache, cfg)
+    return x, torch.zeros((), device=x.device), cache
+
+
+def decode(params: dict, x: torch.Tensor, pos: int, cache: dict,
+           cfg: ArchConfig):
+    """One token x (B,1,d) at position `pos` through every layer, updating
+    `cache` in place. Returns (x, aux, cache)."""
+    x = _run(_layer_decode, params, x, pos, cache, cfg)
+    return x, torch.zeros((), device=x.device), cache
+
+
+def forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
+            cfg: ArchConfig):
+    raise NotImplementedError(
+        "the training forward of the model zoo is not ported; it comes with "
+        "launch/train.py (ROADMAP Queue 1 item 18)")

@@ -25,7 +25,8 @@ from repro_torch.optim import constant
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_round.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_round.py",
+    ROOT / "scripts" / "profile_serve.py"]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -50,7 +51,10 @@ def test_isolation_walk_sees_the_whole_port():
     mods = {p.stem for p in PORT_FILES}
     assert {"runner", "mifa", "dense", "paged_device", "mifa_aggregate",
             "bank_scatter", "paged_bank", "pipeline", "ops", "backend",
-            "baselines", "sgd", "spec", "executor", "chip_smoke"} <= mods
+            "baselines", "sgd", "spec", "executor", "chip_smoke",
+            "flash_attention", "ssd_scan", "attention", "ssm",
+            "transformer", "layers", "model", "convert", "serve",
+            "zamba2_7b", "mamba2_1_3b", "granite_3_8b", "profile_serve"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -124,3 +128,58 @@ def test_unported_modules_raise():
         MIFA(memory="int8")
     with pytest.raises(NotImplementedError, match="item 18"):
         get_config("gemma3_4b")
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.launch.serve import serve
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        serve("zamba2-7b", smoke=True)
+    model = build_model(get_smoke_config("zamba2-7b"))
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        model.init_cache(1, 8)
+
+
+def test_serve_on_cpu_takes_the_plain_kernels():
+    from repro_torch.launch.serve import serve
+    out = serve("zamba2-7b", smoke=True, batch=2, prompt_len=16,
+                new_tokens=3, device="cpu")
+    assert out["tokens"].shape == (2, 3) and out["logits"].shape == (2, 512)
+    assert bool(torch.isfinite(out["logits"].float()).all())
+    zero = {"flash_attention": 0, "ssd_scan": 0}
+    assert out["launches"] == {"prefill": zero, "decode": zero}
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("granite_3_8b", {"swa_window": 8, "swa_pattern": 2}),     # local_attn
+    ("granite_3_8b", {"kv_lora_rank": 16}),                    # mla
+    ("granite_3_8b", {"n_experts": 4, "top_k": 2}),            # moe
+    ("granite_3_8b", {"modality": "vision_text", "n_patches": 4}),
+    ("granite_3_8b", {"modality": "audio"}),
+    ("zamba2_7b", {"shared_attn_window": 8})])
+def test_unported_block_kinds_and_modalities_raise(arch, change):
+    with pytest.raises(NotImplementedError, match="item 18"):
+        build_model(get_smoke_config(arch).replace(**change))
+
+
+def test_unported_zoo_surfaces_raise():
+    from repro_torch.launch.serve import main
+    from repro_torch.models import transformer
+    for arch in ("gemma3-4b", "olmoe_1b_7b", "deepseek-v2-lite-16b",
+                 "hubert_xlarge", "llava-next-34b", "qwen1.5-110b",
+                 "moonshot-v1-16b-a3b"):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            get_config(arch)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gpt5")
+    cfg = get_smoke_config("granite-3-8b")
+    model = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        model.loss_fn({}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match="item 18"):
+        transformer.forward({}, torch.zeros((1, 4, cfg.d_model)),
+                            torch.arange(4), cfg)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
+              "--params", "ckpt"])

@@ -20,6 +20,8 @@ from repro_torch.kernels.bank_scatter import (bank_scatter,
                                               bank_scatter_batched,
                                               bank_scatter_batched_ref,
                                               bank_scatter_ref)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
 from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
                                                 mifa_aggregate_ref)
 from repro_torch.kernels.ops import bank_update_tree, mifa_aggregate_tree
@@ -29,6 +31,7 @@ from repro_torch.kernels.paged_bank import (paged_bank_gather,
                                             paged_bank_scatter_batched,
                                             paged_bank_scatter_batched_ref,
                                             paged_bank_scatter_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -63,6 +66,36 @@ def _bank_inputs(r, m, c, n_valid, seed):
     ids[:n_valid] = rng.permutation(r - 1)[:n_valid]
     valid = np.arange(c) < n_valid
     return bank, u, ids, valid
+
+
+def _attention_inputs(b, s, h, kv, hd, dtype, seed):
+    """q (b,s,h,hd), k, v (b,s,kv,hd) as f32 numpy, already rounded to
+    `dtype` (so both packages start from the same values)."""
+    rng = np.random.default_rng(seed)
+    out = [rng.normal(size=(b, s, n, hd)).astype(np.float32)
+           for n in (h, kv, kv)]
+    return [torch.from_numpy(x).to(TORCH_DT[dtype]).float().numpy()
+            for x in out]
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, seed):
+    """x (b,s,h,p), dA (b,s,h) = -softplus(normal), B, C (b,s,n) scaled by
+    0.5, as `tests/test_kernels.py` draws them; x, B, C rounded to
+    `dtype`, dA f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dA = -np.logaddexp(0.0, rng.normal(size=(b, s, h))).astype(np.float32)
+    B, C = ((0.5 * rng.normal(size=(b, s, n))).astype(np.float32)
+            for _ in range(2))
+    rnd = lambda a: torch.from_numpy(a).to(TORCH_DT[dtype]).float().numpy()  # noqa: E731
+    return rnd(x), dA, rnd(B), rnd(C)
+
+
+def _torch(arrays, dtype, device="cpu", keep_f32=()):
+    """numpy f32 -> tensors in `dtype`, except the indices in keep_f32."""
+    return [torch.from_numpy(a).to(device=device, dtype=torch.float32
+                                   if i in keep_f32 else TORCH_DT[dtype])
+            for i, a in enumerate(arrays)]
 
 
 # --------------------------------------------------------------------------- #
@@ -200,7 +233,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                     "paged_bank_scatter",
                                     "paged_bank_gather",
                                     "bank_scatter_batched",
-                                    "paged_bank_scatter_batched"])
+                                    "paged_bank_scatter_batched",
+                                    "flash_attention", "ssd_scan"])
 def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
     """A tensor on another device neither takes the plain version nor
     reaches the kernel library: the wrapper raises before any build."""
@@ -218,9 +252,100 @@ def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
                 bank[None], upd[None], ids[None], valid[None]),
             "paged_bank_scatter_batched": lambda: paged_bank_scatter_batched(
                 bank[None], upd[None], pt.to("meta")[None], lids[None],
-                valid[None], page_size=2)}[kernel]
+                valid[None], page_size=2),
+            "flash_attention": lambda: flash_attention(
+                *map(meta, _attention_inputs(1, 8, 4, 2, 16, "float32", 0))),
+            "ssd_scan": lambda: ssd_scan(
+                *map(meta, _ssd_inputs(1, 16, 2, 8, 8, "float32", 0)),
+                chunk=8)}[kernel]
     with pytest.raises(ValueError, match=f"no {kernel} kernel for device"):
         call()
+
+
+# flash attention and the SSD scan: plain versions against the Pallas kernels
+# and the reference's oracles. Tolerances as `tests/test_kernels.py` holds
+# the Pallas kernels to the oracles: 2e-5 (f32) and 2e-2 (bf16) for
+# attention, 5e-5 and 5e-2 for the scan (its bf16 y is rounded once; its
+# f32 state sums Q terms in another order).
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("s,h,kv,hd,block", [
+    (128, 4, 4, 32, 64), (256, 4, 2, 64, 64), (128, 8, 1, 16, 64),
+    (96, 4, 2, 112, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(s, h, kv, hd, block, causal,
+                                              dtype):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention as pallas
+    from repro.kernels.ref import flash_attention_ref as oracle
+    arrays = _attention_inputs(2, s, h, kv, hd, dtype, s + hd)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrays)
+    out = flash_attention(*_torch(arrays, dtype), causal=causal)
+    assert out.dtype == TORCH_DT[dtype] and out.shape == (2, s, h, hd)
+    for ref in (pallas(jq, jk, jv, causal=causal, block_q=block,
+                       block_k=block),
+                oracle(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(_f32(out), _f32(np.asarray(ref,
+                                                              np.float32)),
+                                   atol=ATTN_TOL[dtype])
+
+
+# the reference's test shapes in both dtypes, and mamba2-1.3b's head dim
+# and state (p=64, n=128) in f32: there |y| reaches 15, where one bf16
+# step (2^-4) is above the 5e-2 bf16 tolerance against the f32 oracle
+SSD_CASES = [(*shape, dt) for shape in [(64, 2, 8, 16, 16),
+                                        (128, 3, 16, 32, 32),
+                                        (96, 1, 32, 8, 32)]
+             for dt in ("float32", "bfloat16")]
+SSD_CASES.append((128, 2, 64, 128, 64, "float32"))
+
+
+@pytest.mark.parametrize("s,h,p,n,chunk,dtype", SSD_CASES)
+def test_ssd_plain_matches_pallas_and_oracles(s, h, p, n, chunk, dtype):
+    import jax.numpy as jnp
+    from repro.kernels.ref import ssd_scan_ref as oracle
+    from repro.kernels.ssd_scan import ssd_scan as pallas
+    from repro.models.ssm import ssd_chunked
+    arrays = _ssd_inputs(2, s, h, p, n, dtype, s * h)
+    jx, jdA, jB, jC = (jnp.asarray(a) for a in arrays)
+    jx = jx.astype(dtype)
+    y, hf = ssd_scan(*_torch(arrays, dtype, keep_f32=(1,)), chunk=chunk)
+    assert y.dtype == TORCH_DT[dtype] and hf.dtype == torch.float32
+    refs = [pallas(jx, jdA, jB, jC, chunk=chunk),
+            ssd_chunked(jx, jdA, jB, jC, chunk),
+            oracle(jx.astype(jnp.float32), jdA, jB, jC)]
+    for yr, hr in refs:
+        np.testing.assert_allclose(_f32(y), _f32(np.asarray(yr, np.float32)),
+                                   atol=SSD_TOL[dtype])
+        np.testing.assert_allclose(_f32(hf), _f32(np.asarray(hr)),
+                                   atol=SSD_TOL[dtype])
+
+
+def test_attention_and_ssd_reject_what_the_kernels_do_not_take():
+    q, k, v = _torch(_attention_inputs(1, 8, 4, 2, 16, "float32", 0),
+                     "float32")
+    with pytest.raises(ValueError, match="causal attention needs S == T"):
+        flash_attention(q, k[:, :4].contiguous(), v[:, :4].contiguous())
+    flash_attention(q, k[:, :4].contiguous(), v[:, :4].contiguous(),
+                    causal=False)
+    with pytest.raises(ValueError, match="do not split"):
+        flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                        v[..., :12].contiguous())
+    with pytest.raises(TypeError, match="k must be float32"):
+        flash_attention(q, k.bfloat16(), v)
+    x, dA, B, C = _torch(_ssd_inputs(1, 16, 2, 8, 8, "float32", 0),
+                         "float32")
+    with pytest.raises(ValueError, match="chunk 6 must divide"):
+        ssd_scan(x, dA, B, C, chunk=6)
+    with pytest.raises(TypeError, match="dA must be float32"):
+        ssd_scan(x, dA.double(), B, C, chunk=8)
+    with pytest.raises(TypeError, match="B must be float32"):
+        ssd_scan(x, dA, B.bfloat16(), C, chunk=8)
 
 
 # --------------------------------------------------------------------------- #
@@ -396,3 +521,72 @@ def test_paged_bank_scatter_batched_cuda_matches_plain_and_single(
         terms = (u[k].to(pages.dtype).float() - old).abs()
         scale = (terms * valid[k].reshape(-1, 1)).sum(0)
         assert bool(((d_k[k] - d_ref[k]).abs() <= 1e-6 + 1e-5 * scale).all())
+
+
+# flash attention and the SSD scan on the card, |err| <= atol + rtol·|ref|.
+# Attention: f32 (2e-5, 0), the kernel's f32 FMAs and the plain einsum sum
+# in other orders; bf16 (2e-2, 1e-2), the kernel rounds the probabilities
+# to bf16 before P·V, as the TPU kernel does, where the plain version keeps
+# f32, and that can move the bf16 output by one step, up to 2^-7 of |out|.
+# The scan: |err| <= rtol · scale + 1e-6, scale being the plain version run
+# on |x|, |B|, |C| (the summed magnitudes of the terms). The within-chunk
+# cumsum of dA runs in another order on each side; at |cum| ~ 200 one f32
+# step is 1.5e-5 and the two sums drift apart by up to about 1e-4, which
+# exp(cum_i - cum_j) turns into a relative error of every term: f32 rtol
+# 5e-4. bf16 y can land one bf16 step (up to 2^-7 of |y| <= scale) from
+# the plain version's: rtol 1e-2.
+CUDA_ATTN_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 1e-2)}
+CUDA_SSD_RTOL = {"float32": 5e-4, "bfloat16": 1e-2}
+
+
+def _ssd_scale(x, dA, B, C, chunk):
+    """The plain scan over the magnitudes: bounds each output's summed
+    |terms|."""
+    return ssd_scan_ref(x.float().abs(), dA, B.float().abs(),
+                        C.float().abs(), chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,hd", [
+    (2, 256, 4, 4, 32), (2, 200, 8, 2, 112), (1, 333, 4, 1, 128),
+    (4, 2048, 32, 32, 112), (1, 512, 32, 8, 128), (2, 64, 4, 4, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_matches_plain(cuda_device, b, s, h, kv, hd,
+                                            causal, dtype):
+    q, k, v = _torch(_attention_inputs(b, s, h, kv, hd, dtype, s + hd),
+                     dtype, cuda_device)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    atol, rtol = CUDA_ATTN_TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), \
+        err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 128, 3, 16, 32, 32), (2, 96, 1, 32, 8, 32), (1, 512, 4, 64, 64, 256),
+    (1, 512, 4, 64, 128, 256), (2, 64, 2, 8, 16, 16), (1, 96, 2, 64, 64, 96),
+    (4, 2048, 8, 64, 64, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_matches_plain(cuda_device, b, s, h, p, n, chunk,
+                                     dtype):
+    x, dA, B, C = _torch(_ssd_inputs(b, s, h, p, n, dtype, s * h), dtype,
+                         cuda_device, keep_f32=(1,))
+    y_ref, h_ref = ssd_scan_ref(x, dA, B, C, chunk=chunk)
+    before = ssd_scan.launches
+    y, hf = ssd_scan(x, dA, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == x.dtype and hf.dtype == torch.float32
+    y_scale, h_scale = _ssd_scale(x, dA, B, C, chunk)
+    for got, ref, scale, rtol in ((y, y_ref, y_scale, CUDA_SSD_RTOL[dtype]),
+                                  (hf, h_ref, h_scale, 5e-4)):
+        err = (got.float() - ref.float()).abs()
+        assert bool((err <= 1e-6 + rtol * scale).all()), \
+            (err / scale).max().item()
