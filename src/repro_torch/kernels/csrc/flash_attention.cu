@@ -14,31 +14,61 @@
 // S=T=2048, H=32, hd=112, bf16) needs 4·B·H·hd·S(S+1)/2 = 1.2e11 flops for
 // 235 MB of q, k, v and out: about 510 flops a byte, above the card's ~295
 // bf16 balance, so the least time is the flops over the 989 TFLOP/s bf16
-// tensor-core peak.
+// tensor-core peak. Only wgmma reaches that rate; beside it, the softmax's
+// one ex2 per score (16 a clock per SM) costs about half the MMA time at
+// hd = 112, so the MMAs of one warpgroup have to overlap the softmax of
+// another.
 //
-// What the design does about it:
-//   * bf16 runs on the tensor cores: each warp owns 16 query rows and
-//     runs mma.sync m16n8k16 (bf16 in, f32 accumulate) for Q·Kᵀ and P·V.
-//     The score tile never leaves registers: the f32 accumulator layout of
-//     Q·Kᵀ is rearranged in registers into the bf16 A operand of P·V.
-//   * One block per (64-query tile, head, batch) walks the key tiles in
-//     order, as the TPU grid's sequential kv axis did; a causal block stops
-//     at its last query, so the masked upper triangle costs nothing beyond
-//     the diagonal tiles. Blocks start heaviest (last query tile)
-//     first.
-//   * K and V are read through h / g, so grouped-query heads are never
-//     repeated in memory. Rows are read in the reference's (B,S,H,hd)
-//     layout, 16 bytes at a time, and the ragged edges (S or T not a
-//     multiple of 64, hd not a multiple of 16) are masked in the kernel.
-//   * f32 inputs take a CUDA-core path with the same blocking of the
-//     softmax (32 queries by 32 keys, FMA in f32), so f32 stays f32.
+// The bf16 path (wgmma and TMA):
+//   * One block of 2 warpgroups per (128-query tile, head, batch); each
+//     warpgroup owns 64 query rows. Blocks of one (head, batch) run
+//     heaviest (last query tile) first; a causal block stops at its last
+//     query and a warpgroup skips key tiles wholly above its rows.
+//   * Q (once) and 64-key tiles of K and V come in by TMA: 4-d tensor maps
+//     over the reference's (B, rows, heads, hd) layout, boxes of 64 head
+//     columns, so GQA reads head h / g in place and nothing is repeated.
+//     Rows past S or T and columns past hd arrive as zeros. The K/V ring
+//     has 2 stages, each completed by an mbarrier's transaction count; the
+//     second warpgroup done with a stage refills it (a named barrier per
+//     warpgroup and a shared count), so the two warpgroups run decoupled.
+//   * Shared tiles are stored as 64-column atoms of 128-byte rows with the
+//     128-byte swizzle the TMA writes and wgmma reads, free of bank
+//     conflicts.
+//   * Q·Kᵀ: wgmma m64n64k16, Q and K from shared memory (K-major), one
+//     instruction per 16 head columns. P·V: wgmma m64nNk16 (N <= 64 a
+//     64-column atom of the head dim), P from registers (the score
+//     accumulator repacked as bf16 A fragments, so the score tile never
+//     leaves registers), V from shared memory in its natural (key, hd)
+//     layout, read MN-major through the transpose bit: V is never
+//     transposed in memory. f32 accumulators throughout.
+//   * Softmax in base 2: m is the max of the raw scores and
+//     p = ex2.approx(s·scale·log2 e − m·scale·log2 e), one FMA and one ex2
+//     per score; the correction factor is one ex2 as well, and the
+//     accumulator is rescaled only when a row of the warp has a new max
+//     (otherwise every factor is exactly 1). A masked score is −1e30 (the
+//     TPU kernel's value) before the fold, so p and the correction are 0,
+//     never NaN; the first key tile holds key 0, so no row's max stays at
+//     −1e30. The per-element mask runs only on tiles that cross the
+//     diagonal or the end of T.
 //   * Probabilities are rounded to bf16 before P·V and l sums the f32
-//     probabilities, as in the TPU kernel. Nothing is allocated here.
+//     probabilities, as in the TPU kernel. The output is staged through
+//     shared memory and written 16 bytes at a time. Nothing is allocated
+//     here.
+//   * Resources (nvcc -Xptxas -v, sm_90a): 128 registers a thread at KT = 8
+//     and 125 at KT = 7 under __launch_bounds__(256, 2), no spills;
+//     99,360 bytes of dynamic shared memory for hd > 64 (50,208 up to 64),
+//     so two blocks (4 warpgroups) share an SM. One block an SM, with no
+//     register cap, ran slower when tried; overlapping a tile's softmax
+//     with the next tile's Q·Kᵀ inside a warpgroup needs a second score
+//     tile and spilled under the cap.
 //
-// This first version keeps each tile in shared memory with plain loads and
-// one buffer (no TMA, no wgmma, no pipelining).
+// f32 inputs take a CUDA-core path with the same blocking of the softmax
+// (32 queries by 32 keys, FMA in f32), so f32 stays f32; it serves the f32
+// checks only.
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include <cmath>
@@ -51,197 +81,403 @@ constexpr unsigned FULL = 0xffffffffu;
 // --------------------------------------------------------------------------
 // bf16: tensor cores
 // --------------------------------------------------------------------------
-constexpr int BQ = 64;     // query rows per block: 4 warps x 16
-constexpr int BK = 64;     // keys per tile
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int BQ = 128;     // query rows per block: 2 warpgroups x 64
+constexpr int BK = 64;      // keys per tile
+constexpr int NSTAGE = 2;   // depth of the K/V ring
+constexpr int THREADS = 256;
+constexpr int MIN_BLOCKS = 2;  // blocks an SM holds: caps registers at 128
+constexpr int ROWB = 128;   // bytes of a row of a 64-column atom
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// the barrier inits become visible to the TMA unit
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival that also expects `bytes` of TMA transfers
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// wait for the completion of phase `parity` (0, 1, 0, ...) of the barrier
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+// one box of a 4-d tensor map (coordinates innermost first) into shared
+// memory; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tiles are stored as 64-column atoms, [atom][row][64 bf16], with the
+// 128-byte swizzle (16-byte chunk c of row r sits at chunk c ^ (r % 8) of
+// its row), as the TMA writes them. A wgmma shared-memory descriptor of
+// such a tile: K-major operands (Q, K) step 8-row groups by sbo = 1024; the
+// MN-major operand (V) steps 8-key groups by sbo = 1024 and 64-column atoms
+// by lbo.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | uint64_t(lbo >> 4) << 16 |
+         uint64_t(sbo >> 4) << 32 | uint64_t(1) << 62;
+}
+
+// x, which the compiler may not hoist or fold across this point: keeps a
+// loop from holding one 64-bit descriptor per head-dim slice in registers
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the compiler must not move reads or writes of these registers across an
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x N, f32) += A · B on one warpgroup. ss: A (64 x 16) and B (16 x
+// N) from shared memory, both K-major; rs: A from registers (the mma.sync
+// A fragment of each warp's 16 rows), B MN-major. d[4n + i] of a thread
+// holds row gid + 8(i / 2), column 8n + 2 tig + i % 2 of its warp's rows.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4],
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 48) wgmma_rs_n48(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
 }
 
 // KT = number of 16-wide slices of the head dim (hd <= 16*KT).
 template <int KT>
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
                   __nv_bfloat16* __restrict__ o, int S, int T, int H,
-                  int KV, int hd, int causal, float scale) {
+                  int KV, int hd, int causal, float scale_log2) {
   constexpr int HDP = KT * 16;     // padded head dim
-  constexpr int KSTR = HDP + 8;    // row stride of Q and K tiles (bf16)
-  constexpr int VSTR = BK + 8;     // row stride of the transposed V tile
-  constexpr int CH = HDP / 8;      // 16-byte chunks in a padded row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][KSTR]
-  __nv_bfloat16* Ks = Qs + BQ * KSTR;                          // [BK][KSTR]
-  __nv_bfloat16* Vt = Ks + BK * KSTR;                          // [HDP][VSTR]
+  constexpr int CHP = HDP / 8;     // 16-byte chunks of a padded row
+  constexpr int NA = (HDP + 63) / 64;   // 64-column atoms of a row
+  constexpr int N0 = HDP < 64 ? HDP : 64, N1 = HDP - N0;  // P·V widths
+  constexpr uint32_t QBYTES = NA * BQ * ROWB, TBYTES = NA * BK * ROWB;
+  constexpr int STR = HDP + 8;     // row stride of the output staging
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t Qs = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (Qs - raw);
+  const uint32_t Ks = Qs + QBYTES;                 // [NSTAGE] tiles
+  const uint32_t Vs = Ks + NSTAGE * TBYTES;        // [NSTAGE] tiles
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / KV);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, tig = lane & 3;
-  const int64_t qrow = int64_t(H) * hd, krow = int64_t(KV) * hd;
-  const __nv_bfloat16* qb = q + int64_t(b) * S * qrow + int64_t(h) * hd;
-  const __nv_bfloat16* kb = k + int64_t(b) * T * krow + int64_t(hk) * hd;
-  const __nv_bfloat16* vb = v + int64_t(b) * T * krow + int64_t(hk) * hd;
+  const int64_t qrow = int64_t(H) * hd;
+  const int kend = causal ? min(T, q0 + BQ) : T;
+  const int ntiles = (kend + BK - 1) / BK;
 
-  for (int c = tid; c < BQ * CH; c += THREADS) {
-    const int r = c / CH, d = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S && d < hd)
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * qrow + d);
-    *reinterpret_cast<uint4*>(Qs + r * KSTR + d) = val;
+  // one barrier a stage, completed by the TMA bytes of its K and V tiles,
+  // and one for Q; then a count a stage of the warpgroups done with it
+  const uint32_t bars = Vs + NSTAGE * TBYTES, qbar = bars + 8 * NSTAGE;
+  int* done = reinterpret_cast<int*>(smem + (bars - Qs) + 8 * (NSTAGE + 1));
+  if (tid == 0) {
+    for (int st = 0; st <= NSTAGE; ++st) mbar_init(bars + 8 * st, 1);
+    for (int st = 0; st < NSTAGE; ++st) done[st] = 0;
+    fence_mbar_init();
   }
   __syncthreads();
-
-  // this warp's 16 query rows as mma A fragments
-  const int wr = warp * 16;
-  uint32_t qf[KT][4];
+  // one thread of the block issues the copies of tile j
+  auto load_tile = [&](int j) {
+    const int st = j % NSTAGE;
+    mbar_expect_tx(bars + 8 * st, 2 * TBYTES);
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const __nv_bfloat16* p = Qs + (wr + gid) * KSTR + kt * 16 + tig * 2;
-    qf[kt][0] = ld32(p);
-    qf[kt][1] = ld32(p + 8 * KSTR);
-    qf[kt][2] = ld32(p + 8);
-    qf[kt][3] = ld32(p + 8 * KSTR + 8);
+    for (int a = 0; a < NA; ++a) {
+      tma_load_4d(Ks + st * TBYTES + a * BK * ROWB, &tk, bars + 8 * st,
+                  64 * a, hk, j * BK, b);
+      tma_load_4d(Vs + st * TBYTES + a * BK * ROWB, &tv, bars + 8 * st,
+                  64 * a, hk, j * BK, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, QBYTES);
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      tma_load_4d(Qs + a * BQ * ROWB, &tq, qbar, 64 * a, h, q0, b);
+#pragma unroll
+    for (int j = 0; j < NSTAGE; ++j)
+      if (j < ntiles) load_tile(j);
   }
 
-  float m_r[2] = {NEG_INF, NEG_INF};  // rows gid and gid + 8
+  const int wg = warp / 4;             // warpgroup: query rows 64wg..
+  const int wq0 = q0 + wg * 64;        // first query row of the warpgroup
+  const int wrow = wq0 + (warp % 4) * 16;  // first query row of the warp
+  const int row0 = wrow + gid;         // query row of c0, c1
+  const uint32_t qa = Qs + wg * 64 * ROWB;
+  float m_r[2] = {NEG_INF, NEG_INF};  // raw-score max of rows gid, gid + 8
   float l_r[2] = {0.f, 0.f};          // this thread's share of l
-  float oacc[2 * KT][4];
+  float oacc[HDP / 2];
 #pragma unroll
-  for (int n = 0; n < 2 * KT; ++n)
-    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  const int row0 = q0 + wr + gid;     // absolute query row of c0, c1
-  const int kend = causal ? min(T, q0 + BQ) : T;
+  for (int i = 0; i < HDP / 2; ++i) oacc[i] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int c = tid; c < BK * CH; c += THREADS) {
-      const int r = c / CH, d = (c % CH) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < T && d < hd)
-        val = *reinterpret_cast<const uint4*>(kb + (k0 + r) * krow + d);
-      *reinterpret_cast<uint4*>(Ks + r * KSTR + d) = val;
-    }
-    for (int c = tid; c < BK * CH; c += THREADS) {
-      const int r = c % BK, d = (c / BK) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < T && d < hd)
-        val = *reinterpret_cast<const uint4*>(vb + (k0 + r) * krow + d);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(d + j) * VSTR + r] = e[j];
-    }
-    __syncthreads();
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    if (!causal || k0 <= wq0 + 63) {  // else wholly above the warpgroup
+      mbar_wait(bars + 8 * (j % NSTAGE), (j / NSTAGE) & 1);  // tile j is in
+      const uint32_t kst = Ks + (j % NSTAGE) * TBYTES;
+      const uint32_t vst = Vs + (j % NSTAGE) * TBYTES;
 
-    // scores for 16 rows x 64 keys: 8 accumulator tiles of 16 x 8
-    float s[BK / 8][4];
+      // raw scores for 64 rows x 64 keys; s[4n + i]: key 8n + 2 tig + i % 2
+      float s[BK / 2];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      // slice kt of the head dim: atom kt / 4, 32 bytes a slice into it
+      // (descriptors count in 16-byte units)
+      const uint64_t dq = opaque(wgmma_desc(qa, 16, 1024));
+      const uint64_t dk = wgmma_desc(kst, 16, 1024);
+      wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
-        const __nv_bfloat16* p = Ks + (n * 8 + gid) * KSTR + kt * 16 + tig * 2;
-        mma_bf16(s[n], qf[kt], ld32(p), ld32(p + 8));
+        const uint32_t col = (kt % 4) * 2;
+        wgmma_ss_n64(s, dq + (kt / 4) * BQ * ROWB / 16 + col,
+                     dk + (kt / 4) * BK * ROWB / 16 + col, kt > 0);
       }
-    }
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + tig * 2 + (i & 1);
-        const int row = row0 + (i >> 1) * 8;
-        float sv = s[n][i] * scale;
-        if (key >= T || (causal && key > row)) sv = NEG_INF;
-        s[n][i] = sv;
-        mx[i >> 1] = fmaxf(mx[i >> 1], sv);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(FULL, mx[j], 2));
-    }
-    const float corr[2] = {expf(m_r[0] - mx[0]), expf(m_r[1] - mx[1])};
-    m_r[0] = mx[0];
-    m_r[1] = mx[1];
-    l_r[0] *= corr[0];
-    l_r[1] *= corr[1];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[n][i] - mx[i >> 1]);
-        s[n][i] = p;
-        l_r[i >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n) {
-      oacc[n][0] *= corr[0];
-      oacc[n][1] *= corr[0];
-      oacc[n][2] *= corr[1];
-      oacc[n][3] *= corr[1];
-    }
-    // P (bf16) · V: the accumulator tiles 2j and 2j+1 of the scores are the
-    // A fragment of keys 16j..16j+15
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < 2 * KT; ++n) {
-        const __nv_bfloat16* p = Vt + (n * 8 + gid) * VSTR + j * 16 + tig * 2;
-        mma_bf16(oacc[n], pa, ld32(p), ld32(p + 8));
-      }
-    }
-  }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<BK / 2>(s);
 
+      if (k0 + BK > T || (causal && k0 + BK - 1 > wrow)) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    l_r[j] += __shfl_xor_sync(FULL, l_r[j], 1);
-    l_r[j] += __shfl_xor_sync(FULL, l_r[j], 2);
-  }
-  const float den[2] = {fmaxf(l_r[0], 1e-30f), fmaxf(l_r[1], 1e-30f)};
-#pragma unroll
-  for (int n = 0; n < 2 * KT; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (col >= hd) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + half * 8;
-      if (row < S) {
-        __nv_bfloat162 val = __floats2bfloat162_rn(
-            oacc[n][2 * half] / den[half], oacc[n][2 * half + 1] / den[half]);
-        *reinterpret_cast<__nv_bfloat162*>(
-            o + (int64_t(b) * S + row) * qrow + int64_t(h) * hd + col) = val;
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + (i / 4) * 8 + tig * 2 + (i & 1);
+          if (key >= T || (causal && key > row0 + ((i >> 1) & 1) * 8))
+            s[i] = NEG_INF;
+        }
       }
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      float corr[2], ms[2];
+      bool grew = false;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        grew |= mx[r] > m_r[r];
+        corr[r] = exp2_approx((m_r[r] - mx[r]) * scale_log2);
+        ms[r] = mx[r] * scale_log2;
+        m_r[r] = mx[r];
+        l_r[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float p = exp2_approx(fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]));
+        s[i] = p;
+        l_r[(i >> 1) & 1] += p;
+      }
+      // where no row of the warp has a new max, every correction is exactly 1
+      if (__any_sync(FULL, grew)) {
+#pragma unroll
+        for (int i = 0; i < HDP / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+      }
+      // P (bf16) · V: score tiles 2jj and 2jj+1 are the A fragment of keys
+      // 16jj..16jj+15; V's rows are keys, so B is read MN-major
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int jj = 0; jj < BK / 16; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[jj][i] = pack_bf16(s[8 * jj + 2 * i], s[8 * jj + 2 * i + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < BK / 16; ++jj) {
+        const uint32_t vrow = vst + jj * 16 * ROWB;
+        wgmma_rs<N0>(oacc, pa[jj], wgmma_desc(vrow, BK * ROWB, 1024));
+        if constexpr (N1 > 0)
+          wgmma_rs<N1>(oacc + N0 / 2, pa[jj],
+                       wgmma_desc(vrow + BK * ROWB, BK * ROWB, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<HDP / 2>(oacc);
     }
+    // the second warpgroup done with tile j refills its stage
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + warp / 4) : "memory");
+    if (tid % 128 == 0) {
+      __threadfence_block();
+      if ((atomicAdd(done + j % NSTAGE, 1) & 1) && j + NSTAGE < ntiles)
+        load_tile(j + NSTAGE);
+    }
+  }
+  // normalise, stage each warp's 16 rows in the (now idle) K/V ring, then
+  // write 16-byte chunks
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
+    inv[r] = 1.f / fmaxf(l_r[r], 1e-30f);
+  }
+  __syncthreads();  // every warpgroup is done with the ring
+  __nv_bfloat16* Os =
+      reinterpret_cast<__nv_bfloat16*>(smem + QBYTES) + warp * 16 * STR;
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n) {
+    const int col = n * 8 + tig * 2;
+    *reinterpret_cast<__nv_bfloat162*>(Os + gid * STR + col) =
+        __floats2bfloat162_rn(oacc[4 * n] * inv[0], oacc[4 * n + 1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(Os + (gid + 8) * STR + col) =
+        __floats2bfloat162_rn(oacc[4 * n + 2] * inv[1],
+                              oacc[4 * n + 3] * inv[1]);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = o + int64_t(b) * S * qrow + int64_t(h) * hd;
+#pragma unroll
+  for (int i = 0; i < 16 * CHP / 32; ++i) {
+    const int c = lane + i * 32, r = c / CHP, d = (c % CHP) * 8;
+    if (d < hd && wrow + r < S)
+      *reinterpret_cast<uint4*>(ob + (wrow + r) * qrow + d) =
+          *reinterpret_cast<const uint4*>(Os + r * STR + d);
   }
 }
 
 // --------------------------------------------------------------------------
 // f32: CUDA cores
 // --------------------------------------------------------------------------
+constexpr int FTHREADS = 128;
 constexpr int FQ = 32;     // query rows per block
 constexpr int FK = 32;     // keys per tile
 constexpr int FSTR = 129;  // row stride of the Q and K tiles (f32)
@@ -249,7 +485,7 @@ constexpr int FSTR = 129;  // row stride of the Q and K tiles (f32)
 // NC = output columns per thread (hd <= 4*NC): thread t owns query row
 // t / 4 and columns t % 4 + 4*i.
 template <int NC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
                  int T, int H, int KV, int hd, int causal, float scale) {
@@ -268,7 +504,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + int64_t(b) * T * krow + int64_t(hk) * hd;
   const float* vb = v + int64_t(b) * T * krow + int64_t(hk) * hd;
 
-  for (int e = tid; e < FQ * hd; e += THREADS) {
+  for (int e = tid; e < FQ * hd; e += FTHREADS) {
     const int rr = e / hd, d = e % hd;
     Qs[rr * FSTR + d] = q0 + rr < S ? qb[(q0 + rr) * qrow + d] : 0.f;
   }
@@ -282,7 +518,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < kend; k0 += FK) {
     __syncthreads();
-    for (int e = tid; e < FK * hd; e += THREADS) {
+    for (int e = tid; e < FK * hd; e += FTHREADS) {
       const int rr = e / hd, d = e % hd;
       const bool in = k0 + rr < T;
       Ks[rr * FSTR + d] = in ? kb[(k0 + rr) * krow + d] : 0.f;
@@ -343,22 +579,63 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// (B, rows, heads, hd) bf16 in boxes of 64 head columns x box_rows rows of
+// one head, 128-byte swizzled as the wgmma descriptors expect
+bool tensor_map(CUtensorMap* map, const void* base, int B, int rows,
+                int heads, int hd, int box_rows) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(heads),
+                              cuuint64_t(rows), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(hd) * 2,
+                                 cuuint64_t(heads) * hd * 2,
+                                 cuuint64_t(rows) * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int KT>
 int launch_bf16(dim3 grid, cudaStream_t stream, const void* q,
                 const void* k, const void* v, void* o, int S, int T, int H,
-                int KV, int hd, int causal, float scale) {
-  constexpr int HDP = KT * 16;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      (size_t(BQ + BK) * (HDP + 8) + size_t(HDP) * (BK + 8));
+                int KV, int hd, int causal, float scale_log2) {
+  constexpr int NA = (KT * 16 + 63) / 64;
+  CUtensorMap tq, tk, tv;
+  const int B = int(grid.z);
+  if (!tensor_map(&tq, q, B, S, H, hd, BQ) ||
+      !tensor_map(&tk, k, B, T, KV, hd, BK) ||
+      !tensor_map(&tv, v, B, T, KV, hd, BK))
+    return int(cudaErrorInvalidValue);
+  // the tiles, room to align them to 1024 bytes, and the barriers
+  const size_t smem =
+      1024 + size_t(NA) * ROWB * (BQ + 2 * NSTAGE * BK) + 8 * (NSTAGE + 1) +
+      4 * NSTAGE;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
   flash_bf16_kernel<KT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, T, H, KV, hd, causal, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T, H, KV, hd, causal,
+      scale_log2);
   return int(cudaGetLastError());
 }
 
@@ -372,7 +649,7 @@ int launch_f32(dim3 grid, cudaStream_t stream, const void* q, const void* k,
       flash_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
-  flash_f32_kernel<NC><<<grid, THREADS, smem, stream>>>(
+  flash_f32_kernel<NC><<<grid, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, T, H, KV, hd,
       causal, scale);
@@ -393,15 +670,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const float scale = 1.0f / sqrtf(float(hd));
   if (flags & 2) {
     const dim3 grid((S + BQ - 1) / BQ, H, B);
+    const float sl2 = scale * LOG2E;
     switch ((hd + 15) / 16) {
-      case 1: return launch_bf16<1>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 2: return launch_bf16<2>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 3: return launch_bf16<3>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 4: return launch_bf16<4>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 5: return launch_bf16<5>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 6: return launch_bf16<6>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 7: return launch_bf16<7>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-      case 8: return launch_bf16<8>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
+      case 1: return launch_bf16<1>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 2: return launch_bf16<2>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 3: return launch_bf16<3>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 4: return launch_bf16<4>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 5: return launch_bf16<5>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 6: return launch_bf16<6>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 7: return launch_bf16<7>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+      case 8: return launch_bf16<8>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
       default: return int(cudaErrorInvalidValue);
     }
   }

@@ -568,6 +568,50 @@ def test_flash_attention_cuda_matches_plain(cuda_device, b, s, h, kv, hd,
         err.max().item()
 
 
+# the edges of the bf16 kernel's tiling: blocks of 128 queries (two
+# warpgroups of 64), 64-key tiles through a ring of 2 stages, the head dim
+# in 64-column atoms and 16-wide slices
+FLASH_EDGES = [  # b, s, t, h, kv, hd, causal
+    (2, 130, 130, 4, 4, 64, True),    # S not a multiple of the query tile
+    (1, 127, 127, 4, 2, 112, True),   # one row short of it
+    (2, 320, 320, 4, 4, 112, True),   # 5 key tiles, an odd count
+    (1, 256, 256, 4, 4, 128, True),   # 4 key tiles, an even count
+    (2, 40, 40, 4, 4, 128, True),     # S below one key tile
+    (3, 1, 1, 2, 2, 16, True),        # one query, one key
+    (2, 200, 200, 4, 4, 16, True),    # hd 16
+    (2, 257, 257, 4, 4, 64, True),    # hd 64
+    (2, 333, 333, 16, 4, 112, True),  # GQA g=4, hd 112
+    (2, 300, 300, 8, 2, 128, True),   # GQA g=4, hd 128
+    (2, 150, 389, 16, 4, 112, False),  # non-causal, T > S, ragged T
+    (1, 260, 77, 4, 1, 128, False),   # non-causal, T < S
+    (2, 40, 192, 8, 2, 64, False),    # non-causal, S below a key tile
+    (2, 100, 100, 4, 4, 8, True),     # hd 8: one 16-wide slice, half zero
+    (2, 100, 100, 4, 2, 24, True),    # hd 24, not a multiple of 16
+    (1, 200, 200, 4, 4, 72, True),    # hd 72: a second 64-column atom
+    (1, 150, 260, 4, 4, 120, False)]  # hd 120, non-causal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal", FLASH_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_tiling_edges(cuda_device, b, s, t, h, kv, hd,
+                                           causal, dtype):
+    rng = np.random.default_rng(s * t + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(device=cuda_device, dtype=TORCH_DT[dtype])
+               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    atol, rtol = CUDA_ATTN_TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), \
+        err.max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (2, 128, 3, 16, 32, 32), (2, 96, 1, 32, 8, 32), (1, 512, 4, 64, 64, 256),
