@@ -58,8 +58,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
      H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
      non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
-     mamba2-1.3b's shapes (p=64, n=64 and 128, Q=256), f32 and a chunk of
-     96; times both per call at the served shapes beside their bounds and,
+     mamba2-1.3b's shapes (p=64, n=64 and 128, Q=256), f32, a chunk of
+     96, an odd S (Q=1) and zamba2's largest |dA|; times both per call at
+     the served shapes beside their bounds and,
      for attention, one `scaled_dot_product_attention` call;
  12. serves zamba2-7b at full width and depth (81 layers, bf16, random
      params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
@@ -90,8 +91,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the tensor
-# cores (the bank kernels' adds and subtracts, the SSD scan's f32 math) and
-# dense bf16 on the tensor cores (flash attention in bf16).
+# cores (the bank kernels' adds and subtracts) and dense bf16 on the tensor
+# cores (flash attention and the SSD scan in bf16).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
@@ -1305,12 +1306,18 @@ def attn_inputs(gen, b, s, h, kv, hd, dtype, t=None):
             for shp in shapes]
 
 
-def ssd_inputs(gen, b, s, h, p, n, dtype):
+def ssd_inputs(gen, b, s, h, p, n, dtype, large_da=False):
     """As the tests draw them: x normal, dA = -softplus(normal), B and C
-    normal times 0.5; x, B, C in `dtype`, dA f32."""
+    normal times 0.5; x, B, C in `dtype`, dA f32. `large_da`: dA = A·dt
+    with zamba2's largest |A| (112) and dt uniform in [0.001, 0.1], its
+    dt range, so |cum| reaches the hundreds within a 64-row chunk."""
     x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
-    dA = -torch.nn.functional.softplus(
-        torch.randn((b, s, h), generator=gen, device="cuda"))
+    if large_da:
+        dA = -112.0 * (0.001 + 0.099 * torch.rand(
+            (b, s, h), generator=gen, device="cuda"))
+    else:
+        dA = -torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=gen, device="cuda"))
     B, C = (0.5 * torch.randn((b, s, n), generator=gen, device="cuda")
             for _ in range(2))
     return x, dA, B.to(dtype), C.to(dtype)
@@ -1356,7 +1363,9 @@ def check_flash(gen) -> tuple[float, list]:
 def check_ssd(gen) -> tuple[float, list]:
     """ssd_scan against its plain version: the served models' shapes
     (zamba2-7b: h=112, p=64, n=64; mamba2-1.3b: h=64, n=128; Q=256), f32,
-    a chunk that is not a power of two and the smoke heads."""
+    a chunk that is not a power of two, the smoke heads, an odd prompt
+    (S=129: the model's chunk falls to 1) and dA as large as zamba2's
+    A = -112 makes it."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     bf, f32 = torch.bfloat16, torch.float32
     cases = [((SERVE_B, SERVE_PROMPT, 112, 64, 64), 256, bf, "zamba2 path"),
@@ -1364,10 +1373,15 @@ def check_ssd(gen) -> tuple[float, list]:
              ((1, 512, 112, 64, 64), 256, f32, "zamba2 heads f32"),
              ((1, 512, 64, 64, 128), 256, f32, "mamba2 heads f32"),
              ((2, 192, 4, 64, 64), 96, f32, "chunk 96"),
-             ((2, 96, 8, 32, 16), 32, bf, "smoke heads")]
+             ((2, 96, 8, 32, 16), 32, bf, "smoke heads"),
+             ((2, 129, 8, 64, 64), 1, bf, "odd S, Q=1"),
+             ((2, 129, 8, 64, 64), 1, f32, "odd S, Q=1 f32"),
+             ((2, 512, 16, 64, 64), 64, bf, "large |dA|"),
+             ((2, 512, 16, 64, 64), 64, f32, "large |dA| f32")]
     max_err, rows = 0.0, []
     for (b, s, h, p, n), q, dt, label in cases:
-        x, dA, B, C = ssd_inputs(gen, b, s, h, p, n, dt)
+        x, dA, B, C = ssd_inputs(gen, b, s, h, p, n, dt,
+                                 large_da=label.startswith("large"))
         y_ref, h_ref = ssd_scan_ref(x, dA, B, C, chunk=q)
         y_mag, h_mag = ssd_scan_ref(x.float().abs(), dA, B.float().abs(),
                                     C.float().abs(), chunk=q)
@@ -1401,7 +1415,7 @@ def flash_work(b, s, h, kv, hd, itemsize) -> tuple[int, int]:
 
 
 def ssd_work(b, s, h, p, n, q, itemsize) -> tuple[int, int]:
-    """Bytes (x, B, C, dA read once; y, h_final written once) and the f32
+    """Bytes (x, B, C, dA read once; y, h_final written once) and the
     flops the scan needs: C·Bᵀ once per (batch row, chunk) on the lower
     triangle; per head its masked product with x, C·hᵀ and the state
     update."""
@@ -1443,7 +1457,9 @@ def time_flash(gen, b, s, h, kv, hd) -> dict:
 
 def time_ssd(gen, b, s, h, p, n, q) -> dict:
     """ssd_scan at a served shape (bf16): kernel and plain version. No
-    single PyTorch call computes the chunked scan, so no library time."""
+    single PyTorch call computes the chunked scan, so no library time. The
+    bf16 kernel runs its products on the tensor cores, so the bound takes
+    the flops at the bf16 rate."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     nbytes, ops = ssd_work(b, s, h, p, n, q, 2)
     sets = [ssd_inputs(gen, b, s, h, p, n, torch.bfloat16)
@@ -1451,7 +1467,7 @@ def time_ssd(gen, b, s, h, p, n, q) -> dict:
     t = time_calls({"ms": lambda *a: ssd_scan(*a, chunk=q),
                     "plain_ms": lambda *a: ssd_scan_ref(*a, chunk=q)}, sets)
     t["library_ms"] = None
-    t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops, BF16_OPS_PER_S)
     t.update(bytes=nbytes, ops=ops)
     return t
 

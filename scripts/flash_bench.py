@@ -1,14 +1,17 @@
-"""`flash_attention` on the card: what ptxas reports for each instance of
-the kernel, the kernel against its plain version on the checks of
-`chip_smoke.py`, and its time a call at the served shapes (zamba2-7b and
-granite-3-8b prefill) beside one `scaled_dot_product_attention` call on
-the same values.
+"""A tensor-core kernel on the card: what ptxas reports for each instance,
+how many tensor-core instructions each instance's SASS holds, the kernel
+against its plain version on the checks of `chip_smoke.py`, and its time a
+call at the served shapes beside its bound.
 
-    python3 scripts/flash_bench.py [--root DIR]
+    python3 scripts/flash_bench.py [--kernel flash_attention|ssd_scan]
+        [--root DIR]
 
-`--root` takes `chip_smoke.py`, the wrapper and the kernel source from
-another checkout, so that two versions can be timed in turns on one card.
-Needs a CUDA card and nvcc; exits 1 on a failed check.
+`flash_attention` (the default) is timed at zamba2-7b's and granite-3-8b's
+prefill beside one `scaled_dot_product_attention` call on the same values;
+`ssd_scan` at zamba2-7b's and mamba2-1.3b's prefill beside its plain
+version. `--root` takes `chip_smoke.py`, the wrapper and the kernel source
+from another checkout, so that two versions can be timed in turns on one
+card. Needs a CUDA card and nvcc; exits 1 on a failed check.
 """
 from __future__ import annotations
 
@@ -17,20 +20,35 @@ import re
 import subprocess
 import sys
 import tempfile
+from collections import Counter
 from pathlib import Path
 
 import torch
 
 # (label, B, S=T, H, KV, hd) at the served prefill, bf16, causal
-SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112),
-          ("granite-3-8b", 4, 2048, 32, 8, 128)]
+FLASH_SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112),
+                ("granite-3-8b", 4, 2048, 32, 8, 128)]
+# (label, b, S, h, p, n, Q) at the served prefill, bf16
+SSD_SHAPES = [("zamba2-7b", 4, 2048, 112, 64, 64, 256),
+              ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256)]
+# a kernel instance's mangled name -> "dtype<template args>"
+INSTANCE = re.compile(r"(?:flash|ssd_scan)_(bf16|f32)_kernelI((?:Li\d+E)+)")
+TC_OPS = ("HMMA", "HGMMA")
 
 
-def ptxas_report(backend) -> list[str]:
+def instance_name(mangled: str) -> str:
+    inst = INSTANCE.search(mangled)
+    if not inst:
+        return mangled
+    args = ",".join(re.findall(r"Li(\d+)E", inst[2]))
+    return f"{inst[1]}<{args}>"
+
+
+def ptxas_report(backend, kernel: str) -> list[str]:
     """One line per kernel instance (registers, barriers, stack and
     spills) and one per warning, from `nvcc -Xptxas -v` with the backend's
     own flags."""
-    src = backend.CSRC / "flash_attention.cu"
+    src = backend.CSRC / f"{kernel}.cu"
     with tempfile.TemporaryDirectory(dir=backend.BUILD_DIR) as tmp:
         proc = subprocess.run(
             [backend._nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -42,8 +60,7 @@ def ptxas_report(backend) -> list[str]:
             rows.append(f"ptxas {line.strip()}")
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            inst = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", entry[1])
-            name = f"{inst[1]}<{inst[2]}>" if inst else entry[1]
+            name = instance_name(entry[1])
         elif "bytes stack frame" in line:
             spill = line.strip()
         elif "Used" in line and name:
@@ -53,11 +70,66 @@ def ptxas_report(backend) -> list[str]:
     return rows
 
 
+def sass_report(backend, kernel: str, lib: Path) -> list[str]:
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in each
+    instance's SASS, from `cuobjdump -sass` of the built library."""
+    cuobjdump = Path(backend._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    counts: dict[str, Counter] = {}
+    name = None
+    for line in out.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = instance_name(fn[1])
+            counts[name] = Counter()
+        elif name:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                counts[name][op[1]] += 1
+    return [f"sass {kernel} {n}: " + ", ".join(f"{c[op]} {op}"
+                                               for op in TC_OPS)
+            for n, c in sorted(counts.items())]
+
+
+def bench_flash(chip_smoke, gen) -> list[str]:
+    _, rows = chip_smoke.check_flash(gen)
+    for label, b, s, h, kv, hd in FLASH_SHAPES:
+        t = chip_smoke.time_flash(gen, b, s, h, kv, hd)
+        rows.append(
+            f"flash_attention {label} (B={b} S=T={s} H={h} KV={kv} hd={hd},"
+            f" bf16, causal): kernel {t['ms'] * 1e3:.2f} us, sdpa "
+            f"{t['library_ms'] * 1e3:.2f} us (kernel/sdpa "
+            f"{t['ms'] / t['library_ms']:.3f}), plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f}"
+            f" us ({t['bound_by']}), {t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+    return rows
+
+
+def bench_ssd(chip_smoke, gen) -> list[str]:
+    _, rows = chip_smoke.check_ssd(gen)
+    for label, b, s, h, p, n, q in SSD_SHAPES:
+        t = chip_smoke.time_ssd(gen, b, s, h, p, n, q)
+        rows.append(
+            f"ssd_scan {label} (b={b} S={s} h={h} p={p} n={n} Q={q}, bf16):"
+            f" kernel {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f}"
+            f" us, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), "
+            f"{t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s")
+    return rows
+
+
+BENCHES = {"flash_attention": bench_flash, "ssd_scan": bench_ssd}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(BENCHES),
+                    default="flash_attention")
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[1])
-    root = ap.parse_args().root.resolve()
+    args = ap.parse_args()
+    root = args.root.resolve()
     if not torch.cuda.is_available():
         print("flash_bench: needs a CUDA card", file=sys.stderr)
         return 1
@@ -69,27 +141,19 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     print(f"root {root}")
-    backend.build_kernels(("flash_attention",))
-    for row in ptxas_report(backend):
+    lib = backend.build_kernels((args.kernel,))[args.kernel]
+    for row in (ptxas_report(backend, args.kernel)
+                + sass_report(backend, args.kernel, lib)):
         print(row)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     try:
-        _, rows = chip_smoke.check_flash(gen)
+        rows = BENCHES[args.kernel](chip_smoke, gen)
     except RuntimeError as e:
         print(f"flash_bench: {e}", file=sys.stderr)
         return 1
     for row in rows:
         print(row)
-    for label, b, s, h, kv, hd in SHAPES:
-        t = chip_smoke.time_flash(gen, b, s, h, kv, hd)
-        print(f"flash_attention {label} (B={b} S=T={s} H={h} KV={kv} "
-              f"hd={hd}, bf16, causal): kernel {t['ms'] * 1e3:.2f} us, sdpa "
-              f"{t['library_ms'] * 1e3:.2f} us (kernel/sdpa "
-              f"{t['ms'] / t['library_ms']:.3f}), plain "
-              f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f}"
-              f" us ({t['bound_by']}), {t['ops'] / t['ms'] / 1e9:.1f} "
-              f"TFLOP/s")
     print("flash_bench: ok")
     return 0
 

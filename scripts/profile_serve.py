@@ -28,7 +28,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 # device kernels by kind, matched on the kernel's name
 KINDS = (("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
-         ("ssd_scan", ("ssd_scan_kernel",)),
+         ("ssd_scan", ("ssd_scan_bf16_kernel", "ssd_scan_f32_kernel")),
          ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas",
                      "splitK")))
 

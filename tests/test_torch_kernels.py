@@ -634,3 +634,50 @@ def test_ssd_scan_cuda_matches_plain(cuda_device, b, s, h, p, n, chunk,
         err = (got.float() - ref.float()).abs()
         assert bool((err <= 1e-6 + rtol * scale).all()), \
             (err / scale).max().item()
+
+
+# the edges of the bf16 kernel's tiling: chunks walked as 128-row query
+# tiles (16 rows a warp) against 64-row key tiles, p and n padded to 32,
+# 64 or 128, 16-byte copies only for p and n multiples of 8, one head a
+# block. large_da draws dA = A·dt with zamba2's A = -112 and dt in [0.001,
+# 0.1], so |cum| reaches the hundreds within a 64-row chunk.
+SSD_EDGES = [  # b, s, h, p, n, chunk, large_da
+    (2, 129, 3, 64, 64, 1, False),     # odd S: chunks of one row
+    (2, 64, 4, 32, 16, 16, False),     # Q = 16, the smoke heads
+    (2, 192, 4, 64, 64, 96, False),    # Q = 96: a partial key tile
+    (1, 2048, 2, 64, 64, 1024, False),  # Q = 1024: 8 query tiles
+    (2, 256, 3, 64, 128, 256, False),  # one chunk, S = Q
+    (1, 130, 5, 8, 16, 65, False),     # p = 8, Q not a multiple of 16
+    (2, 128, 3, 32, 128, 64, False),   # p = 32, n = 128
+    (1, 256, 2, 112, 64, 128, False),  # p = 112: padded to 128
+    (1, 256, 2, 128, 128, 128, False),  # p = n = 128, the largest
+    (2, 96, 3, 24, 8, 48, False),      # p, n multiples of 8 but not 16
+    (1, 64, 2, 5, 3, 16, False),       # p, n not multiples of 8
+    (2, 256, 5, 64, 64, 64, True),     # zamba2's largest |dA|
+    (1, 512, 3, 64, 128, 256, True)]   # |dA| large over a 256-row chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,large_da", SSD_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_cuda_tiling_edges(cuda_device, b, s, h, p, n, chunk,
+                                    large_da, dtype):
+    x, dA, B, C = _ssd_inputs(b, s, h, p, n, dtype, s * p + n)
+    if large_da:
+        rng = np.random.default_rng(s * h)
+        dA = (-112.0 * rng.uniform(0.001, 0.1, size=(b, s, h))
+              ).astype(np.float32)
+    x, dA, B, C = _torch((x, dA, B, C), dtype, cuda_device, keep_f32=(1,))
+    y_ref, h_ref = ssd_scan_ref(x, dA, B, C, chunk=chunk)
+    before = ssd_scan.launches
+    y, hf = ssd_scan(x, dA, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == x.dtype and hf.dtype == torch.float32
+    assert y.shape == x.shape and hf.shape == (b, h, p, n)
+    y_scale, h_scale = _ssd_scale(x, dA, B, C, chunk)
+    for got, ref, scale, rtol in ((y, y_ref, y_scale, CUDA_SSD_RTOL[dtype]),
+                                  (hf, h_ref, h_scale, 5e-4)):
+        err = (got.float() - ref.float()).abs()
+        assert bool((err <= 1e-6 + rtol * scale).all()), \
+            (err / scale).max().item()
