@@ -31,27 +31,27 @@
 //     skipped, and a warp skips key tiles wholly above its rows. Each key
 //     tile (B_j and x_j) and, with the first key tile of a query tile, the
 //     query tile's C rows come in by 16-byte cp.async copies into a ring of
-//     NST stages, issued one tile ahead, so the next tile is in flight
+//     two stages, issued one tile ahead, so the next tile is in flight
 //     while this one is computed; the chunk's dA comes with its first tile.
 //     Tiles are stored with 16 bytes of padding a row, so ldmatrix reads of
 //     8 rows hit distinct banks; rows past the chunk and columns past p or
 //     n are zeros, so any Q <= 1024 that divides S and any p, n <= 128 run.
 //   * S = C_i·B_jᵀ by mma.sync m16n8k16 (bf16 in, f32 out), 16 keys at a
-//     time; S∘L in f32, L =
-//     ex2.approx(log2e·cum_i − log2e·cum_j), masked above the diagonal; the
-//     f32 accumulator repacked as the bf16 A fragment of y += (S∘L)·x_j,
-//     x_j read through ldmatrix.trans. cum stays f32 (|cum| reaches 10²–10³
-//     within a chunk at zamba2's A).
+//     time; S∘L in f32, L = ex2.approx(log2e·cum_i − log2e·cum_j), masked
+//     above the diagonal; the f32 accumulator repacked as the bf16 A
+//     fragment of y += (S∘L)·x_j, x_j read through ldmatrix.trans. cum
+//     stays f32 (|cum| reaches 10²–10³ within a chunk at zamba2's A).
 //   * The carried state's share: a query tile's y starts as C_i·ĥᵀ by MMA,
-//     ĥ being a bf16 copy of h written to shared memory once a chunk, with
-//     each row scaled by exp(cum_i).
-//   * State update: h <- h·exp(cum[Q-1]) + xᵀ·(B∘dec) by MMA (M = p, N = n,
-//     K = the chunk's rows), into f32 accumulators that stay in registers
-//     across the chunks, during the last query tile's walk, which visits
-//     every key tile. B∘dec is rounded to bf16 twice, hi = bf16(v) and lo =
-//     bf16(v − hi), and both products are accumulated: x is bf16 exactly,
-//     so the update errs by about 2^-17 a term where one rounding would err
-//     by 2^-9 and break h_final's 5e-4 check.
+//     ĥᵀ being a bf16 copy of hᵀ written to shared memory once a chunk,
+//     with each row scaled by exp(cum_i).
+//   * State update: hᵀ <- hᵀ·exp(cum[Q-1]) + (B∘dec)ᵀ·x by MMA (M = n,
+//     N = p, K = the chunk's rows), into f32 accumulators that stay in
+//     registers across the chunks, during the last query tile's walk, which
+//     visits every key tile. The A fragment (B∘dec)ᵀ is formed in registers
+//     from B read through ldmatrix.trans and rounded to bf16 twice, hi =
+//     bf16(v) and lo = bf16(v − hi); both products are accumulated. x is
+//     bf16 exactly, so the update errs by about 2^-17 a term where one
+//     rounding would err by 2^-9 and break h_final's 5e-4 check.
 //   * The within-chunk cumsum: 32-row segments scanned by the warps in
 //     parallel, then the segments' prefixes added; exp(cum[Q-1] − cum_j)
 //     takes cum[Q-1] in the same order as cum_j, so the last row's decay is
@@ -64,6 +64,11 @@
 //     tile: held, they spilled (44 bytes at p = n = 64) and the kernel ran 9%
 //     slower. The larger instances run one block an SM and hold them.
 //     Nothing is allocated here.
+//   * Tried on an H100 at zamba2's shape and slower, so left out: a
+//     three-stage ring (+3%); y written 16 bytes a thread after a transpose
+//     within each quad (+8%); wgmma for C·Bᵀ (SS), (S∘L)·x and the state
+//     update (RS) with 128-byte swizzled tiles (+15%: it spilled under the
+//     128-register cap, and each warpgroup waits on its own products).
 //
 // f32 inputs take a CUDA-core path (f32 FMAs from shared memory, 64-row
 // tiles, h in shared memory), so f32 stays f32; it serves the f32 checks.
