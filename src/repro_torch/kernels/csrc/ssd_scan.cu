@@ -87,7 +87,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int QT = 16 * WARPS;  // query rows a tile: 16 a warp
 constexpr int KT = 64;          // key rows a tile
-constexpr int NST = 2;          // depth of the key-tile ring (one ahead)
+constexpr int NST = 2;          // stages of the key-tile ring: slot, slot ^ 1
 constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -108,9 +108,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
@@ -301,7 +300,7 @@ ssd_scan_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
       float yacc[2 * PT][4];
       float rc[2];                         // log2e·cum of rows gid, gid + 8
       for (int k = 0; k < nk; ++k) {
-        cp_async_wait<NST - 2>();
+        cp_async_wait_all();
         __syncthreads();  // tile k is in; the slot refilled below is free
         if (t == 0 && k == 0) {
           // the chunk's cumsum: segments of 32 rows, then their prefixes
@@ -515,7 +514,7 @@ ssd_scan_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
           pack_bf16(hacc[i][2], hacc[i][3]);
     }
   }
-  cp_async_wait<0>();  // the empty groups past the end
+  cp_async_wait_all();  // the empty groups past the end
 
   float* ho = h_out + (int64_t(b) * H + h) * P * N;
 #pragma unroll
