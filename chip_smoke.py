@@ -11,10 +11,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
   3. holds every kernel against its plain PyTorch version on the card, at
      the main path's leaf shapes and at edge cases (ragged width, nothing
      active, only pad slots, bf16 storage, and for the paged kernels a
-     shuffled page table with pages that are not resident), and times
+     shuffled page table with pages that are not resident); holds the two
+     kernels that take a whole tree in one launch (`mifa_aggregate`,
+     `paged_bank_gather`, on a leaf table) against the per-leaf plain
+     versions on trees of paper_mlp's six leaves, mixed f32/bf16 leaves,
+     ragged widths, one leaf, nothing active and more leaves than one
+     table holds (two launches), a repeated call bit-identical; and times
      kernel and plain version per round of the main path beside the least
      time the card could take for the same bytes and operations (and,
-     for the paged gather, one `torch.index_select`);
+     for the paged gather, one `torch.index_select` per leaf);
   4. runs the main path — the paper's experiment (`paper_mlp` at full
      width: N=100 clients, d=256, 2x128 hidden, K=5 local steps, batch 100,
      label-correlated Bernoulli availability with p_min=0.1, inv_t(1.0),
@@ -22,7 +27,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `MIFA(memory="array")` and with `BankedMIFA(DenseBank())`, from the
      same initial params and participation seed, and checks the losses,
      the anchor property (both algorithms give the same trajectory) and
-     that each path launched its kernel once per leaf per round;
+     that each path launched its kernel once per round (`mifa_aggregate`,
+     one launch for the tree) or once per leaf per round
+     (`bank_scatter`);
   5. runs the same 50 rounds through
      `BankedMIFA(PagedDeviceBank(page_size=8))`, after a second dense run
      that shows whether the card repeats a run bit for bit, and holds the
@@ -30,8 +37,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
      launches, no other kernel);
   6. drives eviction on the card: 40 cohorts of 64 (half hot) through a
      paged bank of 48 slots over 128 logical pages, against `DenseBank`:
-     faults, evictions and re-faults, every row (through the gather kernel)
-     and G_sum bit-equal;
+     faults, evictions and re-faults, every row (through the gather kernel,
+     one launch for the tree) and G_sum bit-equal;
   7. drives N = 10⁶ paper_mlp clients at full width for 20 rounds of
      `RoundRunner.step_cohort` through `ProceduralBatcher` and
      `PagedDeviceBank(page_size=8, n_slots=256)`: ms per round, the
@@ -52,7 +59,7 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `fleet.run_fleet`. Eval loss must fall in every trial; checked trials
      must match sequential `run_fl` runs on the card; the paged fleet must
      be bit-equal to the dense one; each batched kernel launches once per
-     leaf per round; then the FedAvgSampling(S=50) fleet runs 10 rounds on
+     leaf per round and `mifa_aggregate` once per trial per round; then the FedAvgSampling(S=50) fleet runs 10 rounds on
      the CPU and on the card, held together;
  11. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
@@ -309,20 +316,96 @@ def check_mifa(gen, active_path) -> tuple[float, list]:
     return max_err, rows
 
 
+# the kernels that take a whole tree in one launch (a leaf table)
+TREE_KERNELS = ("mifa_aggregate", "paged_bank_gather")
+# the tree cases of the leaf-table kernels: name -> [(M, stored dtype, w
+# dtype)]; "split" has more leaves than one table holds (64), so it takes
+# two launches
+F32, BF16 = torch.float32, torch.bfloat16
+TREE_CASES = {
+    "paper_mlp": [(m, F32, F32) for m in PATH_WIDTHS],
+    "mixed": [(128, BF16, F32), (32768, F32, BF16), (1000, BF16, BF16),
+              (10, F32, F32), (16384, BF16, F32)],
+    "ragged": [(10, F32, F32), (1000, F32, F32)],
+    "one leaf": [(32768, F32, F32)],
+    "split": [((37 * j) % 300 + 1, (F32, BF16)[j % 2], F32)
+              for j in range(70)]}
+
+
+def n_tables(n_leaves: int) -> int:
+    from repro_torch.kernels.leaf_table import MAX_LEAVES
+    return -(-n_leaves // MAX_LEAVES)
+
+
+def check_mifa_tree(gen, active_path) -> tuple[float, list]:
+    """`mifa_aggregate_leaves` (one launch per table of leaves) against the
+    per-leaf plain version on the card: G bit-equal, w within TOL, the
+    launches one per table, and a repeated call bit-identical."""
+    from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
+                                                    mifa_aggregate_leaves,
+                                                    mifa_aggregate_ref)
+    n, eta = N_CLIENTS, 0.07
+    none_active = torch.zeros(n, dtype=torch.bool, device="cuda")
+    cases = [(name, leaves, active_path)
+             for name, leaves in TREE_CASES.items()]
+    cases.append(("nothing active", TREE_CASES["paper_mlp"], none_active))
+    max_err, rows = 0.0, []
+    for name, leaves, act in cases:
+        ins = [mifa_inputs(gen, n, m, gdt, wdt, act)
+               for m, gdt, wdt in leaves]
+        gs, us, ws = ([x[i] for x in ins] for i in (0, 1, 3))
+        before = mifa_aggregate.launches
+        g_k, w_k = mifa_aggregate_leaves([g.clone() for g in gs], us, act,
+                                         ws, eta)
+        g_2, w_2 = mifa_aggregate_leaves([g.clone() for g in gs], us, act,
+                                         ws, eta)
+        torch.cuda.synchronize()
+        launches = mifa_aggregate.launches - before
+        check(launches == 2 * n_tables(len(leaves)),
+              f"mifa_aggregate tree {name}: {launches} launches for two "
+              f"calls on {len(leaves)} leaves")
+        err = 0.0
+        for j, (g, u, w) in enumerate(zip(gs, us, ws)):
+            g_ref, w_ref = mifa_aggregate_ref(g, u, act, w, eta)
+            check(torch.equal(g_k[j], g_ref),
+                  f"mifa_aggregate tree {name}: G of leaf {j} differs")
+            rtol, atol = TOL[w.dtype]
+            d = (w_k[j].float() - w_ref.float()).abs()
+            scale = w.float().abs() + eta * g_ref.float().abs().mean(0)
+            check(bool((d <= atol + rtol * scale).all()),
+                  f"mifa_aggregate tree {name}: w of leaf {j} off by "
+                  f"{d.max().item():.3e}")
+            check(torch.equal(g_2[j], g_k[j]) and torch.equal(w_2[j],
+                                                              w_k[j]),
+                  f"mifa_aggregate tree {name}: a repeated call differs "
+                  f"(leaf {j})")
+            err = max(err, d.max().item())
+        max_err = max(max_err, err)
+        rows.append(f"mifa_aggregate tree {name:<14} {len(leaves)} leaves "
+                    f"(M {sum(m for m, _, _ in leaves)}), |A|="
+                    f"{int(act.sum())}: {launches // 2} launch(es) a call, "
+                    f"G bit-equal, max |dw| {err:.3e}, repeat bit-identical")
+    return max_err, rows
+
+
 def time_path(kernel, plain, sets, leaf_bytes, leaf_ops,
-              library=None) -> dict:
+              library=None, tree=None) -> dict:
     """Time `kernel` and `plain` (and `library`, one PyTorch call for the
     same function, where there is one) over the main path's leaves: per
-    round (the 6 leaves back to back) and per launch at each leaf's shape.
-    `sets` holds copies of the per-leaf arguments, cycled so that each
-    launch finds its inputs cold."""
+    round (the 6 leaves back to back, or one call of `tree` on a set's
+    per-leaf arguments where the kernel takes a whole tree in one launch)
+    and per launch at each leaf's shape. `sets` holds copies of the
+    per-leaf arguments, cycled so that each launch finds its inputs
+    cold."""
     n = len(sets)
     fns = {"": kernel, "plain_": plain}
     if library is not None:
         fns["library_"] = library
-    out = {f"{k}ms": time_round_ms([lambda a=a, f=f: f(*a)
-                                    for s in sets for a in s]) / n
-           for k, f in fns.items()}
+    rounds = {k: lambda s, f=f: [f(*a) for a in s] for k, f in fns.items()}
+    if tree is not None:
+        rounds[""] = tree
+    out = {f"{k}ms": time_round_ms([lambda s=s, f=f: f(s) for s in sets]) / n
+           for k, f in rounds.items()}
     out["library_ms"] = out.get("library_ms")
     out["bound_ms"], out["bound_by"] = bound(sum(leaf_bytes), sum(leaf_ops))
     out["bytes"] = sum(leaf_bytes)
@@ -337,9 +420,11 @@ def time_path(kernel, plain, sets, leaf_bytes, leaf_ops,
 
 
 def time_mifa(gen, active_path) -> dict:
-    """The dense server step on the main path: one launch per leaf of
-    paper_mlp at N=100, with this run's active mask."""
+    """The dense server step on the main path: paper_mlp's six leaves at
+    N=100 with this run's active mask, in one launch a round (and one
+    launch per leaf for the per-launch times)."""
     from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
+                                                    mifa_aggregate_leaves,
                                                     mifa_aggregate_ref)
     n, eta = N_CLIENTS, 0.07
     n_act = int(active_path.sum())
@@ -352,9 +437,12 @@ def time_mifa(gen, active_path) -> dict:
                   + 2 * m * 4 + n                       # w, w_new, mask
                   for m in PATH_WIDTHS]
     leaf_ops = [n * m + 2 * m for m in PATH_WIDTHS]
-    return time_path(lambda *a: mifa_aggregate(*a, eta),
-                     lambda *a: mifa_aggregate_ref(*a, eta), sets,
-                     leaf_bytes, leaf_ops)
+    return time_path(
+        lambda *a: mifa_aggregate(*a, eta),
+        lambda *a: mifa_aggregate_ref(*a, eta), sets, leaf_bytes, leaf_ops,
+        tree=lambda s: mifa_aggregate_leaves(
+            [a[0] for a in s], [a[1] for a in s], active_path,
+            [a[3] for a in s], eta))
 
 
 def bank_inputs(gen, r, m, c, bank_dtype, ids, valid):
@@ -528,6 +616,55 @@ def check_paged(gen, active_path) -> tuple[float, float, list]:
     return s_err, g_err, rows
 
 
+def check_gather_tree(gen, active_path) -> tuple[float, list]:
+    """`paged_bank_gather_leaves` (one launch per table of leaves) against
+    the per-leaf plain version on the card, on the path's page table and
+    on shuffled ones with pages that are not resident: rows bit-equal, the
+    rows of non-resident pages zero, the launches one per table, a repeated
+    call bit-identical."""
+    from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                                paged_bank_gather_leaves,
+                                                paged_bank_gather_ref)
+    rng = np.random.default_rng(19)
+    pt, n_slots = path_table()
+    path = (pt, n_slots, *path_lids(active_path))
+    cases = [(name, leaves, path if name == "paper_mlp"
+              else shuffled_layout(rng, 37))
+             for name, leaves in TREE_CASES.items()]
+    cases.append(("ragged, C=200", TREE_CASES["ragged"],
+                  shuffled_layout(rng, 37, c=200)))
+    g_err, rows = 0.0, []
+    for name, leaves, (pt, n_slots, lids, _) in cases:
+        pages = [pages_inputs(gen, n_slots, m, 1, dt)[0]
+                 for m, dt, _ in leaves]
+        before = paged_bank_gather.launches
+        r_k = paged_bank_gather_leaves(pages, pt, lids, page_size=PAGE_SIZE)
+        r_2 = paged_bank_gather_leaves(pages, pt, lids, page_size=PAGE_SIZE)
+        torch.cuda.synchronize()
+        launches = paged_bank_gather.launches - before
+        check(launches == 2 * n_tables(len(leaves)),
+              f"paged_bank_gather tree {name}: {launches} launches for two "
+              f"calls on {len(leaves)} leaves")
+        away = pt[lids // PAGE_SIZE] == n_slots
+        for j, p in enumerate(pages):
+            r_ref = paged_bank_gather_ref(p, pt, lids, page_size=PAGE_SIZE)
+            check(torch.equal(r_k[j], r_ref),
+                  f"paged_bank_gather tree {name}: rows of leaf {j} differ")
+            check(not r_k[j][away].any(),
+                  f"paged_bank_gather tree {name}: a non-resident row of "
+                  f"leaf {j} is not zero")
+            check(torch.equal(r_2[j], r_k[j]),
+                  f"paged_bank_gather tree {name}: a repeated call differs "
+                  f"(leaf {j})")
+            g_err = max(g_err, (r_k[j] - r_ref).abs().max().item())
+        rows.append(f"paged_bank_gather tree {name:<14} {len(leaves)} "
+                    f"leaves (M {sum(m for m, _, _ in leaves)}), C="
+                    f"{len(lids)}, {int(away.sum())} slots on non-resident or dummy "
+                    f"pages: {launches // 2} launch(es) a call, rows "
+                    f"bit-equal, repeat bit-identical")
+    return g_err, rows
+
+
 def paged_sets(gen, active_path):
     """Per-leaf inputs of the paged paper path (pages of the N=100 bank,
     the path's page table and padded cohort), copied to cycle past L2."""
@@ -560,23 +697,30 @@ def time_paged_scatter(gen, active_path) -> dict:
 
 def time_paged_gather(gen, active_path) -> dict:
     """The paged bank's row gather at the paper path's shapes (the padded
-    cohort's rows of each leaf), beside one `torch.index_select` on the
-    precomputed physical rows (the library call for the same function)."""
+    cohort's rows of each leaf) in one launch a round (and one launch per
+    leaf for the per-launch times), beside one `torch.index_select` per
+    leaf on the precomputed physical rows (the library call for the same
+    function)."""
     from repro_torch.kernels.paged_bank import (paged_bank_gather,
+                                                paged_bank_gather_leaves,
                                                 paged_bank_gather_ref,
                                                 phys_rows)
     sets, c, _ = paged_sets(gen, active_path)
     sets = [[(pages, pt, lids) for pages, _, pt, lids, _ in s] for s in sets]
     pt, lids = sets[0][0][1:]
     phys = phys_rows(pt, lids, PAGE_SIZE)
-    # each output row read once (f32 pages) and written once as f32, the
-    # lids and the page-table entry of each slot
-    leaf_bytes = [c * m * 8 + c * 8 for m in PATH_WIDTHS]
+    # each distinct page row read once (the pad slots all read the dummy
+    # row), each output row written once as f32, the lids and the
+    # page-table entry of each slot
+    n_read = len(torch.unique(phys))
+    leaf_bytes = [(n_read + c) * m * 4 + c * 8 for m in PATH_WIDTHS]
     return time_path(
         lambda *a: paged_bank_gather(*a, page_size=PAGE_SIZE),
         lambda *a: paged_bank_gather_ref(*a, page_size=PAGE_SIZE),
         sets, leaf_bytes, [0] * len(PATH_WIDTHS),
-        library=lambda pages, *_: torch.index_select(pages, 0, phys))
+        library=lambda pages, *_: torch.index_select(pages, 0, phys),
+        tree=lambda s: paged_bank_gather_leaves(
+            [a[0] for a in s], pt, lids, page_size=PAGE_SIZE))
 
 
 # --------------------------------------------------------------------------- #
@@ -632,14 +776,15 @@ def read_counts() -> dict:
 
 
 def check_run(name, params, hist, dts, counts, kernel) -> str:
-    """A ROUNDS-round run of the paper path: its kernel launched once per leaf
-    per round and no other kernel, finite losses and params, eval loss
-    falling. Returns the run's summary line."""
+    """A ROUNDS-round run of the paper path: its kernel launched once per
+    round (a leaf-table kernel) or once per leaf per round, and no other
+    kernel, finite losses and params, eval loss falling. Returns the run's
+    summary line."""
     from repro_torch.tree import tree_leaves
-    n_leaves = len(PATH_WIDTHS)
-    check(counts[kernel] == ROUNDS * n_leaves,
+    per_round = 1 if kernel in TREE_KERNELS else len(PATH_WIDTHS)
+    check(counts[kernel] == ROUNDS * per_round,
           f"{name}: {kernel} launched {counts[kernel]} times, expected "
-          f"{ROUNDS} rounds x {n_leaves} leaves")
+          f"{ROUNDS} rounds x {per_round}")
     others = {k: v for k, v in counts.items() if k != kernel}
     check(not any(others.values()), f"{name}: other kernels ran {others}")
     losses = np.asarray(hist.train_loss)
@@ -771,7 +916,7 @@ def eviction_phase(params0) -> tuple[dict, list]:
           f"{paged.refaults}")
     paged.check_invariants(p_state)
     check(counts["paged_bank_scatter"] == EVICT_ROUNDS * len(PATH_WIDTHS)
-          and counts["paged_bank_gather"] == len(PATH_WIDTHS),
+          and counts["paged_bank_gather"] == 1,
           f"eviction phase launches {counts}")
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p_rows),
                                                 tree_leaves(d_rows))),
@@ -843,7 +988,8 @@ def million_phase(params0, model) -> tuple[dict, list]:
           f"device_pages {mem['device_pages']} != {MILLION_POOL_BYTES}")
     check(in_rounds["paged_bank_scatter"] == MILLION_ROUNDS * len(PATH_WIDTHS)
           and not in_rounds["bank_scatter"]
-          and not in_rounds["mifa_aggregate"],
+          and not in_rounds["mifa_aggregate"]
+          and not in_rounds["paged_bank_gather"],
           f"million-client rounds launched {in_rounds}")
     losses = runner.hist.train_loss
     check(bool(np.isfinite(losses).all()), "million-client: non-finite loss")
@@ -863,6 +1009,9 @@ def million_phase(params0, model) -> tuple[dict, list]:
         g_err = max(g_err, err.max().item())
     bank.check_invariants(state)
     counts = read_counts()
+    check(counts["paged_bank_gather"] == 1,
+          f"million-client gather of the written rows: "
+          f"{counts['paged_bank_gather']} gather launches, expected 1")
     d = sum(PATH_WIDTHS)
     return counts, [
         f"million clients: N={n}, paper_mlp d={d}, page_size={PAGE_SIZE}, "
@@ -1200,7 +1349,7 @@ def fig2_phase(problem) -> tuple[dict, dict, list]:
         params, hist, dts = run_fig2_fleet(name, problem, FLEET_ROUNDS,
                                            "cuda", fleet_eval)
         counts = read_counts()
-        want = {"mifa_aggregate": FLEET_ROUNDS * n_leaves * k_trials,
+        want = {"mifa_aggregate": FLEET_ROUNDS * k_trials,
                 "bank_scatter_batched": FLEET_ROUNDS * n_leaves,
                 "paged_bank_scatter_batched": FLEET_ROUNDS * n_leaves}
         expected = {key: want[key] if key == kernel else 0 for key in counts}
@@ -1683,10 +1832,15 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     mifa_err, rows = check_mifa(gen, active_path)
+    tree_err, tree_rows = check_mifa_tree(gen, active_path)
+    mifa_err = max(mifa_err, tree_err)
     bank_err, more = check_bank(gen, active_path)
     pscat_err, pgath_err, paged_rows = check_paged(gen, active_path)
+    tree_err, more_tree = check_gather_tree(gen, active_path)
+    pgath_err = max(pgath_err, tree_err)
     bb_err, pb_err, batched_rows = check_batched(gen, active_path)
-    for row in rows + more + paged_rows + batched_rows:
+    for row in (rows + tree_rows + more + paged_rows + more_tree
+                + batched_rows):
         print(row)
     timing = {"mifa_aggregate": time_mifa(gen, active_path),
               "bank_scatter": time_bank(gen, active_path),
@@ -1701,8 +1855,10 @@ def main() -> int:
         shape = (f"K=3 trials, C={batched['cohort']}, valid "
                  f"{batched['valid']}" if name.endswith("batched")
                  else f"|A|={int(active_path.sum())}")
-        print(f"{name} per round (6 leaves of paper_mlp, {shape}): "
-              f"kernel {t['ms'] * 1e3:.2f} us, "
+        launch = ("one launch" if name in TREE_KERNELS
+                  else "one launch per leaf")
+        print(f"{name} per round (6 leaves of paper_mlp, {launch}, "
+              f"{shape}): kernel {t['ms'] * 1e3:.2f} us, "
               f"plain {t['plain_ms'] * 1e3:.2f} us{lib}, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
               f"{t['bytes']} bytes)")
@@ -1751,7 +1907,7 @@ def main() -> int:
             f"paged path BankedMIFA(PagedDeviceBank), {ROUNDS} rounds",
         "paged_bank_gather": "checks only: PagedDeviceBank.gather of all "
                              "rows in the eviction and million-client "
-                             "phases",
+                             "phases, one launch each",
         "bank_scatter_batched":
             f"Figure 2 fleet BankedMIFA(DenseBank), K=3, {FLEET_ROUNDS} "
             "rounds",
@@ -1805,8 +1961,9 @@ def main() -> int:
             # None where no single PyTorch call computes the function
             # (PERF.md); the gather's is one index_select per leaf
             "library_ms": t["library_ms"],
-            # ms, plain_ms and bound_ms are per round (one launch per
-            # leaf); this is per launch at each leaf's width
+            # ms, plain_ms and bound_ms are per round (one launch, or one
+            # per leaf for the scatters); this is per launch of one leaf
+            # at each leaf's width
             "per_launch_us": t["leaves"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

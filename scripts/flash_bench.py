@@ -1,17 +1,22 @@
-"""A tensor-core kernel on the card: what ptxas reports for each instance,
-how many tensor-core instructions each instance's SASS holds, the kernel
-against its plain version on the checks of `chip_smoke.py`, and its time a
-call at the served shapes beside its bound.
+"""One kernel on the card: what ptxas reports for each instance of its
+source, how many tensor-core instructions each instance's SASS holds (for
+the tensor-core kernels), the kernel against its plain version on the
+checks of `chip_smoke.py`, and its time beside its bound.
 
-    python3 scripts/flash_bench.py [--kernel flash_attention|ssd_scan]
+    python3 scripts/flash_bench.py
+        [--kernel flash_attention|ssd_scan|mifa_aggregate|paged_bank_gather]
         [--root DIR]
 
 `flash_attention` (the default) is timed at zamba2-7b's and granite-3-8b's
 prefill beside one `scaled_dot_product_attention` call on the same values;
 `ssd_scan` at zamba2-7b's and mamba2-1.3b's prefill beside its plain
-version. `--root` takes `chip_smoke.py`, the wrapper and the kernel source
-from another checkout, so that two versions can be timed in turns on one
-card. Needs a CUDA card and nvcc; exits 1 on a failed check.
+version. `mifa_aggregate` and `paged_bank_gather` are timed per round of
+the paper path (paper_mlp's six leaves, N=100, the main path's typical
+mask) through `chip_smoke.time_mifa` / `time_paged_gather`, beside the
+per-leaf plain versions, the bound and, for the gather, `index_select`.
+`--root` takes `chip_smoke.py`, the wrapper and the kernel source from
+another checkout, so that two versions can be timed in turns on one card.
+Needs a CUDA card and nvcc; exits 1 on a failed check.
 """
 from __future__ import annotations
 
@@ -33,13 +38,21 @@ SSD_SHAPES = [("zamba2-7b", 4, 2048, 112, 64, 64, 256),
               ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256)]
 # a kernel instance's mangled name -> "dtype<template args>"
 INSTANCE = re.compile(r"(?:flash|ssd_scan)_(bf16|f32)_kernelI((?:Li\d+E)+)")
+# any other kernel: its name and, where it is a template, the mangled
+# arguments
+OTHER = re.compile(r"([a-z_]+_kernel)(I\w*?EE)?")
 TC_OPS = ("HMMA", "HGMMA")
+# --kernel -> the source (library) that holds it
+SOURCE = {"flash_attention": "flash_attention", "ssd_scan": "ssd_scan",
+          "mifa_aggregate": "mifa_aggregate",
+          "paged_bank_gather": "paged_bank"}
 
 
 def instance_name(mangled: str) -> str:
     inst = INSTANCE.search(mangled)
     if not inst:
-        return mangled
+        other = OTHER.search(mangled)
+        return other[1] + (other[2] or "") if other else mangled
     args = ",".join(re.findall(r"Li(\d+)E", inst[2]))
     return f"{inst[1]}<{args}>"
 
@@ -119,7 +132,51 @@ def bench_ssd(chip_smoke, gen) -> list[str]:
     return rows
 
 
-BENCHES = {"flash_attention": bench_flash, "ssd_scan": bench_ssd}
+def path_mask(chip_smoke) -> torch.Tensor:
+    """The paper path's typical round, as `chip_smoke.main` picks it: the
+    median-|A| mask among rounds 1-21 of the main path's participation."""
+    from repro_torch.core import BernoulliParticipation
+    part = BernoulliParticipation(chip_smoke.paper_problem(device="cuda")[2],
+                                  seed=1)
+    masks = [part.sample(t) for t in range(22)][1:]
+    return torch.from_numpy(
+        sorted(masks, key=lambda m: m.sum())[len(masks) // 2]).cuda()
+
+
+def bench_round(name, check, time_fn, chip_smoke, gen) -> list[str]:
+    """A kernel of the paper path: its checks, then its time per round of
+    paper_mlp's six leaves and per launch at each leaf's width."""
+    active = path_mask(chip_smoke)
+    rows = check(gen, active)[-1]
+    t = time_fn(gen, active)
+    lib = ("" if t["library_ms"] is None
+           else f", library {t['library_ms'] * 1e3:.2f} us")
+    rows.append(f"{name} per round (6 leaves of paper_mlp, |A|="
+                f"{int(active.sum())}): kernel {t['ms'] * 1e3:.2f} us, plain "
+                f"{t['plain_ms'] * 1e3:.2f} us{lib}, bound "
+                f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+                f"{t['bytes']} bytes), {t['bytes'] / t['ms'] / 1e6:.1f} GB/s")
+    for leaf in t["leaves"]:
+        lib = ("" if "library_us" not in leaf
+               else f", library {leaf['library_us']:.2f} us")
+        rows.append(f"  {name} M={leaf['M']:<6} one leaf: kernel "
+                    f"{leaf['us']:.2f} us, plain {leaf['plain_us']:.2f} us"
+                    f"{lib}, bound {leaf['bound_us']:.2f} us")
+    return rows
+
+
+def bench_mifa(chip_smoke, gen) -> list[str]:
+    return bench_round("mifa_aggregate", chip_smoke.check_mifa,
+                       chip_smoke.time_mifa, chip_smoke, gen)
+
+
+def bench_gather(chip_smoke, gen) -> list[str]:
+    return bench_round("paged_bank_gather", chip_smoke.check_paged,
+                       chip_smoke.time_paged_gather, chip_smoke, gen)
+
+
+BENCHES = {"flash_attention": bench_flash, "ssd_scan": bench_ssd,
+           "mifa_aggregate": bench_mifa, "paged_bank_gather": bench_gather}
 
 
 def main() -> int:
@@ -141,9 +198,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     print(f"root {root}")
-    lib = backend.build_kernels((args.kernel,))[args.kernel]
-    for row in (ptxas_report(backend, args.kernel)
-                + sass_report(backend, args.kernel, lib)):
+    src = SOURCE[args.kernel]
+    lib = backend.build_kernels((src,))[src]
+    rows = ptxas_report(backend, src)
+    if args.kernel in ("flash_attention", "ssd_scan"):
+        rows += sass_report(backend, src, lib)
+    for row in rows:
         print(row)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -31,19 +31,28 @@
 //
 // paged_gather_kernel replaces `_paged_gather_kernel` (pallas_call in
 // `_paged_bank_gather`): out[a] = f32(pages[phys(lids[a])]) for all C
-// slots. A pure copy with a cast, bound by bytes: C * M * (sizeof(page
-// dtype) + 4). One block per 128-column tile walks the C rows in TY row
-// groups, with 16-/8-byte vector loads and 16-byte stores when M % 4 == 0.
+// slots, for every leaf of a tree in one launch (leaf_table.cuh): the
+// leaves share the page table and the lids, and each has its own pages,
+// width and output. A pure copy with a cast, bound by bytes: C * M *
+// (sizeof(page dtype) + 4) over the tree's M. The grid is (every leaf's
+// 128-column tiles, chunks of GATHER_ROWS slots). Each block first resolves
+// its chunk's physical rows into shared memory, one thread a slot, so the
+// lid -> page-table -> row chain is paid once per block and not before each
+// copy; then every thread issues the loads of all its rows (16-/8-byte
+// vector loads when M % 4 == 0) before its 16-byte stores.
 //
 // Neither kernel checks residency: the bank checks on its host mirror that
 // every valid row's page is resident before a scatter, so a valid row never
 // lands in the dummy page. Neither allocates: the wrapper allocates dsum
 // and out with torch.empty.
+#include "leaf_table.cuh"
 #include "scatter_rows.cuh"
 
 namespace {
 
 using repro::COLS_PER_BLOCK;
+using repro::Leaf;
+using repro::LeafTable;
 using repro::PagedRows;
 using repro::TX;
 using repro::TY;
@@ -76,31 +85,92 @@ paged_scatter_batched_kernel(TB* __restrict__ pages,
                                   valid + k * c, dsum + k * m, c, m);
 }
 
+constexpr int UNROLL = 8;                   // rows a thread has in flight
+constexpr int GATHER_ROWS = TY * UNROLL;    // slots a block resolves and copies
+
+// The block's `rows` slots of one tile of a leaf, their physical rows in
+// phys (shared). Row group ty copies slots ty, ty + TY, ...: first every
+// load, then every store. VECTOR: thread tx owns columns tile_col0 + 4*tx
+// .. +3; otherwise columns tile_col0 + j*TX + tx, j < VEC.
 template <typename TB, bool VECTOR>
-__global__ void __launch_bounds__(TX * TY)
-paged_gather_kernel(const TB* __restrict__ pages,
-                    const int32_t* __restrict__ pt,
-                    const int32_t* __restrict__ lids,
-                    float* __restrict__ out, int c, int64_t m, int ps) {
-  const PagedRows row_of{pt, lids, ps};
-  const int64_t col0 = (int64_t(blockIdx.x) * TX + threadIdx.x) * VEC;
+__device__ __forceinline__ void gather_rows(const TB* __restrict__ pages,
+                                            float* __restrict__ out,
+                                            const int64_t* phys, int a0,
+                                            int rows, int64_t m,
+                                            int64_t tile_col0) {
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  float v[UNROLL][VEC];
   if (VECTOR) {
-    if (col0 >= m) return;
-    for (int a = threadIdx.y; a < c; a += TY) {
-      float v[VEC];
-      repro::load4(pages + row_of(a) * m + col0, v);
-      repro::store4(out + int64_t(a) * m + col0, v);
+    const int64_t col = tile_col0 + tx * VEC;
+    if (col >= m) return;
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      const int i = ty + k * TY;
+      if (i < rows) repro::load4(pages + phys[i] * m + col, v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      const int i = ty + k * TY;
+      if (i < rows) repro::store4(out + int64_t(a0 + i) * m + col, v[k]);
     }
   } else {
-    for (int a = threadIdx.y; a < c; a += TY) {
-      const int64_t r = row_of(a);
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const int64_t col = col0 + k;
-        if (col < m) out[int64_t(a) * m + col] = repro::to_f32(pages[r * m + col]);
+    for (int k = 0; k < UNROLL; ++k) {
+      const int i = ty + k * TY;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int64_t col = tile_col0 + j * TX + tx;
+        if (i < rows && col < m)
+          v[k][j] = repro::to_f32(pages[phys[i] * m + col]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      const int i = ty + k * TY;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int64_t col = tile_col0 + j * TX + tx;
+        if (i < rows && col < m) out[int64_t(a0 + i) * m + col] = v[k][j];
       }
     }
   }
+}
+
+template <typename TB>
+__device__ __forceinline__ void gather_leaf(const Leaf& leaf,
+                                            const int64_t* phys, int a0,
+                                            int rows, int64_t tile_col0) {
+  const auto* pages = static_cast<const TB*>(leaf.ptr[0]);
+  auto* out = static_cast<float*>(leaf.ptr[1]);
+  if (leaf.flags & repro::LEAF_VECTOR)
+    gather_rows<TB, true>(pages, out, phys, a0, rows, leaf.m, tile_col0);
+  else
+    gather_rows<TB, false>(pages, out, phys, a0, rows, leaf.m, tile_col0);
+}
+
+// Leaf pointers: ptr[0] pages (R, M), ptr[1] out (C, M) f32. Block
+// (x, y): flat tile x of the table's leaves, slots y*GATHER_ROWS onwards.
+__global__ void __launch_bounds__(TX * TY)
+paged_gather_kernel(const __grid_constant__ LeafTable table,
+                    const int32_t* __restrict__ pt,
+                    const int32_t* __restrict__ lids, int c, int ps) {
+  __shared__ int64_t phys[GATHER_ROWS];
+  const int a0 = blockIdx.y * GATHER_ROWS;
+  const int rows = min(GATHER_ROWS, c - a0);
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  if (tid < rows) {
+    const int32_t lid = lids[a0 + tid];
+    phys[tid] = int64_t(pt[lid / ps]) * ps + lid % ps;
+  }
+  const Leaf& leaf = table.leaf[repro::find_leaf(table, blockIdx.x)];
+  const int64_t tile_col0 =
+      int64_t(blockIdx.x - leaf.first_tile) * COLS_PER_BLOCK;
+  __syncthreads();
+  if (leaf.flags & repro::LEAF_A_BF16)
+    gather_leaf<__nv_bfloat16>(leaf, phys, a0, rows, tile_col0);
+  else
+    gather_leaf<float>(leaf, phys, a0, rows, tile_col0);
 }
 
 dim3 tiles(int64_t m) {
@@ -148,23 +218,6 @@ void launch_scatter_batched(void* pages, const void* u, const void* pt,
   }
 }
 
-template <typename TB>
-void launch_gather(const void* pages, const void* pt, const void* lids,
-                   void* out, int c, int64_t m, int ps, bool vector,
-                   cudaStream_t stream) {
-  auto* pp = static_cast<const TB*>(pages);
-  auto* tt = static_cast<const int32_t*>(pt);
-  auto* ll = static_cast<const int32_t*>(lids);
-  auto* oo = static_cast<float*>(out);
-  if (vector) {
-    paged_gather_kernel<TB, true><<<tiles(m), dim3(TX, TY), 0, stream>>>(
-        pp, tt, ll, oo, c, m, ps);
-  } else {
-    paged_gather_kernel<TB, false><<<tiles(m), dim3(TX, TY), 0, stream>>>(
-        pp, tt, ll, oo, c, m, ps);
-  }
-}
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. pages_bf16 selects the pages'
@@ -204,15 +257,17 @@ extern "C" int paged_bank_scatter_batched(void* pages, const void* u,
   return int(cudaGetLastError());
 }
 
-extern "C" int paged_bank_gather(const void* pages, const void* pt,
-                                 const void* lids, void* out, int c,
-                                 int64_t m, int ps, int pages_bf16,
-                                 int vector, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vector != 0;
-  if (pages_bf16)
-    launch_gather<__nv_bfloat16>(pages, pt, lids, out, c, m, ps, vec, s);
-  else
-    launch_gather<float>(pages, pt, lids, out, c, m, ps, vec, s);
+// The row gather over every leaf of `table` (ptr[0] pages, ptr[1] out):
+// pt (P,) and lids (c,) int32 are shared by the leaves. The table is copied
+// into the launch's parameters. Returns cudaGetLastError() after the launch.
+extern "C" int paged_bank_gather(const LeafTable* table, const void* pt,
+                                 const void* lids, int c, int ps,
+                                 void* stream) {
+  const dim3 grid(unsigned(table->n_tiles),
+                  unsigned((c + GATHER_ROWS - 1) / GATHER_ROWS));
+  paged_gather_kernel<<<grid, dim3(TX, TY), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      *table, static_cast<const int32_t*>(pt),
+      static_cast<const int32_t*>(lids), c, ps);
   return int(cudaGetLastError());
 }

@@ -1,10 +1,13 @@
-"""Fused MIFA server step: the CUDA kernel's wrapper and its plain version.
+"""Fused MIFA server step: the CUDA kernel's wrappers and its plain version.
 
     G <- where(active, U, G);   w_new <- w - eta * mean_N(G)   (mean in f32)
 
-`mifa_aggregate` decides by the tensors' device: CUDA tensors launch the
-hand-written kernel `csrc/mifa_aggregate.cu` (which replaces the TPU kernel
-`repro/kernels/mifa_aggregate.py`), CPU tensors take `mifa_aggregate_ref`.
+`mifa_aggregate_leaves` takes every leaf of a tree at once and
+`mifa_aggregate` one leaf (the counterpart of the JAX function). Both decide
+by the tensors' device: CUDA tensors launch the hand-written kernel
+`csrc/mifa_aggregate.cu` (which replaces the TPU kernel
+`repro/kernels/mifa_aggregate.py`) once per leaf table, i.e. once for a
+tree of up to 64 leaves; CPU tensors take `mifa_aggregate_ref` leaf by leaf.
 On the card G is updated in place and returned; as with the reference's
 donated buffers, callers must not reuse the G they passed in.
 """
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
                                          entry_point, launch, vector_ok)
+from repro_torch.kernels.leaf_table import A_BF16, VECTOR, W_BF16, pack
 
 
 def mifa_aggregate_ref(g_old: torch.Tensor, updates: torch.Tensor,
@@ -35,11 +39,48 @@ def _check(g_old, updates, active, w) -> None:
     n, m = g_old.shape
     if n == 0 or m == 0:
         raise ValueError(f"empty aggregation {(n, m)}")
-    check_tensors(g_old.device, {
+    check_tensors(active.device, {
         "g_old": (g_old, FLOAT_STORES, (n, m)),
         "updates": (updates, (torch.float32,), (n, m)),
         "active": (active, (torch.bool,), (n,)),
         "w": (w, FLOAT_STORES, (m,))})
+
+
+def mifa_aggregate_leaves(gs, us, active: torch.Tensor, ws, eta: float):
+    """The server step over the leaves of a tree: gs[j] (N, M_j) f32|bf16,
+    us[j] (N, M_j) f32, ws[j] (M_j,) f32|bf16, one active (N,) bool for
+    all; eta a Python float. Leaves may mix f32 and bf16.
+
+    Returns (g_news, w_news), lists in leaf order. CPU tensors take the
+    plain version leaf by leaf; CUDA tensors launch the kernel once per
+    table of up to `leaf_table.MAX_LEAVES` leaves, which writes the active
+    rows of each g in place (g_new is g) and each w_new into a fresh
+    tensor.
+    """
+    if not len(gs) == len(us) == len(ws) > 0:
+        raise ValueError(f"{len(gs)} G, {len(us)} U and {len(ws)} w leaves:"
+                         " expected the same number, at least one")
+    for g, u, w in zip(gs, us, ws):
+        _check(g, u, active, w)
+    if active.device.type == "cpu":
+        outs = [mifa_aggregate_ref(g, u, active, w, eta)
+                for g, u, w in zip(gs, us, ws)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+    fn = entry_point("mifa_aggregate", "mifa_aggregate",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_float], active.device)
+    w_news = [torch.empty_like(w) for w in ws]
+    leaves = [((u.data_ptr(), g.data_ptr(), w.data_ptr(), wn.data_ptr()),
+               g.shape[1],
+               (A_BF16 if g.dtype == torch.bfloat16 else 0)
+               | (W_BF16 if w.dtype == torch.bfloat16 else 0)
+               | (VECTOR if vector_ok(g.shape[1], g, u) else 0))
+              for g, u, w, wn in zip(gs, us, ws, w_news)]
+    for table in pack(leaves):
+        launch(fn, active.device, ctypes.addressof(table),
+               active.data_ptr(), active.shape[0], float(eta))
+        mifa_aggregate.launches += 1
+    return list(gs), w_news
 
 
 def mifa_aggregate(g_old: torch.Tensor, updates: torch.Tensor,
@@ -47,26 +88,13 @@ def mifa_aggregate(g_old: torch.Tensor, updates: torch.Tensor,
     """g_old (N,M) f32|bf16; updates (N,M) f32; active (N,) bool;
     w (M,) f32|bf16; eta a Python float.
 
-    Returns (g_new, w_new). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which writes the active rows of g_old in
-    place (g_new is g_old) and w_new into a fresh tensor.
+    Returns (g_new, w_new): `mifa_aggregate_leaves` on one leaf. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    writes the active rows of g_old in place (g_new is g_old) and w_new
+    into a fresh tensor.
     """
-    _check(g_old, updates, active, w)
-    if g_old.device.type == "cpu":
-        return mifa_aggregate_ref(g_old, updates, active, w, eta)
-    vp = ctypes.c_void_p
-    fn = entry_point("mifa_aggregate", "mifa_aggregate",
-                     [vp] * 5 + [ctypes.c_int, ctypes.c_int64, ctypes.c_float,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int],
-                     g_old.device)
-    n, m = g_old.shape
-    w_new = torch.empty_like(w)
-    launch(fn, g_old.device, updates.data_ptr(), g_old.data_ptr(),
-           active.data_ptr(), w.data_ptr(), w_new.data_ptr(), n, m,
-           float(eta), int(g_old.dtype == torch.bfloat16),
-           int(w.dtype == torch.bfloat16), int(vector_ok(m, g_old, updates)))
-    mifa_aggregate.launches += 1
-    return g_old, w_new
+    gs, ws = mifa_aggregate_leaves([g_old], [updates], active, [w], eta)
+    return gs[0], ws[0]
 
 
 mifa_aggregate.launches = 0

@@ -2,13 +2,13 @@
 `repro/kernels/ops.py`).
 
 * `mifa_aggregate_tree` — the fused MIFA server step across a whole
-  parameter tree: each leaf is flattened to (N, M) and goes through
-  `kernels.mifa_aggregate`.
+  parameter tree: each leaf is flattened to (N, M), and the leaves go
+  through `kernels.mifa_aggregate_leaves` together (one launch a tree).
 * `bank_update_tree` — the fused cohort gather/delta/scatter over a
   memory-bank tree, each leaf flattened to (R, M) and (C, M).
 * `paged_bank_update_tree` / `paged_bank_gather_tree` — the same scatter,
   and the row gather, through a paged bank's page table
-  (`kernels.paged_bank`).
+  (`kernels.paged_bank`); the gather takes all leaves in one launch.
 * `fleet_bank_update_tree` / `fleet_paged_bank_update_tree` — the scatters
   for K stacked trials, each leaf flattened to (K, R, M) and (K, C, M) and
   sent through one batched launch.
@@ -28,12 +28,28 @@ import torch
 from repro_torch.kernels.bank_scatter import (bank_scatter,
                                               bank_scatter_batched)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.mifa_aggregate import mifa_aggregate
-from repro_torch.kernels.paged_bank import (paged_bank_gather,
+from repro_torch.kernels.mifa_aggregate import mifa_aggregate_leaves
+from repro_torch.kernels.paged_bank import (paged_bank_gather_leaves,
                                             paged_bank_scatter,
                                             paged_bank_scatter_batched)
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.tree import tree_map, tree_unzip2
+
+
+def _leaves_in_map_order(tree, *rest) -> list:
+    """The leaves of `tree` (zipped with those of `rest`) in the order
+    `tree_map` visits them, so `_rebuild` can put results back."""
+    out = []
+    tree_map(lambda *xs: out.append(xs), tree, *rest)
+    return out
+
+
+def _rebuild(tree, values):
+    """`tree`'s structure with its leaves replaced by `values`, given in
+    `tree_map` order (a tree_map over `tree` and trees of its structure
+    builds its output in `tree`'s key order)."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
 
 
 def mifa_aggregate_tree(g_tree, u_tree, active: torch.Tensor, params,
@@ -44,13 +60,16 @@ def mifa_aggregate_tree(g_tree, u_tree, active: torch.Tensor, params,
     Returns (new_g_tree, new_params); on the card the G leaves are updated
     in place.
     """
-    def one(g, u, w):
-        n = g.shape[0]
-        gn, wn = mifa_aggregate(g.reshape(n, -1), u.reshape(n, -1), active,
-                                w.reshape(-1), eta)
-        return gn.reshape(g.shape), wn.reshape(w.shape)
-
-    return tree_unzip2(tree_map(one, g_tree, u_tree, params))
+    leaves = _leaves_in_map_order(g_tree, u_tree, params)
+    n = active.shape[0]
+    gs, ws = mifa_aggregate_leaves(
+        [g.reshape(n, -1) for g, _, _ in leaves],
+        [u.reshape(n, -1) for _, u, _ in leaves], active,
+        [w.reshape(-1) for _, _, w in leaves], eta)
+    return (_rebuild(g_tree, [gn.reshape(g.shape)
+                              for gn, (g, _, _) in zip(gs, leaves)]),
+            _rebuild(g_tree, [wn.reshape(w.shape)
+                              for wn, (_, _, w) in zip(ws, leaves)]))
 
 
 def bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,
@@ -94,13 +113,14 @@ def paged_bank_gather_tree(pages_tree, page_table: torch.Tensor,
                            lids: torch.Tensor, *, page_size: int):
     """Row gather through the page table over a tree: leaves (C, *shape)
     f32 for the logical rows `lids` (int32, sanitized); rows of pages that
-    are not resident read the dummy page's zeros."""
-    def one(pages):
-        rows = paged_bank_gather(pages.reshape(pages.shape[0], -1),
-                                 page_table, lids, page_size=page_size)
-        return rows.reshape((lids.shape[0],) + pages.shape[1:])
-
-    return tree_map(one, pages_tree)
+    are not resident read the dummy page's zeros. On the card one launch
+    covers every leaf (up to 64), and the leaves are views of one buffer."""
+    leaves = [p for (p,) in _leaves_in_map_order(pages_tree)]
+    rows = paged_bank_gather_leaves(
+        [p.reshape(p.shape[0], -1) for p in leaves], page_table, lids,
+        page_size=page_size)
+    return _rebuild(pages_tree, [r.view((lids.shape[0],) + p.shape[1:])
+                                 for r, p in zip(rows, leaves)])
 
 
 def fleet_bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,

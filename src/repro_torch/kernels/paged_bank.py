@@ -5,7 +5,9 @@ table, each the CUDA kernel's wrapper beside its plain version.
     phys(lid) = page_table[lid // page_size] * page_size + lid % page_size
     paged_bank_scatter:  dsum = Σ_{valid a} (cast(u_a) − pages[phys(lids[a])])
                          pages[phys(lids[a])] = cast(u_a)   (valid a only)
-    paged_bank_gather:   rows[a] = f32(pages[phys(lids[a])])
+    paged_bank_gather:   rows[a] = f32(pages[phys(lids[a])]), and
+                         `paged_bank_gather_leaves` for every leaf of a
+                         tree in one launch
     paged_bank_scatter_batched: the scatter for trial k = 0..K-1 through
                          row k of a (K, P) page table, in one launch
 
@@ -28,6 +30,11 @@ import torch
 from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
                                          entry_point, launch, vector_ok)
 from repro_torch.kernels.bank_scatter import bank_scatter_ref
+from repro_torch.kernels.leaf_table import A_BF16, VECTOR, pack
+
+# slots a gather block resolves and copies (csrc/paged_bank.cu GATHER_ROWS);
+# a launch takes at most 65535 such chunks
+GATHER_ROWS = 64
 
 
 def phys_rows(page_table: torch.Tensor, lids: torch.Tensor,
@@ -123,25 +130,61 @@ def paged_bank_scatter(pages: torch.Tensor, updates: torch.Tensor,
     return pages, dsum
 
 
+def paged_bank_gather_leaves(pages_list, page_table: torch.Tensor,
+                             lids: torch.Tensor, *, page_size: int) -> list:
+    """The row gather over the leaves of a tree: pages_list[j] (R, M_j)
+    f32|bf16 (leaves may mix the two), one page_table (P,) int32 and one
+    lids (C,) int32 of sanitized logical rows for all. Returns a list of
+    (C, M_j) f32 rows in leaf order (rows of pages that are not resident
+    read the dummy page's zeros).
+
+    CPU tensors take the plain version leaf by leaf. CUDA tensors launch
+    the kernel once per table of up to `leaf_table.MAX_LEAVES` leaves; the
+    rows of all leaves land in one f32 buffer, each leaf's at an offset
+    that is a multiple of 4 elements, and come back as contiguous views of
+    it.
+    """
+    if not pages_list:
+        raise ValueError("no leaves to gather")
+    for pages in pages_list:
+        _check(pages, page_table, lids, page_size, {})
+    dev = lids.device
+    if dev.type == "cpu":
+        return [paged_bank_gather_ref(pages, page_table, lids,
+                                      page_size=page_size)
+                for pages in pages_list]
+    fn = entry_point("paged_bank", "paged_bank_gather",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int],
+                     dev)
+    c = lids.shape[0]
+    if -(-c // GATHER_ROWS) > 65535:
+        raise ValueError(f"{c} rows exceed one launch's grid")
+    widths = [pages.shape[1] for pages in pages_list]
+    offsets = [0]
+    for m in widths:
+        offsets.append(offsets[-1] + -(-c * m // 4) * 4)
+    buf = torch.empty(offsets[-1], dtype=torch.float32, device=dev)
+    outs = [buf[o:o + c * m].view(c, m) for o, m in zip(offsets, widths)]
+    leaves = [((pages.data_ptr(), out.data_ptr()), m,
+               (A_BF16 if pages.dtype == torch.bfloat16 else 0)
+               | (VECTOR if vector_ok(m, pages, out) else 0))
+              for pages, out, m in zip(pages_list, outs, widths)]
+    for table in pack(leaves):
+        launch(fn, dev, ctypes.addressof(table), page_table.data_ptr(),
+               lids.data_ptr(), c, page_size)
+        paged_bank_gather.launches += 1
+    return outs
+
+
 def paged_bank_gather(pages: torch.Tensor, page_table: torch.Tensor,
                       lids: torch.Tensor, *, page_size: int) -> torch.Tensor:
     """pages (R, M) f32|bf16; page_table (P,) int32; lids (C,) int32
     sanitized logical rows. Returns (C, M) f32 rows (rows of pages that are
-    not resident read the dummy page's zeros). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    _check(pages, page_table, lids, page_size, {})
-    if pages.device.type == "cpu":
-        return paged_bank_gather_ref(pages, page_table, lids,
-                                     page_size=page_size)
-    fn = entry_point("paged_bank", "paged_bank_gather",
-                     [ctypes.c_void_p] * 4 + _SIZES, pages.device)
-    c, m = lids.shape[0], pages.shape[1]
-    out = torch.empty((c, m), dtype=torch.float32, device=pages.device)
-    launch(fn, pages.device, pages.data_ptr(), page_table.data_ptr(),
-           lids.data_ptr(), out.data_ptr(), c, m, page_size,
-           int(pages.dtype == torch.bfloat16), int(vector_ok(m, pages, out)))
-    paged_bank_gather.launches += 1
-    return out
+    not resident read the dummy page's zeros): `paged_bank_gather_leaves`
+    on one leaf. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    return paged_bank_gather_leaves([pages], page_table, lids,
+                                    page_size=page_size)[0]
 
 
 def paged_bank_scatter_batched(pages: torch.Tensor, updates: torch.Tensor,
