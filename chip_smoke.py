@@ -11,12 +11,13 @@ Run from the root of a checkout on a machine with a CUDA card. It
   3. holds every kernel against its plain PyTorch version on the card, at
      the main path's leaf shapes and at edge cases (ragged width, nothing
      active, only pad slots, bf16 storage, and for the paged kernels a
-     shuffled page table with pages that are not resident); holds the two
+     shuffled page table with pages that are not resident); holds the
      kernels that take a whole tree in one launch (`mifa_aggregate`,
-     `paged_bank_gather`, on a leaf table) against the per-leaf plain
-     versions on trees of paper_mlp's six leaves, mixed f32/bf16 leaves,
-     ragged widths, one leaf, nothing active and more leaves than one
-     table holds (two launches), a repeated call bit-identical; and times
+     `paged_bank_gather`, and the fleet scatters of step 9, on a leaf
+     table) against the per-leaf plain versions on trees of paper_mlp's
+     six leaves, mixed f32/bf16 leaves, ragged widths, one leaf, nothing
+     active and more leaves than one table holds (two launches), a
+     repeated call bit-identical; and times
      kernel and plain version per round of the main path beside the least
      time the card could take for the same bytes and operations (and,
      for the paged gather, one `torch.index_select` per leaf);
@@ -48,8 +49,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
      versions) and on the card (kernels) and holds them together;
   9. holds the batched (fleet) bank kernels against their plain versions
      and, trial by trial, against the single-trial kernels (K=3 trials,
-     C=64, a different cohort per trial and one trial of pads only), and
-     times them per round of the cohort fleet path;
+     C=64, a different cohort per trial and one trial of pads only), one
+     leaf at a time and on the trees of step 3 (one launch per table of
+     leaves, a repeated call bit-identical), and times them per round of
+     the cohort fleet path, one launch a round;
  10. drives the paper's Figure 2 sweep as fleets
      (`benchmarks/fig2_convergence.py::run("paper_mlp", 0.1)`, seeds 0-2,
      participation seeds 100+s): MIFA(array), BiasedFedAvg,
@@ -59,8 +62,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `fleet.run_fleet`. Eval loss must fall in every trial; checked trials
      must match sequential `run_fl` runs on the card; the paged fleet must
      be bit-equal to the dense one; each batched kernel launches once per
-     leaf per round and `mifa_aggregate` once per trial per round; then the FedAvgSampling(S=50) fleet runs 10 rounds on
-     the CPU and on the card, held together;
+     round (all six leaves and three trials) and `mifa_aggregate` once per
+     trial per round; then the FedAvgSampling(S=50) fleet runs 10 rounds
+     on the CPU and on the card, held together;
  11. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
      H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
@@ -317,7 +321,8 @@ def check_mifa(gen, active_path) -> tuple[float, list]:
 
 
 # the kernels that take a whole tree in one launch (a leaf table)
-TREE_KERNELS = ("mifa_aggregate", "paged_bank_gather")
+TREE_KERNELS = ("mifa_aggregate", "paged_bank_gather", "bank_scatter_batched",
+                "paged_bank_scatter_batched")
 # the tree cases of the leaf-table kernels: name -> [(M, stored dtype, w
 # dtype)]; "split" has more leaves than one table holds (64), so it takes
 # two launches
@@ -1106,7 +1111,9 @@ def check_batched(gen, active_path) -> tuple[float, float, list]:
     width 1000 (ragged for the vector path), bf16 storage, and for the
     paged kernel per-trial shuffled page tables with pages that are not
     resident. Rows and pages bit-equal; dsum within TOL of the plain
-    version and bit-equal to the single-trial kernel."""
+    version and bit-equal to the single-trial kernel. Then the same on the
+    trees of TREE_CASES, every leaf and trial in one launch per table of
+    leaves (`check_batched_trees`)."""
     from repro_torch.kernels.bank_scatter import (bank_scatter,
                                                   bank_scatter_batched,
                                                   bank_scatter_batched_ref)
@@ -1192,6 +1199,120 @@ def check_batched(gen, active_path) -> tuple[float, float, list]:
                     f"slots={slots} C={lid.shape[1]} valid="
                     f"{val.sum(1).tolist()} M={m:<6} pages {dt}: pages "
                     f"bit-equal, per trial bit-equal to paged_bank_scatter")
+    tb_err, tp_err, tree_rows = check_batched_trees(gen, (ids, valid), path,
+                                                    shuf)
+    return max(b_err, tb_err), max(p_err, tp_err), rows + tree_rows
+
+
+def check_batched_trees(gen, cohorts, path, shuf) -> tuple[float, float,
+                                                            list]:
+    """`bank_scatter_batched_leaves` and `paged_bank_scatter_batched_leaves`
+    (one launch per table of leaves, all K trials) on the trees of
+    TREE_CASES: per leaf equal to the plain version (rows and pages
+    bit-equal, dsum within TOL), per trial and leaf bit-equal to
+    `bank_scatter` / `paged_bank_scatter` in rows and dsum, the launches one
+    per table, a repeated call bit-identical. The dense trees take the
+    three cohorts of `check_batch_cohorts`; the paged ones the path's
+    table for paper_mlp, else per-trial shuffled tables (`shuf`)."""
+    from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                                  bank_scatter_batched,
+                                                  bank_scatter_batched_leaves,
+                                                  bank_scatter_batched_ref)
+    from repro_torch.kernels.paged_bank import (
+        paged_bank_gather_ref, paged_bank_scatter, paged_bank_scatter_batched,
+        paged_bank_scatter_batched_leaves, paged_bank_scatter_batched_ref)
+    k_trials, r, ps = len(FLEET_SEEDS), N_CLIENTS + 1, PAGE_SIZE
+    ids, valid = cohorts
+    b_err, p_err, rows = 0.0, 0.0, []
+    for name, leaves in TREE_CASES.items():
+        c = ids.shape[1]
+        banks = [torch.randn((k_trials, r, m), generator=gen,
+                             device="cuda").to(dt) for m, dt, _ in leaves]
+        us = [torch.randn((k_trials, c, m), generator=gen, device="cuda")
+              for m, _, _ in leaves]
+        before = bank_scatter_batched.launches
+        b_k, d_k = bank_scatter_batched_leaves([b.clone() for b in banks],
+                                               us, ids, valid)
+        b_2, d_2 = bank_scatter_batched_leaves([b.clone() for b in banks],
+                                               us, ids, valid)
+        torch.cuda.synchronize()
+        launches = bank_scatter_batched.launches - before
+        check(launches == 2 * n_tables(len(leaves)),
+              f"bank_scatter_batched tree {name}: {launches} launches for "
+              f"two calls on {len(leaves)} leaves")
+        for j, (b, u) in enumerate(zip(banks, us)):
+            where = f"tree {name}, leaf {j} (M={b.shape[2]}, {b.dtype})"
+            b_ref, d_ref = bank_scatter_batched_ref(b, u, ids, valid)
+            check(torch.equal(b_k[j], b_ref),
+                  f"bank_scatter_batched {where}: rows differ")
+            for k in range(k_trials):
+                b1, d1 = bank_scatter(b[k].clone(), u[k], ids[k], valid[k])
+                check(torch.equal(b_k[j][k], b1) and torch.equal(d_k[j][k],
+                                                                 d1),
+                      f"bank_scatter_batched {where}: trial {k} is not "
+                      f"bit-equal to bank_scatter")
+            check(torch.equal(b_2[j], b_k[j]) and torch.equal(d_2[j],
+                                                              d_k[j]),
+                  f"bank_scatter_batched {where}: a repeated call differs")
+            terms = u.to(b.dtype).float() - torch.stack(
+                [b[k][ids[k]] for k in range(k_trials)]).float()
+            b_err = max(b_err, check_dsum(d_k[j], d_ref, terms, valid,
+                                          f"bank_scatter_batched {where}"))
+        rows.append(f"bank_scatter_batched tree {name:<14} {len(leaves)} "
+                    f"leaves (M {sum(m for m, _, _ in leaves)}), K="
+                    f"{k_trials}, valid {valid.sum(1).tolist()}: "
+                    f"{launches // 2} launch(es) a call, rows bit-equal, "
+                    f"per trial and leaf bit-equal to bank_scatter, repeat "
+                    f"bit-identical")
+
+        tabs, slots, lid, val = path if name == "paper_mlp" else shuf
+        c = lid.shape[1]
+        pages = [torch.stack([pages_inputs(gen, slots, m, 1, dt)[0]
+                              for _ in range(k_trials)])
+                 for m, dt, _ in leaves]
+        us = [torch.randn((k_trials, c, m), generator=gen, device="cuda")
+              for m, _, _ in leaves]
+        before = paged_bank_scatter_batched.launches
+        p_k, d_k = paged_bank_scatter_batched_leaves(
+            [p.clone() for p in pages], us, tabs, lid, val, page_size=ps)
+        p_2, d_2 = paged_bank_scatter_batched_leaves(
+            [p.clone() for p in pages], us, tabs, lid, val, page_size=ps)
+        torch.cuda.synchronize()
+        launches = paged_bank_scatter_batched.launches - before
+        check(launches == 2 * n_tables(len(leaves)),
+              f"paged_bank_scatter_batched tree {name}: {launches} launches "
+              f"for two calls on {len(leaves)} leaves")
+        for j, (p, u) in enumerate(zip(pages, us)):
+            where = f"tree {name}, leaf {j} (M={p.shape[2]}, {p.dtype})"
+            p_ref, d_ref = paged_bank_scatter_batched_ref(
+                p, u, tabs, lid, val, page_size=ps)
+            check(torch.equal(p_k[j], p_ref),
+                  f"paged_bank_scatter_batched {where}: pages differ")
+            check(not p_k[j][:, slots * ps:].any(),
+                  f"paged_bank_scatter_batched {where}: wrote a dummy page")
+            old = []
+            for k in range(k_trials):
+                p1, d1 = paged_bank_scatter(p[k].clone(), u[k], tabs[k],
+                                            lid[k], val[k], page_size=ps)
+                check(torch.equal(p_k[j][k], p1)
+                      and torch.equal(d_k[j][k], d1),
+                      f"paged_bank_scatter_batched {where}: trial {k} is not "
+                      f"bit-equal to paged_bank_scatter")
+                old.append(paged_bank_gather_ref(p[k], tabs[k], lid[k],
+                                                 page_size=ps))
+            check(torch.equal(p_2[j], p_k[j]) and torch.equal(d_2[j],
+                                                              d_k[j]),
+                  f"paged_bank_scatter_batched {where}: a repeated call "
+                  f"differs")
+            p_err = max(p_err, check_dsum(
+                d_k[j], d_ref, u.to(p.dtype).float() - torch.stack(old), val,
+                f"paged_bank_scatter_batched {where}"))
+        rows.append(f"paged_bank_scatter_batched tree {name:<14} "
+                    f"{len(leaves)} leaves (M {sum(m for m, _, _ in leaves)})"
+                    f", K={k_trials}, slots={slots}, valid "
+                    f"{val.sum(1).tolist()}: {launches // 2} launch(es) a "
+                    f"call, pages bit-equal, per trial and leaf bit-equal to "
+                    f"paged_bank_scatter, repeat bit-identical")
     return b_err, p_err, rows
 
 
@@ -1207,14 +1328,17 @@ def fleet_path_cohorts(probs):
 
 
 def time_batched(gen, probs) -> dict:
-    """Both batched kernels per round of the cohort fleet path: one launch
-    per leaf of paper_mlp for all three trials, the trials' cohorts of a
-    typical round padded to 64, the N=100 bank (dense) and its 13-page
-    pool (paged); inputs cycled past L2."""
+    """Both batched kernels per round of the cohort fleet path: one call
+    for paper_mlp's six leaves and all three trials (and one launch per
+    leaf for the per-launch times), the trials' cohorts of a typical round
+    padded to 64, the N=100 bank (dense) and its 13-page pool (paged);
+    inputs cycled past L2."""
     from repro_torch.kernels.bank_scatter import (bank_scatter_batched,
+                                                  bank_scatter_batched_leaves,
                                                   bank_scatter_batched_ref)
-    from repro_torch.kernels.paged_bank import (paged_bank_scatter_batched,
-                                                paged_bank_scatter_batched_ref)
+    from repro_torch.kernels.paged_bank import (
+        paged_bank_scatter_batched, paged_bank_scatter_batched_leaves,
+        paged_bank_scatter_batched_ref)
     ids, valid = fleet_path_cohorts(probs)
     k_trials, c = ids.shape
     n_valid = int(valid.sum())
@@ -1242,12 +1366,17 @@ def time_batched(gen, probs) -> dict:
     return {
         "bank_scatter_batched": time_path(
             bank_scatter_batched, bank_scatter_batched_ref, dense,
-            leaf_bytes, leaf_ops),
+            leaf_bytes, leaf_ops,
+            tree=lambda s: bank_scatter_batched_leaves(
+                [a[0] for a in s], [a[1] for a in s], ids, valid)),
         "paged_bank_scatter_batched": time_path(
             lambda *a: paged_bank_scatter_batched(*a, page_size=PAGE_SIZE),
             lambda *a: paged_bank_scatter_batched_ref(*a,
                                                       page_size=PAGE_SIZE),
-            paged, leaf_bytes, leaf_ops),
+            paged, leaf_bytes, leaf_ops,
+            tree=lambda s: paged_bank_scatter_batched_leaves(
+                [a[0] for a in s], [a[1] for a in s], pts, lids, valid,
+                page_size=PAGE_SIZE)),
         "valid": valid.sum(1).tolist(), "cohort": c}
 
 
@@ -1342,7 +1471,7 @@ def fig2_phase(problem) -> tuple[dict, dict, list]:
     init_loss, _ = fleet_eval(tree_stack([
         model.init(torch.Generator().manual_seed(s), device="cuda")
         for s in FLEET_SEEDS]))
-    k_trials, n_leaves = len(FLEET_SEEDS), len(PATH_WIDTHS)
+    k_trials = len(FLEET_SEEDS)
     runs, launches, rows = {}, {}, []
     for name, (clock, check_all, kernel) in FIG2.items():
         reset_counts()
@@ -1350,8 +1479,8 @@ def fig2_phase(problem) -> tuple[dict, dict, list]:
                                            "cuda", fleet_eval)
         counts = read_counts()
         want = {"mifa_aggregate": FLEET_ROUNDS * k_trials,
-                "bank_scatter_batched": FLEET_ROUNDS * n_leaves,
-                "paged_bank_scatter_batched": FLEET_ROUNDS * n_leaves}
+                "bank_scatter_batched": FLEET_ROUNDS,
+                "paged_bank_scatter_batched": FLEET_ROUNDS}
         expected = {key: want[key] if key == kernel else 0 for key in counts}
         check(counts == expected, f"fleet {name}: launches {counts}, "
                                   f"expected {expected}")
@@ -1910,10 +2039,11 @@ def main() -> int:
                              "phases, one launch each",
         "bank_scatter_batched":
             f"Figure 2 fleet BankedMIFA(DenseBank), K=3, {FLEET_ROUNDS} "
-            "rounds",
+            "rounds, one launch a round for the six leaves and three trials",
         "paged_bank_scatter_batched":
             f"Figure 2 fleet BankedMIFA(PagedDeviceBank), K=3, "
-            f"{FLEET_ROUNDS} rounds",
+            f"{FLEET_ROUNDS} rounds, one launch a round for the six leaves "
+            "and three trials",
         "flash_attention": f"zamba2-7b serve prefill, {SERVE_B} x "
                            f"{SERVE_PROMPT} tokens (13 shared-attention "
                            "insertions; decode launches none)",
@@ -1962,8 +2092,8 @@ def main() -> int:
             # (PERF.md); the gather's is one index_select per leaf
             "library_ms": t["library_ms"],
             # ms, plain_ms and bound_ms are per round (one launch, or one
-            # per leaf for the scatters); this is per launch of one leaf
-            # at each leaf's width
+            # per leaf for the single-trial scatters); this is per launch
+            # of one leaf at each leaf's width
             "per_launch_us": t["leaves"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

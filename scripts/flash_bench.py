@@ -4,7 +4,8 @@ the tensor-core kernels), the kernel against its plain version on the
 checks of `chip_smoke.py`, and its time beside its bound.
 
     python3 scripts/flash_bench.py
-        [--kernel flash_attention|ssd_scan|mifa_aggregate|paged_bank_gather]
+        [--kernel flash_attention|ssd_scan|mifa_aggregate|paged_bank_gather
+                  |bank_scatter_batched|paged_bank_scatter_batched]
         [--root DIR]
 
 `flash_attention` (the default) is timed at zamba2-7b's and granite-3-8b's
@@ -14,6 +15,10 @@ version. `mifa_aggregate` and `paged_bank_gather` are timed per round of
 the paper path (paper_mlp's six leaves, N=100, the main path's typical
 mask) through `chip_smoke.time_mifa` / `time_paged_gather`, beside the
 per-leaf plain versions, the bound and, for the gather, `index_select`.
+`bank_scatter_batched` and `paged_bank_scatter_batched` are checked by
+`chip_smoke.check_batched` (one leaf at a time and on trees) and timed per
+round of the cohort fleet path (paper_mlp's six leaves, K=3 trials of a
+typical round's cohorts) through `chip_smoke.time_batched`.
 `--root` takes `chip_smoke.py`, the wrapper and the kernel source from
 another checkout, so that two versions can be timed in turns on one card.
 Needs a CUDA card and nvcc; exits 1 on a failed check.
@@ -26,6 +31,7 @@ import subprocess
 import sys
 import tempfile
 from collections import Counter
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -45,7 +51,9 @@ TC_OPS = ("HMMA", "HGMMA")
 # --kernel -> the source (library) that holds it
 SOURCE = {"flash_attention": "flash_attention", "ssd_scan": "ssd_scan",
           "mifa_aggregate": "mifa_aggregate",
-          "paged_bank_gather": "paged_bank"}
+          "paged_bank_gather": "paged_bank",
+          "bank_scatter_batched": "bank_scatter",
+          "paged_bank_scatter_batched": "paged_bank"}
 
 
 def instance_name(mangled: str) -> str:
@@ -149,13 +157,20 @@ def bench_round(name, check, time_fn, chip_smoke, gen) -> list[str]:
     active = path_mask(chip_smoke)
     rows = check(gen, active)[-1]
     t = time_fn(gen, active)
+    return rows + round_rows(name, t, f"|A|={int(active.sum())}")
+
+
+def round_rows(name, t, shape) -> list[str]:
+    """A `chip_smoke.time_path` result: the time per round beside the plain
+    version, the library call and the bound, then per launch of each
+    leaf."""
     lib = ("" if t["library_ms"] is None
            else f", library {t['library_ms'] * 1e3:.2f} us")
-    rows.append(f"{name} per round (6 leaves of paper_mlp, |A|="
-                f"{int(active.sum())}): kernel {t['ms'] * 1e3:.2f} us, plain "
-                f"{t['plain_ms'] * 1e3:.2f} us{lib}, bound "
-                f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
-                f"{t['bytes']} bytes), {t['bytes'] / t['ms'] / 1e6:.1f} GB/s")
+    rows = [f"{name} per round (6 leaves of paper_mlp, {shape}): kernel "
+            f"{t['ms'] * 1e3:.2f} us, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us{lib}, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+            f"{t['bytes']} bytes), {t['bytes'] / t['ms'] / 1e6:.1f} GB/s"]
     for leaf in t["leaves"]:
         lib = ("" if "library_us" not in leaf
                else f", library {leaf['library_us']:.2f} us")
@@ -175,8 +190,25 @@ def bench_gather(chip_smoke, gen) -> list[str]:
                        chip_smoke.time_paged_gather, chip_smoke, gen)
 
 
+def bench_batched(name, chip_smoke, gen) -> list[str]:
+    """A fleet scatter: its rows of `check_batched`, then its time per
+    round of the cohort fleet path (one call for the six leaves and the
+    three trials) and per launch at each leaf's width."""
+    rows = [row for row in chip_smoke.check_batched(gen,
+                                                    path_mask(chip_smoke))[-1]
+            if row.startswith(name + " ")]
+    t = chip_smoke.time_batched(
+        gen, chip_smoke.paper_problem(device="cuda")[2])
+    return rows + round_rows(name, t[name], f"K=3 trials, C={t['cohort']}, "
+                                            f"valid {t['valid']}")
+
+
 BENCHES = {"flash_attention": bench_flash, "ssd_scan": bench_ssd,
-           "mifa_aggregate": bench_mifa, "paged_bank_gather": bench_gather}
+           "mifa_aggregate": bench_mifa, "paged_bank_gather": bench_gather,
+           "bank_scatter_batched": partial(bench_batched,
+                                           "bank_scatter_batched"),
+           "paged_bank_scatter_batched": partial(bench_batched,
+                                                 "paged_bank_scatter_batched")}
 
 
 def main() -> int:

@@ -11,7 +11,8 @@ returns the delta sum; on the CPU its plain version does the same work.
 `gather` is plain tensor indexing, as in the reference (no kernel).
 `scatter_fleet` takes stacked states (leaves (K, N+1, ...) and (K, ...))
 through `kernels.ops.fleet_bank_update_tree`: the batched kernel, one
-launch per leaf for all K trials, per trial bit-equal to `bank_scatter`.
+launch for every leaf and all K trials, per trial bit-equal to
+`bank_scatter`.
 Mesh-sharded rows are not ported yet (ROADMAP Queue 1 item 19).
 """
 from __future__ import annotations

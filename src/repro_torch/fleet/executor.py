@@ -20,9 +20,10 @@ and each round runs as one fleet step:
   * cohort algorithms (`BankedMIFA`) — each distinct client of the round's
     cohorts (the union over trials, padded to a power of two) is sampled
     once; every trial gathers its (cap, ...) slice on the device. One
-    batched scatter per leaf applies all K cohorts (`bank_scatter_batched`,
-    `paged_bank_scatter_batched`), and a paged bank faults the union of
-    the trials' cohorts in before the round.
+    batched scatter applies all K cohorts to every leaf of the bank in one
+    launch (`bank_scatter_batched`, `paged_bank_scatter_batched`, on a leaf
+    table), and a paged bank faults the union of the trials' cohorts in
+    before the round.
 
 Per trial the fleet computes what `core.runner.run_fl` computes for the
 same seed and process: trial k is initialised as `RoundRunner(seed=s_k)`

@@ -40,21 +40,27 @@
 //   * It allocates nothing: the wrapper allocates dsum with torch.empty.
 //
 // bank_scatter_batched_kernel replaces `_kernel_batched` (pallas_call in
-// `_bank_scatter_batched`): the same work for K banks (K, R, M), updates
-// (K, C, M), ids and valid (K, C) and dsum (K, M), in one launch. The grid
-// is (column tiles, K): block (x, k) runs the same `scatter_rows` body on
-// trial k, its pointers offset by k's strides. So trial k sums the same
-// rows in the same order as `bank_scatter_kernel` on its slice, and its
-// rows and dsum are bit-equal to the single-trial kernel's. Bound by bytes:
-// 3 * (valid slots over all trials) * M elements, plus K * M for dsum.
+// `_bank_scatter_batched`): the same work for K trials, every leaf of a
+// parameter tree in one launch (leaf_table.cuh, scatter_tree.cuh). Leaf j
+// has its banks (K, R, M_j), updates (K, C, M_j) and dsum (K, M_j); ids
+// and valid (K, C) are shared by the leaves. The grid is (the table's
+// tiles, K): block (x, k) stages trial k's valid rows once in shared
+// memory, then keeps several rows of loads in flight a thread through a
+// cp.async ring. Trial k sums the same rows in the same order as
+// `bank_scatter_kernel` on its slice, so its rows and dsum are bit-equal
+// to the single-trial kernel's. Bound by bytes: 3 * (valid slots over all
+// trials) * M elements over the tree's M, plus K * M for dsum.
 #include "scatter_rows.cuh"
+#include "scatter_tree.cuh"
 
 namespace {
 
 using repro::COLS_PER_BLOCK;
 using repro::FlatRows;
+using repro::LeafTable;
 using repro::TX;
 using repro::TY;
+namespace st = repro::scatter_tree;
 
 template <typename TB, bool VECTOR>
 __global__ void __launch_bounds__(TX * TY)
@@ -65,19 +71,16 @@ bank_scatter_kernel(TB* __restrict__ bank, const float* __restrict__ u,
   repro::scatter_rows<TB, VECTOR>(bank, u, FlatRows{ids}, valid, dsum, c, m);
 }
 
-// Trial k = blockIdx.y of K stacked banks of r rows.
-template <typename TB, bool VECTOR>
-__global__ void __launch_bounds__(TX * TY)
-bank_scatter_batched_kernel(TB* __restrict__ bank,
-                            const float* __restrict__ u,
+// Leaf pointers: ptr[0] banks (K, r, M), ptr[1] updates (K, c, M) f32,
+// ptr[2] dsum (K, M) f32. Block (x, k): flat tile x of the table's leaves,
+// trial k.
+__global__ void __launch_bounds__(st::THREADS, st::MIN_BLOCKS)
+bank_scatter_batched_kernel(const __grid_constant__ LeafTable table,
                             const int64_t* __restrict__ ids,
-                            const uint8_t* __restrict__ valid,
-                            float* __restrict__ dsum, int c, int64_t m,
+                            const uint8_t* __restrict__ valid, int c,
                             int64_t r) {
   const int64_t k = blockIdx.y;
-  repro::scatter_rows<TB, VECTOR>(bank + k * r * m, u + k * c * m,
-                                  FlatRows{ids + k * c}, valid + k * c,
-                                  dsum + k * m, c, m);
+  st::scatter_tile(table, FlatRows{ids + k * c}, valid + k * c, c, r);
 }
 
 template <typename TB>
@@ -99,27 +102,6 @@ void launch(void* bank, const void* u, const void* ids, const void* valid,
   }
 }
 
-template <typename TB>
-void launch_batched(void* bank, const void* u, const void* ids,
-                    const void* valid, void* dsum, int k, int c, int64_t m,
-                    int64_t r, bool vector, cudaStream_t stream) {
-  const dim3 block(TX, TY);
-  const dim3 grid(unsigned((m + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK),
-                  unsigned(k));
-  auto* bb = static_cast<TB*>(bank);
-  auto* uu = static_cast<const float*>(u);
-  auto* ii = static_cast<const int64_t*>(ids);
-  auto* vv = static_cast<const uint8_t*>(valid);
-  auto* ds = static_cast<float*>(dsum);
-  if (vector) {
-    bank_scatter_batched_kernel<TB, true><<<grid, block, 0, stream>>>(
-        bb, uu, ii, vv, ds, c, m, r);
-  } else {
-    bank_scatter_batched_kernel<TB, false><<<grid, block, 0, stream>>>(
-        bb, uu, ii, vv, ds, c, m, r);
-  }
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. bank_bf16 selects the bank's
@@ -138,18 +120,20 @@ extern "C" int bank_scatter(void* bank, const void* u, const void* ids,
   return int(cudaGetLastError());
 }
 
-// The K-trial entry point: bank (K, R, M), u (K, C, M), ids and valid
-// (K, C), dsum (K, M); the other arguments as bank_scatter's.
-extern "C" int bank_scatter_batched(void* bank, const void* u, const void* ids,
-                                    const void* valid, void* dsum, int k,
-                                    int c, int64_t m, int64_t r,
-                                    int bank_bf16, int vector, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vector != 0;
-  if (bank_bf16)
-    launch_batched<__nv_bfloat16>(bank, u, ids, valid, dsum, k, c, m, r, vec,
-                                  s);
-  else
-    launch_batched<float>(bank, u, ids, valid, dsum, k, c, m, r, vec, s);
+// The K-trial scatter over every leaf of `table` (ptr[0] banks, ptr[1]
+// updates, ptr[2] dsum): ids and valid (k, c), shared by the leaves, and r
+// rows a trial in every leaf's banks. The table is copied into the
+// launch's parameters. Returns cudaGetLastError() after the launch.
+extern "C" int bank_scatter_batched(const LeafTable* table, const void* ids,
+                                    const void* valid, int k, int c,
+                                    int64_t r, void* stream) {
+  static const cudaError_t carveout =
+      st::max_shared_carveout(bank_scatter_batched_kernel);
+  if (carveout != cudaSuccess) return int(carveout);
+  const dim3 grid(unsigned(table->n_tiles), unsigned(k));
+  bank_scatter_batched_kernel<<<grid, dim3(TX, TY), 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      *table, static_cast<const int64_t*>(ids),
+      static_cast<const uint8_t*>(valid), c, r);
   return int(cudaGetLastError());
 }

@@ -22,12 +22,16 @@
 // bank_scatter.
 //
 // paged_scatter_batched_kernel replaces `_paged_kernel_batched` (pallas_call
-// in `_paged_bank_scatter_batched`): the paged scatter for K stacked page
-// pools (K, R, M) with per-trial page tables (K, P), lids and valid (K, C)
-// and dsum (K, M), in one launch. The grid is (column tiles, K): block
-// (x, k) runs the same `scatter_rows` body through a `PagedRows` functor
-// over row k of the page table, so trial k's pages and dsum are bit-equal
-// to `paged_scatter_kernel` on its slice. Bound by bytes, as the flat one.
+// in `_paged_bank_scatter_batched`): the paged scatter for K trials, every
+// leaf of a parameter tree in one launch (leaf_table.cuh,
+// scatter_tree.cuh). Leaf j has its page pools (K, R, M_j), updates
+// (K, C, M_j) and dsum (K, M_j); the per-trial page tables (K, P), lids and
+// valid (K, C) are shared by the leaves. The grid is (the table's tiles,
+// K): block (x, k) resolves trial k's valid rows once, through row k of the
+// page table, into shared memory, then walks them with several rows of
+// loads in flight a thread. The sums are `scatter_rows.cuh`'s, so trial
+// k's pages and dsum are bit-equal to `paged_scatter_kernel` on its slice,
+// and to the dense batched kernel's. Bound by bytes, as the flat one.
 //
 // paged_gather_kernel replaces `_paged_gather_kernel` (pallas_call in
 // `_paged_bank_gather`): out[a] = f32(pages[phys(lids[a])]) for all C
@@ -47,6 +51,7 @@
 // and out with torch.empty.
 #include "leaf_table.cuh"
 #include "scatter_rows.cuh"
+#include "scatter_tree.cuh"
 
 namespace {
 
@@ -57,6 +62,7 @@ using repro::PagedRows;
 using repro::TX;
 using repro::TY;
 using repro::VEC;
+namespace st = repro::scatter_tree;
 
 template <typename TB, bool VECTOR>
 __global__ void __launch_bounds__(TX * TY)
@@ -69,20 +75,18 @@ paged_scatter_kernel(TB* __restrict__ pages, const float* __restrict__ u,
                                   dsum, c, m);
 }
 
-// Trial k = blockIdx.y of K stacked pools of r rows and tables of p pages.
-template <typename TB, bool VECTOR>
-__global__ void __launch_bounds__(TX * TY)
-paged_scatter_batched_kernel(TB* __restrict__ pages,
-                             const float* __restrict__ u,
+// Leaf pointers: ptr[0] pages (K, r, M), ptr[1] updates (K, c, M) f32,
+// ptr[2] dsum (K, M) f32. Block (x, k): flat tile x of the table's leaves,
+// trial k, through row k of the (K, p) page table.
+__global__ void __launch_bounds__(st::THREADS, st::MIN_BLOCKS)
+paged_scatter_batched_kernel(const __grid_constant__ LeafTable table,
                              const int32_t* __restrict__ pt,
                              const int32_t* __restrict__ lids,
-                             const uint8_t* __restrict__ valid,
-                             float* __restrict__ dsum, int c, int64_t m,
-                             int ps, int64_t r, int p) {
+                             const uint8_t* __restrict__ valid, int c,
+                             int64_t r, int p, int ps) {
   const int64_t k = blockIdx.y;
-  repro::scatter_rows<TB, VECTOR>(pages + k * r * m, u + k * c * m,
-                                  PagedRows{pt + k * p, lids + k * c, ps},
-                                  valid + k * c, dsum + k * m, c, m);
+  st::scatter_tile(table, PagedRows{pt + k * p, lids + k * c, ps},
+                   valid + k * c, c, r);
 }
 
 constexpr int UNROLL = 8;                   // rows a thread has in flight
@@ -196,28 +200,6 @@ void launch_scatter(void* pages, const void* u, const void* pt,
   }
 }
 
-template <typename TB>
-void launch_scatter_batched(void* pages, const void* u, const void* pt,
-                            const void* lids, const void* valid, void* dsum,
-                            int k, int c, int64_t m, int ps, int64_t r, int p,
-                            bool vector, cudaStream_t stream) {
-  auto* pp = static_cast<TB*>(pages);
-  auto* uu = static_cast<const float*>(u);
-  auto* tt = static_cast<const int32_t*>(pt);
-  auto* ll = static_cast<const int32_t*>(lids);
-  auto* vv = static_cast<const uint8_t*>(valid);
-  auto* ds = static_cast<float*>(dsum);
-  const dim3 grid(tiles(m).x, unsigned(k));
-  if (vector) {
-    paged_scatter_batched_kernel<TB, true><<<grid, dim3(TX, TY), 0, stream>>>(
-        pp, uu, tt, ll, vv, ds, c, m, ps, r, p);
-  } else {
-    paged_scatter_batched_kernel<TB, false>
-        <<<grid, dim3(TX, TY), 0, stream>>>(pp, uu, tt, ll, vv, ds, c, m, ps,
-                                            r, p);
-  }
-}
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. pages_bf16 selects the pages'
@@ -238,22 +220,25 @@ extern "C" int paged_bank_scatter(void* pages, const void* u, const void* pt,
   return int(cudaGetLastError());
 }
 
-// The K-trial scatter: pages (K, R, M), u (K, C, M), pt (K, P), lids and
-// valid (K, C), dsum (K, M); the other arguments as paged_bank_scatter's.
-extern "C" int paged_bank_scatter_batched(void* pages, const void* u,
+// The K-trial scatter over every leaf of `table` (ptr[0] pages, ptr[1]
+// updates, ptr[2] dsum): page tables pt (k, p), lids and valid (k, c),
+// shared by the leaves, and r rows a trial in every leaf's pool. The table
+// is copied into the launch's parameters. Returns cudaGetLastError() after
+// the launch.
+extern "C" int paged_bank_scatter_batched(const LeafTable* table,
                                           const void* pt, const void* lids,
-                                          const void* valid, void* dsum,
-                                          int k, int c, int64_t m, int ps,
-                                          int64_t r, int p, int pages_bf16,
-                                          int vector, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vector != 0;
-  if (pages_bf16)
-    launch_scatter_batched<__nv_bfloat16>(pages, u, pt, lids, valid, dsum, k,
-                                          c, m, ps, r, p, vec, s);
-  else
-    launch_scatter_batched<float>(pages, u, pt, lids, valid, dsum, k, c, m,
-                                  ps, r, p, vec, s);
+                                          const void* valid, int k, int c,
+                                          int64_t r, int p, int ps,
+                                          void* stream) {
+  static const cudaError_t carveout =
+      st::max_shared_carveout(paged_scatter_batched_kernel);
+  if (carveout != cudaSuccess) return int(carveout);
+  const dim3 grid(unsigned(table->n_tiles), unsigned(k));
+  paged_scatter_batched_kernel<<<grid, dim3(TX, TY), 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      *table, static_cast<const int32_t*>(pt),
+      static_cast<const int32_t*>(lids), static_cast<const uint8_t*>(valid),
+      c, r, p, ps);
   return int(cudaGetLastError());
 }
 

@@ -10,8 +10,8 @@
   and the row gather, through a paged bank's page table
   (`kernels.paged_bank`); the gather takes all leaves in one launch.
 * `fleet_bank_update_tree` / `fleet_paged_bank_update_tree` — the scatters
-  for K stacked trials, each leaf flattened to (K, R, M) and (K, C, M) and
-  sent through one batched launch.
+  for K stacked trials, each leaf flattened to (K, R, M) and (K, C, M),
+  all leaves and trials in one launch.
 
 Unlike the reference wrappers these pad nothing: the CUDA kernels mask the
 ragged column edge themselves, so no leaf (and no bank) is copied. Flattening
@@ -26,12 +26,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.bank_scatter import (bank_scatter,
-                                              bank_scatter_batched)
+                                              bank_scatter_batched_leaves)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mifa_aggregate import mifa_aggregate_leaves
-from repro_torch.kernels.paged_bank import (paged_bank_gather_leaves,
-                                            paged_bank_scatter,
-                                            paged_bank_scatter_batched)
+from repro_torch.kernels.paged_bank import (
+    paged_bank_gather_leaves, paged_bank_scatter,
+    paged_bank_scatter_batched_leaves)
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.tree import tree_map, tree_unzip2
 
@@ -130,15 +130,15 @@ def fleet_bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,
     rows_tree: leaves (K, R, *shape); upd_tree: leaves (K, C, *shape) f32;
     ids (K, C) int64; valid (K, C) bool. Returns (new_rows_tree,
     delta_sum_tree with leaves (K, *shape) f32), per trial what
-    `bank_update_tree` returns; on the card the rows are updated in place.
+    `bank_update_tree` returns; on the card one launch covers every leaf
+    (up to 64) and all K trials, and the rows are updated in place.
     """
-    def one(rows, u):
-        k, r, c = rows.shape[0], rows.shape[1], u.shape[1]
-        rn, ds = bank_scatter_batched(rows.reshape(k, r, -1),
-                                      u.reshape(k, c, -1), ids, valid)
-        return rn.reshape(rows.shape), ds.reshape((k,) + rows.shape[2:])
-
-    return tree_unzip2(tree_map(one, rows_tree, upd_tree))
+    leaves = _leaves_in_map_order(rows_tree, upd_tree)
+    rows, dsums = bank_scatter_batched_leaves(
+        [b.reshape(b.shape[0], b.shape[1], -1) for b, _ in leaves],
+        [u.reshape(u.shape[0], u.shape[1], -1) for _, u in leaves], ids,
+        valid)
+    return _fleet_rebuild(rows_tree, leaves, rows, dsums)
 
 
 def fleet_paged_bank_update_tree(pages_tree, upd_tree,
@@ -148,15 +148,23 @@ def fleet_paged_bank_update_tree(pages_tree, upd_tree,
     trials: pages leaves (K, R, *shape); upd leaves (K, C, *shape) f32;
     page_table (K, P) int32; lids (K, C) int32 sanitized logical rows;
     valid (K, C) bool. Returns (new_pages_tree, delta_sum_tree with leaves
-    (K, *shape) f32); on the card the pages are updated in place."""
-    def one(pages, u):
-        k, r, c = pages.shape[0], pages.shape[1], u.shape[1]
-        pn, ds = paged_bank_scatter_batched(
-            pages.reshape(k, r, -1), u.reshape(k, c, -1), page_table, lids,
-            valid, page_size=page_size)
-        return pn.reshape(pages.shape), ds.reshape((k,) + pages.shape[2:])
+    (K, *shape) f32); on the card one launch covers every leaf (up to 64)
+    and all K trials, and the pages are updated in place."""
+    leaves = _leaves_in_map_order(pages_tree, upd_tree)
+    pages, dsums = paged_bank_scatter_batched_leaves(
+        [p.reshape(p.shape[0], p.shape[1], -1) for p, _ in leaves],
+        [u.reshape(u.shape[0], u.shape[1], -1) for _, u in leaves],
+        page_table, lids, valid, page_size=page_size)
+    return _fleet_rebuild(pages_tree, leaves, pages, dsums)
 
-    return tree_unzip2(tree_map(one, pages_tree, upd_tree))
+
+def _fleet_rebuild(tree, leaves, stored, dsums):
+    """The fleet scatters' outputs as trees of `tree`'s structure: each
+    leaf's stored rows in its own shape, its delta sum (K, *shape)."""
+    return (_rebuild(tree, [s.reshape(b.shape)
+                            for s, (b, _) in zip(stored, leaves)]),
+            _rebuild(tree, [d.reshape(b.shape[:1] + b.shape[2:])
+                            for d, (b, _) in zip(dsums, leaves)]))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

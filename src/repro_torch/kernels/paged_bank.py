@@ -9,7 +9,9 @@ table, each the CUDA kernel's wrapper beside its plain version.
                          `paged_bank_gather_leaves` for every leaf of a
                          tree in one launch
     paged_bank_scatter_batched: the scatter for trial k = 0..K-1 through
-                         row k of a (K, P) page table, in one launch
+                         row k of a (K, P) page table, in one launch, and
+                         `paged_bank_scatter_batched_leaves` for every leaf
+                         of a tree in one launch
 
 The wrappers decide by the tensors' device: CUDA tensors launch the
 hand-written kernels of `csrc/paged_bank.cu` (which replace the TPU kernels
@@ -29,7 +31,9 @@ import torch
 
 from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
                                          entry_point, launch, vector_ok)
-from repro_torch.kernels.bank_scatter import bank_scatter_ref
+from repro_torch.kernels.bank_scatter import (bank_scatter_ref,
+                                              check_fleet_leaves,
+                                              launch_fleet_scatter)
 from repro_torch.kernels.leaf_table import A_BF16, VECTOR, pack
 
 # slots a gather block resolves and copies (csrc/paged_bank.cu GATHER_ROWS);
@@ -187,6 +191,51 @@ def paged_bank_gather(pages: torch.Tensor, page_table: torch.Tensor,
                                     page_size=page_size)[0]
 
 
+def paged_bank_scatter_batched_leaves(pages, updates,
+                                      page_table: torch.Tensor,
+                                      lids: torch.Tensor, valid: torch.Tensor,
+                                      *, page_size: int):
+    """The K-trial paged scatter over the leaves of a tree: pages[j]
+    (K, R, M_j) f32|bf16 (leaves may mix the two; R = (slots+1)·page_size,
+    the same for all), updates[j] (K, C, M_j) f32, one page_table (K, P)
+    int32 (a table per trial) and one lids (K, C) int32 and valid (K, C)
+    bool for all, per trial as `paged_bank_scatter` takes them.
+
+    Returns (new_pages, dsums), lists in leaf order, dsums[j] (K, M_j) f32.
+    CPU tensors take the plain version leaf by leaf. CUDA tensors launch
+    the kernel once per table of up to `leaf_table.MAX_LEAVES` leaves for
+    all K trials, which writes the valid rows of each pool in place
+    (new_pages[j] is pages[j]); the dsums are views of one f32 buffer.
+    """
+    if page_size <= 0 or page_size & (page_size - 1):
+        raise ValueError(f"page_size must be a power of two, got {page_size}")
+    k, r, c = check_fleet_leaves(
+        pages, updates, "pages", {"lids": (lids, (torch.int32,)),
+                                  "valid": (valid, (torch.bool,))})
+    if r % page_size:
+        raise ValueError(f"pages (K, R, M) with R a multiple of page_size="
+                         f"{page_size} expected, got R={r}")
+    if page_table.ndim != 2:
+        raise ValueError(f"page_table (K, P) expected, got "
+                         f"{tuple(page_table.shape)}")
+    check_tensors(lids.device, {"page_table": (
+        page_table, (torch.int32,), (k, page_table.shape[1]))})
+    dev = lids.device
+    if dev.type == "cpu":
+        outs = [paged_bank_scatter_batched_ref(p, u, page_table, lids, valid,
+                                               page_size=page_size)
+                for p, u in zip(pages, updates)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+    fn = entry_point("paged_bank", "paged_bank_scatter_batched",
+                     [ctypes.c_void_p] * 4
+                     + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_int], dev)
+    return list(pages), launch_fleet_scatter(
+        fn, paged_bank_scatter_batched, pages, updates, k,
+        page_table.data_ptr(), lids.data_ptr(), valid.data_ptr(), k, c, r,
+        page_table.shape[1], page_size)
+
+
 def paged_bank_scatter_batched(pages: torch.Tensor, updates: torch.Tensor,
                                page_table: torch.Tensor, lids: torch.Tensor,
                                valid: torch.Tensor, *, page_size: int):
@@ -194,46 +243,14 @@ def paged_bank_scatter_batched(pages: torch.Tensor, updates: torch.Tensor,
     int32 (the fleet keeps identical per-trial copies); lids (K, C) int32
     and valid (K, C) bool, per trial as `paged_bank_scatter` takes them.
 
-    Returns (new_pages, dsum (K, M) f32). CPU tensors take the plain
-    version; CUDA tensors launch the kernel once for all K trials, which
-    writes the valid rows of `pages` in place (new_pages is pages).
+    Returns (new_pages, dsum (K, M) f32):
+    `paged_bank_scatter_batched_leaves` on one leaf. CPU tensors take the
+    plain version; CUDA tensors launch the kernel once for all K trials,
+    which writes the valid rows of `pages` in place (new_pages is pages).
     """
-    if pages.ndim != 3 or updates.ndim != 3 or page_table.ndim != 2:
-        raise ValueError(f"pages (K, R, M), updates (K, C, M) and "
-                         f"page_table (K, P) expected, got "
-                         f"{tuple(pages.shape)}, {tuple(updates.shape)}, "
-                         f"{tuple(page_table.shape)}")
-    (k, r, m), c = pages.shape, updates.shape[1]
-    if page_size <= 0 or page_size & (page_size - 1):
-        raise ValueError(f"page_size must be a power of two, got {page_size}")
-    if 0 in (k, r, m, c) or r % page_size:
-        raise ValueError(f"pages (K, R, M) with R a multiple of page_size="
-                         f"{page_size} and a cohort of C > 0 expected, got "
-                         f"{(k, r, m)}, C={c}")
-    check_tensors(pages.device, {
-        "pages": (pages, FLOAT_STORES, (k, r, m)),
-        "updates": (updates, (torch.float32,), (k, c, m)),
-        "page_table": (page_table, (torch.int32,),
-                       (k, page_table.shape[1])),
-        "lids": (lids, (torch.int32,), (k, c)),
-        "valid": (valid, (torch.bool,), (k, c))})
-    if pages.device.type == "cpu":
-        return paged_bank_scatter_batched_ref(pages, updates, page_table,
-                                              lids, valid,
-                                              page_size=page_size)
-    fn = entry_point("paged_bank", "paged_bank_scatter_batched",
-                     [ctypes.c_void_p] * 6
-                     + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                        ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int], pages.device)
-    dsum = torch.empty((k, m), dtype=torch.float32, device=pages.device)
-    launch(fn, pages.device, pages.data_ptr(), updates.data_ptr(),
-           page_table.data_ptr(), lids.data_ptr(), valid.data_ptr(),
-           dsum.data_ptr(), k, c, m, page_size, r, page_table.shape[1],
-           int(pages.dtype == torch.bfloat16),
-           int(vector_ok(m, pages, updates)))
-    paged_bank_scatter_batched.launches += 1
-    return pages, dsum
+    new, dsums = paged_bank_scatter_batched_leaves(
+        [pages], [updates], page_table, lids, valid, page_size=page_size)
+    return new[0], dsums[0]
 
 
 paged_bank_scatter.launches = 0

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels.bank_scatter import (bank_scatter,
                                               bank_scatter_batched,
+                                              bank_scatter_batched_leaves,
                                               bank_scatter_batched_ref,
                                               bank_scatter_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -29,6 +30,7 @@ from repro_torch.kernels.paged_bank import (paged_bank_gather,
                                             paged_bank_gather_ref,
                                             paged_bank_scatter,
                                             paged_bank_scatter_batched,
+                                            paged_bank_scatter_batched_leaves,
                                             paged_bank_scatter_batched_ref,
                                             paged_bank_scatter_ref)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
@@ -234,14 +236,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                     "paged_bank_gather",
                                     "bank_scatter_batched",
                                     "paged_bank_scatter_batched",
+                                    "bank_scatter_batched_leaves",
+                                    "paged_bank_scatter_batched_leaves",
                                     "flash_attention", "ssd_scan"])
 def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
     """A tensor on another device neither takes the plain version nor
-    reaches the kernel library: the wrapper raises before any build."""
+    reaches the kernel library: the wrapper raises before any build. A
+    `_leaves` entry names the kernel it launches."""
     meta = lambda x: torch.from_numpy(x).to("meta")  # noqa: E731
     g, u, act, w = map(meta, _mifa_inputs(4, 8, True, 0))
     bank, upd, ids, valid = map(meta, _bank_inputs(4, 8, 3, 2, 0))
     pt, lids = torch.zeros(2, dtype=torch.int32), ids.int()
+    # a second leaf of width 5 for the tree entries
+    bank5, upd5 = (torch.empty((1, n, 5), device="meta") for n in (4, 3))
     call = {"mifa_aggregate": lambda: mifa_aggregate(g, u, act, w, 0.1),
             "bank_scatter": lambda: bank_scatter(bank, upd, ids, valid),
             "paged_bank_scatter": lambda: paged_bank_scatter(
@@ -253,12 +260,21 @@ def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
             "paged_bank_scatter_batched": lambda: paged_bank_scatter_batched(
                 bank[None], upd[None], pt.to("meta")[None], lids[None],
                 valid[None], page_size=2),
+            "bank_scatter_batched_leaves": lambda: bank_scatter_batched_leaves(
+                [bank[None], bank5], [upd[None], upd5], ids[None],
+                valid[None]),
+            "paged_bank_scatter_batched_leaves":
+                lambda: paged_bank_scatter_batched_leaves(
+                    [bank[None], bank5], [upd[None], upd5],
+                    pt.to("meta")[None], lids[None], valid[None],
+                    page_size=2),
             "flash_attention": lambda: flash_attention(
                 *map(meta, _attention_inputs(1, 8, 4, 2, 16, "float32", 0))),
             "ssd_scan": lambda: ssd_scan(
                 *map(meta, _ssd_inputs(1, 16, 2, 8, 8, "float32", 0)),
                 chunk=8)}[kernel]
-    with pytest.raises(ValueError, match=f"no {kernel} kernel for device"):
+    with pytest.raises(ValueError, match=f"no {kernel.removesuffix('_leaves')}"
+                                         " kernel for device"):
         call()
 
 

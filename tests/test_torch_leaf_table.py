@@ -1,21 +1,26 @@
-"""The leaf table and the two kernels that launch once per tree on it:
-`mifa_aggregate_leaves` (through `ops.mifa_aggregate_tree`) and
-`paged_bank_gather_leaves` (through `ops.paged_bank_gather_tree`).
+"""The leaf table and the kernels that launch once per tree on it:
+`mifa_aggregate_leaves` (through `ops.mifa_aggregate_tree`),
+`paged_bank_gather_leaves` (through `ops.paged_bank_gather_tree`) and the
+fleet scatters `bank_scatter_batched_leaves` and
+`paged_bank_scatter_batched_leaves` (through `ops.fleet_bank_update_tree`
+and `ops.fleet_paged_bank_update_tree`).
 
 On the CPU: the table's packing covers every column of every leaf exactly
 once, through the kernel's own leaf search; the tree wrappers (plain
 versions, leaf by leaf) against the JAX package's Pallas kernels in
-interpret mode, with mixed f32/bf16 leaves and a shuffled page table.
-Copied values (G, gathered rows) must match exactly; w within rtol 1e-5,
-atol 1e-6 where it is f32 (the two packages sum in another order) and
-within 1e-2 where it is bf16 (one bf16 rounding apart), as
-`tests/test_torch_kernels.py` holds them.
+interpret mode, with mixed f32/bf16 leaves, ragged widths and shuffled
+page tables. Copied values (G, gathered rows, bank rows, pages) must match
+exactly; w within rtol 1e-5, atol 1e-6 where it is f32 (the two packages
+sum in another order) and within 1e-2 where it is bf16 (one bf16 rounding
+apart), as `tests/test_torch_kernels.py` holds them; delta sums within atol
+1e-6, as `tests/test_torch_fleet.py` holds them.
 
 The `cuda` tests hold the one-launch-per-tree kernels against the per-leaf
 plain versions on the card, at the edges of the table: paper_mlp's six
 widths, mixed dtypes, ragged widths, one leaf, nothing active, more leaves
-than one table holds, non-resident pages, and a repeated call. They skip
-without a card:
+than one table holds, non-resident pages, and a repeated call; the fleet
+scatters also per trial and leaf against the single-trial kernels. They
+skip without a card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_leaf_table.py
 """
@@ -24,14 +29,21 @@ import pytest
 import torch
 
 from repro_torch.kernels import leaf_table
+from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                              bank_scatter_batched,
+                                              bank_scatter_batched_leaves,
+                                              bank_scatter_batched_ref)
 from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
                                                 mifa_aggregate_leaves,
                                                 mifa_aggregate_ref)
-from repro_torch.kernels.ops import (mifa_aggregate_tree,
+from repro_torch.kernels.ops import (fleet_bank_update_tree,
+                                     fleet_paged_bank_update_tree,
+                                     mifa_aggregate_tree,
                                      paged_bank_gather_tree)
-from repro_torch.kernels.paged_bank import (paged_bank_gather,
-                                            paged_bank_gather_leaves,
-                                            paged_bank_gather_ref)
+from repro_torch.kernels.paged_bank import (
+    paged_bank_gather, paged_bank_gather_leaves, paged_bank_gather_ref,
+    paged_bank_scatter, paged_bank_scatter_batched,
+    paged_bank_scatter_batched_leaves, paged_bank_scatter_batched_ref)
 
 torch.set_num_threads(1)
 
@@ -195,6 +207,150 @@ def test_leaf_wrappers_check_every_leaf():
                                  pt, lids, page_size=2)
 
 
+# five leaves of a fleet bank: (leaf shape, stored dtype); widths 153, 33,
+# 10, 128 and 15, so three take the scalar walk and two the 4-wide one
+FLEET_SPEC = {"a": ((17, 9), "bfloat16"), "b": ((33,), "float32"),
+              "c": ((10,), "bfloat16"), "d": ((8, 16), "float32"),
+              "e": ((5, 3), "float32")}
+K_TRIALS, COHORT = 3, 8
+
+
+def _fleet_cohorts(rng, rows: int, dummy: int):
+    """(K, C) slots and valid flags: trial k has 5 - 2k distinct valid
+    rows below `rows` in shuffled slots, the last trial only pads; pads sit
+    at `dummy`."""
+    ids = np.full((K_TRIALS, COHORT), dummy, np.int64)
+    valid = np.zeros((K_TRIALS, COHORT), bool)
+    for k, n_valid in enumerate((5, 3, 0)):
+        at = rng.permutation(COHORT)[:n_valid]
+        ids[k, at] = rng.permutation(rows)[:n_valid]
+        valid[k, at] = True
+    return ids, valid
+
+
+def _fleet_tree(rng, r):
+    """Stored rows (K, r, *shape) and updates (K, C, *shape) per leaf."""
+    rows = {k: rng.normal(size=(K_TRIALS, r) + s).astype(np.float32)
+            for k, (s, _) in FLEET_SPEC.items()}
+    upd = {k: rng.normal(size=(K_TRIALS, COHORT) + s).astype(np.float32)
+           for k, (s, _) in FLEET_SPEC.items()}
+    return rows, upd
+
+
+def _check_fleet_tree(rows_t, ds_t, rows_j, ds_j, before, valid):
+    """Port against reference leaf by leaf: rows bit-equal, dsum within atol
+    1e-6; a trial of pads only keeps its rows and a zero dsum."""
+    for k, (shape, dt) in FLEET_SPEC.items():
+        assert rows_t[k].dtype == TORCH_DT[dt]
+        assert rows_t[k].shape == before[k].shape
+        assert ds_t[k].dtype == torch.float32
+        assert ds_t[k].shape == (K_TRIALS,) + shape
+        np.testing.assert_array_equal(_f32(rows_t[k]), _f32(rows_j[k]))
+        np.testing.assert_allclose(_f32(ds_t[k]), _f32(ds_j[k]), rtol=0,
+                                   atol=1e-6)
+        assert not valid[-1].any()
+        assert torch.equal(rows_t[k][-1], before[k][-1])
+        assert not ds_t[k][-1].any()
+
+
+def test_fleet_bank_update_tree_mixed_matches_reference_tree():
+    import jax.numpy as jnp
+    from repro.kernels.ops import fleet_bank_update_tree as jax_tree
+    rng = np.random.default_rng(20)
+    r = 12                                   # N = 11 clients + the dummy
+    rows, upd = _fleet_tree(rng, r)
+    ids, valid = _fleet_cohorts(rng, r - 1, r - 1)
+    rows_j, ds_j = jax_tree(
+        {k: jnp.asarray(v, FLEET_SPEC[k][1]) for k, v in rows.items()},
+        {k: jnp.asarray(v) for k, v in upd.items()},
+        jnp.asarray(ids, jnp.int32), jnp.asarray(valid), interpret=True)
+    before = {k: torch.from_numpy(v).to(TORCH_DT[FLEET_SPEC[k][1]])
+              for k, v in rows.items()}
+    rows_t, ds_t = fleet_bank_update_tree(
+        {k: v.clone() for k, v in before.items()},
+        {k: torch.from_numpy(v) for k, v in upd.items()},
+        torch.from_numpy(ids), torch.from_numpy(valid))
+    _check_fleet_tree(rows_t, ds_t, rows_j, ds_j, before, valid)
+
+
+def test_fleet_paged_bank_update_tree_mixed_matches_reference_tree():
+    """Per-trial shuffled page tables: 3 of 6 logical pages resident in
+    each trial, in shuffled slots, the others at the dummy slot."""
+    import jax.numpy as jnp
+    from repro.kernels.ops import fleet_paged_bank_update_tree_pure as jax_tree
+    rng = np.random.default_rng(21)
+    n_slots, lp = 3, 6
+    rows, upd = _fleet_tree(rng, (n_slots + 1) * PS)
+    for v in rows.values():
+        v[:, n_slots * PS:] = 0.0                     # the dummy page
+    pt = np.full((K_TRIALS, lp + 1), n_slots, np.int32)
+    resident = []
+    for k in range(K_TRIALS):
+        res = rng.permutation(lp)[:n_slots]
+        pt[k, res] = rng.permutation(n_slots)
+        resident.append(res)
+    lids, valid = _fleet_cohorts(rng, n_slots * PS, lp * PS)
+    for k in range(K_TRIALS):        # valid rows of trial k's resident pages
+        at = lids[k, valid[k]]
+        lids[k, valid[k]] = resident[k][at // PS] * PS + at % PS
+    lids = lids.astype(np.int32)
+    rows_j, ds_j = jax_tree(
+        {k: jnp.asarray(v, FLEET_SPEC[k][1]) for k, v in rows.items()},
+        {k: jnp.asarray(v) for k, v in upd.items()}, jnp.asarray(pt),
+        jnp.asarray(lids), jnp.asarray(valid), page_size=PS, interpret=True)
+    before = {k: torch.from_numpy(v).to(TORCH_DT[FLEET_SPEC[k][1]])
+              for k, v in rows.items()}
+    rows_t, ds_t = fleet_paged_bank_update_tree(
+        {k: v.clone() for k, v in before.items()},
+        {k: torch.from_numpy(v) for k, v in upd.items()},
+        torch.from_numpy(pt), torch.from_numpy(lids),
+        torch.from_numpy(valid), page_size=PS)
+    _check_fleet_tree(rows_t, ds_t, rows_j, ds_j, before, valid)
+    for k in FLEET_SPEC:
+        assert not rows_t[k][:, n_slots * PS:].any()
+
+
+def test_fleet_scatter_leaf_wrappers_check_every_leaf():
+    k, r, c = 3, 8, 4
+    banks = [torch.zeros(k, r, 8), torch.zeros(k, r, 5)]
+    upds = [torch.zeros(k, c, 8), torch.zeros(k, c, 5)]
+    ids = torch.zeros(k, c, dtype=torch.int64)
+    valid = torch.zeros(k, c, dtype=torch.bool)
+    bad = {
+        "same number": (banks, upds[:1], ids, valid),
+        "at least one": ([], [], ids, valid),
+        "updates must be float32": (banks, [upds[0], upds[1].double()],
+                                    ids, valid),
+        "banks must be float32 or bfloat16": (
+            [banks[0], banks[1].half()], upds, ids, valid),
+        r"\(K, R, M\)": ([banks[0], banks[1][0]], upds, ids, valid),
+        "shape mismatch: banks": (                         # K of one leaf
+            [banks[0], torch.zeros(k - 1, r, 5)], upds, ids, valid),
+        "shape mismatch: updates": (                       # C of one leaf
+            banks, [upds[0], torch.zeros(k, c + 1, 5)], ids, valid),
+        "shape mismatch: ids": (banks, upds, ids[:, 1:], valid),   # C
+        "shape mismatch: valid": (banks, upds, ids, valid[1:]),    # K
+        "ids must be int64": (banks, upds, ids.int(), valid)}
+    for match, args in bad.items():
+        with pytest.raises((TypeError, ValueError), match=match):
+            bank_scatter_batched_leaves(*args)
+    pt, lids = torch.zeros(k, 5, dtype=torch.int32), ids.int()
+    for match, (pages, upd, table, lid, ps) in {
+            "power of two": (banks, upds, pt, lids, 3),
+            "multiple of page_size": (
+                [torch.zeros(k, 6, 8), torch.zeros(k, 6, 5)], upds, pt,
+                lids, 4),
+            "shape mismatch: pages": (                     # R of one leaf
+                [banks[0], torch.zeros(k, r + 2, 5)], upds, pt, lids, 2),
+            "shape mismatch: page_table": (banks, upds, pt[1:], lids, 2),
+            r"page_table \(K, P\)": (banks, upds, pt[0], lids, 2),
+            "lids must be int32": (banks, upds, pt, ids, 2),
+            "shape mismatch: lids": (banks, upds, pt, lids[:, 1:], 2)}.items():
+        with pytest.raises((TypeError, ValueError), match=match):
+            paged_bank_scatter_batched_leaves(pages, upd, table, lid, valid,
+                                              page_size=ps)
+
+
 # --------------------------------------------------------------------------- #
 # the one-launch kernels against the per-leaf plain versions (needs a card)
 # --------------------------------------------------------------------------- #
@@ -303,3 +459,119 @@ def test_paged_bank_gather_leaves_cuda_matches_plain(cuda_device, tree, c):
                                                     page_size=ps))
         assert not r[37:42].any()
         assert torch.equal(r2, r)
+
+
+FLEET_TREES = {
+    "paper_mlp": [(m, "float32") for m in PAPER_MLP_WIDTHS],
+    "mixed": [(128, "bfloat16"), (1000, "float32"), (4096, "bfloat16"),
+              (10, "float32"), (153, "bfloat16")],
+    "one leaf": [(32768, "float32")],
+    "split": [((j * 37) % 300 + 1, ("float32", "bfloat16")[j % 2])
+              for j in range(70)],
+}
+
+
+def _fleet_cuda_cohorts(rng, rows, dummy, c):
+    """(K=3, c) slots on the card: 37, 20 and 0 distinct valid rows below
+    `rows` in shuffled slots, pads at `dummy`."""
+    ids = np.full((3, c), dummy, np.int64)
+    valid = np.zeros((3, c), bool)
+    for k, n_valid in enumerate((37, 20, 0)):
+        at = rng.permutation(c)[:n_valid]
+        ids[k, at] = rng.permutation(rows)[:n_valid]
+        valid[k, at] = True
+    return ids, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", sorted(FLEET_TREES))
+@pytest.mark.parametrize("c", [64, 600])
+def test_bank_scatter_batched_leaves_cuda_matches_plain(cuda_device, tree,
+                                                        c):
+    """K=3 trials (the last only pads); c=600 takes two passes of the
+    block's 512 staged slots. Per leaf equal to the plain version, per
+    trial and leaf bit-equal to `bank_scatter`, a repeat bit-identical."""
+    rng = np.random.default_rng(c)
+    r = 101
+    ids, valid = (torch.from_numpy(x).to(cuda_device)
+                  for x in _fleet_cuda_cohorts(rng, r - 1, r - 1, c))
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    banks = [torch.randn((3, r, m), generator=gen, device="cuda").to(
+        TORCH_DT[dt]) for m, dt in FLEET_TREES[tree]]
+    us = [torch.randn((3, c, m), generator=gen, device="cuda")
+          for m, _ in FLEET_TREES[tree]]
+    before = bank_scatter_batched.launches
+    b_k, d_k = bank_scatter_batched_leaves([b.clone() for b in banks], us,
+                                           ids, valid)
+    b_2, d_2 = bank_scatter_batched_leaves([b.clone() for b in banks], us,
+                                           ids, valid)
+    torch.cuda.synchronize()
+    n_tables = -(-len(banks) // leaf_table.MAX_LEAVES)
+    assert bank_scatter_batched.launches == before + 2 * n_tables
+    for b, u, bk, dk, b2, d2 in zip(banks, us, b_k, d_k, b_2, d_2):
+        b_ref, d_ref = bank_scatter_batched_ref(b, u, ids, valid)
+        assert torch.equal(bk, b_ref)
+        for k in range(3):
+            b1, d1 = bank_scatter(b[k].clone(), u[k], ids[k], valid[k])
+            assert torch.equal(bk[k], b1) and torch.equal(dk[k], d1)
+            terms = u[k].to(b.dtype).float() - b[k][ids[k]].float()
+            scale = (terms.abs() * valid[k].reshape(-1, 1)).sum(0)
+            assert bool(((dk[k] - d_ref[k]).abs()
+                         <= 1e-6 + 1e-5 * scale).all())
+        assert torch.equal(b2, bk) and torch.equal(d2, dk)
+        assert not dk[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", sorted(FLEET_TREES))
+def test_paged_bank_scatter_batched_leaves_cuda_matches_plain(cuda_device,
+                                                              tree):
+    """Per-trial shuffled tables, 16 of 32 logical pages of 8 rows resident
+    in each; trials of 37, 20 and 0 valid rows. Per leaf equal to the plain
+    version, per trial and leaf bit-equal to `paged_bank_scatter`, the
+    dummy page untouched, a repeat bit-identical."""
+    rng = np.random.default_rng(len(FLEET_TREES[tree]))
+    ps, n_slots, lp, c = 8, 16, 32, 64
+    pt = np.full((3, lp + 1), n_slots, np.int32)
+    lids = np.full((3, c), lp * ps, np.int32)
+    valid = np.zeros((3, c), bool)
+    for k, n_valid in enumerate((37, 20, 0)):
+        res = rng.choice(lp, n_slots, replace=False)
+        pt[k, res] = rng.permutation(n_slots)
+        res_rows = (res[:, None] * ps + np.arange(ps)).ravel()
+        at = rng.permutation(c)[:n_valid]
+        lids[k, at] = rng.choice(res_rows, n_valid, replace=False)
+        valid[k, at] = True
+    pt, lids, valid = (torch.from_numpy(x).to(cuda_device)
+                       for x in (pt, lids, valid))
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    pages, us = [], []
+    for m, dt in FLEET_TREES[tree]:
+        p = torch.randn((3, (n_slots + 1) * ps, m), generator=gen,
+                        device="cuda").to(TORCH_DT[dt])
+        p[:, n_slots * ps:] = 0
+        pages.append(p)
+        us.append(torch.randn((3, c, m), generator=gen, device="cuda"))
+    before = paged_bank_scatter_batched.launches
+    p_k, d_k = paged_bank_scatter_batched_leaves(
+        [p.clone() for p in pages], us, pt, lids, valid, page_size=ps)
+    p_2, d_2 = paged_bank_scatter_batched_leaves(
+        [p.clone() for p in pages], us, pt, lids, valid, page_size=ps)
+    torch.cuda.synchronize()
+    n_tables = -(-len(pages) // leaf_table.MAX_LEAVES)
+    assert paged_bank_scatter_batched.launches == before + 2 * n_tables
+    for p, u, pk, dk, p2, d2 in zip(pages, us, p_k, d_k, p_2, d_2):
+        p_ref, d_ref = paged_bank_scatter_batched_ref(p, u, pt, lids, valid,
+                                                      page_size=ps)
+        assert torch.equal(pk, p_ref)
+        assert not pk[:, n_slots * ps:].any()
+        for k in range(3):
+            p1, d1 = paged_bank_scatter(p[k].clone(), u[k], pt[k], lids[k],
+                                        valid[k], page_size=ps)
+            assert torch.equal(pk[k], p1) and torch.equal(dk[k], d1)
+            old = paged_bank_gather_ref(p[k], pt[k], lids[k], page_size=ps)
+            terms = (u[k].to(p.dtype).float() - old).abs()
+            scale = (terms * valid[k].reshape(-1, 1)).sum(0)
+            assert bool(((dk[k] - d_ref[k]).abs()
+                         <= 1e-6 + 1e-5 * scale).all())
+        assert torch.equal(p2, pk) and torch.equal(d2, dk)
