@@ -12,12 +12,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      the main path's leaf shapes and at edge cases (ragged width, nothing
      active, only pad slots, bf16 storage, and for the paged kernels a
      shuffled page table with pages that are not resident); holds the
-     kernels that take a whole tree in one launch (`mifa_aggregate`,
-     `paged_bank_gather`, and the fleet scatters of step 9, on a leaf
-     table) against the per-leaf plain versions on trees of paper_mlp's
-     six leaves, mixed f32/bf16 leaves, ragged widths, one leaf, nothing
-     active and more leaves than one table holds (two launches), a
-     repeated call bit-identical; and times
+     kernels, each of which takes a whole tree in one launch on a leaf
+     table (`mifa_aggregate`, `paged_bank_gather`, `bank_scatter`,
+     `paged_bank_scatter` and the fleet scatters of step 9), against the
+     per-leaf plain versions on trees of paper_mlp's six leaves, mixed
+     f32/bf16 leaves, ragged widths, one leaf, nothing active and more
+     leaves than one table holds (two launches), a repeated call
+     bit-identical, and the four scatters' delta sums bit-equal to the
+     fixed-order oracle (`bank_scatter_ordered_ref`); and times
      kernel and plain version per round of the main path beside the least
      time the card could take for the same bytes and operations (and,
      for the paged gather, one `torch.index_select` per leaf);
@@ -28,13 +30,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `MIFA(memory="array")` and with `BankedMIFA(DenseBank())`, from the
      same initial params and participation seed, and checks the losses,
      the anchor property (both algorithms give the same trajectory) and
-     that each path launched its kernel once per round (`mifa_aggregate`,
-     one launch for the tree) or once per leaf per round
-     (`bank_scatter`);
+     that each path launched its kernel once per round, one launch for the
+     tree (50 `mifa_aggregate`, 50 `bank_scatter`);
   5. runs the same 50 rounds through
      `BankedMIFA(PagedDeviceBank(page_size=8))`, after a second dense run
      that shows whether the card repeats a run bit for bit, and holds the
-     paged run bit-equal to the dense one (300 `paged_bank_scatter`
+     paged run bit-equal to the dense one (50 `paged_bank_scatter`
      launches, no other kernel);
   6. drives eviction on the card: 40 cohorts of 64 (half hot) through a
      paged bank of 48 slots over 128 logical pages, against `DenseBank`:
@@ -48,11 +49,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
   8. runs 5 rounds of the three bank/array algorithms on the CPU (plain
      versions) and on the card (kernels) and holds them together;
   9. holds the batched (fleet) bank kernels against their plain versions
-     and, trial by trial, against the single-trial kernels (K=3 trials,
-     C=64, a different cohort per trial and one trial of pads only), one
-     leaf at a time and on the trees of step 3 (one launch per table of
-     leaves, a repeated call bit-identical), and times them per round of
-     the cohort fleet path, one launch a round;
+     and, trial by trial, against the single-trial kernels and the
+     fixed-order oracle (K=3 trials, C=64, a different cohort per trial
+     and one trial of pads only), one leaf at a time and on the trees of
+     step 3 (one launch per table of leaves, a repeated call
+     bit-identical), and times them per round of the cohort fleet path,
+     one launch a round;
  10. drives the paper's Figure 2 sweep as fleets
      (`benchmarks/fig2_convergence.py::run("paper_mlp", 0.1)`, seeds 0-2,
      participation seeds 100+s): MIFA(array), BiasedFedAvg,
@@ -320,9 +322,6 @@ def check_mifa(gen, active_path) -> tuple[float, list]:
     return max_err, rows
 
 
-# the kernels that take a whole tree in one launch (a leaf table)
-TREE_KERNELS = ("mifa_aggregate", "paged_bank_gather", "bank_scatter_batched",
-                "paged_bank_scatter_batched")
 # the tree cases of the leaf-table kernels: name -> [(M, stored dtype, w
 # dtype)]; "split" has more leaves than one table holds (64), so it takes
 # two launches
@@ -466,7 +465,12 @@ def cohort(active_path) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def check_bank(gen, active_path) -> tuple[float, list]:
-    from repro_torch.kernels.bank_scatter import bank_scatter, bank_scatter_ref
+    """`bank_scatter` on one leaf against its plain version on the card:
+    rows bit-equal, dsum within TOL and bit-equal to the fixed-order
+    oracle."""
+    from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                                  bank_scatter_ordered_ref,
+                                                  bank_scatter_ref)
     r = N_CLIENTS + 1
     path = cohort(active_path)
     ids, valid = path
@@ -491,6 +495,10 @@ def check_bank(gen, active_path) -> tuple[float, list]:
         torch.cuda.synchronize()
         check(torch.equal(b_k, b_ref), f"bank_scatter rows differ ({label}, "
                                        f"M={m})")
+        check(torch.equal(d_k, bank_scatter_ordered_ref(bank, u, ids,
+                                                        val)[1]),
+              f"bank_scatter dsum is not bit-equal to the fixed-order "
+              f"oracle ({label}, M={m})")
         rtol, atol = TOL[torch.float32]           # dsum is f32 for any bank
         err = (d_k - d_ref).abs()
         terms = u.to(bdt).float() - bank[ids].float()
@@ -501,14 +509,18 @@ def check_bank(gen, active_path) -> tuple[float, list]:
         max_err = max(max_err, err.max().item())
         rows.append(f"bank_scatter   {label:<14} R={r} C={len(ids)} "
                     f"valid={int(val.sum())} M={m:<6} bank {bdt}: rows "
-                    f"bit-equal, max |d dsum| {err.max().item():.3e}")
+                    f"bit-equal, max |d dsum| {err.max().item():.3e}, dsum "
+                    f"bit-equal to the oracle")
     return max_err, rows
 
 
 def time_bank(gen, active_path) -> dict:
-    """The cohort bank update on the main path: one launch per leaf of
-    paper_mlp, the runner's padded cohort for this run's active mask."""
-    from repro_torch.kernels.bank_scatter import bank_scatter, bank_scatter_ref
+    """The cohort bank update on the main path: paper_mlp's six leaves in
+    one launch a round (and one launch per leaf for the per-launch times),
+    the runner's padded cohort for this run's active mask."""
+    from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                                  bank_scatter_leaves,
+                                                  bank_scatter_ref)
     r = N_CLIENTS + 1
     ids, valid = cohort(active_path)
     c, n_valid = len(ids), int(valid.sum())
@@ -519,7 +531,8 @@ def time_bank(gen, active_path) -> dict:
     leaf_bytes = [3 * n_valid * m * 4 + m * 4 + c * 9 for m in PATH_WIDTHS]
     leaf_ops = [2 * n_valid * m for m in PATH_WIDTHS]
     return time_path(bank_scatter, bank_scatter_ref, sets, leaf_bytes,
-                     leaf_ops)
+                     leaf_ops, tree=lambda s: bank_scatter_leaves(
+                         [a[0] for a in s], [a[1] for a in s], ids, valid))
 
 
 def path_table() -> tuple[torch.Tensor, int]:
@@ -570,10 +583,9 @@ def pages_inputs(gen, n_slots, m, c, dtype):
 def check_paged(gen, active_path) -> tuple[float, float, list]:
     """Both paged kernels against their plain versions on the card: pages
     and gathered rows bit-equal, dsum within TOL."""
-    from repro_torch.kernels.paged_bank import (paged_bank_gather,
-                                                paged_bank_gather_ref,
-                                                paged_bank_scatter,
-                                                paged_bank_scatter_ref)
+    from repro_torch.kernels.paged_bank import (
+        paged_bank_gather, paged_bank_gather_ref, paged_bank_scatter,
+        paged_bank_scatter_ordered_ref, paged_bank_scatter_ref)
     rng = np.random.default_rng(5)
     pt, n_slots = path_table()
     path = (pt, n_slots, *path_lids(active_path))
@@ -604,6 +616,10 @@ def check_paged(gen, active_path) -> tuple[float, float, list]:
                                        f"{where}")
         check(not p_k[n_slots * ps:].any(), f"paged_bank_scatter wrote the "
                                             f"dummy page {where}")
+        check(torch.equal(d_k, paged_bank_scatter_ordered_ref(
+            pages, u, pt, lids, val, page_size=ps)[1]),
+              f"paged_bank_scatter dsum is not bit-equal to the fixed-order "
+              f"oracle {where}")
         check(torch.equal(r_k, r_ref), f"paged_bank_gather rows differ "
                                        f"{where}")
         rtol, atol = TOL[torch.float32]           # dsum is f32 for any pages
@@ -617,7 +633,7 @@ def check_paged(gen, active_path) -> tuple[float, float, list]:
         rows.append(f"paged_bank     {label:<15} slots={n_slots} "
                     f"C={len(lids)} valid={int(val.sum())} M={m:<6} pages "
                     f"{dt}: pages and gathered rows bit-equal, max |d dsum| "
-                    f"{err.max().item():.3e}")
+                    f"{err.max().item():.3e}, dsum bit-equal to the oracle")
     return s_err, g_err, rows
 
 
@@ -670,6 +686,103 @@ def check_gather_tree(gen, active_path) -> tuple[float, list]:
     return g_err, rows
 
 
+def check_tree_case(what, counted, stored, us, call, plain, ordered,
+                    old_rows, valid, dummy_row=None) -> tuple[float, int]:
+    """One tree of a single-trial scatter on the card: `call(stored, us)`
+    twice, on clones of the stored leaves. Per leaf the rows bit-equal to
+    `plain(s, u)`'s, dsum within TOL of it and bit-equal to
+    `ordered(s, u)`'s, nothing written from `dummy_row` on, a repeated
+    call bit-identical; one launch per table of leaves. Returns (max |d
+    dsum| against the plain version, launches a call)."""
+    before = counted.launches
+    s_k, d_k = call([x.clone() for x in stored], us)
+    s_2, d_2 = call([x.clone() for x in stored], us)
+    torch.cuda.synchronize()
+    launches = counted.launches - before
+    check(launches == 2 * n_tables(len(stored)),
+          f"{what}: {launches} launches for two calls on {len(stored)} "
+          f"leaves")
+    err = 0.0
+    for j, (x, u) in enumerate(zip(stored, us)):
+        where = f"{what}, leaf {j} (M={x.shape[1]}, {x.dtype})"
+        x_ref, d_ref = plain(x, u)
+        check(torch.equal(s_k[j], x_ref), f"{where}: rows differ")
+        check(torch.equal(d_k[j], ordered(x, u)[1]),
+              f"{where}: dsum is not bit-equal to the fixed-order oracle")
+        check(torch.equal(s_2[j], s_k[j]) and torch.equal(d_2[j], d_k[j]),
+              f"{where}: a repeated call differs")
+        if dummy_row is not None:
+            check(not s_k[j][dummy_row:].any(),
+                  f"{where}: wrote the dummy page")
+        terms = u.to(x.dtype).float() - old_rows(x)
+        err = max(err, check_dsum(d_k[j][None], d_ref[None], terms[None],
+                                  valid[None], where))
+    return err, launches // 2
+
+
+def check_scatter_trees(gen, active_path) -> tuple[float, float, list]:
+    """`bank_scatter_leaves` and `paged_bank_scatter_leaves` (one launch
+    per table of leaves) on the trees of TREE_CASES and on paper_mlp's tree
+    with nothing active (`check_tree_case`). The dense trees take the main
+    path's padded cohort, the paged ones the path's table for paper_mlp,
+    else shuffled tables with pages that are not resident."""
+    from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                                  bank_scatter_leaves,
+                                                  bank_scatter_ordered_ref,
+                                                  bank_scatter_ref)
+    from repro_torch.kernels.paged_bank import (
+        paged_bank_gather_ref, paged_bank_scatter, paged_bank_scatter_leaves,
+        paged_bank_scatter_ordered_ref, paged_bank_scatter_ref)
+    rng = np.random.default_rng(21)
+    r, ps = N_CLIENTS + 1, PAGE_SIZE
+    path = cohort(active_path)
+    pt, n_slots = path_table()
+    paged_path = (pt, n_slots, *path_lids(active_path))
+    cases = [(name, leaves, path, paged_path if name == "paper_mlp"
+              else shuffled_layout(rng, 37))
+             for name, leaves in TREE_CASES.items()]
+    cases.append(("nothing active", TREE_CASES["paper_mlp"],
+                  (path[0], torch.zeros_like(path[1])),
+                  shuffled_layout(rng, 0)))
+    b_err, p_err, rows = 0.0, 0.0, []
+    for name, leaves, (ids, val), (pt, slots, lids, pval) in cases:
+        banks = [bank_inputs(gen, r, m, len(ids), dt, ids, val)[:2]
+                 for m, dt, _ in leaves]
+        err, launches = check_tree_case(
+            f"bank_scatter tree {name}", bank_scatter, [b for b, _ in banks],
+            [u for _, u in banks],
+            lambda xs, us: bank_scatter_leaves(xs, us, ids, val),
+            lambda x, u: bank_scatter_ref(x, u, ids, val),
+            lambda x, u: bank_scatter_ordered_ref(x, u, ids, val),
+            lambda x: x[ids].float(), val)
+        b_err = max(b_err, err)
+        rows.append(f"bank_scatter tree {name:<14} {len(leaves)} leaves "
+                    f"(M {sum(m for m, _, _ in leaves)}), C={len(ids)}, "
+                    f"valid {int(val.sum())}: {launches} launch(es) a call, "
+                    f"rows bit-equal, dsum bit-equal to the oracle, repeat "
+                    f"bit-identical")
+        pools = [pages_inputs(gen, slots, m, len(lids), dt)
+                 for m, dt, _ in leaves]
+        err, launches = check_tree_case(
+            f"paged_bank_scatter tree {name}", paged_bank_scatter,
+            [x for x, _ in pools], [u for _, u in pools],
+            lambda xs, us: paged_bank_scatter_leaves(xs, us, pt, lids, pval,
+                                                     page_size=ps),
+            lambda x, u: paged_bank_scatter_ref(x, u, pt, lids, pval,
+                                                page_size=ps),
+            lambda x, u: paged_bank_scatter_ordered_ref(x, u, pt, lids, pval,
+                                                        page_size=ps),
+            lambda x: paged_bank_gather_ref(x, pt, lids, page_size=ps), pval,
+            dummy_row=slots * ps)
+        p_err = max(p_err, err)
+        rows.append(f"paged_bank_scatter tree {name:<14} {len(leaves)} "
+                    f"leaves (M {sum(m for m, _, _ in leaves)}), slots="
+                    f"{slots}, C={len(lids)}, valid {int(pval.sum())}: "
+                    f"{launches} launch(es) a call, pages bit-equal, dsum "
+                    f"bit-equal to the oracle, repeat bit-identical")
+    return b_err, p_err, rows
+
+
 def paged_sets(gen, active_path):
     """Per-leaf inputs of the paged paper path (pages of the N=100 bank,
     the path's page table and padded cohort), copied to cycle past L2."""
@@ -685,11 +798,15 @@ def paged_sets(gen, active_path):
 
 
 def time_paged_scatter(gen, active_path) -> dict:
-    """The paged bank's cohort update on the paper path: one launch per
-    leaf, the runner's padded cohort for this run's active mask."""
+    """The paged bank's cohort update on the paper path: paper_mlp's six
+    leaves in one launch a round (and one launch per leaf for the
+    per-launch times), the runner's padded cohort for this run's active
+    mask."""
     from repro_torch.kernels.paged_bank import (paged_bank_scatter,
+                                                paged_bank_scatter_leaves,
                                                 paged_bank_scatter_ref)
     sets, c, n_valid = paged_sets(gen, active_path)
+    pt, lids, valid = sets[0][0][2:]
     # rows (read old, read update, write new), dsum, lids, valid and the
     # page-table entry of each slot
     leaf_bytes = [3 * n_valid * m * 4 + m * 4 + c * 9 for m in PATH_WIDTHS]
@@ -697,7 +814,10 @@ def time_paged_scatter(gen, active_path) -> dict:
     return time_path(
         lambda *a: paged_bank_scatter(*a, page_size=PAGE_SIZE),
         lambda *a: paged_bank_scatter_ref(*a, page_size=PAGE_SIZE),
-        sets, leaf_bytes, leaf_ops)
+        sets, leaf_bytes, leaf_ops,
+        tree=lambda s: paged_bank_scatter_leaves(
+            [a[0] for a in s], [a[1] for a in s], pt, lids, valid,
+            page_size=PAGE_SIZE))
 
 
 def time_paged_gather(gen, active_path) -> dict:
@@ -782,14 +902,12 @@ def read_counts() -> dict:
 
 def check_run(name, params, hist, dts, counts, kernel) -> str:
     """A ROUNDS-round run of the paper path: its kernel launched once per
-    round (a leaf-table kernel) or once per leaf per round, and no other
-    kernel, finite losses and params, eval loss falling. Returns the run's
-    summary line."""
+    round (one launch for the tree) and no other kernel, finite losses and
+    params, eval loss falling. Returns the run's summary line."""
     from repro_torch.tree import tree_leaves
-    per_round = 1 if kernel in TREE_KERNELS else len(PATH_WIDTHS)
-    check(counts[kernel] == ROUNDS * per_round,
-          f"{name}: {kernel} launched {counts[kernel]} times, expected "
-          f"{ROUNDS} rounds x {per_round}")
+    check(counts[kernel] == ROUNDS,
+          f"{name}: {kernel} launched {counts[kernel]} times, expected one "
+          f"a round, {ROUNDS}")
     others = {k: v for k, v in counts.items() if k != kernel}
     check(not any(others.values()), f"{name}: other kernels ran {others}")
     losses = np.asarray(hist.train_loss)
@@ -920,7 +1038,7 @@ def eviction_phase(params0) -> tuple[dict, list]:
           f"{paged.faults}, evictions {paged.evictions}, re-faults "
           f"{paged.refaults}")
     paged.check_invariants(p_state)
-    check(counts["paged_bank_scatter"] == EVICT_ROUNDS * len(PATH_WIDTHS)
+    check(counts["paged_bank_scatter"] == EVICT_ROUNDS
           and counts["paged_bank_gather"] == 1,
           f"eviction phase launches {counts}")
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p_rows),
@@ -991,7 +1109,7 @@ def million_phase(params0, model) -> tuple[dict, list]:
     mem = bank.memory_bytes(state)
     check(mem["device_pages"] == MILLION_POOL_BYTES,
           f"device_pages {mem['device_pages']} != {MILLION_POOL_BYTES}")
-    check(in_rounds["paged_bank_scatter"] == MILLION_ROUNDS * len(PATH_WIDTHS)
+    check(in_rounds["paged_bank_scatter"] == MILLION_ROUNDS
           and not in_rounds["bank_scatter"]
           and not in_rounds["mifa_aggregate"]
           and not in_rounds["paged_bank_gather"],
@@ -1111,16 +1229,16 @@ def check_batched(gen, active_path) -> tuple[float, float, list]:
     width 1000 (ragged for the vector path), bf16 storage, and for the
     paged kernel per-trial shuffled page tables with pages that are not
     resident. Rows and pages bit-equal; dsum within TOL of the plain
-    version and bit-equal to the single-trial kernel. Then the same on the
-    trees of TREE_CASES, every leaf and trial in one launch per table of
-    leaves (`check_batched_trees`)."""
+    version and bit-equal to the single-trial kernel and to the fixed-order
+    oracle. Then the same on the trees of TREE_CASES, every leaf and trial
+    in one launch per table of leaves (`check_batched_trees`)."""
     from repro_torch.kernels.bank_scatter import (bank_scatter,
                                                   bank_scatter_batched,
-                                                  bank_scatter_batched_ref)
-    from repro_torch.kernels.paged_bank import (paged_bank_gather_ref,
-                                                paged_bank_scatter,
-                                                paged_bank_scatter_batched,
-                                                paged_bank_scatter_batched_ref)
+                                                  bank_scatter_batched_ref,
+                                                  bank_scatter_ordered_ref)
+    from repro_torch.kernels.paged_bank import (
+        paged_bank_gather_ref, paged_bank_scatter, paged_bank_scatter_batched,
+        paged_bank_scatter_batched_ref, paged_bank_scatter_ordered_ref)
     k_trials, r, ps = len(FLEET_SEEDS), N_CLIENTS + 1, PAGE_SIZE
     ids, valid = check_batch_cohorts(active_path)
     c = ids.shape[1]
@@ -1143,13 +1261,18 @@ def check_batched(gen, active_path) -> tuple[float, float, list]:
             check(torch.equal(b_k[k], b1) and torch.equal(d_k[k], d1),
                   f"bank_scatter_batched trial {k} is not bit-equal to "
                   f"bank_scatter {where}")
+            check(torch.equal(d_k[k], bank_scatter_ordered_ref(
+                banks[k], u[k], ids[k], valid[k])[1]),
+                  f"bank_scatter_batched trial {k}: dsum is not bit-equal "
+                  f"to the fixed-order oracle {where}")
         terms = u.to(dt).float() - torch.stack(
             [banks[k][ids[k]] for k in range(k_trials)]).float()
         b_err = max(b_err, check_dsum(d_k, d_ref, terms, valid,
                                       f"bank_scatter_batched {where}"))
         rows.append(f"bank_scatter_batched K={k_trials} R={r} C={c} valid="
                     f"{valid.sum(1).tolist()} M={m:<6} bank {dt}: rows "
-                    f"bit-equal, per trial bit-equal to bank_scatter")
+                    f"bit-equal, per trial bit-equal to bank_scatter and the "
+                    f"oracle")
     # the paged kernel: the path's table in every trial, then per-trial
     # shuffled tables (16 of 32 pages resident) with 37 / 20 / 0 valid rows
     rng = np.random.default_rng(9)
@@ -1190,6 +1313,10 @@ def check_batched(gen, active_path) -> tuple[float, float, list]:
             check(torch.equal(p_k[k], p1) and torch.equal(d_k[k], d1),
                   f"paged_bank_scatter_batched trial {k} is not bit-equal "
                   f"to paged_bank_scatter {where}")
+            check(torch.equal(d_k[k], paged_bank_scatter_ordered_ref(
+                pages[k], u[k], tabs[k], lid[k], val[k], page_size=ps)[1]),
+                  f"paged_bank_scatter_batched trial {k}: dsum is not "
+                  f"bit-equal to the fixed-order oracle {where}")
             old.append(paged_bank_gather_ref(pages[k], tabs[k], lid[k],
                                              page_size=ps))
         p_err = max(p_err, check_dsum(
@@ -1198,7 +1325,8 @@ def check_batched(gen, active_path) -> tuple[float, float, list]:
         rows.append(f"paged_bank_scatter_batched {label:<15} K={k_trials} "
                     f"slots={slots} C={lid.shape[1]} valid="
                     f"{val.sum(1).tolist()} M={m:<6} pages {dt}: pages "
-                    f"bit-equal, per trial bit-equal to paged_bank_scatter")
+                    f"bit-equal, per trial bit-equal to paged_bank_scatter "
+                    f"and the oracle")
     tb_err, tp_err, tree_rows = check_batched_trees(gen, (ids, valid), path,
                                                     shuf)
     return max(b_err, tb_err), max(p_err, tp_err), rows + tree_rows
@@ -1211,16 +1339,19 @@ def check_batched_trees(gen, cohorts, path, shuf) -> tuple[float, float,
     TREE_CASES: per leaf equal to the plain version (rows and pages
     bit-equal, dsum within TOL), per trial and leaf bit-equal to
     `bank_scatter` / `paged_bank_scatter` in rows and dsum, the launches one
-    per table, a repeated call bit-identical. The dense trees take the
-    three cohorts of `check_batch_cohorts`; the paged ones the path's
-    table for paper_mlp, else per-trial shuffled tables (`shuf`)."""
+    per table, a repeated call bit-identical, per trial and leaf dsum
+    bit-equal to the fixed-order oracle. The dense trees take the three
+    cohorts of `check_batch_cohorts`; the paged ones the path's table for
+    paper_mlp, else per-trial shuffled tables (`shuf`)."""
     from repro_torch.kernels.bank_scatter import (bank_scatter,
                                                   bank_scatter_batched,
                                                   bank_scatter_batched_leaves,
-                                                  bank_scatter_batched_ref)
+                                                  bank_scatter_batched_ref,
+                                                  bank_scatter_ordered_ref)
     from repro_torch.kernels.paged_bank import (
         paged_bank_gather_ref, paged_bank_scatter, paged_bank_scatter_batched,
-        paged_bank_scatter_batched_leaves, paged_bank_scatter_batched_ref)
+        paged_bank_scatter_batched_leaves, paged_bank_scatter_batched_ref,
+        paged_bank_scatter_ordered_ref)
     k_trials, r, ps = len(FLEET_SEEDS), N_CLIENTS + 1, PAGE_SIZE
     ids, valid = cohorts
     b_err, p_err, rows = 0.0, 0.0, []
@@ -1251,6 +1382,10 @@ def check_batched_trees(gen, cohorts, path, shuf) -> tuple[float, float,
                                                                  d1),
                       f"bank_scatter_batched {where}: trial {k} is not "
                       f"bit-equal to bank_scatter")
+                check(torch.equal(d_k[j][k], bank_scatter_ordered_ref(
+                    b[k], u[k], ids[k], valid[k])[1]),
+                      f"bank_scatter_batched {where}: trial {k}'s dsum is "
+                      f"not bit-equal to the fixed-order oracle")
             check(torch.equal(b_2[j], b_k[j]) and torch.equal(d_2[j],
                                                               d_k[j]),
                   f"bank_scatter_batched {where}: a repeated call differs")
@@ -1262,8 +1397,8 @@ def check_batched_trees(gen, cohorts, path, shuf) -> tuple[float, float,
                     f"leaves (M {sum(m for m, _, _ in leaves)}), K="
                     f"{k_trials}, valid {valid.sum(1).tolist()}: "
                     f"{launches // 2} launch(es) a call, rows bit-equal, "
-                    f"per trial and leaf bit-equal to bank_scatter, repeat "
-                    f"bit-identical")
+                    f"per trial and leaf bit-equal to bank_scatter and the "
+                    f"oracle, repeat bit-identical")
 
         tabs, slots, lid, val = path if name == "paper_mlp" else shuf
         c = lid.shape[1]
@@ -1298,6 +1433,10 @@ def check_batched_trees(gen, cohorts, path, shuf) -> tuple[float, float,
                       and torch.equal(d_k[j][k], d1),
                       f"paged_bank_scatter_batched {where}: trial {k} is not "
                       f"bit-equal to paged_bank_scatter")
+                check(torch.equal(d_k[j][k], paged_bank_scatter_ordered_ref(
+                    p[k], u[k], tabs[k], lid[k], val[k], page_size=ps)[1]),
+                      f"paged_bank_scatter_batched {where}: trial {k}'s dsum "
+                      f"is not bit-equal to the fixed-order oracle")
                 old.append(paged_bank_gather_ref(p[k], tabs[k], lid[k],
                                                  page_size=ps))
             check(torch.equal(p_2[j], p_k[j]) and torch.equal(d_2[j],
@@ -1312,7 +1451,8 @@ def check_batched_trees(gen, cohorts, path, shuf) -> tuple[float, float,
                     f", K={k_trials}, slots={slots}, valid "
                     f"{val.sum(1).tolist()}: {launches // 2} launch(es) a "
                     f"call, pages bit-equal, per trial and leaf bit-equal to "
-                    f"paged_bank_scatter, repeat bit-identical")
+                    f"paged_bank_scatter and the oracle, repeat "
+                    f"bit-identical")
     return b_err, p_err, rows
 
 
@@ -1965,11 +2105,13 @@ def main() -> int:
     mifa_err = max(mifa_err, tree_err)
     bank_err, more = check_bank(gen, active_path)
     pscat_err, pgath_err, paged_rows = check_paged(gen, active_path)
+    tb_err, tp_err, scatter_rows = check_scatter_trees(gen, active_path)
+    bank_err, pscat_err = max(bank_err, tb_err), max(pscat_err, tp_err)
     tree_err, more_tree = check_gather_tree(gen, active_path)
     pgath_err = max(pgath_err, tree_err)
     bb_err, pb_err, batched_rows = check_batched(gen, active_path)
-    for row in (rows + tree_rows + more + paged_rows + more_tree
-                + batched_rows):
+    for row in (rows + tree_rows + more + paged_rows + scatter_rows
+                + more_tree + batched_rows):
         print(row)
     timing = {"mifa_aggregate": time_mifa(gen, active_path),
               "bank_scatter": time_bank(gen, active_path),
@@ -1984,9 +2126,7 @@ def main() -> int:
         shape = (f"K=3 trials, C={batched['cohort']}, valid "
                  f"{batched['valid']}" if name.endswith("batched")
                  else f"|A|={int(active_path.sum())}")
-        launch = ("one launch" if name in TREE_KERNELS
-                  else "one launch per leaf")
-        print(f"{name} per round (6 leaves of paper_mlp, {launch}, "
+        print(f"{name} per round (6 leaves of paper_mlp, one launch, "
               f"{shape}): kernel {t['ms'] * 1e3:.2f} us, "
               f"plain {t['plain_ms'] * 1e3:.2f} us{lib}, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
@@ -2091,9 +2231,9 @@ def main() -> int:
             # None where no single PyTorch call computes the function
             # (PERF.md); the gather's is one index_select per leaf
             "library_ms": t["library_ms"],
-            # ms, plain_ms and bound_ms are per round (one launch, or one
-            # per leaf for the single-trial scatters); this is per launch
-            # of one leaf at each leaf's width
+            # ms, plain_ms and bound_ms are per round (one launch for the
+            # six leaves); this is per launch of one leaf at each leaf's
+            # width
             "per_launch_us": t["leaves"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -5,16 +5,20 @@ checks of `chip_smoke.py`, and its time beside its bound.
 
     python3 scripts/flash_bench.py
         [--kernel flash_attention|ssd_scan|mifa_aggregate|paged_bank_gather
+                  |bank_scatter|paged_bank_scatter
                   |bank_scatter_batched|paged_bank_scatter_batched]
         [--root DIR]
 
 `flash_attention` (the default) is timed at zamba2-7b's and granite-3-8b's
 prefill beside one `scaled_dot_product_attention` call on the same values;
 `ssd_scan` at zamba2-7b's and mamba2-1.3b's prefill beside its plain
-version. `mifa_aggregate` and `paged_bank_gather` are timed per round of
+version. `mifa_aggregate`, `paged_bank_gather`, `bank_scatter` and
+`paged_bank_scatter` are checked by `chip_smoke.check_mifa` /
+`check_paged` / `check_bank` (one leaf at a time) and timed per round of
 the paper path (paper_mlp's six leaves, N=100, the main path's typical
-mask) through `chip_smoke.time_mifa` / `time_paged_gather`, beside the
-per-leaf plain versions, the bound and, for the gather, `index_select`.
+mask) through `chip_smoke.time_mifa` / `time_paged_gather` / `time_bank` /
+`time_paged_scatter`, beside the per-leaf plain versions, the bound and,
+for the gather, `index_select`.
 `bank_scatter_batched` and `paged_bank_scatter_batched` are checked by
 `chip_smoke.check_batched` (one leaf at a time and on trees) and timed per
 round of the cohort fleet path (paper_mlp's six leaves, K=3 trials of a
@@ -52,6 +56,7 @@ TC_OPS = ("HMMA", "HGMMA")
 SOURCE = {"flash_attention": "flash_attention", "ssd_scan": "ssd_scan",
           "mifa_aggregate": "mifa_aggregate",
           "paged_bank_gather": "paged_bank",
+          "bank_scatter": "bank_scatter", "paged_bank_scatter": "paged_bank",
           "bank_scatter_batched": "bank_scatter",
           "paged_bank_scatter_batched": "paged_bank"}
 
@@ -190,6 +195,16 @@ def bench_gather(chip_smoke, gen) -> list[str]:
                        chip_smoke.time_paged_gather, chip_smoke, gen)
 
 
+def bench_scatter(chip_smoke, gen) -> list[str]:
+    return bench_round("bank_scatter", chip_smoke.check_bank,
+                       chip_smoke.time_bank, chip_smoke, gen)
+
+
+def bench_paged_scatter(chip_smoke, gen) -> list[str]:
+    return bench_round("paged_bank_scatter", chip_smoke.check_paged,
+                       chip_smoke.time_paged_scatter, chip_smoke, gen)
+
+
 def bench_batched(name, chip_smoke, gen) -> list[str]:
     """A fleet scatter: its rows of `check_batched`, then its time per
     round of the cohort fleet path (one call for the six leaves and the
@@ -205,6 +220,8 @@ def bench_batched(name, chip_smoke, gen) -> list[str]:
 
 BENCHES = {"flash_attention": bench_flash, "ssd_scan": bench_ssd,
            "mifa_aggregate": bench_mifa, "paged_bank_gather": bench_gather,
+           "bank_scatter": bench_scatter,
+           "paged_bank_scatter": bench_paged_scatter,
            "bank_scatter_batched": partial(bench_batched,
                                            "bank_scatter_batched"),
            "paged_bank_scatter_batched": partial(bench_batched,

@@ -38,10 +38,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# the hand-written kernels' CUDA names (src/repro_torch/kernels/csrc)
+# the hand-written kernels' CUDA names (src/repro_torch/kernels/csrc); a
+# scatter kernel serves one bank and a fleet's K trials alike
 PORT_KERNELS = ("mifa_aggregate_kernel", "bank_scatter_kernel",
-                "paged_scatter_kernel", "paged_gather_kernel",
-                "bank_scatter_batched_kernel", "paged_scatter_batched_kernel")
+                "paged_scatter_kernel", "paged_gather_kernel")
 # profiled rounds of the million-client run, all past the warm-up that fills
 # the free slots, so each of them evicts
 MILLION_PROFILE_ROUNDS = 8

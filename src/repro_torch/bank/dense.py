@@ -6,8 +6,9 @@ State layout (counterpart of `repro/bank/dense.py`):
     g_sum : tree, leaves (*param_shape,) f32 — running Σ_{i<N} rows[i].
 
 `scatter` goes through `kernels.ops.bank_update_tree`: on the card the
-hand-written `bank_scatter` kernel updates the cohort's rows in place and
-returns the delta sum; on the CPU its plain version does the same work.
+hand-written `bank_scatter` kernel updates the cohort's rows of every leaf
+in place, in one launch, and returns the delta sums; on the CPU its plain
+version does the same work.
 `gather` is plain tensor indexing, as in the reference (no kernel).
 `scatter_fleet` takes stacked states (leaves (K, N+1, ...) and (K, ...))
 through `kernels.ops.fleet_bank_update_tree`: the batched kernel, one

@@ -22,11 +22,12 @@ a slot never shows a former tenant's rows.
 
 Why paging never changes the numbers: a gather returns the same values
 whatever slot a row occupies, and the delta sum runs over the cohort axis,
-never over physical rows. The scatter goes through `paged_bank_scatter`,
-whose CUDA kernel shares its body (and so its summation order) with the
-dense bank's `bank_scatter`: on the card a paged trajectory is bit-equal to
-a dense one, as long as every row a round touches is resident (`scatter`
-checks this on the host mirror and raises otherwise).
+never over physical rows. The scatter goes through `paged_bank_scatter`
+(one launch for the tree), whose CUDA kernel shares its body and so its
+summation order (`csrc/scatter_tree.cuh`) with the dense bank's
+`bank_scatter`: on the card a paged trajectory is bit-equal to a dense
+one, as long as every row a round touches is resident (`scatter` checks
+this on the host mirror and raises otherwise).
 
 State layout (tensors on the bank's device):
     pages      : tree, leaves ((n_slots+1)·page_size, *shape) `dtype`; the
@@ -47,7 +48,7 @@ copies of one table. All trials share one residency map (this object's
 host bookkeeping): `prepare` faults in the union of the trials' cohorts,
 evicts and pages in along axis 1, and a spill block holds the page of
 every trial, (K, page_size, *shape). `scatter_fleet` goes through the
-batched kernel, one launch per leaf for all K trials.
+batched kernel, one launch for every leaf and all K trials.
 
 Not ported yet: int8 pages (ROADMAP Queue 1 item 10) and `host_state` /
 `load_host_state` (item 17).

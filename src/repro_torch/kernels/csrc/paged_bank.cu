@@ -12,26 +12,26 @@
 // (the TPU kernels resolve it in their BlockSpec index maps from
 // scalar-prefetched tables).
 //
-// paged_scatter_kernel replaces repro/kernels/bank_scatter.py
-// `_paged_kernel` (pallas_call in `_paged_bank_scatter`): for every valid
-// slot a, old = pages[phys(lids[a])], dsum += cast(U[a]) - old (f32), and
-// the row is written in place. It is `bank_scatter_kernel` with a different
-// row address: the body is `scatter_rows.cuh`, so the two sum the same
-// cohort rows in the same order and a paged bank's G_sum is bit-equal to a
-// dense bank's. Bound by bytes: 3 * |A_valid| * M elements, as
-// bank_scatter.
-//
-// paged_scatter_batched_kernel replaces `_paged_kernel_batched` (pallas_call
-// in `_paged_bank_scatter_batched`): the paged scatter for K trials, every
-// leaf of a parameter tree in one launch (leaf_table.cuh,
-// scatter_tree.cuh). Leaf j has its page pools (K, R, M_j), updates
-// (K, C, M_j) and dsum (K, M_j); the per-trial page tables (K, P), lids and
-// valid (K, C) are shared by the leaves. The grid is (the table's tiles,
-// K): block (x, k) resolves trial k's valid rows once, through row k of the
-// page table, into shared memory, then walks them with several rows of
-// loads in flight a thread. The sums are `scatter_rows.cuh`'s, so trial
-// k's pages and dsum are bit-equal to `paged_scatter_kernel` on its slice,
-// and to the dense batched kernel's. Bound by bytes, as the flat one.
+// paged_scatter_kernel is the cohort scatter through a page table, for one
+// pool and for K stacked pools (a fleet of K trials), every leaf of a
+// parameter tree in one launch (leaf_table.cuh, scatter_tree.cuh). The
+// entry `paged_bank_scatter` replaces repro/kernels/bank_scatter.py
+// `_paged_kernel` (pallas_call in `_paged_bank_scatter`);
+// `paged_bank_scatter_batched` replaces `_paged_kernel_batched`
+// (pallas_call in `_paged_bank_scatter_batched`). For every valid slot a,
+// old = pages[phys(lids[a])], dsum += cast(U[a]) - old (f32), and the row
+// is written in place. Leaf j has its page pools (K, R, M_j), updates
+// (K, C, M_j) and dsum (K, M_j); the per-trial page tables (K, P), lids
+// and valid (K, C) are shared by the leaves, and the single-trial entry is
+// the same kernel at K = 1. The grid is (the table's tiles, K): block
+// (x, k) resolves trial k's valid rows once, through row k of the page
+// table, into shared memory (the lid -> page table -> row chain paid once
+// per slot a block), then walks them with several rows of loads in flight
+// a thread. It is `bank_scatter.cu`'s kernel with another row address, so
+// the sums run in scatter_tree.cuh's order: a paged bank's pages and G_sum
+// are bit-equal to a dense bank's, and each trial to the single-trial
+// entry. Bound by bytes: 3 * (valid slots over all trials) * M elements,
+// as bank_scatter.
 //
 // paged_gather_kernel replaces `_paged_gather_kernel` (pallas_call in
 // `_paged_bank_gather`): out[a] = f32(pages[phys(lids[a])]) for all C
@@ -49,8 +49,6 @@
 // every valid row's page is resident before a scatter, so a valid row never
 // lands in the dummy page. Neither allocates: the wrapper allocates dsum
 // and out with torch.empty.
-#include "leaf_table.cuh"
-#include "scatter_rows.cuh"
 #include "scatter_tree.cuh"
 
 namespace {
@@ -64,26 +62,15 @@ using repro::TY;
 using repro::VEC;
 namespace st = repro::scatter_tree;
 
-template <typename TB, bool VECTOR>
-__global__ void __launch_bounds__(TX * TY)
-paged_scatter_kernel(TB* __restrict__ pages, const float* __restrict__ u,
-                     const int32_t* __restrict__ pt,
-                     const int32_t* __restrict__ lids,
-                     const uint8_t* __restrict__ valid,
-                     float* __restrict__ dsum, int c, int64_t m, int ps) {
-  repro::scatter_rows<TB, VECTOR>(pages, u, PagedRows{pt, lids, ps}, valid,
-                                  dsum, c, m);
-}
-
 // Leaf pointers: ptr[0] pages (K, r, M), ptr[1] updates (K, c, M) f32,
 // ptr[2] dsum (K, M) f32. Block (x, k): flat tile x of the table's leaves,
 // trial k, through row k of the (K, p) page table.
 __global__ void __launch_bounds__(st::THREADS, st::MIN_BLOCKS)
-paged_scatter_batched_kernel(const __grid_constant__ LeafTable table,
-                             const int32_t* __restrict__ pt,
-                             const int32_t* __restrict__ lids,
-                             const uint8_t* __restrict__ valid, int c,
-                             int64_t r, int p, int ps) {
+paged_scatter_kernel(const __grid_constant__ LeafTable table,
+                     const int32_t* __restrict__ pt,
+                     const int32_t* __restrict__ lids,
+                     const uint8_t* __restrict__ valid, int c, int64_t r,
+                     int p, int ps) {
   const int64_t k = blockIdx.y;
   st::scatter_tile(table, PagedRows{pt + k * p, lids + k * c, ps},
                    valid + k * c, c, r);
@@ -177,74 +164,49 @@ paged_gather_kernel(const __grid_constant__ LeafTable table,
     gather_leaf<float>(leaf, phys, a0, rows, tile_col0);
 }
 
-dim3 tiles(int64_t m) {
-  return dim3(unsigned((m + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK));
-}
-
-template <typename TB>
-void launch_scatter(void* pages, const void* u, const void* pt,
-                    const void* lids, const void* valid, void* dsum, int c,
-                    int64_t m, int ps, bool vector, cudaStream_t stream) {
-  auto* pp = static_cast<TB*>(pages);
-  auto* uu = static_cast<const float*>(u);
-  auto* tt = static_cast<const int32_t*>(pt);
-  auto* ll = static_cast<const int32_t*>(lids);
-  auto* vv = static_cast<const uint8_t*>(valid);
-  auto* ds = static_cast<float*>(dsum);
-  if (vector) {
-    paged_scatter_kernel<TB, true><<<tiles(m), dim3(TX, TY), 0, stream>>>(
-        pp, uu, tt, ll, vv, ds, c, m, ps);
-  } else {
-    paged_scatter_kernel<TB, false><<<tiles(m), dim3(TX, TY), 0, stream>>>(
-        pp, uu, tt, ll, vv, ds, c, m, ps);
-  }
-}
-
-}  // namespace
-
-// Plain C entry points, loaded with ctypes. pages_bf16 selects the pages'
-// element type (0: f32, 1: bf16); vector selects the 4-wide variant, which
-// needs m % 4 == 0 and aligned pointers (the wrapper checks). Each returns
-// cudaGetLastError() after its launch.
-extern "C" int paged_bank_scatter(void* pages, const void* u, const void* pt,
-                                  const void* lids, const void* valid,
-                                  void* dsum, int c, int64_t m, int ps,
-                                  int pages_bf16, int vector, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vector != 0;
-  if (pages_bf16)
-    launch_scatter<__nv_bfloat16>(pages, u, pt, lids, valid, dsum, c, m, ps,
-                                  vec, s);
-  else
-    launch_scatter<float>(pages, u, pt, lids, valid, dsum, c, m, ps, vec, s);
-  return int(cudaGetLastError());
-}
-
-// The K-trial scatter over every leaf of `table` (ptr[0] pages, ptr[1]
-// updates, ptr[2] dsum): page tables pt (k, p), lids and valid (k, c),
-// shared by the leaves, and r rows a trial in every leaf's pool. The table
-// is copied into the launch's parameters. Returns cudaGetLastError() after
-// the launch.
-extern "C" int paged_bank_scatter_batched(const LeafTable* table,
-                                          const void* pt, const void* lids,
-                                          const void* valid, int k, int c,
-                                          int64_t r, int p, int ps,
-                                          void* stream) {
+int launch_scatter(const LeafTable* table, const void* pt, const void* lids,
+                   const void* valid, int k, int c, int64_t r, int p, int ps,
+                   void* stream) {
   static const cudaError_t carveout =
-      st::max_shared_carveout(paged_scatter_batched_kernel);
+      st::max_shared_carveout(paged_scatter_kernel);
   if (carveout != cudaSuccess) return int(carveout);
   const dim3 grid(unsigned(table->n_tiles), unsigned(k));
-  paged_scatter_batched_kernel<<<grid, dim3(TX, TY), 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  paged_scatter_kernel<<<grid, dim3(TX, TY), 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       *table, static_cast<const int32_t*>(pt),
       static_cast<const int32_t*>(lids), static_cast<const uint8_t*>(valid),
       c, r, p, ps);
   return int(cudaGetLastError());
 }
 
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each table is copied into the
+// launch's parameters, and each entry returns cudaGetLastError() after its
+// launch.
+
+// The scatter for one pool over every leaf of `table` (ptr[0] pages,
+// ptr[1] updates, ptr[2] dsum): pt (P,), lids and valid (c,), shared by
+// the leaves.
+extern "C" int paged_bank_scatter(const LeafTable* table, const void* pt,
+                                  const void* lids, const void* valid, int c,
+                                  int ps, void* stream) {
+  return launch_scatter(table, pt, lids, valid, 1, c, 0, 0, ps, stream);
+}
+
+// The K-trial scatter over every leaf of `table`: page tables pt (k, p),
+// lids and valid (k, c), shared by the leaves, and r rows a trial in every
+// leaf's pool.
+extern "C" int paged_bank_scatter_batched(const LeafTable* table,
+                                          const void* pt, const void* lids,
+                                          const void* valid, int k, int c,
+                                          int64_t r, int p, int ps,
+                                          void* stream) {
+  return launch_scatter(table, pt, lids, valid, k, c, r, p, ps, stream);
+}
+
 // The row gather over every leaf of `table` (ptr[0] pages, ptr[1] out):
-// pt (P,) and lids (c,) int32 are shared by the leaves. The table is copied
-// into the launch's parameters. Returns cudaGetLastError() after the launch.
+// pt (P,) and lids (c,) int32 are shared by the leaves.
 extern "C" int paged_bank_gather(const LeafTable* table, const void* pt,
                                  const void* lids, int c, int ps,
                                  void* stream) {

@@ -1,21 +1,26 @@
-// The fleet scatter over a whole parameter tree, shared by
+// The cohort scatter over a whole parameter tree, shared by
 // `bank_scatter.cu` (flat rows) and `paged_bank.cu` (rows behind a page
-// table): one launch covers every leaf of a tree (leaf_table.cuh) and all K
-// trials. Block (x, k) takes flat tile x of the table's leaves for trial k:
-// paper_mlp's tree at K = 3 is 397 x 3 blocks, 2.3 waves at four blocks an
-// SM. (Walking a block's trials one after another, in one wave, was
-// slower: a narrow tile's chain grew threefold.)
+// table), for one bank and for K stacked banks (a fleet of K trials): one
+// launch covers every leaf of a tree (leaf_table.cuh) and all K trials.
+// Block (x, k) takes flat tile x of the table's leaves for trial k:
+// paper_mlp's tree is 397 blocks at K = 1 and 397 x 3 at K = 3 (2.3 waves
+// at four blocks an SM). (Walking a block's trials one after another, in
+// one wave, was slower: a narrow tile's chain grew threefold.)
 //
 //     for every valid slot a of trial k (row group a % 8, each group in
-//     increasing a):
+//     increasing a from 0.f):
 //         r = row_of(a);  old = bank_k[r];  u_st = cast(U_k[a])  (bank dtype)
 //         acc += u_st - old   (f32);   bank_k[r] = u_st   (in place)
-//     dsum_k[col] = sum over row groups 0..7 of acc   (fixed order)
+//     dsum_k[col] = 0.f + acc of row group 0 + ... + acc of row group 7
 //
-// These are the sums of `scatter_rows.cuh`, row for row and in the same
-// order, so per trial and per leaf the rows and dsum are bit-equal to the
-// single-trial kernels'. How a tile's columns are spread over its threads
-// differs, and that moves no sum.
+// This file is the home of that order. Only the row address differs
+// between the flat and the paged kernels, and the single-trial kernels are
+// the fleet kernels at K = 1, so all four sum a trial's rows in the same
+// order: a paged bank's G_sum is bit-equal to a dense bank's, whatever
+// slot a page occupies, and every trial of a fleet to the single-trial
+// kernel. How a tile's columns are spread over its threads moves no sum.
+// `kernels/bank_scatter.py::bank_scatter_ordered_ref` repeats the order
+// with tensor adds, apart from this code.
 //
 // What the design does about the per-leaf kernels' costs:
 //   * One launch a tree. paper_mlp's four narrow leaves (widths 128, 128,
@@ -46,9 +51,27 @@
 #pragma once
 
 #include "leaf_table.cuh"
-#include "scatter_rows.cuh"  // FlatRows, PagedRows
 
 namespace repro {
+
+// Rows addressed directly: the row of slot a is ids[a].
+struct FlatRows {
+  const int64_t* ids;
+  __device__ __forceinline__ int64_t operator()(int a) const { return ids[a]; }
+};
+
+// Rows addressed through a page table: logical row lid lives at physical
+// row pt[lid / ps] * ps + lid % ps.
+struct PagedRows {
+  const int32_t* pt;
+  const int32_t* lids;
+  int ps;
+  __device__ __forceinline__ int64_t operator()(int a) const {
+    const int32_t lid = lids[a];
+    return int64_t(pt[lid / ps]) * ps + lid % ps;
+  }
+};
+
 namespace scatter_tree {
 
 constexpr int ROW_GROUPS = TY;            // row groups (warps) of a block

@@ -5,10 +5,11 @@
   parameter tree: each leaf is flattened to (N, M), and the leaves go
   through `kernels.mifa_aggregate_leaves` together (one launch a tree).
 * `bank_update_tree` — the fused cohort gather/delta/scatter over a
-  memory-bank tree, each leaf flattened to (R, M) and (C, M).
+  memory-bank tree, each leaf flattened to (R, M) and (C, M), all leaves
+  in one launch.
 * `paged_bank_update_tree` / `paged_bank_gather_tree` — the same scatter,
   and the row gather, through a paged bank's page table
-  (`kernels.paged_bank`); the gather takes all leaves in one launch.
+  (`kernels.paged_bank`), each taking all leaves in one launch.
 * `fleet_bank_update_tree` / `fleet_paged_bank_update_tree` — the scatters
   for K stacked trials, each leaf flattened to (K, R, M) and (K, C, M),
   all leaves and trials in one launch.
@@ -25,15 +26,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bank_scatter import (bank_scatter,
-                                              bank_scatter_batched_leaves)
+from repro_torch.kernels.bank_scatter import (bank_scatter_batched_leaves,
+                                              bank_scatter_leaves)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mifa_aggregate import mifa_aggregate_leaves
 from repro_torch.kernels.paged_bank import (
-    paged_bank_gather_leaves, paged_bank_scatter,
-    paged_bank_scatter_batched_leaves)
+    paged_bank_gather_leaves, paged_bank_scatter_batched_leaves,
+    paged_bank_scatter_leaves)
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.tree import tree_map, tree_unzip2
+from repro_torch.tree import tree_map
 
 
 def _leaves_in_map_order(tree, *rest) -> list:
@@ -79,14 +80,14 @@ def bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,
     rows_tree: leaves (R, *shape); upd_tree: leaves (C, *shape) f32;
     ids (C,) int64 rows to update (pad slots -> dummy row); valid (C,) bool.
     Returns (new_rows_tree, delta_sum_tree with leaves (*shape,) f32); on
-    the card the rows are updated in place.
+    the card one launch covers every leaf (up to 64), the rows are updated
+    in place and the delta sums are views of one buffer.
     """
-    def one(rows, u):
-        rn, ds = bank_scatter(rows.reshape(rows.shape[0], -1),
-                              u.reshape(u.shape[0], -1), ids, valid)
-        return rn.reshape(rows.shape), ds.reshape(rows.shape[1:])
-
-    return tree_unzip2(tree_map(one, rows_tree, upd_tree))
+    leaves = _leaves_in_map_order(rows_tree, upd_tree)
+    rows, dsums = bank_scatter_leaves(
+        [b.reshape(b.shape[0], -1) for b, _ in leaves],
+        [u.reshape(u.shape[0], -1) for _, u in leaves], ids, valid)
+    return _scatter_rebuild(rows_tree, leaves, rows, dsums, 1)
 
 
 def paged_bank_update_tree(pages_tree, upd_tree, page_table: torch.Tensor,
@@ -98,15 +99,15 @@ def paged_bank_update_tree(pages_tree, upd_tree, page_table: torch.Tensor,
     leaves (C, *shape) f32; page_table (P,) int32; lids (C,) int32
     sanitized logical rows (pad slots -> dummy logical page); valid (C,)
     bool. Returns (new_pages_tree, delta_sum_tree with leaves (*shape,)
-    f32); on the card the pages are updated in place.
+    f32); on the card one launch covers every leaf (up to 64), the pages
+    are updated in place and the delta sums are views of one buffer.
     """
-    def one(pages, u):
-        pn, ds = paged_bank_scatter(pages.reshape(pages.shape[0], -1),
-                                    u.reshape(u.shape[0], -1), page_table,
-                                    lids, valid, page_size=page_size)
-        return pn.reshape(pages.shape), ds.reshape(pages.shape[1:])
-
-    return tree_unzip2(tree_map(one, pages_tree, upd_tree))
+    leaves = _leaves_in_map_order(pages_tree, upd_tree)
+    pages, dsums = paged_bank_scatter_leaves(
+        [p.reshape(p.shape[0], -1) for p, _ in leaves],
+        [u.reshape(u.shape[0], -1) for _, u in leaves], page_table, lids,
+        valid, page_size=page_size)
+    return _scatter_rebuild(pages_tree, leaves, pages, dsums, 1)
 
 
 def paged_bank_gather_tree(pages_tree, page_table: torch.Tensor,
@@ -138,7 +139,7 @@ def fleet_bank_update_tree(rows_tree, upd_tree, ids: torch.Tensor,
         [b.reshape(b.shape[0], b.shape[1], -1) for b, _ in leaves],
         [u.reshape(u.shape[0], u.shape[1], -1) for _, u in leaves], ids,
         valid)
-    return _fleet_rebuild(rows_tree, leaves, rows, dsums)
+    return _scatter_rebuild(rows_tree, leaves, rows, dsums, 2)
 
 
 def fleet_paged_bank_update_tree(pages_tree, upd_tree,
@@ -155,15 +156,18 @@ def fleet_paged_bank_update_tree(pages_tree, upd_tree,
         [p.reshape(p.shape[0], p.shape[1], -1) for p, _ in leaves],
         [u.reshape(u.shape[0], u.shape[1], -1) for _, u in leaves],
         page_table, lids, valid, page_size=page_size)
-    return _fleet_rebuild(pages_tree, leaves, pages, dsums)
+    return _scatter_rebuild(pages_tree, leaves, pages, dsums, 2)
 
 
-def _fleet_rebuild(tree, leaves, stored, dsums):
-    """The fleet scatters' outputs as trees of `tree`'s structure: each
-    leaf's stored rows in its own shape, its delta sum (K, *shape)."""
+def _scatter_rebuild(tree, leaves, stored, dsums, row_axis: int):
+    """The scatters' outputs as trees of `tree`'s structure: each leaf's
+    stored rows in its own shape, its delta sum without the row axis: leaf
+    shape (R, *shape) -> (*shape,) with row_axis 1, (K, R, *shape) ->
+    (K, *shape) with row_axis 2."""
     return (_rebuild(tree, [s.reshape(b.shape)
                             for s, (b, _) in zip(stored, leaves)]),
-            _rebuild(tree, [d.reshape(b.shape[:1] + b.shape[2:])
+            _rebuild(tree, [d.reshape(b.shape[:row_axis - 1]
+                                      + b.shape[row_axis:])
                             for d, (b, _) in zip(dsums, leaves)]))
 
 

@@ -4,7 +4,9 @@ table, each the CUDA kernel's wrapper beside its plain version.
 
     phys(lid) = page_table[lid // page_size] * page_size + lid % page_size
     paged_bank_scatter:  dsum = Σ_{valid a} (cast(u_a) − pages[phys(lids[a])])
-                         pages[phys(lids[a])] = cast(u_a)   (valid a only)
+                         pages[phys(lids[a])] = cast(u_a)   (valid a only),
+                         and `paged_bank_scatter_leaves` for every leaf of
+                         a tree in one launch
     paged_bank_gather:   rows[a] = f32(pages[phys(lids[a])]), and
                          `paged_bank_gather_leaves` for every leaf of a
                          tree in one launch
@@ -21,7 +23,10 @@ hand-written kernels of `csrc/paged_bank.cu` (which replace the TPU kernels
 scatter updates the pages in place and returns them; callers must not reuse
 the pages they passed in. `lids` are sanitized logical rows: the caller has
 remapped pad slots to the dummy logical page, and a logical page that is not
-resident maps to the dummy slot through the page table.
+resident maps to the dummy slot through the page table. The scatters are
+`bank_scatter.cu`'s with another row address, so they sum in the same order
+(`paged_bank_scatter_ordered_ref`) and a paged bank's G_sum is bit-equal to
+a dense bank's.
 """
 from __future__ import annotations
 
@@ -31,9 +36,10 @@ import torch
 
 from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
                                          entry_point, launch, vector_ok)
-from repro_torch.kernels.bank_scatter import (bank_scatter_ref,
-                                              check_fleet_leaves,
-                                              launch_fleet_scatter)
+from repro_torch.kernels.bank_scatter import (bank_scatter_ordered_ref,
+                                              bank_scatter_ref,
+                                              check_scatter_leaves,
+                                              launch_scatter_leaves)
 from repro_torch.kernels.leaf_table import A_BF16, VECTOR, pack
 
 # slots a gather block resolves and copies (csrc/paged_bank.cu GATHER_ROWS);
@@ -58,6 +64,18 @@ def paged_bank_scatter_ref(pages: torch.Tensor, updates: torch.Tensor,
                             phys_rows(page_table, lids, page_size), valid)
 
 
+def paged_bank_scatter_ordered_ref(pages: torch.Tensor,
+                                   updates: torch.Tensor,
+                                   page_table: torch.Tensor,
+                                   lids: torch.Tensor, valid: torch.Tensor, *,
+                                   page_size: int):
+    """`bank_scatter_ordered_ref` on the physically addressed rows: dsum in
+    the kernels' order, by tensor adds."""
+    return bank_scatter_ordered_ref(pages, updates,
+                                    phys_rows(page_table, lids, page_size),
+                                    valid)
+
+
 def paged_bank_scatter_batched_ref(pages: torch.Tensor, updates: torch.Tensor,
                                    page_table: torch.Tensor,
                                    lids: torch.Tensor, valid: torch.Tensor, *,
@@ -77,9 +95,8 @@ def paged_bank_gather_ref(pages: torch.Tensor, page_table: torch.Tensor,
     return pages[phys_rows(page_table, lids, page_size)].float()
 
 
-def _check(pages, page_table, lids, page_size, named) -> None:
-    """The kernels' input rules; `named` holds the other tensors as
-    `check_tensors` takes them."""
+def _check_gather(pages, page_table, lids, page_size) -> None:
+    """The gather's input rules."""
     if page_size <= 0 or page_size & (page_size - 1):
         raise ValueError(f"page_size must be a power of two, got {page_size}")
     if pages.ndim != 2 or pages.shape[0] % page_size or 0 in pages.shape:
@@ -93,45 +110,79 @@ def _check(pages, page_table, lids, page_size, named) -> None:
     check_tensors(pages.device, {
         "pages": (pages, FLOAT_STORES, pages.shape),
         "page_table": (page_table, (torch.int32,), page_table.shape),
-        "lids": (lids, (torch.int32,), (c,)), **named})
+        "lids": (lids, (torch.int32,), (c,))})
 
 
-# the entry points' arguments after their pointers: C, M, page_size,
-# pages are bf16, vector path
-_SIZES = [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-          ctypes.c_int]
+def _check_scatter(pages, updates, page_table, lids, valid, page_size, *,
+                   fleet: bool):
+    """The paged scatters' input rules: `check_scatter_leaves` on the pools
+    and the cohort, R a multiple of the power-of-two page_size, and one
+    page table (P,), or (K, P) with `fleet`. Returns (K, R, C)."""
+    if page_size <= 0 or page_size & (page_size - 1):
+        raise ValueError(f"page_size must be a power of two, got {page_size}")
+    k, r, c = check_scatter_leaves(
+        pages, updates, "pages", {"lids": (lids, (torch.int32,)),
+                                  "valid": (valid, (torch.bool,))},
+        fleet=fleet)
+    if r % page_size:
+        raise ValueError(f"pages with R a multiple of page_size={page_size} "
+                         f"expected, got R={r}")
+    lead, dims = ((k,), "(K, P)") if fleet else ((), "(P,)")
+    if page_table.ndim != len(lead) + 1:
+        raise ValueError(f"page_table {dims} expected, got "
+                         f"{tuple(page_table.shape)}")
+    check_tensors(lids.device, {"page_table": (
+        page_table, (torch.int32,), (*lead, page_table.shape[-1]))})
+    return k, r, c
+
+
+def paged_bank_scatter_leaves(pages, updates, page_table: torch.Tensor,
+                              lids: torch.Tensor, valid: torch.Tensor, *,
+                              page_size: int):
+    """The cohort scatter through a page table over the leaves of a tree:
+    pages[j] (R, M_j) f32|bf16 (leaves may mix the two; R =
+    (slots+1)·page_size, the same for all), updates[j] (C, M_j) f32, one
+    page_table (P,) int32, one lids (C,) int32 of sanitized logical rows,
+    distinct among valid slots, and one valid (C,) bool for all. The caller
+    checks on the host that every valid row's page is resident.
+
+    Returns (new_pages, dsums), lists in leaf order, dsums[j] (M_j,) f32.
+    CPU tensors take the plain version leaf by leaf. CUDA tensors launch
+    the kernel once per table of up to `leaf_table.MAX_LEAVES` leaves,
+    which writes the valid rows of each pool in place (new_pages[j] is
+    pages[j]); the dsums are views of one f32 buffer.
+    """
+    _, _, c = _check_scatter(pages, updates, page_table, lids, valid,
+                             page_size, fleet=False)
+    dev = lids.device
+    if dev.type == "cpu":
+        outs = [paged_bank_scatter_ref(p, u, page_table, lids, valid,
+                                       page_size=page_size)
+                for p, u in zip(pages, updates)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+    fn = entry_point("paged_bank", "paged_bank_scatter",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int],
+                     dev)
+    return list(pages), launch_scatter_leaves(
+        fn, paged_bank_scatter, pages, updates, page_table.data_ptr(),
+        lids.data_ptr(), valid.data_ptr(), c, page_size)
 
 
 def paged_bank_scatter(pages: torch.Tensor, updates: torch.Tensor,
                        page_table: torch.Tensor, lids: torch.Tensor,
                        valid: torch.Tensor, *, page_size: int):
-    """pages (R, M) f32|bf16, R = (slots+1)·page_size; updates (C, M) f32;
-    page_table (P,) int32; lids (C,) int32 sanitized logical rows, distinct
-    among valid slots; valid (C,) bool. The caller checks on the host that
-    every valid row's page is resident.
+    """pages (R, M) f32|bf16; updates (C, M) f32; page_table (P,) int32;
+    lids (C,) int32; valid (C,) bool, as `paged_bank_scatter_leaves` takes
+    them.
 
-    Returns (new_pages, dsum (M,) f32). CPU tensors take the plain version;
-    CUDA tensors launch the kernel, which writes the valid rows of `pages`
-    in place (new_pages is pages) and dsum into a fresh tensor.
+    Returns (new_pages, dsum (M,) f32): `paged_bank_scatter_leaves` on one
+    leaf. CPU tensors take the plain version; CUDA tensors launch the
+    kernel, which writes the valid rows of `pages` in place (new_pages is
+    pages).
     """
-    c = lids.shape[0] if lids.ndim == 1 else -1
-    m = pages.shape[1] if pages.ndim == 2 else -1
-    _check(pages, page_table, lids, page_size,
-           {"updates": (updates, (torch.float32,), (c, m)),
-            "valid": (valid, (torch.bool,), (c,))})
-    if pages.device.type == "cpu":
-        return paged_bank_scatter_ref(pages, updates, page_table, lids, valid,
-                                      page_size=page_size)
-    fn = entry_point("paged_bank", "paged_bank_scatter",
-                     [ctypes.c_void_p] * 6 + _SIZES, pages.device)
-    dsum = torch.empty(m, dtype=torch.float32, device=pages.device)
-    launch(fn, pages.device, pages.data_ptr(), updates.data_ptr(),
-           page_table.data_ptr(), lids.data_ptr(), valid.data_ptr(),
-           dsum.data_ptr(), c, m, page_size,
-           int(pages.dtype == torch.bfloat16),
-           int(vector_ok(m, pages, updates)))
-    paged_bank_scatter.launches += 1
-    return pages, dsum
+    new, dsums = paged_bank_scatter_leaves([pages], [updates], page_table,
+                                           lids, valid, page_size=page_size)
+    return new[0], dsums[0]
 
 
 def paged_bank_gather_leaves(pages_list, page_table: torch.Tensor,
@@ -151,7 +202,7 @@ def paged_bank_gather_leaves(pages_list, page_table: torch.Tensor,
     if not pages_list:
         raise ValueError("no leaves to gather")
     for pages in pages_list:
-        _check(pages, page_table, lids, page_size, {})
+        _check_gather(pages, page_table, lids, page_size)
     dev = lids.device
     if dev.type == "cpu":
         return [paged_bank_gather_ref(pages, page_table, lids,
@@ -207,19 +258,8 @@ def paged_bank_scatter_batched_leaves(pages, updates,
     all K trials, which writes the valid rows of each pool in place
     (new_pages[j] is pages[j]); the dsums are views of one f32 buffer.
     """
-    if page_size <= 0 or page_size & (page_size - 1):
-        raise ValueError(f"page_size must be a power of two, got {page_size}")
-    k, r, c = check_fleet_leaves(
-        pages, updates, "pages", {"lids": (lids, (torch.int32,)),
-                                  "valid": (valid, (torch.bool,))})
-    if r % page_size:
-        raise ValueError(f"pages (K, R, M) with R a multiple of page_size="
-                         f"{page_size} expected, got R={r}")
-    if page_table.ndim != 2:
-        raise ValueError(f"page_table (K, P) expected, got "
-                         f"{tuple(page_table.shape)}")
-    check_tensors(lids.device, {"page_table": (
-        page_table, (torch.int32,), (k, page_table.shape[1]))})
+    k, r, c = _check_scatter(pages, updates, page_table, lids, valid,
+                             page_size, fleet=True)
     dev = lids.device
     if dev.type == "cpu":
         outs = [paged_bank_scatter_batched_ref(p, u, page_table, lids, valid,
@@ -230,8 +270,8 @@ def paged_bank_scatter_batched_leaves(pages, updates,
                      [ctypes.c_void_p] * 4
                      + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_int, ctypes.c_int], dev)
-    return list(pages), launch_fleet_scatter(
-        fn, paged_bank_scatter_batched, pages, updates, k,
+    return list(pages), launch_scatter_leaves(
+        fn, paged_bank_scatter_batched, pages, updates,
         page_table.data_ptr(), lids.data_ptr(), valid.data_ptr(), k, c, r,
         page_table.shape[1], page_size)
 

@@ -43,15 +43,3 @@ def tree_stack(trees: list) -> Any:
 def tree_index(tree: Any, k: int) -> Any:
     """Slice k of every leaf along the leading axis (views of the leaves)."""
     return tree_map(lambda leaf: leaf[k], tree)
-
-
-def tree_unzip2(tree: Any) -> tuple[Any, Any]:
-    """A tree whose leaves are pairs -> a pair of trees."""
-    if isinstance(tree, dict):
-        pairs = {k: tree_unzip2(v) for k, v in tree.items()}
-        return ({k: p[0] for k, p in pairs.items()},
-                {k: p[1] for k, p in pairs.items()})
-    if isinstance(tree, list):
-        pairs = [tree_unzip2(v) for v in tree]
-        return [p[0] for p in pairs], [p[1] for p in pairs]
-    return tree

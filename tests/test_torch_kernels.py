@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.bank_scatter import (bank_scatter,
+from repro_torch.kernels.bank_scatter import (ROW_GROUPS, bank_scatter,
                                               bank_scatter_batched,
                                               bank_scatter_batched_leaves,
                                               bank_scatter_batched_ref,
+                                              bank_scatter_leaves,
+                                              bank_scatter_ordered_ref,
                                               bank_scatter_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
@@ -32,6 +34,8 @@ from repro_torch.kernels.paged_bank import (paged_bank_gather,
                                             paged_bank_scatter_batched,
                                             paged_bank_scatter_batched_leaves,
                                             paged_bank_scatter_batched_ref,
+                                            paged_bank_scatter_leaves,
+                                            paged_bank_scatter_ordered_ref,
                                             paged_bank_scatter_ref)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.tree import tree_leaves
@@ -151,6 +155,49 @@ def test_bank_scatter_matches_pallas(m, bdt, n_valid):
         assert not d_t.any()
 
 
+@pytest.mark.parametrize("m,bdt,c,n_valid", [
+    (256, "float32", 24, 19),    # slots 0-18 valid, all eight row groups
+    (384, "bfloat16", 24, 19),
+    (10, "float32", 8, 5),       # fewer valid slots than row groups
+    (128, "float32", 8, 0),      # only pad slots
+])
+def test_bank_scatter_ordered_ref_matches_plain_and_pallas(m, bdt, c,
+                                                           n_valid):
+    """The fixed-order oracle of the CUDA kernels' delta sum: rows equal to
+    the plain version's and the Pallas kernel's, dsum within rtol 1e-5,
+    atol 1e-6 of both (they sum in another order), and bit-equal to the
+    order summed one f32 scalar at a time: row group a % 8 in increasing
+    a from 0, then 0 + group 0 + ... + group 7."""
+    import jax.numpy as jnp
+    from repro.kernels.bank_scatter import bank_scatter as pallas
+    bank, u, ids, valid = _bank_inputs(r=c + 1, m=m, c=c, n_valid=n_valid,
+                                       seed=m + c)
+    bank_t = torch.from_numpy(bank).to(TORCH_DT[bdt])
+    args = (torch.from_numpy(u), torch.from_numpy(ids),
+            torch.from_numpy(valid))
+    b_o, d_o = bank_scatter_ordered_ref(bank_t, *args)
+    b_p, d_p = bank_scatter_ref(bank_t, *args)
+    b_j, d_j = pallas(jnp.asarray(bank, bdt), jnp.asarray(u),
+                      jnp.asarray(ids, jnp.int32), jnp.asarray(valid),
+                      block_m=128, interpret=True)
+    assert b_o.dtype == TORCH_DT[bdt] and d_o.dtype == torch.float32
+    assert torch.equal(b_o, b_p)
+    np.testing.assert_array_equal(_f32(b_o), _f32(b_j))
+    for ref in (d_p, d_j):
+        np.testing.assert_allclose(_f32(d_o), _f32(ref), rtol=1e-5,
+                                   atol=1e-6)
+    terms = _f32(args[0].to(TORCH_DT[bdt]).float() - bank_t[args[1]].float())
+    for col in (0, m - 1):
+        acc = [np.float32(0)] * ROW_GROUPS
+        for a in np.flatnonzero(valid):
+            acc[a % ROW_GROUPS] = np.float32(acc[a % ROW_GROUPS]
+                                              + terms[a, col])
+        total = np.float32(0)
+        for g in range(ROW_GROUPS):
+            total = np.float32(total + acc[g])
+        assert _f32(d_o)[col].tobytes() == total.tobytes()
+
+
 def _tree(seed, lead=()):
     rng = np.random.default_rng(seed)
     return {"a": rng.normal(size=lead + (17, 9)).astype(np.float32),
@@ -236,6 +283,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                     "paged_bank_gather",
                                     "bank_scatter_batched",
                                     "paged_bank_scatter_batched",
+                                    "bank_scatter_leaves",
+                                    "paged_bank_scatter_leaves",
                                     "bank_scatter_batched_leaves",
                                     "paged_bank_scatter_batched_leaves",
                                     "flash_attention", "ssd_scan"])
@@ -260,6 +309,11 @@ def test_wrappers_take_no_device_but_cpu_and_cuda(kernel):
             "paged_bank_scatter_batched": lambda: paged_bank_scatter_batched(
                 bank[None], upd[None], pt.to("meta")[None], lids[None],
                 valid[None], page_size=2),
+            "bank_scatter_leaves": lambda: bank_scatter_leaves(
+                [bank, bank5[0]], [upd, upd5[0]], ids, valid),
+            "paged_bank_scatter_leaves": lambda: paged_bank_scatter_leaves(
+                [bank, bank5[0]], [upd, upd5[0]], pt.to("meta"), lids, valid,
+                page_size=2),
             "bank_scatter_batched_leaves": lambda: bank_scatter_batched_leaves(
                 [bank[None], bank5], [upd[None], upd5], ids[None],
                 valid[None]),
@@ -411,6 +465,7 @@ def test_bank_scatter_cuda_matches_plain(cuda_device, m, bdt, n_valid):
     torch.cuda.synchronize()
     assert bank_scatter.launches == before + 1
     assert torch.equal(b_k, b_ref)
+    assert torch.equal(d_k, bank_scatter_ordered_ref(bank, u, ids, valid)[1])
     terms = (u.to(bank.dtype).float() - bank[ids].float()).abs()
     scale = (terms * valid.reshape(-1, 1)).sum(0)
     assert bool(((d_k - d_ref).abs() <= 1e-6 + 1e-5 * scale).all())
@@ -449,6 +504,8 @@ def test_paged_bank_scatter_cuda_matches_plain(cuda_device, m, bdt, n_valid):
     torch.cuda.synchronize()
     assert paged_bank_scatter.launches == before + 1
     assert torch.equal(p_k, p_ref)
+    assert torch.equal(d_k, paged_bank_scatter_ordered_ref(
+        pages, u, pt, lids, valid, page_size=8)[1])
     old = paged_bank_gather_ref(pages, pt, lids, page_size=8)
     terms = (u.to(pages.dtype).float() - old).abs()
     scale = (terms * valid.reshape(-1, 1)).sum(0)

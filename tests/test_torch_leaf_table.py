@@ -1,6 +1,8 @@
 """The leaf table and the kernels that launch once per tree on it:
 `mifa_aggregate_leaves` (through `ops.mifa_aggregate_tree`),
-`paged_bank_gather_leaves` (through `ops.paged_bank_gather_tree`) and the
+`paged_bank_gather_leaves` (through `ops.paged_bank_gather_tree`), the
+single-trial scatters `bank_scatter_leaves` and `paged_bank_scatter_leaves`
+(through `ops.bank_update_tree` and `ops.paged_bank_update_tree`) and the
 fleet scatters `bank_scatter_batched_leaves` and
 `paged_bank_scatter_batched_leaves` (through `ops.fleet_bank_update_tree`
 and `ops.fleet_paged_bank_update_tree`).
@@ -12,15 +14,19 @@ interpret mode, with mixed f32/bf16 leaves, ragged widths and shuffled
 page tables. Copied values (G, gathered rows, bank rows, pages) must match
 exactly; w within rtol 1e-5, atol 1e-6 where it is f32 (the two packages
 sum in another order) and within 1e-2 where it is bf16 (one bf16 rounding
-apart), as `tests/test_torch_kernels.py` holds them; delta sums within atol
-1e-6, as `tests/test_torch_fleet.py` holds them.
+apart), as `tests/test_torch_kernels.py` holds them; the fleet scatters'
+delta sums within atol 1e-6, as `tests/test_torch_fleet.py` holds them, and
+the single-trial scatters' within rtol 1e-5, atol 1e-6, as
+`tests/test_torch_kernels.py` and `tests/test_torch_paged_bank.py` hold
+them.
 
 The `cuda` tests hold the one-launch-per-tree kernels against the per-leaf
 plain versions on the card, at the edges of the table: paper_mlp's six
 widths, mixed dtypes, ragged widths, one leaf, nothing active, more leaves
-than one table holds, non-resident pages, and a repeated call; the fleet
-scatters also per trial and leaf against the single-trial kernels. They
-skip without a card:
+than one table holds, non-resident pages, and a repeated call; the four
+scatters' delta sums bit-equal to the fixed-order oracle
+(`bank_scatter_ordered_ref`), and the fleet scatters per trial and leaf
+bit-equal to the single-trial kernels. They skip without a card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_leaf_table.py
 """
@@ -32,18 +38,25 @@ from repro_torch.kernels import leaf_table
 from repro_torch.kernels.bank_scatter import (bank_scatter,
                                               bank_scatter_batched,
                                               bank_scatter_batched_leaves,
-                                              bank_scatter_batched_ref)
+                                              bank_scatter_batched_ref,
+                                              bank_scatter_leaves,
+                                              bank_scatter_ordered_ref,
+                                              bank_scatter_ref)
 from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
                                                 mifa_aggregate_leaves,
                                                 mifa_aggregate_ref)
-from repro_torch.kernels.ops import (fleet_bank_update_tree,
+from repro_torch.kernels.ops import (bank_update_tree,
+                                     fleet_bank_update_tree,
                                      fleet_paged_bank_update_tree,
                                      mifa_aggregate_tree,
-                                     paged_bank_gather_tree)
+                                     paged_bank_gather_tree,
+                                     paged_bank_update_tree)
 from repro_torch.kernels.paged_bank import (
     paged_bank_gather, paged_bank_gather_leaves, paged_bank_gather_ref,
     paged_bank_scatter, paged_bank_scatter_batched,
-    paged_bank_scatter_batched_leaves, paged_bank_scatter_batched_ref)
+    paged_bank_scatter_batched_leaves, paged_bank_scatter_batched_ref,
+    paged_bank_scatter_leaves, paged_bank_scatter_ordered_ref,
+    paged_bank_scatter_ref)
 
 torch.set_num_threads(1)
 
@@ -351,6 +364,140 @@ def test_fleet_scatter_leaf_wrappers_check_every_leaf():
                                               page_size=ps)
 
 
+# trees of one bank for the single-trial scatters: (leaf shape, stored
+# dtype); "mixed" has three leaves on the scalar walk and two on the 4-wide
+# one. A cohort of 20 slots spans more than the kernels' 8 row groups.
+SCATTER_SPECS = {"mixed": FLEET_SPEC, "one leaf": {"w": ((16, 9), "bfloat16")}}
+SCATTER_COHORT = 20
+
+
+def _scatter_cohort(rng, rows, n_valid: int, dummy: int):
+    """(C,) slots: n_valid distinct valid rows of `rows` in shuffled slots,
+    pads at `dummy`."""
+    ids = np.full(SCATTER_COHORT, dummy, np.int64)
+    at = rng.permutation(SCATTER_COHORT)[:n_valid]
+    ids[at] = rng.permutation(rows)[:n_valid]
+    return ids, np.isin(np.arange(SCATTER_COHORT), at)
+
+
+def _scatter_tree(rng, spec, r):
+    """Stored rows (r, *shape) and updates (C, *shape) per leaf."""
+    return ({k: rng.normal(size=(r,) + s).astype(np.float32)
+             for k, (s, _) in spec.items()},
+            {k: rng.normal(size=(SCATTER_COHORT,) + s).astype(np.float32)
+             for k, (s, _) in spec.items()})
+
+
+def _check_scatter_tree(spec, rows_t, ds_t, rows_j, ds_j, before):
+    """Port against reference leaf by leaf: rows bit-equal, dsum within
+    rtol 1e-5, atol 1e-6."""
+    for k, (shape, dt) in spec.items():
+        assert rows_t[k].dtype == TORCH_DT[dt]
+        assert rows_t[k].shape == before[k].shape
+        assert ds_t[k].dtype == torch.float32 and ds_t[k].shape == shape
+        np.testing.assert_array_equal(_f32(rows_t[k]), _f32(rows_j[k]))
+        np.testing.assert_allclose(_f32(ds_t[k]), _f32(ds_j[k]), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("tree", sorted(SCATTER_SPECS))
+def test_bank_update_tree_mixed_matches_reference_tree(tree):
+    import jax.numpy as jnp
+    from repro.kernels.ops import bank_update_tree as jax_tree
+    spec = SCATTER_SPECS[tree]
+    rng = np.random.default_rng(22)
+    r = 16                                   # N = 15 clients + the dummy
+    rows, upd = _scatter_tree(rng, spec, r)
+    ids, valid = _scatter_cohort(rng, r - 1, 13, r - 1)
+    rows_j, ds_j = jax_tree(
+        {k: jnp.asarray(v, spec[k][1]) for k, v in rows.items()},
+        {k: jnp.asarray(v) for k, v in upd.items()},
+        jnp.asarray(ids, jnp.int32), jnp.asarray(valid), interpret=True)
+    before = {k: torch.from_numpy(v).to(TORCH_DT[spec[k][1]])
+              for k, v in rows.items()}
+    rows_t, ds_t = bank_update_tree(
+        {k: v.clone() for k, v in before.items()},
+        {k: torch.from_numpy(v) for k, v in upd.items()},
+        torch.from_numpy(ids), torch.from_numpy(valid))
+    _check_scatter_tree(spec, rows_t, ds_t, rows_j, ds_j, before)
+
+
+@pytest.mark.parametrize("tree", sorted(SCATTER_SPECS))
+def test_paged_bank_update_tree_mixed_matches_reference_tree(tree):
+    """PAGE_TABLE's shuffled slots: 9 valid rows of the resident pages 4,
+    0 and 3; pads at the dummy logical row and, for five slots, at rows of
+    pages that are not resident."""
+    import jax.numpy as jnp
+    from repro.kernels.ops import paged_bank_update_tree as jax_tree
+    spec = SCATTER_SPECS[tree]
+    rng = np.random.default_rng(23)
+    rows, upd = _scatter_tree(rng, spec, 4 * PS)
+    for v in rows.values():
+        v[3 * PS:] = 0.0                              # the dummy page
+    resident = np.array([p * PS + i for p in (0, 3, 4) for i in range(PS)])
+    lids, valid = _scatter_cohort(rng, resident, 9, DUMMY_LROW)
+    lids[np.flatnonzero(~valid)[:5]] = [1 * PS, 2 * PS + 1, 5 * PS + 3,
+                                        1 * PS + 2, 5 * PS]
+    lids = lids.astype(np.int32)
+    rows_j, ds_j = jax_tree(
+        {k: jnp.asarray(v, spec[k][1]) for k, v in rows.items()},
+        {k: jnp.asarray(v) for k, v in upd.items()},
+        jnp.asarray(PAGE_TABLE), jnp.asarray(lids), jnp.asarray(valid),
+        page_size=PS, interpret=True)
+    before = {k: torch.from_numpy(v).to(TORCH_DT[spec[k][1]])
+              for k, v in rows.items()}
+    rows_t, ds_t = paged_bank_update_tree(
+        {k: v.clone() for k, v in before.items()},
+        {k: torch.from_numpy(v) for k, v in upd.items()},
+        torch.from_numpy(PAGE_TABLE), torch.from_numpy(lids),
+        torch.from_numpy(valid), page_size=PS)
+    _check_scatter_tree(spec, rows_t, ds_t, rows_j, ds_j, before)
+    for k in spec:
+        assert not rows_t[k][3 * PS:].any()
+
+
+def test_scatter_leaf_wrappers_check_every_leaf():
+    r, c = 8, 4
+    banks = [torch.zeros(r, 8), torch.zeros(r, 5)]
+    upds = [torch.zeros(c, 8), torch.zeros(c, 5)]
+    ids = torch.zeros(c, dtype=torch.int64)
+    valid = torch.zeros(c, dtype=torch.bool)
+    bad = {
+        "same number": (banks, upds[:1], ids, valid),
+        "at least one": ([], [], ids, valid),
+        "updates must be float32": (banks, [upds[0], upds[1].double()],
+                                    ids, valid),
+        "bank must be float32 or bfloat16": (
+            [banks[0], banks[1].half()], upds, ids, valid),
+        r"bank \(R, M\)": ([banks[0], banks[1][None]], upds, ids, valid),
+        "empty scatter": ([banks[0], torch.zeros(r, 0)],
+                          [upds[0], torch.zeros(c, 0)], ids, valid),
+        "shape mismatch: bank": (                          # R of one leaf
+            [banks[0], torch.zeros(r + 1, 5)], upds, ids, valid),
+        "shape mismatch: updates": (                       # C of one leaf
+            banks, [upds[0], torch.zeros(c + 1, 5)], ids, valid),
+        "shape mismatch: ids": (banks, upds, ids[1:], valid),
+        "shape mismatch: valid": (banks, upds, ids, valid[None]),
+        "ids must be int64": (banks, upds, ids.int(), valid)}
+    for match, args in bad.items():
+        with pytest.raises((TypeError, ValueError), match=match):
+            bank_scatter_leaves(*args)
+    pt, lids = torch.zeros(5, dtype=torch.int32), ids.int()
+    for match, (pages, upd, table, lid, ps) in {
+            "power of two": (banks, upds, pt, lids, 3),
+            "multiple of page_size": (
+                [torch.zeros(6, 8), torch.zeros(6, 5)], upds, pt, lids, 4),
+            "shape mismatch: pages": (                     # R of one leaf
+                [banks[0], torch.zeros(r + 2, 5)], upds, pt, lids, 2),
+            r"page_table \(P,\)": (banks, upds, pt[None], lids, 2),
+            "page_table must be int32": (banks, upds, pt.long(), lids, 2),
+            "lids must be int32": (banks, upds, pt, ids, 2),
+            "shape mismatch: lids": (banks, upds, pt, lids[1:], 2)}.items():
+        with pytest.raises((TypeError, ValueError), match=match):
+            paged_bank_scatter_leaves(pages, upd, table, lid, valid,
+                                      page_size=ps)
+
+
 # --------------------------------------------------------------------------- #
 # the one-launch kernels against the per-leaf plain versions (needs a card)
 # --------------------------------------------------------------------------- #
@@ -514,6 +661,8 @@ def test_bank_scatter_batched_leaves_cuda_matches_plain(cuda_device, tree,
         for k in range(3):
             b1, d1 = bank_scatter(b[k].clone(), u[k], ids[k], valid[k])
             assert torch.equal(bk[k], b1) and torch.equal(dk[k], d1)
+            assert torch.equal(dk[k], bank_scatter_ordered_ref(
+                b[k], u[k], ids[k], valid[k])[1])
             terms = u[k].to(b.dtype).float() - b[k][ids[k]].float()
             scale = (terms.abs() * valid[k].reshape(-1, 1)).sum(0)
             assert bool(((dk[k] - d_ref[k]).abs()
@@ -569,9 +718,115 @@ def test_paged_bank_scatter_batched_leaves_cuda_matches_plain(cuda_device,
             p1, d1 = paged_bank_scatter(p[k].clone(), u[k], pt[k], lids[k],
                                         valid[k], page_size=ps)
             assert torch.equal(pk[k], p1) and torch.equal(dk[k], d1)
+            assert torch.equal(dk[k], paged_bank_scatter_ordered_ref(
+                p[k], u[k], pt[k], lids[k], valid[k], page_size=ps)[1])
             old = paged_bank_gather_ref(p[k], pt[k], lids[k], page_size=ps)
             terms = (u[k].to(p.dtype).float() - old).abs()
             scale = (terms * valid[k].reshape(-1, 1)).sum(0)
             assert bool(((dk[k] - d_ref[k]).abs()
                          <= 1e-6 + 1e-5 * scale).all())
         assert torch.equal(p2, pk) and torch.equal(d2, dk)
+
+
+# the single-trial scatters' trees: the fleet's and a ragged one
+SCATTER_TREES = {**FLEET_TREES, "ragged": [(10, "float32"),
+                                           (1000, "bfloat16"),
+                                           (7, "bfloat16")]}
+
+
+def _check_scatter_leaves(counted, stored, us, call, plain, ordered,
+                          old_rows, valid):
+    """`call` on clones of the stored leaves, twice: one launch per table
+    of leaves; per leaf the rows bit-equal to the plain version's, dsum
+    bit-equal to the fixed-order oracle and within rtol 1e-5 of the summed
+    magnitudes of the plain version's, a repeat bit-identical. Returns the
+    stored leaves after the first call."""
+    before = counted.launches
+    s_k, d_k = call([x.clone() for x in stored], us)
+    s_2, d_2 = call([x.clone() for x in stored], us)
+    torch.cuda.synchronize()
+    n_tables = -(-len(stored) // leaf_table.MAX_LEAVES)
+    assert counted.launches == before + 2 * n_tables
+    for x, u, sk, dk, s2, d2 in zip(stored, us, s_k, d_k, s_2, d_2):
+        x_ref, d_ref = plain(x, u)
+        assert torch.equal(sk, x_ref)
+        assert torch.equal(dk, ordered(x, u)[1])
+        terms = (u.to(x.dtype).float() - old_rows(x)).abs()
+        scale = (terms * valid.reshape(-1, 1)).sum(0)
+        assert bool(((dk - d_ref).abs() <= 1e-6 + 1e-5 * scale).all())
+        assert torch.equal(s2, sk) and torch.equal(d2, dk)
+        if not valid.any():
+            assert not dk.any() and torch.equal(sk, x)
+    return s_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", sorted(SCATTER_TREES))
+@pytest.mark.parametrize("n_valid,c", [(37, 64), (0, 64), (450, 600)])
+def test_bank_scatter_leaves_cuda_matches_plain(cuda_device, tree, n_valid,
+                                                c):
+    """One bank of 501 rows (the last the dummy); n_valid distinct rows in
+    shuffled slots of c, the rest pads; c=600 takes two passes of the
+    block's 512 staged slots."""
+    rng = np.random.default_rng(n_valid + c)
+    r = 501
+    ids = np.full(c, r - 1, np.int64)
+    at = rng.permutation(c)[:n_valid]
+    ids[at] = rng.permutation(r - 1)[:n_valid]
+    ids = torch.from_numpy(ids).to(cuda_device)
+    valid = torch.from_numpy(np.isin(np.arange(c), at)).to(cuda_device)
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    banks = [torch.randn((r, m), generator=gen, device="cuda").to(
+        TORCH_DT[dt]) for m, dt in SCATTER_TREES[tree]]
+    us = [torch.randn((c, m), generator=gen, device="cuda")
+          for m, _ in SCATTER_TREES[tree]]
+    _check_scatter_leaves(
+        bank_scatter, banks, us,
+        lambda xs, ys: bank_scatter_leaves(xs, ys, ids, valid),
+        lambda x, u: bank_scatter_ref(x, u, ids, valid),
+        lambda x, u: bank_scatter_ordered_ref(x, u, ids, valid),
+        lambda x: x[ids].float(), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", sorted(SCATTER_TREES))
+@pytest.mark.parametrize("n_valid", [37, 0])
+def test_paged_bank_scatter_leaves_cuda_matches_plain(cuda_device, tree,
+                                                      n_valid):
+    """16 of 32 logical pages of 8 rows resident in shuffled slots, the
+    rest at the dummy slot; n_valid rows of resident pages in shuffled
+    slots of 64, five pads at rows of non-resident pages, the rest at the
+    dummy logical row. The dummy page stays zero."""
+    rng = np.random.default_rng(n_valid)
+    ps, n_slots, lp, c = 8, 16, 32, 64
+    pt = np.full(lp + 1, n_slots, np.int32)
+    res = rng.choice(lp, n_slots, replace=False)
+    pt[res] = rng.permutation(n_slots)
+    away = np.setdiff1d(np.arange(lp), res)
+    lids = np.full(c, lp * ps, np.int32)
+    at = rng.permutation(c)
+    lids[at[:n_valid]] = rng.choice(
+        (res[:, None] * ps + np.arange(ps)).ravel(), n_valid, replace=False)
+    lids[at[n_valid:n_valid + 5]] = away[:5] * ps + 3
+    pt, lids = (torch.from_numpy(x).to(cuda_device) for x in (pt, lids))
+    valid = torch.from_numpy(np.isin(np.arange(c), at[:n_valid])).to(
+        cuda_device)
+    gen = torch.Generator(device="cuda").manual_seed(n_valid)
+    pages, us = [], []
+    for m, dt in SCATTER_TREES[tree]:
+        p = torch.randn(((n_slots + 1) * ps, m), generator=gen,
+                        device="cuda").to(TORCH_DT[dt])
+        p[n_slots * ps:] = 0
+        pages.append(p)
+        us.append(torch.randn((c, m), generator=gen, device="cuda"))
+    out = _check_scatter_leaves(
+        paged_bank_scatter, pages, us,
+        lambda xs, ys: paged_bank_scatter_leaves(xs, ys, pt, lids, valid,
+                                                 page_size=ps),
+        lambda x, u: paged_bank_scatter_ref(x, u, pt, lids, valid,
+                                            page_size=ps),
+        lambda x, u: paged_bank_scatter_ordered_ref(x, u, pt, lids, valid,
+                                                    page_size=ps),
+        lambda x: paged_bank_gather_ref(x, pt, lids, page_size=ps), valid)
+    for p in out:
+        assert not p[n_slots * ps:].any()

@@ -35,7 +35,9 @@ from repro_torch.data import pipeline as tpipeline
 from repro_torch.kernels.ops import (paged_bank_gather_tree,
                                      paged_bank_update_tree)
 from repro_torch.kernels.paged_bank import (paged_bank_gather,
-                                            paged_bank_scatter)
+                                            paged_bank_scatter,
+                                            paged_bank_scatter_ordered_ref,
+                                            paged_bank_scatter_ref)
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -94,6 +96,36 @@ def test_paged_bank_scatter_matches_pallas(dt, n_valid):
     assert not p_t[N_SLOTS * PS:].any(), "a write reached the dummy page"
     if n_valid == 0:
         assert not d_t.any()
+
+
+@pytest.mark.parametrize("dt,n_valid", [("float32", 8), ("bfloat16", 8),
+                                        ("float32", 3)])
+def test_paged_bank_scatter_ordered_ref_matches_plain_and_pallas(dt,
+                                                                 n_valid):
+    """The CUDA kernels' fixed-order oracle through the page table: pages
+    equal to the plain version's and the Pallas kernel's, dsum within rtol
+    1e-5, atol 1e-6 of both, and bit-equal to the dense oracle on the same
+    physical rows."""
+    from repro.kernels.bank_scatter import paged_bank_scatter as pallas
+    from repro_torch.kernels.bank_scatter import bank_scatter_ordered_ref
+    from repro_torch.kernels.paged_bank import phys_rows
+    pages, u, lids, valid = _paged_inputs(384, n_valid, seed=10 + n_valid)
+    args = (_t(u), _t(PAGE_TABLE), _t(lids), _t(valid))
+    pages_t = _t(pages).to(TORCH_DT[dt])
+    p_o, d_o = paged_bank_scatter_ordered_ref(pages_t, *args, page_size=PS)
+    p_p, d_p = paged_bank_scatter_ref(pages_t, *args, page_size=PS)
+    p_j, d_j = pallas(jnp.asarray(pages, dt), jnp.asarray(u),
+                      jnp.asarray(PAGE_TABLE), jnp.asarray(lids),
+                      jnp.asarray(valid), page_size=PS, block_m=128,
+                      interpret=True)
+    assert torch.equal(p_o, p_p)
+    np.testing.assert_array_equal(_f32(p_o), _f32(p_j))
+    for ref in (d_p, d_j):
+        np.testing.assert_allclose(_f32(d_o), _f32(ref), rtol=1e-5,
+                                   atol=1e-6)
+    _, d_dense = bank_scatter_ordered_ref(
+        pages_t, _t(u), phys_rows(_t(PAGE_TABLE), _t(lids), PS), _t(valid))
+    assert torch.equal(d_o, d_dense)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])

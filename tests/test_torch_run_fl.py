@@ -10,6 +10,15 @@ must be identical. Losses and params are fp32 on both sides with matmuls and
 reductions blocked differently, so they agree to rtol 1e-4, atol 1e-6 after
 20 rounds. Within the port, BankedMIFA(dense) equals MIFA(array) to rtol
 1e-5, atol 1e-6: G_sum is kept incrementally instead of re-summed.
+
+The bf16 memories (MIFA(memory_dtype="bfloat16"), its delta form and
+BankedMIFA(DenseBank(dtype="bfloat16"))) are held to the reference's bf16
+runs on paper_mlp: both round the stored G or bank rows to bf16 at the same
+places, so only the fp32 reordering remains. The largest gaps measured over
+the three were a relative loss gap of 3.9e-7 and an absolute param gap of
+7.0e-6; the bounds are rtol 1e-6 on the losses and atol 1e-5 on the params
+(|p| <= 1.13), both under what the f32 case allows (rtol 1e-4 of the
+losses; 1e-6 + 1e-4·|p|, up to 1.1e-4, of the params).
 """
 import jax
 import numpy as np
@@ -56,6 +65,17 @@ def _problem(name):
     probs = label_correlated_probs(labels, p_min=0.1)
     batcher = ClientBatcher(X, y, idx, batch_size=8, k_steps=5, seed=0)
     return cfg, batcher, probs, (Xte.astype(np.float32), yte)
+
+
+BF16_ALGOS = {
+    "mifa_array": (lambda: JMIFA(memory_dtype="bfloat16"),
+                   lambda: MIFA(memory_dtype="bfloat16")),
+    "mifa_delta": (lambda: JMIFA(memory="delta", memory_dtype="bfloat16"),
+                   lambda: MIFA(memory="delta", memory_dtype="bfloat16")),
+    "banked_dense": (lambda: JBankedMIFA(JDenseBank(dtype="bfloat16")),
+                     lambda: BankedMIFA(DenseBank(dtype="bfloat16",
+                                                  device="cpu"))),
+}
 
 
 def _run_jax(name, algo, batcher, probs, test, params):
@@ -123,6 +143,27 @@ def test_run_fl_matches_reference(name):
     _close(hb.train_loss, ha.train_loss, 1e-5, 1e-6)
     for a, b in zip(tree_leaves(pb), tree_leaves(pa)):
         _close(a.numpy(), b.numpy(), 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("key", sorted(BF16_ALGOS))
+def test_bf16_memory_matches_reference(key):
+    name = "paper_mlp"
+    cfg, batcher, probs, test = _problem(name)
+    jparams = jax_build(jax_smoke(name)).init(jax.random.PRNGKey(0))
+    make_j, make_t = BF16_ALGOS[key]
+    pj, hj = _run_jax(name, make_j(), batcher, probs, test, jparams)
+    pt, ht = _run_torch(cfg, make_t(), batcher, probs, test,
+                        params_from_jax(jax.tree.map(np.asarray, jparams),
+                                        "cpu"))
+    assert ht.n_active == hj.n_active
+    assert ht.tau_bar == hj.tau_bar and ht.tau_max == hj.tau_max
+    _close(ht.train_loss, hj.train_loss, 1e-6, 0.0)
+    assert [t for t, _ in ht.eval_loss] == [t for t, _ in hj.eval_loss]
+    _close([v for _, v in ht.eval_loss], [v for _, v in hj.eval_loss],
+           1e-6, 0.0)
+    for a, b in zip(tree_leaves(pt), jax.tree.leaves(pj)):
+        assert a.dtype == torch.float32 and tuple(a.shape) == b.shape
+        _close(a.numpy(), np.asarray(b), 0.0, 1e-5)
 
 
 def test_bf16_memory_runs_and_stays_close_to_f32():
