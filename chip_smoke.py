@@ -67,7 +67,21 @@ Run from the root of a checkout on a machine with a CUDA card. It
      round (all six leaves and three trials) and `mifa_aggregate` once per
      trial per round; then the FedAvgSampling(S=50) fleet runs 10 rounds
      on the CPU and on the card, held together;
- 11. holds the model zoo's kernels against their plain versions on the card:
+ 11. runs the scan engine (`engine="scan"`, chunks of 10 rounds, each
+     round a replay of one round body captured as a CUDA graph, a chunk's
+     inputs staged to the card in one pinned copy): the three paper paths
+     of steps 4-5 at full width, an eviction run (N=1024, cohorts of 64
+     through 48 slots, chunks of one round) against the paged and
+     DenseBank loops, MIFA(int8) and BankedMIFA(PagedDeviceBank(int8))
+     (the quantizer's exact and statistical checks on the card first), and
+     the five Figure 2 fleets without the update clock; each scan run must
+     be bit-equal to its loop run and launch each kernel once a replay
+     plus once in the warm-up before capture; prints scan and loop ms a
+     round; profiles one scan run each of MIFA(array) and
+     BankedMIFA(dense), holding the kernels the trace shows by name to the
+     launch counters and printing the device's idle share; then runs the
+     main path's MIFA(array) loop again, bit-equal to its first run;
+ 12. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
      H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
      non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
@@ -75,14 +89,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      96, an odd S (Q=1) and zamba2's largest |dA|; times both per call at
      the served shapes beside their bounds and,
      for attention, one `scaled_dot_product_attention` call;
- 12. serves zamba2-7b at full width and depth (81 layers, bf16, random
+ 13. serves zamba2-7b at full width and depth (81 layers, bf16, random
      params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
      greedy tokens; every prefill attention call and SSD scan must launch
      the kernels (13 and 68), decode none, no other kernel; then
      mamba2-1.3b (48 scans) and granite-3-8b cut to 4 layers (4 attention
      calls, GQA g=4), printing prefill and decode times, tok/s and the
      peak device allocation;
- 13. runs zamba2-7b at full width in f32, its first 6 layers, on the card
+ 14. runs zamba2-7b at full width in f32, its first 6 layers, on the card
      and on the CPU (prefill logits, every cache leaf, two decode steps),
      and its first 12 layers as 2048 prompt tokens plus 128 teacher-forced
      decode steps against one prefill of 2176 tokens.
@@ -141,6 +155,22 @@ DEVICE_RTOL, DEVICE_ATOL = 1e-4, 1e-4
 TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-2)}
 # rows per page on every paged run
 PAGE_SIZE = 8
+# the scan engine: rounds a chunk holds (a chunk's batches of the dense
+# path take 51.2 MB a round on the card); rounds of each profiled scan run;
+# a scan run is held bit-equal to its loop run, or else within SCAN_RTOL
+# of the magnitudes of the losses and params (and the gap reported)
+SCAN_CHUNK, PROFILE_ROUNDS, SCAN_RTOL = 10, 20, 1e-5
+# a captured round has one shape: the scan pads every cohort to one width,
+# the N-client bucket when none is pinned, while the loop pads each round
+# to its own power-of-two bucket (64 mostly, 128 in the all-active round
+# 0), and local training's sums group by the padded length. So the cohort
+# runs that scan and the loop runs they are held to both pin SCAN_CAP
+SCAN_CAP = 128
+# int8 memory: its stochastic rounding moves each stored update by at most
+# one quantum (absmax/127 of its row); on the CPU tests' smaller problem
+# the int8 runs' losses stayed within 3.4e-3 (relative) of MIFA(array)'s
+# over 20 rounds, and within 1.1e-2 over three model seeds
+INT8_LOSS_RTOL = 2e-2
 # eviction phase: N=1024 clients in 128 logical pages. A round's 64 ids (32
 # from the hot set of ids < 128, i.e. 16 pages, and 32 uniform over the
 # rest) span at most 16 + 32 = 48 pages, so 48 slots is the least that holds
@@ -441,12 +471,14 @@ def time_mifa(gen, active_path) -> dict:
                   + 2 * m * 4 + n                       # w, w_new, mask
                   for m in PATH_WIDTHS]
     leaf_ops = [n * m + 2 * m for m in PATH_WIDTHS]
+    # the kernel reads its rate from the card, as in the rounds
+    eta_dev = torch.full((), eta, device="cuda")
     return time_path(
-        lambda *a: mifa_aggregate(*a, eta),
+        lambda *a: mifa_aggregate(*a, eta_dev),
         lambda *a: mifa_aggregate_ref(*a, eta), sets, leaf_bytes, leaf_ops,
         tree=lambda s: mifa_aggregate_leaves(
             [a[0] for a in s], [a[1] for a in s], active_path,
-            [a[3] for a in s], eta))
+            [a[3] for a in s], eta_dev))
 
 
 def bank_inputs(gen, r, m, c, bank_dtype, ids, valid):
@@ -857,7 +889,11 @@ def clone_tree(params, device):
     return tree_map(lambda p: p.detach().to(device).clone(), params)
 
 
-def run_path(name, algo, problem, params0, n_rounds, device, eval_every):
+def run_path(name, algo, problem, params0, n_rounds, device, eval_every,
+             engine="loop", cohort_capacity=None):
+    """One run of the paper path; under engine="scan" the chunks hold
+    SCAN_CHUNK rounds. Returns (params, history, host seconds between the
+    participation draws of consecutive rounds)."""
     from repro_torch.core import BernoulliParticipation, run_fl
     from repro_torch.optim import inv_t
     model, batcher, probs, eval_fn = problem
@@ -867,7 +903,8 @@ def run_path(name, algo, problem, params0, n_rounds, device, eval_every):
                           n_rounds=n_rounds, weight_decay=1e-3,
                           params=clone_tree(params0, device),
                           eval_fn=eval_fn, eval_every=eval_every,
-                          device=device)
+                          engine=engine, scan_chunk=SCAN_CHUNK,
+                          cohort_capacity=cohort_capacity, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return params, hist, np.diff(part.stamps)
@@ -875,20 +912,8 @@ def run_path(name, algo, problem, params0, n_rounds, device, eval_every):
 
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from repro_torch.kernels.bank_scatter import (bank_scatter,
-                                                  bank_scatter_batched)
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mifa_aggregate import mifa_aggregate
-    from repro_torch.kernels.paged_bank import (paged_bank_gather,
-                                                paged_bank_scatter,
-                                                paged_bank_scatter_batched)
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    return {"mifa_aggregate": mifa_aggregate, "bank_scatter": bank_scatter,
-            "paged_bank_scatter": paged_bank_scatter,
-            "paged_bank_gather": paged_bank_gather,
-            "bank_scatter_batched": bank_scatter_batched,
-            "paged_bank_scatter_batched": paged_bank_scatter_batched,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    from repro_torch.kernels.ops import launch_counters
+    return launch_counters()
 
 
 def reset_counts() -> None:
@@ -926,7 +951,7 @@ def check_run(name, params, hist, dts, counts, kernel) -> str:
             f"{kernel} launches {counts[kernel]}")
 
 
-def main_path(params0, problem) -> tuple[dict, list, tuple]:
+def main_path(params0, problem) -> tuple[dict, list, dict, dict]:
     from repro_torch.bank import BankedMIFA, DenseBank
     from repro_torch.core import MIFA
     from repro_torch.tree import tree_leaves
@@ -936,7 +961,7 @@ def main_path(params0, problem) -> tuple[dict, list, tuple]:
     paths = {"mifa_array": (MIFA(memory="array"), "mifa_aggregate"),
              "banked_dense": (BankedMIFA(DenseBank(device="cuda")),
                               "bank_scatter")}
-    launches, runs, rows = {}, {}, []
+    launches, runs, rows, loop_ms = {}, {}, [], {}
     for name, (algo, kernel) in paths.items():
         reset_counts()
         params, hist, dts = run_path(name, algo, problem, params0, ROUNDS,
@@ -945,6 +970,7 @@ def main_path(params0, problem) -> tuple[dict, list, tuple]:
         launches[kernel] = counts[kernel]
         rows.append(check_run(name, params, hist, dts, counts, kernel))
         runs[name] = (params, hist)
+        loop_ms[name] = float(np.median(dts[10:])) * 1e3
     a = np.asarray(runs["mifa_array"][1].train_loss)
     b = np.asarray(runs["banked_dense"][1].train_loss)
     rel = np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-12))
@@ -955,7 +981,7 @@ def main_path(params0, problem) -> tuple[dict, list, tuple]:
           "anchor property: MIFA(array) and BankedMIFA(dense) diverge")
     check(runs["mifa_array"][1].n_active == runs["banked_dense"][1].n_active,
           "the two paths saw different masks")
-    return launches, rows, runs["banked_dense"]
+    return launches, rows, runs, loop_ms
 
 
 def run_gaps(run_a, run_b) -> tuple[float, float]:
@@ -968,7 +994,8 @@ def run_gaps(run_a, run_b) -> tuple[float, float]:
     return dloss, dparam
 
 
-def paged_path(params0, problem, dense) -> tuple[int, list]:
+def paged_path(params0, problem, dense) -> tuple[int, list, tuple,
+                                                  float]:
     """The paper path through BankedMIFA(PagedDeviceBank(page_size=8)):
     first two BankedMIFA(DenseBank) runs are held bit-equal to each other
     (is local training on the card run-to-run deterministic?), then the
@@ -998,7 +1025,8 @@ def paged_path(params0, problem, dense) -> tuple[int, list]:
           f"BankedMIFA(PagedDeviceBank) is not "
           f"{'bit-equal to' if d_loss == d_param == 0 else 'as close as'} "
           f"BankedMIFA(DenseBank)")
-    return counts["paged_bank_scatter"], rows
+    return (counts["paged_bank_scatter"], rows, (params, hist),
+            float(np.median(dts[10:])) * 1e3)
 
 
 def eviction_phase(params0) -> tuple[dict, list]:
@@ -1546,9 +1574,9 @@ def fig2_algo(name, probs, device):
                 page_size=PAGE_SIZE, device=device))}[name]()
 
 
-def fleet_kw(name, problem, n_rounds, device) -> dict:
+def fleet_kw(name, problem, n_rounds, device, cap=FLEET_CAP) -> dict:
     """run_fl / run_fleet arguments shared by a fleet and its sequential
-    runs: the cohort algorithms pin the cohort width."""
+    runs: the cohort algorithms pin the cohort width to `cap`."""
     from repro_torch.optim import inv_t
     model, batcher, probs, _ = problem
     clock = FIG2[name][0]
@@ -1557,12 +1585,15 @@ def fleet_kw(name, problem, n_rounds, device) -> dict:
                 batcher=batcher,
                 schedule=inv_t(1.0), n_rounds=n_rounds, weight_decay=1e-3,
                 uses_update_clock=clock,
-                cohort_capacity=FLEET_CAP if cohort else None, device=device)
+                cohort_capacity=cap if cohort else None, device=device)
 
 
-def run_fig2_fleet(name, problem, n_rounds, device, eval_fn=None):
-    """One Figure 2 algorithm as one `run_fleet` over seeds 0-2; returns
-    (params, history, per-round host seconds)."""
+def run_fig2_fleet(name, problem, n_rounds, device, eval_fn=None,
+                   engine="loop", cap=FLEET_CAP):
+    """One Figure 2 algorithm as one `run_fleet` over seeds 0-2 (under
+    engine="scan" in chunks of SCAN_CHUNK rounds; a cohort fleet pinned
+    to width `cap`); returns (params, history, host seconds between the
+    draws of consecutive rounds)."""
     from repro_torch.core import BernoulliParticipation
     from repro_torch.fleet import Trial, run_fleet
     probs = problem[2]
@@ -1571,8 +1602,10 @@ def run_fig2_fleet(name, problem, n_rounds, device, eval_fn=None):
     trials = [Trial(seed=s, participation=p, label=f"{name}/seed{s}")
               for s, p in zip(FLEET_SEEDS, parts)]
     params, hist = run_fleet(trials=trials, eval_fn=eval_fn,
-                             eval_every=n_rounds,
-                             **fleet_kw(name, problem, n_rounds, device))
+                             eval_every=n_rounds, engine=engine,
+                             scan_chunk=SCAN_CHUNK,
+                             **fleet_kw(name, problem, n_rounds, device,
+                                        cap))
     if device == "cuda":
         torch.cuda.synchronize()
     return params, hist, np.diff(parts[0].stamps)
@@ -1711,6 +1744,395 @@ def fleet_card_vs_cpu(problem_cuda, problem_cpu) -> str:
             f"{['%.2e' % d for d in dparam]}, max |dloss| {dloss:.2e}, "
             f"global updates {s_gpu['global_updates'][:, -1].tolist()} "
             f"(rtol {DEVICE_RTOL}, atol {DEVICE_ATOL})")
+
+
+# --------------------------------------------------------------------------- #
+# the scan engine: one captured round replayed a round, chunks staged
+# --------------------------------------------------------------------------- #
+
+class CohortDraws:
+    """Host participation for the eviction runs: each round's mask holds
+    EVICT_C unique ids, half from the hot set of ids < EVICT_HOT and half
+    uniform over the rest, drawn as `eviction_phase` draws them."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, t: int) -> np.ndarray:
+        n, c = EVICT_N, EVICT_C
+        hot = self.rng.choice(EVICT_HOT, c // 2, replace=False)
+        rest = self.rng.choice(np.setdiff1d(np.arange(n), hot), c - c // 2,
+                               replace=False)
+        mask = np.zeros(n, bool)
+        mask[np.concatenate([hot, rest])] = True
+        return mask
+
+
+def scan_equal(what, loop_run, scan_run) -> str:
+    """A scan run against its loop run on the card: the same masks, and
+    params and losses bit-equal, or else within SCAN_RTOL of their
+    magnitudes (the gap is then reported). Returns the verdict."""
+    from repro_torch.tree import tree_leaves
+    d_loss, d_param = run_gaps(loop_run, scan_run)
+    check(np.array_equal(np.asarray(loop_run[1].n_active),
+                         np.asarray(scan_run[1].n_active)),
+          f"{what}: scan and loop saw different masks")
+    if d_loss == 0 and d_param == 0:
+        return "bit-equal to the loop"
+    p_scale = max(p.abs().max().item() for p in tree_leaves(loop_run[0]))
+    l_scale = float(np.max(np.abs(loop_run[1].train_loss)))
+    check(d_loss <= SCAN_RTOL * l_scale and d_param <= SCAN_RTOL * p_scale,
+          f"{what}: scan off the loop by |dloss| {d_loss:.3e}, |dparam| "
+          f"{d_param:.3e} (bound {SCAN_RTOL} of {l_scale:.3e}, "
+          f"{p_scale:.3e})")
+    return (f"NOT bit-equal to the loop: |dloss| {d_loss:.3e}, |dparam| "
+            f"{d_param:.3e} (within {SCAN_RTOL} of the magnitudes)")
+
+
+def scan_ms(dts, n_rounds=ROUNDS) -> float:
+    """Host ms a round of a scan run over its middle chunks: from the draw
+    of round SCAN_CHUNK to that of round n_rounds - SCAN_CHUNK (the first
+    chunk holds the warm-up and capture, the last the final reads)."""
+    stamps = np.concatenate([[0.0], np.cumsum(dts)])
+    a, b = SCAN_CHUNK, n_rounds - SCAN_CHUNK
+    return float(stamps[b] - stamps[a]) / (b - a) * 1e3
+
+
+def scan_phase(params0, problem, loop_runs, loop_ms) -> tuple[dict, list]:
+    """The three paper paths of the main path under engine="scan" at full
+    width, ROUNDS rounds in chunks of SCAN_CHUNK: each kernel launched once
+    a replay plus once in the warm-up before capture, the run bit-equal to
+    its loop run, and its host ms a round beside the loop's."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.core import MIFA
+    paths = {"mifa_array": (lambda: MIFA(memory="array"), "mifa_aggregate"),
+             "banked_dense": (lambda: BankedMIFA(DenseBank(device="cuda")),
+                              "bank_scatter"),
+             "banked_paged": (lambda: BankedMIFA(PagedDeviceBank(
+                 page_size=PAGE_SIZE, device="cuda")),
+                 "paged_bank_scatter")}
+    launches, rows = {}, []
+    for name, (make, kernel) in paths.items():
+        cap = SCAN_CAP if name.startswith("banked") else None
+        if cap is not None:     # the loop run at the scan's pinned width
+            params, hist, dts = run_path(name, make(), problem, params0,
+                                         ROUNDS, "cuda", ROUNDS,
+                                         cohort_capacity=cap)
+            loop_runs = {**loop_runs, name: (params, hist)}
+            loop_ms = {**loop_ms, name: float(np.median(dts[10:])) * 1e3}
+        reset_counts()
+        params, hist, dts = run_path(name, make(), problem, params0, ROUNDS,
+                                     "cuda", ROUNDS, engine="scan",
+                                     cohort_capacity=cap)
+        counts = read_counts()
+        want = {k: ROUNDS + 1 if k == kernel else 0 for k in counts}
+        check(counts == want, f"scan {name}: launches {counts}, expected "
+                              f"{want} (a replay a round and the warm-up)")
+        launches[kernel] = counts[kernel]
+        verdict = scan_equal(f"scan {name}", loop_runs[name],
+                             (params, hist))
+        width = "" if cap is None else f", cohorts pinned to {cap}"
+        rows.append(f"scan {name}: {ROUNDS} rounds in chunks of "
+                    f"{SCAN_CHUNK}{width}, {scan_ms(dts):.3f} ms/round (host "
+                    f"clock, rounds {SCAN_CHUNK}-{ROUNDS - SCAN_CHUNK - 1}) "
+                    f"vs loop {loop_ms[name]:.3f} ms/round (median, rounds "
+                    f"10-{ROUNDS - 2}); {verdict}; launches {counts}")
+    return launches, rows
+
+
+def eviction_scan_phase() -> tuple[dict, list]:
+    """Eviction under engine="scan": EVICT_ROUNDS rounds of N=EVICT_N
+    paper_mlp clients at full width (EVICT_C-client cohorts, half hot)
+    through BankedMIFA(PagedDeviceBank(page_size=8, n_slots=48)) in chunks
+    of one round (a chunk's cohort union must fit the slots), against the
+    paged bank's and DenseBank's loop runs: bit-equal trajectories, and
+    every row (through the gather kernel, one launch) and G_sum bit-equal
+    to DenseBank's."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.core import RoundRunner
+    from repro_torch.core.scan_engine import ScanDriver
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_leaves
+    model, batcher, _, _ = paper_problem(n_clients=EVICT_N)
+
+    def runner(bank):
+        return RoundRunner(model=model, algo=BankedMIFA(bank),
+                           batcher=batcher, schedule=inv_t(1.0),
+                           weight_decay=1e-3, seed=0,
+                           cohort_capacity=EVICT_C, device="cuda")
+
+    def paged():
+        return PagedDeviceBank(page_size=PAGE_SIZE, n_slots=EVICT_SLOTS,
+                               device="cuda")
+    loops = {}
+    for name, bank in (("dense", DenseBank(device="cuda")),
+                       ("paged", paged())):
+        r, part = runner(bank), CohortDraws(12)
+        for t in range(EVICT_ROUNDS):
+            r.step(t, part.sample(t))
+        loops[name] = r
+    bank = paged()
+    r = runner(bank)
+    reset_counts()
+    ScanDriver(r, scan_chunk=1).run(EVICT_ROUNDS,
+                                    participation=CohortDraws(12))
+    torch.cuda.synchronize()
+    in_rounds = read_counts()
+    check(in_rounds["paged_bank_scatter"] == EVICT_ROUNDS + 1
+          and sum(in_rounds.values()) == EVICT_ROUNDS + 1,
+          f"eviction scan launches {in_rounds}")
+    check(bank.faults > 0 and bank.evictions > 0 and bank.refaults > 0,
+          f"eviction scan did not evict and re-fault: faults {bank.faults}, "
+          f"evictions {bank.evictions}, re-faults {bank.refaults}")
+    bank.check_invariants(r.state["bank"])
+    verdicts = [scan_equal(f"eviction scan vs {k} loop",
+                           (loops[k].params, loops[k].hist),
+                           (r.params, r.hist)) for k in ("paged", "dense")]
+    everyone = np.arange(EVICT_N)
+    dense_bank = loops["dense"].algo.bank
+    rows_s = bank.gather(r.state["bank"], everyone)
+    rows_d = dense_bank.gather(loops["dense"].state["bank"], everyone)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(rows_s),
+                                                tree_leaves(rows_d))),
+          "eviction scan: paged rows differ from DenseBank's")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(r.state["bank"]["g_sum"]),
+        tree_leaves(loops["dense"].state["bank"]["g_sum"]))),
+          "eviction scan: paged G_sum differs from DenseBank's")
+    counts = read_counts()
+    return counts, [
+        f"eviction scan: N={EVICT_N}, {EVICT_ROUNDS} rounds of C={EVICT_C} "
+        f"through PagedDeviceBank(page_size={PAGE_SIZE}, "
+        f"n_slots={EVICT_SLOTS}) in chunks of 1: faults {bank.faults}, "
+        f"evictions {bank.evictions}, re-faults {bank.refaults}; vs the "
+        f"paged loop: {verdicts[0]}; vs the DenseBank loop: {verdicts[1]}; "
+        f"all {EVICT_N} rows and G_sum bit-equal to DenseBank; launches in "
+        f"the rounds {in_rounds}, with the gather {counts}"]
+
+
+def check_quantizer_on_card() -> list:
+    """The int8 quantizer on the card, with a CUDA generator: the scale
+    equal to the CPU's, each value floor(x/scale) or one step up, the round
+    trip within one quantum, the mean over 400 generator seeds within
+    4·quantum/sqrt(400), zero rows exact, ±absmax at ±127."""
+    from repro_torch.core import quantized_memory as qm
+    x_cpu = torch.randn((N_CLIENTS, PATH_WIDTHS[1]),
+                        generator=torch.Generator().manual_seed(3))
+    x = x_cpu.cuda()
+    q, s = qm.quantize_leaf(torch.Generator(device="cuda").manual_seed(0), x)
+    _, s_cpu = qm.quantize_leaf(torch.Generator().manual_seed(0), x_cpu)
+    check(torch.equal(s.cpu(), s_cpu), "int8 scale on the card != CPU")
+    step = q.double() - torch.floor(x / s[:, None]).double()
+    inner = q.abs() < 127
+    check(bool(((step == 0) | (step == 1))[inner].all()),
+          "int8 rounding left the floor/floor+1 bracket")
+    err = (qm.dequantize_leaf(q, s) - x).abs()
+    check(bool((err <= s[:, None] + 1e-12).all()),
+          f"int8 round trip off by {err.max().item():.3e}")
+    small = torch.randn((2, 24), generator=torch.Generator().manual_seed(
+        7)).cuda() * 0.5
+    reps = 400
+    acc = torch.zeros_like(small)
+    for i in range(reps):
+        acc += qm.dequantize_leaf(*qm.quantize_leaf(
+            torch.Generator(device="cuda").manual_seed(i), small))
+    quantum = small.abs().max().item() / 127.0
+    bias = (acc / reps - small).abs().max().item()
+    check(bias <= 4 * quantum / math.sqrt(reps) + 1e-7,
+          f"int8 rounding biased: mean off by {bias:.3e}")
+    zq, zs = qm.quantize_leaf(torch.Generator(device="cuda"),
+                              torch.zeros((3, 16), device="cuda"))
+    check(not zq.any() and bool((zs > 0).all()), "int8 zero rows")
+    cq, _ = qm.quantize_leaf(torch.Generator(device="cuda"), torch.tensor(
+        [[3.0, -3.0, 1.5, 0.0]], device="cuda"))
+    check(cq[0, 0].item() == 127 and cq[0, 1].item() == -127,
+          "int8 absmax not at +-127")
+    return [f"int8 quantizer on the card ({N_CLIENTS}x{PATH_WIDTHS[1]}): "
+            f"scale equal to the CPU's, values in the floor bracket, round "
+            f"trip max |err| {err.max().item():.3e} (within one quantum), "
+            f"mean over {reps} seeds off by {bias:.3e} (bound "
+            f"{4 * quantum / math.sqrt(reps):.3e}), zero rows exact, "
+            f"+-absmax at +-127"]
+
+
+def int8_phase(params0, problem, array_run) -> list:
+    """int8 memory on the card at full width: the quantizer's checks;
+    MIFA(int8) and BankedMIFA(PagedDeviceBank(int8)) for ROUNDS rounds on
+    the loop and on the scan (the rounding drawn from the run's device
+    generator, registered with the captured graph), scan bit-equal to
+    loop, losses within INT8_LOSS_RTOL of MIFA(array)'s; the int8 bank's
+    G_sum against the sum of its dequantized rows."""
+    from repro_torch.bank import BankedMIFA, PagedDeviceBank
+    from repro_torch.core import MIFA
+    from repro_torch.tree import tree_leaves, tree_map
+    rows = check_quantizer_on_card()
+    banks = []
+
+    def int8_bank():
+        banks.append(PagedDeviceBank(page_size=PAGE_SIZE, dtype="int8",
+                                     device="cuda"))
+        return BankedMIFA(banks[-1])
+    want = np.asarray(array_run[1].train_loss)
+    for name, make in (("mifa_int8", lambda: MIFA(memory="int8")),
+                       ("banked_paged_int8", int8_bank)):
+        runs = {}
+        cap = SCAN_CAP if name.startswith("banked") else None
+        for engine in ("loop", "scan"):
+            reset_counts()
+            runs[engine] = run_path(name, make(), problem, params0, ROUNDS,
+                                    "cuda", ROUNDS, engine=engine,
+                                    cohort_capacity=cap)[:2]
+            counts = read_counts()
+            check(not any(counts.values()),
+                  f"{name} {engine}: int8 memory launched {counts}")
+        verdict = scan_equal(f"scan {name}", runs["loop"], runs["scan"])
+        got = np.asarray(runs["scan"][1].train_loss)
+        gap = float(np.max(np.abs(got - want)
+                           / np.maximum(np.abs(want), 1e-12)))
+        check(bool(np.isfinite(got).all()) and gap <= INT8_LOSS_RTOL,
+              f"{name}: losses off MIFA(array)'s by {gap:.3e} (relative; "
+              f"bound {INT8_LOSS_RTOL})")
+        rows.append(f"{name}: {ROUNDS} rounds, scan {verdict}; max "
+                    f"relative train-loss gap to MIFA(array) {gap:.3e} "
+                    f"(bound {INT8_LOSS_RTOL}); eval loss "
+                    f"{runs['scan'][1].eval_loss[-1][1]:.4f} vs "
+                    f"{array_run[1].eval_loss[-1][1]:.4f}")
+    bank = banks[-1]
+    # the scan run's bank: G_sum against the sum of all rows, dequantized
+    state = bank.init(params0, N_CLIENTS)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.default_rng(4)
+    for _ in range(20):
+        ids = np.sort(rng.choice(N_CLIENTS, 40, replace=False))
+        upd = tree_map(lambda p: torch.randn(
+            (len(ids),) + tuple(p.shape), generator=gen, device="cuda"),
+            params0)
+        state = bank.scatter(state, ids, upd, rng=gen)
+    g_rows = bank.gather(state, np.arange(N_CLIENTS))
+    rtol, atol = TOL[torch.float32]
+    g_err = 0.0
+    for g, r in zip(tree_leaves(state["g_sum"]), tree_leaves(g_rows)):
+        err = (g.double() - r.double().sum(0)).abs()
+        check(bool((err <= atol + rtol * r.double().abs().sum(0)).all()),
+              f"int8 bank G_sum off the sum of its rows by "
+              f"{err.max().item():.3e}")
+        g_err = max(g_err, err.max().item())
+    rows.append(f"PagedDeviceBank(int8): 20 scatters of 40 rows, G_sum vs "
+                f"the sum of the dequantized rows max |err| {g_err:.3e} "
+                f"(rtol {rtol} of the summed magnitudes)")
+    return rows
+
+
+# the port's CUDA kernel names, by the counter of the wrapper launching it
+CUDA_NAMES = {"mifa_aggregate": "mifa_aggregate_kernel",
+              "bank_scatter": "bank_scatter_kernel",
+              "paged_bank_scatter": "paged_scatter_kernel"}
+
+
+def profiled_scan(params0, problem) -> list:
+    """One scan run each of MIFA(array) and BankedMIFA(DenseBank) of
+    PROFILE_ROUNDS rounds (`ScanDriver` on a `RoundRunner`, as `run_fl`
+    drives them) under torch.profiler: the kernels the trace shows by
+    name, counted, must equal the launch counters (replays and the
+    warm-up); the device's busy time and idle share of the run's wall
+    time; the `ScanDriver`'s replays, captured graphs and bytes staged a
+    chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.core import BernoulliParticipation, MIFA, RoundRunner
+    from repro_torch.core.runner import ROUND_PHASES
+    from repro_torch.core.scan_engine import ScanDriver
+    from repro_torch.optim import inv_t
+    model, batcher, probs, _ = problem
+    rows = []
+    for name, algo, kernel in (
+            ("mifa_array", MIFA(), "mifa_aggregate"),
+            ("banked_dense", BankedMIFA(DenseBank(device="cuda")),
+             "bank_scatter")):
+        runner = RoundRunner(model=model, algo=algo, batcher=batcher,
+                             schedule=inv_t(1.0), weight_decay=1e-3,
+                             params=clone_tree(params0, "cuda"),
+                             device="cuda")
+        driver = ScanDriver(runner, scan_chunk=SCAN_CHUNK)
+        reset_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            driver.run(PROFILE_ROUNDS,
+                       participation=BernoulliParticipation(probs, seed=1))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        # device ops, without the phase ranges' totals of the kernels in
+        # them (the warm-up round's), which the kernels count already
+        ops = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.key not in ROUND_PHASES]
+        seen = sum(e.count for e in ops if CUDA_NAMES[kernel] in e.key)
+        check(seen == counts[kernel],
+              f"profiled scan {name}: the trace shows {seen} "
+              f"{CUDA_NAMES[kernel]} kernels, the counter {counts[kernel]}")
+        check(driver.replays == PROFILE_ROUNDS,
+              f"profiled scan {name}: {driver.replays} replays")
+        busy = sum(e.self_device_time_total for e in ops) / 1e3
+        top = sorted(ops, key=lambda e: -e.self_device_time_total)[:4]
+        chunks = driver.chunks.chunks
+        rows.append(
+            f"profiled scan {name}: {PROFILE_ROUNDS} rounds in {chunks} "
+            f"chunks, {driver.replays} replays of "
+            f"{len(driver.chunks.graphs)} captured graph(s), "
+            f"{driver.staged_bytes // chunks} B staged a chunk (one pinned "
+            f"copy); {CUDA_NAMES[kernel]} {seen} in the trace = "
+            f"{counts[kernel]} counted; device busy {busy:.2f} ms of "
+            f"{wall_ms:.2f} ms wall (idle share {1 - busy / wall_ms:.3f}), "
+            f"{busy / PROFILE_ROUNDS:.3f} ms a round; top "
+            + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}"
+                        f" ms x{e.count}" for e in top))
+    return rows
+
+
+def fleet_scan_phase(problem, fleet_runs) -> tuple[dict, list]:
+    """The Figure 2 fleets that can scan (no update clock: the dense-mask
+    MIFA(array), BiasedFedAvg and FedAvgIS fleets and both cohort fleets,
+    these pinned to SCAN_CAP on the scan and on a loop run of their own)
+    under engine="scan", each bit-equal to its loop fleet, with its
+    kernel launched once a replay plus once in the warm-up (MIFA(array):
+    once a trial)."""
+    from repro_torch.fleet import make_fleet_eval
+    fleet_eval = make_fleet_eval(problem[0], problem[3].eval_batch,
+                                 device="cuda")
+    k_trials = len(FLEET_SEEDS)
+    launches, rows = {}, []
+    for name, (clock, _, kernel) in FIG2.items():
+        if clock:
+            continue
+        loop = fleet_runs[name]
+        if name.startswith("banked"):   # the loop at the scan's width
+            loop = run_fig2_fleet(name, problem, FLEET_ROUNDS, "cuda",
+                                  fleet_eval, cap=SCAN_CAP)
+        reset_counts()
+        params, hist, dts = run_fig2_fleet(name, problem, FLEET_ROUNDS,
+                                           "cuda", fleet_eval, engine="scan",
+                                           cap=SCAN_CAP)
+        counts = read_counts()
+        per = k_trials if kernel == "mifa_aggregate" else 1
+        want = {k: (FLEET_ROUNDS + 1) * per if k == kernel else 0
+                for k in counts}
+        check(counts == want, f"fleet scan {name}: launches {counts}, "
+                              f"expected {want}")
+        if kernel in ("bank_scatter_batched", "paged_bank_scatter_batched"):
+            launches[kernel] = counts[kernel]
+        check(all(np.array_equal(a, b) for a, b in zip(
+            [loop[1].stacked()[k] for k in ("train_loss", "n_active")],
+            [hist.stacked()[k] for k in ("train_loss", "n_active")])),
+              f"fleet scan {name}: losses or masks differ from the loop's")
+        verdict = scan_equal(f"fleet scan {name}", loop[:2], (params, hist))
+        rows.append(f"fleet scan {name}: K={k_trials} x {FLEET_ROUNDS} "
+                    f"rounds in chunks of {SCAN_CHUNK}, "
+                    f"{scan_ms(dts, FLEET_ROUNDS):.3f} ms/round vs loop "
+                    f"{np.median(loop[2][10:]) * 1e3:.3f}; {verdict}; "
+                    f"launches {counts}")
+    return launches, rows
 
 
 # --------------------------------------------------------------------------- #
@@ -2138,11 +2560,12 @@ def main() -> int:
                   f"{leaf['us']:.2f} us, plain {leaf['plain_us']:.2f} us"
                   f"{lib}, bound {leaf['bound_us']:.2f} us")
 
-    launches, rows, dense = main_path(params0, problem)
+    launches, rows, main_runs, loop_ms = main_path(params0, problem)
     for row in rows:
         print(row)
-    launches["paged_bank_scatter"], rows = paged_path(params0, problem,
-                                                      dense)
+    (launches["paged_bank_scatter"], rows, main_runs["banked_paged"],
+     loop_ms["banked_paged"]) = paged_path(params0, problem,
+                                           main_runs["banked_dense"])
     for row in rows:
         print(row)
     evict_counts, rows = eviction_phase(params0)
@@ -2155,11 +2578,37 @@ def main() -> int:
                                      + million_counts["paged_bank_gather"])
     problem_cpu = paper_problem(device="cpu")
     card_vs_cpu(params0, problem, problem_cpu)
-    fleet_launches, _, rows = fig2_phase(problem)
+    fleet_launches, fleet_runs, rows = fig2_phase(problem)
     launches.update(fleet_launches)
     for row in rows:
         print(row)
     print(fleet_card_vs_cpu(problem, problem_cpu))
+
+    # the scan engine: the paper paths, eviction, int8 memory and the
+    # fleets again, each round a replay of one captured CUDA graph
+    scan_launches, rows = scan_phase(params0, problem, main_runs, loop_ms)
+    evict_scan_counts, more = eviction_scan_phase()
+    scan_launches["paged_bank_gather"] = evict_scan_counts[
+        "paged_bank_gather"]
+    fleet_scan_launches, fleet_rows = fleet_scan_phase(problem, fleet_runs)
+    scan_launches.update(fleet_scan_launches)
+    for row in (rows + more + int8_phase(params0, problem,
+                                         main_runs["mifa_array"])
+                + profiled_scan(params0, problem) + fleet_rows):
+        print(row)
+    # the loop after all the captures: the main path's MIFA(array) again,
+    # bit-equal to its first run
+    from repro_torch.core import MIFA
+    reset_counts()
+    again = run_path("mifa_array", MIFA(), problem, params0, ROUNDS, "cuda",
+                     ROUNDS)[:2]
+    d_loss, d_param = run_gaps(main_runs["mifa_array"], again)
+    check(d_loss == 0 and d_param == 0 and read_counts()["mifa_aggregate"]
+          == ROUNDS, f"the loop after the scan phases: |dloss| {d_loss:.3e},"
+                     f" |dparam| {d_param:.3e}, launches {read_counts()}")
+    print(f"loop after the scan phases: MIFA(array) {ROUNDS} rounds "
+          f"bit-equal to the main path's first run, {ROUNDS} launches")
+    del fleet_runs, main_runs
 
     del problem, problem_cpu, params0
     torch.cuda.empty_cache()
@@ -2190,6 +2639,21 @@ def main() -> int:
         "ssd_scan": f"zamba2-7b serve prefill, {SERVE_B} x {SERVE_PROMPT} "
                     "tokens (68 Mamba2 layers; decode launches none)"}
     per_call = {k: zoo_shapes[k] + ", bf16" for k in zoo_launches}
+    # the same paths under engine="scan": one launch a replay plus one in
+    # the warm-up before capture
+    scan_from = {
+        "mifa_aggregate": f"scan MIFA(array), {ROUNDS} rounds",
+        "bank_scatter": f"scan BankedMIFA(DenseBank), {ROUNDS} rounds",
+        "paged_bank_scatter":
+            f"scan BankedMIFA(PagedDeviceBank), {ROUNDS} rounds",
+        "paged_bank_gather": "checks only: PagedDeviceBank.gather of all "
+                             "rows after the eviction scan",
+        "bank_scatter_batched":
+            f"scan Figure 2 fleet BankedMIFA(DenseBank), {FLEET_ROUNDS} "
+            "rounds",
+        "paged_bank_scatter_batched":
+            f"scan Figure 2 fleet BankedMIFA(PagedDeviceBank), "
+            f"{FLEET_ROUNDS} rounds"}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
@@ -2210,6 +2674,9 @@ def main() -> int:
             ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:25",
              zoo_errs["ssd_scan"])):
         t = timing[name]
+        scan = ({"scan_launches": scan_launches[name],
+                 "scan_launches_from": scan_from[name]}
+                if name in scan_launches else {})
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({
@@ -2219,7 +2686,8 @@ def main() -> int:
                 "launches_from": launches_from[name],
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], "per_call_at": per_call[name]})
+                "library_ms": t["library_ms"], "per_call_at": per_call[name],
+                **scan})
             continue
         entries.append({
             "name": name, "route": "cuda",
@@ -2234,7 +2702,7 @@ def main() -> int:
             # ms, plain_ms and bound_ms are per round (one launch for the
             # six leaves); this is per launch of one leaf at each leaf's
             # width
-            "per_launch_us": t["leaves"]})
+            "per_launch_us": t["leaves"], **scan})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

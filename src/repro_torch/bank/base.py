@@ -9,11 +9,22 @@ only the active cohort A(t):
 and maintains the running sum  G_sum = Σ_i G^i  incrementally via the delta
 identity  G_sum += Σ_{a ∈ A} (u_a − G_old_a), so the server step's
 mean_G = G_sum / N is O(d). Counterpart of `repro/bank/base.py`; the ported
-backends are `DenseBank` and `PagedDeviceBank` (which pages rows on and off
-the card in `prepare`). Both run fleets: `scatter_fleet` and
+backends are `DenseBank`, `PagedDeviceBank` (which pages rows on and off
+the card in `prepare`; f32, bf16 or int8 pages) and the host bank
+`Int8PagedBank`. The device banks run fleets: `scatter_fleet` and
 `gather_fleet` take states whose leaves carry a leading trial axis (K, ...).
-The host and int8-paged banks and `host_state` are not ported yet (ROADMAP
-Queue 1 items 9, 10, 17).
+The host bank `HostBank` and `host_state` are not ported yet (ROADMAP
+Queue 1 items 9, 17).
+
+Two ways in. `scatter(state, ids, updates, valid=, rng=)` takes host
+numpy ids, checks them and does any host work (paging). A round that runs
+on the device (and may be captured as a CUDA graph) instead stages its
+cohort on the host first, `stage_rows(ids, valid)` (range checks, the
+row index the kernels take), and hands the staged tensors to
+`scatter_staged(state, rows, valid, updates, rng=)`, which reads nothing
+back to the host for the device banks. `rng` feeds the int8 banks'
+stochastic rounding: `round_rng` says which of the run's round generators
+a bank takes ("cpu" or "device"); the float banks ignore it.
 
 Padding convention: the round loop pads a cohort to a fixed capacity. Pad slots
 carry `valid=False` and point `ids` at the dummy row index N; they never
@@ -33,7 +44,14 @@ class MemoryBank:
     """Interface; `scatter` and `scatter_fleet` are template methods that
     enforce the duplicate-id invariant (`check_unique_ids`, per trial for
     the fleet) for every backend before they delegate to the backend's
-    `_scatter_rows` / `_scatter_fleet_rows`."""
+    `_scatter_rows` / `_scatter_fleet_rows`, which by default stage the
+    cohort and call `scatter_staged` / `scatter_fleet_staged`."""
+
+    # the generator `scatter(rng=)` takes ("cpu" or "device"); whether the
+    # rows live on the device, where a captured round can scatter them
+    round_rng = "cpu"
+    on_device = True
+    device: torch.device
 
     def init(self, params: Any, n_clients: int) -> dict:
         """Zero-filled bank state for `n_clients` rows shaped like `params`."""
@@ -44,18 +62,41 @@ class MemoryBank:
         tree with leading axis C = len(ids). Never mutates the state."""
         raise NotImplementedError
 
-    def scatter(self, state: dict, ids, updates, *, valid=None) -> dict:
+    def scatter(self, state: dict, ids, updates, *, valid=None,
+                rng=None) -> dict:
         """Write the cohort's fresh updates and maintain G_sum.
 
         ids (C,) int row indices (host numpy); updates: f32 tree, leaves
-        (C, ...); valid (C,) bool (None => all valid). Returns the new state
-        (the old one must not be reused).
+        (C, ...); valid (C,) bool (None => all valid); rng the generator
+        `round_rng` names (int8 banks only). Returns the new state (the old
+        one must not be reused).
         """
         check_unique_ids(ids, valid)
-        return self._scatter_rows(state, ids, updates, valid=valid)
+        return self._scatter_rows(state, ids, updates, valid=valid, rng=rng)
 
-    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
+    def _scatter_rows(self, state: dict, ids, updates, *, valid,
+                      rng=None) -> dict:
         """Backend scatter body; `scatter` has already validated the ids."""
+        ids, valid = host_cohort(ids, valid)
+        rows, valid = self.upload(self.stage_rows(ids, valid), valid)
+        return self.scatter_staged(state, rows, valid, updates, rng=rng)
+
+    def stage_rows(self, ids: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Host side of a staged scatter: check the padded cohort `ids`
+        ((C,) or (K, C) int64) and return the row index the backend's
+        kernels take, the same shape."""
+        raise NotImplementedError
+
+    def upload(self, rows: np.ndarray, valid: np.ndarray):
+        """A staged cohort as tensors on the bank's device."""
+        return (torch.from_numpy(np.ascontiguousarray(rows)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(valid)).to(self.device))
+
+    def scatter_staged(self, state: dict, rows: torch.Tensor,
+                       valid: torch.Tensor, updates, *, rng=None) -> dict:
+        """The scatter on a staged cohort: rows (C,) from `stage_rows` and
+        valid (C,) bool, on the bank's device; updates leaves (C, ...) f32.
+        For a paged bank every valid row must be resident (`prepare`)."""
         raise NotImplementedError
 
     def prepare(self, state: dict, ids) -> dict:
@@ -82,11 +123,9 @@ class MemoryBank:
         (K, C) host numpy, `updates` leaves (K, C, ...) f32 -> the new
         stacked state, with per-trial G_sum maintenance (the old state must
         not be reused)."""
-        ids = np.asarray(ids, np.int64)
+        ids, valid = host_cohort(ids, valid)
         if ids.ndim != 2:
             raise ValueError(f"fleet ids must be (K, C), got {ids.shape}")
-        valid = (np.ones(ids.shape, bool) if valid is None
-                 else np.asarray(valid, bool))
         for k in range(ids.shape[0]):
             check_unique_ids(ids[k], valid[k])
         return self._scatter_fleet_rows(state, ids, updates, valid=valid)
@@ -94,6 +133,14 @@ class MemoryBank:
     def _scatter_fleet_rows(self, state: dict, ids: np.ndarray, updates, *,
                             valid: np.ndarray) -> dict:
         """Backend fleet scatter body; `scatter_fleet` validated the ids."""
+        rows, valid = self.upload(self.stage_rows(ids, valid), valid)
+        return self.scatter_fleet_staged(state, rows, valid, updates)
+
+    def scatter_fleet_staged(self, state: dict, rows: torch.Tensor,
+                             valid: torch.Tensor, updates, *,
+                             rng=None) -> dict:
+        """`scatter_staged` for K stacked trials: rows/valid (K, C), update
+        leaves (K, C, ...); `rng` a list of K generators for int8 banks."""
         raise NotImplementedError(
             f"{type(self).__name__} does not implement the batched fleet "
             "scatter; backends that do: DenseBank, PagedDeviceBank")
@@ -105,6 +152,26 @@ class MemoryBank:
     def memory_bytes(self, state: dict) -> dict:
         """{'device': bytes, 'host': bytes} currently held by the bank."""
         raise NotImplementedError
+
+
+def host_cohort(ids, valid) -> tuple[np.ndarray, np.ndarray]:
+    """ids as int64 and valid as bool numpy arrays (valid None => all)."""
+    ids = np.asarray(ids, np.int64)
+    return ids, (np.ones(ids.shape, bool) if valid is None
+                 else np.asarray(valid, bool))
+
+
+def check_row_range(ids: np.ndarray, valid: np.ndarray, n: int,
+                    n_rows: int | None = None) -> None:
+    """Every id must be >= 0, every valid id below `n` and, when the bank
+    stores its pad row (`n_rows`), every id below `n_rows`; otherwise pad
+    ids may be any id >= n."""
+    if ids.size and (ids.min() < 0 or (ids[valid] >= n).any()
+                     or (n_rows is not None and ids.max() >= n_rows)):
+        raise IndexError(f"bank row ids must be >= 0"
+                         + ("" if n_rows is None else f" and < {n_rows}")
+                         + f", valid ids < {n}; got [{ids.min()}, "
+                         f"{ids.max()}]")
 
 
 def tree_nbytes(tree) -> int:

@@ -5,13 +5,14 @@ State layout (counterpart of `repro/bank/dense.py`):
             row that padded cohort slots point at.
     g_sum : tree, leaves (*param_shape,) f32 — running Σ_{i<N} rows[i].
 
-`scatter` goes through `kernels.ops.bank_update_tree`: on the card the
-hand-written `bank_scatter` kernel updates the cohort's rows of every leaf
-in place, in one launch, and returns the delta sums; on the CPU its plain
-version does the same work.
+`scatter_staged` (and `scatter`, which stages the host ids and calls it)
+goes through `kernels.ops.bank_update_tree`: on the card the hand-written
+`bank_scatter` kernel updates the cohort's rows of every leaf in place, in
+one launch, and returns the delta sums; on the CPU its plain version does
+the same work. The staged rows are the padded ids themselves (int64).
 `gather` is plain tensor indexing, as in the reference (no kernel).
-`scatter_fleet` takes stacked states (leaves (K, N+1, ...) and (K, ...))
-through `kernels.ops.fleet_bank_update_tree`: the batched kernel, one
+`scatter_fleet` (`scatter_fleet_staged`) takes stacked states (leaves
+(K, N+1, ...) and (K, ...)) through `kernels.ops.fleet_bank_update_tree`: the batched kernel, one
 launch for every leaf and all K trials, per trial bit-equal to
 `bank_scatter`.
 Mesh-sharded rows are not ported yet (ROADMAP Queue 1 item 19).
@@ -21,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.bank.base import MemoryBank, tree_nbytes
+from repro_torch.bank.base import MemoryBank, check_row_range, tree_nbytes
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.ops import bank_update_tree, fleet_bank_update_tree
 from repro_torch.tree import tree_leaves, tree_map
@@ -56,29 +57,24 @@ class DenseBank(MemoryBank):
         ids_t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
         return tree_map(lambda r: r[ids_t].float(), state["rows"])
 
-    def _ids_on_device(self, ids, valid) -> tuple[torch.Tensor,
-                                                  torch.Tensor]:
-        ids = np.asarray(ids, np.int64)
-        if ids.size and (ids.min() < 0 or ids.max() >= self.n_rows):
-            raise IndexError(f"bank row ids must lie in [0, {self.n_rows}), "
-                             f"got [{ids.min()}, {ids.max()}]")
-        valid = (np.ones(ids.shape, bool) if valid is None
-                 else np.asarray(valid, bool))
-        return (torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(valid).to(self.device))
+    def stage_rows(self, ids: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        check_row_range(ids, valid, self.n, self.n_rows)
+        return ids
 
-    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
-        rows, dsum = bank_update_tree(state["rows"], updates,
-                                      *self._ids_on_device(ids, valid))
+    def scatter_staged(self, state: dict, rows: torch.Tensor,
+                       valid: torch.Tensor, updates, *, rng=None) -> dict:
+        new_rows, dsum = bank_update_tree(state["rows"], updates, rows,
+                                          valid)
         g_sum = tree_map(torch.add, state["g_sum"], dsum)
-        return {"rows": rows, "g_sum": g_sum}
+        return {"rows": new_rows, "g_sum": g_sum}
 
-    def _scatter_fleet_rows(self, state: dict, ids, updates, *,
-                            valid) -> dict:
-        rows, dsum = fleet_bank_update_tree(state["rows"], updates,
-                                            *self._ids_on_device(ids, valid))
+    def scatter_fleet_staged(self, state: dict, rows: torch.Tensor,
+                             valid: torch.Tensor, updates, *,
+                             rng=None) -> dict:
+        new_rows, dsum = fleet_bank_update_tree(state["rows"], updates, rows,
+                                                valid)
         g_sum = tree_map(torch.add, state["g_sum"], dsum)
-        return {"rows": rows, "g_sum": g_sum}
+        return {"rows": new_rows, "g_sum": g_sum}
 
     def mean_g(self, state: dict):
         return tree_map(lambda g: g / self.n, state["g_sum"])

@@ -6,6 +6,11 @@ cohort's fresh updates replace their stored rows, and the server moves by
 the compact round path, and `fleet.FleetRunner` to
 `round_step_cohort_fleet`, which applies K trials' cohorts in one batched
 scatter. Counterpart of `repro/bank/mifa_bank.py`.
+
+The round takes its cohort staged: the runner pads it on the host, checks
+it, pages it in (`prepare_cohort`) and maps it to the bank's row index
+(`bank.stage_rows`); the round itself is device work only, so the scan
+engine can capture it as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -22,37 +27,49 @@ class BankedMIFA:
     def __init__(self, bank: MemoryBank):
         self.bank = bank
 
+    @property
+    def round_rng(self) -> str:
+        """The round generator `round_step_cohort(rng=)` takes: the bank's
+        (the device one for int8 pages, the CPU one otherwise)."""
+        return self.bank.round_rng
+
     def init_state(self, params, n_clients: int) -> dict:
-        return {"bank": self.bank.init(params, n_clients), "t": 0}
+        bank = self.bank.init(params, n_clients)
+        t = torch.zeros((), dtype=torch.int32, device=self.bank.device)
+        return {"bank": bank, "t": t}
 
     def prepare_cohort(self, state: dict, ids) -> dict:
         """Residency hook before a round (identity for DenseBank)."""
         return {**state, "bank": self.bank.prepare(state["bank"], ids)}
 
-    def round_step_cohort(self, state: dict, ids, valid, updates,
-                          losses: torch.Tensor):
-        """ids (C,) padded row indices and valid (C,) mask, host numpy;
-        updates/losses for the padded cohort on the run's device.
-        Returns (new_state, mean_G, metrics)."""
-        bank_state = self.bank.scatter(state["bank"], ids, updates,
-                                       valid=valid)
+    def round_step_cohort(self, state: dict, rows: torch.Tensor,
+                          valid: torch.Tensor, updates,
+                          losses: torch.Tensor, rng=None):
+        """rows (C,): the padded cohort as `bank.stage_rows` maps it, and
+        valid (C,) bool, on the run's device; updates/losses for the padded
+        cohort. `rng` is the generator `round_rng` names. Returns
+        (new_state, mean_G, metrics)."""
+        bank_state = self.bank.scatter_staged(state["bank"], rows, valid,
+                                              updates, rng=rng)
         mean_g = self.bank.mean_g(bank_state)
-        v = torch.as_tensor(valid, dtype=torch.float32, device=losses.device)
+        v = valid.float()
         loss = (losses * v).sum() / v.sum().clamp(min=1.0)
         metrics = {"loss": loss, "n_active": v.sum()}
         return ({"bank": bank_state, "t": state["t"] + 1}, mean_g, metrics)
 
-    def round_step_cohort_fleet(self, state: dict, ids, valid, updates,
-                                losses: torch.Tensor):
-        """Stacked-trial cohort round: ids/valid (K, C) host numpy, update
-        leaves (K, C, ...), losses (K, C). Per trial the math of
+    def round_step_cohort_fleet(self, state: dict, rows: torch.Tensor,
+                                valid: torch.Tensor, updates,
+                                losses: torch.Tensor, rng=None):
+        """Stacked-trial cohort round: rows/valid (K, C) staged as for
+        `round_step_cohort`, update leaves (K, C, ...), losses (K, C);
+        `rng` a list of the trials' generators. Per trial the math of
         `round_step_cohort`; the bank applies all K scatters in one batched
         call. Returns (new_state, mean_G (K, ...), metrics with (K,)
         leaves)."""
-        bank_state = self.bank.scatter_fleet(state["bank"], ids, updates,
-                                             valid=valid)
+        bank_state = self.bank.scatter_fleet_staged(state["bank"], rows,
+                                                    valid, updates, rng=rng)
         mean_g = self.bank.mean_g(bank_state)
-        v = torch.as_tensor(valid, dtype=torch.float32, device=losses.device)
+        v = valid.float()
         loss = (losses * v).sum(1) / v.sum(1).clamp(min=1.0)
         metrics = {"loss": loss, "n_active": v.sum(1)}
         return ({"bank": bank_state, "t": state["t"] + 1}, mean_g, metrics)

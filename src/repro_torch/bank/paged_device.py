@@ -50,8 +50,23 @@ evicts and pages in along axis 1, and a spill block holds the page of
 every trial, (K, page_size, *shape). `scatter_fleet` goes through the
 batched kernel, one launch for every leaf and all K trials.
 
-Not ported yet: int8 pages (ROADMAP Queue 1 item 10) and `host_state` /
-`load_host_state` (item 17).
+int8 pages (`dtype="int8"`, as the reference's): int8 rows plus an f32
+absmax scale per physical row and leaf (`state["scales"]`, leaves (R,)),
+stochastically rounded by `core.quantized_memory` from the generator passed
+as `rng=` (the run's device generator: `round_rng = "device"`); G_sum is
+kept over the dequantized values, so G_sum = Σ_i dequant(row_i). Plain
+tensor ops on both devices, as the reference's int8 path takes no Pallas
+kernel; the scatter and gather kernels stay with f32 and bf16 pages. Pages
+spill and come back with their scales.
+
+Staged scatter: `stage_rows` maps the padded cohort to sanitized logical
+rows (int32; pad ids go to the dummy logical row) on the host, and
+`scatter_staged` runs the kernel (or the int8 ops) on them, reading
+nothing back to the host; the caller has paged the cohort in. Within a
+chunk of the scan engine the page table is fixed, so the chunk's logical
+rows are staged once with its other inputs.
+
+Not ported yet: `host_state` / `load_host_state` (ROADMAP Queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -59,11 +74,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.bank.base import MemoryBank, tree_nbytes
+from repro_torch.bank.base import (MemoryBank, check_row_range,
+                                   host_cohort, tree_nbytes)
+from repro_torch.core import quantized_memory as qm
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.ops import (fleet_paged_bank_update_tree,
                                      paged_bank_gather_tree,
                                      paged_bank_update_tree)
+from repro_torch.kernels.paged_bank import phys_rows
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 # Profiler range around a fault's page-in (evictions to the host, uploads,
@@ -88,7 +106,8 @@ class PagedDeviceBank(MemoryBank):
     page_size : rows per page (a power of two).
     n_slots   : device pages resident at once (None => enough for all of N,
                 i.e. fully resident).
-    dtype     : "float32" | "bfloat16".
+    dtype     : "float32" | "bfloat16" | "int8" (int8 rows with per-row
+                absmax scales, stochastic rounding).
     device    : where the pages live ("cuda" by default; "cpu" runs the
                 kernels' plain versions).
     """
@@ -101,10 +120,10 @@ class PagedDeviceBank(MemoryBank):
                              f"{page_size}")
         if n_slots is not None and n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if dtype == "int8":
-            raise _not_ported("dtype='int8'", "10")
-        if dtype not in ("float32", "bfloat16"):
+        if dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"unsupported bank dtype {dtype!r}")
+        self.quantized = dtype == "int8"
+        self.round_rng = "device" if self.quantized else "cpu"
         self.page_size = page_size
         self._n_slots_cfg = n_slots
         self.dtype = getattr(torch, dtype)
@@ -146,7 +165,7 @@ class PagedDeviceBank(MemoryBank):
         self._clock = 0
         self._spill = {}
         self.faults = self.evictions = self.refaults = 0
-        return {
+        state = {
             "pages": tree_map(lambda p: torch.zeros(
                 (n_rows,) + tuple(p.shape), dtype=self.dtype,
                 device=self.device), params),
@@ -154,6 +173,18 @@ class PagedDeviceBank(MemoryBank):
             "g_sum": tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=self.device), params),
         }
+        if self.quantized:
+            state["scales"] = tree_map(lambda p: torch.zeros(
+                n_rows, dtype=torch.float32, device=self.device), params)
+        return state
+
+    def _row_leaves(self, state: dict) -> list[torch.Tensor]:
+        """Every tensor with a physical-row axis: the page leaves, then
+        (int8 pages) their scales; a spill block holds one per entry."""
+        leaves = tree_leaves(state["pages"])
+        if self.quantized:
+            leaves += tree_leaves(state["scales"])
+        return leaves
 
     # ------------------------------------------------------------------ #
     # residency: host bookkeeping, then a few batched device copies
@@ -226,7 +257,7 @@ class PagedDeviceBank(MemoryBank):
                 self.evictions += 1
             assign.append((lp, slot))
 
-        leaves = tree_leaves(state["pages"])
+        leaves = self._row_leaves(state)
         ax = 1 if self._is_fleet(state) else 0     # the row axis
         # 2) evicted pages to the host: one gather and one copy per leaf
         if evict:
@@ -266,11 +297,14 @@ class PagedDeviceBank(MemoryBank):
                 self.device)
 
     # ------------------------------------------------------------------ #
-    def _lids(self, ids: np.ndarray) -> torch.Tensor:
+    def _lids(self, ids: np.ndarray) -> np.ndarray:
         """Logical rows for the kernels: pad ids (>= N) go to the dummy
         logical row, which sits in the dummy page."""
-        lids = np.where(ids >= self.n, self.dummy_lrow, ids).astype(np.int32)
-        return torch.from_numpy(lids).to(self.device)
+        return np.where(ids >= self.n, self.dummy_lrow, ids).astype(np.int32)
+
+    def stage_rows(self, ids: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        check_row_range(ids, valid, self.n)
+        return self._lids(ids)
 
     def gather(self, state: dict, ids):
         return self._gather(state, ids)
@@ -284,9 +318,15 @@ class PagedDeviceBank(MemoryBank):
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ids.size and ids.min() < 0:
             raise IndexError(f"bank row ids must be >= 0, got {ids.min()}")
-        out = paged_bank_gather_tree(state["pages"], state["page_table"],
-                                     self._lids(ids),
-                                     page_size=self.page_size)
+        lids = torch.from_numpy(self._lids(ids)).to(self.device)
+        if self.quantized:
+            phys = phys_rows(state["page_table"], lids, self.page_size)
+            out = tree_map(lambda r, sc: qm.dequantize_leaf(r[phys],
+                                                            sc[phys]),
+                           state["pages"], state["scales"])
+        else:
+            out = paged_bank_gather_tree(state["pages"], state["page_table"],
+                                         lids, page_size=self.page_size)
         # rows whose page lives in the spill store read the dummy page's
         # zeros on the device; patch them from the host
         ps = self.page_size
@@ -294,52 +334,95 @@ class PagedDeviceBank(MemoryBank):
                              & np.isin(ids // ps, list(self._spill)))
         if pos.size:
             pos_t = torch.from_numpy(pos).to(self.device)
-            for j, leaf in enumerate(tree_leaves(out)):
+            n_leaves = len(tree_leaves(out))
+
+            def host_rows(j):
                 blocks = [self._spill[int(ids[c] // ps)][j] for c in pos]
                 if trial is not None:
                     blocks = [b[trial] for b in blocks]
-                rows = torch.stack([b[int(ids[c] % ps)]
+                return torch.stack([b[int(ids[c] % ps)]
                                     for b, c in zip(blocks, pos)])
+
+            for j, leaf in enumerate(tree_leaves(out)):
+                rows = host_rows(j)
+                if self.quantized:
+                    rows = qm.dequantize_leaf(rows, host_rows(n_leaves + j))
                 leaf.index_copy_(0, pos_t,
                                  rows.to(self.device, torch.float32))
         return out
 
-    def _resident_cohort(self, state: dict, ids, valid):
-        """Page the cohort in (for a fleet, the union of the trials') and
-        check it: returns (state, lids, valid) on the device for the
-        kernels."""
-        ids = np.asarray(ids, np.int64)
-        valid = (np.ones(ids.shape, bool) if valid is None
-                 else np.asarray(valid, bool))
-        if ids.size and (ids.min() < 0 or (ids[valid] >= self.n).any()):
-            raise IndexError(f"valid bank row ids must lie in [0, {self.n}) "
-                             f"and pad ids be >= 0, got [{ids.min()}, "
-                             f"{ids.max()}]")
+    def _scatter_rows(self, state: dict, ids, updates, *, valid,
+                      rng=None) -> dict:
+        """Page the cohort in (for a fleet, the union of the trials'),
+        check it on the host mirror, then scatter the staged cohort."""
+        ids, valid = host_cohort(ids, valid)
+        lids = self.stage_rows(ids, valid)
         state = self.prepare(state, ids[valid])
         # a valid row whose page is not resident would land in the dummy
         # page; the kernels do not check, so check the mirror here (O(C))
         if (self._pt[ids[valid] // self.page_size] == self.sentinel).any():
             raise RuntimeError("a valid cohort row's page is not resident "
                                "after prepare (page-table invariant broken)")
-        return state, self._lids(ids), torch.from_numpy(valid).to(
-            self.device)
+        lids, valid_t = self.upload(lids, valid)
+        scatter = (self.scatter_fleet_staged if self._is_fleet(state)
+                   else self.scatter_staged)
+        return scatter(state, lids, valid_t, updates, rng=rng)
 
-    def _scatter_rows(self, state: dict, ids, updates, *, valid) -> dict:
-        state, lids, valid_t = self._resident_cohort(state, ids, valid)
+    _scatter_fleet_rows = _scatter_rows
+
+    def scatter_staged(self, state: dict, rows: torch.Tensor,
+                       valid: torch.Tensor, updates, *, rng=None) -> dict:
+        if self.quantized:
+            return self._scatter_int8(state, rows, valid, updates, rng)
         pages, dsum = paged_bank_update_tree(
-            state["pages"], updates, state["page_table"], lids, valid_t,
+            state["pages"], updates, state["page_table"], rows, valid,
             page_size=self.page_size)
         return {"pages": pages, "page_table": state["page_table"],
                 "g_sum": tree_map(torch.add, state["g_sum"], dsum)}
 
-    def _scatter_fleet_rows(self, state: dict, ids, updates, *,
-                            valid) -> dict:
-        state, lids, valid_t = self._resident_cohort(state, ids, valid)
+    def scatter_fleet_staged(self, state: dict, rows: torch.Tensor,
+                             valid: torch.Tensor, updates, *,
+                             rng=None) -> dict:
+        if self.quantized:
+            if rng is None or len(rng) != rows.shape[0]:
+                raise ValueError("int8 pages need one generator per trial "
+                                 "(rng=[...]) for their rounding")
+            for k, gen in enumerate(rng):
+                self._scatter_int8(tree_index(state, k), rows[k], valid[k],
+                                   tree_index(updates, k), gen)
+            return state
         pages, dsum = fleet_paged_bank_update_tree(
-            state["pages"], updates, state["page_table"], lids, valid_t,
+            state["pages"], updates, state["page_table"], rows, valid,
             page_size=self.page_size)
         return {"pages": pages, "page_table": state["page_table"],
                 "g_sum": tree_map(torch.add, state["g_sum"], dsum)}
+
+    def _scatter_int8(self, state: dict, lids: torch.Tensor,
+                      valid: torch.Tensor, updates, gen) -> dict:
+        """The int8 scatter, in place on `state`'s tensors (so a trial's
+        views of a fleet state update the stack): each cohort row is
+        quantized with its own absmax scale; valid rows replace their
+        stored row and scale, and G_sum moves by Σ (dequant(new) −
+        dequant(old)). Pad slots all point at the dummy row and write its
+        own zeros back."""
+        if gen is None:
+            raise ValueError("int8 pages need the run's device generator "
+                             "(rng=) for their rounding")
+        phys = phys_rows(state["page_table"], lids, self.page_size)
+
+        def one(pages, scales, g_sum, u):
+            q, s = qm.quantize_leaf(gen, u)
+            old_q, old_s = pages[phys], scales[phys]
+            vb = valid.reshape((-1,) + (1,) * (u.ndim - 1))
+            delta = torch.where(vb, qm.dequantize_leaf(q, s)
+                                - qm.dequantize_leaf(old_q, old_s), 0.0)
+            pages.index_copy_(0, phys, torch.where(vb, q, old_q))
+            scales.index_copy_(0, phys, torch.where(valid, s, old_s))
+            g_sum.add_(delta.sum(0))
+
+        tree_map(one, state["pages"], state["scales"], state["g_sum"],
+                 updates)
+        return state
 
     def host_state(self) -> dict:
         raise _not_ported("host_state", "17")
@@ -356,8 +439,9 @@ class PagedDeviceBank(MemoryBank):
 
     def memory_bytes(self, state: dict) -> dict:
         """{'device', 'host', 'device_pages'}: device_pages is the bounded
-        page pool, (n_slots+1)·page_size rows per leaf, independent of N."""
-        pages_b = tree_nbytes(state["pages"])
+        page pool, (n_slots+1)·page_size rows per leaf (with their scales
+        for int8 pages), independent of N."""
+        pages_b = tree_nbytes(self._row_leaves(state))
         dev = (pages_b + tree_nbytes(state["page_table"])
                + tree_nbytes(state["g_sum"]))
         host = sum(t.numel() * t.element_size()
@@ -398,6 +482,6 @@ class PagedDeviceBank(MemoryBank):
             _require(bool((pt == self._pt).all()),
                      "device page table != host mirror")
             start = self.n_slots * self.page_size
-            for leaf in tree_leaves(state["pages"]):
+            for leaf in self._row_leaves(state):
                 dummy = leaf[:, start:] if fleet else leaf[start:]
                 _require(not dummy.any(), "dummy page not zero")

@@ -16,12 +16,17 @@ Figure 2:
                         protocol.
 
 All share MIFA's round API: init_state / round_step(state, params, updates,
-losses, active, eta, rng=None), plain torch on the run's device. `rng` is
-the run's round generator, a CPU `torch.Generator` seeded from the run's
-seed; FedAvgSampling draws its selection from it every round, used or not,
-as the reference draws `jax.random.permutation` every round. Torch cannot
-reproduce the reference's threefry bits, so parity tests inject the
-reference's selections through `FedAvgSampling._resample`.
+losses, active, eta, rng=None), plain torch on the run's device; `eta` is
+a float or a 0-d f32 tensor. The sampling baselines draw a fresh
+selection every round, used or not, as the reference draws
+`jax.random.permutation` every round. They draw on the host, from the
+run's CPU round generator: the runner calls `host_draw(rng, n)` once a
+round with the round's other inputs and passes the result as
+`round_step(..., draw=)` (so a round captured as a CUDA graph does not
+freeze the draw); called without `draw=`, `round_step` draws from `rng`
+itself. Torch cannot reproduce the reference's threefry bits, so parity
+tests inject the reference's selections through
+`FedAvgSampling._resample`.
 
 `FedAR`, `CAFed` and `FedBuffAvg` are not ported yet (ROADMAP Queue 1 item
 14): constructing one raises.
@@ -142,14 +147,23 @@ class FedAvgSampling:
         mask[perm[:self.s]] = True
         return mask
 
+    def host_draw(self, rng: torch.Generator, n: int) -> np.ndarray:
+        """The round's fresh selection, drawn on the host: (n,) bool."""
+        return self._resample(rng, n).numpy()
+
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
-        if rng is None:
-            raise ValueError("FedAvgSampling needs the round generator "
-                             "(rng=) to sample devices")
+                   rng=None, draw=None):
+        """`draw` is this round's `host_draw` on the params' device; without
+        it the selection is drawn from the CPU round generator `rng`."""
         n = active.shape[0]
+        if draw is None:
+            if rng is None:
+                raise ValueError("FedAvgSampling needs the round generator "
+                                 "(rng=) or the round's draw (draw=) to "
+                                 "sample devices")
+            draw = self._resample(rng, n).to(active.device)
         need = state["need_resample"]
-        fresh = self._resample(rng, n).to(active.device)
+        fresh = draw
         selected = torch.where(need, fresh, state["selected"])
         received = state["received"] & ~need
 
@@ -198,18 +212,22 @@ class SCAFFOLDSampling:
             p.shape, dtype=torch.float32, device=p.device), params)
         return st
 
+    def host_draw(self, rng: torch.Generator, n: int) -> np.ndarray:
+        return FedAvgSampling(self.s).host_draw(rng, n)
+
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
-        if rng is None:
+                   rng=None, draw=None):
+        if rng is None and draw is None:
             raise ValueError("SCAFFOLDSampling needs the round generator "
-                             "(rng=) to sample devices")
+                             "(rng=) or the round's draw (draw=) to sample "
+                             "devices")
         n = active.shape[0]
         k = float(self.k_steps)
         vr_updates = tree_map(lambda u, ci, c: u - k * (ci - c[None]),
                               updates, state["c_i"], state["c"])
         sub = {key: state[key] for key in _SAMPLING_KEYS}
         new_sub, new_params, metrics = FedAvgSampling(self.s).round_step(
-            sub, params, vr_updates, losses, active, eta, rng)
+            sub, params, vr_updates, losses, active, eta, rng, draw)
 
         complete = new_sub["need_resample"]
         sel = new_sub["selected"]

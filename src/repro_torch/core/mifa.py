@@ -14,7 +14,14 @@ Dense memory layouts (counterpart of `repro/core/mifa.py`):
   * "delta" — the paper's §4 memory-efficient variant: the server keeps the
     running mean Ḡ and per-client previous updates. Plain PyTorch; the
     reference has no kernel for it.
-  * "int8" is not ported yet (ROADMAP Queue 1 item 10).
+  * "int8" — G^i stored as int8 with an absmax scale per client and leaf,
+    stochastically rounded (`core.quantized_memory`) from the run's device
+    generator, which the runner passes as `rng=` (`round_rng = "device"`
+    for this layout). Plain PyTorch, as the reference's `jnp`.
+
+`eta` is a 0-d f32 tensor on the params' device (the runner's rounds; a
+CUDA graph that captures one must not freeze a Python float) or a Python
+float.
 
 For O(|A(t)|·d) cohort rounds use `repro_torch.bank.BankedMIFA`.
 """
@@ -24,8 +31,9 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core import quantized_memory as qm
 from repro_torch.kernels.ops import mifa_aggregate_tree
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _bcast(active: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -35,17 +43,20 @@ def _bcast(active: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class MIFA:
-    """memory: 'array' | 'delta'; memory_dtype for the stored updates."""
+    """memory: 'array' | 'delta' | 'int8'; memory_dtype for the stored
+    updates of the first two."""
 
     memory: str = "array"
     memory_dtype: str = "float32"
 
+    @property
+    def round_rng(self) -> str:
+        """Which round generator `round_step(rng=)` takes: int8 rounding
+        draws on the run's device, the float layouts draw nothing."""
+        return "device" if self.memory == "int8" else "cpu"
+
     def __post_init__(self):
-        if self.memory == "int8":
-            raise NotImplementedError(
-                "MIFA(memory='int8') is not ported yet: it needs "
-                "core/quantized_memory.py (ROADMAP Queue 1 item 10)")
-        if self.memory not in ("array", "delta"):
+        if self.memory not in ("array", "delta", "int8"):
             raise ValueError(f"unknown memory {self.memory!r}")
         if self.memory_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported memory_dtype {self.memory_dtype!r}")
@@ -57,19 +68,28 @@ class MIFA:
             return torch.zeros((n_clients,) + tuple(p.shape), dtype=dtype,
                                device=p.device)
 
+        t = torch.zeros((), dtype=torch.int32,
+                        device=tree_leaves(params)[0].device)
         if self.memory == "array":
-            return {"G": tree_map(lambda p: zeros_n(p, dt), params), "t": 0}
+            return {"G": tree_map(lambda p: zeros_n(p, dt), params), "t": t}
+        if self.memory == "int8":
+            return {"G_q": tree_map(lambda p: zeros_n(p, torch.int8), params),
+                    "G_scale": tree_map(lambda p: torch.zeros(
+                        n_clients, dtype=torch.float32, device=p.device),
+                        params),
+                    "t": t}
         return {"G_prev": tree_map(lambda p: zeros_n(p, dt), params),
                 "G_bar": tree_map(lambda p: torch.zeros(
                     p.shape, dtype=torch.float32, device=p.device), params),
-                "t": 0}
+                "t": t}
 
     def round_step(self, state: dict, params, updates, losses: torch.Tensor,
                    active: torch.Tensor, eta: float, rng=None):
         """updates: tree (N, ...) f32 — fresh K-step updates for ALL clients
         (the active mask selects which are used). `active` (N,) bool on the
-        params' device. `rng` feeds only int8 memory, which is not ported. On the card the array layout updates G in place; the
-        state passed in must not be reused.
+        params' device. `rng` is the run's device generator for int8
+        memory and unused otherwise. On the card the array layout updates
+        G in place; the state passed in must not be reused.
         """
         act = active.float()
         n = act.shape[0]
@@ -77,6 +97,19 @@ class MIFA:
             G, new_params = mifa_aggregate_tree(state["G"], updates, active,
                                                 params, eta)
             new_state = {"G": G, "t": state["t"] + 1}
+        elif self.memory == "int8":
+            if rng is None:
+                raise ValueError("int8 memory needs the run's device "
+                                 "generator (rng=) for its rounding")
+            G_f = qm.dequantize_tree(state["G_q"], state["G_scale"])
+            G_f = tree_map(lambda g, u: torch.where(_bcast(active, u), u, g),
+                           G_f, updates)
+            G_q, G_scale = qm.quantize_tree(rng, G_f)
+            # dequantize again, so an inactive row counts exactly as stored
+            G_f = qm.dequantize_tree(G_q, G_scale)
+            new_params = tree_map(lambda w, g: (w - eta * g.mean(0)).to(
+                w.dtype), params, G_f)
+            new_state = {"G_q": G_q, "G_scale": G_scale, "t": state["t"] + 1}
         else:
             # Ḡ_t = Ḡ_{t-1} + (1/N) Σ_{i∈A} (G^i_t − G^i_{t'_i})
             deltas = tree_map(lambda u, gp: (u - gp.float()) * _bcast(act, u),

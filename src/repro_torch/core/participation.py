@@ -1,9 +1,9 @@
 """Device-availability processes A(t) and the paper's τ statistics.
 
-numpy only, array-equal to `repro/core/participation.py`. Ported:
-`label_correlated_probs`, `BernoulliParticipation`, `TauStats` and
-`_check_first_round`. `AdversarialParticipation`, `TraceParticipation` and
-`tau_matrix` are not ported yet (ROADMAP Queue 1 item 2).
+numpy only, array-equal to `repro/core/participation.py`:
+`label_correlated_probs`, `BernoulliParticipation`,
+`AdversarialParticipation`, `TraceParticipation`, `TauStats` and
+`tau_matrix`.
 
 All processes return the all-active mask at round 0 (paper Remark 5.2 /
 Definition 5.2(1): every device responds in the first round).
@@ -43,6 +43,49 @@ class BernoulliParticipation:
         if t == 0:
             return np.ones(self.n, bool)
         return self.rng.random(self.n) < self.probs
+
+
+class AdversarialParticipation:
+    """Deterministic periodic blackouts: device i is inactive for `off_i`
+    consecutive rounds out of every `period_i`, with phase `phase_i`.
+
+    With off_i <= t0 this satisfies Assumption 4 for any b. Non-stationary
+    and not independent: the regime the paper claims (and the baselines
+    lack).
+    """
+
+    def __init__(self, n: int, periods: np.ndarray, offs: np.ndarray,
+                 phases: np.ndarray | None = None):
+        self.n = n
+        self.periods = np.asarray(periods, np.int64)
+        self.offs = np.asarray(offs, np.int64)
+        self.phases = (np.zeros(n, np.int64) if phases is None
+                       else np.asarray(phases, np.int64))
+        if not np.all(self.offs < self.periods):
+            raise ValueError("every blackout must be shorter than its "
+                             "period (offs < periods)")
+
+    def sample(self, t: int) -> np.ndarray:
+        """(N,) bool mask for round t (round 0 is forced all-active)."""
+        if t == 0:
+            return np.ones(self.n, bool)
+        ph = (t + self.phases) % self.periods
+        return ph >= self.offs   # the first `off` slots of a period are dark
+
+
+class TraceParticipation:
+    """Replay a recorded (T, N) availability matrix; rounds past the end
+    repeat the last row. Row 0 is forced all-active, on a copy: the
+    caller's array is never written."""
+
+    def __init__(self, trace: np.ndarray):
+        self.trace = np.array(trace, bool, copy=True)
+        self.trace[0, :] = True
+        self.n = self.trace.shape[1]
+
+    def sample(self, t: int) -> np.ndarray:
+        """(N,) bool mask for round t (clamped to the trace length)."""
+        return self.trace[min(t, len(self.trace) - 1)]
 
 
 def _check_first_round(active: np.ndarray, strict: bool, what: str) -> None:
@@ -106,3 +149,21 @@ class TauStats:
     def tau_max_bar(self) -> float:
         """\\bar τ_max,T (App. C): mean over devices of max_t τ(t,i)."""
         return float(self.tau_max_per_dev.astype(np.float64).mean())
+
+
+def tau_matrix(masks: np.ndarray, *, strict: bool = True) -> np.ndarray:
+    """masks (T, N) bool -> the τ(t, i) matrix (T, N) int64.
+
+    Raises if masks[0] is not all-active (Definition 5.2(1), which makes τ
+    well defined); strict=False counts τ from a virtual round −1 instead
+    (see `_check_first_round`)."""
+    masks = np.asarray(masks, bool)
+    T, N = masks.shape
+    if T:
+        _check_first_round(masks[0], strict, "tau_matrix")
+    tau = np.zeros((T, N), np.int64)
+    cur = np.zeros(N, np.int64)
+    for t in range(T):
+        cur = np.where(masks[t], 0, cur + 1)
+        tau[t] = cur
+    return tau

@@ -1,32 +1,52 @@
 """Host-side FL training loop: participation process + data + algorithm.
 
-Counterpart of `repro/core/runner.py`, loop engine only. Each round the
-availability mask and minibatches stream in from the host (they are the
-environment, not the model); local K-step SGD and the server step run on the
-run's device, which every entry point takes as `device=` (default "cuda",
-raising when no GPU is present).
+Counterpart of `repro/core/runner.py`. Each round the availability mask and
+minibatches stream in from the host (they are the environment, not the
+model); local K-step SGD and the server step run on the run's device,
+which every entry point takes as `device=` (default "cuda", raising when
+no GPU is present).
 
 Two round paths, selected by the algorithm:
   * dense (default)              — `client_updates` over ALL N clients, then
     `algo.round_step` on the (N, ...) update array;
   * cohort (`algo.cohort_based`) — only the active cohort's batches are
     sampled and updated: compact (C, ...) leaves where C is |A(t)| padded to
-    a power-of-two bucket, applied through the algorithm's memory bank. Pad slots carry valid=False and point at the
+    a power-of-two bucket (or `cohort_capacity`), applied through the
+    algorithm's memory bank. Pad slots carry valid=False and point at the
     bank's dummy row N.
 
-Each run keeps a round generator, a CPU `torch.Generator` seeded with the
-run's seed, and passes it to `algo.round_step(..., rng=)`: the sampling
-baselines draw their device selection from it. With `uses_update_clock`
-the schedules count applied global updates (`state["t_updates"]`, read on
-the host before each round) instead of rounds.
+A round is split in two (`make_round_body`): the host assembles its inputs
+(`RoundRunner.round_inputs` / `cohort_inputs`: the mask or the staged
+cohort, the batch, both learning rates, any host draw) as numpy, and the
+body runs the round on device tensors alone: local training, the server
+step, the new state and params, the metrics. The loop engine moves one
+round's inputs to the device and calls the body; the scan engine
+(`core.scan_engine`) stages a chunk of rounds' inputs at once and, on the
+card, replays the body captured as a CUDA graph. Both run the same body.
+
+Randomness. Each run keeps two round generators seeded with the run's
+seed: a CPU `torch.Generator` (`RoundRunner.rng`) and one on the run's
+device (`RoundRunner.device_rng`). An algorithm names the one its
+`round_step(..., rng=)` (or `round_step_cohort(..., rng=)`) takes in its
+`round_rng` attribute: "device" for the int8 memories, whose stochastic
+rounding draws inside the round, "cpu" otherwise (the default). An
+algorithm that draws on the host (the sampling baselines' device
+selection) defines `host_draw(rng, n)`: the runner calls it with the CPU
+generator once a round, in round order, as part of the round's inputs,
+and the body passes the draw to `round_step(..., draw=)`.
+
+With `uses_update_clock` the schedules count applied global updates
+(`state["t_updates"]`, read on the host before each round) instead of
+rounds; the scan engine runs such schedules on the loop.
 
 Not ported yet: scenarios (`scenario=`, ROADMAP Queue 1 item 13), the
-runtime simulator (`sim=`, item 16), checkpoints (`checkpoint=`, item 17),
-meshes (`mesh=`, item 19) and the scan engine (`engine="scan"`, item 12).
+runtime simulator (`sim=`, item 16), checkpoints (`checkpoint=`, item 17)
+and meshes (`mesh=`, item 19).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -104,22 +124,90 @@ def pad_cohort(ids: np.ndarray, n_clients: int,
     return padded, np.arange(cap) < c
 
 
-def apply_mean(params, mean_g, eta_srv: float):
-    """Server step w <- w - η·mean_G."""
+def apply_mean(params, mean_g, eta_srv):
+    """Server step w <- w - η·mean_G (η a float or a 0-d tensor)."""
     return tree_map(lambda w, g: (w - eta_srv * g).to(w.dtype), params,
                     mean_g)
 
 
-# Profiler ranges that split `RoundRunner.step` into its phases: the round's
-# batches on the device, local training, and the server step (which ends in
-# the sync that reads the round's loss). `scripts/profile_round.py` reads
-# them; with no profiler active a range costs one small host call.
+# Profiler ranges that split a round into its phases: the round's inputs
+# assembled and on the device, local training, and the server step. The loop
+# engine's history then reads the round's loss (a sync).
+# `scripts/profile_round.py` reads them; with no profiler active a range
+# costs one small host call.
 ROUND_PHASES = ("round.batch", "round.local", "round.server")
 
+_FALLBACK_WARNED: set[str] = set()
 
-def _to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+
+def warn_engine_fallback(msg: str, *, stacklevel: int = 3) -> None:
+    """Warn ONCE per distinct message that a run falls back to the loop
+    (sweeps hit one unsupported configuration many times; the message
+    carries the reason, so distinct configurations still warn)."""
+    if msg in _FALLBACK_WARNED:
+        return
+    _FALLBACK_WARNED.add(msg)
+    warnings.warn(msg, stacklevel=stacklevel)
+
+
+def _reset_fallback_warnings() -> None:
+    """Forget which fallback warnings fired (test isolation hook)."""
+    _FALLBACK_WARNED.clear()
+
+
+def to_device(tree, device: torch.device):
+    """A tree of numpy arrays (0-d included) as tensors on `device`."""
+    return tree_map(lambda v: torch.as_tensor(np.asarray(v)).to(device),
+                    tree)
+
+
+
+def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
+                    cohort: bool, rng=None):
+    """One round as a function of device tensors only:
+    ``body(state, params, x) -> (state, params, metrics)``.
+
+    x (dense): ``batch`` (leaves (N, K, mb, ...)), ``active`` (N,) bool,
+    ``eta_loc`` and ``eta_srv`` (0-d f32) and, for an algorithm with a
+    `host_draw`, ``draw``. x (cohort): ``batch`` (C, K, mb, ...), ``rows``
+    (C,) as `bank.stage_rows` maps the padded cohort, ``valid`` (C,) bool
+    and the two rates. `rng` is the round generator the algorithm names
+    (`round_rng`). Nothing in the body reads a value back to the host, so
+    the scan engine can capture it as a CUDA graph; the loop engine calls
+    it once a round.
+    """
+    _, local_ph, server_ph = ROUND_PHASES
+    host_draw = hasattr(algo, "host_draw")
+
+    def updates_of(params, x):
+        with record_function(local_ph):
+            return client_updates(model.loss_fn, params, x["batch"],
+                                  x["eta_loc"], K=k_steps,
+                                  weight_decay=weight_decay)
+
+    def dense(state, params, x):
+        updates, losses = updates_of(params, x)
+        with record_function(server_ph):
+            kw = {"draw": x["draw"]} if host_draw else {}
+            return algo.round_step(state, params, updates, losses,
+                                   x["active"], x["eta_srv"], rng=rng, **kw)
+
+    def cohort_round(state, params, x):
+        updates, losses = updates_of(params, x)
+        with record_function(server_ph):
+            state, mean_g, metrics = algo.round_step_cohort(
+                state, x["rows"], x["valid"], updates, losses, rng=rng)
+            return state, apply_mean(params, mean_g, x["eta_srv"]), metrics
+
+    return cohort_round if cohort else dense
+
+
+def round_rng_of(algo, cpu_rng, device_rng):
+    """The round generator `algo.round_rng` names ("cpu" by default)."""
+    kind = getattr(algo, "round_rng", "cpu")
+    if kind not in ("cpu", "device"):
+        raise ValueError(f"round_rng must be 'cpu' or 'device', got {kind!r}")
+    return device_rng if kind == "device" else cpu_rng
 
 
 class RoundRunner:
@@ -127,10 +215,10 @@ class RoundRunner:
 
     `params` (optional) is a tree of tensors, moved to `device`; without it
     the model is initialised from a torch.Generator seeded with `seed`.
-    The round generator `rng` is a second CPU generator seeded with `seed`,
-    the same whether or not `params` is given (the reference splits its
-    round key from PRNGKey(seed) either way). `cohort_capacity` pins the
-    cohort path's pad width.
+    The round generators `rng` (CPU) and `device_rng` (on `device`) are
+    seeded with `seed`, the same whether or not `params` is given (the
+    reference splits its round key from PRNGKey(seed) either way).
+    `cohort_capacity` pins the cohort path's pad width.
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
@@ -150,6 +238,8 @@ class RoundRunner:
         self.uses_update_clock = uses_update_clock
         self.cohort_capacity = cohort_capacity
         self.rng = torch.Generator().manual_seed(seed)
+        self.device_rng = torch.Generator(device=self.device).manual_seed(
+            seed)
         if params is None:
             self.params = model.init(torch.Generator().manual_seed(seed),
                                      device=self.device)
@@ -162,6 +252,10 @@ class RoundRunner:
         self.stats = TauStats(self.n_clients, strict=False)
         self.hist = FLHistory()
         self.cohort_mode = getattr(algo, "cohort_based", False)
+        self.round_rng = round_rng_of(algo, self.rng, self.device_rng)
+        self.body = make_round_body(model, algo, batcher.k_steps,
+                                    weight_decay, cohort=self.cohort_mode,
+                                    rng=self.round_rng)
 
     def learning_rates(self, t: int) -> tuple[float, float]:
         """η_local, η_server for round t (schedules count from 1; with the
@@ -179,10 +273,31 @@ class RoundRunner:
             eta_loc = float(self.eta_local)
         return eta_loc, eta_srv
 
-    def _updates(self, batch: dict, eta_loc: float):
-        return client_updates(self.model.loss_fn, self.params, batch, eta_loc,
-                              K=self.batcher.k_steps,
-                              weight_decay=self.weight_decay)
+    def _rates(self, t: int) -> dict:
+        eta_loc, eta_srv = self.learning_rates(t)
+        return {"eta_loc": np.asarray(eta_loc, np.float32),
+                "eta_srv": np.asarray(eta_srv, np.float32)}
+
+    def round_inputs(self, t: int, active: np.ndarray) -> dict:
+        """The host side of dense round t: its numpy inputs for the body
+        (the batch, the mask, both rates and any host draw)."""
+        x = {"batch": self.batcher.sample_round(t),
+             "active": np.asarray(active, bool), **self._rates(t)}
+        if hasattr(self.algo, "host_draw"):
+            x["draw"] = np.asarray(self.algo.host_draw(self.rng,
+                                                       self.n_clients))
+        return x
+
+    def cohort_inputs(self, t: int, padded: np.ndarray,
+                      valid: np.ndarray) -> dict:
+        """The host side of cohort round t for the padded cohort: the
+        compact batch, the bank's staged rows, valid and both rates."""
+        # pad slots still need some real client's batch; row 0's content
+        # is computed then discarded by the valid mask
+        return {"batch": self.batcher.sample_round(
+                    t, client_ids=np.where(valid, padded, 0)),
+                "rows": self.algo.bank.stage_rows(padded, valid),
+                "valid": valid, **self._rates(t)}
 
     def step(self, t: int, active: np.ndarray) -> dict:
         """Apply one round with `active` (N,) bool as the applied-update
@@ -191,18 +306,11 @@ class RoundRunner:
         self.stats.update(active)
         if self.cohort_mode:
             return self.step_cohort(t, np.flatnonzero(active))
-        eta_loc, eta_srv = self.learning_rates(t)
-        batch_ph, local_ph, server_ph = ROUND_PHASES
-        with record_function(batch_ph):
-            batch = _to_device(self.batcher.sample_round(t), self.device)
-        with record_function(local_ph):
-            updates, losses = self._updates(batch, eta_loc)
-        with record_function(server_ph):
-            self.state, self.params, metrics = self.algo.round_step(
-                self.state, self.params, updates, losses,
-                torch.from_numpy(active).to(self.device), eta_srv,
-                rng=self.rng)
-            self.hist.record_round(t, metrics)
+        with record_function(ROUND_PHASES[0]):
+            x = to_device(self.round_inputs(t, active), self.device)
+        self.state, self.params, metrics = self.body(self.state,
+                                                     self.params, x)
+        self.hist.record_round(t, metrics)
         return metrics
 
     def step_cohort(self, t: int, ids: np.ndarray) -> dict:
@@ -213,25 +321,16 @@ class RoundRunner:
         """
         if not self.cohort_mode:
             raise ValueError("step_cohort needs a cohort_based algorithm")
-        eta_loc, eta_srv = self.learning_rates(t)
-        batch_ph, local_ph, server_ph = ROUND_PHASES
-        with record_function(batch_ph):
+        with record_function(ROUND_PHASES[0]):
             ids = np.asarray(ids, np.int64)
             check_unique_ids(ids)    # duplicates would corrupt G_sum
             padded, valid = pad_cohort(ids, self.n_clients,
                                        self.cohort_capacity)
-            # pad slots still need some real client's batch; row 0's content
-            # is computed then discarded by the valid mask
-            batch = _to_device(self.batcher.sample_round(
-                t, client_ids=np.where(valid, padded, 0)), self.device)
+            x = to_device(self.cohort_inputs(t, padded, valid), self.device)
             self.state = self.algo.prepare_cohort(self.state, padded[valid])
-        with record_function(local_ph):
-            updates, losses = self._updates(batch, eta_loc)
-        with record_function(server_ph):
-            self.state, mean_g, metrics = self.algo.round_step_cohort(
-                self.state, padded, valid, updates, losses)
-            self.params = apply_mean(self.params, mean_g, eta_srv)
-            self.hist.record_round(t, metrics)
+        self.state, self.params, metrics = self.body(self.state,
+                                                     self.params, x)
+        self.hist.record_round(t, metrics)
         return metrics
 
     def evaluate(self, t: int, eval_fn: Callable) -> tuple[float, float]:
@@ -250,7 +349,11 @@ class RoundRunner:
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item}); the port runs "
-                               "participation= with engine='loop'")
+                               "participation= on the loop and scan "
+                               "engines")
+
+
+ENGINES = ("loop", "scan", "scan_strict")
 
 
 def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
@@ -260,7 +363,7 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
            eval_fn: Callable | None = None, eval_every: int = 10,
            params=None, uses_update_clock: bool = False,
            cohort_capacity: int | None = None, engine: str = "loop",
-           checkpoint=None, mesh=None,
+           scan_chunk: int = 64, checkpoint=None, mesh=None,
            device: str | torch.device = DEFAULT_DEVICE
            ) -> tuple[Any, FLHistory]:
     """Run T round-synchronous rounds of federated training on `device`.
@@ -271,12 +374,24 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     rate (`eta_local` overrides the client-side rate);
     `uses_update_clock` drives the schedules off applied global updates
     (FedAvgSampling-style). `seed` keys model init (or pass `params`) and
-    the round generator; `weight_decay` applies to the K local steps.
+    the round generators; `weight_decay` applies to the K local steps.
     `cohort_capacity` pins the cohort path's pad width (default: per-round
     power-of-two buckets); pad slots are inert, but the reduction grouping
     of local training depends on the padded length, so pin it when holding
     two drivers' trajectories together. `eval_fn(params) -> (loss, acc)`
     runs every `eval_every` rounds and at the last round.
+
+    `engine`:
+      * "loop" — one round at a time: its inputs to the device, the round
+        body, the loss read back.
+      * "scan" — `core.scan_engine.ScanDriver`: rounds in chunks of up to
+        `scan_chunk` (cut after every eval round), each chunk's inputs
+        staged to the device in one copy; on the card the round body is
+        captured once as a CUDA graph and replayed, and the metrics are
+        read one chunk late. Bit-equal to the loop. Configurations it
+        cannot run (update-clock schedules, host banks) warn once and
+        run on the loop; an unpinned cohort pads to the N-client bucket.
+      * "scan_strict" — like "scan", but those configurations raise.
     """
     if scenario is not None:
         raise _not_ported("scenario=", "13")
@@ -286,8 +401,9 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         raise _not_ported("checkpoint=", "17")
     if mesh is not None:
         raise _not_ported("mesh=", "19")
-    if engine != "loop":
-        raise _not_ported(f"engine={engine!r}", "12")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}: expected 'loop', "
+                         "'scan', or 'scan_strict'")
     if participation is None:
         raise ValueError("pass participation=")
     runner = RoundRunner(model=model, algo=algo, batcher=batcher,
@@ -295,6 +411,21 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
                          weight_decay=weight_decay, seed=seed, params=params,
                          uses_update_clock=uses_update_clock,
                          cohort_capacity=cohort_capacity, device=device)
+    if engine != "loop":
+        from repro_torch.core.scan_engine import ScanDriver, scan_supported
+        ok, why = scan_supported(runner)
+        if ok:
+            t0 = time.time()
+            ScanDriver(runner, scan_chunk=scan_chunk).run(
+                n_rounds, participation=participation, eval_fn=eval_fn,
+                eval_every=eval_every)
+            runner.hist.wall_time = time.time() - t0
+            return runner.finalize()
+        if engine == "scan_strict":
+            raise ValueError(f"engine='scan_strict': {why}")
+        warn_engine_fallback(
+            f"engine='scan' unsupported for this configuration "
+            f"({why}); falling back to the per-round loop")
     t0 = time.time()
     for t in range(n_rounds):
         active = participation.sample(t)

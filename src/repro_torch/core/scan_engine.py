@@ -1,0 +1,438 @@
+"""The scan engine: T rounds in chunks, each chunk's inputs staged at once,
+each round on the card a replay of one captured CUDA graph.
+
+Counterpart of `repro/core/scan_engine.py`, which compiles the rounds of a
+chunk into one `lax.scan` program. Here a chunk is:
+
+  1. `build_xs` (host): draw the chunk's masks (τ statistics as the loop
+     keeps them), assemble every round's inputs as the loop does
+     (`RoundRunner.round_inputs` / `cohort_inputs`, host draws in round
+     order; a cohort padded to the run's one width), and stage them: every
+     leaf of every round goes into ONE host buffer (pinned when the run is
+     on the card), which goes to the device in one asynchronous copy
+     (`stage_rounds`);
+  2. `pre_chunk` (host): a paged bank pages the chunk's cohort union in;
+     within the chunk its page table is fixed, so the logical rows staged
+     in step 1 hold for every round of the chunk;
+  3. `chunk_fn`: for each round, on the card, copy its slices of the staged
+     buffer into the static input buffers of the captured round (device to
+     device, on the stream) and replay the graph (`CapturedRound`); on the
+     CPU, call the round body on the slices. The metrics go into a (L, ...)
+     buffer on the device;
+  4. `flush`, one chunk late: read that buffer once and record the history.
+
+The body is `runner.make_round_body`'s, the one the loop engine calls, so
+scan runs the loop's code on the loop's inputs: on the CPU the two are
+bit-equal, and on the card too as long as no op of the body changes its
+result under capture (the port's kernels sum in a fixed order).
+
+What falls back to the loop (`scan_supported`): update-clock schedules (the
+host would need the device-side update counter every round) and host banks
+(`Int8PagedBank`: its rows live on the host, `on_device = False`). `run_fl`
+warns once and loops for these under ``engine="scan"`` and raises under
+``engine="scan_strict"``. `DenseBank` and `PagedDeviceBank` (f32, bf16,
+int8) ride the scan.
+
+What a capture must not freeze, and where each went: the learning rates
+are 0-d device tensors in the staged inputs (the `mifa_aggregate` kernel
+reads its rate from the card); masks, cohorts, batches and host draws
+(`host_draw`) are staged inputs; range and duplicate checks run in
+`build_xs`; page-ins run in `pre_chunk`; int8 rounding draws from the
+run's device generator, registered with the graph so each replay draws
+afresh. The kernels count their launches on the host, which a replay does
+not reach: `CapturedRound` records each counter's increase during capture
+and adds it on every replay.
+
+Scenario-mode bodies (in-program availability, τ in the carry, windowed
+trace replay) come with ROADMAP Queue 1 item 13.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.runner import RoundRunner, _pow2_bucket
+from repro_torch.core.runner import pad_cohort as runner_pad_cohort
+from repro_torch.kernels.ops import launch_counters
+from repro_torch.tree import tree_leaves, tree_map
+
+# metrics a round body reports, in the order the chunk buffer stores them
+METRIC_KEYS = ("loss", "n_active", "global_updates")
+
+
+def scan_supported(runner: RoundRunner) -> tuple[bool, str]:
+    """Can this runner's configuration run on the scan engine? (ok, why)"""
+    if runner.uses_update_clock:
+        return False, ("update-clock schedules read the device-side "
+                       "applied-update counter between rounds; the host "
+                       "cannot precompute a chunk of learning rates")
+    bank = getattr(runner.algo, "bank", None)
+    if runner.cohort_mode and not bank.on_device:
+        return False, (
+            f"{type(bank).__name__} is host-offloaded: its rows live on "
+            "the host, outside a captured round; scan-capable banks are "
+            "DenseBank ('dense') and PagedDeviceBank ('paged_device', "
+            "bounded device bytes behind a page table)")
+    return True, ""
+
+
+def _eval_rounds(n_rounds: int, eval_every: int, has_eval: bool) -> set:
+    """The rounds after which the loop engine would run eval_fn."""
+    if not has_eval:
+        return set()
+    pts = {t for t in range(n_rounds) if t % eval_every == 0}
+    pts.add(n_rounds - 1)
+    return pts
+
+
+def chunk_bounds(n_rounds: int, scan_chunk: int, eval_rounds: set,
+                 start: int = 0) -> list[tuple[int, int]]:
+    """[t0, t1) segments over rounds [start, n_rounds): cut every
+    `scan_chunk` rounds AND after each eval round, so evals land exactly
+    where the loop engine runs them. The grid stays anchored at round 0
+    whatever `start` is."""
+    if scan_chunk < 1:
+        raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
+    cuts = {start, n_rounds}
+    cuts.update(range(0, n_rounds, scan_chunk))
+    cuts.update(t + 1 for t in eval_rounds if t < n_rounds)
+    edges = sorted(c for c in cuts if start <= c <= n_rounds)
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def pad_cohort(ids: np.ndarray, cap: int, n_clients: int,
+               round_t: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pad one cohort's ids to the scan capacity: (padded, valid).
+
+    Pad slots point at the bank's dummy row `n_clients` with valid=False,
+    as `RoundRunner.step_cohort` pads them. A captured round has ONE shape,
+    so a cohort overflowing `cap` raises instead of widening per round the
+    way the loop engine's power-of-two buckets do.
+    """
+    if len(ids) > cap:
+        raise ValueError(
+            f"round {round_t}: cohort of {len(ids)} overflows the scan "
+            f"capacity {cap}; raise cohort_capacity (a captured round "
+            "cannot widen per round the way the loop engine's pow-2 "
+            "buckets do)")
+    return runner_pad_cohort(ids, n_clients, cap)
+
+
+def run_pipelined_chunks(carry, segments, *, chunk_fn, build_xs, writeback,
+                         flush, sync_rounds=frozenset(), on_sync=None,
+                         pre_chunk=None):
+    """Chunk execution flushed one chunk late, shared by `ScanDriver` and
+    `fleet.FleetScanDriver`: the next chunk's host-side inputs are built
+    while the device runs the current one.
+
+    ``build_xs(t0, t1)`` stages a chunk's inputs; ``pre_chunk(carry) ->
+    carry``, when given, runs after it (which knows the chunk's working
+    set) and right before the chunk runs; ``chunk_fn(carry, xs) -> (carry,
+    ys)`` runs the chunk's rounds (on the card: enqueues them);
+    ``writeback(carry)`` publishes the carry to the runner; ``flush(t0, t1,
+    ys, carry)`` reads the chunk's results and records history. Rounds in
+    `sync_rounds` (eval rounds) flush at once and call `on_sync(t)`.
+    Returns the final carry.
+    """
+    pending = None
+    for t0, t1 in segments:
+        xs = build_xs(t0, t1)
+        if pending is not None:
+            flush(*pending)
+        if pre_chunk is not None:
+            carry = pre_chunk(carry)
+        carry, ys = chunk_fn(carry, xs)
+        writeback(carry)
+        pending = (t0, t1, ys, carry)
+        if (t1 - 1) in sync_rounds:
+            flush(*pending)
+            pending = None
+            on_sync(t1 - 1)
+    if pending is not None:
+        flush(*pending)
+    return carry
+
+
+# --------------------------------------------------------------------------- #
+# staging and capture
+# --------------------------------------------------------------------------- #
+
+_ALIGN = 256
+
+
+def stage_rounds(rounds: list, device: torch.device):
+    """Stack L rounds' input trees (numpy leaves of one structure) into one
+    host buffer and move it to `device` in one copy (asynchronous from
+    pinned memory on the card). Returns the tree of (L, ...) tensors, views
+    of the device buffer, and the staged byte count."""
+    n_rounds = len(rounds)
+    first = rounds[0]
+    leaves = []                      # (numpy dtype, per-round shape)
+    tree_map(lambda v: leaves.append((np.asarray(v).dtype,
+                                      np.shape(v))), first)
+    offsets, total = [], 0
+    for dt, shape in leaves:
+        offsets.append(total)
+        nbytes = n_rounds * int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        total += -(-nbytes // _ALIGN) * _ALIGN
+    host = torch.empty(max(total, 1), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    host_np = host.numpy()
+
+    def view_np(i):
+        dt, shape = leaves[i]
+        n = n_rounds * int(np.prod(shape, dtype=np.int64))
+        return host_np[offsets[i]:offsets[i] + n * dt.itemsize].view(
+            dt).reshape((n_rounds,) + shape)
+
+    dests = [view_np(i) for i in range(len(leaves))]
+    for j, rd in enumerate(rounds):
+        it = iter(dests)
+        tree_map(lambda v: next(it).__setitem__(j, v), rd)
+    dev = (host.to(device, non_blocking=True) if device.type == "cuda"
+           else host)
+
+    def view_dev(i):
+        dt, shape = leaves[i]
+        n = n_rounds * int(np.prod(shape, dtype=np.int64))
+        tdt = torch.from_numpy(np.empty(0, dt)).dtype
+        return dev[offsets[i]:offsets[i] + n * dt.itemsize].view(
+            tdt).view((n_rounds,) + shape)
+
+    it = iter(range(len(leaves)))
+    return tree_map(lambda _: view_dev(next(it)), first), total
+
+
+def pack_metrics(metrics: dict) -> tuple[torch.Tensor, list[str]]:
+    """The round's metrics in METRIC_KEYS order as one f32 tensor
+    (n_metrics, ...) (a fleet's are (K,) each), and their keys."""
+    keys = [k for k in METRIC_KEYS if k in metrics]
+    return torch.stack([metrics[k].float() for k in keys]), keys
+
+
+def _copy_into(static, new) -> None:
+    """Write `new` into the tensors of `static` (same structure), leaf by
+    leaf, skipping leaves the step already wrote in place."""
+    def put(dst, src):
+        if (src.data_ptr() != dst.data_ptr() or src.shape != dst.shape
+                or src.stride() != dst.stride()):
+            dst.copy_(src)
+    tree_map(put, static, new)
+
+
+def _clone(tree):
+    return tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor)
+                    else v, tree)
+
+
+class CapturedRound:
+    """`body(state, params, x)` captured once as a CUDA graph.
+
+    The graph reads the round's inputs from static buffers (`static_x`)
+    and the carry from `state` and `params` themselves, and ends by writing
+    the new state and params back into those tensors, so replays chain.
+    Before capture the body runs once on clones of the carry on a side
+    stream (lazy initialisation outside the capture); the generators in
+    `generators` are restored afterwards, so the warm-up leaves the run's
+    numbers alone. Its kernel launches are real and stay counted. Every
+    generator the body draws from is registered with the graph. The
+    launch counters are host-side, so the capture's increase of each
+    (`launches`) is taken back (the capture launched nothing) and added on
+    every replay.
+    """
+
+    def __init__(self, body: Callable, state, params, x, *,
+                 generators=()):
+        self.static_x = _clone(x)
+        counters = launch_counters()
+        saved = [g.get_state() for g in generators]
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body(_clone(state), _clone(params), self.static_x)
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        for g, st in zip(generators, saved):
+            g.set_state(st)
+        warmed = {k: fn.launches for k, fn in counters.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
+        with torch.cuda.graph(self.graph):
+            new_state, new_params, metrics = body(state, params,
+                                                  self.static_x)
+            _copy_into(state, new_state)
+            _copy_into(params, new_params)
+            self.metrics, self.keys = pack_metrics(metrics)
+        self._carry = _tensor_ptrs(state, params)
+        self.launches = {}
+        for k, fn in counters.items():
+            self.launches[k] = fn.launches - warmed[k]
+            fn.launches = warmed[k]    # the capture launched nothing
+        self._counters = counters
+        self.replays = 0
+
+    def replay(self, state, params, x) -> torch.Tensor:
+        """Run the captured round on the carry it was captured with (the
+        same tensors, updated in place since) and inputs `x` (device
+        tensors of `static_x`'s shapes); returns the metrics buffer it
+        wrote."""
+        if _tensor_ptrs(state, params) != self._carry:
+            raise RuntimeError("the carry is no longer in the tensors the "
+                               "round was captured with; a pre-chunk hook "
+                               "must update it in place")
+        _copy_into(self.static_x, x)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            self._counters[k].launches += n
+        self.replays += 1
+        return self.metrics
+
+
+def _tensor_ptrs(state, params) -> list:
+    return [v.data_ptr() for v in tree_leaves([state, params])
+            if isinstance(v, torch.Tensor)]
+
+
+def _signature(x) -> tuple:
+    return tuple((tuple(v.shape), v.dtype) for v in tree_leaves(x))
+
+
+class ChunkRunner:
+    """Runs a chunk's rounds: replays of a captured round on the card (one
+    graph per input shape, captured at first use), the body itself on the
+    CPU. Shared by `ScanDriver` and the fleet's `FleetScanDriver`."""
+
+    def __init__(self, body: Callable, device: torch.device, *,
+                 generators=()):
+        self.body = body
+        self.device = device
+        self.generators = tuple(generators)
+        self.graphs: dict[tuple, CapturedRound] = {}
+        self.staged_bytes = 0
+        self.chunks = 0
+        self.keys: list[str] | None = None    # the metrics' METRIC_KEYS
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for g in self.graphs.values())
+
+    def stage(self, rounds: list):
+        xs, nbytes = stage_rounds(rounds, self.device)
+        self.staged_bytes += nbytes
+        self.chunks += 1
+        return xs
+
+    def run(self, state, params, xs):
+        """Every round of the staged chunk `xs` in order; returns (state,
+        params, (L, n_metrics, ...) f32 metrics on the device)."""
+        n_rounds = tree_leaves(xs)[0].shape[0]
+        ys = None
+        for j in range(n_rounds):
+            x = tree_map(lambda v: v[j], xs)
+            if self.device.type == "cuda":
+                key = _signature(x)
+                if key not in self.graphs:
+                    self.graphs[key] = CapturedRound(
+                        self.body, state, params, x,
+                        generators=self.generators)
+                m = self.graphs[key].replay(state, params, x)
+                self.keys = self.graphs[key].keys
+            else:
+                state, params, metrics = self.body(state, params, x)
+                m, self.keys = pack_metrics(metrics)
+            if ys is None:
+                ys = torch.empty((n_rounds,) + tuple(m.shape),
+                                 dtype=torch.float32, device=m.device)
+            ys[j].copy_(m)
+        return state, params, ys
+
+
+class ScanDriver:
+    """Drives a `RoundRunner` through T rounds on the scan engine.
+
+    Constructed by `run_fl(engine="scan")` after `scan_supported` says yes.
+    Uses the runner's params, state and generators, so the trajectory is
+    the loop engine's; the runner's state, params, history and τ
+    statistics are current after `run`, and `runner.finalize()` works
+    unchanged. `replays` and `staged_bytes` count the captured rounds run
+    and the bytes staged.
+    """
+
+    def __init__(self, runner: RoundRunner, *, scan_chunk: int = 64):
+        if scan_chunk < 1:
+            raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
+        self.r = r = runner
+        self.scan_chunk = scan_chunk
+        if r.cohort_mode:
+            # one shape for every round: unpinned runs pad to the N-client
+            # bucket (the loop's per-round buckets vary)
+            self.cap = r.cohort_capacity or _pow2_bucket(r.n_clients)
+        # the body draws from the device generator only if the algorithm
+        # names it; then the graph must own it
+        gens = (r.device_rng,) if r.round_rng is r.device_rng else ()
+        self.chunks = ChunkRunner(r.body, r.device, generators=gens)
+        self._union = None
+
+    @property
+    def replays(self) -> int:
+        return self.chunks.replays
+
+    @property
+    def staged_bytes(self) -> int:
+        return self.chunks.staged_bytes
+
+    def _build_xs(self, t0: int, t1: int, participation):
+        r = self.r
+        rounds, union = [], []
+        for t in range(t0, t1):
+            mask = np.asarray(participation.sample(t), bool)
+            r.stats.update(mask)
+            if not r.cohort_mode:
+                rounds.append(r.round_inputs(t, mask))
+                continue
+            padded, valid = pad_cohort(np.flatnonzero(mask), self.cap,
+                                       r.n_clients, t)
+            rounds.append(r.cohort_inputs(t, padded, valid))
+            union.append(padded[valid])
+        if r.cohort_mode:
+            self._union = np.concatenate(union)
+        return self.chunks.stage(rounds)
+
+    def _pre_chunk(self, carry):
+        """Page the chunk's cohort union in (identity for a dense bank)
+        while the host owns the carry; raises when it overflows the
+        slots."""
+        state, params = carry
+        return self.r.algo.prepare_cohort(state, self._union), params
+
+    def _chunk_fn(self, carry, xs):
+        state, params, ys = self.chunks.run(*carry, xs)
+        return (state, params), ys
+
+    def _writeback(self, carry) -> None:
+        self.r.state, self.r.params = carry
+
+    def _flush(self, t0: int, t1: int, ys: torch.Tensor, carry) -> None:
+        """Record the chunk's rounds from its metrics buffer: one read."""
+        vals = ys.cpu().numpy()
+        for j, t in enumerate(range(t0, t1)):
+            self.r.hist.record_round(
+                t, {k: vals[j, i] for i, k in enumerate(self.chunks.keys)})
+
+    def run(self, n_rounds: int, *, participation,
+            eval_fn: Callable | None = None, eval_every: int = 10) -> None:
+        """Rounds [0, n_rounds), the runner updated in place."""
+        r = self.r
+        evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
+        run_pipelined_chunks(
+            (r.state, r.params),
+            chunk_bounds(n_rounds, self.scan_chunk, evals),
+            chunk_fn=self._chunk_fn,
+            build_xs=lambda t0, t1: self._build_xs(t0, t1, participation),
+            writeback=self._writeback, flush=self._flush,
+            sync_rounds=evals, on_sync=lambda t: r.evaluate(t, eval_fn),
+            pre_chunk=self._pre_chunk if r.cohort_mode else None)

@@ -1,7 +1,7 @@
 """Fleet executor — K independent FL trials run together on a trial axis.
 
-Counterpart of `repro/fleet/executor.py`, loop engine only. The fleet
-stacks K trials along a leading trial axis:
+Counterpart of `repro/fleet/executor.py`. The fleet stacks K trials along
+a leading trial axis:
 
     params : (K, *shape)    state : per-algorithm leaves with a (K,) prefix
     masks  : (K, N) drawn on the host by the K trials' own processes
@@ -27,11 +27,18 @@ and each round runs as one fleet step:
 
 Per trial the fleet computes what `core.runner.run_fl` computes for the
 same seed and process: trial k is initialised as `RoundRunner(seed=s_k)`
-(or from the stacked `params=`) and keeps its own round generator, seeded
-with s_k. τ statistics are not tracked (as in the reference).
+(or from the stacked `params=`) and keeps its own round generators, a CPU
+one and one on the device, seeded with s_k. τ statistics are not tracked
+(as in the reference).
+
+As in `core.runner`, a fleet round is host inputs (`fleet_inputs` /
+`cohort_inputs`) and a body of device work (`make_fleet_body`);
+`run_fleet(engine="scan")` runs the body through `FleetScanDriver`, which
+stages each chunk's inputs in one copy and, on the card, replays the body
+captured as a CUDA graph, per trial bit-equal to the loop.
 
 Not ported yet: scenario trials and `step_scenario` (ROADMAP Queue 1 item
-13), `engine="scan"` (item 12) and meshes (`mesh=`, item 19).
+13) and meshes (`mesh=`, item 19).
 """
 from __future__ import annotations
 
@@ -47,8 +54,13 @@ from torch.profiler import record_function
 
 from repro_torch.bank.base import check_unique_ids
 from repro_torch.core.local_update import client_updates
-from repro_torch.core.runner import (ROUND_PHASES, FLHistory, _pow2_bucket,
-                                     _to_device, cohort_width)
+from repro_torch.core.runner import (ENGINES, ROUND_PHASES, FLHistory,
+                                     _pow2_bucket, cohort_width,
+                                     round_rng_of, to_device,
+                                     warn_engine_fallback)
+from repro_torch.core.scan_engine import (ChunkRunner, _eval_rounds,
+                                          chunk_bounds, pad_cohort,
+                                          run_pipelined_chunks)
 from repro_torch.fleet.spec import FleetSpec, Trial, _not_ported
 from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
                                          set_numerics)
@@ -132,6 +144,64 @@ def _write_trial(stacked, k: int, new) -> None:
     tree_map(put, stacked, new)
 
 
+def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
+                    cohort: bool, rngs):
+    """One fleet round as a function of device tensors only,
+    ``body(state, params, x) -> (state, params, metrics with (K,)
+    leaves)``, the counterpart of `core.runner.make_round_body`.
+
+    x (dense): ``batch`` shared by all trials, ``active`` (K, N),
+    ``eta_loc``/``eta_srv`` (K,) and, for an algorithm with a `host_draw`,
+    ``draw`` (K, N). x (cohort): ``ubatch`` (each distinct client of the
+    round once), ``idx`` (K, C) into it, ``rows``/``valid`` (K, C) staged
+    by the bank, and the rates. `rngs` are the trials' round generators of
+    the kind the algorithm names.
+    """
+    _, local_ph, server_ph = ROUND_PHASES
+    host_draw = hasattr(algo, "host_draw")
+
+    def local(params, batch, eta_loc, batch_dim):
+        """Local training of every trial, vmapped over the trial axis:
+        `batch_dim` None shares one batch, 0 gives each trial its own."""
+        def one(p, b, eta):
+            return client_updates(model.loss_fn, p, b, eta, K=k_steps,
+                                  weight_decay=weight_decay)
+        with record_function(local_ph):
+            return vmap(one, in_dims=(0, batch_dim, 0))(params, batch,
+                                                        eta_loc)
+
+    def dense(state, params, x):
+        updates, losses = local(params, x["batch"], x["eta_loc"], None)
+        with record_function(server_ph):
+            per_trial = []
+            for k in range(len(rngs)):
+                kw = {"draw": x["draw"][k]} if host_draw else {}
+                st, p, metrics = algo.round_step(
+                    tree_index(state, k), tree_index(params, k),
+                    tree_index(updates, k), losses[k], x["active"][k],
+                    x["eta_srv"][k], rng=rngs[k], **kw)
+                _write_trial(state, k, st)
+                _write_trial(params, k, p)
+                per_trial.append(metrics)
+            return state, params, {key: torch.stack([m[key]
+                                                     for m in per_trial])
+                                   for key in per_trial[0]}
+
+    def cohort_round(state, params, x):
+        batch = {key: v[x["idx"]] for key, v in x["ubatch"].items()}
+        updates, losses = local(params, batch, x["eta_loc"], 0)
+        with record_function(server_ph):
+            state, mean_g, metrics = algo.round_step_cohort_fleet(
+                state, x["rows"], x["valid"], updates, losses, rng=rngs)
+            eta = x["eta_srv"]
+            params = tree_map(
+                lambda w, g: (w - eta.reshape((-1,) + (1,) * (w.ndim - 1))
+                              * g).to(w.dtype), params, mean_g)
+            return state, params, metrics
+
+    return cohort_round if cohort else dense
+
+
 class FleetRunner:
     """K-trial counterpart of `core.runner.RoundRunner`.
 
@@ -139,9 +209,9 @@ class FleetRunner:
     per trial, drawn by that trial's own participation process. `params`
     (optional) is a tree of stacked (K, ...) tensors; without it trial k is
     initialised from `torch.Generator().manual_seed(seeds[k])`, exactly as
-    `RoundRunner(seed=seeds[k])`. Each trial keeps its own round generator,
-    seeded with its seed. `device` defaults to "cuda" and raises without a
-    GPU.
+    `RoundRunner(seed=seeds[k])`. Each trial keeps its own round
+    generators (`rngs` on the CPU, `device_rngs` on the device), seeded
+    with its seed. `device` defaults to "cuda" and raises without a GPU.
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
@@ -187,9 +257,16 @@ class FleetRunner:
             algo.init_state(tree_index(self.params, k), self.n_clients)
             for k in range(self.n_trials)])
         self.rngs = [torch.Generator().manual_seed(int(s)) for s in seeds]
+        self.device_rngs = [torch.Generator(device=self.device).manual_seed(
+            int(s)) for s in seeds]
         self.hist = FleetHistory(self.n_trials, labels=list(
             labels or [f"seed{s}" for s in seeds]))
         self.cohort_mode = getattr(algo, "cohort_based", False)
+        self.round_rngs = [round_rng_of(algo, c, d) for c, d in
+                           zip(self.rngs, self.device_rngs)]
+        self.body = make_fleet_body(model, algo, batcher.k_steps,
+                                    weight_decay, cohort=self.cohort_mode,
+                                    rngs=self.round_rngs)
 
     # ------------------------------------------------------------------ #
     def learning_rates(self, t: int) -> tuple[np.ndarray, np.ndarray]:
@@ -212,45 +289,53 @@ class FleetRunner:
                               np.float32)
         return eta_loc, eta_srv
 
-    def _local(self, batch: dict, eta_loc: np.ndarray, batch_dim):
-        """Local training of every trial, vmapped over the trial axis:
-        `batch_dim` None shares one batch, 0 gives each trial its own."""
-        def one(params, b, eta):
-            return client_updates(self.model.loss_fn, params, b, eta,
-                                  K=self.batcher.k_steps,
-                                  weight_decay=self.weight_decay)
-        eta = torch.from_numpy(eta_loc).to(self.device)
-        return vmap(one, in_dims=(0, batch_dim, 0))(self.params, batch, eta)
-
-    def step(self, t: int, masks: np.ndarray) -> dict:
-        """Apply round t to all trials; masks (K, N) bool applied-updates.
-        Returns the round's metrics with (K,) leaves."""
+    def _check_masks(self, masks) -> np.ndarray:
         masks = np.asarray(masks, bool)
         if masks.shape != (self.n_trials, self.n_clients):
             raise ValueError(f"masks must be (K={self.n_trials}, "
                              f"N={self.n_clients}), got {masks.shape}")
+        return masks
+
+    def fleet_inputs(self, t: int, masks: np.ndarray) -> dict:
+        """The host side of dense fleet round t: the shared batch, the
+        (K, N) masks, the (K,) rates and any per-trial host draws."""
+        eta_loc, eta_srv = self.learning_rates(t)
+        x = {"batch": self.batcher.sample_round(t), "active": masks,
+             "eta_loc": eta_loc, "eta_srv": eta_srv}
+        if hasattr(self.algo, "host_draw"):
+            x["draw"] = np.stack([np.asarray(self.algo.host_draw(
+                g, self.n_clients)) for g in self.rngs])
+        return x
+
+    def cohort_inputs(self, t: int, padded: np.ndarray, valid: np.ndarray,
+                      width: int | None = None) -> dict:
+        """The host side of cohort fleet round t for the padded (K, C)
+        cohorts: each distinct client of the round sampled once (the union,
+        padded with its first id to `width`, or to its power-of-two
+        bucket), every trial's (C,) index into it, the staged rows, valid
+        and the (K,) rates."""
+        eta_loc, eta_srv = self.learning_rates(t)
+        # pad slots take client 0's batch, as RoundRunner.step_cohort
+        wanted = np.where(valid, padded, 0)
+        uniq, inv = np.unique(wanted, return_inverse=True)
+        width = _pow2_bucket(len(uniq)) if width is None else width
+        uniq = np.concatenate([uniq, np.full(width - len(uniq), uniq[0])])
+        return {"ubatch": self.batcher.sample_round(t, client_ids=uniq),
+                "idx": inv.reshape(padded.shape).astype(np.int64),
+                "rows": self.algo.bank.stage_rows(padded, valid),
+                "valid": valid, "eta_loc": eta_loc, "eta_srv": eta_srv}
+
+    def step(self, t: int, masks: np.ndarray) -> dict:
+        """Apply round t to all trials; masks (K, N) bool applied-updates.
+        Returns the round's metrics with (K,) leaves."""
+        masks = self._check_masks(masks)
         if self.cohort_mode:
             return self.step_cohort(t, [np.flatnonzero(m) for m in masks])
-        eta_loc, eta_srv = self.learning_rates(t)
-        batch_ph, local_ph, server_ph = ROUND_PHASES
-        with record_function(batch_ph):
-            batch = _to_device(self.batcher.sample_round(t), self.device)
-            active = torch.from_numpy(masks).to(self.device)
-        with record_function(local_ph):
-            updates, losses = self._local(batch, eta_loc, None)
-        with record_function(server_ph):
-            per_trial = []
-            for k in range(self.n_trials):
-                state, params, metrics = self.algo.round_step(
-                    tree_index(self.state, k), tree_index(self.params, k),
-                    tree_index(updates, k), losses[k], active[k],
-                    float(eta_srv[k]), rng=self.rngs[k])
-                _write_trial(self.state, k, state)
-                _write_trial(self.params, k, params)
-                per_trial.append(metrics)
-            metrics = {key: torch.stack([m[key] for m in per_trial])
-                       for key in per_trial[0]}
-            self.hist.record_round(t, metrics)
+        with record_function(ROUND_PHASES[0]):
+            x = to_device(self.fleet_inputs(t, masks), self.device)
+        self.state, self.params, metrics = self.body(self.state,
+                                                     self.params, x)
+        self.hist.record_round(t, metrics)
         return metrics
 
     def step_scenario(self, t: int) -> dict:
@@ -282,33 +367,12 @@ class FleetRunner:
         for k, ids in enumerate(ids_per_trial):
             padded[k, :len(ids)] = ids
             valid[k, :len(ids)] = True
-        eta_loc, eta_srv = self.learning_rates(t)
-        batch_ph, local_ph, server_ph = ROUND_PHASES
-        with record_function(batch_ph):
-            # pad slots take client 0's batch, as RoundRunner.step_cohort;
-            # each distinct client is sampled once for the whole fleet (the
-            # union padded to a power of two with its first id) and every
-            # trial gathers its (cap, ...) slice on the device
-            wanted = np.where(valid, padded, 0)
-            uniq, inv = np.unique(wanted, return_inverse=True)
-            uniq = np.concatenate(
-                [uniq, np.full(_pow2_bucket(len(uniq)) - len(uniq), uniq[0])])
-            ubatch = _to_device(self.batcher.sample_round(
-                t, client_ids=uniq), self.device)
-            idx = torch.from_numpy(inv.reshape(n_trials, cap)).to(
-                self.device)
-            batch = {key: v[idx] for key, v in ubatch.items()}
+        with record_function(ROUND_PHASES[0]):
+            x = to_device(self.cohort_inputs(t, padded, valid), self.device)
             self.state = self.algo.prepare_cohort(self.state, padded[valid])
-        with record_function(local_ph):
-            updates, losses = self._local(batch, eta_loc, 0)
-        with record_function(server_ph):
-            self.state, mean_g, metrics = self.algo.round_step_cohort_fleet(
-                self.state, padded, valid, updates, losses)
-            eta = torch.from_numpy(eta_srv).to(self.device)
-            self.params = tree_map(
-                lambda w, g: (w - eta.reshape((-1,) + (1,) * (w.ndim - 1))
-                              * g).to(w.dtype), self.params, mean_g)
-            self.hist.record_round(t, metrics)
+        self.state, self.params, metrics = self.body(self.state,
+                                                     self.params, x)
+        self.hist.record_round(t, metrics)
         return metrics
 
     def evaluate(self, t: int, eval_fn: Callable) -> tuple[Any, Any]:
@@ -320,6 +384,100 @@ class FleetRunner:
     def finalize(self) -> tuple[Any, FleetHistory]:
         """Returns (stacked (K, ...) params, fleet history)."""
         return self.params, self.hist
+
+
+def fleet_scan_supported(runner: FleetRunner) -> tuple[bool, str]:
+    """Can this fleet run on the scan engine? (ok, reason)"""
+    if runner.uses_update_clock:
+        return False, ("update-clock schedules read per-trial device-side "
+                       "counters between rounds; the host cannot precompute "
+                       "a chunk of learning rates")
+    bank = getattr(runner.algo, "bank", None)
+    if runner.cohort_mode and not bank.on_device:
+        return False, (f"{type(bank).__name__} is host-offloaded: its rows "
+                       "live on the host, outside a captured round")
+    return True, ""
+
+
+class FleetScanDriver:
+    """The fleet on the scan engine: K trials × a chunk of rounds staged
+    at once, each round on the card a replay of the fleet body captured as
+    a CUDA graph (`core.scan_engine.ChunkRunner`), per trial bit-equal to
+    the loop. Chunks cut after eval rounds as the single-run
+    `core.scan_engine.ScanDriver`'s do; τ statistics are not tracked, as
+    on the fleet's loop. A cohort fleet's shared batch is padded to one
+    width for the whole run (the union's power-of-two bucket at most
+    K·cap clients), so one graph serves every round."""
+
+    def __init__(self, runner: FleetRunner, *, scan_chunk: int = 64):
+        if scan_chunk < 1:
+            raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
+        self.r = r = runner
+        self.scan_chunk = scan_chunk
+        if r.cohort_mode:
+            self.cap = r.cohort_capacity or _pow2_bucket(r.n_clients)
+            self.width = _pow2_bucket(min(r.n_clients, r.n_trials * self.cap))
+        gens = (r.device_rngs if r.round_rngs[0] is r.device_rngs[0]
+                else ())
+        self.chunks = ChunkRunner(r.body, r.device, generators=gens)
+        self._union = None
+
+    @property
+    def replays(self) -> int:
+        return self.chunks.replays
+
+    def _build_xs(self, t0: int, t1: int, parts):
+        r = self.r
+        rounds, union = [], []
+        for t in range(t0, t1):
+            masks = r._check_masks(np.stack([np.asarray(p.sample(t), bool)
+                                             for p in parts]))
+            if not r.cohort_mode:
+                rounds.append(r.fleet_inputs(t, masks))
+                continue
+            padded = np.empty((r.n_trials, self.cap), np.int64)
+            valid = np.empty((r.n_trials, self.cap), bool)
+            for k in range(r.n_trials):
+                ids = np.flatnonzero(masks[k])
+                padded[k], valid[k] = pad_cohort(ids, self.cap, r.n_clients,
+                                                 t)
+            rounds.append(r.cohort_inputs(t, padded, valid, self.width))
+            union.append(padded[valid])
+        if r.cohort_mode:
+            self._union = np.concatenate(union)
+        return self.chunks.stage(rounds)
+
+    def _pre_chunk(self, carry):
+        state, params = carry
+        return self.r.algo.prepare_cohort(state, self._union), params
+
+    def _chunk_fn(self, carry, xs):
+        state, params, ys = self.chunks.run(*carry, xs)
+        return (state, params), ys
+
+    def _writeback(self, carry) -> None:
+        self.r.state, self.r.params = carry
+
+    def _flush(self, t0: int, t1: int, ys: torch.Tensor, carry) -> None:
+        vals = ys.cpu().numpy()                       # (L, n_metrics, K)
+        for j, t in enumerate(range(t0, t1)):
+            self.r.hist.record_round(
+                t, {k: vals[j, i] for i, k in enumerate(self.chunks.keys)})
+
+    def run(self, n_rounds: int, *, parts,
+            eval_fn: Callable | None = None, eval_every: int = 10) -> None:
+        """Rounds [0, n_rounds) for all trials, the runner updated in
+        place."""
+        r = self.r
+        evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
+        run_pipelined_chunks(
+            (r.state, r.params),
+            chunk_bounds(n_rounds, self.scan_chunk, evals),
+            chunk_fn=self._chunk_fn,
+            build_xs=lambda t0, t1: self._build_xs(t0, t1, parts),
+            writeback=self._writeback, flush=self._flush,
+            sync_rounds=evals, on_sync=lambda t: r.evaluate(t, eval_fn),
+            pre_chunk=self._pre_chunk if r.cohort_mode else None)
 
 
 def make_fleet_eval(model, eval_batch: dict, *,
@@ -354,7 +512,8 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
               weight_decay: float = 0.0, eval_fn: Callable | None = None,
               eval_every: int = 10, uses_update_clock: bool = False,
               cohort_capacity: int | None = None, params=None, mesh=None,
-              engine: str = "loop", device: str | torch.device = DEFAULT_DEVICE
+              engine: str = "loop", scan_chunk: int | None = None,
+              device: str | torch.device = DEFAULT_DEVICE
               ) -> tuple[Any, FleetHistory]:
     """Run T rounds of K independent trials as one fleet on `device`.
 
@@ -367,6 +526,10 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
     `make_fleet_eval`); it runs every `eval_every` rounds and at the last.
     `uses_update_clock` drives the schedules off each trial's applied
     global updates; `cohort_capacity` pins the cohort pad width.
+    `engine` "scan" runs chunks of `scan_chunk` rounds (None: the spec's,
+    else 64) through `FleetScanDriver`, falling back to the loop with a
+    warning for update-clock schedules and host banks; "scan_strict"
+    raises for those instead.
     Returns (stacked params with a leading (K,) axis, `FleetHistory`).
     """
     if spec is not None:
@@ -374,11 +537,11 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
         trials = spec.trials
         uses_update_clock = spec.uses_update_clock
         cohort_capacity = spec.cohort_capacity or cohort_capacity
+        if scan_chunk is None:
+            scan_chunk = spec.scan_chunk
     if algo is None or not trials:
         raise ValueError("pass a FleetSpec, or algo= and trials=")
-    if engine in ("scan", "scan_strict"):
-        raise _not_ported(f"engine={engine!r}", "12")
-    if engine != "loop":
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected 'loop', "
                          "'scan', or 'scan_strict'")
     runner = FleetRunner(
@@ -389,6 +552,20 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
         labels=[tr.label or f"seed{tr.seed}" for tr in trials],
         params=params, mesh=mesh, device=device)
     parts = [tr.participation for tr in trials]
+    if engine != "loop":
+        ok, why = fleet_scan_supported(runner)
+        if ok:
+            t0 = time.time()
+            FleetScanDriver(runner, scan_chunk=64 if scan_chunk is None
+                            else scan_chunk).run(
+                n_rounds, parts=parts, eval_fn=eval_fn,
+                eval_every=eval_every)
+            runner.hist.wall_time = time.time() - t0
+            return runner.finalize()
+        if engine == "scan_strict":
+            raise ValueError(f"engine='scan_strict': {why}")
+        warn_engine_fallback(f"engine='scan' unsupported for this fleet "
+                             f"({why}); falling back to the per-round loop")
     t0 = time.time()
     for t in range(n_rounds):
         runner.step(t, np.stack([np.asarray(p.sample(t), bool)

@@ -18,7 +18,8 @@ from typing import Any, Callable, Sequence
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item}); the port's fleet runs "
-                               "participation trials with engine='loop'")
+                               "participation trials on the loop and scan "
+                               "engines")
 
 
 @dataclass(frozen=True)
@@ -41,12 +42,17 @@ class Trial:
 
 @dataclass
 class FleetSpec:
-    """A group of trials sharing one algorithm configuration."""
+    """A group of trials sharing one algorithm configuration.
+
+    `scan_chunk` sets the rounds a chunk of `run_fleet(engine="scan")`
+    holds (None: `run_fleet`'s default, 64); the loop engine ignores
+    it."""
 
     algo: Any
     trials: list[Trial] = field(default_factory=list)
     uses_update_clock: bool = False
     cohort_capacity: int | None = None
+    scan_chunk: int | None = None
     name: str = ""
 
     @property

@@ -238,7 +238,8 @@ __device__ __forceinline__ void step_w(const Leaf& leaf, int64_t c, float w,
 // ptr[3] w_new (M,). One block per 128-column tile of the table's leaves.
 __global__ void __launch_bounds__(TX * ROW_GROUPS, MIN_BLOCKS)
 mifa_aggregate_kernel(const __grid_constant__ LeafTable table,
-                      const uint8_t* __restrict__ active, int n, float eta) {
+                      const uint8_t* __restrict__ active, int n,
+                      const float* __restrict__ eta_ptr) {
   __shared__ uint4 ring[STAGES * STAGE_ROWS * THREADS];
   __shared__ uint8_t act[MASK_ROWS];
   __shared__ float partial[ROW_GROUPS][COLS_PER_BLOCK];
@@ -251,6 +252,9 @@ mifa_aggregate_kernel(const __grid_constant__ LeafTable table,
   const int64_t c = tile_col0 + tid;
   const bool finishes = tid < COLS_PER_BLOCK && c < leaf.m;
   const float w = finishes ? load_w(leaf, c) : 0.f;
+  // the learning rate lives on the card, so a captured launch reads the
+  // round's rate rather than the one it was captured with
+  const float eta = finishes ? *eta_ptr : 0.f;
 
   float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
   for (int base = 0; base < n; base += MASK_ROWS) {
@@ -288,9 +292,10 @@ mifa_aggregate_kernel(const __grid_constant__ LeafTable table,
 // Plain C entry point, loaded with ctypes: one launch over the table's
 // leaves (table->n_tiles blocks). The table is copied into the launch's
 // parameters, so the caller's copy may go once this returns. active (n,)
-// bool. Returns cudaGetLastError() after the launch.
+// bool; eta one f32 on the card. Returns cudaGetLastError() after the
+// launch.
 extern "C" int mifa_aggregate(const LeafTable* table, const void* active,
-                              int n, float eta, void* stream) {
+                              int n, const void* eta, void* stream) {
   // the ring, mask and partial sums take 40 KB a block: ask for the
   // largest shared-memory carveout so that four blocks fit an SM
   static const cudaError_t carveout = cudaFuncSetAttribute(
@@ -299,6 +304,7 @@ extern "C" int mifa_aggregate(const LeafTable* table, const void* active,
   if (carveout != cudaSuccess) return int(carveout);
   mifa_aggregate_kernel<<<unsigned(table->n_tiles), dim3(TX, ROW_GROUPS), 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      *table, static_cast<const uint8_t*>(active), n, eta);
+      *table, static_cast<const uint8_t*>(active), n,
+      static_cast<const float*>(eta));
   return int(cudaGetLastError());
 }

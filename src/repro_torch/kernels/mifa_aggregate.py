@@ -9,7 +9,10 @@ by the tensors' device: CUDA tensors launch the hand-written kernel
 `repro/kernels/mifa_aggregate.py`) once per leaf table, i.e. once for a
 tree of up to 64 leaves; CPU tensors take `mifa_aggregate_ref` leaf by leaf.
 On the card G is updated in place and returned; as with the reference's
-donated buffers, callers must not reuse the G they passed in.
+donated buffers, callers must not reuse the G they passed in. `eta` is a
+Python float or a 0-d f32 tensor on the tensors' device; the kernel reads
+it from the card, so a CUDA graph that captures the call reads each
+round's rate.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.kernels.leaf_table import A_BF16, VECTOR, W_BF16, pack
 
 
 def mifa_aggregate_ref(g_old: torch.Tensor, updates: torch.Tensor,
-                       active: torch.Tensor, w: torch.Tensor, eta: float):
+                       active: torch.Tensor, w: torch.Tensor, eta):
     """Plain version: g_old,u (N,M); active (N,); w (M,).
     Returns (g_new (N,M) [g_old.dtype], w_new (M,) [w.dtype])."""
     act = active.reshape(-1, 1).bool()
@@ -46,10 +49,20 @@ def _check(g_old, updates, active, w) -> None:
         "w": (w, FLOAT_STORES, (m,))})
 
 
-def mifa_aggregate_leaves(gs, us, active: torch.Tensor, ws, eta: float):
+def _eta_on(eta, device: torch.device) -> torch.Tensor:
+    """eta as a 0-d f32 tensor on `device` (a fill kernel for a float, so
+    a capture of the call stays legal)."""
+    if isinstance(eta, torch.Tensor):
+        check_tensors(device, {"eta": (eta, (torch.float32,), ())})
+        return eta
+    return torch.full((), float(eta), dtype=torch.float32, device=device)
+
+
+def mifa_aggregate_leaves(gs, us, active: torch.Tensor, ws, eta):
     """The server step over the leaves of a tree: gs[j] (N, M_j) f32|bf16,
     us[j] (N, M_j) f32, ws[j] (M_j,) f32|bf16, one active (N,) bool for
-    all; eta a Python float. Leaves may mix f32 and bf16.
+    all; eta a Python float or a 0-d f32 tensor on active's device. Leaves
+    may mix f32 and bf16.
 
     Returns (g_news, w_news), lists in leaf order. CPU tensors take the
     plain version leaf by leaf; CUDA tensors launch the kernel once per
@@ -68,7 +81,8 @@ def mifa_aggregate_leaves(gs, us, active: torch.Tensor, ws, eta: float):
         return [o[0] for o in outs], [o[1] for o in outs]
     fn = entry_point("mifa_aggregate", "mifa_aggregate",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_float], active.device)
+                      ctypes.c_void_p], active.device)
+    eta = _eta_on(eta, active.device)
     w_news = [torch.empty_like(w) for w in ws]
     leaves = [((u.data_ptr(), g.data_ptr(), w.data_ptr(), wn.data_ptr()),
                g.shape[1],
@@ -78,15 +92,15 @@ def mifa_aggregate_leaves(gs, us, active: torch.Tensor, ws, eta: float):
               for g, u, w, wn in zip(gs, us, ws, w_news)]
     for table in pack(leaves):
         launch(fn, active.device, ctypes.addressof(table),
-               active.data_ptr(), active.shape[0], float(eta))
+               active.data_ptr(), active.shape[0], eta.data_ptr())
         mifa_aggregate.launches += 1
     return list(gs), w_news
 
 
 def mifa_aggregate(g_old: torch.Tensor, updates: torch.Tensor,
-                   active: torch.Tensor, w: torch.Tensor, eta: float):
+                   active: torch.Tensor, w: torch.Tensor, eta):
     """g_old (N,M) f32|bf16; updates (N,M) f32; active (N,) bool;
-    w (M,) f32|bf16; eta a Python float.
+    w (M,) f32|bf16; eta a Python float or a 0-d f32 tensor.
 
     Returns (g_new, w_new): `mifa_aggregate_leaves` on one leaf. CPU
     tensors take the plain version; CUDA tensors launch the kernel, which

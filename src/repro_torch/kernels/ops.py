@@ -26,12 +26,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bank_scatter import (bank_scatter_batched_leaves,
+from repro_torch.kernels.bank_scatter import (bank_scatter,
+                                              bank_scatter_batched,
+                                              bank_scatter_batched_leaves,
                                               bank_scatter_leaves)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.mifa_aggregate import mifa_aggregate_leaves
+from repro_torch.kernels.mifa_aggregate import (mifa_aggregate,
+                                                mifa_aggregate_leaves)
 from repro_torch.kernels.paged_bank import (
-    paged_bank_gather_leaves, paged_bank_scatter_batched_leaves,
+    paged_bank_gather, paged_bank_gather_leaves, paged_bank_scatter,
+    paged_bank_scatter_batched, paged_bank_scatter_batched_leaves,
     paged_bank_scatter_leaves)
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.tree import tree_map
@@ -53,11 +57,11 @@ def _rebuild(tree, values):
     return tree_map(lambda _: next(it), tree)
 
 
-def mifa_aggregate_tree(g_tree, u_tree, active: torch.Tensor, params,
-                        eta: float):
+def mifa_aggregate_tree(g_tree, u_tree, active: torch.Tensor, params, eta):
     """Fused MIFA aggregation over a tree.
 
-    g_tree / u_tree: leaves (N, *shape); params: leaves (*shape).
+    g_tree / u_tree: leaves (N, *shape); params: leaves (*shape); eta a
+    Python float or a 0-d f32 tensor on the params' device.
     Returns (new_g_tree, new_params); on the card the G leaves are updated
     in place.
     """
@@ -182,6 +186,17 @@ def ssd(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     """Chunked SSD scan: x (b,S,h,p), dA (b,S,h), B, C (b,S,n), S % chunk
     == 0 -> (y (b,S,h,p), h_final (b,h,p,n) f32)."""
     return ssd_scan(x, dA, B, C, chunk=chunk)
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches
+    in its `launches` attribute."""
+    return {"mifa_aggregate": mifa_aggregate, "bank_scatter": bank_scatter,
+            "paged_bank_scatter": paged_bank_scatter,
+            "paged_bank_gather": paged_bank_gather,
+            "bank_scatter_batched": bank_scatter_batched,
+            "paged_bank_scatter_batched": paged_bank_scatter_batched,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
 def model_kernel_launches() -> dict:

@@ -29,7 +29,8 @@ from repro.bank import PagedDeviceBank as JPagedDeviceBank
 from repro.configs import get_smoke_config as jax_smoke
 from repro.data import pipeline as jpipeline
 from repro.models import build_model as jax_build
-from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank, make_bank
+from repro_torch.bank import (BankedMIFA, DenseBank, Int8PagedBank,
+                              PagedDeviceBank, make_bank)
 from repro_torch.convert import params_from_jax
 from repro_torch.data import pipeline as tpipeline
 from repro_torch.kernels.ops import (paged_bank_gather_tree,
@@ -289,13 +290,13 @@ def test_make_bank_and_what_is_not_ported():
     assert isinstance(make_bank("paged_device", page_size=2, device="cpu"),
                       PagedDeviceBank)
     assert isinstance(make_bank(device="cpu"), DenseBank)
-    for backend, item in (("host", "9"), ("int8_paged", "10")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make_bank(backend)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_bank("host")
     with pytest.raises(ValueError, match="unknown bank backend"):
         make_bank("nope")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PagedDeviceBank(dtype="int8", device="cpu")
+    # int8 memory (ROADMAP Queue 1 item 10) is ported
+    assert isinstance(make_bank("int8_paged", device="cpu"), Int8PagedBank)
+    assert PagedDeviceBank(dtype="int8", device="cpu").quantized
     bank = PagedDeviceBank(page_size=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
         bank.host_state()

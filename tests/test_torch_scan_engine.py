@@ -1,0 +1,426 @@
+"""The port's scan engine (`core.scan_engine`, `run_fl(engine="scan")`,
+`run_fleet(engine="scan")`): the counterparts of the JAX package's
+`tests/test_scan_engine.py` cases for host participation, at N=6 clients,
+T=9 rounds, `cohort_capacity=8`, and the port's scan held to the
+reference's.
+
+* Within the port, scan is bit-equal to the loop on the CPU (params,
+  losses, n_active, τ), for every chunking: both run the same round body
+  on the same inputs.
+* Against the reference's `run_fl(engine="scan")` from the same params and
+  masks: losses and params within the loop parity tests' tolerances
+  (`tests/test_torch_run_fl.py`: rtol 1e-4, atol 1e-6), masks and τ equal.
+* Fallbacks (update-clock schedules, host banks) warn and loop under
+  "scan" and raise under "scan_strict".
+* Scenario-mode scan comes with ROADMAP Queue 1 item 13 and raises.
+
+The `cuda` cases replay the captured round on the card and skip here;
+the module imports JAX only inside the reference test, so on the card
+they run with `--noconftest -m cuda`.
+"""
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bank import (BankedMIFA, DenseBank, Int8PagedBank,
+                              PagedDeviceBank)
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_jax
+from repro_torch.core import (MIFA, BiasedFedAvg, FedAvgIS, FedAvgSampling,
+                              RoundRunner, TraceParticipation, run_fl)
+from repro_torch.core import runner as runner_mod
+from repro_torch.core.scan_engine import ChunkRunner, chunk_bounds
+from repro_torch.data import (ClientBatcher, label_skew_partition,
+                              make_classification)
+from repro_torch.fleet import Trial, run_fleet
+from repro_torch.kernels.ops import launch_counters
+from repro_torch.models import build_model
+from repro_torch.tree import tree_leaves
+
+torch.set_num_threads(1)
+
+N, T, CAP = 6, 9, 8
+
+
+def _algos(device):
+    return {
+        "mifa_array": lambda: MIFA(memory="array"),
+        "mifa_delta": lambda: MIFA(memory="delta"),
+        "mifa_int8": lambda: MIFA(memory="int8"),
+        "mifa_bf16": lambda: MIFA(memory_dtype="bfloat16"),
+        "banked_dense": lambda: BankedMIFA(DenseBank(device=device)),
+        "banked_paged": lambda: BankedMIFA(PagedDeviceBank(
+            page_size=4, device=device)),
+        "banked_paged_int8": lambda: BankedMIFA(PagedDeviceBank(
+            page_size=4, dtype="int8", device=device)),
+        "fedavg": lambda: BiasedFedAvg(),
+        "fedavg_is": lambda: FedAvgIS(tuple(np.linspace(0.2, 1.0, N))),
+        "fedavg_sampling": lambda: FedAvgSampling(s=3),
+    }
+
+
+ALGOS = _algos("cpu")
+
+
+def _problem(n_clients=N, model_name="paper_logistic"):
+    cfg = get_config(model_name).replace(fl_clients=n_clients)
+    X, y = make_classification(10, cfg.d_model, 40, noise=1.0, seed=0)
+    idx, _ = label_skew_partition(y, n_clients, seed=0)
+    return cfg, X, y, idx
+
+
+def _kw(device="cpu", **over):
+    cfg, X, y, idx = _problem()
+    kw = dict(model=build_model(cfg),
+              batcher=ClientBatcher(X, y, idx, batch_size=8, k_steps=2,
+                                    seed=0),
+              schedule=lambda t: 0.1 / (1 + t), n_rounds=T,
+              weight_decay=1e-3, seed=0, cohort_capacity=CAP, device=device)
+    kw.update(over)
+    return kw
+
+
+def _trace(seed=3, shape=(T, N)):
+    return np.random.default_rng(seed).random(shape) < 0.5
+
+
+def _assert_same(run_a, run_b):
+    (pa, ha), (pb, hb) = run_a, run_b
+    for a, b in zip(tree_leaves(pa), tree_leaves(pb)):
+        assert torch.equal(a, b)
+    assert ha.train_loss == hb.train_loss
+    assert ha.n_active == hb.n_active
+    assert ha.global_updates == hb.global_updates
+    assert ha.rounds == hb.rounds
+    assert (ha.tau_bar, ha.tau_max) == (hb.tau_bar, hb.tau_max)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_fallback_warnings():
+    runner_mod._reset_fallback_warnings()
+    yield
+
+
+# --------------------------------------------------------------------------- #
+# bit-equal to the port's loop
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("name", list(ALGOS))
+def test_scan_bitexact_vs_loop_participation(name):
+    kw = _kw()
+    loop = run_fl(algo=ALGOS[name](), engine="loop",
+                  participation=TraceParticipation(_trace()), **kw)
+    scan = run_fl(algo=ALGOS[name](), engine="scan", scan_chunk=4,
+                  participation=TraceParticipation(_trace()), **kw)
+    _assert_same(loop, scan)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, T])
+def test_scan_chunk_boundary_invariance(chunk):
+    kw = _kw()
+    ref = run_fl(algo=FedAvgSampling(s=3), engine="loop",
+                 participation=TraceParticipation(_trace()), **kw)
+    got = run_fl(algo=FedAvgSampling(s=3), engine="scan", scan_chunk=chunk,
+                 participation=TraceParticipation(_trace()), **kw)
+    _assert_same(ref, got)
+
+
+def test_scan_eval_rounds_match_loop():
+    kw = _kw()
+    ev = lambda p: (float(p["w"].sum()), 0.25)   # noqa: E731
+    loop = run_fl(algo=MIFA(), engine="loop", eval_fn=ev, eval_every=4,
+                  participation=TraceParticipation(_trace()), **kw)
+    scan = run_fl(algo=MIFA(), engine="scan", scan_chunk=5, eval_fn=ev,
+                  eval_every=4, participation=TraceParticipation(_trace()),
+                  **kw)
+    assert loop[1].eval_loss == scan[1].eval_loss
+    assert [t for t, _ in scan[1].eval_loss] == [0, 4, 8]
+
+
+def test_scan_stages_one_buffer_a_chunk_and_never_steps(monkeypatch):
+    """The scan runs the round body on staged chunks: one staging a chunk
+    (chunks cut at 4 and after the eval rounds 0 and 8), never the loop's
+    per-round `RoundRunner.step`."""
+    staged = []
+    real = ChunkRunner.stage
+
+    def stage(self, rounds):
+        staged.append(len(rounds))
+        return real(self, rounds)
+
+    def boom(self, *a, **k):
+        raise AssertionError("the scan engine called RoundRunner.step")
+
+    monkeypatch.setattr(ChunkRunner, "stage", stage)
+    monkeypatch.setattr(RoundRunner, "step", boom)
+    monkeypatch.setattr(RoundRunner, "step_cohort", boom)
+    for algo in (MIFA(), BankedMIFA(DenseBank(device="cpu"))):
+        staged.clear()
+        _, hist = run_fl(algo=algo, engine="scan", scan_chunk=4,
+                         eval_fn=lambda p: (0.0, 0.0), eval_every=8,
+                         participation=TraceParticipation(_trace()),
+                         **_kw())
+        assert staged == [1, 3, 4, 1] and len(hist.train_loss) == T
+
+
+# --------------------------------------------------------------------------- #
+# fallbacks, strictness, capacity
+# --------------------------------------------------------------------------- #
+
+def _host_bank():
+    return BankedMIFA(Int8PagedBank(page_size=2, device="cpu"))
+
+
+def test_scan_host_bank_falls_back_to_loop():
+    kw = _kw()
+    ref = run_fl(algo=_host_bank(), engine="loop",
+                 participation=TraceParticipation(_trace()), **kw)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = run_fl(algo=_host_bank(), engine="scan",
+                     participation=TraceParticipation(_trace()), **kw)
+    msg = next(str(x.message) for x in w if "falling back" in str(x.message))
+    assert "Int8PagedBank" in msg
+    assert "DenseBank" in msg and "PagedDeviceBank" in msg
+    _assert_same(ref, got)
+    with pytest.raises(ValueError, match="host-offloaded"):
+        run_fl(algo=_host_bank(), engine="scan_strict",
+               participation=TraceParticipation(_trace()), **kw)
+
+
+def test_scan_update_clock_falls_back():
+    kw = _kw(uses_update_clock=True)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = run_fl(algo=FedAvgSampling(s=3), engine="scan",
+                     participation=TraceParticipation(_trace()), **kw)
+        assert any("update-clock" in str(x.message) for x in w)
+    ref = run_fl(algo=FedAvgSampling(s=3), engine="loop",
+                 participation=TraceParticipation(_trace()), **kw)
+    _assert_same(ref, got)
+    with pytest.raises(ValueError, match="update-clock"):
+        run_fl(algo=FedAvgSampling(s=3), engine="scan_strict",
+               participation=TraceParticipation(_trace()), **kw)
+
+
+def test_unknown_engine_and_scenario_scan_rejected():
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_fl(algo=MIFA(), engine="turbo",
+               participation=TraceParticipation(_trace()), **_kw())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run_fl(algo=MIFA(), engine="scan", scenario=object(), **_kw())
+    with pytest.raises(ValueError, match="scan_chunk"):
+        run_fl(algo=MIFA(), engine="scan", scan_chunk=0,
+               participation=TraceParticipation(_trace()), **_kw())
+
+
+def test_scan_cohort_capacity_overflow_raises():
+    kw = _kw(cohort_capacity=2)
+    with pytest.raises(ValueError, match="overflows the scan capacity"):
+        run_fl(algo=BankedMIFA(DenseBank(device="cpu")), engine="scan",
+               participation=TraceParticipation(np.ones((T, N), bool)), **kw)
+
+
+# --------------------------------------------------------------------------- #
+# the paged bank under scan: eviction, chunk-union residency
+# --------------------------------------------------------------------------- #
+
+class _RawTrace:
+    """Replay without TraceParticipation's all-active round 0: eviction
+    needs sparse cohorts from the first round."""
+
+    def __init__(self, trace):
+        self.trace = np.asarray(trace, bool)
+
+    def sample(self, t):
+        return self.trace[t]
+
+
+def _paged_trace():
+    """Cohorts that, at page_size=2 / n_slots=2, fit per round but force
+    evictions and re-faults across the run."""
+    cohorts = [[0, 1], [4, 5], [2, 3], [0, 5], [2], [1, 3], [4], [0, 2]]
+    tr = np.zeros((len(cohorts), N), bool)
+    for t, ids in enumerate(cohorts):
+        tr[t, ids] = True
+    return tr
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_scan_paged_eviction_bitexact_vs_loop(dtype):
+    tr = _paged_trace()
+    kw = _kw(n_rounds=len(tr), cohort_capacity=2)
+
+    def paged():
+        return BankedMIFA(PagedDeviceBank(page_size=2, n_slots=2,
+                                          dtype=dtype, device="cpu"))
+    loop = run_fl(algo=paged(), engine="loop", participation=_RawTrace(tr),
+                  **kw)
+    algo = paged()
+    scan = run_fl(algo=algo, engine="scan", scan_chunk=1,
+                  participation=_RawTrace(tr), **kw)
+    _assert_same(loop, scan)
+    assert algo.bank.evictions > 0 and algo.bank.refaults > 0
+    if dtype == "float32":
+        dense = run_fl(algo=BankedMIFA(DenseBank(device="cpu")),
+                       engine="loop", participation=_RawTrace(tr), **kw)
+        _assert_same(dense, scan)
+
+
+def test_scan_paged_chunk_union_overflow_raises():
+    tr = _paged_trace()
+    kw = _kw(n_rounds=len(tr), cohort_capacity=2)
+    with pytest.raises(ValueError, match="slots"):
+        run_fl(algo=BankedMIFA(PagedDeviceBank(page_size=2, n_slots=2,
+                                               device="cpu")),
+               engine="scan", scan_chunk=2, participation=_RawTrace(tr),
+               **kw)
+
+
+# --------------------------------------------------------------------------- #
+# the fleet's scan
+# --------------------------------------------------------------------------- #
+
+FLEET_ALGOS = ("mifa_array", "mifa_int8", "banked_dense", "banked_paged",
+               "banked_paged_int8", "fedavg", "fedavg_sampling")
+
+
+def _fleet_kw(device="cpu"):
+    kw = _kw(device=device)
+    del kw["seed"]
+    return kw
+
+
+@pytest.mark.parametrize("name", FLEET_ALGOS)
+def test_fleet_scan_bitexact_vs_fleet_loop(name):
+    traces = _trace(7, (3, T, N))
+
+    def trials():
+        return [Trial(seed=k, participation=TraceParticipation(traces[k]))
+                for k in range(3)]
+    loop = run_fleet(algo=ALGOS[name](), trials=trials(), engine="loop",
+                     **_fleet_kw())
+    scan = run_fleet(algo=ALGOS[name](), trials=trials(), engine="scan",
+                     scan_chunk=4, **_fleet_kw())
+    for a, b in zip(tree_leaves(loop[0]), tree_leaves(scan[0])):
+        assert torch.equal(a, b)
+    for k in range(3):
+        assert loop[1].trial(k).train_loss == scan[1].trial(k).train_loss
+        assert loop[1].trial(k).n_active == scan[1].trial(k).n_active
+        assert (loop[1].trial(k).global_updates
+                == scan[1].trial(k).global_updates)
+
+
+def test_fleet_scan_update_clock_falls_back():
+    traces = np.ones((2, T, N), bool)
+    trials = [Trial(seed=k, participation=TraceParticipation(traces[k]))
+              for k in range(2)]
+    kw = dict(_fleet_kw(), n_rounds=3, uses_update_clock=True)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        run_fleet(algo=FedAvgSampling(s=3), trials=trials, engine="scan",
+                  **kw)
+        assert any("update-clock" in str(x.message) for x in w)
+    with pytest.raises(ValueError, match="update-clock"):
+        run_fleet(algo=FedAvgSampling(s=3), trials=trials,
+                  engine="scan_strict", **kw)
+
+
+def test_chunk_bounds_snap_to_evals():
+    assert chunk_bounds(10, 4, set()) == [(0, 4), (4, 8), (8, 10)]
+    assert chunk_bounds(10, 4, {0, 5}) == [(0, 1), (1, 4), (4, 6), (6, 8),
+                                           (8, 10)]
+    assert chunk_bounds(3, 100, set()) == [(0, 3)]
+    with pytest.raises(ValueError, match="scan_chunk"):
+        chunk_bounds(10, 0, set())
+
+
+# --------------------------------------------------------------------------- #
+# the port's scan against the reference's scan
+# --------------------------------------------------------------------------- #
+
+def _reference_algos():
+    from repro.bank import BankedMIFA as JBankedMIFA
+    from repro.bank import DenseBank as JDenseBank
+    from repro.bank import PagedDeviceBank as JPagedDeviceBank
+    from repro.core import MIFA as JMIFA
+    from repro.core import BiasedFedAvg as JBiasedFedAvg
+    return {"mifa_array": lambda: JMIFA(memory="array"),
+            "banked_dense": lambda: JBankedMIFA(JDenseBank()),
+            "banked_paged": lambda: JBankedMIFA(JPagedDeviceBank(
+                page_size=4)),
+            "fedavg": lambda: JBiasedFedAvg()}
+
+
+@pytest.mark.parametrize("name", ["mifa_array", "banked_dense",
+                                  "banked_paged", "fedavg"])
+def test_scan_matches_reference_scan(name):
+    import jax
+
+    from repro.configs import get_config as jax_config
+    from repro.core import TraceParticipation as JTrace
+    from repro.core import run_fl as jax_run_fl
+    from repro.data import ClientBatcher as JClientBatcher
+    from repro.models import build_model as jax_build
+    cfg, X, y, idx = _problem(model_name="paper_mlp")
+    jmodel = jax_build(jax_config("paper_mlp").replace(fl_clients=N))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    common = dict(schedule=lambda t: 0.1 / (1 + t), n_rounds=T,
+                  weight_decay=1e-3, cohort_capacity=CAP, scan_chunk=4,
+                  engine="scan")
+    pj, hj = jax_run_fl(model=jmodel, algo=_reference_algos()[name](),
+                        batcher=JClientBatcher(X, y, idx, batch_size=8,
+                                               k_steps=2, seed=0),
+                        participation=JTrace(_trace()), params=jparams,
+                        **common)
+    pt, ht = run_fl(model=build_model(cfg), algo=ALGOS[name](),
+                    batcher=ClientBatcher(X, y, idx, batch_size=8, k_steps=2,
+                                          seed=0),
+                    participation=TraceParticipation(_trace()),
+                    params=params_from_jax(jax.tree.map(np.asarray, jparams),
+                                           "cpu"), device="cpu", **common)
+    assert ht.n_active == hj.n_active and ht.rounds == hj.rounds
+    assert (ht.tau_bar, ht.tau_max) == (hj.tau_bar, hj.tau_max)
+    np.testing.assert_allclose(ht.train_loss, hj.train_loss, rtol=1e-4,
+                               atol=1e-6)
+    for a, b in zip(tree_leaves(pt), jax.tree.leaves(pj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# on the card: captured rounds
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the captured round runs only on "
+                    "the card")
+    return "cuda"
+
+
+def _counts():
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ALGOS))
+def test_cuda_scan_replays_bitexact_vs_loop(cuda_device, name):
+    """On the card the scan replays one captured round a round: bit-equal
+    to the card's loop, and each kernel counted once a replay plus once
+    for the warm-up before capture."""
+    kw = _kw(device=cuda_device)
+    make = _algos(cuda_device)[name]
+    before = _counts()
+    loop = run_fl(algo=make(), engine="loop",
+                  participation=TraceParticipation(_trace()), **kw)
+    loop_counts = {k: v - before[k] for k, v in _counts().items()}
+    before = _counts()
+    scan = run_fl(algo=make(), engine="scan", scan_chunk=4,
+                  participation=TraceParticipation(_trace()), **kw)
+    scan_counts = {k: v - before[k] for k, v in _counts().items()}
+    _assert_same(loop, scan)
+    assert scan_counts == {k: v + v // T for k, v in loop_counts.items()}
