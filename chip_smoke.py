@@ -81,7 +81,22 @@ Run from the root of a checkout on a machine with a CUDA card. It
      BankedMIFA(dense), holding the kernels the trace shows by name to the
      launch counters and printing the device's idle share; then runs the
      main path's MIFA(array) loop again, bit-equal to its first run;
- 12. holds the model zoo's kernels against their plain versions on the card:
+ 12. drives the scenario path (`repro_torch.scenarios`): the device surface
+     of every registered process at N=100 and of Bernoulli at N=10⁶ on
+     the card, 64 rounds each, array-equal to the CPU host surface; one
+     draw's CUDA operations, host and device time; MIFA(array) under
+     Gilbert–Elliott availability (rate 0.5, bursts of 8) drawn inside
+     the round for 50 rounds on the loop and the scan (50 and 51
+     `mifa_aggregate` launches, bit-equal, τ statistics equal, the masks
+     those of the CPU host surface, 5 rounds card vs CPU);
+     BankedMIFA(DenseBank) on both engines and BankedMIFA(PagedDeviceBank)
+     on the loop under cluster outages for 30 rounds (the host surface; 30
+     `bank_scatter` / `paged_bank_scatter` launches, paged bit-equal to
+     dense); a 3-trial Gilbert–Elliott fleet (bursts 2, 4, 8) on both
+     engines for 50 rounds, bit-equal (150 `mifa_aggregate` launches on
+     the loop), and a 3-trial cohort fleet under cluster outages for 30
+     rounds (30 `bank_scatter_batched`); FedAR and CAFed card vs CPU;
+ 13. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
      H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
      non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
@@ -89,14 +104,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      96, an odd S (Q=1) and zamba2's largest |dA|; times both per call at
      the served shapes beside their bounds and,
      for attention, one `scaled_dot_product_attention` call;
- 13. serves zamba2-7b at full width and depth (81 layers, bf16, random
+ 14. serves zamba2-7b at full width and depth (81 layers, bf16, random
      params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
      greedy tokens; every prefill attention call and SSD scan must launch
      the kernels (13 and 68), decode none, no other kernel; then
      mamba2-1.3b (48 scans) and granite-3-8b cut to 4 layers (4 attention
      calls, GQA g=4), printing prefill and decode times, tok/s and the
      peak device allocation;
- 14. runs zamba2-7b at full width in f32, its first 6 layers, on the card
+ 15. runs zamba2-7b at full width in f32, its first 6 layers, on the card
      and on the CPU (prefill logits, every cache leaf, two decode steps),
      and its first 12 layers as 2048 prompt tokens plus 128 teacher-forced
      decode steps against one prefill of 2176 tokens.
@@ -2136,6 +2151,384 @@ def fleet_scan_phase(problem, fleet_runs) -> tuple[dict, list]:
 
 
 # --------------------------------------------------------------------------- #
+# scenarios: availability sampled inside the round on the card
+# --------------------------------------------------------------------------- #
+
+# the surface checks: rounds, scenario seed, and the device count of the
+# large Bernoulli check
+SCEN_ROUNDS, SCEN_SEED, SCEN_BIG_N = 64, 7, 10**6
+# the paths' availability: Gilbert–Elliott bursts at rate 0.5 and mean
+# off-burst 8 rounds for the dense runs (bursts 2, 4 and 8 in the fleet),
+# the registry's cluster outages for the cohort runs (|A| up to N, so
+# they pin SCAN_CAP)
+SCEN_GE, SCEN_BURSTS = {"rate": 0.5, "burst": 8.0}, (2.0, 4.0, 8.0)
+# the cohort runs under cluster outages take the host surface, as the
+# participation paths of steps 4-5 and 10-11 do: a shorter run holds their
+# kernels' counts and the scan (chunks of SCAN_CHUNK; the middle chunk
+# timed) and keeps the phase short
+SCEN_COHORT_ROUNDS = 30
+
+
+class TimedBatcher:
+    """The problem's batcher, stamping the host clock as each round's batch
+    is drawn: where a scenario run's round starts on the loop (it draws no
+    host mask), and as the scan stages a chunk. Consecutive stamps of a
+    loop run bound one round (each ends in a sync)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.stamps: list[float] = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def sample_round(self, t: int, client_ids=None):
+        self.stamps.append(time.perf_counter())
+        return self.inner.sample_round(t, client_ids=client_ids)
+
+
+def scen_ge(seed: int = SCEN_SEED, burst: float = SCEN_GE["burst"]):
+    from repro_torch.scenarios import make_scenario
+    return make_scenario("gilbert_elliott", n=N_CLIENTS, seed=seed,
+                         rate=SCEN_GE["rate"], burst=burst)
+
+
+def scen_cluster(seed: int = SCEN_SEED):
+    from repro_torch.scenarios import make_scenario
+    return make_scenario("cluster", n=N_CLIENTS, seed=seed)
+
+
+def run_scen(algo, problem, params0, scen, n_rounds, device, engine="loop",
+             cap=None):
+    """One run of the paper problem under `scen` (evaluated at rounds 0 and
+    n_rounds - 1); returns (params, history, host seconds between the
+    batch draws of consecutive rounds)."""
+    from repro_torch.core import run_fl
+    from repro_torch.optim import inv_t
+    model, batcher, _, eval_fn = problem
+    timed = TimedBatcher(batcher)
+    params, hist = run_fl(model=model, algo=algo, scenario=scen,
+                          batcher=timed, schedule=inv_t(1.0),
+                          n_rounds=n_rounds, weight_decay=1e-3,
+                          params=clone_tree(params0, device),
+                          eval_fn=eval_fn, eval_every=n_rounds,
+                          engine=engine, scan_chunk=SCAN_CHUNK,
+                          cohort_capacity=cap, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return params, hist, np.diff(timed.stamps)
+
+
+def scen_surface_checks() -> list:
+    """The device surface on the card against the CPU's host surface:
+    every registered process at N_CLIENTS and Bernoulli at SCEN_BIG_N,
+    SCEN_ROUNDS rounds each (the round index a device tensor, as in a
+    captured round), array-equal."""
+    from repro_torch.scenarios import make_process, scenario_names
+    rows = []
+    ts = torch.arange(SCEN_ROUNDS, device="cuda")
+    for name, n in ([(s, N_CLIENTS) for s in scenario_names()]
+                    + [("bernoulli", SCEN_BIG_N)]):
+        proc = make_process(name, n=n, seed=SCEN_SEED)
+        fn, key = proc.sample_fn(), proc.key.cuda()
+        state = proc.init_state("cuda")
+        card = []
+        for t in range(SCEN_ROUNDS):
+            mask, state = fn(key, ts[t], state)
+            card.append(mask)
+        card = torch.stack(card).cpu().numpy()
+        cpu = proc.host_sampler().sample_block(0, SCEN_ROUNDS)
+        check(np.array_equal(card, cpu),
+              f"scenario {name} N={n}: the card's masks differ from the "
+              f"CPU's in {int((card != cpu).sum())} places")
+        rows.append(f"{name} N={n}: {SCEN_ROUNDS} rounds of card masks "
+                    f"array-equal to the CPU host surface, mean rate "
+                    f"{card[1:].mean():.4f} (stationary "
+                    f"{proc.stationary_rate().mean():.4f})")
+    return ["scenario surfaces: " + "; ".join(rows)]
+
+
+def dispatched_ops(fn) -> int:
+    """The PyTorch operations `fn()` dispatches, views not counted: on the
+    card each is one kernel launch (the sampler's are elementwise, arange,
+    fill, stack, gather and searchsorted kernels)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def sampler_cost(name: str, n: int) -> str:
+    """One draw of `name`'s device surface at n devices: its kernel
+    launches, the host time of an eager draw and the device time of a
+    replayed one."""
+    from repro_torch.scenarios import make_process
+    proc = make_process(name, n=n, seed=SCEN_SEED)
+    fn, key = proc.sample_fn(), proc.key.cuda()
+    state, t = proc.init_state("cuda"), torch.tensor(5, device="cuda")
+    launches = dispatched_ops(lambda: fn(key, t, state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn(key, t, state)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    dev_ms = time_round_ms([lambda: fn(key, t, state)])
+    return (f"sampler {name} N={n}: {launches} kernel launches a draw, "
+            f"eager {host_ms:.3f} ms a draw (host clock, launch-bound), "
+            f"{dev_ms * 1e3:.2f} us device time a draw (graph replays)")
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def scen_run_row(what, n_rounds, dts, hist, counts, scan=None) -> str:
+    loop_ms = float(np.median(dts[10:])) * 1e3
+    text = (f"scenario {what}: {n_rounds} rounds, loop {loop_ms:.3f} "
+            f"ms/round (median, rounds 10-{n_rounds - 2}, host clock)")
+    if scan is not None:
+        text += (f", scan {scan_ms(scan, n_rounds):.3f} ms/round (rounds "
+                 f"{SCAN_CHUNK}-{n_rounds - SCAN_CHUNK - 1})")
+    return (text + f", mean |A(t)| {np.mean(hist.n_active):.2f}, tau_bar "
+            f"{hist.tau_bar:.4f}, tau_max {hist.tau_max}, launches "
+            f"{nonzero(counts)}")
+
+
+def scen_expect(what, counts, kernel, n) -> None:
+    want = {k: n if k == kernel else 0 for k in counts}
+    check(counts == want, f"scenario {what}: launches {counts}, expected "
+                          f"{want}")
+
+
+def scen_masks_match_host(what, hist, scen, n_rounds) -> None:
+    """A run's masks are the CPU host surface's: n_active and the τ
+    statistics of the host masks."""
+    from repro_torch.core import TauStats
+    masks = scen.process.host_sampler().sample_block(0, n_rounds)
+    stats = TauStats(N_CLIENTS, strict=False)
+    for m in masks:
+        stats.update(m)
+    check(hist.n_active == masks.sum(1).astype(float).tolist(),
+          f"scenario {what}: |A(t)| differs from the CPU host surface's")
+    check((hist.tau_bar, hist.tau_max) == (stats.tau_bar, stats.tau_max),
+          f"scenario {what}: tau ({hist.tau_bar}, {hist.tau_max}) vs the "
+          f"host masks' ({stats.tau_bar}, {stats.tau_max})")
+
+
+def scen_card_vs_cpu(what, make, problem, problem_cpu, params0, scen,
+                     rows) -> None:
+    """CPU_ROUNDS rounds on the card and on the CPU, held together."""
+    from repro_torch.tree import tree_leaves
+    gpu = run_scen(make("cuda"), problem, params0, scen, CPU_ROUNDS,
+                   "cuda")
+    cpu = run_scen(make("cpu"), problem_cpu, params0, scen, CPU_ROUNDS,
+                   "cpu")
+    check(gpu[1].n_active == cpu[1].n_active,
+          f"scenario {what}: card and CPU masks differ")
+    pairs = [(x, y.cpu()) for x, y in zip(tree_leaves(cpu[0]),
+                                           tree_leaves(gpu[0]))]
+    for x, y in pairs:
+        check(torch.allclose(x, y, rtol=DEVICE_RTOL, atol=DEVICE_ATOL),
+              f"scenario {what}: card and CPU params differ")
+    check(np.allclose(cpu[1].train_loss, gpu[1].train_loss,
+                      rtol=DEVICE_RTOL, atol=DEVICE_ATOL),
+          f"scenario {what}: card and CPU losses differ")
+    dloss = float(np.max(np.abs(np.subtract(cpu[1].train_loss,
+                                            gpu[1].train_loss))))
+    dparam = max((x - y).abs().max().item() for x, y in pairs)
+    rows.append(f"scenario {what} card vs CPU: {CPU_ROUNDS} rounds, the "
+                f"same masks, max |dloss| {dloss:.2e}, max |dparam| "
+                f"{dparam:.2e} (rtol {DEVICE_RTOL}, atol {DEVICE_ATOL})")
+
+
+def run_scen_fleet(make, problem, params0, scens, n_rounds, engine,
+                   cap=None):
+    """A fleet of len(scens) trials, one scenario each (seeds FLEET_SEEDS,
+    every trial from params0), `n_rounds` rounds; returns (params,
+    history, host seconds between consecutive rounds' batch draws)."""
+    from repro_torch.fleet import Trial, run_fleet
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_stack
+    model, batcher, _, _ = problem
+    timed = TimedBatcher(batcher)
+    params, hist = run_fleet(
+        model=model, algo=make(), batcher=timed, schedule=inv_t(1.0),
+        n_rounds=n_rounds, weight_decay=1e-3, cohort_capacity=cap,
+        trials=[Trial(seed=s, scenario=sc) for s, sc in zip(FLEET_SEEDS,
+                                                             scens)],
+        params=tree_stack([clone_tree(params0, "cuda")
+                           for _ in scens]),
+        engine=engine, scan_chunk=SCAN_CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    return params, hist, np.diff(timed.stamps)
+
+
+def scenario_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
+    """The scenario path on the card: the surfaces, the samplers' cost,
+    MIFA(array) under Gilbert–Elliott bursts and BankedMIFA(DenseBank) /
+    BankedMIFA(PagedDeviceBank) under cluster outages for ROUNDS rounds on
+    the loop and the scan, a 3-trial Gilbert–Elliott fleet (bursts 2, 4,
+    8) on both engines and a 3-trial cohort fleet under cluster outages,
+    FedAR and CAFed card against CPU. Each count is read right after its
+    run. Returns (launches of each kernel on the scenario path's loop
+    runs, report rows)."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.core import MIFA, CAFed, FedAR
+    laps, mark = {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = laps.get(what, 0.0) + now - mark[0]
+        mark[0] = now
+
+    rows = scen_surface_checks()
+    lap("surfaces")
+    rows += [sampler_cost("gilbert_elliott", N_CLIENTS),
+             sampler_cost("bernoulli", SCEN_BIG_N)]
+    lap("samplers")
+    launches = {}
+
+    # MIFA(array) under Gilbert–Elliott bursts: in-round draws
+    runs, counts = {}, {}
+    for engine in ("loop", "scan"):
+        reset_counts()
+        runs[engine] = run_scen(MIFA(), problem, params0, scen_ge(), ROUNDS,
+                                "cuda", engine=engine)
+        counts[engine] = read_counts()
+        scen_expect(f"MIFA(array) {engine}", counts[engine],
+                    "mifa_aggregate", ROUNDS + (engine == "scan"))
+    launches["mifa_aggregate"] = counts["loop"]["mifa_aggregate"]
+    loop, scan = runs["loop"], runs["scan"]
+    verdict = scan_equal("scenario MIFA(array)", loop[:2], scan[:2])
+    check((loop[1].tau_bar, loop[1].tau_max)
+          == (scan[1].tau_bar, scan[1].tau_max),
+          "scenario MIFA(array): the scan's tau statistics differ")
+    scen_masks_match_host("MIFA(array)", loop[1], scen_ge(), ROUNDS)
+    rows.append(scen_run_row("MIFA(array) gilbert_elliott rate 0.5 burst 8",
+                             ROUNDS, loop[2], loop[1], counts["loop"],
+                             scan[2])
+                + f"; scan {verdict}, tau statistics equal, scan launches "
+                  f"{nonzero(counts['scan'])}")
+    lap("MIFA(array) runs")
+    scen_card_vs_cpu("MIFA(array)", lambda d: MIFA(), problem, problem_cpu,
+                     params0, scen_ge(), rows)
+    lap("card vs CPU")
+
+    # the cohort path: the host surface, bank_scatter and its paged form
+    cohort = {}
+    for name, make, kernel, engines in (
+            ("BankedMIFA(DenseBank)", lambda: BankedMIFA(DenseBank(
+                device="cuda")), "bank_scatter", ("loop", "scan")),
+            ("BankedMIFA(PagedDeviceBank)", lambda: BankedMIFA(
+                PagedDeviceBank(page_size=PAGE_SIZE, device="cuda")),
+             "paged_bank_scatter", ("loop",))):
+        for engine in engines:
+            reset_counts()
+            cohort[name, engine] = run_scen(make(), problem, params0,
+                                            scen_cluster(),
+                                            SCEN_COHORT_ROUNDS, "cuda",
+                                            engine=engine, cap=SCAN_CAP)
+            counts[engine] = read_counts()
+            scen_expect(f"{name} {engine}", counts[engine], kernel,
+                        SCEN_COHORT_ROUNDS + (engine == "scan"))
+        launches[kernel] = counts["loop"][kernel]
+        run = cohort[name, "loop"]
+        scen_masks_match_host(name, run[1], scen_cluster(),
+                              SCEN_COHORT_ROUNDS)
+        scan = cohort.get((name, "scan"))
+        row = scen_run_row(f"{name} cluster", SCEN_COHORT_ROUNDS, run[2],
+                           run[1], counts["loop"],
+                           None if scan is None else scan[2])
+        if scan is not None:
+            row += ("; scan " + scan_equal(f"scenario {name}", run[:2],
+                                           scan[:2])
+                    + f", scan launches {nonzero(counts['scan'])}")
+        rows.append(row)
+    d_loss, d_param = run_gaps(cohort["BankedMIFA(DenseBank)", "loop"][:2],
+                               cohort["BankedMIFA(PagedDeviceBank)",
+                                      "loop"][:2])
+    check(d_loss == 0 and d_param == 0,
+          f"scenario cluster: the paged bank off the dense one by |dloss| "
+          f"{d_loss:.3e}, |dparam| {d_param:.3e}")
+    rows.append("scenario cluster: BankedMIFA(PagedDeviceBank) bit-equal "
+                "to BankedMIFA(DenseBank)")
+    lap("bank runs")
+
+    # fleets: one in-round sample over three stacked Gilbert–Elliott chains,
+    # and a cohort fleet on the host surfaces
+    ge = [scen_ge(100 + s, b) for s, b in zip(FLEET_SEEDS, SCEN_BURSTS)]
+    fleets = {}
+    for engine in ("loop", "scan"):
+        reset_counts()
+        fleets[engine] = run_scen_fleet(MIFA, problem, params0, ge, ROUNDS,
+                                        engine)
+        counts = read_counts()
+        per = len(FLEET_SEEDS) * (ROUNDS + (engine == "scan"))
+        scen_expect(f"fleet MIFA(array) {engine}", counts, "mifa_aggregate",
+                    per)
+    loop, scan = fleets["loop"], fleets["scan"]
+    check(all(np.array_equal(loop[1].stacked()[k], scan[1].stacked()[k])
+              for k in ("train_loss", "n_active")),
+          "scenario fleet: the scan's losses or masks differ")
+    verdict = scan_equal("scenario fleet", loop[:2], scan[:2])
+    for k, sc in enumerate(ge):
+        masks = sc.process.host_sampler().sample_block(0, ROUNDS)
+        check(loop[1].trial(k).n_active == masks.sum(1).astype(
+            float).tolist(), f"scenario fleet trial {k}: masks differ "
+                             "from the CPU host surface's")
+    rows.append(
+        f"scenario fleet MIFA(array), K={len(ge)} gilbert_elliott bursts "
+        f"{SCEN_BURSTS}: {ROUNDS} rounds, loop "
+        f"{np.median(loop[2][10:]) * 1e3:.3f} ms/round, scan "
+        f"{scan_ms(scan[2], ROUNDS):.3f} ms/round (host clock); scan "
+        f"{verdict}; "
+        f"mean |A(t)| per trial "
+        f"{np.round(loop[1].stacked()['n_active'].mean(1), 2).tolist()}; "
+        f"mifa_aggregate {len(ge) * ROUNDS} on the loop, "
+        f"{len(ge) * (ROUNDS + 1)} on the scan")
+    reset_counts()
+    clusters = [scen_cluster(100 + s) for s in FLEET_SEEDS]
+    cfleet = run_scen_fleet(lambda: BankedMIFA(DenseBank(device="cuda")),
+                            problem, params0, clusters, SCEN_COHORT_ROUNDS,
+                            "loop", cap=SCAN_CAP)
+    counts = read_counts()
+    scen_expect("cohort fleet", counts, "bank_scatter_batched",
+                SCEN_COHORT_ROUNDS)
+    for k, sc in enumerate(clusters):
+        masks = sc.process.host_sampler().sample_block(0, SCEN_COHORT_ROUNDS)
+        check(cfleet[1].trial(k).n_active == masks.sum(1).astype(
+            float).tolist(), f"scenario cohort fleet trial {k}: masks "
+                             "differ from the CPU host surface's")
+    launches["bank_scatter_batched"] = counts["bank_scatter_batched"]
+    rows.append(f"scenario cohort fleet BankedMIFA(DenseBank), K=3 cluster: "
+                f"{SCEN_COHORT_ROUNDS} rounds, loop "
+                f"{np.median(cfleet[2][10:]) * 1e3:.3f} ms/round; launches "
+                f"{nonzero(counts)}")
+
+    lap("fleets")
+    # the other algorithms, card against CPU
+    scen_card_vs_cpu("FedAR", lambda d: FedAR(), problem, problem_cpu,
+                     params0, scen_ge(), rows)
+    scen_card_vs_cpu("CAFed", lambda d: CAFed(), problem, problem_cpu,
+                     params0, scen_ge(), rows)
+    lap("card vs CPU")
+    rows.append(f"scenario phase: {sum(laps.values()):.1f} s ("
+                + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items())
+                + ")")
+    return launches, rows
+
+
+# --------------------------------------------------------------------------- #
 # the model zoo: flash_attention and ssd_scan, served models
 # --------------------------------------------------------------------------- #
 
@@ -2596,6 +2989,10 @@ def main() -> int:
                                          main_runs["mifa_array"])
                 + profiled_scan(params0, problem) + fleet_rows):
         print(row)
+    # scenarios: availability drawn inside the round on the card
+    scen_launches, rows = scenario_phase(params0, problem, problem_cpu)
+    for row in rows:
+        print(row)
     # the loop after all the captures: the main path's MIFA(array) again,
     # bit-equal to its first run
     from repro_torch.core import MIFA
@@ -2654,6 +3051,17 @@ def main() -> int:
         "paged_bank_scatter_batched":
             f"scan Figure 2 fleet BankedMIFA(PagedDeviceBank), "
             f"{FLEET_ROUNDS} rounds"}
+    # the scenario path's loop runs, each counted from 0 just before it
+    scen_from = {
+        "mifa_aggregate": f"scenario MIFA(array) under gilbert_elliott, "
+                          f"{ROUNDS} rounds (loop)",
+        "bank_scatter": f"scenario BankedMIFA(DenseBank) under cluster, "
+                        f"{SCEN_COHORT_ROUNDS} rounds (loop)",
+        "paged_bank_scatter": f"scenario BankedMIFA(PagedDeviceBank) under "
+                              f"cluster, {SCEN_COHORT_ROUNDS} rounds (loop)",
+        "bank_scatter_batched": f"scenario cohort fleet BankedMIFA("
+                                f"DenseBank), K=3 cluster, "
+                                f"{SCEN_COHORT_ROUNDS} rounds (loop)"}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
@@ -2677,6 +3085,9 @@ def main() -> int:
         scan = ({"scan_launches": scan_launches[name],
                  "scan_launches_from": scan_from[name]}
                 if name in scan_launches else {})
+        if name in scen_launches:
+            scan.update(scenario_launches=scen_launches[name],
+                        scenario_launches_from=scen_from[name])
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

@@ -23,6 +23,8 @@ class BankedMIFA:
     """memory-bank MIFA; `bank` picks the storage backend."""
 
     cohort_based = True
+    #: the availability regime it needs: Assumption 4 only, as MIFA
+    assumes = "arbitrary"
 
     def __init__(self, bank: MemoryBank):
         self.bank = bank

@@ -1,3 +1,6 @@
+from repro_torch.core.algorithms import (algorithm_assumes,  # noqa: F401
+                                         algorithm_names, make_algorithm,
+                                         register_algorithm)
 from repro_torch.core.baselines import (CAFed, BiasedFedAvg,  # noqa: F401
                                         FedAR, FedAvgIS, FedAvgSampling,
                                         FedBuffAvg, SCAFFOLDSampling)

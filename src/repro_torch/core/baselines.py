@@ -28,8 +28,27 @@ itself. Torch cannot reproduce the reference's threefry bits, so parity
 tests inject the reference's selections through
 `FedAvgSampling._resample`.
 
-`FedAR`, `CAFed` and `FedBuffAvg` are not ported yet (ROADMAP Queue 1 item
-14): constructing one raises.
+The competing memorisation / reweighting mechanisms of the related work:
+
+  * FedBuffAvg        — buffered-async aggregation (FedBuff-style): the
+                        round's `active` may be a float weight vector (the
+                        staleness discounts of a buffered server policy) or
+                        a bool mask, which makes it BiasedFedAvg. The
+                        simulator that feeds it weights comes with ROADMAP
+                        Queue 1 item 16.
+  * FedAR             — local-update approximation + rectification: every
+                        client's latest update is kept as its surrogate and
+                        the surrogates are averaged with staleness-decayed,
+                        re-normalised weights.
+  * CAFed             — correlated-availability weighting: weights adapt to
+                        online estimates of each client's availability chain
+                        (EWMA activity and persistence), and clients whose
+                        chain mixes too slowly are excluded.
+
+Like the reference's plain `jnp`, these are plain tensor ops: no TPU kernel
+stands behind them. The `assumes` tag names the availability regime each
+mechanism needs: 'arbitrary' (Assumption 4 only), 'iid_known_probs',
+'stationary_mixing' or 'none'.
 """
 from __future__ import annotations
 
@@ -80,6 +99,33 @@ class BiasedFedAvg:
 
 
 @dataclass(frozen=True)
+class FedBuffAvg:
+    """Buffered-async FedAvg (FedBuff-style). `active` is an f32 weight
+    vector (staleness discounts, 0 for non-contributors) or a bool mask.
+    The update is Σ w_i·u_i / |contributors|: dividing by the contributor
+    count, not Σw, keeps the step comparable to synchronous FedAvg while
+    stale updates are attenuated. With a bool mask it is `BiasedFedAvg`."""
+
+    weight_aware: ClassVar[bool] = True
+    assumes: ClassVar[str] = "none"
+
+    def init_state(self, params, n_clients: int) -> dict:
+        """Stateless aggregation: only the round counter `t`."""
+        return {"t": _zero_count(_device_of(params))}
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        w = active.float()
+        contrib = (w > 0).float()
+        denom = contrib.sum().clamp(min=1.0)
+        mean_g = tree_map(lambda u: (u * _bcast(w, u)).sum(0) / denom,
+                          updates)
+        return ({"t": state["t"] + 1}, _apply(params, mean_g, eta),
+                {"loss": (losses * contrib).sum() / denom,
+                 "n_active": contrib.sum()})
+
+
+@dataclass(frozen=True)
 class FedAvgIS:
     """Needs the true participation probabilities (N,).
 
@@ -118,6 +164,101 @@ class FedAvgIS:
         return ({"t": state["t"] + 1, "probs": p},
                 _apply(params, mean_g, eta),
                 {"loss": _active_loss(losses, act), "n_active": act.sum()})
+
+
+@dataclass(frozen=True)
+class FedAR:
+    """FedAR-style local-update approximation + rectification (Jiang et
+    al., arXiv 2407.19103):
+
+        U^i_t = u^i_t if i ∈ A(t), else U^i_{t-1}        (surrogates)
+        τ_i   = rounds since i last participated (0 when fresh)
+        α_i   = decay^τ_i,  w_{t+1} = w_t − η · Σ_i α_i U^i_t / Σ_i α_i
+
+    decay=1 is MIFA's uniform memory average, decay=0 BiasedFedAvg (0^0 =
+    1 keeps the fresh updates). Needs no knowledge of the availability
+    law, hence `assumes = 'arbitrary'`."""
+
+    decay: float = 0.5
+    assumes: ClassVar[str] = "arbitrary"
+
+    def init_state(self, params, n_clients: int) -> dict:
+        dev = _device_of(params)
+        return {"U": tree_map(lambda p: torch.zeros(
+                    (n_clients,) + tuple(p.shape), dtype=torch.float32,
+                    device=dev), params),
+                "tau": torch.zeros(n_clients, dtype=torch.int32, device=dev),
+                "t": _zero_count(dev)}
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        act = active.float()
+        U = tree_map(lambda u_old, u: torch.where(_bcast(active, u), u, u_old),
+                     state["U"], updates)
+        tau = torch.where(active, 0, state["tau"] + 1)
+        alpha = torch.pow(self.decay, tau.float())
+        denom = alpha.sum().clamp(min=1.0)
+        mean_g = tree_map(lambda u: (u * _bcast(alpha, u)).sum(0) / denom, U)
+        return ({"U": U, "tau": tau, "t": state["t"] + 1},
+                _apply(params, mean_g, eta),
+                {"loss": _active_loss(losses, act), "n_active": act.sum()})
+
+
+@dataclass(frozen=True)
+class CAFed:
+    """Correlated-availability weighting after Rodio et al., arXiv
+    2301.04632 (CA-Fed). Per client, EWMAs with rate `rho` of the activity
+    (pi_hat), of P(active | active before) (stay_up, updated after active
+    rounds) and of P(inactive | inactive before) (stay_dn, updated after
+    inactive rounds). Clients with stay_dn > d_max are excluded (unless
+    that would exclude everyone); the rest are importance-weighted:
+
+        w_{t+1} = w_t − η · Σ_{i incl} 1[i ∈ A(t)] u^i_t / clip(π̂_i,
+                  pi_min, 1) / |{incl}|
+
+    The chain must be estimable, hence `assumes = 'stationary_mixing'`."""
+
+    rho: float = 0.1
+    pi_min: float = 0.05
+    d_max: float = 0.85
+    assumes: ClassVar[str] = "stationary_mixing"
+
+    def init_state(self, params, n_clients: int) -> dict:
+        # neutral priors: π̂ at 1/2, both persistences at their iid values
+        dev = _device_of(params)
+
+        def half():
+            return torch.full((n_clients,), 0.5, dtype=torch.float32,
+                              device=dev)
+
+        return {"pi_hat": half(), "stay_up": half(), "stay_dn": half(),
+                "prev": torch.ones(n_clients, dtype=torch.bool, device=dev),
+                "t": _zero_count(dev)}
+
+    def round_step(self, state, params, updates, losses, active, eta,
+                   rng=None):
+        act = active.float()
+        rho = self.rho
+        pi_hat = state["pi_hat"] + rho * (act - state["pi_hat"])
+        stay_up = torch.where(state["prev"],
+                              state["stay_up"]
+                              + rho * (act - state["stay_up"]),
+                              state["stay_up"])
+        stay_dn = torch.where(state["prev"], state["stay_dn"],
+                              state["stay_dn"]
+                              + rho * ((1.0 - act) - state["stay_dn"]))
+        incl = (stay_dn <= self.d_max).float()
+        # never let the exclusion rule empty the cohort entirely
+        incl = torch.where(incl.sum() > 0, incl, torch.ones_like(incl))
+        w = incl * act / pi_hat.clamp(self.pi_min, 1.0)
+        denom = incl.sum().clamp(min=1.0)
+        mean_g = tree_map(lambda u: (u * _bcast(w, u)).sum(0) / denom,
+                          updates)
+        new_state = {"pi_hat": pi_hat, "stay_up": stay_up,
+                     "stay_dn": stay_dn, "prev": active,
+                     "t": state["t"] + 1}
+        return new_state, _apply(params, mean_g, eta), {
+            "loss": _active_loss(losses, act), "n_active": act.sum()}
 
 
 @dataclass(frozen=True)
@@ -248,17 +389,3 @@ class SCAFFOLDSampling:
             lambda a, b: torch.where(complete, a, b), c_i_new, state["c_i"])
         new_state["c"] = c_new
         return new_state, new_params, metrics
-
-
-def _not_ported(name: str):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 "
-                                  "item 14)")
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": f"Not ported yet: {name} (ROADMAP "
-                                      "Queue 1 item 14)."})
-
-
-FedAR = _not_ported("FedAR")
-CAFed = _not_ported("CAFed")
-FedBuffAvg = _not_ported("FedBuffAvg")

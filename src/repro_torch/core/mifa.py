@@ -28,6 +28,7 @@ For O(|A(t)|·d) cohort rounds use `repro_torch.bank.BankedMIFA`.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
@@ -48,6 +49,8 @@ class MIFA:
 
     memory: str = "array"
     memory_dtype: str = "float32"
+    #: the availability regime it needs: Assumption 4 only
+    assumes: ClassVar[str] = "arbitrary"
 
     @property
     def round_rng(self) -> str:

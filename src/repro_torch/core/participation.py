@@ -125,6 +125,26 @@ class TauStats:
         self.sum_tau_sq += float((self.tau.astype(np.float64) ** 2).sum())
         self.rounds += 1
 
+    def absorb_scan(self, tau: np.ndarray, tau_max_per_dev: np.ndarray,
+                    tau_sums: np.ndarray, tau_sq_sums: np.ndarray) -> None:
+        """Merge one scan-engine chunk of τ statistics kept on the device:
+        `tau` / `tau_max_per_dev` are the (N,) values after the chunk,
+        `tau_sums` / `tau_sq_sums` each round's Σ_i τ(t,i) and Σ_i τ(t,i)²
+        (exact integers). The running totals stay float64, summed as
+        per-round `update` calls sum them."""
+        tau_sums = np.asarray(tau_sums)
+        if self.rounds == 0 and len(tau_sums) and self.strict \
+                and tau_sums[0] != 0:
+            raise ValueError(
+                "absorb_scan: round 0 must be all-active (Definition "
+                "5.2(1)); pass strict=False to use the init convention.")
+        self.tau = np.asarray(tau, np.int64)
+        self.tau_max_per_dev = np.asarray(tau_max_per_dev, np.int64)
+        self.sum_tau += float(np.sum(tau_sums, dtype=np.float64))
+        self.sum_tau_sq += float(np.sum(np.asarray(tau_sq_sums),
+                                        dtype=np.float64))
+        self.rounds += len(tau_sums)
+
     @property
     def tau_bar(self) -> float:
         """τ̄_T: mean τ(t,i) over all rounds × devices seen so far."""

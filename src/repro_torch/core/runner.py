@@ -6,6 +6,14 @@ model); local K-step SGD and the server step run on the run's device,
 which every entry point takes as `device=` (default "cuda", raising when
 no GPU is present).
 
+Availability comes from a host participation process (``.sample(t) ->
+(N,) bool``) or from a scenario (`repro_torch.scenarios`). Under a
+scenario, dense algorithms draw the mask inside the round body from the
+scenario's device surface (keyed by the round index, a device tensor in
+the round's inputs), and the loop reads it back once a round for the τ
+statistics; cohort algorithms take the scenario's host surface, which
+draws the same masks.
+
 Two round paths, selected by the algorithm:
   * dense (default)              — `client_updates` over ALL N clients, then
     `algo.round_step` on the (N, ...) update array;
@@ -39,9 +47,9 @@ With `uses_update_clock` the schedules count applied global updates
 (`state["t_updates"]`, read on the host before each round) instead of
 rounds; the scan engine runs such schedules on the loop.
 
-Not ported yet: scenarios (`scenario=`, ROADMAP Queue 1 item 13), the
-runtime simulator (`sim=`, item 16), checkpoints (`checkpoint=`, item 17)
-and meshes (`mesh=`, item 19).
+Not ported yet: the runtime simulator (`sim=`, ROADMAP Queue 1 item 16),
+checkpoints (`checkpoint=`, item 17), windowed scenarios (trace replay,
+item 17) and meshes (`mesh=`, item 19).
 """
 from __future__ import annotations
 
@@ -163,7 +171,8 @@ def to_device(tree, device: torch.device):
 
 
 def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
-                    cohort: bool, rng=None):
+                    cohort: bool, rng=None, scen_fn=None,
+                    track_tau: bool = False):
     """One round as a function of device tensors only:
     ``body(state, params, x) -> (state, params, metrics)``.
 
@@ -175,6 +184,14 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
     (`round_rng`). Nothing in the body reads a value back to the host, so
     the scan engine can capture it as a CUDA graph; the loop engine calls
     it once a round.
+
+    With `scen_fn` (a scenario's `sample_fn()`, dense algorithms only) the
+    mask is drawn in the body: x carries ``t`` (0-d int64) in place of
+    ``active``, the state is ``{"algo", "scen_state", "scen_key"}`` and the
+    metrics carry the round's ``mask``. With `track_tau` the state also
+    carries ``tau`` and ``tau_max`` ((N,) int32, updated as `TauStats`
+    updates them) and the metrics ``tau_sum`` and ``tau_sq_sum`` (int64),
+    so the scan engine keeps the τ statistics on the device.
     """
     _, local_ph, server_ph = ROUND_PHASES
     host_draw = hasattr(algo, "host_draw")
@@ -199,6 +216,24 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                 state, x["rows"], x["valid"], updates, losses, rng=rng)
             return state, apply_mean(params, mean_g, x["eta_srv"]), metrics
 
+    def scenario_round(state, params, x):
+        mask, scen_state = scen_fn(state["scen_key"], x["t"],
+                                   state["scen_state"])
+        algo_state, params, metrics = dense(state["algo"], params,
+                                            {**x, "active": mask})
+        new = {"algo": algo_state, "scen_state": scen_state,
+               "scen_key": state["scen_key"]}
+        if track_tau:
+            tau = torch.where(mask, 0, state["tau"] + 1)
+            new["tau"] = tau
+            new["tau_max"] = torch.maximum(state["tau_max"], tau)
+            tau64 = tau.long()
+            metrics = {**metrics, "tau_sum": tau64.sum(),
+                       "tau_sq_sum": (tau64 * tau64).sum()}
+        return new, params, {**metrics, "mask": mask}
+
+    if scen_fn is not None:
+        return scenario_round
     return cohort_round if cohort else dense
 
 
@@ -218,14 +253,18 @@ class RoundRunner:
     The round generators `rng` (CPU) and `device_rng` (on `device`) are
     seeded with `seed`, the same whether or not `params` is given (the
     reference splits its round key from PRNGKey(seed) either way).
-    `cohort_capacity` pins the cohort path's pad width.
+    `cohort_capacity` pins the cohort path's pad width. `scenario` (a
+    `repro_torch.scenarios` Scenario or process) wires in-round sampling
+    for dense algorithms (`step_scenario`): its state and key live on the
+    run's device (`scen_state`, `scen_key`). Cohort algorithms take its
+    host surface.
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
                  eta_local: Callable | float | None = None,
                  weight_decay: float = 0.0, seed: int = 0, params=None,
                  uses_update_clock: bool = False,
-                 cohort_capacity: int | None = None,
+                 cohort_capacity: int | None = None, scenario=None,
                  device: str | torch.device = DEFAULT_DEVICE):
         self.device = resolve_device(device)
         set_numerics()
@@ -253,9 +292,35 @@ class RoundRunner:
         self.hist = FLHistory()
         self.cohort_mode = getattr(algo, "cohort_based", False)
         self.round_rng = round_rng_of(algo, self.rng, self.device_rng)
+        self.scen_process = self._scen_sampler = None
+        scen_fn = self._init_scenario(scenario)
         self.body = make_round_body(model, algo, batcher.k_steps,
                                     weight_decay, cohort=self.cohort_mode,
-                                    rng=self.round_rng)
+                                    rng=self.round_rng, scen_fn=scen_fn)
+
+    def _init_scenario(self, scenario):
+        """Wire a scenario (or bare process) in; returns the sample
+        function the dense body draws from (None without a scenario, and
+        for cohort algorithms, which take the host surface)."""
+        if scenario is None:
+            return None
+        from repro_torch.scenarios.base import as_process
+        proc = as_process(scenario)
+        if proc.n != self.n_clients:
+            raise ValueError(f"the scenario has {proc.n} devices, the "
+                             f"batcher {self.n_clients} clients")
+        if proc.scan_window is not None:
+            raise NotImplementedError(
+                f"{type(proc).__name__} carries a window of masks "
+                "(trace replay), which is not ported yet (ROADMAP Queue 1 "
+                "item 17)")
+        self.scen_process = proc
+        if self.cohort_mode:
+            self._scen_sampler = proc.host_sampler()
+            return None
+        self.scen_state = proc.init_state(self.device)
+        self.scen_key = proc.key.to(self.device)
+        return proc.sample_fn()
 
     def learning_rates(self, t: int) -> tuple[float, float]:
         """η_local, η_server for round t (schedules count from 1; with the
@@ -278,11 +343,16 @@ class RoundRunner:
         return {"eta_loc": np.asarray(eta_loc, np.float32),
                 "eta_srv": np.asarray(eta_srv, np.float32)}
 
-    def round_inputs(self, t: int, active: np.ndarray) -> dict:
+    def round_inputs(self, t: int, active: np.ndarray | None) -> dict:
         """The host side of dense round t: its numpy inputs for the body
-        (the batch, the mask, both rates and any host draw)."""
-        x = {"batch": self.batcher.sample_round(t),
-             "active": np.asarray(active, bool), **self._rates(t)}
+        (the batch, the mask, both rates and any host draw). A scenario
+        round (`active` None) carries the round index ``t`` (0-d int64)
+        instead of the mask, which the body draws."""
+        x = {"batch": self.batcher.sample_round(t), **self._rates(t)}
+        if active is None:
+            x["t"] = np.asarray(t, np.int64)
+        else:
+            x["active"] = np.asarray(active, bool)
         if hasattr(self.algo, "host_draw"):
             x["draw"] = np.asarray(self.algo.host_draw(self.rng,
                                                        self.n_clients))
@@ -310,6 +380,33 @@ class RoundRunner:
             x = to_device(self.round_inputs(t, active), self.device)
         self.state, self.params, metrics = self.body(self.state,
                                                      self.params, x)
+        self.hist.record_round(t, metrics)
+        return metrics
+
+    def scenario_carry(self) -> dict:
+        """The scenario body's state: the algorithm's, the scenario's and
+        its key."""
+        return {"algo": self.state, "scen_state": self.scen_state,
+                "scen_key": self.scen_key}
+
+    def step_scenario(self, t: int) -> dict:
+        """Apply one round with availability drawn by the scenario.
+
+        Dense algorithms: the body draws the mask on the device from round
+        t's key; the mask is read back once for the τ statistics. Cohort
+        algorithms: the host surface draws the same mask and the round
+        goes through `step`."""
+        if self.scen_process is None:
+            raise ValueError("construct RoundRunner(scenario=...) to use "
+                             "step_scenario")
+        if self.cohort_mode:
+            return self.step(t, self._scen_sampler.sample(t))
+        with record_function(ROUND_PHASES[0]):
+            x = to_device(self.round_inputs(t, None), self.device)
+        carry, self.params, metrics = self.body(self.scenario_carry(),
+                                                self.params, x)
+        self.state, self.scen_state = carry["algo"], carry["scen_state"]
+        self.stats.update(metrics["mask"].cpu().numpy())
         self.hist.record_round(t, metrics)
         return metrics
 
@@ -349,8 +446,8 @@ class RoundRunner:
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item}); the port runs "
-                               "participation= on the loop and scan "
-                               "engines")
+                               "participation= and scenario= on the "
+                               "loop and scan engines")
 
 
 ENGINES = ("loop", "scan", "scan_strict")
@@ -368,8 +465,11 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
            ) -> tuple[Any, FLHistory]:
     """Run T round-synchronous rounds of federated training on `device`.
 
-    Availability comes from `participation` (``.sample(t) -> (N,) bool``),
-    one draw per round on the host. `batcher.sample_round(t)` gives numpy
+    Availability comes from exactly one of `participation` (``.sample(t)
+    -> (N,) bool``, one draw per round on the host) and `scenario` (a
+    `repro_torch.scenarios` Scenario or process: dense algorithms draw the
+    mask inside the round on the device, cohort algorithms take its host
+    surface; the masks are the same). `batcher.sample_round(t)` gives numpy
     batches with leaves (N, K, mb, ...); `schedule(t)` the server learning
     rate (`eta_local` overrides the client-side rate);
     `uses_update_clock` drives the schedules off applied global updates
@@ -393,8 +493,8 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         run on the loop; an unpinned cohort pads to the N-client bucket.
       * "scan_strict" — like "scan", but those configurations raise.
     """
-    if scenario is not None:
-        raise _not_ported("scenario=", "13")
+    if (participation is None) == (scenario is None):
+        raise ValueError("pass exactly one of participation= or scenario=")
     if sim is not None:
         raise _not_ported("sim=", "16")
     if checkpoint is not None:
@@ -404,13 +504,12 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected 'loop', "
                          "'scan', or 'scan_strict'")
-    if participation is None:
-        raise ValueError("pass participation=")
     runner = RoundRunner(model=model, algo=algo, batcher=batcher,
                          schedule=schedule, eta_local=eta_local,
                          weight_decay=weight_decay, seed=seed, params=params,
                          uses_update_clock=uses_update_clock,
-                         cohort_capacity=cohort_capacity, device=device)
+                         cohort_capacity=cohort_capacity, scenario=scenario,
+                         device=device)
     if engine != "loop":
         from repro_torch.core.scan_engine import ScanDriver, scan_supported
         ok, why = scan_supported(runner)
@@ -428,8 +527,10 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
             f"({why}); falling back to the per-round loop")
     t0 = time.time()
     for t in range(n_rounds):
-        active = participation.sample(t)
-        runner.step(t, active)
+        if scenario is not None:
+            runner.step_scenario(t)
+        else:
+            runner.step(t, participation.sample(t))
         if eval_fn is not None and (t % eval_every == 0 or t == n_rounds - 1):
             runner.evaluate(t, eval_fn)
     runner.hist.wall_time = time.time() - t0

@@ -5,7 +5,9 @@ Counterpart of `repro/core/scan_engine.py`, which compiles the rounds of a
 chunk into one `lax.scan` program. Here a chunk is:
 
   1. `build_xs` (host): draw the chunk's masks (τ statistics as the loop
-     keeps them), assemble every round's inputs as the loop does
+     keeps them; a scenario run with a dense algorithm stages each round's
+     index `t` instead and draws its masks in the body), assemble every
+     round's inputs as the loop does
      (`RoundRunner.round_inputs` / `cohort_inputs`, host draws in round
      order; a cohort padded to the run's one width), and stage them: every
      leaf of every round goes into ONE host buffer (pinned when the run is
@@ -19,7 +21,8 @@ chunk into one `lax.scan` program. Here a chunk is:
      device, on the stream) and replay the graph (`CapturedRound`); on the
      CPU, call the round body on the slices. The metrics go into a (L, ...)
      buffer on the device;
-  4. `flush`, one chunk late: read that buffer once and record the history.
+  4. `flush`, one chunk late: read that buffer once and record the history
+     (and, in scenario mode, merge the chunk's τ statistics).
 
 The body is `runner.make_round_body`'s, the one the loop engine calls, so
 scan runs the loop's code on the loop's inputs: on the CPU the two are
@@ -43,8 +46,17 @@ afresh. The kernels count their launches on the host, which a replay does
 not reach: `CapturedRound` records each counter's increase during capture
 and adds it on every replay.
 
-Scenario-mode bodies (in-program availability, τ in the carry, windowed
-trace replay) come with ROADMAP Queue 1 item 13.
+Scenario mode (a dense algorithm under `run_fl(scenario=)`): the round
+body draws its mask from the scenario's device surface, keyed by the
+staged round index (a captured round must not freeze a Python `t`); the
+carry's state is ``{"algo", "scen_state", "scen_key", "tau", "tau_max"}``,
+so the chain state and the (N,) int32 τ and running max advance in the
+graph, and each round's Σ τ and Σ τ² join the chunk's metrics buffer.
+After a chunk its τ vectors are copied aside (the graph keeps writing the
+carry's), and the flush merges them with `TauStats.absorb_scan`: the
+statistics equal the loop's, which reads every mask back. Windowed
+processes (trace replay, re-paged between chunks) come with ROADMAP Queue
+1 item 17.
 """
 from __future__ import annotations
 
@@ -53,13 +65,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.runner import RoundRunner, _pow2_bucket
+from repro_torch.core.runner import RoundRunner, _pow2_bucket, make_round_body
 from repro_torch.core.runner import pad_cohort as runner_pad_cohort
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.tree import tree_leaves, tree_map
 
 # metrics a round body reports, in the order the chunk buffer stores them
-METRIC_KEYS = ("loss", "n_active", "global_updates")
+METRIC_KEYS = ("loss", "n_active", "global_updates", "tau_sum",
+               "tau_sq_sum")
+TAU_KEYS = ("tau_sum", "tau_sq_sum")
 
 
 def scan_supported(runner: RoundRunner) -> tuple[bool, str]:
@@ -206,10 +220,11 @@ def stage_rounds(rounds: list, device: torch.device):
 
 
 def pack_metrics(metrics: dict) -> tuple[torch.Tensor, list[str]]:
-    """The round's metrics in METRIC_KEYS order as one f32 tensor
-    (n_metrics, ...) (a fleet's are (K,) each), and their keys."""
+    """The round's metrics in METRIC_KEYS order as one f64 tensor
+    (n_metrics, ...) (a fleet's are (K,) each), and their keys. f64 holds
+    the f32 metrics exactly and the τ sums as exact integers."""
     keys = [k for k in METRIC_KEYS if k in metrics]
-    return torch.stack([metrics[k].float() for k in keys]), keys
+    return torch.stack([metrics[k].double() for k in keys]), keys
 
 
 def _copy_into(static, new) -> None:
@@ -328,7 +343,7 @@ class ChunkRunner:
 
     def run(self, state, params, xs):
         """Every round of the staged chunk `xs` in order; returns (state,
-        params, (L, n_metrics, ...) f32 metrics on the device)."""
+        params, (L, n_metrics, ...) f64 metrics on the device)."""
         n_rounds = tree_leaves(xs)[0].shape[0]
         ys = None
         for j in range(n_rounds):
@@ -346,7 +361,7 @@ class ChunkRunner:
                 m, self.keys = pack_metrics(metrics)
             if ys is None:
                 ys = torch.empty((n_rounds,) + tuple(m.shape),
-                                 dtype=torch.float32, device=m.device)
+                                 dtype=torch.float64, device=m.device)
             ys[j].copy_(m)
         return state, params, ys
 
@@ -359,7 +374,8 @@ class ScanDriver:
     the loop engine's; the runner's state, params, history and τ
     statistics are current after `run`, and `runner.finalize()` works
     unchanged. `replays` and `staged_bytes` count the captured rounds run
-    and the bytes staged.
+    and the bytes staged. A runner with a scenario and a dense algorithm
+    runs in scenario mode (module docstring).
     """
 
     def __init__(self, runner: RoundRunner, *, scan_chunk: int = 64):
@@ -371,10 +387,18 @@ class ScanDriver:
             # one shape for every round: unpinned runs pad to the N-client
             # bucket (the loop's per-round buckets vary)
             self.cap = r.cohort_capacity or _pow2_bucket(r.n_clients)
+        self.scenario_mode = (r.scen_process is not None
+                              and not r.cohort_mode)
+        body = r.body
+        if self.scenario_mode:
+            body = make_round_body(
+                r.model, r.algo, r.batcher.k_steps, r.weight_decay,
+                cohort=False, rng=r.round_rng,
+                scen_fn=r.scen_process.sample_fn(), track_tau=True)
         # the body draws from the device generator only if the algorithm
         # names it; then the graph must own it
         gens = (r.device_rng,) if r.round_rng is r.device_rng else ()
-        self.chunks = ChunkRunner(r.body, r.device, generators=gens)
+        self.chunks = ChunkRunner(body, r.device, generators=gens)
         self._union = None
 
     @property
@@ -387,6 +411,11 @@ class ScanDriver:
 
     def _build_xs(self, t0: int, t1: int, participation):
         r = self.r
+        if self.scenario_mode:
+            return self.chunks.stage([r.round_inputs(t, None)
+                                      for t in range(t0, t1)])
+        if participation is None:
+            participation = r._scen_sampler
         rounds, union = [], []
         for t in range(t0, t1):
             mask = np.asarray(participation.sample(t), bool)
@@ -409,27 +438,61 @@ class ScanDriver:
         state, params = carry
         return self.r.algo.prepare_cohort(state, self._union), params
 
+    def _init_carry(self):
+        r = self.r
+        if not self.scenario_mode:
+            return r.state, r.params
+
+        def vec(v):
+            return torch.as_tensor(v, dtype=torch.int32).to(r.device)
+
+        return ({**r.scenario_carry(), "tau": vec(r.stats.tau),
+                 "tau_max": vec(r.stats.tau_max_per_dev)}, r.params)
+
     def _chunk_fn(self, carry, xs):
         state, params, ys = self.chunks.run(*carry, xs)
+        if self.scenario_mode:
+            # the chunk's τ vectors, copied before the next chunk's graph
+            # replays write the carry's again
+            ys = (ys, torch.stack([state["tau"], state["tau_max"]]))
         return (state, params), ys
 
     def _writeback(self, carry) -> None:
-        self.r.state, self.r.params = carry
+        state, self.r.params = carry
+        if self.scenario_mode:
+            self.r.state = state["algo"]
+            self.r.scen_state = state["scen_state"]
+        else:
+            self.r.state = state
 
-    def _flush(self, t0: int, t1: int, ys: torch.Tensor, carry) -> None:
-        """Record the chunk's rounds from its metrics buffer: one read."""
+    def _flush(self, t0: int, t1: int, ys, carry) -> None:
+        """Record the chunk's rounds from its metrics buffer: one read (and
+        one of the τ vectors in scenario mode)."""
+        keys = self.chunks.keys
+        if self.scenario_mode:
+            ys, taus = ys
+            taus = taus.cpu().numpy()
         vals = ys.cpu().numpy()
+        if self.scenario_mode:
+            self.r.stats.absorb_scan(
+                taus[0], taus[1], vals[:, keys.index("tau_sum")],
+                vals[:, keys.index("tau_sq_sum")])
         for j, t in enumerate(range(t0, t1)):
             self.r.hist.record_round(
-                t, {k: vals[j, i] for i, k in enumerate(self.chunks.keys)})
+                t, {k: vals[j, i] for i, k in enumerate(keys)
+                    if k not in TAU_KEYS})
 
-    def run(self, n_rounds: int, *, participation,
+    def run(self, n_rounds: int, *, participation=None,
             eval_fn: Callable | None = None, eval_every: int = 10) -> None:
-        """Rounds [0, n_rounds), the runner updated in place."""
+        """Rounds [0, n_rounds), the runner updated in place. Without
+        `participation` the runner's scenario draws the masks."""
         r = self.r
+        if participation is None and r.scen_process is None:
+            raise ValueError("ScanDriver.run needs participation= or a "
+                             "runner constructed with scenario=")
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
         run_pipelined_chunks(
-            (r.state, r.params),
+            self._init_carry(),
             chunk_bounds(n_rounds, self.scan_chunk, evals),
             chunk_fn=self._chunk_fn,
             build_xs=lambda t0, t1: self._build_xs(t0, t1, participation),

@@ -9,8 +9,11 @@ a leading trial axis:
 and each round runs as one fleet step:
 
   * dense algorithms — the round's batch is sampled once and shared by all
-    trials; local training is `torch.func.vmap` over the trial axis of the
-    runner's `client_updates` (which vmaps over clients). The server step
+    trials (under scenarios the (K, N) masks are drawn on the device in
+    the body: one sample over the trials' stacked states, (K, 2) keys and
+    the round index staged once per trial); local training is
+    `torch.func.vmap` over the trial axis of the runner's
+    `client_updates` (which vmaps over clients). The server step
     runs per trial on views `state[k]`, `params[k]`: `MIFA(array)` launches
     its kernel through ctypes, which `vmap` cannot trace. The kernel writes
     G in place, and a view of a contiguous stacked leaf is contiguous, so
@@ -37,8 +40,8 @@ As in `core.runner`, a fleet round is host inputs (`fleet_inputs` /
 stages each chunk's inputs in one copy and, on the card, replays the body
 captured as a CUDA graph, per trial bit-equal to the loop.
 
-Not ported yet: scenario trials and `step_scenario` (ROADMAP Queue 1 item
-13) and meshes (`mesh=`, item 19).
+Not ported yet: windowed scenarios (trace replay, ROADMAP Queue 1 item 17)
+and meshes (`mesh=`, item 19).
 """
 from __future__ import annotations
 
@@ -62,6 +65,7 @@ from repro_torch.core.scan_engine import (ChunkRunner, _eval_rounds,
                                           chunk_bounds, pad_cohort,
                                           run_pipelined_chunks)
 from repro_torch.fleet.spec import FleetSpec, Trial, _not_ported
+from repro_torch.scenarios.base import as_process
 from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
                                          set_numerics)
 from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
@@ -145,7 +149,7 @@ def _write_trial(stacked, k: int, new) -> None:
 
 
 def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
-                    cohort: bool, rngs):
+                    cohort: bool, rngs, scen_fn=None):
     """One fleet round as a function of device tensors only,
     ``body(state, params, x) -> (state, params, metrics with (K,)
     leaves)``, the counterpart of `core.runner.make_round_body`.
@@ -155,7 +159,10 @@ def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
     ``draw`` (K, N). x (cohort): ``ubatch`` (each distinct client of the
     round once), ``idx`` (K, C) into it, ``rows``/``valid`` (K, C) staged
     by the bank, and the rates. `rngs` are the trials' round generators of
-    the kind the algorithm names.
+    the kind the algorithm names. With `scen_fn` (dense algorithms) x
+    carries ``t`` (K,) int64 in place of ``active``, the masks are drawn
+    in the body over the stacked trials, and the state is ``{"algo",
+    "scen_state", "scen_key"}``, as `core.runner.make_round_body`'s.
     """
     _, local_ph, server_ph = ROUND_PHASES
     host_draw = hasattr(algo, "host_draw")
@@ -199,6 +206,16 @@ def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
                               * g).to(w.dtype), params, mean_g)
             return state, params, metrics
 
+    def scenario_round(state, params, x):
+        masks, scen_state = scen_fn(state["scen_key"], x["t"],
+                                    state["scen_state"])
+        algo_state, params, metrics = dense(state["algo"], params,
+                                            {**x, "active": masks})
+        return ({"algo": algo_state, "scen_state": scen_state,
+                 "scen_key": state["scen_key"]}, params, metrics)
+
+    if scen_fn is not None:
+        return scenario_round
     return cohort_round if cohort else dense
 
 
@@ -211,7 +228,10 @@ class FleetRunner:
     initialised from `torch.Generator().manual_seed(seeds[k])`, exactly as
     `RoundRunner(seed=seeds[k])`. Each trial keeps its own round
     generators (`rngs` on the CPU, `device_rngs` on the device), seeded
-    with its seed. `device` defaults to "cuda" and raises without a GPU.
+    with its seed. `scenarios` (one per trial, all of one type) replace
+    the masks: `step_scenario` draws them on the device for a dense
+    algorithm, from the host surfaces for a cohort one. `device` defaults
+    to "cuda" and raises without a GPU.
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
@@ -224,8 +244,6 @@ class FleetRunner:
                  device: str | torch.device = DEFAULT_DEVICE):
         if mesh is not None:
             raise _not_ported("mesh=", "19")
-        if scenarios is not None:
-            raise _not_ported("scenarios=", "13")
         self.device = resolve_device(device)
         set_numerics()
         self.model = model
@@ -264,9 +282,45 @@ class FleetRunner:
         self.cohort_mode = getattr(algo, "cohort_based", False)
         self.round_rngs = [round_rng_of(algo, c, d) for c, d in
                            zip(self.rngs, self.device_rngs)]
+        self._scen_fn = self._scen_samplers = None
+        self._init_scenarios(scenarios)
         self.body = make_fleet_body(model, algo, batcher.k_steps,
                                     weight_decay, cohort=self.cohort_mode,
-                                    rngs=self.round_rngs)
+                                    rngs=self.round_rngs,
+                                    scen_fn=self._scen_fn)
+
+    def _init_scenarios(self, scenarios) -> None:
+        """Wire one scenario per trial in: a dense fleet stacks their states
+        (K, ...) and keys (K, 2) on the device and draws in the body; a
+        cohort fleet keeps their host surfaces."""
+        if scenarios is None:
+            return
+        procs = [as_process(s) for s in scenarios]
+        if len(procs) != self.n_trials:
+            raise ValueError(f"{len(procs)} scenarios for {self.n_trials} "
+                             "trials")
+        if any(type(p) is not type(procs[0]) for p in procs):
+            raise ValueError(
+                "all trials in one fleet group must share a scenario type "
+                "(one sample function over the stacked trials); got "
+                f"{sorted({type(p).__name__ for p in procs})}: split the "
+                "sweep into one FleetSpec per type")
+        for p in procs:
+            if p.n != self.n_clients:
+                raise ValueError(f"a scenario has {p.n} devices, the "
+                                 f"batcher {self.n_clients} clients")
+            if p.scan_window is not None:
+                raise NotImplementedError(
+                    f"{type(p).__name__} carries a window of masks (trace "
+                    "replay), which is not ported yet (ROADMAP Queue 1 "
+                    "item 17)")
+        if self.cohort_mode:
+            self._scen_samplers = [p.host_sampler() for p in procs]
+            return
+        self._scen_fn = procs[0].sample_fn()
+        self.scen_state = tree_stack([p.init_state(self.device)
+                                      for p in procs])
+        self.scen_keys = torch.stack([p.key for p in procs]).to(self.device)
 
     # ------------------------------------------------------------------ #
     def learning_rates(self, t: int) -> tuple[np.ndarray, np.ndarray]:
@@ -296,12 +350,18 @@ class FleetRunner:
                              f"N={self.n_clients}), got {masks.shape}")
         return masks
 
-    def fleet_inputs(self, t: int, masks: np.ndarray) -> dict:
+    def fleet_inputs(self, t: int, masks: np.ndarray | None) -> dict:
         """The host side of dense fleet round t: the shared batch, the
-        (K, N) masks, the (K,) rates and any per-trial host draws."""
+        (K, N) masks, the (K,) rates and any per-trial host draws. A
+        scenario round (`masks` None) carries ``t`` (K,) int64, the same
+        round for every trial, instead of the masks."""
         eta_loc, eta_srv = self.learning_rates(t)
-        x = {"batch": self.batcher.sample_round(t), "active": masks,
-             "eta_loc": eta_loc, "eta_srv": eta_srv}
+        x = {"batch": self.batcher.sample_round(t), "eta_loc": eta_loc,
+             "eta_srv": eta_srv}
+        if masks is None:
+            x["t"] = np.full(self.n_trials, t, np.int64)
+        else:
+            x["active"] = masks
         if hasattr(self.algo, "host_draw"):
             x["draw"] = np.stack([np.asarray(self.algo.host_draw(
                 g, self.n_clients)) for g in self.rngs])
@@ -338,8 +398,35 @@ class FleetRunner:
         self.hist.record_round(t, metrics)
         return metrics
 
+    def scenario_carry(self) -> dict:
+        """The scenario body's state: the trials' algorithm states, their
+        stacked scenario states and keys."""
+        return {"algo": self.state, "scen_state": self.scen_state,
+                "scen_key": self.scen_keys}
+
+    def scenario_masks(self, t: int) -> np.ndarray:
+        """(K, N) masks of round t from the trials' host surfaces (cohort
+        fleets)."""
+        return np.stack([s.sample(t) for s in self._scen_samplers])
+
     def step_scenario(self, t: int) -> dict:
-        raise _not_ported("FleetRunner.step_scenario", "13")
+        """Apply round t with availability drawn by each trial's scenario.
+
+        Dense fleets: the (K, N) masks are drawn in the body, one sample
+        over the stacked trials. Cohort fleets: the host surfaces draw the
+        same masks and the round goes through `step`."""
+        if self._scen_samplers is not None:
+            return self.step(t, self.scenario_masks(t))
+        if self._scen_fn is None:
+            raise ValueError("construct FleetRunner(scenarios=...) to use "
+                             "step_scenario")
+        with record_function(ROUND_PHASES[0]):
+            x = to_device(self.fleet_inputs(t, None), self.device)
+        carry, self.params, metrics = self.body(self.scenario_carry(),
+                                                self.params, x)
+        self.state, self.scen_state = carry["algo"], carry["scen_state"]
+        self.hist.record_round(t, metrics)
+        return metrics
 
     def step_cohort(self, t: int,
                     ids_per_trial: Sequence[np.ndarray]) -> dict:
@@ -403,7 +490,9 @@ class FleetScanDriver:
     """The fleet on the scan engine: K trials × a chunk of rounds staged
     at once, each round on the card a replay of the fleet body captured as
     a CUDA graph (`core.scan_engine.ChunkRunner`), per trial bit-equal to
-    the loop. Chunks cut after eval rounds as the single-run
+    the loop. A dense scenario fleet stages each round's index for every
+    trial and draws its masks in the graph; its scenario states ride the
+    carry. Chunks cut after eval rounds as the single-run
     `core.scan_engine.ScanDriver`'s do; τ statistics are not tracked, as
     on the fleet's loop. A cohort fleet's shared batch is padded to one
     width for the whole run (the union's power-of-two bucket at most
@@ -414,6 +503,7 @@ class FleetScanDriver:
             raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
         self.r = r = runner
         self.scan_chunk = scan_chunk
+        self.scenario_mode = r._scen_fn is not None
         if r.cohort_mode:
             self.cap = r.cohort_capacity or _pow2_bucket(r.n_clients)
             self.width = _pow2_bucket(min(r.n_clients, r.n_trials * self.cap))
@@ -428,10 +518,14 @@ class FleetScanDriver:
 
     def _build_xs(self, t0: int, t1: int, parts):
         r = self.r
+        if self.scenario_mode:
+            return self.chunks.stage([r.fleet_inputs(t, None)
+                                      for t in range(t0, t1)])
         rounds, union = [], []
         for t in range(t0, t1):
-            masks = r._check_masks(np.stack([np.asarray(p.sample(t), bool)
-                                             for p in parts]))
+            masks = r._check_masks(
+                r.scenario_masks(t) if parts is None else
+                np.stack([np.asarray(p.sample(t), bool) for p in parts]))
             if not r.cohort_mode:
                 rounds.append(r.fleet_inputs(t, masks))
                 continue
@@ -456,7 +550,12 @@ class FleetScanDriver:
         return (state, params), ys
 
     def _writeback(self, carry) -> None:
-        self.r.state, self.r.params = carry
+        state, self.r.params = carry
+        if self.scenario_mode:
+            self.r.state = state["algo"]
+            self.r.scen_state = state["scen_state"]
+        else:
+            self.r.state = state
 
     def _flush(self, t0: int, t1: int, ys: torch.Tensor, carry) -> None:
         vals = ys.cpu().numpy()                       # (L, n_metrics, K)
@@ -464,14 +563,16 @@ class FleetScanDriver:
             self.r.hist.record_round(
                 t, {k: vals[j, i] for i, k in enumerate(self.chunks.keys)})
 
-    def run(self, n_rounds: int, *, parts,
+    def run(self, n_rounds: int, *, parts=None,
             eval_fn: Callable | None = None, eval_every: int = 10) -> None:
         """Rounds [0, n_rounds) for all trials, the runner updated in
-        place."""
+        place. Without `parts` the trials' scenarios draw the masks."""
         r = self.r
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
+        carry = ((r.scenario_carry() if self.scenario_mode else r.state),
+                 r.params)
         run_pipelined_chunks(
-            (r.state, r.params),
+            carry,
             chunk_bounds(n_rounds, self.scan_chunk, evals),
             chunk_fn=self._chunk_fn,
             build_xs=lambda t0, t1: self._build_xs(t0, t1, parts),
@@ -525,7 +626,9 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
     consumes stacked params and returns ((K,) losses, (K,) accs) (see
     `make_fleet_eval`); it runs every `eval_every` rounds and at the last.
     `uses_update_clock` drives the schedules off each trial's applied
-    global updates; `cohort_capacity` pins the cohort pad width.
+    global updates; `cohort_capacity` pins the cohort pad width. Trials
+    with `scenario` draw their masks as `FleetRunner.step_scenario` does;
+    one group is all-participation or all-scenario.
     `engine` "scan" runs chunks of `scan_chunk` rounds (None: the spec's,
     else 64) through `FleetScanDriver`, falling back to the loop with a
     warning for update-clock schedules and host banks; "scan_strict"
@@ -544,14 +647,19 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected 'loop', "
                          "'scan', or 'scan_strict'")
+    n_scen = sum(tr.scenario is not None for tr in trials)
+    if n_scen not in (0, len(trials)):
+        raise ValueError("mixing scenario and participation trials in one "
+                         "fleet group is not supported")
     runner = FleetRunner(
         model=model, algo=algo, batcher=batcher, schedule=schedule,
         seeds=[tr.seed for tr in trials], eta_local=eta_local,
         weight_decay=weight_decay, uses_update_clock=uses_update_clock,
         cohort_capacity=cohort_capacity,
         labels=[tr.label or f"seed{tr.seed}" for tr in trials],
-        params=params, mesh=mesh, device=device)
-    parts = [tr.participation for tr in trials]
+        params=params, mesh=mesh, device=device,
+        scenarios=[tr.scenario for tr in trials] if n_scen else None)
+    parts = None if n_scen else [tr.participation for tr in trials]
     if engine != "loop":
         ok, why = fleet_scan_supported(runner)
         if ok:
@@ -568,8 +676,11 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
                              f"({why}); falling back to the per-round loop")
     t0 = time.time()
     for t in range(n_rounds):
-        runner.step(t, np.stack([np.asarray(p.sample(t), bool)
-                                 for p in parts]))
+        if n_scen:
+            runner.step_scenario(t)
+        else:
+            runner.step(t, np.stack([np.asarray(p.sample(t), bool)
+                                     for p in parts]))
         if eval_fn is not None and (t % eval_every == 0 or t == n_rounds - 1):
             runner.evaluate(t, eval_fn)
     runner.hist.wall_time = time.time() - t0

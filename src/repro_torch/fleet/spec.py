@@ -1,13 +1,10 @@
 """FleetSpec — declarative sweep grids expanded into batched trial lists.
 
 Counterpart of `repro/fleet/spec.py`. A *trial* is one independent FL run:
-(seed, participation process, label). A *FleetSpec* is a group of trials
-that share one algorithm configuration and run together as one fleet
-(`fleet.run_fleet`); `expand_grid` builds the cross product seeds ×
+(seed, participation process or scenario, label). A *FleetSpec* is a group
+of trials that share one algorithm configuration and run together as one
+fleet (`fleet.run_fleet`); `expand_grid` builds the cross product seeds ×
 availability points per algorithm.
-
-Scenario trials (`Trial(scenario=)`, `expand_grid(make_scenario=)`) are not
-ported yet (ROADMAP Queue 1 item 13) and raise.
 """
 from __future__ import annotations
 
@@ -18,15 +15,20 @@ from typing import Any, Callable, Sequence
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item}); the port's fleet runs "
-                               "participation trials on the loop and scan "
-                               "engines")
+                               "participation and scenario trials on the "
+                               "loop and scan engines")
 
 
 @dataclass(frozen=True)
 class Trial:
     """One independent FL run inside a fleet group: its `seed` keys model
-    init and the round generator; `participation` draws its (N,) masks on
-    the host (``.sample(t) -> (N,) bool``)."""
+    init and the round generator. Availability comes from exactly one of
+    `participation` (draws its (N,) masks on the host, ``.sample(t) ->
+    (N,) bool``) and `scenario` (a `repro_torch.scenarios` Scenario or
+    process: a dense fleet samples it inside the round on the device, a
+    cohort fleet takes its host surface). The trials of one group share
+    the scenario type; their parameters and chain states stack along the
+    trial axis."""
 
     seed: int
     participation: Any = None
@@ -34,10 +36,9 @@ class Trial:
     label: str = ""
 
     def __post_init__(self):
-        if self.scenario is not None:
-            raise _not_ported("Trial(scenario=)", "13")
-        if self.participation is None:
-            raise ValueError("Trial needs participation=")
+        if (self.participation is None) == (self.scenario is None):
+            raise ValueError(
+                "Trial needs exactly one of participation= or scenario=")
 
 
 @dataclass
@@ -67,7 +68,7 @@ class FleetSpec:
 
     @property
     def participations(self) -> tuple:
-        """Per-trial participation processes."""
+        """Per-trial participation processes (None for scenario trials)."""
         return tuple(t.participation for t in self.trials)
 
     @property
@@ -92,19 +93,25 @@ def expand_grid(*, algos: dict[str, Any], seeds: Sequence[int],
     trials), or name -> callable taking the availability kwargs and
     returning an instance (one spec per grid point; for algorithms whose
     configuration depends on the point, e.g. FedAvgIS's probabilities).
-    make_participation: ``(seed=..., **avail_kwargs) -> host process``.
-    clock: algo names that use the update clock. cohort_capacity: pinned
-    cohort pad width for cohort algorithms. Labels read
+    make_participation: ``(seed=..., **avail_kwargs) -> host process``;
+    make_scenario: ``(seed=..., **avail_kwargs) -> scenario process``
+    (trials carry `Trial.scenario`; exactly one of the two). The scenario
+    type must not vary across one spec's grid points. clock: algo names
+    that use the update clock. cohort_capacity: pinned cohort pad width
+    for cohort algorithms. Labels read
     ``name/avail/seed<s>``, as the reference's.
     """
-    if make_scenario is not None:
-        raise _not_ported("expand_grid(make_scenario=)", "13")
-    if make_participation is None:
-        raise ValueError("pass make_participation=")
+    if (make_participation is None) == (make_scenario is None):
+        raise ValueError(
+            "pass exactly one of make_participation= or make_scenario=")
 
     def _trial(s: int, av: dict, name: str) -> Trial:
+        label = f"{name}/{_avail_tag(av)}/seed{s}"
+        if make_scenario is not None:
+            return Trial(seed=s, scenario=make_scenario(seed=s, **av),
+                         label=label)
         return Trial(seed=s, participation=make_participation(seed=s, **av),
-                     label=f"{name}/{_avail_tag(av)}/seed{s}")
+                     label=label)
 
     specs: list[FleetSpec] = []
     for name, algo in algos.items():

@@ -234,5 +234,17 @@ def test_run_fl_update_clock_matches_reference(monkeypatch):
 
 @pytest.mark.parametrize("cls", [FedAR, CAFed, FedBuffAvg])
 def test_other_algorithms_are_not_ported(cls):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cls()
+    """ROADMAP Queue 1 item 14 is ported: each algorithm builds and runs a
+    round (its parity tests are in `tests/test_torch_algorithms.py`); with
+    every client active FedAR and FedBuffAvg take the plain mean step, and
+    CAFed weights it by 1/π̂ with π̂ = 0.5 + 0.1·(1 − 0.5) after a round."""
+    algo = cls()
+    params = {"w": torch.zeros(3)}
+    upd = {"w": torch.arange(12, dtype=torch.float32).reshape(4, 3)}
+    state = algo.init_state(params, 4)
+    state, new, metrics = algo.round_step(
+        state, params, upd, torch.ones(4), torch.ones(4, dtype=torch.bool),
+        0.5)
+    assert int(state["t"]) == 1 and float(metrics["n_active"]) == 4
+    scale = 1.0 / 0.55 if cls is CAFed else 1.0
+    assert torch.allclose(new["w"], -0.5 * upd["w"].mean(0) * scale)

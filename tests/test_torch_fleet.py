@@ -12,7 +12,8 @@
       the paged fleet equals the dense fleet, and a round's writes, in
       place or not, land in the stacked state;
   (d) a paged fleet bank through evictions against the reference's;
-  (e) `expand_grid` and the surfaces that are not ported yet.
+  (e) `expand_grid` (participation and scenario trials) and the surfaces
+      that are not ported yet.
 
 Tolerances: copied values (bank rows, pages, masks, counters, page tables)
 must be equal; delta sums are summed in another order by the two
@@ -56,6 +57,7 @@ from repro_torch.kernels.paged_bank import (paged_bank_scatter_batched,
                                             paged_bank_scatter_ref)
 from repro_torch.models import build_model
 from repro_torch.optim import inv_t
+from repro_torch.scenarios import make_process, make_scenario
 from repro_torch.tree import tree_index, tree_leaves, tree_stack
 
 torch.set_num_threads(1)
@@ -471,11 +473,23 @@ def test_fleet_surfaces_not_ported_raise():
     cfg, batcher, probs, _ = _problem("paper_logistic")
     model = build_model(cfg)
     part = BernoulliParticipation(probs)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Trial(seed=0, scenario=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # scenario trials (ROADMAP Queue 1 item 13) are ported
+    n = batcher.n_clients
+    scen = make_scenario("gilbert_elliott", n=n, seed=2)
+    assert Trial(seed=0, scenario=scen).participation is None
+    with pytest.raises(ValueError, match="exactly one of"):
+        Trial(seed=0)
+    (spec,) = expand_grid(algos={"mifa": MIFA()}, seeds=(0, 1),
+                          make_scenario=lambda seed, burst: make_scenario(
+                              "gilbert_elliott", n=n, seed=seed,
+                              burst=burst),
+                          avail_grid=({"burst": 2.0},))
+    assert spec.labels == ["mifa/burst2.0/seed0", "mifa/burst2.0/seed1"]
+    assert spec.participations == (None, None)
+    with pytest.raises(ValueError, match="exactly one of"):
         expand_grid(algos={"mifa": MIFA()}, seeds=(0,),
-                    make_scenario=lambda seed: None)
+                    make_scenario=lambda seed: scen,
+                    make_participation=lambda seed: part)
     kw = dict(model=model, algo=MIFA(), batcher=batcher, n_rounds=1,
               schedule=inv_t(1.0), trials=[Trial(seed=0, participation=part)],
               device="cpu")
@@ -488,8 +502,18 @@ def test_fleet_surfaces_not_ported_raise():
         run_fleet(mesh=object(), **kw)
     runner = FleetRunner(model=model, algo=MIFA(), batcher=batcher,
                          schedule=inv_t(1.0), seeds=(0,), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="scenarios="):
         runner.step_scenario(0)
+    runner = FleetRunner(model=model, algo=MIFA(), batcher=batcher,
+                         schedule=inv_t(1.0), seeds=(0,), device="cpu",
+                         scenarios=[scen])
+    assert runner.step_scenario(0)["loss"].shape == (1,)
+    windowed = make_process("bernoulli", n=n)
+    windowed.scan_window = 4
+    with pytest.raises(NotImplementedError, match="item 17"):
+        FleetRunner(model=model, algo=MIFA(), batcher=batcher,
+                    schedule=inv_t(1.0), seeds=(0,), device="cpu",
+                    scenarios=[windowed])
     with pytest.raises(NotImplementedError, match="item 16"):
         run_sim_fleet()
     with pytest.raises(NotImplementedError, match="item 16"):

@@ -22,6 +22,7 @@ from repro_torch.fleet import (FleetRunner, Trial, make_fleet_eval,
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import constant
+from repro_torch.scenarios import make_scenario
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -56,7 +57,8 @@ def test_isolation_walk_sees_the_whole_port():
             "transformer", "layers", "model", "convert", "serve",
             "zamba2_7b", "mamba2_1_3b", "granite_3_8b", "profile_serve",
             "scan_engine", "quantized_memory", "int8_paged",
-            "participation"} <= mods
+            "participation", "_threefry", "processes", "registry",
+            "algorithms"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -113,21 +115,24 @@ def test_cpu_run_takes_the_plain_path():
 
 
 # items of this table that have since been ported: their option now runs
-PORTED_ITEMS = {"12"}
+PORTED_ITEMS = {"12", "13"}
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"scenario": object()}, "13"), ({"sim": object()}, "16"),
-    ({"checkpoint": object()}, "17"), ({"mesh": object()}, "19"),
-    ({"engine": "scan"}, "12")])
+    ({"scenario": make_scenario("gilbert_elliott", n=4)}, "13"),
+    ({"sim": object()}, "16"), ({"checkpoint": object()}, "17"),
+    ({"mesh": object()}, "19"), ({"engine": "scan"}, "12")])
 def test_unported_run_options_raise(kw, item):
     cfg = get_smoke_config("paper_logistic")
+    # a scenario takes the place of the participation process
+    avail = ({} if "scenario" in kw else {"participation":
+                                          BernoulliParticipation(
+                                              np.full(4, 0.5))})
 
     def run():
         return run_fl(model=build_model(cfg), algo=MIFA(),
                       batcher=_tiny(cfg), schedule=constant(0.1), n_rounds=1,
-                      participation=BernoulliParticipation(np.full(4, 0.5)),
-                      device="cpu", **kw)
+                      device="cpu", **avail, **kw)
 
     if item in PORTED_ITEMS:
         assert len(run()[1].train_loss) == 1

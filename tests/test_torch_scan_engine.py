@@ -12,7 +12,9 @@ reference's.
   (`tests/test_torch_run_fl.py`: rtol 1e-4, atol 1e-6), masks and τ equal.
 * Fallbacks (update-clock schedules, host banks) warn and loop under
   "scan" and raise under "scan_strict".
-* Scenario-mode scan comes with ROADMAP Queue 1 item 13 and raises.
+* Scenario-mode scan runs (its parity tests are in
+  `tests/test_torch_scenarios.py`); a windowed process (trace replay,
+  ROADMAP Queue 1 item 17) raises.
 
 The `cuda` cases replay the captured round on the card and skip here;
 the module imports JAX only inside the reference test, so on the card
@@ -37,6 +39,7 @@ from repro_torch.data import (ClientBatcher, label_skew_partition,
 from repro_torch.fleet import Trial, run_fleet
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.models import build_model
+from repro_torch.scenarios import make_process, make_scenario
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -209,8 +212,15 @@ def test_unknown_engine_and_scenario_scan_rejected():
     with pytest.raises(ValueError, match="unknown engine"):
         run_fl(algo=MIFA(), engine="turbo",
                participation=TraceParticipation(_trace()), **_kw())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_fl(algo=MIFA(), engine="scan", scenario=object(), **_kw())
+    # scenario mode (ROADMAP Queue 1 item 13) is ported: the scan runs it,
+    # bit-equal to the loop; a windowed process (item 17) still raises
+    scen = make_scenario("gilbert_elliott", n=N, seed=1)
+    _assert_same(run_fl(algo=MIFA(), engine="loop", scenario=scen, **_kw()),
+                 run_fl(algo=MIFA(), engine="scan", scenario=scen, **_kw()))
+    windowed = make_process("bernoulli", n=N)
+    windowed.scan_window = 4
+    with pytest.raises(NotImplementedError, match="item 17"):
+        run_fl(algo=MIFA(), engine="scan", scenario=windowed, **_kw())
     with pytest.raises(ValueError, match="scan_chunk"):
         run_fl(algo=MIFA(), engine="scan", scan_chunk=0,
                participation=TraceParticipation(_trace()), **_kw())
@@ -424,3 +434,47 @@ def test_cuda_scan_replays_bitexact_vs_loop(cuda_device, name):
     scan_counts = {k: v - before[k] for k, v in _counts().items()}
     _assert_same(loop, scan)
     assert scan_counts == {k: v + v // T for k, v in loop_counts.items()}
+
+
+# scenario mode on the card: the device surface and the captured round
+
+SCEN_CASES = {
+    "mifa_array-gilbert_elliott": (lambda d: MIFA(), "gilbert_elliott",
+                                   {"burst": 8.0}),
+    "mifa_int8-cluster": (lambda d: MIFA(memory="int8"), "cluster",
+                          {"n_clusters": 2}),
+    "fedavg_sampling-staged_blackout": (lambda d: FedAvgSampling(s=3),
+                                        "staged_blackout", {"stage_len": 3}),
+    "banked_dense-gilbert_elliott": (lambda d: BankedMIFA(DenseBank(
+        device=d)), "gilbert_elliott", {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adversarial", "bernoulli",
+                                  "bernoulli_drift", "cluster", "diurnal",
+                                  "gilbert_elliott", "staged_blackout"])
+def test_cuda_device_surface_equals_cpu(cuda_device, name):
+    proc = make_process(name, n=1000, seed=3)
+    fn = proc.sample_fn()
+    state, key = proc.init_state(cuda_device), proc.key.to(cuda_device)
+    host = proc.host_sampler()
+    for t in range(64):
+        mask, state = fn(key, torch.tensor(t, device=cuda_device), state)
+        np.testing.assert_array_equal(mask.cpu().numpy(), host.sample(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCEN_CASES))
+def test_cuda_scenario_scan_bitexact_vs_loop(cuda_device, case):
+    """On the card the scan replays the captured scenario round: bit-equal
+    to the card's loop, with the CPU's masks."""
+    make, scen, kw = SCEN_CASES[case]
+    loop, scan = (run_fl(algo=make(cuda_device), engine=engine,
+                         scenario=make_scenario(scen, n=N, seed=2, **kw),
+                         **_kw(device=cuda_device))
+                  for engine in ("loop", "scan_strict"))
+    _assert_same(loop, scan)
+    cpu = run_fl(algo=make("cpu"), scenario=make_scenario(
+        scen, n=N, seed=2, **kw), **_kw())
+    assert cpu[1].n_active == loop[1].n_active
