@@ -96,7 +96,29 @@ Run from the root of a checkout on a machine with a CUDA card. It
      engines for 50 rounds, bit-equal (150 `mifa_aggregate` launches on
      the loop), and a 3-trial cohort fleet under cluster outages for 30
      rounds (30 `bank_scatter_batched`); FedAR and CAFed card vs CPU;
- 13. holds the model zoo's kernels against their plain versions on the card:
+ 13. drives the runtime simulator (`repro_torch.sim`) on the paper problem
+     under the registry's cluster outages, the tiered latency fleet
+     (`tiered_shifted_exponential(100, seed=0)`) and
+     `benchmarks/time_to_accuracy.py`'s clock (epochs of 4 s, 0.05 s
+     server overhead, 64 epochs of lookahead): MIFA(array) for 50 rounds
+     under each of the five policies (WaitForAll, WaitForS S=10, Deadline
+     3 s, Impatient, BufferedKofN K=10) on the heap engine and on the
+     compiled engine (each round replays of the epoch-fill graph as often
+     as the clock asks, then the round graph), held bit-equal (close
+     times, counters, applied masks, τ; cohorts those of the host draws;
+     losses and params as the scan is held); 50 / 51 `mifa_aggregate`
+     launches; FedBuffAvg under BufferedKofN through `run_fl(sim=)` on
+     both engines; BankedMIFA(DenseBank), (PagedDeviceBank(8)) and
+     (HostBank, rows pinned) on the heap engine under Impatient (50
+     `bank_scatter`, 50 `paged_bank_scatter`, paged bit-equal to dense,
+     host within 1e-5); one cohort round of BankedMIFA(HostBank) at N =
+     10⁴ (2.03 GB of pinned rows); a K=3 simulated fleet (WaitForAll,
+     Impatient, BufferedKofN) each lane against its single compiled run
+     (153 `mifa_aggregate`); 5 heap rounds card vs CPU; Impatient's
+     simulated seconds below WaitForAll's (the paper's claim); prints ms
+     a simulated round on both engines, the sync a round and the
+     simulated seconds per policy;
+ 14. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
      H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
      non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
@@ -104,14 +126,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      96, an odd S (Q=1) and zamba2's largest |dA|; times both per call at
      the served shapes beside their bounds and,
      for attention, one `scaled_dot_product_attention` call;
- 14. serves zamba2-7b at full width and depth (81 layers, bf16, random
+ 15. serves zamba2-7b at full width and depth (81 layers, bf16, random
      params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
      greedy tokens; every prefill attention call and SSD scan must launch
      the kernels (13 and 68), decode none, no other kernel; then
      mamba2-1.3b (48 scans) and granite-3-8b cut to 4 layers (4 attention
      calls, GQA g=4), printing prefill and decode times, tok/s and the
      peak device allocation;
- 15. runs zamba2-7b at full width in f32, its first 6 layers, on the card
+ 16. runs zamba2-7b at full width in f32, its first 6 layers, on the card
      and on the CPU (prefill logits, every cache leaf, two decode steps),
      and its first 12 layers as 2048 prompt tokens plus 128 teacher-forced
      decode steps against one prefill of 2176 tokens.
@@ -1090,6 +1112,8 @@ def eviction_phase(params0) -> tuple[dict, list]:
     check(all(torch.equal(a, b) for a, b in zip(
         tree_leaves(p_state["g_sum"]), tree_leaves(d_state["g_sum"]))),
           "eviction phase: paged G_sum differs from DenseBank's")
+    check(spill_pinned(paged), "eviction phase: a spill block is not in "
+                               "pinned memory")
     mem = paged.memory_bytes(p_state)
     return counts, [
         f"eviction: N={n}, page_size={PAGE_SIZE}, {paged.lp} logical pages, "
@@ -1098,8 +1122,14 @@ def eviction_phase(params0) -> tuple[dict, list]:
         f"{paged.evictions}, re-faults {paged.refaults}, spilled pages "
         f"{paged.evictions - paged.refaults} ({mem['host']} B on the host); "
         f"all {n} rows "
-        f"and G_sum bit-equal to DenseBank, invariants hold; launches "
-        f"{counts}"]
+        f"and G_sum bit-equal to DenseBank, invariants hold, every spill "
+        f"block pinned; launches {counts}"]
+
+
+def spill_pinned(bank) -> bool:
+    """Every block of a paged bank's spill store is in pinned memory."""
+    return all(b.is_pinned() for blocks in bank._spill.values()
+               for b in blocks)
 
 
 def million_runner(model, params0):
@@ -1174,6 +1204,8 @@ def million_phase(params0, model) -> tuple[dict, list]:
               f"{err.max().item():.3e}")
         g_err = max(g_err, err.max().item())
     bank.check_invariants(state)
+    check(spill_pinned(bank), "million-client: a spill block is not in "
+                              "pinned memory")
     counts = read_counts()
     check(counts["paged_bank_gather"] == 1,
           f"million-client gather of the written rows: "
@@ -1189,7 +1221,7 @@ def million_phase(params0, model) -> tuple[dict, list]:
         f"million clients: memory_bytes {mem} (device_pages "
         f"{mem['device_pages']} B), peak device allocation "
         f"{peak} B (torch.cuda.max_memory_allocated), host spill "
-        f"{mem['host']} B; faults {bank.faults}, evictions "
+        f"{mem['host']} B (pinned); faults {bank.faults}, evictions "
         f"{bank.evictions}, re-faults {bank.refaults}; a DenseBank for this "
         f"run would hold (N+1)*d*4 = {(n + 1) * d * 4} B = "
         f"{(n + 1) * d * 4 / 1e9:.1f} GB",
@@ -2304,10 +2336,14 @@ def scen_run_row(what, n_rounds, dts, hist, counts, scan=None) -> str:
             f"{nonzero(counts)}")
 
 
-def scen_expect(what, counts, kernel, n) -> None:
+def expect_launches(what, counts, kernel, n) -> None:
+    """`kernel` launched n times and no other kernel."""
     want = {k: n if k == kernel else 0 for k in counts}
-    check(counts == want, f"scenario {what}: launches {counts}, expected "
-                          f"{want}")
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+
+def scen_expect(what, counts, kernel, n) -> None:
+    expect_launches(f"scenario {what}", counts, kernel, n)
 
 
 def scen_masks_match_host(what, hist, scen, n_rounds) -> None:
@@ -2523,6 +2559,355 @@ def scenario_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
                      params0, scen_ge(), rows)
     lap("card vs CPU")
     rows.append(f"scenario phase: {sum(laps.values()):.1f} s ("
+                + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items())
+                + ")")
+    return launches, rows
+
+
+# --------------------------------------------------------------------------- #
+# the runtime simulator: the heap engine, the compiled engine, fleets
+# --------------------------------------------------------------------------- #
+
+# benchmarks/time_to_accuracy.py's simulated clock (its SimConfig, :259)
+# over the registry's cluster outages and the tiered latency fleet
+SIM_CONFIG = {"epoch_s": 4.0, "server_overhead_s": 0.05,
+              "max_lookahead_epochs": 64}
+SIM_FLEET_ROUNDS = 50
+# the host bank's timed cohort round: N clients of paper_mlp's d = 50,698
+# f32 parameters, 2,027,920,000 B of rows in pinned memory
+SIM_HOST_N, SIM_HOST_C = 10**4, 64
+
+
+def sim_policies() -> dict:
+    from repro_torch.sim import (BufferedKofN, Deadline, Impatient,
+                                 WaitForAll, WaitForS)
+    return {"wait_for_all": WaitForAll(), "wait_for_s": WaitForS(s=10),
+            "deadline": Deadline(deadline_s=3.0), "impatient": Impatient(),
+            "buffered": BufferedKofN(k=10)}
+
+
+def sim_spec(policy, device="cuda"):
+    from repro_torch.sim import SimConfig, SimSpec, tiered_shifted_exponential
+    return SimSpec(policy, tiered_shifted_exponential(N_CLIENTS, seed=0,
+                                                      device=device),
+                   SimConfig(**SIM_CONFIG))
+
+
+def sim_run(algo, policy, problem, params0, n_rounds, engine,
+            device="cuda"):
+    """One simulated run of the paper problem under cluster outages:
+    engine "heap" (`FedSimEngine`) or "compiled" (`SimScanDriver`, chunks
+    of SCAN_CHUNK, masks emitted). Returns (engine or driver, runner, host
+    seconds between consecutive batch draws)."""
+    from repro_torch.core import RoundRunner
+    from repro_torch.optim import inv_t
+    from repro_torch.sim import FedSimEngine, SimScanDriver
+    model, batcher, _, _ = problem
+    timed = TimedBatcher(batcher)
+    r = RoundRunner(model=model, algo=algo, batcher=timed,
+                    schedule=inv_t(1.0), weight_decay=1e-3,
+                    params=clone_tree(params0, device),
+                    scenario=scen_cluster(), device=device)
+    sim = sim_spec(policy, device)
+    if engine == "heap":
+        drv = FedSimEngine(r, policy, r.scen_process.host_sampler(),
+                           sim.latency, sim.config)
+    else:
+        drv = SimScanDriver(r, sim, scan_chunk=SCAN_CHUNK, emit_masks=True)
+    drv.run(n_rounds)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return drv, r, np.diff(timed.stamps)
+
+
+def sim_equal(what, policy, heap, comp) -> str:
+    """A compiled run against its heap run: close and open times, the
+    counters, applied masks, τ bit-equal, the cohorts the policy's host
+    draws; losses and params by `scan_equal`."""
+    (eng, rh, _), (drv, rc, _) = heap, comp
+    keys = ("t_open", "t_close", "n_dispatched", "n_applied", "n_late",
+            "n_never")
+    for a, b in zip(eng.round_log, drv.round_log):
+        check(all(a[k] == b[k] for k in keys),
+              f"sim {what}: round {a['round']} heap {a} compiled {b}")
+    check(len(eng.round_log) == len(drv.round_log) == ROUNDS,
+          f"sim {what}: {len(drv.round_log)} rounds")
+    check(np.array_equal(np.stack(eng.applied_log),
+                         np.stack(drv.applied_log)),
+          f"sim {what}: applied masks differ")
+    if not getattr(policy, "stateful", False):
+        check(all(np.array_equal(c, policy.select(t, N_CLIENTS, None))
+                  for t, c in enumerate(drv.cohort_log)),
+              f"sim {what}: compiled cohorts differ from the host draws")
+    check(rh.hist.sim_seconds == rc.hist.sim_seconds,
+          f"sim {what}: close times differ")
+    check(np.array_equal(rh.stats.tau, rc.stats.tau)
+          and (rh.stats.tau_bar, rh.stats.tau_max, rh.stats.d_bar)
+          == (rc.stats.tau_bar, rc.stats.tau_max, rc.stats.d_bar),
+          f"sim {what}: tau statistics differ")
+    return scan_equal(f"sim {what}", (rh.params, rh.hist),
+                      (rc.params, rc.hist)).replace("the loop", "the heap")
+
+
+def sim_host_round() -> str:
+    """One cohort round of BankedMIFA(HostBank) at N = SIM_HOST_N clients
+    of paper_mlp (`ProceduralBatcher`, SIM_HOST_C ids), timed after one
+    warm-up round: rows in pinned memory, G_sum against the rows."""
+    from repro_torch.bank import BankedMIFA, HostBank
+    from repro_torch.core import RoundRunner
+    from repro_torch.data import ProceduralBatcher
+    from repro_torch.models import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_leaves
+    model = build_model(get_config("paper_mlp").replace(
+        fl_clients=SIM_HOST_N))
+    bank = HostBank(device="cuda")
+    t0 = time.perf_counter()
+    runner = RoundRunner(
+        model=model, algo=BankedMIFA(bank), batcher=ProceduralBatcher(
+            n_clients=SIM_HOST_N, dim=256, n_classes=10, batch_size=100,
+            k_steps=5), schedule=inv_t(0.1), weight_decay=1e-3,
+        params=model.init(0, device="cuda"), device="cuda")
+    init_s = time.perf_counter() - t0
+    state = runner.state["bank"]
+    check(all(t.is_pinned() for t in tree_leaves(state)),
+          "host bank: rows not in pinned memory")
+    rng = np.random.default_rng(1)
+    dts = []
+    for t in range(2):
+        ids = np.unique(rng.integers(0, SIM_HOST_N, 2 * SIM_HOST_C))[
+            :SIM_HOST_C]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.step_cohort(t, ids)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    mem = bank.memory_bytes(state)
+    rows_b = sum(t.numel() * 4 for t in tree_leaves(state["rows"]))
+    check(mem["device"] == 0 and rows_b == SIM_HOST_N * sum(PATH_WIDTHS) * 4,
+          f"host bank: memory_bytes {mem}")
+    for g, r in zip(tree_leaves(state["g_sum"]), tree_leaves(state["rows"])):
+        err = (g.double() - r.double().sum(0)).abs().max().item()
+        check(err <= 1e-5 * max(r.double().abs().sum(0).max().item(), 1.0),
+              f"host bank: G_sum off the sum of rows by {err:.3e}")
+    return (f"sim host bank: BankedMIFA(HostBank) at N={SIM_HOST_N}, "
+            f"{rows_b} B of rows in pinned memory (init {init_s:.2f} s), "
+            f"one cohort round of C={SIM_HOST_C} {dts[1] * 1e3:.3f} ms "
+            f"(host clock to a sync, after a warm-up round of "
+            f"{dts[0] * 1e3:.3f} ms), memory_bytes {mem}")
+
+
+def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
+    """The simulator on the card (module docstring, step 13). Returns
+    (launches of each kernel on the simulator's heap runs, report
+    rows)."""
+    from repro_torch.bank import (BankedMIFA, DenseBank, HostBank,
+                                  PagedDeviceBank)
+    from repro_torch.core import MIFA, FedBuffAvg, run_fl
+    from repro_torch.fleet import SimTrial, run_sim_fleet
+    from repro_torch.optim import inv_t
+    from repro_torch.sim import SimConfig
+    from repro_torch.tree import tree_leaves
+    laps, mark = {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = laps.get(what, 0.0) + now - mark[0]
+        mark[0] = now
+
+    rows, launches, seconds, ms, comp_runs = [], {}, {}, {}, {}
+    sync_us, fills = [], {}
+    for name, policy in sim_policies().items():
+        runs, counts = {}, {}
+        for engine in ("heap", "compiled"):
+            reset_counts()
+            runs[engine] = sim_run(MIFA(), policy, problem, params0, ROUNDS,
+                                   engine)
+            counts[engine] = read_counts()
+            expect_launches(f"sim MIFA(array) {name} {engine}",
+                            counts[engine], "mifa_aggregate",
+                            ROUNDS + (engine == "compiled"))
+        if name == "impatient":
+            launches["mifa_aggregate"] = counts["heap"]["mifa_aggregate"]
+        drv = runs["compiled"][0]
+        ch = drv.chunks
+        check(ch.replays == {"fill": ch.fills, "body": ROUNDS}
+              and ch.syncs == ROUNDS,
+              f"sim {name}: replays {ch.replays}, fills {ch.fills}, syncs "
+              f"{ch.syncs}")
+        fills[name] = ch.fills
+        sync_us.append(ch.sync_s / ch.syncs * 1e6)
+        verdict = sim_equal(f"MIFA(array) {name}", policy, runs["heap"],
+                            runs["compiled"])
+        hist = runs["heap"][1].hist
+        seconds[name] = hist.sim_seconds[-1]
+        ms[name] = (float(np.median(runs["heap"][2][10:])) * 1e3,
+                    scan_ms(runs["compiled"][2]))
+        comp_runs[name] = runs["compiled"][1]
+        rows.append(
+            f"sim MIFA(array) {name}: {ROUNDS} rounds, {seconds[name]:.3f} "
+            f"simulated s, mean applied {np.mean(hist.n_active):.2f}, heap "
+            f"{ms[name][0]:.3f} ms/round (median, rounds 10-{ROUNDS - 2}), "
+            f"compiled {ms[name][1]:.3f} ms/round (rounds {SCAN_CHUNK}-"
+            f"{ROUNDS - SCAN_CHUNK - 1}), host clock; {ch.fills} epoch fills "
+            f"(graph (a) replays), {ch.syncs} k0 reads, "
+            f"{ch.sync_s / ch.syncs * 1e6:.1f} us each; compiled {verdict}; "
+            f"mifa_aggregate heap {counts['heap']['mifa_aggregate']}, "
+            f"compiled {counts['compiled']['mifa_aggregate']}")
+    lap("policy runs")
+    check(seconds["impatient"] < seconds["wait_for_all"],
+          f"the paper's claim: Impatient took {seconds['impatient']} "
+          f"simulated s, WaitForAll {seconds['wait_for_all']}")
+
+    # FedBuffAvg under BufferedKofN through run_fl, both engines: the
+    # staleness weights are the active mask (no kernel)
+    model, batcher, _, _ = problem
+    buf = {}
+    for engine in ("loop", "scan_strict"):
+        reset_counts()
+        buf[engine] = run_fl(model=model, algo=FedBuffAvg(), batcher=batcher,
+                             schedule=inv_t(1.0), n_rounds=ROUNDS,
+                             weight_decay=1e-3, scenario=scen_cluster(),
+                             sim=sim_spec(sim_policies()["buffered"]),
+                             params=clone_tree(params0, "cuda"),
+                             engine=engine, scan_chunk=SCAN_CHUNK,
+                             device="cuda")
+        check(not any(read_counts().values()),
+              f"sim FedBuffAvg {engine}: launches {nonzero(read_counts())}")
+    check(buf["loop"][1].sim_seconds == buf["scan_strict"][1].sim_seconds
+          and buf["loop"][1].n_active == buf["scan_strict"][1].n_active,
+          "sim FedBuffAvg: close times or masks differ")
+    rows.append(f"sim FedBuffAvg buffered K=10 via run_fl(sim=): "
+                f"{buf['loop'][1].sim_seconds[-1]:.3f} simulated s, compiled "
+                + scan_equal("sim FedBuffAvg", buf["loop"],
+                             buf["scan_strict"]).replace("the loop",
+                                                         "the heap"))
+    lap("FedBuffAvg")
+
+    # the cohort banks on the heap engine under Impatient
+    banks = {}
+    for name, make, kernel in (
+            ("DenseBank", lambda: DenseBank(device="cuda"), "bank_scatter"),
+            ("PagedDeviceBank", lambda: PagedDeviceBank(
+                page_size=PAGE_SIZE, device="cuda"), "paged_bank_scatter"),
+            ("HostBank", lambda: HostBank(device="cuda"), None)):
+        reset_counts()
+        algo = BankedMIFA(make())
+        banks[name] = sim_run(algo, sim_policies()["impatient"], problem,
+                              params0, ROUNDS, "heap")
+        counts = read_counts()
+        if kernel is None:
+            check(not any(counts.values()),
+                  f"sim BankedMIFA(HostBank): launches {nonzero(counts)}")
+            check(all(t.is_pinned() for t in tree_leaves(
+                banks[name][1].state["bank"])),
+                  "sim BankedMIFA(HostBank): rows not pinned")
+        else:
+            expect_launches(f"sim BankedMIFA({name})", counts, kernel,
+                            ROUNDS)
+            launches[kernel] = counts[kernel]
+        check(banks[name][1].hist.sim_seconds
+              == comp_runs["impatient"].hist.sim_seconds,
+              f"sim BankedMIFA({name}): close times differ from MIFA(array)'s")
+        rows.append(f"sim BankedMIFA({name}) impatient, heap: {ROUNDS} "
+                    f"rounds, {np.median(banks[name][2][10:]) * 1e3:.3f} "
+                    f"ms/round (median, host clock); launches "
+                    f"{nonzero(counts)}")
+    dense = (banks["DenseBank"][1].params, banks["DenseBank"][1].hist)
+    d_loss, d_param = run_gaps(dense, (banks["PagedDeviceBank"][1].params,
+                                       banks["PagedDeviceBank"][1].hist))
+    check(d_loss == 0 and d_param == 0,
+          f"sim: the paged bank off the dense one by {d_loss:.3e}, "
+          f"{d_param:.3e}")
+    h_loss, h_param = run_gaps(dense, (banks["HostBank"][1].params,
+                                       banks["HostBank"][1].hist))
+    p_scale = max(p.abs().max().item() for p in tree_leaves(dense[0]))
+    l_scale = float(np.max(np.abs(dense[1].train_loss)))
+    check(h_loss <= 1e-5 * l_scale and h_param <= 1e-5 * p_scale,
+          f"sim: the host bank off the dense one by {h_loss:.3e}, "
+          f"{h_param:.3e}")
+    rows.append(f"sim banks: PagedDeviceBank bit-equal to DenseBank; "
+                f"HostBank |dloss| {h_loss:.3e}, |dparam| {h_param:.3e} "
+                f"(bound 1e-5 of {l_scale:.3e}, {p_scale:.3e})")
+    rows.append(sim_host_round())
+    lap("banks")
+
+    # a K=3 simulated fleet of mixed policies, every lane seed 0 from
+    # params0 (model.init(0)), against the single compiled runs
+    lanes = ("wait_for_all", "impatient", "buffered")
+    reset_counts()
+    t0 = time.perf_counter()
+    fparams, fhist = run_sim_fleet(
+        model=model, algo=MIFA(), batcher=batcher, schedule=inv_t(1.0),
+        n_rounds=SIM_FLEET_ROUNDS, weight_decay=1e-3,
+        trials=[SimTrial(seed=0, policy=sim_policies()[k],
+                         scenario=scen_cluster(),
+                         latency=sim_spec(None).latency) for k in lanes],
+        config=SimConfig(**SIM_CONFIG), scan_chunk=SCAN_CHUNK,
+        device="cuda")
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    counts = read_counts()
+    expect_launches("sim fleet", counts, "mifa_aggregate",
+                    len(lanes) * (SIM_FLEET_ROUNDS + 1))
+    fch = fhist.sim
+    check(fch.replays == {"fill": fch.fills, "body": SIM_FLEET_ROUNDS},
+          f"sim fleet: replays {fch.replays}, fills {fch.fills}")
+    gaps = []
+    for k, name in enumerate(lanes):
+        one, lane = comp_runs[name].hist, fhist.trial(k)
+        check(lane.sim_seconds == one.sim_seconds[:SIM_FLEET_ROUNDS]
+              and lane.n_active == one.n_active[:SIM_FLEET_ROUNDS],
+              f"sim fleet lane {name}: clock or masks differ from the "
+              f"single compiled run")
+        gap = float(np.max(np.abs(np.subtract(
+            lane.train_loss, one.train_loss[:SIM_FLEET_ROUNDS]))))
+        check(gap <= SCAN_RTOL * float(np.max(np.abs(one.train_loss))),
+              f"sim fleet lane {name}: losses off by {gap:.3e}")
+        gaps.append(gap)
+    rows.append(f"sim fleet K={len(lanes)} ({', '.join(lanes)}): "
+                f"{SIM_FLEET_ROUNDS} rounds in {fleet_s:.2f} s "
+                f"({fleet_s / SIM_FLEET_ROUNDS * 1e3:.3f} ms/round, host "
+                f"clock, capture included), {fch.fills} fills, "
+                f"{fch.sync_s / fch.syncs * 1e6:.1f} us a k0 read; every "
+                f"lane's clock and masks bit-equal to its single compiled "
+                f"run, |dloss| {['%.2e' % g for g in gaps]}; "
+                f"mifa_aggregate {counts['mifa_aggregate']}")
+    lap("fleet")
+
+    # card against CPU: CPU_ROUNDS heap rounds under Impatient
+    gpu = sim_run(MIFA(), sim_policies()["impatient"], problem, params0,
+                  CPU_ROUNDS, "heap")
+    cpu = sim_run(MIFA(), sim_policies()["impatient"], problem_cpu, params0,
+                  CPU_ROUNDS, "heap", device="cpu")
+    check(gpu[1].hist.n_active == cpu[1].hist.n_active
+          and np.array_equal(np.stack(gpu[0].applied_log),
+                             np.stack(cpu[0].applied_log)),
+          "sim card vs CPU: masks differ")
+    rel = float(np.max(np.abs(np.subtract(gpu[1].hist.sim_seconds,
+                                          cpu[1].hist.sim_seconds))
+                       / np.abs(cpu[1].hist.sim_seconds).clip(1e-30)))
+    check(rel <= 1e-6, f"sim card vs CPU: close times off by rel {rel:.3e}")
+    check(np.allclose(gpu[1].hist.train_loss, cpu[1].hist.train_loss,
+                      rtol=DEVICE_RTOL, atol=DEVICE_ATOL),
+          "sim card vs CPU: losses differ")
+    dloss = float(np.max(np.abs(np.subtract(gpu[1].hist.train_loss,
+                                            cpu[1].hist.train_loss))))
+    rows.append(f"sim card vs CPU, heap, impatient: {CPU_ROUNDS} rounds, the "
+                f"same masks, close times max rel gap {rel:.2e} (bound "
+                f"1e-6), |dloss| {dloss:.2e} (rtol {DEVICE_RTOL})")
+    lap("card vs CPU")
+    rows.append("sim simulated seconds to " + str(ROUNDS) + " rounds: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    rows.append("sim ms a simulated round (host clock), heap / compiled: "
+                + ", ".join(f"{k} {a:.3f} / {b:.3f}"
+                            for k, (a, b) in ms.items()))
+    rows.append(f"sim sync a round (k0 read back before the fills): "
+                f"{np.mean(sync_us):.1f} us mean over the five compiled "
+                f"runs ({', '.join('%.1f' % u for u in sync_us)}); fills "
+                f"{fills}")
+    rows.append(f"sim phase: {sum(laps.values()):.1f} s ("
                 + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items())
                 + ")")
     return launches, rows
@@ -2993,6 +3378,10 @@ def main() -> int:
     scen_launches, rows = scenario_phase(params0, problem, problem_cpu)
     for row in rows:
         print(row)
+    # the runtime simulator: the heap and the compiled engine, fleets
+    sim_launches, rows = sim_phase(params0, problem, problem_cpu)
+    for row in rows:
+        print(row)
     # the loop after all the captures: the main path's MIFA(array) again,
     # bit-equal to its first run
     from repro_torch.core import MIFA
@@ -3062,6 +3451,15 @@ def main() -> int:
         "bank_scatter_batched": f"scenario cohort fleet BankedMIFA("
                                 f"DenseBank), K=3 cluster, "
                                 f"{SCEN_COHORT_ROUNDS} rounds (loop)"}
+    # the simulator's heap runs under Impatient, each counted from 0
+    sim_from = {
+        "mifa_aggregate": f"simulator MIFA(array) impatient, {ROUNDS} "
+                          "rounds (heap engine; compiled: 51, fleet K=3: "
+                          "153)",
+        "bank_scatter": f"simulator BankedMIFA(DenseBank) impatient, "
+                        f"{ROUNDS} rounds (heap engine)",
+        "paged_bank_scatter": f"simulator BankedMIFA(PagedDeviceBank) "
+                              f"impatient, {ROUNDS} rounds (heap engine)"}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
@@ -3088,6 +3486,9 @@ def main() -> int:
         if name in scen_launches:
             scan.update(scenario_launches=scen_launches[name],
                         scenario_launches_from=scen_from[name])
+        if name in sim_launches:
+            scan.update(sim_launches=sim_launches[name],
+                        sim_launches_from=sim_from[name])
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

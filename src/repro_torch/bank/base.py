@@ -10,11 +10,11 @@ and maintains the running sum  G_sum = Σ_i G^i  incrementally via the delta
 identity  G_sum += Σ_{a ∈ A} (u_a − G_old_a), so the server step's
 mean_G = G_sum / N is O(d). Counterpart of `repro/bank/base.py`; the ported
 backends are `DenseBank`, `PagedDeviceBank` (which pages rows on and off
-the card in `prepare`; f32, bf16 or int8 pages) and the host bank
-`Int8PagedBank`. The device banks run fleets: `scatter_fleet` and
-`gather_fleet` take states whose leaves carry a leading trial axis (K, ...).
-The host bank `HostBank` and `host_state` are not ported yet (ROADMAP
-Queue 1 items 9, 17).
+the card in `prepare`; f32, bf16 or int8 pages) and the host banks
+`HostBank` (f32 rows in pinned host memory) and `Int8PagedBank`. The
+device banks run fleets: `scatter_fleet` and `gather_fleet` take states
+whose leaves carry a leading trial axis (K, ...). `host_state` is not
+ported yet (ROADMAP Queue 1 item 17).
 
 Two ways in. `scatter(state, ids, updates, valid=, rng=)` takes host
 numpy ids, checks them and does any host work (paging). A round that runs

@@ -18,7 +18,9 @@ stamp, ties by page id) to a host spill store. Evicted pages leave the card
 in one `index_select` and one copy to the host per leaf; pages faulted back
 from the spill store go up in one `index_copy_` per leaf; pages never
 written are zeroed in place on the device (one `index_fill_` per leaf), so
-a slot never shows a former tenant's rows.
+a slot never shows a former tenant's rows. When the pages are on the card
+the spill store is pinned memory: evictions copy into pinned blocks and
+page-ins stage their pages in a pinned buffer, so both copies are DMA.
 
 Why paging never changes the numbers: a gather returns the same values
 whatever slot a row occupies, and the delta sum runs over the cohort axis,
@@ -40,7 +42,8 @@ State layout (tensors on the bank's device):
 
 Host bookkeeping: a numpy mirror of the page table, a slot → logical page
 map, the free list (popped 0, 1, 2, …), LRU stamps, and the spill store
-{logical page: per-leaf CPU tensors (page_size, *shape)}.
+{logical page: per-leaf host tensors (page_size, *shape), pinned on the
+card}.
 
 Fleets: a fleet state stacks K trials' states, so pages leaves are
 (K, R, *shape), g_sum (K, *shape) and the page table (K, P), K identical
@@ -262,9 +265,10 @@ class PagedDeviceBank(MemoryBank):
         # 2) evicted pages to the host: one gather and one copy per leaf
         if evict:
             rows = self._page_rows(s for _, s in evict)
-            host = [leaf.index_select(ax, rows).cpu() for leaf in leaves]
+            host = [self._to_host(leaf.index_select(ax, rows))
+                    for leaf in leaves]
             for k, (victim, _) in enumerate(evict):
-                self._spill[victim] = [h.narrow(ax, k * ps, ps).clone()
+                self._spill[victim] = [self._to_host(h.narrow(ax, k * ps, ps))
                                        for h in host]
 
         # 3) faulted pages in: spilled data goes up with one index_copy_
@@ -282,8 +286,14 @@ class PagedDeviceBank(MemoryBank):
         if back:
             rows = self._page_rows(s for _, s in back)
             for j, leaf in enumerate(leaves):
-                vals = torch.cat([spilled[lp][j] for lp, _ in back], dim=ax)
-                leaf.index_copy_(ax, rows, vals.to(self.device))
+                blocks = [spilled[lp][j] for lp, _ in back]
+                shape = list(blocks[0].shape)
+                shape[ax] = sum(b.shape[ax] for b in blocks)
+                vals = torch.empty(shape, dtype=blocks[0].dtype,
+                                   pin_memory=self._pinned)
+                torch.cat(blocks, dim=ax, out=vals)
+                leaf.index_copy_(ax, rows,
+                                 vals.to(self.device, non_blocking=True))
 
         # 4) the page table: the mirror, then the changed entries on device
         #    (in every trial's copy of a fleet's table)
@@ -295,6 +305,17 @@ class PagedDeviceBank(MemoryBank):
         state["page_table"][..., torch.from_numpy(changed).to(
             self.device)] = torch.from_numpy(self._pt[changed]).to(
                 self.device)
+
+    @property
+    def _pinned(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A copy of `t` in host memory, pinned when the pages are on the
+        card (the spill store's blocks and staging buffers)."""
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=self._pinned)
+        out.copy_(t)
+        return out
 
     # ------------------------------------------------------------------ #
     def _lids(self, ids: np.ndarray) -> np.ndarray:

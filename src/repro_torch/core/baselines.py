@@ -34,8 +34,7 @@ The competing memorisation / reweighting mechanisms of the related work:
                         round's `active` may be a float weight vector (the
                         staleness discounts of a buffered server policy) or
                         a bool mask, which makes it BiasedFedAvg. The
-                        simulator that feeds it weights comes with ROADMAP
-                        Queue 1 item 16.
+                        simulator (`repro_torch.sim`) feeds it weights.
   * FedAR             — local-update approximation + rectification: every
                         client's latest update is kept as its surrogate and
                         the surrogates are averaged with staleness-decayed,

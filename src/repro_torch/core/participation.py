@@ -2,8 +2,8 @@
 
 numpy only, array-equal to `repro/core/participation.py`:
 `label_correlated_probs`, `BernoulliParticipation`,
-`AdversarialParticipation`, `TraceParticipation`, `TauStats` and
-`tau_matrix`.
+`AdversarialParticipation`, `TraceParticipation`, `TauStats` (with its
+simulated-seconds timeline) and `tau_matrix`.
 
 All processes return the all-active mask at round 0 (paper Remark 5.2 /
 Definition 5.2(1): every device responds in the first round).
@@ -102,7 +102,9 @@ def _check_first_round(active: np.ndarray, strict: bool, what: str) -> None:
 
 @dataclass
 class TauStats:
-    """Streaming tracker of the paper's inactivity statistics."""
+    """Streaming tracker of the paper's inactivity statistics; with
+    `keep_history` or simulated-seconds stamps it also keeps the per-round
+    τ vectors (`timeline`)."""
 
     n: int
     strict: bool = True
@@ -113,9 +115,14 @@ class TauStats:
         self.sum_tau = 0.0                            # Σ_t Σ_i τ(t,i)
         self.sum_tau_sq = 0.0                         # Σ_t Σ_i τ(t,i)^2
         self.rounds = 0
+        self.history: list[np.ndarray] = []
+        self.times: list[float] = []      # simulated seconds, if stamped
 
-    def update(self, active: np.ndarray):
-        """Call once per round with the round's availability mask."""
+    def update(self, active: np.ndarray, keep_history: bool = False,
+               sim_time: float | None = None):
+        """Call once per round with the round's availability mask (after
+        the mask is applied: τ=0 for active devices). `sim_time` stamps the
+        round with simulated seconds (simulated runs)."""
         if self.rounds == 0:
             _check_first_round(np.asarray(active, bool), self.strict,
                                "TauStats.update")
@@ -124,6 +131,18 @@ class TauStats:
         self.sum_tau += float(self.tau.sum())
         self.sum_tau_sq += float((self.tau.astype(np.float64) ** 2).sum())
         self.rounds += 1
+        if keep_history or sim_time is not None:
+            # times stays aligned with history: NaN for unstamped rounds
+            self.times.append(np.nan if sim_time is None else float(sim_time))
+            self.history.append(self.tau.copy())
+
+    def timeline(self) -> tuple[np.ndarray, np.ndarray]:
+        """(times (R,), τ history (R, N)), row-aligned, from the `update`
+        calls with `sim_time` or `keep_history`; unstamped rounds carry
+        NaN in `times`."""
+        return (np.asarray(self.times, np.float64),
+                np.stack(self.history) if self.history
+                else np.zeros((0, self.n), np.int64))
 
     def absorb_scan(self, tau: np.ndarray, tau_max_per_dev: np.ndarray,
                     tau_sums: np.ndarray, tau_sq_sums: np.ndarray) -> None:

@@ -47,9 +47,15 @@ With `uses_update_clock` the schedules count applied global updates
 (`state["t_updates"]`, read on the host before each round) instead of
 rounds; the scan engine runs such schedules on the loop.
 
-Not ported yet: the runtime simulator (`sim=`, ROADMAP Queue 1 item 16),
-checkpoints (`checkpoint=`, item 17), windowed scenarios (trace replay,
-item 17) and meshes (`mesh=`, item 19).
+Simulated time (`run_fl(sim=)`, `repro_torch.sim`): the simulator decides
+when each round closes and whose updates arrived, and stamps every round
+(`sim_time=` on `step`, `step_scenario`, `step_cohort` and `evaluate`) in
+simulated seconds: `FLHistory.sim_seconds` and `eval_seconds`, and the
+`TauStats` timeline. A weight-aware algorithm (`FedBuffAvg`) takes the
+simulator's staleness weights in place of the bool mask.
+
+Not ported yet: checkpoints (`checkpoint=`, ROADMAP Queue 1 item 17),
+windowed scenarios (trace replay, item 17) and meshes (`mesh=`, item 19).
 """
 from __future__ import annotations
 
@@ -73,8 +79,8 @@ from repro_torch.tree import tree_map
 @dataclass
 class FLHistory:
     """Per-round history. `global_updates` is filled by algorithms that
-    report it (the sampling baselines). The reference's `sim_seconds` and
-    `eval_seconds` come with the simulator (ROADMAP Queue 1 item 16)."""
+    report it (the sampling baselines); `sim_seconds` (each round's close)
+    and `eval_seconds` ((round, seconds) per eval) by simulated runs."""
 
     rounds: list = field(default_factory=list)
     train_loss: list = field(default_factory=list)
@@ -82,6 +88,8 @@ class FLHistory:
     eval_acc: list = field(default_factory=list)
     n_active: list = field(default_factory=list)
     global_updates: list = field(default_factory=list)
+    sim_seconds: list = field(default_factory=list)
+    eval_seconds: list = field(default_factory=list)
     wall_time: float = 0.0
     tau_bar: float = 0.0
     tau_max: int = 0
@@ -90,21 +98,36 @@ class FLHistory:
         """Plain-dict view of every history field (JSON-serialisable)."""
         return {k: getattr(self, k) for k in
                 ("rounds", "train_loss", "eval_loss", "eval_acc", "n_active",
-                 "global_updates", "wall_time", "tau_bar", "tau_max")}
+                 "global_updates", "sim_seconds", "eval_seconds", "wall_time",
+                 "tau_bar", "tau_max")}
 
-    def record_round(self, t: int, metrics: dict) -> None:
+    def record_round(self, t: int, metrics: dict,
+                     sim_time: float | None = None) -> None:
         """Append round t's metrics dict (loss, n_active, optional
-        global_updates)."""
+        global_updates); `sim_time` stamps it with simulated seconds."""
         self.rounds.append(t)
         self.train_loss.append(float(metrics["loss"]))
         self.n_active.append(float(metrics["n_active"]))
         if "global_updates" in metrics:
             self.global_updates.append(float(metrics["global_updates"]))
+        if sim_time is not None:
+            self.sim_seconds.append(float(sim_time))
 
-    def record_eval(self, t: int, eval_loss: float, eval_acc: float) -> None:
-        """Append an (round, value) eval point."""
+    def record_eval(self, t: int, eval_loss: float, eval_acc: float,
+                    sim_time: float | None = None) -> None:
+        """Append an (round, value) eval point; `sim_time` also stamps it
+        on the simulated-seconds axis (`eval_seconds`)."""
         self.eval_loss.append((t, float(eval_loss)))
         self.eval_acc.append((t, float(eval_acc)))
+        if sim_time is not None:
+            self.eval_seconds.append((t, float(sim_time)))
+
+    def eval_curve(self) -> list[tuple[float, float, float]]:
+        """(sim_seconds, eval_loss, eval_acc) triples; a round without a
+        simulated stamp uses its round index as the time."""
+        times = dict(self.eval_seconds)
+        return [(times.get(t, float(t)), el, ea) for (t, el), (_, ea)
+                in zip(self.eval_loss, self.eval_acc)]
 
 
 def _pow2_bucket(c: int) -> int:
@@ -294,9 +317,14 @@ class RoundRunner:
         self.round_rng = round_rng_of(algo, self.rng, self.device_rng)
         self.scen_process = self._scen_sampler = None
         scen_fn = self._init_scenario(scenario)
+        # `body` takes the mask (or cohort) as an input, `scen_body` draws
+        # it from the scenario (dense algorithms under a scenario)
         self.body = make_round_body(model, algo, batcher.k_steps,
                                     weight_decay, cohort=self.cohort_mode,
-                                    rng=self.round_rng, scen_fn=scen_fn)
+                                    rng=self.round_rng)
+        self.scen_body = None if scen_fn is None else make_round_body(
+            model, algo, batcher.k_steps, weight_decay, cohort=False,
+            rng=self.round_rng, scen_fn=scen_fn)
 
     def _init_scenario(self, scenario):
         """Wire a scenario (or bare process) in; returns the sample
@@ -347,12 +375,15 @@ class RoundRunner:
         """The host side of dense round t: its numpy inputs for the body
         (the batch, the mask, both rates and any host draw). A scenario
         round (`active` None) carries the round index ``t`` (0-d int64)
-        instead of the mask, which the body draws."""
+        instead of the mask, which the body draws. A float `active` (the
+        simulator's staleness weights) stays f32."""
         x = {"batch": self.batcher.sample_round(t), **self._rates(t)}
         if active is None:
             x["t"] = np.asarray(t, np.int64)
         else:
-            x["active"] = np.asarray(active, bool)
+            active = np.asarray(active)
+            x["active"] = (active if active.dtype == bool
+                           else active.astype(np.float32))
         if hasattr(self.algo, "host_draw"):
             x["draw"] = np.asarray(self.algo.host_draw(self.rng,
                                                        self.n_clients))
@@ -369,18 +400,23 @@ class RoundRunner:
                 "rows": self.algo.bank.stage_rows(padded, valid),
                 "valid": valid, **self._rates(t)}
 
-    def step(self, t: int, active: np.ndarray) -> dict:
+    def step(self, t: int, active: np.ndarray,
+             sim_time: float | None = None) -> dict:
         """Apply one round with `active` (N,) bool as the applied-update
-        mask. Returns the round's metrics dict."""
-        active = np.asarray(active, bool)
-        self.stats.update(active)
+        mask (f32 staleness weights for a weight-aware algorithm);
+        `sim_time` stamps it with simulated seconds. Returns the round's
+        metrics dict."""
+        active = np.asarray(active)
+        mask = active.astype(bool)
+        self.stats.update(mask, sim_time=sim_time)
         if self.cohort_mode:
-            return self.step_cohort(t, np.flatnonzero(active))
+            return self.step_cohort(t, np.flatnonzero(mask),
+                                    sim_time=sim_time)
         with record_function(ROUND_PHASES[0]):
             x = to_device(self.round_inputs(t, active), self.device)
         self.state, self.params, metrics = self.body(self.state,
                                                      self.params, x)
-        self.hist.record_round(t, metrics)
+        self.hist.record_round(t, metrics, sim_time=sim_time)
         return metrics
 
     def scenario_carry(self) -> dict:
@@ -389,8 +425,9 @@ class RoundRunner:
         return {"algo": self.state, "scen_state": self.scen_state,
                 "scen_key": self.scen_key}
 
-    def step_scenario(self, t: int) -> dict:
-        """Apply one round with availability drawn by the scenario.
+    def step_scenario(self, t: int, sim_time: float | None = None) -> dict:
+        """Apply one round with availability drawn by the scenario;
+        `sim_time` stamps it.
 
         Dense algorithms: the body draws the mask on the device from round
         t's key; the mask is read back once for the τ statistics. Cohort
@@ -400,18 +437,21 @@ class RoundRunner:
             raise ValueError("construct RoundRunner(scenario=...) to use "
                              "step_scenario")
         if self.cohort_mode:
-            return self.step(t, self._scen_sampler.sample(t))
+            return self.step(t, self._scen_sampler.sample(t),
+                             sim_time=sim_time)
         with record_function(ROUND_PHASES[0]):
             x = to_device(self.round_inputs(t, None), self.device)
-        carry, self.params, metrics = self.body(self.scenario_carry(),
-                                                self.params, x)
+        carry, self.params, metrics = self.scen_body(self.scenario_carry(),
+                                                     self.params, x)
         self.state, self.scen_state = carry["algo"], carry["scen_state"]
-        self.stats.update(metrics["mask"].cpu().numpy())
-        self.hist.record_round(t, metrics)
+        self.stats.update(metrics["mask"].cpu().numpy(), sim_time=sim_time)
+        self.hist.record_round(t, metrics, sim_time=sim_time)
         return metrics
 
-    def step_cohort(self, t: int, ids: np.ndarray) -> dict:
-        """Apply one O(|A|·d) cohort round; `ids` are the active client rows.
+    def step_cohort(self, t: int, ids: np.ndarray,
+                    sim_time: float | None = None) -> dict:
+        """Apply one O(|A|·d) cohort round; `ids` are the active client
+        rows, `sim_time` the optional simulated-seconds stamp.
 
         Called directly, τ statistics are skipped (TauStats is O(N)); `step`
         keeps them.
@@ -427,13 +467,15 @@ class RoundRunner:
             self.state = self.algo.prepare_cohort(self.state, padded[valid])
         self.state, self.params, metrics = self.body(self.state,
                                                      self.params, x)
-        self.hist.record_round(t, metrics)
+        self.hist.record_round(t, metrics, sim_time=sim_time)
         return metrics
 
-    def evaluate(self, t: int, eval_fn: Callable) -> tuple[float, float]:
-        """Run `eval_fn(params) -> (loss, acc)` and record it at round t."""
+    def evaluate(self, t: int, eval_fn: Callable,
+                 sim_time: float | None = None) -> tuple[float, float]:
+        """Run `eval_fn(params) -> (loss, acc)` and record it at round t
+        (stamped at `sim_time` simulated seconds when given)."""
         el, ea = eval_fn(self.params)
-        self.hist.record_eval(t, el, ea)
+        self.hist.record_eval(t, el, ea, sim_time=sim_time)
         return float(el), float(ea)
 
     def finalize(self) -> tuple[Any, FLHistory]:
@@ -446,7 +488,7 @@ class RoundRunner:
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
                                f"item {item}); the port runs "
-                               "participation= and scenario= on the "
+                               "participation=, scenario= and sim= on the "
                                "loop and scan engines")
 
 
@@ -492,11 +534,18 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         cannot run (update-clock schedules, host banks) warn once and
         run on the loop; an unpinned cohort pads to the N-client bucket.
       * "scan_strict" — like "scan", but those configurations raise.
+
+    `sim` (a `repro_torch.sim.SimSpec`: server policy, latency model,
+    temporal config) puts the run on a simulated clock: rounds open and
+    close in simulated seconds under the policy, and the applied mask is
+    the policy's arrival decision. Under "scan" the compiled simulator
+    (`sim.compiled.SimScanDriver`) runs it when `sim_scan_supported` says
+    yes; otherwise, and always under "loop", the discrete-event heap
+    engine (`sim.engine.FedSimEngine`) does, with a warning naming the
+    blocker under "scan" and a raise under "scan_strict".
     """
     if (participation is None) == (scenario is None):
         raise ValueError("pass exactly one of participation= or scenario=")
-    if sim is not None:
-        raise _not_ported("sim=", "16")
     if checkpoint is not None:
         raise _not_ported("checkpoint=", "17")
     if mesh is not None:
@@ -510,6 +559,10 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
                          uses_update_clock=uses_update_clock,
                          cohort_capacity=cohort_capacity, scenario=scenario,
                          device=device)
+    if sim is not None:
+        return _run_sim(runner, sim, n_rounds, participation=participation,
+                        engine=engine, scan_chunk=scan_chunk, seed=seed,
+                        eval_fn=eval_fn, eval_every=eval_every)
     if engine != "loop":
         from repro_torch.core.scan_engine import ScanDriver, scan_supported
         ok, why = scan_supported(runner)
@@ -535,3 +588,30 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
             runner.evaluate(t, eval_fn)
     runner.hist.wall_time = time.time() - t0
     return runner.finalize()
+
+
+def _run_sim(runner: RoundRunner, sim, n_rounds: int, *, participation,
+             engine: str, scan_chunk: int, seed: int, eval_fn, eval_every):
+    """`run_fl(sim=)`: the compiled simulator where it can run, else the
+    heap engine (the reference's dispatch)."""
+    from repro_torch.sim.compiled import run_sim_scan, sim_scan_supported
+    from repro_torch.sim.engine import FedSimEngine
+    if engine != "loop":
+        ok, why = sim_scan_supported(runner, sim)
+        if ok:
+            return run_sim_scan(runner, sim, n_rounds, scan_chunk=scan_chunk,
+                                eval_fn=eval_fn, eval_every=eval_every)
+        if engine == "scan_strict":
+            raise ValueError(f"engine='scan_strict': {why}")
+        warn_engine_fallback(
+            f"engine='scan' unsupported for this simulated configuration "
+            f"({why}); falling back to the discrete-event heap engine",
+            stacklevel=4)
+    part = (participation if participation is not None
+            else runner.scen_process.host_sampler())
+    eng = FedSimEngine(runner, sim.policy, part, sim.latency, sim.config,
+                       seed=seed)
+    t0 = time.time()
+    params, hist = eng.run(n_rounds, eval_fn=eval_fn, eval_every=eval_every)
+    hist.wall_time = time.time() - t0
+    return params, hist

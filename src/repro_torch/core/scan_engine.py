@@ -255,11 +255,12 @@ class CapturedRound:
     generator the body draws from is registered with the graph. The
     launch counters are host-side, so the capture's increase of each
     (`launches`) is taken back (the capture launched nothing) and added on
-    every replay.
+    every replay. `pack` (default `pack_metrics`) turns the body's metrics
+    into the one tensor (or None) and the key list a replay returns.
     """
 
     def __init__(self, body: Callable, state, params, x, *,
-                 generators=()):
+                 generators=(), pack: Callable = None):
         self.static_x = _clone(x)
         counters = launch_counters()
         saved = [g.get_state() for g in generators]
@@ -281,7 +282,7 @@ class CapturedRound:
                                                   self.static_x)
             _copy_into(state, new_state)
             _copy_into(params, new_params)
-            self.metrics, self.keys = pack_metrics(metrics)
+            self.metrics, self.keys = (pack or pack_metrics)(metrics)
         self._carry = _tensor_ptrs(state, params)
         self.launches = {}
         for k, fn in counters.items():

@@ -84,22 +84,31 @@ class FleetHistory:
     global_updates: list = field(default_factory=list)
     eval_loss: list = field(default_factory=list)      # (t, (K,)) per eval
     eval_acc: list = field(default_factory=list)
+    sim_seconds: list = field(default_factory=list)    # (K,) close per round
+    eval_seconds: list = field(default_factory=list)   # (t, (K,)) per eval
     wall_time: float = 0.0
 
-    def record_round(self, t: int, metrics: dict) -> None:
+    def record_round(self, t: int, metrics: dict, sim_time=None) -> None:
         """Append round t's (K,) metric vectors (loss, n_active, optional
-        global_updates)."""
+        global_updates); `sim_time` stamps it with per-trial simulated
+        seconds (`fleet.sim.run_sim_fleet`)."""
         self.rounds.append(t)
         self.train_loss.append(_host(metrics["loss"]))
         self.n_active.append(_host(metrics["n_active"]))
         if "global_updates" in metrics:
             self.global_updates.append(_host(metrics["global_updates"]))
+        if sim_time is not None:
+            self.sim_seconds.append(_host(sim_time))
 
-    def record_eval(self, t: int, eval_loss, eval_acc) -> None:
+    def record_eval(self, t: int, eval_loss, eval_acc,
+                    sim_time=None) -> None:
         """Append an eval point: (round, (K,) losses) and (round, (K,)
-        accuracies)."""
+        accuracies); `sim_time` also stamps it on the per-trial
+        simulated-seconds axis (`eval_seconds`)."""
         self.eval_loss.append((t, _host(eval_loss)))
         self.eval_acc.append((t, _host(eval_acc)))
+        if sim_time is not None:
+            self.eval_seconds.append((t, _host(sim_time)))
 
     def stacked(self) -> dict:
         """{'train_loss': (K, T), 'n_active': (K, T), ...} arrays."""
@@ -115,6 +124,11 @@ class FleetHistory:
             out["eval_rounds"] = np.asarray([t for t, _ in self.eval_loss])
             out["eval_loss"] = np.stack([v for _, v in self.eval_loss], 1)
             out["eval_acc"] = np.stack([v for _, v in self.eval_acc], 1)
+        if self.sim_seconds:
+            out["sim_seconds"] = np.stack(self.sim_seconds, axis=1)
+        if self.eval_seconds:
+            out["eval_seconds"] = np.stack(
+                [v for _, v in self.eval_seconds], 1)
         return out
 
     def trial(self, k: int) -> FLHistory:
@@ -126,6 +140,8 @@ class FleetHistory:
         h.global_updates = [float(v[k]) for v in self.global_updates]
         h.eval_loss = [(t, float(v[k])) for t, v in self.eval_loss]
         h.eval_acc = [(t, float(v[k])) for t, v in self.eval_acc]
+        h.sim_seconds = [float(v[k]) for v in self.sim_seconds]
+        h.eval_seconds = [(t, float(v[k])) for t, v in self.eval_seconds]
         h.wall_time = self.wall_time
         return h
 

@@ -19,12 +19,34 @@ shift is 29), so int64 never overflows, and integer ops and the final
 f32 subtraction are exact on every device. A round captured as a CUDA
 graph takes `t` as a device tensor and gives the CPU's bits.
 
+The simulator's draws build on the same bits (jax 0.9.0, partitionable):
+
+  * `split`: ``split(key, n)[i]`` is threefry2x32 of the key over the
+    counter ``(0, i)``, so it is `round_key(key, i)`;
+  * `random_bits`: 32-bit bits ``x0 ^ x1`` over ``(0, i)``, the bits
+    `uniform` maps to floats;
+  * `permutation`: ``_shuffle`` of ``arange(n)``: for each of
+    ``ceil(3·ln n / ln(2³²−1))`` rounds, ``key, sub = split(key)``, draw
+    `random_bits(sub, n)` and stable-sort the current order by them;
+  * `exponential`: ``-log1p(-u)`` of `uniform`'s u;
+  * `normal`: ``sqrt(2)·erfinv(u)``, u uniform on ``[nextafter(-1, 0),
+    1)`` as `jax.random.uniform` builds it from minval and maxval:
+    ``max(lo, f·(hi − lo) + lo)`` with f in [0, 1) and every op in f32.
+
+The integer draws (`split`, `random_bits`, `permutation`) are bit-equal to
+jax on every device. `exponential` and `normal` apply the device's
+`log1p` and `erfinv`, which can differ from XLA's by an ulp or a few: a
+caller that needs two surfaces to agree runs both on one device.
+
 Keys are int64 tensors (..., 2). `t` is a Python int, a 0-d int64 tensor
 or, for a fleet, a (K,) tensor beside (K, 2) keys: everything broadcasts
 over the leading axes.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -65,12 +87,62 @@ def round_key(key: torch.Tensor, t) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), -1)
 
 
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, n)`: key (..., 2) -> (..., n, 2)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(i),
+                          i)
+    return torch.stack([y0, y1], -1)
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.bits(key, (n,))` (32-bit) as int64 words: key (..., 2)
+    -> (..., n)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    x0, x1 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(i),
+                          i)
+    return x0 ^ x1
+
+
 def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
     """`jax.random.uniform(key, (n,))` in [0, 1) as f32: key (..., 2) ->
     (..., n)."""
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
-    k0, k1 = key[..., 0:1], key[..., 1:2]
-    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
-    bits = x0 ^ x1
-    one_bits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    one_bits = ((random_bits(key, n) >> 9) | 0x3F800000).to(torch.int32)
     return one_bits.view(torch.float32) - 1.0
+
+
+def shuffle_rounds(n: int) -> int:
+    """The sort rounds of `jax.random.permutation` over n items."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)` as int64: key (..., 2) -> (..., n).
+    Each round stable-sorts the current order by fresh 32-bit bits."""
+    perm = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        tuple(key.shape[:-1]) + (n,))
+    for _ in range(shuffle_rounds(n)):
+        keys = split(key)
+        key, sub = keys[..., 0, :], keys[..., 1, :]
+        order = torch.sort(random_bits(sub, n), dim=-1, stable=True).indices
+        perm = torch.gather(perm, -1, order)
+    return perm
+
+
+def exponential(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.exponential(key, (n,))` as f32: ``-log1p(-u)``."""
+    return -torch.log1p(-uniform(key, n))
+
+
+def normal(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.normal(key, (n,))` as f32: ``sqrt(2)·erfinv(u)``, u
+    uniform on [nextafter(-1, 0), 1) built in f32 as jax builds it."""
+    f = uniform(key, n)
+    f32 = dict(dtype=torch.float32, device=key.device)
+    # 0-d fills, not copies from the host, so a captured round can draw
+    lo = torch.full((), float(np.nextafter(np.float32(-1), np.float32(0))),
+                    **f32)
+    hi = torch.ones((), **f32)
+    u = torch.maximum(lo, f * (hi - lo) + lo)
+    return torch.full((), float(np.float32(np.sqrt(2))), **f32) \
+        * torch.erfinv(u)

@@ -27,8 +27,8 @@ Counterpart of `repro/scenarios/base.py`.
   (τ(t,i) <= t0 + t/b), with the witnessing t0 and the stationary E[τ]
   where a closed form exists.
 
-* `Scenario` — a named (process, latency-model) pair. The latency models
-  and the simulator come with ROADMAP Queue 1 item 16.
+* `Scenario` — a named (process, latency-model) pair; the latency models
+  and the simulator are `repro_torch.sim`.
 
 Conventions shared by every process: round 0 is all-active (paper Remark
 5.2 / Definition 5.2(1)), and round t's randomness is drawn from
@@ -161,8 +161,9 @@ class AvailabilityProcess:
 class Scenario:
     """One experiment environment: availability process + latency model.
 
-    `latency` is a per-client RTT model for the simulator (ROADMAP Queue 1
-    item 16); None for round-synchronous runs. `name` is the registry tag.
+    `latency` is a per-client RTT model for the simulator
+    (`repro_torch.sim.latency`); None for round-synchronous runs. `name`
+    is the registry tag.
     """
 
     process: AvailabilityProcess

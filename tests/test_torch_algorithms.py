@@ -140,8 +140,9 @@ def test_registry_matches_reference():
         make_algorithm("fedprox", n=4)
     with pytest.raises(ValueError, match="already registered"):
         register_algorithm("mifa", lambda **kw: None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_algorithm("banked_mifa", n=4, backend="host")
+    # the host bank (ROADMAP Queue 1 item 9) is ported
+    host = make_algorithm("banked_mifa", n=4, backend="host", device="cpu")
+    assert type(host.bank).__name__ == "HostBank"
 
 
 RUN_CASES = {

@@ -514,10 +514,15 @@ def test_fleet_surfaces_not_ported_raise():
         FleetRunner(model=model, algo=MIFA(), batcher=batcher,
                     schedule=inv_t(1.0), seeds=(0,), device="cpu",
                     scenarios=[windowed])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_sim_fleet()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        SimTrial()
+    # simulated fleets (ROADMAP Queue 1 item 16) are ported; a cohort
+    # algorithm cannot ride one
+    from repro_torch.sim import WaitForAll, tiered_shifted_exponential
+    lane = SimTrial(seed=0, policy=WaitForAll(), scenario=scen,
+                    latency=tiered_shifted_exponential(n, device="cpu"))
+    with pytest.raises(NotImplementedError, match="dense algorithm"):
+        run_sim_fleet(model=model, algo=BankedMIFA(DenseBank(device="cpu")),
+                      batcher=batcher, schedule=inv_t(1.0), n_rounds=1,
+                      trials=[lane], device="cpu")
     with pytest.raises(ValueError, match="stacked"):
         FleetRunner(model=model, algo=MIFA(), batcher=batcher,
                     schedule=inv_t(1.0), seeds=(0, 1), device="cpu",

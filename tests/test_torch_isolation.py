@@ -58,7 +58,8 @@ def test_isolation_walk_sees_the_whole_port():
             "zamba2_7b", "mamba2_1_3b", "granite_3_8b", "profile_serve",
             "scan_engine", "quantized_memory", "int8_paged",
             "participation", "_threefry", "processes", "registry",
-            "algorithms"} <= mods
+            "algorithms", "host", "events", "latency", "policies",
+            "engine", "compiled", "sim"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -102,6 +103,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         FleetRunner(**fleet, seeds=(0, 1))
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         make_fleet_eval(model, {"x": np.zeros((2, 64), np.float32)})
+    # the simulator and the host bank (ROADMAP Queue 1 items 16 and 9)
+    from repro_torch.bank import HostBank
+    from repro_torch.data import JitProceduralBatcher
+    from repro_torch.fleet import SimTrial, run_sim_fleet
+    from repro_torch.sim import (LognormalLatency, TraceLatency, WaitForAll,
+                                 tiered_shifted_exponential)
+    for make in (HostBank, lambda: tiered_shifted_exponential(4),
+                 lambda: TraceLatency(np.ones((2, 4))),
+                 lambda: LognormalLatency(0.0, 0.5, n=4),
+                 lambda: JitProceduralBatcher(n_clients=4, dim=3,
+                                              batch_size=2, k_steps=1)):
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            make()
+    lat = TraceLatency(np.ones((2, 4)), device="cpu")
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        lat.sample(0, device="cuda")
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        run_sim_fleet(**fleet, n_rounds=1, trials=[SimTrial(
+            seed=0, policy=WaitForAll(),
+            scenario=make_scenario("bernoulli", n=4), latency=lat)])
 
 
 def test_cpu_run_takes_the_plain_path():
@@ -115,12 +136,18 @@ def test_cpu_run_takes_the_plain_path():
 
 
 # items of this table that have since been ported: their option now runs
-PORTED_ITEMS = {"12", "13"}
+PORTED_ITEMS = {"12", "13", "16"}
+
+
+def _sim_spec():
+    from repro_torch.sim import SimSpec, WaitForAll, TraceLatency
+    return SimSpec(policy=WaitForAll(),
+                   latency=TraceLatency(np.ones((1, 4)), device="cpu"))
 
 
 @pytest.mark.parametrize("kw,item", [
     ({"scenario": make_scenario("gilbert_elliott", n=4)}, "13"),
-    ({"sim": object()}, "16"), ({"checkpoint": object()}, "17"),
+    ({"sim": _sim_spec()}, "16"), ({"checkpoint": object()}, "17"),
     ({"mesh": object()}, "19"), ({"engine": "scan"}, "12")])
 def test_unported_run_options_raise(kw, item):
     cfg = get_smoke_config("paper_logistic")
@@ -142,9 +169,9 @@ def test_unported_run_options_raise(kw, item):
 
 
 def test_unported_modules_raise():
-    from repro_torch.bank import make_bank
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_bank("host")
+    from repro_torch.bank import HostBank, make_bank
+    # the host bank (item 9) is ported
+    assert isinstance(make_bank("host", device="cpu"), HostBank)
     with pytest.raises(NotImplementedError, match="item 18"):
         get_config("gemma3_4b")
 

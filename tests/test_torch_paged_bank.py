@@ -290,8 +290,9 @@ def test_make_bank_and_what_is_not_ported():
     assert isinstance(make_bank("paged_device", page_size=2, device="cpu"),
                       PagedDeviceBank)
     assert isinstance(make_bank(device="cpu"), DenseBank)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_bank("host")
+    # the host bank (ROADMAP Queue 1 item 9) is ported
+    from repro_torch.bank import HostBank
+    assert isinstance(make_bank("host", device="cpu"), HostBank)
     with pytest.raises(ValueError, match="unknown bank backend"):
         make_bank("nope")
     # int8 memory (ROADMAP Queue 1 item 10) is ported

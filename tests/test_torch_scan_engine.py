@@ -15,6 +15,9 @@ reference's.
 * Scenario-mode scan runs (its parity tests are in
   `tests/test_torch_scenarios.py`); a windowed process (trace replay,
   ROADMAP Queue 1 item 17) raises.
+* On the card (`cuda`): the compiled simulator bit-equal to the heap
+  engine (`tests/test_torch_sim_compiled.py` holds it on the CPU), and
+  the host bank's rows and the paged bank's spill store pinned.
 
 The `cuda` cases replay the captured round on the card and skip here;
 the module imports JAX only inside the reference test, so on the card
@@ -478,3 +481,70 @@ def test_cuda_scenario_scan_bitexact_vs_loop(cuda_device, case):
     cpu = run_fl(algo=make("cpu"), scenario=make_scenario(
         scen, n=N, seed=2, **kw), **_kw())
     assert cpu[1].n_active == loop[1].n_active
+
+
+# the simulator on the card: the compiled engine (two captured graphs a
+# round) against the heap engine, and the host banks' pinned memory
+
+def _sim_policy(name):
+    from repro_torch import sim
+    return {"wait_for_all": sim.WaitForAll(), "wait_for_s": sim.WaitForS(s=3),
+            "deadline": sim.Deadline(deadline_s=2.0),
+            "impatient": sim.Impatient(),
+            "buffered": sim.BufferedKofN(k=3)}[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wait_for_all", "wait_for_s", "deadline",
+                                  "impatient", "buffered"])
+def test_cuda_sim_compiled_bitexact_vs_heap(cuda_device, name):
+    """On the card each compiled round replays the fill graph as often as
+    the clock asks and the round graph once: close times, masks and
+    losses bit-equal to the card's heap engine; `mifa_aggregate` once a
+    round on the heap, plus once for the warm-up on the compiled."""
+    from repro_torch.core import FedBuffAvg
+    from repro_torch.sim import SimConfig, SimSpec, tiered_shifted_exponential
+    policy = _sim_policy(name)
+    algo = FedBuffAvg if name == "buffered" else MIFA
+    sim = SimSpec(policy, tiered_shifted_exponential(N, seed=3,
+                                                     device=cuda_device),
+                  SimConfig(epoch_s=2.0, server_overhead_s=0.05,
+                            max_lookahead_epochs=16))
+    runs, counts = {}, {}
+    for engine in ("loop", "scan_strict"):
+        before = _counts()
+        runs[engine] = run_fl(algo=algo(), engine=engine, sim=sim,
+                              scenario=make_scenario("gilbert_elliott", n=N,
+                                                     seed=2, burst=4.0),
+                              **_kw(device=cuda_device))
+        counts[engine] = {k: v - before[k] for k, v in _counts().items()}
+    (pl, hl), (ps, hs) = runs["loop"], runs["scan_strict"]
+    assert hl.sim_seconds == hs.sim_seconds and hl.n_active == hs.n_active
+    assert hl.train_loss == hs.train_loss
+    for a, b in zip(tree_leaves(pl), tree_leaves(ps)):
+        assert torch.equal(a, b)
+    if algo is MIFA:
+        assert counts["loop"]["mifa_aggregate"] == T
+        assert counts["scan_strict"]["mifa_aggregate"] == T + 1
+
+
+@pytest.mark.cuda
+def test_cuda_host_bank_and_spill_store_pinned(cuda_device):
+    from repro_torch.bank import HostBank
+    bank = HostBank(device=cuda_device)
+    st = bank.init({"w": torch.zeros(3, device=cuda_device)}, 8)
+    assert all(t.is_pinned() for t in tree_leaves(st))
+    st = bank.scatter(st, np.array([1, 5]),
+                      {"w": torch.ones(2, 3, device=cuda_device)})
+    got = bank.gather(st, np.array([5, 0]))["w"]
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy()[:, 0], [1, 0])
+    assert bank.mean_g(st)["w"].device.type == "cuda"
+    paged = PagedDeviceBank(page_size=2, n_slots=2, device=cuda_device)
+    pst = paged.init({"w": torch.zeros(3, device=cuda_device)}, 12)
+    for ids in ([0, 2], [4, 6], [8, 10], [0, 9]):
+        pst = paged.scatter(pst, np.array(ids), {
+            "w": torch.ones(len(ids), 3, device=cuda_device)})
+    assert paged.evictions > 0 and paged.refaults > 0
+    assert all(b.is_pinned() for blocks in paged._spill.values()
+               for b in blocks)
