@@ -118,7 +118,25 @@ Run from the root of a checkout on a machine with a CUDA card. It
      simulated seconds below WaitForAll's (the paper's claim); prints ms
      a simulated round on both engines, the sync a round and the
      simulated seconds per policy;
- 14. holds the model zoo's kernels against their plain versions on the card:
+ 14. drives durability on the card (`durability_phase`, lines starting
+     `durable `): a trace synthesized with the port's `synthesize_trace`
+     (N=100, 64 rounds, Gilbert–Elliott rate 0.5, bursts of 6, 10% churn)
+     replayed through a window of 16 rounds: MIFA(array) and
+     BankedMIFA(PagedDeviceBank) for 50 rounds on the loop and the scan
+     (the window re-pointed in place between chunks), bit-equal, masks
+     those of the CPU host surface, reads never longer than the window
+     (50 / 51 `mifa_aggregate` and `paged_bank_scatter`); elastic fleets
+     over the trace (K=3, MIFA(array) and BankedMIFA(DenseBank)), scan
+     against loop and lanes against sequential runs (150 / 153
+     `mifa_aggregate`, 50 / 51 `bank_scatter_batched`); kill and resume of
+     MIFA(array), MIFA(int8), BankedMIFA(DenseBank) and a spilling
+     BankedMIFA(PagedDeviceBank) (snapshots every 10 rounds, killed after
+     25, resumed from 20: bit-equal to the uninterrupted run; the paged
+     bank's rows read back through `paged_bank_gather`); the million-client
+     bank snapshotted and restored, the next 2 rounds bit-equal; and
+     granite-3-8b (4 layers) served from a `save_pytree` snapshot loaded
+     onto the card, its tokens those of the in-memory params;
+ 15. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
      H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
      non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
@@ -126,14 +144,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      96, an odd S (Q=1) and zamba2's largest |dA|; times both per call at
      the served shapes beside their bounds and,
      for attention, one `scaled_dot_product_attention` call;
- 15. serves zamba2-7b at full width and depth (81 layers, bf16, random
+ 16. serves zamba2-7b at full width and depth (81 layers, bf16, random
      params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
      greedy tokens; every prefill attention call and SSD scan must launch
      the kernels (13 and 68), decode none, no other kernel; then
      mamba2-1.3b (48 scans) and granite-3-8b cut to 4 layers (4 attention
      calls, GQA g=4), printing prefill and decode times, tok/s and the
      peak device allocation;
- 16. runs zamba2-7b at full width in f32, its first 6 layers, on the card
+ 17. runs zamba2-7b at full width in f32, its first 6 layers, on the card
      and on the CPU (prefill logits, every cache leaf, two decode steps),
      and its first 12 layers as 2048 prompt tokens plus 128 teacher-forced
      decode steps against one prefill of 2176 tokens.
@@ -144,6 +162,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2914,6 +2934,480 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
 
 
 # --------------------------------------------------------------------------- #
+# durability: trace replay, elastic fleets, kill and resume, snapshots
+# --------------------------------------------------------------------------- #
+
+# the recorded trace the phase replays: Gilbert–Elliott availability at rate
+# 0.5 with off-bursts of 6 rounds and 10% of the devices departing for
+# good, 64 rounds of N_CLIENTS devices, carried DUR_WINDOW rounds at a time
+DUR_TRACE = {"n": N_CLIENTS, "horizon": 64, "seed": 7, "rate": 0.5,
+             "burst": 6.0, "churn_frac": 0.1}
+DUR_WINDOW = 16
+# the elastic fleets over the trace: half the capacity at round 0, the rest
+# arriving every 8 rounds, 10% departing at round 40 (|A| <= 55 <= FLEET_CAP)
+DUR_ELASTIC = {"n_initial": 50, "arrive_every": 8, "depart_frac": 0.1,
+               "depart_at": 40}
+# kill and resume: snapshots every DUR_EVERY rounds, the killed run stops
+# after DUR_KILL rounds and resumes from its round-20 snapshot. Round 0 of
+# the trace is all-active, so a paged bank must hold every client then and
+# never evicts under it; the paged run takes elastic availability over the
+# trace instead (30% of the capacity departing at round 20) through pages of
+# one row: 67 slots hold the largest chunk's union, 70 clients have come
+# by the round-20 snapshot, so pages spill before it and after it
+DUR_EVERY, DUR_KILL = 10, 25
+KILL_ELASTIC = {"n_initial": 50, "arrive_every": 8, "depart_frac": 0.3,
+                "depart_at": 20}
+KILL_PAGE, KILL_SLOTS = 1, 67
+DUR_DIR = ROOT / "build" / "durability"
+
+
+class Stopwatch:
+    """Wraps the named functions of a module while active and sums the
+    host seconds of their calls, e.g. `checkpoint.run_state.save_run` as
+    the scan engine calls it."""
+
+    def __init__(self, module, *names):
+        self.module, self.names = module, names
+        self.seconds = {n: [] for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            def timed(*a, _fn=fn, _n=n, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_n].append(time.perf_counter() - t0)
+            setattr(self.module, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def trace_scen():
+    from repro_torch.scenarios import Scenario, TraceReplay
+    return Scenario(TraceReplay(str(DUR_DIR / "trace.npy"),
+                                window=DUR_WINDOW), name="trace")
+
+
+def elastic_scen(seed, **kw):
+    from repro_torch.scenarios import make_scenario
+    return make_scenario("elastic", n=N_CLIENTS, seed=seed,
+                         inner="trace_replay",
+                         inner_kwargs={"path": str(DUR_DIR / "trace.npy"),
+                                       "window": DUR_WINDOW},
+                         **(kw or DUR_ELASTIC))
+
+
+def exact_same(what, run_a, run_b) -> None:
+    """Two runs bit-equal: params, losses, masks, evals and τ."""
+    d_loss, d_param = run_gaps(run_a, run_b)
+    (_, ha), (_, hb) = run_a, run_b
+    check(d_loss == 0 and d_param == 0 and ha.n_active == hb.n_active
+          and ha.rounds == hb.rounds and ha.eval_loss == hb.eval_loss
+          and (ha.tau_bar, ha.tau_max) == (hb.tau_bar, hb.tau_max),
+          f"{what}: not bit-equal (|dloss| {d_loss:.3e}, |dparam| "
+          f"{d_param:.3e}, rounds {len(ha.rounds)} vs {len(hb.rounds)})")
+
+
+def trace_phase(params0, problem) -> tuple[dict, list]:
+    """MIFA(array) under the trace on the loop and the scan (the window
+    re-pointed in place between chunks), bit-equal, masks those of the CPU
+    host surface, reads of the file never longer than the window; then
+    BankedMIFA(PagedDeviceBank) under it on both engines."""
+    from repro_torch.bank import BankedMIFA, PagedDeviceBank
+    from repro_torch.core import MIFA
+    from repro_torch.scenarios.trace_replay import TraceFile
+    launches, rows, lengths = {}, [], []
+    read_block = TraceFile.read_block
+
+    def recording(self, t0, length):
+        lengths.append(length)
+        return read_block(self, t0, length)
+
+    TraceFile.read_block = recording
+    try:
+        for name, make, kernel, cap in (
+                ("MIFA(array)", MIFA, "mifa_aggregate", None),
+                ("BankedMIFA(PagedDeviceBank)", lambda: BankedMIFA(
+                    PagedDeviceBank(page_size=PAGE_SIZE, device="cuda")),
+                 "paged_bank_scatter", SCAN_CAP)):
+            runs, counts = {}, {}
+            for engine in ("loop", "scan"):
+                scen = trace_scen()
+                reset_counts()
+                runs[engine] = run_scen(make(), problem, params0, scen,
+                                        ROUNDS, "cuda", engine, cap)
+                counts[engine] = read_counts()
+                expect_launches(f"durable trace {name} {engine}",
+                                counts[engine], kernel,
+                                ROUNDS + (engine == "scan"))
+                scen_masks_match_host(f"durable trace {name} {engine}",
+                                      runs[engine][1], scen, ROUNDS)
+            launches[kernel] = counts["loop"][kernel]
+            exact_same(f"durable trace {name} scan vs loop",
+                       runs["loop"][:2], runs["scan"][:2])
+            rows.append(scen_run_row(f"trace {name}", ROUNDS,
+                                     runs["loop"][2], runs["loop"][1],
+                                     counts["loop"], runs["scan"][2])
+                        .replace("scenario ", "durable ", 1)
+                        + f"; scan {nonzero(counts['scan'])}, bit-equal "
+                          "to the loop, masks those of the CPU host surface")
+    finally:
+        TraceFile.read_block = read_block
+    check(lengths and max(lengths) <= DUR_WINDOW,
+          f"durable trace: a read of {max(lengths)} rounds, window "
+          f"{DUR_WINDOW}")
+    rows.append(f"durable trace: {len(lengths)} reads of the trace file, "
+                f"longest {max(lengths)} rounds (window {DUR_WINDOW})")
+    return launches, rows
+
+
+def elastic_fleet_phase(problem) -> tuple[dict, list]:
+    """Elastic availability over the trace as K=3 fleets of ROUNDS rounds,
+    MIFA(array) and BankedMIFA(DenseBank), on both engines: scan against
+    loop, each lane's masks those of its CPU host surface, each lane
+    within DEVICE_ATOL of its sequential run."""
+    from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.core import MIFA, run_fl
+    from repro_torch.fleet import Trial, run_fleet
+    from repro_torch.optim import inv_t
+    model, batcher, _, _ = problem
+    launches, rows = {}, []
+    hosts = [elastic_scen(s).process.host_sampler().sample_block(0, ROUNDS)
+             for s in FLEET_SEEDS]
+    for name, make, kernel in (
+            ("MIFA(array)", MIFA, "mifa_aggregate"),
+            ("BankedMIFA(DenseBank)",
+             lambda: BankedMIFA(DenseBank(device="cuda")),
+             "bank_scatter_batched")):
+        kw = dict(model=model, batcher=batcher, schedule=inv_t(1.0),
+                  n_rounds=ROUNDS, weight_decay=1e-3,
+                  cohort_capacity=FLEET_CAP, device="cuda")
+        per = len(FLEET_SEEDS) if kernel == "mifa_aggregate" else 1
+        runs, counts, dts = {}, {}, {}
+        for engine in ("loop", "scan"):
+            timed = TimedBatcher(batcher)
+            reset_counts()
+            runs[engine] = run_fleet(
+                algo=make(), trials=[Trial(seed=s, scenario=elastic_scen(s))
+                                     for s in FLEET_SEEDS],
+                engine=engine, scan_chunk=SCAN_CHUNK,
+                **{**kw, "batcher": timed})
+            torch.cuda.synchronize()
+            counts[engine] = read_counts()
+            dts[engine] = np.diff(timed.stamps)
+            expect_launches(f"durable elastic fleet {name} {engine}",
+                            counts[engine], kernel,
+                            (ROUNDS + (engine == "scan")) * per)
+        launches[kernel] = counts["loop"][kernel]
+        verdict = scan_equal(f"durable elastic fleet {name}", runs["loop"],
+                             runs["scan"])
+        params, hist = runs["loop"]
+        gaps = []
+        for k, s in enumerate(FLEET_SEEDS):
+            check(hist.trial(k).n_active
+                  == hosts[k].sum(1).astype(float).tolist(),
+                  f"durable elastic fleet {name} lane {k}: masks differ "
+                  "from the CPU host surface's")
+            seq = run_fl(algo=make(), scenario=elastic_scen(s), seed=s,
+                         **kw)
+            gaps.append(trial_gaps((params, hist), k, seq))
+            check(max(gaps[-1]) <= DEVICE_ATOL,
+                  f"durable elastic fleet {name} lane {k} vs its "
+                  f"sequential run: |dloss|, |dparam| {gaps[-1]}")
+        rows.append(
+            f"durable elastic fleet {name}: K={len(FLEET_SEEDS)} x {ROUNDS} "
+            f"rounds, loop {np.median(dts['loop'][10:]) * 1e3:.3f} ms/round"
+            f", scan {scan_ms(dts['scan']):.3f} ms/round; scan {verdict}; "
+            f"lanes' masks those of the CPU host surfaces (mean |A(t)| "
+            f"{np.mean(hist.stacked()['n_active']):.2f}); lanes vs "
+            f"sequential runs max |dloss| {max(g[0] for g in gaps):.3e}, "
+            f"max |dparam| {max(g[1] for g in gaps):.3e} (atol "
+            f"{DEVICE_ATOL}); launches loop {nonzero(counts['loop'])}, scan "
+            f"{nonzero(counts['scan'])}")
+    return launches, rows
+
+
+def restored_bank(make_bank, problem, params0, cap, d):
+    """A fresh runner restored from the newest snapshot in `d`; returns
+    (its bank, its bank state)."""
+    from repro_torch.bank import BankedMIFA
+    from repro_torch.checkpoint import CheckpointSpec, restore_run
+    from repro_torch.core import RoundRunner
+    from repro_torch.optim import inv_t
+    model, batcher, _, _ = problem
+    bank = make_bank()
+    runner = RoundRunner(model=model, algo=BankedMIFA(bank), batcher=batcher,
+                         schedule=inv_t(1.0), weight_decay=1e-3,
+                         params=clone_tree(params0, "cuda"),
+                         cohort_capacity=cap, device="cuda")
+    restore_run(runner, CheckpointSpec(every=DUR_EVERY, dir=str(d)))
+    return bank, runner.state["bank"]
+
+
+def gsum_gap(state, rows) -> float:
+    """G_sum against the sum of the bank's rows, within TOL (f32)."""
+    from repro_torch.tree import tree_leaves
+    rtol, atol = TOL[torch.float32]
+    gap = 0.0
+    for g, r in zip(tree_leaves(state["g_sum"]), tree_leaves(rows)):
+        err = (g.double() - r.double().sum(0)).abs()
+        check(bool((err <= atol + rtol * r.double().abs().sum(0)).all()),
+              f"G_sum off the sum of the rows by {err.max().item():.3e}")
+        gap = max(gap, err.max().item())
+    return gap
+
+
+def kill_resume_phase(params0, problem) -> tuple[dict, list]:
+    """Each algorithm for ROUNDS rounds on the scan (chunks of SCAN_CHUNK,
+    a snapshot every DUR_EVERY rounds, evals every DUR_EVERY), once
+    uninterrupted, once killed after DUR_KILL rounds and resumed from its
+    round-20 snapshot: params, history and τ bit-equal. The paged bank's
+    final snapshots of both runs are restored into fresh banks and every
+    row read back through the gather kernel."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.checkpoint import CheckpointSpec, run_state
+    from repro_torch.core import MIFA, run_fl
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_leaves
+    model, batcher, _, eval_fn = problem
+
+    def paged_bank():
+        return PagedDeviceBank(page_size=KILL_PAGE, n_slots=KILL_SLOTS,
+                               device="cuda")
+
+    cases = (
+        ("MIFA(array)", MIFA, trace_scen, None, "mifa_aggregate"),
+        ("MIFA(int8)", lambda: MIFA(memory="int8"), trace_scen, None, None),
+        ("BankedMIFA(DenseBank)",
+         lambda: BankedMIFA(DenseBank(device="cuda")), trace_scen, SCAN_CAP,
+         "bank_scatter"),
+        (f"BankedMIFA(PagedDeviceBank(page_size={KILL_PAGE}, "
+         f"n_slots={KILL_SLOTS})) under elastic trace replay",
+         lambda: BankedMIFA(paged_bank()),
+         lambda: elastic_scen(0, **KILL_ELASTIC), SCAN_CAP,
+         "paged_bank_scatter"))
+    launches, rows = {}, []
+    for i, (name, make, scen, cap, kernel) in enumerate(cases):
+        def run(d, n_rounds=ROUNDS, resume=False):
+            reset_counts()
+            out = run_fl(model=model, algo=make(), batcher=batcher,
+                         scenario=scen(), schedule=inv_t(1.0),
+                         n_rounds=n_rounds, weight_decay=1e-3,
+                         params=clone_tree(params0, "cuda"),
+                         eval_fn=eval_fn, eval_every=DUR_EVERY,
+                         engine="scan_strict", scan_chunk=SCAN_CHUNK,
+                         cohort_capacity=cap, device="cuda",
+                         checkpoint=CheckpointSpec(every=DUR_EVERY,
+                                                   dir=str(d),
+                                                   resume=resume))
+            torch.cuda.synchronize()
+            return out, read_counts()
+
+        full_dir, killed = DUR_DIR / f"run{i}_full", DUR_DIR / f"run{i}_kill"
+        full, _ = run(full_dir)
+        run(killed, n_rounds=DUR_KILL)
+        found = [r for r, _ in run_state.list_checkpoints(str(killed))]
+        check(found == [DUR_EVERY, 2 * DUR_EVERY],
+              f"durable {name}: snapshots {found} after the kill")
+        snap = run_state.checkpoint_path(str(killed), 2 * DUR_EVERY)
+        nbytes = os.path.getsize(snap)
+        with Stopwatch(run_state, "save_run", "restore_run") as sw:
+            resumed, counts = run(killed, resume=True)
+        exact_same(f"durable kill/resume {name}", full, resumed)
+        want = {k: 0 for k in counts}
+        if kernel is not None:
+            want[kernel] = ROUNDS - 2 * DUR_EVERY + 1
+            launches[kernel] = counts[kernel]
+        check(counts == want, f"durable resumed {name}: launches {counts}, "
+                              f"expected {want}")
+        extra = ""
+        if kernel == "paged_bank_scatter":
+            spilled = len(run_state.load_pytree(
+                snap, as_torch=False)["bank"]["spill_lp"])
+            check(spilled > 0, f"durable {name}: no page spilled at the "
+                               "snapshot")
+            ref_bank, ref_state = restored_bank(paged_bank, problem,
+                                                params0, cap, full_dir)
+            bank, state = restored_bank(paged_bank, problem, params0, cap,
+                                        killed)
+            reset_counts()
+            got = bank.gather(state, np.arange(N_CLIENTS))
+            launches["paged_bank_gather"] = read_counts()[
+                "paged_bank_gather"]
+            want_rows = ref_bank.gather(ref_state, np.arange(N_CLIENTS))
+            check(all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(want_rows))),
+                  f"durable {name}: restored rows differ from the "
+                  "uninterrupted run's")
+            extra = (f"; {spilled} pages spilled at the round-"
+                     f"{2 * DUR_EVERY} snapshot and {len(bank._spill)} at "
+                     f"the end (faults {bank.faults}, evictions "
+                     f"{bank.evictions}); the final snapshots restored into "
+                     f"fresh banks: all {N_CLIENTS} rows read through the "
+                     f"gather kernel ({launches['paged_bank_gather']} "
+                     f"launch) bit-equal, G_sum vs the sum of the rows "
+                     f"max |err| {gsum_gap(state, got):.3e}")
+        rows.append(
+            f"durable kill/resume {name}: {ROUNDS} rounds on the scan "
+            f"(chunks of {SCAN_CHUNK}, snapshots and evals every "
+            f"{DUR_EVERY}), killed after {DUR_KILL}, resumed from round "
+            f"{2 * DUR_EVERY}: params, history, evals and tau bit-equal to "
+            f"the uninterrupted run; snapshot {nbytes} B, save_run "
+            f"{np.median(sw.seconds['save_run']) * 1e3:.3f} ms (median of "
+            f"{len(sw.seconds['save_run'])}), restore_run "
+            f"{sw.seconds['restore_run'][0] * 1e3:.3f} ms; resumed run "
+            f"launches {nonzero(counts)}{extra}")
+    return launches, rows
+
+
+def million_snapshot_phase(params0, model) -> list:
+    """The million-client paged bank (step 7's run, MILLION_ROUNDS rounds)
+    snapshotted once and restored into a fresh runner: the next 2 rounds
+    bit-equal to the unrestored runner's."""
+    from repro_torch.checkpoint import CheckpointSpec, restore_run, save_run
+    from repro_torch.tree import tree_leaves
+    runner, bank, draw = million_runner(model, params0)
+    for t in range(MILLION_ROUNDS):
+        runner.step_cohort(t, draw())
+    torch.cuda.synchronize()
+    spec = CheckpointSpec(every=1, dir=str(DUR_DIR / "million"))
+    mem = bank.memory_bytes(runner.state["bank"])
+    t0 = time.perf_counter()
+    path = save_run(runner, spec, MILLION_ROUNDS)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    fresh, fbank, _ = million_runner(model, params0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = restore_run(fresh, spec)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(start == MILLION_ROUNDS, f"million restore at round {start}")
+    check(sorted(fbank._spill) == sorted(bank._spill)
+          and spill_pinned(fbank), "million restore: spill store differs "
+                                   "or is not pinned")
+    for t in range(MILLION_ROUNDS, MILLION_ROUNDS + 2):
+        ids = draw()
+        runner.step_cohort(t, ids)
+        fresh.step_cohort(t, ids)
+    torch.cuda.synchronize()
+    check(runner.hist.train_loss == fresh.hist.train_loss
+          and all(torch.equal(a, b) for a, b in zip(
+              tree_leaves([runner.params, runner.state]),
+              tree_leaves([fresh.params, fresh.state]))),
+          "million restore: the next 2 rounds differ from the unrestored "
+          "runner's")
+    fbank.check_invariants(fresh.state["bank"])
+    os.unlink(path)
+    return [f"durable million clients: N={MILLION_N} paged bank after "
+            f"{MILLION_ROUNDS} rounds (pool {mem['device_pages']} B on the "
+            f"card, spill {mem['host']} B pinned): snapshot {nbytes} B, "
+            f"save_run {save_s:.3f} s ({nbytes / save_s / 1e9:.2f} GB/s), "
+            f"restore_run into a fresh runner {load_s:.3f} s "
+            f"({nbytes / load_s / 1e9:.2f} GB/s); the next 2 rounds "
+            f"bit-equal to the unrestored runner's (params, bank pages, "
+            f"page table, G_sum, losses); snapshot deleted"]
+
+
+def serve_snapshot_phase() -> tuple[dict, list]:
+    """granite-3-8b cut to GRANITE_LAYERS layers: its params saved with
+    `save_pytree` and served through the path `--params` takes
+    (`load_pytree` onto the card): the greedy tokens of the in-memory
+    params, `flash_attention` launched as in the serve phase."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    cfg = get_config("granite_3_8b").replace(n_layers=GRANITE_LAYERS)
+    kw = dict(cfg=cfg, batch=SERVE_B, prompt_len=SERVE_PROMPT,
+              new_tokens=SERVE_NEW, seed=0, device="cuda")
+    want = serve(**kw)["tokens"]
+    params = build_model(cfg).init(0, device="cuda")
+    t0 = time.perf_counter()
+    path = save_pytree(str(DUR_DIR / "granite"), params)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    del params
+    t0 = time.perf_counter()
+    loaded = load_pytree(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    out = serve(params=loaded, **kw)
+    counts = read_counts()
+    expect = {"flash_attention": GRANITE_LAYERS, "ssd_scan": 0}
+    check(out["launches"]["prefill"] == expect
+          and {k: counts[k] for k in expect} == expect,
+          f"durable serve: prefill launches {out['launches']['prefill']}, "
+          f"counts {counts}, expected {expect}")
+    check(torch.equal(out["tokens"], want),
+          "durable serve: tokens from the snapshot differ from the "
+          "in-memory params'")
+    os.unlink(path)
+    del loaded, out
+    torch.cuda.empty_cache()
+    return ({"flash_attention": counts["flash_attention"]},
+            [f"durable serve granite-3-8b ({GRANITE_LAYERS} layers, bf16): "
+             f"save_pytree {nbytes} B in {save_s:.3f} s, load_pytree onto "
+             f"the card {load_s:.3f} s; served {SERVE_B} x {SERVE_PROMPT} "
+             f"prompt tokens + {SERVE_NEW} greedy tokens from the snapshot, "
+             f"tokens equal to the in-memory params'; flash_attention "
+             f"launches {counts['flash_attention']}"])
+
+
+def durability_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
+    """Step 14 on the card at paper_mlp's full width: trace replay on the
+    loop and the scan, elastic fleets, kill and resume of four algorithms,
+    the million-client bank's snapshot and a model served from a snapshot.
+    Returns (launches of each kernel on its durability run, report
+    rows)."""
+    from repro_torch.scenarios import synthesize_trace
+    del problem_cpu
+    t_start = time.perf_counter()
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    synthesize_trace(str(DUR_DIR / "trace"), **DUR_TRACE)
+    launches, rows = trace_phase(params0, problem)
+    more_launches, more = elastic_fleet_phase(problem)
+    launches["bank_scatter_batched"] = more_launches["bank_scatter_batched"]
+    rows += more
+    kill_launches, more = kill_resume_phase(params0, problem)
+    launches.update({k: v for k, v in kill_launches.items()
+                     if k not in launches})
+    rows += more
+    rows += million_snapshot_phase(params0, problem[0])
+    serve_launches, more = serve_snapshot_phase()
+    launches.update(serve_launches)
+    rows += more
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    missing = [k for k in DUR_FROM if not launches.get(k)]
+    check(not missing, f"durability path: {missing} never launched")
+    rows.append(f"durable phase: {time.perf_counter() - t_start:.1f} s")
+    return launches, rows
+
+
+# which durability run each kernel's count comes from (each counted from 0
+# just before it)
+DUR_FROM = {
+    "mifa_aggregate": f"durable MIFA(array) under trace replay, {ROUNDS} "
+                      "rounds (loop; scan: 51)",
+    "bank_scatter": f"durable BankedMIFA(DenseBank) resumed on the scan "
+                    f"from round {2 * DUR_EVERY} to {ROUNDS}",
+    "paged_bank_scatter": f"durable BankedMIFA(PagedDeviceBank) under trace "
+                          f"replay, {ROUNDS} rounds (loop; scan: 51)",
+    "paged_bank_gather": "durable: every row of a PagedDeviceBank restored "
+                         "from the resumed run's final snapshot",
+    "bank_scatter_batched": f"durable elastic fleet BankedMIFA(DenseBank), "
+                            f"K=3, {ROUNDS} rounds (loop; scan: 51)",
+    "flash_attention": f"durable granite-3-8b ({GRANITE_LAYERS} layers) "
+                       "served from a snapshot, prefill"}
+
+
+# --------------------------------------------------------------------------- #
 # the model zoo: flash_attention and ssd_scan, served models
 # --------------------------------------------------------------------------- #
 
@@ -3382,6 +3876,10 @@ def main() -> int:
     sim_launches, rows = sim_phase(params0, problem, problem_cpu)
     for row in rows:
         print(row)
+    # durability: trace replay, elastic fleets, kill and resume, snapshots
+    dur_launches, rows = durability_phase(params0, problem, problem_cpu)
+    for row in rows:
+        print(row)
     # the loop after all the captures: the main path's MIFA(array) again,
     # bit-equal to its first run
     from repro_torch.core import MIFA
@@ -3489,6 +3987,9 @@ def main() -> int:
         if name in sim_launches:
             scan.update(sim_launches=sim_launches[name],
                         sim_launches_from=sim_from[name])
+        if name in dur_launches:
+            scan.update(durability_launches=dur_launches[name],
+                        durability_launches_from=DUR_FROM[name])
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

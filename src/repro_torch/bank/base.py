@@ -13,8 +13,9 @@ backends are `DenseBank`, `PagedDeviceBank` (which pages rows on and off
 the card in `prepare`; f32, bf16 or int8 pages) and the host banks
 `HostBank` (f32 rows in pinned host memory) and `Int8PagedBank`. The
 device banks run fleets: `scatter_fleet` and `gather_fleet` take states
-whose leaves carry a leading trial axis (K, ...). `host_state` is not
-ported yet (ROADMAP Queue 1 item 17).
+whose leaves carry a leading trial axis (K, ...). `host_state` /
+`load_host_state` carry a bank's host bookkeeping through a run snapshot
+(`checkpoint.run_state`).
 
 Two ways in. `scatter(state, ids, updates, valid=, rng=)` takes host
 numpy ids, checks them and does any host work (paging). A round that runs
@@ -144,6 +145,18 @@ class MemoryBank:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement the batched fleet "
             "scatter; backends that do: DenseBank, PagedDeviceBank")
+
+    def host_state(self) -> dict:
+        """Host-side bookkeeping to keep in a run snapshot, as a tree of
+        arrays or tensors (`checkpoint.save_run`). Empty for banks whose
+        state is all in `runner.state`; `PagedDeviceBank` returns its
+        residency mirrors and spilled pages."""
+        return {}
+
+    def load_host_state(self, tree: dict) -> None:
+        """Restore what `host_state` returned (after `init`, before the
+        first round of the resumed run). The default does nothing."""
+        del tree
 
     def mean_g(self, state: dict) -> Any:
         """G_sum / N as a tree with param-shaped leaves."""

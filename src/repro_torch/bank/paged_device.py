@@ -69,7 +69,14 @@ nothing back to the host; the caller has paged the cohort in. Within a
 chunk of the scan engine the page table is fixed, so the chunk's logical
 rows are staged once with its other inputs.
 
-Not ported yet: `host_state` / `load_host_state` (ROADMAP Queue 1 item 17).
+Snapshots (`host_state` / `load_host_state`, for `checkpoint.save_run`):
+the device state rides the run's snapshot in `runner.state`; `host_state`
+adds the host bookkeeping under the reference's keys (the page-table
+mirror, slot owners, the free list in order, LRU stamps, counters and every
+spilled page as ``{"pages": [...], "scales": [...]}``), so a restored bank
+pages exactly as the uninterrupted one. Spill blocks may still be filling
+from the card, so `host_state` synchronises first; `load_host_state` puts
+them back into pinned memory on the card.
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ from torch.profiler import record_function
 
 from repro_torch.bank.base import (MemoryBank, check_row_range,
                                    host_cohort, tree_nbytes)
+from repro_torch.checkpoint.io import bf16_tensor
 from repro_torch.core import quantized_memory as qm
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.ops import (fleet_paged_bank_update_tree,
@@ -91,11 +99,6 @@ from repro_torch.tree import tree_index, tree_leaves, tree_map
 # the page-table update); `scripts/profile_round.py` reads it. With no
 # profiler active it costs one small host call per faulting round.
 PAGE_IN_RANGE = "bank.page_in"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"PagedDeviceBank {what} is not ported yet "
-                               f"(ROADMAP Queue 1 item {item})")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -142,6 +145,7 @@ class PagedDeviceBank(MemoryBank):
         self._lru: dict[int, int] = {}
         self._clock = 0
         self._spill: dict[int, list[torch.Tensor]] = {}
+        self._n_leaves = 0     # page leaves (a spill block's first entries)
         self.faults = 0
         self.evictions = 0
         self.refaults = 0      # faults served from the spill store
@@ -167,6 +171,7 @@ class PagedDeviceBank(MemoryBank):
         self._lru = {}
         self._clock = 0
         self._spill = {}
+        self._n_leaves = len(tree_leaves(params))
         self.faults = self.evictions = self.refaults = 0
         state = {
             "pages": tree_map(lambda p: torch.zeros(
@@ -446,10 +451,78 @@ class PagedDeviceBank(MemoryBank):
         return state
 
     def host_state(self) -> dict:
-        raise _not_ported("host_state", "17")
+        """The host bookkeeping for a run snapshot, under the reference's
+        keys: the page-table mirror, slot owners, the free list IN ORDER
+        (slot assignment order is part of the trajectory), LRU stamps,
+        counters and every spilled page's blocks (pinned host tensors, not
+        copies). Waits for the card first: an eviction's copy to the host
+        may still be running."""
+        if self._pinned:
+            torch.cuda.synchronize(self.device)
+        lps = sorted(self._spill)
+        keys = sorted(self._lru)
+        tree = {
+            "pt": self._pt.copy(), "slot_lp": self._slot_lp.copy(),
+            "free": np.asarray(self._free, np.int64),
+            "lru_keys": np.asarray(keys, np.int64),
+            "lru_vals": np.asarray([self._lru[k] for k in keys], np.int64),
+            "clock": np.int64(self._clock),
+            "faults": np.int64(self.faults),
+            "evictions": np.int64(self.evictions),
+            "spill_lp": np.asarray(lps, np.int64),
+        }
+        if lps:
+            n = self._n_leaves
+            tree["spill"] = [
+                {"pages": self._spill[lp][:n], "scales": self._spill[lp][n:]}
+                if self.quantized else {"pages": self._spill[lp]}
+                for lp in lps]
+        return tree
 
     def load_host_state(self, tree: dict) -> None:
-        raise _not_ported("load_host_state", "17")
+        """Restore `host_state` bookkeeping (after `init`, before the
+        first round). Spilled blocks, numpy (bf16 pages as their uint16
+        bits) or tensors, go back into host memory, pinned on the card:
+        each row leaf's blocks into one host buffer (one allocation, not
+        one a page), whose views the spill store holds."""
+        if not tree:
+            return
+        self._pt = np.asarray(tree["pt"], np.int32).copy()
+        self._slot_lp = np.asarray(tree["slot_lp"], np.int64).copy()
+        self._free = [int(s) for s in np.asarray(tree["free"])]
+        self._lru = {int(k): int(v) for k, v in
+                     zip(np.asarray(tree["lru_keys"]),
+                         np.asarray(tree["lru_vals"]))}
+        self._clock = int(tree["clock"])
+        self.faults = int(tree["faults"])
+        self.evictions = int(tree["evictions"])
+
+        def block(a, dtype):
+            if isinstance(a, torch.Tensor):
+                t = a
+            elif dtype == torch.bfloat16:
+                t = bf16_tensor(np.asarray(a))
+            else:
+                t = torch.from_numpy(np.asarray(a, order="C"))
+            if t.dtype != dtype:
+                raise ValueError(f"spilled block of {t.dtype}, the bank "
+                                 f"holds {dtype}")
+            return t
+
+        lps = [int(lp) for lp in np.asarray(tree["spill_lp"], np.int64)]
+        entries = [[block(p, self.dtype) for p in e["pages"]]
+                   + ([block(c, torch.float32) for c in e["scales"]]
+                      if self.quantized else [])
+                   for e in tree.get("spill", [])]
+        self._spill = {lp: [] for lp in lps}
+        for j in range(len(entries[0]) if entries else 0):
+            col = [e[j] for e in entries]
+            slab = torch.empty(sum(b.numel() for b in col),
+                               dtype=col[0].dtype, pin_memory=self._pinned)
+            for lp, b, part in zip(lps, col, slab.split(
+                    [b.numel() for b in col])):
+                part.copy_(b.reshape(-1))
+                self._spill[lp].append(part.view(b.shape))
 
     def mean_g(self, state: dict):
         return tree_map(lambda g: g / self.n, state["g_sum"])

@@ -37,12 +37,18 @@ def params_from_jax(tree_of_numpy, device: str | torch.device):
 
 def params_to_numpy(params):
     """Tensor leaves -> numpy leaves on the host. bfloat16 leaves become
-    `ml_dtypes.bfloat16` arrays with the same bits (imported only when a
-    tree holds one)."""
+    numpy bfloat16 arrays with the same bits: the dtype `ml_dtypes`
+    registers with numpy, which the caller's side (the JAX package) has
+    imported; this package never imports it."""
     def one(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
-            import ml_dtypes
-            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            try:
+                bf16 = np.dtype("bfloat16")
+            except TypeError:
+                raise TypeError("numpy has no bfloat16 dtype until "
+                                "ml_dtypes is imported (the JAX package "
+                                "imports it)") from None
+            return t.view(torch.int16).numpy().view(bf16)
         return t.numpy()
     return tree_map(one, params)

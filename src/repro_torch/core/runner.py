@@ -54,8 +54,12 @@ simulated seconds: `FLHistory.sim_seconds` and `eval_seconds`, and the
 `TauStats` timeline. A weight-aware algorithm (`FedBuffAvg`) takes the
 simulator's staleness weights in place of the bool mask.
 
-Not ported yet: checkpoints (`checkpoint=`, ROADMAP Queue 1 item 17),
-windowed scenarios (trace replay, item 17) and meshes (`mesh=`, item 19).
+Windowed scenarios (trace replay, `scenarios.trace_replay`) carry a
+window of masks in the scenario state; the loop re-points it between
+rounds when the round leaves it (the scan engine between chunks).
+Checkpoints (`run_fl(checkpoint=)`, `checkpoint.run_state`) ride the scan
+engine's chunk cuts. Not ported yet: meshes (`mesh=`, ROADMAP Queue 1 item
+19).
 """
 from __future__ import annotations
 
@@ -337,17 +341,15 @@ class RoundRunner:
         if proc.n != self.n_clients:
             raise ValueError(f"the scenario has {proc.n} devices, the "
                              f"batcher {self.n_clients} clients")
-        if proc.scan_window is not None:
-            raise NotImplementedError(
-                f"{type(proc).__name__} carries a window of masks "
-                "(trace replay), which is not ported yet (ROADMAP Queue 1 "
-                "item 17)")
         self.scen_process = proc
         if self.cohort_mode:
             self._scen_sampler = proc.host_sampler()
             return None
         self.scen_state = proc.init_state(self.device)
         self.scen_key = proc.key.to(self.device)
+        # a windowed process's state covers rounds [0, W) at first; the
+        # loop re-points it between rounds (`step_scenario`)
+        self._scen_win_start = 0
         return proc.sample_fn()
 
     def learning_rates(self, t: int) -> tuple[float, float]:
@@ -439,6 +441,11 @@ class RoundRunner:
         if self.cohort_mode:
             return self.step(t, self._scen_sampler.sample(t),
                              sim_time=sim_time)
+        w, ws = self.scen_process.scan_window, self._scen_win_start
+        if w is not None and not ws <= t < ws + w:
+            t0 = (t // w) * w
+            self.scen_process.load_window(self.scen_state, t0)
+            self._scen_win_start = t0
         with record_function(ROUND_PHASES[0]):
             x = to_device(self.round_inputs(t, None), self.device)
         carry, self.params, metrics = self.scen_body(self.scenario_carry(),
@@ -535,6 +542,17 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         run on the loop; an unpinned cohort pads to the N-client bucket.
       * "scan_strict" — like "scan", but those configurations raise.
 
+    `checkpoint` (a `repro_torch.checkpoint.CheckpointSpec`) snapshots the
+    whole run (params, algorithm state with a bank's pages and host
+    bookkeeping, the round generators, the scenario's state with a trace
+    window, τ statistics, history) through `checkpoint.save_run` after
+    every `checkpoint.every` completed rounds, atomically. With
+    ``checkpoint.resume=True`` the latest snapshot in ``checkpoint.dir``
+    is restored, host samplers are replayed to its round, and the run goes
+    on from there, bit-equal to the uninterrupted run. Snapshots ride the
+    scan engine's chunk cuts: "loop" raises, and a configuration the scan
+    cannot run raises instead of falling back without durability.
+
     `sim` (a `repro_torch.sim.SimSpec`: server policy, latency model,
     temporal config) puts the run on a simulated clock: rounds open and
     close in simulated seconds under the policy, and the applied mask is
@@ -546,13 +564,20 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     """
     if (participation is None) == (scenario is None):
         raise ValueError("pass exactly one of participation= or scenario=")
-    if checkpoint is not None:
-        raise _not_ported("checkpoint=", "17")
     if mesh is not None:
         raise _not_ported("mesh=", "19")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected 'loop', "
                          "'scan', or 'scan_strict'")
+    if checkpoint is not None:
+        if sim is not None:
+            raise ValueError("checkpoint= is not supported for simulated "
+                             "runs (the compiled simulator's carry holds "
+                             "event-queue state with no snapshot schema)")
+        if engine == "loop":
+            raise ValueError("checkpoint= rides the scan engine's chunk "
+                             "boundaries; pass engine='scan' (or "
+                             "'scan_strict')")
     runner = RoundRunner(model=model, algo=algo, batcher=batcher,
                          schedule=schedule, eta_local=eta_local,
                          weight_decay=weight_decay, seed=seed, params=params,
@@ -563,6 +588,18 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         return _run_sim(runner, sim, n_rounds, participation=participation,
                         engine=engine, scan_chunk=scan_chunk, seed=seed,
                         eval_fn=eval_fn, eval_every=eval_every)
+    start_round = 0
+    if checkpoint is not None and checkpoint.resume:
+        from repro_torch.checkpoint.run_state import (fast_forward_sampler,
+                                                      restore_run)
+        start_round = restore_run(runner, checkpoint)
+        if start_round:
+            # host availability streams are not in the snapshot: replay
+            # them through the restored rounds
+            fast_forward_sampler(participation, start_round)
+            fast_forward_sampler(runner._scen_sampler, start_round)
+        if start_round >= n_rounds:
+            return runner.finalize()
     if engine != "loop":
         from repro_torch.core.scan_engine import ScanDriver, scan_supported
         ok, why = scan_supported(runner)
@@ -570,11 +607,17 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
             t0 = time.time()
             ScanDriver(runner, scan_chunk=scan_chunk).run(
                 n_rounds, participation=participation, eval_fn=eval_fn,
-                eval_every=eval_every)
+                eval_every=eval_every, checkpoint=checkpoint,
+                start_round=start_round)
             runner.hist.wall_time = time.time() - t0
             return runner.finalize()
         if engine == "scan_strict":
             raise ValueError(f"engine='scan_strict': {why}")
+        if checkpoint is not None:
+            raise ValueError(
+                f"checkpoint= needs the scan engine, but this "
+                f"configuration cannot scan ({why}); refusing to fall "
+                "back and silently drop durability")
         warn_engine_fallback(
             f"engine='scan' unsupported for this configuration "
             f"({why}); falling back to the per-round loop")

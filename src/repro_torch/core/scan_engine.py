@@ -54,9 +54,19 @@ so the chain state and the (N,) int32 τ and running max advance in the
 graph, and each round's Σ τ and Σ τ² join the chunk's metrics buffer.
 After a chunk its τ vectors are copied aside (the graph keeps writing the
 carry's), and the flush merges them with `TauStats.absorb_scan`: the
-statistics equal the loop's, which reads every mask back. Windowed
-processes (trace replay, re-paged between chunks) come with ROADMAP Queue
-1 item 17.
+statistics equal the loop's, which reads every mask back.
+
+Windowed processes (trace replay): the scenario state carries W rounds of
+masks, and `pre_chunk` re-points the window at each chunk it does not
+cover. The captured round reads the window at fixed addresses, so the
+process writes the new rows INTO the carried tensors on the run's stream
+(`TraceReplay.load_window`), queued behind the previous chunk's replays.
+A chunk wider than the window raises.
+
+Checkpoints (`run(checkpoint=)`): every `checkpoint.every` rounds is a
+chunk cut and a sync round; after the chunk's flush `checkpoint.save_run`
+copies the carry to the host before the next chunk is queued (the replays
+overwrite the carry in place). `start_round` continues a restored run.
 """
 from __future__ import annotations
 
@@ -390,6 +400,20 @@ class ScanDriver:
             self.cap = r.cohort_capacity or _pow2_bucket(r.n_clients)
         self.scenario_mode = (r.scen_process is not None
                               and not r.cohort_mode)
+        # a windowed scenario: the window in the carry is re-pointed by
+        # `_pre_chunk`; `_seg` is the upcoming chunk, `_win_start` the
+        # origin of the carried window (None: load before the first chunk,
+        # also after a restore)
+        self._scan_window = (r.scen_process.scan_window
+                             if self.scenario_mode else None)
+        if self._scan_window is not None and scan_chunk > self._scan_window:
+            raise ValueError(
+                f"scan_chunk={scan_chunk} exceeds the scenario's carried "
+                f"availability window ({self._scan_window} rounds): a chunk "
+                "must be coverable by one window. Raise the scenario's "
+                "window= or lower scan_chunk")
+        self._seg = None
+        self._win_start = None
         body = r.body
         if self.scenario_mode:
             body = make_round_body(
@@ -412,6 +436,7 @@ class ScanDriver:
 
     def _build_xs(self, t0: int, t1: int, participation):
         r = self.r
+        self._seg = (t0, t1)
         if self.scenario_mode:
             return self.chunks.stage([r.round_inputs(t, None)
                                       for t in range(t0, t1)])
@@ -433,11 +458,19 @@ class ScanDriver:
         return self.chunks.stage(rounds)
 
     def _pre_chunk(self, carry):
-        """Page the chunk's cohort union in (identity for a dense bank)
-        while the host owns the carry; raises when it overflows the
-        slots."""
+        """Between chunks, on the host: page the chunk's cohort union in
+        (identity for a dense bank; raises when it overflows the slots), or
+        re-point a windowed scenario's carried window at the chunk, in
+        place. Neither reads the carry back."""
         state, params = carry
-        return self.r.algo.prepare_cohort(state, self._union), params
+        if self.r.cohort_mode:
+            return self.r.algo.prepare_cohort(state, self._union), params
+        w, (t0, t1) = self._scan_window, self._seg
+        if (self._win_start is None or not self._win_start <= t0
+                or t1 > self._win_start + w):
+            self.r.scen_process.load_window(state["scen_state"], t0)
+            self._win_start = self.r._scen_win_start = t0
+        return carry
 
     def _init_carry(self):
         r = self.r
@@ -484,19 +517,38 @@ class ScanDriver:
                     if k not in TAU_KEYS})
 
     def run(self, n_rounds: int, *, participation=None,
-            eval_fn: Callable | None = None, eval_every: int = 10) -> None:
-        """Rounds [0, n_rounds), the runner updated in place. Without
-        `participation` the runner's scenario draws the masks."""
+            eval_fn: Callable | None = None, eval_every: int = 10,
+            checkpoint=None, start_round: int = 0) -> None:
+        """Rounds [start_round, n_rounds), the runner updated in place.
+        Without `participation` the runner's scenario draws the masks.
+        `checkpoint` (a `checkpoint.CheckpointSpec`) snapshots the run
+        after every `checkpoint.every` rounds, once the chunk is flushed;
+        `start_round` > 0 continues a run `run_fl` restored."""
         r = self.r
         if participation is None and r.scen_process is None:
             raise ValueError("ScanDriver.run needs participation= or a "
                              "runner constructed with scenario=")
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
+        ckpts = set()
+        if checkpoint is not None:
+            ckpts = {t for t in range(start_round, n_rounds)
+                     if (t + 1) % checkpoint.every == 0}
+
+        def on_sync(t):
+            if t in evals:
+                r.evaluate(t, eval_fn)
+            if t in ckpts:
+                from repro_torch.checkpoint.run_state import save_run
+                save_run(r, checkpoint, t + 1)
+
         run_pipelined_chunks(
             self._init_carry(),
-            chunk_bounds(n_rounds, self.scan_chunk, evals),
+            chunk_bounds(n_rounds, self.scan_chunk, evals | ckpts,
+                         start=start_round),
             chunk_fn=self._chunk_fn,
             build_xs=lambda t0, t1: self._build_xs(t0, t1, participation),
             writeback=self._writeback, flush=self._flush,
-            sync_rounds=evals, on_sync=lambda t: r.evaluate(t, eval_fn),
-            pre_chunk=self._pre_chunk if r.cohort_mode else None)
+            sync_rounds=evals | ckpts, on_sync=on_sync,
+            pre_chunk=(self._pre_chunk
+                       if r.cohort_mode or self._scan_window is not None
+                       else None))

@@ -40,8 +40,10 @@ As in `core.runner`, a fleet round is host inputs (`fleet_inputs` /
 stages each chunk's inputs in one copy and, on the card, replays the body
 captured as a CUDA graph, per trial bit-equal to the loop.
 
-Not ported yet: windowed scenarios (trace replay, ROADMAP Queue 1 item 17)
-and meshes (`mesh=`, item 19).
+Windowed scenarios (trace replay, and elastic fleets over it): the
+trials' stacked (K, W, N) window is re-pointed in place between rounds on
+the loop and between chunks on the scan; every trial of a group shares one
+window length. Not ported yet: meshes (`mesh=`, ROADMAP Queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -325,18 +327,22 @@ class FleetRunner:
             if p.n != self.n_clients:
                 raise ValueError(f"a scenario has {p.n} devices, the "
                                  f"batcher {self.n_clients} clients")
-            if p.scan_window is not None:
-                raise NotImplementedError(
-                    f"{type(p).__name__} carries a window of masks (trace "
-                    "replay), which is not ported yet (ROADMAP Queue 1 "
-                    "item 17)")
+        # windowed processes (trace replay): the stacked (K, W, N) window
+        # must be rectangular
+        windows = {p.scan_window for p in procs}
+        if len(windows) > 1:
+            raise ValueError(
+                "all trials in one fleet group must share the scenario "
+                f"window length, got {sorted(map(str, windows))}")
         if self.cohort_mode:
             self._scen_samplers = [p.host_sampler() for p in procs]
             return
+        self._scen_procs = procs
         self._scen_fn = procs[0].sample_fn()
         self.scen_state = tree_stack([p.init_state(self.device)
                                       for p in procs])
         self.scen_keys = torch.stack([p.key for p in procs]).to(self.device)
+        self._scen_win_start = 0
 
     # ------------------------------------------------------------------ #
     def learning_rates(self, t: int) -> tuple[np.ndarray, np.ndarray]:
@@ -436,6 +442,13 @@ class FleetRunner:
         if self._scen_fn is None:
             raise ValueError("construct FleetRunner(scenarios=...) to use "
                              "step_scenario")
+        procs = self._scen_procs
+        w = procs[0].scan_window
+        if w is not None and not (self._scen_win_start <= t
+                                  < self._scen_win_start + w):
+            t0 = (t // w) * w
+            procs[0].load_window_fleet(self.scen_state, procs, t0)
+            self._scen_win_start = t0
         with record_function(ROUND_PHASES[0]):
             x = to_device(self.fleet_inputs(t, None), self.device)
         carry, self.params, metrics = self.body(self.scenario_carry(),
@@ -520,6 +533,16 @@ class FleetScanDriver:
         self.r = r = runner
         self.scan_chunk = scan_chunk
         self.scenario_mode = r._scen_fn is not None
+        # windowed scenarios, as `core.scan_engine.ScanDriver`'s
+        self._scan_window = (r._scen_procs[0].scan_window
+                             if self.scenario_mode else None)
+        if self._scan_window is not None and scan_chunk > self._scan_window:
+            raise ValueError(
+                f"scan_chunk={scan_chunk} exceeds the scenario's carried "
+                f"availability window ({self._scan_window} rounds); raise "
+                "the scenario's window= or lower scan_chunk")
+        self._seg = None
+        self._win_start = None
         if r.cohort_mode:
             self.cap = r.cohort_capacity or _pow2_bucket(r.n_clients)
             self.width = _pow2_bucket(min(r.n_clients, r.n_trials * self.cap))
@@ -534,6 +557,7 @@ class FleetScanDriver:
 
     def _build_xs(self, t0: int, t1: int, parts):
         r = self.r
+        self._seg = (t0, t1)
         if self.scenario_mode:
             return self.chunks.stage([r.fleet_inputs(t, None)
                                       for t in range(t0, t1)])
@@ -558,8 +582,20 @@ class FleetScanDriver:
         return self.chunks.stage(rounds)
 
     def _pre_chunk(self, carry):
+        """Page the chunk's cross-trial union in (cohort fleets), or
+        re-point the trials' stacked window at the chunk in place
+        (windowed scenarios)."""
         state, params = carry
-        return self.r.algo.prepare_cohort(state, self._union), params
+        r = self.r
+        if r.cohort_mode:
+            return r.algo.prepare_cohort(state, self._union), params
+        w, (t0, t1) = self._scan_window, self._seg
+        if (self._win_start is None or not self._win_start <= t0
+                or t1 > self._win_start + w):
+            procs = r._scen_procs
+            procs[0].load_window_fleet(state["scen_state"], procs, t0)
+            self._win_start = r._scen_win_start = t0
+        return carry
 
     def _chunk_fn(self, carry, xs):
         state, params, ys = self.chunks.run(*carry, xs)
@@ -594,7 +630,9 @@ class FleetScanDriver:
             build_xs=lambda t0, t1: self._build_xs(t0, t1, parts),
             writeback=self._writeback, flush=self._flush,
             sync_rounds=evals, on_sync=lambda t: r.evaluate(t, eval_fn),
-            pre_chunk=self._pre_chunk if r.cohort_mode else None)
+            pre_chunk=(self._pre_chunk
+                       if r.cohort_mode or self._scan_window is not None
+                       else None))
 
 
 def make_fleet_eval(model, eval_batch: dict, *,

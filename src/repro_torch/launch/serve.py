@@ -7,7 +7,9 @@
 On the card (the default device) every prefill attention call runs the
 hand-written `flash_attention` kernel and every prefill SSD scan the
 `ssd_scan` kernel; decode runs plain PyTorch. Params are random, drawn on
-the device from `--seed`; prompts are drawn from the same seed.
+the device from `--seed`, or loaded from a `checkpoint.save_pytree`
+snapshot with `--params` (of either package: the file format is shared);
+prompts are drawn from the seed.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import ArchConfig, get_config, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
@@ -31,10 +34,11 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
           device: str | torch.device = DEFAULT_DEVICE,
-          cfg: ArchConfig | None = None) -> dict:
+          cfg: ArchConfig | None = None, params=None) -> dict:
     """Prefill `batch` random prompts of `prompt_len` tokens, then decode
     `new_tokens` greedily. `cfg` overrides `arch`/`smoke` (e.g. a config
-    with its depth cut).
+    with its depth cut); `params` (a tree of tensors on `device`, e.g. from
+    `load_pytree`) replace the random init.
 
     Returns {"cfg", "n_params", "prompts" (B,P), "logits" (B,V) of the prefill,
     "tokens" (B,T) generated, "prefill_s", "decode_s" (host clock, each
@@ -49,7 +53,8 @@ def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
     model = build_model(cfg)
-    params = model.init(seed, device=dev)
+    if params is None:
+        params = model.init(seed, device=dev)
     B, P, T = batch, prompt_len, new_tokens
     gen = torch.Generator().manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen
@@ -102,24 +107,25 @@ def report(out: dict) -> list[str]:
     return lines
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--params", default=None, help="checkpoint to load")
+    ap.add_argument("--params", default=None,
+                    help="params snapshot (save_pytree npz) to serve")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     args = ap.parse_args(argv)
-    if args.params:
-        raise NotImplementedError(
-            "--params: checkpoints are not ported (ROADMAP Queue 1 item 17)")
+    params = (load_pytree(args.params, device=args.device) if args.params
+              else None)
     out = serve(args.arch, smoke=args.smoke, batch=args.batch,
                 prompt_len=args.prompt_len, new_tokens=args.new_tokens,
-                seed=args.seed, device=args.device)
+                seed=args.seed, device=args.device, params=params)
     print("\n".join(report(out)))
+    return out
 
 
 if __name__ == "__main__":

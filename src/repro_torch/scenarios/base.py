@@ -113,8 +113,13 @@ class AvailabilityProcess:
     n: int
     seed: int
     stateless: bool = True
-    #: windowed processes (trace replay) carry a window of masks in their
-    #: state; they come with ROADMAP Queue 1 item 17
+    #: round 0 activates every device (Definition 5.2(1)); elastic fleets
+    #: activate only the present ones
+    round0_all_active: bool = True
+    #: a windowed process (trace replay) carries `scan_window` rounds of
+    #: masks in its state and implements the window protocol
+    #: (`read_window`, `load_window`, `load_window_fleet`), which the
+    #: engines call to re-point the window
     scan_window: int | None = None
 
     @property

@@ -5,9 +5,9 @@ string, counterpart of `repro/scenarios/registry.py`:
                          rate=0.5, burst=8.0)
     run_fl(model=model, algo=algo, scenario=scen, ..., device="cuda")
 
-Third parties register their own with `register` (decorator or call). The
-reference's `trace_replay` and `elastic` scenarios come with ROADMAP Queue
-1 item 17 and are not registered until then.
+Third parties register their own with `register` (decorator or call).
+`trace_replay` and `elastic` register from their own modules
+(`scenarios.trace_replay`, `scenarios.elastic`).
 """
 from __future__ import annotations
 

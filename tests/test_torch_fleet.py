@@ -508,12 +508,14 @@ def test_fleet_surfaces_not_ported_raise():
                          schedule=inv_t(1.0), seeds=(0,), device="cpu",
                          scenarios=[scen])
     assert runner.step_scenario(0)["loss"].shape == (1,)
+    # windowed scenarios (item 17) are ported; the trials of one group
+    # share the window length
     windowed = make_process("bernoulli", n=n)
     windowed.scan_window = 4
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="window length"):
         FleetRunner(model=model, algo=MIFA(), batcher=batcher,
-                    schedule=inv_t(1.0), seeds=(0,), device="cpu",
-                    scenarios=[windowed])
+                    schedule=inv_t(1.0), seeds=(0, 1), device="cpu",
+                    scenarios=[windowed, make_process("bernoulli", n=n)])
     # simulated fleets (ROADMAP Queue 1 item 16) are ported; a cohort
     # algorithm cannot ride one
     from repro_torch.sim import WaitForAll, tiered_shifted_exponential

@@ -1,7 +1,8 @@
 """The port stands alone and never runs quietly on the wrong device.
 
-* No module of `src/repro_torch` and not `chip_smoke.py` imports `jax` or
-  anything of the JAX package `repro` (the card's machine has no JAX).
+* No module of `src/repro_torch` and not `chip_smoke.py` imports `jax`,
+  anything of the JAX package `repro`, or `ml_dtypes` (the card's machine
+  has neither JAX nor `ml_dtypes`).
 * Entry points default to device="cuda" and raise without a GPU unless the
   caller passes device="cpu".
 * What the slice leaves for later raises NotImplementedError naming it.
@@ -45,7 +46,8 @@ def _imported_modules(path: Path) -> list[str]:
 def test_no_jax_and_no_reference_imports(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (path,
+                                                                   name)
 
 
 def test_isolation_walk_sees_the_whole_port():
@@ -59,7 +61,8 @@ def test_isolation_walk_sees_the_whole_port():
             "scan_engine", "quantized_memory", "int8_paged",
             "participation", "_threefry", "processes", "registry",
             "algorithms", "host", "events", "latency", "policies",
-            "engine", "compiled", "sim"} <= mods
+            "engine", "compiled", "sim", "io", "run_state",
+            "trace_replay", "elastic"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -136,7 +139,7 @@ def test_cpu_run_takes_the_plain_path():
 
 
 # items of this table that have since been ported: their option now runs
-PORTED_ITEMS = {"12", "13", "16"}
+PORTED_ITEMS = {"12", "13", "16", "17"}
 
 
 def _sim_spec():
@@ -147,14 +150,19 @@ def _sim_spec():
 
 @pytest.mark.parametrize("kw,item", [
     ({"scenario": make_scenario("gilbert_elliott", n=4)}, "13"),
-    ({"sim": _sim_spec()}, "16"), ({"checkpoint": object()}, "17"),
+    ({"sim": _sim_spec()}, "16"), ({"checkpoint": "spec"}, "17"),
     ({"mesh": object()}, "19"), ({"engine": "scan"}, "12")])
-def test_unported_run_options_raise(kw, item):
+def test_unported_run_options_raise(kw, item, tmp_path):
     cfg = get_smoke_config("paper_logistic")
     # a scenario takes the place of the participation process
     avail = ({} if "scenario" in kw else {"participation":
                                           BernoulliParticipation(
                                               np.full(4, 0.5))})
+    if "checkpoint" in kw:
+        # checkpoints ride the scan engine's chunk cuts
+        from repro_torch.checkpoint import CheckpointSpec
+        kw = {"checkpoint": CheckpointSpec(every=1, dir=str(tmp_path)),
+              "engine": "scan"}
 
     def run():
         return run_fl(model=build_model(cfg), algo=MIFA(),
@@ -226,6 +234,7 @@ def test_unported_zoo_surfaces_raise():
     with pytest.raises(NotImplementedError, match="item 18"):
         transformer.forward({}, torch.zeros((1, 4, cfg.d_model)),
                             torch.arange(4), cfg)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # --params (item 17) is ported: it loads a snapshot, which must exist
+    with pytest.raises(FileNotFoundError):
         main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
-              "--params", "ckpt"])
+              "--params", "no-such-snapshot.npz"])

@@ -298,11 +298,14 @@ def test_make_bank_and_what_is_not_ported():
     # int8 memory (ROADMAP Queue 1 item 10) is ported
     assert isinstance(make_bank("int8_paged", device="cpu"), Int8PagedBank)
     assert PagedDeviceBank(dtype="int8", device="cpu").quantized
+    # its host state for snapshots (ROADMAP Queue 1 item 17) is ported
     bank = PagedDeviceBank(page_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        bank.host_state()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        bank.load_host_state({})
+    bank.init({"w": torch.zeros(3)}, 5)
+    host = bank.host_state()
+    assert list(host) == ["pt", "slot_lp", "free", "lru_keys", "lru_vals",
+                          "clock", "faults", "evictions", "spill_lp"]
+    bank.load_host_state({})
+    np.testing.assert_array_equal(bank.host_state()["pt"], host["pt"])
 
 
 # --------------------------------------------------------------------------- #

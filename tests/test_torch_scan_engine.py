@@ -13,8 +13,8 @@ reference's.
 * Fallbacks (update-clock schedules, host banks) warn and loop under
   "scan" and raise under "scan_strict".
 * Scenario-mode scan runs (its parity tests are in
-  `tests/test_torch_scenarios.py`); a windowed process (trace replay,
-  ROADMAP Queue 1 item 17) raises.
+  `tests/test_torch_scenarios.py`); a windowed process (trace replay)
+  raises for a chunk wider than its window.
 * On the card (`cuda`): the compiled simulator bit-equal to the heap
   engine (`tests/test_torch_sim_compiled.py` holds it on the CPU), and
   the host bank's rows and the paged bank's spill store pinned.
@@ -216,13 +216,14 @@ def test_unknown_engine_and_scenario_scan_rejected():
         run_fl(algo=MIFA(), engine="turbo",
                participation=TraceParticipation(_trace()), **_kw())
     # scenario mode (ROADMAP Queue 1 item 13) is ported: the scan runs it,
-    # bit-equal to the loop; a windowed process (item 17) still raises
+    # bit-equal to the loop; a windowed process (item 17) raises for a
+    # chunk wider than its window
     scen = make_scenario("gilbert_elliott", n=N, seed=1)
     _assert_same(run_fl(algo=MIFA(), engine="loop", scenario=scen, **_kw()),
                  run_fl(algo=MIFA(), engine="scan", scenario=scen, **_kw()))
     windowed = make_process("bernoulli", n=N)
     windowed.scan_window = 4
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="window"):
         run_fl(algo=MIFA(), engine="scan", scenario=windowed, **_kw())
     with pytest.raises(ValueError, match="scan_chunk"):
         run_fl(algo=MIFA(), engine="scan", scan_chunk=0,
@@ -548,3 +549,81 @@ def test_cuda_host_bank_and_spill_store_pinned(cuda_device):
     assert paged.evictions > 0 and paged.refaults > 0
     assert all(b.is_pinned() for blocks in paged._spill.values()
                for b in blocks)
+
+
+# trace replay and checkpoints on the card: the window re-pointed in place
+# between chunks, and a killed int8 run resumed bit for bit
+
+def _card_trace(tmp_path):
+    from repro_torch.scenarios import synthesize_trace
+    return synthesize_trace(str(tmp_path / "trace"), n=N, horizon=40,
+                            seed=5, rate=0.6, burst=3.0, churn_frac=0.25)
+
+
+@pytest.mark.cuda
+def test_cuda_trace_replay_scan_bitexact_vs_loop(cuda_device, tmp_path):
+    """Trace replay with a window of 4 under chunks of 3: the scan replays
+    re-page the carried window between chunks, bit-equal to the card's
+    loop, with the CPU's masks; `mifa_aggregate` once a round on the loop,
+    plus once for the warm-up on the scan."""
+    from repro_torch.scenarios import TraceReplay
+    path = _card_trace(tmp_path)
+    runs, counts = {}, {}
+    for engine in ("loop", "scan_strict"):
+        before = _counts()
+        runs[engine] = run_fl(algo=MIFA(), engine=engine, scan_chunk=3,
+                              scenario=TraceReplay(path, window=4),
+                              **_kw(device=cuda_device))
+        counts[engine] = {k: v - before[k] for k, v in _counts().items()}
+    _assert_same(runs["loop"], runs["scan_strict"])
+    assert counts["loop"]["mifa_aggregate"] == T
+    assert counts["scan_strict"]["mifa_aggregate"] == T + 1
+    cpu = run_fl(algo=MIFA(), scenario=TraceReplay(path, window=4), **_kw())
+    assert cpu[1].n_active == runs["loop"][1].n_active
+
+
+@pytest.mark.cuda
+def test_cuda_trace_window_copied_in_place(cuda_device, tmp_path):
+    """Each re-page writes into the carried window's tensors: the carry's
+    pointers stay those the round was captured with, and the window holds
+    the file's rows for the chunk."""
+    from repro_torch.core.scan_engine import ScanDriver
+    from repro_torch.core.runner import RoundRunner
+    from repro_torch.scenarios import TraceReplay, open_trace
+    path = _card_trace(tmp_path)
+    kw = _kw(device=cuda_device)
+    kw.pop("n_rounds")
+    runner = RoundRunner(algo=MIFA(), scenario=TraceReplay(path, window=4),
+                         **kw)
+    drv = ScanDriver(runner, scan_chunk=4)
+    win = runner.scen_state["win"]
+    ptrs = (win.data_ptr(), runner.scen_state["win_t0"].data_ptr())
+    drv.run(T)
+    torch.cuda.synchronize()
+    assert (runner.scen_state["win"].data_ptr(),
+            runner.scen_state["win_t0"].data_ptr()) == ptrs
+    assert int(runner.scen_state["win_t0"]) == 8
+    np.testing.assert_array_equal(runner.scen_state["win"].cpu().numpy(),
+                                  open_trace(path).read_block(8, 4))
+    assert drv.replays == T and len(drv.chunks.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kill_resume_bitexact(cuda_device, tmp_path):
+    """MIFA(int8) draws its rounding from the device generator, which the
+    captured round advances on every replay: a run killed after round 9
+    and resumed from its round-8 snapshot equals the uninterrupted run."""
+    from repro_torch.checkpoint import CheckpointSpec
+    from repro_torch.scenarios import TraceReplay
+    path = _card_trace(tmp_path)
+
+    def run(d, n_rounds=14, resume=False):
+        return run_fl(algo=MIFA(memory="int8"), engine="scan_strict",
+                      scan_chunk=5, scenario=TraceReplay(path, window=T),
+                      checkpoint=CheckpointSpec(every=4, dir=str(d),
+                                                resume=resume),
+                      **_kw(device=cuda_device, n_rounds=n_rounds))
+
+    full = run(tmp_path / "full")
+    run(tmp_path / "killed", n_rounds=9)
+    _assert_same(full, run(tmp_path / "killed", resume=True))

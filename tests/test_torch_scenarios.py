@@ -59,7 +59,6 @@ ROUNDS = 64
 SEEDS = (0, 3, 11)
 # kwargs that make a scenario interesting at small N
 KW = {"staged_blackout": {"stage_len": 5}, "cluster": {"n_clusters": 3}}
-NOT_PORTED = {"elastic", "trace_replay"}      # ROADMAP Queue 1 item 17
 
 
 def _kw(name):
@@ -99,7 +98,7 @@ def test_round_keys_broadcast_over_trials():
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("name", sorted(set(jscenario_names()) - NOT_PORTED))
+@pytest.mark.parametrize("name", sorted(jscenario_names()))
 def test_masks_match_reference(name, seed):
     for n in (N, 100):
         ref = jmake_process(name, n=n, seed=seed, **_kw(name)).host_sampler()
@@ -141,7 +140,7 @@ def test_fleet_sample_matches_host_surfaces(name):
             np.testing.assert_array_equal(masks[k].numpy(), h.sample(t))
 
 
-@pytest.mark.parametrize("name", sorted(set(jscenario_names()) - NOT_PORTED))
+@pytest.mark.parametrize("name", sorted(jscenario_names()))
 def test_theory_matches_reference(name):
     for n in (N, 100):
         ref = jmake_process(name, n=n, seed=0, **_kw(name))
@@ -200,7 +199,7 @@ def test_stateful_order_check_and_round_zero():
 
 
 def test_registry_tags_and_errors():
-    assert scenario_names() == sorted(set(jscenario_names()) - NOT_PORTED)
+    assert scenario_names() == sorted(jscenario_names())
     for name, kw in (("gilbert_elliott", {"rate": 0.5, "burst": 8.0}),
                      ("cluster", {"assignment": np.arange(N) % 2,
                                   "n_clusters": 2}),
@@ -216,12 +215,14 @@ def test_registry_tags_and_errors():
         make_scenario("bernoulli", n=N).sim_inputs()
     host, lat = make_scenario("bernoulli", n=N, latency="rtt").sim_inputs()
     assert isinstance(host, HostSampler) and lat == "rtt"
+    # trace replay and elastic fleets (ROADMAP Queue 1 item 17) are ported
     import repro_torch.scenarios as S
+    from repro_torch.scenarios import elastic, trace_replay
     for name in ("TraceReplay", "TraceFile", "open_trace", "cached_trace",
-                 "synthesize_trace", "write_trace", "ElasticProcess",
-                 "elastic_capacity", "staged_arrivals"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            getattr(S, name)()
+                 "synthesize_trace", "write_trace"):
+        assert getattr(S, name) is getattr(trace_replay, name)
+    for name in ("ElasticProcess", "elastic_capacity", "staged_arrivals"):
+        assert getattr(S, name) is getattr(elastic, name)
 
 
 # --------------------------------------------------------------------------- #
