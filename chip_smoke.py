@@ -154,7 +154,19 @@ Run from the root of a checkout on a machine with a CUDA card. It
  17. runs zamba2-7b at full width in f32, its first 6 layers, on the card
      and on the CPU (prefill logits, every cache leaf, two decode steps),
      and its first 12 layers as 2048 prompt tokens plus 128 teacher-forced
-     decode steps against one prefill of 2176 tokens.
+     decode steps against one prefill of 2176 tokens;
+ 18. trains the zoo's text models through `launch.train.train`
+     (`train_phase`, lines starting `train `): granite-3-8b at full width
+     (d_model 4096, vocab 49155) cut to 2 layers, bf16, N=4 clients, K=2
+     local steps of 2 x 128 tokens, 3 rounds of MIFA(array): the server
+     step launches `mifa_aggregate` once a round (one leaf table) and no
+     other kernel runs (the training forward is the differentiable model
+     path); ms a round, tokens/s and the peak allocation; one round's
+     updates through the kernel against its plain version (G bit-equal);
+     one client's f32 loss and gradients (1 layer) on the card against the
+     CPU; `make_train_step`'s vmap mode against its sequential mode (f32);
+     zamba2-7b at full width cut to 6 layers (the shared attention block
+     on the path) for 2 rounds.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -3760,6 +3772,256 @@ def zoo_phases(gen, timing: dict) -> tuple[dict, dict, dict]:
             launches)
 
 
+# --------------------------------------------------------------------------- #
+# federated training of the zoo's text models (launch/train.py)
+# --------------------------------------------------------------------------- #
+
+# granite-3-8b at full width, its depth cut to TRAIN_LAYERS, bf16: TRAIN_N
+# clients, TRAIN_K local steps of TRAIN_MB sequences of TRAIN_SEQ tokens,
+# TRAIN_ROUNDS rounds of MIFA(array); zamba2-7b at full width, cut to its
+# first ZAMBA_TRAIN_LAYERS (five Mamba2 layers and the shared attention
+# block), for ZAMBA_TRAIN_ROUNDS rounds
+TRAIN_LAYERS, TRAIN_N, TRAIN_K, TRAIN_MB, TRAIN_SEQ = 2, 4, 2, 2, 128
+TRAIN_ROUNDS, ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_ROUNDS = 3, 6, 2
+TRAIN_ETA0 = 0.25
+TRAIN_FROM = (f"train granite-3-8b, {TRAIN_LAYERS} layers at full width, "
+              f"N={TRAIN_N} K={TRAIN_K}, {TRAIN_ROUNDS} rounds of "
+              "MIFA(array): one launch a round for the tree's leaf table")
+# the round whose batch the in-round checks take, and their mask
+TRAIN_CHECK_ROUND, TRAIN_CHECK_MASK = 3, (True, False, True, True)
+# f32 model bounds (tests/test_torch_models.py), each leaf against its own
+# magnitude: |d| <= MODEL_ATOL·max|ref| + MODEL_RTOL·|ref|
+MODEL_RTOL, MODEL_ATOL = 2e-4, 2e-5
+
+
+def train_cfg(arch: str, n_layers: int, **change):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(n_layers=n_layers, fl_clients=TRAIN_N,
+                                    fl_local_steps=TRAIN_K, **change)
+
+
+def train_run(label, cfg, rounds, smi) -> tuple[dict, dict, list]:
+    """`launch.train.train` on the card, every count set to 0 just before
+    and read just after: `mifa_aggregate` once a round for each leaf table
+    and no other kernel (the training forward calls none); finite losses
+    and params. Prints ms a round, tokens/s and the peak allocation."""
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train(cfg=cfg, rounds=rounds, clients=TRAIN_N, k_steps=TRAIN_K,
+                mb=TRAIN_MB, seq=TRAIN_SEQ, eta0=TRAIN_ETA0,
+                memory="array", seed=0, device="cuda", log_every=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(out["params"])
+    expect = rounds * n_tables(len(leaves))
+    others = {k: v for k, v in counts.items() if k != "mifa_aggregate"}
+    check(counts["mifa_aggregate"] == expect and not any(others.values()),
+          f"train {label}: kernel counts {counts}, expected "
+          f"mifa_aggregate {expect} ({rounds} rounds of {len(leaves)} "
+          "leaves) and nothing else")
+    check(bool(np.isfinite(out["losses"]).all()),
+          f"train {label}: losses {out['losses']}")
+    check(all(bool(torch.isfinite(p.float()).all()) for p in leaves),
+          f"train {label}: non-finite params")
+    tokens = TRAIN_N * TRAIN_K * TRAIN_MB * TRAIN_SEQ
+    ms = [r * 1e3 for r in out["round_s"]]
+    steady = float(np.median(ms[1:]))
+    rows = [f"train {label}: {cfg.n_layers} layers at full width "
+            f"(d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
+            f"{out['n_params']} params, {cfg.param_dtype}, N={TRAIN_N} "
+            f"K={TRAIN_K} mb={TRAIN_MB} seq={TRAIN_SEQ}, MIFA(array), "
+            f"{rounds} rounds in {seconds:.3f} s",
+            f"  losses {[round(x, 6) for x in out['losses']]}; "
+            f"mifa_aggregate launches {counts['mifa_aggregate']} "
+            f"({len(leaves)} leaves, {n_tables(len(leaves))} table)",
+            f"  ms a round {[round(x, 3) for x in ms]} (host clock, each "
+            f"ending in the read of its loss); rounds 1-{rounds - 1}: median "
+            f"{steady:.3f} ms, {tokens / steady * 1e3:.1f} tokens/s "
+            f"({tokens} tokens a round); peak device allocation {peak} B "
+            f"[{smi}]"]
+    return out, counts, rows
+
+
+def train_round_inputs(cfg):
+    """The checks' round: the batch of TRAIN_CHECK_ROUND (train()'s own
+    batcher), the mask TRAIN_CHECK_MASK and that round's rate."""
+    from repro_torch.data import TokenBatcher
+    from repro_torch.optim import inv_t
+    batcher = TokenBatcher(n_clients=TRAIN_N, vocab=cfg.vocab_size,
+                           seq_len=TRAIN_SEQ, batch_size=TRAIN_MB,
+                           k_steps=TRAIN_K, seed=0)
+    toks = batcher.sample_round(TRAIN_CHECK_ROUND)["tokens"]
+    eta = inv_t(TRAIN_ETA0)(TRAIN_CHECK_ROUND + 1)
+    return ({"tokens": torch.from_numpy(toks).cuda()},
+            torch.tensor(TRAIN_CHECK_MASK, device="cuda"), eta, toks)
+
+
+def stale_leaf(j: int, p: torch.Tensor) -> torch.Tensor:
+    """Leaf j of a stale update array (TRAIN_N, *shape), f32, drawn again
+    from its seed whenever it is needed."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + j)
+    return torch.randn((TRAIN_N,) + tuple(p.shape), generator=gen,
+                       device="cuda")
+
+
+def train_kernel_check(model, params, cfg) -> tuple[float, str]:
+    """(b) One round's updates of the trained granite tree (the batch of
+    TRAIN_CHECK_ROUND) through `mifa_aggregate_tree` (the kernel) against
+    the plain version on the same inputs, leaf by leaf: G bit-equal, w
+    within the `check_mifa` tolerance of the summed magnitudes."""
+    import itertools
+
+    from repro_torch.core.local_update import client_updates
+    from repro_torch.kernels.mifa_aggregate import mifa_aggregate_ref
+    from repro_torch.kernels.ops import mifa_aggregate_tree
+    from repro_torch.tree import tree_map
+    batch, active, eta, _ = train_round_inputs(cfg)
+    eta_t = torch.tensor(eta, dtype=torch.float32, device="cuda")
+    updates, _ = client_updates(model.loss_fn, params, batch, eta_t,
+                                K=TRAIN_K)
+    count = itertools.count()
+    G = tree_map(lambda p: stale_leaf(next(count), p), params)
+    G, w_new = mifa_aggregate_tree(G, updates, active, params, eta_t)
+    torch.cuda.synchronize()
+    count, worst = itertools.count(), [0.0, 0]
+
+    def verify(g_k, u, w, w_k):
+        j = next(count)
+        g_ref, w_ref = mifa_aggregate_ref(
+            stale_leaf(j, w).reshape(TRAIN_N, -1), u.reshape(TRAIN_N, -1),
+            active, w.reshape(-1), eta)
+        check(torch.equal(g_k.reshape(TRAIN_N, -1), g_ref),
+              f"train kernel check: G of leaf {j} differs")
+        rtol, atol = TOL[w.dtype]
+        d = (w_k.reshape(-1).float() - w_ref.float()).abs()
+        scale = w.reshape(-1).float().abs() + eta * g_ref.abs().mean(0)
+        check(bool((d <= atol + rtol * scale).all()),
+              f"train kernel check: w of leaf {j} off by "
+              f"{d.max().item():.3e}")
+        worst[0] = max(worst[0], d.max().item())
+        worst[1] += g_k.numel()
+
+    tree_map(verify, G, updates, params, w_new)
+    return worst[0], (
+        f"train kernel vs plain (b): one round's updates of the trained "
+        f"granite tree (batch of round {TRAIN_CHECK_ROUND}, mask "
+        f"{[int(a) for a in TRAIN_CHECK_MASK]}, eta {eta}), "
+        f"{worst[1]} elements of G bit-equal, max |dw| {worst[0]:.3e}")
+
+
+def model_gap(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |a - ref| over the f32 model bound of each element, as a
+    fraction of the bound (<= 1 passes), computed on a's device."""
+    a, ref = a.float(), ref.to(a.device).float()
+    bound = MODEL_ATOL * ref.abs().max() + MODEL_RTOL * ref.abs()
+    return ((a - ref).abs() / bound.clamp(min=1e-30)).max().item()
+
+
+def train_card_vs_cpu() -> str:
+    """(c) One client's loss and gradients, granite-3-8b at full width in
+    f32, its first layer, on the card and on the CPU from the same params
+    and tokens (the first minibatch of client 0)."""
+    from torch.func import grad_and_value
+
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = train_cfg("granite_3_8b", 1, param_dtype="float32",
+                    compute_dtype="float32")
+    model = build_model(cfg)
+    p_gpu = model.init(4, device="cuda")
+    toks = torch.from_numpy(train_round_inputs(cfg)[3][0, 0])
+    out = {}
+    for dev, params in (("cuda", p_gpu),
+                        ("cpu", tree_map(lambda t: t.cpu(), p_gpu))):
+        t0 = time.perf_counter()
+        g, (loss, _) = grad_and_value(model.loss_fn, has_aux=True)(
+            params, {"tokens": toks.to(dev)})
+        out[dev] = (loss, g, time.perf_counter() - t0)
+    loss_gap = model_gap(out["cuda"][0], out["cpu"][0])
+    gaps = [model_gap(a, b) for a, b in zip(tree_leaves(out["cuda"][1]),
+                                            tree_leaves(out["cpu"][1]))]
+    check(loss_gap <= 1 and max(gaps) <= 1,
+          f"train card vs CPU: loss {loss_gap:.3e}, gradient leaves "
+          f"{[f'{x:.3e}' for x in gaps]} of the f32 model bound")
+    return (f"train card vs CPU (c): granite-3-8b, 1 layer at full width, "
+            f"f32, one client's minibatch ({TRAIN_MB} x {TRAIN_SEQ}): loss "
+            f"{out['cuda'][0].item():.6f} / {out['cpu'][0].item():.6f}, "
+            f"worst of {len(gaps)} gradient leaves {max(gaps):.3e} of the "
+            f"bound (rtol {MODEL_RTOL}, atol {MODEL_ATOL}·max|leaf|); "
+            f"card {out['cuda'][2]:.3f} s, CPU {out['cpu'][2]:.3f} s")
+
+
+def train_modes(params_bf16) -> str:
+    """(d) `make_train_step` in vmap mode (the kernel) against sequential
+    mode on the card, on an f32 copy of the trained granite tree and the
+    batch of TRAIN_CHECK_ROUND: G and params at the f32 model bounds. (In
+    bf16 compute the two modes' matmuls round differently, so f32.)"""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = train_cfg("granite_3_8b", TRAIN_LAYERS, param_dtype="float32",
+                    compute_dtype="float32")
+    params = tree_map(lambda p: p.float(), params_bf16)
+    batch, active, eta, _ = train_round_inputs(cfg)
+    res = {}
+    for sequential in (False, True):
+        c = cfg.replace(sequential_clients=sequential)
+        step = make_train_step(build_model(c), c, TRAIN_N, TRAIN_K)
+        G = tree_map(lambda p: torch.zeros((TRAIN_N,) + tuple(p.shape),
+                                           device="cuda"), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[sequential] = step(params, G, batch, active, eta)
+        torch.cuda.synchronize()
+        res[sequential] += (time.perf_counter() - t0,)
+        del G
+    (p_v, g_v, m_v, s_v), (p_s, g_s, m_s, s_s) = res[False], res[True]
+    gaps = [model_gap(a, b) for a, b in zip(
+        tree_leaves(g_s) + tree_leaves(p_s), tree_leaves(g_v)
+        + tree_leaves(p_v))]
+    loss_gap = model_gap(m_s["loss"], m_v["loss"])
+    check(max(gaps) <= 1 and loss_gap <= 1,
+          f"train vmap vs sequential: loss {loss_gap:.3e}, leaves "
+          f"{[f'{x:.3e}' for x in gaps]} of the f32 model bound")
+    return (f"train vmap vs sequential (d): make_train_step on the granite "
+            f"tree ({TRAIN_LAYERS} layers, full width, f32 copy), batch of "
+            f"round {TRAIN_CHECK_ROUND}: loss {m_v['loss'].item():.6f} / "
+            f"{m_s['loss'].item():.6f}, worst G or params leaf "
+            f"{max(gaps):.3e} of the bound; vmap {s_v:.3f} s, sequential "
+            f"{s_s:.3f} s")
+
+
+def train_phase(smi: str) -> tuple[dict, list]:
+    """Federated training of the zoo's text models on the card
+    (`launch.train.train`): (a) granite-3-8b at full width, 2 layers, the
+    main path of this slice (counts read around it); (b) the kernel
+    against its plain version inside the round; (c) one client's f32 loss
+    and gradients, card against CPU; (d) `make_train_step`'s two modes;
+    (e) zamba2-7b's hybrid training forward. Returns (a)'s launches."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = train_cfg("granite_3_8b", TRAIN_LAYERS)
+    out, counts, rows = train_run("granite-3-8b", cfg, TRAIN_ROUNDS, smi)
+    err, row = train_kernel_check(build_model(out["cfg"]), out["params"],
+                                  cfg)
+    rows.append(row)
+    rows.append(train_card_vs_cpu())
+    rows.append(train_modes(out["params"]))
+    del out
+    rows += train_run("zamba2-7b", train_cfg("zamba2_7b",
+                                             ZAMBA_TRAIN_LAYERS),
+                      ZAMBA_TRAIN_ROUNDS, smi)[2]
+    rows.append(f"train phase {time.perf_counter() - t0:.1f} s")
+    return {"mifa_aggregate": counts["mifa_aggregate"],
+            "kernel_check_err": err}, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -3898,6 +4160,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_errs, zoo_shapes, zoo_launches = zoo_phases(gen, timing)
     launches.update(zoo_launches)
+    # federated training of the zoo's text models: granite-3-8b's rounds
+    # step the server through mifa_aggregate
+    torch.cuda.empty_cache()
+    train_launches, rows = train_phase(smi)
+    for row in rows:
+        print(row)
+    mifa_err = max(mifa_err, train_launches.pop("kernel_check_err"))
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -3990,6 +4259,9 @@ def main() -> int:
         if name in dur_launches:
             scan.update(durability_launches=dur_launches[name],
                         durability_launches_from=DUR_FROM[name])
+        if name in train_launches:
+            scan.update(train_launches=train_launches[name],
+                        train_launches_from=TRAIN_FROM)
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

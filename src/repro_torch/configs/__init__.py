@@ -3,9 +3,10 @@
 Counterpart of `repro/configs/__init__.py`: the whole `ArchConfig`, the
 input shapes and the name resolution. Each ported architecture has one
 `<id>.py` here with `CONFIG` (the reference's numbers, `source` kept) and
-`smoke()` (its reduced variant). Ported: the two paper models and, for
-serving, `zamba2_7b`, `mamba2_1_3b` and `granite_3_8b`. Every other zoo id
-raises NotImplementedError (ROADMAP Queue 1 item 18).
+`smoke()` (its reduced variant). Ported: the two paper models and the zoo
+configs the port serves and trains, `zamba2_7b`, `mamba2_1_3b`,
+`granite_3_8b` and `qwen1_5_110b`. Every other zoo id raises
+NotImplementedError naming the ROADMAP Queue 1 item its blocks wait for.
 """
 from __future__ import annotations
 
@@ -210,8 +211,17 @@ _ALIAS.update({
 PAPER_IDS = ["paper_logistic", "paper_mlp"]
 
 
-# the zoo configs the port serves; the rest wait for their block kinds
-PORTED_IDS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b"]
+# the zoo configs the port serves and trains; the rest wait for their
+# block kinds, each under its ROADMAP Queue 1 item
+PORTED_IDS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b", "qwen1_5_110b"]
+UNPORTED_ITEMS = {
+    "gemma3_4b": "18.1 (local_attn, windowed attention)",
+    "olmoe_1b_7b": "18.2 (MoE)",
+    "moonshot_v1_16b_a3b": "18.2 (MoE)",
+    "deepseek_v2_lite_16b": "18.3 (MLA with MoE)",
+    "llava_next_34b": "18.4 (vision_text frontend)",
+    "hubert_xlarge": "18.4 (audio frontend)",
+}
 
 
 def canonical_id(arch: str) -> str:
@@ -225,8 +235,9 @@ def canonical_id(arch: str) -> str:
         return key
     if key in ARCH_IDS:
         raise NotImplementedError(
-            f"config {arch!r} is not ported; the port serves {PORTED_IDS} "
-            f"and trains {PAPER_IDS} (model zoo: ROADMAP Queue 1 item 18)")
+            f"config {arch!r} is not ported; the port serves and trains "
+            f"{PORTED_IDS} and trains {PAPER_IDS} (ROADMAP Queue 1 item "
+            f"{UNPORTED_ITEMS[key]})")
     raise KeyError(f"unknown architecture {arch!r}; known: "
                    f"{ARCH_IDS + PAPER_IDS}")
 

@@ -11,3 +11,4 @@ from repro_torch.core.participation import (  # noqa: F401
     AdversarialParticipation, BernoulliParticipation, TauStats,
     TraceParticipation, label_correlated_probs, tau_matrix)
 from repro_torch.core.runner import FLHistory, RoundRunner, run_fl  # noqa: F401
+from repro_torch.core.scan_engine import ScanDriver, scan_supported  # noqa: F401

@@ -30,17 +30,22 @@ def device_update(loss_fn: Callable, params, client_batch, eta: float,
     """
     grad_fn = grad_and_value(loss_fn, has_aux=True)
     k_steps = next(iter(client_batch.values())).shape[0]
-    w = params
-    acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    w, acc = params, None
     losses = []
     for k in range(k_steps):
         mb = {key: v[k] for key, v in client_batch.items()}
         g, (loss, _) = grad_fn(w, mb)
         if weight_decay:
             g = tree_map(lambda gg, ww: gg + weight_decay * ww, g, w)
-        w = tree_map(lambda ww, gg: (ww.float() - eta * gg.float()
-                                     ).to(ww.dtype), w, g)
-        acc = tree_map(lambda aa, gg: aa + gg.to(aa.dtype), acc, g)
+        # the last step's weights are never read: not computing them (and
+        # dropping each step's gradients once summed) keeps one client
+        # copy of the weights and one of the gradients alive, not two
+        w = (tree_map(lambda ww, gg: (ww.float() - eta * gg.float()
+                                      ).to(ww.dtype), w, g)
+             if k < k_steps - 1 else None)
+        acc = (tree_map(lambda gg: gg.float(), g) if acc is None
+               else tree_map(lambda aa, gg: aa + gg.float(), acc, g))
+        del g
         losses.append(loss)
     return acc, torch.stack(losses).mean()
 

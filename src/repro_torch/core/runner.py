@@ -510,6 +510,7 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
            params=None, uses_update_clock: bool = False,
            cohort_capacity: int | None = None, engine: str = "loop",
            scan_chunk: int = 64, checkpoint=None, mesh=None,
+           verbose: bool = False,
            device: str | torch.device = DEFAULT_DEVICE
            ) -> tuple[Any, FLHistory]:
     """Run T round-synchronous rounds of federated training on `device`.
@@ -528,7 +529,8 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     power-of-two buckets); pad slots are inert, but the reduction grouping
     of local training depends on the padded length, so pin it when holding
     two drivers' trajectories together. `eval_fn(params) -> (loss, acc)`
-    runs every `eval_every` rounds and at the last round.
+    runs every `eval_every` rounds and at the last round; `verbose` prints
+    a line at each eval, as the reference does.
 
     `engine`:
       * "loop" — one round at a time: its inputs to the device, the round
@@ -587,7 +589,8 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     if sim is not None:
         return _run_sim(runner, sim, n_rounds, participation=participation,
                         engine=engine, scan_chunk=scan_chunk, seed=seed,
-                        eval_fn=eval_fn, eval_every=eval_every)
+                        eval_fn=eval_fn, eval_every=eval_every,
+                        verbose=verbose)
     start_round = 0
     if checkpoint is not None and checkpoint.resume:
         from repro_torch.checkpoint.run_state import (fast_forward_sampler,
@@ -607,8 +610,8 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
             t0 = time.time()
             ScanDriver(runner, scan_chunk=scan_chunk).run(
                 n_rounds, participation=participation, eval_fn=eval_fn,
-                eval_every=eval_every, checkpoint=checkpoint,
-                start_round=start_round)
+                eval_every=eval_every, verbose=verbose,
+                checkpoint=checkpoint, start_round=start_round)
             runner.hist.wall_time = time.time() - t0
             return runner.finalize()
         if engine == "scan_strict":
@@ -628,13 +631,18 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         else:
             runner.step(t, participation.sample(t))
         if eval_fn is not None and (t % eval_every == 0 or t == n_rounds - 1):
-            runner.evaluate(t, eval_fn)
+            el, ea = runner.evaluate(t, eval_fn)
+            if verbose:
+                print(f"  round {t:5d} train={runner.hist.train_loss[-1]:.4f} "
+                      f"eval={el:.4f} acc={ea:.4f} "
+                      f"active={int(runner.hist.n_active[-1])}")
     runner.hist.wall_time = time.time() - t0
     return runner.finalize()
 
 
 def _run_sim(runner: RoundRunner, sim, n_rounds: int, *, participation,
-             engine: str, scan_chunk: int, seed: int, eval_fn, eval_every):
+             engine: str, scan_chunk: int, seed: int, eval_fn, eval_every,
+             verbose: bool = False):
     """`run_fl(sim=)`: the compiled simulator where it can run, else the
     heap engine (the reference's dispatch)."""
     from repro_torch.sim.compiled import run_sim_scan, sim_scan_supported
@@ -643,7 +651,8 @@ def _run_sim(runner: RoundRunner, sim, n_rounds: int, *, participation,
         ok, why = sim_scan_supported(runner, sim)
         if ok:
             return run_sim_scan(runner, sim, n_rounds, scan_chunk=scan_chunk,
-                                eval_fn=eval_fn, eval_every=eval_every)
+                                eval_fn=eval_fn, eval_every=eval_every,
+                                verbose=verbose)
         if engine == "scan_strict":
             raise ValueError(f"engine='scan_strict': {why}")
         warn_engine_fallback(

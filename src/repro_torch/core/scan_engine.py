@@ -518,9 +518,11 @@ class ScanDriver:
 
     def run(self, n_rounds: int, *, participation=None,
             eval_fn: Callable | None = None, eval_every: int = 10,
-            checkpoint=None, start_round: int = 0) -> None:
+            verbose: bool = False, checkpoint=None,
+            start_round: int = 0) -> None:
         """Rounds [start_round, n_rounds), the runner updated in place.
-        Without `participation` the runner's scenario draws the masks.
+        Without `participation` the runner's scenario draws the masks;
+        `verbose` prints a line at each eval.
         `checkpoint` (a `checkpoint.CheckpointSpec`) snapshots the run
         after every `checkpoint.every` rounds, once the chunk is flushed;
         `start_round` > 0 continues a run `run_fl` restored."""
@@ -536,7 +538,12 @@ class ScanDriver:
 
         def on_sync(t):
             if t in evals:
-                r.evaluate(t, eval_fn)
+                el, ea = r.evaluate(t, eval_fn)
+                if verbose:
+                    print(f"  round {t:5d} "
+                          f"train={r.hist.train_loss[-1]:.4f} "
+                          f"eval={el:.4f} acc={ea:.4f} "
+                          f"active={int(r.hist.n_active[-1])}")
             if t in ckpts:
                 from repro_torch.checkpoint.run_state import save_run
                 save_run(r, checkpoint, t + 1)

@@ -11,14 +11,16 @@ Batches stay numpy on the host (array-equal to `repro/data/pipeline.py`);
 draws from stored client shards; `ProceduralBatcher` stores nothing per
 client, so a cohort run at N=10⁶ costs O(|A|) per round.
 `JitProceduralBatcher` draws its rounds on the run's device from threefry
-normals (`batch_fn`), so the simulator's rounds need no host batch. The
-token batcher is not ported yet (ROADMAP Queue 1 item 18.5).
+normals (`batch_fn`), so the simulator's rounds need no host batch.
+`TokenBatcher` cuts the zoo's LM batches from per-client synthetic token
+streams.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.scenarios import _threefry
 
@@ -52,6 +54,37 @@ class ClientBatcher:
             xs[j] = self.Xs[i][idx]
             ys[j] = self.ys[i][idx]
         return {"x": xs, "y": ys}
+
+
+class TokenBatcher:
+    """LM batches {'tokens': (N,K,mb,seq)} from per-client synthetic streams."""
+
+    def __init__(self, *, n_clients: int, vocab: int, seq_len: int,
+                 batch_size: int, k_steps: int, stream_len: int = 1 << 16,
+                 seed: int = 0):
+        self.streams = [
+            make_token_stream(vocab, stream_len, seed=seed + i,
+                              client_shift=i * (vocab // max(n_clients, 1)))
+            for i in range(n_clients)]
+        self.n_clients = n_clients
+        self.seq_len = seq_len
+        self.batch_size = batch_size
+        self.k_steps = k_steps
+        self.seed = seed
+
+    def sample_round(self, t: int, client_ids=None) -> dict:
+        mb, K, S = self.batch_size, self.k_steps, self.seq_len
+        ids = (np.arange(self.n_clients) if client_ids is None
+               else np.asarray(client_ids, np.int64))
+        out = np.empty((len(ids), K, mb, S), np.int32)
+        window = np.arange(S)
+        for j, i in enumerate(ids):
+            i = int(i)
+            rng = np.random.default_rng((self.seed, t, i, 7))
+            starts = rng.integers(0, len(self.streams[i]) - S - 1, size=(K, mb))
+            # every (k, b) window at once: the reference's slices
+            out[j] = self.streams[i][starts[..., None] + window]
+        return {"tokens": out}
 
 
 class ProceduralBatcher:

@@ -4,8 +4,8 @@
 matches the paper's image-classification tasks: C classes, per-class prototype
 in R^dim, isotropic noise. Logistic regression on it (+ l2) is strongly convex;
 the MLP model on it is non-convex — the two regimes of the paper's theory.
-It draws from numpy generators only, so it is array-equal to the reference.
-`make_token_stream` (LM data) is not ported yet (ROADMAP Queue 1 item 18).
+`make_token_stream` gives the zoo's synthetic LM data. Both draw from numpy
+generators only, so they are array-equal to the reference.
 """
 from __future__ import annotations
 
@@ -32,3 +32,14 @@ def make_classification(n_classes: int = 10, dim: int = 64,
     y = np.concatenate(ys)
     perm = rng.permutation(len(y))
     return X[perm], y[perm]
+
+
+def make_token_stream(vocab: int, length: int, seed: int = 0,
+                      zipf_a: float = 1.2, client_shift: int = 0):
+    """Synthetic non-iid LM data: Zipf marginal with a per-client vocabulary
+    rotation (clients see the same language 'shape' over disjoint-ish token
+    identities — a strong distribution shift, like the paper's label skew)."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(zipf_a, size=length).astype(np.int64)
+    toks = (ranks + client_shift) % vocab
+    return toks.astype(np.int32)

@@ -616,11 +616,20 @@ class FleetScanDriver:
                 t, {k: vals[j, i] for i, k in enumerate(self.chunks.keys)})
 
     def run(self, n_rounds: int, *, parts=None,
-            eval_fn: Callable | None = None, eval_every: int = 10) -> None:
+            eval_fn: Callable | None = None, eval_every: int = 10,
+            verbose: bool = False) -> None:
         """Rounds [0, n_rounds) for all trials, the runner updated in
-        place. Without `parts` the trials' scenarios draw the masks."""
+        place. Without `parts` the trials' scenarios draw the masks;
+        `verbose` prints a line at each eval."""
         r = self.r
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
+
+        def on_sync(t):
+            el, ea = r.evaluate(t, eval_fn)
+            if verbose:
+                print(f"  round {t:5d} loss={np.asarray(el).mean():.4f} "
+                      f"acc={np.asarray(ea).mean():.4f}")
+
         carry = ((r.scenario_carry() if self.scenario_mode else r.state),
                  r.params)
         run_pipelined_chunks(
@@ -629,7 +638,7 @@ class FleetScanDriver:
             chunk_fn=self._chunk_fn,
             build_xs=lambda t0, t1: self._build_xs(t0, t1, parts),
             writeback=self._writeback, flush=self._flush,
-            sync_rounds=evals, on_sync=lambda t: r.evaluate(t, eval_fn),
+            sync_rounds=evals, on_sync=on_sync,
             pre_chunk=(self._pre_chunk
                        if r.cohort_mode or self._scan_window is not None
                        else None))
@@ -668,6 +677,7 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
               eval_every: int = 10, uses_update_clock: bool = False,
               cohort_capacity: int | None = None, params=None, mesh=None,
               engine: str = "loop", scan_chunk: int | None = None,
+              verbose: bool = False,
               device: str | torch.device = DEFAULT_DEVICE
               ) -> tuple[Any, FleetHistory]:
     """Run T rounds of K independent trials as one fleet on `device`.
@@ -678,7 +688,8 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
     as `run_fl` would. `params` (optional) are stacked (K, ...) initial
     params, the fleet's counterpart of `run_fl(params=)`. `eval_fn`
     consumes stacked params and returns ((K,) losses, (K,) accs) (see
-    `make_fleet_eval`); it runs every `eval_every` rounds and at the last.
+    `make_fleet_eval`); it runs every `eval_every` rounds and at the last,
+    with a line printed each time under `verbose`.
     `uses_update_clock` drives the schedules off each trial's applied
     global updates; `cohort_capacity` pins the cohort pad width. Trials
     with `scenario` draw their masks as `FleetRunner.step_scenario` does;
@@ -721,7 +732,7 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
             FleetScanDriver(runner, scan_chunk=64 if scan_chunk is None
                             else scan_chunk).run(
                 n_rounds, parts=parts, eval_fn=eval_fn,
-                eval_every=eval_every)
+                eval_every=eval_every, verbose=verbose)
             runner.hist.wall_time = time.time() - t0
             return runner.finalize()
         if engine == "scan_strict":
@@ -736,6 +747,9 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
             runner.step(t, np.stack([np.asarray(p.sample(t), bool)
                                      for p in parts]))
         if eval_fn is not None and (t % eval_every == 0 or t == n_rounds - 1):
-            runner.evaluate(t, eval_fn)
+            el, ea = runner.evaluate(t, eval_fn)
+            if verbose:
+                print(f"  round {t:5d} loss={np.asarray(el).mean():.4f} "
+                      f"acc={np.asarray(ea).mean():.4f}")
     runner.hist.wall_time = time.time() - t0
     return runner.finalize()

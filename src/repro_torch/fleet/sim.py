@@ -71,7 +71,7 @@ def run_sim_fleet(*, model, algo, batcher, schedule: Callable, n_rounds: int,
                   eta_local: Callable | float | None = None,
                   weight_decay: float = 0.0, scan_chunk: int = 64,
                   eval_fn: Callable | None = None, eval_every: int = 10,
-                  batch_fn: Callable | None = None,
+                  batch_fn: Callable | None = None, verbose: bool = False,
                   device: str | torch.device = DEFAULT_DEVICE
                   ) -> tuple[Any, FleetHistory]:
     """Run K simulated wall-clock trials on one stacked carry, on `device`.
@@ -87,6 +87,7 @@ def run_sim_fleet(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     round's close + server overhead. `batch_fn` (optional, pure ``(t) ->
     batch`` on `device`, `data.pipeline.JitProceduralBatcher.batch_fn`)
     draws each round's batch in the round instead of staging it.
+    `verbose` prints a line at each eval.
 
     Returns (stacked (K, ...) params, `FleetHistory`) with per-lane
     `sim_seconds`/`eval_seconds`; `hist.trial(k)` is lane k's `FLHistory`.
@@ -183,6 +184,10 @@ def run_sim_fleet(*, model, algo, batcher, schedule: Callable, n_rounds: int,
             np.float64)
         el, ea = eval_fn(runner.params)
         hist.record_eval(t, el, ea, sim_time=sim_t)
+        if verbose:
+            print(f"  round {t:5d} sim_t={sim_t.mean():10.2f}s "
+                  f"loss={np.asarray(el).mean():.4f} "
+                  f"acc={np.asarray(ea).mean():.4f}")
 
     t0 = time.time()
     final = run_pipelined_chunks(

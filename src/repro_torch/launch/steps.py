@@ -1,0 +1,103 @@
+"""Step builders: the MIFA FL train_step and the serve steps of a model
+(counterpart of `repro/launch/steps.py`).
+
+train_step(params, G, batch, active, eta) -> (params, G, metrics)
+  * vmap mode (default): every client's K-step local update at once
+    (`core.local_update.client_updates`, `torch.func.vmap`), then the
+    server step through `kernels.ops.mifa_aggregate_tree`: the hand-written
+    `mifa_aggregate` kernel on the card (one launch a leaf table), its
+    plain version on the CPU.
+  * sequential mode (`cfg.sequential_clients`, qwen1.5-110b): a loop over
+    clients, one client's update alive at a time, each G row selected and
+    summed into an f32 accumulator as the reference's `lax.scan` does; the
+    weights move by eta · acc / N. Plain PyTorch: the reference has no
+    kernel there.
+  G's rows are written in place (the vmap mode on the card, the sequential
+  mode everywhere), as with the reference's donated buffers: callers must
+  not reuse the G they passed in.
+
+serve steps:
+  * decode: (params, cache, tokens, pos) -> (logits, cache)
+  * prefill: (params, cache, batch) -> (logits, cache)
+  * encoder score: (params, batch) -> per-batch CE
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.core.local_update import client_updates, device_update
+from repro_torch.kernels.ops import mifa_aggregate_tree
+from repro_torch.models import Model
+from repro_torch.tree import tree_map
+
+
+def _mean_active_loss(losses: torch.Tensor, active: torch.Tensor
+                      ) -> torch.Tensor:
+    act = active.float()
+    return (losses * act).sum() / act.sum().clamp(min=1.0)
+
+
+def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
+                    k_steps: int, update_spec=None) -> Callable:
+    """The MIFA round (array memory) as one function of (params, G, batch,
+    active, eta): `batch` leaves (N, K, mb, ...) on the params' device,
+    `active` (N,) bool there, `eta` a Python float or a 0-d f32 tensor."""
+    if update_spec is not None:
+        raise NotImplementedError(
+            "update_spec= (a sharding constraint on each client's update) "
+            "is not ported: sharding waits for ROADMAP Queue 1 item 19")
+
+    if not cfg.sequential_clients:
+        def train_step(params, G, batch, active, eta):
+            updates, losses = client_updates(model.loss_fn, params, batch,
+                                             eta, K=k_steps)
+            G, params = mifa_aggregate_tree(G, updates, active, params, eta)
+            return params, G, {"loss": _mean_active_loss(losses, active)}
+        return train_step
+
+    def train_step(params, G, batch, active, eta):
+        """Sequential clients: one client's update alive at a time."""
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        losses = []
+        for i in range(n_clients):
+            u_i, loss_i = device_update(model.loss_fn, params,
+                                        {k: v[i] for k, v in batch.items()},
+                                        eta)
+
+            def sel(g, u, a, i=i):
+                g[i] = torch.where(active[i], u.to(g.dtype), g[i])
+                a += g[i].float()
+                return g
+            G = tree_map(sel, G, u_i, acc)
+            losses.append(loss_i)
+        params = tree_map(lambda w, a: (w - eta * a / n_clients).to(w.dtype),
+                          params, acc)
+        return params, G, {"loss": _mean_active_loss(torch.stack(losses),
+                                                     active)}
+
+    return train_step
+
+
+def make_decode_step(model: Model) -> Callable:
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, tokens, pos, cache)
+    return serve_step
+
+
+def make_prefill_step(model: Model) -> Callable:
+    def prefill_step(params, cache, batch):
+        return model.prefill(params, batch, cache)
+    return prefill_step
+
+
+def make_encoder_step(model: Model) -> Callable:
+    """Encoder-only 'serving' = a scoring forward pass (no cache)."""
+    def encode_step(params, batch):
+        with torch.no_grad():
+            _, metrics = model.loss_fn(params, batch)
+        return metrics["ce"]
+    return encode_step

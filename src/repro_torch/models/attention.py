@@ -1,13 +1,18 @@
 """Attention for the ported models: GQA projections (+RoPE, QKV bias),
-prefill through the flash-attention kernel, and decode over a KV cache
-(counterpart of `repro/models/attention.py`).
+blockwise attention for training, prefill through the flash-attention
+kernel, and decode over a KV cache (counterpart of
+`repro/models/attention.py`).
 
-Prefill attention with full (unwindowed) attention and q, k, v of one
-length goes through `kernels.ops.attention`: the hand-written CUDA kernel
-on the card, its plain version on the CPU. Sliding windows (gemma3's local
-layers, `shared_attn_window`) and MLA wait for the windowed blockwise path
-(ROADMAP Queue 1 item 18). Decode attends one query over the cache in plain
-PyTorch: the JAX package has no decode kernel and the port adds none.
+Serving's prefill attention (full, unwindowed, q, k, v of one length) goes
+through `kernels.ops.attention`: the hand-written CUDA kernel on the card,
+its plain version on the CPU. The training forward goes through
+`blockwise_attention`, the reference's differentiable model function: the
+kernel is forward-only and cannot run under `torch.func` transforms, and
+the reference's training path calls no kernel either. Sliding windows
+(gemma3's local layers, `shared_attn_window`) raise in both (ROADMAP Queue 1
+item 18.1), and MLA waits for item 18.3. Decode attends one query over the
+cache in plain PyTorch: the JAX package has no decode kernel and the port
+adds none.
 """
 from __future__ import annotations
 
@@ -55,15 +60,70 @@ def gqa_project(params: dict, x: torch.Tensor, positions: torch.Tensor,
             apply_rope(k, positions, rope_theta), v)
 
 
+def _pick_block(s: int, target: int = 512) -> int:
+    if s <= target:
+        return s
+    b = target
+    while s % b:
+        b //= 2
+    return max(b, 1)
+
+
+def _windowed() -> NotImplementedError:
+    return NotImplementedError(
+        "windowed attention (local_attn, shared_attn_window) is not "
+        "ported: it waits for blockwise_attention's windowed path "
+        "(ROADMAP Queue 1 entry 3, item 18.1)")
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_block: int = 0) -> torch.Tensor:
+    """Exact attention over query blocks, the training path's attention.
+
+    q (B,S,H,hd); k, v (B,T,KV,hd) with H % KV == 0, queries and keys at
+    positions 0..S-1 and 0..T-1. Each query block (`_pick_block`) takes one
+    f32 softmax over all its keys, masked with NEG_INF; q·scale is rounded
+    to q's dtype before the scores and the probabilities to q's dtype before
+    P·V, where the reference rounds them. Differentiable, with no in-place
+    op, so `torch.func.vmap` and `grad` run through it. The reference
+    rematerializes each block on the backward pass; here autograd keeps each
+    block's probabilities.
+    """
+    if window > 0:
+        raise _windowed()
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    bq = q_block or _pick_block(S)
+    if S % bq:
+        raise ValueError(f"query block {bq} does not divide S={S}")
+    q_scaled = (q * (1.0 / math.sqrt(hd))).to(q.dtype)
+    if g > 1:  # kv head j serves query heads j·g .. j·g+g-1 (jnp.repeat)
+        k = k[:, :, :, None].expand(B, T, KV, g, hd).reshape(B, T, H, hd)
+        v = v[:, :, :, None].expand(B, T, KV, g, v.shape[-1]).reshape(
+            B, T, H, v.shape[-1])
+    kf = k.float()
+    kpos = torch.arange(T, device=q.device)
+    outs = []
+    for q0 in range(0, S, bq):
+        qi = q_scaled[:, q0:q0 + bq]
+        scores = torch.einsum("bqhk,bthk->bhqt", qi.float(), kf)
+        if causal:
+            qpos = q0 + torch.arange(bq, device=q.device)
+            scores = torch.where(kpos[None, :] <= qpos[:, None], scores,
+                                 NEG_INF)
+        p = torch.softmax(scores, dim=-1).to(qi.dtype)
+        outs.append(torch.einsum("bhqt,bthk->bqhk", p, v))
+    return torch.cat(outs, dim=1)
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
     """Exact prefill attention, q (B,S,H,hd), k, v (B,S,KV,hd) with
     queries and keys at the same positions 0..S-1 -> (B,S,H,hd)."""
     if window > 0:
-        raise NotImplementedError(
-            "windowed attention (local_attn, shared_attn_window) is not "
-            "ported: it waits for blockwise_attention's windowed path "
-            "(ROADMAP Queue 1 item 18)")
+        raise _windowed()
     return ops.attention(q, k, v, causal=causal)
 
 

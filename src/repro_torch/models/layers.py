@@ -1,6 +1,6 @@
 """Shared layers for the ported models (counterpart of
 `repro/models/layers.py`): norms, rope, the SwiGLU MLP, embeddings and the
-tabular loss.
+losses.
 
 Pure-functional: params are nested dicts of tensors. Initializers draw from
 an explicit `torch.Generator`. They do not reproduce the JAX package's
@@ -9,7 +9,6 @@ an explicit `torch.Generator`. They do not reproduce the JAX package's
 and move the result (`_dense_init`), so their init is the same on every
 device; the zoo draws each leaf on its target device with a generator that
 lives there (`_device_init`), so a 7B model never passes through host f32.
-The chunked LM loss waits for training (ROADMAP Queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -111,6 +110,37 @@ def head_init(gen: torch.Generator, d: int, vocab: int, dtype: torch.dtype
 # --------------------------------------------------------------------------- #
 # Losses
 # --------------------------------------------------------------------------- #
+
+def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor | None = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materializing the full (B,S,V) logits at once.
+
+    Loops over sequence chunks of the reference's size (`chunk`, at most S,
+    halved until it divides S); each chunk's logits are taken in f32 with
+    an f32 logsumexp. The reference rematerializes each chunk on the
+    backward pass (`jax.checkpoint`); here autograd keeps each chunk's
+    logits, which `torch.func.grad` cannot trade for recomputation
+    (remat: ROADMAP Queue 1 entry 2).
+    """
+    B, S, _ = h.shape
+    cs = min(chunk, S)
+    while S % cs:
+        cs //= 2
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    w = lm_head.to(h.dtype)
+    for c0 in range(0, S, cs):
+        logits = (h[:, c0:c0 + cs] @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0:c0 + cs].long()
+                            .unsqueeze(-1)).squeeze(-1)
+        mm = (torch.ones_like(lse) if mask is None
+              else mask[:, c0:c0 + cs].float())
+        nll = nll + ((lse - gold) * mm).sum()
+        cnt = cnt + mm.sum()
+    return nll / cnt.clamp(min=1.0)
+
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None) -> torch.Tensor:

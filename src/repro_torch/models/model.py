@@ -4,12 +4,13 @@
   text:    {'tokens': (B,S) int}
   tabular: {'x': (B,d) float32, 'y': (B,) int}     (paper models)
 
-Tabular models train (`init`, `loss_fn`, `accuracy`). Text models serve:
-`init`, `init_cache`, `prefill` and `decode_step` for the block kinds that
-`models.transformer` ports. Params are nested dicts of tensors under the
-JAX package's keys, so parity tests compare leaf by leaf. The text
-families' training loss, and the vision_text and audio modalities, are not
-ported yet (ROADMAP Queue 1 item 18).
+Tabular models train (`init`, `loss_fn`, `accuracy`). Text models train
+(`loss_fn`, through the differentiable `transformer.forward`) and serve
+(`init_cache`, `prefill` and `decode_step`, through the kernels) for the
+block kinds that `models.transformer` ports. Params are nested dicts of
+tensors under the JAX package's keys, so parity tests compare leaf by leaf.
+The vision_text and audio modalities are not ported yet (ROADMAP Queue 1
+entry 6, item 18.4).
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import (_dense_init, embed_init, head_init,
-                                       rmsnorm, rmsnorm_init,
-                                       softmax_cross_entropy)
+from repro_torch.models.layers import (_dense_init, chunked_lm_loss,
+                                       embed_init, head_init, rmsnorm,
+                                       rmsnorm_init, softmax_cross_entropy)
 from repro_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -34,7 +35,7 @@ class Model:
             raise NotImplementedError(
                 f"model modality {cfg.modality!r} is not ported; the port "
                 "has the tabular paper models and text models (ROADMAP "
-                "Queue 1 item 18)")
+                "Queue 1 entry 6, item 18.4)")
         if cfg.family != "tabular":
             transformer.check_ported(cfg)
         self.cfg = cfg
@@ -92,8 +93,44 @@ class Model:
                                          device=dev)}}
 
     # ------------------------------------------------------------------ #
-    # tabular training
+    # training loss
     # ------------------------------------------------------------------ #
+    def loss_fn(self, params: dict, batch: dict):
+        """(loss, {"loss", "ce", "aux"}): the reference's contract. Text
+        models take {'tokens': (B,S) int} and the shifted-token CE (chunked
+        when `cfg.ce_chunk` > 0); tabular models take {'x', 'y'}."""
+        cfg = self.cfg
+        if cfg.family == "tabular":
+            logits = self._tabular_logits(params, batch["x"])
+            ce = softmax_cross_entropy(logits, batch["y"])
+            return ce, {"loss": ce, "ce": ce, "aux": torch.zeros_like(ce)}
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        h, aux = transformer.forward(params, x, positions, cfg)
+        h = rmsnorm(params["final_norm"], h)
+        tokens = batch["tokens"]
+        if cfg.ce_chunk:
+            labels, mask = self._labels_mask(tokens)
+            ce = chunked_lm_loss(h, params["lm_head"], labels, mask,
+                                 chunk=cfg.ce_chunk)
+        else:
+            logits = h @ params["lm_head"].to(h.dtype)
+            ce = softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+    @staticmethod
+    def _labels_mask(tokens: torch.Tensor):
+        """Full-length (B,S) labels (the next token, 0 at the end) and the
+        validity mask for the chunked CE (text: every position but the
+        last)."""
+        B, S = tokens.shape
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+        mask = torch.cat([torch.ones((B, S - 1), device=tokens.device),
+                          torch.zeros((B, 1), device=tokens.device)], dim=1)
+        return labels, mask
+
     def _tabular_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.n_layers == 0:
             return x @ params["w"] + params["b"]
@@ -101,17 +138,6 @@ class Model:
         for lp in params["layers"]:
             h = torch.relu(h @ lp["w"] + lp["b"])
         return h @ params["out"]["w"] + params["out"]["b"]
-
-    def loss_fn(self, params: dict, batch: dict):
-        """(loss, aux) — the reference's `_loss_tabular` contract."""
-        if self.cfg.family != "tabular":
-            raise NotImplementedError(
-                f"training loss of the {self.cfg.family} family is not "
-                "ported; it comes with launch/train.py (ROADMAP Queue 1 "
-                "item 18)")
-        logits = self._tabular_logits(params, batch["x"])
-        ce = softmax_cross_entropy(logits, batch["y"])
-        return ce, {"loss": ce, "ce": ce, "aux": torch.zeros_like(ce)}
 
     def accuracy(self, params: dict, batch: dict) -> torch.Tensor:
         logits = self._tabular_logits(params, batch["x"])
@@ -122,7 +148,7 @@ class Model:
     # ------------------------------------------------------------------ #
     def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
         """Token embeddings (B,S,d) in the compute dtype."""
-        return params["embed"][batch["tokens"]].to(self.compute_dtype)
+        return params["embed"][batch["tokens"].long()].to(self.compute_dtype)
 
     def init_cache(self, batch: int, cache_len: int, *,
                    device: str | torch.device = DEFAULT_DEVICE) -> dict:

@@ -1,10 +1,13 @@
 """Mamba2 (SSD, state-space duality) block: chunked prefill scan and O(1)
 decode (counterpart of `repro/models/ssm.py`). Single SSM group (G=1).
 
-The prefill scan goes through `kernels.ops.ssd`: the hand-written CUDA
-kernel on the card, its plain version (the reference's `ssd_chunked` in
-f32) on the CPU. The chunk is chosen as the reference chooses it: the
-configured chunk, halved until it divides S.
+`mamba2_prefill` takes its scan from its caller. Serving passes the kernel
+route, `kernels.ops.ssd`: the hand-written CUDA kernel on the card, its
+plain version on the CPU. The training forward passes `ssd_chunked`, the
+reference's differentiable model function (the kernel is forward-only and
+cannot run under `torch.func` transforms; the reference's training path
+calls no kernel either). The chunk is chosen as the reference chooses it:
+the configured chunk, halved until it divides S.
 """
 from __future__ import annotations
 
@@ -85,10 +88,70 @@ def ssd_chunk(S: int, chunk: int) -> int:
     return q
 
 
+def _segsum_exp(a: torch.Tensor) -> torch.Tensor:
+    """a (..., q) -> L (..., q, q) with L[i,j] = exp(sum_{j<k<=i} a_k),
+    lower-triangular.
+
+    The reference takes `where(tril, exp(diff), 0)`. Above the diagonal
+    diff = -sum a_k > 0 overflows to inf once a chunk's |dA| sum passes
+    ~88, and the reference's gradient is then 0·inf = NaN (at zamba2-7b's
+    full width, A up to -112: ROADMAP Queue 3, reference-side findings).
+    Here the mask is applied before the exp: the same values, the same
+    gradient wherever the reference's is finite, and a finite one where
+    the reference's is NaN.
+    """
+    q = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return torch.exp(torch.where(mask, diff, float("-inf")))
+
+
+def ssd_chunked(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, chunk: int, h0: torch.Tensor | None = None):
+    """Chunked SSD, the training forward's scan: a loop over chunks with
+    the (b,h,p,n) state carried in f32, all state math in f32.
+
+    x (b,S,h,p); dA (b,S,h) [= dt·A, negative]; B, C (b,S,n). The chunk is
+    `ssd_chunk(S, chunk)`. Returns (y (b,S,h,p) in x's dtype, h_final
+    (b,h,p,n) f32). Differentiable, with no in-place op, so `torch.func`
+    transforms run through it. The reference rematerializes each chunk on
+    the backward pass; here autograd keeps each chunk's intermediates.
+    """
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = ssd_chunk(S, chunk)
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for c0 in range(0, S, Q):
+        xq = x[:, c0:c0 + Q].float()                     # (b,Q,h,p)
+        daq = dA[:, c0:c0 + Q].float()                   # (b,Q,h)
+        bq = B[:, c0:c0 + Q].float()                     # (b,Q,n)
+        cq = C[:, c0:c0 + Q].float()
+        cum = torch.cumsum(daq, dim=1)                   # (b,Q,h)
+        L = _segsum_exp(daq.transpose(-1, -2))           # (b,h,Q,Q)
+        att = torch.einsum("bqn,bkn->bqk", cq, bq)       # (b,Q,Q)
+        y = torch.einsum("bqk,bhqk,bkhp->bqhp", att, L, xq)
+        # contribution of the carried state
+        y = y + torch.einsum("bqn,bhpn,bqh->bqhp", cq, h, torch.exp(cum))
+        # state update
+        decay = torch.exp(cum[:, -1:, :] - cum)          # (b,Q,h)
+        h = (h * torch.exp(cum[:, -1, :])[..., None, None]
+             + torch.einsum("bqn,bqh,bqhp->bhpn", bq, decay, xq))
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), h
+
+
 def mamba2_prefill(params: dict, x: torch.Tensor, *, expand: int,
-                   headdim: int, d_state: int, chunk: int, conv_width: int):
+                   headdim: int, d_state: int, chunk: int, conv_width: int,
+                   scan=ops.ssd):
     """x (B,S,d) -> (y (B,S,d), (ssm_state (B,H,P,N) f32,
-    conv_state (B,W-1,C)))."""
+    conv_state (B,W-1,C))).
+
+    `scan(x, dA, B, C, chunk=Q) -> (y, h_final)` is the SSD scan: the
+    kernel route `ops.ssd` for serving (the default), `ssd_chunked` for
+    the training forward."""
     Bsz, S, d_model = x.shape
     d_inner, n_heads, _, _ = mamba2_dims(d_model, expand, headdim, d_state,
                                          conv_width)
@@ -105,9 +168,9 @@ def mamba2_prefill(params: dict, x: torch.Tensor, *, expand: int,
 
     dt = F.softplus(dt.float() + params["dt_bias"])              # (B,S,H)
     A = -torch.exp(params["A_log"])                              # (H,)
-    y, h_final = ops.ssd((xs * dt[..., None].to(xs.dtype)).contiguous(),
-                         (dt * A).contiguous(), Bmat, Cmat,
-                         chunk=ssd_chunk(S, chunk))
+    y, h_final = scan((xs * dt[..., None].to(xs.dtype)).contiguous(),
+                      (dt * A).contiguous(), Bmat, Cmat,
+                      chunk=ssd_chunk(S, chunk))
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(Bsz, S, d_inner)
     y = _gated_rmsnorm(y, z, params["norm_scale"])

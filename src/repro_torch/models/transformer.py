@@ -1,5 +1,5 @@
-"""Layer-stack assembly for serving: segments of homogeneous blocks
-(counterpart of `repro/models/transformer.py`).
+"""Layer-stack assembly for training and serving: segments of homogeneous
+blocks (counterpart of `repro/models/transformer.py`).
 
 A model is a sequence of *segments*, each a maximal run of layers with the
 same (block kind, ffn kind). A segment's params and cache leaves are
@@ -11,11 +11,18 @@ block is stored once at the top level and used by every `shared_attn`
 segment.
 
 Ported block kinds: 'attn' (GQA, full), 'shared_attn' and 'ssm' (Mamba2);
-FFN kinds 'mlp' and None. 'local_attn', 'mla' and 'moe' raise, and so does
-the training `forward` (ROADMAP Queue 1 item 18).
+FFN kinds 'mlp' and None. 'local_attn' and windows (ROADMAP Queue 1 item
+18.1), 'moe' (18.2) and 'mla' (18.3) raise.
 
-Caches are written in place: `prefill` and `decode` fill the cache tree
-they are given and return it.
+`forward` is the training forward: differentiable torch ops with no
+in-place write and no kernel call (`attention.blockwise_attention`,
+`ssm.ssd_chunked`), so `torch.func.vmap` and `grad` run through it on both
+devices, as the reference differentiates its own jnp model path. The
+reference wraps each layer in `jax.checkpoint` under `cfg.remat`; remat
+changes memory, never numbers, and `torch.utils.checkpoint` does not
+compose with `torch.func.grad`, so the port keeps every activation.
+Serving's `prefill` and `decode` write caches in place: they fill the cache
+tree they are given and return it; `prefill` goes through the kernels.
 """
 from __future__ import annotations
 
@@ -80,21 +87,26 @@ def build_segments(cfg: ArchConfig) -> list[SegmentSpec]:
     return segments
 
 
+# the ROADMAP Queue 1 item each unported block kind waits for
+_KIND_ITEMS = {"local_attn": "entry 3, item 18.1", "moe": "entry 4, item 18.2",
+               "mla": "entry 5, item 18.3"}
+
+
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port cannot serve yet: block kinds other than
-    full attention, shared attention and Mamba2; MoE; windows; the
-    compute-layout head padding of the sharded reference."""
+    """Raise for what the port cannot serve and train yet: block kinds
+    other than full attention, shared attention and Mamba2; MoE; windows;
+    the compute-layout head padding of the sharded reference."""
     for seg in build_segments(cfg):
         if seg.kind in ("local_attn", "mla") or seg.ffn == "moe":
             what = seg.kind if seg.ffn != "moe" else "moe"
             raise NotImplementedError(
                 f"{cfg.name}: block kind {what!r} is not ported; the port "
-                "serves attn, shared_attn and ssm blocks with an mlp or no "
-                "FFN (ROADMAP Queue 1 item 18)")
+                "serves and trains attn, shared_attn and ssm blocks with an "
+                f"mlp or no FFN (ROADMAP Queue 1 {_KIND_ITEMS[what]})")
         if seg.window:
             raise NotImplementedError(
                 f"{cfg.name}: windowed {seg.kind} is not ported (ROADMAP "
-                "Queue 1 item 18)")
+                f"Queue 1 {_KIND_ITEMS['local_attn']})")
     if cfg.pad_q_heads or cfg.pad_kv_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding for tensor-parallel meshes is not "
@@ -271,8 +283,36 @@ def decode(params: dict, x: torch.Tensor, pos: int, cache: dict,
     return x, torch.zeros((), device=x.device), cache
 
 
+def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+               spec: SegmentSpec, cfg: ArchConfig) -> torch.Tensor:
+    """One layer of the training forward (no cache)."""
+    h = rmsnorm(lp["ln1"], x)
+    if spec.kind in ("attn", "shared_attn"):
+        q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
+                                       cfg.rope_theta, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.resolved_head_dim)
+        ctx = attn_lib.blockwise_attention(q, k, v, causal=cfg.causal,
+                                           window=spec.window)
+        x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+    else:
+        out, _ = ssm_lib.mamba2_prefill(
+            lp["mixer"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+            d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+            conv_width=cfg.ssm_conv_width, scan=ssm_lib.ssd_chunked)
+        x = _radd(x, out)
+    return _ffn(lp, x, spec)
+
+
 def forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cfg: ArchConfig):
-    raise NotImplementedError(
-        "the training forward of the model zoo is not ported; it comes with "
-        "launch/train.py (ROADMAP Queue 1 item 18)")
+    """The training forward: x (B,S,d) through every segment -> (x, aux);
+    aux is 0 (no MoE layer is ported)."""
+    check_ported(cfg)
+    for seg in build_segments(cfg):
+        if seg.kind == "shared_attn":
+            x = _layer_fwd(params["shared_attn"], x, positions, seg, cfg)
+            continue
+        seg_params = params["segments"][str(seg.index)]
+        for i in range(seg.n_layers):
+            x = _layer_fwd(tree_index(seg_params, i), x, positions, seg, cfg)
+    return x, torch.zeros((), device=x.device)

@@ -436,16 +436,21 @@ class SimScanDriver:
                 self.cohort_log.append(y["cohort"][j])
 
     def run(self, n_rounds: int, *, eval_fn: Callable | None = None,
-            eval_every: int = 10) -> None:
+            eval_every: int = 10, verbose: bool = False) -> None:
         """Simulate rounds [0, n_rounds), the runner updated in place;
-        evals at the heap engine's cadence, stamped at close + overhead."""
+        evals at the heap engine's cadence, stamped at close + overhead
+        (a line printed at each under `verbose`)."""
         r = self.r
         overhead = np.float32(self.sim.config.server_overhead_s)
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
 
         def on_sync(t):
             sim_t = float(np.float32(r.hist.sim_seconds[-1]) + overhead)
-            r.evaluate(t, eval_fn, sim_time=sim_t)
+            el, ea = r.evaluate(t, eval_fn, sim_time=sim_t)
+            if verbose:
+                print(f"  round {t:5d} sim_t={sim_t:10.2f}s "
+                      f"train={r.hist.train_loss[-1]:.4f} eval={el:.4f} "
+                      f"acc={ea:.4f}")
 
         run_pipelined_chunks(
             (init_sim_carry(r, self.sim), r.params),
@@ -457,12 +462,12 @@ class SimScanDriver:
 
 def run_sim_scan(runner: RoundRunner, sim: SimSpec, n_rounds: int, *,
                  scan_chunk: int = 64, eval_fn: Callable | None = None,
-                 eval_every: int = 10):
+                 eval_every: int = 10, verbose: bool = False):
     """Drive `runner` through the compiled simulator and return `(params,
     FLHistory)`: the `run_fl(sim=...)` fast path, callable directly with
     a constructed runner."""
     t0 = time.time()
     SimScanDriver(runner, sim, scan_chunk=scan_chunk).run(
-        n_rounds, eval_fn=eval_fn, eval_every=eval_every)
+        n_rounds, eval_fn=eval_fn, eval_every=eval_every, verbose=verbose)
     runner.hist.wall_time = time.time() - t0
     return runner.finalize()

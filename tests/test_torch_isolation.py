@@ -62,7 +62,8 @@ def test_isolation_walk_sees_the_whole_port():
             "participation", "_threefry", "processes", "registry",
             "algorithms", "host", "events", "latency", "policies",
             "engine", "compiled", "sim", "io", "run_state",
-            "trace_replay", "elastic"} <= mods
+            "trace_replay", "elastic", "train", "steps",
+            "qwen1_5_110b"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -185,9 +186,15 @@ def test_unported_modules_raise():
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.launch import train
     from repro_torch.launch.serve import serve
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         serve("zamba2-7b", smoke=True)
+    # training (ROADMAP Queue 1 item 18.5): the function and its CLI
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        train.train("granite-3-8b", smoke=True, rounds=1)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        train.main(["--arch", "granite-3-8b", "--smoke", "--rounds", "1"])
     model = build_model(get_smoke_config("zamba2-7b"))
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         model.init(0)
@@ -220,20 +227,29 @@ def test_unported_block_kinds_and_modalities_raise(arch, change):
 def test_unported_zoo_surfaces_raise():
     from repro_torch.launch.serve import main
     from repro_torch.models import transformer
-    for arch in ("gemma3-4b", "olmoe_1b_7b", "deepseek-v2-lite-16b",
-                 "hubert_xlarge", "llava-next-34b", "qwen1.5-110b",
-                 "moonshot-v1-16b-a3b"):
-        with pytest.raises(NotImplementedError, match="item 18"):
+    # each unported config names the item its blocks wait for; qwen1.5-110b
+    # (item 18.0) and the text training path (18.5) are ported
+    for arch, item in (("gemma3-4b", "18.1"), ("olmoe_1b_7b", "18.2"),
+                       ("moonshot-v1-16b-a3b", "18.2"),
+                       ("deepseek-v2-lite-16b", "18.3"),
+                       ("hubert_xlarge", "18.4"), ("llava-next-34b", "18.4")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_config(arch)
+    assert get_config("qwen1.5-110b").qkv_bias
     with pytest.raises(KeyError, match="unknown architecture"):
         get_config("gpt5")
     cfg = get_smoke_config("granite-3-8b")
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.loss_fn({}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        transformer.forward({}, torch.zeros((1, 4, cfg.d_model)),
-                            torch.arange(4), cfg)
+    params = model.init(0, device="cpu")
+    loss, aux = model.loss_fn(params, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.long)})
+    assert bool(torch.isfinite(loss)) and set(aux) == {"loss", "ce", "aux"}
+    x, _ = transformer.forward(params, torch.zeros(
+        (1, 4, cfg.d_model), dtype=torch.bfloat16), torch.arange(4), cfg)
+    assert x.shape == (1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="item 18.2"):
+        transformer.forward(params, x, torch.arange(4),
+                            cfg.replace(n_experts=4, top_k=2))
     # --params (item 17) is ported: it loads a snapshot, which must exist
     with pytest.raises(FileNotFoundError):
         main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
