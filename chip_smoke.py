@@ -138,8 +138,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
      onto the card, its tokens those of the in-memory params;
  15. holds the model zoo's kernels against their plain versions on the card:
      `flash_attention` at the served shapes (zamba2-7b: B=4, S=T=2048,
-     H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128), ragged S,
-     non-causal S != T, f32 and bf16; `ssd_scan` at zamba2-7b's and
+     H=KV=32, hd=112; granite-3-8b: GQA 32 over 8 heads, hd=128; gemma3-4b:
+     GQA 8 over 4 heads, hd=256, global and with window 1024), ragged S,
+     non-causal S != T, windows of 100 and 17 keys, f32 and bf16, no NaN;
+     `ssd_scan` at zamba2-7b's and
      mamba2-1.3b's shapes (p=64, n=64 and 128, Q=256), f32, a chunk of
      96, an odd S (Q=1) and zamba2's largest |dA|; times both per call at
      the served shapes beside their bounds and,
@@ -166,7 +168,20 @@ Run from the root of a checkout on a machine with a CUDA card. It
      one client's f32 loss and gradients (1 layer) on the card against the
      CPU; `make_train_step`'s vmap mode against its sequential mode (f32);
      zamba2-7b at full width cut to 6 layers (the shared attention block
-     on the path) for 2 rounds.
+     on the path) for 2 rounds;
+ 19. drives gemma3-4b (`gemma_phase`, lines starting `gemma `): times
+     `flash_attention` at its two prefill shapes (global, and window 1024)
+     beside its bound and one `scaled_dot_product_attention` call
+     (is_causal; a boolean window mask), naming the backend sdpa ran;
+     serves it at full width and depth (34 layers, 4.55 B bf16 params):
+     exactly 34 attention launches a prefill (29 windowed), none in
+     decode, no other kernel; runs its first 6 layers (5 local, 1 global)
+     at full width in f32 on the card and on the CPU over 1100 prompt
+     tokens (the rings filled past their end) and two decode steps, and
+     1000 prompt tokens plus 100 decode steps (the rings wrap) against
+     one prefill of 1100; trains it at full width cut to 6 layers, N=2,
+     for 2 rounds (one `mifa_aggregate` launch a round), printing the
+     peak allocation.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -255,6 +270,19 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW, GRANITE_LAYERS = 4, 2048, 32, 4
 # card vs CPU at ZOO_CHECK_S tokens; decode vs prefill over DVP_PROMPT
 # prompt tokens and DVP_STEPS decode steps (2176 = 17 chunks of 128)
 ZOO_CHECK_S, DVP_PROMPT, DVP_STEPS = 512, 2048, 128
+# gemma3-4b: its local layers' window; its checks at full width with the
+# depth cut to GEMMA_CHECK_LAYERS (five local layers and the first global
+# one), f32: card vs CPU over a prompt of GEMMA_CHECK_S > the window (the
+# prefill fills the rings past their end) and two decode steps; decode vs
+# prefill from GEMMA_DVP_PROMPT < the window through GEMMA_DVP_STEPS steps
+# (the rings wrap during decode); GEMMA_TRAIN_ROUNDS rounds of train() at
+# GEMMA_TRAIN_LAYERS with GEMMA_TRAIN_N clients: the untied 262144-token
+# embedding and head (1.34 B params) put 26 B a param (G and the update
+# sums in f32, a bf16 copy of weights and gradients a client) near 35 GB
+# before any layer, so N=4 would not fit a card
+GEMMA_WINDOW, GEMMA_CHECK_LAYERS, GEMMA_CHECK_S = 1024, 6, 1100
+GEMMA_DVP_PROMPT, GEMMA_DVP_STEPS = 1000, 100
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_N, GEMMA_TRAIN_ROUNDS = 6, 2, 2
 # kernel vs plain version, |err| <= atol + rtol·|ref| as (atol, rtol).
 # Attention: f32 (2e-5, 0), FMAs and einsum sum in other orders; bf16
 # (2e-2, 1e-2), the kernel rounds the probabilities to bf16 before P·V, as
@@ -3449,29 +3477,45 @@ def ssd_inputs(gen, b, s, h, p, n, dtype, large_da=False):
 
 def check_flash(gen) -> tuple[float, list]:
     """flash_attention against its plain version: the served models'
-    shapes (zamba2-7b: H=KV=32, hd=112; granite-3-8b: GQA g=4, hd=128),
-    ragged S, non-causal S != T, small heads, f32 and bf16."""
+    shapes (zamba2-7b: H=KV=32, hd=112; granite-3-8b: GQA g=4, hd=128;
+    gemma3-4b: GQA g=2, hd=256, global and window 1024), ragged S,
+    non-causal S != T, small heads, windows that are not a multiple of the
+    64-key tile (100) and below one tile (17), f32 and bf16; no output may
+    be NaN."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [((SERVE_B, SERVE_PROMPT, 32, 32, 112), bf, True, "zamba2 path"),
-             ((SERVE_B, SERVE_PROMPT, 32, 8, 128), bf, True,
+    gemma = (SERVE_B, SERVE_PROMPT, 8, 4, 256)
+    cases = [((SERVE_B, SERVE_PROMPT, 32, 32, 112), bf, True, 0,
+              "zamba2 path"),
+             ((SERVE_B, SERVE_PROMPT, 32, 8, 128), bf, True, 0,
               "granite path, GQA g=4"),
-             ((1, 512, 32, 32, 112), f32, True, "zamba2 heads f32"),
-             ((1, 512, 32, 8, 128), f32, True, "GQA g=4 f32"),
-             ((2, 1000, 8, 2, 112), bf, True, "ragged S"),
-             ((2, 1000, 8, 2, 112), f32, True, "ragged S f32"),
-             ((2, 300, 4, 4, 64), bf, False, "non-causal, T=200"),
-             ((2, 96, 4, 4, 32), f32, False, "smoke heads f32")]
+             ((1, 512, 32, 32, 112), f32, True, 0, "zamba2 heads f32"),
+             ((1, 512, 32, 8, 128), f32, True, 0, "GQA g=4 f32"),
+             ((2, 1000, 8, 2, 112), bf, True, 0, "ragged S"),
+             ((2, 1000, 8, 2, 112), f32, True, 0, "ragged S f32"),
+             ((2, 300, 4, 4, 64), bf, False, 0, "non-causal, T=200"),
+             ((2, 96, 4, 4, 32), f32, False, 0, "smoke heads f32"),
+             (gemma, bf, True, 0, "gemma3 global, hd 256"),
+             (gemma, bf, True, GEMMA_WINDOW, "gemma3 local, hd 256"),
+             ((1, 1500, 8, 4, 256), f32, True, 0, "hd 256 f32"),
+             ((1, 1500, 8, 4, 256), f32, True, GEMMA_WINDOW,
+              "gemma3 local f32"),
+             ((2, 700, 8, 4, 256), bf, True, 100, "window 100"),
+             ((2, 700, 8, 4, 256), f32, True, 100, "window 100 f32"),
+             ((2, 333, 4, 2, 256), bf, True, 17, "window 17 < a tile"),
+             ((2, 333, 4, 2, 256), f32, True, 17, "window 17 f32")]
     max_err, rows = 0.0, []
-    for (b, s, h, kv, hd), dt, causal, label in cases:
+    for (b, s, h, kv, hd), dt, causal, window, label in cases:
         t = 200 if label.startswith("non-causal") else s
         q, k, v = attn_inputs(gen, b, s, h, kv, hd, dt, t)
-        ref = flash_attention_ref(q, k, v, causal=causal)
-        out = flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         check(out.dtype == dt and out.shape == ref.shape,
               f"flash_attention output {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"flash_attention: a non-finite output ({label})")
         atol, rtol = ATTN_TOL[dt]
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
@@ -3479,8 +3523,9 @@ def check_flash(gen) -> tuple[float, list]:
               f"flash_attention off by {err:.3e} ({label})")
         max_err = max(max_err, err)
         rows.append(f"flash_attention {label:<22} B={b} S={s} T={t} H={h} "
-                    f"KV={kv} hd={hd} {str(dt)[6:]} causal={causal}: max "
-                    f"|err| {err:.3e} (atol {atol}, rtol {rtol})")
+                    f"KV={kv} hd={hd} {str(dt)[6:]} causal={causal} "
+                    f"window={window}: max |err| {err:.3e} (atol {atol}, "
+                    f"rtol {rtol})")
     return max_err, rows
 
 
@@ -3530,12 +3575,14 @@ def check_ssd(gen) -> tuple[float, list]:
     return max_err, rows
 
 
-def flash_work(b, s, h, kv, hd, itemsize) -> tuple[int, int]:
+def flash_work(b, s, h, kv, hd, itemsize, window=0) -> tuple[int, int]:
     """Bytes (q, k, v read once, out written once) and the flops a causal
     call needs: Q·Kᵀ and P·V over the S(S+1)/2 pairs on or below the
-    diagonal."""
+    diagonal, or with a window over the sum of min(s + 1, window) pairs."""
     nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
-    return nbytes, 4 * b * h * hd * s * (s + 1) // 2
+    pairs = (s * (s + 1) // 2 if not window
+             else sum(min(i + 1, window) for i in range(s)))
+    return nbytes, 4 * b * h * hd * pairs
 
 
 def ssd_work(b, s, h, p, n, q, itemsize) -> tuple[int, int]:
@@ -3557,23 +3604,49 @@ def time_calls(fns: dict, sets) -> dict:
             / len(sets) for name, f in fns.items()}
 
 
-def time_flash(gen, b, s, h, kv, hd) -> dict:
-    """flash_attention at a served shape (bf16, causal): kernel, plain
-    version and one scaled_dot_product_attention call on the same values
-    in its (B,H,S,hd) layout, prepared beforehand."""
+def sdpa_backend(*args, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for
+    scaled_dot_product_attention(*args, **kw) (its `_fused_sdp_choice`),
+    or why it could not be read."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not read ({type(e).__name__})"
+
+
+def time_flash(gen, b, s, h, kv, hd, window=0) -> dict:
+    """flash_attention at a served shape (bf16, causal, `window` > 0 for a
+    sliding window): kernel, plain version and one
+    scaled_dot_product_attention call on the same values in its (B,H,S,hd)
+    layout, prepared beforehand: is_causal with GQA in place, or, with a
+    window, the boolean mask of the window and k, v repeated to H heads.
+    `library_backend` names the backend the library call dispatched to."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes, ops = flash_work(b, s, h, kv, hd, 2)
+    nbytes, ops = flash_work(b, s, h, kv, hd, 2, window)
     sets = [attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
             for _ in range(n_copies(nbytes))]
-    lib_sets = [[x.transpose(1, 2).contiguous() for x in st] for st in sets]
-    t = time_calls({"ms": lambda *a: flash_attention(*a, causal=True),
-                    "plain_ms": lambda *a: flash_attention_ref(*a,
-                                                               causal=True)},
-                   sets)
-    t["library_ms"] = time_calls({"lib": lambda *a: sdpa(
-        *a, is_causal=True, enable_gqa=kv != h)}, lib_sets)["lib"]
+    t = time_calls({"ms": lambda *a: flash_attention(*a, causal=True,
+                                                     window=window),
+                    "plain_ms": lambda *a: flash_attention_ref(
+                        *a, causal=True, window=window)}, sets)
+    if window:
+        mask = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+        mask = mask.triu(1 - window)
+        lib_sets = [[x.transpose(1, 2).contiguous() if i == 0 else
+                     x.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+                     .contiguous() for i, x in enumerate(st)]
+                    for st in sets]
+        lib_kw = {"attn_mask": mask}
+    else:
+        lib_sets = [[x.transpose(1, 2).contiguous() for x in st]
+                    for st in sets]
+        lib_kw = {"is_causal": True, "enable_gqa": kv != h}
+    t["library_ms"] = time_calls({"lib": lambda *a: sdpa(*a, **lib_kw)},
+                                 lib_sets)["lib"]
+    t["library_backend"] = sdpa_backend(*lib_sets[0], **lib_kw)
     t["bound_ms"], t["bound_by"] = bound(nbytes, ops, BF16_OPS_PER_S)
     t.update(bytes=nbytes, ops=ops)
     return t
@@ -3642,11 +3715,65 @@ def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
-def zoo_f32_config(n_layers: int):
-    """zamba2-7b at full width in f32 with its depth cut to n_layers."""
+def zoo_f32_config(n_layers: int, arch: str = "zamba2_7b"):
+    """A zoo config at full width in f32 with its depth cut to n_layers."""
     from repro_torch.configs import get_config
-    return get_config("zamba2_7b").replace(
+    return get_config(arch).replace(
         n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+
+
+def model_card_vs_cpu(cfg, s: int, seed: int) -> tuple:
+    """`cfg` at B=1: a prefill of s tokens (logits and every cache leaf)
+    and two decode steps, on the card (kernels) and on the CPU (plain
+    versions) from the card's params copied across. Returns the logits
+    gaps (prefill, two steps), the worst cache leaf's gap, the leaves'
+    shapes and the card's and the CPU's seconds."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    model = build_model(cfg)
+    p_gpu = model.init(seed, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, s + 2),
+                         generator=torch.Generator().manual_seed(seed))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = p_gpu if dev == "cuda" else tree_map(lambda t: t.cpu(),
+                                                      p_gpu)
+        cache = model.init_cache(1, s + 2, device=dev)
+        t = toks.to(dev)
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, {"tokens": t[:, :s]}, cache)
+        steps = [logits]
+        for pos in range(s, s + 2):
+            lg, _ = model.decode_step(params, t[:, pos:pos + 1], pos, cache)
+            steps.append(lg)
+        out[dev] = (steps, cache, time.perf_counter() - t0)
+        del params
+    gaps = [rel_gap(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0])]
+    leaves = list(zip(tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])))
+    return (gaps, max(rel_gap(a, b) for a, b in leaves),
+            sorted({tuple(a.shape) for a, _ in leaves}), out["cuda"][2],
+            out["cpu"][2])
+
+
+def model_decode_vs_prefill(cfg, prompt: int, steps: int, seed: int
+                            ) -> float:
+    """`cfg` at B=1 on the card: a prefill of `prompt` tokens and `steps`
+    teacher-forced decode steps against one prefill of all the tokens; the
+    last position's logits gap."""
+    from repro_torch.models import build_model
+    total = prompt + steps
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, total),
+                         generator=torch.Generator().manual_seed(seed)).cuda()
+    full, _ = model.prefill(params, {"tokens": toks},
+                            model.init_cache(1, total, device="cuda"))
+    cache = model.init_cache(1, total, device="cuda")
+    model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+    for pos in range(prompt, total):
+        logits, _ = model.decode_step(params, toks[:, pos:pos + 1], pos,
+                                      cache)
+    return rel_gap(logits, full)
 
 
 def zoo_card_vs_cpu() -> list:
@@ -3654,29 +3781,8 @@ def zoo_card_vs_cpu() -> list:
     the shared attention block), B=1, S=512, f32: prefill logits and every
     cache leaf, then two decode steps, on the card (kernels) and on the CPU
     (plain versions) from the same params."""
-    from repro_torch.models import build_model
-    from repro_torch.tree import tree_leaves, tree_map
-    cfg = zoo_f32_config(6)
-    model = build_model(cfg)
-    p_gpu = model.init(1, device="cuda")
-    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
-    toks = torch.randint(0, cfg.vocab_size, (1, ZOO_CHECK_S + 2),
-                         generator=torch.Generator().manual_seed(1))
-    out = {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        cache = model.init_cache(1, ZOO_CHECK_S + 2, device=dev)
-        t = toks.to(dev)
-        logits, _ = model.prefill(params, {"tokens": t[:, :ZOO_CHECK_S]},
-                                  cache)
-        steps = [logits]
-        for i in range(2):
-            pos = ZOO_CHECK_S + i
-            lg, _ = model.decode_step(params, t[:, pos:pos + 1], pos, cache)
-            steps.append(lg)
-        out[dev] = (steps, cache)
-    gaps = [rel_gap(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0])]
-    cache_gap = max(rel_gap(a, b) for a, b in zip(
-        tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])))
+    gaps, cache_gap, _, _, _ = model_card_vs_cpu(zoo_f32_config(6),
+                                                 ZOO_CHECK_S, 1)
     check(max(gaps) <= ZOO_RTOL and cache_gap <= ZOO_RTOL,
           f"zamba2 card vs CPU: logits gaps {gaps}, cache {cache_gap}")
     return [f"zamba2-7b card vs CPU (6 layers, full width, f32, S="
@@ -3690,25 +3796,13 @@ def zoo_decode_vs_prefill() -> list:
     two insertions of the shared block), f32, on the card: a prefill of
     DVP_PROMPT tokens and DVP_STEPS teacher-forced decode steps give the
     last position's logits of one prefill of DVP_PROMPT + DVP_STEPS."""
-    from repro_torch.models import build_model
     from repro_torch.models.ssm import ssd_chunk
     cfg = zoo_f32_config(12)
     total = DVP_PROMPT + DVP_STEPS
     chunk = ssd_chunk(total, cfg.ssm_chunk)
     check(chunk >= cfg.ssm_chunk // 2,
           f"{total} tokens would cut the SSD chunk to {chunk}")
-    model = build_model(cfg)
-    params = model.init(2, device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (1, total),
-                         generator=torch.Generator().manual_seed(2)).cuda()
-    full, _ = model.prefill(params, {"tokens": toks},
-                            model.init_cache(1, total, device="cuda"))
-    cache = model.init_cache(1, total, device="cuda")
-    model.prefill(params, {"tokens": toks[:, :DVP_PROMPT]}, cache)
-    for pos in range(DVP_PROMPT, total):
-        logits, _ = model.decode_step(params, toks[:, pos:pos + 1], pos,
-                                      cache)
-    gap = rel_gap(logits, full)
+    gap = model_decode_vs_prefill(cfg, DVP_PROMPT, DVP_STEPS, 2)
     check(gap <= ZOO_RTOL, f"zamba2 decode vs prefill gap {gap:.3e}")
     return [f"zamba2-7b decode vs prefill (12 layers, full width, f32): "
             f"prefill {DVP_PROMPT} + {DVP_STEPS} decode steps vs one "
@@ -3744,7 +3838,8 @@ def zoo_phases(gen, timing: dict) -> tuple[dict, dict, dict]:
                                  "Q=256"}
     for name, t in zoo_timing.items():
         lib = ("none" if t["library_ms"] is None
-               else f"{t['library_ms'] * 1e3:.2f} us (sdpa)")
+               else f"{t['library_ms'] * 1e3:.2f} us (sdpa: "
+                    f"{t['library_backend']})")
         print(f"{name.split()[0]} per call ({shapes[name]}, bf16): kernel "
               f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us "
@@ -3800,7 +3895,8 @@ def train_cfg(arch: str, n_layers: int, **change):
                                     fl_local_steps=TRAIN_K, **change)
 
 
-def train_run(label, cfg, rounds, smi) -> tuple[dict, dict, list]:
+def train_run(label, cfg, rounds, smi, clients=TRAIN_N
+              ) -> tuple[dict, dict, list]:
     """`launch.train.train` on the card, every count set to 0 just before
     and read just after: `mifa_aggregate` once a round for each leaf table
     and no other kernel (the training forward calls none); finite losses
@@ -3811,7 +3907,7 @@ def train_run(label, cfg, rounds, smi) -> tuple[dict, dict, list]:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = train(cfg=cfg, rounds=rounds, clients=TRAIN_N, k_steps=TRAIN_K,
+    out = train(cfg=cfg, rounds=rounds, clients=clients, k_steps=TRAIN_K,
                 mb=TRAIN_MB, seq=TRAIN_SEQ, eta0=TRAIN_ETA0,
                 memory="array", seed=0, device="cuda", log_every=1)
     torch.cuda.synchronize()
@@ -3829,12 +3925,12 @@ def train_run(label, cfg, rounds, smi) -> tuple[dict, dict, list]:
           f"train {label}: losses {out['losses']}")
     check(all(bool(torch.isfinite(p.float()).all()) for p in leaves),
           f"train {label}: non-finite params")
-    tokens = TRAIN_N * TRAIN_K * TRAIN_MB * TRAIN_SEQ
+    tokens = clients * TRAIN_K * TRAIN_MB * TRAIN_SEQ
     ms = [r * 1e3 for r in out["round_s"]]
     steady = float(np.median(ms[1:]))
     rows = [f"train {label}: {cfg.n_layers} layers at full width "
             f"(d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
-            f"{out['n_params']} params, {cfg.param_dtype}, N={TRAIN_N} "
+            f"{out['n_params']} params, {cfg.param_dtype}, N={clients} "
             f"K={TRAIN_K} mb={TRAIN_MB} seq={TRAIN_SEQ}, MIFA(array), "
             f"{rounds} rounds in {seconds:.3f} s",
             f"  losses {[round(x, 6) for x in out['losses']]}; "
@@ -4022,6 +4118,85 @@ def train_phase(smi: str) -> tuple[dict, list]:
             "kernel_check_err": err}, rows
 
 
+# --------------------------------------------------------------------------- #
+# gemma3-4b: sliding-window attention, flash_attention at head dim 256
+# --------------------------------------------------------------------------- #
+
+def gemma_card_vs_cpu() -> str:
+    """gemma3-4b at full width, its first GEMMA_CHECK_LAYERS layers (five
+    local, one global), f32: a prefill of GEMMA_CHECK_S > window tokens
+    (the local rings filled past their end) and two decode steps, card
+    against CPU (`model_card_vs_cpu`)."""
+    gaps, cache_gap, shapes, card_s, cpu_s = model_card_vs_cpu(
+        zoo_f32_config(GEMMA_CHECK_LAYERS, "gemma3_4b"), GEMMA_CHECK_S, 5)
+    check(max(gaps) <= ZOO_RTOL and cache_gap <= ZOO_RTOL,
+          f"gemma card vs CPU: logits gaps {gaps}, cache {cache_gap}")
+    return (f"gemma card vs CPU ({GEMMA_CHECK_LAYERS} layers, full width, "
+            f"f32, S={GEMMA_CHECK_S}, window {GEMMA_WINDOW}, cache leaves "
+            f"{shapes}): max |dlogits| / max |logits| prefill "
+            f"{gaps[0]:.3e}, decode steps {gaps[1]:.3e} {gaps[2]:.3e}; "
+            f"worst cache leaf {cache_gap:.3e} (tol {ZOO_RTOL}); card "
+            f"{card_s:.3f} s, CPU {cpu_s:.3f} s")
+
+
+def gemma_decode_vs_prefill() -> str:
+    """gemma3-4b at full width, GEMMA_CHECK_LAYERS layers, f32, on the
+    card: GEMMA_DVP_PROMPT prompt tokens and GEMMA_DVP_STEPS decode steps
+    (the local rings wrap at position 1024) against one prefill."""
+    gap = model_decode_vs_prefill(
+        zoo_f32_config(GEMMA_CHECK_LAYERS, "gemma3_4b"), GEMMA_DVP_PROMPT,
+        GEMMA_DVP_STEPS, 6)
+    check(gap <= ZOO_RTOL, f"gemma decode vs prefill gap {gap:.3e}")
+    return (f"gemma decode vs prefill ({GEMMA_CHECK_LAYERS} layers, full "
+            f"width, f32): prefill {GEMMA_DVP_PROMPT} + {GEMMA_DVP_STEPS} "
+            f"decode steps (the {GEMMA_WINDOW}-slot rings wrap) vs one "
+            f"prefill of {GEMMA_DVP_PROMPT + GEMMA_DVP_STEPS}: max "
+            f"|dlogits| / max |logits| {gap:.3e} (tol {ZOO_RTOL})")
+
+
+def gemma_phase(gen, smi) -> tuple[dict, list]:
+    """gemma3-4b on the card: flash_attention timed at its two prefill
+    shapes (global, and window 1024) beside sdpa and the bound; served at
+    full width and depth (prefill launches flash_attention exactly 34
+    times: 29 local layers, 5 global; decode none; no other kernel); card
+    against CPU and decode against prefill at 6 layers in f32; two rounds
+    of train() at full width. Returns the timings and the serve launches;
+    every row starts with "gemma "."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    timing, rows = {}, []
+    for label, window in (("global", 0), ("local", GEMMA_WINDOW)):
+        t = time_flash(gen, SERVE_B, SERVE_PROMPT, 8, 4, 256, window)
+        timing[label] = t
+        rows.append(
+            f"gemma flash_attention per call ({label}: B={SERVE_B} "
+            f"S=T={SERVE_PROMPT} H=8 KV=4 hd=256 bf16 causal window="
+            f"{window}): kernel {t['ms'] * 1e3:.2f} us, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, sdpa "
+            f"{t['library_ms'] * 1e3:.2f} us ({t['library_backend']}), "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+            f"{t['bytes']} bytes, {t['ops']} flops) [{smi}]")
+    cfg = get_config("gemma3_4b")
+    n_local = sum(k == "local_attn" for k in cfg.layer_kinds())
+    counts, more = serve_phase("gemma3-4b", cfg,
+                               {"flash_attention": cfg.n_layers,
+                                "ssd_scan": 0})
+    rows += [f"gemma {r}" for r in more]
+    rows.append(f"gemma serve: {n_local} local layers (window "
+                f"{cfg.swa_window}) and {cfg.n_layers - n_local} global, "
+                f"one flash_attention launch each")
+    rows.append(gemma_card_vs_cpu())
+    rows.append(gemma_decode_vs_prefill())
+    torch.cuda.empty_cache()
+    train_cfg_g = train_cfg("gemma3_4b", GEMMA_TRAIN_LAYERS)
+    rows += [f"gemma {r}" for r in train_run(
+        "gemma3-4b", train_cfg_g, GEMMA_TRAIN_ROUNDS, smi,
+        clients=GEMMA_TRAIN_N)[2]]
+    rows.append(f"gemma phase {time.perf_counter() - t0:.1f} s")
+    return {"timing": timing,
+            "launches": counts["flash_attention"]}, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -4167,6 +4342,11 @@ def main() -> int:
     for row in rows:
         print(row)
     mifa_err = max(mifa_err, train_launches.pop("kernel_check_err"))
+    # gemma3-4b: flash_attention at head dim 256, global and windowed
+    torch.cuda.empty_cache()
+    gemma, rows = gemma_phase(gen, smi)
+    for row in rows:
+        print(row)
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -4262,6 +4442,23 @@ def main() -> int:
         if name in train_launches:
             scan.update(train_launches=train_launches[name],
                         train_launches_from=TRAIN_FROM)
+        if name == "flash_attention":
+            # gemma3-4b's serve prefill, counted from 0 just before it, and
+            # the kernel at its two shapes (ms, plain, bound, sdpa per call)
+            scan.update(
+                gemma_launches=gemma["launches"],
+                gemma_launches_from=f"gemma3-4b serve prefill, {SERVE_B} x "
+                                    f"{SERVE_PROMPT} tokens (29 local "
+                                    "layers, window 1024, and 5 global; "
+                                    "decode launches none)",
+                gemma_per_call={
+                    label: {k: t[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")}
+                    for label, t in gemma["timing"].items()},
+                gemma_per_call_at=f"gemma3-4b: B={SERVE_B} S=T="
+                                  f"{SERVE_PROMPT} H=8 KV=4 hd=256, bf16, "
+                                  "causal; local with window 1024")
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

@@ -9,8 +9,9 @@ checks of `chip_smoke.py`, and its time beside its bound.
                   |bank_scatter_batched|paged_bank_scatter_batched]
         [--root DIR]
 
-`flash_attention` (the default) is timed at zamba2-7b's and granite-3-8b's
-prefill beside one `scaled_dot_product_attention` call on the same values;
+`flash_attention` (the default) is timed at zamba2-7b's, granite-3-8b's and
+gemma3-4b's prefill (its global layers and its local ones, window 1024)
+beside one `scaled_dot_product_attention` call on the same values;
 `ssd_scan` at zamba2-7b's and mamba2-1.3b's prefill beside its plain
 version. `mifa_aggregate`, `paged_bank_gather`, `bank_scatter` and
 `paged_bank_scatter` are checked by `chip_smoke.check_mifa` /
@@ -40,14 +41,16 @@ from pathlib import Path
 
 import torch
 
-# (label, B, S=T, H, KV, hd) at the served prefill, bf16, causal
-FLASH_SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112),
-                ("granite-3-8b", 4, 2048, 32, 8, 128)]
+# (label, B, S=T, H, KV, hd, window) at the served prefill, bf16, causal
+FLASH_SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112, 0),
+                ("granite-3-8b", 4, 2048, 32, 8, 128, 0),
+                ("gemma3-4b global", 4, 2048, 8, 4, 256, 0),
+                ("gemma3-4b local", 4, 2048, 8, 4, 256, 1024)]
 # (label, b, S, h, p, n, Q) at the served prefill, bf16
 SSD_SHAPES = [("zamba2-7b", 4, 2048, 112, 64, 64, 256),
               ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256)]
 # a kernel instance's mangled name -> "dtype<template args>"
-INSTANCE = re.compile(r"(?:flash|ssd_scan)_(bf16|f32)_kernelI((?:Li\d+E)+)")
+INSTANCE = re.compile(r"(?:flash|ssd_scan)_(bf16|f32)_kernelI((?:L[ib]\d+E)+)")
 # any other kernel: its name and, where it is a template, the mangled
 # arguments
 OTHER = re.compile(r"([a-z_]+_kernel)(I\w*?EE)?")
@@ -66,7 +69,7 @@ def instance_name(mangled: str) -> str:
     if not inst:
         other = OTHER.search(mangled)
         return other[1] + (other[2] or "") if other else mangled
-    args = ",".join(re.findall(r"Li(\d+)E", inst[2]))
+    args = ",".join(re.findall(r"L[ib](\d+)E", inst[2]))
     return f"{inst[1]}<{args}>"
 
 
@@ -120,12 +123,13 @@ def sass_report(backend, kernel: str, lib: Path) -> list[str]:
 
 def bench_flash(chip_smoke, gen) -> list[str]:
     _, rows = chip_smoke.check_flash(gen)
-    for label, b, s, h, kv, hd in FLASH_SHAPES:
-        t = chip_smoke.time_flash(gen, b, s, h, kv, hd)
+    for label, b, s, h, kv, hd, window in FLASH_SHAPES:
+        t = chip_smoke.time_flash(gen, b, s, h, kv, hd, window)
         rows.append(
             f"flash_attention {label} (B={b} S=T={s} H={h} KV={kv} hd={hd},"
-            f" bf16, causal): kernel {t['ms'] * 1e3:.2f} us, sdpa "
-            f"{t['library_ms'] * 1e3:.2f} us (kernel/sdpa "
+            f" bf16, causal, window {window}): kernel {t['ms'] * 1e3:.2f} "
+            f"us, sdpa {t['library_ms'] * 1e3:.2f} us "
+            f"[{t['library_backend']}] (kernel/sdpa "
             f"{t['ms'] / t['library_ms']:.3f}), plain "
             f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f}"
             f" us ({t['bound_by']}), {t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s")

@@ -7,8 +7,11 @@
 //     out[b,s,h] = softmax_t(q[b,s,h]·k[b,t,h/g] * scale, mask) · v[b,t,h/g]
 //
 // with scale = 1/sqrt(hd) and, when causal, the top-left mask t <= s (the
-// wrapper allows a causal call only for S == T). Scores, the running max m,
-// the normaliser l and the accumulator are f32; the output is q's dtype.
+// wrapper allows a causal call only for S == T). A causal call may take a
+// sliding window w > 0 (gemma3's local layers): then key t is valid for
+// query s iff s - w < t <= s, the mask of the reference's
+// blockwise_attention (repro/models/attention.py). Scores, the running max
+// m, the normaliser l and the accumulator are f32; the output is q's dtype.
 //
 // What bounds it: operations. A causal call at zamba2-7b's prefill (B=4,
 // S=T=2048, H=32, hd=112, bf16) needs 4·B·H·hd·S(S+1)/2 = 1.2e11 flops for
@@ -23,7 +26,9 @@
 //   * One block of 2 warpgroups per (128-query tile, head, batch); each
 //     warpgroup owns 64 query rows. Blocks of one (head, batch) run
 //     heaviest (last query tile) first; a causal block stops at its last
-//     query and a warpgroup skips key tiles wholly above its rows.
+//     query and a warpgroup skips key tiles wholly above its rows. With a
+//     window the block starts at the tile of its first row's lowest key,
+//     and a warpgroup skips tiles wholly below its top row's window.
 //   * Q (once) and 64-key tiles of K and V come in by TMA: 4-d tensor maps
 //     over the reference's (B, rows, heads, hd) layout, boxes of 64 head
 //     columns, so GQA reads head h / g in place and nothing is repeated.
@@ -46,10 +51,13 @@
 //     per score; the correction factor is one ex2 as well, and the
 //     accumulator is rescaled only when a row of the warp has a new max
 //     (otherwise every factor is exactly 1). A masked score is −1e30 (the
-//     TPU kernel's value) before the fold, so p and the correction are 0,
-//     never NaN; the first key tile holds key 0, so no row's max stays at
-//     −1e30. The per-element mask runs only on tiles that cross the
-//     diagonal or the end of T.
+//     TPU kernel's value) before the fold. With a window a row can see a
+//     whole tile masked before its first valid key, its max still −1e30;
+//     ex2(s·c − m·c) as one FMA would then leave the rounding residual of
+//     m·c (about 1e22) and give 0 or inf, so such a row folds against 0
+//     instead of m: p = ex2(−1e30·c) = 0 and the correction stays 1 until
+//     a valid key arrives. The per-element mask runs only on tiles that
+//     cross the diagonal, the window's lower edge or the end of T.
 //   * Probabilities are rounded to bf16 before P·V and l sums the f32
 //     probabilities, as in the TPU kernel. The output is staged through
 //     shared memory and written 16 bytes at a time. Nothing is allocated
@@ -61,6 +69,16 @@
 //     register cap, ran slower when tried; overlapping a tile's softmax
 //     with the next tile's Q·Kᵀ inside a warpgroup needs a second score
 //     tile and spilled under the cap.
+//   * Head dims above 128 (gemma3's 256) take KT = 12 or 16: the P·V
+//     accumulator alone is 4·KT f32 registers a thread (128 at hd 256)
+//     beside the 32 of the score tile, and Q with the two-stage K/V ring
+//     needs 197,664 bytes of shared memory at hd 256, so these instances
+//     run one block an SM under __launch_bounds__(256, 1): 206 registers
+//     at KT = 16 and 167 at KT = 12, no spills.
+//   * The window's logic is compiled only into the instances that take
+//     it (KT = 4, 8, 12, 16, the head dim padded to whole 64-column
+//     atoms): compiled into every instance, it made ptxas spill 32 and 64
+//     bytes at KT = 7 and 8 under the 128-register cap.
 //
 // f32 inputs take a CUDA-core path with the same blocking of the softmax
 // (32 queries by 32 keys, FMA in f32), so f32 stays f32; it serves the f32
@@ -86,6 +104,7 @@ constexpr int BK = 64;      // keys per tile
 constexpr int NSTAGE = 2;   // depth of the K/V ring
 constexpr int THREADS = 256;
 constexpr int MIN_BLOCKS = 2;  // blocks an SM holds: caps registers at 128
+constexpr int WIDE_KT = 8;     // above it, one block an SM (hd > 128)
 constexpr int ROWB = 128;   // bytes of a row of a 64-column atom
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -275,18 +294,30 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4],
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
 }
 
-// KT = number of 16-wide slices of the head dim (hd <= 16*KT).
-template <int KT>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+// oacc (64 x HDP) += P (the A fragment of 16 keys) · V's rows `vrow`: one
+// instruction per 64-column atom of V, the last one as wide as what is left
+template <int HDP, int A = 0>
+__device__ __forceinline__ void pv_atoms(float* oacc, const uint32_t a[4],
+                                         uint32_t vrow) {
+  constexpr int N = HDP - 64 * A < 64 ? HDP - 64 * A : 64;
+  wgmma_rs<N>(oacc + 32 * A, a,
+              wgmma_desc(vrow + A * BK * ROWB, BK * ROWB, 1024));
+  if constexpr (HDP > 64 * (A + 1)) pv_atoms<HDP, A + 1>(oacc, a, vrow);
+}
+
+// KT = number of 16-wide slices of the head dim (hd <= 16*KT); WIN: the
+// call has a sliding window (its logic compiled only into these instances,
+// so that the others keep their register budget).
+template <int KT, bool WIN>
+__global__ void __launch_bounds__(THREADS, KT > WIDE_KT ? 1 : MIN_BLOCKS)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   __nv_bfloat16* __restrict__ o, int S, int T, int H,
-                  int KV, int hd, int causal, float scale_log2) {
+                  int KV, int hd, int causal, int window, float scale_log2) {
   constexpr int HDP = KT * 16;     // padded head dim
   constexpr int CHP = HDP / 8;     // 16-byte chunks of a padded row
   constexpr int NA = (HDP + 63) / 64;   // 64-column atoms of a row
-  constexpr int N0 = HDP < 64 ? HDP : 64, N1 = HDP - N0;  // P·V widths
   constexpr uint32_t QBYTES = NA * BQ * ROWB, TBYTES = NA * BK * ROWB;
   constexpr int STR = HDP + 8;     // row stride of the output staging
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -304,7 +335,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int gid = lane >> 2, tig = lane & 3;
   const int64_t qrow = int64_t(H) * hd;
   const int kend = causal ? min(T, q0 + BQ) : T;
-  const int ntiles = (kend + BK - 1) / BK;
+  // with a window, tiles start at the one holding the first row's lowest
+  // key; local tile i is key tile j0 + i
+  const int j0 = WIN ? max(0, q0 - window + 1) / BK : 0;
+  const int ntiles = (kend + BK - 1) / BK - j0;
 
   // one barrier a stage, completed by the TMA bytes of its K and V tiles,
   // and one for Q; then a count a stage of the warpgroups done with it
@@ -316,16 +350,16 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     fence_mbar_init();
   }
   __syncthreads();
-  // one thread of the block issues the copies of tile j
+  // one thread of the block issues the copies of local tile j
   auto load_tile = [&](int j) {
     const int st = j % NSTAGE;
     mbar_expect_tx(bars + 8 * st, 2 * TBYTES);
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
       tma_load_4d(Ks + st * TBYTES + a * BK * ROWB, &tk, bars + 8 * st,
-                  64 * a, hk, j * BK, b);
+                  64 * a, hk, (j0 + j) * BK, b);
       tma_load_4d(Vs + st * TBYTES + a * BK * ROWB, &tv, bars + 8 * st,
-                  64 * a, hk, j * BK, b);
+                  64 * a, hk, (j0 + j) * BK, b);
     }
   };
   if (tid == 0) {
@@ -351,8 +385,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
   mbar_wait(qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * BK;
-    if (!causal || k0 <= wq0 + 63) {  // else wholly above the warpgroup
+    const int k0 = (j0 + j) * BK;
+    // else wholly above the warpgroup's rows or below its top row's window
+    if ((!causal || k0 <= wq0 + 63) &&
+        (!WIN || k0 + BK > wq0 - window + 1)) {
       mbar_wait(bars + 8 * (j % NSTAGE), (j / NSTAGE) & 1);  // tile j is in
       const uint32_t kst = Ks + (j % NSTAGE) * TBYTES;
       const uint32_t vst = Vs + (j % NSTAGE) * TBYTES;
@@ -376,11 +412,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs<BK / 2>(s);
 
-      if (k0 + BK > T || (causal && k0 + BK - 1 > wrow)) {
+      if (k0 + BK > T || (causal && k0 + BK - 1 > wrow) ||
+          (WIN && k0 < wrow + 16 - window)) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           const int key = k0 + (i / 4) * 8 + tig * 2 + (i & 1);
-          if (key >= T || (causal && key > row0 + ((i >> 1) & 1) * 8))
+          const int row = row0 + ((i >> 1) & 1) * 8;
+          if (key >= T || (causal && key > row) ||
+              (WIN && key <= row - window))
             s[i] = NEG_INF;
         }
       }
@@ -399,6 +438,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         grew |= mx[r] > m_r[r];
         corr[r] = exp2_approx((m_r[r] - mx[r]) * scale_log2);
         ms[r] = mx[r] * scale_log2;
+        // a row with no valid key yet folds against 0 (see the header)
+        if constexpr (WIN) ms[r] = mx[r] == NEG_INF ? 0.f : ms[r];
         m_r[r] = mx[r];
         l_r[r] *= corr[r];
       }
@@ -423,13 +464,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
           pa[jj][i] = pack_bf16(s[8 * jj + 2 * i], s[8 * jj + 2 * i + 1]);
       wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) {
-        const uint32_t vrow = vst + jj * 16 * ROWB;
-        wgmma_rs<N0>(oacc, pa[jj], wgmma_desc(vrow, BK * ROWB, 1024));
-        if constexpr (N1 > 0)
-          wgmma_rs<N1>(oacc + N0 / 2, pa[jj],
-                       wgmma_desc(vrow + BK * ROWB, BK * ROWB, 1024));
-      }
+      for (int jj = 0; jj < BK / 16; ++jj)
+        pv_atoms<HDP>(oacc, pa[jj], vst + jj * 16 * ROWB);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<HDP / 2>(oacc);
@@ -480,7 +516,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 constexpr int FTHREADS = 128;
 constexpr int FQ = 32;     // query rows per block
 constexpr int FK = 32;     // keys per tile
-constexpr int FSTR = 129;  // row stride of the Q and K tiles (f32)
+
+// shared floats of the f32 path for NC columns a thread: Q and K tiles at
+// an odd row stride, the V tile and the probabilities
+constexpr size_t f32_smem_floats(int nc) {
+  return size_t(FQ + FK) * (4 * nc + 1) + size_t(FK) * 4 * nc +
+         FQ * (FK + 1);
+}
 
 // NC = output columns per thread (hd <= 4*NC): thread t owns query row
 // t / 4 and columns t % 4 + 4*i.
@@ -488,12 +530,15 @@ template <int NC>
 __global__ void __launch_bounds__(FTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int T, int H, int KV, int hd, int causal, float scale) {
+                 int T, int H, int KV, int hd, int causal, int window,
+                 float scale) {
+  constexpr int VSTR = 4 * NC;      // row stride of the V tile
+  constexpr int FSTR = VSTR + 1;    // of the Q and K tiles: odd, no conflicts
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [FQ][FSTR]
   float* Ks = Qs + FQ * FSTR;                  // [FK][FSTR]
-  float* Vs = Ks + FK * FSTR;                  // [FK][128]
-  float* Ps = Vs + FK * 128;                   // [FQ][FK + 1]
+  float* Vs = Ks + FK * FSTR;                  // [FK][VSTR]
+  float* Ps = Vs + FK * VSTR;                  // [FQ][FK + 1]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -515,14 +560,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NC; ++i) acc[i] = 0.f;
   const int kend = causal ? min(T, q0 + FQ) : T;
+  // with a window, from the tile holding the first row's lowest key
+  const int kstart = window ? max(0, q0 - window + 1) / FK * FK : 0;
 
-  for (int k0 = 0; k0 < kend; k0 += FK) {
+  for (int k0 = kstart; k0 < kend; k0 += FK) {
     __syncthreads();
     for (int e = tid; e < FK * hd; e += FTHREADS) {
       const int rr = e / hd, d = e % hd;
       const bool in = k0 + rr < T;
       Ks[rr * FSTR + d] = in ? kb[(k0 + rr) * krow + d] : 0.f;
-      Vs[rr * 128 + d] = in ? vb[(k0 + rr) * krow + d] : 0.f;
+      Vs[rr * VSTR + d] = in ? vb[(k0 + rr) * krow + d] : 0.f;
     }
     __syncthreads();
     // this thread's 8 keys: qc*8 .. qc*8+7
@@ -539,7 +586,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
       const int key = k0 + qc * 8 + j;
       float sv = s[j] * scale;
-      if (key >= T || (causal && key > row)) sv = NEG_INF;
+      if (key >= T || (causal && key > row) ||
+          (window && key <= row - window))
+        sv = NEG_INF;
       s[j] = sv;
       mx = fmaxf(mx, sv);
     }
@@ -548,9 +597,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float corr = expf(m - mx);
     m = mx;
     l *= corr;
+    // a row with no valid key yet folds against 0, so its masked p are 0
+    const float mref = mx == NEG_INF ? 0.f : mx;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float p = expf(s[j] - mx);
+      const float p = expf(s[j] - mref);
       l += p;
       Ps[r * (FK + 1) + qc * 8 + j] = p;
     }
@@ -562,7 +613,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int d = qc + 4 * i;
-        if (d < hd) acc[i] += p * Vs[j * 128 + d];
+        if (d < hd) acc[i] += p * Vs[j * VSTR + d];
       }
     }
   }
@@ -614,10 +665,10 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int KT>
+template <int KT, bool WIN>
 int launch_bf16(dim3 grid, cudaStream_t stream, const void* q,
                 const void* k, const void* v, void* o, int S, int T, int H,
-                int KV, int hd, int causal, float scale_log2) {
+                int KV, int hd, int causal, int window, float scale_log2) {
   constexpr int NA = (KT * 16 + 63) / 64;
   CUtensorMap tq, tk, tv;
   const int B = int(grid.z);
@@ -630,21 +681,20 @@ int launch_bf16(dim3 grid, cudaStream_t stream, const void* q,
       1024 + size_t(NA) * ROWB * (BQ + 2 * NSTAGE * BK) + 8 * (NSTAGE + 1) +
       4 * NSTAGE;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<KT, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
-  flash_bf16_kernel<KT><<<grid, THREADS, smem, stream>>>(
+  flash_bf16_kernel<KT, WIN><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T, H, KV, hd, causal,
-      scale_log2);
+      window, scale_log2);
   return int(cudaGetLastError());
 }
 
 template <int NC>
 int launch_f32(dim3 grid, cudaStream_t stream, const void* q, const void* k,
                const void* v, void* o, int S, int T, int H, int KV, int hd,
-               int causal, float scale) {
-  const size_t smem =
-      sizeof(float) * (size_t(FQ + FK) * FSTR + FK * 128 + FQ * (FK + 1));
+               int causal, int window, float scale) {
+  const size_t smem = sizeof(float) * f32_smem_floats(NC);
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
@@ -652,40 +702,61 @@ int launch_f32(dim3 grid, cudaStream_t stream, const void* q, const void* k,
   flash_f32_kernel<NC><<<grid, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, T, H, KV, hd,
-      causal, scale);
+      causal, window, scale);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. flags: bit 0 causal, bit 1 bf16
-// (else f32). The wrapper guarantees hd % 8 == 0, hd <= 128, H % KV == 0,
-// contiguous 16-byte-aligned tensors and S == T when causal. Returns the
-// CUDA error of the launch (0 on success).
+// (else f32); window: 0 for none, else the sliding window of a causal call.
+// The wrapper guarantees hd % 8 == 0, hd <= 256, H % KV == 0, contiguous
+// 16-byte-aligned tensors, S == T when causal and a window only when
+// causal. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int T, int H, int KV,
-                               int hd, int flags, void* stream) {
+                               int hd, int flags, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int causal = flags & 1;
+  if (window < 0 || (window && !causal)) return int(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(float(hd));
   if (flags & 2) {
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     const float sl2 = scale * LOG2E;
-    switch ((hd + 15) / 16) {
-      case 1: return launch_bf16<1>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 2: return launch_bf16<2>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 3: return launch_bf16<3>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 4: return launch_bf16<4>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 5: return launch_bf16<5>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 6: return launch_bf16<6>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 7: return launch_bf16<7>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
-      case 8: return launch_bf16<8>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, sl2);
+#define BF16(KT, WIN) launch_bf16<KT, WIN>(grid, s, q, k, v, o, S, T, H, \
+                                          KV, hd, causal, window, sl2)
+    // windowed calls take four instances, their head dim padded with zero
+    // columns (the TMA fills them) to 64, 128, 192 or 256
+    if (window) switch ((hd + 63) / 64) {
+      case 1: return BF16(4, true);
+      case 2: return BF16(8, true);
+      case 3: return BF16(12, true);
+      case 4: return BF16(16, true);
       default: return int(cudaErrorInvalidValue);
     }
+    switch ((hd + 15) / 16) {
+      case 1: return BF16(1, false);
+      case 2: return BF16(2, false);
+      case 3: return BF16(3, false);
+      case 4: return BF16(4, false);
+      case 5: return BF16(5, false);
+      case 6: return BF16(6, false);
+      case 7: return BF16(7, false);
+      case 8: return BF16(8, false);
+      // wider heads in whole 64-column atoms
+      case 9: case 10: case 11: case 12: return BF16(12, false);
+      case 13: case 14: case 15: case 16: return BF16(16, false);
+      default: return int(cudaErrorInvalidValue);
+    }
+#undef BF16
   }
   const dim3 grid((S + FQ - 1) / FQ, H, B);
-  if (hd <= 32) return launch_f32<8>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-  if (hd <= 64) return launch_f32<16>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
-  if (hd <= 128) return launch_f32<32>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, scale);
+#define F32(NC) \
+  launch_f32<NC>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, window, scale)
+  if (hd <= 32) return F32(8);
+  if (hd <= 64) return F32(16);
+  if (hd <= 128) return F32(32);
+  if (hd <= 256) return F32(64);
+#undef F32
   return int(cudaErrorInvalidValue);
 }

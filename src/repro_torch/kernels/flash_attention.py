@@ -8,7 +8,12 @@ attention reads a key/value head per group; nothing is repeated in memory)
 and, when `causal`, the mask key <= query. The causal mask is top-left
 aligned, as the TPU kernel's `kpos <= qpos`; the reference's oracle aligns
 it bottom-right (`tril(k=T-S)`), and the two agree only when S == T, so a
-causal call with S != T raises.
+causal call with S != T raises. A causal call may take a sliding `window`
+w > 0 (gemma3's local layers): key t is then valid for query s iff
+s - w < t <= s, the mask of the reference's windowed
+`blockwise_attention` (`repro/models/attention.py`). A window without
+`causal` raises: the reference's non-causal windowed result depends on its
+query block, whose key slice ends at the block's end.
 
 `flash_attention` decides by the tensors' device: CUDA tensors launch the
 hand-written kernel `csrc/flash_attention.cu` (which replaces the TPU kernel
@@ -28,14 +33,16 @@ from repro_torch.kernels.backend import (FLOAT_STORES, check_tensors,
                                          entry_point, launch)
 
 # the kernel keeps a head's row in registers in 16-wide slices
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
     """Plain version: exact softmax attention in f32 with the top-left
-    causal mask, returned in q's dtype."""
+    causal mask (and, for window > 0, the window's lower edge), returned
+    in q's dtype."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -43,13 +50,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(hd)
     if causal:
         mask = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+        if window > 0:
+            mask = mask.triu(1 - window)
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def _check(q, k, v, causal: bool) -> None:
+def _check(q, k, v, causal: bool, window: int) -> None:
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q and k must be (B,S,H,hd) and (B,T,KV,hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -66,6 +75,9 @@ def _check(q, k, v, causal: bool) -> None:
     if causal and S != T:
         raise ValueError(f"causal attention needs S == T (got S={S}, "
                          f"T={T}): the kernel's mask is top-left aligned")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window}: a sliding window must be >= 0 "
+                         "and is taken only with causal=True")
     check_tensors(q.device, {
         "q": (q, FLOAT_STORES, (B, S, H, hd)),
         "k": (k, (q.dtype,), (B, T, KV, hd)),
@@ -73,17 +85,18 @@ def _check(q, k, v, causal: bool) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,S,H,hd) f32|bf16; k, v (B,T,KV,hd) of q's dtype, H % KV == 0,
-    hd a multiple of 8 up to 128, all contiguous. Returns (B,S,H,hd) in q's
+    hd a multiple of 8 up to 256, all contiguous; `window` > 0 (causal
+    only) keeps each query's last `window` keys. Returns (B,S,H,hd) in q's
     dtype. CPU tensors take the plain version; CUDA tensors launch the
     kernel into a fresh output."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = entry_point("flash_attention", "flash_attention",
-                     [vp] * 4 + [ci] * 7, q.device)
+                     [vp] * 4 + [ci] * 8, q.device)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -92,7 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), B, S, T, H, KV, hd,
-           int(causal) | (int(q.dtype == torch.bfloat16) << 1))
+           int(causal) | (int(q.dtype == torch.bfloat16) << 1), window)
     flash_attention.launches += 1
     return out
 

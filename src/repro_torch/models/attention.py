@@ -3,16 +3,16 @@ blockwise attention for training, prefill through the flash-attention
 kernel, and decode over a KV cache (counterpart of
 `repro/models/attention.py`).
 
-Serving's prefill attention (full, unwindowed, q, k, v of one length) goes
-through `kernels.ops.attention`: the hand-written CUDA kernel on the card,
-its plain version on the CPU. The training forward goes through
-`blockwise_attention`, the reference's differentiable model function: the
-kernel is forward-only and cannot run under `torch.func` transforms, and
-the reference's training path calls no kernel either. Sliding windows
-(gemma3's local layers, `shared_attn_window`) raise in both (ROADMAP Queue 1
-item 18.1), and MLA waits for item 18.3. Decode attends one query over the
-cache in plain PyTorch: the JAX package has no decode kernel and the port
-adds none.
+Serving's prefill attention (q, k, v of one length, full or with a
+sliding window) goes through `kernels.ops.attention`: the hand-written CUDA
+kernel on the card, its plain version on the CPU. The training forward goes
+through `blockwise_attention`, the reference's differentiable model
+function, windowed as the reference windows it: the kernel is forward-only
+and cannot run under `torch.func` transforms, and the reference's training
+path calls no kernel either. MLA waits for ROADMAP Queue 1 item 18.3.
+Decode attends one query over the cache (a ring of the last `window`
+positions for a windowed layer) in plain PyTorch: the JAX package has no
+decode kernel and the port adds none.
 """
 from __future__ import annotations
 
@@ -69,13 +69,6 @@ def _pick_block(s: int, target: int = 512) -> int:
     return max(b, 1)
 
 
-def _windowed() -> NotImplementedError:
-    return NotImplementedError(
-        "windowed attention (local_attn, shared_attn_window) is not "
-        "ported: it waits for blockwise_attention's windowed path "
-        "(ROADMAP Queue 1 entry 3, item 18.1)")
-
-
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_block: int = 0) -> torch.Tensor:
@@ -83,15 +76,17 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B,S,H,hd); k, v (B,T,KV,hd) with H % KV == 0, queries and keys at
     positions 0..S-1 and 0..T-1. Each query block (`_pick_block`) takes one
-    f32 softmax over all its keys, masked with NEG_INF; q·scale is rounded
-    to q's dtype before the scores and the probabilities to q's dtype before
-    P·V, where the reference rounds them. Differentiable, with no in-place
-    op, so `torch.func.vmap` and `grad` run through it. The reference
+    f32 softmax over its keys, masked with NEG_INF; q·scale is rounded to
+    q's dtype before the scores and the probabilities to q's dtype before
+    P·V, where the reference rounds them. With `window` > 0 (T == S) a
+    query keeps the keys t with s - window < t (and t <= s when causal),
+    and the block at q0 scores only the keys [q0 - window, q0 + bq), padded
+    in front with zeros as the reference pads them: O(bq·(window + bq))
+    scores a block instead of O(bq·T). Differentiable, with no in-place op,
+    so `torch.func.vmap` and `grad` run through it. The reference
     rematerializes each block on the backward pass; here autograd keeps each
     block's probabilities.
     """
-    if window > 0:
-        raise _windowed()
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -103,28 +98,43 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k[:, :, :, None].expand(B, T, KV, g, hd).reshape(B, T, H, hd)
         v = v[:, :, :, None].expand(B, T, KV, g, v.shape[-1]).reshape(
             B, T, H, v.shape[-1])
+    if window > 0:
+        if T != S:
+            raise ValueError(f"windowed attention needs T == S (got S={S}, "
+                             f"T={T}): queries and keys share positions")
+        span = window + bq
+        k, v = (torch.cat([x.new_zeros((B, window) + x.shape[2:]), x], dim=1)
+                for x in (k, v))
     kf = k.float()
-    kpos = torch.arange(T, device=q.device)
     outs = []
     for q0 in range(0, S, bq):
         qi = q_scaled[:, q0:q0 + bq]
-        scores = torch.einsum("bqhk,bthk->bhqt", qi.float(), kf)
-        if causal:
-            qpos = q0 + torch.arange(bq, device=q.device)
-            scores = torch.where(kpos[None, :] <= qpos[:, None], scores,
-                                 NEG_INF)
+        qpos = q0 + torch.arange(bq, device=q.device)
+        if window > 0:  # padded row q0 + i holds key position q0 - window + i
+            kk, vv = kf[:, q0:q0 + span], v[:, q0:q0 + span]
+            kpos = q0 - window + torch.arange(span, device=q.device)
+        else:
+            kk, vv = kf, v
+            kpos = torch.arange(T, device=q.device)
+        scores = torch.einsum("bqhk,bthk->bhqt", qi.float(), kk)
+        mask = kpos[None, :] <= qpos[:, None] if causal else None
+        if window > 0:
+            edge = (kpos[None, :] > qpos[:, None] - window) & (kpos >= 0)
+            mask = edge if mask is None else mask & edge
+        if mask is not None:
+            scores = torch.where(mask, scores, NEG_INF)
         p = torch.softmax(scores, dim=-1).to(qi.dtype)
-        outs.append(torch.einsum("bhqt,bthk->bqhk", p, v))
+        outs.append(torch.einsum("bhqt,bthk->bqhk", p, vv))
     return torch.cat(outs, dim=1)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
     """Exact prefill attention, q (B,S,H,hd), k, v (B,S,KV,hd) with
-    queries and keys at the same positions 0..S-1 -> (B,S,H,hd)."""
-    if window > 0:
-        raise _windowed()
-    return ops.attention(q, k, v, causal=causal)
+    queries and keys at the same positions 0..S-1 -> (B,S,H,hd); a window
+    (causal only, as the kernel takes it) keeps each query's last `window`
+    keys."""
+    return ops.attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,

@@ -10,9 +10,11 @@ between the two packages; where the reference scans a segment with
 block is stored once at the top level and used by every `shared_attn`
 segment.
 
-Ported block kinds: 'attn' (GQA, full), 'shared_attn' and 'ssm' (Mamba2);
-FFN kinds 'mlp' and None. 'local_attn' and windows (ROADMAP Queue 1 item
-18.1), 'moe' (18.2) and 'mla' (18.3) raise.
+Ported block kinds: 'attn' (GQA, full), 'local_attn' (GQA with gemma3's
+sliding window), 'shared_attn' (windowed when `shared_attn_window` > 0)
+and 'ssm' (Mamba2); FFN kinds 'mlp' and None. 'moe' (ROADMAP Queue 1 item
+18.2) and 'mla' (18.3) raise. A windowed segment's cache is a ring of
+min(window, cache_len) slots: position p sits in slot p mod C.
 
 `forward` is the training forward: differentiable torch ops with no
 in-place write and no kernel call (`attention.blockwise_attention`,
@@ -88,25 +90,22 @@ def build_segments(cfg: ArchConfig) -> list[SegmentSpec]:
 
 
 # the ROADMAP Queue 1 item each unported block kind waits for
-_KIND_ITEMS = {"local_attn": "entry 3, item 18.1", "moe": "entry 4, item 18.2",
-               "mla": "entry 5, item 18.3"}
+_KIND_ITEMS = {"moe": "entry 4, item 18.2", "mla": "entry 5, item 18.3"}
+# block kinds of grouped-query attention with an optional window
+_GQA_KINDS = ("attn", "local_attn", "shared_attn")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port cannot serve and train yet: block kinds
-    other than full attention, shared attention and Mamba2; MoE; windows;
-    the compute-layout head padding of the sharded reference."""
+    """Raise for what the port cannot serve and train yet: MLA blocks;
+    MoE; the compute-layout head padding of the sharded reference."""
     for seg in build_segments(cfg):
-        if seg.kind in ("local_attn", "mla") or seg.ffn == "moe":
+        if seg.kind == "mla" or seg.ffn == "moe":
             what = seg.kind if seg.ffn != "moe" else "moe"
             raise NotImplementedError(
                 f"{cfg.name}: block kind {what!r} is not ported; the port "
-                "serves and trains attn, shared_attn and ssm blocks with an "
-                f"mlp or no FFN (ROADMAP Queue 1 {_KIND_ITEMS[what]})")
-        if seg.window:
-            raise NotImplementedError(
-                f"{cfg.name}: windowed {seg.kind} is not ported (ROADMAP "
-                f"Queue 1 {_KIND_ITEMS['local_attn']})")
+                "serves and trains attn, local_attn, shared_attn and ssm "
+                "blocks with an mlp or no FFN (ROADMAP Queue 1 "
+                f"{_KIND_ITEMS[what]})")
     if cfg.pad_q_heads or cfg.pad_kv_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding for tensor-parallel meshes is not "
@@ -121,7 +120,7 @@ def _layer_init(gen: torch.Generator, spec: SegmentSpec, cfg: ArchConfig,
                 dtype: torch.dtype) -> dict:
     dev = gen.device
     p: dict = {}
-    if spec.kind in ("attn", "shared_attn"):
+    if spec.kind in _GQA_KINDS:
         p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
                                       cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -165,15 +164,17 @@ def init_segments(gen: torch.Generator, cfg: ArchConfig,
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype: torch.dtype, device) -> dict:
     """Zero caches for every segment, stacked along the segment's layer
-    axis (a shared_attn segment's has no layer axis, as in the reference)."""
+    axis (a shared_attn segment's has no layer axis, as in the reference);
+    a windowed segment keeps a ring of min(window, cache_len) slots."""
     check_ported(cfg)
     cache: dict = {}
     hd = cfg.resolved_head_dim
     for seg in build_segments(cfg):
         n = seg.n_layers
-        if seg.kind in ("attn", "shared_attn"):
-            shp = (batch, cache_len, cfg.n_kv_heads, hd)
-            if seg.kind == "attn":
+        if seg.kind in _GQA_KINDS:
+            c = min(seg.window, cache_len) if seg.window else cache_len
+            shp = (batch, c, cfg.n_kv_heads, hd)
+            if seg.kind != "shared_attn":
                 shp = (n,) + shp
             cache[str(seg.index)] = {
                 "k": torch.zeros(shp, dtype=dtype, device=device),
@@ -201,22 +202,36 @@ def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec) -> torch.Tensor:
     return x
 
 
+def _ring_fill(buf: torch.Tensor, new: torch.Tensor) -> None:
+    """Write the last C positions of `new` (B,S,...) into the ring `buf`
+    (B,C,...) in place, position p at slot p mod C (the reference's
+    `_ring_fill`)."""
+    C, S = buf.shape[1], new.shape[1]
+    first = max(S - C, 0)
+    slots = torch.arange(first, S, device=buf.device) % C
+    buf[:, slots] = new[:, first:].to(buf.dtype)
+
+
 def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                    entry: dict, spec: SegmentSpec, cfg: ArchConfig
                    ) -> torch.Tensor:
     """One layer over the prompt; writes this layer's cache `entry` (no
     layer axis) in place."""
     h = rmsnorm(lp["ln1"], x)
-    if spec.kind in ("attn", "shared_attn"):
+    if spec.kind in _GQA_KINDS:
         q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
                                        cfg.rope_theta, cfg.n_heads,
                                        cfg.n_kv_heads, cfg.resolved_head_dim)
         ctx = attn_lib.prefill_attention(q, k, v, causal=cfg.causal,
                                          window=spec.window)
         x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
-        S = k.shape[1]
-        entry["k"][:, :S] = k
-        entry["v"][:, :S] = v
+        if spec.window:
+            _ring_fill(entry["k"], k)
+            _ring_fill(entry["v"], v)
+        else:
+            S = k.shape[1]
+            entry["k"][:, :S] = k
+            entry["v"][:, :S] = v
     else:
         out, (state, conv) = ssm_lib.mamba2_prefill(
             lp["mixer"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
@@ -232,7 +247,7 @@ def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
                   spec: SegmentSpec, cfg: ArchConfig) -> torch.Tensor:
     """Single-token step through one layer; updates `entry` in place."""
     h = rmsnorm(lp["ln1"], x)
-    if spec.kind in ("attn", "shared_attn"):
+    if spec.kind in _GQA_KINDS:
         positions = torch.tensor([pos], device=x.device)
         q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
                                        cfg.rope_theta, cfg.n_heads,
@@ -287,7 +302,7 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                spec: SegmentSpec, cfg: ArchConfig) -> torch.Tensor:
     """One layer of the training forward (no cache)."""
     h = rmsnorm(lp["ln1"], x)
-    if spec.kind in ("attn", "shared_attn"):
+    if spec.kind in _GQA_KINDS:
         q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
                                        cfg.rope_theta, cfg.n_heads,
                                        cfg.n_kv_heads, cfg.resolved_head_dim)

@@ -182,7 +182,7 @@ def test_unported_modules_raise():
     # the host bank (item 9) is ported
     assert isinstance(make_bank("host", device="cpu"), HostBank)
     with pytest.raises(NotImplementedError, match="item 18"):
-        get_config("gemma3_4b")
+        get_config("olmoe_1b_7b")
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
@@ -220,22 +220,37 @@ def test_serve_on_cpu_takes_the_plain_kernels():
     ("granite_3_8b", {"modality": "audio"}),
     ("zamba2_7b", {"shared_attn_window": 8})])
 def test_unported_block_kinds_and_modalities_raise(arch, change):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        build_model(get_smoke_config(arch).replace(**change))
+    """Unported kinds raise naming their item; windows (local_attn and a
+    windowed shared attention, item 18.1) are ported: they build and run a
+    training loss and a served prefill."""
+    cfg = get_smoke_config(arch).replace(**change)
+    if "swa_window" not in change and "shared_attn_window" not in change:
+        with pytest.raises(NotImplementedError, match="item 18"):
+            build_model(cfg)
+        return
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    toks = torch.zeros((1, 12), dtype=torch.long)
+    loss, _ = model.loss_fn(params, {"tokens": toks})
+    logits, _ = model.prefill(params, {"tokens": toks},
+                              model.init_cache(1, 12, device="cpu"))
+    assert bool(torch.isfinite(loss)) and logits.shape == (1, cfg.vocab_size)
 
 
 def test_unported_zoo_surfaces_raise():
     from repro_torch.launch.serve import main
     from repro_torch.models import transformer
     # each unported config names the item its blocks wait for; qwen1.5-110b
-    # (item 18.0) and the text training path (18.5) are ported
-    for arch, item in (("gemma3-4b", "18.1"), ("olmoe_1b_7b", "18.2"),
+    # (item 18.0), the text training path (18.5) and gemma3-4b (18.1) are
+    # ported
+    for arch, item in (("olmoe_1b_7b", "18.2"),
                        ("moonshot-v1-16b-a3b", "18.2"),
                        ("deepseek-v2-lite-16b", "18.3"),
                        ("hubert_xlarge", "18.4"), ("llava-next-34b", "18.4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_config(arch)
     assert get_config("qwen1.5-110b").qkv_bias
+    assert get_config("gemma3-4b").swa_window == 1024
     with pytest.raises(KeyError, match="unknown architecture"):
         get_config("gpt5")
     cfg = get_smoke_config("granite-3-8b")

@@ -363,6 +363,29 @@ def test_flash_attention_plain_matches_pallas(s, h, kv, hd, block, causal,
                                    atol=ATTN_TOL[dtype])
 
 
+@pytest.mark.parametrize("window", [1, 5, 16, 48, 100])
+@pytest.mark.parametrize("hd", [32, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_window_matches_reference(window, hd, dtype):
+    """The plain version's sliding window (gemma3's local layers) against
+    the reference's windowed `blockwise_attention`, the function its
+    prefill calls: GQA g=2, S=48, windows of one key, inside a block, of
+    the whole sequence and past it; hd 32 (the smoke config) and 256
+    (gemma3's). Both sides keep f32 scores; the reference rounds q·scale
+    and the probabilities to bf16 in bf16, hence the bf16 bound."""
+    import jax.numpy as jnp
+    from repro.models.attention import blockwise_attention
+    arrays = _attention_inputs(2, 48, 4, 2, hd, dtype, window + hd)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrays)
+    out = flash_attention(*_torch(arrays, dtype), causal=True,
+                          window=window)
+    ref = blockwise_attention(jq, jk, jv, causal=True, window=window,
+                              q_block=16)
+    assert out.dtype == TORCH_DT[dtype] and out.shape == (2, 48, 4, hd)
+    np.testing.assert_allclose(_f32(out), _f32(np.asarray(ref, np.float32)),
+                               atol=ATTN_TOL[dtype])
+
+
 # the reference's test shapes in both dtypes, and mamba2-1.3b's head dim
 # and state (p=64, n=128) in f32: there |y| reaches 15, where one bf16
 # step (2^-4) is above the 5e-2 bf16 tolerance against the f32 oracle
@@ -406,6 +429,14 @@ def test_attention_and_ssd_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiple of 8"):
         flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
                         v[..., :12].contiguous())
+    wide = [x.repeat(1, 1, 1, 17) for x in (q, k, v)]  # hd 272 > 256
+    with pytest.raises(ValueError, match="at most 256"):
+        flash_attention(*wide)
+    flash_attention(*[x[..., :256].contiguous() for x in wide])
+    with pytest.raises(ValueError, match="only with causal=True"):
+        flash_attention(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError, match="must be >= 0"):
+        flash_attention(q, k, v, window=-1)
     with pytest.raises(TypeError, match="k must be float32"):
         flash_attention(q, k.bfloat16(), v)
     x, dA, B, C = _torch(_ssd_inputs(1, 16, 2, 8, 8, "float32", 0),
@@ -661,7 +692,11 @@ FLASH_EDGES = [  # b, s, t, h, kv, hd, causal
     (2, 100, 100, 4, 4, 8, True),     # hd 8: one 16-wide slice, half zero
     (2, 100, 100, 4, 2, 24, True),    # hd 24, not a multiple of 16
     (1, 200, 200, 4, 4, 72, True),    # hd 72: a second 64-column atom
-    (1, 150, 260, 4, 4, 120, False)]  # hd 120, non-causal
+    (1, 150, 260, 4, 4, 120, False),  # hd 120, non-causal
+    (2, 300, 300, 8, 4, 256, True),   # hd 256 (gemma3): four atoms
+    (1, 150, 260, 4, 2, 256, False),  # hd 256, non-causal, ragged T
+    (1, 200, 200, 4, 4, 192, True),   # hd 192: three atoms
+    (2, 130, 130, 4, 4, 136, True)]   # hd 136: a third atom, 8 columns
 
 
 @pytest.mark.cuda
@@ -679,6 +714,42 @@ def test_flash_attention_cuda_tiling_edges(cuda_device, b, s, t, h, kv, hd,
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
+    atol, rtol = CUDA_ATTN_TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), \
+        err.max().item()
+
+
+# the sliding window on the card: gemma3's local layers (window 1024 at hd
+# 256), windows that are not a multiple of the 64-key tile (100) and
+# smaller than one (17, 1), where a row of a warpgroup can see whole tiles
+# masked before its first valid key, and a window past S
+FLASH_WINDOWS = [  # b, s, h, kv, hd, window
+    (1, 2048, 8, 4, 256, 1024),
+    (2, 700, 8, 4, 256, 100),
+    (2, 333, 4, 2, 256, 17),
+    (2, 300, 4, 4, 112, 1),
+    (1, 500, 8, 2, 128, 64),
+    (2, 257, 4, 4, 64, 130),
+    (1, 100, 4, 2, 32, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,hd,window", FLASH_WINDOWS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_window(cuda_device, b, s, h, kv, hd, window,
+                                     dtype):
+    rng = np.random.default_rng(s * window + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(device=cuda_device, dtype=TORCH_DT[dtype])
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
     atol, rtol = CUDA_ATTN_TOL[dtype]
     err = (out.float() - ref.float()).abs()
     assert bool((err <= atol + rtol * ref.float().abs()).all()), \

@@ -1,9 +1,10 @@
 """Parity of the port's training loss with the JAX package's, on the CPU:
 `Model.loss_fn` and its gradients on the smoke configs of granite-3-8b,
-zamba2-7b, mamba2-1.3b and qwen1.5-110b, in f32 and in bf16, with the
-chunked cross-entropy (`ce_chunk`) on two of them. The same params (the
-port's init, as numpy) and tokens go to both sides; tolerances as
-`test_torch_train.py` states them.
+zamba2-7b, mamba2-1.3b, qwen1.5-110b and gemma3-4b (window 16 over 32
+tokens), in f32 and in bf16, with the chunked cross-entropy (`ce_chunk`)
+on two of them, and two rounds of gemma3-4b's `train()` against the
+reference's loop. The same params (the port's init, as numpy) and tokens
+go to both sides; tolerances as `test_torch_train.py` states them.
 """
 import jax
 import jax.numpy as jnp
@@ -14,13 +15,16 @@ from torch.func import grad_and_value
 
 from repro.models import build_model as jax_build
 from repro_torch.convert import params_from_jax
+from repro_torch.launch.train import train
 from repro_torch.models import build_model
 from repro_torch.tree import tree_leaves
-from test_torch_train import close, configs, params_np
+from test_torch_train import (MB, K, N, S, _reference_rounds, close, configs,
+                              params_np)
 
 torch.set_num_threads(1)
 
-ARCHS = ["granite_3_8b", "zamba2_7b", "mamba2_1_3b", "qwen1_5_110b"]
+ARCHS = ["granite_3_8b", "zamba2_7b", "mamba2_1_3b", "qwen1_5_110b",
+         "gemma3_4b"]
 
 
 @pytest.mark.parametrize("arch,dtype,ce_chunk", [
@@ -45,3 +49,21 @@ def test_loss_fn_and_grads_match_reference(arch, dtype, ce_chunk):
         assert a.shape == tuple(b.shape)
         assert str(a.dtype) == str(b.dtype).removeprefix("torch.")
         close(np.asarray(a, np.float32), b, dtype, scaled=True)
+
+
+def test_gemma3_train_matches_reference_loop():
+    """Two rounds of `launch.train.train` on gemma3-4b's f32 smoke config
+    (every client vmapped, the windowed training forward) against the
+    reference's round loop: losses and params at the f32 bounds."""
+    jc, tc = configs("gemma3_4b", "float32")
+    pnp = params_np("gemma3_4b", "float32")
+    ref_losses, ref_params = _reference_rounds(
+        jc.replace(fl_clients=N, fl_local_steps=K), pnp, rounds=2)
+    out = train(cfg=tc, rounds=2, clients=N, k_steps=K, mb=MB, seq=S,
+                device="cpu", params=params_from_jax(pnp, "cpu"),
+                log_every=1)
+    np.testing.assert_allclose(out["losses"], ref_losses, rtol=2e-4,
+                               atol=2e-5)
+    for a, b in zip(jax.tree.leaves(ref_params),
+                    tree_leaves(out["params"])):
+        close(a, b, scaled=True)

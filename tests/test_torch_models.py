@@ -1,10 +1,13 @@
 """Parity of the port's served models with the JAX package's, on the CPU.
 
-Smoke configs of zamba2-7b (Mamba2 with a shared attention block),
-mamba2-1.3b (SSM only) and granite-3-8b (dense GQA). The reference's
-`model.init` params are carried across with `convert.params_from_jax`; the
-same numpy tokens go to both. Prefill logits, every cache leaf and four
-teacher-forced decode steps are compared.
+Smoke configs of zamba2-7b (Mamba2 with a shared attention block, also
+with `shared_attn_window=16`), mamba2-1.3b (SSM only), granite-3-8b (dense
+GQA) and gemma3-4b (sliding-window GQA: window 16, every second layer
+global). The reference's `model.init` params are carried across with
+`convert.params_from_jax`; the same numpy tokens go to both. Prefill logits,
+every cache leaf and four teacher-forced decode steps are compared; at
+S=48 > 16 the windowed caches are rings that the prefill fills past their
+end and every decode step wraps.
 
 Tolerances:
 * f32 (`compute_dtype=param_dtype="float32"`): rtol 2e-4, atol 2e-5, as
@@ -35,13 +38,17 @@ from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
 
-ARCHS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b"]
+ARCHS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b", "gemma3_4b"]
+# a served case that is a smoke config with a change: its arch and change
+VARIANTS = {"zamba2_7b_window16": ("zamba2_7b", {"shared_attn_window": 16})}
 TOL = {"float32": (2e-4, 2e-5), "bfloat16": (3e-2, 0.1)}
 B, S, N_DECODE = 2, 48, 4
 
 
 def _configs(arch, dtype):
-    jc, tc = jax_smoke(arch), get_smoke_config(arch)
+    arch, change = VARIANTS.get(arch, (arch, {}))
+    jc = jax_smoke(arch).replace(**change)
+    tc = get_smoke_config(arch).replace(**change)
     if dtype == "float32":
         kw = dict(compute_dtype="float32", param_dtype="float32")
         jc, tc = jc.replace(**kw), tc.replace(**kw)
@@ -64,7 +71,7 @@ def _close(a, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + list(VARIANTS))
 def test_prefill_cache_and_decode_match_reference(arch, dtype):
     jm, jp, tm, tp = _models(arch, dtype)
     rng = np.random.default_rng(0)
@@ -94,7 +101,7 @@ def test_prefill_cache_and_decode_match_reference(arch, dtype):
         _close(a, b, dtype)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + list(VARIANTS))
 def test_decode_matches_prefill(arch):
     """The reference's serving property, in the port: one decode step after
     a prefill of S-1 tokens gives the logits of a prefill of S tokens."""
@@ -114,7 +121,7 @@ def test_decode_matches_prefill(arch):
 
 def test_segments_and_param_tree_match_reference():
     from repro.models.transformer import build_segments as jax_segments
-    for arch in ARCHS:
+    for arch in ARCHS + list(VARIANTS):
         jc, tc = _configs(arch, "bfloat16")
         assert ([tuple(vars(s).values()) for s in build_segments(tc)]
                 == [tuple(vars(s).values()) for s in jax_segments(jc)])
@@ -125,6 +132,27 @@ def test_segments_and_param_tree_match_reference():
                     for x in tree_leaves(tp)])
         assert (build_model(tc).param_count(tp)
                 == jax_build(jc).param_count(jp))
+
+
+def test_gemma3_layout_and_ring_caches():
+    """34 layers: 29 local (window 1024) and 5 global, as the reference
+    counts them; at a 2048-token cache a local layer keeps a ring of 1024
+    slots and a global one all 2048, as the reference's `init_cache`."""
+    from repro.models.transformer import init_cache as jax_init_cache
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3_4b")
+    segs = build_segments(cfg)
+    assert sum(s.n_layers for s in segs if s.kind == "local_attn") == 29
+    assert sum(s.n_layers for s in segs if s.kind == "attn") == 5
+    assert {s.window for s in segs if s.kind == "local_attn"} == {1024}
+    small = cfg.replace(n_layers=6, d_model=64, n_heads=2, n_kv_heads=1,
+                        head_dim=8, d_ff=64, vocab_size=64)
+    jshapes = [x.shape for x in jax.tree.leaves(jax.eval_shape(
+        lambda: jax_init_cache(small, 1, 2048, jnp.bfloat16)))]
+    tshapes = [tuple(x.shape) for x in tree_leaves(build_model(
+        small).init_cache(1, 2048, device="cpu"))]
+    assert tshapes == jshapes == [(5, 1, 1024, 1, 8)] * 2 + [(1, 1, 2048, 1,
+                                                              8)] * 2
 
 
 def test_zamba2_layout():

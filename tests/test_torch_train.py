@@ -183,9 +183,49 @@ def test_blockwise_attention_and_grads(H, KV, causal, q_block, dtype):
 
 
 def test_blockwise_attention_window_raises():
+    """A window needs queries and keys at the same positions (T == S), as
+    the reference's windowed path assumes."""
     x = torch.zeros((1, 8, 2, 4))
-    with pytest.raises(NotImplementedError, match="item 18.1"):
-        attention.blockwise_attention(x, x, x, window=4)
+    with pytest.raises(ValueError, match="needs T == S"):
+        attention.blockwise_attention(x, x[:, :6], x[:, :6], window=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,causal,q_block", [
+    (1, True, 0), (5, True, 16), (16, True, 12), (64, True, 16),
+    (7, False, 16)])
+def test_blockwise_attention_window_and_grads(window, causal, q_block,
+                                              dtype):
+    """The windowed path (gemma3's local layers, `shared_attn_window`):
+    values and gradients against the reference's, GQA g=2, S=48; windows
+    of one key, inside a block, of one block and past S, and the
+    reference's non-causal window (its keys end at the block's end)."""
+    rng = np.random.default_rng(window * 3 + q_block)
+    B, S, H, KV, hd = 2, 48, 4, 2, 16
+    q, k, v, ct = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+
+    def jfn(q, k, v):
+        out = jax_attn.blockwise_attention(
+            q.astype(jdt), k.astype(jdt), v.astype(jdt), causal=causal,
+            window=window, q_block=q_block)
+        return (out.astype(jnp.float32) * ct).sum(), out
+
+    def tfn(q, k, v):
+        out = attention.blockwise_attention(
+            q.to(tdt), k.to(tdt), v.to(tdt), causal=causal, window=window,
+            q_block=q_block)
+        return (out.float() * _t(ct)).sum(), out
+
+    (_, jout), jg = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1, 2),
+                                               has_aux=True))(q, k, v)
+    tg, (_, tout) = grad_and_value(tfn, argnums=(0, 1, 2),
+                                   has_aux=True)(_t(q), _t(k), _t(v))
+    close(jout.astype(jnp.float32), tout, dtype)
+    for a, b in zip(jg, tg):
+        close(a, b, dtype, scaled=True)
 
 
 def _ssd_inputs(seed, b=2, S=40, H=3, P=4, N=5, dt=0.1):
@@ -271,9 +311,9 @@ def test_segsum_exp_gradient_where_the_reference_is_nan(monkeypatch):
 N, K, MB, S, ROUNDS = 4, 2, 2, 32, 5
 
 
-def _reference_rounds(jc, pnp):
+def _reference_rounds(jc, pnp, rounds=ROUNDS):
     """The reference's round loop (`repro/launch/train.py:67-87`) with
-    array memory, from the given params."""
+    array memory, from the given params, for `rounds` rounds."""
     model = jax_build(jc)
     params = jax.tree.map(jnp.asarray, pnp)
     batcher = JTokenBatcher(n_clients=N, vocab=jc.vocab_size, seq_len=S,
@@ -290,7 +330,7 @@ def _reference_rounds(jc, pnp):
         return algo.round_step(state, params, updates, losses, active, eta)
 
     losses = []
-    for t in range(ROUNDS):
+    for t in range(rounds):
         active = part.sample(t)
         batch = {k: jnp.asarray(v)
                  for k, v in batcher.sample_round(t).items()}
