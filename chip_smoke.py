@@ -283,6 +283,19 @@ ZOO_CHECK_S, DVP_PROMPT, DVP_STEPS = 512, 2048, 128
 GEMMA_WINDOW, GEMMA_CHECK_LAYERS, GEMMA_CHECK_S = 1024, 6, 1100
 GEMMA_DVP_PROMPT, GEMMA_DVP_STEPS = 1000, 100
 GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_N, GEMMA_TRAIN_ROUNDS = 6, 2, 2
+# olmoe-1b-7b's checks at full width in f32 with the depth cut to
+# MOE_CHECK_LAYERS (7.5 GB of params on each side): card vs CPU over a
+# prompt of MOE_CHECK_S tokens and two decode steps; decode vs prefill from
+# MOE_DVP_PROMPT through MOE_DVP_STEPS steps at capacity factor E/k, where
+# C = T and nothing drops (at the served factor a prefill and a decode
+# step route under different capacities); MOE_TRAIN_ROUNDS rounds of
+# train() at MOE_TRAIN_LAYERS with MOE_TRAIN_N clients. A routing flip
+# between two runs is allowed only where the reference side's gap between
+# its k-th and (k+1)-th router probability is below MOE_TIE_GAP
+MOE_CHECK_LAYERS, MOE_CHECK_S = 4, 512
+MOE_DVP_PROMPT, MOE_DVP_STEPS = 256, 32
+MOE_TRAIN_LAYERS, MOE_TRAIN_N, MOE_TRAIN_ROUNDS = 2, 4, 2
+MOE_TIE_GAP = 1e-5
 # kernel vs plain version, |err| <= atol + rtol·|ref| as (atol, rtol).
 # Attention: f32 (2e-5, 0), FMAs and einsum sum in other orders; bf16
 # (2e-2, 1e-2), the kernel rounds the probabilities to bf16 before P·V, as
@@ -3478,7 +3491,8 @@ def ssd_inputs(gen, b, s, h, p, n, dtype, large_da=False):
 def check_flash(gen) -> tuple[float, list]:
     """flash_attention against its plain version: the served models'
     shapes (zamba2-7b: H=KV=32, hd=112; granite-3-8b: GQA g=4, hd=128;
-    gemma3-4b: GQA g=2, hd=256, global and window 1024), ragged S,
+    gemma3-4b: GQA g=2, hd=256, global and window 1024; olmoe-1b-7b and
+    moonshot-v1-16b-a3b: H=KV=16, hd=128), ragged S,
     non-causal S != T, small heads, windows that are not a multiple of the
     64-key tile (100) and below one tile (17), f32 and bf16; no output may
     be NaN."""
@@ -3504,7 +3518,10 @@ def check_flash(gen) -> tuple[float, list]:
              ((2, 700, 8, 4, 256), bf, True, 100, "window 100"),
              ((2, 700, 8, 4, 256), f32, True, 100, "window 100 f32"),
              ((2, 333, 4, 2, 256), bf, True, 17, "window 17 < a tile"),
-             ((2, 333, 4, 2, 256), f32, True, 17, "window 17 f32")]
+             ((2, 333, 4, 2, 256), f32, True, 17, "window 17 f32"),
+             ((SERVE_B, SERVE_PROMPT, 16, 16, 128), bf, True, 0,
+              "olmoe path"),
+             ((1, 512, 16, 16, 128), f32, True, 0, "olmoe heads f32")]
     max_err, rows = 0.0, []
     for (b, s, h, kv, hd), dt, causal, window, label in cases:
         t = 200 if label.startswith("non-causal") else s
@@ -3722,14 +3739,56 @@ def zoo_f32_config(n_layers: int, arch: str = "zamba2_7b"):
         n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
 
 
-def model_card_vs_cpu(cfg, s: int, seed: int) -> tuple:
-    """`cfg` at B=1: a prefill of s tokens (logits and every cache leaf)
-    and two decode steps, on the card (kernels) and on the CPU (plain
-    versions) from the card's params copied across. Returns the logits
-    gaps (prefill, two steps), the worst cache leaf's gap, the leaves'
-    shapes and the card's and the CPU's seconds."""
+class RoutingLog:
+    """While active, records every call of `models.moe.route` (as
+    `moe_apply` makes it): per call the expert ids (T,k), the routing
+    table (E,C), whose slots below T hold the kept assignments, and the
+    gap between each token's k-th and (k+1)-th router probability (T,),
+    left on their device. Recording adds no device work."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.calls = moe, moe.route, []
+
+        def recording(probs, top_k, capacity_factor):
+            r = self.route(probs, top_k, capacity_factor)
+            self.calls.append((r.expert_ids, r.table, r.top[:, top_k - 1]
+                               - r.top[:, -1]))
+            return r
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def routing_flips(what: str, pairs) -> list:
+    """Compare expert choices row by row. `pairs`: (label, ids, ids_ref,
+    gap_ref) with rows aligned; a row flips where its sets of experts
+    differ. A flip is allowed only at a near-tie of the reference side
+    (gap below MOE_TIE_GAP); any other fails. Returns the allowed flips as
+    (index of the pair, row, gap)."""
+    flips = []
+    for i, (label, ids, ids_ref, gap_ref) in enumerate(pairs):
+        a = ids.cpu().sort(-1).values
+        b = ids_ref.cpu().sort(-1).values
+        for row in (a != b).any(-1).nonzero().flatten().tolist():
+            gap = gap_ref[row].item()
+            check(gap < MOE_TIE_GAP,
+                  f"{what}: routing flip at {label} row {row}, "
+                  f"{a[row].tolist()} against {b[row].tolist()}, not at a "
+                  f"near-tie (gap {gap:.3e} >= {MOE_TIE_GAP})")
+            flips.append((i, row, gap))
+    return flips
+
+
+def model_runs(cfg, s: int, seed: int) -> dict:
+    """`cfg` at B=1: a prefill of s tokens and two decode steps, on the
+    card (kernels) and on the CPU (plain versions) from the card's params
+    copied across. Returns {device: (logits of the prefill and each step,
+    the cache, seconds, the MoE routing calls)}."""
     from repro_torch.models import build_model
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
     model = build_model(cfg)
     p_gpu = model.init(seed, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (1, s + 2),
@@ -3741,13 +3800,24 @@ def model_card_vs_cpu(cfg, s: int, seed: int) -> tuple:
         cache = model.init_cache(1, s + 2, device=dev)
         t = toks.to(dev)
         t0 = time.perf_counter()
-        logits, _ = model.prefill(params, {"tokens": t[:, :s]}, cache)
-        steps = [logits]
-        for pos in range(s, s + 2):
-            lg, _ = model.decode_step(params, t[:, pos:pos + 1], pos, cache)
-            steps.append(lg)
-        out[dev] = (steps, cache, time.perf_counter() - t0)
+        with RoutingLog() as log:
+            logits, _ = model.prefill(params, {"tokens": t[:, :s]}, cache)
+            steps = [logits]
+            for pos in range(s, s + 2):
+                lg, _ = model.decode_step(params, t[:, pos:pos + 1], pos,
+                                          cache)
+                steps.append(lg)
+        out[dev] = (steps, cache, time.perf_counter() - t0, log.calls)
         del params
+    return out
+
+
+def model_card_vs_cpu(cfg, s: int, seed: int) -> tuple:
+    """`model_runs`, compared: the logits gaps (prefill, two steps), the
+    worst cache leaf's gap, the leaves' shapes and the card's and the
+    CPU's seconds."""
+    from repro_torch.tree import tree_leaves
+    out = model_runs(cfg, s, seed)
     gaps = [rel_gap(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0])]
     leaves = list(zip(tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])))
     return (gaps, max(rel_gap(a, b) for a, b in leaves),
@@ -3755,24 +3825,29 @@ def model_card_vs_cpu(cfg, s: int, seed: int) -> tuple:
             out["cpu"][2])
 
 
-def model_decode_vs_prefill(cfg, prompt: int, steps: int, seed: int
-                            ) -> float:
+def model_decode_vs_prefill(cfg, prompt: int, steps: int, seed: int,
+                            logs: dict | None = None) -> float:
     """`cfg` at B=1 on the card: a prefill of `prompt` tokens and `steps`
     teacher-forced decode steps against one prefill of all the tokens; the
-    last position's logits gap."""
+    last position's logits gap. `logs` (a dict) receives the MoE routing
+    calls of the one prefill ("full") and of the split run ("split")."""
     from repro_torch.models import build_model
     total = prompt + steps
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (1, total),
                          generator=torch.Generator().manual_seed(seed)).cuda()
-    full, _ = model.prefill(params, {"tokens": toks},
-                            model.init_cache(1, total, device="cuda"))
+    with RoutingLog() as full_log:
+        full, _ = model.prefill(params, {"tokens": toks},
+                                model.init_cache(1, total, device="cuda"))
     cache = model.init_cache(1, total, device="cuda")
-    model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
-    for pos in range(prompt, total):
-        logits, _ = model.decode_step(params, toks[:, pos:pos + 1], pos,
-                                      cache)
+    with RoutingLog() as split_log:
+        model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+        for pos in range(prompt, total):
+            logits, _ = model.decode_step(params, toks[:, pos:pos + 1], pos,
+                                          cache)
+    if logs is not None:
+        logs.update(full=full_log.calls, split=split_log.calls)
     return rel_gap(logits, full)
 
 
@@ -4019,15 +4094,17 @@ def model_gap(a: torch.Tensor, ref: torch.Tensor) -> float:
     return ((a - ref).abs() / bound.clamp(min=1e-30)).max().item()
 
 
-def train_card_vs_cpu() -> str:
-    """(c) One client's loss and gradients, granite-3-8b at full width in
-    f32, its first layer, on the card and on the CPU from the same params
-    and tokens (the first minibatch of client 0)."""
+def train_card_vs_cpu(arch: str = "granite_3_8b", label: str = "(c)"
+                      ) -> str:
+    """(c) One client's loss and gradients, `arch` at full width in f32,
+    its first layer, on the card and on the CPU from the same params and
+    tokens (the first minibatch of client 0); an MoE model's router
+    gradient is named in the line."""
     from torch.func import grad_and_value
 
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = train_cfg("granite_3_8b", 1, param_dtype="float32",
+    cfg = train_cfg(arch, 1, param_dtype="float32",
                     compute_dtype="float32")
     model = build_model(cfg)
     p_gpu = model.init(4, device="cuda")
@@ -4043,13 +4120,20 @@ def train_card_vs_cpu() -> str:
     gaps = [model_gap(a, b) for a, b in zip(tree_leaves(out["cuda"][1]),
                                             tree_leaves(out["cpu"][1]))]
     check(loss_gap <= 1 and max(gaps) <= 1,
-          f"train card vs CPU: loss {loss_gap:.3e}, gradient leaves "
-          f"{[f'{x:.3e}' for x in gaps]} of the f32 model bound")
-    return (f"train card vs CPU (c): granite-3-8b, 1 layer at full width, "
+          f"train card vs CPU ({arch}): loss {loss_gap:.3e}, gradient "
+          f"leaves {[f'{x:.3e}' for x in gaps]} of the f32 model bound")
+    router = ""
+    if cfg.is_moe:
+        g_router = [g["segments"]["0"]["moe"]["router"]
+                    for g in (out["cuda"][1], out["cpu"][1])]
+        router = (f" (the router's {model_gap(*g_router):.3e}, max "
+                  f"|grad| {g_router[1].abs().max().item():.3e})")
+    return (f"train card vs CPU {label}: {arch}, 1 layer at full width, "
             f"f32, one client's minibatch ({TRAIN_MB} x {TRAIN_SEQ}): loss "
             f"{out['cuda'][0].item():.6f} / {out['cpu'][0].item():.6f}, "
             f"worst of {len(gaps)} gradient leaves {max(gaps):.3e} of the "
-            f"bound (rtol {MODEL_RTOL}, atol {MODEL_ATOL}·max|leaf|); "
+            f"bound{router} (rtol {MODEL_RTOL}, atol "
+            f"{MODEL_ATOL}·max|leaf|); "
             f"card {out['cuda'][2]:.3f} s, CPU {out['cpu'][2]:.3f} s")
 
 
@@ -4195,6 +4279,176 @@ def gemma_phase(gen, smi) -> tuple[dict, list]:
     rows.append(f"gemma phase {time.perf_counter() - t0:.1f} s")
     return {"timing": timing,
             "launches": counts["flash_attention"]}, rows
+
+
+# --------------------------------------------------------------------------- #
+# MoE: olmoe-1b-7b and moonshot-v1-16b-a3b (models/moe.py)
+# --------------------------------------------------------------------------- #
+
+def drop_share(calls, n_tokens: int) -> tuple[float, int]:
+    """The share of assignments that found no slot, over the routing calls
+    of `n_tokens` tokens, and the number of such calls."""
+    ours = [(ids, table) for ids, table, _ in calls
+            if ids.shape[0] == n_tokens]
+    total = sum(ids.numel() for ids, _ in ours)
+    kept = sum(int((table < n_tokens).sum()) for _, table in ours)
+    return 1 - kept / max(total, 1), len(ours)
+
+
+def moe_serve(label: str, cfg, smi: str) -> tuple[dict, list]:
+    """`serve_phase` for an MoE model at full width and depth: exactly
+    n_layers flash_attention launches a prefill, none in decode, no other
+    kernel; the capacity an expert has in prefill and in decode and the
+    share of assignments it dropped in each (routing recorded, no device
+    work added)."""
+    from repro_torch.models.moe import capacity
+    with RoutingLog() as log:
+        counts, rows = serve_phase(label, cfg, {
+            "flash_attention": cfg.n_layers, "ssd_scan": 0})
+    pre, n_pre = drop_share(log.calls, SERVE_B * SERVE_PROMPT)
+    dec, n_dec = drop_share(log.calls, SERVE_B)
+    check(n_pre == cfg.n_layers and n_dec == cfg.n_layers * SERVE_NEW,
+          f"moe serve {label}: {n_pre} prefill and {n_dec} decode routing "
+          f"calls, expected {cfg.n_layers} and {cfg.n_layers * SERVE_NEW}")
+    c_pre, c_dec = (capacity(t, cfg.top_k, cfg.n_experts,
+                             cfg.moe_capacity_factor)
+                    for t in (SERVE_B * SERVE_PROMPT, SERVE_B))
+    rows = [f"moe {r}" for r in rows]
+    rows.append(f"moe serve {label}: top {cfg.top_k} of {cfg.n_experts} "
+                f"experts, capacity factor {cfg.moe_capacity_factor}: "
+                f"{c_pre} slots an expert in prefill ({SERVE_B} x "
+                f"{SERVE_PROMPT} tokens), {c_dec} in decode ({SERVE_B} "
+                f"tokens); dropped {pre:.6f} of prefill's assignments and "
+                f"{dec:.6f} of decode's [{smi}]")
+    return counts, rows
+
+
+def moe_card_vs_cpu() -> str:
+    """olmoe-1b-7b at full width, its first MOE_CHECK_LAYERS layers, f32:
+    `model_runs` (a prefill of MOE_CHECK_S tokens and two decode steps,
+    card against CPU). Each MoE call's expert ids are compared first; a
+    flip at a near-tie is allowed and printed, and what it reaches is not
+    held: a prefill flip at layer l reaches every later layer at every
+    position (capacity ties a layer's tokens together) and all logits, a
+    flip in decode step j the later layers from its position on and the
+    logits from step j on. Everything else is held at ZOO_RTOL."""
+    from repro_torch.tree import tree_leaves
+    cfg = zoo_f32_config(MOE_CHECK_LAYERS, "olmoe_1b_7b")
+    L, S = cfg.n_layers, MOE_CHECK_S
+    out = model_runs(cfg, S, 7)
+    (steps_g, cache_g, card_s, calls_g), (steps_c, cache_c, cpu_s,
+                                          calls_c) = out["cuda"], out["cpu"]
+    check(len(calls_g) == len(calls_c) == 3 * L,
+          f"moe card vs CPU: {len(calls_g)} / {len(calls_c)} routing calls")
+    phase = ["prefill", "decode step 1", "decode step 2"]
+    flips = routing_flips("moe card vs CPU", [
+        (f"{phase[c // L]} layer {c % L}", g[0], r[0], r[2])
+        for c, (g, r) in enumerate(zip(calls_g, calls_c))])
+    hold = torch.ones((L, S + 2), dtype=torch.bool)
+    hold_step = [True] * 3
+    for c, row, _ in flips:
+        step, layer = c // L, c % L
+        hold[layer + 1:, 0 if step == 0 else S + step - 1:] = False
+        for i in range(step, 3):
+            hold_step[i] = False
+    gaps = [rel_gap(a, b) if h else None
+            for a, b, h in zip(steps_g, steps_c, hold_step)]
+    cache_gap = 0.0
+    for a, b in zip(tree_leaves(cache_g), tree_leaves(cache_c)):
+        d = (a.float().cpu() - b.float()).abs().reshape(L, 1, S + 2, -1)
+        d = d.amax(dim=(1, 3))[hold]
+        cache_gap = max(cache_gap, (d.max() / b.float().abs().max()).item())
+    held = [g for g in gaps if g is not None]
+    check(all(g <= ZOO_RTOL for g in held) and cache_gap <= ZOO_RTOL,
+          f"moe card vs CPU: logits gaps {gaps}, cache {cache_gap}")
+    n_ids = sum(g[0].numel() for g in calls_g)
+    flip_txt = ("none" if not flips else "; ".join(
+        f"{phase[c // L]} layer {c % L} row {row} (gap {gap:.3e})"
+        for c, row, gap in flips))
+    fmt = [("not held" if g is None else f"{g:.3e}") for g in gaps]
+    return (f"moe card vs CPU (olmoe-1b-7b, {L} layers, full width, f32, "
+            f"S={S}): expert ids of {len(calls_g)} routing calls "
+            f"({n_ids} ids) compared, flips at near-ties: {flip_txt}; max "
+            f"|dlogits| / max |logits| prefill {fmt[0]}, decode steps "
+            f"{fmt[1]} {fmt[2]}; worst cache leaf {cache_gap:.3e} over "
+            f"{int(hold.sum())} of {hold.numel()} layer positions (tol "
+            f"{ZOO_RTOL}); card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+
+
+def moe_decode_vs_prefill() -> str:
+    """olmoe-1b-7b at full width, MOE_CHECK_LAYERS layers, f32, capacity
+    factor E/k (C = T: nothing drops), on the card: MOE_DVP_PROMPT prompt
+    tokens and MOE_DVP_STEPS decode steps against one prefill; each
+    token's experts compared with the one prefill's first (a flip at a
+    near-tie reaches the last logits, which are then not held)."""
+    cfg = zoo_f32_config(MOE_CHECK_LAYERS, "olmoe_1b_7b")
+    cfg = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    L, P, n = cfg.n_layers, MOE_DVP_PROMPT, MOE_DVP_STEPS
+    logs: dict = {}
+    gap = model_decode_vs_prefill(cfg, P, n, 8, logs)
+    full, split = logs["full"], logs["split"]
+    check(len(full) == L and len(split) == L * (1 + n),
+          f"moe decode vs prefill: {len(full)} / {len(split)} routing calls")
+    check(all(int((table < ids.shape[0]).sum()) == ids.numel()
+              for ids, table, _ in full + split),
+          "moe decode vs prefill: an assignment dropped at C = T")
+    pairs = [(f"prompt layer {li}", split[li][0], full[li][0][:P],
+              full[li][2][:P]) for li in range(L)]
+    pairs += [(f"decode step {j} layer {li}", split[L * (1 + j) + li][0],
+               full[li][0][P + j:P + j + 1], full[li][2][P + j:P + j + 1])
+              for j in range(n) for li in range(L)]
+    flips = routing_flips("moe decode vs prefill", pairs)
+    if not flips:
+        check(gap <= ZOO_RTOL, f"moe decode vs prefill gap {gap:.3e}")
+    flip_txt = ("none" if not flips else "; ".join(
+        f"{pairs[i][0]} row {row} (gap {g:.3e})" for i, row, g in flips))
+    return (f"moe decode vs prefill (olmoe-1b-7b, {L} layers, full width, "
+            f"f32, capacity factor {cfg.moe_capacity_factor}): prefill {P} "
+            f"+ {n} decode steps vs one prefill of {P + n}: experts of "
+            f"every token equal but near-tie flips: {flip_txt}; max "
+            f"|dlogits| / max |logits| {gap:.3e} "
+            f"({'held' if not flips else 'not held'}, tol {ZOO_RTOL})")
+
+
+def moe_phase(gen, smi: str) -> tuple[dict, list]:
+    """MoE on the card: flash_attention timed at olmoe-1b-7b's prefill
+    shape beside sdpa and the bound; olmoe-1b-7b (16 layers) and
+    moonshot-v1-16b-a3b (48 layers, 56.13 GB of bf16 params) served at full
+    width and depth (`moe_serve`); olmoe card against CPU and decode
+    against prefill at MOE_CHECK_LAYERS layers in f32; MOE_TRAIN_ROUNDS
+    rounds of train() at MOE_TRAIN_LAYERS layers, full width, with one
+    client's f32 gradients (the router's among them) card against CPU.
+    Returns the timing and the launches; every row starts with "moe "."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    t = time_flash(gen, SERVE_B, SERVE_PROMPT, 16, 16, 128)
+    rows = [f"moe flash_attention per call (olmoe-1b-7b and "
+            f"moonshot-v1-16b-a3b: B={SERVE_B} S=T={SERVE_PROMPT} H=KV=16 "
+            f"hd=128 bf16 causal): kernel {t['ms'] * 1e3:.2f} us, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, sdpa "
+            f"{t['library_ms'] * 1e3:.2f} us ({t['library_backend']}), "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+            f"{t['bytes']} bytes, {t['ops']} flops) [{smi}]"]
+    launches = {}
+    for arch in ("olmoe-1b-7b", "moonshot-v1-16b-a3b"):
+        torch.cuda.empty_cache()
+        counts, more = moe_serve(arch, get_config(arch), smi)
+        launches[arch] = counts["flash_attention"]
+        rows += more
+    torch.cuda.empty_cache()
+    rows.append(moe_card_vs_cpu())
+    rows.append(moe_decode_vs_prefill())
+    torch.cuda.empty_cache()
+    out, counts, more = train_run(
+        "olmoe-1b-7b", train_cfg("olmoe_1b_7b", MOE_TRAIN_LAYERS),
+        MOE_TRAIN_ROUNDS, smi, clients=MOE_TRAIN_N)
+    del out
+    rows += [f"moe {r}" for r in more]
+    torch.cuda.empty_cache()
+    rows.append("moe " + train_card_vs_cpu("olmoe_1b_7b", "(olmoe)"))
+    rows.append(f"moe phase {time.perf_counter() - t0:.1f} s")
+    return {"timing": t, "launches": launches,
+            "train_launches": counts["mifa_aggregate"]}, rows
 
 
 def main() -> int:
@@ -4347,6 +4601,11 @@ def main() -> int:
     gemma, rows = gemma_phase(gen, smi)
     for row in rows:
         print(row)
+    # MoE: olmoe-1b-7b and moonshot-v1-16b-a3b served, olmoe trained
+    torch.cuda.empty_cache()
+    moe, rows = moe_phase(gen, smi)
+    for row in rows:
+        print(row)
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -4441,7 +4700,12 @@ def main() -> int:
                         durability_launches_from=DUR_FROM[name])
         if name in train_launches:
             scan.update(train_launches=train_launches[name],
-                        train_launches_from=TRAIN_FROM)
+                        train_launches_from=TRAIN_FROM,
+                        moe_train_launches=moe["train_launches"],
+                        moe_train_launches_from=(
+                            f"train olmoe-1b-7b, {MOE_TRAIN_LAYERS} layers "
+                            f"at full width, N={MOE_TRAIN_N}, "
+                            f"{MOE_TRAIN_ROUNDS} rounds of MIFA(array)"))
         if name == "flash_attention":
             # gemma3-4b's serve prefill, counted from 0 just before it, and
             # the kernel at its two shapes (ms, plain, bound, sdpa per call)
@@ -4458,7 +4722,19 @@ def main() -> int:
                     for label, t in gemma["timing"].items()},
                 gemma_per_call_at=f"gemma3-4b: B={SERVE_B} S=T="
                                   f"{SERVE_PROMPT} H=8 KV=4 hd=256, bf16, "
-                                  "causal; local with window 1024")
+                                  "causal; local with window 1024",
+                # the MoE models' serve prefills, each counted from 0 just
+                # before it, and the kernel at their shape
+                moe_launches=moe["launches"],
+                moe_launches_from=f"serve prefill, {SERVE_B} x "
+                                  f"{SERVE_PROMPT} tokens, one launch a "
+                                  "layer; decode launches none",
+                moe_per_call={k: moe["timing"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_backend")},
+                moe_per_call_at=f"olmoe-1b-7b, moonshot-v1-16b-a3b: B="
+                                f"{SERVE_B} S=T={SERVE_PROMPT} H=KV=16 "
+                                "hd=128, bf16, causal")
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

@@ -12,9 +12,13 @@ segment.
 
 Ported block kinds: 'attn' (GQA, full), 'local_attn' (GQA with gemma3's
 sliding window), 'shared_attn' (windowed when `shared_attn_window` > 0)
-and 'ssm' (Mamba2); FFN kinds 'mlp' and None. 'moe' (ROADMAP Queue 1 item
-18.2) and 'mla' (18.3) raise. A windowed segment's cache is a ring of
-min(window, cache_len) slots: position p sits in slot p mod C.
+and 'ssm' (Mamba2); FFN kinds 'mlp', 'moe' (`models.moe`, with shared
+experts and `first_dense_layers`) and None. 'mla' (ROADMAP Queue 1 item
+18.3) raises. A windowed segment's cache is a ring of min(window,
+cache_len) slots: position p sits in slot p mod C. `prefill`, `decode` and
+`forward` sum the MoE layers' load-balance losses in layer order, as the
+reference does; decode routes the whole batch's B tokens in one call, so
+its expert capacity is that of B tokens.
 
 `forward` is the training forward: differentiable torch ops with no
 in-place write and no kernel call (`attention.blockwise_attention`,
@@ -34,10 +38,11 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
-from repro_torch.tree import tree_index, tree_stack
+from repro_torch.tree import tree_index, tree_map
 
 
 def _radd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -89,23 +94,20 @@ def build_segments(cfg: ArchConfig) -> list[SegmentSpec]:
     return segments
 
 
-# the ROADMAP Queue 1 item each unported block kind waits for
-_KIND_ITEMS = {"moe": "entry 4, item 18.2", "mla": "entry 5, item 18.3"}
 # block kinds of grouped-query attention with an optional window
 _GQA_KINDS = ("attn", "local_attn", "shared_attn")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port cannot serve and train yet: MLA blocks;
-    MoE; the compute-layout head padding of the sharded reference."""
+    """Raise for what the port cannot serve and train yet: MLA blocks; the
+    compute-layout head padding of the sharded reference."""
     for seg in build_segments(cfg):
-        if seg.kind == "mla" or seg.ffn == "moe":
-            what = seg.kind if seg.ffn != "moe" else "moe"
+        if seg.kind == "mla":
             raise NotImplementedError(
-                f"{cfg.name}: block kind {what!r} is not ported; the port "
+                f"{cfg.name}: block kind 'mla' is not ported; the port "
                 "serves and trains attn, local_attn, shared_attn and ssm "
-                "blocks with an mlp or no FFN (ROADMAP Queue 1 "
-                f"{_KIND_ITEMS[what]})")
+                "blocks with an mlp, a moe or no FFN (ROADMAP Queue 1 "
+                "entry 5, item 18.3)")
     if cfg.pad_q_heads or cfg.pad_kv_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding for tensor-parallel meshes is not "
@@ -133,7 +135,27 @@ def _layer_init(gen: torch.Generator, spec: SegmentSpec, cfg: ArchConfig,
     if spec.kind == "shared_attn" or spec.ffn == "mlp":
         p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif spec.ffn == "moe":
+        p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.expert_d_ff,
+                                    cfg.n_experts, cfg.n_shared_experts,
+                                    dtype)
     return p
+
+
+def _segment_init(gen: torch.Generator, spec: SegmentSpec, cfg: ArchConfig,
+                  dtype: torch.dtype) -> dict:
+    """The segment's layers drawn in order, each copied into its slice of
+    a stacked leaf allocated once: the peak is the segment and one layer,
+    not twice the segment (a 48-layer MoE segment is 56 GB in bf16)."""
+    first = _layer_init(gen, spec, cfg, dtype)
+    out = tree_map(lambda t: t.new_empty((spec.n_layers,) + tuple(t.shape)),
+                   first)
+    for i in range(spec.n_layers):
+        layer = first if i == 0 else _layer_init(gen, spec, cfg, dtype)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
+        first = layer = None
+    return out
 
 
 def init_segments(gen: torch.Generator, cfg: ArchConfig,
@@ -150,10 +172,7 @@ def init_segments(gen: torch.Generator, cfg: ArchConfig,
         if seg.kind == "shared_attn":
             out["segments"][str(seg.index)] = {}  # params live at top level
             continue
-        layers = [_layer_init(gen, seg, cfg, dtype)
-                  for _ in range(seg.n_layers)]
-        out["segments"][str(seg.index)] = tree_stack(layers)
-        del layers
+        out["segments"][str(seg.index)] = _segment_init(gen, seg, cfg, dtype)
     return out
 
 
@@ -196,10 +215,18 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 # Prefill (fill caches) and decode (consume caches)
 # --------------------------------------------------------------------------- #
 
-def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec) -> torch.Tensor:
+def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's FFN -> (x, the MoE load-balance loss or None)."""
     if spec.kind == "shared_attn" or spec.ffn == "mlp":
-        x = _radd(x, mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x)))
-    return x
+        return _radd(x, mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x))), None
+    if spec.ffn == "moe":
+        y, aux = moe_lib.moe_apply(lp["moe"], rmsnorm(lp["ln2"], x),
+                                   top_k=cfg.top_k,
+                                   capacity_factor=cfg.moe_capacity_factor,
+                                   aux_coef=cfg.router_aux_coef)
+        return _radd(x, y), aux
+    return x, None
 
 
 def _ring_fill(buf: torch.Tensor, new: torch.Tensor) -> None:
@@ -213,10 +240,9 @@ def _ring_fill(buf: torch.Tensor, new: torch.Tensor) -> None:
 
 
 def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                   entry: dict, spec: SegmentSpec, cfg: ArchConfig
-                   ) -> torch.Tensor:
+                   entry: dict, spec: SegmentSpec, cfg: ArchConfig):
     """One layer over the prompt; writes this layer's cache `entry` (no
-    layer axis) in place."""
+    layer axis) in place. Returns (x, aux or None)."""
     h = rmsnorm(lp["ln1"], x)
     if spec.kind in _GQA_KINDS:
         q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
@@ -240,12 +266,13 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
         x = _radd(x, out)
         entry["state"].copy_(state)
         entry["conv"].copy_(conv)
-    return _ffn(lp, x, spec)
+    return _ffn(lp, x, spec, cfg)
 
 
 def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
-                  spec: SegmentSpec, cfg: ArchConfig) -> torch.Tensor:
-    """Single-token step through one layer; updates `entry` in place."""
+                  spec: SegmentSpec, cfg: ArchConfig):
+    """Single-token step through one layer; updates `entry` in place.
+    Returns (x, aux or None)."""
     h = rmsnorm(lp["ln1"], x)
     if spec.kind in _GQA_KINDS:
         positions = torch.tensor([pos], device=x.device)
@@ -265,42 +292,51 @@ def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
         x = _radd(x, out)
         entry["state"].copy_(state)
         entry["conv"].copy_(conv)
-    return _ffn(lp, x, spec)
+    return _ffn(lp, x, spec, cfg)
 
 
-def _run(layer_fn, params: dict, x: torch.Tensor, step, cache: dict,
-         cfg: ArchConfig) -> torch.Tensor:
+def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
+         cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every layer in order: layer_fn(lp, x, step, entry, spec, cfg) ->
+    (x, aux or None), with `entry` this layer's cache (None without a
+    cache). Returns (x, the summed aux, f32)."""
+    aux = torch.zeros((), device=x.device)
     for seg in build_segments(cfg):
-        entry = cache[str(seg.index)]
+        entry = None if cache is None else cache[str(seg.index)]
         if seg.kind == "shared_attn":
-            x = layer_fn(params["shared_attn"], x, step, entry, seg, cfg)
-            continue
-        seg_params = params["segments"][str(seg.index)]
-        for i in range(seg.n_layers):
-            x = layer_fn(tree_index(seg_params, i), x, step,
-                         tree_index(entry, i), seg, cfg)
-    return x
+            layers = [(params["shared_attn"], entry)]
+        else:
+            seg_params = params["segments"][str(seg.index)]
+            layers = [(tree_index(seg_params, i),
+                       None if entry is None else tree_index(entry, i))
+                      for i in range(seg.n_layers)]
+        for lp, e in layers:
+            x, a = layer_fn(lp, x, step, e, seg, cfg)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cache: dict, cfg: ArchConfig):
     """x (B,S,d) through every layer, filling `cache` in place.
-    Returns (x, aux, cache); aux is 0 (no MoE layer is ported)."""
-    x = _run(_layer_prefill, params, x, positions, cache, cfg)
-    return x, torch.zeros((), device=x.device), cache
+    Returns (x, aux, cache)."""
+    x, aux = _run(_layer_prefill, params, x, positions, cache, cfg)
+    return x, aux, cache
 
 
 def decode(params: dict, x: torch.Tensor, pos: int, cache: dict,
            cfg: ArchConfig):
     """One token x (B,1,d) at position `pos` through every layer, updating
     `cache` in place. Returns (x, aux, cache)."""
-    x = _run(_layer_decode, params, x, pos, cache, cfg)
-    return x, torch.zeros((), device=x.device), cache
+    x, aux = _run(_layer_decode, params, x, pos, cache, cfg)
+    return x, aux, cache
 
 
 def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-               spec: SegmentSpec, cfg: ArchConfig) -> torch.Tensor:
-    """One layer of the training forward (no cache)."""
+               entry: None, spec: SegmentSpec, cfg: ArchConfig):
+    """One layer of the training forward (no cache). Returns (x, aux or
+    None)."""
     h = rmsnorm(lp["ln1"], x)
     if spec.kind in _GQA_KINDS:
         q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
@@ -315,19 +351,12 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
             d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
             conv_width=cfg.ssm_conv_width, scan=ssm_lib.ssd_chunked)
         x = _radd(x, out)
-    return _ffn(lp, x, spec)
+    return _ffn(lp, x, spec, cfg)
 
 
 def forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cfg: ArchConfig):
-    """The training forward: x (B,S,d) through every segment -> (x, aux);
-    aux is 0 (no MoE layer is ported)."""
+    """The training forward: x (B,S,d) through every segment -> (x, aux),
+    aux the MoE layers' summed load-balance loss (0 without MoE)."""
     check_ported(cfg)
-    for seg in build_segments(cfg):
-        if seg.kind == "shared_attn":
-            x = _layer_fwd(params["shared_attn"], x, positions, seg, cfg)
-            continue
-        seg_params = params["segments"][str(seg.index)]
-        for i in range(seg.n_layers):
-            x = _layer_fwd(tree_index(seg_params, i), x, positions, seg, cfg)
-    return x, torch.zeros((), device=x.device)
+    return _run(_layer_fwd, params, x, positions, None, cfg)

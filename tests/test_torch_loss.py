@@ -1,7 +1,8 @@
 """Parity of the port's training loss with the JAX package's, on the CPU:
 `Model.loss_fn` and its gradients on the smoke configs of granite-3-8b,
-zamba2-7b, mamba2-1.3b, qwen1.5-110b and gemma3-4b (window 16 over 32
-tokens), in f32 and in bf16, with the chunked cross-entropy (`ce_chunk`)
+zamba2-7b, mamba2-1.3b, qwen1.5-110b, gemma3-4b (window 16 over 32
+tokens) and olmoe-1b-7b (MoE: the load-balance loss and the router's
+gradient), in f32 and in bf16, with the chunked cross-entropy (`ce_chunk`)
 on two of them, and two rounds of gemma3-4b's `train()` against the
 reference's loop. The same params (the port's init, as numpy) and tokens
 go to both sides; tolerances as `test_torch_train.py` states them.
@@ -24,7 +25,7 @@ from test_torch_train import (MB, K, N, S, _reference_rounds, close, configs,
 torch.set_num_threads(1)
 
 ARCHS = ["granite_3_8b", "zamba2_7b", "mamba2_1_3b", "qwen1_5_110b",
-         "gemma3_4b"]
+         "gemma3_4b", "olmoe_1b_7b"]
 
 
 @pytest.mark.parametrize("arch,dtype,ce_chunk", [
@@ -40,9 +41,11 @@ def test_loss_fn_and_grads_match_reference(arch, dtype, ce_chunk):
         jax.tree.map(jnp.asarray, pnp), {"tokens": jnp.asarray(toks)})
     tg, (tl, taux) = grad_and_value(tm.loss_fn, has_aux=True)(
         params_from_jax(pnp, "cpu"), {"tokens": torch.from_numpy(toks)})
-    assert set(taux) == {"loss", "ce", "aux"} and float(taux["aux"]) == 0.0
+    assert set(taux) == {"loss", "ce", "aux"}
+    assert (float(taux["aux"]) > 0) == tc.is_moe
     close(jl, tl, dtype)
     close(jaux["ce"], taux["ce"], dtype)
+    close(jaux["aux"], taux["aux"], dtype)
     jleaves, tleaves = jax.tree.leaves(jg), tree_leaves(tg)
     assert len(jleaves) == len(tleaves)
     for a, b in zip(jleaves, tleaves):

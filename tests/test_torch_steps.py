@@ -3,7 +3,8 @@ CPU, mirroring `tests/test_launch_steps.py`: `make_train_step` in its vmap
 mode (server step through `mifa_aggregate_tree`) and its sequential mode
 (qwen's client loop) against the reference's jitted steps from the same
 params (the port's init, as numpy) and batch; the two modes against each
-other; inactive clients keep their memory; the serve-step wrappers.
+other (granite-3-8b and olmoe-1b-7b); inactive clients keep their memory;
+the serve-step wrappers.
 
 Tolerance: the f32 model bounds, rtol 2e-4 and atol 2e-5 scaled by each
 leaf's largest |value| (`test_torch_train.py`): K=2 local steps in f32 on
@@ -94,7 +95,17 @@ def test_sequential_train_step_matches_vmap():
     """The memory-saving client loop computes the same round (within f32:
     it sums G rows one by one where the kernel's plain version takes the
     mean)."""
-    cfg = _cfg()
+    _vmap_vs_sequential("granite_3_8b")
+
+
+def test_sequential_train_step_matches_vmap_moe():
+    """The same for olmoe-1b-7b: MoE routing of each client's tokens under
+    `torch.func.vmap` against one client at a time."""
+    _vmap_vs_sequential("olmoe_1b_7b")
+
+
+def _vmap_vs_sequential(arch):
+    cfg = _cfg(arch)
     model, params, batch, G, active = _inputs(cfg)
     p1, G1, m1 = make_train_step(model, cfg, N, K)(params, G, batch, active,
                                                    ETA)
@@ -178,10 +189,12 @@ def test_cuda_train_step_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_7b"])
+@pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_7b",
+                                  "olmoe_1b_7b"])
 def test_cuda_train_matches_cpu(cuda_device, arch):
-    """Three rounds of `train()` on the card (granite through the kernel,
-    one launch a round) against the CPU from the same params, f32."""
+    """Three rounds of `train()` on the card (the server step through the
+    kernel, one launch a round) against the CPU from the same params,
+    f32; olmoe's MoE layers route every client's tokens on the card."""
     from repro_torch.launch.train import train
     cfg = get_smoke_config(arch).replace(compute_dtype="float32",
                                          param_dtype="float32")

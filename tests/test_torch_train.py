@@ -5,7 +5,8 @@ The same numpy inputs go to both packages: token streams and batches
 (array-equal), the training model functions (`chunked_lm_loss`,
 `blockwise_attention`, `ssd_chunked`) with their gradients, and five rounds
 of `launch.train.train` against the reference's round loop
-(`repro/launch/train.py:67-87`) for granite-3-8b and qwen1.5-110b.
+(`repro/launch/train.py:67-87`) for granite-3-8b, qwen1.5-110b and
+olmoe-1b-7b.
 `test_torch_loss.py` holds `loss_fn` and its gradients, and
 `test_torch_steps.py` the step builders, with the helpers here. Params are
 drawn by the port's init (the reference's `jax.random` draws are not
@@ -341,10 +342,12 @@ def _reference_rounds(jc, pnp, rounds=ROUNDS):
     return losses, params
 
 
-@pytest.mark.parametrize("arch", ["granite_3_8b", "qwen1_5_110b"])
+@pytest.mark.parametrize("arch", ["granite_3_8b", "qwen1_5_110b",
+                                  "olmoe_1b_7b"])
 def test_train_matches_reference_loop(arch, capsys):
-    """granite's rounds vmap every client and step the server through
-    `MIFA.round_step`; qwen's (`sequential_clients`) go through
+    """granite's and olmoe's rounds vmap every client (olmoe's MoE routes
+    each client's tokens under `torch.func.vmap`) and step the server
+    through `MIFA.round_step`; qwen's (`sequential_clients`) go through
     `make_train_step`'s sequential mode. f32 smoke configs."""
     jc, tc = configs(arch, "float32")
     pnp = params_np(arch, "float32")
