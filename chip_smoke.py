@@ -181,7 +181,26 @@ Run from the root of a checkout on a machine with a CUDA card. It
      1000 prompt tokens plus 100 decode steps (the rings wrap) against
      one prefill of 1100; trains it at full width cut to 6 layers, N=2,
      for 2 rounds (one `mifa_aggregate` launch a round), printing the
-     peak allocation.
+     peak allocation;
+ 20. drives the MoE models (`moe_phase`, lines starting `moe `):
+     `flash_attention` at their prefill shape (H=KV=16, hd 128) beside
+     sdpa and the bound; olmoe-1b-7b and moonshot-v1-16b-a3b served at
+     full width and depth (16 and 48 launches a prefill, none in decode;
+     capacity and the share of assignments dropped); olmoe's first 4
+     layers in f32 card vs CPU and decode vs prefill (expert ids compared
+     first, a flip allowed only at a near-tie); olmoe trained at 2 layers,
+     N=4, 2 rounds, and one client's f32 gradients card vs CPU;
+ 21. drives MLA (`mla_phase`, lines starting `mla `): `flash_attention`
+     at deepseek-v2-lite-16b's prefill shape (H=KV=16, q/k head dim 192,
+     v's 128) beside sdpa and the bound; the model served at full width
+     and depth (27 layers, 15.65 B bf16 params: exactly 27 launches a
+     prefill, none in decode, C = 960 in prefill and 1 in decode); its
+     first 4 layers (one dense, three MoE) in f32 card vs CPU (logits, the
+     `c` and `pe` caches, two decode steps) and the absorbed decode
+     against the decompressed prefill, each within 1e-5 of the largest
+     logit; trained at 2 layers, N=4, 2 rounds (one `mifa_aggregate`
+     launch a round), and one client's f32 gradients card vs CPU with the
+     gaps of `w_uk`, `w_uv`, `w_kpe` and the router.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -296,6 +315,12 @@ MOE_CHECK_LAYERS, MOE_CHECK_S = 4, 512
 MOE_DVP_PROMPT, MOE_DVP_STEPS = 256, 32
 MOE_TRAIN_LAYERS, MOE_TRAIN_N, MOE_TRAIN_ROUNDS = 2, 4, 2
 MOE_TIE_GAP = 1e-5
+# deepseek-v2-lite-16b's MLA prefill attention: B, S=T, H, KV, q/k head
+# dim (nope 128 + rope 64) and v's head dim; its card vs CPU and decode vs
+# prefill (MOE_CHECK_LAYERS layers, f32: layer 0 dense, then MoE) are held
+# within MLA_RTOL of the largest logit
+MLA_SHAPE = (SERVE_B, SERVE_PROMPT, 16, 16, 192, 128)
+MLA_RTOL = 1e-5
 # kernel vs plain version, |err| <= atol + rtol·|ref| as (atol, rtol).
 # Attention: f32 (2e-5, 0), FMAs and einsum sum in other orders; bf16
 # (2e-2, 1e-2), the kernel rounds the probabilities to bf16 before P·V, as
@@ -3464,9 +3489,11 @@ DUR_FROM = {
 # the model zoo: flash_attention and ssd_scan, served models
 # --------------------------------------------------------------------------- #
 
-def attn_inputs(gen, b, s, h, kv, hd, dtype, t=None):
+def attn_inputs(gen, b, s, h, kv, hd, dtype, t=None, dv=None):
+    """q (b,s,h,hd), k (b,t,kv,hd), v (b,t,kv,dv): t defaults to s, dv to
+    hd."""
     t = s if t is None else t
-    shapes = [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)]
+    shapes = [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, dv or hd)]
     return [torch.randn(shp, generator=gen, device="cuda").to(dtype)
             for shp in shapes]
 
@@ -3492,10 +3519,11 @@ def check_flash(gen) -> tuple[float, list]:
     """flash_attention against its plain version: the served models'
     shapes (zamba2-7b: H=KV=32, hd=112; granite-3-8b: GQA g=4, hd=128;
     gemma3-4b: GQA g=2, hd=256, global and window 1024; olmoe-1b-7b and
-    moonshot-v1-16b-a3b: H=KV=16, hd=128), ragged S,
-    non-causal S != T, small heads, windows that are not a multiple of the
-    64-key tile (100) and below one tile (17), f32 and bf16; no output may
-    be NaN."""
+    moonshot-v1-16b-a3b: H=KV=16, hd=128; deepseek-v2-lite-16b's MLA:
+    H=KV=16, hd=192, v's head dim 128), ragged S, non-causal S != T,
+    small heads, windows that are not a multiple of the 64-key tile (100)
+    and below one tile (17), f32 and bf16; no output may be NaN. A shape
+    of six numbers gives v's head dim last."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     bf, f32 = torch.bfloat16, torch.float32
@@ -3521,11 +3549,19 @@ def check_flash(gen) -> tuple[float, list]:
              ((2, 333, 4, 2, 256), f32, True, 17, "window 17 f32"),
              ((SERVE_B, SERVE_PROMPT, 16, 16, 128), bf, True, 0,
               "olmoe path"),
-             ((1, 512, 16, 16, 128), f32, True, 0, "olmoe heads f32")]
+             ((1, 512, 16, 16, 128), f32, True, 0, "olmoe heads f32"),
+             (MLA_SHAPE, bf, True, 0, "MLA path, dv 128"),
+             ((1, 512, 16, 16, 192, 128), f32, True, 0, "MLA heads f32"),
+             ((2, 1000, 4, 4, 192, 128), bf, True, 0, "MLA ragged S"),
+             ((2, 1000, 4, 4, 192, 128), f32, True, 0, "MLA ragged S f32"),
+             ((2, 300, 4, 4, 192, 128), bf, False, 0, "non-causal, dv 128"),
+             ((2, 300, 4, 4, 192, 128), f32, False, 0,
+              "non-causal, dv 128 f32")]
     max_err, rows = 0.0, []
-    for (b, s, h, kv, hd), dt, causal, window, label in cases:
+    for (b, s, h, kv, hd, *dv), dt, causal, window, label in cases:
+        dv = dv[0] if dv else hd
         t = 200 if label.startswith("non-causal") else s
-        q, k, v = attn_inputs(gen, b, s, h, kv, hd, dt, t)
+        q, k, v = attn_inputs(gen, b, s, h, kv, hd, dt, t, dv)
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -3540,7 +3576,7 @@ def check_flash(gen) -> tuple[float, list]:
               f"flash_attention off by {err:.3e} ({label})")
         max_err = max(max_err, err)
         rows.append(f"flash_attention {label:<22} B={b} S={s} T={t} H={h} "
-                    f"KV={kv} hd={hd} {str(dt)[6:]} causal={causal} "
+                    f"KV={kv} hd={hd} dv={dv} {str(dt)[6:]} causal={causal} "
                     f"window={window}: max |err| {err:.3e} (atol {atol}, "
                     f"rtol {rtol})")
     return max_err, rows
@@ -3592,14 +3628,17 @@ def check_ssd(gen) -> tuple[float, list]:
     return max_err, rows
 
 
-def flash_work(b, s, h, kv, hd, itemsize, window=0) -> tuple[int, int]:
-    """Bytes (q, k, v read once, out written once) and the flops a causal
-    call needs: Q·Kᵀ and P·V over the S(S+1)/2 pairs on or below the
-    diagonal, or with a window over the sum of min(s + 1, window) pairs."""
-    nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * itemsize
+def flash_work(b, s, h, kv, hd, itemsize, window=0, dv=None
+               ) -> tuple[int, int]:
+    """Bytes (q, k at hd and v at dv read once, out at dv written once;
+    dv defaults to hd) and the flops a causal call needs: Q·Kᵀ and P·V,
+    2·(hd + dv) a pair, over the S(S+1)/2 pairs on or below the diagonal,
+    or with a window over the sum of min(s + 1, window) pairs."""
+    dv = dv or hd
+    nbytes = (b * s * h * (hd + dv) + b * s * kv * (hd + dv)) * itemsize
     pairs = (s * (s + 1) // 2 if not window
              else sum(min(i + 1, window) for i in range(s)))
-    return nbytes, 4 * b * h * hd * pairs
+    return nbytes, 2 * b * h * (hd + dv) * pairs
 
 
 def ssd_work(b, s, h, p, n, q, itemsize) -> tuple[int, int]:
@@ -3632,18 +3671,19 @@ def sdpa_backend(*args, **kw) -> str:
         return f"not read ({type(e).__name__})"
 
 
-def time_flash(gen, b, s, h, kv, hd, window=0) -> dict:
+def time_flash(gen, b, s, h, kv, hd, window=0, dv=None) -> dict:
     """flash_attention at a served shape (bf16, causal, `window` > 0 for a
-    sliding window): kernel, plain version and one
-    scaled_dot_product_attention call on the same values in its (B,H,S,hd)
-    layout, prepared beforehand: is_causal with GQA in place, or, with a
-    window, the boolean mask of the window and k, v repeated to H heads.
-    `library_backend` names the backend the library call dispatched to."""
+    sliding window, v's head dim `dv`, default hd): kernel, plain version
+    and one scaled_dot_product_attention call on the same values in its
+    (B,H,S,hd) layout, prepared beforehand: is_causal with GQA in place,
+    or, with a window, the boolean mask of the window and k, v repeated to
+    H heads. `library_backend` names the backend the library call
+    dispatched to."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes, ops = flash_work(b, s, h, kv, hd, 2, window)
-    sets = [attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
+    nbytes, ops = flash_work(b, s, h, kv, hd, 2, window, dv)
+    sets = [attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16, dv=dv)
             for _ in range(n_copies(nbytes))]
     t = time_calls({"ms": lambda *a: flash_attention(*a, causal=True,
                                                      window=window),
@@ -4094,17 +4134,18 @@ def model_gap(a: torch.Tensor, ref: torch.Tensor) -> float:
     return ((a - ref).abs() / bound.clamp(min=1e-30)).max().item()
 
 
-def train_card_vs_cpu(arch: str = "granite_3_8b", label: str = "(c)"
-                      ) -> str:
+def train_card_vs_cpu(arch: str = "granite_3_8b", label: str = "(c)",
+                      n_layers: int = 1, named: tuple = ()) -> str:
     """(c) One client's loss and gradients, `arch` at full width in f32,
-    its first layer, on the card and on the CPU from the same params and
-    tokens (the first minibatch of client 0); an MoE model's router
-    gradient is named in the line."""
+    its first `n_layers` layers, on the card and on the CPU from the same
+    params and tokens (the first minibatch of client 0); an MoE model's
+    router gradient (its first MoE layer's) and the attention leaves in
+    `named` (the worst over the layers) are named in the line."""
     from torch.func import grad_and_value
 
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = train_cfg(arch, 1, param_dtype="float32",
+    cfg = train_cfg(arch, n_layers, param_dtype="float32",
                     compute_dtype="float32")
     model = build_model(cfg)
     p_gpu = model.init(4, device="cuda")
@@ -4122,17 +4163,25 @@ def train_card_vs_cpu(arch: str = "granite_3_8b", label: str = "(c)"
     check(loss_gap <= 1 and max(gaps) <= 1,
           f"train card vs CPU ({arch}): loss {loss_gap:.3e}, gradient "
           f"leaves {[f'{x:.3e}' for x in gaps]} of the f32 model bound")
-    router = ""
-    if cfg.is_moe:
-        g_router = [g["segments"]["0"]["moe"]["router"]
-                    for g in (out["cuda"][1], out["cpu"][1])]
-        router = (f" (the router's {model_gap(*g_router):.3e}, max "
-                  f"|grad| {g_router[1].abs().max().item():.3e})")
-    return (f"train card vs CPU {label}: {arch}, 1 layer at full width, "
+    segs = [(out["cuda"][1]["segments"][k], out["cpu"][1]["segments"][k])
+            for k in out["cpu"][1]["segments"]]
+    parts = []
+    for name in named:
+        leaf_gaps = [model_gap(a["attn"][name], b["attn"][name])
+                     for a, b in segs if name in b.get("attn", {})]
+        parts.append(f"{name} {max(leaf_gaps):.3e}")
+    moe = [(a["moe"]["router"], b["moe"]["router"]) for a, b in segs
+           if "moe" in b]
+    if moe:
+        parts.append(f"the router's {model_gap(*moe[0]):.3e}, max |grad| "
+                     f"{moe[0][1].abs().max().item():.3e}")
+    named_txt = f" ({'; '.join(parts)})" if parts else ""
+    return (f"train card vs CPU {label}: {arch}, {n_layers} layer"
+            f"{'s' if n_layers > 1 else ''} at full width, "
             f"f32, one client's minibatch ({TRAIN_MB} x {TRAIN_SEQ}): loss "
             f"{out['cuda'][0].item():.6f} / {out['cpu'][0].item():.6f}, "
             f"worst of {len(gaps)} gradient leaves {max(gaps):.3e} of the "
-            f"bound{router} (rtol {MODEL_RTOL}, atol "
+            f"bound{named_txt} (rtol {MODEL_RTOL}, atol "
             f"{MODEL_ATOL}·max|leaf|); "
             f"card {out['cuda'][2]:.3f} s, CPU {out['cpu'][2]:.3f} s")
 
@@ -4295,26 +4344,41 @@ def drop_share(calls, n_tokens: int) -> tuple[float, int]:
     return 1 - kept / max(total, 1), len(ours)
 
 
-def moe_serve(label: str, cfg, smi: str) -> tuple[dict, list]:
+def moe_layers(cfg) -> list:
+    """The indices of cfg's MoE layers (those after `first_dense_layers`),
+    in layer order."""
+    from repro_torch.models.transformer import build_segments
+    out, start = [], 0
+    for seg in build_segments(cfg):
+        if seg.ffn == "moe":
+            out += range(start, start + seg.n_layers)
+        start += seg.n_layers
+    return out
+
+
+def moe_serve(label: str, cfg, smi: str, tag: str = "moe"
+              ) -> tuple[dict, list]:
     """`serve_phase` for an MoE model at full width and depth: exactly
     n_layers flash_attention launches a prefill, none in decode, no other
-    kernel; the capacity an expert has in prefill and in decode and the
-    share of assignments it dropped in each (routing recorded, no device
-    work added)."""
+    kernel; one routing call a MoE layer; the capacity an expert has in
+    prefill and in decode and the share of assignments it dropped in each
+    (routing recorded, no device work added). Rows start with `tag`."""
     from repro_torch.models.moe import capacity
     with RoutingLog() as log:
         counts, rows = serve_phase(label, cfg, {
             "flash_attention": cfg.n_layers, "ssd_scan": 0})
     pre, n_pre = drop_share(log.calls, SERVE_B * SERVE_PROMPT)
     dec, n_dec = drop_share(log.calls, SERVE_B)
-    check(n_pre == cfg.n_layers and n_dec == cfg.n_layers * SERVE_NEW,
-          f"moe serve {label}: {n_pre} prefill and {n_dec} decode routing "
-          f"calls, expected {cfg.n_layers} and {cfg.n_layers * SERVE_NEW}")
+    n_moe = len(moe_layers(cfg))
+    check(n_pre == n_moe and n_dec == n_moe * SERVE_NEW,
+          f"{tag} serve {label}: {n_pre} prefill and {n_dec} decode routing "
+          f"calls, expected {n_moe} and {n_moe * SERVE_NEW}")
     c_pre, c_dec = (capacity(t, cfg.top_k, cfg.n_experts,
                              cfg.moe_capacity_factor)
                     for t in (SERVE_B * SERVE_PROMPT, SERVE_B))
-    rows = [f"moe {r}" for r in rows]
-    rows.append(f"moe serve {label}: top {cfg.top_k} of {cfg.n_experts} "
+    rows = [f"{tag} {r}" for r in rows]
+    rows.append(f"{tag} serve {label}: {n_moe} MoE layers, top {cfg.top_k} "
+                f"of {cfg.n_experts} "
                 f"experts, capacity factor {cfg.moe_capacity_factor}: "
                 f"{c_pre} slots an expert in prefill ({SERVE_B} x "
                 f"{SERVE_PROMPT} tokens), {c_dec} in decode ({SERVE_B} "
@@ -4323,91 +4387,109 @@ def moe_serve(label: str, cfg, smi: str) -> tuple[dict, list]:
     return counts, rows
 
 
-def moe_card_vs_cpu() -> str:
-    """olmoe-1b-7b at full width, its first MOE_CHECK_LAYERS layers, f32:
-    `model_runs` (a prefill of MOE_CHECK_S tokens and two decode steps,
-    card against CPU). Each MoE call's expert ids are compared first; a
-    flip at a near-tie is allowed and printed, and what it reaches is not
-    held: a prefill flip at layer l reaches every later layer at every
-    position (capacity ties a layer's tokens together) and all logits, a
-    flip in decode step j the later layers from its position on and the
-    logits from step j on. Everything else is held at ZOO_RTOL."""
+def moe_card_vs_cpu(arch: str = "olmoe_1b_7b", tag: str = "moe",
+                    tol: float = ZOO_RTOL, seed: int = 7) -> str:
+    """`arch` (an MoE model) at full width, its first MOE_CHECK_LAYERS
+    layers, f32: `model_runs` (a prefill of MOE_CHECK_S tokens and two
+    decode steps, card against CPU). Each MoE call's expert ids are
+    compared first; a flip at a near-tie is allowed and printed, and what
+    it reaches is not held: a prefill flip at layer l reaches every later
+    layer at every position (capacity ties a layer's tokens together) and
+    all logits, a flip in decode step j the later layers from its position
+    on and the logits from step j on. Everything else (the logits and
+    every cache leaf, layer by layer) is held at `tol`."""
+    from repro_torch.models.transformer import build_segments
     from repro_torch.tree import tree_leaves
-    cfg = zoo_f32_config(MOE_CHECK_LAYERS, "olmoe_1b_7b")
+    cfg = zoo_f32_config(MOE_CHECK_LAYERS, arch)
+    name = arch.replace("_", "-")
     L, S = cfg.n_layers, MOE_CHECK_S
-    out = model_runs(cfg, S, 7)
+    moe_l = moe_layers(cfg)
+    M = len(moe_l)
+    out = model_runs(cfg, S, seed)
     (steps_g, cache_g, card_s, calls_g), (steps_c, cache_c, cpu_s,
                                           calls_c) = out["cuda"], out["cpu"]
-    check(len(calls_g) == len(calls_c) == 3 * L,
-          f"moe card vs CPU: {len(calls_g)} / {len(calls_c)} routing calls")
+    check(len(calls_g) == len(calls_c) == 3 * M,
+          f"{tag} card vs CPU: {len(calls_g)} / {len(calls_c)} routing "
+          "calls")
     phase = ["prefill", "decode step 1", "decode step 2"]
-    flips = routing_flips("moe card vs CPU", [
-        (f"{phase[c // L]} layer {c % L}", g[0], r[0], r[2])
+    flips = routing_flips(f"{tag} card vs CPU", [
+        (f"{phase[c // M]} layer {moe_l[c % M]}", g[0], r[0], r[2])
         for c, (g, r) in enumerate(zip(calls_g, calls_c))])
     hold = torch.ones((L, S + 2), dtype=torch.bool)
     hold_step = [True] * 3
     for c, row, _ in flips:
-        step, layer = c // L, c % L
+        step, layer = c // M, moe_l[c % M]
         hold[layer + 1:, 0 if step == 0 else S + step - 1:] = False
         for i in range(step, 3):
             hold_step[i] = False
     gaps = [rel_gap(a, b) if h else None
             for a, b, h in zip(steps_g, steps_c, hold_step)]
-    cache_gap = 0.0
-    for a, b in zip(tree_leaves(cache_g), tree_leaves(cache_c)):
-        d = (a.float().cpu() - b.float()).abs().reshape(L, 1, S + 2, -1)
-        d = d.amax(dim=(1, 3))[hold]
-        cache_gap = max(cache_gap, (d.max() / b.float().abs().max()).item())
+    cache_gap, start = 0.0, 0
+    for seg in build_segments(cfg):
+        n_l, key = seg.n_layers, str(seg.index)
+        for a, b in zip(tree_leaves(cache_g[key]), tree_leaves(cache_c[key])):
+            d = (a.float().cpu() - b.float()).abs().reshape(n_l, 1, S + 2, -1)
+            d = d.amax(dim=(1, 3))[hold[start:start + n_l]]
+            if d.numel():
+                cache_gap = max(cache_gap,
+                                (d.max() / b.float().abs().max()).item())
+        start += n_l
     held = [g for g in gaps if g is not None]
-    check(all(g <= ZOO_RTOL for g in held) and cache_gap <= ZOO_RTOL,
-          f"moe card vs CPU: logits gaps {gaps}, cache {cache_gap}")
+    check(all(g <= tol for g in held) and cache_gap <= tol,
+          f"{tag} card vs CPU: logits gaps {gaps}, cache {cache_gap}")
     n_ids = sum(g[0].numel() for g in calls_g)
     flip_txt = ("none" if not flips else "; ".join(
-        f"{phase[c // L]} layer {c % L} row {row} (gap {gap:.3e})"
+        f"{phase[c // M]} layer {moe_l[c % M]} row {row} (gap {gap:.3e})"
         for c, row, gap in flips))
     fmt = [("not held" if g is None else f"{g:.3e}") for g in gaps]
-    return (f"moe card vs CPU (olmoe-1b-7b, {L} layers, full width, f32, "
+    return (f"{tag} card vs CPU ({name}, {L} layers, full width, f32, "
             f"S={S}): expert ids of {len(calls_g)} routing calls "
             f"({n_ids} ids) compared, flips at near-ties: {flip_txt}; max "
             f"|dlogits| / max |logits| prefill {fmt[0]}, decode steps "
             f"{fmt[1]} {fmt[2]}; worst cache leaf {cache_gap:.3e} over "
-            f"{int(hold.sum())} of {hold.numel()} layer positions (tol "
-            f"{ZOO_RTOL}); card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+            f"{int(hold.sum())} of {hold.numel()} layer positions, leaves "
+            f"{sorted({tuple(a.shape) for a in tree_leaves(cache_g)})} "
+            f"(tol {tol}); card {card_s:.3f} s, CPU {cpu_s:.3f} s")
 
 
-def moe_decode_vs_prefill() -> str:
-    """olmoe-1b-7b at full width, MOE_CHECK_LAYERS layers, f32, capacity
-    factor E/k (C = T: nothing drops), on the card: MOE_DVP_PROMPT prompt
-    tokens and MOE_DVP_STEPS decode steps against one prefill; each
-    token's experts compared with the one prefill's first (a flip at a
-    near-tie reaches the last logits, which are then not held)."""
-    cfg = zoo_f32_config(MOE_CHECK_LAYERS, "olmoe_1b_7b")
+def moe_decode_vs_prefill(arch: str = "olmoe_1b_7b", tag: str = "moe",
+                          tol: float = ZOO_RTOL, seed: int = 8) -> str:
+    """`arch` (an MoE model) at full width, MOE_CHECK_LAYERS layers, f32,
+    capacity factor E/k (C = T: nothing drops), on the card:
+    MOE_DVP_PROMPT prompt tokens and MOE_DVP_STEPS decode steps against
+    one prefill, held at `tol`; each token's experts compared with the
+    one prefill's first (a flip at a near-tie reaches the last logits,
+    which are then not held)."""
+    cfg = zoo_f32_config(MOE_CHECK_LAYERS, arch)
     cfg = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k)
     L, P, n = cfg.n_layers, MOE_DVP_PROMPT, MOE_DVP_STEPS
+    moe_l = moe_layers(cfg)
+    M = len(moe_l)
     logs: dict = {}
-    gap = model_decode_vs_prefill(cfg, P, n, 8, logs)
+    gap = model_decode_vs_prefill(cfg, P, n, seed, logs)
     full, split = logs["full"], logs["split"]
-    check(len(full) == L and len(split) == L * (1 + n),
-          f"moe decode vs prefill: {len(full)} / {len(split)} routing calls")
+    check(len(full) == M and len(split) == M * (1 + n),
+          f"{tag} decode vs prefill: {len(full)} / {len(split)} routing "
+          "calls")
     check(all(int((table < ids.shape[0]).sum()) == ids.numel()
               for ids, table, _ in full + split),
-          "moe decode vs prefill: an assignment dropped at C = T")
-    pairs = [(f"prompt layer {li}", split[li][0], full[li][0][:P],
-              full[li][2][:P]) for li in range(L)]
-    pairs += [(f"decode step {j} layer {li}", split[L * (1 + j) + li][0],
-               full[li][0][P + j:P + j + 1], full[li][2][P + j:P + j + 1])
-              for j in range(n) for li in range(L)]
-    flips = routing_flips("moe decode vs prefill", pairs)
+          f"{tag} decode vs prefill: an assignment dropped at C = T")
+    pairs = [(f"prompt layer {moe_l[i]}", split[i][0], full[i][0][:P],
+              full[i][2][:P]) for i in range(M)]
+    pairs += [(f"decode step {j} layer {moe_l[i]}", split[M * (1 + j) + i][0],
+               full[i][0][P + j:P + j + 1], full[i][2][P + j:P + j + 1])
+              for j in range(n) for i in range(M)]
+    flips = routing_flips(f"{tag} decode vs prefill", pairs)
     if not flips:
-        check(gap <= ZOO_RTOL, f"moe decode vs prefill gap {gap:.3e}")
+        check(gap <= tol, f"{tag} decode vs prefill gap {gap:.3e}")
     flip_txt = ("none" if not flips else "; ".join(
         f"{pairs[i][0]} row {row} (gap {g:.3e})" for i, row, g in flips))
-    return (f"moe decode vs prefill (olmoe-1b-7b, {L} layers, full width, "
-            f"f32, capacity factor {cfg.moe_capacity_factor}): prefill {P} "
-            f"+ {n} decode steps vs one prefill of {P + n}: experts of "
-            f"every token equal but near-tie flips: {flip_txt}; max "
-            f"|dlogits| / max |logits| {gap:.3e} "
-            f"({'held' if not flips else 'not held'}, tol {ZOO_RTOL})")
+    return (f"{tag} decode vs prefill ({arch.replace('_', '-')}, {L} "
+            f"layers, full width, f32, capacity factor "
+            f"{cfg.moe_capacity_factor}): prefill {P} + {n} decode steps vs "
+            f"one prefill of {P + n}: experts of every token equal but "
+            f"near-tie flips: {flip_txt}; max |dlogits| / max |logits| "
+            f"{gap:.3e} ({'held' if not flips else 'not held'}, tol {tol})")
 
 
 def moe_phase(gen, smi: str) -> tuple[dict, list]:
@@ -4449,6 +4531,55 @@ def moe_phase(gen, smi: str) -> tuple[dict, list]:
     rows.append(f"moe phase {time.perf_counter() - t0:.1f} s")
     return {"timing": t, "launches": launches,
             "train_launches": counts["mifa_aggregate"]}, rows
+
+
+# --------------------------------------------------------------------------- #
+# MLA: deepseek-v2-lite-16b (models/attention.py), v's own head dim
+# --------------------------------------------------------------------------- #
+
+def mla_phase(gen, smi: str) -> tuple[dict, list]:
+    """MLA on the card: flash_attention timed at deepseek-v2-lite-16b's
+    prefill shape (MLA_SHAPE: hd 192, v's head dim 128) beside sdpa and
+    the bound; the model served at full width and depth (`moe_serve`: 27
+    launches a prefill, 26 routing calls); card against CPU (prefill
+    logits, the `c` and `pe` caches, two decode steps) and the absorbed
+    decode against the decompressed prefill at MOE_CHECK_LAYERS layers in
+    f32, within MLA_RTOL; MOE_TRAIN_ROUNDS rounds of train() at
+    MOE_TRAIN_LAYERS layers (one dense, one MoE), with one client's f32
+    gradients card against CPU at those layers. Returns the timing and
+    the launches; every row starts with "mla "."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    b, s, h, kv, hd, dv = MLA_SHAPE
+    t = time_flash(gen, b, s, h, kv, hd, dv=dv)
+    rows = [f"mla flash_attention per call (deepseek-v2-lite-16b: B={b} "
+            f"S=T={s} H=KV={h} hd={hd} dv={dv} bf16 causal): kernel "
+            f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+            f"sdpa {t['library_ms'] * 1e3:.2f} us ({t['library_backend']}), "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+            f"{t['bytes']} bytes, {t['ops']} flops) [{smi}]"]
+    torch.cuda.empty_cache()
+    cfg = get_config("deepseek_v2_lite_16b")
+    counts, more = moe_serve("deepseek-v2-lite-16b", cfg, smi, tag="mla")
+    rows += more
+    torch.cuda.empty_cache()
+    rows.append(moe_card_vs_cpu("deepseek_v2_lite_16b", "mla", MLA_RTOL, 9))
+    rows.append(moe_decode_vs_prefill("deepseek_v2_lite_16b", "mla",
+                                      MLA_RTOL, 10))
+    torch.cuda.empty_cache()
+    out, train_counts, more = train_run(
+        "deepseek-v2-lite-16b",
+        train_cfg("deepseek_v2_lite_16b", MOE_TRAIN_LAYERS),
+        MOE_TRAIN_ROUNDS, smi, clients=MOE_TRAIN_N)
+    del out
+    rows += [f"mla {r}" for r in more]
+    torch.cuda.empty_cache()
+    rows.append("mla " + train_card_vs_cpu(
+        "deepseek_v2_lite_16b", "(deepseek)", MOE_TRAIN_LAYERS,
+        ("w_uk", "w_uv", "w_kpe")))
+    rows.append(f"mla phase {time.perf_counter() - t0:.1f} s")
+    return {"timing": t, "launches": counts["flash_attention"],
+            "train_launches": train_counts["mifa_aggregate"]}, rows
 
 
 def main() -> int:
@@ -4606,6 +4737,12 @@ def main() -> int:
     moe, rows = moe_phase(gen, smi)
     for row in rows:
         print(row)
+    # MLA: deepseek-v2-lite-16b served and trained, flash_attention with
+    # v's head dim 128 beside q and k's 192
+    torch.cuda.empty_cache()
+    mla, rows = mla_phase(gen, smi)
+    for row in rows:
+        print(row)
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -4705,7 +4842,13 @@ def main() -> int:
                         moe_train_launches_from=(
                             f"train olmoe-1b-7b, {MOE_TRAIN_LAYERS} layers "
                             f"at full width, N={MOE_TRAIN_N}, "
-                            f"{MOE_TRAIN_ROUNDS} rounds of MIFA(array)"))
+                            f"{MOE_TRAIN_ROUNDS} rounds of MIFA(array)"),
+                        mla_train_launches=mla["train_launches"],
+                        mla_train_launches_from=(
+                            f"train deepseek-v2-lite-16b, {MOE_TRAIN_LAYERS} "
+                            f"layers (one dense, one MoE) at full width, "
+                            f"N={MOE_TRAIN_N}, {MOE_TRAIN_ROUNDS} rounds of "
+                            "MIFA(array)"))
         if name == "flash_attention":
             # gemma3-4b's serve prefill, counted from 0 just before it, and
             # the kernel at its two shapes (ms, plain, bound, sdpa per call)
@@ -4734,7 +4877,21 @@ def main() -> int:
                     "library_backend")},
                 moe_per_call_at=f"olmoe-1b-7b, moonshot-v1-16b-a3b: B="
                                 f"{SERVE_B} S=T={SERVE_PROMPT} H=KV=16 "
-                                "hd=128, bf16, causal")
+                                "hd=128, bf16, causal",
+                # deepseek-v2-lite-16b's serve prefill (MLA, v's head dim
+                # 128), counted from 0 just before it, and the kernel at
+                # its shape
+                mla_launches=mla["launches"],
+                mla_launches_from=f"deepseek-v2-lite-16b serve prefill, "
+                                  f"{SERVE_B} x {SERVE_PROMPT} tokens, one "
+                                  "launch a layer (27); decode launches "
+                                  "none",
+                mla_per_call={k: mla["timing"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_backend")},
+                mla_per_call_at="deepseek-v2-lite-16b: B={} S=T={} H=KV={} "
+                                "hd={} dv={}, bf16, causal".format(
+                                    *MLA_SHAPE[:3], *MLA_SHAPE[4:]))
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

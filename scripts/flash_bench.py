@@ -9,9 +9,11 @@ checks of `chip_smoke.py`, and its time beside its bound.
                   |bank_scatter_batched|paged_bank_scatter_batched]
         [--root DIR]
 
-`flash_attention` (the default) is timed at zamba2-7b's, granite-3-8b's and
-gemma3-4b's prefill (its global layers and its local ones, window 1024)
-beside one `scaled_dot_product_attention` call on the same values;
+`flash_attention` (the default) is timed at zamba2-7b's, granite-3-8b's,
+gemma3-4b's (its global layers and its local ones, window 1024) and
+deepseek-v2-lite-16b's prefill (MLA: q/k head dim 192, v's 128; skipped
+for a `--root` whose `time_flash` takes no v head dim) beside one
+`scaled_dot_product_attention` call on the same values;
 `ssd_scan` at zamba2-7b's and mamba2-1.3b's prefill beside its plain
 version. `mifa_aggregate`, `paged_bank_gather`, `bank_scatter` and
 `paged_bank_scatter` are checked by `chip_smoke.check_mifa` /
@@ -31,6 +33,7 @@ Needs a CUDA card and nvcc; exits 1 on a failed check.
 from __future__ import annotations
 
 import argparse
+import inspect
 import re
 import subprocess
 import sys
@@ -41,11 +44,13 @@ from pathlib import Path
 
 import torch
 
-# (label, B, S=T, H, KV, hd, window) at the served prefill, bf16, causal
-FLASH_SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112, 0),
-                ("granite-3-8b", 4, 2048, 32, 8, 128, 0),
-                ("gemma3-4b global", 4, 2048, 8, 4, 256, 0),
-                ("gemma3-4b local", 4, 2048, 8, 4, 256, 1024)]
+# (label, B, S=T, H, KV, hd, window, dv) at the served prefill, bf16,
+# causal; dv is v's head dim
+FLASH_SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112, 0, 112),
+                ("granite-3-8b", 4, 2048, 32, 8, 128, 0, 128),
+                ("gemma3-4b global", 4, 2048, 8, 4, 256, 0, 256),
+                ("gemma3-4b local", 4, 2048, 8, 4, 256, 1024, 256),
+                ("deepseek-v2-lite-16b MLA", 4, 2048, 16, 16, 192, 0, 128)]
 # (label, b, S, h, p, n, Q) at the served prefill, bf16
 SSD_SHAPES = [("zamba2-7b", 4, 2048, 112, 64, 64, 256),
               ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256)]
@@ -123,11 +128,16 @@ def sass_report(backend, kernel: str, lib: Path) -> list[str]:
 
 def bench_flash(chip_smoke, gen) -> list[str]:
     _, rows = chip_smoke.check_flash(gen)
-    for label, b, s, h, kv, hd, window in FLASH_SHAPES:
-        t = chip_smoke.time_flash(gen, b, s, h, kv, hd, window)
+    takes_dv = "dv" in inspect.signature(chip_smoke.time_flash).parameters
+    for label, b, s, h, kv, hd, window, dv in FLASH_SHAPES:
+        if dv != hd and not takes_dv:
+            continue
+        t = chip_smoke.time_flash(gen, b, s, h, kv, hd, window,
+                                  **({"dv": dv} if dv != hd else {}))
         rows.append(
             f"flash_attention {label} (B={b} S=T={s} H={h} KV={kv} hd={hd},"
-            f" bf16, causal, window {window}): kernel {t['ms'] * 1e3:.2f} "
+            f" dv={dv}, bf16, causal, window {window}): kernel "
+            f"{t['ms'] * 1e3:.2f} "
             f"us, sdpa {t['library_ms'] * 1e3:.2f} us "
             f"[{t['library_backend']}] (kernel/sdpa "
             f"{t['ms'] / t['library_ms']:.3f}), plain "

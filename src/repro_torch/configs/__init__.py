@@ -5,8 +5,8 @@ input shapes and the name resolution. Each ported architecture has one
 `<id>.py` here with `CONFIG` (the reference's numbers, `source` kept) and
 `smoke()` (its reduced variant). Ported: the two paper models and the zoo
 configs the port serves and trains, `zamba2_7b`, `mamba2_1_3b`,
-`granite_3_8b`, `qwen1_5_110b`, `gemma3_4b`, `olmoe_1b_7b` and
-`moonshot_v1_16b_a3b`. Every other zoo id raises
+`granite_3_8b`, `qwen1_5_110b`, `gemma3_4b`, `olmoe_1b_7b`,
+`moonshot_v1_16b_a3b` and `deepseek_v2_lite_16b`. Every other zoo id raises
 NotImplementedError naming the ROADMAP Queue 1 item its blocks wait for.
 """
 from __future__ import annotations
@@ -215,9 +215,9 @@ PAPER_IDS = ["paper_logistic", "paper_mlp"]
 # the zoo configs the port serves and trains; the rest wait for their
 # block kinds, each under its ROADMAP Queue 1 item
 PORTED_IDS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b", "qwen1_5_110b",
-              "gemma3_4b", "olmoe_1b_7b", "moonshot_v1_16b_a3b"]
+              "gemma3_4b", "olmoe_1b_7b", "moonshot_v1_16b_a3b",
+              "deepseek_v2_lite_16b"]
 UNPORTED_ITEMS = {
-    "deepseek_v2_lite_16b": "18.3 (MLA with MoE)",
     "llava_next_34b": "18.4 (vision_text frontend)",
     "hubert_xlarge": "18.4 (audio frontend)",
 }

@@ -1,17 +1,18 @@
 // Forward online-softmax (flash) attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py (_kernel and its
-// pallas_call in _flash_attention). For q (B,S,H,hd) and k, v (B,T,KV,hd),
-// g = H / KV:
+// pallas_call in _flash_attention). For q (B,S,H,hd), k (B,T,KV,hd) and
+// v (B,T,KV,dv), g = H / KV:
 //
 //     out[b,s,h] = softmax_t(q[b,s,h]·k[b,t,h/g] * scale, mask) · v[b,t,h/g]
 //
-// with scale = 1/sqrt(hd) and, when causal, the top-left mask t <= s (the
-// wrapper allows a causal call only for S == T). A causal call may take a
-// sliding window w > 0 (gemma3's local layers): then key t is valid for
-// query s iff s - w < t <= s, the mask of the reference's
-// blockwise_attention (repro/models/attention.py). Scores, the running max
-// m, the normaliser l and the accumulator are f32; the output is q's dtype.
+// into out (B,S,H,dv), with scale = 1/sqrt(hd) and, when causal, the
+// top-left mask t <= s (the wrapper allows a causal call only for S == T).
+// A causal call may take a sliding window w > 0 (gemma3's local layers):
+// then key t is valid for query s iff s - w < t <= s, the mask of the
+// reference's blockwise_attention (repro/models/attention.py). Scores, the
+// running max m, the normaliser l and the accumulator are f32; the output
+// is q's dtype.
 //
 // What bounds it: operations. A causal call at zamba2-7b's prefill (B=4,
 // S=T=2048, H=32, hd=112, bf16) needs 4·B·H·hd·S(S+1)/2 = 1.2e11 flops for
@@ -75,6 +76,13 @@
 //     needs 197,664 bytes of shared memory at hd 256, so these instances
 //     run one block an SM under __launch_bounds__(256, 1): 206 registers
 //     at KT = 16 and 167 at KT = 12, no spills.
+//   * v's head dim has a width of its own (VT 16-wide slices beside Q and
+//     K's KT): V's tensor map, ring tiles, transaction count, the P·V
+//     accumulator and the output row follow dv. Every instance but one
+//     has VT = KT (dv == hd); MLA's prefill (hd 192 = 128 + 64 roped, dv
+//     128) takes KT = 12, VT = 8: 48 KB of Q, 48 KB of K and 32 KB of V
+//     tiles, so still one block an SM, with 32 accumulator registers fewer
+//     than KT = VT = 12.
 //   * The window's logic is compiled only into the instances that take
 //     it (KT = 4, 8, 12, 16, the head dim padded to whole 64-column
 //     atoms): compiled into every instance, it made ptxas spill 32 and 64
@@ -294,46 +302,54 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4],
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
 }
 
-// oacc (64 x HDP) += P (the A fragment of 16 keys) · V's rows `vrow`: one
+// oacc (64 x VDP) += P (the A fragment of 16 keys) · V's rows `vrow`: one
 // instruction per 64-column atom of V, the last one as wide as what is left
-template <int HDP, int A = 0>
+template <int VDP, int A = 0>
 __device__ __forceinline__ void pv_atoms(float* oacc, const uint32_t a[4],
                                          uint32_t vrow) {
-  constexpr int N = HDP - 64 * A < 64 ? HDP - 64 * A : 64;
+  constexpr int N = VDP - 64 * A < 64 ? VDP - 64 * A : 64;
   wgmma_rs<N>(oacc + 32 * A, a,
               wgmma_desc(vrow + A * BK * ROWB, BK * ROWB, 1024));
-  if constexpr (HDP > 64 * (A + 1)) pv_atoms<HDP, A + 1>(oacc, a, vrow);
+  if constexpr (VDP > 64 * (A + 1)) pv_atoms<VDP, A + 1>(oacc, a, vrow);
 }
 
-// KT = number of 16-wide slices of the head dim (hd <= 16*KT); WIN: the
-// call has a sliding window (its logic compiled only into these instances,
-// so that the others keep their register budget).
-template <int KT, bool WIN>
+// KT, VT = number of 16-wide slices of q/k's and v's head dims (hd <=
+// 16*KT, dv <= 16*VT); WIN: the call has a sliding window (its logic
+// compiled only into these instances, so that the others keep their
+// register budget).
+template <int KT, int VT, bool WIN>
 __global__ void __launch_bounds__(THREADS, KT > WIDE_KT ? 1 : MIN_BLOCKS)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   __nv_bfloat16* __restrict__ o, int S, int T, int H,
-                  int KV, int hd, int causal, int window, float scale_log2) {
-  constexpr int HDP = KT * 16;     // padded head dim
-  constexpr int CHP = HDP / 8;     // 16-byte chunks of a padded row
-  constexpr int NA = (HDP + 63) / 64;   // 64-column atoms of a row
-  constexpr uint32_t QBYTES = NA * BQ * ROWB, TBYTES = NA * BK * ROWB;
-  constexpr int STR = HDP + 8;     // row stride of the output staging
+                  int KV, int hd, int dv_arg, int causal, int window,
+                  float scale_log2) {
+  constexpr int HDP = KT * 16;     // padded head dims
+  constexpr int VDP = VT * 16;
+  constexpr int CHV = VDP / 8;     // 16-byte chunks of a padded output row
+  constexpr int NA = (HDP + 63) / 64;   // 64-column atoms of a Q or K row
+  constexpr int NAV = (VDP + 63) / 64;  // and of a V row
+  constexpr uint32_t QBYTES = NA * BQ * ROWB, KBYTES = NA * BK * ROWB,
+                     VBYTES = NAV * BK * ROWB;
+  constexpr int STR = VDP + 8;     // row stride of the output staging
+  // an instance with VT == KT serves only dv == hd: taking dv from hd
+  // leaves its code as it was before v had a width of its own
+  const int dv = VT == KT ? hd : dv_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t Qs = (raw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (Qs - raw);
   const uint32_t Ks = Qs + QBYTES;                 // [NSTAGE] tiles
-  const uint32_t Vs = Ks + NSTAGE * TBYTES;        // [NSTAGE] tiles
+  const uint32_t Vs = Ks + NSTAGE * KBYTES;        // [NSTAGE] tiles
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / KV);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, tig = lane & 3;
-  const int64_t qrow = int64_t(H) * hd;
+  const int64_t orow = int64_t(H) * dv;
   const int kend = causal ? min(T, q0 + BQ) : T;
   // with a window, tiles start at the one holding the first row's lowest
   // key; local tile i is key tile j0 + i
@@ -342,7 +358,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
   // one barrier a stage, completed by the TMA bytes of its K and V tiles,
   // and one for Q; then a count a stage of the warpgroups done with it
-  const uint32_t bars = Vs + NSTAGE * TBYTES, qbar = bars + 8 * NSTAGE;
+  const uint32_t bars = Vs + NSTAGE * VBYTES, qbar = bars + 8 * NSTAGE;
   int* done = reinterpret_cast<int*>(smem + (bars - Qs) + 8 * (NSTAGE + 1));
   if (tid == 0) {
     for (int st = 0; st <= NSTAGE; ++st) mbar_init(bars + 8 * st, 1);
@@ -353,13 +369,15 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   // one thread of the block issues the copies of local tile j
   auto load_tile = [&](int j) {
     const int st = j % NSTAGE;
-    mbar_expect_tx(bars + 8 * st, 2 * TBYTES);
+    mbar_expect_tx(bars + 8 * st, KBYTES + VBYTES);
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      tma_load_4d(Ks + st * TBYTES + a * BK * ROWB, &tk, bars + 8 * st,
-                  64 * a, hk, (j0 + j) * BK, b);
-      tma_load_4d(Vs + st * TBYTES + a * BK * ROWB, &tv, bars + 8 * st,
-                  64 * a, hk, (j0 + j) * BK, b);
+    for (int a = 0; a < (NA > NAV ? NA : NAV); ++a) {
+      if (a < NA)
+        tma_load_4d(Ks + st * KBYTES + a * BK * ROWB, &tk, bars + 8 * st,
+                    64 * a, hk, (j0 + j) * BK, b);
+      if (a < NAV)
+        tma_load_4d(Vs + st * VBYTES + a * BK * ROWB, &tv, bars + 8 * st,
+                    64 * a, hk, (j0 + j) * BK, b);
     }
   };
   if (tid == 0) {
@@ -379,9 +397,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t qa = Qs + wg * 64 * ROWB;
   float m_r[2] = {NEG_INF, NEG_INF};  // raw-score max of rows gid, gid + 8
   float l_r[2] = {0.f, 0.f};          // this thread's share of l
-  float oacc[HDP / 2];
+  float oacc[VDP / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < VDP / 2; ++i) oacc[i] = 0.f;
 
   mbar_wait(qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
@@ -390,8 +408,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     if ((!causal || k0 <= wq0 + 63) &&
         (!WIN || k0 + BK > wq0 - window + 1)) {
       mbar_wait(bars + 8 * (j % NSTAGE), (j / NSTAGE) & 1);  // tile j is in
-      const uint32_t kst = Ks + (j % NSTAGE) * TBYTES;
-      const uint32_t vst = Vs + (j % NSTAGE) * TBYTES;
+      const uint32_t kst = Ks + (j % NSTAGE) * KBYTES;
+      const uint32_t vst = Vs + (j % NSTAGE) * VBYTES;
 
       // raw scores for 64 rows x 64 keys; s[4n + i]: key 8n + 2 tig + i % 2
       float s[BK / 2];
@@ -452,7 +470,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       // where no row of the warp has a new max, every correction is exactly 1
       if (__any_sync(FULL, grew)) {
 #pragma unroll
-        for (int i = 0; i < HDP / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < VDP / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
       }
       // P (bf16) · V: score tiles 2jj and 2jj+1 are the A fragment of keys
       // 16jj..16jj+15; V's rows are keys, so B is read MN-major
@@ -465,10 +483,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < BK / 16; ++jj)
-        pv_atoms<HDP>(oacc, pa[jj], vst + jj * 16 * ROWB);
+        pv_atoms<VDP>(oacc, pa[jj], vst + jj * 16 * ROWB);
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<HDP / 2>(oacc);
+      fence_regs<VDP / 2>(oacc);
     }
     // the second warpgroup done with tile j refills its stage
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + warp / 4) : "memory");
@@ -491,7 +509,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   __nv_bfloat16* Os =
       reinterpret_cast<__nv_bfloat16*>(smem + QBYTES) + warp * 16 * STR;
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
+  for (int n = 0; n < VDP / 8; ++n) {
     const int col = n * 8 + tig * 2;
     *reinterpret_cast<__nv_bfloat162*>(Os + gid * STR + col) =
         __floats2bfloat162_rn(oacc[4 * n] * inv[0], oacc[4 * n + 1] * inv[0]);
@@ -500,12 +518,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                               oacc[4 * n + 3] * inv[1]);
   }
   __syncwarp();
-  __nv_bfloat16* ob = o + int64_t(b) * S * qrow + int64_t(h) * hd;
+  __nv_bfloat16* ob = o + int64_t(b) * S * orow + int64_t(h) * dv;
 #pragma unroll
-  for (int i = 0; i < 16 * CHP / 32; ++i) {
-    const int c = lane + i * 32, r = c / CHP, d = (c % CHP) * 8;
-    if (d < hd && wrow + r < S)
-      *reinterpret_cast<uint4*>(ob + (wrow + r) * qrow + d) =
+  for (int i = 0; i < 16 * CHV / 32; ++i) {
+    const int c = lane + i * 32, r = c / CHV, d = (c % CHV) * 8;
+    if (d < dv && wrow + r < S)
+      *reinterpret_cast<uint4*>(ob + (wrow + r) * orow + d) =
           *reinterpret_cast<const uint4*>(Os + r * STR + d);
   }
 }
@@ -524,14 +542,14 @@ constexpr size_t f32_smem_floats(int nc) {
          FQ * (FK + 1);
 }
 
-// NC = output columns per thread (hd <= 4*NC): thread t owns query row
-// t / 4 and columns t % 4 + 4*i.
+// NC = output columns per thread (hd, dv <= 4*NC): thread t owns query
+// row t / 4 and columns t % 4 + 4*i.
 template <int NC>
 __global__ void __launch_bounds__(FTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int T, int H, int KV, int hd, int causal, int window,
-                 float scale) {
+                 int T, int H, int KV, int hd, int dv, int causal,
+                 int window, float scale) {
   constexpr int VSTR = 4 * NC;      // row stride of the V tile
   constexpr int FSTR = VSTR + 1;    // of the Q and K tiles: odd, no conflicts
   extern __shared__ __align__(16) unsigned char smem[];
@@ -545,9 +563,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (H / KV);
   const int tid = threadIdx.x, r = tid / 4, qc = tid % 4;
   const int64_t qrow = int64_t(H) * hd, krow = int64_t(KV) * hd;
+  const int64_t vrow = int64_t(KV) * dv, orow = int64_t(H) * dv;
   const float* qb = q + int64_t(b) * S * qrow + int64_t(h) * hd;
   const float* kb = k + int64_t(b) * T * krow + int64_t(hk) * hd;
-  const float* vb = v + int64_t(b) * T * krow + int64_t(hk) * hd;
+  const float* vb = v + int64_t(b) * T * vrow + int64_t(hk) * dv;
 
   for (int e = tid; e < FQ * hd; e += FTHREADS) {
     const int rr = e / hd, d = e % hd;
@@ -567,9 +586,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int e = tid; e < FK * hd; e += FTHREADS) {
       const int rr = e / hd, d = e % hd;
-      const bool in = k0 + rr < T;
-      Ks[rr * FSTR + d] = in ? kb[(k0 + rr) * krow + d] : 0.f;
-      Vs[rr * VSTR + d] = in ? vb[(k0 + rr) * krow + d] : 0.f;
+      Ks[rr * FSTR + d] = k0 + rr < T ? kb[(k0 + rr) * krow + d] : 0.f;
+    }
+    for (int e = tid; e < FK * dv; e += FTHREADS) {
+      const int rr = e / dv, d = e % dv;
+      Vs[rr * VSTR + d] = k0 + rr < T ? vb[(k0 + rr) * vrow + d] : 0.f;
     }
     __syncthreads();
     // this thread's 8 keys: qc*8 .. qc*8+7
@@ -613,7 +634,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int d = qc + 4 * i;
-        if (d < hd) acc[i] += p * Vs[j * VSTR + d];
+        if (d < dv) acc[i] += p * Vs[j * VSTR + d];
       }
     }
   }
@@ -624,8 +645,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int d = qc + 4 * i;
-      if (d < hd)
-        o[(int64_t(b) * S + row) * qrow + int64_t(h) * hd + d] = acc[i] / den;
+      if (d < dv)
+        o[(int64_t(b) * S + row) * orow + int64_t(h) * dv + d] = acc[i] / den;
     }
   }
 }
@@ -665,35 +686,36 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int KT, bool WIN>
+template <int KT, int VT, bool WIN>
 int launch_bf16(dim3 grid, cudaStream_t stream, const void* q,
                 const void* k, const void* v, void* o, int S, int T, int H,
-                int KV, int hd, int causal, int window, float scale_log2) {
-  constexpr int NA = (KT * 16 + 63) / 64;
+                int KV, int hd, int dv, int causal, int window,
+                float scale_log2) {
+  constexpr int NA = (KT * 16 + 63) / 64, NAV = (VT * 16 + 63) / 64;
   CUtensorMap tq, tk, tv;
   const int B = int(grid.z);
   if (!tensor_map(&tq, q, B, S, H, hd, BQ) ||
       !tensor_map(&tk, k, B, T, KV, hd, BK) ||
-      !tensor_map(&tv, v, B, T, KV, hd, BK))
+      !tensor_map(&tv, v, B, T, KV, dv, BK))
     return int(cudaErrorInvalidValue);
   // the tiles, room to align them to 1024 bytes, and the barriers
-  const size_t smem =
-      1024 + size_t(NA) * ROWB * (BQ + 2 * NSTAGE * BK) + 8 * (NSTAGE + 1) +
-      4 * NSTAGE;
+  const size_t smem = 1024 +
+                      size_t(ROWB) * (NA * BQ + NSTAGE * BK * (NA + NAV)) +
+                      8 * (NSTAGE + 1) + 4 * NSTAGE;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<KT, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_bf16_kernel<KT, VT, WIN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  flash_bf16_kernel<KT, WIN><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T, H, KV, hd, causal,
-      window, scale_log2);
+  flash_bf16_kernel<KT, VT, WIN><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T, H, KV, hd, dv,
+      causal, window, scale_log2);
   return int(cudaGetLastError());
 }
 
 template <int NC>
 int launch_f32(dim3 grid, cudaStream_t stream, const void* q, const void* k,
                const void* v, void* o, int S, int T, int H, int KV, int hd,
-               int causal, int window, float scale) {
+               int dv, int causal, int window, float scale) {
   const size_t smem = sizeof(float) * f32_smem_floats(NC);
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -702,7 +724,7 @@ int launch_f32(dim3 grid, cudaStream_t stream, const void* q, const void* k,
   flash_f32_kernel<NC><<<grid, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, T, H, KV, hd,
-      causal, window, scale);
+      dv, causal, window, scale);
   return int(cudaGetLastError());
 }
 
@@ -710,12 +732,14 @@ int launch_f32(dim3 grid, cudaStream_t stream, const void* q, const void* k,
 
 // Plain C entry point, loaded with ctypes. flags: bit 0 causal, bit 1 bf16
 // (else f32); window: 0 for none, else the sliding window of a causal call.
-// The wrapper guarantees hd % 8 == 0, hd <= 256, H % KV == 0, contiguous
-// 16-byte-aligned tensors, S == T when causal and a window only when
-// causal. Returns the CUDA error of the launch (0 on success).
+// The wrapper guarantees hd, dv % 8 == 0, hd, dv <= 256, H % KV == 0,
+// contiguous 16-byte-aligned tensors, S == T when causal and a window only
+// when causal; in bf16, dv == hd or the (hd, dv) of the one instance that
+// takes a narrower v. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int T, int H, int KV,
-                               int hd, int flags, int window, void* stream) {
+                               int hd, int dv, int flags, int window,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int causal = flags & 1;
   if (window < 0 || (window && !causal)) return int(cudaErrorInvalidValue);
@@ -723,40 +747,51 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (flags & 2) {
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     const float sl2 = scale * LOG2E;
-#define BF16(KT, WIN) launch_bf16<KT, WIN>(grid, s, q, k, v, o, S, T, H, \
-                                          KV, hd, causal, window, sl2)
+#define BF16(KT, VT, WIN)                                                \
+  launch_bf16<KT, VT, WIN>(grid, s, q, k, v, o, S, T, H, KV, hd, dv, causal, \
+                           window, sl2)
+    // a narrower v: MLA's prefill (hd 192, dv 128), in the instance of
+    // three Q/K atoms and two V atoms, zero columns padding both
+    if (dv != hd) {
+      const int kt = (hd + 15) / 16;
+      if (!window && kt > 8 && kt <= 12 && (dv + 15) / 16 == 8)
+        return BF16(12, 8, false);
+      return int(cudaErrorInvalidValue);
+    }
     // windowed calls take four instances, their head dim padded with zero
     // columns (the TMA fills them) to 64, 128, 192 or 256
     if (window) switch ((hd + 63) / 64) {
-      case 1: return BF16(4, true);
-      case 2: return BF16(8, true);
-      case 3: return BF16(12, true);
-      case 4: return BF16(16, true);
+      case 1: return BF16(4, 4, true);
+      case 2: return BF16(8, 8, true);
+      case 3: return BF16(12, 12, true);
+      case 4: return BF16(16, 16, true);
       default: return int(cudaErrorInvalidValue);
     }
     switch ((hd + 15) / 16) {
-      case 1: return BF16(1, false);
-      case 2: return BF16(2, false);
-      case 3: return BF16(3, false);
-      case 4: return BF16(4, false);
-      case 5: return BF16(5, false);
-      case 6: return BF16(6, false);
-      case 7: return BF16(7, false);
-      case 8: return BF16(8, false);
+      case 1: return BF16(1, 1, false);
+      case 2: return BF16(2, 2, false);
+      case 3: return BF16(3, 3, false);
+      case 4: return BF16(4, 4, false);
+      case 5: return BF16(5, 5, false);
+      case 6: return BF16(6, 6, false);
+      case 7: return BF16(7, 7, false);
+      case 8: return BF16(8, 8, false);
       // wider heads in whole 64-column atoms
-      case 9: case 10: case 11: case 12: return BF16(12, false);
-      case 13: case 14: case 15: case 16: return BF16(16, false);
+      case 9: case 10: case 11: case 12: return BF16(12, 12, false);
+      case 13: case 14: case 15: case 16: return BF16(16, 16, false);
       default: return int(cudaErrorInvalidValue);
     }
 #undef BF16
   }
   const dim3 grid((S + FQ - 1) / FQ, H, B);
-#define F32(NC) \
-  launch_f32<NC>(grid, s, q, k, v, o, S, T, H, KV, hd, causal, window, scale)
-  if (hd <= 32) return F32(8);
-  if (hd <= 64) return F32(16);
-  if (hd <= 128) return F32(32);
-  if (hd <= 256) return F32(64);
+#define F32(NC)                                                          \
+  launch_f32<NC>(grid, s, q, k, v, o, S, T, H, KV, hd, dv, causal, window, \
+                 scale)
+  const int wide = hd > dv ? hd : dv;  // a thread's columns cover both
+  if (wide <= 32) return F32(8);
+  if (wide <= 64) return F32(16);
+  if (wide <= 128) return F32(32);
+  if (wide <= 256) return F32(64);
 #undef F32
   return int(cudaErrorInvalidValue);
 }

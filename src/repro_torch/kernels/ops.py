@@ -177,8 +177,9 @@ def _scatter_rebuild(tree, leaves, stored, dsums, row_axis: int):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Prefill attention: q (B,S,H,hd), k, v (B,T,KV,hd) -> (B,S,H,hd);
-    `window` > 0 (causal only) keeps each query's last `window` keys."""
+    """Prefill attention: q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,dv) ->
+    (B,S,H,dv); `window` > 0 (causal only) keeps each query's last
+    `window` keys."""
     return flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -1,7 +1,7 @@
 """Attention for the ported models: GQA projections (+RoPE, QKV bias),
 blockwise attention for training, prefill through the flash-attention
-kernel, and decode over a KV cache (counterpart of
-`repro/models/attention.py`).
+kernel, decode over a KV cache, and DeepSeek-V2's MLA (compressed-KV
+attention) (counterpart of `repro/models/attention.py`).
 
 Serving's prefill attention (q, k, v of one length, full or with a
 sliding window) goes through `kernels.ops.attention`: the hand-written CUDA
@@ -9,10 +9,16 @@ kernel on the card, its plain version on the CPU. The training forward goes
 through `blockwise_attention`, the reference's differentiable model
 function, windowed as the reference windows it: the kernel is forward-only
 and cannot run under `torch.func` transforms, and the reference's training
-path calls no kernel either. MLA waits for ROADMAP Queue 1 item 18.3.
-Decode attends one query over the cache (a ring of the last `window`
+path calls no kernel either. Decode attends one query over the cache (a ring of the last `window`
 positions for a windowed layer) in plain PyTorch: the JAX package has no
 decode kernel and the port adds none.
+
+MLA caches a compressed row `c` (kv_lora wide) and one roped key `pe`
+(rope_hd wide) a position. Its prefill decompresses K and V per head and
+attends with q/k head dim nope_hd + rope_hd and v head dim v_hd through
+the attention function it is given (the kernel in serving, the
+differentiable `blockwise_attention` in training); its decode is the
+reference's absorbed form over the compressed cache, in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -74,7 +80,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_block: int = 0) -> torch.Tensor:
     """Exact attention over query blocks, the training path's attention.
 
-    q (B,S,H,hd); k, v (B,T,KV,hd) with H % KV == 0, queries and keys at
+    q (B,S,H,hd); k (B,T,KV,hd), v (B,T,KV,dv) with H % KV == 0 (dv may
+    differ from hd, as MLA's does; the scale is q's), queries and keys at
     positions 0..S-1 and 0..T-1. Each query block (`_pick_block`) takes one
     f32 softmax over its keys, masked with NEG_INF; q·scale is rounded to
     q's dtype before the scores and the probabilities to q's dtype before
@@ -130,10 +137,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Exact prefill attention, q (B,S,H,hd), k, v (B,S,KV,hd) with
-    queries and keys at the same positions 0..S-1 -> (B,S,H,hd); a window
-    (causal only, as the kernel takes it) keeps each query's last `window`
-    keys."""
+    """Exact prefill attention, q (B,S,H,hd), k (B,S,KV,hd) and v
+    (B,S,KV,dv) with queries and keys at the same positions 0..S-1 ->
+    (B,S,H,dv); a window (causal only, as the kernel takes it) keeps each
+    query's last `window` keys."""
     return ops.attention(q, k, v, causal=causal, window=window)
 
 
@@ -171,3 +178,105 @@ def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
     slot = pos % k_cache.shape[1] if window > 0 else pos
     k_cache[:, slot] = k_new[:, 0]
     v_cache[:, slot] = v_new[:, 0]
+
+
+# --------------------------------------------------------------------------- #
+# MLA (DeepSeek-V2): compressed-KV attention
+# --------------------------------------------------------------------------- #
+
+def mla_init(gen: torch.Generator, d: int, n_heads: int, kv_lora: int,
+             rope_hd: int, nope_hd: int, v_hd: int, dtype: torch.dtype
+             ) -> dict:
+    """Flat weight layout (d, H*...), as `gqa_init`; every leaf drawn on
+    `gen`'s device."""
+    return {"wq": _device_init(gen, (d, n_heads * (nope_hd + rope_hd)),
+                               dtype),
+            "w_dkv": _device_init(gen, (d, kv_lora), dtype),
+            "w_kpe": _device_init(gen, (d, rope_hd), dtype),
+            "w_uk": _device_init(gen, (kv_lora, n_heads * nope_hd), dtype),
+            "w_uv": _device_init(gen, (kv_lora, n_heads * v_hd), dtype),
+            "wo": _device_init(gen, (n_heads * v_hd, d), dtype)}
+
+
+def mla_compress(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                 rope_theta: float):
+    """x (B,S,d) -> c_kv (B,S,r), k_pe (B,S,rope_hd) with rope applied."""
+    c_kv = x @ params["w_dkv"]
+    k_pe = (x @ params["w_kpe"])[:, :, None, :]       # (B,S,1,rope_hd)
+    k_pe = apply_rope(k_pe, positions, rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def _mla_dims(params: dict, nope_hd: int):
+    rope_hd = params["w_kpe"].shape[1]
+    H = params["wq"].shape[1] // (nope_hd + rope_hd)
+    v_hd = params["w_uv"].shape[1] // H
+    return H, rope_hd, v_hd
+
+
+def mla_queries(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                rope_theta: float, nope_hd: int):
+    """x (B,S,d) -> q_nope (B,S,H,nope_hd), q_pe (B,S,H,rope_hd) roped."""
+    B, S, _ = x.shape
+    H, rope_hd, _ = _mla_dims(params, nope_hd)
+    q = (x @ params["wq"]).reshape(B, S, H, nope_hd + rope_hd)
+    q_nope, q_pe = q[..., :nope_hd], q[..., nope_hd:]
+    return q_nope, apply_rope(q_pe, positions, rope_theta)
+
+
+def mla_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                rope_theta: float, nope_hd: int, causal: bool = True,
+                attend=prefill_attention) -> tuple:
+    """x (B,S,d) -> (out (B,S,d), (c_kv, k_pe) for the cache).
+
+    K and V are decompressed per head: k_full is k_nope with k_pe
+    repeated to every head, (B,S,H,nope_hd + rope_hd), and v is
+    (B,S,H,v_hd); `attend(q, k, v, causal=)` scales by q's head dim.
+    No in-place op, so `torch.func` runs through it with a differentiable
+    `attend`."""
+    B, S, _ = x.shape
+    H, rope_hd, v_hd = _mla_dims(params, nope_hd)
+    c_kv, k_pe = mla_compress(params, x, positions, rope_theta)
+    q_nope, q_pe = mla_queries(params, x, positions, rope_theta, nope_hd)
+    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, nope_hd)
+    v = (c_kv @ params["w_uv"]).reshape(B, S, H, v_hd)
+    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        B, S, H, rope_hd)], dim=-1)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    ctx = attend(q_full, k_full, v, causal=causal)
+    out = ctx.reshape(B, S, H * v_hd) @ params["wo"]
+    return out, (c_kv, k_pe)
+
+
+def mla_decode(params: dict, x: torch.Tensor, pos: int,
+               c_cache: torch.Tensor, pe_cache: torch.Tensor, *,
+               rope_theta: float, nope_hd: int):
+    """Absorbed single-token MLA decode: x (B,1,d); c_cache (B,C,r) and
+    pe_cache (B,C,rope_hd), this token's row written at `pos` in place.
+    Returns (out (B,1,d), (c_cache, pe_cache)).
+
+    Scores are taken in the compressed space, (W_uk^T q_nope)·c +
+    q_pe·k_pe, and the context re-expanded once: W_uv (Σ_t p_t c_t). As
+    in the reference, q_c, the summed and scaled scores, ctx_c and ctx
+    are in x's dtype; the mask and the softmax in f32, p cast back."""
+    positions = torch.tensor([pos], device=x.device)
+    c_new, pe_new = mla_compress(params, x, positions, rope_theta)
+    c_cache[:, pos] = c_new[:, 0]
+    pe_cache[:, pos] = pe_new[:, 0]
+    q_nope, q_pe = mla_queries(params, x, positions, rope_theta, nope_hd)
+    B = x.shape[0]
+    H, rope_hd, v_hd = _mla_dims(params, nope_hd)
+    r = c_cache.shape[-1]
+    w_uk = params["w_uk"].reshape(r, H, nope_hd)
+    w_uv = params["w_uv"].reshape(r, H, v_hd)
+    scale = 1.0 / math.sqrt(nope_hd + rope_hd)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)       # (B,1,H,r)
+    scores = (torch.einsum("bshr,btr->bhst", q_c, c_cache)
+              + torch.einsum("bshk,btk->bhst", q_pe, pe_cache)) * scale
+    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    scores = scores.float().masked_fill(~valid, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_c = torch.einsum("bhst,btr->bshr", p, c_cache)       # (B,1,H,r)
+    ctx = torch.einsum("bshr,rhk->bshk", ctx_c, w_uv)        # (B,1,H,v_hd)
+    out = ctx.reshape(B, 1, H * v_hd) @ params["wo"]
+    return out, (c_cache, pe_cache)

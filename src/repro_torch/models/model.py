@@ -8,7 +8,7 @@ Tabular models train (`init`, `loss_fn`, `accuracy`). Text models train
 (`loss_fn`, through the differentiable `transformer.forward`) and serve
 (`init_cache`, `prefill` and `decode_step`, through the kernels) for the
 block kinds that `models.transformer` ports; for MoE models (olmoe-1b-7b,
-moonshot-v1-16b-a3b) `loss_fn` adds the experts' load-balance loss to the
+moonshot-v1-16b-a3b, deepseek-v2-lite-16b) `loss_fn` adds the experts' load-balance loss to the
 cross-entropy, as the reference does. Params are nested dicts of
 tensors under the JAX package's keys, so parity tests compare leaf by leaf.
 The vision_text and audio modalities are not ported yet (ROADMAP Queue 1

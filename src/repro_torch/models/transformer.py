@@ -11,22 +11,25 @@ block is stored once at the top level and used by every `shared_attn`
 segment.
 
 Ported block kinds: 'attn' (GQA, full), 'local_attn' (GQA with gemma3's
-sliding window), 'shared_attn' (windowed when `shared_attn_window` > 0)
-and 'ssm' (Mamba2); FFN kinds 'mlp', 'moe' (`models.moe`, with shared
-experts and `first_dense_layers`) and None. 'mla' (ROADMAP Queue 1 item
-18.3) raises. A windowed segment's cache is a ring of min(window,
-cache_len) slots: position p sits in slot p mod C. `prefill`, `decode` and
-`forward` sum the MoE layers' load-balance losses in layer order, as the
-reference does; decode routes the whole batch's B tokens in one call, so
-its expert capacity is that of B tokens.
+sliding window), 'shared_attn' (windowed when `shared_attn_window` > 0),
+'mla' (DeepSeek-V2's compressed-KV attention: its cache holds `c` and
+`pe` a position, its prefill attends through the kernel with a value
+head dim of its own, its decode is the absorbed form) and 'ssm' (Mamba2);
+FFN kinds 'mlp', 'moe' (`models.moe`, with shared experts and
+`first_dense_layers`) and None. A windowed segment's cache is a ring of
+min(window, cache_len) slots: position p sits in slot p mod C.
+`prefill`, `decode` and `forward` sum the MoE layers' load-balance losses
+in layer order, as the reference does; decode routes the whole batch's B
+tokens in one call, so its expert capacity is that of B tokens.
 
 `forward` is the training forward: differentiable torch ops with no
-in-place write and no kernel call (`attention.blockwise_attention`,
-`ssm.ssd_chunked`), so `torch.func.vmap` and `grad` run through it on both
-devices, as the reference differentiates its own jnp model path. The
-reference wraps each layer in `jax.checkpoint` under `cfg.remat`; remat
-changes memory, never numbers, and `torch.utils.checkpoint` does not
-compose with `torch.func.grad`, so the port keeps every activation.
+in-place write and no kernel call (`attention.blockwise_attention`, also
+under MLA, and `ssm.ssd_chunked`), so `torch.func.vmap` and `grad` run
+through it on both devices, as the reference differentiates its own jnp
+model path. The reference wraps each layer in `jax.checkpoint` under
+`cfg.remat`; remat changes memory, never numbers, and
+`torch.utils.checkpoint` does not compose with `torch.func.grad`, so the
+port keeps every activation.
 Serving's `prefill` and `decode` write caches in place: they fill the cache
 tree they are given and return it; `prefill` goes through the kernels.
 """
@@ -99,15 +102,8 @@ _GQA_KINDS = ("attn", "local_attn", "shared_attn")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port cannot serve and train yet: MLA blocks; the
+    """Raise for what the port cannot serve and train yet: the
     compute-layout head padding of the sharded reference."""
-    for seg in build_segments(cfg):
-        if seg.kind == "mla":
-            raise NotImplementedError(
-                f"{cfg.name}: block kind 'mla' is not ported; the port "
-                "serves and trains attn, local_attn, shared_attn and ssm "
-                "blocks with an mlp, a moe or no FFN (ROADMAP Queue 1 "
-                "entry 5, item 18.3)")
     if cfg.pad_q_heads or cfg.pad_kv_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding for tensor-parallel meshes is not "
@@ -127,6 +123,12 @@ def _layer_init(gen: torch.Generator, spec: SegmentSpec, cfg: ArchConfig,
         p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
                                       cfg.n_kv_heads, cfg.resolved_head_dim,
                                       cfg.qkv_bias, dtype)
+    elif spec.kind == "mla":
+        p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["attn"] = attn_lib.mla_init(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.kv_lora_rank, cfg.rope_head_dim,
+                                      cfg.nope_head_dim, cfg.v_head_dim,
+                                      dtype)
     elif spec.kind == "ssm":
         p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["mixer"] = ssm_lib.mamba2_init(gen, cfg.d_model, cfg.ssm_expand,
@@ -198,6 +200,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
             cache[str(seg.index)] = {
                 "k": torch.zeros(shp, dtype=dtype, device=device),
                 "v": torch.zeros(shp, dtype=dtype, device=device)}
+        elif seg.kind == "mla":
+            cache[str(seg.index)] = {
+                "c": torch.zeros((n, batch, cache_len, cfg.kv_lora_rank),
+                                 dtype=dtype, device=device),
+                "pe": torch.zeros((n, batch, cache_len, cfg.rope_head_dim),
+                                  dtype=dtype, device=device)}
         elif seg.kind == "ssm":
             _, n_heads, conv_ch, _ = ssm_lib.mamba2_dims(
                 cfg.d_model, cfg.ssm_expand, cfg.ssm_headdim, cfg.ssm_state,
@@ -258,6 +266,15 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
             S = k.shape[1]
             entry["k"][:, :S] = k
             entry["v"][:, :S] = v
+    elif spec.kind == "mla":
+        out, (c_kv, k_pe) = attn_lib.mla_prefill(
+            lp["attn"], h, positions, rope_theta=cfg.rope_theta,
+            nope_hd=cfg.nope_head_dim, causal=cfg.causal,
+            attend=attn_lib.prefill_attention)
+        x = _radd(x, out)
+        S = c_kv.shape[1]
+        entry["c"][:, :S] = c_kv
+        entry["pe"][:, :S] = k_pe
     else:
         out, (state, conv) = ssm_lib.mamba2_prefill(
             lp["mixer"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
@@ -284,6 +301,11 @@ def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
         ctx = attn_lib.decode_attend(q, entry["k"], entry["v"], pos,
                                      window=spec.window)
         x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+    elif spec.kind == "mla":
+        out, _ = attn_lib.mla_decode(lp["attn"], h, pos, entry["c"],
+                                     entry["pe"], rope_theta=cfg.rope_theta,
+                                     nope_hd=cfg.nope_head_dim)
+        x = _radd(x, out)
     else:
         out, (state, conv) = ssm_lib.mamba2_decode(
             lp["mixer"], h, entry["state"], entry["conv"],
@@ -345,6 +367,12 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
         ctx = attn_lib.blockwise_attention(q, k, v, causal=cfg.causal,
                                            window=spec.window)
         x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+    elif spec.kind == "mla":
+        out, _ = attn_lib.mla_prefill(
+            lp["attn"], h, positions, rope_theta=cfg.rope_theta,
+            nope_hd=cfg.nope_head_dim, causal=cfg.causal,
+            attend=attn_lib.blockwise_attention)
+        x = _radd(x, out)
     else:
         out, _ = ssm_lib.mamba2_prefill(
             lp["mixer"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,

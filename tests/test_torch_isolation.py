@@ -181,8 +181,9 @@ def test_unported_modules_raise():
     from repro_torch.bank import HostBank, make_bank
     # the host bank (item 9) is ported
     assert isinstance(make_bank("host", device="cpu"), HostBank)
+    # MLA (item 18.3) is ported; the stub frontends (18.4) are not
     with pytest.raises(NotImplementedError, match="item 18"):
-        get_config("deepseek_v2_lite_16b")
+        get_config("llava_next_34b")
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
@@ -221,10 +222,11 @@ def test_serve_on_cpu_takes_the_plain_kernels():
     ("zamba2_7b", {"shared_attn_window": 8})])
 def test_unported_block_kinds_and_modalities_raise(arch, change):
     """Unported kinds raise naming their item; windows (local_attn and a
-    windowed shared attention, item 18.1) and MoE (item 18.2) are ported:
-    they build and run a training loss and a served prefill."""
+    windowed shared attention, item 18.1), MoE (item 18.2) and MLA (item
+    18.3) are ported: they build and run a training loss and a served
+    prefill."""
     cfg = get_smoke_config(arch).replace(**change)
-    ported = ("swa_window", "shared_attn_window", "n_experts")
+    ported = ("swa_window", "shared_attn_window", "n_experts", "kv_lora_rank")
     if not any(key in change for key in ported):
         with pytest.raises(NotImplementedError, match="item 18"):
             build_model(cfg)
@@ -242,16 +244,16 @@ def test_unported_zoo_surfaces_raise():
     from repro_torch.launch.serve import main
     from repro_torch.models import transformer
     # each unported config names the item its blocks wait for; qwen1.5-110b
-    # (item 18.0), the text training path (18.5), gemma3-4b (18.1) and the
-    # MoE configs (18.2) are ported
-    for arch, item in (("deepseek-v2-lite-16b", "18.3"),
-                       ("hubert_xlarge", "18.4"), ("llava-next-34b", "18.4")):
+    # (item 18.0), the text training path (18.5), gemma3-4b (18.1), the
+    # MoE configs (18.2) and deepseek-v2-lite-16b (18.3) are ported
+    for arch, item in (("hubert_xlarge", "18.4"), ("llava-next-34b", "18.4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_config(arch)
     assert get_config("qwen1.5-110b").qkv_bias
     assert get_config("gemma3-4b").swa_window == 1024
     assert get_config("olmoe-1b-7b").n_experts == 64
     assert get_config("moonshot-v1-16b-a3b").top_k == 6
+    assert get_config("deepseek-v2-lite-16b").kv_lora_rank == 512
     with pytest.raises(KeyError, match="unknown architecture"):
         get_config("gpt5")
     cfg = get_smoke_config("granite-3-8b")
@@ -263,9 +265,10 @@ def test_unported_zoo_surfaces_raise():
     x, _ = transformer.forward(params, torch.zeros(
         (1, 4, cfg.d_model), dtype=torch.bfloat16), torch.arange(4), cfg)
     assert x.shape == (1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 18.3"):
-        transformer.forward(params, x, torch.arange(4),
-                            cfg.replace(kv_lora_rank=16))
+    mla = cfg.replace(kv_lora_rank=16)
+    x, _ = transformer.forward(build_model(mla).init(0, device="cpu"), x,
+                               torch.arange(4), mla)
+    assert x.shape == (1, 4, cfg.d_model)
     # --params (item 17) is ported: it loads a snapshot, which must exist
     with pytest.raises(FileNotFoundError):
         main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",

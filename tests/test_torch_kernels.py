@@ -74,12 +74,13 @@ def _bank_inputs(r, m, c, n_valid, seed):
     return bank, u, ids, valid
 
 
-def _attention_inputs(b, s, h, kv, hd, dtype, seed):
-    """q (b,s,h,hd), k, v (b,s,kv,hd) as f32 numpy, already rounded to
-    `dtype` (so both packages start from the same values)."""
+def _attention_inputs(b, s, h, kv, hd, dtype, seed, dv=None):
+    """q (b,s,h,hd), k (b,s,kv,hd), v (b,s,kv,dv) (dv defaults to hd) as
+    f32 numpy, already rounded to `dtype` (so both packages start from the
+    same values)."""
     rng = np.random.default_rng(seed)
-    out = [rng.normal(size=(b, s, n, hd)).astype(np.float32)
-           for n in (h, kv, kv)]
+    out = [rng.normal(size=(b, s, n, w)).astype(np.float32)
+           for n, w in ((h, hd), (kv, hd), (kv, dv or hd))]
     return [torch.from_numpy(x).to(TORCH_DT[dtype]).float().numpy()
             for x in out]
 
@@ -651,21 +652,24 @@ def _ssd_scale(x, dA, B, C, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kv,hd", [
-    (2, 256, 4, 4, 32), (2, 200, 8, 2, 112), (1, 333, 4, 1, 128),
-    (4, 2048, 32, 32, 112), (1, 512, 32, 8, 128), (2, 64, 4, 4, 16)])
+@pytest.mark.parametrize("b,s,h,kv,hd,dv", [
+    (2, 256, 4, 4, 32, 32), (2, 200, 8, 2, 112, 112), (1, 333, 4, 1, 128, 128),
+    (4, 2048, 32, 32, 112, 112), (1, 512, 32, 8, 128, 128),
+    (2, 64, 4, 4, 16, 16),
+    # v narrower than q and k: MLA's prefill (hd 192 = 128 + 64, dv 128)
+    (4, 2048, 16, 16, 192, 128), (2, 200, 8, 2, 176, 120)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_cuda_matches_plain(cuda_device, b, s, h, kv, hd,
-                                            causal, dtype):
-    q, k, v = _torch(_attention_inputs(b, s, h, kv, hd, dtype, s + hd),
+                                            dv, causal, dtype):
+    q, k, v = _torch(_attention_inputs(b, s, h, kv, hd, dtype, s + hd, dv),
                      dtype, cuda_device)
     ref = flash_attention_ref(q, k, v, causal=causal)
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.dtype == q.dtype and out.shape == (b, s, h, dv)
     atol, rtol = CUDA_ATTN_TOL[dtype]
     err = (out.float() - ref.float()).abs()
     assert bool((err <= atol + rtol * ref.float().abs()).all()), \
@@ -674,8 +678,8 @@ def test_flash_attention_cuda_matches_plain(cuda_device, b, s, h, kv, hd,
 
 # the edges of the bf16 kernel's tiling: blocks of 128 queries (two
 # warpgroups of 64), 64-key tiles through a ring of 2 stages, the head dim
-# in 64-column atoms and 16-wide slices
-FLASH_EDGES = [  # b, s, t, h, kv, hd, causal
+# in 64-column atoms and 16-wide slices; v's head dim dv (None: hd)
+FLASH_EDGES = [  # b, s, t, h, kv, hd, causal[, dv]
     (2, 130, 130, 4, 4, 64, True),    # S not a multiple of the query tile
     (1, 127, 127, 4, 2, 112, True),   # one row short of it
     (2, 320, 320, 4, 4, 112, True),   # 5 key tiles, an odd count
@@ -696,28 +700,54 @@ FLASH_EDGES = [  # b, s, t, h, kv, hd, causal
     (2, 300, 300, 8, 4, 256, True),   # hd 256 (gemma3): four atoms
     (1, 150, 260, 4, 2, 256, False),  # hd 256, non-causal, ragged T
     (1, 200, 200, 4, 4, 192, True),   # hd 192: three atoms
-    (2, 130, 130, 4, 4, 136, True)]   # hd 136: a third atom, 8 columns
+    (2, 130, 130, 4, 4, 136, True),   # hd 136: a third atom, 8 columns
+    (2, 1000, 1000, 4, 4, 192, True, 128),  # MLA's heads, ragged S
+    (2, 300, 200, 4, 4, 192, False, 128),   # MLA's, non-causal, T < S
+    (1, 40, 40, 4, 4, 192, True, 128),      # MLA's, S below a key tile
+    (2, 130, 130, 4, 2, 136, True, 120)]    # dv 120: V's second atom part
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,t,h,kv,hd,causal", FLASH_EDGES)
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,dv",
+                         [e + (None,) * (8 - len(e)) for e in FLASH_EDGES])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_cuda_tiling_edges(cuda_device, b, s, t, h, kv, hd,
-                                           causal, dtype):
+                                           causal, dv, dtype):
     rng = np.random.default_rng(s * t + hd)
+    dv = dv or hd
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                .to(device=cuda_device, dtype=TORCH_DT[dtype])
-               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, dv)))
     ref = flash_attention_ref(q, k, v, causal=causal)
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.dtype == q.dtype and out.shape == (b, s, h, dv)
     atol, rtol = CUDA_ATTN_TOL[dtype]
     err = (out.float() - ref.float()).abs()
     assert bool((err <= atol + rtol * ref.float().abs()).all()), \
         err.max().item()
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_value_head_dims_without_an_instance(
+        cuda_device):
+    """In bf16 a (hd, dv) pair that no instance serves raises before any
+    launch, naming what it serves; the f32 kernel takes any pair."""
+    for hd, dv, window in ((128, 64, 0), (192, 128, 64), (256, 128, 0)):
+        arrays = _attention_inputs(1, 128, 4, 4, hd, "float32", hd, dv)
+        q, k, v = _torch(arrays, "bfloat16", cuda_device)
+        before = flash_attention.launches
+        with pytest.raises(ValueError, match="no bf16 flash_attention "
+                                             "instance .* serves dv == hd"):
+            flash_attention(q, k, v, window=window)
+        assert flash_attention.launches == before
+        q, k, v = _torch(arrays, "float32", cuda_device)
+        ref = flash_attention_ref(q, k, v, window=window)
+        out = flash_attention(q, k, v, window=window)
+        assert out.shape == (1, 128, 4, dv)
+        assert bool(((out - ref).abs() <= 2e-5).all())
 
 
 # the sliding window on the card: gemma3's local layers (window 1024 at hd

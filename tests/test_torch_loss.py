@@ -1,9 +1,11 @@
 """Parity of the port's training loss with the JAX package's, on the CPU:
 `Model.loss_fn` and its gradients on the smoke configs of granite-3-8b,
 zamba2-7b, mamba2-1.3b, qwen1.5-110b, gemma3-4b (window 16 over 32
-tokens) and olmoe-1b-7b (MoE: the load-balance loss and the router's
-gradient), in f32 and in bf16, with the chunked cross-entropy (`ce_chunk`)
-on two of them, and two rounds of gemma3-4b's `train()` against the
+tokens), olmoe-1b-7b (MoE: the load-balance loss and the router's
+gradient) and deepseek-v2-lite-16b (MLA's decompressed attention through
+`blockwise_attention`, a dense layer then MoE; f32 only, see
+`BF16_ROUTING_TIE`), in f32 and in bf16, with the chunked cross-entropy
+(`ce_chunk`) on two of them, and two rounds of gemma3-4b's `train()` against the
 reference's loop. The same params (the port's init, as numpy) and tokens
 go to both sides; tolerances as `test_torch_train.py` states them.
 """
@@ -25,11 +27,18 @@ from test_torch_train import (MB, K, N, S, _reference_rounds, close, configs,
 torch.set_num_threads(1)
 
 ARCHS = ["granite_3_8b", "zamba2_7b", "mamba2_1_3b", "qwen1_5_110b",
-         "gemma3_4b", "olmoe_1b_7b"]
+         "gemma3_4b", "olmoe_1b_7b", "deepseek_v2_lite_16b"]
+# deepseek's bf16 case routes token 0 of these tokens to other experts on
+# the two sides: its router input lies one bf16 step apart in 89 of 128
+# entries (the packages round elementwise chains at other places), and the
+# reference's second and third router logits are 1.1e-4 apart, so the
+# flip moves that token's whole gradient. Its f32 case holds every leaf.
+BF16_ROUTING_TIE = {"deepseek_v2_lite_16b"}
 
 
 @pytest.mark.parametrize("arch,dtype,ce_chunk", [
-    (a, d, 0) for a in ARCHS for d in ("float32", "bfloat16")]
+    (a, d, 0) for a in ARCHS for d in ("float32", "bfloat16")
+    if not (d == "bfloat16" and a in BF16_ROUTING_TIE)]
     + [("granite_3_8b", "float32", 8), ("zamba2_7b", "float32", 16)])
 def test_loss_fn_and_grads_match_reference(arch, dtype, ce_chunk):
     jc, tc = configs(arch, dtype, ce_chunk=ce_chunk)

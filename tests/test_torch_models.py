@@ -7,7 +7,10 @@ global), olmoe-1b-7b and moonshot-v1-16b-a3b (GQA with MoE: 4 experts,
 top 2, capacity factor 2, so C = T and nothing drops), olmoe at capacity
 factor 1 (prefill drops, and a decode step of 2 tokens has one slot an
 expert), and olmoe with a shared expert after a leading dense layer (an
-mlp segment, then a moe segment). The reference's `model.init` params
+mlp segment, then a moe segment), and deepseek-v2-lite-16b (MLA: a
+compressed cache of `c` and `pe` leaves, the decompressed prefill with v
+narrower than q and k, the absorbed decode; a dense first layer, then
+MoE with a shared expert). The reference's `model.init` params
 are carried across with `convert.params_from_jax`; the same numpy tokens
 go to both. Prefill logits,
 every cache leaf and four teacher-forced decode steps are compared; at
@@ -44,7 +47,7 @@ from repro_torch.tree import tree_leaves
 torch.set_num_threads(1)
 
 ARCHS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b", "gemma3_4b",
-         "olmoe_1b_7b", "moonshot_v1_16b_a3b"]
+         "olmoe_1b_7b", "moonshot_v1_16b_a3b", "deepseek_v2_lite_16b"]
 # a served case that is a smoke config with a change: its arch and change
 VARIANTS = {"zamba2_7b_window16": ("zamba2_7b", {"shared_attn_window": 16}),
             "olmoe_1b_7b_cf1": ("olmoe_1b_7b", {"moe_capacity_factor": 1.0}),

@@ -190,11 +190,12 @@ def test_cuda_train_step_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_7b",
-                                  "olmoe_1b_7b"])
+                                  "olmoe_1b_7b", "deepseek_v2_lite_16b"])
 def test_cuda_train_matches_cpu(cuda_device, arch):
     """Three rounds of `train()` on the card (the server step through the
     kernel, one launch a round) against the CPU from the same params,
-    f32; olmoe's MoE layers route every client's tokens on the card."""
+    f32; olmoe's and deepseek's MoE layers route every client's tokens on
+    the card, and deepseek's MLA trains through `blockwise_attention`."""
     from repro_torch.launch.train import train
     cfg = get_smoke_config(arch).replace(compute_dtype="float32",
                                          param_dtype="float32")

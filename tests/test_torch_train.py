@@ -5,8 +5,8 @@ The same numpy inputs go to both packages: token streams and batches
 (array-equal), the training model functions (`chunked_lm_loss`,
 `blockwise_attention`, `ssd_chunked`) with their gradients, and five rounds
 of `launch.train.train` against the reference's round loop
-(`repro/launch/train.py:67-87`) for granite-3-8b, qwen1.5-110b and
-olmoe-1b-7b.
+(`repro/launch/train.py:67-87`) for granite-3-8b, qwen1.5-110b,
+olmoe-1b-7b and deepseek-v2-lite-16b.
 `test_torch_loss.py` holds `loss_fn` and its gradients, and
 `test_torch_steps.py` the step builders, with the helpers here. Params are
 drawn by the port's init (the reference's `jax.random` draws are not
@@ -343,10 +343,11 @@ def _reference_rounds(jc, pnp, rounds=ROUNDS):
 
 
 @pytest.mark.parametrize("arch", ["granite_3_8b", "qwen1_5_110b",
-                                  "olmoe_1b_7b"])
+                                  "olmoe_1b_7b", "deepseek_v2_lite_16b"])
 def test_train_matches_reference_loop(arch, capsys):
-    """granite's and olmoe's rounds vmap every client (olmoe's MoE routes
-    each client's tokens under `torch.func.vmap`) and step the server
+    """granite's, olmoe's and deepseek's rounds vmap every client (the MoE
+    routes each client's tokens and MLA decompresses its keys and values
+    under `torch.func.vmap`) and step the server
     through `MIFA.round_step`; qwen's (`sequential_clients`) go through
     `make_train_step`'s sequential mode. f32 smoke configs."""
     jc, tc = configs(arch, "float32")
