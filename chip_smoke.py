@@ -201,6 +201,22 @@ Run from the root of a checkout on a machine with a CUDA card. It
      logit; trained at 2 layers, N=4, 2 rounds (one `mifa_aggregate`
      launch a round), and one client's f32 gradients card vs CPU with the
      gaps of `w_uk`, `w_uv`, `w_kpe` and the router.
+ 22. drives the stub frontends (`llava_phase` and `hubert_phase`, lines
+     starting `llava ` and `hubert `): `flash_attention` held against its
+     plain version at llava-next-34b's prefill shape (B=4, S=T=2912 =
+     2880 patches + 32 tokens, not a multiple of the tiles, H=56 over
+     KV=8, g = 7, hd 128) in bf16 and f32, and timed there beside sdpa
+     and the bound; llava-next-34b served at full width and depth (60
+     layers, 34.39 B bf16 params: exactly 60 launches a prefill, none in
+     decode, the cache sized for the patches); its first layer in f32
+     card vs CPU over the patches and 16 tokens and two decode steps, and
+     decode vs prefill; two rounds of `make_train_step`'s sequential mode
+     at 2 layers, N=2, on 2880 patches + 128 tokens; hubert-xlarge
+     (non-causal, encoder-only) scored through `make_encoder_step` at
+     full width and depth, its score and one client's f32 gradients card
+     vs CPU at 2 layers, and two rounds of the vmap `make_train_step` at
+     full depth, N=2 (one `mifa_aggregate` launch a round); in each
+     training run the client inactive in round 1 keeps its stored update.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -321,6 +337,36 @@ MOE_TIE_GAP = 1e-5
 # within MLA_RTOL of the largest logit
 MLA_SHAPE = (SERVE_B, SERVE_PROMPT, 16, 16, 192, 128)
 MLA_RTOL = 1e-5
+# llava-next-34b (vision_text: the stub frontend's 2880 patch embeddings
+# prepended to the text) served at SERVE_B prompts of LLAVA_PROMPT tokens
+# and LLAVA_NEW greedy tokens: its prefill attends over S = T = 2912
+# positions, 22.75 tiles of 128 rows, at GQA g = 56 / 8 = 7 (LLAVA_SHAPE:
+# B, S, H, KV, hd). Its checks at full width in f32 with the depth cut to
+# LLAVA_CHECK_LAYERS: card vs CPU over the patches, LLAVA_CHECK_PROMPT
+# tokens and two decode steps, and decode vs prefill from that prompt
+# through LLAVA_DVP_STEPS steps. Trained through make_train_step's
+# sequential mode (its config's) at LLAVA_TRAIN_LAYERS layers, with
+# LLAVA_TRAIN_N clients, one local step on one sequence of the patches and
+# LLAVA_TRAIN_TEXT tokens, for STUB_TRAIN_ROUNDS rounds
+LLAVA_PROMPT, LLAVA_NEW = 32, 16
+LLAVA_SHAPE = (SERVE_B, 2880 + LLAVA_PROMPT, 56, 8, 128)
+LLAVA_CHECK_LAYERS, LLAVA_CHECK_PROMPT, LLAVA_DVP_STEPS = 1, 16, 16
+LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_N, LLAVA_TRAIN_TEXT = 2, 2, 128
+# hubert-xlarge (audio, encoder-only, non-causal): scored through
+# make_encoder_step at full width and depth on HUBERT_SCORE_B x
+# HUBERT_SCORE_S frames; card vs CPU (the score, and one client's f32
+# loss and gradients) at HUBERT_CHECK_LAYERS layers; STUB_TRAIN_ROUNDS
+# rounds of make_train_step's vmap mode at full depth with HUBERT_TRAIN_N
+# clients (cut from its 16: the f32 update array G and the clients' f32
+# update sums take 5.06 GB a client each, and every client's bf16 weights
+# and gradients and activations come on top), K = 2 local steps (its
+# fl_local_steps) of HUBERT_TRAIN_MB x HUBERT_TRAIN_S frames
+HUBERT_SCORE_B, HUBERT_SCORE_S, HUBERT_CHECK_LAYERS = 4, 1024, 2
+HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S = 2, 2, 512
+# the stub-frontend training rounds: every client active in round 0, only
+# client 0 in round 1 (client 1's stored update must stay as round 0 left
+# it)
+STUB_TRAIN_ROUNDS, STUB_MASKS = 2, ((True, True), (True, False))
 # kernel vs plain version, |err| <= atol + rtol·|ref| as (atol, rtol).
 # Attention: f32 (2e-5, 0), FMAs and einsum sum in other orders; bf16
 # (2e-2, 1e-2), the kernel rounds the probabilities to bf16 before P·V, as
@@ -3524,8 +3570,6 @@ def check_flash(gen) -> tuple[float, list]:
     small heads, windows that are not a multiple of the 64-key tile (100)
     and below one tile (17), f32 and bf16; no output may be NaN. A shape
     of six numbers gives v's head dim last."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
     bf, f32 = torch.bfloat16, torch.float32
     gemma = (SERVE_B, SERVE_PROMPT, 8, 4, 256)
     cases = [((SERVE_B, SERVE_PROMPT, 32, 32, 112), bf, True, 0,
@@ -3557,6 +3601,16 @@ def check_flash(gen) -> tuple[float, list]:
              ((2, 300, 4, 4, 192, 128), bf, False, 0, "non-causal, dv 128"),
              ((2, 300, 4, 4, 192, 128), f32, False, 0,
               "non-causal, dv 128 f32")]
+    return check_flash_cases(gen, cases)
+
+
+def check_flash_cases(gen, cases) -> tuple[float, list]:
+    """flash_attention against its plain version on each case of
+    ((B, S, H, KV, hd[, dv]), dtype, causal, window, label): output dtype,
+    shape, no NaN, |err| within ATTN_TOL; a label starting "non-causal"
+    takes T=200 keys. Returns the largest |err| and a row a case."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
     max_err, rows = 0.0, []
     for (b, s, h, kv, hd, *dv), dt, causal, window, label in cases:
         dv = dv[0] if dv else hd
@@ -3726,17 +3780,19 @@ def time_ssd(gen, b, s, h, p, n, q) -> dict:
     return t
 
 
-def serve_phase(label, cfg, expect) -> tuple[dict, list]:
-    """`launch.serve.serve` at SERVE_B prompts of SERVE_PROMPT tokens and
-    SERVE_NEW greedy tokens, every count set to 0 just before and read just
-    after: prefill launches exactly `expect`, decode none, no other kernel
-    runs; logits finite."""
+def serve_phase(label, cfg, expect, prompt: int = SERVE_PROMPT,
+                new: int = SERVE_NEW) -> tuple[dict, list]:
+    """`launch.serve.serve` at SERVE_B prompts of `prompt` tokens (after
+    the patches of a vision_text model) and `new` greedy tokens, every
+    count set to 0 just before and read just after: prefill launches
+    exactly `expect`, decode none, no other kernel runs; logits finite.
+    tok/s counts text tokens, as `serve.report` does."""
     from repro_torch.launch.serve import report, serve
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = serve(cfg=cfg, batch=SERVE_B, prompt_len=SERVE_PROMPT,
-                new_tokens=SERVE_NEW, seed=0, device="cuda")
+    out = serve(cfg=cfg, batch=SERVE_B, prompt_len=prompt, new_tokens=new,
+                seed=0, device="cuda")
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     zero = {k: 0 for k in expect}
@@ -3752,16 +3808,16 @@ def serve_phase(label, cfg, expect) -> tuple[dict, list]:
     check(tuple(logits.shape) == (SERVE_B, cfg.vocab_size)
           and bool(torch.isfinite(logits.float()).all()),
           f"{label}: prefill logits {tuple(logits.shape)} not finite")
-    check(tuple(out["tokens"].shape) == (SERVE_B, SERVE_NEW),
+    check(tuple(out["tokens"].shape) == (SERVE_B, new),
           f"{label}: generated {tuple(out['tokens'].shape)}")
     rows = [f"serve {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
             f"{out['n_params']} params, {cfg.param_dtype}"]
     rows += report(out)
     rows.append(f"  prefill {out['prefill_s'] * 1e3:.3f} ms, "
-                f"{SERVE_B * SERVE_PROMPT / out['prefill_s']:.1f} tok/s; "
-                f"decode {out['decode_s'] / SERVE_NEW * 1e3:.3f} ms/token "
+                f"{SERVE_B * prompt / out['prefill_s']:.1f} tok/s; "
+                f"decode {out['decode_s'] / new * 1e3:.3f} ms/token "
                 f"step ({SERVE_B} sequences), "
-                f"{SERVE_B * SERVE_NEW / out['decode_s']:.1f} tok/s; peak "
+                f"{SERVE_B * new / out['decode_s']:.1f} tok/s; peak "
                 f"device allocation {peak} B")
     return counts, rows
 
@@ -3823,29 +3879,35 @@ def routing_flips(what: str, pairs) -> list:
 
 
 def model_runs(cfg, s: int, seed: int) -> dict:
-    """`cfg` at B=1: a prefill of s tokens and two decode steps, on the
-    card (kernels) and on the CPU (plain versions) from the card's params
-    copied across. Returns {device: (logits of the prefill and each step,
-    the cache, seconds, the MoE routing calls)}."""
+    """`cfg` at B=1: a prefill of s tokens (after the patches of a
+    vision_text config) and two decode steps, on the card (kernels) and on
+    the CPU (plain versions) from the card's params copied across. Returns
+    {device: (logits of the prefill and each step, the cache, seconds, the
+    MoE routing calls)}."""
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
     model = build_model(cfg)
     p_gpu = model.init(seed, device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (1, s + 2),
-                         generator=torch.Generator().manual_seed(seed))
+    full, base = prompt_batch(cfg, 1, s + 2,
+                              torch.Generator().manual_seed(seed), "cpu")
+    toks, patches, off = full["tokens"], full.get("patches"), base - s - 2
     out = {}
     for dev in ("cuda", "cpu"):
         params = p_gpu if dev == "cuda" else tree_map(lambda t: t.cpu(),
                                                       p_gpu)
-        cache = model.init_cache(1, s + 2, device=dev)
+        cache = model.init_cache(1, off + s + 2, device=dev)
         t = toks.to(dev)
+        batch = {"tokens": t[:, :s]}
+        if patches is not None:
+            batch["patches"] = patches.to(dev)
         t0 = time.perf_counter()
         with RoutingLog() as log:
-            logits, _ = model.prefill(params, {"tokens": t[:, :s]}, cache)
+            logits, _ = model.prefill(params, batch, cache)
             steps = [logits]
             for pos in range(s, s + 2):
-                lg, _ = model.decode_step(params, t[:, pos:pos + 1], pos,
-                                          cache)
+                lg, _ = model.decode_step(params, t[:, pos:pos + 1],
+                                          off + pos, cache)
                 steps.append(lg)
         out[dev] = (steps, cache, time.perf_counter() - t0, log.calls)
         del params
@@ -3867,25 +3929,30 @@ def model_card_vs_cpu(cfg, s: int, seed: int) -> tuple:
 
 def model_decode_vs_prefill(cfg, prompt: int, steps: int, seed: int,
                             logs: dict | None = None) -> float:
-    """`cfg` at B=1 on the card: a prefill of `prompt` tokens and `steps`
-    teacher-forced decode steps against one prefill of all the tokens; the
-    last position's logits gap. `logs` (a dict) receives the MoE routing
-    calls of the one prefill ("full") and of the split run ("split")."""
+    """`cfg` at B=1 on the card: a prefill of `prompt` tokens (after the
+    patches of a vision_text config) and `steps` teacher-forced decode
+    steps against one prefill of all the tokens; the last position's
+    logits gap. `logs` (a dict) receives the MoE routing calls of the one
+    prefill ("full") and of the split run ("split")."""
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import build_model
     total = prompt + steps
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (1, total),
-                         generator=torch.Generator().manual_seed(seed)).cuda()
+    full, base = prompt_batch(cfg, 1, total,
+                              torch.Generator().manual_seed(seed), "cuda")
+    toks, off = full.pop("tokens"), base - total
+    extra = full
     with RoutingLog() as full_log:
-        full, _ = model.prefill(params, {"tokens": toks},
-                                model.init_cache(1, total, device="cuda"))
-    cache = model.init_cache(1, total, device="cuda")
+        full, _ = model.prefill(params, {"tokens": toks, **extra},
+                                model.init_cache(1, off + total,
+                                                 device="cuda"))
+    cache = model.init_cache(1, off + total, device="cuda")
     with RoutingLog() as split_log:
-        model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+        model.prefill(params, {"tokens": toks[:, :prompt], **extra}, cache)
         for pos in range(prompt, total):
-            logits, _ = model.decode_step(params, toks[:, pos:pos + 1], pos,
-                                          cache)
+            logits, _ = model.decode_step(params, toks[:, pos:pos + 1],
+                                          off + pos, cache)
     if logs is not None:
         logs.update(full=full_log.calls, split=split_log.calls)
     return rel_gap(logits, full)
@@ -4081,15 +4148,48 @@ def stale_leaf(j: int, p: torch.Tensor) -> torch.Tensor:
                        device="cuda")
 
 
+def check_server_step(label: str, g_before, G, updates, active, params,
+                      w_new, eta: float) -> tuple[float, int]:
+    """The server step `mifa_aggregate_tree` just took (G written in place,
+    w_new returned), leaf by leaf against `mifa_aggregate_ref` on the same
+    inputs: G bit-equal, w within the `check_mifa` tolerance of the summed
+    magnitudes. `g_before(j, w)` gives leaf j's G (j counts the leaves in
+    `tree_map` order) as it stood before the step, (N, *w.shape) on the
+    card. Returns max |dw| and the elements of
+    G checked."""
+    import itertools
+
+    from repro_torch.kernels.mifa_aggregate import mifa_aggregate_ref
+    from repro_torch.tree import tree_map
+    n = active.numel()
+    count, worst = itertools.count(), [0.0, 0]
+
+    def verify(g_k, u, w, w_k):
+        j = next(count)
+        g_ref, w_ref = mifa_aggregate_ref(
+            g_before(j, w).reshape(n, -1), u.reshape(n, -1), active,
+            w.reshape(-1), eta)
+        check(torch.equal(g_k.reshape(n, -1), g_ref),
+              f"{label}: G of leaf {j} differs")
+        rtol, atol = TOL[w.dtype]
+        d = (w_k.reshape(-1).float() - w_ref.float()).abs()
+        scale = w.reshape(-1).float().abs() + eta * g_ref.abs().mean(0)
+        check(bool((d <= atol + rtol * scale).all()),
+              f"{label}: w of leaf {j} off by {d.max().item():.3e}")
+        worst[0] = max(worst[0], d.max().item())
+        worst[1] += g_k.numel()
+
+    tree_map(verify, G, updates, params, w_new)
+    return worst[0], worst[1]
+
+
 def train_kernel_check(model, params, cfg) -> tuple[float, str]:
     """(b) One round's updates of the trained granite tree (the batch of
     TRAIN_CHECK_ROUND) through `mifa_aggregate_tree` (the kernel) against
-    the plain version on the same inputs, leaf by leaf: G bit-equal, w
-    within the `check_mifa` tolerance of the summed magnitudes."""
+    the plain version on the same inputs (`check_server_step`)."""
     import itertools
 
     from repro_torch.core.local_update import client_updates
-    from repro_torch.kernels.mifa_aggregate import mifa_aggregate_ref
     from repro_torch.kernels.ops import mifa_aggregate_tree
     from repro_torch.tree import tree_map
     batch, active, eta, _ = train_round_inputs(cfg)
@@ -4100,30 +4200,13 @@ def train_kernel_check(model, params, cfg) -> tuple[float, str]:
     G = tree_map(lambda p: stale_leaf(next(count), p), params)
     G, w_new = mifa_aggregate_tree(G, updates, active, params, eta_t)
     torch.cuda.synchronize()
-    count, worst = itertools.count(), [0.0, 0]
-
-    def verify(g_k, u, w, w_k):
-        j = next(count)
-        g_ref, w_ref = mifa_aggregate_ref(
-            stale_leaf(j, w).reshape(TRAIN_N, -1), u.reshape(TRAIN_N, -1),
-            active, w.reshape(-1), eta)
-        check(torch.equal(g_k.reshape(TRAIN_N, -1), g_ref),
-              f"train kernel check: G of leaf {j} differs")
-        rtol, atol = TOL[w.dtype]
-        d = (w_k.reshape(-1).float() - w_ref.float()).abs()
-        scale = w.reshape(-1).float().abs() + eta * g_ref.abs().mean(0)
-        check(bool((d <= atol + rtol * scale).all()),
-              f"train kernel check: w of leaf {j} off by "
-              f"{d.max().item():.3e}")
-        worst[0] = max(worst[0], d.max().item())
-        worst[1] += g_k.numel()
-
-    tree_map(verify, G, updates, params, w_new)
-    return worst[0], (
+    worst, elements = check_server_step("train kernel check", stale_leaf, G,
+                                        updates, active, params, w_new, eta)
+    return worst, (
         f"train kernel vs plain (b): one round's updates of the trained "
         f"granite tree (batch of round {TRAIN_CHECK_ROUND}, mask "
         f"{[int(a) for a in TRAIN_CHECK_MASK]}, eta {eta}), "
-        f"{worst[1]} elements of G bit-equal, max |dw| {worst[0]:.3e}")
+        f"{elements} elements of G bit-equal, max |dw| {worst:.3e}")
 
 
 def model_gap(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -4579,7 +4662,322 @@ def mla_phase(gen, smi: str) -> tuple[dict, list]:
         ("w_uk", "w_uv", "w_kpe")))
     rows.append(f"mla phase {time.perf_counter() - t0:.1f} s")
     return {"timing": t, "launches": counts["flash_attention"],
+            "launches_from": (
+                f"deepseek-v2-lite-16b serve prefill, {SERVE_B} x "
+                f"{SERVE_PROMPT} tokens, one launch a layer "
+                f"({cfg.n_layers}); decode launches none"),
             "train_launches": train_counts["mifa_aggregate"]}, rows
+
+
+# --------------------------------------------------------------------------- #
+# the stub frontends: llava-next-34b (vision_text) and hubert-xlarge (audio)
+# --------------------------------------------------------------------------- #
+
+def stub_batch(cfg, n: int, k: int, mb: int, s: int, seed: int) -> dict:
+    """A round's batch of a stub-frontend config, leaves (n, k, mb, ...)
+    on the card, drawn with numpy from `seed` in the layout of the
+    reference's `launch/specs.py::_train_batch`: vision_text `tokens`
+    (s - n_patches of them) and `patches` x 0.02; audio `frames` and their
+    `labels`. Float leaves in the compute dtype."""
+    from repro_torch.models.model import DTYPES
+    rng = np.random.default_rng(seed)
+    cdt, lead = DTYPES[cfg.compute_dtype], (n, k, mb)
+    if cfg.modality == "vision_text":
+        arrays = {"tokens": rng.integers(0, cfg.vocab_size,
+                                         lead + (s - cfg.n_patches,)),
+                  "patches": 0.02 * rng.standard_normal(
+                      lead + (cfg.n_patches, cfg.d_model), np.float32)}
+    else:
+        arrays = {"frames": rng.standard_normal(lead + (s, cfg.d_model),
+                                                np.float32),
+                  "labels": rng.integers(0, cfg.vocab_size, lead + (s,))}
+    return {key: (torch.from_numpy(a.astype(np.int32)).cuda()
+                  if a.dtype.kind == "i" else
+                  torch.from_numpy(a).cuda().to(cdt))
+            for key, a in arrays.items()}
+
+
+def stub_train(label: str, cfg, n: int, mb: int, s: int, smi: str
+               ) -> tuple[dict, list]:
+    """STUB_TRAIN_ROUNDS MIFA(array) rounds of `make_train_step` in cfg's
+    mode on the card (params from seed 0, G f32 from zeros, round r's
+    batch from seed r, its mask STUB_MASKS[r], inv_t(TRAIN_ETA0)), every
+    count set to 0 just before and read just after: the vmap mode
+    launches `mifa_aggregate` once a round for each leaf table, the
+    sequential mode (plain PyTorch, as the reference's scan) nothing;
+    finite losses and params; the client inactive in round 1 keeps its
+    stored update bit for bit; in vmap mode, one more round's server step
+    held against the plain version (`stub_server_check`). Returns the
+    counts and the rows."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    k = cfg.fl_local_steps
+    params = model.init(0, device="cuda")
+    G = tree_map(lambda p: torch.zeros((n,) + tuple(p.shape),
+                                       device="cuda"), params)
+    step = make_train_step(model, cfg, n, k)
+    n_leaves = len(tree_leaves(params))
+    reset_counts()
+    losses, ms, kept = [], [], None
+    for r in range(STUB_TRAIN_ROUNDS):
+        batch = stub_batch(cfg, n, k, mb, s, r)
+        active = torch.tensor(STUB_MASKS[r], device="cuda")
+        eta = torch.tensor(inv_t(TRAIN_ETA0)(r + 1), device="cuda")
+        if r:
+            # on the host: a client's f32 row is 5.06 GB for hubert at
+            # full depth, and the round's own peak nears the card's size
+            kept = [g[1].cpu() for g in tree_leaves(G)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, G, metrics = step(params, G, batch, active, eta)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del batch
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect = ({} if cfg.sequential_clients else
+              {"mifa_aggregate": STUB_TRAIN_ROUNDS * n_tables(n_leaves)})
+    check(nonzero(counts) == expect,
+          f"train {label}: kernel counts {counts}, expected {expect}")
+    check(bool(np.isfinite(losses).all()),
+          f"train {label}: losses {losses}")
+    check(all(bool(torch.isfinite(p.float()).all())
+              for p in tree_leaves(params)), f"train {label}: non-finite "
+                                             "params")
+    check(all(torch.equal(a, g[1].cpu())
+              for a, g in zip(kept, tree_leaves(G))),
+          f"train {label}: the inactive client's stored update moved")
+    tokens = n * k * mb * s
+    mode = "sequential" if cfg.sequential_clients else "vmap"
+    rows = [f"train {label}: make_train_step ({mode}), {cfg.n_layers} "
+            f"layers at full width (d_model {cfg.d_model}, vocab "
+            f"{cfg.vocab_size}), {model.param_count(params)} params, "
+            f"{cfg.param_dtype}, N={n} K={k} mb={mb} S={s}, masks "
+            f"{[list(map(int, m)) for m in STUB_MASKS]}",
+            f"  losses {[round(x, 6) for x in losses]}; kernel launches "
+            f"{nonzero(counts) or 'none'} ({n_leaves} leaves); the "
+            f"inactive client's stored update bit-equal",
+            f"  ms a round {[round(x, 3) for x in ms]} (host clock, each "
+            f"ending in the read of its loss), {tokens} positions a round, "
+            f"{tokens / ms[-1] * 1e3:.1f} a second in round 1; peak device "
+            f"allocation {peak} B [{smi}]"]
+    if not cfg.sequential_clients:
+        del kept
+        rows.append(stub_server_check(label, model, cfg, params, G,
+                                      (n, k, mb, s)))
+    return counts, rows
+
+
+def stub_server_check(label: str, model, cfg, params, G, shape) -> str:
+    """One more vmap round's server step from the trained state (the batch
+    of seed STUB_TRAIN_ROUNDS, mask STUB_MASKS[1]: a client inactive, its
+    stored row kept), in the two halves `make_train_step` runs:
+    `client_updates`, then `mifa_aggregate_tree` (the kernel), held against
+    the plain version leaf by leaf (`check_server_step`). G as it stood
+    before stays on the host (f32, N x the params: 10.1 GB for hubert at
+    full depth), each leaf brought back to the card for its check. Not
+    counted: the counts were read before it."""
+    from repro_torch.core.local_update import client_updates
+    from repro_torch.kernels.ops import mifa_aggregate_tree
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_map
+    n, k, mb, s = shape
+    r = STUB_TRAIN_ROUNDS
+    t0 = time.perf_counter()
+    batch = stub_batch(cfg, n, k, mb, s, r)
+    active = torch.tensor(STUB_MASKS[1], device="cuda")
+    eta = inv_t(TRAIN_ETA0)(r + 1)
+    eta_t = torch.tensor(eta, dtype=torch.float32, device="cuda")
+    before = []
+    tree_map(lambda g: before.append(g.cpu()), G)
+    updates, _ = client_updates(model.loss_fn, params, batch, eta_t, K=k)
+    del batch
+    G, w_new = mifa_aggregate_tree(G, updates, active, params, eta_t)
+    torch.cuda.synchronize()
+    worst, elements = check_server_step(
+        f"train {label} server step", lambda j, w: before[j].cuda(), G,
+        updates, active, params, w_new, eta)
+    return (f"  server step vs plain: a round from the trained state "
+            f"(batch of seed {r}, mask {list(map(int, STUB_MASKS[1]))}, "
+            f"eta {eta}), {len(before)} leaves at {cfg.n_layers} layers, "
+            f"{elements} elements of G bit-equal, max |dw| {worst:.3e} "
+            f"(bf16 tolerance {TOL[torch.bfloat16]}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def llava_phase(gen, smi: str) -> tuple[dict, list]:
+    """llava-next-34b on the card: flash_attention held against its plain
+    version at the prefill's shape (LLAVA_SHAPE: g = 7, S = 2912 not a
+    multiple of the tiles) in bf16 and f32, and timed there beside sdpa
+    and the bound; served at full width and depth (60 launches a prefill
+    over 2880 patches and LLAVA_PROMPT tokens, none in decode); card
+    against CPU and decode against prefill at LLAVA_CHECK_LAYERS layers in
+    f32; STUB_TRAIN_ROUNDS rounds of the sequential make_train_step at
+    LLAVA_TRAIN_LAYERS layers. Returns the check's |err|, the timing and
+    the launches; every row starts with "llava "."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    b, s, h, kv, hd = LLAVA_SHAPE
+    err, rows = check_flash_cases(gen, [
+        (LLAVA_SHAPE, torch.bfloat16, True, 0, "llava path, g=7"),
+        (LLAVA_SHAPE, torch.float32, True, 0, "llava path f32")])
+    t = time_flash(gen, b, s, h, kv, hd)
+    rows.append(
+        f"flash_attention per call (llava-next-34b: B={b} S=T={s} H={h} "
+        f"KV={kv} hd={hd} bf16 causal): kernel {t['ms'] * 1e3:.2f} us, "
+        f"plain {t['plain_ms'] * 1e3:.2f} us, sdpa "
+        f"{t['library_ms'] * 1e3:.2f} us ({t['library_backend']}), bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} "
+        f"bytes, {t['ops']} flops) [{smi}]")
+    torch.cuda.empty_cache()
+    cfg = get_config("llava_next_34b")
+    counts, more = serve_phase("llava-next-34b", cfg,
+                               {"flash_attention": cfg.n_layers,
+                                "ssd_scan": 0}, LLAVA_PROMPT, LLAVA_NEW)
+    rows += more
+    rows.append(f"serve llava-next-34b: each prefill attends over "
+                f"{cfg.n_patches} patches + {LLAVA_PROMPT} tokens = "
+                f"{cfg.n_patches + LLAVA_PROMPT} positions, the cache holds "
+                f"{cfg.n_patches + LLAVA_PROMPT + LLAVA_NEW}; tok/s counts "
+                "text tokens")
+    torch.cuda.empty_cache()
+    check_cfg = zoo_f32_config(LLAVA_CHECK_LAYERS, "llava_next_34b")
+    gaps, cache_gap, shapes, card_s, cpu_s = model_card_vs_cpu(
+        check_cfg, LLAVA_CHECK_PROMPT, 11)
+    check(max(gaps) <= ZOO_RTOL and cache_gap <= ZOO_RTOL,
+          f"llava card vs CPU: logits gaps {gaps}, cache {cache_gap}")
+    rows.append(f"card vs CPU ({LLAVA_CHECK_LAYERS} layer, full width, "
+                f"f32, {cfg.n_patches} patches + {LLAVA_CHECK_PROMPT} "
+                f"tokens, cache leaves {shapes}): max |dlogits| / max "
+                f"|logits| prefill {gaps[0]:.3e}, decode steps "
+                f"{gaps[1]:.3e} {gaps[2]:.3e}; worst cache leaf "
+                f"{cache_gap:.3e} (tol {ZOO_RTOL}); card {card_s:.3f} s, "
+                f"CPU {cpu_s:.3f} s")
+    gap = model_decode_vs_prefill(check_cfg, LLAVA_CHECK_PROMPT,
+                                  LLAVA_DVP_STEPS, 12)
+    check(gap <= ZOO_RTOL, f"llava decode vs prefill gap {gap:.3e}")
+    rows.append(f"decode vs prefill ({LLAVA_CHECK_LAYERS} layer, full "
+                f"width, f32): {cfg.n_patches} patches + "
+                f"{LLAVA_CHECK_PROMPT} tokens, then {LLAVA_DVP_STEPS} decode "
+                f"steps vs one prefill of {cfg.n_patches} + "
+                f"{LLAVA_CHECK_PROMPT + LLAVA_DVP_STEPS}: max |dlogits| / max "
+                f"|logits| {gap:.3e} (tol {ZOO_RTOL})")
+    train_counts, more = stub_train(
+        "llava-next-34b", cfg.replace(n_layers=LLAVA_TRAIN_LAYERS,
+                                      fl_clients=LLAVA_TRAIN_N),
+        LLAVA_TRAIN_N, 1, cfg.n_patches + LLAVA_TRAIN_TEXT, smi)
+    rows += more
+    rows.append(f"phase {time.perf_counter() - t0:.1f} s")
+    return {"err": err, "timing": t, "launches": counts["flash_attention"],
+            "launches_from": (
+                f"llava-next-34b serve prefill, {SERVE_B} x "
+                f"({cfg.n_patches} patches + {LLAVA_PROMPT} tokens), one "
+                f"launch a layer ({cfg.n_layers}); decode launches none")
+            }, [f"llava {r}" for r in rows]
+
+
+def hubert_card_vs_cpu() -> str:
+    """hubert-xlarge at full width in f32, its first HUBERT_CHECK_LAYERS
+    layers: the `make_encoder_step` score of HUBERT_SCORE_B x 512 frames
+    and one client's loss and gradients (a minibatch of HUBERT_TRAIN_MB x
+    512 frames), on the card and on the CPU from the same params, at the
+    f32 model bounds."""
+    from torch.func import grad_and_value
+
+    from repro_torch.launch.steps import make_encoder_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = zoo_f32_config(HUBERT_CHECK_LAYERS, "hubert_xlarge")
+    model = build_model(cfg)
+    p_gpu = model.init(13, device="cuda")
+    score = stub_batch(cfg, 1, 1, HUBERT_SCORE_B, 512, 13)
+    mb = stub_batch(cfg, 1, 1, HUBERT_TRAIN_MB, 512, 14)
+    out = {}
+    for dev, params in (("cuda", p_gpu),
+                        ("cpu", tree_map(lambda t: t.cpu(), p_gpu))):
+        t0 = time.perf_counter()
+        ce = make_encoder_step(model)(
+            params, {k: v[0, 0].to(dev) for k, v in score.items()})
+        g, (loss, _) = grad_and_value(model.loss_fn, has_aux=True)(
+            params, {k: v[0, 0].to(dev) for k, v in mb.items()})
+        out[dev] = (ce, loss, g, time.perf_counter() - t0)
+    ce_gap = model_gap(out["cuda"][0], out["cpu"][0])
+    loss_gap = model_gap(out["cuda"][1], out["cpu"][1])
+    gaps = [model_gap(a, b) for a, b in zip(tree_leaves(out["cuda"][2]),
+                                            tree_leaves(out["cpu"][2]))]
+    check(max(ce_gap, loss_gap, *gaps) <= 1,
+          f"hubert card vs CPU: score {ce_gap:.3e}, loss {loss_gap:.3e}, "
+          f"gradient leaves {[f'{x:.3e}' for x in gaps]} of the bound")
+    return (f"card vs CPU ({HUBERT_CHECK_LAYERS} layers at full width, f32, "
+            f"non-causal): encoder score of {HUBERT_SCORE_B} x 512 frames "
+            f"{out['cuda'][0].item():.6f} / {out['cpu'][0].item():.6f} "
+            f"({ce_gap:.3e} of the bound); one client's minibatch "
+            f"({HUBERT_TRAIN_MB} x 512) loss {loss_gap:.3e}, worst of "
+            f"{len(gaps)} gradient leaves {max(gaps):.3e} of the bound "
+            f"(rtol {MODEL_RTOL}, atol {MODEL_ATOL}·max|leaf|); card "
+            f"{out['cuda'][3]:.3f} s, CPU {out['cpu'][3]:.3f} s")
+
+
+def hubert_phase(smi: str) -> tuple[dict, list]:
+    """hubert-xlarge on the card: scored through `make_encoder_step` at
+    full width and depth (48 layers; the training forward, no kernel),
+    card against CPU at HUBERT_CHECK_LAYERS layers in f32, and
+    STUB_TRAIN_ROUNDS rounds of the vmap make_train_step at full depth
+    (one `mifa_aggregate` launch a round), then one more round's server
+    step against the plain version leaf by leaf. Returns the training
+    launches; every row starts with "hubert "."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_encoder_step
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = get_config("hubert_xlarge")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    batch = {k: v[0, 0] for k, v in stub_batch(
+        cfg, 1, 1, HUBERT_SCORE_B, HUBERT_SCORE_S, 0).items()}
+    score = make_encoder_step(model)
+    times = []
+    reset_counts()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ce = score(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = read_counts()
+    check(ce.shape == () and bool(torch.isfinite(ce)),
+          f"hubert score {ce}")
+    check(not nonzero(counts), f"hubert score launched {counts}")
+    frames = HUBERT_SCORE_B * HUBERT_SCORE_S
+    rows = [f"score: make_encoder_step at full width and depth "
+            f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{model.param_count(params)} params, {cfg.param_dtype}, "
+            f"non-causal), {HUBERT_SCORE_B} x {HUBERT_SCORE_S} frames: CE "
+            f"{ce.item():.6f}; ms {[round(x, 3) for x in times]} (host "
+            f"clock to a sync; the first includes warm-up), "
+            f"{frames / times[-1] * 1e3:.1f} frames/s; no kernel launch "
+            f"(the training forward); peak device allocation "
+            f"{torch.cuda.max_memory_allocated()} B [{smi}]"]
+    del params, batch
+    rows.append(hubert_card_vs_cpu())
+    train_counts, more = stub_train(
+        "hubert-xlarge", cfg.replace(fl_clients=HUBERT_TRAIN_N),
+        HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S, smi)
+    rows += more
+    rows.append(f"phase {time.perf_counter() - t0:.1f} s")
+    return ({"train_launches": train_counts["mifa_aggregate"],
+             "train_launches_from": (
+                 f"make_train_step (vmap) hubert-xlarge, {cfg.n_layers} "
+                 f"layers at full width, N={HUBERT_TRAIN_N}, "
+                 f"{STUB_TRAIN_ROUNDS} rounds of MIFA(array)")},
+            [f"hubert {r}" for r in rows])
 
 
 def main() -> int:
@@ -4743,6 +5141,19 @@ def main() -> int:
     mla, rows = mla_phase(gen, smi)
     for row in rows:
         print(row)
+    # the stub frontends: llava-next-34b served at full depth (the kernel
+    # at g = 7 and S = 2912) and trained sequentially; hubert-xlarge scored
+    # and trained through mifa_aggregate
+    torch.cuda.empty_cache()
+    llava, rows = llava_phase(gen, smi)
+    for row in rows:
+        print(row)
+    torch.cuda.empty_cache()
+    hubert, rows = hubert_phase(smi)
+    for row in rows:
+        print(row)
+    zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
+                                      llava["err"])
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -4848,7 +5259,10 @@ def main() -> int:
                             f"train deepseek-v2-lite-16b, {MOE_TRAIN_LAYERS} "
                             f"layers (one dense, one MoE) at full width, "
                             f"N={MOE_TRAIN_N}, {MOE_TRAIN_ROUNDS} rounds of "
-                            "MIFA(array)"))
+                            "MIFA(array)"),
+                        hubert_train_launches=hubert["train_launches"],
+                        hubert_train_launches_from=hubert[
+                            "train_launches_from"])
         if name == "flash_attention":
             # gemma3-4b's serve prefill, counted from 0 just before it, and
             # the kernel at its two shapes (ms, plain, bound, sdpa per call)
@@ -4882,16 +5296,23 @@ def main() -> int:
                 # 128), counted from 0 just before it, and the kernel at
                 # its shape
                 mla_launches=mla["launches"],
-                mla_launches_from=f"deepseek-v2-lite-16b serve prefill, "
-                                  f"{SERVE_B} x {SERVE_PROMPT} tokens, one "
-                                  "launch a layer (27); decode launches "
-                                  "none",
+                mla_launches_from=mla["launches_from"],
                 mla_per_call={k: mla["timing"][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_backend")},
                 mla_per_call_at="deepseek-v2-lite-16b: B={} S=T={} H=KV={} "
                                 "hd={} dv={}, bf16, causal".format(
-                                    *MLA_SHAPE[:3], *MLA_SHAPE[4:]))
+                                    *MLA_SHAPE[:3], *MLA_SHAPE[4:]),
+                # llava-next-34b's serve prefill (2880 patches and the
+                # prompt), counted from 0 just before it, and the kernel at
+                # its shape (GQA g = 7)
+                llava_launches=llava["launches"],
+                llava_launches_from=llava["launches_from"],
+                llava_per_call={k: llava["timing"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_backend")},
+                llava_per_call_at="llava-next-34b: B={} S=T={} H={} KV={} "
+                                  "hd={}, bf16, causal".format(*LLAVA_SHAPE))
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

@@ -12,8 +12,10 @@ checks of `chip_smoke.py`, and its time beside its bound.
 `flash_attention` (the default) is timed at zamba2-7b's, granite-3-8b's,
 gemma3-4b's (its global layers and its local ones, window 1024) and
 deepseek-v2-lite-16b's prefill (MLA: q/k head dim 192, v's 128; skipped
-for a `--root` whose `time_flash` takes no v head dim) beside one
-`scaled_dot_product_attention` call on the same values;
+for a `--root` whose `time_flash` takes no v head dim) and llava-next-34b's
+(2880 patches + 32 tokens: S = 2912, GQA 56 over 8 heads; held against the
+plain version there first, bf16 and f32, where the checkout has those
+cases) beside one `scaled_dot_product_attention` call on the same values;
 `ssd_scan` at zamba2-7b's and mamba2-1.3b's prefill beside its plain
 version. `mifa_aggregate`, `paged_bank_gather`, `bank_scatter` and
 `paged_bank_scatter` are checked by `chip_smoke.check_mifa` /
@@ -50,7 +52,8 @@ FLASH_SHAPES = [("zamba2-7b", 4, 2048, 32, 32, 112, 0, 112),
                 ("granite-3-8b", 4, 2048, 32, 8, 128, 0, 128),
                 ("gemma3-4b global", 4, 2048, 8, 4, 256, 0, 256),
                 ("gemma3-4b local", 4, 2048, 8, 4, 256, 1024, 256),
-                ("deepseek-v2-lite-16b MLA", 4, 2048, 16, 16, 192, 0, 128)]
+                ("deepseek-v2-lite-16b MLA", 4, 2048, 16, 16, 192, 0, 128),
+                ("llava-next-34b, g=7", 4, 2912, 56, 8, 128, 0, 128)]
 # (label, b, S, h, p, n, Q) at the served prefill, bf16
 SSD_SHAPES = [("zamba2-7b", 4, 2048, 112, 64, 64, 256),
               ("mamba2-1.3b", 4, 2048, 64, 64, 128, 256)]
@@ -128,6 +131,10 @@ def sass_report(backend, kernel: str, lib: Path) -> list[str]:
 
 def bench_flash(chip_smoke, gen) -> list[str]:
     _, rows = chip_smoke.check_flash(gen)
+    if hasattr(chip_smoke, "LLAVA_SHAPE"):
+        rows += chip_smoke.check_flash_cases(gen, [
+            (chip_smoke.LLAVA_SHAPE, dt, True, 0, f"llava path {dt}")
+            for dt in (torch.bfloat16, torch.float32)])[1]
     takes_dv = "dv" in inspect.signature(chip_smoke.time_flash).parameters
     for label, b, s, h, kv, hd, window, dv in FLASH_SHAPES:
         if dv != hd and not takes_dv:

@@ -7,8 +7,9 @@
 Builds the model at full width (random params from seed 0, as
 `launch.serve.serve` draws them; `--layers` cuts the depth), runs one
 prefill to warm up, then profiles one prefill of `--batch` prompts of
-`--prompt-len` tokens and `--decode-steps` greedy decode steps under
-torch.profiler. For each phase it prints the host ms, the device's busy
+`--prompt-len` tokens (after the n_patches patch embeddings of a
+vision_text model; `launch.serve.prompt_batch`, as `serve` draws them) and `--decode-steps`
+greedy decode steps under torch.profiler. For each phase it prints the host ms, the device's busy
 ms and idle share, the device ms by kind of work (the port's
 `flash_attention` and `ssd_scan` kernels, matrix products, everything
 else) and the device ops that take the most time. Prints one JSON object
@@ -73,6 +74,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels.backend import build_kernels, set_numerics
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import build_model
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -86,29 +88,31 @@ def main() -> int:
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     B, P, T = args.batch, args.prompt_len, args.decode_steps
-    prompts = torch.randint(0, cfg.vocab_size, (B, P),
-                            generator=torch.Generator().manual_seed(0)
-                            ).cuda()
-    model.prefill(params, {"tokens": prompts},
-                  model.init_cache(B, P + T, device="cuda"))
-    cache = model.init_cache(B, P + T, device="cuda")
+    batch, base = prompt_batch(cfg, B, P, torch.Generator().manual_seed(0),
+                               "cuda")
+    # the warm-up's cache is freed before the profiled one is made: a
+    # llava-next-34b cache is 1.44 GB beside 68.8 GB of weights
+    model.prefill(params, batch, model.init_cache(B, base + T,
+                                                  device="cuda"))
+    cache = model.init_cache(B, base + T, device="cuda")
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     rows = []
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompts}, cache)
+        logits, cache = model.prefill(params, batch, cache)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows.append({"phase": "prefill", "arch": cfg.name,
                  "layers": cfg.n_layers, "batch": B, "prompt": P,
+                 "positions": base,
                  "host_ms": wall, **device_split(prof, wall)})
     tok = logits.argmax(-1)[:, None]
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.perf_counter()
         for i in range(T):
-            logits, cache = model.decode_step(params, tok, P + i, cache)
+            logits, cache = model.decode_step(params, tok, base + i, cache)
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3

@@ -1,13 +1,12 @@
 """Architecture and input-shape configuration registry.
 
 Counterpart of `repro/configs/__init__.py`: the whole `ArchConfig`, the
-input shapes and the name resolution. Each ported architecture has one
-`<id>.py` here with `CONFIG` (the reference's numbers, `source` kept) and
-`smoke()` (its reduced variant). Ported: the two paper models and the zoo
-configs the port serves and trains, `zamba2_7b`, `mamba2_1_3b`,
-`granite_3_8b`, `qwen1_5_110b`, `gemma3_4b`, `olmoe_1b_7b`,
-`moonshot_v1_16b_a3b` and `deepseek_v2_lite_16b`. Every other zoo id raises
-NotImplementedError naming the ROADMAP Queue 1 item its blocks wait for.
+input shapes, the name resolution and `all_configs`. Every architecture has
+one `<id>.py` here with `CONFIG` (the reference's numbers, `source` kept)
+and `smoke()` (its reduced variant): the two paper models and all ten zoo
+configs, among them llava-next-34b (vision_text) and hubert-xlarge (audio,
+encoder-only), whose frontends are stubs in both packages: the batch
+carries the patch or frame embeddings.
 """
 from __future__ import annotations
 
@@ -212,31 +211,14 @@ _ALIAS.update({
 PAPER_IDS = ["paper_logistic", "paper_mlp"]
 
 
-# the zoo configs the port serves and trains; the rest wait for their
-# block kinds, each under its ROADMAP Queue 1 item
-PORTED_IDS = ["zamba2_7b", "mamba2_1_3b", "granite_3_8b", "qwen1_5_110b",
-              "gemma3_4b", "olmoe_1b_7b", "moonshot_v1_16b_a3b",
-              "deepseek_v2_lite_16b"]
-UNPORTED_ITEMS = {
-    "llava_next_34b": "18.4 (vision_text frontend)",
-    "hubert_xlarge": "18.4 (audio frontend)",
-}
-
-
 def canonical_id(arch: str) -> str:
     """Module name of `arch` (dashed, dotted or underscored); raises
-    KeyError for an unknown name and NotImplementedError for a zoo config
-    the port does not serve yet."""
+    KeyError for an unknown name."""
     key = arch.strip()
     if key not in ARCH_IDS and key not in PAPER_IDS:
         key = _ALIAS.get(key, key.replace("-", "_").replace(".", "_"))
-    if key in PAPER_IDS or key in PORTED_IDS:
+    if key in ARCH_IDS or key in PAPER_IDS:
         return key
-    if key in ARCH_IDS:
-        raise NotImplementedError(
-            f"config {arch!r} is not ported; the port serves and trains "
-            f"{PORTED_IDS} and trains {PAPER_IDS} (ROADMAP Queue 1 item "
-            f"{UNPORTED_ITEMS[key]})")
     raise KeyError(f"unknown architecture {arch!r}; known: "
                    f"{ARCH_IDS + PAPER_IDS}")
 
@@ -249,3 +231,7 @@ def get_config(arch: str) -> ArchConfig:
 def get_smoke_config(arch: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical_id(arch)}")
     return mod.smoke()
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

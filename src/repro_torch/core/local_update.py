@@ -55,11 +55,15 @@ def client_updates(loss_fn: Callable, params, batches, eta: float, K: int,
     """vmap device_update over clients.
 
     batches: dict with leaves (N, K, ...) on the params' device.
-    Returns (G (N, ...) f32, losses (N,)).
+    Returns (G (N, ...) f32, losses (N,)), every leaf contiguous: a leaf
+    the loss does not read (an audio model's `embed`) has a zero gradient
+    that vmap returns as one row expanded over the client axis, which the
+    kernels cannot take, so it is materialized as the reference's is.
     """
     for v in batches.values():
         if v.shape[1] != K:
             raise ValueError(f"batch leaf has {v.shape[1]} local steps, "
                              f"expected K={K}")
-    return vmap(lambda b: device_update(loss_fn, params, b, eta,
-                                        weight_decay))(batches)
+    updates, losses = vmap(lambda b: device_update(loss_fn, params, b, eta,
+                                                   weight_decay))(batches)
+    return tree_map(torch.Tensor.contiguous, updates), losses

@@ -9,7 +9,13 @@ hand-written `flash_attention` kernel and every prefill SSD scan the
 `ssd_scan` kernel; decode runs plain PyTorch. Params are random, drawn on
 the device from `--seed`, or loaded from a `checkpoint.save_pytree`
 snapshot with `--params` (of either package: the file format is shared);
-prompts are drawn from the seed.
+prompts are drawn from the seed. A vision_text model (llava-next-34b)
+also takes `n_patches` random patch embeddings a prompt (the stub
+frontend's output), drawn from the seed after the prompts; its prefill
+covers n_patches + P positions and its cache n_patches + P + T (the
+reference's driver sizes it P + T, too short for the patches). An
+encoder-only model (hubert-xlarge) has nothing to decode: score it with
+`launch.steps.make_encoder_step`.
 """
 from __future__ import annotations
 
@@ -31,6 +37,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def prompt_batch(cfg: ArchConfig, batch: int, prompt_len: int,
+                 gen: torch.Generator, device: str | torch.device
+                 ) -> tuple[dict, int]:
+    """The batch `serve` prefills: `batch` random prompts of `prompt_len`
+    tokens drawn from `gen` (a CPU generator) and, for a vision_text
+    config, n_patches patch embeddings a prompt (x 0.02, the stub
+    frontend's output) drawn after them, all moved to `device`; and the
+    positions the prefill covers (n_patches + prompt_len for vision_text,
+    else prompt_len), where decode writes first."""
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                   generator=gen).to(device)}
+    if cfg.modality != "vision_text":
+        return out, prompt_len
+    out["patches"] = (torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                  generator=gen) * 0.02).to(device)
+    return out, cfg.n_patches + prompt_len
+
+
 def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
           device: str | torch.device = DEFAULT_DEVICE,
@@ -40,7 +64,8 @@ def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
     with its depth cut); `params` (a tree of tensors on `device`, e.g. from
     `load_pytree`) replace the random init.
 
-    Returns {"cfg", "n_params", "prompts" (B,P), "logits" (B,V) of the prefill,
+    Returns {"cfg", "n_params", "prompts" (B,P), "patches" (B,n_patches,d)
+    or None, "logits" (B,V) of the prefill,
     "tokens" (B,T) generated, "prefill_s", "decode_s" (host clock, each
     ending in a device sync), "launches": {"prefill": ..., "decode": ...}
     (model-kernel launches in each phase)}.
@@ -56,15 +81,14 @@ def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
     if params is None:
         params = model.init(seed, device=dev)
     B, P, T = batch, prompt_len, new_tokens
-    gen = torch.Generator().manual_seed(seed)
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen
-                            ).to(dev)
-
-    cache = model.init_cache(B, P + T, device=dev)
+    batch, base = prompt_batch(cfg, B, P, torch.Generator().manual_seed(seed),
+                               dev)
+    prompts = batch["tokens"]
+    cache = model.init_cache(B, base + T, device=dev)
     _sync(dev)
     before = ops.model_kernel_launches()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, cache)
+    logits, cache = model.prefill(params, batch, cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     after_prefill = ops.model_kernel_launches()
@@ -75,14 +99,15 @@ def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
     t0 = time.perf_counter()
     for i in range(T):
         outs.append(tok)
-        logits, cache = model.decode_step(params, tok, P + i, cache)
+        logits, cache = model.decode_step(params, tok, base + i, cache)
         tok = logits.argmax(-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0
     after_decode = ops.model_kernel_launches()
     return {
         "cfg": cfg, "n_params": model.param_count(params),
-        "prompts": prompts, "logits": prefill_logits,
+        "prompts": prompts, "patches": batch.get("patches"),
+        "logits": prefill_logits,
         "tokens": torch.cat(outs, dim=1) if outs else prompts[:, :0],
         "prefill_s": t_prefill, "decode_s": t_decode,
         "launches": {
@@ -92,12 +117,16 @@ def serve(arch: str = "mamba2-1.3b", *, smoke: bool = False, batch: int = 4,
 
 
 def report(out: dict) -> list[str]:
-    """The lines `main` prints for a `serve` result."""
+    """The lines `main` prints for a `serve` result. tok/s counts text
+    tokens, as the reference's driver does: a vision_text prefill also
+    covers its patches (named on the first line)."""
     cfg = out["cfg"]
     (B, P), T = out["prompts"].shape, out["tokens"].shape[1]
     tp, td = out["prefill_s"], out["decode_s"]
+    patches = ("" if out["patches"] is None
+               else f" patches={out['patches'].shape[1]}")
     lines = [f"arch={cfg.name} layers={cfg.n_layers} params="
-             f"{out['n_params']} batch={B} prompt={P} new={T}",
+             f"{out['n_params']} batch={B}{patches} prompt={P} new={T}",
              f"prefill: {tp * 1e3:.1f} ms ({B * P / max(tp, 1e-9):.0f} "
              f"tok/s), kernel launches {out['launches']['prefill']}",
              f"decode : {td * 1e3:.1f} ms ({B * T / max(td, 1e-9):.0f} "

@@ -7,10 +7,11 @@ train_step(params, G, batch, active, eta) -> (params, G, metrics)
     server step through `kernels.ops.mifa_aggregate_tree`: the hand-written
     `mifa_aggregate` kernel on the card (one launch a leaf table), its
     plain version on the CPU.
-  * sequential mode (`cfg.sequential_clients`, qwen1.5-110b): a loop over
-    clients, one client's update alive at a time, each G row selected and
-    summed into an f32 accumulator as the reference's `lax.scan` does; the
-    weights move by eta · acc / N. Plain PyTorch: the reference has no
+  * sequential mode (`cfg.sequential_clients`, qwen1.5-110b and
+    llava-next-34b): a loop over clients, one client's update alive at a
+    time (each batch leaf sliced per client), each G row selected and
+    summed into an f32 accumulator as the reference's `lax.scan` does;
+    the weights move by eta · acc / N. Plain PyTorch: the reference has no
     kernel there.
   G's rows are written in place (the vmap mode on the card, the sequential
   mode everywhere), as with the reference's donated buffers: callers must
@@ -19,7 +20,10 @@ train_step(params, G, batch, active, eta) -> (params, G, metrics)
 serve steps:
   * decode: (params, cache, tokens, pos) -> (logits, cache)
   * prefill: (params, cache, batch) -> (logits, cache)
-  * encoder score: (params, batch) -> per-batch CE
+  * encoder score (hubert-xlarge): (params, batch) -> per-batch CE
+
+`batch` holds the model's modality (`models.model`): tokens; tokens and
+patches (vision_text); frames and labels (audio).
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ step the server with `MIFA.round_step`, whose array memory is the
 hand-written `mifa_aggregate` kernel on the card. The training forward is
 the differentiable model path (`models.transformer.forward`): it calls no
 kernel. On the card (the default device) params are random, drawn there
-from `--seed`; `train(params=)` takes others.
+from `--seed`; `train(params=)` takes others. The stub-frontend models
+(llava-next-34b, hubert-xlarge) need patches or frames that no batcher
+here draws: `train` raises for them, and they train through
+`make_train_step` on batches their caller builds.
 """
 from __future__ import annotations
 
@@ -35,6 +38,12 @@ from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import constant, inv_t
+
+
+# what a round's batch of each stub-frontend modality holds, leaves (N, K,
+# mb, ...)
+_MODALITY_BATCH = {"vision_text": "tokens and patches",
+                   "audio": "frames and labels"}
 
 
 def train(arch: str = "granite-3-8b", *, smoke: bool = False,
@@ -58,6 +67,14 @@ def train(arch: str = "granite-3-8b", *, smoke: bool = False,
         set_numerics()
     if cfg is None:
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.modality in _MODALITY_BATCH:
+        # the reference's loop feeds these models TokenBatcher's tokens and
+        # fails inside loss_fn; their batches go to make_train_step
+        raise ValueError(
+            f"{cfg.name}: train() draws token batches only and cannot feed "
+            f"the {cfg.modality!r} modality; build its batch ("
+            f"{_MODALITY_BATCH[cfg.modality]}) and call "
+            "launch.steps.make_train_step")
     cfg = cfg.replace(fl_clients=clients, fl_local_steps=k_steps)
     model = build_model(cfg)
     if params is None:

@@ -1,18 +1,23 @@
 """Public model API (counterpart of `repro/models/model.py`).
 
 `Model` wraps an ArchConfig. Batch formats by modality:
-  text:    {'tokens': (B,S) int}
-  tabular: {'x': (B,d) float32, 'y': (B,) int}     (paper models)
+  text:        {'tokens': (B,S) int}
+  vision_text: {'tokens': (B,S_text) int, 'patches': (B,P,d)}  (stub frontend)
+  audio:       {'frames': (B,S,d), 'labels': (B,S) int}        (stub frontend)
+  tabular:     {'x': (B,d) float32, 'y': (B,) int}             (paper models)
 
-Tabular models train (`init`, `loss_fn`, `accuracy`). Text models train
-(`loss_fn`, through the differentiable `transformer.forward`) and serve
-(`init_cache`, `prefill` and `decode_step`, through the kernels) for the
-block kinds that `models.transformer` ports; for MoE models (olmoe-1b-7b,
-moonshot-v1-16b-a3b, deepseek-v2-lite-16b) `loss_fn` adds the experts' load-balance loss to the
-cross-entropy, as the reference does. Params are nested dicts of
-tensors under the JAX package's keys, so parity tests compare leaf by leaf.
-The vision_text and audio modalities are not ported yet (ROADMAP Queue 1
-entry 6, item 18.4).
+Tabular models train (`init`, `loss_fn`, `accuracy`). The zoo's models
+train (`loss_fn`, through the differentiable `transformer.forward`) and,
+unless encoder-only, serve (`init_cache`, `prefill` and `decode_step`,
+through the kernels). A vision_text model (llava-next-34b) takes its P
+patch embeddings as a prefix: the sequence is P + S_text positions, the
+loss covers the text only and decode continues at P + S_text. An audio
+model (hubert-xlarge) projects its frames through `frontend_proj` and
+scores every position against its labels. For MoE models (olmoe-1b-7b,
+moonshot-v1-16b-a3b, deepseek-v2-lite-16b) `loss_fn` adds the experts'
+load-balance loss to the cross-entropy, as the reference does. Params are
+nested dicts of tensors under the JAX package's keys, so parity tests
+compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -22,9 +27,10 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import (_dense_init, chunked_lm_loss,
-                                       embed_init, head_init, rmsnorm,
-                                       rmsnorm_init, softmax_cross_entropy)
+from repro_torch.models.layers import (_dense_init, _device_init,
+                                       chunked_lm_loss, embed_init,
+                                       head_init, rmsnorm, rmsnorm_init,
+                                       softmax_cross_entropy)
 from repro_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -33,11 +39,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        if cfg.modality in ("vision_text", "audio"):
-            raise NotImplementedError(
-                f"model modality {cfg.modality!r} is not ported; the port "
-                "has the tabular paper models and text models (ROADMAP "
-                "Queue 1 entry 6, item 18.4)")
         if cfg.family != "tabular":
             transformer.check_ported(cfg)
         self.cfg = cfg
@@ -72,6 +73,10 @@ class Model:
                                  self.param_dtype),
         }
         params.update(transformer.init_segments(gen, cfg, self.param_dtype))
+        if cfg.modality == "audio":
+            # drawn last, so every other config draws what it drew before
+            params["frontend_proj"] = _device_init(
+                gen, (cfg.d_model, cfg.d_model), self.param_dtype)
         return params
 
     def _init_tabular(self, gen: torch.Generator, dev: torch.device) -> dict:
@@ -99,8 +104,10 @@ class Model:
     # ------------------------------------------------------------------ #
     def loss_fn(self, params: dict, batch: dict):
         """(loss, {"loss", "ce", "aux"}): the reference's contract. Text
-        models take {'tokens': (B,S) int} and the shifted-token CE (chunked
-        when `cfg.ce_chunk` > 0); tabular models take {'x', 'y'}."""
+        models take the shifted-token CE, vision_text models the same over
+        the positions after the patches, audio models the CE of every
+        position against `labels` (chunked when `cfg.ce_chunk` > 0);
+        tabular models take {'x', 'y'}."""
         cfg = self.cfg
         if cfg.family == "tabular":
             logits = self._tabular_logits(params, batch["x"])
@@ -110,27 +117,39 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         h, aux = transformer.forward(params, x, positions, cfg)
         h = rmsnorm(params["final_norm"], h)
-        tokens = batch["tokens"]
         if cfg.ce_chunk:
-            labels, mask = self._labels_mask(tokens)
+            labels, mask = self._labels_mask(batch)
             ce = chunked_lm_loss(h, params["lm_head"], labels, mask,
                                  chunk=cfg.ce_chunk)
         else:
             logits = h @ params["lm_head"].to(h.dtype)
-            ce = softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+            if cfg.modality == "audio":
+                ce = softmax_cross_entropy(logits, batch["labels"])
+            else:
+                P = cfg.n_patches if cfg.modality == "vision_text" else 0
+                ce = softmax_cross_entropy(logits[:, P:-1],
+                                           batch["tokens"][:, 1:])
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
-    @staticmethod
-    def _labels_mask(tokens: torch.Tensor):
-        """Full-length (B,S) labels (the next token, 0 at the end) and the
-        validity mask for the chunked CE (text: every position but the
-        last)."""
+    def _labels_mask(self, batch: dict):
+        """Full-length labels and validity mask for the chunked CE. Audio:
+        `labels`, every position valid. Text: the next token, 0 at the
+        end, every position but the last valid; vision_text puts P zero
+        labels, invalid, before that."""
+        if self.cfg.modality == "audio":
+            labels = batch["labels"]
+            return labels, torch.ones(labels.shape, device=labels.device)
+        tokens = batch["tokens"]
         B, S = tokens.shape
-        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                           dim=1)
-        mask = torch.cat([torch.ones((B, S - 1), device=tokens.device),
-                          torch.zeros((B, 1), device=tokens.device)], dim=1)
+        P = self.cfg.n_patches if self.cfg.modality == "vision_text" else 0
+        dev = tokens.device
+        labels = torch.cat([torch.zeros((B, P), dtype=tokens.dtype,
+                                        device=dev), tokens[:, 1:],
+                            torch.zeros_like(tokens[:, :1])], dim=1)
+        mask = torch.cat([torch.zeros((B, P), device=dev),
+                          torch.ones((B, S - 1), device=dev),
+                          torch.zeros((B, 1), device=dev)], dim=1)
         return labels, mask
 
     def _tabular_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -149,8 +168,16 @@ class Model:
     # serving
     # ------------------------------------------------------------------ #
     def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
-        """Token embeddings (B,S,d) in the compute dtype."""
-        return params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+        """The model's input (B,S,d) in the compute dtype: token
+        embeddings, after the patches for vision_text; the frames through
+        `frontend_proj` for audio."""
+        cdt = self.compute_dtype
+        if self.cfg.modality == "audio":
+            return batch["frames"].to(cdt) @ params["frontend_proj"].to(cdt)
+        x = params["embed"][batch["tokens"].long()].to(cdt)
+        if self.cfg.modality == "vision_text":
+            x = torch.cat([batch["patches"].to(cdt), x], dim=1)
+        return x
 
     def init_cache(self, batch: int, cache_len: int, *,
                    device: str | torch.device = DEFAULT_DEVICE) -> dict:
@@ -164,7 +191,7 @@ class Model:
 
     def prefill(self, params: dict, batch: dict, cache: dict):
         """Returns (last-position logits (B,V), cache), the cache filled in
-        place."""
+        place. A vision_text batch fills P + S_text positions."""
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only")

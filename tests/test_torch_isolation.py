@@ -181,9 +181,12 @@ def test_unported_modules_raise():
     from repro_torch.bank import HostBank, make_bank
     # the host bank (item 9) is ported
     assert isinstance(make_bank("host", device="cpu"), HostBank)
-    # MLA (item 18.3) is ported; the stub frontends (18.4) are not
-    with pytest.raises(NotImplementedError, match="item 18"):
-        get_config("llava_next_34b")
+    # MLA (item 18.3) and the stub frontends (18.4) are ported; a
+    # sharding constraint on each client's update waits for item 19
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_config("llava_next_34b")
+    with pytest.raises(NotImplementedError, match="item 19"):
+        make_train_step(build_model(cfg), cfg, 2, 1, update_spec=object())
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
@@ -221,34 +224,38 @@ def test_serve_on_cpu_takes_the_plain_kernels():
     ("granite_3_8b", {"modality": "audio"}),
     ("zamba2_7b", {"shared_attn_window": 8})])
 def test_unported_block_kinds_and_modalities_raise(arch, change):
-    """Unported kinds raise naming their item; windows (local_attn and a
-    windowed shared attention, item 18.1), MoE (item 18.2) and MLA (item
-    18.3) are ported: they build and run a training loss and a served
-    prefill."""
+    """Every block kind and modality is ported: windows (local_attn and a
+    windowed shared attention, item 18.1), MoE (item 18.2), MLA (item
+    18.3) and the stub frontends (item 18.4) build and run a training loss
+    on their modality's batch and, unless encoder-only, a served
+    prefill (a vision_text cache holds the patches too)."""
     cfg = get_smoke_config(arch).replace(**change)
-    ported = ("swa_window", "shared_attn_window", "n_experts", "kv_lora_rank")
-    if not any(key in change for key in ported):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            build_model(cfg)
-        return
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     toks = torch.zeros((1, 12), dtype=torch.long)
-    loss, _ = model.loss_fn(params, {"tokens": toks})
-    logits, _ = model.prefill(params, {"tokens": toks},
-                              model.init_cache(1, 12, device="cpu"))
-    assert bool(torch.isfinite(loss)) and logits.shape == (1, cfg.vocab_size)
+    batch, n_pos = {"tokens": toks}, 12
+    if cfg.modality == "vision_text":
+        batch["patches"] = torch.zeros((1, cfg.n_patches, cfg.d_model))
+        n_pos += cfg.n_patches
+    elif cfg.modality == "audio":
+        batch = {"frames": torch.ones((1, 12, cfg.d_model)), "labels": toks}
+    loss, _ = model.loss_fn(params, batch)
+    assert bool(torch.isfinite(loss))
+    if cfg.modality == "audio":
+        return
+    logits, _ = model.prefill(params, batch,
+                              model.init_cache(1, n_pos, device="cpu"))
+    assert logits.shape == (1, cfg.vocab_size)
 
 
 def test_unported_zoo_surfaces_raise():
     from repro_torch.launch.serve import main
     from repro_torch.models import transformer
-    # each unported config names the item its blocks wait for; qwen1.5-110b
-    # (item 18.0), the text training path (18.5), gemma3-4b (18.1), the
-    # MoE configs (18.2) and deepseek-v2-lite-16b (18.3) are ported
-    for arch, item in (("hubert_xlarge", "18.4"), ("llava-next-34b", "18.4")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            get_config(arch)
+    # every zoo config is ported: qwen1.5-110b (item 18.0), the text
+    # training path (18.5), gemma3-4b (18.1), the MoE configs (18.2),
+    # deepseek-v2-lite-16b (18.3), llava-next-34b and hubert-xlarge (18.4)
+    assert get_config("llava-next-34b").n_patches == 2880
+    assert get_config("hubert_xlarge").encoder_only
     assert get_config("qwen1.5-110b").qkv_bias
     assert get_config("gemma3-4b").swa_window == 1024
     assert get_config("olmoe-1b-7b").n_experts == 64

@@ -214,3 +214,42 @@ def test_cuda_train_matches_cpu(cuda_device, arch):
                     tree_leaves(outs[cuda_device]["params"])):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-3,
                                    atol=1e-4 * float(a.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "llava_next_34b"])
+def test_cuda_stub_frontend_train_step_matches_cpu(cuda_device, arch):
+    """One `make_train_step` round of the stub-frontend models on the card
+    against the CPU, f32: hubert's vmap mode (frames and labels; one
+    kernel launch, its unread `embed` leaf's zero update included) and
+    llava's sequential mode (tokens and patches, no kernel)."""
+    cfg = get_smoke_config(arch).replace(
+        compute_dtype="float32", param_dtype="float32", fl_clients=N,
+        fl_local_steps=K)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(1)
+    if cfg.modality == "audio":
+        batch = {"frames": rng.normal(size=(N, K, MB, S, cfg.d_model)),
+                 "labels": rng.integers(0, cfg.vocab_size, (N, K, MB, S))}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (N, K, MB, S)),
+                 "patches": 0.02 * rng.normal(
+                     size=(N, K, MB, cfg.n_patches, cfg.d_model))}
+    step = make_train_step(model, cfg, N, K)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        G = tree_map(lambda p: torch.zeros((N,) + tuple(p.shape),
+                                           device=dev), params)
+        before = mifa_aggregate.launches
+        outs[dev] = step(
+            tree_map(lambda p: p.to(dev), params), G,
+            {k: torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f"
+                                          else np.int32)).to(dev)
+             for k, v in batch.items()},
+            torch.from_numpy(ACTIVE).to(dev), ETA)
+        assert mifa_aggregate.launches - before == (
+            1 if dev == cuda_device and not cfg.sequential_clients else 0)
+    for a, b in zip(tree_leaves(list(outs["cpu"][:2])),
+                    tree_leaves(list(outs[cuda_device][:2]))):
+        _close(a.numpy(), b)
