@@ -77,7 +77,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      the five Figure 2 fleets without the update clock; each scan run must
      be bit-equal to its loop run and launch each kernel once a replay
      plus once in the warm-up before capture; prints scan and loop ms a
-     round; profiles one scan run each of MIFA(array) and
+     round; then the mesh phase (`mesh_phase`, lines starting `mesh `):
+     in a gloo world of one rank started from a `HashStore`, on a 1x1
+     `make_host_mesh(device="cuda")`, `run_fl(engine="scan", mesh=)` of
+     MIFA(array) and BankedMIFA(DenseBank) (the bank takes the run's mesh)
+     and `run_fleet(engine="scan", mesh=)` of the Figure 2 dense-bank
+     fleet, each bit-equal to its scan run without a mesh, with the same
+     launches, and its ms a round beside that run's; profiles one scan run
+     each of MIFA(array) and
      BankedMIFA(dense), holding the kernels the trace shows by name to the
      launch counters and printing the device's idle share; then runs the
      main path's MIFA(array) loop again, bit-equal to its first run;
@@ -1071,10 +1078,11 @@ def clone_tree(params, device):
 
 
 def run_path(name, algo, problem, params0, n_rounds, device, eval_every,
-             engine="loop", cohort_capacity=None):
+             engine="loop", cohort_capacity=None, mesh=None):
     """One run of the paper path; under engine="scan" the chunks hold
-    SCAN_CHUNK rounds. Returns (params, history, host seconds between the
-    participation draws of consecutive rounds)."""
+    SCAN_CHUNK rounds, placed on `mesh` when given. Returns (params,
+    history, host seconds between the participation draws of consecutive
+    rounds)."""
     from repro_torch.core import BernoulliParticipation, run_fl
     from repro_torch.optim import inv_t
     model, batcher, probs, eval_fn = problem
@@ -1085,7 +1093,8 @@ def run_path(name, algo, problem, params0, n_rounds, device, eval_every,
                           params=clone_tree(params0, device),
                           eval_fn=eval_fn, eval_every=eval_every,
                           engine=engine, scan_chunk=SCAN_CHUNK,
-                          cohort_capacity=cohort_capacity, device=device)
+                          cohort_capacity=cohort_capacity, mesh=mesh,
+                          device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return params, hist, np.diff(part.stamps)
@@ -1780,11 +1789,11 @@ def fleet_kw(name, problem, n_rounds, device, cap=FLEET_CAP) -> dict:
 
 
 def run_fig2_fleet(name, problem, n_rounds, device, eval_fn=None,
-                   engine="loop", cap=FLEET_CAP):
+                   engine="loop", cap=FLEET_CAP, mesh=None):
     """One Figure 2 algorithm as one `run_fleet` over seeds 0-2 (under
     engine="scan" in chunks of SCAN_CHUNK rounds; a cohort fleet pinned
-    to width `cap`); returns (params, history, host seconds between the
-    draws of consecutive rounds)."""
+    to width `cap`; its trial axis on `mesh` when given); returns (params,
+    history, host seconds between the draws of consecutive rounds)."""
     from repro_torch.core import BernoulliParticipation
     from repro_torch.fleet import Trial, run_fleet
     probs = problem[2]
@@ -1794,7 +1803,7 @@ def run_fig2_fleet(name, problem, n_rounds, device, eval_fn=None,
               for s, p in zip(FLEET_SEEDS, parts)]
     params, hist = run_fleet(trials=trials, eval_fn=eval_fn,
                              eval_every=n_rounds, engine=engine,
-                             scan_chunk=SCAN_CHUNK,
+                             scan_chunk=SCAN_CHUNK, mesh=mesh,
                              **fleet_kw(name, problem, n_rounds, device,
                                         cap))
     if device == "cuda":
@@ -1989,11 +1998,13 @@ def scan_ms(dts, n_rounds=ROUNDS) -> float:
     return float(stamps[b] - stamps[a]) / (b - a) * 1e3
 
 
-def scan_phase(params0, problem, loop_runs, loop_ms) -> tuple[dict, list]:
+def scan_phase(params0, problem, loop_runs, loop_ms) -> tuple[dict, list,
+                                                               dict]:
     """The three paper paths of the main path under engine="scan" at full
     width, ROUNDS rounds in chunks of SCAN_CHUNK: each kernel launched once
     a replay plus once in the warm-up before capture, the run bit-equal to
-    its loop run, and its host ms a round beside the loop's."""
+    its loop run, and its host ms a round beside the loop's. Returns the
+    launches, the report rows and the scan runs (params, history, dts)."""
     from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
     from repro_torch.core import MIFA
     paths = {"mifa_array": (lambda: MIFA(memory="array"), "mifa_aggregate"),
@@ -2002,7 +2013,7 @@ def scan_phase(params0, problem, loop_runs, loop_ms) -> tuple[dict, list]:
              "banked_paged": (lambda: BankedMIFA(PagedDeviceBank(
                  page_size=PAGE_SIZE, device="cuda")),
                  "paged_bank_scatter")}
-    launches, rows = {}, []
+    launches, rows, runs = {}, [], {}
     for name, (make, kernel) in paths.items():
         cap = SCAN_CAP if name.startswith("banked") else None
         if cap is not None:     # the loop run at the scan's pinned width
@@ -2020,6 +2031,7 @@ def scan_phase(params0, problem, loop_runs, loop_ms) -> tuple[dict, list]:
         check(counts == want, f"scan {name}: launches {counts}, expected "
                               f"{want} (a replay a round and the warm-up)")
         launches[kernel] = counts[kernel]
+        runs[name] = (params, hist, dts)
         verdict = scan_equal(f"scan {name}", loop_runs[name],
                              (params, hist))
         width = "" if cap is None else f", cohorts pinned to {cap}"
@@ -2028,7 +2040,7 @@ def scan_phase(params0, problem, loop_runs, loop_ms) -> tuple[dict, list]:
                     f"clock, rounds {SCAN_CHUNK}-{ROUNDS - SCAN_CHUNK - 1}) "
                     f"vs loop {loop_ms[name]:.3f} ms/round (median, rounds "
                     f"10-{ROUNDS - 2}); {verdict}; launches {counts}")
-    return launches, rows
+    return launches, rows, runs
 
 
 def eviction_scan_phase() -> tuple[dict, list]:
@@ -2282,18 +2294,19 @@ def profiled_scan(params0, problem) -> list:
     return rows
 
 
-def fleet_scan_phase(problem, fleet_runs) -> tuple[dict, list]:
+def fleet_scan_phase(problem, fleet_runs) -> tuple[dict, list, dict]:
     """The Figure 2 fleets that can scan (no update clock: the dense-mask
     MIFA(array), BiasedFedAvg and FedAvgIS fleets and both cohort fleets,
     these pinned to SCAN_CAP on the scan and on a loop run of their own)
     under engine="scan", each bit-equal to its loop fleet, with its
     kernel launched once a replay plus once in the warm-up (MIFA(array):
-    once a trial)."""
+    once a trial). Returns the launches, the report rows and the scan
+    fleets (params, history, dts)."""
     from repro_torch.fleet import make_fleet_eval
     fleet_eval = make_fleet_eval(problem[0], problem[3].eval_batch,
                                  device="cuda")
     k_trials = len(FLEET_SEEDS)
-    launches, rows = {}, []
+    launches, rows, runs = {}, [], {}
     for name, (clock, _, kernel) in FIG2.items():
         if clock:
             continue
@@ -2313,6 +2326,7 @@ def fleet_scan_phase(problem, fleet_runs) -> tuple[dict, list]:
                               f"expected {want}")
         if kernel in ("bank_scatter_batched", "paged_bank_scatter_batched"):
             launches[kernel] = counts[kernel]
+        runs[name] = (params, hist, dts)
         check(all(np.array_equal(a, b) for a, b in zip(
             [loop[1].stacked()[k] for k in ("train_loss", "n_active")],
             [hist.stacked()[k] for k in ("train_loss", "n_active")])),
@@ -2323,6 +2337,82 @@ def fleet_scan_phase(problem, fleet_runs) -> tuple[dict, list]:
                     f"{scan_ms(dts, FLEET_ROUNDS):.3f} ms/round vs loop "
                     f"{np.median(loop[2][10:]) * 1e3:.3f}; {verdict}; "
                     f"launches {counts}")
+    return launches, rows, runs
+
+
+# the paths the mesh phase runs on a 1x1 mesh, with the kernel each
+# launches: the two single-run paths of the scan phase and one fleet
+MESH_PATHS = {"mifa_array": "mifa_aggregate", "banked_dense": "bank_scatter",
+              "fleet banked_dense": "bank_scatter_batched"}
+
+
+def mesh_phase(params0, problem, scan_runs, fleet_scan_runs,
+               smi) -> tuple[dict, list]:
+    """`run_fl(mesh=)` and `run_fleet(mesh=)` on the card: a gloo world of
+    one rank from a `HashStore` (no TCP rendezvous), a 1x1
+    `make_host_mesh(device="cuda")`, and the scan phase's runs again on
+    it: MIFA(array), BankedMIFA(DenseBank()) (a mesh-less bank, which the
+    run hands its mesh) and the Figure 2 dense-bank fleet. At data extent
+    1 nothing is split and no collective is issued, so each must be
+    bit-equal to its scan run without a mesh, with the same launches
+    (a replay a round and the warm-up). Returns the launches of each
+    kernel and the report rows."""
+    import torch.distributed as dist
+    from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.core import MIFA
+    from repro_torch.fleet import make_fleet_eval
+    from repro_torch.launch.mesh import make_host_mesh
+    check(not dist.is_initialized(), "mesh phase: a process group is "
+                                     "already initialised")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    launches, rows = {}, []
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        fleet_eval = make_fleet_eval(problem[0], problem[3].eval_batch,
+                                     device="cuda")
+        for name, kernel in MESH_PATHS.items():
+            reset_counts()
+            if name.startswith("fleet"):
+                rounds, ref = FLEET_ROUNDS, fleet_scan_runs["banked_dense"]
+                params, hist, dts = run_fig2_fleet(
+                    "banked_dense", problem, rounds, "cuda", fleet_eval,
+                    engine="scan", cap=SCAN_CAP, mesh=mesh)
+            else:
+                rounds, ref = ROUNDS, scan_runs[name]
+                algo = (MIFA(memory="array") if name == "mifa_array"
+                        else BankedMIFA(DenseBank(device="cuda")))
+                cap = SCAN_CAP if name == "banked_dense" else None
+                params, hist, dts = run_path(
+                    name, algo, problem, params0, rounds, "cuda", rounds,
+                    engine="scan", cohort_capacity=cap, mesh=mesh)
+                if name == "banked_dense":
+                    check(algo.bank.mesh is mesh and algo.bank.shard is None
+                          and algo.bank.n_rows == N_CLIENTS + 1,
+                          "mesh banked_dense: the bank did not take the "
+                          "run's 1x1 mesh as one whole block")
+            counts = read_counts()
+            want = {k: rounds + 1 if k == kernel else 0 for k in counts}
+            check(counts == want, f"mesh {name}: launches {counts}, "
+                                  f"expected {want}")
+            launches[kernel] = counts[kernel]
+            d_loss, d_param = run_gaps(ref[:2], (params, hist))
+            check(d_loss == 0 and d_param == 0 and np.array_equal(
+                np.asarray(ref[1].n_active), np.asarray(hist.n_active)),
+                  f"mesh {name}: not bit-equal to its scan run without a "
+                  f"mesh: |dloss| {d_loss:.3e}, |dparam| {d_param:.3e}")
+            rows.append(
+                f"mesh {name}: {rounds} rounds in chunks of {SCAN_CHUNK} on "
+                f"a 1x1 DeviceMesh (gloo, world of 1), "
+                f"{scan_ms(dts, rounds):.3f} ms/round vs "
+                f"{scan_ms(ref[2], rounds):.3f} without a mesh (host clock, "
+                f"rounds {SCAN_CHUNK}-{rounds - SCAN_CHUNK - 1}); bit-equal "
+                f"to it; launches {counts}; {smi}")
+    finally:
+        dist.destroy_process_group()
+    rows.append(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -5078,12 +5168,19 @@ def main() -> int:
 
     # the scan engine: the paper paths, eviction, int8 memory and the
     # fleets again, each round a replay of one captured CUDA graph
-    scan_launches, rows = scan_phase(params0, problem, main_runs, loop_ms)
+    scan_launches, rows, scan_runs = scan_phase(params0, problem, main_runs,
+                                                loop_ms)
     evict_scan_counts, more = eviction_scan_phase()
     scan_launches["paged_bank_gather"] = evict_scan_counts[
         "paged_bank_gather"]
-    fleet_scan_launches, fleet_rows = fleet_scan_phase(problem, fleet_runs)
+    fleet_scan_launches, fleet_rows, fleet_scan_runs = fleet_scan_phase(
+        problem, fleet_runs)
     scan_launches.update(fleet_scan_launches)
+    # meshes: the scan runs again on a 1x1 mesh, bit-equal
+    mesh_launches, mesh_rows = mesh_phase(params0, problem, scan_runs,
+                                          fleet_scan_runs, smi)
+    fleet_rows += mesh_rows
+    del scan_runs, fleet_scan_runs
     for row in (rows + more + int8_phase(params0, problem,
                                          main_runs["mifa_array"])
                 + profiled_scan(params0, problem) + fleet_rows):
@@ -5194,6 +5291,15 @@ def main() -> int:
         "paged_bank_scatter_batched":
             f"scan Figure 2 fleet BankedMIFA(PagedDeviceBank), "
             f"{FLEET_ROUNDS} rounds"}
+    # the mesh phase's runs on a 1x1 mesh, each counted from 0 just before
+    mesh_from = {
+        "mifa_aggregate": f"mesh MIFA(array), 1x1 mesh, {ROUNDS} rounds "
+                          "(scan)",
+        "bank_scatter": f"mesh BankedMIFA(DenseBank), 1x1 mesh, {ROUNDS} "
+                        "rounds (scan)",
+        "bank_scatter_batched": f"mesh Figure 2 fleet BankedMIFA("
+                                f"DenseBank), K=3, 1x1 mesh, "
+                                f"{FLEET_ROUNDS} rounds (scan)"}
     # the scenario path's loop runs, each counted from 0 just before it
     scen_from = {
         "mifa_aggregate": f"scenario MIFA(array) under gilbert_elliott, "
@@ -5237,6 +5343,9 @@ def main() -> int:
         scan = ({"scan_launches": scan_launches[name],
                  "scan_launches_from": scan_from[name]}
                 if name in scan_launches else {})
+        if name in mesh_launches:
+            scan.update(mesh_launches=mesh_launches[name],
+                        mesh_launches_from=mesh_from[name])
         if name in scen_launches:
             scan.update(scenario_launches=scen_launches[name],
                         scenario_launches_from=scen_from[name])

@@ -11,12 +11,18 @@ The round takes its cohort staged: the runner pads it on the host, checks
 it, pages it in (`prepare_cohort`) and maps it to the bank's row index
 (`bank.stage_rows`); the round itself is device work only, so the scan
 engine can capture it as a CUDA graph.
+
+Under a mesh of data extent > 1 the bank (`DenseBank(mesh=)`) holds the
+rank's block of rows; the round takes the cohort slots whose rows the rank
+owns (`round_step_cohort(clients=)`, the bank's `shard`), and the loss and
+n_active span the data group.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.bank.base import MemoryBank
+from repro_torch.sharding.clients import LOCAL
 
 
 class BankedMIFA:
@@ -46,17 +52,19 @@ class BankedMIFA:
 
     def round_step_cohort(self, state: dict, rows: torch.Tensor,
                           valid: torch.Tensor, updates,
-                          losses: torch.Tensor, rng=None):
+                          losses: torch.Tensor, rng=None, clients=None):
         """rows (C,): the padded cohort as `bank.stage_rows` maps it, and
         valid (C,) bool, on the run's device; updates/losses for the padded
-        cohort. `rng` is the generator `round_rng` names. Returns
+        cohort. `rng` is the generator `round_rng` names. With `clients`
+        (the bank's `shard`) the slots are those the rank owns. Returns
         (new_state, mean_G, metrics)."""
+        ax = clients or LOCAL
         bank_state = self.bank.scatter_staged(state["bank"], rows, valid,
                                               updates, rng=rng)
         mean_g = self.bank.mean_g(bank_state)
         v = valid.float()
-        loss = (losses * v).sum() / v.sum().clamp(min=1.0)
-        metrics = {"loss": loss, "n_active": v.sum()}
+        loss = ax.total(losses * v) / ax.total(v).clamp(min=1.0)
+        metrics = {"loss": loss, "n_active": ax.total(v)}
         return ({"bank": bank_state, "t": state["t"] + 1}, mean_g, metrics)
 
     def round_step_cohort_fleet(self, state: dict, rows: torch.Tensor,

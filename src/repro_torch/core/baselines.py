@@ -45,7 +45,11 @@ The competing memorisation / reweighting mechanisms of the related work:
                         chain mixes too slowly are excluded.
 
 Like the reference's plain `jnp`, these are plain tensor ops: no TPU kernel
-stands behind them. The `assumes` tag names the availability regime each
+stands behind them. Each `round_step` takes `clients=` (a
+`sharding.clients.ClientShard`) under a mesh of data extent > 1: its
+per-client state, updates, losses, mask and draw are then the rank's block
+of the client axis, and every reduction over clients spans the data
+group. The `assumes` tag names the availability regime each
 mechanism needs: 'arbitrary' (Assumption 4 only), 'iid_known_probs',
 'stationary_mixing' or 'none'.
 """
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mifa import _bcast
+from repro_torch.sharding.clients import LOCAL
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -66,9 +71,10 @@ def _apply(params, mean_g, eta: float):
     return tree_map(lambda w, g: (w - eta * g).to(w.dtype), params, mean_g)
 
 
-def _active_loss(losses: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+def _active_loss(losses: torch.Tensor, act: torch.Tensor,
+                 ax=LOCAL) -> torch.Tensor:
     """Mean local loss of the active devices (0 when none is active)."""
-    return (losses * act).sum() / act.sum().clamp(min=1.0)
+    return ax.total(losses * act) / ax.total(act).clamp(min=1.0)
 
 
 def _zero_count(device) -> torch.Tensor:
@@ -87,14 +93,15 @@ class BiasedFedAvg:
         return {"t": _zero_count(_device_of(params))}
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
+                   rng=None, clients=None):
+        ax = clients or LOCAL
         act = active.float()
-        denom = act.sum().clamp(min=1.0)
-        mean_g = tree_map(lambda u: (u * _bcast(act, u)).sum(0) / denom,
+        denom = ax.total(act).clamp(min=1.0)
+        mean_g = tree_map(lambda u: ax.sum(u * _bcast(act, u)) / denom,
                           updates)
         return ({"t": state["t"] + 1}, _apply(params, mean_g, eta),
-                {"loss": (losses * act).sum() / denom,
-                 "n_active": act.sum()})
+                {"loss": ax.total(losses * act) / denom,
+                 "n_active": ax.total(act)})
 
 
 @dataclass(frozen=True)
@@ -113,15 +120,16 @@ class FedBuffAvg:
         return {"t": _zero_count(_device_of(params))}
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
+                   rng=None, clients=None):
+        ax = clients or LOCAL
         w = active.float()
         contrib = (w > 0).float()
-        denom = contrib.sum().clamp(min=1.0)
-        mean_g = tree_map(lambda u: (u * _bcast(w, u)).sum(0) / denom,
+        denom = ax.total(contrib).clamp(min=1.0)
+        mean_g = tree_map(lambda u: ax.sum(u * _bcast(w, u)) / denom,
                           updates)
         return ({"t": state["t"] + 1}, _apply(params, mean_g, eta),
-                {"loss": (losses * contrib).sum() / denom,
-                 "n_active": contrib.sum()})
+                {"loss": ax.total(losses * contrib) / denom,
+                 "n_active": ax.total(contrib)})
 
 
 @dataclass(frozen=True)
@@ -152,17 +160,19 @@ class FedAvgIS:
                                       device=dev)}
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
+                   rng=None, clients=None):
+        ax = clients or LOCAL
         act = active.float()
         p = state["probs"]
         w_is = torch.where(p > 0, act / p.clamp(min=1e-12),
                            torch.zeros_like(p))
-        n = act.shape[0]
-        mean_g = tree_map(lambda u: (u * _bcast(w_is, u)).sum(0) / n,
+        n = ax.n(act)
+        mean_g = tree_map(lambda u: ax.sum(u * _bcast(w_is, u)) / n,
                           updates)
         return ({"t": state["t"] + 1, "probs": p},
                 _apply(params, mean_g, eta),
-                {"loss": _active_loss(losses, act), "n_active": act.sum()})
+                {"loss": _active_loss(losses, act, ax),
+                 "n_active": ax.total(act)})
 
 
 @dataclass(frozen=True)
@@ -190,17 +200,19 @@ class FedAR:
                 "t": _zero_count(dev)}
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
+                   rng=None, clients=None):
+        ax = clients or LOCAL
         act = active.float()
         U = tree_map(lambda u_old, u: torch.where(_bcast(active, u), u, u_old),
                      state["U"], updates)
         tau = torch.where(active, 0, state["tau"] + 1)
         alpha = torch.pow(self.decay, tau.float())
-        denom = alpha.sum().clamp(min=1.0)
-        mean_g = tree_map(lambda u: (u * _bcast(alpha, u)).sum(0) / denom, U)
+        denom = ax.total(alpha).clamp(min=1.0)
+        mean_g = tree_map(lambda u: ax.sum(u * _bcast(alpha, u)) / denom, U)
         return ({"U": U, "tau": tau, "t": state["t"] + 1},
                 _apply(params, mean_g, eta),
-                {"loss": _active_loss(losses, act), "n_active": act.sum()})
+                {"loss": _active_loss(losses, act, ax),
+                 "n_active": ax.total(act)})
 
 
 @dataclass(frozen=True)
@@ -235,7 +247,8 @@ class CAFed:
                 "t": _zero_count(dev)}
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None):
+                   rng=None, clients=None):
+        ax = clients or LOCAL
         act = active.float()
         rho = self.rho
         pi_hat = state["pi_hat"] + rho * (act - state["pi_hat"])
@@ -248,16 +261,16 @@ class CAFed:
                               + rho * ((1.0 - act) - state["stay_dn"]))
         incl = (stay_dn <= self.d_max).float()
         # never let the exclusion rule empty the cohort entirely
-        incl = torch.where(incl.sum() > 0, incl, torch.ones_like(incl))
+        incl = torch.where(ax.total(incl) > 0, incl, torch.ones_like(incl))
         w = incl * act / pi_hat.clamp(self.pi_min, 1.0)
-        denom = incl.sum().clamp(min=1.0)
-        mean_g = tree_map(lambda u: (u * _bcast(w, u)).sum(0) / denom,
+        denom = ax.total(incl).clamp(min=1.0)
+        mean_g = tree_map(lambda u: ax.sum(u * _bcast(w, u)) / denom,
                           updates)
         new_state = {"pi_hat": pi_hat, "stay_up": stay_up,
                      "stay_dn": stay_dn, "prev": active,
                      "t": state["t"] + 1}
         return new_state, _apply(params, mean_g, eta), {
-            "loss": _active_loss(losses, act), "n_active": act.sum()}
+            "loss": _active_loss(losses, act, ax), "n_active": ax.total(act)}
 
 
 @dataclass(frozen=True)
@@ -292,9 +305,11 @@ class FedAvgSampling:
         return self._resample(rng, n).numpy()
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None, draw=None):
+                   rng=None, draw=None, clients=None):
         """`draw` is this round's `host_draw` on the params' device; without
-        it the selection is drawn from the CPU round generator `rng`."""
+        it the selection is drawn from the CPU round generator `rng` (not
+        under `clients`, whose block of the draw comes in `draw`)."""
+        ax = clients or LOCAL
         n = active.shape[0]
         if draw is None:
             if rng is None:
@@ -311,10 +326,10 @@ class FedAvgSampling:
         U = tree_map(lambda u_old, u: torch.where(_bcast(newly, u), u, u_old),
                      state["U"], updates)
         received = received | newly
-        complete = (~selected | received).all()
+        complete = ax.all(~selected | received)
 
         sel = selected.float()
-        mean_g = tree_map(lambda u: (u * _bcast(sel, u)).sum(0) / self.s, U)
+        mean_g = tree_map(lambda u: ax.sum(u * _bcast(sel, u)) / self.s, U)
         new_params = tree_map(
             lambda w, g: torch.where(complete, (w - eta * g).to(w.dtype), w),
             params, mean_g)
@@ -324,7 +339,7 @@ class FedAvgSampling:
                      "t": state["t"] + 1, "t_updates": t_updates,
                      "need_resample": complete}
         return new_state, new_params, {
-            "loss": _active_loss(losses, act), "n_active": act.sum(),
+            "loss": _active_loss(losses, act, ax), "n_active": ax.total(act),
             "global_updates": t_updates.float()}
 
 
@@ -356,18 +371,20 @@ class SCAFFOLDSampling:
         return FedAvgSampling(self.s).host_draw(rng, n)
 
     def round_step(self, state, params, updates, losses, active, eta,
-                   rng=None, draw=None):
+                   rng=None, draw=None, clients=None):
+        ax = clients or LOCAL
         if rng is None and draw is None:
             raise ValueError("SCAFFOLDSampling needs the round generator "
                              "(rng=) or the round's draw (draw=) to sample "
                              "devices")
-        n = active.shape[0]
+        n = ax.n(active)
         k = float(self.k_steps)
         vr_updates = tree_map(lambda u, ci, c: u - k * (ci - c[None]),
                               updates, state["c_i"], state["c"])
         sub = {key: state[key] for key in _SAMPLING_KEYS}
         new_sub, new_params, metrics = FedAvgSampling(self.s).round_step(
-            sub, params, vr_updates, losses, active, eta, rng, draw)
+            sub, params, vr_updates, losses, active, eta, rng, draw,
+            clients=clients)
 
         complete = new_sub["need_resample"]
         sel = new_sub["selected"]
@@ -381,7 +398,7 @@ class SCAFFOLDSampling:
         dc = tree_map(lambda cin, ci: (cin - ci) * _bcast(sel32, cin),
                       c_i_new, state["c_i"])
         c_new = tree_map(
-            lambda c, d: torch.where(complete, c + d.sum(0) / n, c),
+            lambda c, d: torch.where(complete, c + ax.sum(d) / n, c),
             state["c"], dc)
         new_state = dict(new_sub)
         new_state["c_i"] = tree_map(

@@ -23,6 +23,13 @@ Dense memory layouts (counterpart of `repro/core/mifa.py`):
 CUDA graph that captures one must not freeze a Python float) or a Python
 float.
 
+Under a mesh of data extent > 1 (`round_step(clients=)`, a
+`sharding.clients.ClientShard`) the state holds the rank's block of the
+client axis: each rank writes its active rows and takes its f32 partial
+column sum, the sums are all-reduced over the data group, then w moves.
+Such worlds run on the CPU (the plain versions); the int8 layout is not
+split (its rounding draws over the whole array).
+
 For O(|A(t)|·d) cohort rounds use `repro_torch.bank.BankedMIFA`.
 """
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.core import quantized_memory as qm
 from repro_torch.kernels.ops import mifa_aggregate_tree
+from repro_torch.sharding.clients import LOCAL
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -87,20 +95,38 @@ class MIFA:
                 "t": t}
 
     def round_step(self, state: dict, params, updates, losses: torch.Tensor,
-                   active: torch.Tensor, eta: float, rng=None):
+                   active: torch.Tensor, eta: float, rng=None, clients=None):
         """updates: tree (N, ...) f32 — fresh K-step updates for ALL clients
         (the active mask selects which are used). `active` (N,) bool on the
         params' device. `rng` is the run's device generator for int8
         memory and unused otherwise. On the card the array layout updates
-        G in place; the state passed in must not be reused.
+        G in place; the state passed in must not be reused. With `clients`
+        (a `ClientShard`) the state, updates, losses and mask are the
+        rank's block of the client axis, and the reductions span the data
+        group.
         """
+        ax = clients or LOCAL
         act = active.float()
-        n = act.shape[0]
-        if self.memory == "array":
+        n = ax.n(act)
+        if self.memory == "array" and clients is None:
             G, new_params = mifa_aggregate_tree(state["G"], updates, active,
                                                 params, eta)
             new_state = {"G": G, "t": state["t"] + 1}
+        elif self.memory == "array":
+            # the plain server step on the block, its column sum all-reduced
+            G = tree_map(lambda g, u: torch.where(_bcast(active, u),
+                                                  u.to(g.dtype), g),
+                         state["G"], updates)
+            new_params = tree_map(
+                lambda w, g: (w.float() - eta * (ax.sum(g.float()) / n)).to(
+                    w.dtype), params, G)
+            new_state = {"G": G, "t": state["t"] + 1}
         elif self.memory == "int8":
+            if clients is not None:
+                raise NotImplementedError(
+                    "MIFA(memory='int8') with its client axis split over "
+                    "data ranks: the stochastic rounding draws over the "
+                    "whole array, so a rank's block would draw other bits")
             if rng is None:
                 raise ValueError("int8 memory needs the run's device "
                                  "generator (rng=) for its rounding")
@@ -117,7 +143,7 @@ class MIFA:
             # Ḡ_t = Ḡ_{t-1} + (1/N) Σ_{i∈A} (G^i_t − G^i_{t'_i})
             deltas = tree_map(lambda u, gp: (u - gp.float()) * _bcast(act, u),
                               updates, state["G_prev"])
-            G_bar = tree_map(lambda gb, d: gb + d.sum(0) / n,
+            G_bar = tree_map(lambda gb, d: gb + ax.sum(d) / n,
                              state["G_bar"], deltas)
             G_prev = tree_map(
                 lambda gp, u: torch.where(_bcast(active, u), u.to(gp.dtype),
@@ -127,5 +153,6 @@ class MIFA:
                                   params, G_bar)
             new_state = {"G_prev": G_prev, "G_bar": G_bar,
                          "t": state["t"] + 1}
-        loss = (losses * act).sum() / act.sum().clamp(min=1.0)
-        return new_state, new_params, {"loss": loss, "n_active": act.sum()}
+        loss = ax.total(losses * act) / ax.total(act).clamp(min=1.0)
+        return new_state, new_params, {"loss": loss,
+                                       "n_active": ax.total(act)}

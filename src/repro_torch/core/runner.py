@@ -58,8 +58,14 @@ Windowed scenarios (trace replay, `scenarios.trace_replay`) carry a
 window of masks in the scenario state; the loop re-points it between
 rounds when the round leaves it (the scan engine between chunks).
 Checkpoints (`run_fl(checkpoint=)`, `checkpoint.run_state`) ride the scan
-engine's chunk cuts. Not ported yet: meshes (`mesh=`, ROADMAP Queue 1 item
-19).
+engine's chunk cuts.
+
+Meshes (`run_fl(mesh=, cfg=)`, `launch.mesh`, `sharding`) place the scan
+engine's carry (`core.scan_engine`, "Meshes"). The reference's
+`warn_legacy_threefry` has no counterpart: it warns when JAX's legacy,
+sharding-dependent threefry lowering is on, and the port draws only the
+partitionable stream (`scenarios._threefry`), whose masks do not depend
+on the mesh.
 """
 from __future__ import annotations
 
@@ -199,7 +205,7 @@ def to_device(tree, device: torch.device):
 
 def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                     cohort: bool, rng=None, scen_fn=None,
-                    track_tau: bool = False):
+                    track_tau: bool = False, clients=None):
     """One round as a function of device tensors only:
     ``body(state, params, x) -> (state, params, metrics)``.
 
@@ -219,28 +225,55 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
     carries ``tau`` and ``tau_max`` ((N,) int32, updated as `TauStats`
     updates them) and the metrics ``tau_sum`` and ``tau_sq_sum`` (int64),
     so the scan engine keeps the τ statistics on the device.
+
+    With `clients` (a `sharding.clients.ClientShard`, under a mesh of data
+    extent > 1) each rank trains only the clients it owns, on the batch
+    every rank stages whole: the dense body takes the rank's block of the
+    batch, the mask and any draw, and passes `clients=` to `round_step`;
+    the cohort body (`clients` the bank's row shard) takes the cohort slots
+    whose rows the rank owns. The reductions span the data group, so every
+    rank computes the same params and metrics.
     """
     _, local_ph, server_ph = ROUND_PHASES
     host_draw = hasattr(algo, "host_draw")
+    sharded = {} if clients is None else {"clients": clients}
 
     def updates_of(params, x):
         with record_function(local_ph):
+            if cohort and not len(x["valid"]):
+                # no slot of the cohort is this rank's
+                return (tree_map(lambda p: p.new_zeros(
+                            (0,) + tuple(p.shape), dtype=torch.float32),
+                            params), x["eta_loc"].new_zeros(0))
             return client_updates(model.loss_fn, params, x["batch"],
                                   x["eta_loc"], K=k_steps,
                                   weight_decay=weight_decay)
 
     def dense(state, params, x):
+        if clients is not None:
+            x = {**x, "batch": tree_map(clients.block, x["batch"]),
+                 "active": clients.block(x["active"])}
+            if host_draw:
+                x["draw"] = clients.block(x["draw"])
         updates, losses = updates_of(params, x)
         with record_function(server_ph):
             kw = {"draw": x["draw"]} if host_draw else {}
             return algo.round_step(state, params, updates, losses,
-                                   x["active"], x["eta_srv"], rng=rng, **kw)
+                                   x["active"], x["eta_srv"], rng=rng,
+                                   **kw, **sharded)
 
     def cohort_round(state, params, x):
+        if clients is not None:
+            rows = x["rows"]
+            mine = torch.nonzero(x["valid"] & (rows >= clients.lo)
+                                 & (rows < clients.hi)).flatten()
+            x = {**x, "batch": tree_map(lambda v: v[mine], x["batch"]),
+                 "rows": rows[mine], "valid": x["valid"][mine]}
         updates, losses = updates_of(params, x)
         with record_function(server_ph):
             state, mean_g, metrics = algo.round_step_cohort(
-                state, x["rows"], x["valid"], updates, losses, rng=rng)
+                state, x["rows"], x["valid"], updates, losses, rng=rng,
+                **sharded)
             return state, apply_mean(params, mean_g, x["eta_srv"]), metrics
 
     def scenario_round(state, params, x):
@@ -492,13 +525,6 @@ class RoundRunner:
         return self.params, self.hist
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item}); the port runs "
-                               "participation=, scenario= and sim= on the "
-                               "loop and scan engines")
-
-
 ENGINES = ("loop", "scan", "scan_strict")
 
 
@@ -509,7 +535,7 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
            eval_fn: Callable | None = None, eval_every: int = 10,
            params=None, uses_update_clock: bool = False,
            cohort_capacity: int | None = None, engine: str = "loop",
-           scan_chunk: int = 64, checkpoint=None, mesh=None,
+           scan_chunk: int = 64, checkpoint=None, mesh=None, cfg=None,
            verbose: bool = False,
            device: str | torch.device = DEFAULT_DEVICE
            ) -> tuple[Any, FLHistory]:
@@ -563,11 +589,22 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     yes; otherwise, and always under "loop", the discrete-event heap
     engine (`sim.engine.FedSimEngine`) does, with a warning naming the
     blocker under "scan" and a raise under "scan_strict".
+
+    `mesh` (scan engines only; a `launch.mesh` mesh) places the scan
+    engine's carry by `sharding.rules.scan_carry_specs`: params by the
+    model rules when `cfg` (an `ArchConfig`) is given, which must keep
+    them whole on every rank; MIFA's update array and bank rows with the
+    client axis over the mesh's data axes. A `DenseBank` constructed
+    without its own mesh inherits `mesh` and `cfg`, so its rows pad to
+    divide the data extent (`sharding.rules.padded_bank_rows`). At data
+    extent 1 the run is bit-equal to the run without a mesh; at data
+    extent > 1 (a world of CPU ranks) the client-axis sums are reduced
+    per rank and all-reduced, so trajectories match the single-rank run
+    to fp32 reduction-order tolerance, with the masks, n_active and τ
+    statistics exact. `cfg` without a mesh changes nothing.
     """
     if (participation is None) == (scenario is None):
         raise ValueError("pass exactly one of participation= or scenario=")
-    if mesh is not None:
-        raise _not_ported("mesh=", "19")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: expected 'loop', "
                          "'scan', or 'scan_strict'")
@@ -580,6 +617,21 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
             raise ValueError("checkpoint= rides the scan engine's chunk "
                              "boundaries; pass engine='scan' (or "
                              "'scan_strict')")
+    if mesh is not None:
+        if engine == "loop":
+            raise ValueError("mesh= places the scan carry; it has no effect "
+                             "under engine='loop' — pass engine='scan'")
+        if sim is not None:
+            raise ValueError("mesh= is not supported for simulated runs "
+                             "(the compiled simulator carry has no "
+                             "sharding rules yet)")
+        # banks build their rows inside RoundRunner.__init__ (algo.init_state
+        # -> bank.init), so a mesh-less bank inherits the run's mesh here
+        bank = getattr(algo, "bank", None)
+        if (bank is not None and hasattr(bank, "mesh")
+                and bank.mesh is None):
+            bank.mesh = mesh
+            bank.cfg = cfg if getattr(bank, "cfg", None) is None else bank.cfg
     runner = RoundRunner(model=model, algo=algo, batcher=batcher,
                          schedule=schedule, eta_local=eta_local,
                          weight_decay=weight_decay, seed=seed, params=params,
@@ -608,7 +660,8 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         ok, why = scan_supported(runner)
         if ok:
             t0 = time.time()
-            ScanDriver(runner, scan_chunk=scan_chunk).run(
+            ScanDriver(runner, scan_chunk=scan_chunk, mesh=mesh,
+                       cfg=cfg).run(
                 n_rounds, participation=participation, eval_fn=eval_fn,
                 eval_every=eval_every, verbose=verbose,
                 checkpoint=checkpoint, start_round=start_round)
@@ -621,6 +674,10 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
                 f"checkpoint= needs the scan engine, but this "
                 f"configuration cannot scan ({why}); refusing to fall "
                 "back and silently drop durability")
+        if mesh is not None:
+            raise ValueError(f"engine='scan' with mesh= cannot fall back "
+                             f"to the per-round loop (the loop ignores "
+                             f"mesh); blocker: {why}")
         warn_engine_fallback(
             f"engine='scan' unsupported for this configuration "
             f"({why}); falling back to the per-round loop")

@@ -67,9 +67,29 @@ Checkpoints (`run(checkpoint=)`): every `checkpoint.every` rounds is a
 chunk cut and a sync round; after the chunk's flush `checkpoint.save_run`
 copies the carry to the host before the next chunk is queued (the replays
 overwrite the carry in place). `start_round` continues a restored run.
+
+Meshes (`ScanDriver(mesh=, cfg=)`, from `run_fl(mesh=, cfg=)`): the carry
+is placed by `sharding.rules.scan_carry_specs`. Params must be whole on
+every rank (`param_specs` with `cfg`; the paper models' specs are all
+replicated). At data extent D > 1, on CPU ranks (`sharding.clients`):
+  * the O(N·d) leaves — the algorithm state's client-indexed leaves (the
+    update array, per-client vectors) and a `DenseBank(mesh=)`'s rows —
+    are held as this rank's block of the client axis;
+  * the O(N) leaves of the scenario and the τ statistics (the chain state,
+    `tau`, `tau_max`) are held whole on every rank: every rank draws the
+    same masks for all N clients with `_threefry` and keeps the same τ
+    vectors, so no collective is needed for them;
+  * every rank stages the same batches; each trains only the clients it
+    owns, and the server step's reductions (the update sums, loss,
+    n_active) are all-reduced over the data group, so every rank returns
+    the same params and history.
+At data extent 1 (every mesh on the card) nothing is split and no
+collective is issued: the run is the mesh-less run, bit for bit, with the
+same kernels and the same captured round.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import numpy as np
@@ -78,6 +98,8 @@ import torch
 from repro_torch.core.runner import RoundRunner, _pow2_bucket, make_round_body
 from repro_torch.core.runner import pad_cohort as runner_pad_cohort
 from repro_torch.kernels.ops import launch_counters
+from repro_torch.sharding.clients import check_params_whole, client_shard
+from repro_torch.sharding.rules import data_axis_size, scan_carry_specs
 from repro_torch.tree import tree_leaves, tree_map
 
 # metrics a round body reports, in the order the chunk buffer stores them
@@ -386,14 +408,18 @@ class ScanDriver:
     statistics are current after `run`, and `runner.finalize()` works
     unchanged. `replays` and `staged_bytes` count the captured rounds run
     and the bytes staged. A runner with a scenario and a dense algorithm
-    runs in scenario mode (module docstring).
+    runs in scenario mode (module docstring). `mesh` (and `cfg`) place the
+    carry (module docstring, "Meshes"); `clients` is then this rank's
+    block of the client axis, None where nothing is split.
     """
 
-    def __init__(self, runner: RoundRunner, *, scan_chunk: int = 64):
+    def __init__(self, runner: RoundRunner, *, scan_chunk: int = 64,
+                 mesh=None, cfg=None):
         if scan_chunk < 1:
             raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
         self.r = r = runner
         self.scan_chunk = scan_chunk
+        self.clients = None if mesh is None else self._place(mesh, cfg)
         if r.cohort_mode:
             # one shape for every round: unpinned runs pad to the N-client
             # bucket (the loop's per-round buckets vary)
@@ -415,11 +441,13 @@ class ScanDriver:
         self._seg = None
         self._win_start = None
         body = r.body
-        if self.scenario_mode:
+        if self.scenario_mode or self.clients is not None:
             body = make_round_body(
                 r.model, r.algo, r.batcher.k_steps, r.weight_decay,
-                cohort=False, rng=r.round_rng,
-                scen_fn=r.scen_process.sample_fn(), track_tau=True)
+                cohort=r.cohort_mode, rng=r.round_rng,
+                scen_fn=(r.scen_process.sample_fn() if self.scenario_mode
+                         else None),
+                track_tau=self.scenario_mode, clients=self.clients)
         # the body draws from the device generator only if the algorithm
         # names it; then the graph must own it
         gens = (r.device_rng,) if r.round_rng is r.device_rng else ()
@@ -433,6 +461,41 @@ class ScanDriver:
     @property
     def staged_bytes(self) -> int:
         return self.chunks.staged_bytes
+
+    def _place(self, mesh, cfg):
+        """Place the runner's carry under `mesh`; returns the block of the
+        client axis the round body reduces over (None: nothing split)."""
+        r = self.r
+        specs = scan_carry_specs({"state": r.state, "params": r.params},
+                                 mesh, cfg=cfg, n_clients=r.n_clients)
+        check_params_whole(specs["params"], mesh)
+        if r.cohort_mode:
+            from repro_torch.bank.dense import DenseBank
+            bank = r.algo.bank
+            if data_axis_size(mesh) == 1:
+                return None
+            if not isinstance(bank, DenseBank):
+                raise NotImplementedError(
+                    f"{type(bank).__name__} rows split over data ranks: "
+                    "only DenseBank(mesh=) shards its rows")
+            if bank.mesh is None:
+                raise ValueError(
+                    "the DenseBank was laid out without the mesh: build it "
+                    "with DenseBank(mesh=) or let run_fl(mesh=) pass its "
+                    "mesh to it")
+            return bank.shard
+        shard = client_shard(mesh, r.n_clients, r.device)
+        if shard is None:
+            return None
+        if "clients" not in inspect.signature(
+                r.algo.round_step).parameters:
+            raise NotImplementedError(
+                f"{type(r.algo).__name__}.round_step takes no clients=: "
+                "its client axis cannot be split over data ranks")
+        r.state = tree_map(lambda leaf, spec: (
+            shard.block(leaf).clone() if spec and spec[0] is not None
+            else leaf), r.state, specs["state"])
+        return shard
 
     def _build_xs(self, t0: int, t1: int, participation):
         r = self.r
@@ -530,6 +593,10 @@ class ScanDriver:
         if participation is None and r.scen_process is None:
             raise ValueError("ScanDriver.run needs participation= or a "
                              "runner constructed with scenario=")
+        if checkpoint is not None and self.clients is not None:
+            raise NotImplementedError(
+                "checkpoint= of a run whose state is split over data ranks "
+                "(each rank would snapshot its block)")
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
         ckpts = set()
         if checkpoint is not None:

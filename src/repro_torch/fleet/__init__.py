@@ -5,4 +5,4 @@ from repro_torch.fleet.executor import (FleetHistory, FleetRunner,  # noqa: F401
                                         make_fleet_eval, run_fleet)
 from repro_torch.fleet.sim import SimTrial, run_sim_fleet  # noqa: F401
 from repro_torch.fleet.spec import (FleetSpec, Trial,  # noqa: F401
-                                    _not_ported, expand_grid)
+                                    expand_grid)

@@ -43,7 +43,18 @@ captured as a CUDA graph, per trial bit-equal to the loop.
 Windowed scenarios (trace replay, and elastic fleets over it): the
 trials' stacked (K, W, N) window is re-pointed in place between rounds on
 the loop and between chunks on the scan; every trial of a group shares one
-window length. Not ported yet: meshes (`mesh=`, ROADMAP Queue 1 item 19).
+window length.
+
+Meshes (`FleetRunner(mesh=, cfg=)`, `run_fleet(mesh=, cfg=)`): the trial
+axis is split over the mesh's data ranks, as the reference shards it
+(`sharding.rules.fleet_trial_specs` / `fleet_axis_specs`). At data extent
+D > 1 (a world of CPU ranks, `sharding.clients`) each rank builds and runs
+only its block of K / D trials, on either engine; masks are drawn for all
+K trials and each rank keeps its rows. `finalize` gathers the params, the
+per-trial state and the history over the data group, so every rank
+returns all K. A K that D does not divide is replicated (`sanitize`):
+every rank runs every trial. At data extent 1 nothing changes. Params
+must be whole on every rank (`cfg`'s specs).
 """
 from __future__ import annotations
 
@@ -66,10 +77,13 @@ from repro_torch.core.runner import (ENGINES, ROUND_PHASES, FLHistory,
 from repro_torch.core.scan_engine import (ChunkRunner, _eval_rounds,
                                           chunk_bounds, pad_cohort,
                                           run_pipelined_chunks)
-from repro_torch.fleet.spec import FleetSpec, Trial, _not_ported
+from repro_torch.fleet.spec import FleetSpec, Trial
 from repro_torch.scenarios.base import as_process
 from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
                                          set_numerics)
+from repro_torch.sharding.clients import check_params_whole, client_shard
+from repro_torch.sharding.rules import (P, fleet_axis_specs,
+                                        fleet_trial_specs)
 from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
 
 
@@ -249,7 +263,10 @@ class FleetRunner:
     with its seed. `scenarios` (one per trial, all of one type) replace
     the masks: `step_scenario` draws them on the device for a dense
     algorithm, from the host surfaces for a cohort one. `device` defaults
-    to "cuda" and raises without a GPU.
+    to "cuda" and raises without a GPU. Under `mesh` (module docstring)
+    the runner holds its rank's block of the trials (`trial_shard`,
+    None where nothing is split): `n_trials` counts the block, `step`
+    takes the masks of all K trials, and `finalize` gathers.
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
@@ -258,11 +275,19 @@ class FleetRunner:
                  weight_decay: float = 0.0, uses_update_clock: bool = False,
                  cohort_capacity: int | None = None,
                  labels: Sequence[str] | None = None, params=None,
-                 mesh=None, scenarios: Sequence | None = None,
+                 mesh=None, cfg=None, scenarios: Sequence | None = None,
                  device: str | torch.device = DEFAULT_DEVICE):
-        if mesh is not None:
-            raise _not_ported("mesh=", "19")
         self.device = resolve_device(device)
+        labels = list(labels or [f"seed{s}" for s in seeds])
+        self.trial_shard = None if mesh is None else client_shard(
+            mesh, len(seeds), self.device, what="the fleet's trial axis")
+        if self.trial_shard is not None:
+            block = slice(self.trial_shard.lo, self.trial_shard.hi)
+            seeds, labels = list(seeds)[block], labels[block]
+            if scenarios is not None:
+                scenarios = list(scenarios)[block]
+            if params is not None:
+                params = tree_map(self.trial_shard.block, params)
         set_numerics()
         self.model = model
         self.algo = algo
@@ -286,6 +311,11 @@ class FleetRunner:
                     raise ValueError(f"params= leaves must be stacked "
                                      f"(K={self.n_trials}, ...), got "
                                      f"{tuple(p.shape)}")
+        if mesh is not None:
+            specs = (fleet_trial_specs(self.params, cfg, mesh)
+                     if cfg is not None
+                     else fleet_axis_specs(self.params, mesh))
+            check_params_whole(tree_map(lambda s: P(*s[1:]), specs), mesh)
         # each trial's state as RoundRunner builds it, stacked leaf by leaf
         # (a paged bank resets its host mirror at each init, so the fleet
         # ends with one fresh mirror and K equal device tables)
@@ -295,8 +325,7 @@ class FleetRunner:
         self.rngs = [torch.Generator().manual_seed(int(s)) for s in seeds]
         self.device_rngs = [torch.Generator(device=self.device).manual_seed(
             int(s)) for s in seeds]
-        self.hist = FleetHistory(self.n_trials, labels=list(
-            labels or [f"seed{s}" for s in seeds]))
+        self.hist = FleetHistory(self.n_trials, labels=labels)
         self.cohort_mode = getattr(algo, "cohort_based", False)
         self.round_rngs = [round_rng_of(algo, c, d) for c, d in
                            zip(self.rngs, self.device_rngs)]
@@ -367,6 +396,9 @@ class FleetRunner:
 
     def _check_masks(self, masks) -> np.ndarray:
         masks = np.asarray(masks, bool)
+        sh = self.trial_shard
+        if sh is not None and masks.shape[0] == sh.n_rows:
+            masks = sh.block(masks)     # this rank's trials of all K
         if masks.shape != (self.n_trials, self.n_clients):
             raise ValueError(f"masks must be (K={self.n_trials}, "
                              f"N={self.n_clients}), got {masks.shape}")
@@ -498,8 +530,36 @@ class FleetRunner:
         return el, ea
 
     def finalize(self) -> tuple[Any, FleetHistory]:
-        """Returns (stacked (K, ...) params, fleet history)."""
+        """Returns (stacked (K, ...) params, fleet history). Under a mesh
+        that splits the trials it first gathers the params, the state and
+        the history of all K trials from the data group (once)."""
+        sh = self.trial_shard
+        if sh is not None:
+            self.params = tree_map(sh.gather, self.params)
+            self.state = tree_map(sh.gather, self.state)
+            self.hist = _gather_history(self.hist, sh.group)
+            self.n_trials = self.hist.n_trials
+            self.trial_shard = None
         return self.params, self.hist
+
+
+def _gather_history(hist: FleetHistory, group) -> FleetHistory:
+    """The histories of every rank's block of trials as one history of
+    all K, in rank order (the trial order)."""
+    import torch.distributed as dist
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, hist, group=group)
+    out = FleetHistory(sum(h.n_trials for h in parts),
+                       labels=[lb for h in parts for lb in h.labels])
+    out.rounds, out.wall_time = list(hist.rounds), hist.wall_time
+    for key in ("train_loss", "n_active", "global_updates", "sim_seconds"):
+        setattr(out, key, [np.concatenate(rows) for rows in zip(
+            *(getattr(h, key) for h in parts))])
+    for key in ("eval_loss", "eval_acc", "eval_seconds"):
+        setattr(out, key, [(pts[0][0], np.concatenate([v for _, v in pts]))
+                           for pts in zip(*(getattr(h, key)
+                                            for h in parts))])
+    return out
 
 
 def fleet_scan_supported(runner: FleetRunner) -> tuple[bool, str]:
@@ -676,7 +736,7 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
               weight_decay: float = 0.0, eval_fn: Callable | None = None,
               eval_every: int = 10, uses_update_clock: bool = False,
               cohort_capacity: int | None = None, params=None, mesh=None,
-              engine: str = "loop", scan_chunk: int | None = None,
+              cfg=None, engine: str = "loop", scan_chunk: int | None = None,
               verbose: bool = False,
               device: str | torch.device = DEFAULT_DEVICE
               ) -> tuple[Any, FleetHistory]:
@@ -697,7 +757,9 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
     `engine` "scan" runs chunks of `scan_chunk` rounds (None: the spec's,
     else 64) through `FleetScanDriver`, falling back to the loop with a
     warning for update-clock schedules and host banks; "scan_strict"
-    raises for those instead.
+    raises for those instead. `mesh` (and `cfg`) split the trial axis over
+    the mesh's data ranks on either engine (module docstring); every rank
+    returns all K.
     Returns (stacked params with a leading (K,) axis, `FleetHistory`).
     """
     if spec is not None:
@@ -722,7 +784,7 @@ def run_fleet(*, model, batcher, schedule: Callable, n_rounds: int,
         weight_decay=weight_decay, uses_update_clock=uses_update_clock,
         cohort_capacity=cohort_capacity,
         labels=[tr.label or f"seed{tr.seed}" for tr in trials],
-        params=params, mesh=mesh, device=device,
+        params=params, mesh=mesh, cfg=cfg, device=device,
         scenarios=[tr.scenario for tr in trials] if n_scen else None)
     parts = None if n_scen else [tr.participation for tr in trials]
     if engine != "loop":

@@ -12,13 +12,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item}); the port's fleet runs "
-                               "participation and scenario trials on the "
-                               "loop and scan engines")
-
-
 @dataclass(frozen=True)
 class Trial:
     """One independent FL run inside a fleet group: its `seed` keys model

@@ -14,8 +14,11 @@ rebuilt and never shadowed by a stale library. `build_kernels` starts one
 `nvcc` per source, all at once. Nothing is built or imported from CUDA when
 a module is imported.
 
-`pallas_partition_safe` (meshes) is not ported: meshes wait for ROADMAP
-Queue 1 item 19.
+`pallas_partition_safe` has no counterpart: the reference drops its
+single-device Pallas kernels under a mesh of more than one device, and the
+port splits a run over ranks only at data extent > 1, on CPU ranks, where
+the wrappers take the plain versions by the tensors' device
+(`sharding.clients`); at data extent 1 the kernels run as without a mesh.
 """
 from __future__ import annotations
 

@@ -52,7 +52,7 @@ def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
     if update_spec is not None:
         raise NotImplementedError(
             "update_spec= (a sharding constraint on each client's update) "
-            "is not ported: sharding waits for ROADMAP Queue 1 item 19")
+            "is not ported: it waits for ROADMAP Queue 1 item 19c")
 
     if not cfg.sequential_clients:
         def train_step(params, G, batch, active, eta):

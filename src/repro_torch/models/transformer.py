@@ -107,7 +107,7 @@ def check_ported(cfg: ArchConfig) -> None:
     if cfg.pad_q_heads or cfg.pad_kv_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding for tensor-parallel meshes is not "
-            "ported (ROADMAP Queue 1 item 19)")
+            "ported (ROADMAP Queue 1 item 19c)")
 
 
 # --------------------------------------------------------------------------- #

@@ -6,6 +6,12 @@ and the `verbose=` progress lines of the run functions.
   `TokenBatcher` and `make_token_stream`; `launch.steps` the step
   builders; `configs` serves qwen1.5-110b. Each name imports from both
   packages.
+* Names and signatures: every public function and class of the walked
+  modules of the JAX package (`launch.mesh`, `sharding.rules`,
+  `core.runner`, `core.scan_engine`, `fleet.executor`, `bank.dense`) is in
+  the port's module of the same name with the reference's parameters, in
+  order, up to the listed torch forms; the JAX-only names are listed with
+  the reason.
 * `run_fl` (loop and scan), `run_fleet` (loop and scan), `run_sim_scan`
   (through `run_fl(sim=)`) and `run_sim_fleet` take `verbose=` and print,
   at each eval, the reference's line (`repro/core/runner.py:715`,
@@ -14,6 +20,7 @@ and the `verbose=` progress lines of the run functions.
   masked, against the reference's own lines for the runner's loop.
 """
 import importlib
+import inspect
 import re
 from dataclasses import asdict
 
@@ -52,6 +59,56 @@ def test_name_imports_from_both_packages(module, name):
     for pkg in ("repro", "repro_torch"):
         assert hasattr(importlib.import_module(f"{pkg}.{module}"), name), \
             (pkg, module, name)
+
+
+WALKED = ["launch.mesh", "sharding.rules", "core.runner", "core.scan_engine",
+          "fleet.executor", "bank.dense"]
+# public names of the walked reference modules with no counterpart
+JAX_ONLY = {
+    "core.runner.warn_legacy_threefry":
+        "warns when JAX's legacy threefry lowering, whose bits depend on "
+        "the sharding, is on; the port draws only the partitionable "
+        "stream (scenarios._threefry), whose masks do not",
+    **{f"core.runner.{name}": "a pure round function the reference jits; "
+       "the port's round is core.runner.make_round_body's"
+       for name in ("make_dense_round_fn", "make_cohort_update_fn",
+                    "make_scenario_round_fn", "make_scan_round_fn",
+                    "make_cohort_round_fn")}}
+# parameters only the port takes ("*": every name), and why
+_STACKED = "a fleet's stacked initial params, as run_fl(params=)"
+PORT_ONLY_PARAMS = {
+    "*": {"device": "every entry point takes the run's device"},
+    "fleet.executor.FleetRunner": {"params": _STACKED},
+    "fleet.executor.run_fleet": {"params": _STACKED}}
+# parameters only the reference takes, by name, and why
+JAX_ONLY_PARAMS = {"bank.dense.DenseBank": {
+    "use_pallas": "a kernel wrapper decides by its tensor's device"}}
+
+
+def _params(obj) -> list:
+    fn = obj.__init__ if inspect.isclass(obj) else obj
+    return [p for p in inspect.signature(fn).parameters if p != "self"]
+
+
+@pytest.mark.parametrize("module", WALKED)
+def test_names_and_signatures_walk(module):
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    for name, obj in vars(ref).items():
+        if (name.startswith("_") or getattr(obj, "__module__", None)
+                != ref.__name__ or not (inspect.isfunction(obj)
+                                        or inspect.isclass(obj))):
+            continue
+        key = f"{module}.{name}"
+        if key in JAX_ONLY:
+            assert not hasattr(port, name), key
+            continue
+        assert hasattr(port, name), key
+        dropped = JAX_ONLY_PARAMS.get(key, {})
+        added = {**PORT_ONLY_PARAMS["*"], **PORT_ONLY_PARAMS.get(key, {})}
+        assert ([p for p in _params(obj) if p not in dropped]
+                == [p for p in _params(getattr(port, name))
+                    if p not in added]), key
 
 
 def test_qwen_config_is_the_reference_s():

@@ -498,7 +498,12 @@ def test_fleet_surfaces_not_ported_raise():
         assert len(run_fleet(engine=engine, **kw)[1].train_loss) == 1
     with pytest.raises(ValueError, match="unknown engine"):
         run_fleet(engine="nope", **kw)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # meshes (ROADMAP Queue 1 item 19b) are ported: a 1x1 mesh splits
+    # nothing; what is not a mesh raises
+    from repro_torch.launch.mesh import make_abstract_mesh
+    assert len(run_fleet(mesh=make_abstract_mesh((1, 1), ("data", "model")),
+                         **kw)[1].train_loss) == 1
+    with pytest.raises(TypeError, match="not a mesh"):
         run_fleet(mesh=object(), **kw)
     runner = FleetRunner(model=model, algo=MIFA(), batcher=batcher,
                          schedule=inv_t(1.0), seeds=(0,), device="cpu")

@@ -63,7 +63,7 @@ def test_isolation_walk_sees_the_whole_port():
             "algorithms", "host", "events", "latency", "policies",
             "engine", "compiled", "sim", "io", "run_state",
             "trace_replay", "elastic", "train", "steps",
-            "qwen1_5_110b"} <= mods
+            "qwen1_5_110b", "mesh", "rules"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -140,7 +140,8 @@ def test_cpu_run_takes_the_plain_path():
 
 
 # items of this table that have since been ported: their option now runs
-PORTED_ITEMS = {"12", "13", "16", "17"}
+# (for item 19, mesh= of item 19b)
+PORTED_ITEMS = {"12", "13", "16", "17", "19"}
 
 
 def _sim_spec():
@@ -152,7 +153,7 @@ def _sim_spec():
 @pytest.mark.parametrize("kw,item", [
     ({"scenario": make_scenario("gilbert_elliott", n=4)}, "13"),
     ({"sim": _sim_spec()}, "16"), ({"checkpoint": "spec"}, "17"),
-    ({"mesh": object()}, "19"), ({"engine": "scan"}, "12")])
+    ({"mesh": "1x1"}, "19"), ({"engine": "scan"}, "12")])
 def test_unported_run_options_raise(kw, item, tmp_path):
     cfg = get_smoke_config("paper_logistic")
     # a scenario takes the place of the participation process
@@ -163,6 +164,11 @@ def test_unported_run_options_raise(kw, item, tmp_path):
         # checkpoints ride the scan engine's chunk cuts
         from repro_torch.checkpoint import CheckpointSpec
         kw = {"checkpoint": CheckpointSpec(every=1, dir=str(tmp_path)),
+              "engine": "scan"}
+    if "mesh" in kw:
+        # meshes place the scan engine's carry
+        from repro_torch.launch.mesh import make_abstract_mesh
+        kw = {"mesh": make_abstract_mesh((1, 1), ("data", "model")),
               "engine": "scan"}
 
     def run():
