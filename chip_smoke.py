@@ -5070,6 +5070,313 @@ def hubert_phase(smi: str) -> tuple[dict, list]:
             [f"hubert {r}" for r in rows])
 
 
+# --------------------------------------------------------------------------- #
+# the dry-run planner, head padding and update_spec= on the card
+# --------------------------------------------------------------------------- #
+
+# every arch x input shape planned on both abstract production meshes: the
+# reference's counts (long_500k skips the six full-attention archs, hubert
+# has no decode)
+DRY_PLANS = {"ok": 64, "skip": 16, "error": 0}
+# qwen1.5-110b at full width with its depth cut to QWEN_LAYERS: the
+# decode_32k plan's arguments (B = 128, a cache of 32768 positions) made
+# on the card, held to the plan's per-rank bytes within ALLOC_SLACK a
+# tensor (the caching allocator rounds a block up to 512 B and leaves a
+# new segment's tail of under 2 MiB in the block), and one decode step;
+# served at SERVE_B x SERVE_PROMPT with and without pad_heads, so
+# flash_attention runs at QWEN_PAD_SHAPE (H 64 over KV 16, kv heads 8-15
+# zero) and QWEN_SHAPE (B, S, H, KV, hd); card vs CPU padded at
+# QWEN_CHECK_LAYERS layers in f32 over QWEN_CHECK_PROMPT tokens
+QWEN_LAYERS, QWEN_CHECK_LAYERS, QWEN_CHECK_PROMPT = 2, 1, 16
+QWEN_SHAPE = (SERVE_B, SERVE_PROMPT, 64, 8, 128)
+QWEN_PAD_SHAPE = (SERVE_B, SERVE_PROMPT, 64, 16, 128)
+ALLOC_SLACK = 2 << 20
+# make_train_step(update_spec=) from the train_4k plan on the 1x1 mesh:
+# qwen at UPDATE_LAYERS layer, UPDATE_N clients, K = 1 and one sequence of
+# UPDATE_S tokens where that plan's own bytes leave UPDATE_HEADROOM of the
+# card, else llava-next-34b at LLAVA_TRAIN_LAYERS layers
+UPDATE_LAYERS, UPDATE_N, UPDATE_S, UPDATE_HEADROOM = 1, 2, 128, 10e9
+
+
+def plan_every_pair() -> str:
+    """`launch.specs.plan` for every arch x input shape on both abstract
+    production meshes: the counts must be DRY_PLANS, no error."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+    from repro_torch.launch.dryrun import PRODUCTION_MESHES, production_mesh
+    from repro_torch.launch.specs import Skip, plan
+    t0 = time.perf_counter()
+    counts, errors = {"ok": 0, "skip": 0, "error": 0}, []
+    for kind in PRODUCTION_MESHES:
+        mesh = production_mesh(kind)
+        for arch in ARCH_IDS:
+            for shape in INPUT_SHAPES:
+                try:
+                    p = plan(arch, shape, mesh)
+                except Exception as e:  # noqa: BLE001 — counted, then fails
+                    counts["error"] += 1
+                    errors.append(f"{arch} {shape} {kind}: "
+                                  f"{type(e).__name__}: {e}")
+                    continue
+                counts["skip" if isinstance(p, Skip) else "ok"] += 1
+    check(counts == DRY_PLANS and not errors,
+          f"dryrun plans: {counts}, expected {DRY_PLANS}; {errors[:3]}")
+    return (f"plans: every arch x input shape on the 16x16 and 2x16x16 "
+            f"abstract meshes: {counts['ok']} ok / {counts['skip']} skip / "
+            f"{counts['error']} error in {time.perf_counter() - t0:.2f} s")
+
+
+def tensor_leaves(values) -> list:
+    """The tensors of a plan's argument tuple, in order."""
+    from repro_torch.tree import tree_leaves
+    return [t for v in values for t in tree_leaves(v)]
+
+
+def qwen_cfg(n_layers: int, **change):
+    from repro_torch.configs import get_config
+    return get_config("qwen1_5_110b").replace(n_layers=n_layers, **change)
+
+
+def qwen_decode_plan(mesh, smi: str) -> list:
+    """qwen's decode_32k plan at QWEN_LAYERS layers on `mesh` (1x1 on the
+    card): its arguments made on the card (params from seed 0, a zero
+    cache, random tokens, the last position), `memory_allocated` held to
+    the plan's per-rank bytes, and two decode steps at the last
+    position."""
+    from repro_torch.launch.specs import plan_config
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import per_rank_bytes
+    cfg = qwen_cfg(QWEN_LAYERS)
+    p = plan_config(cfg, "decode_32k", mesh)
+    planned = per_rank_bytes(p.args, p.in_shardings)
+    n_tensors = len(tensor_leaves(p.args))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    B, C = p.meta["batch"], p.meta["cache_len"]
+    gen = torch.Generator().manual_seed(1)
+    args = (model.init(0, device="cuda"),
+            model.init_cache(B, C, device="cuda"),
+            torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                          dtype=torch.int32).cuda(),
+            torch.tensor(C - 1, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    check([(tuple(a.shape), a.dtype) for a in tensor_leaves(args)]
+          == [(tuple(a.shape), a.dtype) for a in tensor_leaves(p.args)],
+          "dryrun qwen decode: the arguments made are not the plan's")
+    check(0 <= held - planned <= ALLOC_SLACK * n_tensors,
+          f"dryrun qwen decode: {held} B allocated for a plan of "
+          f"{planned} B in {n_tensors} tensors")
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):                    # the first, then one more
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = p.fn(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"dryrun qwen decode: logits {tuple(logits.shape)} not finite")
+    del args, logits, cache
+    torch.cuda.empty_cache()
+    return [f"qwen1.5-110b decode_32k plan at {QWEN_LAYERS} layers, full "
+            f"width, on a 1x1 DeviceMesh: {n_tensors} argument tensors, "
+            f"plan {planned} B per rank, allocated {held} B (+{held - planned}"
+            f" B of allocator rounding); a decode step of B={B} against a "
+            f"{C}-position cache {ms[0]:.3f} ms, again {ms[1]:.3f} ms (host "
+            f"clock to a sync), peak device allocation {peak} B [{smi}]"]
+
+
+def check_padded_flash(gen) -> tuple[float, list]:
+    """flash_attention against its plain version at qwen's padded prefill
+    shape, as the padded prefill gives it (q's 64 heads, k and v's 8 real
+    heads zero-padded to 16, bf16 causal), and on random values in every
+    head of that shape and of the unpadded one."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    b, s, h, kv_pad, hd = QWEN_PAD_SHAPE
+    kv = QWEN_SHAPE[3]
+    q, k, v = attn_inputs(gen, b, s, h, kv, hd, torch.bfloat16)
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, kv_pad - kv)) for x in (k, v))
+    ref = flash_attention_ref(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    check(out.dtype == torch.bfloat16 and bool(torch.isfinite(
+        out.float()).all()) and bool((diff <= atol + rtol * ref.float().abs()
+                                      ).all()),
+          f"flash_attention at qwen's padded shape off by {err:.3e}")
+    first = kv * (h // kv_pad)            # query heads on zero kv heads
+    check(bool((out[:, :, first:] == 0).all()),
+          "flash_attention: a query head on a zero kv head is not 0")
+    rows = [f"flash_attention qwen padded (zero kv heads) B={b} S=T={s} "
+            f"H={h} KV={kv_pad} ({kv} real) hd={hd} bf16 causal: max |err| "
+            f"{err:.3e} (atol {atol}, rtol {rtol}); the {h - first} query "
+            "heads on zero kv heads give 0"]
+    more_err, more = check_flash_cases(gen, [
+        (QWEN_PAD_SHAPE, torch.bfloat16, True, 0, "qwen padded, g=4"),
+        (QWEN_SHAPE, torch.bfloat16, True, 0, "qwen, g=8")])
+    return max(err, more_err), rows + more
+
+
+def qwen_padded_serve(gen, smi: str) -> tuple[dict, list]:
+    """flash_attention at qwen's padded and unpadded prefill shapes (held
+    against its plain version, timed beside sdpa and the bound), qwen
+    served at QWEN_LAYERS layers with and without pad_heads (2 launches a
+    prefill each, counted from 0 just before), and the padded model's
+    card against its CPU run."""
+    from repro_torch.launch.specs import override_config
+    err, rows = check_padded_flash(gen)
+    timing = {}
+    for label, (b, s, h, kv, hd) in (("padded", QWEN_PAD_SHAPE),
+                                     ("unpadded", QWEN_SHAPE)):
+        t = timing[label] = time_flash(gen, b, s, h, kv, hd)
+        rows.append(
+            f"flash_attention per call (qwen1.5-110b {label}: B={b} S=T={s} "
+            f"H={h} KV={kv} hd={hd} bf16 causal): kernel "
+            f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+            f"sdpa {t['library_ms'] * 1e3:.2f} us ({t['library_backend']}), "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+            f"{t['bytes']} bytes, {t['ops']} flops) [{smi}]")
+    launches = {}
+    expect = {"flash_attention": QWEN_LAYERS, "ssd_scan": 0}
+    for label, pad in (("padded", True), ("unpadded", False)):
+        torch.cuda.empty_cache()
+        counts, more = serve_phase(
+            f"qwen1.5-110b {label}",
+            override_config(qwen_cfg(QWEN_LAYERS), pad_heads=pad), expect)
+        launches[label] = counts["flash_attention"]
+        rows += more
+    cfg = override_config(zoo_f32_config(QWEN_CHECK_LAYERS, "qwen1_5_110b"),
+                          pad_heads=True)
+    gaps, cache_gap, shapes, card_s, cpu_s = model_card_vs_cpu(
+        cfg, QWEN_CHECK_PROMPT, 13)
+    check(max(gaps) <= ZOO_RTOL and cache_gap <= ZOO_RTOL,
+          f"qwen padded card vs CPU: logits gaps {gaps}, cache {cache_gap}")
+    rows.append(f"card vs CPU, padded (H {cfg.pad_q_heads}, KV "
+                f"{cfg.pad_kv_heads}; {QWEN_CHECK_LAYERS} layer, full width, "
+                f"f32, {QWEN_CHECK_PROMPT} tokens, cache leaves {shapes}): "
+                f"max |dlogits| / max |logits| prefill {gaps[0]:.3e}, decode "
+                f"steps {gaps[1]:.3e} {gaps[2]:.3e}; worst cache leaf "
+                f"{cache_gap:.3e} (tol {ZOO_RTOL}); card {card_s:.3f} s, CPU "
+                f"{cpu_s:.3f} s")
+    return {"err": err, "timing": timing, "launches": launches}, rows
+
+
+def plan_round_batch(cfg, n: int, s: int, seed: int) -> dict:
+    """One local step of one sequence a client, leaves (n, 1, 1, ...) on
+    the card: tokens for a text config, `stub_batch` for the stub
+    frontends."""
+    if cfg.modality != "text":
+        return stub_batch(cfg, n, 1, 1, s, seed)
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (n, 1, 1, s)).astype(np.int32)).cuda()}
+
+
+def update_spec_round(mesh, smi: str) -> list:
+    """`make_train_step(update_spec=)` as the train_4k plan builds it
+    (`inner_update_constraint=True`) on the 1x1 mesh: one sequential
+    round (params from seed 0, G zero, client 1 inactive) bit-equal to
+    the same round with update_spec=None; the first round's outputs wait
+    on the host while the second runs."""
+    from repro_torch.launch.specs import plan_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import per_rank_bytes
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = qwen_cfg(UPDATE_LAYERS, fl_clients=UPDATE_N)
+    p = plan_config(cfg, "train_4k", mesh, inner_update_constraint=True)
+    planned = per_rank_bytes(p.args, p.in_shardings)
+    free = torch.cuda.get_device_properties(0).total_memory - planned
+    which = (f"qwen1.5-110b at {UPDATE_LAYERS} layer (the plan's own "
+             f"{planned} B leave {free} B)")
+    s = UPDATE_S
+    if free < UPDATE_HEADROOM:
+        from repro_torch.configs import get_config
+        cfg = get_config("llava_next_34b").replace(
+            n_layers=LLAVA_TRAIN_LAYERS, fl_clients=UPDATE_N)
+        p = plan_config(cfg, "train_4k", mesh, inner_update_constraint=True)
+        s = cfg.n_patches + LLAVA_TRAIN_TEXT
+        which = (f"llava-next-34b at {LLAVA_TRAIN_LAYERS} layers (qwen's "
+                 f"plan would leave {free} B)")
+    spec_step = p.fn
+    model = build_model(cfg)
+    n = p.meta["n_clients"]
+    check(cfg.sequential_clients and n == UPDATE_N,
+          f"update_spec round: plan meta {p.meta}")
+    plain_step = make_train_step(model, cfg, n, 1)
+    params = model.init(0, device="cuda")
+    active = torch.tensor([True, False], device="cuda")
+    eta = 0.05
+    outs = []
+    torch.cuda.reset_peak_memory_stats()
+    for label, step in (("update_spec=None", plain_step),
+                        ("update_spec from the plan", spec_step)):
+        G = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                           device="cuda"), p.args[1])
+        batch = plan_round_batch(cfg, n, s, 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, G, metrics = step(params, G, batch, active, eta)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        leaves = tree_leaves(new) + tree_leaves(G) + [metrics["loss"]]
+        if outs:
+            same = all(torch.equal(a, b.cuda())
+                       for a, b in zip(leaves, outs[0][1]))
+        else:
+            same = None
+            leaves = [t.cpu() for t in leaves]
+        outs.append((label, leaves, ms))
+        del new, G, metrics, batch
+    peak = torch.cuda.max_memory_allocated()
+    check(same, "update_spec round: not bit-equal to update_spec=None")
+    check(bool(np.isfinite(float(outs[0][1][-1]))), "update_spec round: "
+                                                   "loss not finite")
+    return [f"make_train_step(update_spec=) from the train_4k plan "
+            f"(inner_update_constraint) on a 1x1 DeviceMesh: {which}, N={n} "
+            f"K=1, one sequence of {s} positions a client, client 1 "
+            f"inactive: bit-equal to update_spec=None over "
+            f"{len(outs[0][1])} tensors (params, G, loss "
+            f"{float(outs[0][1][-1]):.6f}); rounds {outs[0][2]:.3f} and "
+            f"{outs[1][2]:.3f} ms (host clock), peak device allocation "
+            f"{peak} B [{smi}]"]
+
+
+def dryrun_phase(gen, smi: str) -> tuple[dict, list]:
+    """The dry-run planner, head padding and update_spec= on the card
+    (module constants above), in a gloo world of one rank with a 1x1
+    `make_host_mesh(device="cuda")`, as `mesh_phase` builds it. Returns
+    the padded flash_attention check's |err|, timing and launches; every
+    row starts with "dryrun "."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    rows = [plan_every_pair()]
+    check(not dist.is_initialized(), "dryrun phase: a process group is "
+                                     "already initialised")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        rows += qwen_decode_plan(mesh, smi)
+        out, more = qwen_padded_serve(gen, smi)
+        rows += more
+        torch.cuda.empty_cache()
+        rows += update_spec_round(mesh, smi)
+    finally:
+        dist.destroy_process_group()
+    rows.append(f"phase {time.perf_counter() - t0:.1f} s")
+    return out, [f"dryrun {r}" for r in rows]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -5251,6 +5558,14 @@ def main() -> int:
         print(row)
     zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
                                       llava["err"])
+    # the dry-run planner: every plan, qwen1.5-110b's decode plan made on
+    # the card, its prefill with padded heads, update_spec=
+    torch.cuda.empty_cache()
+    dry, rows = dryrun_phase(gen, smi)
+    for row in rows:
+        print(row)
+    zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
+                                      dry["err"])
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -5421,7 +5736,25 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_backend")},
                 llava_per_call_at="llava-next-34b: B={} S=T={} H={} KV={} "
-                                  "hd={}, bf16, causal".format(*LLAVA_SHAPE))
+                                  "hd={}, bf16, causal".format(*LLAVA_SHAPE),
+                # qwen1.5-110b's serve prefills at QWEN_LAYERS layers, with
+                # and without pad_heads, each counted from 0 just before
+                # it, and the kernel at the two shapes
+                qwen_launches=dry["launches"],
+                qwen_launches_from=f"qwen1.5-110b serve prefill, {SERVE_B} "
+                                   f"x {SERVE_PROMPT} tokens, {QWEN_LAYERS} "
+                                   "layers at full width, one launch a "
+                                   "layer, padded (H 64, KV 16) and "
+                                   "unpadded; decode launches none",
+                qwen_per_call={
+                    label: {k: t[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")}
+                    for label, t in dry["timing"].items()},
+                qwen_per_call_at="qwen1.5-110b: B={} S=T={} H={} KV={} (padded"
+                                 " {}) hd={}, bf16, causal".format(
+                                     *QWEN_SHAPE[:4], QWEN_PAD_SHAPE[3],
+                                     QWEN_SHAPE[4]))
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

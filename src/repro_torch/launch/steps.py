@@ -35,7 +35,8 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.local_update import client_updates, device_update
 from repro_torch.kernels.ops import mifa_aggregate_tree
 from repro_torch.models import Model
-from repro_torch.tree import tree_map
+from repro_torch.sharding.clients import check_params_whole
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _mean_active_loss(losses: torch.Tensor, active: torch.Tensor
@@ -48,14 +49,23 @@ def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
                     k_steps: int, update_spec=None) -> Callable:
     """The MIFA round (array memory) as one function of (params, G, batch,
     active, eta): `batch` leaves (N, K, mb, ...) on the params' device,
-    `active` (N,) bool there, `eta` a Python float or a 0-d f32 tensor."""
-    if update_spec is not None:
-        raise NotImplementedError(
-            "update_spec= (a sharding constraint on each client's update) "
-            "is not ported: it waits for ROADMAP Queue 1 item 19c")
+    `active` (N,) bool there, `eta` a Python float or a 0-d f32 tensor.
+
+    `update_spec`: a tree of `sharding.rules.NamedSharding` matching the
+    params (`launch.specs` builds it from `param_specs` of the fsdp
+    config), the placement the reference constrains each client's update
+    to in sequential mode. Params run whole on every rank, so a spec that
+    keeps every leaf whole (every axis it names of extent 1) changes
+    nothing, bit for bit, and one that splits a leaf over an axis of
+    extent > 1 raises NotImplementedError when the step is called
+    (`sharding.clients.check_params_whole`), so a plan can hold it."""
+    def check_update_spec():
+        for s in ([] if update_spec is None else tree_leaves(update_spec)):
+            check_params_whole(s.spec, s.mesh, "each client's update")
 
     if not cfg.sequential_clients:
         def train_step(params, G, batch, active, eta):
+            check_update_spec()
             updates, losses = client_updates(model.loss_fn, params, batch,
                                              eta, K=k_steps)
             G, params = mifa_aggregate_tree(G, updates, active, params, eta)
@@ -64,6 +74,7 @@ def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
 
     def train_step(params, G, batch, active, eta):
         """Sequential clients: one client's update alive at a time."""
+        check_update_spec()
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         losses = []

@@ -30,6 +30,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import _device_init, apply_rope
 
 NEG_INF = -1e30
+# decode casts the k cache to f32 this many elements at a time: a chunk's
+# f32 copy (and the batched product's own copy of it) stays at 1 GiB
+# however long the cache, where the whole cache at once held 34.4 GB of
+# f32 copies for a layer of qwen1.5-110b at B 128 over 32768 slots
+DECODE_F32_CHUNK = 1 << 28
 
 
 def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -152,7 +157,10 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     For window>0 the cache is a ring buffer of size C == window: slot j
     holds absolute position pos - ((pos - j) mod C). Otherwise slot j holds
     position j, valid iff j <= pos. Scores and softmax in f32, the
-    probabilities cast to q's dtype before P·V, as in the reference.
+    probabilities cast to q's dtype before P·V, as in the reference. The
+    scores are taken over runs of slots, each cast to f32 on its own
+    (`DECODE_F32_CHUNK`): every score is an f32 dot product of the same
+    terms.
     """
     B, _, H, hd = q.shape
     C, KV = k_cache.shape[1], k_cache.shape[2]
@@ -162,8 +170,11 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
         valid = pos - torch.remainder(pos - slots, C) >= 0
     else:
         valid = slots <= pos
-    qs = (q * (1.0 / math.sqrt(hd))).reshape(B, KV, g, hd)
-    scores = torch.einsum("bkgd,btkd->bkgt", qs.float(), k_cache.float())
+    qs = (q * (1.0 / math.sqrt(hd))).reshape(B, KV, g, hd).float()
+    step = max(1, DECODE_F32_CHUNK // (B * KV * hd))
+    scores = torch.cat([torch.einsum("bkgd,btkd->bkgt", qs,
+                                     k_cache[:, t:t + step].float())
+                        for t in range(0, C, step)], dim=-1)
     scores = scores.masked_fill(~valid, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache)

@@ -39,8 +39,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        if cfg.family != "tabular":
-            transformer.check_ported(cfg)
         self.cfg = cfg
         self.param_dtype = DTYPES[cfg.param_dtype]
         self.compute_dtype = DTYPES[cfg.compute_dtype]

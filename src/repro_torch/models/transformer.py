@@ -32,12 +32,20 @@ model path. The reference wraps each layer in `jax.checkpoint` under
 port keeps every activation.
 Serving's `prefill` and `decode` write caches in place: they fill the cache
 tree they are given and return it; `prefill` goes through the kernels.
+
+Head padding (`cfg.pad_q_heads`, `cfg.pad_kv_heads`, which
+`launch.specs.plan(pad_heads=True)` sets): the training forward and the
+prefill zero-pad q, k and v to those head counts before attention (the
+prefill's kernel runs at the padded shape) and drop the padded query
+heads after it, as the reference's `_gqa` / `_unpad_ctx` do; decode never
+pads, and caches hold the real kv heads (`_unpad_kv`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -101,13 +109,40 @@ def build_segments(cfg: ArchConfig) -> list[SegmentSpec]:
 _GQA_KINDS = ("attn", "local_attn", "shared_attn")
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port cannot serve and train yet: the
-    compute-layout head padding of the sharded reference."""
-    if cfg.pad_q_heads or cfg.pad_kv_heads:
-        raise NotImplementedError(
-            f"{cfg.name}: head padding for tensor-parallel meshes is not "
-            "ported (ROADMAP Queue 1 item 19c)")
+def _gqa(lp: dict, h: torch.Tensor, positions: torch.Tensor,
+         cfg: ArchConfig, pad: bool = True):
+    """q, k, v of a GQA layer; with `pad` (and `cfg.pad_q_heads` /
+    `cfg.pad_kv_heads` set, as `launch.specs.plan(pad_heads=True)` sets
+    them) q's and k, v's head axes zero-padded to those counts, as the
+    reference pads them for its tensor-parallel layout. Attention then
+    groups heads by pad_q // pad_kv, not H // KV: a real query head whose
+    group falls on a zero kv head attends to zero keys and values and gets
+    ctx = 0 (the reference's numbers, kept)."""
+    q, k, v = attn_lib.gqa_project(lp["attn"], h, positions, cfg.rope_theta,
+                                   cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim)
+    if not pad:
+        return q, k, v
+    if cfg.pad_q_heads and cfg.pad_q_heads > cfg.n_heads:
+        q = F.pad(q, (0, 0, 0, cfg.pad_q_heads - cfg.n_heads))
+    if cfg.pad_kv_heads and cfg.pad_kv_heads > cfg.n_kv_heads:
+        extra = (0, 0, 0, cfg.pad_kv_heads - cfg.n_kv_heads)
+        k, v = F.pad(k, extra), F.pad(v, extra)
+    return q, k, v
+
+
+def _unpad_ctx(ctx: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Drop the padded query heads' outputs."""
+    if cfg.pad_q_heads and cfg.pad_q_heads > cfg.n_heads:
+        return ctx[:, :, :cfg.n_heads, :]
+    return ctx
+
+
+def _unpad_kv(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig):
+    """Caches store the real (unpadded) kv heads."""
+    if cfg.pad_kv_heads and cfg.pad_kv_heads > cfg.n_kv_heads:
+        return k[:, :, :cfg.n_kv_heads, :], v[:, :, :cfg.n_kv_heads, :]
+    return k, v
 
 
 # --------------------------------------------------------------------------- #
@@ -164,7 +199,6 @@ def init_segments(gen: torch.Generator, cfg: ArchConfig,
                   dtype: torch.dtype) -> dict:
     """Returns {'segments': {str(i): stacked params}, 'shared_attn': ...?},
     every leaf drawn on `gen`'s device."""
-    check_ported(cfg)
     out: dict = {"segments": {}}
     segments = build_segments(cfg)
     shared = next((s for s in segments if s.kind == "shared_attn"), None)
@@ -187,7 +221,6 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     """Zero caches for every segment, stacked along the segment's layer
     axis (a shared_attn segment's has no layer axis, as in the reference);
     a windowed segment keeps a ring of min(window, cache_len) slots."""
-    check_ported(cfg)
     cache: dict = {}
     hd = cfg.resolved_head_dim
     for seg in build_segments(cfg):
@@ -253,12 +286,11 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     layer axis) in place. Returns (x, aux or None)."""
     h = rmsnorm(lp["ln1"], x)
     if spec.kind in _GQA_KINDS:
-        q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
-                                       cfg.rope_theta, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.resolved_head_dim)
+        q, k, v = _gqa(lp, h, positions, cfg)
         ctx = attn_lib.prefill_attention(q, k, v, causal=cfg.causal,
                                          window=spec.window)
-        x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+        x = _radd(x, _attn_out(_unpad_ctx(ctx, cfg), lp["attn"]["wo"]))
+        k, v = _unpad_kv(k, v, cfg)
         if spec.window:
             _ring_fill(entry["k"], k)
             _ring_fill(entry["v"], v)
@@ -293,9 +325,8 @@ def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
     h = rmsnorm(lp["ln1"], x)
     if spec.kind in _GQA_KINDS:
         positions = torch.tensor([pos], device=x.device)
-        q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
-                                       cfg.rope_theta, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.resolved_head_dim)
+        # decode is single-token: the reference pads no heads here
+        q, k, v = _gqa(lp, h, positions, cfg, pad=False)
         attn_lib.cache_write(entry["k"], entry["v"], k, v, pos,
                              window=spec.window)
         ctx = attn_lib.decode_attend(q, entry["k"], entry["v"], pos,
@@ -361,12 +392,10 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     None)."""
     h = rmsnorm(lp["ln1"], x)
     if spec.kind in _GQA_KINDS:
-        q, k, v = attn_lib.gqa_project(lp["attn"], h, positions,
-                                       cfg.rope_theta, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.resolved_head_dim)
+        q, k, v = _gqa(lp, h, positions, cfg)
         ctx = attn_lib.blockwise_attention(q, k, v, causal=cfg.causal,
                                            window=spec.window)
-        x = _radd(x, _attn_out(ctx, lp["attn"]["wo"]))
+        x = _radd(x, _attn_out(_unpad_ctx(ctx, cfg), lp["attn"]["wo"]))
     elif spec.kind == "mla":
         out, _ = attn_lib.mla_prefill(
             lp["attn"], h, positions, rope_theta=cfg.rope_theta,
@@ -386,5 +415,4 @@ def forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cfg: ArchConfig):
     """The training forward: x (B,S,d) through every segment -> (x, aux),
     aux the MoE layers' summed load-balance loss (0 without MoE)."""
-    check_ported(cfg)
     return _run(_layer_fwd, params, x, positions, None, cfg)

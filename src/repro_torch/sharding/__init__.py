@@ -1,6 +1,7 @@
 """Partition rules and the client axis split over a mesh (counterpart of
 `repro/sharding/`)."""
 from repro_torch.sharding.rules import (DATA, MODEL,  # noqa: F401
-                                        PartitionSpec, batch_specs,
+                                        NamedSharding, PartitionSpec,
+                                        batch_specs,
                                         cache_specs, client_state_specs,
                                         param_specs, placements)

@@ -450,6 +450,26 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+class NamedSharding:
+    """A spec on a mesh, as the reference's `jax.sharding.NamedSharding`:
+    the placement of one leaf (`launch.specs` fills its plans' in and out
+    placements with them; `launch.steps.make_train_step(update_spec=)`
+    takes a tree of them; `placements(s.spec, s.mesh)` gives the DTensor
+    placements on a DeviceMesh)."""
+
+    def __init__(self, mesh, spec: tuple):
+        self.mesh, self.spec = mesh, PartitionSpec(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r})"
+
+
+def named(mesh, specs: Any) -> Any:
+    """A tree of PartitionSpecs as a tree of `NamedSharding`s on `mesh`
+    (the reference's `launch/specs.py::_ns`)."""
+    return tree_map(lambda s: NamedSharding(mesh, s), specs)
+
+
 def sharded_axes(specs: Any, mesh) -> set:
     """The axes of size > 1 that any spec of the tree `specs` splits a
     dim over (empty: the tree is whole on every rank)."""

@@ -8,7 +8,8 @@ and the `verbose=` progress lines of the run functions.
   packages.
 * Names and signatures: every public function and class of the walked
   modules of the JAX package (`launch.mesh`, `sharding.rules`,
-  `core.runner`, `core.scan_engine`, `fleet.executor`, `bank.dense`) is in
+  `core.runner`, `core.scan_engine`, `fleet.executor`, `bank.dense`,
+  `launch.specs`, `launch.dryrun`, `roofline.analysis`) is in
   the port's module of the same name with the reference's parameters, in
   order, up to the listed torch forms; the JAX-only names are listed with
   the reason.
@@ -21,6 +22,7 @@ and the `verbose=` progress lines of the run functions.
 """
 import importlib
 import inspect
+import os
 import re
 from dataclasses import asdict
 
@@ -62,9 +64,16 @@ def test_name_imports_from_both_packages(module, name):
 
 
 WALKED = ["launch.mesh", "sharding.rules", "core.runner", "core.scan_engine",
-          "fleet.executor", "bank.dense"]
+          "fleet.executor", "bank.dense", "launch.specs", "launch.dryrun",
+          "roofline.analysis"]
+# the compiled program's HLO text, which only XLA gives
+_HLO = ("reads XLA's optimized HLO text of a compiled program; the port "
+        "compiles none and analyzes a plan by tracing it "
+        "(roofline.analysis.analyze_plan)")
 # public names of the walked reference modules with no counterpart
 JAX_ONLY = {
+    **{f"roofline.analysis.{name}": _HLO
+       for name in ("parse_hlo", "analyze_compiled", "Op", "Computation")},
     "core.runner.warn_legacy_threefry":
         "warns when JAX's legacy threefry lowering, whose bits depend on "
         "the sharding, is on; the port draws only the partitionable "
@@ -79,7 +88,9 @@ _STACKED = "a fleet's stacked initial params, as run_fl(params=)"
 PORT_ONLY_PARAMS = {
     "*": {"device": "every entry point takes the run's device"},
     "fleet.executor.FleetRunner": {"params": _STACKED},
-    "fleet.executor.run_fleet": {"params": _STACKED}}
+    "fleet.executor.run_fleet": {"params": _STACKED},
+    "launch.dryrun.main": {"argv": "the CLI's arguments, so a caller runs "
+                                   "it in-process"}}
 # parameters only the reference takes, by name, and why
 JAX_ONLY_PARAMS = {"bank.dense.DenseBank": {
     "use_pallas": "a kernel wrapper decides by its tensor's device"}}
@@ -92,7 +103,16 @@ def _params(obj) -> list:
 
 @pytest.mark.parametrize("module", WALKED)
 def test_names_and_signatures_walk(module):
-    ref = importlib.import_module(f"repro.{module}")
+    # the reference's launch/dryrun.py sets XLA_FLAGS when imported: put
+    # it back, so no later test in this process sees 512 host devices
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        ref = importlib.import_module(f"repro.{module}")
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
     port = importlib.import_module(f"repro_torch.{module}")
     for name, obj in vars(ref).items():
         if (name.startswith("_") or getattr(obj, "__module__", None)

@@ -63,7 +63,8 @@ def test_isolation_walk_sees_the_whole_port():
             "algorithms", "host", "events", "latency", "policies",
             "engine", "compiled", "sim", "io", "run_state",
             "trace_replay", "elastic", "train", "steps",
-            "qwen1_5_110b", "mesh", "rules"} <= mods
+            "qwen1_5_110b", "mesh", "rules", "specs", "dryrun",
+            "analysis", "introspect"} <= mods
     assert "jax" in _imported_modules(ROOT / "tests" / "test_torch_model.py")
 
 
@@ -187,12 +188,20 @@ def test_unported_modules_raise():
     from repro_torch.bank import HostBank, make_bank
     # the host bank (item 9) is ported
     assert isinstance(make_bank("host", device="cpu"), HostBank)
-    # MLA (item 18.3) and the stub frontends (18.4) are ported; a
-    # sharding constraint on each client's update waits for item 19
+    # MLA (item 18.3) and the stub frontends (18.4) are ported, and so is
+    # update_spec= (item 19c); an update constraint that splits a leaf
+    # over a mesh axis of extent > 1 waits for item 19e
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.specs import param_shapes
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.sharding import rules
     cfg = get_config("llava_next_34b")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        make_train_step(build_model(cfg), cfg, 2, 1, update_spec=object())
+    mesh = make_abstract_mesh((16, 16), ("data", "model"))
+    spec = rules.named(mesh, rules.param_specs(param_shapes(cfg), cfg,
+                                               mesh))
+    step = make_train_step(build_model(cfg), cfg, 2, 1, update_spec=spec)
+    with pytest.raises(NotImplementedError, match="item 19e"):
+        step(None, None, None, None, 0.1)
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
