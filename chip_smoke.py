@@ -83,7 +83,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
      MIFA(array) and BankedMIFA(DenseBank) (the bank takes the run's mesh)
      and `run_fleet(engine="scan", mesh=)` of the Figure 2 dense-bank
      fleet, each bit-equal to its scan run without a mesh, with the same
-     launches, and its ms a round beside that run's; profiles one scan run
+     launches, and its ms a round beside that run's, then a `checkpoint=`
+     MIFA(array) scan whose snapshots hold the same run's without a mesh
+     member for member and a MIFA(memory="int8") scan bit-equal to its
+     run without a mesh (`mesh_snapshot_runs`); profiles one scan run
      each of MIFA(array) and
      BankedMIFA(dense), holding the kernels the trace shows by name to the
      launch counters and printing the device's idle share; then runs the
@@ -223,7 +226,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
      full width and depth, its score and one client's f32 gradients card
      vs CPU at 2 layers, and two rounds of the vmap `make_train_step` at
      full depth, N=2 (one `mifa_aggregate` launch a round); in each
-     training run the client inactive in round 1 keeps its stored update.
+     training run the client inactive in round 1 keeps its stored update;
+ 23. drives the dry-run planner (`dryrun_phase`, lines starting
+     `dryrun `) in a gloo world of one on a 1x1 mesh: every plan,
+     qwen1.5-110b's 2-layer `decode_32k` plan made on the card, its
+     prefill with and without padded heads, the `update_spec=` round
+     through `launch.specs.run_placed` bit-equal to none, and
+     granite-3-8b's `train_4k` vmap step (2 layers, full width) through
+     `run_placed` bit-equal to the plain step with one `mifa_aggregate`
+     launch (`placed_train_step`).
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
 """
@@ -1078,11 +1089,12 @@ def clone_tree(params, device):
 
 
 def run_path(name, algo, problem, params0, n_rounds, device, eval_every,
-             engine="loop", cohort_capacity=None, mesh=None):
+             engine="loop", cohort_capacity=None, mesh=None,
+             checkpoint=None):
     """One run of the paper path; under engine="scan" the chunks hold
-    SCAN_CHUNK rounds, placed on `mesh` when given. Returns (params,
-    history, host seconds between the participation draws of consecutive
-    rounds)."""
+    SCAN_CHUNK rounds, placed on `mesh` when given, with `checkpoint`'s
+    snapshots. Returns (params, history, host seconds between the
+    participation draws of consecutive rounds)."""
     from repro_torch.core import BernoulliParticipation, run_fl
     from repro_torch.optim import inv_t
     model, batcher, probs, eval_fn = problem
@@ -1094,7 +1106,7 @@ def run_path(name, algo, problem, params0, n_rounds, device, eval_every,
                           eval_fn=eval_fn, eval_every=eval_every,
                           engine=engine, scan_chunk=SCAN_CHUNK,
                           cohort_capacity=cohort_capacity, mesh=mesh,
-                          device=device)
+                          checkpoint=checkpoint, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     return params, hist, np.diff(part.stamps)
@@ -2410,10 +2422,99 @@ def mesh_phase(params0, problem, scan_runs, fleet_scan_runs,
                 f"{scan_ms(ref[2], rounds):.3f} without a mesh (host clock, "
                 f"rounds {SCAN_CHUNK}-{rounds - SCAN_CHUNK - 1}); bit-equal "
                 f"to it; launches {counts}; {smi}")
+        more, snap_launches = mesh_snapshot_runs(params0, problem, mesh, smi)
+        rows += more
+        launches["checkpoint"] = snap_launches
     finally:
         dist.destroy_process_group()
     rows.append(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     return launches, rows
+
+
+# the mesh phase's snapshot and int8 runs: MESH_SNAP_ROUNDS rounds of the
+# paper path, a snapshot every MESH_SNAP_EVERY, under build/
+MESH_SNAP_ROUNDS, MESH_SNAP_EVERY = 20, 10
+MESH_SNAP_DIR = ROOT / "build" / "mesh_snapshots"
+
+
+def snapshot_members_equal(a_path, b_path) -> tuple[bool, int]:
+    """Do two run snapshots hold the same members (name, dtype, shape and
+    bytes, in order)? The npz container's timestamps are not compared.
+    Returns (equal, member bytes)."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        if a.files != b.files:
+            return False, 0
+        nbytes, same = 0, True
+        for k in a.files:
+            x, y = a[k], b[k]
+            same = same and (x.dtype == y.dtype and x.shape == y.shape
+                             and x.tobytes() == y.tobytes())
+            nbytes += x.nbytes
+    return same, nbytes
+
+
+def mesh_snapshot_runs(params0, problem, mesh, smi) -> tuple[list, int]:
+    """A `checkpoint=` MIFA(array) scan and a MIFA(memory="int8") scan,
+    each on the 1x1 `mesh` and without one: the two runs bit-equal with
+    the same launches, and each snapshot of the meshed run holding the
+    unmeshed run's members byte for byte. Returns the rows and the
+    meshed checkpoint run's `mifa_aggregate` launches."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointSpec, list_checkpoints
+    from repro_torch.core import MIFA
+    rows = []
+    shutil.rmtree(MESH_SNAP_DIR, ignore_errors=True)
+    try:
+        for name, memory in (("checkpoint", "array"), ("int8", "int8")):
+            runs = {}
+            for key, m in (("none", None), ("1x1", mesh)):
+                ck = (CheckpointSpec(every=MESH_SNAP_EVERY,
+                                     dir=str(MESH_SNAP_DIR / key))
+                      if name == "checkpoint" else None)
+                reset_counts()
+                t0 = time.perf_counter()
+                params, hist, _ = run_path(
+                    f"mesh {name}", MIFA(memory=memory), problem, params0,
+                    MESH_SNAP_ROUNDS, "cuda", MESH_SNAP_ROUNDS,
+                    engine="scan", mesh=m, checkpoint=ck)
+                runs[key] = (params, hist, read_counts(),
+                             time.perf_counter() - t0)
+            (p0, h0, c0, s0), (p1, h1, c1, s1) = runs["none"], runs["1x1"]
+            check(c0 == c1, f"mesh {name}: launches {c1} on the mesh, {c0} "
+                            "without")
+            d_loss, d_param = run_gaps((p0, h0), (p1, h1))
+            check(d_loss == 0 and d_param == 0 and np.array_equal(
+                np.asarray(h0.n_active), np.asarray(h1.n_active)),
+                  f"mesh {name}: not bit-equal to its run without a mesh: "
+                  f"|dloss| {d_loss:.3e}, |dparam| {d_param:.3e}")
+            what = f"bit-equal to it, launches {c1}"
+            if name == "checkpoint":
+                snaps = [list_checkpoints(str(MESH_SNAP_DIR / k))
+                         for k in ("none", "1x1")]
+                check([r for r, _ in snaps[0]] == [r for r, _ in snaps[1]]
+                      == list(range(MESH_SNAP_EVERY, MESH_SNAP_ROUNDS + 1,
+                                    MESH_SNAP_EVERY)),
+                      f"mesh checkpoint: snapshots {snaps}")
+                sizes = []
+                for (_, a), (_, b) in zip(*snaps):
+                    same, nbytes = snapshot_members_equal(a, b)
+                    check(same, f"mesh checkpoint: {b} differs from {a}")
+                    sizes.append(nbytes)
+                what += (f"; snapshots after rounds "
+                         f"{[r for r, _ in snaps[1]]} hold the unmeshed "
+                         f"run's members byte for byte ({sizes} B)")
+                launches = c1["mifa_aggregate"]
+            rows.append(
+                f"mesh {name}: MIFA(memory={memory!r}) scan, "
+                f"{MESH_SNAP_ROUNDS} rounds in chunks of {SCAN_CHUNK}"
+                + (f", a snapshot every {MESH_SNAP_EVERY}"
+                   if name == "checkpoint" else "")
+                + f", on the 1x1 mesh: {s1:.2f} s against {s0:.2f} s "
+                f"without (host clock, the capture included); {what}; {smi}")
+    finally:
+        shutil.rmtree(MESH_SNAP_DIR, ignore_errors=True)
+    return rows, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -5281,11 +5382,13 @@ def plan_round_batch(cfg, n: int, s: int, seed: int) -> dict:
 
 def update_spec_round(mesh, smi: str) -> list:
     """`make_train_step(update_spec=)` as the train_4k plan builds it
-    (`inner_update_constraint=True`) on the 1x1 mesh: one sequential
+    (`inner_update_constraint=True`) on the 1x1 mesh, run through the
+    placed path (`launch.specs.run_placed`; its accumulator in blocks
+    under the spec, each the whole leaf at extent 1): one sequential
     round (params from seed 0, G zero, client 1 inactive) bit-equal to
     the same round with update_spec=None; the first round's outputs wait
     on the host while the second runs."""
-    from repro_torch.launch.specs import plan_config
+    from repro_torch.launch.specs import plan_config, run_placed
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
     from repro_torch.roofline.analysis import per_rank_bytes
@@ -5305,7 +5408,8 @@ def update_spec_round(mesh, smi: str) -> list:
         s = cfg.n_patches + LLAVA_TRAIN_TEXT
         which = (f"llava-next-34b at {LLAVA_TRAIN_LAYERS} layers (qwen's "
                  f"plan would leave {free} B)")
-    spec_step = p.fn
+    def spec_step(*args):
+        return run_placed(p, *args)
     model = build_model(cfg)
     n = p.meta["n_clients"]
     check(cfg.sequential_clients and n == UPDATE_N,
@@ -5340,13 +5444,82 @@ def update_spec_round(mesh, smi: str) -> list:
     check(bool(np.isfinite(float(outs[0][1][-1]))), "update_spec round: "
                                                    "loss not finite")
     return [f"make_train_step(update_spec=) from the train_4k plan "
-            f"(inner_update_constraint) on a 1x1 DeviceMesh: {which}, N={n} "
+            f"(inner_update_constraint) on a 1x1 DeviceMesh through "
+            f"run_placed: {which}, N={n} "
             f"K=1, one sequence of {s} positions a client, client 1 "
             f"inactive: bit-equal to update_spec=None over "
             f"{len(outs[0][1])} tensors (params, G, loss "
             f"{float(outs[0][1][-1]):.6f}); rounds {outs[0][2]:.3f} and "
             f"{outs[1][2]:.3f} ms (host clock), peak device allocation "
             f"{peak} B [{smi}]"]
+
+
+# granite-3-8b's train_4k plan (vmap mode, the zoo's tensor-parallel
+# param specs) at PLACED_LAYERS layers of full width on the 1x1 mesh, its
+# step run through launch.specs.run_placed on PLACED_N clients, K = 1 and
+# one sequence of PLACED_S tokens each
+PLACED_LAYERS, PLACED_N, PLACED_S = 2, 2, 128
+
+
+def placed_train_step(mesh, smi: str) -> tuple[int, list]:
+    """The train_4k plan's vmap step through `launch.specs.run_placed` on
+    the 1x1 mesh (every block the whole leaf) against the plain
+    `make_train_step` on the same params, G and batch: params, G and the
+    loss bit-equal, and exactly one `mifa_aggregate` launch (the server
+    step's, one a leaf table) in the placed call. Returns that count and
+    the row."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import plan_config, run_placed
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model import DTYPES
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("granite_3_8b").replace(n_layers=PLACED_LAYERS,
+                                             fl_local_steps=1)
+    p = plan_config(cfg, "train_4k", mesh)
+    named = {a for s in tree_leaves(p.in_shardings[0]) for e in s.spec
+             for a in rules._entry_axes(e)}
+    check(not p.meta["sequential"] and named == {"model"},
+          f"placed step: plan meta {p.meta}, param axes {named}")
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    active = torch.tensor([True, False], device="cuda")
+    outs, counts, times = [], [], []
+    for label, step in (("plain", make_train_step(model, cfg, PLACED_N, 1)),
+                        ("run_placed", lambda *a: run_placed(p, *a))):
+        G = tree_map(lambda t: torch.zeros(
+            (PLACED_N,) + tuple(t.shape), dtype=DTYPES[cfg.memory_dtype],
+            device="cuda"), params)
+        batch = plan_round_batch(cfg, PLACED_N, PLACED_S, 11)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        new, G, metrics = step(params, G, batch, active, 0.05)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        leaves = tree_leaves(new) + tree_leaves(G) + [metrics["loss"]]
+        if outs:
+            same = all(torch.equal(a, b) for a, b in zip(leaves, outs[0]))
+        outs.append(leaves)
+        del new, G, metrics, batch
+    want = {k: int(k == "mifa_aggregate") for k in counts[1]}
+    check(counts[1] == want and counts[0] == want,
+          f"placed step: launches {counts}, expected {want} each")
+    check(same, "placed step: run_placed is not bit-equal to the plain step")
+    check(bool(torch.isfinite(outs[0][-1])), "placed step: loss not finite")
+    n_leaves = len(tree_leaves(params))
+    del outs
+    return counts[1]["mifa_aggregate"], [
+        f"granite-3-8b train_4k plan (vmap, tensor-parallel specs), "
+        f"{PLACED_LAYERS} layers at full width, N={PLACED_N} K=1, one "
+        f"sequence of {PLACED_S} tokens a client, client 1 inactive, on "
+        f"the 1x1 DeviceMesh through run_placed: bit-equal to the plain "
+        f"step over {2 * n_leaves + 1} tensors; mifa_aggregate launches "
+        f"{counts[1]['mifa_aggregate']} (plain {counts[0]['mifa_aggregate']}"
+        f"); {times[1]:.3f} ms against {times[0]:.3f} (host clock, one "
+        f"call each) [{smi}]"]
 
 
 def dryrun_phase(gen, smi: str) -> tuple[dict, list]:
@@ -5371,6 +5544,9 @@ def dryrun_phase(gen, smi: str) -> tuple[dict, list]:
         rows += more
         torch.cuda.empty_cache()
         rows += update_spec_round(mesh, smi)
+        torch.cuda.empty_cache()
+        out["placed_launches"], more = placed_train_step(mesh, smi)
+        rows += more
     finally:
         dist.destroy_process_group()
     rows.append(f"phase {time.perf_counter() - t0:.1f} s")
@@ -5486,6 +5662,7 @@ def main() -> int:
     # meshes: the scan runs again on a 1x1 mesh, bit-equal
     mesh_launches, mesh_rows = mesh_phase(params0, problem, scan_runs,
                                           fleet_scan_runs, smi)
+    mesh_ckpt_launches = mesh_launches.pop("checkpoint")
     fleet_rows += mesh_rows
     del scan_runs, fleet_scan_runs
     for row in (rows + more + int8_phase(params0, problem,
@@ -5661,6 +5838,20 @@ def main() -> int:
         if name in mesh_launches:
             scan.update(mesh_launches=mesh_launches[name],
                         mesh_launches_from=mesh_from[name])
+        if name == "mifa_aggregate":
+            # the mesh phase's checkpoint run and the dry-run phase's
+            # placed train step, each counted from 0 just before it
+            scan.update(
+                mesh_checkpoint_launches=mesh_ckpt_launches,
+                mesh_checkpoint_launches_from=(
+                    f"mesh checkpoint= MIFA(array), 1x1 mesh, "
+                    f"{MESH_SNAP_ROUNDS} rounds (scan), a snapshot every "
+                    f"{MESH_SNAP_EVERY}"),
+                placed_step_launches=dry["placed_launches"],
+                placed_step_launches_from=(
+                    f"granite-3-8b train_4k plan's vmap step through "
+                    f"run_placed, {PLACED_LAYERS} layers at full width, "
+                    f"N={PLACED_N}, 1x1 mesh, one call"))
         if name in scen_launches:
             scan.update(scenario_launches=scen_launches[name],
                         scenario_launches_from=scen_from[name])

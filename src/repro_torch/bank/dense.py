@@ -16,16 +16,22 @@ the same work. The staged rows are the padded ids themselves (int64).
 launch for every leaf and all K trials, per trial bit-equal to
 `bank_scatter`.
 
-With `mesh` (and `cfg`) the rows are laid out by `sharding.rules.
-bank_row_specs`: the client axis over the mesh's data (and pod) axes, as
-the dense MIFA update array. The row count pads to
+With `mesh` (and `cfg`) the bank is placed over the mesh's axes
+(`sharding.params`): the rows by `sharding.rules.bank_row_specs` (the
+client axis over the data (and pod) axes, as the dense MIFA update array,
+and the param dims by the model rules), G_sum by `param_specs` (`cfg`; a
+bank without one keeps G_sum whole). The row count pads to
 `sharding.rules.padded_bank_rows(N, mesh)` so the client axis divides the
 data extent, and at data extent D > 1 each rank holds its block of R / D
-rows of every leaf (`shard`, a `sharding.clients.ClientShard`). A scatter
-then takes the cohort's slots whose rows this rank owns (the others' are
-left out of its call), and the delta sums are all-reduced over the data
-group, so G_sum is whole on every rank; `gather` all-reduces the rows it
-reads. At data extent 1 the bank is the mesh-less one.
+rows (`shard`, a `sharding.clients.ClientShard`). A scatter takes the
+column block of the cohort's updates (whole columns, as the local update
+gives them) and the slots whose rows this rank owns (the others' are left
+out of its call); the delta sums are all-reduced over the data group and
+taken to G_sum's placement. `gather` returns the rank's column block of
+the rows it reads, all-reduced over the data group. `gather_state` and
+`place_state` turn the rank's blocks into the whole state of an unsplit
+bank (N + 1 rows) and back, for a run snapshot. At extent 1 the bank is
+the mesh-less one.
 """
 from __future__ import annotations
 
@@ -35,8 +41,11 @@ import torch
 from repro_torch.bank.base import MemoryBank, check_row_range, tree_nbytes
 from repro_torch.kernels.backend import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.ops import bank_update_tree, fleet_bank_update_tree
-from repro_torch.sharding.clients import check_params_whole, client_shard
-from repro_torch.sharding.rules import P, bank_row_specs, padded_bank_rows
+from repro_torch.sharding.clients import client_shard
+from repro_torch.sharding.params import (block, block_shape, relayout,
+                                         take_tree, whole_tree)
+from repro_torch.sharding.rules import (P, bank_row_specs, padded_bank_rows,
+                                        param_specs, sharded_axes)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -50,6 +59,7 @@ class DenseBank(MemoryBank):
         self.mesh = mesh
         self.cfg = cfg
         self.shard = None
+        self.row_specs = self.sum_specs = None
         self.n = 0
         self.n_rows = 0
 
@@ -62,22 +72,70 @@ class DenseBank(MemoryBank):
         self.n = n_clients
         self.n_rows = n_clients + 1
         self.shard = None
-        local = self.n_rows
+        # without a mesh every leaf is whole: P() places nothing
+        whole = tree_map(lambda p: P(), params)
+        self.row_specs = self.sum_specs = whole
         if self.mesh is not None:
             self.n_rows = padded_bank_rows(n_clients, self.mesh)
-            specs = bank_row_specs(params, self.cfg, self.mesh, self.n_rows)
-            check_params_whole(tree_map(lambda s: P(*s[1:]), specs),
-                               self.mesh, "DenseBank rows")
+            self.row_specs = bank_row_specs(params, self.cfg, self.mesh,
+                                            self.n_rows)
+            if self.cfg is not None:
+                self.sum_specs = param_specs(params, self.cfg, self.mesh)
             self.shard = client_shard(self.mesh, self.n_rows, self.device,
                                       what="DenseBank rows")
-            local = (self.n_rows if self.shard is None
-                     else self.shard.hi - self.shard.lo)
-        rows = tree_map(lambda p: torch.zeros(
-            (local,) + tuple(p.shape), dtype=self.dtype,
-            device=p.device), params)
-        g_sum = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
-        return {"rows": rows, "g_sum": g_sum}
+
+        def zeros(shape, spec, dtype, what):
+            if self.mesh is not None:
+                shape = block_shape(shape, spec, self.mesh, self.device,
+                                    f"DenseBank {what}")
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return {"rows": tree_map(lambda p, s: zeros(
+                    (self.n_rows,) + tuple(p.shape), s, self.dtype, "rows"),
+                    params, self.row_specs),
+                "g_sum": tree_map(lambda p, s: zeros(
+                    tuple(p.shape), s, torch.float32, "G_sum"),
+                    params, self.sum_specs)}
+
+    def place_state(self, state: dict) -> dict:
+        """This rank's blocks of an unsplit bank's whole state (N + 1 rows,
+        as `gather_state` gives it)."""
+        if self.mesh is None:
+            return state
+        pad = self.n_rows - (self.n + 1)
+        rows = tree_map(lambda r: torch.cat([r, r.new_zeros(
+            (pad,) + tuple(r.shape[1:]))]) if pad else r, state["rows"])
+        return {"rows": take_tree(rows, self.row_specs, self.mesh,
+                                  "DenseBank rows"),
+                "g_sum": take_tree(state["g_sum"], self.sum_specs,
+                                   self.mesh, "DenseBank G_sum")}
+
+    def gather_state(self, state: dict) -> dict:
+        """The whole state of an unsplit bank (N + 1 rows: the padding
+        rows beyond the dummy row are never written) from every rank's
+        blocks."""
+        if self.mesh is None:
+            return state
+        rows = whole_tree(state["rows"], self.row_specs, self.mesh,
+                          "DenseBank rows")
+        return {**state,
+                "rows": tree_map(lambda r: r[:self.n + 1], rows),
+                "g_sum": whole_tree(state["g_sum"], self.sum_specs,
+                                    self.mesh, "DenseBank G_sum")}
+
+    def _cols(self, updates):
+        """The rows' column block of whole-column updates (C, ...)."""
+        if self.mesh is None:
+            return updates
+        return tree_map(lambda u, s: block(u, P(None, *s[1:]), self.mesh,
+                                           "DenseBank updates").contiguous(),
+                        updates, self.row_specs)
+
+    def _to_sum(self, dsum):
+        """Delta sums in the rows' column layout -> G_sum's placement."""
+        if self.mesh is None:
+            return dsum
+        return tree_map(lambda d, s, g: relayout(d, P(*s[1:]), g, self.mesh),
+                        dsum, self.row_specs, self.sum_specs)
 
     def gather(self, state: dict, ids):
         ids_t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
@@ -99,13 +157,14 @@ class DenseBank(MemoryBank):
 
     def scatter_staged(self, state: dict, rows: torch.Tensor,
                        valid: torch.Tensor, updates, *, rng=None) -> dict:
+        updates = self._cols(updates)
         if self.shard is None:
             new_rows, dsum = bank_update_tree(state["rows"], updates, rows,
                                               valid)
         else:
             new_rows, dsum = self._scatter_block(state["rows"], rows, valid,
                                                  updates)
-        g_sum = tree_map(torch.add, state["g_sum"], dsum)
+        g_sum = tree_map(torch.add, state["g_sum"], self._to_sum(dsum))
         return {"rows": new_rows, "g_sum": g_sum}
 
     def _scatter_block(self, bank_rows, rows, valid, updates):
@@ -126,7 +185,8 @@ class DenseBank(MemoryBank):
     def scatter_fleet_staged(self, state: dict, rows: torch.Tensor,
                              valid: torch.Tensor, updates, *,
                              rng=None) -> dict:
-        if self.shard is not None:
+        if self.mesh is not None and sharded_axes(
+                [self.row_specs, self.sum_specs], self.mesh):
             raise ValueError("a fleet splits its trial axis over a mesh, "
                              "not its banks' rows: build the fleet's "
                              "DenseBank without mesh=")

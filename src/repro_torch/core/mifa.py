@@ -23,12 +23,15 @@ Dense memory layouts (counterpart of `repro/core/mifa.py`):
 CUDA graph that captures one must not freeze a Python float) or a Python
 float.
 
-Under a mesh of data extent > 1 (`round_step(clients=)`, a
-`sharding.clients.ClientShard`) the state holds the rank's block of the
-client axis: each rank writes its active rows and takes its f32 partial
-column sum, the sums are all-reduced over the data group, then w moves.
-Such worlds run on the CPU (the plain versions); the int8 layout is not
-split (its rounding draws over the whole array).
+Under a mesh (`round_step(clients=)`, a `sharding.clients.ClientShard`)
+the state holds the rank's block of the client axis and, where the params
+are placed over `model`, of the param dims (`params` and `updates` are
+then the same column blocks): each rank writes its active rows and takes
+its f32 partial column sum, the sums are all-reduced over the data group,
+then w moves. Such worlds run on the CPU (the plain versions). The int8
+layout draws its rounding over the whole array and keeps the rank's block
+(`quantized_memory.quantize_leaf`), and gathers the int8 rows, scales and
+losses for the mean, so a split run is the unsplit run bit for bit.
 
 For O(|A(t)|·d) cohort rounds use `repro_torch.bank.BankedMIFA`.
 """
@@ -108,7 +111,8 @@ class MIFA:
         ax = clients or LOCAL
         act = active.float()
         n = ax.n(act)
-        if self.memory == "array" and clients is None:
+        whole_rows = clients is None or clients.group is None
+        if self.memory == "array" and whole_rows:
             G, new_params = mifa_aggregate_tree(state["G"], updates, active,
                                                 params, eta)
             new_state = {"G": G, "t": state["t"] + 1}
@@ -122,23 +126,23 @@ class MIFA:
                     w.dtype), params, G)
             new_state = {"G": G, "t": state["t"] + 1}
         elif self.memory == "int8":
-            if clients is not None:
-                raise NotImplementedError(
-                    "MIFA(memory='int8') with its client axis split over "
-                    "data ranks: the stochastic rounding draws over the "
-                    "whole array, so a rank's block would draw other bits")
             if rng is None:
                 raise ValueError("int8 memory needs the run's device "
                                  "generator (rng=) for its rounding")
             G_f = qm.dequantize_tree(state["G_q"], state["G_scale"])
             G_f = tree_map(lambda g, u: torch.where(_bcast(active, u), u, g),
                            G_f, updates)
-            G_q, G_scale = qm.quantize_tree(rng, G_f)
-            # dequantize again, so an inactive row counts exactly as stored
-            G_f = qm.dequantize_tree(G_q, G_scale)
+            G_q, G_scale = qm.quantize_tree(rng, G_f, clients)
+            # dequantize again, so an inactive row counts exactly as
+            # stored; the mean over every row, as an unsplit run takes it
+            rows = clients.gather if clients is not None else (lambda x: x)
+            G_f = qm.dequantize_tree(tree_map(rows, G_q),
+                                     tree_map(rows, G_scale))
             new_params = tree_map(lambda w, g: (w - eta * g.mean(0)).to(
                 w.dtype), params, G_f)
             new_state = {"G_q": G_q, "G_scale": G_scale, "t": state["t"] + 1}
+            if clients is not None:
+                losses, act, ax = rows(losses), rows(act), LOCAL
         else:
             # Ḡ_t = Ḡ_{t-1} + (1/N) Σ_{i∈A} (G^i_t − G^i_{t'_i})
             deltas = tree_map(lambda u, gp: (u - gp.float()) * _bcast(act, u),

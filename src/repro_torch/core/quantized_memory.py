@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import params as placed
 from repro_torch.tree import tree_map
 
 SCALE_FLOOR = 1e-12
@@ -31,19 +32,37 @@ def _rows(scale: torch.Tensor, ndim: int) -> torch.Tensor:
     return scale.reshape((scale.shape[0],) + (1,) * (ndim - 1))
 
 
-def quantize_leaf(gen: torch.Generator, x: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_leaf(gen: torch.Generator, x: torch.Tensor, clients=None,
+                  spec=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (N, ...) f32 -> (q int8 (N, ...), scale f32 (N,)); `gen` lives on
-    x's device."""
+    x's device.
+
+    With `clients` (a `sharding.clients.ClientShard`) `x` is this rank's
+    block of the whole (N, ...) leaf: rows [lo, hi) and, under `spec` (its
+    placement, `clients.mesh`), a block of the param dims. The rank draws
+    the uniforms of the whole leaf from `gen` and keeps its block, and a
+    row's absmax is reduced over the ranks holding its other columns, so
+    every block is the unsplit quantization's, bit for bit."""
     x = x.float()
     n = x.shape[0]
     absmax = x.reshape(n, -1).abs().amax(1)
+    if spec is not None:
+        placed.amax_(absmax, [a for d, axes in placed.split_dims(
+            spec, clients.mesh) if d for a in axes], clients.mesh)
     # divide by a tensor: CUDA divides by a Python scalar as a multiply by
     # its rounded reciprocal, which can land one ulp off the quotient
     scale = (absmax / absmax.new_full((), 127.0)).clamp(min=SCALE_FLOOR)
     y = x / _rows(scale, x.ndim)
     lo = torch.floor(y)
-    u = torch.rand(x.shape, generator=gen, device=x.device)
+    if clients is None:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    elif spec is None:
+        u = torch.rand((clients.n_rows,) + tuple(x.shape[1:]),
+                       generator=gen, device=x.device)[clients.lo:clients.hi]
+    else:
+        u = placed.block(torch.rand(
+            placed.whole_shape(tuple(x.shape), spec, clients.mesh),
+            generator=gen, device=x.device), spec, clients.mesh)
     q = lo + (u < (y - lo)).float()
     return q.clamp(-127, 127).to(torch.int8), scale
 
@@ -53,10 +72,18 @@ def dequantize_leaf(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * _rows(scale, q.ndim)
 
 
-def quantize_tree(gen: torch.Generator, tree):
-    """Leaf by leaf, in `tree_map` order, one generator for all leaves.
-    Returns (tree of int8 leaves, tree of (N,) scales)."""
-    pairs = tree_map(lambda leaf: quantize_leaf(gen, leaf), tree)
+def quantize_tree(gen: torch.Generator, tree, clients=None):
+    """Leaf by leaf, in `tree_map` order, one generator for all leaves;
+    `clients` as `quantize_leaf` takes it, its `specs` (when set) the
+    leaves' placements. Returns (tree of int8 leaves, tree of (N,)
+    scales)."""
+    if clients is not None and clients.specs is not None:
+        pairs = tree_map(lambda leaf, s: quantize_leaf(gen, leaf, clients,
+                                                       s),
+                         tree, clients.specs)
+    else:
+        pairs = tree_map(lambda leaf: quantize_leaf(gen, leaf, clients),
+                         tree)
     # a (q, scale) tuple is a leaf of the tree helpers
     return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
 

@@ -205,7 +205,7 @@ def to_device(tree, device: torch.device):
 
 def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                     cohort: bool, rng=None, scen_fn=None,
-                    track_tau: bool = False, clients=None):
+                    track_tau: bool = False, clients=None, placement=None):
     """One round as a function of device tensors only:
     ``body(state, params, x) -> (state, params, metrics)``.
 
@@ -233,6 +233,13 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
     the cohort body (`clients` the bank's row shard) takes the cohort slots
     whose rows the rank owns. The reductions span the data group, so every
     rank computes the same params and metrics.
+
+    With `placement` (a `sharding.params.StepPlacement`: params placed
+    over mesh axes) `params` is this rank's blocks: the body gathers whole
+    params for the local update; the dense server step runs on the
+    client state's column blocks (the updates and params cut to them) and
+    its new params go back to their placement; the cohort server step's
+    mean (the bank's G_sum) is taken to the params' placement.
     """
     _, local_ph, server_ph = ROUND_PHASES
     host_draw = hasattr(algo, "host_draw")
@@ -255,12 +262,21 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                  "active": clients.block(x["active"])}
             if host_draw:
                 x["draw"] = clients.block(x["draw"])
-        updates, losses = updates_of(params, x)
+        if placement is None:
+            updates, losses = updates_of(params, x)
+        else:
+            whole = placement.whole(params)
+            updates, losses = updates_of(whole, x)
+            updates, params = (placement.updates(updates),
+                               placement.to_step(whole))
         with record_function(server_ph):
             kw = {"draw": x["draw"]} if host_draw else {}
-            return algo.round_step(state, params, updates, losses,
-                                   x["active"], x["eta_srv"], rng=rng,
-                                   **kw, **sharded)
+            state, params, metrics = algo.round_step(
+                state, params, updates, losses, x["active"], x["eta_srv"],
+                rng=rng, **kw, **sharded)
+            if placement is not None:
+                params = placement.from_step(params)
+            return state, params, metrics
 
     def cohort_round(state, params, x):
         if clients is not None:
@@ -269,11 +285,15 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                                  & (rows < clients.hi)).flatten()
             x = {**x, "batch": tree_map(lambda v: v[mine], x["batch"]),
                  "rows": rows[mine], "valid": x["valid"][mine]}
-        updates, losses = updates_of(params, x)
+        updates, losses = updates_of(
+            params if placement is None else placement.whole(params), x)
         with record_function(server_ph):
             state, mean_g, metrics = algo.round_step_cohort(
                 state, x["rows"], x["valid"], updates, losses, rng=rng,
                 **sharded)
+            if placement is not None:
+                mean_g = placement.to_params(
+                    mean_g, getattr(algo.bank, "sum_specs", None))
             return state, apply_mean(params, mean_g, x["eta_srv"]), metrics
 
     def scenario_round(state, params, x):
@@ -591,17 +611,21 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
     blocker under "scan" and a raise under "scan_strict".
 
     `mesh` (scan engines only; a `launch.mesh` mesh) places the scan
-    engine's carry by `sharding.rules.scan_carry_specs`: params by the
-    model rules when `cfg` (an `ArchConfig`) is given, which must keep
-    them whole on every rank; MIFA's update array and bank rows with the
-    client axis over the mesh's data axes. A `DenseBank` constructed
-    without its own mesh inherits `mesh` and `cfg`, so its rows pad to
-    divide the data extent (`sharding.rules.padded_bank_rows`). At data
-    extent 1 the run is bit-equal to the run without a mesh; at data
-    extent > 1 (a world of CPU ranks) the client-axis sums are reduced
-    per rank and all-reduced, so trajectories match the single-rank run
-    to fp32 reduction-order tolerance, with the masks, n_active and τ
-    statistics exact. `cfg` without a mesh changes nothing.
+    engine's carry (`core.scan_engine`, "Meshes"): params by the model
+    rules when `cfg` (an `ArchConfig`) is given (tensor parallelism over
+    `model`, fsdp over `data`); MIFA's update array and bank rows with the
+    client axis over the mesh's data axes and their param dims by the
+    model rules. The returned params are this rank's blocks. A snapshot
+    (`checkpoint=`) is the whole run's, and resumes on any mesh. A
+    `DenseBank` constructed without its own mesh inherits `mesh` and
+    `cfg`, so its rows pad to divide the data extent
+    (`sharding.rules.padded_bank_rows`). At extent 1 the run is bit-equal
+    to the run without a mesh, and so is a split of the param dims alone;
+    at data extent > 1 (a world of CPU ranks) the client-axis sums are
+    reduced per rank and all-reduced, so trajectories match the
+    single-rank run to fp32 reduction-order tolerance, with the masks,
+    n_active and τ statistics exact (int8 memory gathers its rows and is
+    bit-equal). `cfg` without a mesh changes nothing.
     """
     if (participation is None) == (scenario is None):
         raise ValueError("pass exactly one of participation= or scenario=")
@@ -643,30 +667,15 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
                         engine=engine, scan_chunk=scan_chunk, seed=seed,
                         eval_fn=eval_fn, eval_every=eval_every,
                         verbose=verbose)
-    start_round = 0
-    if checkpoint is not None and checkpoint.resume:
-        from repro_torch.checkpoint.run_state import (fast_forward_sampler,
-                                                      restore_run)
-        start_round = restore_run(runner, checkpoint)
-        if start_round:
-            # host availability streams are not in the snapshot: replay
-            # them through the restored rounds
-            fast_forward_sampler(participation, start_round)
-            fast_forward_sampler(runner._scen_sampler, start_round)
-        if start_round >= n_rounds:
-            return runner.finalize()
-    if engine != "loop":
+    def scan_driver():
+        """The scan engine's driver, or None for the loop (after a warning
+        naming the blocker, or a raise where falling back would drop a
+        request)."""
         from repro_torch.core.scan_engine import ScanDriver, scan_supported
         ok, why = scan_supported(runner)
         if ok:
-            t0 = time.time()
-            ScanDriver(runner, scan_chunk=scan_chunk, mesh=mesh,
-                       cfg=cfg).run(
-                n_rounds, participation=participation, eval_fn=eval_fn,
-                eval_every=eval_every, verbose=verbose,
-                checkpoint=checkpoint, start_round=start_round)
-            runner.hist.wall_time = time.time() - t0
-            return runner.finalize()
+            return ScanDriver(runner, scan_chunk=scan_chunk, mesh=mesh,
+                              cfg=cfg)
         if engine == "scan_strict":
             raise ValueError(f"engine='scan_strict': {why}")
         if checkpoint is not None:
@@ -681,6 +690,33 @@ def run_fl(*, model, algo, batcher, schedule: Callable, n_rounds: int,
         warn_engine_fallback(
             f"engine='scan' unsupported for this configuration "
             f"({why}); falling back to the per-round loop")
+        return None
+
+    # under a mesh the ScanDriver places the carry before a snapshot is
+    # restored into it
+    driver = scan_driver() if mesh is not None else None
+    start_round = 0
+    if checkpoint is not None and checkpoint.resume:
+        from repro_torch.checkpoint.run_state import (fast_forward_sampler,
+                                                      restore_run)
+        start_round = (driver.restore(checkpoint) if driver is not None
+                       else restore_run(runner, checkpoint))
+        if start_round:
+            # host availability streams are not in the snapshot: replay
+            # them through the restored rounds
+            fast_forward_sampler(participation, start_round)
+            fast_forward_sampler(runner._scen_sampler, start_round)
+        if start_round >= n_rounds:
+            return runner.finalize()
+    if engine != "loop" and driver is None:
+        driver = scan_driver()
+    if driver is not None:
+        t0 = time.time()
+        driver.run(n_rounds, participation=participation, eval_fn=eval_fn,
+                   eval_every=eval_every, verbose=verbose,
+                   checkpoint=checkpoint, start_round=start_round)
+        runner.hist.wall_time = time.time() - t0
+        return runner.finalize()
     t0 = time.time()
     for t in range(n_rounds):
         if scenario is not None:

@@ -69,23 +69,33 @@ copies the carry to the host before the next chunk is queued (the replays
 overwrite the carry in place). `start_round` continues a restored run.
 
 Meshes (`ScanDriver(mesh=, cfg=)`, from `run_fl(mesh=, cfg=)`): the carry
-is placed by `sharding.rules.scan_carry_specs`. Params must be whole on
-every rank (`param_specs` with `cfg`; the paper models' specs are all
-replicated). At data extent D > 1, on CPU ranks (`sharding.clients`):
-  * the O(N·d) leaves — the algorithm state's client-indexed leaves (the
-    update array, per-client vectors) and a `DenseBank(mesh=)`'s rows —
-    are held as this rank's block of the client axis;
-  * the O(N) leaves of the scenario and the τ statistics (the chain state,
-    `tau`, `tau_max`) are held whole on every rank: every rank draws the
+is placed over the mesh's axes (`sharding.params`):
+  * params by `param_specs` with `cfg` (the zoo's tensor parallelism over
+    `model`, fsdp over `data`); replicated without `cfg`, as the paper
+    models' specs are anyway;
+  * the algorithm state's client-indexed leaves (the update array,
+    per-client vectors) with their client axis over the data axes and,
+    with `cfg`, their param dims by `client_state_specs`
+    (`params.carry_state_specs`); a `DenseBank(mesh=)` places its rows
+    and G_sum itself;
+  * the O(N) leaves of the scenario and the τ statistics (the chain
+    state, `tau`, `tau_max`) whole on every rank: every rank draws the
     same masks for all N clients with `_threefry` and keeps the same τ
-    vectors, so no collective is needed for them;
-  * every rank stages the same batches; each trains only the clients it
-    owns, and the server step's reductions (the update sums, loss,
-    n_active) are all-reduced over the data group, so every rank returns
-    the same params and history.
-At data extent 1 (every mesh on the card) nothing is split and no
-collective is issued: the run is the mesh-less run, bit for bit, with the
-same kernels and the same captured round.
+    vectors, so no collective is needed for them.
+A round gathers whole params for the local update; every rank stages the
+same batches and trains only the clients it owns; the server step runs on
+the rank's blocks (`params.StepPlacement`: the updates cut to the state's
+column blocks, the new params taken back to their placement), with the
+client axis' reductions (the update sums, loss, n_active) all-reduced
+over the data group, so every rank holds its blocks of the same params
+and the same history. Between rounds each rank holds only its blocks.
+`run_fl` returns each rank's blocks of the params. A checkpoint gathers
+the blocks and rank 0 writes the snapshot an unsplit run writes; a run
+resumed on any mesh takes its blocks from it (`restore`). Evaluation sees
+whole params. At extent 1 (every mesh on the card) nothing is split and
+no collective is issued: the run is the mesh-less run, bit for bit, with
+the same kernels and the same captured round. CUDA tensors under an axis
+of extent > 1 raise.
 """
 from __future__ import annotations
 
@@ -98,8 +108,10 @@ import torch
 from repro_torch.core.runner import RoundRunner, _pow2_bucket, make_round_body
 from repro_torch.core.runner import pad_cohort as runner_pad_cohort
 from repro_torch.kernels.ops import launch_counters
-from repro_torch.sharding.clients import check_params_whole, client_shard
-from repro_torch.sharding.rules import data_axis_size, scan_carry_specs
+from repro_torch.sharding.clients import ClientShard, client_shard
+from repro_torch.sharding.params import (StepPlacement, carry_state_specs,
+                                         take_tree, whole_tree)
+from repro_torch.sharding.rules import data_axis_size, sharded_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 # metrics a round body reports, in the order the chunk buffer stores them
@@ -410,7 +422,8 @@ class ScanDriver:
     and the bytes staged. A runner with a scenario and a dense algorithm
     runs in scenario mode (module docstring). `mesh` (and `cfg`) place the
     carry (module docstring, "Meshes"); `clients` is then this rank's
-    block of the client axis, None where nothing is split.
+    block of the client axis (None where nothing is split) and
+    `placement` the params' (None where they are whole).
     """
 
     def __init__(self, runner: RoundRunner, *, scan_chunk: int = 64,
@@ -419,7 +432,10 @@ class ScanDriver:
             raise ValueError(f"scan_chunk must be >= 1, got {scan_chunk}")
         self.r = r = runner
         self.scan_chunk = scan_chunk
-        self.clients = None if mesh is None else self._place(mesh, cfg)
+        self.mesh = mesh
+        self.clients = self.placement = None
+        if mesh is not None:
+            self._place(mesh, cfg)
         if r.cohort_mode:
             # one shape for every round: unpinned runs pad to the N-client
             # bucket (the loop's per-round buckets vary)
@@ -441,13 +457,14 @@ class ScanDriver:
         self._seg = None
         self._win_start = None
         body = r.body
-        if self.scenario_mode or self.clients is not None:
+        if self.scenario_mode or self.split:
             body = make_round_body(
                 r.model, r.algo, r.batcher.k_steps, r.weight_decay,
                 cohort=r.cohort_mode, rng=r.round_rng,
                 scen_fn=(r.scen_process.sample_fn() if self.scenario_mode
                          else None),
-                track_tau=self.scenario_mode, clients=self.clients)
+                track_tau=self.scenario_mode, clients=self.clients,
+                placement=self.placement)
         # the body draws from the device generator only if the algorithm
         # names it; then the graph must own it
         gens = (r.device_rng,) if r.round_rng is r.device_rng else ()
@@ -462,40 +479,115 @@ class ScanDriver:
     def staged_bytes(self) -> int:
         return self.chunks.staged_bytes
 
-    def _place(self, mesh, cfg):
-        """Place the runner's carry under `mesh`; returns the block of the
-        client axis the round body reduces over (None: nothing split)."""
+    @property
+    def split(self) -> bool:
+        """Is any leaf of the carry split over the mesh?"""
+        return self.clients is not None or self.placement is not None
+
+    def _place(self, mesh, cfg) -> None:
+        """Place the runner's carry under `mesh`: set `clients` (the block
+        of the client axis the round body reduces over) and `placement`
+        (the params' placement), each None where nothing is split."""
         r = self.r
-        specs = scan_carry_specs({"state": r.state, "params": r.params},
-                                 mesh, cfg=cfg, n_clients=r.n_clients)
-        check_params_whole(specs["params"], mesh)
+        if cfg is not None:
+            pl = StepPlacement(r.params, cfg, mesh, r.n_clients)
+            if sharded_axes([pl.param_specs, pl.step_specs], mesh):
+                self.placement = pl
         if r.cohort_mode:
             from repro_torch.bank.dense import DenseBank
             bank = r.algo.bank
-            if data_axis_size(mesh) == 1:
-                return None
-            if not isinstance(bank, DenseBank):
+            if data_axis_size(mesh) > 1:
+                if not isinstance(bank, DenseBank):
+                    raise NotImplementedError(
+                        f"{type(bank).__name__} rows split over data ranks: "
+                        "only DenseBank(mesh=) shards its rows")
+                if bank.mesh is None:
+                    raise ValueError(
+                        "the DenseBank was laid out without the mesh: build "
+                        "it with DenseBank(mesh=) or let run_fl(mesh=) pass "
+                        "its mesh to it")
+                self.clients = bank.shard
+        else:
+            self._state_specs = carry_state_specs(r.state, r.params, cfg,
+                                                  mesh, r.n_clients)
+            shard = client_shard(mesh, r.n_clients, r.device)
+            if shard is None and self.placement is not None:
+                shard = ClientShard(r.n_clients, 0, r.n_clients, None)
+            if shard is not None and "clients" not in inspect.signature(
+                    r.algo.round_step).parameters:
                 raise NotImplementedError(
-                    f"{type(bank).__name__} rows split over data ranks: "
-                    "only DenseBank(mesh=) shards its rows")
-            if bank.mesh is None:
-                raise ValueError(
-                    "the DenseBank was laid out without the mesh: build it "
-                    "with DenseBank(mesh=) or let run_fl(mesh=) pass its "
-                    "mesh to it")
-            return bank.shard
-        shard = client_shard(mesh, r.n_clients, r.device)
-        if shard is None:
-            return None
-        if "clients" not in inspect.signature(
-                r.algo.round_step).parameters:
-            raise NotImplementedError(
-                f"{type(r.algo).__name__}.round_step takes no clients=: "
-                "its client axis cannot be split over data ranks")
-        r.state = tree_map(lambda leaf, spec: (
-            shard.block(leaf).clone() if spec and spec[0] is not None
-            else leaf), r.state, specs["state"])
-        return shard
+                    f"{type(r.algo).__name__}.round_step takes no clients=: "
+                    "its client axis cannot be split over data ranks")
+            if shard is not None and self.placement is not None:
+                shard.specs, shard.mesh = self.placement.state_specs, mesh
+            self.clients = shard
+        # a DenseBank placed its rows when the runner initialised it
+        self._put_carry(r.state, r.params, bank=False)
+
+    @property
+    def _bank_placed(self) -> bool:
+        return getattr(self.r.algo.bank, "mesh", None) is not None
+
+    def _put_carry(self, state, params, bank: bool = True) -> None:
+        """The runner's carry as this rank's blocks of whole `state` and
+        `params` (a bank's state with `bank`; the bank places it)."""
+        r = self.r
+        if r.cohort_mode:
+            if bank and self._bank_placed:
+                state = {**state,
+                         "bank": r.algo.bank.place_state(state["bank"])}
+        elif self.clients is not None:
+            state = take_tree(state, self._state_specs, self.mesh,
+                              "the client state")
+        if self.placement is not None:
+            params = self.placement.place(params)
+        r.state, r.params = state, params
+
+    def whole_carry(self) -> tuple:
+        """(state, params) of the runner, whole on every rank."""
+        r = self.r
+        state, params = r.state, r.params
+        if r.cohort_mode:
+            if self._bank_placed:
+                state = {**state,
+                         "bank": r.algo.bank.gather_state(state["bank"])}
+        elif self.clients is not None:
+            state = whole_tree(state, self._state_specs, self.mesh,
+                               "the client state")
+        if self.placement is not None:
+            params = self.placement.whole(params)
+        return state, params
+
+    def restore(self, checkpoint) -> int:
+        """`checkpoint.restore_run` into the placed carry: the snapshot is
+        the whole run's, and each rank takes its blocks from it. Returns
+        the round to resume from."""
+        from repro_torch.checkpoint.run_state import restore_run
+        r = self.r
+        if not self.split:
+            return restore_run(r, checkpoint)
+        r.state, r.params = self.whole_carry()
+        start = restore_run(r, checkpoint)
+        self._put_carry(r.state, r.params)
+        return start
+
+    def _save(self, checkpoint, round_next: int) -> None:
+        """Snapshot the run: under a split carry every rank's blocks are
+        gathered and rank 0 writes the whole run's file."""
+        from repro_torch.checkpoint.run_state import save_run
+        r = self.r
+        if not self.split:
+            save_run(r, checkpoint, round_next)
+            return
+        import torch.distributed as dist
+        placed = r.state, r.params
+        r.state, r.params = self.whole_carry()
+        try:
+            if dist.get_rank() == 0:
+                save_run(r, checkpoint, round_next)
+        finally:
+            r.state, r.params = placed
+        dist.barrier()
 
     def _build_xs(self, t0: int, t1: int, participation):
         r = self.r
@@ -593,10 +685,11 @@ class ScanDriver:
         if participation is None and r.scen_process is None:
             raise ValueError("ScanDriver.run needs participation= or a "
                              "runner constructed with scenario=")
-        if checkpoint is not None and self.clients is not None:
-            raise NotImplementedError(
-                "checkpoint= of a run whose state is split over data ranks "
-                "(each rank would snapshot its block)")
+        if eval_fn is not None and self.placement is not None:
+            placement, inner = self.placement, eval_fn
+
+            def eval_fn(params):
+                return inner(placement.whole(params))
         evals = _eval_rounds(n_rounds, eval_every, eval_fn is not None)
         ckpts = set()
         if checkpoint is not None:
@@ -612,8 +705,7 @@ class ScanDriver:
                           f"eval={el:.4f} acc={ea:.4f} "
                           f"active={int(r.hist.n_active[-1])}")
             if t in ckpts:
-                from repro_torch.checkpoint.run_state import save_run
-                save_run(r, checkpoint, t + 1)
+                self._save(checkpoint, t + 1)
 
         run_pipelined_chunks(
             self._init_carry(),

@@ -50,11 +50,16 @@ axis is split over the mesh's data ranks, as the reference shards it
 (`sharding.rules.fleet_trial_specs` / `fleet_axis_specs`). At data extent
 D > 1 (a world of CPU ranks, `sharding.clients`) each rank builds and runs
 only its block of K / D trials, on either engine; masks are drawn for all
-K trials and each rank keeps its rows. `finalize` gathers the params, the
-per-trial state and the history over the data group, so every rank
-returns all K. A K that D does not divide is replicated (`sanitize`):
-every rank runs every trial. At data extent 1 nothing changes. Params
-must be whole on every rank (`cfg`'s specs).
+K trials and each rank keeps its rows. With `cfg` the trial params'
+param dims are placed by `fleet_trial_specs` (the zoo's tensor
+parallelism over `model`, `sharding.params`): between rounds each rank
+holds its column blocks, and a round gathers them whole for the local
+update and the per-trial server step (the algorithm state keeps its
+trial-axis placement, `fleet_axis_specs`). `finalize` gathers the params'
+columns, then the params, the per-trial state and the history over the
+data group, so every rank returns all K, whole. A K that D does not
+divide is replicated (`sanitize`): every rank runs every trial. At extent
+1 nothing changes.
 """
 from __future__ import annotations
 
@@ -81,9 +86,9 @@ from repro_torch.fleet.spec import FleetSpec, Trial
 from repro_torch.scenarios.base import as_process
 from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
                                          set_numerics)
-from repro_torch.sharding.clients import check_params_whole, client_shard
-from repro_torch.sharding.rules import (P, fleet_axis_specs,
-                                        fleet_trial_specs)
+from repro_torch.sharding.clients import client_shard
+from repro_torch.sharding.params import take_tree, whole_tree
+from repro_torch.sharding.rules import P, fleet_trial_specs, sharded_axes
 from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
 
 
@@ -266,7 +271,9 @@ class FleetRunner:
     to "cuda" and raises without a GPU. Under `mesh` (module docstring)
     the runner holds its rank's block of the trials (`trial_shard`,
     None where nothing is split): `n_trials` counts the block, `step`
-    takes the masks of all K trials, and `finalize` gathers.
+    takes the masks of all K trials, and `finalize` gathers. With `cfg`
+    the trial params are this rank's column blocks (`param_cols`, None
+    where they are whole).
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
@@ -311,11 +318,12 @@ class FleetRunner:
                     raise ValueError(f"params= leaves must be stacked "
                                      f"(K={self.n_trials}, ...), got "
                                      f"{tuple(p.shape)}")
-        if mesh is not None:
-            specs = (fleet_trial_specs(self.params, cfg, mesh)
-                     if cfg is not None
-                     else fleet_axis_specs(self.params, mesh))
-            check_params_whole(tree_map(lambda s: P(*s[1:]), specs), mesh)
+        self.mesh, self.param_cols = mesh, None
+        if mesh is not None and cfg is not None:
+            cols = tree_map(lambda s: P(None, *s[1:]),
+                            fleet_trial_specs(self.params, cfg, mesh))
+            if sharded_axes(cols, mesh):
+                self.param_cols = cols
         # each trial's state as RoundRunner builds it, stacked leaf by leaf
         # (a paged bank resets its host mirror at each init, so the fleet
         # ends with one fresh mirror and K equal device tables)
@@ -335,6 +343,27 @@ class FleetRunner:
                                     weight_decay, cohort=self.cohort_mode,
                                     rngs=self.round_rngs,
                                     scen_fn=self._scen_fn)
+        if self.param_cols is not None:
+            # the state was built from whole params; the carry holds blocks
+            self.params = take_tree(self.params, self.param_cols, mesh,
+                                    "the trial params")
+            inner = self.body
+
+            def body(state, params, x):
+                state, params, metrics = inner(state,
+                                               self.whole_params(params), x)
+                return (state, take_tree(params, self.param_cols, mesh,
+                                         "the trial params"), metrics)
+            self.body = body
+
+    def whole_params(self, params=None):
+        """The stacked trial params (default: the runner's) with whole
+        param dims."""
+        params = self.params if params is None else params
+        if self.param_cols is None:
+            return params
+        return whole_tree(params, self.param_cols, self.mesh,
+                          "the trial params")
 
     def _init_scenarios(self, scenarios) -> None:
         """Wire one scenario per trial in: a dense fleet stacks their states
@@ -525,7 +554,7 @@ class FleetRunner:
 
     def evaluate(self, t: int, eval_fn: Callable) -> tuple[Any, Any]:
         """eval_fn consumes stacked params -> ((K,) losses, (K,) accs)."""
-        el, ea = eval_fn(self.params)
+        el, ea = eval_fn(self.whole_params())
         self.hist.record_eval(t, el, ea)
         return el, ea
 
@@ -533,6 +562,7 @@ class FleetRunner:
         """Returns (stacked (K, ...) params, fleet history). Under a mesh
         that splits the trials it first gathers the params, the state and
         the history of all K trials from the data group (once)."""
+        self.params, self.param_cols = self.whole_params(), None
         sh = self.trial_shard
         if sh is not None:
             self.params = tree_map(sh.gather, self.params)

@@ -16,6 +16,9 @@ mesh, an `AbstractMesh` or a `DeviceMesh` (`rules.placements` gives the
 DTensor placements of the latter). `plan_config` plans a config the caller
 has already cut (a depth-cut model on the card); `plan` is the
 reference's entry point, `get_config` and the overrides before it.
+`run_placed` runs a plan's step on each rank's blocks of its arguments
+(`sharding.params`) and returns the rank's blocks of the outputs, as the
+reference's jitted step with its in and out shardings does.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
 from repro_torch.models.model import DTYPES
 from repro_torch.sharding import rules
+from repro_torch.sharding.params import gather, place
 from repro_torch.sharding.rules import P, named
 from repro_torch.tree import tree_map
 
@@ -52,6 +56,17 @@ class DryrunPlan:
     out_shardings: Any
     donate_argnums: tuple
     meta: dict
+
+
+def run_placed(p: DryrunPlan, *args) -> Any:
+    """`p.fn` on this rank's blocks of its arguments under
+    `p.in_shardings`: each argument is gathered whole, the step runs whole
+    (the local update needs whole params; the sequential step holds its
+    accumulator in blocks under its own update spec), and this rank's
+    blocks of the outputs under `p.out_shardings` come back. On a mesh of
+    extent 1 every block is the whole tensor and this is `p.fn(*args)`."""
+    out = p.fn(*gather(tuple(args), p.in_shardings))
+    return place(out, p.out_shardings)
 
 
 def shapes_only(fn: Callable) -> Any:

@@ -35,7 +35,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.local_update import client_updates, device_update
 from repro_torch.kernels.ops import mifa_aggregate_tree
 from repro_torch.models import Model
-from repro_torch.sharding.clients import check_params_whole
+from repro_torch.sharding.params import block, block_shape, whole
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -54,18 +54,24 @@ def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
     `update_spec`: a tree of `sharding.rules.NamedSharding` matching the
     params (`launch.specs` builds it from `param_specs` of the fsdp
     config), the placement the reference constrains each client's update
-    to in sequential mode. Params run whole on every rank, so a spec that
-    keeps every leaf whole (every axis it names of extent 1) changes
-    nothing, bit for bit, and one that splits a leaf over an axis of
-    extent > 1 raises NotImplementedError when the step is called
-    (`sharding.clients.check_params_whole`), so a plan can hold it."""
-    def check_update_spec():
-        for s in ([] if update_spec is None else tree_leaves(update_spec)):
-            check_params_whole(s.spec, s.mesh, "each client's update")
+    to in sequential mode. On a `DeviceMesh` the f32 accumulator is held
+    as this rank's blocks under it, each client's update is cut to the
+    rank's block as it is summed (the whole update lives only while it is
+    formed and written into G), and the blocks are gathered once for the
+    weights' move (`sharding.params`): the numbers are the unplaced step's,
+    and at extent 1 the blocks are the whole tensors. On an `AbstractMesh`
+    (the dry run's fake trace) the spec places nothing and the whole step
+    runs. The vmap mode takes no update constraint, as the reference's.
+    The step takes whole arguments: `launch.specs.run_placed` runs it on
+    each rank's blocks of a plan's arguments."""
+    placed = None
+    if update_spec is not None:
+        first = tree_leaves(update_spec)[0]
+        if hasattr(first.mesh, "get_group"):
+            placed = update_spec
 
     if not cfg.sequential_clients:
         def train_step(params, G, batch, active, eta):
-            check_update_spec()
             updates, losses = client_updates(model.loss_fn, params, batch,
                                              eta, K=k_steps)
             G, params = mifa_aggregate_tree(G, updates, active, params, eta)
@@ -74,21 +80,28 @@ def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
 
     def train_step(params, G, batch, active, eta):
         """Sequential clients: one client's update alive at a time."""
-        check_update_spec()
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        def zeros(p, s=None):
+            shape = p.shape if s is None else block_shape(
+                tuple(p.shape), s.spec, s.mesh, p.device)
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        specs = [] if placed is None else [placed]
+        acc = tree_map(zeros, params, *specs)
         losses = []
         for i in range(n_clients):
             u_i, loss_i = device_update(model.loss_fn, params,
                                         {k: v[i] for k, v in batch.items()},
                                         eta)
 
-            def sel(g, u, a, i=i):
+            def sel(g, u, a, s=None, i=i):
                 g[i] = torch.where(active[i], u.to(g.dtype), g[i])
-                a += g[i].float()
+                a += (g[i] if s is None else block(g[i], s.spec,
+                                                   s.mesh)).float()
                 return g
-            G = tree_map(sel, G, u_i, acc)
+            G = tree_map(sel, G, u_i, acc, *specs)
+            del u_i
             losses.append(loss_i)
+        if placed is not None:
+            acc = tree_map(lambda a, s: whole(a, s.spec, s.mesh), acc, placed)
         params = tree_map(lambda w, a: (w - eta * a / n_clients).to(w.dtype),
                           params, acc)
         return params, G, {"loss": _mean_active_loss(torch.stack(losses),

@@ -31,9 +31,11 @@ returns a dict under `analyze_compiled`'s keys, filled as follows:
     has none: no collective.
   * ``conversion_bytes_cpu_artifact``: 0 (an XLA:CPU artifact).
 
-Params run whole on every rank until ROADMAP item 19e: the per-rank bytes
-are those the plan's specs place, not what a run allocates today
-(``params_placement`` says so in every record).
+A run places each argument as the plan's specs say (`sharding.params`,
+`launch.specs.run_placed`), so the per-rank bytes are the blocks a rank
+holds between steps; the step itself gathers whole params for the local
+update, which the count leaves out (``params_placement`` says so in every
+record).
 
 `model_flops` and `roofline_terms` are the reference's, key for key.
 """
@@ -57,9 +59,10 @@ HW = {
     "card": "NVIDIA H100 80GB HBM3, 700 W",
 }
 
-PARAMS_PLACEMENT = ("params run whole on every rank until ROADMAP Queue 1 "
-                    "item 19e; per-rank bytes are those the plan's specs "
-                    "place")
+PARAMS_PLACEMENT = ("params and state are placed as the plan's specs say "
+                    "(sharding.params); per-rank bytes are the blocks a "
+                    "rank holds between steps, without the whole params "
+                    "the local update gathers")
 
 
 def leaf_bytes(t: torch.Tensor, sharding: NamedSharding) -> int:

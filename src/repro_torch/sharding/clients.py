@@ -4,9 +4,9 @@
 rank holds: rows [lo, hi) of n / D, D the mesh's data extent
 (`rules.data_axis_size`), block d for the rank at data coordinate d. The
 ranks of one data group hold the blocks of one axis; ranks that differ
-only in their `model` coordinate hold the same block and compute the same
-numbers. Where there is nothing to split it returns None, and the run is
-the unmeshed run, bit for bit, with no collective:
+only in their `model` coordinate hold the same rows. Where there is
+nothing to split it returns None, and the run is the unmeshed run, bit for
+bit, with no collective:
   * data extent 1 (a 1x1 mesh, every mesh on one card);
   * D does not divide n: `rules.sanitize` replicates such an axis.
 
@@ -14,22 +14,23 @@ the unmeshed run, bit for bit, with no collective:
 (over the axis), `total` (over every element), `all` — each the rank's
 partial, all-reduced over the data group. The dense server steps take it
 as `clients=`; `LOCAL` stands for a whole axis held on this rank with no
-collective, the same calls each rank would make without a mesh.
+collective, the same calls each rank would make without a mesh. A shard
+whose rows are whole (`group` None: only the param dims are split) reduces
+as `LOCAL` does. Its `specs` and `mesh`, when set, say how the client
+state's leaves are placed (`sharding.params.carry_state_specs`), for a
+server step that must draw or reduce over the whole leaf (int8 memory).
 
 Runs at data extent > 1 are worlds of CPU processes (gloo): one H100 has
 no second rank. CUDA tensors there raise NotImplementedError; nothing on
-the card falls back to a plain version.
+the card falls back to a plain version. Params placed over mesh axes are
+`sharding.params`'.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.sharding.rules import (axis_names, data_axes,
-                                        data_axis_size, mesh_shape,
-                                        sharded_axes)
-
-# the ROADMAP Queue 1 entry that places params over mesh axes
-PARAM_PLACEMENT_ITEM = "19e"
+                                        data_axis_size, mesh_shape)
 
 
 class _Local:
@@ -54,10 +55,11 @@ LOCAL = _Local()
 
 class ClientShard:
     """Rows [lo, hi) of an axis of `n` rows, and the data group whose
-    ranks hold the other blocks."""
+    ranks hold the other blocks (None: the rows are whole here)."""
 
     def __init__(self, n: int, lo: int, hi: int, group):
         self.n_rows, self.lo, self.hi, self.group = n, lo, hi, group
+        self.specs = self.mesh = None
 
     def n(self, x: torch.Tensor) -> int:
         """Length of the whole axis that `x`'s leading dim is a block of."""
@@ -70,7 +72,8 @@ class ClientShard:
     def reduce_(self, x: torch.Tensor) -> torch.Tensor:
         """All-reduce (sum) `x` in place over the data group."""
         import torch.distributed as dist
-        dist.all_reduce(x, group=self.group)
+        if self.group is not None:
+            dist.all_reduce(x, group=self.group)
         return x
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,6 +87,8 @@ class ClientShard:
     def all(self, x: torch.Tensor) -> torch.Tensor:
         """All true over the whole axis."""
         import torch.distributed as dist
+        if self.group is None:
+            return x.all()
         v = x.all().to(torch.int32)
         dist.all_reduce(v, op=dist.ReduceOp.MIN, group=self.group)
         return v.bool()
@@ -92,6 +97,8 @@ class ClientShard:
         """The whole (n, ...) tensor from every rank's (hi - lo, ...)
         block."""
         import torch.distributed as dist
+        if self.group is None:
+            return x
         parts = [torch.empty_like(x) for _ in range(
             dist.get_world_size(self.group))]
         dist.all_gather(parts, x.contiguous(), group=self.group)
@@ -140,18 +147,3 @@ def client_shard(mesh, n: int, device: torch.device, *,
     size = n // d
     lo = data_coordinate(mesh) * size
     return ClientShard(n, lo, lo + size, data_group(mesh))
-
-
-def check_params_whole(specs, mesh, what: str = "params") -> None:
-    """Raise unless the spec tree `specs` keeps every leaf whole on every
-    rank: placing params over a mesh axis (the zoo's tensor parallelism,
-    fsdp) is not ported."""
-    axes = sharded_axes(specs, mesh)
-    if axes:
-        raise NotImplementedError(
-            f"{what} split over the mesh axes {sorted(axes)} of sizes "
-            f"{[mesh_shape(mesh)[a] for a in sorted(axes)]}: placing params "
-            "over a mesh axis (tensor parallelism, fsdp) is not ported yet "
-            f"(ROADMAP Queue 1 item {PARAM_PLACEMENT_ITEM}); the port runs "
-            "params whole on every rank, as the paper models' specs are")
-

@@ -1,0 +1,287 @@
+"""A leaf placed over a mesh's axes: this rank's block of it, and the whole
+leaf back from every rank's block (what the reference's
+`jax.device_put(x, NamedSharding(mesh, spec))` and a global array's gather
+do, held here as plain local tensors and explicit collectives).
+
+Block rule. A spec (`sharding.rules.PartitionSpec`) has an entry per
+leading tensor dim (dims past its length are whole). A dim whose entry
+names axes (a1, a2, ...) is split row-major over them in the order the
+entry names them, as JAX's `NamedSharding` splits it: the rank at
+coordinates (c1, c2, ...) holds block ((c1·n2 + c2)·n3 + ...) of
+dim / (n1·n2·...) consecutive indices. `rules.sanitize` has already
+dropped every axis that does not divide its dim, so blocks are even.
+
+Whole from blocks: an `all_gather` over the group of each mesh axis that
+splits the leaf (`DeviceMesh.get_group(axis)`, the last-named axis of a
+dim first), the parts concatenated in coordinate order. The meshes of
+`launch.mesh` number their ranks row-major, so a group's ranks rise with
+the axis' coordinate.
+
+Where every axis a spec names has extent 1 (every mesh on one card) both
+directions are the identity: the same tensor object comes back and no
+collective is issued, so the kernels see the tensors they see without a
+mesh. At extent > 1, CUDA tensors raise NotImplementedError (one card
+runs a world of one rank) and an abstract mesh raises ValueError (it
+places nothing), as `sharding.clients.client_shard` does.
+
+`carry_state_specs` gives the scan carry's algorithm state its specs
+(client-indexed leaves of the params' shape split over the data axes and,
+by `client_state_specs`, over `model`); `StepPlacement` converts between
+the carry's placed params and what a round computes on (whole params for
+the local update, the state's column blocks for the server step).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.sharding.rules import (P, _entry_axes, axis_names,
+                                        client_state_specs, mesh_shape,
+                                        param_specs, scan_carry_specs)
+from repro_torch.tree import tree_map
+
+
+def split_dims(spec, mesh) -> list:
+    """(dim, axes) of every dim `spec` splits over axes of extent > 1, the
+    axes in the entry's order."""
+    shape = mesh_shape(mesh)
+    out = []
+    for d, entry in enumerate(spec):
+        axes = tuple(a for a in _entry_axes(entry) if shape[a] > 1)
+        if axes:
+            out.append((d, axes))
+    return out
+
+
+def _check(device: torch.device, mesh, what: str) -> None:
+    if device.type == "cuda":
+        raise NotImplementedError(
+            f"{what} split over mesh axes of extent > 1 on CUDA tensors: one "
+            "card runs a world of one rank, so a mesh on the card has extent "
+            "1; extent > 1 runs on CPU ranks (gloo)")
+    if not hasattr(mesh, "get_group"):
+        raise ValueError(
+            f"{what}: a mesh of extent > 1 must be a DeviceMesh over a world "
+            "of ranks (launch.mesh.make_host_mesh); an abstract mesh places "
+            "nothing")
+
+
+def block_slices(spec, shape: tuple, mesh, coord=None) -> tuple:
+    """The index into a whole tensor of `shape` of the block under `spec`
+    of the rank at `coord` (its coordinate on each mesh axis, in axis
+    order; default: this rank's, `mesh.get_coordinate()`)."""
+    mshape, names = mesh_shape(mesh), axis_names(mesh)
+    if coord is None:
+        coord = mesh.get_coordinate()
+    idx = [slice(None)] * len(shape)
+    for d, axes in split_dims(spec, mesh):
+        k, n = 0, 1
+        for a in axes:
+            k = k * mshape[a] + coord[names.index(a)]
+            n *= mshape[a]
+        size = shape[d] // n
+        idx[d] = slice(k * size, (k + 1) * size)
+    return tuple(idx)
+
+
+def block_shape(shape: tuple, spec, mesh, device: torch.device,
+                what: str = "a leaf") -> tuple:
+    """The shape of this rank's block of a whole tensor of `shape` on
+    `device` (raising where `block` would)."""
+    dims = split_dims(spec, mesh)
+    if dims:
+        _check(torch.device(device), mesh, what)
+    mshape, out = mesh_shape(mesh), list(shape)
+    for d, axes in dims:
+        for a in axes:
+            out[d] //= mshape[a]
+    return tuple(out)
+
+
+def whole_shape(shape: tuple, spec, mesh) -> tuple:
+    """The whole tensor's shape from a block's `shape` under `spec`."""
+    mshape = mesh_shape(mesh)
+    out = list(shape)
+    for d, axes in split_dims(spec, mesh):
+        for a in axes:
+            out[d] *= mshape[a]
+    return tuple(out)
+
+
+def block(x: torch.Tensor, spec, mesh, what: str = "a leaf"):
+    """This rank's block of the whole `x` under `spec`: `x` itself where
+    nothing is split, else a view of it."""
+    if not isinstance(x, torch.Tensor) or not split_dims(spec, mesh):
+        return x
+    _check(x.device, mesh, what)
+    return x[block_slices(spec, tuple(x.shape), mesh)]
+
+
+def take(x, spec, mesh, what: str = "a leaf"):
+    """`block` as a tensor of its own (the whole's storage is not kept)."""
+    b = block(x, spec, mesh, what)
+    return b if b is x else b.clone()
+
+
+def whole(x, spec, mesh, what: str = "a leaf"):
+    """The whole tensor from every rank's block `x` under `spec` (`x`
+    itself where nothing is split)."""
+    dims = split_dims(spec, mesh) if isinstance(x, torch.Tensor) else []
+    if not dims:
+        return x
+    _check(x.device, mesh, what)
+    import torch.distributed as dist
+    for d, axes in dims:
+        for a in reversed(axes):
+            group = mesh.get_group(a)
+            parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, x.contiguous(), group=group)
+            x = torch.cat(parts, dim=d)
+    return x
+
+
+def relayout(x, src, dst, mesh, what: str = "a leaf"):
+    """This rank's block under `dst` from its block `x` under `src`."""
+    if tuple(src) == tuple(dst):
+        return x
+    return take(whole(x, src, mesh, what), dst, mesh, what)
+
+
+def amax_(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """All-reduce (max) `x` in place over the groups of `axes`."""
+    import torch.distributed as dist
+    for a in axes:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return x
+
+
+# --------------------------------------------------------------------------- #
+# trees
+# --------------------------------------------------------------------------- #
+
+def take_tree(tree: Any, specs: Any, mesh, what: str = "a leaf") -> Any:
+    """`take` leaf by leaf against a PartitionSpec tree of `tree`'s
+    structure."""
+    return tree_map(lambda x, s: take(x, s, mesh, what), tree, specs)
+
+
+def whole_tree(tree: Any, specs: Any, mesh, what: str = "a leaf") -> Any:
+    return tree_map(lambda x, s: whole(x, s, mesh, what), tree, specs)
+
+
+def _pairwise(fn, values: Any, shardings: Any) -> Any:
+    """`fn(value, NamedSharding)` over a value tree (a tuple at the top is
+    taken element by element) and its sharding tree."""
+    if isinstance(values, tuple):
+        return tuple(_pairwise(fn, v, s) for v, s in zip(values, shardings))
+    return tree_map(fn, values, shardings)
+
+
+def place(values: Any, shardings: Any) -> Any:
+    """Each rank's blocks of whole values under a tree of
+    `rules.NamedSharding`s (each with its mesh)."""
+    return _pairwise(lambda x, s: take(x, s.spec, s.mesh), values, shardings)
+
+
+def gather(values: Any, shardings: Any) -> Any:
+    """The whole values from each rank's blocks under `shardings`."""
+    return _pairwise(lambda x, s: whole(x, s.spec, s.mesh), values,
+                     shardings)
+
+
+# --------------------------------------------------------------------------- #
+# the scan carry
+# --------------------------------------------------------------------------- #
+
+def _same_structure(a: Any, b: Any) -> bool:
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, list):
+        return (isinstance(b, list) and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return not isinstance(b, (dict, list))
+
+
+def carry_state_specs(state: Any, params: Any, cfg, mesh,
+                      n_clients: int) -> Any:
+    """Specs of an algorithm's state in the scan carry.
+
+    Every leaf gets `scan_carry_specs`' rule (a client-indexed leaf's
+    leading axis over the data axes, the rest replicated). With `cfg`, a
+    subtree of the params' structure is placed leaf by leaf against its
+    param: an (N, *shape) leaf by `client_state_specs` (vmap mode: the
+    client axis over data, the param dims by the model rules), a leaf of
+    the param's own shape by that spec's param dims (the server step's
+    layout, `StepPlacement.step_specs`)."""
+    base = scan_carry_specs({"state": state}, mesh,
+                            n_clients=n_clients)["state"]
+    if cfg is None:
+        return base
+    cs = client_state_specs(params, cfg, mesh, n_clients=n_clients)
+
+    def leaf(x, p, c, b):
+        shape, ps = tuple(x.shape), tuple(p.shape)
+        if shape == (n_clients,) + ps:
+            return c
+        if shape == ps:
+            return P(*c[1:])
+        return b
+
+    def walk(sub, spec):
+        if _same_structure(sub, params):
+            return tree_map(leaf, sub, params, cs, spec)
+        if isinstance(sub, dict):
+            return {k: walk(sub[k], spec[k]) for k in sub}
+        if isinstance(sub, list):
+            return [walk(x, s) for x, s in zip(sub, spec)]
+        return spec
+
+    return walk(state, base)
+
+
+class StepPlacement:
+    """The params of a placed carry and the layouts a round computes in.
+
+    `param_specs` place the params between rounds; the local update runs
+    on whole params (`whole`); the server step runs on the client state's
+    column blocks: an update leaf (the rank's clients, whole columns) is
+    cut by `update_specs` (None on the client axis, then the param dims of
+    `client_state_specs`), and the params by `step_specs` (those param
+    dims alone). `from_step` takes the server step's new params back to
+    their placement."""
+
+    def __init__(self, params: Any, cfg, mesh, n_clients: int):
+        self.mesh = mesh
+        self.param_specs = param_specs(params, cfg, mesh)
+        cs = client_state_specs(params, cfg, mesh, n_clients=n_clients)
+        self.state_specs = cs
+        self.update_specs = tree_map(lambda s: P(None, *s[1:]), cs)
+        self.step_specs = tree_map(lambda s: P(*s[1:]), cs)
+
+    def place(self, params: Any) -> Any:
+        return take_tree(params, self.param_specs, self.mesh, "params")
+
+    def whole(self, params: Any) -> Any:
+        return whole_tree(params, self.param_specs, self.mesh, "params")
+
+    def updates(self, updates: Any) -> Any:
+        return tree_map(lambda u, s: block(u, s, self.mesh).contiguous(),
+                        updates, self.update_specs)
+
+    def to_step(self, whole_params: Any) -> Any:
+        return tree_map(lambda w, s: block(w, s, self.mesh).contiguous(),
+                        whole_params, self.step_specs)
+
+    def from_step(self, params: Any) -> Any:
+        return self.to_params(params, self.step_specs)
+
+    def to_params(self, tree: Any, specs: Any = None) -> Any:
+        """The params' placement of a param-shaped tree placed by `specs`
+        (None: whole on every rank)."""
+        if specs is None:
+            return take_tree(tree, self.param_specs, self.mesh)
+        return tree_map(lambda x, s, p: relayout(x, s, p, self.mesh),
+                        tree, specs, self.param_specs)

@@ -188,20 +188,37 @@ def test_unported_modules_raise():
     from repro_torch.bank import HostBank, make_bank
     # the host bank (item 9) is ported
     assert isinstance(make_bank("host", device="cpu"), HostBank)
-    # MLA (item 18.3) and the stub frontends (18.4) are ported, and so is
-    # update_spec= (item 19c); an update constraint that splits a leaf
-    # over a mesh axis of extent > 1 waits for item 19e
+    # MLA (item 18.3), the stub frontends (18.4), update_spec= and the
+    # params' placement over mesh axes (item 19) are ported: an update
+    # constraint that splits leaves over an abstract mesh places nothing,
+    # and the step runs whole (here on fake tensors, as the dry run
+    # traces it; llava cut to 1 layer of full width)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro_torch.launch.mesh import make_abstract_mesh
     from repro_torch.launch.specs import param_shapes
     from repro_torch.launch.steps import make_train_step
     from repro_torch.sharding import rules
-    cfg = get_config("llava_next_34b")
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("llava_next_34b").replace(n_layers=1)
     mesh = make_abstract_mesh((16, 16), ("data", "model"))
-    spec = rules.named(mesh, rules.param_specs(param_shapes(cfg), cfg,
-                                               mesh))
-    step = make_train_step(build_model(cfg), cfg, 2, 1, update_spec=spec)
-    with pytest.raises(NotImplementedError, match="item 19e"):
-        step(None, None, None, None, 0.1)
+    specs = rules.param_specs(param_shapes(cfg), cfg, mesh)
+    assert rules.sharded_axes(specs, mesh) == {"data", "model"}
+    model = build_model(cfg)
+    step = make_train_step(model, cfg, 2, 1,
+                           update_spec=rules.named(mesh, specs))
+    with FakeTensorMode():
+        params = model.init(0, device="cpu")
+        G = tree_map(lambda p: torch.zeros((2,) + tuple(p.shape),
+                                           dtype=torch.float32), params)
+        batch = {"tokens": torch.zeros((2, 1, 1, 8), dtype=torch.int32),
+                 "patches": torch.zeros((2, 1, 1, cfg.n_patches,
+                                         cfg.d_model), dtype=torch.bfloat16)}
+        new, G, metrics = step(params, G, batch, torch.tensor([True, False]),
+                               0.1)
+    assert [p.shape for p in tree_leaves(new)] == [
+        p.shape for p in tree_leaves(params)]
+    assert metrics["loss"].shape == ()
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):

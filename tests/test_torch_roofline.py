@@ -171,7 +171,8 @@ def test_dryrun_cli_records_a_plan_and_a_skip(tmp_path, capsys):
     assert r["bottleneck"] in ("compute", "memory", "collective")
     assert r["step_time_lower_bound_s"] > 0
     assert rec["analysis"]["memory"]["peak_estimate_bytes"] > 0
-    assert "19e" in rec["analysis"]["params_placement"]
+    assert rec["analysis"]["params_placement"] == analysis.PARAMS_PLACEMENT
+    assert "sharding.params" in rec["analysis"]["params_placement"]
     assert rec["hw"]["card"] == analysis.HW["card"]
     dryrun.main(["--arch", "hubert_xlarge", "--shape", "decode_32k",
                  "--mesh", "pod", "--out", str(tmp_path)])

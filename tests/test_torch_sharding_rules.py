@@ -17,8 +17,9 @@ meta tensors), so no full-size weights are allocated.
   word; the concrete builders without a world name the remedy.
 * `sanitize`, `padded_bank_rows` and `fleet_axis_specs` on
   hypothesis-drawn shapes equal the reference's.
-* `param_specs` that split a param over a mesh axis raise when a run is
-  asked to place them (`sharding.clients.check_params_whole`).
+* `param_specs` that split a param over a mesh axis are placed by
+  `sharding.params`: each rank's block of every leaf, and the blocks tile
+  each leaf exactly once; the paper models' specs keep every leaf whole.
 """
 import functools
 
@@ -40,7 +41,7 @@ from repro_torch.launch.mesh import (make_abstract_mesh, make_host_mesh,
                                      make_production_mesh)
 from repro_torch.models import build_model
 from repro_torch.sharding import rules
-from repro_torch.sharding.clients import check_params_whole
+from repro_torch.sharding.params import block_slices
 from repro_torch.tree import tree_map
 
 CONFIGS = list(all_configs()) + ["paper_logistic", "paper_mlp"]
@@ -196,20 +197,55 @@ def test_concrete_meshes_need_a_world_and_name_the_remedy():
 @pytest.mark.parametrize("arch", ["granite_3_8b", "qwen1_5_110b"])
 def test_split_params_raise_when_placed(arch):
     """The zoo's tensor-parallel (and qwen's fsdp) specs split params over
-    `model` (and `data`); a run refuses to place them, naming the ROADMAP
-    entry. The paper models' specs are whole on any mesh."""
+    `model` (and `data`); `sharding.params` takes each rank's block of
+    every leaf, and the four ranks' distinct blocks tile it exactly once.
+    The paper models' specs are whole on any mesh: every rank's block is
+    the whole leaf."""
+    import itertools
+
+    import numpy as np
     mesh = make_abstract_mesh((2, 2), ("data", "model"))
+    coords = list(itertools.product(range(2), range(2)))
+
+    def tiles(specs, params):
+        counts = []
+
+        def visit(path, leaf):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            shape = tuple(leaf.shape)
+            blocks = {block_slices(spec, shape, mesh, coord=c)
+                      for c in coords}
+            cover = np.zeros(shape, np.int8)
+            for b in blocks:
+                cover[b] += 1
+            assert (cover == 1).all(), (path, spec)
+            counts.append(len(blocks))
+        rules.tree_map_with_path(visit, params)
+        return counts
+
     _, params, _, _ = _trees(arch)
-    with pytest.raises(NotImplementedError, match="item 19e"):
-        check_params_whole(rules.param_specs(params, get_config(arch), mesh),
-                           mesh)
+    specs = rules.param_specs(params, get_config(arch), mesh)
+    assert rules.sharded_axes(specs, mesh) == (
+        {"data", "model"} if arch == "qwen1_5_110b" else {"model"})
+    assert max(tiles(specs, _small(params))) > 1
     for paper in ("paper_logistic", "paper_mlp"):
         _, pp, _, _ = _trees(paper)
         specs = rules.param_specs(pp, get_config(paper), mesh)
-        check_params_whole(specs, mesh)
+        assert not rules.sharded_axes(specs, mesh)
+        assert set(tiles(specs, pp)) == {1}
         assert all(all(e is None for e in s) for s in
                    jax.tree.leaves(specs, is_leaf=lambda s: isinstance(
                        s, tuple)))
+
+
+def _small(params):
+    """The leaves with each dim cut to at most 64, so the coverage arrays
+    stay small (64 divides over the 2x2 mesh as the whole dims do; the
+    specs were taken at the whole shapes)."""
+    return tree_map(lambda p: torch.empty(tuple(min(n, 64) for n in p.shape),
+                                          device="meta"), params)
 
 
 _MESH_IDS = ["2x2", "16x16", "2x16x16"]

@@ -14,8 +14,11 @@ update_spec=)` against the JAX package's, on the CPU.
   update constraint is bit-equal to the one without, and holds the
   reference's round with its constraint (a 1-device jax Mesh) at the
   training bounds (rtol 2e-4, atol 2e-5 scaled by the leaf's largest
-  magnitude, f32); a spec that splits a leaf over an axis of extent > 1
-  raises naming ROADMAP item 19e when the step runs.
+  magnitude, f32); on an abstract mesh whose spec splits leaves over
+  axes of extent > 1 the step places nothing and runs whole, as the dry
+  run traces it: on fake tensors it gives the unconstrained step's
+  output shapes and dtypes. A world of ranks places the update
+  (`tests/test_torch_param_placement_world.py`).
 """
 import jax
 import jax.numpy as jnp
@@ -194,10 +197,26 @@ def test_update_spec_at_1x1_is_bit_equal_and_holds_the_reference():
                                   ((2, 1), ("data", "model")),
                                   ((1, 2), ("data", "model"))])
 def test_update_spec_that_splits_a_leaf_raises_naming_19e(mesh):
+    """The spec splits leaves over the abstract mesh's axes; the step runs
+    whole on fake tensors, as `roofline.analysis.trace` runs a plan."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     tc = get_smoke_config("qwen1_5_110b").replace(**F32)
-    params = build_model(tc).init(3, device="cpu")
     m = make_abstract_mesh(*mesh)
-    spec = rules.named(m, rules.param_specs(params, tc.replace(fsdp=True), m))
-    step = make_train_step(build_model(tc), tc, N, K, update_spec=spec)
-    with pytest.raises(NotImplementedError, match="item 19e"):
-        step(params, None, None, None, 0.05)
+    model = build_model(tc)
+    outs = []
+    with FakeTensorMode():
+        params = model.init(3, device="cpu")
+        specs = rules.param_specs(params, tc.replace(fsdp=True), m)
+        assert rules.sharded_axes(specs, m)
+        for spec in (None, rules.named(m, specs)):
+            step = make_train_step(model, tc, N, K, update_spec=spec)
+            G = tree_map(lambda p: torch.zeros((N,) + tuple(p.shape)),
+                         params)
+            tokens = torch.zeros((N, K, MB, S), dtype=torch.int32)
+            new, G, metrics = step(params, G, {"tokens": tokens},
+                                   torch.tensor([True, False]), 0.05)
+            outs.append([(tuple(t.shape), t.dtype) for t in tree_leaves(
+                [new, G, metrics["loss"]])])
+    assert outs[0] == outs[1]
+    assert outs[0][:len(tree_leaves(params))] == [
+        (tuple(p.shape), p.dtype) for p in tree_leaves(params)]

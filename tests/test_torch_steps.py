@@ -133,9 +133,12 @@ def test_inactive_clients_do_not_move_their_memory(sequential):
 
 
 def test_update_spec_is_not_ported():
-    """update_spec= is ported (item 19c): a spec that keeps every leaf
-    whole changes nothing; placing an update over a mesh axis of extent
-    > 1 is not ported and raises naming item 19e when the step runs."""
+    """update_spec= is ported, and so is its placement: a spec that keeps
+    every leaf whole changes nothing, and on an abstract
+    2x2 mesh, whose spec splits leaves over `data` and `model`, the spec
+    places nothing and the whole step runs, bit-equal to the step
+    without it (a world of ranks places it:
+    `tests/test_torch_param_placement_world.py`)."""
     from repro_torch.launch.mesh import make_abstract_mesh
     from repro_torch.sharding import rules
     cfg = _cfg(sequential=True)
@@ -143,18 +146,16 @@ def test_update_spec_is_not_ported():
     fsdp = cfg.replace(fsdp=True)
     plain = make_train_step(model, cfg, N, K)(
         params, tree_map(torch.clone, G), batch, active, ETA)
-    mesh = make_abstract_mesh((1, 1), ("data", "model"))
-    spec = rules.named(mesh, rules.param_specs(params, fsdp, mesh))
-    whole = make_train_step(model, cfg, N, K, update_spec=spec)(
-        params, tree_map(torch.clone, G), batch, active, ETA)
-    for a, b in zip(tree_leaves([*plain[:2], plain[2]["loss"]]),
-                    tree_leaves([*whole[:2], whole[2]["loss"]])):
-        assert torch.equal(a, b)
-    mesh = make_abstract_mesh((2, 2), ("data", "model"))
-    spec = rules.named(mesh, rules.param_specs(params, fsdp, mesh))
-    step = make_train_step(model, cfg, N, K, update_spec=spec)
-    with pytest.raises(NotImplementedError, match="item 19e"):
-        step(params, G, batch, active, ETA)
+    for shape in ((1, 1), (2, 2)):
+        mesh = make_abstract_mesh(shape, ("data", "model"))
+        specs = rules.param_specs(params, fsdp, mesh)
+        assert bool(rules.sharded_axes(specs, mesh)) == (shape == (2, 2))
+        spec = rules.named(mesh, specs)
+        out = make_train_step(model, cfg, N, K, update_spec=spec)(
+            params, tree_map(torch.clone, G), batch, active, ETA)
+        for a, b in zip(tree_leaves([*plain[:2], plain[2]["loss"]]),
+                        tree_leaves([*out[:2], out[2]["loss"]])):
+            assert torch.equal(a, b)
 
 
 def test_serve_steps_wrap_the_model():

@@ -2,6 +2,7 @@
 `tests/test_torch_sharded_scan.py` compares.
 
     python tests/torch_world.py --world 1|4 --out DIR
+    python tests/torch_world.py --world 4 --cases params --out DIR
 
 `torch.multiprocessing.spawn` starts the ranks. They meet on a `FileStore`
 under DIR (no TCP rendezvous) and talk gloo over the loopback device, with
@@ -16,9 +17,16 @@ This is a helper script, not a test file: the test module's fixture runs
 it in a subprocess of its own, under a timeout, so no pytest worker opens
 a process group, builds a DeviceMesh or sets an environment variable.
 
-The problem is `tests/test_sharded_scan.py`'s: N = 8 label-skewed clients
-of paper_logistic, T = 9 rounds under Gilbert–Elliott availability (rate
+The problem of the default cases (`--cases paper`) is
+`tests/test_sharded_scan.py`'s: N = 8 label-skewed clients of
+paper_logistic, T = 9 rounds under Gilbert–Elliott availability (rate
 0.5, bursts of 3), cohorts pinned to 8, scan chunks of 4.
+
+`--cases params` (`tests/test_torch_param_placement_world.py`) places the
+params of granite-3-8b's and qwen1.5-110b's smoke configs (f32) over the
+mesh axes (`sharding.params`): each rank compares its blocks of every
+output with its blocks of the same run without a mesh, which it runs too,
+and rank 0 writes every rank's verdicts into `results.json`.
 """
 from __future__ import annotations
 
@@ -198,7 +206,282 @@ def world_of_four(out: dict, info: dict) -> None:
     torch.distributed.barrier()
 
 
-def rank_main(rank: int, world: int, out_dir: str) -> None:
+# --------------------------------------------------------------------------- #
+# --cases params: params placed over the mesh axes
+# --------------------------------------------------------------------------- #
+
+PN, PT, PCHUNK, PS = 4, 3, 2, 16
+
+
+def smoke(arch: str, **change):
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config(arch).replace(compute_dtype="float32",
+                                          param_dtype="float32", **change)
+
+
+def tokens(cfg, n: int):
+    from repro_torch.data import TokenBatcher
+    return TokenBatcher(n_clients=n, vocab=cfg.vocab_size, seq_len=PS,
+                        batch_size=1, k_steps=1, stream_len=4096, seed=0)
+
+
+# the fp32 bounds of tests/test_torch_sharded_scan.py
+PRTOL, PATOL = 2e-5, 1e-6
+
+
+def gap(got, want) -> tuple:
+    """(bit-equal, worst |got - want| / (PATOL + PRTOL·|want|)) over two
+    trees of tensors, arrays or lists of floats."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    eq, worst = True, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        a = torch.as_tensor(a).detach().double()
+        b = torch.as_tensor(b).detach().double()
+        if a.shape != b.shape:
+            return False, float("inf")
+        eq = eq and torch.equal(a, b)
+        if a.numel():
+            worst = max(worst, float(((a - b).abs() / (
+                PATOL + PRTOL * b.abs())).max()))
+    return eq, worst
+
+
+def verdict(info: dict, case: str, got, want, ints=None, axes=()) -> None:
+    """Every rank's (bit-equal, worst gap, integers equal, split axes)
+    for `case`, gathered into `info`."""
+    import torch.distributed as dist
+    eq, worst = gap(got, want)
+    same = True if ints is None else all(
+        np.array_equal(np.asarray(a), np.asarray(b)) for a, b in ints)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, {"eq": eq, "err": worst, "ints": same,
+                                   "axes": sorted(axes)})
+    info[case] = parts
+
+
+def hist_ints(h) -> list:
+    return [np.asarray(h.rounds), np.asarray(h.n_active)]
+
+
+def bernoulli(n: int):
+    from repro_torch.core.participation import BernoulliParticipation
+    return BernoulliParticipation(np.linspace(0.4, 1.0, n), seed=1)
+
+
+def fl_run(arch_cfg, params, algo, n: int, rounds: int = PT, **kw):
+    from repro_torch.core import run_fl
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    return run_fl(model=build_model(arch_cfg), algo=algo,
+                  batcher=tokens(arch_cfg, n),
+                  participation=bernoulli(n), schedule=lambda t: 0.05,
+                  n_rounds=rounds, params=tree_map(lambda p: p.clone(),
+                                                   params),
+                  engine="scan", scan_chunk=PCHUNK, device="cpu", **kw)
+
+
+def step_args(cfg, n: int, seed: int):
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    params = build_model(cfg).init(seed, device="cpu")
+    G = tree_map(lambda p: torch.full((n,) + tuple(p.shape), 0.25), params)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (n, cfg.fl_local_steps, 2, PS)).astype(
+            np.int32))}
+    active = torch.tensor([True, False] + [True] * (n - 2))
+    return params, G, batch, active, 0.05
+
+
+def placed_step_case(info: dict, case: str, cfg, mesh, **plan_kw) -> None:
+    """A train_4k plan's step through `launch.specs.run_placed` on this
+    rank's blocks of small arguments, against the plan's step on the
+    whole arguments."""
+    import dataclasses
+    from repro_torch.launch.specs import plan_config, run_placed
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.params import place
+    from repro_torch.tree import tree_leaves, tree_map
+    p = plan_config(cfg, "train_4k", mesh, **plan_kw)
+    n = p.meta["n_clients"]
+    args = step_args(cfg, n, 3)
+    bspec = rules.named(mesh, rules.batch_specs(
+        args[2], mesh, sequential_clients=p.meta["sequential"]))
+    p = dataclasses.replace(p, in_shardings=(
+        p.in_shardings[:2] + (bspec,) + p.in_shardings[3:]))
+    want = p.fn(*tree_map(lambda a: a.clone(), list(args[:4])), args[4])
+    got = run_placed(p, *place(args, p.in_shardings))
+    axes = rules.sharded_axes([s.spec for s in tree_leaves(
+        p.in_shardings[0])], mesh)
+    verdict(info, case, list(got), list(place(want, p.out_shardings)),
+            axes=axes)
+    info[case + "_n_clients"] = n
+
+
+def world_of_params(out: dict, info: dict, out_dir: str) -> None:
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.checkpoint import CheckpointSpec
+    from repro_torch.core import MIFA
+    from repro_torch.fleet import Trial, run_fleet
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import GilbertElliott
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.params import take_tree
+    from repro_torch.tree import tree_map
+    rank = dist.get_rank()
+    meshes = {k: make_host_mesh(*s, device="cpu")
+              for k, s in MESHES.items()}
+    m22 = meshes["2x2"]
+    granite = smoke("granite_3_8b")
+    qwen = smoke("qwen1_5_110b", fsdp=True, fl_clients=2)
+
+    # (a) qwen's sequential step under its fsdp update constraint, (b)
+    # granite's vmap step, each on the 2x2 mesh
+    placed_step_case(info, "a_sequential_update_spec", qwen, m22,
+                     inner_update_constraint=True)
+    placed_step_case(info, "b_vmap_step", granite, m22)
+
+    params = build_model(granite).init(0, device="cpu")
+    pspecs = rules.param_specs(params, granite, m22)
+
+    def blocks(tree, mesh=m22):
+        return take_tree(tree, rules.param_specs(tree, granite, mesh), mesh)
+
+    # (c) the scan engine with MIFA(array): rows over data, params and the
+    # update array's param dims over model
+    want = fl_run(granite, params, MIFA(memory="array"), PN)
+    got = fl_run(granite, params, MIFA(memory="array"), PN, mesh=m22,
+                 cfg=granite)
+    verdict(info, "c_scan_mifa_array", [got[0], got[1].train_loss],
+            [blocks(want[0]), want[1].train_loss],
+            ints=zip(hist_ints(got[1]), hist_ints(want[1])),
+            axes=rules.sharded_axes([pspecs, rules.client_state_specs(
+                params, granite, m22, n_clients=PN)], m22))
+
+    # (d) BankedMIFA(DenseBank(mesh=, cfg=)): rows over data and model
+    want = fl_run(granite, params, BankedMIFA(DenseBank(device="cpu")), PN,
+                  cohort_capacity=PN)
+    algo = BankedMIFA(DenseBank(mesh=m22, cfg=granite, device="cpu"))
+    got = fl_run(granite, params, algo, PN, cohort_capacity=PN, mesh=m22,
+                 cfg=granite)
+    verdict(info, "d_dense_bank", [got[0], got[1].train_loss],
+            [blocks(want[0]), want[1].train_loss],
+            ints=zip(hist_ints(got[1]), hist_ints(want[1])),
+            axes=rules.sharded_axes([algo.bank.row_specs,
+                                     algo.bank.sum_specs], m22))
+    # the bank alone: a scatter, every row read back as this rank's
+    # column block, G_sum as its block of the whole sum
+    bank = DenseBank(mesh=m22, cfg=granite, device="cpu")
+    state = bank.init(params, PN)
+    gen = torch.Generator().manual_seed(0)
+    ids = np.array([0, 2, 3])
+    upd = tree_map(lambda p: torch.randn((len(ids),) + tuple(p.shape),
+                                         generator=gen), params)
+    state = bank.scatter(state, ids, upd)
+    rows = bank.gather(state, np.arange(PN))
+    whole_rows = tree_map(lambda u: torch.zeros((PN,) + tuple(u.shape[1:]))
+                          .index_copy(0, torch.from_numpy(ids), u), upd)
+    verdict(info, "d_bank_round_trip", [rows, state["g_sum"]],
+            [take_tree(whole_rows, tree_map(lambda s: rules.P(None, *s[1:]),
+                                            bank.row_specs), m22),
+             take_tree(tree_map(lambda u: u.sum(0), upd), bank.sum_specs,
+                       m22)],
+            axes=rules.sharded_axes(bank.row_specs, m22))
+
+    # (e) a K=4 fleet with cfg: the trial axis over 4x1, and over 2x2
+    # with the param dims over model
+    def fleet(mesh=None):
+        trials = [Trial(seed=s, scenario=GilbertElliott.from_rate_and_burst(
+            0.5, 2.0, n=PN, seed=100 + s)) for s in range(FLEET_K)]
+        return run_fleet(model=build_model(granite), batcher=tokens(
+            granite, PN), schedule=lambda t: 0.05, n_rounds=PT,
+            algo=MIFA(memory="array"), trials=trials, mesh=mesh,
+            cfg=None if mesh is None else granite, engine="scan",
+            scan_chunk=PCHUNK, device="cpu")
+    want = fleet()
+    for key in ("4x1", "2x2"):
+        got = fleet(meshes[key])
+        verdict(info, f"e_fleet_{key}",
+                [got[0], got[1].stacked()["train_loss"]],
+                [want[0], want[1].stacked()["train_loss"]],
+                ints=[(got[1].stacked()["n_active"],
+                       want[1].stacked()["n_active"])],
+                axes=rules.sharded_axes(rules.fleet_trial_specs(
+                    want[0], granite, meshes[key]), meshes[key]))
+
+    # (f) checkpoint= after round 2 of 3 on 2x2: N = 3 (the data extent
+    # does not divide it: the rows are whole and the compute is whole, so
+    # the snapshot is the unsplit run's, member for member) and N = 4 (the
+    # rows over data too: within the fp32 bounds); resumed on 4 ranks and
+    # on 1
+    for n, case in ((3, "f_checkpoint_model"), (PN, "f_checkpoint_data")):
+        full = fl_run(granite, params, MIFA(memory="array"), n)
+        split_dir = os.path.join(out_dir, f"ckpt_{n}_split")
+        whole_dir = os.path.join(out_dir, f"ckpt_{n}_whole_{rank}")
+        fl_run(granite, params, MIFA(memory="array"), n, rounds=2,
+               mesh=m22, cfg=granite,
+               checkpoint=CheckpointSpec(every=2, dir=split_dir))
+        fl_run(granite, params, MIFA(memory="array"), n, rounds=2,
+               checkpoint=CheckpointSpec(every=2, dir=whole_dir))
+        name = "ckpt_r00000002.npz"
+        with np.load(os.path.join(split_dir, name)) as a, \
+                np.load(os.path.join(whole_dir, name)) as b:
+            keys = (a.files, b.files)
+            snap = ([a[k] for k in a.files], [b[k] for k in b.files])
+        info[case + "_keys_equal"] = keys[0] == keys[1]
+        info[case + "_bytes_equal"] = all(
+            x.dtype == y.dtype and x.shape == y.shape
+            and x.tobytes() == y.tobytes() for x, y in zip(*snap))
+        floats = [(x, y) for x, y in zip(*snap) if x.dtype.kind == "f"]
+        verdict(info, case + "_snapshot", [x for x, _ in floats],
+                [y for _, y in floats],
+                ints=[(x, y) for x, y in zip(*snap)
+                      if x.dtype.kind not in "fU"],
+                axes=rules.sharded_axes([pspecs, rules.client_state_specs(
+                    params, granite, m22, n_clients=n)], m22))
+        one_dir = os.path.join(out_dir, f"ckpt_{n}_one_{rank}")
+        shutil.copytree(split_dir, one_dir)
+        dist.barrier()
+        for key, kw in (("4", {"mesh": m22, "cfg": granite,
+                               "dir": split_dir}),
+                        ("1", {"dir": one_dir})):
+            ck = CheckpointSpec(every=2, dir=kw.pop("dir"), resume=True)
+            got = fl_run(granite, params, MIFA(memory="array"), n,
+                         checkpoint=ck, **kw)
+            ref = blocks(full[0]) if key == "4" else full[0]
+            verdict(info, f"{case}_resumed_on_{key}",
+                    [got[0], got[1].train_loss], [ref, full[1].train_loss],
+                    ints=zip(hist_ints(got[1]), hist_ints(full[1])),
+                    axes=rules.sharded_axes([pspecs, rules.client_state_specs(
+                        params, granite, m22, n_clients=n)], m22)
+                    if key == "4" else ())
+        dist.barrier()
+
+    # (g) MIFA(memory="int8"): the rows over 4x1, and over 2x2 with the
+    # param dims over model
+    want = fl_run(granite, params, MIFA(memory="int8"), PN)
+    for key in ("4x1", "2x2"):
+        mesh = meshes[key]
+        got = fl_run(granite, params, MIFA(memory="int8"), PN, mesh=mesh,
+                     cfg=granite)
+        verdict(info, f"g_int8_{key}", [got[0], got[1].train_loss],
+                [blocks(want[0], mesh), want[1].train_loss],
+                ints=zip(hist_ints(got[1]), hist_ints(want[1])),
+                axes=rules.sharded_axes([rules.param_specs(
+                    params, granite, mesh), rules.client_state_specs(
+                    params, granite, mesh, n_clients=PN)], mesh))
+    dist.barrier()
+
+
+def rank_main(rank: int, world: int, out_dir: str,
+              cases: str = "paper") -> None:
     import torch
     import torch.distributed as dist
     # gloo's pairs on the loopback device; set in the rank's own process
@@ -210,7 +493,10 @@ def rank_main(rank: int, world: int, out_dir: str) -> None:
                             timeout=timedelta(seconds=120))
     try:
         out, info = {}, {}
-        (world_of_one if world == 1 else world_of_four)(out, info)
+        if cases == "params":
+            world_of_params(out, info, out_dir)
+        else:
+            (world_of_one if world == 1 else world_of_four)(out, info)
         if rank == 0:
             np.savez(os.path.join(out_dir, "results.npz"), **out)
             with open(os.path.join(out_dir, "results.json"), "w") as f:
@@ -223,10 +509,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, choices=(1, 4), required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--cases", choices=("paper", "params"), default="paper")
     args = ap.parse_args()
+    if args.cases == "params" and args.world != 4:
+        ap.error("--cases params runs in a world of 4")
     import torch.multiprocessing as mp
-    mp.spawn(rank_main, args=(args.world, args.out), nprocs=args.world,
-             join=True)
+    mp.spawn(rank_main, args=(args.world, args.out, args.cases),
+             nprocs=args.world, join=True)
 
 
 if __name__ == "__main__":
