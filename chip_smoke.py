@@ -178,7 +178,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
      one client's f32 loss and gradients (1 layer) on the card against the
      CPU; `make_train_step`'s vmap mode against its sequential mode (f32);
      zamba2-7b at full width cut to 6 layers (the shared attention block
-     on the path) for 2 rounds;
+     on the path) for 2 rounds; both with `cfg.remat` on, as their configs
+     say (each layer rematerialized on the backward pass), then again
+     with it off: params and losses bit-equal to the remat run, or, where
+     the remat-off run does not repeat itself bit for bit, within the
+     training tolerance, its own spread printed (`remat_off_check`);
  19. drives gemma3-4b (`gemma_phase`, lines starting `gemma `): times
      `flash_attention` at its two prefill shapes (global, and window 1024)
      beside its bound and one `scaled_dot_product_attention` call
@@ -225,8 +229,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
      (non-causal, encoder-only) scored through `make_encoder_step` at
      full width and depth, its score and one client's f32 gradients card
      vs CPU at 2 layers, and two rounds of the vmap `make_train_step` at
-     full depth, N=2 (one `mifa_aggregate` launch a round); in each
-     training run the client inactive in round 1 keeps its stored update;
+     full depth, N=2 (one `mifa_aggregate` launch a round), with
+     `cfg.remat` on as its config says; in each training run the client
+     inactive in round 1 keeps its stored update; then one hubert round
+     from the same state with remat on and with it off
+     (`remat_round_pair`): ms and peak allocation of each, params and G
+     bit-equal;
  23. drives the dry-run planner (`dryrun_phase`, lines starting
      `dryrun `) in a gloo world of one on a 1x1 mesh: every plan,
      qwen1.5-110b's 2-layer `decode_32k` plan made on the card, its
@@ -236,10 +244,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `run_placed` bit-equal to the plain step with one `mifa_aggregate`
      launch (`placed_train_step`).
 It exits non-zero on any failure. Its last two lines are one JSON object per
-kernel list, then {"ok": true, "device": {...}}. It imports no JAX.
+kernel list, then {"ok": true, "device": {...}}. It imports no JAX. Its
+rows are line-buffered, each phase prints its start time (`start <phase>
+at <s> s`) before it runs, and a run still going after WATCHDOG_S seconds
+prints every thread's stack to stderr and exits with code 1.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import os
@@ -4500,13 +4512,86 @@ def train_modes(params_bf16) -> str:
             f"{s_s:.3f} s")
 
 
+def trees_equal(a, b) -> bool:
+    """Every leaf of two trees of tensors bit-equal (dtype and shape
+    too)."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def trees_gap(a, b) -> float:
+    """The worst leaf of `a` against `b` as a fraction of the f32 model
+    bound (`model_gap`)."""
+    from repro_torch.tree import tree_leaves
+    return max(model_gap(x, y) for x, y in zip(tree_leaves(a),
+                                               tree_leaves(b)))
+
+
+def remat_verdict(label: str, on, off, off_again) -> str:
+    """How a remat-on result `on` stands to the remat-off result `off`
+    (trees of tensors): bit-equal; or, when they differ, `off_again()` (a
+    second remat-off run) must differ from `off` too (else remat moved
+    the numbers) and `on` must be within the training tolerance of
+    `off`, the remat-off run's own spread printed beside it."""
+    if trees_equal(on, off):
+        return "bit-equal to remat off"
+    again = off_again()
+    check(not trees_equal(again, off),
+          f"{label}: remat off repeats itself bit for bit but remat on "
+          f"differs from it ({trees_gap(on, off):.3e} of the bound)")
+    gap, spread = trees_gap(on, off), trees_gap(again, off)
+    check(gap <= 1, f"{label}: remat on {gap:.3e} of the training bound "
+                    f"from remat off (remat off's own spread {spread:.3e})")
+    return (f"not bit-equal, and remat off does not repeat itself: remat "
+            f"on {gap:.3e} of the training bound (rtol {MODEL_RTOL}, atol "
+            f"{MODEL_ATOL}·max|leaf|) from remat off, whose second run is "
+            f"{spread:.3e} from its first")
+
+
+def remat_off_check(label: str, cfg, rounds: int, on: dict, smi: str
+                    ) -> list:
+    """(f) The `train_run` that gave `on` (cfg.remat on) again with remat
+    off: its rows (ms a round and the peak beside the remat run's), and
+    its final params and losses held to the remat run's
+    (`remat_verdict`). `on`'s params wait on the host meanwhile (popped
+    from `on`), so the two runs' peaks count the same tensors."""
+    from repro_torch.tree import tree_map
+    check(cfg.remat, f"train {label}: the config's remat is off")
+    off_cfg = cfg.replace(remat=False)
+    on_params = tree_map(lambda t: t.cpu(), on.pop("params"))
+
+    def run_off():
+        out, _, rows = train_run(f"{label}, remat off", off_cfg, rounds,
+                                 smi)
+        return out, rows
+
+    off, rows = run_off()
+
+    def result(out):
+        return [out["params"], torch.tensor(out["losses"])]
+
+    on_result = [tree_map(lambda t: t.cuda(), on_params),
+                 torch.tensor(on["losses"])]
+    del on_params
+    verdict = remat_verdict(f"train {label}", on_result, result(off),
+                            lambda: result(run_off()[0]))
+    rows.append(f"train {label} remat on vs off: final params and "
+                f"{rounds} losses {verdict}")
+    return rows
+
+
 def train_phase(smi: str) -> tuple[dict, list]:
     """Federated training of the zoo's text models on the card
-    (`launch.train.train`): (a) granite-3-8b at full width, 2 layers, the
-    main path of this slice (counts read around it); (b) the kernel
-    against its plain version inside the round; (c) one client's f32 loss
-    and gradients, card against CPU; (d) `make_train_step`'s two modes;
-    (e) zamba2-7b's hybrid training forward. Returns (a)'s launches."""
+    (`launch.train.train`), with `cfg.remat` on as the configs say: (a)
+    granite-3-8b at full width, 2 layers, the main path of this slice
+    (counts read around it); (b) the kernel against its plain version
+    inside the round; (c) one client's f32 loss and gradients, card
+    against CPU; (d) `make_train_step`'s two modes; (e) zamba2-7b's
+    hybrid training forward; (f) each of (a) and (e) again with remat off
+    (`remat_off_check`). Returns (a)'s launches."""
     from repro_torch.models import build_model
     t0 = time.perf_counter()
     cfg = train_cfg("granite_3_8b", TRAIN_LAYERS)
@@ -4516,10 +4601,13 @@ def train_phase(smi: str) -> tuple[dict, list]:
     rows.append(row)
     rows.append(train_card_vs_cpu())
     rows.append(train_modes(out["params"]))
+    rows += remat_off_check("granite-3-8b", cfg, TRAIN_ROUNDS, out, smi)
     del out
-    rows += train_run("zamba2-7b", train_cfg("zamba2_7b",
-                                             ZAMBA_TRAIN_LAYERS),
-                      ZAMBA_TRAIN_ROUNDS, smi)[2]
+    cfg = train_cfg("zamba2_7b", ZAMBA_TRAIN_LAYERS)
+    out, _, more = train_run("zamba2-7b", cfg, ZAMBA_TRAIN_ROUNDS, smi)
+    rows += more
+    rows += remat_off_check("zamba2-7b", cfg, ZAMBA_TRAIN_ROUNDS, out, smi)
+    del out
     rows.append(f"train phase {time.perf_counter() - t0:.1f} s")
     return {"mifa_aggregate": counts["mifa_aggregate"],
             "kernel_check_err": err}, rows
@@ -5114,6 +5202,65 @@ def hubert_card_vs_cpu() -> str:
             f"{out['cuda'][3]:.3f} s, CPU {out['cpu'][3]:.3f} s")
 
 
+def remat_round_pair(label: str, cfg, n: int, mb: int, s: int, smi: str
+                     ) -> list:
+    """One vmap `make_train_step` round of `cfg` from params of seed 0 and
+    G from zeros (the batch of seed 0, mask STUB_MASKS[0],
+    inv_t(TRAIN_ETA0)) with cfg.remat on, then the same round with it
+    off: each round's ms (host clock to a sync) and peak allocation, and
+    the two rounds' params and G bit-equal (no MoE: nothing in the round
+    sums by index, so the card repeats it bit for bit). The remat
+    round's params and G wait on the host while the other round runs
+    (both at full depth would not fit the card), and come back leaf by
+    leaf for the comparison."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import inv_t
+    from repro_torch.tree import tree_map
+    check(cfg.remat, f"{label}: the config's remat is off")
+    k = cfg.fl_local_steps
+    eta = inv_t(TRAIN_ETA0)(1)
+    rows, res = [], {}
+    for remat in (True, False):
+        c = cfg.replace(remat=remat)
+        model = build_model(c)
+        torch.cuda.empty_cache()
+        params = model.init(0, device="cuda")
+        G = tree_map(lambda p: torch.zeros((n,) + tuple(p.shape),
+                                           device="cuda"), params)
+        batch = stub_batch(c, n, k, mb, s, 0)
+        active = torch.tensor(STUB_MASKS[0], device="cuda")
+        step = make_train_step(model, c, n, k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, G, metrics = step(params, G, batch, active,
+                                  torch.tensor(eta, device="cuda"))
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        del batch, metrics
+        rows.append(f"  remat {'on' if remat else 'off'}: one round from "
+                    f"params of seed 0 and G = 0 (batch of seed 0, mask "
+                    f"{list(map(int, STUB_MASKS[0]))}), {c.n_layers} "
+                    f"layers, loss {loss:.6f}, {ms:.3f} ms (host clock to "
+                    f"a sync), peak device allocation {peak} B [{smi}]")
+        if remat:
+            res[remat] = tree_map(lambda t: t.cpu(), [params, G])
+        else:
+            res[remat] = [params, G]
+        del params, G
+    on_card = tree_map(lambda t: t.cuda(), res[True])
+    check(trees_equal(on_card, res[False]),
+          f"train {label}: the remat round's params and G differ from the "
+          f"round without remat ({trees_gap(on_card, res[False]):.3e} of "
+          "the training bound)")
+    return ([f"train {label} remat on vs off (`remat_round_pair`), N={n} "
+             f"K={k} mb={mb} S={s}:"] + rows
+            + ["  params and G bit-equal"])
+
+
 def hubert_phase(smi: str) -> tuple[dict, list]:
     """hubert-xlarge on the card: scored through `make_encoder_step` at
     full width and depth (48 layers; the training forward, no kernel),
@@ -5162,6 +5309,10 @@ def hubert_phase(smi: str) -> tuple[dict, list]:
         "hubert-xlarge", cfg.replace(fl_clients=HUBERT_TRAIN_N),
         HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S, smi)
     rows += more
+    rows += remat_round_pair("hubert-xlarge",
+                             cfg.replace(fl_clients=HUBERT_TRAIN_N),
+                             HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S,
+                             smi)
     rows.append(f"phase {time.perf_counter() - t0:.1f} s")
     return ({"train_launches": train_counts["mifa_aggregate"],
              "train_launches_from": (
@@ -5553,11 +5704,28 @@ def dryrun_phase(gen, smi: str) -> tuple[dict, list]:
     return out, [f"dryrun {r}" for r in rows]
 
 
+# a run still going after this many seconds prints every thread's stack
+# to stderr and exits (the whole script takes 550-710 s), so a stall shows
+# where and fails inside the 1200 s limit
+WATCHDOG_S = 1100
+T_START = time.perf_counter()
+
+
+def phase_start(phase: str) -> None:
+    """Print, as it happens, the seconds since the script began at which
+    `phase` starts."""
+    print(f"start {phase} at {time.perf_counter() - T_START:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    # rows reach a redirected stdout as they are printed, not when a block
+    # fills, so a run that is cut still shows how far it got
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import backend
 
@@ -5625,17 +5793,21 @@ def main() -> int:
                   f"{leaf['us']:.2f} us, plain {leaf['plain_us']:.2f} us"
                   f"{lib}, bound {leaf['bound_us']:.2f} us")
 
+    phase_start("main path")
     launches, rows, main_runs, loop_ms = main_path(params0, problem)
     for row in rows:
         print(row)
+    phase_start("paged path")
     (launches["paged_bank_scatter"], rows, main_runs["banked_paged"],
      loop_ms["banked_paged"]) = paged_path(params0, problem,
                                            main_runs["banked_dense"])
     for row in rows:
         print(row)
+    phase_start("eviction phase")
     evict_counts, rows = eviction_phase(params0)
     for row in rows:
         print(row)
+    phase_start("million phase")
     million_counts, rows = million_phase(params0, problem[0])
     for row in rows:
         print(row)
@@ -5643,6 +5815,7 @@ def main() -> int:
                                      + million_counts["paged_bank_gather"])
     problem_cpu = paper_problem(device="cpu")
     card_vs_cpu(params0, problem, problem_cpu)
+    phase_start("fig2 phase")
     fleet_launches, fleet_runs, rows = fig2_phase(problem)
     launches.update(fleet_launches)
     for row in rows:
@@ -5651,6 +5824,7 @@ def main() -> int:
 
     # the scan engine: the paper paths, eviction, int8 memory and the
     # fleets again, each round a replay of one captured CUDA graph
+    phase_start("scan phases")
     scan_launches, rows, scan_runs = scan_phase(params0, problem, main_runs,
                                                 loop_ms)
     evict_scan_counts, more = eviction_scan_phase()
@@ -5670,14 +5844,17 @@ def main() -> int:
                 + profiled_scan(params0, problem) + fleet_rows):
         print(row)
     # scenarios: availability drawn inside the round on the card
+    phase_start("scenario phase")
     scen_launches, rows = scenario_phase(params0, problem, problem_cpu)
     for row in rows:
         print(row)
     # the runtime simulator: the heap and the compiled engine, fleets
+    phase_start("sim phase")
     sim_launches, rows = sim_phase(params0, problem, problem_cpu)
     for row in rows:
         print(row)
     # durability: trace replay, elastic fleets, kill and resume, snapshots
+    phase_start("durability phase")
     dur_launches, rows = durability_phase(params0, problem, problem_cpu)
     for row in rows:
         print(row)
@@ -5697,28 +5874,33 @@ def main() -> int:
 
     del problem, problem_cpu, params0
     torch.cuda.empty_cache()
+    phase_start("zoo phases")
     zoo_errs, zoo_shapes, zoo_launches = zoo_phases(gen, timing)
     launches.update(zoo_launches)
     # federated training of the zoo's text models: granite-3-8b's rounds
     # step the server through mifa_aggregate
     torch.cuda.empty_cache()
+    phase_start("train phase")
     train_launches, rows = train_phase(smi)
     for row in rows:
         print(row)
     mifa_err = max(mifa_err, train_launches.pop("kernel_check_err"))
     # gemma3-4b: flash_attention at head dim 256, global and windowed
     torch.cuda.empty_cache()
+    phase_start("gemma phase")
     gemma, rows = gemma_phase(gen, smi)
     for row in rows:
         print(row)
     # MoE: olmoe-1b-7b and moonshot-v1-16b-a3b served, olmoe trained
     torch.cuda.empty_cache()
+    phase_start("moe phase")
     moe, rows = moe_phase(gen, smi)
     for row in rows:
         print(row)
     # MLA: deepseek-v2-lite-16b served and trained, flash_attention with
     # v's head dim 128 beside q and k's 192
     torch.cuda.empty_cache()
+    phase_start("mla phase")
     mla, rows = mla_phase(gen, smi)
     for row in rows:
         print(row)
@@ -5726,10 +5908,12 @@ def main() -> int:
     # at g = 7 and S = 2912) and trained sequentially; hubert-xlarge scored
     # and trained through mifa_aggregate
     torch.cuda.empty_cache()
+    phase_start("llava phase")
     llava, rows = llava_phase(gen, smi)
     for row in rows:
         print(row)
     torch.cuda.empty_cache()
+    phase_start("hubert phase")
     hubert, rows = hubert_phase(smi)
     for row in rows:
         print(row)
@@ -5738,6 +5922,7 @@ def main() -> int:
     # the dry-run planner: every plan, qwen1.5-110b's decode plan made on
     # the card, its prefill with padded heads, update_spec=
     torch.cuda.empty_cache()
+    phase_start("dryrun phase")
     dry, rows = dryrun_phase(gen, smi)
     for row in rows:
         print(row)
@@ -5973,6 +6158,7 @@ def main() -> int:
             # width
             "per_launch_us": t["leaves"], **scan})
     print(json.dumps({"kernels": entries}))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -82,6 +82,10 @@ is placed over the mesh's axes (`sharding.params`):
     state, `tau`, `tau_max`) whole on every rank: every rank draws the
     same masks for all N clients with `_threefry` and keeps the same τ
     vectors, so no collective is needed for them.
+  * a `PagedDeviceBank` whole on every rank (its pool, page table and
+    G_sum, as the reference holds it): every rank runs the whole round,
+    so the banks stay equal across ranks. A host bank raises, as the
+    reference's does; any other bank raises naming itself.
 A round gathers whole params for the local update; every rank stages the
 same batches and trains only the clients it owns; the server step runs on
 the rank's blocks (`params.StepPlacement`: the updates cut to the state's
@@ -100,6 +104,7 @@ of extent > 1 raise.
 from __future__ import annotations
 
 import inspect
+import math
 from typing import Callable
 
 import numpy as np
@@ -108,10 +113,12 @@ import torch
 from repro_torch.core.runner import RoundRunner, _pow2_bucket, make_round_body
 from repro_torch.core.runner import pad_cohort as runner_pad_cohort
 from repro_torch.kernels.ops import launch_counters
-from repro_torch.sharding.clients import ClientShard, client_shard
+from repro_torch.sharding.clients import (ClientShard, check_data_ranks,
+                                          client_shard)
 from repro_torch.sharding.params import (StepPlacement, carry_state_specs,
                                          take_tree, whole_tree)
-from repro_torch.sharding.rules import data_axis_size, sharded_axes
+from repro_torch.sharding.rules import (data_axis_size, mesh_shape,
+                                        sharded_axes)
 from repro_torch.tree import tree_leaves, tree_map
 
 # metrics a round body reports, in the order the chunk buffer stores them
@@ -128,11 +135,13 @@ def scan_supported(runner: RoundRunner) -> tuple[bool, str]:
                        "cannot precompute a chunk of learning rates")
     bank = getattr(runner.algo, "bank", None)
     if runner.cohort_mode and not bank.on_device:
+        # the reference's words, so run_fl(mesh=) raises its error text
         return False, (
-            f"{type(bank).__name__} is host-offloaded: its rows live on "
-            "the host, outside a captured round; scan-capable banks are "
-            "DenseBank ('dense') and PagedDeviceBank ('paged_device', "
-            "bounded device bytes behind a page table)")
+            f"{type(bank).__name__} is host-offloaded: its rows live "
+            "outside jit by design and cannot ride a scan carry; scan-"
+            "capable banks are DenseBank ('dense') and PagedDeviceBank "
+            "('paged_device', bounded device bytes via a jit-native page "
+            "table)")
     return True, ""
 
 
@@ -495,18 +504,28 @@ class ScanDriver:
                 self.placement = pl
         if r.cohort_mode:
             from repro_torch.bank.dense import DenseBank
+            from repro_torch.bank.paged_device import PagedDeviceBank
             bank = r.algo.bank
             if data_axis_size(mesh) > 1:
-                if not isinstance(bank, DenseBank):
+                if isinstance(bank, PagedDeviceBank):
+                    # the whole bank on every rank (pool, page table,
+                    # G_sum), as the reference holds it: every rank runs
+                    # the whole round, so the banks stay equal
+                    check_data_ranks(mesh, r.device,
+                                     what="a PagedDeviceBank's round")
+                elif not isinstance(bank, DenseBank):
                     raise NotImplementedError(
-                        f"{type(bank).__name__} rows split over data ranks: "
-                        "only DenseBank(mesh=) shards its rows")
-                if bank.mesh is None:
+                        f"{type(bank).__name__} under data ranks: "
+                        "DenseBank(mesh=) shards its rows and "
+                        "PagedDeviceBank is held whole on every rank; no "
+                        "other bank runs under a mesh of data extent > 1")
+                elif bank.mesh is None:
                     raise ValueError(
                         "the DenseBank was laid out without the mesh: build "
                         "it with DenseBank(mesh=) or let run_fl(mesh=) pass "
                         "its mesh to it")
-                self.clients = bank.shard
+                else:
+                    self.clients = bank.shard
         else:
             self._state_specs = carry_state_specs(r.state, r.params, cfg,
                                                   mesh, r.n_clients)
@@ -572,11 +591,14 @@ class ScanDriver:
         return start
 
     def _save(self, checkpoint, round_next: int) -> None:
-        """Snapshot the run: under a split carry every rank's blocks are
-        gathered and rank 0 writes the whole run's file."""
+        """Snapshot the run: under a mesh of more than one rank every
+        rank's blocks are gathered (where the carry is split) and rank 0
+        writes the whole run's file."""
         from repro_torch.checkpoint.run_state import save_run
         r = self.r
-        if not self.split:
+        ranks = (1 if self.mesh is None
+                 else math.prod(mesh_shape(self.mesh).values()))
+        if ranks == 1:
             save_run(r, checkpoint, round_next)
             return
         import torch.distributed as dist

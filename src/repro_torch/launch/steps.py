@@ -23,7 +23,9 @@ serve steps:
   * encoder score (hubert-xlarge): (params, batch) -> per-batch CE
 
 `batch` holds the model's modality (`models.model`): tokens; tokens and
-patches (vision_text); frames and labels (audio).
+patches (vision_text); frames and labels (audio). Both train modes run
+`Model.loss_fn`, whose training forward rematerializes each layer under
+`cfg.remat` (`models.remat`), so remat comes from the config.
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _device_init, apply_rope
+from repro_torch.models.remat import checkpoint
 
 NEG_INF = -1e30
 # decode casts the k cache to f32 this many elements at a time: a chunk's
@@ -95,9 +96,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the block at q0 scores only the keys [q0 - window, q0 + bq), padded
     in front with zeros as the reference pads them: O(bq·(window + bq))
     scores a block instead of O(bq·T). Differentiable, with no in-place op,
-    so `torch.func.vmap` and `grad` run through it. The reference
-    rematerializes each block on the backward pass; here autograd keeps each
-    block's probabilities.
+    so `torch.func.vmap` and `grad` run through it. With more than one
+    block, each block's scores, mask, softmax and P·V go through
+    `remat.checkpoint`, as the reference's `jax.checkpoint` of its block
+    body, whatever `cfg.remat` says: the backward pass keeps the block's
+    queries and the keys and values it reads (views, no copy) and
+    recomputes its (B,H,bq,T) f32 probabilities, instead of keeping every
+    block's.
     """
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -118,26 +123,33 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = (torch.cat([x.new_zeros((B, window) + x.shape[2:]), x], dim=1)
                 for x in (k, v))
     kf = k.float()
-    outs = []
-    for q0 in range(0, S, bq):
+
+    def block(q0: int):
+        def attend(qi, kk, vv):
+            qpos = q0 + torch.arange(bq, device=qi.device)
+            if window > 0:  # padded row q0 + i holds key q0 - window + i
+                kpos = q0 - window + torch.arange(span, device=qi.device)
+            else:
+                kpos = torch.arange(T, device=qi.device)
+            scores = torch.einsum("bqhk,bthk->bhqt", qi.float(), kk)
+            mask = kpos[None, :] <= qpos[:, None] if causal else None
+            if window > 0:
+                edge = (kpos[None, :] > qpos[:, None] - window) & (kpos >= 0)
+                mask = edge if mask is None else mask & edge
+            if mask is not None:
+                scores = torch.where(mask, scores, NEG_INF)
+            p = torch.softmax(scores, dim=-1).to(qi.dtype)
+            return torch.einsum("bhqt,bthk->bqhk", p, vv)
+
         qi = q_scaled[:, q0:q0 + bq]
-        qpos = q0 + torch.arange(bq, device=q.device)
-        if window > 0:  # padded row q0 + i holds key position q0 - window + i
+        if window > 0:
             kk, vv = kf[:, q0:q0 + span], v[:, q0:q0 + span]
-            kpos = q0 - window + torch.arange(span, device=q.device)
         else:
             kk, vv = kf, v
-            kpos = torch.arange(T, device=q.device)
-        scores = torch.einsum("bqhk,bthk->bhqt", qi.float(), kk)
-        mask = kpos[None, :] <= qpos[:, None] if causal else None
-        if window > 0:
-            edge = (kpos[None, :] > qpos[:, None] - window) & (kpos >= 0)
-            mask = edge if mask is None else mask & edge
-        if mask is not None:
-            scores = torch.where(mask, scores, NEG_INF)
-        p = torch.softmax(scores, dim=-1).to(qi.dtype)
-        outs.append(torch.einsum("bhqt,bthk->bqhk", p, vv))
-    return torch.cat(outs, dim=1)
+        return (checkpoint(attend, qi, kk, vv) if S > bq
+                else attend(qi, kk, vv))
+
+    return torch.cat([block(q0) for q0 in range(0, S, bq)], dim=1)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.remat import checkpoint
+
 
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
                 device: torch.device, scale: float | None = None
@@ -118,10 +120,11 @@ def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
 
     Loops over sequence chunks of the reference's size (`chunk`, at most S,
     halved until it divides S); each chunk's logits are taken in f32 with
-    an f32 logsumexp. The reference rematerializes each chunk on the
-    backward pass (`jax.checkpoint`); here autograd keeps each chunk's
-    logits, which `torch.func.grad` cannot trade for recomputation
-    (remat: ROADMAP Queue 1 entry 2).
+    an f32 logsumexp. Each chunk's logits, logsumexp and gold go through
+    `remat.checkpoint`, as the reference's chunk body goes through
+    `jax.checkpoint`: the backward pass keeps the chunk's h and the head
+    and recomputes its (B, chunk, V) f32 logits, so at most one chunk's
+    logits are alive.
     """
     B, S, _ = h.shape
     cs = min(chunk, S)
@@ -131,13 +134,17 @@ def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     w = lm_head.to(h.dtype)
     for c0 in range(0, S, cs):
-        logits = (h[:, c0:c0 + cs] @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0:c0 + cs].long()
-                            .unsqueeze(-1)).squeeze(-1)
-        mm = (torch.ones_like(lse) if mask is None
+        mm = (torch.ones((B, cs), device=h.device) if mask is None
               else mask[:, c0:c0 + cs].float())
-        nll = nll + ((lse - gold) * mm).sum()
+        ll = labels[:, c0:c0 + cs].long().unsqueeze(-1)
+
+        def chunk_nll(hh, w, ll, mm):
+            logits = (hh @ w).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, ll).squeeze(-1)
+            return ((lse - gold) * mm).sum()
+
+        nll = nll + checkpoint(chunk_nll, h[:, c0:c0 + cs], w, ll, mm)
         cnt = cnt + mm.sum()
     return nll / cnt.clamp(min=1.0)
 

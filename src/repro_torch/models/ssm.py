@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _device_init
+from repro_torch.models.remat import checkpoint
 
 
 def mamba2_dims(d_model: int, expand: int, headdim: int, d_state: int,
@@ -115,20 +116,21 @@ def ssd_chunked(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     x (b,S,h,p); dA (b,S,h) [= dt·A, negative]; B, C (b,S,n). The chunk is
     `ssd_chunk(S, chunk)`. Returns (y (b,S,h,p) in x's dtype, h_final
     (b,h,p,n) f32). Differentiable, with no in-place op, so `torch.func`
-    transforms run through it. The reference rematerializes each chunk on
-    the backward pass; here autograd keeps each chunk's intermediates.
+    transforms run through it. Each chunk's body takes the carried state
+    and the chunk's slices and goes through `remat.checkpoint`, as the
+    reference's goes through `jax.checkpoint`: the backward pass keeps the
+    state entering each chunk and recomputes the chunk's (b,h,Q,Q) decay
+    matrix and the rest. `_segsum_exp` masks before its exp inside the
+    body, so the recomputed backward is finite wherever the plain one is.
     """
     b, S, H, P = x.shape
     N = B.shape[-1]
     Q = ssd_chunk(S, chunk)
     h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    ys = []
-    for c0 in range(0, S, Q):
-        xq = x[:, c0:c0 + Q].float()                     # (b,Q,h,p)
-        daq = dA[:, c0:c0 + Q].float()                   # (b,Q,h)
-        bq = B[:, c0:c0 + Q].float()                     # (b,Q,n)
-        cq = C[:, c0:c0 + Q].float()
+
+    def chunk_body(h, xq, daq, bq, cq):
+        xq, daq, bq, cq = xq.float(), daq.float(), bq.float(), cq.float()
         cum = torch.cumsum(daq, dim=1)                   # (b,Q,h)
         L = _segsum_exp(daq.transpose(-1, -2))           # (b,h,Q,Q)
         att = torch.einsum("bqn,bkn->bqk", cq, bq)       # (b,Q,Q)
@@ -137,8 +139,15 @@ def ssd_chunked(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         y = y + torch.einsum("bqn,bhpn,bqh->bqhp", cq, h, torch.exp(cum))
         # state update
         decay = torch.exp(cum[:, -1:, :] - cum)          # (b,Q,h)
-        h = (h * torch.exp(cum[:, -1, :])[..., None, None]
-             + torch.einsum("bqn,bqh,bqhp->bhpn", bq, decay, xq))
+        h_new = (h * torch.exp(cum[:, -1, :])[..., None, None]
+                 + torch.einsum("bqn,bqh,bqhp->bhpn", bq, decay, xq))
+        return y, h_new
+
+    ys = []
+    for c0 in range(0, S, Q):
+        # x (b,Q,h,p), dA (b,Q,h), B and C (b,Q,n): views, cast in the body
+        y, h = checkpoint(chunk_body, h, x[:, c0:c0 + Q], dA[:, c0:c0 + Q],
+                          B[:, c0:c0 + Q], C[:, c0:c0 + Q])
         ys.append(y)
     return torch.cat(ys, dim=1).to(x.dtype), h
 

@@ -26,10 +26,13 @@ tokens in one call, so its expert capacity is that of B tokens.
 in-place write and no kernel call (`attention.blockwise_attention`, also
 under MLA, and `ssm.ssd_chunked`), so `torch.func.vmap` and `grad` run
 through it on both devices, as the reference differentiates its own jnp
-model path. The reference wraps each layer in `jax.checkpoint` under
-`cfg.remat`; remat changes memory, never numbers, and
-`torch.utils.checkpoint` does not compose with `torch.func.grad`, so the
-port keeps every activation.
+model path. Under `cfg.remat` each layer, a stacked one or a use of the
+shared attention block, goes through `remat.checkpoint`, as the reference
+wraps each in `jax.checkpoint`: the backward pass keeps the layer's input
+x (B,S,d) and its params, and runs the layer again. Remat changes memory
+and time, never numbers. `prefill` and `decode` take no remat: the
+reference's remat of its prefill scan sits under no derivative and changes
+neither its numbers nor its memory.
 Serving's `prefill` and `decode` write caches in place: they fill the cache
 tree they are given and return it; `prefill` goes through the kernels.
 
@@ -53,6 +56,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.models.remat import checkpoint
 from repro_torch.tree import tree_index, tree_map
 
 
@@ -348,11 +352,30 @@ def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
     return _ffn(lp, x, spec, cfg)
 
 
+def _checkpointed(layer_fn, lp: dict, x: torch.Tensor, step,
+                  spec: SegmentSpec, cfg: ArchConfig):
+    """layer_fn(lp, x, step, None, spec, cfg) through `remat.checkpoint`:
+    x, `step` (the positions) and lp's leaves are its inputs; `spec` and
+    `cfg` are closed over. Returns (x, aux), aux a 0-d zero without MoE."""
+    leaves: list = []
+    tree_map(leaves.append, lp)
+
+    def body(x, step, *leaves):
+        it = iter(leaves)
+        return layer_fn(tree_map(lambda _: next(it), lp), x, step, None,
+                        spec, cfg)
+
+    return checkpoint(body, x, step, *leaves)
+
+
 def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
-         cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+         cfg: ArchConfig, remat: bool = False
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer in order: layer_fn(lp, x, step, entry, spec, cfg) ->
     (x, aux or None), with `entry` this layer's cache (None without a
-    cache). Returns (x, the summed aux, f32)."""
+    cache); with `remat` (no cache) each layer through `_checkpointed`.
+    Each layer's params are taken as `tree_index(seg_params, i)`, outside
+    any checkpoint. Returns (x, the summed aux, f32)."""
     aux = torch.zeros((), device=x.device)
     for seg in build_segments(cfg):
         entry = None if cache is None else cache[str(seg.index)]
@@ -364,7 +387,10 @@ def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
                        None if entry is None else tree_index(entry, i))
                       for i in range(seg.n_layers)]
         for lp, e in layers:
-            x, a = layer_fn(lp, x, step, e, seg, cfg)
+            if remat:
+                x, a = _checkpointed(layer_fn, lp, x, step, seg, cfg)
+            else:
+                x, a = layer_fn(lp, x, step, e, seg, cfg)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -414,5 +440,7 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
 def forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cfg: ArchConfig):
     """The training forward: x (B,S,d) through every segment -> (x, aux),
-    aux the MoE layers' summed load-balance loss (0 without MoE)."""
-    return _run(_layer_fwd, params, x, positions, None, cfg)
+    aux the MoE layers' summed load-balance loss (0 without MoE). Under
+    `cfg.remat` every layer is rematerialized on the backward pass."""
+    return _run(_layer_fwd, params, x, positions, None, cfg,
+                remat=cfg.remat)

@@ -126,6 +126,25 @@ def data_group(mesh):
     return mesh[dax]._flatten().get_group()
 
 
+def check_data_ranks(mesh, device: torch.device, *, what: str) -> None:
+    """Raise unless `what` can run over `mesh`'s data ranks: CUDA tensors
+    at data extent > 1 (one card is a world of one rank) and a mesh there
+    that is not a DeviceMesh."""
+    d = data_axis_size(mesh)
+    if d == 1:
+        return
+    if device.type == "cuda":
+        raise NotImplementedError(
+            f"{what} over {d} data ranks on CUDA tensors: one card "
+            "runs a world of one rank, so a mesh on the card has data "
+            "extent 1; data extent > 1 runs on CPU ranks (gloo)")
+    if not hasattr(mesh, "get_group"):
+        raise ValueError(
+            f"a mesh of data extent {d} must be a DeviceMesh over a world "
+            "of ranks (launch.mesh.make_host_mesh); an abstract mesh "
+            "places nothing")
+
+
 def client_shard(mesh, n: int, device: torch.device, *,
                  what: str = "the client axis") -> ClientShard | None:
     """This rank's block of an axis of `n` rows under `mesh` (None when
@@ -134,16 +153,7 @@ def client_shard(mesh, n: int, device: torch.device, *,
     d = data_axis_size(mesh)
     if d == 1 or n % d:
         return None
-    if device.type == "cuda":
-        raise NotImplementedError(
-            f"{what} split over {d} data ranks on CUDA tensors: one card "
-            "runs a world of one rank, so a mesh on the card has data "
-            "extent 1; data extent > 1 runs on CPU ranks (gloo)")
-    if not hasattr(mesh, "get_group"):
-        raise ValueError(
-            f"a mesh of data extent {d} must be a DeviceMesh over a world "
-            "of ranks (launch.mesh.make_host_mesh); an abstract mesh "
-            "places nothing")
+    check_data_ranks(mesh, device, what=what + " split")
     size = n // d
     lo = data_coordinate(mesh) * size
     return ClientShard(n, lo, lo + size, data_group(mesh))

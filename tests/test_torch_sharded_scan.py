@@ -23,6 +23,13 @@ Anchors, as the reference's (`tests/test_sharded_scan.py:61-83`):
     agree to the tolerance;
   * a K=4 fleet with its trial axis over 4x1 (loop and scan) matches four
     sequential `run_fl` runs.
+
+BankedMIFA(PagedDeviceBank(page_size=4, n_slots=2)) runs under the data
+ranks as the reference runs it: the whole bank on every rank, every rank
+running the whole round, every rank's bank equal after the run; its
+snapshot under 2x2 is the unmeshed run's, byte for byte, and resumes on
+2x2. A HostBank under a mesh raises the reference's ValueError, word for
+word.
 """
 import json
 import os
@@ -38,6 +45,8 @@ import torch
 
 from repro.bank import BankedMIFA as JBankedMIFA
 from repro.bank import DenseBank as JDenseBank
+from repro.bank import HostBank as JHostBank
+from repro.bank import PagedDeviceBank as JPagedDeviceBank
 from repro.configs import get_config as jax_config
 from repro.core import MIFA as JMIFA
 from repro.core import BiasedFedAvg as JBiasedFedAvg
@@ -53,7 +62,7 @@ from repro_torch.sharding.clients import client_shard
 
 HELPER = Path(__file__).resolve().parent / "torch_world.py"
 N, T = 8, 9
-ALGOS = ["mifa_array", "banked_dense", "fedavg"]
+ALGOS = ["mifa_array", "banked_dense", "fedavg", "banked_paged"]
 SHARDED = ["2x2", "4x1"]
 RTOL, ATOL = 2e-5, 1e-6
 
@@ -123,7 +132,9 @@ def test_sharded_scan_matches_one_rank(world4, name, mesh):
 def _jax_algo(name):
     return {"mifa_array": lambda: JMIFA(memory="array"),
             "banked_dense": lambda: JBankedMIFA(JDenseBank()),
-            "fedavg": JBiasedFedAvg}[name]()
+            "fedavg": JBiasedFedAvg,
+            "banked_paged": lambda: JBankedMIFA(JPagedDeviceBank(
+                page_size=4, n_slots=2))}[name]()
 
 
 @pytest.mark.parametrize("name", ALGOS)
@@ -199,6 +210,28 @@ def test_bank_rows_pad_and_each_rank_holds_its_block(world4):
         assert info["bank_round_trips"][key]
 
 
+def test_paged_bank_is_whole_and_equal_on_every_rank(world4):
+    """After T rounds every rank holds the same whole bank: pool, page
+    table, G_sum and the host mirror's page table, faults and
+    evictions."""
+    _, info = world4
+    assert info["paged_bank_same_on_every_rank"] == {"2x2": True,
+                                                     "4x1": True}
+
+
+def test_paged_bank_snapshot_under_data_ranks(world4):
+    """checkpoint= on 2x2: the snapshot after round 8 is the unmeshed
+    run's byte for byte, the directory holds only the snapshots (one
+    writer), and the run resumed from it on 2x2 matches the unmeshed
+    run."""
+    res, info = world4
+    assert info["paged_snapshot_equal"]
+    assert info["paged_snapshot_files"] == ["ckpt_r00000004.npz",
+                                            "ckpt_r00000008.npz"]
+    _assert_close(_run(res, "banked_paged/none"),
+                  _run(res, "banked_paged/resumed_2x2"), exact=False)
+
+
 def test_run_fl_wires_the_mesh_into_a_meshless_bank(world4):
     _, info = world4
     assert info["wired"] == {"mesh_is_run_mesh": True, "n_rows": 10}
@@ -227,31 +260,42 @@ def _tiny_kw():
                 schedule=lambda t: 0.1, n_rounds=1, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["loop", "sim"])
+@pytest.mark.parametrize("case", ["loop", "sim", "host_bank"])
 def test_run_fl_mesh_errors_are_the_reference_s(case):
     """mesh= under engine='loop' and with sim= raise the reference's
-    ValueErrors, before any mesh is used (abstract 1x1 meshes)."""
+    ValueErrors, before any mesh is used (abstract 1x1 meshes); so does
+    BankedMIFA(HostBank) under a 2x1 mesh on the scan engine (its rows
+    live on the host, so it cannot scan and a mesh cannot fall back to
+    the loop)."""
     from repro.sim import SimSpec as JSimSpec
+    from repro_torch.bank import BankedMIFA, HostBank
     from repro_torch.sim import SimSpec
     kw = _tiny_kw()
-    extra = ({"engine": "loop"} if case == "loop" else
-             {"engine": "scan", "sim": SimSpec(policy=None, latency=None)})
+    shape = (2, 1) if case == "host_bank" else (1, 1)
+    extra = {"loop": {"engine": "loop"},
+             "sim": {"engine": "scan",
+                     "sim": SimSpec(policy=None, latency=None)},
+             "host_bank": {"engine": "scan",
+                           "algo": BankedMIFA(HostBank(device="cpu"))}}[case]
     with pytest.raises(ValueError) as got:
-        run_fl(mesh=make_abstract_mesh((1, 1), ("data", "model")), **kw,
-               **extra)
+        run_fl(mesh=make_abstract_mesh(shape, ("data", "model")),
+               **{**kw, **extra})
     cfg = jax_config("paper_logistic").replace(fl_clients=N)
     X, y = make_classification(10, cfg.d_model, 40, noise=1.0, seed=0)
     idx, _ = label_skew_partition(y, N, seed=0)
-    jextra = ({"engine": "loop"} if case == "loop" else
-              {"engine": "scan", "sim": JSimSpec(policy=None, latency=None)})
+    jextra = {"loop": {"engine": "loop", "algo": JMIFA()},
+              "sim": {"engine": "scan", "algo": JMIFA(),
+                      "sim": JSimSpec(policy=None, latency=None)},
+              "host_bank": {"engine": "scan",
+                            "algo": JBankedMIFA(JHostBank())}}[case]
     with pytest.raises(ValueError) as want:
-        jax_run_fl(model=jax_build(cfg), algo=JMIFA(),
+        jax_run_fl(model=jax_build(cfg),
                    batcher=JClientBatcher(X, y, idx, batch_size=8,
                                           k_steps=2, seed=0),
                    scenario=JGilbertElliott.from_rate_and_burst(0.5, 3.0,
                                                                 n=N),
                    schedule=lambda t: 0.1, n_rounds=1,
-                   mesh=jax_mesh((1, 1), ("data", "model")), **jextra)
+                   mesh=jax_mesh(shape, ("data", "model")), **jextra)
     assert str(got.value) == str(want.value)
 
 

@@ -20,7 +20,10 @@ a process group, builds a DeviceMesh or sets an environment variable.
 The problem of the default cases (`--cases paper`) is
 `tests/test_sharded_scan.py`'s: N = 8 label-skewed clients of
 paper_logistic, T = 9 rounds under Gilbert–Elliott availability (rate
-0.5, bursts of 3), cohorts pinned to 8, scan chunks of 4.
+0.5, bursts of 3), cohorts pinned to 8, scan chunks of 4. Its algorithms
+are MIFA(array), BankedMIFA(DenseBank), biased FedAvg and
+BankedMIFA(PagedDeviceBank(page_size=4, n_slots=2)), the last held whole
+on every rank.
 
 `--cases params` (`tests/test_torch_param_placement_world.py`) places the
 params of granite-3-8b's and qwen1.5-110b's smoke configs (f32) over the
@@ -42,7 +45,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 N, T, CHUNK = 8, 9, 4
-ALGOS = ("mifa_array", "banked_dense", "fedavg")
+ALGOS = ("mifa_array", "banked_dense", "fedavg", "banked_paged")
 MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
 FLEET_K = 4
 
@@ -60,11 +63,15 @@ def problem():
 
 
 def make_algo(name: str):
-    from repro_torch.bank import BankedMIFA, DenseBank
+    """`banked_paged`: two resident pages of four rows, held whole on
+    every rank under a mesh."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
     from repro_torch.core import MIFA, BiasedFedAvg
     return {"mifa_array": lambda: MIFA(memory="array"),
             "banked_dense": lambda: BankedMIFA(DenseBank(device="cpu")),
-            "fedavg": BiasedFedAvg}[name]()
+            "fedavg": BiasedFedAvg,
+            "banked_paged": lambda: BankedMIFA(PagedDeviceBank(
+                page_size=4, n_slots=2, device="cpu"))}[name]()
 
 
 def ge(seed: int = 0):
@@ -95,6 +102,27 @@ def record(out: dict, key: str, params, hist) -> None:
     out[f"{key}/tau"] = np.asarray([hist.tau_bar, hist.tau_max], np.float64)
 
 
+def paged_bank_summary(model, batcher, mesh) -> list:
+    """The bank after T rounds of BankedMIFA(PagedDeviceBank) on the scan
+    engine under `mesh`, driven as `run_fl(engine="scan", mesh=)` drives
+    it: its device state (pool, page table, G_sum) and its host mirror
+    (page table, faults, evictions), as lists."""
+    from repro_torch.core.runner import RoundRunner
+    from repro_torch.core.scan_engine import ScanDriver
+    from repro_torch.tree import tree_leaves
+    kw = run_kw(model, batcher)
+    runner = RoundRunner(model=model, algo=make_algo("banked_paged"),
+                         batcher=batcher, schedule=kw["schedule"],
+                         weight_decay=kw["weight_decay"], seed=kw["seed"],
+                         cohort_capacity=kw["cohort_capacity"],
+                         scenario=ge(), device="cpu")
+    driver = ScanDriver(runner, scan_chunk=CHUNK, mesh=mesh)
+    driver.run(T)
+    bank = runner.algo.bank
+    return ([t.tolist() for t in tree_leaves(runner.state["bank"])]
+            + [bank._pt.tolist(), bank.faults, bank.evictions])
+
+
 def same_on_every_rank(value) -> bool:
     """All ranks of the world hold `value` (a picklable summary)."""
     import torch.distributed as dist
@@ -118,14 +146,16 @@ def world_of_one(out: dict, info: dict) -> None:
                                            **run_kw(model, batcher)))
 
 
-def world_of_four(out: dict, info: dict) -> None:
+def world_of_four(out: dict, info: dict, out_dir: str) -> None:
     import torch
     from repro_torch.bank import BankedMIFA, DenseBank
+    from repro_torch.checkpoint import CheckpointSpec
     from repro_torch.core import MIFA, run_fl
     from repro_torch.fleet import Trial, run_fleet
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding.rules import P, placements
     model, batcher = problem()
+    rank = torch.distributed.get_rank()
     meshes = {k: make_host_mesh(*s, device="cpu")
               for k, s in MESHES.items()}
     same = {}
@@ -141,6 +171,30 @@ def world_of_four(out: dict, info: dict) -> None:
                 (hist.train_loss, hist.n_active,
                  [p.tolist() for p in flat(params)]))
     info["same_on_every_rank"] = same
+    # BankedMIFA(PagedDeviceBank): every rank's whole bank the same
+    info["paged_bank_same_on_every_rank"] = {
+        key: same_on_every_rank(paged_bank_summary(model, batcher, mesh))
+        for key, mesh in meshes.items()}
+    # its snapshot after round 8 on 2x2 (rank 0 writes it) against the
+    # unmeshed run's, byte for byte; then resumed on 2x2 to round T
+    ck_mesh = os.path.join(out_dir, "paged_ckpt_2x2")
+    ck_none = os.path.join(out_dir, f"paged_ckpt_none_{rank}")
+    for mesh, ck in ((meshes["2x2"], ck_mesh), (None, ck_none)):
+        run_fl(algo=make_algo("banked_paged"), scenario=ge(), mesh=mesh,
+               checkpoint=CheckpointSpec(every=CHUNK, dir=ck),
+               **run_kw(model, batcher, n_rounds=2 * CHUNK))
+    name = f"ckpt_r{2 * CHUNK:08d}.npz"
+    with np.load(os.path.join(ck_mesh, name)) as a, \
+            np.load(os.path.join(ck_none, name)) as b:
+        info["paged_snapshot_equal"] = a.files == b.files and all(
+            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            and a[k].tobytes() == b[k].tobytes() for k in a.files)
+    info["paged_snapshot_files"] = sorted(os.listdir(ck_mesh))
+    torch.distributed.barrier()
+    record(out, "banked_paged/resumed_2x2", *run_fl(
+        algo=make_algo("banked_paged"), scenario=ge(), mesh=meshes["2x2"],
+        checkpoint=CheckpointSpec(every=CHUNK, dir=ck_mesh, resume=True),
+        **run_kw(model, batcher)))
     # chunk invariance on the 2x2 mesh, each against the run above
     for chunk in (1, CHUNK, T):
         record(out, f"chunk{chunk}/2x2", *run_fl(
@@ -495,8 +549,10 @@ def rank_main(rank: int, world: int, out_dir: str,
         out, info = {}, {}
         if cases == "params":
             world_of_params(out, info, out_dir)
+        elif world == 1:
+            world_of_one(out, info)
         else:
-            (world_of_one if world == 1 else world_of_four)(out, info)
+            world_of_four(out, info, out_dir)
         if rank == 0:
             np.savez(os.path.join(out_dir, "results.npz"), **out)
             with open(os.path.join(out_dir, "results.json"), "w") as f:
