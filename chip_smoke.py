@@ -132,18 +132,20 @@ Run from the root of a checkout on a machine with a CUDA card. It
      `durable `): a trace synthesized with the port's `synthesize_trace`
      (N=100, 64 rounds, Gilbert–Elliott rate 0.5, bursts of 6, 10% churn)
      replayed through a window of 16 rounds: MIFA(array) and
-     BankedMIFA(PagedDeviceBank) for 50 rounds on the loop and the scan
-     (the window re-pointed in place between chunks), bit-equal, masks
-     those of the CPU host surface, reads never longer than the window
-     (50 / 51 `mifa_aggregate` and `paged_bank_scatter`); elastic fleets
-     over the trace (K=3, MIFA(array) and BankedMIFA(DenseBank)), scan
-     against loop and lanes against sequential runs (150 / 153
-     `mifa_aggregate`, 50 / 51 `bank_scatter_batched`); kill and resume of
-     MIFA(array), MIFA(int8), BankedMIFA(DenseBank) and a spilling
-     BankedMIFA(PagedDeviceBank) (snapshots every 10 rounds, killed after
-     25, resumed from 20: bit-equal to the uninterrupted run; the paged
-     bank's rows read back through `paged_bank_gather`); the million-client
-     bank snapshotted and restored, the next 2 rounds bit-equal; and
+     BankedMIFA(PagedDeviceBank) for 20 rounds on the loop and the scan
+     (chunks of 5; the window re-pointed in place between chunks),
+     bit-equal, masks those of the CPU host surface, reads never longer
+     than the window (20 / 21 `mifa_aggregate` and `paged_bank_scatter`);
+     elastic fleets over the trace (K=3, MIFA(array) and
+     BankedMIFA(DenseBank), 20 rounds), scan against loop and lanes
+     against sequential runs (60 / 63 `mifa_aggregate`, 20 / 21
+     `bank_scatter_batched`); kill and resume of MIFA(array), MIFA(int8),
+     BankedMIFA(DenseBank) and a spilling BankedMIFA(PagedDeviceBank) (30
+     rounds, snapshots every 10 rounds, killed after 21, resumed from 20:
+     bit-equal to the uninterrupted run, 11 launches; the paged bank's rows
+     read back through `paged_bank_gather`); the million-client bank
+     snapshotted after 6 rounds and restored, the next 2 rounds bit-equal;
+     and
      granite-3-8b (4 layers) served from a `save_pytree` snapshot loaded
      onto the card, its tokens those of the in-memory params;
  15. holds the model zoo's kernels against their plain versions on the card:
@@ -242,7 +244,19 @@ Run from the root of a checkout on a machine with a CUDA card. It
      through `launch.specs.run_placed` bit-equal to none, and
      granite-3-8b's `train_4k` vmap step (2 layers, full width) through
      `run_placed` bit-equal to the plain step with one `mifa_aggregate`
-     launch (`placed_train_step`).
+     launch (`placed_train_step`);
+ 24. drives split products on the serving path (`split_phase`, lines
+     starting `split `): `flash_attention` against its plain version and
+     timed beside sdpa at each rank's heads, then a gloo world of two
+     processes on this card (`split_rank`, a 1x2 mesh) serving
+     granite-3-8b (4 layers, bf16; 2 layers, f32) and qwen1.5-110b (2
+     layers, bf16, unpadded) at full width through
+     `launch.steps.make_prefill_step(model, mesh)` and
+     `make_decode_step`, each rank on its blocks, against the unsplit run
+     on rank 0: logits and caches within the bounds, greedy tokens equal
+     but at near-ties, one `flash_attention` launch a layer a rank, each
+     rank's peak allocation, the bytes its collectives moved and its
+     host-staged ms.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX. Its
 rows are line-buffered, each phase prints its start time (`start <phase>
@@ -2013,12 +2027,13 @@ def scan_equal(what, loop_run, scan_run) -> str:
             f"{d_param:.3e} (within {SCAN_RTOL} of the magnitudes)")
 
 
-def scan_ms(dts, n_rounds=ROUNDS) -> float:
-    """Host ms a round of a scan run over its middle chunks: from the draw
-    of round SCAN_CHUNK to that of round n_rounds - SCAN_CHUNK (the first
-    chunk holds the warm-up and capture, the last the final reads)."""
+def scan_ms(dts, n_rounds=ROUNDS, chunk=SCAN_CHUNK) -> float:
+    """Host ms a round of a scan run in chunks of `chunk` over its middle
+    chunks: from the draw of round `chunk` to that of round n_rounds -
+    chunk (the first chunk holds the warm-up and capture, the last the
+    final reads)."""
     stamps = np.concatenate([[0.0], np.cumsum(dts)])
-    a, b = SCAN_CHUNK, n_rounds - SCAN_CHUNK
+    a, b = chunk, n_rounds - chunk
     return float(stamps[b] - stamps[a]) / (b - a) * 1e3
 
 
@@ -2578,10 +2593,10 @@ def scen_cluster(seed: int = SCEN_SEED):
 
 
 def run_scen(algo, problem, params0, scen, n_rounds, device, engine="loop",
-             cap=None):
+             cap=None, chunk=SCAN_CHUNK):
     """One run of the paper problem under `scen` (evaluated at rounds 0 and
-    n_rounds - 1); returns (params, history, host seconds between the
-    batch draws of consecutive rounds)."""
+    n_rounds - 1; the scan in chunks of `chunk`); returns (params, history,
+    host seconds between the batch draws of consecutive rounds)."""
     from repro_torch.core import run_fl
     from repro_torch.optim import inv_t
     model, batcher, _, eval_fn = problem
@@ -2591,7 +2606,7 @@ def run_scen(algo, problem, params0, scen, n_rounds, device, engine="loop",
                           n_rounds=n_rounds, weight_decay=1e-3,
                           params=clone_tree(params0, device),
                           eval_fn=eval_fn, eval_every=n_rounds,
-                          engine=engine, scan_chunk=SCAN_CHUNK,
+                          engine=engine, scan_chunk=chunk,
                           cohort_capacity=cap, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -2671,13 +2686,14 @@ def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def scen_run_row(what, n_rounds, dts, hist, counts, scan=None) -> str:
+def scen_run_row(what, n_rounds, dts, hist, counts, scan=None,
+                 chunk=SCAN_CHUNK) -> str:
     loop_ms = float(np.median(dts[10:])) * 1e3
     text = (f"scenario {what}: {n_rounds} rounds, loop {loop_ms:.3f} "
             f"ms/round (median, rounds 10-{n_rounds - 2}, host clock)")
     if scan is not None:
-        text += (f", scan {scan_ms(scan, n_rounds):.3f} ms/round (rounds "
-                 f"{SCAN_CHUNK}-{n_rounds - SCAN_CHUNK - 1})")
+        text += (f", scan {scan_ms(scan, n_rounds, chunk):.3f} ms/round "
+                 f"(rounds {chunk}-{n_rounds - chunk - 1})")
     return (text + f", mean |A(t)| {np.mean(hist.n_active):.2f}, tau_bar "
             f"{hist.tau_bar:.4f}, tau_max {hist.tau_max}, launches "
             f"{nonzero(counts)}")
@@ -3270,18 +3286,26 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
 DUR_TRACE = {"n": N_CLIENTS, "horizon": 64, "seed": 7, "rate": 0.5,
              "burst": 6.0, "churn_frac": 0.1}
 DUR_WINDOW = 16
+# the trace and elastic-fleet runs take DUR_ROUNDS rounds on the scan in
+# chunks of DUR_CHUNK (its timing reads the middle two of four chunks); the
+# kill/resume runs DUR_KILL_ROUNDS in chunks of SCAN_CHUNK; the
+# million-client bank is snapshotted after DUR_MILLION_ROUNDS rounds (its
+# pool of 2048 rows fills in 4, so pages spill)
+DUR_ROUNDS, DUR_CHUNK, DUR_KILL_ROUNDS, DUR_MILLION_ROUNDS = 20, 5, 30, 6
 # the elastic fleets over the trace: half the capacity at round 0, the rest
-# arriving every 8 rounds, 10% departing at round 40 (|A| <= 55 <= FLEET_CAP)
-DUR_ELASTIC = {"n_initial": 50, "arrive_every": 8, "depart_frac": 0.1,
-               "depart_at": 40}
+# arriving every 4 rounds, 10% departing at round 16 (|A| <= 55 <=
+# FLEET_CAP)
+DUR_ELASTIC = {"n_initial": 50, "arrive_every": 4, "depart_frac": 0.1,
+               "depart_at": 16}
 # kill and resume: snapshots every DUR_EVERY rounds, the killed run stops
-# after DUR_KILL rounds and resumes from its round-20 snapshot. Round 0 of
-# the trace is all-active, so a paged bank must hold every client then and
-# never evicts under it; the paged run takes elastic availability over the
-# trace instead (30% of the capacity departing at round 20) through pages of
-# one row: 67 slots hold the largest chunk's union, 70 clients have come
-# by the round-20 snapshot, so pages spill before it and after it
-DUR_EVERY, DUR_KILL = 10, 25
+# after DUR_KILL rounds and resumes from its round-20 snapshot to round
+# DUR_KILL_ROUNDS. Round 0 of the trace is all-active, so a paged bank must
+# hold every client then and never evicts under it; the paged run takes
+# elastic availability over the trace instead (30% of the capacity departing
+# at round 20) through pages of one row: 67 slots hold the largest chunk's
+# union, 70 clients have come by the round-20 snapshot, so pages spill
+# before it and after it
+DUR_EVERY, DUR_KILL = 10, 21
 KILL_ELASTIC = {"n_initial": 50, "arrive_every": 8, "depart_frac": 0.3,
                 "depart_at": 20}
 KILL_PAGE, KILL_SLOTS = 1, 67
@@ -3367,19 +3391,21 @@ def trace_phase(params0, problem) -> tuple[dict, list]:
                 scen = trace_scen()
                 reset_counts()
                 runs[engine] = run_scen(make(), problem, params0, scen,
-                                        ROUNDS, "cuda", engine, cap)
+                                        DUR_ROUNDS, "cuda", engine, cap,
+                                        DUR_CHUNK)
                 counts[engine] = read_counts()
                 expect_launches(f"durable trace {name} {engine}",
                                 counts[engine], kernel,
-                                ROUNDS + (engine == "scan"))
+                                DUR_ROUNDS + (engine == "scan"))
                 scen_masks_match_host(f"durable trace {name} {engine}",
-                                      runs[engine][1], scen, ROUNDS)
+                                      runs[engine][1], scen, DUR_ROUNDS)
             launches[kernel] = counts["loop"][kernel]
             exact_same(f"durable trace {name} scan vs loop",
                        runs["loop"][:2], runs["scan"][:2])
-            rows.append(scen_run_row(f"trace {name}", ROUNDS,
+            rows.append(scen_run_row(f"trace {name}", DUR_ROUNDS,
                                      runs["loop"][2], runs["loop"][1],
-                                     counts["loop"], runs["scan"][2])
+                                     counts["loop"], runs["scan"][2],
+                                     DUR_CHUNK)
                         .replace("scenario ", "durable ", 1)
                         + f"; scan {nonzero(counts['scan'])}, bit-equal "
                           "to the loop, masks those of the CPU host surface")
@@ -3394,8 +3420,9 @@ def trace_phase(params0, problem) -> tuple[dict, list]:
 
 
 def elastic_fleet_phase(problem) -> tuple[dict, list]:
-    """Elastic availability over the trace as K=3 fleets of ROUNDS rounds,
-    MIFA(array) and BankedMIFA(DenseBank), on both engines: scan against
+    """Elastic availability over the trace as K=3 fleets of DUR_ROUNDS
+    rounds, MIFA(array) and BankedMIFA(DenseBank), on both engines: scan
+    against
     loop, each lane's masks those of its CPU host surface, each lane
     within DEVICE_ATOL of its sequential run."""
     from repro_torch.bank import BankedMIFA, DenseBank
@@ -3404,15 +3431,15 @@ def elastic_fleet_phase(problem) -> tuple[dict, list]:
     from repro_torch.optim import inv_t
     model, batcher, _, _ = problem
     launches, rows = {}, []
-    hosts = [elastic_scen(s).process.host_sampler().sample_block(0, ROUNDS)
-             for s in FLEET_SEEDS]
+    hosts = [elastic_scen(s).process.host_sampler().sample_block(
+        0, DUR_ROUNDS) for s in FLEET_SEEDS]
     for name, make, kernel in (
             ("MIFA(array)", MIFA, "mifa_aggregate"),
             ("BankedMIFA(DenseBank)",
              lambda: BankedMIFA(DenseBank(device="cuda")),
              "bank_scatter_batched")):
         kw = dict(model=model, batcher=batcher, schedule=inv_t(1.0),
-                  n_rounds=ROUNDS, weight_decay=1e-3,
+                  n_rounds=DUR_ROUNDS, weight_decay=1e-3,
                   cohort_capacity=FLEET_CAP, device="cuda")
         per = len(FLEET_SEEDS) if kernel == "mifa_aggregate" else 1
         runs, counts, dts = {}, {}, {}
@@ -3422,14 +3449,14 @@ def elastic_fleet_phase(problem) -> tuple[dict, list]:
             runs[engine] = run_fleet(
                 algo=make(), trials=[Trial(seed=s, scenario=elastic_scen(s))
                                      for s in FLEET_SEEDS],
-                engine=engine, scan_chunk=SCAN_CHUNK,
+                engine=engine, scan_chunk=DUR_CHUNK,
                 **{**kw, "batcher": timed})
             torch.cuda.synchronize()
             counts[engine] = read_counts()
             dts[engine] = np.diff(timed.stamps)
             expect_launches(f"durable elastic fleet {name} {engine}",
                             counts[engine], kernel,
-                            (ROUNDS + (engine == "scan")) * per)
+                            (DUR_ROUNDS + (engine == "scan")) * per)
         launches[kernel] = counts["loop"][kernel]
         verdict = scan_equal(f"durable elastic fleet {name}", runs["loop"],
                              runs["scan"])
@@ -3447,9 +3474,11 @@ def elastic_fleet_phase(problem) -> tuple[dict, list]:
                   f"durable elastic fleet {name} lane {k} vs its "
                   f"sequential run: |dloss|, |dparam| {gaps[-1]}")
         rows.append(
-            f"durable elastic fleet {name}: K={len(FLEET_SEEDS)} x {ROUNDS} "
-            f"rounds, loop {np.median(dts['loop'][10:]) * 1e3:.3f} ms/round"
-            f", scan {scan_ms(dts['scan']):.3f} ms/round; scan {verdict}; "
+            f"durable elastic fleet {name}: K={len(FLEET_SEEDS)} x "
+            f"{DUR_ROUNDS} rounds, loop "
+            f"{np.median(dts['loop'][10:]) * 1e3:.3f} ms/round, scan "
+            f"{scan_ms(dts['scan'], DUR_ROUNDS, DUR_CHUNK):.3f} ms/round; "
+            f"scan {verdict}; "
             f"lanes' masks those of the CPU host surfaces (mean |A(t)| "
             f"{np.mean(hist.stacked()['n_active']):.2f}); lanes vs "
             f"sequential runs max |dloss| {max(g[0] for g in gaps):.3e}, "
@@ -3490,8 +3519,9 @@ def gsum_gap(state, rows) -> float:
 
 
 def kill_resume_phase(params0, problem) -> tuple[dict, list]:
-    """Each algorithm for ROUNDS rounds on the scan (chunks of SCAN_CHUNK,
-    a snapshot every DUR_EVERY rounds, evals every DUR_EVERY), once
+    """Each algorithm for DUR_KILL_ROUNDS rounds on the scan (chunks of
+    SCAN_CHUNK, a snapshot every DUR_EVERY rounds, evals every DUR_EVERY),
+    once
     uninterrupted, once killed after DUR_KILL rounds and resumed from its
     round-20 snapshot: params, history and τ bit-equal. The paged bank's
     final snapshots of both runs are restored into fresh banks and every
@@ -3520,7 +3550,7 @@ def kill_resume_phase(params0, problem) -> tuple[dict, list]:
          "paged_bank_scatter"))
     launches, rows = {}, []
     for i, (name, make, scen, cap, kernel) in enumerate(cases):
-        def run(d, n_rounds=ROUNDS, resume=False):
+        def run(d, n_rounds=DUR_KILL_ROUNDS, resume=False):
             reset_counts()
             out = run_fl(model=model, algo=make(), batcher=batcher,
                          scenario=scen(), schedule=inv_t(1.0),
@@ -3548,7 +3578,7 @@ def kill_resume_phase(params0, problem) -> tuple[dict, list]:
         exact_same(f"durable kill/resume {name}", full, resumed)
         want = {k: 0 for k in counts}
         if kernel is not None:
-            want[kernel] = ROUNDS - 2 * DUR_EVERY + 1
+            want[kernel] = DUR_KILL_ROUNDS - 2 * DUR_EVERY + 1
             launches[kernel] = counts[kernel]
         check(counts == want, f"durable resumed {name}: launches {counts}, "
                               f"expected {want}")
@@ -3580,8 +3610,8 @@ def kill_resume_phase(params0, problem) -> tuple[dict, list]:
                      f"launch) bit-equal, G_sum vs the sum of the rows "
                      f"max |err| {gsum_gap(state, got):.3e}")
         rows.append(
-            f"durable kill/resume {name}: {ROUNDS} rounds on the scan "
-            f"(chunks of {SCAN_CHUNK}, snapshots and evals every "
+            f"durable kill/resume {name}: {DUR_KILL_ROUNDS} rounds on the "
+            f"scan (chunks of {SCAN_CHUNK}, snapshots and evals every "
             f"{DUR_EVERY}), killed after {DUR_KILL}, resumed from round "
             f"{2 * DUR_EVERY}: params, history, evals and tau bit-equal to "
             f"the uninterrupted run; snapshot {nbytes} B, save_run "
@@ -3593,19 +3623,19 @@ def kill_resume_phase(params0, problem) -> tuple[dict, list]:
 
 
 def million_snapshot_phase(params0, model) -> list:
-    """The million-client paged bank (step 7's run, MILLION_ROUNDS rounds)
-    snapshotted once and restored into a fresh runner: the next 2 rounds
-    bit-equal to the unrestored runner's."""
+    """The million-client paged bank (step 7's run, cut to
+    DUR_MILLION_ROUNDS rounds) snapshotted once and restored into a fresh
+    runner: the next 2 rounds bit-equal to the unrestored runner's."""
     from repro_torch.checkpoint import CheckpointSpec, restore_run, save_run
     from repro_torch.tree import tree_leaves
     runner, bank, draw = million_runner(model, params0)
-    for t in range(MILLION_ROUNDS):
+    for t in range(DUR_MILLION_ROUNDS):
         runner.step_cohort(t, draw())
     torch.cuda.synchronize()
     spec = CheckpointSpec(every=1, dir=str(DUR_DIR / "million"))
     mem = bank.memory_bytes(runner.state["bank"])
     t0 = time.perf_counter()
-    path = save_run(runner, spec, MILLION_ROUNDS)
+    path = save_run(runner, spec, DUR_MILLION_ROUNDS)
     save_s = time.perf_counter() - t0
     nbytes = os.path.getsize(path)
     fresh, fbank, _ = million_runner(model, params0)
@@ -3614,11 +3644,11 @@ def million_snapshot_phase(params0, model) -> list:
     start = restore_run(fresh, spec)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    check(start == MILLION_ROUNDS, f"million restore at round {start}")
+    check(start == DUR_MILLION_ROUNDS, f"million restore at round {start}")
     check(sorted(fbank._spill) == sorted(bank._spill)
           and spill_pinned(fbank), "million restore: spill store differs "
                                    "or is not pinned")
-    for t in range(MILLION_ROUNDS, MILLION_ROUNDS + 2):
+    for t in range(DUR_MILLION_ROUNDS, DUR_MILLION_ROUNDS + 2):
         ids = draw()
         runner.step_cohort(t, ids)
         fresh.step_cohort(t, ids)
@@ -3632,7 +3662,8 @@ def million_snapshot_phase(params0, model) -> list:
     fbank.check_invariants(fresh.state["bank"])
     os.unlink(path)
     return [f"durable million clients: N={MILLION_N} paged bank after "
-            f"{MILLION_ROUNDS} rounds (pool {mem['device_pages']} B on the "
+            f"{DUR_MILLION_ROUNDS} rounds (pool {mem['device_pages']} B on "
+            f"the "
             f"card, spill {mem['host']} B pinned): snapshot {nbytes} B, "
             f"save_run {save_s:.3f} s ({nbytes / save_s / 1e9:.2f} GB/s), "
             f"restore_run into a fresh runner {load_s:.3f} s "
@@ -3698,38 +3729,54 @@ def durability_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
     t_start = time.perf_counter()
     shutil.rmtree(DUR_DIR, ignore_errors=True)
     synthesize_trace(str(DUR_DIR / "trace"), **DUR_TRACE)
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t0
+        laps[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     launches, rows = trace_phase(params0, problem)
+    lap("trace")
     more_launches, more = elastic_fleet_phase(problem)
     launches["bank_scatter_batched"] = more_launches["bank_scatter_batched"]
     rows += more
+    lap("elastic")
     kill_launches, more = kill_resume_phase(params0, problem)
     launches.update({k: v for k, v in kill_launches.items()
                      if k not in launches})
     rows += more
+    lap("kill/resume")
     rows += million_snapshot_phase(params0, problem[0])
+    lap("million")
     serve_launches, more = serve_snapshot_phase()
     launches.update(serve_launches)
     rows += more
+    lap("serve")
     shutil.rmtree(DUR_DIR, ignore_errors=True)
     missing = [k for k in DUR_FROM if not launches.get(k)]
     check(not missing, f"durability path: {missing} never launched")
-    rows.append(f"durable phase: {time.perf_counter() - t_start:.1f} s")
+    rows.append(f"durable phase: {time.perf_counter() - t_start:.1f} s ("
+                + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items())
+                + ")")
     return launches, rows
 
 
 # which durability run each kernel's count comes from (each counted from 0
 # just before it)
 DUR_FROM = {
-    "mifa_aggregate": f"durable MIFA(array) under trace replay, {ROUNDS} "
-                      "rounds (loop; scan: 51)",
+    "mifa_aggregate": f"durable MIFA(array) under trace replay, "
+                      f"{DUR_ROUNDS} rounds (loop; scan: {DUR_ROUNDS + 1})",
     "bank_scatter": f"durable BankedMIFA(DenseBank) resumed on the scan "
-                    f"from round {2 * DUR_EVERY} to {ROUNDS}",
+                    f"from round {2 * DUR_EVERY} to {DUR_KILL_ROUNDS}",
     "paged_bank_scatter": f"durable BankedMIFA(PagedDeviceBank) under trace "
-                          f"replay, {ROUNDS} rounds (loop; scan: 51)",
+                          f"replay, {DUR_ROUNDS} rounds (loop; scan: "
+                          f"{DUR_ROUNDS + 1})",
     "paged_bank_gather": "durable: every row of a PagedDeviceBank restored "
                          "from the resumed run's final snapshot",
     "bank_scatter_batched": f"durable elastic fleet BankedMIFA(DenseBank), "
-                            f"K=3, {ROUNDS} rounds (loop; scan: 51)",
+                            f"K=3, {DUR_ROUNDS} rounds (loop; scan: "
+                            f"{DUR_ROUNDS + 1})",
     "flash_attention": f"durable granite-3-8b ({GRANITE_LAYERS} layers) "
                        "served from a snapshot, prefill"}
 
@@ -5704,6 +5751,288 @@ def dryrun_phase(gen, smi: str) -> tuple[dict, list]:
     return out, [f"dryrun {r}" for r in rows]
 
 
+# --------------------------------------------------------------------------- #
+# split matrix products: serving on each rank's blocks, two ranks on one card
+# --------------------------------------------------------------------------- #
+
+SPLIT_RANKS = 2
+# (label, arch, layers, dtype), each at full width on a 1x2 mesh: granite's
+# cache over its kv heads (KV 8 over 2 ranks) and its head whole (vocab
+# 49155 is odd); qwen unpadded, with qkv bias and its vocab split
+SPLIT_RUNS = (("granite-3-8b", "granite_3_8b", GRANITE_LAYERS, "bfloat16"),
+              ("granite-3-8b", "granite_3_8b", 2, "float32"),
+              ("qwen1.5-110b", "qwen1_5_110b", QWEN_LAYERS, "bfloat16"))
+# split against unsplit: tests/test_torch_models.py's bounds
+SPLIT_TOL = {"bfloat16": (3e-2, 0.1), "float32": (2e-4, 2e-5)}
+# flash_attention at each rank's heads: (B, S, H, KV, hd), half the model's
+SPLIT_SHAPES = {"granite-3-8b": (SERVE_B, SERVE_PROMPT, 16, 4, 128),
+                "qwen1.5-110b": (SERVE_B, SERVE_PROMPT, 32, 4, 128)}
+SPLIT_TIMEOUT_S = 420
+SPLIT_DIR = ROOT / "build" / "split"
+
+
+def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
+              ) -> dict:
+    """One rank's part of a split run: `launch.steps.make_prefill_step`
+    and `make_decode_step` on the mesh, this rank's blocks of the params
+    drawn whole from seed 0 and cut (`sharding.params.take_tree`), a
+    prefill of SERVE_B x SERVE_PROMPT tokens and SERVE_NEW greedy tokens
+    from the logits gathered whole; then rank 0 runs the unsplit prefill
+    and decode of the same params on the same tokens (the split run's
+    greedy tokens fed back) and holds logits and caches to SPLIT_TOL.
+    Every count is set to 0 just before the split prefill and read just
+    after it; decode launches none. Returns this run's numbers (rank 0:
+    every rank's)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.params import take_tree, whole, whole_tree
+    from repro_torch.tree import tree_leaves
+    rank = dist.get_rank()
+    cfg = get_config(arch).replace(n_layers=n_layers, param_dtype=dtype,
+                                   compute_dtype=dtype)
+    model = build_model(cfg)
+    C = SERVE_PROMPT + SERVE_NEW
+    step_p = make_prefill_step(model, mesh, batch=SERVE_B, cache_len=C)
+    step_d = make_decode_step(model, mesh, batch=SERVE_B, cache_len=C)
+    split = step_p.split
+    lspec = rules.P(*rules.sanitize((rules.data_axes(mesh), rules.MODEL),
+                                    (SERVE_B, cfg.vocab_size), mesh))
+    batch, _ = prompt_batch(cfg, SERVE_B, SERVE_PROMPT,
+                            torch.Generator().manual_seed(0), "cuda")
+    params = take_tree(model.init(0, device="cuda"), split.param_specs,
+                       mesh, serving=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(SERVE_B, C, device="cuda", split=split)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = step_p(params, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = read_counts()
+    reset_counts()
+    outs, toks, decode_s = [whole(logits, lspec, mesh, serving=True)], [], 0.0
+    for i in range(SERVE_NEW):
+        toks.append(outs[-1].argmax(-1, keepdim=True).to(torch.int32))
+        t0 = time.perf_counter()
+        logits, cache = step_d(params, cache, toks[-1], SERVE_PROMPT + i)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        outs.append(whole(logits, lspec, mesh, serving=True))
+    decode_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mine = {"peak": peak, "prefill_counts": prefill_counts,
+            "decode_counts": decode_counts,
+            "prefill_moved": dict(split.axis.moved),
+            "decode_moved": {k: v / SERVE_NEW
+                             for k, v in step_d.split.axis.moved.items()},
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms": decode_s / SERVE_NEW * 1e3,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params))}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    got_cache = [t.cpu() for t in tree_leaves(
+        whole_tree(cache, split.cache_specs, mesh, serving=True))]
+    layout = {i: (g.cache, g.heads, g.kv_cols, g.mlp)
+              for i, g in split.segments.items()}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    out = {"label": f"{label} {n_layers} layers {dtype}", "ranks": ranks,
+           "layout": layout, "head_split": split.head,
+           "embed_split": split.embed}
+    if rank == 0:
+        out.update(split_reference(model, batch, toks, outs, got_cache,
+                                   dtype, C))
+    dist.barrier()
+    return out
+
+
+def split_reference(model, batch, toks, outs, got_cache, dtype, C) -> dict:
+    """Rank 0's unsplit prefill and decode of the split run's params and
+    tokens (module docstring of `split_run`): the largest gaps over the
+    bound, the greedy tokens that differ and whether each is a near-tie
+    (the split's token within the bound of the unsplit top logit)."""
+    from repro_torch.tree import tree_leaves
+    rtol, atol = SPLIT_TOL[dtype]
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(SERVE_B, C, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    ref, decode_s = [logits], 0.0
+    for i, tok in enumerate(toks):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, SERVE_PROMPT + i,
+                                          cache)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        ref.append(logits)
+    peak = torch.cuda.max_memory_allocated()
+
+    def worst(a, b) -> tuple[float, float]:
+        a, b = a.float(), b.float()
+        gap = (a - b).abs()
+        return (float((gap / (atol + rtol * b.abs())).max()),
+                float(gap.max()))
+
+    logit_gap = max(worst(a, b) for a, b in zip(outs, ref))
+    cache_gap = max(worst(a, b.cpu()) for a, b in zip(got_cache,
+                                                      tree_leaves(cache)))
+    differ, ties = 0, 0
+    for i, tok in enumerate(toks):
+        r = ref[i].float()
+        top = r.max(-1).values
+        pick = r.gather(-1, tok.long()).squeeze(-1)
+        for b in range(r.shape[0]):
+            if int(tok[b]) != int(r[b].argmax()):
+                differ += 1
+                ties += bool(top[b] - pick[b] <= atol + rtol * top[b].abs())
+    check(bool(all(torch.isfinite(x.float()).all() for x in outs)),
+          "split: logits not finite")
+    check(logit_gap[0] <= 1 and cache_gap[0] <= 1,
+          f"split vs unsplit: logits {logit_gap}, cache {cache_gap} "
+          f"(|gap| / bound, max |gap|; rtol {rtol}, atol {atol})")
+    check(differ == ties, f"split: {differ - ties} greedy tokens differ "
+                          "from the unsplit run's beyond a near-tie")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"logit_gap": logit_gap, "cache_gap": cache_gap,
+            "tokens_differ": differ, "near_ties": ties,
+            "unsplit_peak": peak, "unsplit_counts": counts,
+            "unsplit_prefill_ms": prefill_s * 1e3,
+            "unsplit_decode_ms": decode_s / len(toks) * 1e3,
+            "tokens": len(toks) * SERVE_B}
+
+
+def split_rank(rank: int, out_dir: str) -> None:
+    """A rank of the split phase's world: two processes on cuda:0 that
+    meet on a FileStore and talk gloo (which carries CUDA tensors through
+    the host), a 1x2 `make_host_mesh(device="cuda")`, every SPLIT_RUNS
+    run; rank 0 writes the results as JSON into `out_dir`. The rank ends
+    when the phase's process does (PR_SET_PDEATHSIG), so the watchdog's
+    exit ends it too."""
+    import ctypes
+    import signal
+    from datetime import timedelta
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.kernels import backend
+    from repro_torch.launch.mesh import make_host_mesh
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    torch.cuda.set_device(0)
+    backend.set_numerics()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(out_dir, "store"),
+                                     SPLIT_RANKS),
+        rank=rank, world_size=SPLIT_RANKS,
+        timeout=timedelta(seconds=SPLIT_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh(1, SPLIT_RANKS, device="cuda")
+        runs = [split_run(*run, mesh) for run in SPLIT_RUNS]
+        if rank == 0:
+            with open(os.path.join(out_dir, "split.json"), "w") as f:
+                json.dump(runs, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def split_phase(gen, smi: str) -> tuple[dict, list]:
+    """Split products on the serving path (`sharding.tensor_parallel`):
+    flash_attention against its plain version and timed beside sdpa at
+    each rank's heads (SPLIT_SHAPES), then a world of SPLIT_RANKS
+    processes on this card (`split_rank`, the kernels already built)
+    serving every SPLIT_RUNS run on its blocks, each held against the
+    unsplit run. Returns the check's |err|, the timing and each run's
+    per-rank launches; every row starts with "split "."""
+    import torch.multiprocessing as mp
+    t_start = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    err, rows = check_flash_cases(gen, [
+        (shape, dt, True, 0, f"{name} per rank{' f32' if dt == f32 else ''}")
+        for name, shape in SPLIT_SHAPES.items() for dt in (bf, f32)])
+    timing = {}
+    for name, shape in SPLIT_SHAPES.items():
+        t = timing[name] = time_flash(gen, *shape)
+        rows.append(
+            f"flash_attention {name} per rank B={shape[0]} S=T={shape[1]} "
+            f"H={shape[2]} KV={shape[3]} hd={shape[4]} bf16 causal: kernel "
+            f"{t['ms'] * 1e3:.2f} us, sdpa ({t['library_backend']}) "
+            f"{t['library_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f}"
+            f" us, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); "
+            f"{smi}")
+    torch.cuda.empty_cache()
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    SPLIT_DIR.mkdir(parents=True)
+    ctx = mp.start_processes(split_rank, args=(str(SPLIT_DIR),),
+                             nprocs=SPLIT_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + SPLIT_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  f"split phase: the world ran past {SPLIT_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    runs = json.loads((SPLIT_DIR / "split.json").read_text())
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    launches = {}
+    for run, (_, _, n_layers, _) in zip(runs, SPLIT_RUNS):
+        label = run["label"]
+        want = {k: 0 for k in run["ranks"][0]["prefill_counts"]}
+        for r in run["ranks"]:
+            check(r["prefill_counts"] == {**want, "flash_attention":
+                                          n_layers}
+                  and r["decode_counts"] == want,
+                  f"split {label}: launches prefill {r['prefill_counts']}, "
+                  f"decode {r['decode_counts']}")
+        check(run["unsplit_counts"]["flash_attention"] == n_layers,
+              f"split {label}: unsplit launches {run['unsplit_counts']}")
+        launches[label] = [r["prefill_counts"]["flash_attention"]
+                           for r in run["ranks"]]
+        peaks = ", ".join(f"rank {i} {r['peak']} B (params "
+                          f"{r['param_bytes']} B)"
+                          for i, r in enumerate(run["ranks"]))
+        r0 = run["ranks"][0]
+        rows += [
+            f"{label} on 1x{SPLIT_RANKS} (cache layouts "
+            f"{sorted(set(v[0] for v in run['layout'].values()))}, head "
+            f"{'vocab-split' if run['head_split'] else 'whole'}): logits "
+            f"vs unsplit max |gap| {run['logit_gap'][1]:.3e} "
+            f"({run['logit_gap'][0]:.3f} of the bound), cache "
+            f"{run['cache_gap'][1]:.3e} ({run['cache_gap'][0]:.3f}); "
+            f"greedy tokens differing {run['tokens_differ']} of "
+            f"{run['tokens']} (near-ties {run['near_ties']}); "
+            f"flash_attention launches a prefill per rank "
+            f"{launches[label]}, decode 0",
+            f"{label} peak allocation: split {peaks}; unsplit rank 0 "
+            f"{run['unsplit_peak']} B; {smi}",
+            f"{label} collectives a rank: prefill {r0['prefill_moved']} B, "
+            f"decode step {r0['decode_moved']} B",
+            f"{label} host-staged through gloo (not a speed figure): "
+            f"prefill {r0['prefill_ms']:.3f} ms, decode "
+            f"{r0['decode_ms']:.3f} ms/step; unsplit prefill "
+            f"{run['unsplit_prefill_ms']:.3f} ms, decode "
+            f"{run['unsplit_decode_ms']:.3f} ms/step; {smi}"]
+    rows.append(f"phase {time.perf_counter() - t_start:.1f} s")
+    return ({"err": err, "timing": timing, "launches": launches},
+            [f"split {r}" for r in rows])
+
+
 # a run still going after this many seconds prints every thread's stack
 # to stderr and exits (the whole script takes 550-710 s), so a stall shows
 # where and fails inside the 1200 s limit
@@ -5928,6 +6257,15 @@ def main() -> int:
         print(row)
     zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
                                       dry["err"])
+    # split products: granite-3-8b and qwen1.5-110b served on each rank's
+    # blocks in a world of two ranks on this card
+    torch.cuda.empty_cache()
+    phase_start("split phase")
+    split, rows = split_phase(gen, smi)
+    for row in rows:
+        print(row)
+    zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
+                                      split["err"])
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -6130,7 +6468,24 @@ def main() -> int:
                 qwen_per_call_at="qwen1.5-110b: B={} S=T={} H={} KV={} (padded"
                                  " {}) hd={}, bf16, causal".format(
                                      *QWEN_SHAPE[:4], QWEN_PAD_SHAPE[3],
-                                     QWEN_SHAPE[4]))
+                                     QWEN_SHAPE[4]),
+                # the split phase's prefills on a 1x2 mesh, each counted
+                # from 0 just before it on each rank, and the kernel at
+                # each rank's heads
+                split_launches=split["launches"],
+                split_launches_from=f"split serve prefill on each of "
+                                    f"{SPLIT_RANKS} ranks, {SERVE_B} x "
+                                    f"{SERVE_PROMPT} tokens, one launch a "
+                                    "layer on the rank's heads; decode "
+                                    "launches none",
+                split_per_call={
+                    label: {k: t[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_backend")}
+                    for label, t in split["timing"].items()},
+                split_per_call_at="; ".join(
+                    f"{k}: B={v[0]} S=T={v[1]} H={v[2]} KV={v[3]} hd={v[4]}"
+                    for k, v in SPLIT_SHAPES.items()) + ", bf16, causal")
         if name in per_call:
             # ms, plain_ms and bound_ms are per call at the served shape
             entries.append({

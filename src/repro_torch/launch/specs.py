@@ -18,7 +18,9 @@ has already cut (a depth-cut model on the card); `plan` is the
 reference's entry point, `get_config` and the overrides before it.
 `run_placed` runs a plan's step on each rank's blocks of its arguments
 (`sharding.params`) and returns the rank's blocks of the outputs, as the
-reference's jitted step with its in and out shardings does.
+reference's jitted step with its in and out shardings does; the prefill
+and decode plans of the dense GQA stack on a DeviceMesh whose `model` axis
+splits compute on the blocks (`sharding.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.configs import INPUT_SHAPES, ArchConfig, get_config
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
 from repro_torch.models.model import DTYPES
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, tensor_parallel
 from repro_torch.sharding.params import gather, place
 from repro_torch.sharding.rules import P, named
 from repro_torch.tree import tree_map
@@ -60,11 +62,17 @@ class DryrunPlan:
 
 def run_placed(p: DryrunPlan, *args) -> Any:
     """`p.fn` on this rank's blocks of its arguments under
-    `p.in_shardings`: each argument is gathered whole, the step runs whole
-    (the local update needs whole params; the sequential step holds its
-    accumulator in blocks under its own update spec), and this rank's
-    blocks of the outputs under `p.out_shardings` come back. On a mesh of
-    extent 1 every block is the whole tensor and this is `p.fn(*args)`."""
+    `p.in_shardings`, returning this rank's blocks of the outputs under
+    `p.out_shardings`. A prefill or decode plan whose step is split (the
+    dense GQA stack on a DeviceMesh whose `model` axis splits: the step's
+    `split`, `sharding.tensor_parallel`) passes the blocks straight to it,
+    and it computes on them. Every other plan gathers each argument
+    whole, runs the whole step (the local update needs whole params; the
+    sequential step holds its accumulator in blocks under its own update
+    spec) and cuts the outputs. On a mesh of extent 1 every block is the
+    whole tensor and this is `p.fn(*args)`."""
+    if getattr(p.fn, "split", None) is not None:
+        return p.fn(*args)
     out = p.fn(*gather(tuple(args), p.in_shardings))
     return place(out, p.out_shardings)
 
@@ -241,6 +249,12 @@ def plan_config(cfg: ArchConfig, shape_name: str, mesh, *,
     B, S = shape.global_batch, shape.seq_len
     batch_sharded = B % n_data == 0 and B >= n_data
     bax = dax if batch_sharded else None
+    # split products: the serving steps of the dense GQA stack run on each
+    # rank's blocks where the mesh's model axis splits (a DeviceMesh); the
+    # dry run's abstract meshes trace the whole step
+    serve_mesh = (mesh if tensor_parallel.model_axis(mesh) is not None
+                  and tensor_parallel.unsupported(cfg, mesh, B) is None
+                  else None)
 
     if shape.kind == "prefill":
         batch = _serve_batch(cfg, B, S, compute_dtype)
@@ -259,7 +273,9 @@ def plan_config(cfg: ArchConfig, shape_name: str, mesh, *,
                 tuple(leaf.shape), mesh)), batch)
         else:
             bspec = _lead_spec(bax, batch)
-        fn = steps_lib.make_prefill_step(model)
+        fn = steps_lib.make_prefill_step(
+            model, None if seq_shard_prefill else serve_mesh, batch=B,
+            cache_len=S)
         in_sh = (named(mesh, pspecs), named(mesh, cspecs),
                  named(mesh, bspec))
         lspec = P(*rules.sanitize((bax, rules.MODEL), (B, cfg.vocab_size),
@@ -274,7 +290,7 @@ def plan_config(cfg: ArchConfig, shape_name: str, mesh, *,
     cspecs = rules.cache_specs(cache, cfg, mesh, B)
     tokens = _sds((B, 1), torch.int32)
     pos = _sds((), torch.int32)
-    fn = steps_lib.make_decode_step(model)
+    fn = steps_lib.make_decode_step(model, serve_mesh, batch=B, cache_len=S)
     in_sh = (named(mesh, pspecs), named(mesh, cspecs),
              rules.NamedSharding(mesh, P(bax, None)), scalar)
     lspec = P(*rules.sanitize((bax, rules.MODEL), (B, cfg.vocab_size), mesh))

@@ -21,6 +21,10 @@ serve steps:
   * decode: (params, cache, tokens, pos) -> (logits, cache)
   * prefill: (params, cache, batch) -> (logits, cache)
   * encoder score (hubert-xlarge): (params, batch) -> per-batch CE
+Built with a DeviceMesh whose `model` axis has extent > 1, decode and
+prefill run on each rank's blocks (`sharding.tensor_parallel`: split
+products, the dense GQA stack); the train steps compute on whole params
+(split products in training are ROADMAP entry 12b).
 
 `batch` holds the model's modality (`models.model`): tokens; tokens and
 patches (vision_text); frames and labels (audio). Both train modes run
@@ -37,6 +41,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.local_update import client_updates, device_update
 from repro_torch.kernels.ops import mifa_aggregate_tree
 from repro_torch.models import Model
+from repro_torch.sharding import tensor_parallel
 from repro_torch.sharding.params import block, block_shape, whole
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -112,16 +117,42 @@ def make_train_step(model: Model, cfg: ArchConfig, n_clients: int,
     return train_step
 
 
-def make_decode_step(model: Model) -> Callable:
-    def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, tokens, pos, cache)
-    return serve_step
+def make_decode_step(model: Model, mesh=None, *, batch: int | None = None,
+                     cache_len: int | None = None) -> Callable:
+    """(params, cache, tokens, pos) -> (logits, cache). With a `mesh`
+    whose `model` axis has extent > 1 (a DeviceMesh), the step takes and
+    returns this rank's blocks of the params, cache, tokens and logits
+    under the reference's specs for `batch` sequences and a cache of
+    `cache_len` positions (`sharding.tensor_parallel`), under
+    `torch.inference_mode()`."""
+    split = tensor_parallel.serve_split(model.cfg, mesh, batch, cache_len)
+    if split is None:
+        def serve_step(params, cache, tokens, pos):
+            return model.decode_step(params, tokens, pos, cache)
+        return serve_step
+
+    def split_step(params, cache, tokens, pos):
+        with torch.inference_mode():
+            return model.decode_step(params, tokens, pos, cache, split)
+    split_step.split = split
+    return split_step
 
 
-def make_prefill_step(model: Model) -> Callable:
-    def prefill_step(params, cache, batch):
-        return model.prefill(params, batch, cache)
-    return prefill_step
+def make_prefill_step(model: Model, mesh=None, *, batch: int | None = None,
+                      cache_len: int | None = None) -> Callable:
+    """(params, cache, batch) -> (last-position logits, cache); `mesh`,
+    `batch` and `cache_len` as in `make_decode_step`."""
+    split = tensor_parallel.serve_split(model.cfg, mesh, batch, cache_len)
+    if split is None:
+        def prefill_step(params, cache, batch):
+            return model.prefill(params, batch, cache)
+        return prefill_step
+
+    def split_step(params, cache, batch):
+        with torch.inference_mode():
+            return model.prefill(params, batch, cache, split)
+    split_step.split = split
+    return split_step
 
 
 def make_encoder_step(model: Model) -> Callable:

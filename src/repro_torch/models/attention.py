@@ -54,9 +54,17 @@ def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
 
 
 def gqa_project(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                rope_theta: float, n_heads: int, n_kv: int, head_dim: int):
+                rope_theta: float, n_heads: int, n_kv: int, head_dim: int,
+                *, kv_gather=None):
     """x (B,S,d) -> q (B,S,H,hd), k, v (B,S,KV,hd) with rope applied to
-    q and k."""
+    q and k.
+
+    Under split products (`sharding.tensor_parallel`) the weights and
+    biases are this rank's column blocks, and the head counts are read
+    from their widths (H/M and KV/M, or H and KV where a block is whole);
+    `kv_gather(t)` (B,S,cols) -> (B,S,KV·hd) gathers k's and v's columns
+    whole before they are cut into heads (their blocks may split a
+    head)."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -65,9 +73,11 @@ def gqa_project(params: dict, x: torch.Tensor, positions: torch.Tensor,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    if kv_gather is not None:
+        k, v = kv_gather(k), kv_gather(v)
+    q = q.reshape(B, S, q.shape[-1] // head_dim, head_dim)
+    k = k.reshape(B, S, k.shape[-1] // head_dim, head_dim)
+    v = v.reshape(B, S, v.shape[-1] // head_dim, head_dim)
     return (apply_rope(q, positions, rope_theta),
             apply_rope(k, positions, rope_theta), v)
 
@@ -161,6 +171,28 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ops.attention(q, k, v, causal=causal, window=window)
 
 
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: int,
+                   window: int, lo: int = 0, slots: int = 0) -> torch.Tensor:
+    """The masked f32 scores (B,KV,g,C) of q (B,1,H,hd) over a cache
+    block (B,C,KV,hd) holding slots lo..lo+C-1 of a cache of `slots`
+    slots (default: the block is the whole cache)."""
+    B, _, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    g = H // KV
+    slots = slots or C
+    slot = lo + torch.arange(C, device=q.device)
+    if window > 0:
+        valid = pos - torch.remainder(pos - slot, slots) >= 0
+    else:
+        valid = slot <= pos
+    qs = (q * (1.0 / math.sqrt(hd))).reshape(B, KV, g, hd).float()
+    step = max(1, DECODE_F32_CHUNK // (B * KV * hd))
+    scores = torch.cat([torch.einsum("bkgd,btkd->bkgt", qs,
+                                     k_cache[:, t:t + step].float())
+                        for t in range(0, C, step)], dim=-1)
+    return scores.masked_fill(~valid, NEG_INF)
+
+
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pos: int, *, window: int = 0
                   ) -> torch.Tensor:
@@ -175,22 +207,42 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     terms.
     """
     B, _, H, hd = q.shape
-    C, KV = k_cache.shape[1], k_cache.shape[2]
-    g = H // KV
-    slots = torch.arange(C, device=q.device)
-    if window > 0:
-        valid = pos - torch.remainder(pos - slots, C) >= 0
-    else:
-        valid = slots <= pos
-    qs = (q * (1.0 / math.sqrt(hd))).reshape(B, KV, g, hd).float()
-    step = max(1, DECODE_F32_CHUNK // (B * KV * hd))
-    scores = torch.cat([torch.einsum("bkgd,btkd->bkgt", qs,
-                                     k_cache[:, t:t + step].float())
-                        for t in range(0, C, step)], dim=-1)
-    scores = scores.masked_fill(~valid, NEG_INF)
+    scores = _decode_scores(q, k_cache, pos, window)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+def decode_attend_partial(q: torch.Tensor, k_block: torch.Tensor,
+                          v_block: torch.Tensor, pos: int, *, lo: int,
+                          slots: int, window: int = 0):
+    """`decode_attend` over one block of a cache split over its slots:
+    q (B,1,H,hd) of every head; k_block, v_block (B,n,KV,hd) slots
+    lo..lo+n-1 of a cache of `slots` slots (a ring where window > 0, its
+    slots mapped to positions as `decode_attend` maps them). Returns the
+    block's output o (B,KV,g,hd), normalised over the block alone (its f32
+    softmax cast to q's dtype before P·V, as `decode_attend` casts it), and
+    the f32 log-sum-exp lse (B,KV,g) of the block's scores:
+    `combine_partials` joins the blocks."""
+    scores = _decode_scores(q, k_block, pos, window, lo, slots)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    return (torch.einsum("bkgt,btkd->bkgd", p, v_block),
+            torch.logsumexp(scores, dim=-1))
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor, axis
+                     ) -> torch.Tensor:
+    """Attention over the whole cache from every rank's
+    `decode_attend_partial` (o (B,KV,g,hd), lse (B,KV,g)) over the ranks
+    of `axis` (`sharding.tensor_parallel.ModelAxis`): the max L of the
+    lse over the ranks, each block weighted by w = exp(lse − L), and
+    Σ w·o / Σ w over the ranks, summed in f32. Returns (B,1,H,hd) in o's
+    dtype. A block with no valid slot has lse ≈ NEG_INF and w = 0."""
+    B, KV, g, hd = o.shape
+    w = torch.exp(lse - axis.max(lse))
+    num = axis.sum(o.float() * w[..., None])
+    return (num / axis.sum(w)[..., None]).to(o.dtype).reshape(
+        B, 1, KV * g, hd)
 
 
 def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,

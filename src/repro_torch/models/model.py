@@ -165,46 +165,70 @@ class Model:
     # ------------------------------------------------------------------ #
     # serving
     # ------------------------------------------------------------------ #
-    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+    def _embed(self, params: dict, tokens: torch.Tensor, split=None
+               ) -> torch.Tensor:
+        """Token embeddings (B,S,d) in the compute dtype; under `split`
+        from this rank's d_model block of `embed`, gathered along d."""
+        x = params["embed"][tokens.long()].to(self.compute_dtype)
+        if split is not None and split.embed:
+            x = split.axis.gather(x, -1)
+        return x
+
+    def _embed_inputs(self, params: dict, batch: dict, split=None
+                      ) -> torch.Tensor:
         """The model's input (B,S,d) in the compute dtype: token
         embeddings, after the patches for vision_text; the frames through
         `frontend_proj` for audio."""
         cdt = self.compute_dtype
         if self.cfg.modality == "audio":
             return batch["frames"].to(cdt) @ params["frontend_proj"].to(cdt)
-        x = params["embed"][batch["tokens"].long()].to(cdt)
+        x = self._embed(params, batch["tokens"], split)
         if self.cfg.modality == "vision_text":
             x = torch.cat([batch["patches"].to(cdt), x], dim=1)
         return x
 
     def init_cache(self, batch: int, cache_len: int, *,
-                   device: str | torch.device = DEFAULT_DEVICE) -> dict:
-        return transformer.init_cache(self.cfg, batch, cache_len,
-                                      self.compute_dtype,
-                                      resolve_device(device))
+                   device: str | torch.device = DEFAULT_DEVICE,
+                   split=None) -> dict:
+        """Zero caches; under `split` (a `tensor_parallel.ServeSplit`)
+        this rank's blocks of them."""
+        dev = resolve_device(device)
+        if split is None:
+            return transformer.init_cache(self.cfg, batch, cache_len,
+                                          self.compute_dtype, dev)
+        whole = transformer.init_cache(self.cfg, batch, cache_len,
+                                       self.compute_dtype, "meta")
+        return split.zeros(whole, split.cache_specs, dev)
 
     def _logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """Under split products `lm_head` may be this rank's vocab block:
+        the logits are then the rank's block of them."""
         h = rmsnorm(params["final_norm"], h)
         return (h @ params["lm_head"].to(h.dtype))[:, 0]
 
-    def prefill(self, params: dict, batch: dict, cache: dict):
+    def prefill(self, params: dict, batch: dict, cache: dict, split=None):
         """Returns (last-position logits (B,V), cache), the cache filled in
-        place. A vision_text batch fills P + S_text positions."""
+        place. A vision_text batch fills P + S_text positions. Under
+        `split` (`sharding.tensor_parallel.serve_split`) params and cache
+        are this rank's blocks, and so are the logits where `lm_head`'s
+        vocab is split."""
         cfg = self.cfg
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only")
-        x = self._embed_inputs(params, batch)
+        x = self._embed_inputs(params, batch, split)
         positions = torch.arange(x.shape[1], device=x.device)
-        h, _, cache = transformer.prefill(params, x, positions, cache, cfg)
+        h, _, cache = transformer.prefill(params, x, positions, cache, cfg,
+                                          split)
         return self._logits(params, h[:, -1:]), cache
 
     def decode_step(self, params: dict, tokens: torch.Tensor, pos: int,
-                    cache: dict):
+                    cache: dict, split=None):
         """tokens (B,1) int at position `pos` (a Python int). Returns
-        (logits (B,V), cache), the cache updated in place."""
-        x = params["embed"][tokens].to(self.compute_dtype)
+        (logits (B,V), cache), the cache updated in place. `split` as in
+        `prefill`."""
+        x = self._embed(params, tokens, split)
         h, _, cache = transformer.decode(params, x, int(pos), cache,
-                                         self.cfg)
+                                         self.cfg, split)
         return self._logits(params, h), cache
 
     # ------------------------------------------------------------------ #

@@ -36,6 +36,11 @@ neither its numbers nor its memory.
 Serving's `prefill` and `decode` write caches in place: they fill the cache
 tree they are given and return it; `prefill` goes through the kernels.
 
+Split products (`sharding.tensor_parallel`): `prefill` and `decode` take
+a `ServeSplit`, and each GQA layer then runs on this rank's blocks of its
+params and cache (`_gqa_prefill_split`, `_gqa_decode_split`, `_ffn`),
+the activations whole between layers; without one they are unchanged.
+
 Head padding (`cfg.pad_q_heads`, `cfg.pad_kv_heads`, which
 `launch.specs.plan(pad_heads=True)` sets): the training forward and the
 prefill zero-pad q, k and v to those head counts before attention (the
@@ -260,11 +265,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 # Prefill (fill caches) and decode (consume caches)
 # --------------------------------------------------------------------------- #
 
-def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig
-         ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The layer's FFN -> (x, the MoE load-balance loss or None)."""
+def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig,
+         split=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's FFN -> (x, the MoE load-balance loss or None); under
+    `split` (a `tensor_parallel.GQASplit`) the MLP runs on the rank's
+    w1/w3 column and w2 row blocks, its partial output summed."""
     if spec.kind == "shared_attn" or spec.ffn == "mlp":
-        return _radd(x, mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x))), None
+        y = mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x))
+        return _radd(x, y if split is None else split.mlp_out(y)), None
     if spec.ffn == "moe":
         y, aux = moe_lib.moe_apply(lp["moe"], rmsnorm(lp["ln2"], x),
                                    top_k=cfg.top_k,
@@ -274,21 +282,95 @@ def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig
     return x, None
 
 
-def _ring_fill(buf: torch.Tensor, new: torch.Tensor) -> None:
-    """Write the last C positions of `new` (B,S,...) into the ring `buf`
-    (B,C,...) in place, position p at slot p mod C (the reference's
-    `_ring_fill`)."""
-    C, S = buf.shape[1], new.shape[1]
-    first = max(S - C, 0)
-    slots = torch.arange(first, S, device=buf.device) % C
-    buf[:, slots] = new[:, first:].to(buf.dtype)
+def _fill_slots(buf: torch.Tensor, new: torch.Tensor, lo: int, slots: int,
+                ring: bool) -> None:
+    """Write the prompt's `new` (B,S,...) into `buf` (B,n,...), slots
+    lo..lo+n-1 of a cache of `slots` slots, in place: position p at slot
+    p, or in a ring the last `slots` positions, p at slot p mod slots (the
+    reference's `_ring_fill` where the block is the whole ring)."""
+    n, S = buf.shape[1], new.shape[1]
+    first = max(S - slots, 0) if ring else 0
+    pos = torch.arange(first, S, device=buf.device)
+    slot = pos % slots if ring else pos
+    keep = (slot >= lo) & (slot < lo + n)
+    buf[:, slot[keep] - lo] = new[:, pos[keep]].to(buf.dtype)
+
+
+def _project_split(p: dict, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ArchConfig, split):
+    """q of this rank's query heads; k and v of its kv heads where the
+    cache is split over them, else gathered whole."""
+    gather = ((lambda t: split.axis.gather(t, -1)) if split.kv_gathered
+              else None)
+    return attn_lib.gqa_project(p, h, positions, cfg.rope_theta,
+                                cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, kv_gather=gather)
+
+
+def _gqa_prefill_split(p: dict, h: torch.Tensor, positions: torch.Tensor,
+                       entry: dict, spec: SegmentSpec, cfg: ArchConfig,
+                       split) -> torch.Tensor:
+    """A GQA layer's attention output over the prompt on this rank's
+    blocks (`tensor_parallel.GQASplit`): its query heads attend through
+    `prefill_attention` (the kernel on the card) to the kv heads their
+    groups map to, and it writes its block of the cache."""
+    q, k, v = _project_split(p, h, positions, cfg, split)
+    kq, vq = (k, v) if split.cache == "heads" else split.kv_for_heads(k, v)
+    ctx = attn_lib.prefill_attention(q, kq.contiguous(), vq.contiguous(),
+                                     causal=cfg.causal, window=spec.window)
+    lo, _ = split.slot_block
+    for name, t in (("k", k), ("v", v)):
+        _fill_slots(entry[name], t, lo, split.slots, bool(spec.window))
+    return split.out(_attn_out(ctx, p["wo"]))
+
+
+def _gqa_decode_split(p: dict, h: torch.Tensor, pos: int, entry: dict,
+                      spec: SegmentSpec, cfg: ArchConfig, split
+                      ) -> torch.Tensor:
+    """A GQA layer's attention output for one token on this rank's blocks:
+    a head-split cache is written and read locally; a cache split over its
+    slots is written by the rank that holds the token's slot and read by
+    every rank for every head (q gathered), the partial softmaxes combined
+    (`attention.combine_partials`) and the rank's heads kept; a whole
+    cache is written and read whole on every rank."""
+    q, k, v = _project_split(p, h, torch.tensor([pos], device=h.device),
+                             cfg, split)
+    if split.cache == "heads":
+        attn_lib.cache_write(entry["k"], entry["v"], k, v, pos,
+                             window=spec.window)
+        ctx = attn_lib.decode_attend(q, entry["k"], entry["v"], pos,
+                                     window=spec.window)
+        return split.out(_attn_out(ctx, p["wo"]))
+    slot = pos % split.slots if spec.window else pos
+    lo, hi = split.slot_block
+    if lo <= slot < hi:
+        entry["k"][:, slot - lo] = k[:, 0]
+        entry["v"][:, slot - lo] = v[:, 0]
+    if split.heads:
+        q = split.axis.gather(q, 2)
+    if split.cache == "seq":
+        o, lse = attn_lib.decode_attend_partial(
+            q, entry["k"], entry["v"], pos, lo=lo, slots=split.slots,
+            window=spec.window)
+        ctx = attn_lib.combine_partials(o, lse, split.axis)
+    else:
+        ctx = attn_lib.decode_attend(q, entry["k"], entry["v"], pos,
+                                     window=spec.window)
+    a, b = split.head_block
+    return split.out(_attn_out(ctx[:, :, a:b], p["wo"]))
 
 
 def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                   entry: dict, spec: SegmentSpec, cfg: ArchConfig):
+                   entry: dict, spec: SegmentSpec, cfg: ArchConfig,
+                   split=None):
     """One layer over the prompt; writes this layer's cache `entry` (no
-    layer axis) in place. Returns (x, aux or None)."""
+    layer axis) in place. Returns (x, aux or None). Under `split` (a
+    `tensor_parallel.GQASplit`) the layer runs on this rank's blocks."""
     h = rmsnorm(lp["ln1"], x)
+    if split is not None:
+        x = _radd(x, _gqa_prefill_split(lp["attn"], h, positions, entry,
+                                        spec, cfg, split))
+        return _ffn(lp, x, spec, cfg, split)
     if spec.kind in _GQA_KINDS:
         q, k, v = _gqa(lp, h, positions, cfg)
         ctx = attn_lib.prefill_attention(q, k, v, causal=cfg.causal,
@@ -296,8 +378,8 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
         x = _radd(x, _attn_out(_unpad_ctx(ctx, cfg), lp["attn"]["wo"]))
         k, v = _unpad_kv(k, v, cfg)
         if spec.window:
-            _ring_fill(entry["k"], k)
-            _ring_fill(entry["v"], v)
+            for name, t in (("k", k), ("v", v)):
+                _fill_slots(entry[name], t, 0, entry[name].shape[1], True)
         else:
             S = k.shape[1]
             entry["k"][:, :S] = k
@@ -323,10 +405,15 @@ def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
-                  spec: SegmentSpec, cfg: ArchConfig):
+                  spec: SegmentSpec, cfg: ArchConfig, split=None):
     """Single-token step through one layer; updates `entry` in place.
-    Returns (x, aux or None)."""
+    Returns (x, aux or None). Under `split` the layer runs on this rank's
+    blocks."""
     h = rmsnorm(lp["ln1"], x)
+    if split is not None:
+        x = _radd(x, _gqa_decode_split(lp["attn"], h, pos, entry, spec, cfg,
+                                       split))
+        return _ffn(lp, x, spec, cfg, split)
     if spec.kind in _GQA_KINDS:
         positions = torch.tensor([pos], device=x.device)
         # decode is single-token: the reference pads no heads here
@@ -369,15 +456,18 @@ def _checkpointed(layer_fn, lp: dict, x: torch.Tensor, step,
 
 
 def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
-         cfg: ArchConfig, remat: bool = False
+         cfg: ArchConfig, remat: bool = False, split=None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer in order: layer_fn(lp, x, step, entry, spec, cfg) ->
     (x, aux or None), with `entry` this layer's cache (None without a
-    cache); with `remat` (no cache) each layer through `_checkpointed`.
-    Each layer's params are taken as `tree_index(seg_params, i)`, outside
-    any checkpoint. Returns (x, the summed aux, f32)."""
+    cache); with `remat` (no cache) each layer through `_checkpointed`;
+    under `split` (a `tensor_parallel.ServeSplit`) each layer also takes
+    its segment's `GQASplit` as `split=`. Each layer's params are taken
+    as `tree_index(seg_params, i)`, outside any checkpoint. Returns (x,
+    the summed aux, f32)."""
     aux = torch.zeros((), device=x.device)
     for seg in build_segments(cfg):
+        kw = {} if split is None else {"split": split.segment(seg.index)}
         entry = None if cache is None else cache[str(seg.index)]
         if seg.kind == "shared_attn":
             layers = [(params["shared_attn"], entry)]
@@ -390,25 +480,28 @@ def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
             if remat:
                 x, a = _checkpointed(layer_fn, lp, x, step, seg, cfg)
             else:
-                x, a = layer_fn(lp, x, step, e, seg, cfg)
+                x, a = layer_fn(lp, x, step, e, seg, cfg, **kw)
             if a is not None:
                 aux = aux + a
     return x, aux
 
 
 def prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
-            cache: dict, cfg: ArchConfig):
+            cache: dict, cfg: ArchConfig, split=None):
     """x (B,S,d) through every layer, filling `cache` in place.
-    Returns (x, aux, cache)."""
-    x, aux = _run(_layer_prefill, params, x, positions, cache, cfg)
+    Returns (x, aux, cache). Under `split` (a
+    `tensor_parallel.ServeSplit`) params and cache are this rank's blocks
+    and x is whole."""
+    x, aux = _run(_layer_prefill, params, x, positions, cache, cfg,
+                  split=split)
     return x, aux, cache
 
 
 def decode(params: dict, x: torch.Tensor, pos: int, cache: dict,
-           cfg: ArchConfig):
+           cfg: ArchConfig, split=None):
     """One token x (B,1,d) at position `pos` through every layer, updating
-    `cache` in place. Returns (x, aux, cache)."""
-    x, aux = _run(_layer_decode, params, x, pos, cache, cfg)
+    `cache` in place. Returns (x, aux, cache). `split` as in `prefill`."""
+    x, aux = _run(_layer_decode, params, x, pos, cache, cfg, split=split)
     return x, aux, cache
 
 

@@ -17,12 +17,16 @@ dim first), the parts concatenated in coordinate order. The meshes of
 `launch.mesh` number their ranks row-major, so a group's ranks rise with
 the axis' coordinate.
 
-Where every axis a spec names has extent 1 (every mesh on one card) both
-directions are the identity: the same tensor object comes back and no
+Where every axis a spec names has extent 1 (a mesh of a world of one)
+both directions are the identity: the same tensor object comes back and no
 collective is issued, so the kernels see the tensors they see without a
-mesh. At extent > 1, CUDA tensors raise NotImplementedError (one card
-runs a world of one rank) and an abstract mesh raises ValueError (it
-places nothing), as `sharding.clients.client_shard` does.
+mesh. At extent > 1 an abstract mesh raises ValueError (it places
+nothing), as `sharding.clients.client_shard` does, and CUDA tensors raise
+NotImplementedError (ROADMAP entry 12b: the training step, `StepPlacement`,
+the scan carry, banks and fleets compute on whole params), except where a
+caller of the serving steps passes `serving=True` on a DeviceMesh of CUDA
+ranks (`sharding.tensor_parallel`: gloo carries the CUDA tensors of a
+world of ranks on one card).
 
 `carry_state_specs` gives the scan carry's algorithm state its specs
 (client-indexed leaves of the params' shape split over the data axes and,
@@ -54,12 +58,16 @@ def split_dims(spec, mesh) -> list:
     return out
 
 
-def _check(device: torch.device, mesh, what: str) -> None:
-    if device.type == "cuda":
+def _check(device: torch.device, mesh, what: str,
+           serving: bool = False) -> None:
+    if device.type == "cuda" and not (
+            serving and getattr(mesh, "device_type", None) == "cuda"):
         raise NotImplementedError(
-            f"{what} split over mesh axes of extent > 1 on CUDA tensors: one "
-            "card runs a world of one rank, so a mesh on the card has extent "
-            "1; extent > 1 runs on CPU ranks (gloo)")
+            f"{what} split over mesh axes of extent > 1 on CUDA tensors: "
+            "only the serving steps compute on blocks on the card; "
+            "training, StepPlacement, the scan carry, banks and fleets "
+            "under split products are ROADMAP entry 12b, and run on CPU "
+            "ranks (gloo)")
     if not hasattr(mesh, "get_group"):
         raise ValueError(
             f"{what}: a mesh of extent > 1 must be a DeviceMesh over a world "
@@ -86,12 +94,12 @@ def block_slices(spec, shape: tuple, mesh, coord=None) -> tuple:
 
 
 def block_shape(shape: tuple, spec, mesh, device: torch.device,
-                what: str = "a leaf") -> tuple:
+                what: str = "a leaf", serving: bool = False) -> tuple:
     """The shape of this rank's block of a whole tensor of `shape` on
     `device` (raising where `block` would)."""
     dims = split_dims(spec, mesh)
     if dims:
-        _check(torch.device(device), mesh, what)
+        _check(torch.device(device), mesh, what, serving)
     mshape, out = mesh_shape(mesh), list(shape)
     for d, axes in dims:
         for a in axes:
@@ -109,28 +117,30 @@ def whole_shape(shape: tuple, spec, mesh) -> tuple:
     return tuple(out)
 
 
-def block(x: torch.Tensor, spec, mesh, what: str = "a leaf"):
+def block(x: torch.Tensor, spec, mesh, what: str = "a leaf",
+          serving: bool = False):
     """This rank's block of the whole `x` under `spec`: `x` itself where
-    nothing is split, else a view of it."""
+    nothing is split, else a view of it. `serving`: the caller is the
+    serving steps' (module docstring)."""
     if not isinstance(x, torch.Tensor) or not split_dims(spec, mesh):
         return x
-    _check(x.device, mesh, what)
+    _check(x.device, mesh, what, serving)
     return x[block_slices(spec, tuple(x.shape), mesh)]
 
 
-def take(x, spec, mesh, what: str = "a leaf"):
+def take(x, spec, mesh, what: str = "a leaf", serving: bool = False):
     """`block` as a tensor of its own (the whole's storage is not kept)."""
-    b = block(x, spec, mesh, what)
+    b = block(x, spec, mesh, what, serving)
     return b if b is x else b.clone()
 
 
-def whole(x, spec, mesh, what: str = "a leaf"):
+def whole(x, spec, mesh, what: str = "a leaf", serving: bool = False):
     """The whole tensor from every rank's block `x` under `spec` (`x`
     itself where nothing is split)."""
     dims = split_dims(spec, mesh) if isinstance(x, torch.Tensor) else []
     if not dims:
         return x
-    _check(x.device, mesh, what)
+    _check(x.device, mesh, what, serving)
     import torch.distributed as dist
     for d, axes in dims:
         for a in reversed(axes):
@@ -161,14 +171,18 @@ def amax_(x: torch.Tensor, axes, mesh) -> torch.Tensor:
 # trees
 # --------------------------------------------------------------------------- #
 
-def take_tree(tree: Any, specs: Any, mesh, what: str = "a leaf") -> Any:
+def take_tree(tree: Any, specs: Any, mesh, what: str = "a leaf",
+              serving: bool = False) -> Any:
     """`take` leaf by leaf against a PartitionSpec tree of `tree`'s
     structure."""
-    return tree_map(lambda x, s: take(x, s, mesh, what), tree, specs)
+    return tree_map(lambda x, s: take(x, s, mesh, what, serving), tree,
+                    specs)
 
 
-def whole_tree(tree: Any, specs: Any, mesh, what: str = "a leaf") -> Any:
-    return tree_map(lambda x, s: whole(x, s, mesh, what), tree, specs)
+def whole_tree(tree: Any, specs: Any, mesh, what: str = "a leaf",
+               serving: bool = False) -> Any:
+    return tree_map(lambda x, s: whole(x, s, mesh, what, serving), tree,
+                    specs)
 
 
 def _pairwise(fn, values: Any, shardings: Any) -> Any:

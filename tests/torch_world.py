@@ -3,6 +3,7 @@
 
     python tests/torch_world.py --world 1|4 --out DIR
     python tests/torch_world.py --world 4 --cases params --out DIR
+    python tests/torch_world.py --world 2|4 --cases serve --out DIR
 
 `torch.multiprocessing.spawn` starts the ranks. They meet on a `FileStore`
 under DIR (no TCP rendezvous) and talk gloo over the loopback device, with
@@ -25,6 +26,13 @@ are MIFA(array), BankedMIFA(DenseBank), biased FedAvg and
 BankedMIFA(PagedDeviceBank(page_size=4, n_slots=2)), the last held whole
 on every rank.
 
+`--cases serve` (`tests/test_torch_tensor_parallel.py`, worlds of 2 and 4)
+serves the smoke configs of SERVE_CASES through the split prefill and decode
+steps (`sharding.tensor_parallel`) on the params the test writes into DIR
+(`params_<case>.npz`): each rank compares its blocks with its blocks of the
+unsplit run, and rank 0 writes the split run gathered whole into
+`results.npz` for the test's comparison with the JAX package.
+
 `--cases params` (`tests/test_torch_param_placement_world.py`) places the
 params of granite-3-8b's and qwen1.5-110b's smoke configs (f32) over the
 mesh axes (`sharding.params`): each rank compares its blocks of every
@@ -34,6 +42,7 @@ and rank 0 writes every rank's verdicts into `results.json`.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -534,6 +543,238 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
     dist.barrier()
 
 
+# --------------------------------------------------------------------------- #
+# --cases serve: split products on the serving path
+# --------------------------------------------------------------------------- #
+
+# batch, prompt length and greedy decode steps of every serve case
+SB, SS, ST = 2, 24, 3
+# case -> (arch, config change, mesh (data, model), cache length): granite
+# with its kv heads over the model axis (KV 2 % 2 = 0) and its vocab over
+# it, and with a vocab of 511 (the head whole, as granite's 49155 on the
+# card); qwen (qkv bias); granite and gemma on 4 model ranks (KV 2 % 4 != 0:
+# the caches split over their slots; gemma's ring of 16 over 4 ranks, its
+# global layer's 30 slots whole); granite on data and model
+SERVE_CASES = {
+    "a_granite_1x2": ("granite_3_8b", {}, (1, 2), 28),
+    "a_granite_vocab511_1x2": ("granite_3_8b", {"vocab_size": 511}, (1, 2),
+                               28),
+    "b_qwen_1x2": ("qwen1_5_110b", {}, (1, 2), 28),
+    "c_granite_1x4": ("granite_3_8b", {}, (1, 4), 28),
+    "d_gemma_1x4": ("gemma3_4b", {}, (1, 4), 30),
+    "e_granite_2x2": ("granite_3_8b", {}, (2, 2), 28),
+}
+# the f32 bound of tests/test_torch_models.py
+SRTOL, SATOL = 2e-4, 2e-5
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays as {"a/b/c": array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def unflat_tree(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, last = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def serve_params_path(out_dir: str, case: str) -> str:
+    return os.path.join(out_dir, f"params_{case}.npz")
+
+
+def serve_tokens(cfg) -> np.ndarray:
+    return np.random.default_rng(7).integers(0, cfg.vocab_size, (SB, SS))
+
+
+def serve_gap(got, want) -> tuple:
+    """(shapes equal, worst |got - want| / (SATOL + SRTOL·|want|)) over
+    two trees of tensors."""
+    from repro_torch.tree import tree_leaves
+    shapes, worst = True, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        a, b = a.double(), b.double()
+        shapes = shapes and a.shape == b.shape
+        if shapes and a.numel():
+            worst = max(worst, float(((a - b).abs() / (
+                SATOL + SRTOL * b.abs())).max()))
+    return shapes, worst
+
+
+def serve_greedy(model, params, cache, toks, step_p=None, step_d=None,
+                 whole_logits=lambda x: x):
+    """A prefill of `toks` and ST greedy decode steps: (prefill logits,
+    [decode logits], greedy tokens (B, ST), cache after prefill (cloned),
+    the cache at the end). Unsplit without `step_p`/`step_d`."""
+    import torch
+    from repro_torch.tree import tree_map
+    step_p = step_p or (lambda p, c, b: model.prefill(p, b, c))
+    step_d = step_d or (lambda p, c, t, i: model.decode_step(p, t, i, c))
+    logits, cache = step_p(params, cache, {"tokens": toks})
+    after = tree_map(lambda t: t.clone(), cache)
+    steps, greedy = [], []
+    last = logits
+    for i in range(ST):
+        tok = whole_logits(last).argmax(-1, keepdim=True).to(torch.int32)
+        greedy.append(tok)
+        last, cache = step_d(params, cache, tok, SS + i)
+        steps.append(last)
+    return logits, steps, torch.cat(greedy, 1), after, cache
+
+
+def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
+    """One serve case on this world: the unsplit run and the split steps
+    (`launch.steps.make_prefill_step(model, mesh, ...)`), each rank's
+    blocks against its blocks of the unsplit run; rank 0 records the split
+    run's outputs gathered whole for the test's comparison with the JAX
+    package."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.params import take, take_tree, whole, whole_tree
+    from repro_torch.tree import tree_leaves
+    arch, change, shape, C = SERVE_CASES[case]
+    cfg = smoke(arch, **change)
+    model = build_model(cfg)
+    mesh = make_host_mesh(*shape, device="cpu")
+    with np.load(serve_params_path(out_dir, case)) as z:
+        params = params_from_jax(unflat_tree(dict(z)), "cpu")
+    toks = torch.from_numpy(serve_tokens(cfg))
+    want = serve_greedy(model, params, model.init_cache(SB, C, device="cpu"),
+                        toks)
+
+    step_p = make_prefill_step(model, mesh, batch=SB, cache_len=C)
+    step_d = make_decode_step(model, mesh, batch=SB, cache_len=C)
+    split = step_p.split
+    bspec = rules.P(rules.data_axes(mesh), None)
+    lspec = rules.P(*rules.sanitize((rules.data_axes(mesh), rules.MODEL),
+                                    (SB, cfg.vocab_size), mesh))
+
+    def blk(x, spec):
+        return take(x, spec, mesh, serving=True)
+
+    def whole_logits(x):
+        return whole(x, lspec, mesh, serving=True)
+
+    got = serve_greedy(
+        model, take_tree(params, split.param_specs, mesh, serving=True),
+        model.init_cache(SB, C, device="cpu", split=split),
+        blk(toks, bspec), step_p, step_d,
+        lambda x: blk(whole_logits(x), bspec))
+    cspecs = split.cache_specs
+    # the rank's blocks of the unsplit run
+    ref = [blk(want[0], lspec), [blk(x, lspec) for x in want[1]],
+           take_tree(want[3], cspecs, mesh, serving=True),
+           take_tree(want[4], cspecs, mesh, serving=True)]
+    eq, worst = serve_gap([got[0], got[1], got[3], got[4]], ref)
+    greedy_eq = torch.equal(got[2], blk(want[2], bspec))
+    # replicated values: every leaf and output the model axis leaves
+    # whole, bit-equal over the rank's model group
+    model_group = mesh.get_group(rules.MODEL)
+
+    def whole_on_model(spec) -> bool:
+        return rules.MODEL not in rules.sharded_axes([spec], mesh)
+    repl = [x for x, s in zip(
+        tree_leaves(take_tree(params, split.param_specs, mesh,
+                              serving=True)),
+        tree_leaves(split.param_specs)) if whole_on_model(s)]
+    repl += [x for x, s in zip(tree_leaves(got[4]), tree_leaves(cspecs))
+             if whole_on_model(s)]
+    if whole_on_model(lspec):
+        repl += [got[0]] + list(got[1])
+    digest = [hashlib.sha256(x.contiguous().view(torch.uint8).numpy()
+                             .tobytes()).hexdigest() for x in repl]
+    parts = [None] * dist.get_world_size(model_group)
+    dist.all_gather_object(parts, digest, group=model_group)
+    repl_eq = all(p == parts[0] for p in parts)
+    layouts = {str(i): (g.cache, g.heads, g.kv_cols, g.mlp)
+               for i, g in split.segments.items()}
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, {
+        "shapes": eq, "err": worst, "greedy": greedy_eq,
+        "replicated": repl_eq, "n_replicated": len(repl),
+        "layouts": layouts, "embed": split.embed, "head": split.head,
+        "moved": dict(split.axis.moved)})
+    info[case] = parts
+    # the split run gathered whole, for the comparison with the reference
+    wl = [whole_logits(got[0])] + [whole_logits(x) for x in got[1]]
+    greedy = whole_tree(got[2], bspec, mesh, serving=True)
+    cache = whole_tree(got[4], cspecs, mesh, serving=True)
+    out[f"{case}/tokens"] = toks.numpy()
+    out[f"{case}/greedy"] = greedy.numpy()
+    for i, x in enumerate(wl):
+        out[f"{case}/logits{i}"] = x.numpy()
+    for k, v in flat_tree({"cache": cache}).items():
+        out[f"{case}/{k}"] = v.numpy()
+    out[f"{case}/cache_len"] = np.asarray(C)
+
+
+def placed_decode_case(info: dict, out_dir: str) -> None:
+    """Granite's `decode_32k` plan on 1x2 through `launch.specs.run_placed`
+    (its step split: the blocks go straight in) for one decode step after
+    an unsplit prefill, on case (a)'s params and a small cache, against
+    the unsplit step's blocks."""
+    import torch
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import plan_config, run_placed
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import take, take_tree
+    from repro_torch.tree import tree_map
+    _, _, _, C = SERVE_CASES["a_granite_1x2"]
+    cfg = smoke("granite_3_8b")
+    model = build_model(cfg)
+    mesh = make_host_mesh(1, 2, device="cpu")
+    with np.load(serve_params_path(out_dir, "a_granite_1x2")) as z:
+        params = params_from_jax(unflat_tree(dict(z)), "cpu")
+    toks = torch.from_numpy(serve_tokens(cfg))
+    _, cache = model.prefill(params, {"tokens": toks},
+                             model.init_cache(SB, C, device="cpu"))
+    before = tree_map(lambda t: t.clone(), cache)
+    tok = toks[:, :1].to(torch.int32)
+    want = model.decode_step(params, tok, SS, cache)
+    p = plan_config(cfg, "decode_32k", mesh)
+    pspecs, cspecs, tspec, _ = [tree_map(lambda s: s.spec, sh)
+                                for sh in p.in_shardings]
+    got = run_placed(p, take_tree(params, pspecs, mesh, serving=True),
+                     take_tree(before, cspecs, mesh, serving=True),
+                     take(tok, tspec, mesh, serving=True), SS)
+    ref = [take(want[0], p.out_shardings[0].spec, mesh, serving=True),
+           take_tree(want[1], cspecs, mesh, serving=True)]
+    shapes, worst = serve_gap(list(got), ref)
+    parts = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(parts, {
+        "split": p.fn.split is not None, "shapes": shapes, "err": worst,
+        "blocks": list(got[0].shape)})
+    info["placed_decode_1x2"] = parts
+
+
+def world_of_serve(out: dict, info: dict, out_dir: str) -> None:
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    for case, (_, _, shape, _) in SERVE_CASES.items():
+        if shape[0] * shape[1] == world:
+            serve_case(out, info, case, out_dir)
+    if world == 2:
+        placed_decode_case(info, out_dir)
+    dist.barrier()
+
+
 def rank_main(rank: int, world: int, out_dir: str,
               cases: str = "paper") -> None:
     import torch
@@ -549,6 +790,8 @@ def rank_main(rank: int, world: int, out_dir: str,
         out, info = {}, {}
         if cases == "params":
             world_of_params(out, info, out_dir)
+        elif cases == "serve":
+            world_of_serve(out, info, out_dir)
         elif world == 1:
             world_of_one(out, info)
         else:
@@ -563,12 +806,15 @@ def rank_main(rank: int, world: int, out_dir: str,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--world", type=int, choices=(1, 4), required=True)
+    ap.add_argument("--world", type=int, choices=(1, 2, 4), required=True)
     ap.add_argument("--out", required=True)
-    ap.add_argument("--cases", choices=("paper", "params"), default="paper")
+    ap.add_argument("--cases", choices=("paper", "params", "serve"),
+                    default="paper")
     args = ap.parse_args()
     if args.cases == "params" and args.world != 4:
         ap.error("--cases params runs in a world of 4")
+    if args.cases != "serve" and args.world == 2:
+        ap.error("a world of 2 runs --cases serve")
     import torch.multiprocessing as mp
     mp.spawn(rank_main, args=(args.world, args.out, args.cases),
              nprocs=args.world, join=True)
