@@ -26,22 +26,22 @@ Run from the root of a checkout on a machine with a CUDA card. It
   4. runs the main path — the paper's experiment (`paper_mlp` at full
      width: N=100 clients, d=256, 2x128 hidden, K=5 local steps, batch 100,
      label-correlated Bernoulli availability with p_min=0.1, inv_t(1.0),
-     weight decay 1e-3) for 50 rounds of `run_fl(engine="loop")` with
+     weight decay 1e-3) for 20 rounds of `run_fl(engine="loop")` with
      `MIFA(memory="array")` and with `BankedMIFA(DenseBank())`, from the
      same initial params and participation seed, and checks the losses,
      the anchor property (both algorithms give the same trajectory) and
      that each path launched its kernel once per round, one launch for the
-     tree (50 `mifa_aggregate`, 50 `bank_scatter`);
-  5. runs the same 50 rounds through
+     tree (20 `mifa_aggregate`, 20 `bank_scatter`);
+  5. runs the same 20 rounds through
      `BankedMIFA(PagedDeviceBank(page_size=8))`, after a second dense run
      that shows whether the card repeats a run bit for bit, and holds the
-     paged run bit-equal to the dense one (50 `paged_bank_scatter`
+     paged run bit-equal to the dense one (20 `paged_bank_scatter`
      launches, no other kernel);
   6. drives eviction on the card: 40 cohorts of 64 (half hot) through a
      paged bank of 48 slots over 128 logical pages, against `DenseBank`:
      faults, evictions and re-faults, every row (through the gather kernel,
      one launch for the tree) and G_sum bit-equal;
-  7. drives N = 10⁶ paper_mlp clients at full width for 20 rounds of
+  7. drives N = 10⁶ paper_mlp clients at full width for 8 rounds of
      `RoundRunner.step_cohort` through `ProceduralBatcher` and
      `PagedDeviceBank(page_size=8, n_slots=256)`: ms per round, the
      416,940,352-byte page pool, peak device memory, host spill, and G_sum
@@ -60,14 +60,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
      participation seeds 100+s): MIFA(array), BiasedFedAvg,
      FedAvgSampling(S=50) and (S=100) on the update clock, FedAvgIS, and
      the cohort fleets BankedMIFA(DenseBank) and
-     BankedMIFA(PagedDeviceBank(page_size=8)), 50 rounds each through
+     BankedMIFA(PagedDeviceBank(page_size=8)), 20 rounds each through
      `fleet.run_fleet`. Eval loss must fall in every trial; checked trials
      must match sequential `run_fl` runs on the card; the paged fleet must
      be bit-equal to the dense one; each batched kernel launches once per
      round (all six leaves and three trials) and `mifa_aggregate` once per
      trial per round; then the FedAvgSampling(S=50) fleet runs 10 rounds
      on the CPU and on the card, held together;
- 11. runs the scan engine (`engine="scan"`, chunks of 10 rounds, each
+ 11. runs the scan engine (`engine="scan"`, chunks of 5 rounds, each
      round a replay of one round body captured as a CUDA graph, a chunk's
      inputs staged to the card in one pinned copy): the three paper paths
      of steps 4-5 at full width, an eviction run (N=1024, cohorts of 64
@@ -93,38 +93,39 @@ Run from the root of a checkout on a machine with a CUDA card. It
      main path's MIFA(array) loop again, bit-equal to its first run;
  12. drives the scenario path (`repro_torch.scenarios`): the device surface
      of every registered process at N=100 and of Bernoulli at N=10⁶ on
-     the card, 64 rounds each, array-equal to the CPU host surface; one
+     the card, 32 rounds each, array-equal to the CPU host surface; one
      draw's CUDA operations, host and device time; MIFA(array) under
      Gilbert–Elliott availability (rate 0.5, bursts of 8) drawn inside
-     the round for 50 rounds on the loop and the scan (50 and 51
+     the round for 20 rounds on the loop and the scan (20 and 21
      `mifa_aggregate` launches, bit-equal, τ statistics equal, the masks
      those of the CPU host surface, 5 rounds card vs CPU);
      BankedMIFA(DenseBank) on both engines and BankedMIFA(PagedDeviceBank)
-     on the loop under cluster outages for 30 rounds (the host surface; 30
+     on the loop under cluster outages for 20 rounds (the host surface; 20
      `bank_scatter` / `paged_bank_scatter` launches, paged bit-equal to
      dense); a 3-trial Gilbert–Elliott fleet (bursts 2, 4, 8) on both
-     engines for 50 rounds, bit-equal (150 `mifa_aggregate` launches on
-     the loop), and a 3-trial cohort fleet under cluster outages for 30
-     rounds (30 `bank_scatter_batched`); FedAR and CAFed card vs CPU;
+     engines for 20 rounds, bit-equal (60 `mifa_aggregate` launches on
+     the loop), and a 3-trial cohort fleet under cluster outages for 20
+     rounds (20 `bank_scatter_batched`); FedAR and CAFed card vs CPU;
  13. drives the runtime simulator (`repro_torch.sim`) on the paper problem
      under the registry's cluster outages, the tiered latency fleet
      (`tiered_shifted_exponential(100, seed=0)`) and
      `benchmarks/time_to_accuracy.py`'s clock (epochs of 4 s, 0.05 s
-     server overhead, 64 epochs of lookahead): MIFA(array) for 50 rounds
-     under each of the five policies (WaitForAll, WaitForS S=10, Deadline
+     server overhead, 64 epochs of lookahead): MIFA(array) for 20 rounds
+     (SIM_ROUNDS) under each of the five policies (WaitForAll, WaitForS S=10, Deadline
      3 s, Impatient, BufferedKofN K=10) on the heap engine and on the
      compiled engine (each round replays of the epoch-fill graph as often
      as the clock asks, then the round graph), held bit-equal (close
      times, counters, applied masks, τ; cohorts those of the host draws;
-     losses and params as the scan is held); 50 / 51 `mifa_aggregate`
+     losses and params as the scan is held); 20 / 21 `mifa_aggregate`
      launches; FedBuffAvg under BufferedKofN through `run_fl(sim=)` on
      both engines; BankedMIFA(DenseBank), (PagedDeviceBank(8)) and
-     (HostBank, rows pinned) on the heap engine under Impatient (50
-     `bank_scatter`, 50 `paged_bank_scatter`, paged bit-equal to dense,
+     (HostBank, rows pinned) on the heap engine under Impatient for 15
+     rounds (SIM_SHORT_ROUNDS, as FedBuffAvg; 15 `bank_scatter`, 15
+     `paged_bank_scatter`, paged bit-equal to dense,
      host within 1e-5); one cohort round of BankedMIFA(HostBank) at N =
      10⁴ (2.03 GB of pinned rows); a K=3 simulated fleet (WaitForAll,
      Impatient, BufferedKofN) each lane against its single compiled run
-     (153 `mifa_aggregate`); 5 heap rounds card vs CPU; Impatient's
+     (63 `mifa_aggregate`); 5 heap rounds card vs CPU; Impatient's
      simulated seconds below WaitForAll's (the paper's claim); prints ms
      a simulated round on both engines, the sync a round and the
      simulated seconds per policy;
@@ -159,7 +160,7 @@ Run from the root of a checkout on a machine with a CUDA card. It
      the served shapes beside their bounds and,
      for attention, one `scaled_dot_product_attention` call;
  16. serves zamba2-7b at full width and depth (81 layers, bf16, random
-     params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 32
+     params) through `launch.serve.serve`: 4 prompts of 2048 tokens, 16
      greedy tokens; every prefill attention call and SSD scan must launch
      the kernels (13 and 68), decode none, no other kernel; then
      mamba2-1.3b (48 scans) and granite-3-8b cut to 4 layers (4 attention
@@ -256,7 +257,20 @@ Run from the root of a checkout on a machine with a CUDA card. It
      on rank 0: logits and caches within the bounds, greedy tokens equal
      but at near-ties, one `flash_attention` launch a layer a rank, each
      rank's peak allocation, the bytes its collectives moved and its
-     host-staged ms.
+     host-staged ms; then, in the same world, the MIFA train step on each
+     rank's blocks (`launch.steps.make_train_step(model, cfg, n, k,
+     mesh=)`, split products in training; N=2, 2 rounds, 2 x 128 tokens,
+     remat on): granite-3-8b's vmap step (2 layers bf16, 1 layer f32),
+     gemma3-4b's (2 layers bf16, the vocab-split cross-entropy) and
+     granite's sequential step through the planner (2 layers bf16, K=1,
+     its update constraint), each against the unsplit step run by rank 0
+     alone after the split run freed its memory (params, G and the
+     losses within the bounds); `mifa_aggregate` exactly once a round on
+     each rank in vmap mode, on G's blocks, and one more server step (on
+     seeded updates) held against `mifa_aggregate_ref` on the same blocks;
+     each rank's peak
+     allocation, the bytes it moved a round by kind (all-reduce,
+     all-gather, relayout) and its host-staged ms a round.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX. Its
 rows are line-buffered, each phase prints its start time (`start <phase>
@@ -293,13 +307,13 @@ N_CLIENTS = 100
 # layers[0].w (256x128), layers[1].b, layers[1].w (128x128), out.b,
 # out.w (128x10)
 PATH_WIDTHS = [128, 32768, 128, 16384, 10, 1280]
-ROUNDS = 50
+ROUNDS = 20
 CPU_ROUNDS = 5
 # the Figure 2 fleets: trials of seeds 0-2 with participation seeds 100+s
 # (benchmarks/fig2_convergence.py:41); the cohort fleets and their
 # sequential runs pin the cohort width at 64 (a round's |A| is about 38)
 FLEET_SEEDS = (0, 1, 2)
-FLEET_ROUNDS, FLEET_CPU_ROUNDS, FLEET_CAP = 50, 10, 64
+FLEET_ROUNDS, FLEET_CPU_ROUNDS, FLEET_CAP = 20, 10, 64
 # MIFA(array) and BankedMIFA(dense) agree in exact arithmetic; in fp32 the
 # bank keeps G_sum incrementally while the dense step re-sums all N rows, so
 # the trajectories drift apart by reduction-order rounding over the rounds.
@@ -319,10 +333,11 @@ TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-2)}
 # rows per page on every paged run
 PAGE_SIZE = 8
 # the scan engine: rounds a chunk holds (a chunk's batches of the dense
-# path take 51.2 MB a round on the card); rounds of each profiled scan run;
+# path take 51.2 MB a round on the card; the paths' runs of ROUNDS rounds
+# time their middle two chunks); rounds of each profiled scan run;
 # a scan run is held bit-equal to its loop run, or else within SCAN_RTOL
 # of the magnitudes of the losses and params (and the gap reported)
-SCAN_CHUNK, PROFILE_ROUNDS, SCAN_RTOL = 10, 20, 1e-5
+SCAN_CHUNK, PROFILE_ROUNDS, SCAN_RTOL = 5, 20, 1e-5
 # a captured round has one shape: the scan pads every cohort to one width,
 # the N-client bucket when none is pinned, while the loop pads each round
 # to its own power-of-two bucket (64 mostly, 128 in the all-active round
@@ -341,11 +356,11 @@ INT8_LOSS_RTOL = 2e-2
 EVICT_N, EVICT_HOT, EVICT_C, EVICT_SLOTS, EVICT_ROUNDS = 1024, 128, 64, 48, 40
 # million-client phase; its page pool is (n_slots+1)·page_size·d·4 bytes
 # with d = sum(PATH_WIDTHS) = 50,698
-MILLION_N, MILLION_C, MILLION_SLOTS, MILLION_ROUNDS = 10**6, 64, 256, 20
+MILLION_N, MILLION_C, MILLION_SLOTS, MILLION_ROUNDS = 10**6, 64, 256, 8
 MILLION_POOL_BYTES = 416_940_352
 # the served models: SERVE_B prompts of SERVE_PROMPT tokens, SERVE_NEW
 # greedy tokens; granite-3-8b's depth cut to GRANITE_LAYERS
-SERVE_B, SERVE_PROMPT, SERVE_NEW, GRANITE_LAYERS = 4, 2048, 32, 4
+SERVE_B, SERVE_PROMPT, SERVE_NEW, GRANITE_LAYERS = 4, 2048, 16, 4
 # card vs CPU at ZOO_CHECK_S tokens; decode vs prefill over DVP_PROMPT
 # prompt tokens and DVP_STEPS decode steps (2176 = 17 chunks of 128)
 ZOO_CHECK_S, DVP_PROMPT, DVP_STEPS = 512, 2048, 128
@@ -2550,17 +2565,17 @@ def mesh_snapshot_runs(params0, problem, mesh, smi) -> tuple[list, int]:
 
 # the surface checks: rounds, scenario seed, and the device count of the
 # large Bernoulli check
-SCEN_ROUNDS, SCEN_SEED, SCEN_BIG_N = 64, 7, 10**6
+SCEN_ROUNDS, SCEN_SEED, SCEN_BIG_N = 32, 7, 10**6
 # the paths' availability: Gilbert–Elliott bursts at rate 0.5 and mean
 # off-burst 8 rounds for the dense runs (bursts 2, 4 and 8 in the fleet),
 # the registry's cluster outages for the cohort runs (|A| up to N, so
 # they pin SCAN_CAP)
 SCEN_GE, SCEN_BURSTS = {"rate": 0.5, "burst": 8.0}, (2.0, 4.0, 8.0)
 # the cohort runs under cluster outages take the host surface, as the
-# participation paths of steps 4-5 and 10-11 do: a shorter run holds their
-# kernels' counts and the scan (chunks of SCAN_CHUNK; the middle chunk
-# timed) and keeps the phase short
-SCEN_COHORT_ROUNDS = 30
+# participation paths of steps 4-5 and 10-11 do: SCEN_COHORT_ROUNDS rounds
+# hold their kernels' counts and the scan (chunks of SCAN_CHUNK; the middle
+# two timed)
+SCEN_COHORT_ROUNDS = 20
 
 
 class TimedBatcher:
@@ -2935,7 +2950,13 @@ def scenario_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
 # over the registry's cluster outages and the tiered latency fleet
 SIM_CONFIG = {"epoch_s": 4.0, "server_overhead_s": 0.05,
               "max_lookahead_epochs": 64}
-SIM_FLEET_ROUNDS = 50
+# the simulator's runs take SIM_ROUNDS rounds (a compiled run's middle
+# chunks need three of SCAN_CHUNK), its fleet SIM_FLEET_ROUNDS, the
+# FedBuffAvg and bank runs SIM_SHORT_ROUNDS (the banks' clocks are held to
+# the first rounds of MIFA(array)'s under Impatient; their medians read
+# rounds 10 on)
+SIM_ROUNDS = SIM_FLEET_ROUNDS = 20
+SIM_SHORT_ROUNDS = 15
 # the host bank's timed cohort round: N clients of paper_mlp's d = 50,698
 # f32 parameters, 2,027,920,000 B of rows in pinned memory
 SIM_HOST_N, SIM_HOST_C = 10**4, 64
@@ -2993,7 +3014,7 @@ def sim_equal(what, policy, heap, comp) -> str:
     for a, b in zip(eng.round_log, drv.round_log):
         check(all(a[k] == b[k] for k in keys),
               f"sim {what}: round {a['round']} heap {a} compiled {b}")
-    check(len(eng.round_log) == len(drv.round_log) == ROUNDS,
+    check(len(eng.round_log) == len(drv.round_log) == SIM_ROUNDS,
           f"sim {what}: {len(drv.round_log)} rounds")
     check(np.array_equal(np.stack(eng.applied_log),
                          np.stack(drv.applied_log)),
@@ -3085,18 +3106,18 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
         runs, counts = {}, {}
         for engine in ("heap", "compiled"):
             reset_counts()
-            runs[engine] = sim_run(MIFA(), policy, problem, params0, ROUNDS,
-                                   engine)
+            runs[engine] = sim_run(MIFA(), policy, problem, params0,
+                                   SIM_ROUNDS, engine)
             counts[engine] = read_counts()
             expect_launches(f"sim MIFA(array) {name} {engine}",
                             counts[engine], "mifa_aggregate",
-                            ROUNDS + (engine == "compiled"))
+                            SIM_ROUNDS + (engine == "compiled"))
         if name == "impatient":
             launches["mifa_aggregate"] = counts["heap"]["mifa_aggregate"]
         drv = runs["compiled"][0]
         ch = drv.chunks
-        check(ch.replays == {"fill": ch.fills, "body": ROUNDS}
-              and ch.syncs == ROUNDS,
+        check(ch.replays == {"fill": ch.fills, "body": SIM_ROUNDS}
+              and ch.syncs == SIM_ROUNDS,
               f"sim {name}: replays {ch.replays}, fills {ch.fills}, syncs "
               f"{ch.syncs}")
         fills[name] = ch.fills
@@ -3106,14 +3127,15 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
         hist = runs["heap"][1].hist
         seconds[name] = hist.sim_seconds[-1]
         ms[name] = (float(np.median(runs["heap"][2][10:])) * 1e3,
-                    scan_ms(runs["compiled"][2]))
+                    scan_ms(runs["compiled"][2], SIM_ROUNDS))
         comp_runs[name] = runs["compiled"][1]
         rows.append(
-            f"sim MIFA(array) {name}: {ROUNDS} rounds, {seconds[name]:.3f} "
-            f"simulated s, mean applied {np.mean(hist.n_active):.2f}, heap "
-            f"{ms[name][0]:.3f} ms/round (median, rounds 10-{ROUNDS - 2}), "
-            f"compiled {ms[name][1]:.3f} ms/round (rounds {SCAN_CHUNK}-"
-            f"{ROUNDS - SCAN_CHUNK - 1}), host clock; {ch.fills} epoch fills "
+            f"sim MIFA(array) {name}: {SIM_ROUNDS} rounds, "
+            f"{seconds[name]:.3f} simulated s, mean applied "
+            f"{np.mean(hist.n_active):.2f}, heap {ms[name][0]:.3f} ms/round "
+            f"(median, rounds 10-{SIM_ROUNDS - 2}), compiled "
+            f"{ms[name][1]:.3f} ms/round (rounds {SCAN_CHUNK}-"
+            f"{SIM_ROUNDS - SCAN_CHUNK - 1}), host clock; {ch.fills} epoch fills "
             f"(graph (a) replays), {ch.syncs} k0 reads, "
             f"{ch.sync_s / ch.syncs * 1e6:.1f} us each; compiled {verdict}; "
             f"mifa_aggregate heap {counts['heap']['mifa_aggregate']}, "
@@ -3130,7 +3152,7 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
     for engine in ("loop", "scan_strict"):
         reset_counts()
         buf[engine] = run_fl(model=model, algo=FedBuffAvg(), batcher=batcher,
-                             schedule=inv_t(1.0), n_rounds=ROUNDS,
+                             schedule=inv_t(1.0), n_rounds=SIM_SHORT_ROUNDS,
                              weight_decay=1e-3, scenario=scen_cluster(),
                              sim=sim_spec(sim_policies()["buffered"]),
                              params=clone_tree(params0, "cuda"),
@@ -3158,7 +3180,7 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
         reset_counts()
         algo = BankedMIFA(make())
         banks[name] = sim_run(algo, sim_policies()["impatient"], problem,
-                              params0, ROUNDS, "heap")
+                              params0, SIM_SHORT_ROUNDS, "heap")
         counts = read_counts()
         if kernel is None:
             check(not any(counts.values()),
@@ -3168,12 +3190,13 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
                   "sim BankedMIFA(HostBank): rows not pinned")
         else:
             expect_launches(f"sim BankedMIFA({name})", counts, kernel,
-                            ROUNDS)
+                            SIM_SHORT_ROUNDS)
             launches[kernel] = counts[kernel]
         check(banks[name][1].hist.sim_seconds
-              == comp_runs["impatient"].hist.sim_seconds,
+              == comp_runs["impatient"].hist.sim_seconds[:SIM_SHORT_ROUNDS],
               f"sim BankedMIFA({name}): close times differ from MIFA(array)'s")
-        rows.append(f"sim BankedMIFA({name}) impatient, heap: {ROUNDS} "
+        rows.append(f"sim BankedMIFA({name}) impatient, heap: "
+                    f"{SIM_SHORT_ROUNDS} "
                     f"rounds, {np.median(banks[name][2][10:]) * 1e3:.3f} "
                     f"ms/round (median, host clock); launches "
                     f"{nonzero(counts)}")
@@ -3261,7 +3284,7 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
                 f"same masks, close times max rel gap {rel:.2e} (bound "
                 f"1e-6), |dloss| {dloss:.2e} (rtol {DEVICE_RTOL})")
     lap("card vs CPU")
-    rows.append("sim simulated seconds to " + str(ROUNDS) + " rounds: "
+    rows.append("sim simulated seconds to " + str(SIM_ROUNDS) + " rounds: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
     rows.append("sim ms a simulated round (host clock), heap / compiled: "
                 + ", ".join(f"{k} {a:.3f} / {b:.3f}"
@@ -3288,10 +3311,11 @@ DUR_TRACE = {"n": N_CLIENTS, "horizon": 64, "seed": 7, "rate": 0.5,
 DUR_WINDOW = 16
 # the trace and elastic-fleet runs take DUR_ROUNDS rounds on the scan in
 # chunks of DUR_CHUNK (its timing reads the middle two of four chunks); the
-# kill/resume runs DUR_KILL_ROUNDS in chunks of SCAN_CHUNK; the
+# kill/resume runs DUR_KILL_ROUNDS in chunks of DUR_KILL_CHUNK; the
 # million-client bank is snapshotted after DUR_MILLION_ROUNDS rounds (its
 # pool of 2048 rows fills in 4, so pages spill)
 DUR_ROUNDS, DUR_CHUNK, DUR_KILL_ROUNDS, DUR_MILLION_ROUNDS = 20, 5, 30, 6
+DUR_KILL_CHUNK = 10
 # the elastic fleets over the trace: half the capacity at round 0, the rest
 # arriving every 4 rounds, 10% departing at round 16 (|A| <= 55 <=
 # FLEET_CAP)
@@ -3520,8 +3544,8 @@ def gsum_gap(state, rows) -> float:
 
 def kill_resume_phase(params0, problem) -> tuple[dict, list]:
     """Each algorithm for DUR_KILL_ROUNDS rounds on the scan (chunks of
-    SCAN_CHUNK, a snapshot every DUR_EVERY rounds, evals every DUR_EVERY),
-    once
+    DUR_KILL_CHUNK, a snapshot every DUR_EVERY rounds, evals every
+    DUR_EVERY), once
     uninterrupted, once killed after DUR_KILL rounds and resumed from its
     round-20 snapshot: params, history and τ bit-equal. The paged bank's
     final snapshots of both runs are restored into fresh banks and every
@@ -3557,7 +3581,7 @@ def kill_resume_phase(params0, problem) -> tuple[dict, list]:
                          n_rounds=n_rounds, weight_decay=1e-3,
                          params=clone_tree(params0, "cuda"),
                          eval_fn=eval_fn, eval_every=DUR_EVERY,
-                         engine="scan_strict", scan_chunk=SCAN_CHUNK,
+                         engine="scan_strict", scan_chunk=DUR_KILL_CHUNK,
                          cohort_capacity=cap, device="cuda",
                          checkpoint=CheckpointSpec(every=DUR_EVERY,
                                                    dir=str(d),
@@ -3611,7 +3635,7 @@ def kill_resume_phase(params0, problem) -> tuple[dict, list]:
                      f"max |err| {gsum_gap(state, got):.3e}")
         rows.append(
             f"durable kill/resume {name}: {DUR_KILL_ROUNDS} rounds on the "
-            f"scan (chunks of {SCAN_CHUNK}, snapshots and evals every "
+            f"scan (chunks of {DUR_KILL_CHUNK}, snapshots and evals every "
             f"{DUR_EVERY}), killed after {DUR_KILL}, resumed from round "
             f"{2 * DUR_EVERY}: params, history, evals and tau bit-equal to "
             f"the uninterrupted run; snapshot {nbytes} B, save_run "
@@ -5104,10 +5128,11 @@ def stub_server_check(label: str, model, cfg, params, G, shape) -> str:
     of seed STUB_TRAIN_ROUNDS, mask STUB_MASKS[1]: a client inactive, its
     stored row kept), in the two halves `make_train_step` runs:
     `client_updates`, then `mifa_aggregate_tree` (the kernel), held against
-    the plain version leaf by leaf (`check_server_step`). G as it stood
-    before stays on the host (f32, N x the params: 10.1 GB for hubert at
-    full depth), each leaf brought back to the card for its check. Not
-    counted: the counts were read before it."""
+    the plain version leaf by leaf (`check_server_step`). A copy of G as
+    it stood before stays on the card (f32, N x the params: 10.1 GB for
+    hubert at full depth, beside its 42 GB peak in training): a copy
+    through the host took most of the check's 13 s. Not counted: the
+    counts were read before it."""
     from repro_torch.core.local_update import client_updates
     from repro_torch.kernels.ops import mifa_aggregate_tree
     from repro_torch.optim import inv_t
@@ -5120,13 +5145,13 @@ def stub_server_check(label: str, model, cfg, params, G, shape) -> str:
     eta = inv_t(TRAIN_ETA0)(r + 1)
     eta_t = torch.tensor(eta, dtype=torch.float32, device="cuda")
     before = []
-    tree_map(lambda g: before.append(g.cpu()), G)
+    tree_map(lambda g: before.append(g.clone()), G)
     updates, _ = client_updates(model.loss_fn, params, batch, eta_t, K=k)
     del batch
     G, w_new = mifa_aggregate_tree(G, updates, active, params, eta_t)
     torch.cuda.synchronize()
     worst, elements = check_server_step(
-        f"train {label} server step", lambda j, w: before[j].cuda(), G,
+        f"train {label} server step", lambda j, w: before[j], G,
         updates, active, params, w_new, eta)
     return (f"  server step vs plain: a round from the trained state "
             f"(batch of seed {r}, mask {list(map(int, STUB_MASKS[1]))}, "
@@ -5791,6 +5816,7 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     from repro_torch.sharding import rules
     from repro_torch.sharding.params import take_tree, whole, whole_tree
     from repro_torch.tree import tree_leaves
+    t_run = time.perf_counter()
     rank = dist.get_rank()
     cfg = get_config(arch).replace(n_layers=n_layers, param_dtype=dtype,
                                    compute_dtype=dtype)
@@ -5804,7 +5830,7 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     batch, _ = prompt_batch(cfg, SERVE_B, SERVE_PROMPT,
                             torch.Generator().manual_seed(0), "cuda")
     params = take_tree(model.init(0, device="cuda"), split.param_specs,
-                       mesh, serving=True)
+                       mesh, split=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5816,14 +5842,14 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     prefill_s = time.perf_counter() - t0
     prefill_counts = read_counts()
     reset_counts()
-    outs, toks, decode_s = [whole(logits, lspec, mesh, serving=True)], [], 0.0
+    outs, toks, decode_s = [whole(logits, lspec, mesh, split=True)], [], 0.0
     for i in range(SERVE_NEW):
         toks.append(outs[-1].argmax(-1, keepdim=True).to(torch.int32))
         t0 = time.perf_counter()
         logits, cache = step_d(params, cache, toks[-1], SERVE_PROMPT + i)
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
-        outs.append(whole(logits, lspec, mesh, serving=True))
+        outs.append(whole(logits, lspec, mesh, split=True))
     decode_counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     mine = {"peak": peak, "prefill_counts": prefill_counts,
@@ -5838,7 +5864,7 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     got_cache = [t.cpu() for t in tree_leaves(
-        whole_tree(cache, split.cache_specs, mesh, serving=True))]
+        whole_tree(cache, split.cache_specs, mesh, split=True))]
     layout = {i: (g.cache, g.heads, g.kv_cols, g.mlp)
               for i, g in split.segments.items()}
     del params, cache, logits
@@ -5850,6 +5876,7 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
         out.update(split_reference(model, batch, toks, outs, got_cache,
                                    dtype, C))
     dist.barrier()
+    out["wall_s"] = time.perf_counter() - t_run
     return out
 
 
@@ -5916,6 +5943,245 @@ def split_reference(model, batch, toks, outs, got_cache, dtype, C) -> dict:
             "tokens": len(toks) * SERVE_B}
 
 
+# split products in training: the MIFA train step on each rank's blocks in
+# the same world, SPLIT_TRAIN_N clients of TRAIN_MB x TRAIN_SEQ tokens,
+# SPLIT_TRAIN_ROUNDS rounds under SPLIT_TRAIN_MASKS. (label, arch, layers,
+# dtype, sequential), each at full width on the 1x2 mesh with remat on (the
+# configs' default): granite-3-8b's vmap step in bf16 (its head whole:
+# vocab 49155 is odd) and in f32 at 1 layer; gemma3-4b's (vocab 262144
+# split: the vocab-split cross-entropy at hd 256); granite's sequential
+# step under its update constraint through the planner (K = 1)
+SPLIT_TRAIN_N, SPLIT_TRAIN_K, SPLIT_TRAIN_ROUNDS = 2, 2, 2
+SPLIT_TRAIN_MASKS = ((True, False), (True, True))
+SPLIT_TRAIN_RUNS = (
+    ("granite-3-8b", "granite_3_8b", 1, "float32", False),
+    ("granite-3-8b", "granite_3_8b", 2, "bfloat16", False),
+    ("gemma3-4b", "gemma3_4b", 2, "bfloat16", False),
+    ("granite-3-8b sequential", "granite_3_8b", 2, "bfloat16", True))
+
+
+def split_train_cfg(arch: str, n_layers: int, dtype: str, sequential: bool):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(
+        n_layers=n_layers, param_dtype=dtype, compute_dtype=dtype,
+        memory_dtype=dtype, fl_clients=SPLIT_TRAIN_N,
+        fl_local_steps=1 if sequential else SPLIT_TRAIN_K,
+        sequential_clients=sequential, inner_update_constraint=sequential)
+
+
+def split_train_inputs(cfg) -> list:
+    """Each round's (batch on the card, active mask, eta): TokenBatcher
+    streams, SPLIT_TRAIN_MASKS, inv_t(TRAIN_ETA0)."""
+    from repro_torch.data import TokenBatcher
+    from repro_torch.optim import inv_t
+    batcher = TokenBatcher(n_clients=SPLIT_TRAIN_N, vocab=cfg.vocab_size,
+                           seq_len=TRAIN_SEQ, batch_size=TRAIN_MB,
+                           k_steps=cfg.fl_local_steps, seed=0)
+    return [({"tokens": torch.from_numpy(
+        batcher.sample_round(t)["tokens"]).cuda()},
+        torch.tensor(SPLIT_TRAIN_MASKS[t], device="cuda"),
+        inv_t(TRAIN_ETA0)(t + 1)) for t in range(SPLIT_TRAIN_ROUNDS)]
+
+
+def split_train_zeros(cfg, specs, mesh) -> dict:
+    """Zeros of G in the memory dtype: this rank's blocks under `specs`
+    (whole where `mesh` is None)."""
+    from repro_torch.launch.specs import param_shapes
+    from repro_torch.models.model import DTYPES
+    from repro_torch.sharding.params import block_shape
+    from repro_torch.tree import tree_map
+
+    def zeros(t, s=None):
+        shape = (SPLIT_TRAIN_N,) + tuple(t.shape)
+        if mesh is not None:
+            shape = block_shape(shape, s, mesh, "cuda", split=True)
+        return torch.zeros(shape, dtype=DTYPES[cfg.memory_dtype],
+                           device="cuda")
+    return tree_map(zeros, param_shapes(cfg), *([specs] if mesh else []))
+
+
+def split_server_check(label: str, split, params, G, active,
+                       eta) -> tuple[float, int]:
+    """One server step on this rank's blocks as the split vmap step takes
+    it (f32 updates on G's blocks, rounded to G's dtype as the step moves
+    them; the params moved into G's param dims) through
+    `mifa_aggregate_tree`, held against `mifa_aggregate_ref` on the same
+    blocks (`check_server_step`). The updates are drawn from a seed, not
+    trained: a local update and its move would take another round."""
+    import torch.distributed as dist
+    from repro_torch.kernels.ops import mifa_aggregate_tree
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(dist.get_rank() + 11)
+    updates = tree_map(lambda g: torch.randn(
+        g.shape, generator=gen, device="cuda").to(g.dtype).float(), G)
+    w = split.move_tree(tree_map(lambda x: x, params), split.param_specs,
+                        split.step_specs)
+    before: list = []
+    tree_map(lambda g: before.append(g.clone()), G)
+    G, w_new = mifa_aggregate_tree(G, updates, active, w, eta)
+    torch.cuda.synchronize()
+    return check_server_step(label, lambda j, _: before[j], G, updates,
+                             active, w, w_new, eta)
+
+
+def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
+                    sequential: bool, mesh) -> dict:
+    """One rank's part of a split training run: the train step on the
+    mesh (`launch.steps.make_train_step(model, cfg, n, k, mesh=)`; the
+    sequential one planned through `launch.specs.plan_config`), this
+    rank's blocks of the params drawn whole from seed 0 and cut, G zeros
+    on its blocks, SPLIT_TRAIN_ROUNDS rounds, every count set to 0 just
+    before each round and read just after it (`mifa_aggregate` once a
+    round in vmap mode, no kernel in sequential mode); in the bf16 vmap
+    run, one more server step held against its plain version on the same
+    blocks. Then the params and G are gathered whole onto rank 0, every
+    other rank frees its memory, and rank 0 runs the unsplit step alone
+    (`split_train_reference`). Returns this run's numbers (rank 0: every
+    rank's, and the comparison)."""
+    import torch.distributed as dist
+    from repro_torch.launch.specs import plan_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import take_tree, whole_tree
+    from repro_torch.tree import tree_leaves, tree_map
+    t_run = time.perf_counter()
+    rank = dist.get_rank()
+    cfg = split_train_cfg(arch, n_layers, dtype, sequential)
+    model = build_model(cfg)
+    if sequential:
+        step = plan_config(cfg, "train_4k", mesh).fn
+    else:
+        step = make_train_step(model, cfg, SPLIT_TRAIN_N,
+                               cfg.fl_local_steps, mesh=mesh)
+    split = getattr(step, "split", None)
+    check(split is not None, f"split train {label}: the step is not split")
+    inputs = split_train_inputs(cfg)
+    params = take_tree(model.init(0, device="cuda"), split.param_specs,
+                       mesh, split=True)
+    G = split_train_zeros(cfg, split.state_specs, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts, ms, moved, losses = [], [], [], []
+    for batch, active, eta in inputs:
+        before = dict(split.axis.moved)
+        reset_counts()
+        t0 = time.perf_counter()
+        params, G, m = step(params, G, batch, active, eta)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        moved.append({k: split.axis.moved[k] - before[k] for k in before})
+    peak = torch.cuda.max_memory_allocated()
+    mine = {"peak": peak, "counts": counts, "ms": ms, "moved": moved,
+            "losses": losses,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "g_bytes": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(G))}
+    if not sequential and dtype == "bfloat16" and arch == "granite_3_8b":
+        # on a copy of G: the kernel writes G's rows in place
+        _, active, eta = inputs[-1]
+        mine["server_check"] = split_server_check(
+            f"split train {label} server step", split, params,
+            tree_map(torch.clone, G), active, eta)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    got_p = whole_tree(params, split.param_specs, mesh, split=True)
+    got_G = whole_tree(G, split.state_specs, mesh, split=True)
+    del params, G
+    if rank != 0:
+        del got_p, got_G
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
+                    f" {dtype}", "ranks": ranks,
+           "kv": {i: g.cache for i, g in split.segments.items()},
+           "head_split": split.head, "embed_split": split.embed,
+           "sequential": sequential}
+    if rank == 0:
+        out.update(split_train_reference(cfg, model, inputs, got_p, got_G,
+                                         losses, dtype))
+        del got_p, got_G
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["wall_s"] = time.perf_counter() - t_run
+    return out
+
+
+def unsplit_train_rounds(cfg, model, inputs) -> dict:
+    """The unsplit train step of `cfg` over `inputs` from the split run's
+    start (params from seed 0, G zeros): its params, G, losses, counts
+    and ms a round, and its peak above what was allocated before it."""
+    from repro_torch.launch.steps import make_train_step
+    step = make_train_step(model, cfg, SPLIT_TRAIN_N, cfg.fl_local_steps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device="cuda")
+    G = split_train_zeros(cfg, None, None)
+    counts, ms, losses = [], [], []
+    for batch, active, eta in inputs:
+        reset_counts()
+        t0 = time.perf_counter()
+        params, G, m = step(params, G, batch, active, eta)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+    return {"params": params, "G": G, "losses": losses, "counts": counts,
+            "ms": ms, "peak": torch.cuda.max_memory_allocated() - base}
+
+
+def split_train_reference(cfg, model, inputs, got_p, got_G, losses,
+                          dtype) -> dict:
+    """Rank 0's unsplit train step on the split run's inputs, from the
+    same params and G, against the split run gathered whole, leaf by leaf
+    and the losses: f32 runs within the f32 training bound (`model_gap`);
+    bf16 runs within SPLIT_TOL's bf16 bound, or, for a leaf where the
+    unsplit step's other mode (vmap against sequential: the same round
+    summed in another order) is itself beyond that bound, within twice
+    that mode's gap (the bf16 noise floor, printed). Its peak counts its
+    own params and G but not the split run's outputs it holds (nor the
+    init's generator state)."""
+    from repro_torch.tree import tree_leaves
+    ref = unsplit_train_rounds(cfg, model, inputs)
+    rtol, atol = SPLIT_TOL[dtype]
+
+    def gap(a, b) -> float:
+        if dtype == "float32":
+            return model_gap(a, b)
+        a, b = a.float(), b.float()
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    def gaps(p, G, ls) -> list:
+        return [gap(a, b) for a, b in zip(
+            tree_leaves(p) + tree_leaves(G),
+            tree_leaves(ref["params"]) + tree_leaves(ref["G"]))] + [
+            gap(torch.tensor(ls), torch.tensor(ref["losses"]))]
+    got = gaps(got_p, got_G, losses)
+    out = {"leaf_gap": max(got[:-1]), "loss_gap": got[-1],
+           "unsplit_losses": ref["losses"], "unsplit_peak": ref["peak"],
+           "unsplit_counts": ref["counts"], "unsplit_ms": ref["ms"]}
+    check(all(np.isfinite(losses)), f"split train: losses {losses}")
+    over = [j for j, g in enumerate(got) if g > 1]
+    if over and dtype != "float32":
+        other = cfg.replace(sequential_clients=not cfg.sequential_clients,
+                            inner_update_constraint=False)
+        o = unsplit_train_rounds(other, model.__class__(other), inputs)
+        noise = gaps(o["params"], o["G"], o["losses"])
+        del o
+        out["noise_gap"] = max(noise)
+        out["over"] = [(j, got[j], noise[j]) for j in over]
+        over = [j for j in over if got[j] > 2 * noise[j]]
+    check(not over, f"split train vs unsplit: loss {got[-1]:.3e}, params "
+                    f"and G leaves {[f'{x:.3e}' for x in got[:-1]]} of the "
+                    f"bound; beyond it {out.get('over', over)}")
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def split_rank(rank: int, out_dir: str) -> None:
     """A rank of the split phase's world: two processes on cuda:0 that
     meet on a FileStore and talk gloo (which carries CUDA tensors through
@@ -5941,12 +6207,74 @@ def split_rank(rank: int, out_dir: str) -> None:
         timeout=timedelta(seconds=SPLIT_TIMEOUT_S))
     try:
         mesh = make_host_mesh(1, SPLIT_RANKS, device="cuda")
-        runs = [split_run(*run, mesh) for run in SPLIT_RUNS]
+        runs = {"serve": [split_run(*run, mesh) for run in SPLIT_RUNS],
+                "train": [split_train_run(*run, mesh)
+                          for run in SPLIT_TRAIN_RUNS]}
         if rank == 0:
             with open(os.path.join(out_dir, "split.json"), "w") as f:
                 json.dump(runs, f)
     finally:
         dist.destroy_process_group()
+
+
+def split_noise_note(run: dict) -> str:
+    """The leaves beyond the bf16 bound and the unsplit step's own other
+    mode's gap on each (`split_train_reference`), or nothing."""
+    if "over" not in run:
+        return ""
+    return (" (beyond it, (leaf, split, the unsplit step's other mode "
+            "against it): " + ", ".join(
+                f"({j}, {g:.3f}, {n:.3f})" for j, g, n in run["over"])
+            + ")")
+
+
+def split_train_rows(runs: list, smi: str) -> tuple[dict, list, float]:
+    """The split training runs' checks and rows: on every rank and in the
+    unsplit run, `mifa_aggregate` exactly once a round in vmap mode and no
+    kernel in sequential mode. Returns (each run's launches a rank over
+    its rounds, rows, the server step check's max |dw|)."""
+    launches, rows, err = {}, [], 0.0
+    for run, (_, _, _, _, sequential) in zip(runs, SPLIT_TRAIN_RUNS):
+        label = run["label"]
+        want = 0 if sequential else 1
+        for c in [c for r in run["ranks"] for c in r["counts"]] + run[
+                "unsplit_counts"]:
+            others = {k: v for k, v in c.items() if k != "mifa_aggregate"}
+            check(c["mifa_aggregate"] == want and not any(others.values()),
+                  f"split train {label}: launches a round {c}, expected "
+                  f"mifa_aggregate {want} and nothing else")
+        launches[label] = [sum(c["mifa_aggregate"] for c in r["counts"])
+                           for r in run["ranks"]]
+        r0 = run["ranks"][0]
+        kv = sorted(set(run["kv"].values()))
+        peaks = ", ".join(f"rank {i} {r['peak']} B (params "
+                          f"{r['param_bytes']} B, G {r['g_bytes']} B)"
+                          for i, r in enumerate(run["ranks"]))
+        rows += [
+            f"train {label} on 1x{SPLIT_RANKS}, "
+            f"{'sequential' if sequential else 'vmap'} (kv {kv}, head "
+            f"{'vocab-split' if run['head_split'] else 'whole'}): losses "
+            f"{[round(x, 6) for x in r0['losses']]}, unsplit "
+            f"{[round(x, 6) for x in run['unsplit_losses']]}; params and G "
+            f"vs unsplit {run['leaf_gap']:.3f} of the bound, loss "
+            f"{run['loss_gap']:.3f}{split_noise_note(run)}; mifa_aggregate "
+            f"launches per rank over {SPLIT_TRAIN_ROUNDS} rounds "
+            f"{launches[label]}",
+            f"train {label} peak allocation: split {peaks}; unsplit "
+            f"{run['unsplit_peak']} B; {smi}",
+            f"train {label} bytes rank 0 moved a round: {r0['moved']}",
+            f"train {label} host-staged through gloo (not a speed figure): "
+            f"ms a round {[round(x, 3) for x in r0['ms']]}, unsplit "
+            f"{[round(x, 3) for x in run['unsplit_ms']]}; the run with its "
+            f"checks {run['wall_s']:.1f} s (host clock); {smi}"]
+        if "server_check" in r0:
+            worst, elements = r0["server_check"]
+            err = max(err, worst)
+            rows.append(f"train {label} server step on each rank's blocks "
+                        f"of G: mifa_aggregate against mifa_aggregate_ref, "
+                        f"{elements} elements of G bit-equal on rank 0, "
+                        f"max |dw| {worst:.3e}")
+    return launches, rows, err
 
 
 def split_phase(gen, smi: str) -> tuple[dict, list]:
@@ -5990,6 +6318,9 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
                 proc.kill()
     runs = json.loads((SPLIT_DIR / "split.json").read_text())
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    train_launches, train_rows, server_err = split_train_rows(
+        runs["train"], smi)
+    runs = runs["serve"]
     launches = {}
     for run, (_, _, n_layers, _) in zip(runs, SPLIT_RUNS):
         label = run["label"]
@@ -6027,23 +6358,30 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
             f"prefill {r0['prefill_ms']:.3f} ms, decode "
             f"{r0['decode_ms']:.3f} ms/step; unsplit prefill "
             f"{run['unsplit_prefill_ms']:.3f} ms, decode "
-            f"{run['unsplit_decode_ms']:.3f} ms/step; {smi}"]
+            f"{run['unsplit_decode_ms']:.3f} ms/step; the run with its "
+            f"checks {run['wall_s']:.1f} s (host clock); {smi}"]
+    rows += train_rows
     rows.append(f"phase {time.perf_counter() - t_start:.1f} s")
-    return ({"err": err, "timing": timing, "launches": launches},
+    return ({"err": err, "timing": timing, "launches": launches,
+             "train_launches": train_launches, "server_err": server_err},
             [f"split {r}" for r in rows])
 
 
 # a run still going after this many seconds prints every thread's stack
-# to stderr and exits (the whole script takes 550-710 s), so a stall shows
-# where and fails inside the 1200 s limit
+# to stderr and exits (the whole script took 580 s on an H100 host in its
+# last full run, and hosts have run phases up to 1.7x slower), so a stall
+# shows where and fails inside the 1200 s limit
 WATCHDOG_S = 1100
 T_START = time.perf_counter()
 
 
 def phase_start(phase: str) -> None:
     """Print, as it happens, the seconds since the script began at which
-    `phase` starts."""
-    print(f"start {phase} at {time.perf_counter() - T_START:.1f} s")
+    `phase` starts, to stdout and to stderr (where a run that is cut keeps
+    only the end of stdout, stderr still shows how far each phase got)."""
+    line = f"start {phase} at {time.perf_counter() - T_START:.1f} s"
+    print(line)
+    print(line, file=sys.stderr, flush=True)
 
 
 def main() -> int:
@@ -6143,12 +6481,14 @@ def main() -> int:
     launches["paged_bank_gather"] = (evict_counts["paged_bank_gather"]
                                      + million_counts["paged_bank_gather"])
     problem_cpu = paper_problem(device="cpu")
+    phase_start("card vs CPU")
     card_vs_cpu(params0, problem, problem_cpu)
     phase_start("fig2 phase")
     fleet_launches, fleet_runs, rows = fig2_phase(problem)
     launches.update(fleet_launches)
     for row in rows:
         print(row)
+    phase_start("fleet card vs CPU")
     print(fleet_card_vs_cpu(problem, problem_cpu))
 
     # the scan engine: the paper paths, eviction, int8 memory and the
@@ -6156,18 +6496,22 @@ def main() -> int:
     phase_start("scan phases")
     scan_launches, rows, scan_runs = scan_phase(params0, problem, main_runs,
                                                 loop_ms)
+    phase_start("eviction scan")
     evict_scan_counts, more = eviction_scan_phase()
     scan_launches["paged_bank_gather"] = evict_scan_counts[
         "paged_bank_gather"]
+    phase_start("fleet scan")
     fleet_scan_launches, fleet_rows, fleet_scan_runs = fleet_scan_phase(
         problem, fleet_runs)
     scan_launches.update(fleet_scan_launches)
     # meshes: the scan runs again on a 1x1 mesh, bit-equal
+    phase_start("mesh phase")
     mesh_launches, mesh_rows = mesh_phase(params0, problem, scan_runs,
                                           fleet_scan_runs, smi)
     mesh_ckpt_launches = mesh_launches.pop("checkpoint")
     fleet_rows += mesh_rows
     del scan_runs, fleet_scan_runs
+    phase_start("int8 and profiled scans")
     for row in (rows + more + int8_phase(params0, problem,
                                          main_runs["mifa_array"])
                 + profiled_scan(params0, problem) + fleet_rows):
@@ -6190,6 +6534,7 @@ def main() -> int:
     # the loop after all the captures: the main path's MIFA(array) again,
     # bit-equal to its first run
     from repro_torch.core import MIFA
+    phase_start("loop after the scan phases")
     reset_counts()
     again = run_path("mifa_array", MIFA(), problem, params0, ROUNDS, "cuda",
                      ROUNDS)[:2]
@@ -6266,6 +6611,7 @@ def main() -> int:
         print(row)
     zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
                                       split["err"])
+    mifa_err = max(mifa_err, split["server_err"])
 
     # which run each count comes from: no path's rounds read bank rows, so
     # the gather kernel's launches are those of PagedDeviceBank.gather in
@@ -6328,13 +6674,14 @@ def main() -> int:
                                 f"{SCEN_COHORT_ROUNDS} rounds (loop)"}
     # the simulator's heap runs under Impatient, each counted from 0
     sim_from = {
-        "mifa_aggregate": f"simulator MIFA(array) impatient, {ROUNDS} "
-                          "rounds (heap engine; compiled: 51, fleet K=3: "
-                          "153)",
+        "mifa_aggregate": f"simulator MIFA(array) impatient, {SIM_ROUNDS} "
+                          f"rounds (heap engine; compiled: {SIM_ROUNDS + 1}"
+                          f", fleet K=3: {3 * (SIM_FLEET_ROUNDS + 1)})",
         "bank_scatter": f"simulator BankedMIFA(DenseBank) impatient, "
-                        f"{ROUNDS} rounds (heap engine)",
+                        f"{SIM_SHORT_ROUNDS} rounds (heap engine)",
         "paged_bank_scatter": f"simulator BankedMIFA(PagedDeviceBank) "
-                              f"impatient, {ROUNDS} rounds (heap engine)"}
+                              f"impatient, {SIM_SHORT_ROUNDS} rounds (heap "
+                              "engine)"}
     entries = []
     for name, src, tpu, err in (
             ("mifa_aggregate", "mifa_aggregate.cu",
@@ -6374,7 +6721,15 @@ def main() -> int:
                 placed_step_launches_from=(
                     f"granite-3-8b train_4k plan's vmap step through "
                     f"run_placed, {PLACED_LAYERS} layers at full width, "
-                    f"N={PLACED_N}, 1x1 mesh, one call"))
+                    f"N={PLACED_N}, 1x1 mesh, one call"),
+                # the split phase's training runs on a 1x2 mesh, each
+                # round counted from 0 just before it on each rank
+                split_train_launches=split["train_launches"],
+                split_train_launches_from=(
+                    f"split train step on each of {SPLIT_RANKS} ranks, "
+                    f"N={SPLIT_TRAIN_N}, {SPLIT_TRAIN_ROUNDS} rounds, the "
+                    "server step on each rank's blocks of G, one launch a "
+                    "round in vmap mode and none in sequential mode"))
         if name in scen_launches:
             scan.update(scenario_launches=scen_launches[name],
                         scenario_launches_from=scen_from[name])

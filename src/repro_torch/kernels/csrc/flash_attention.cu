@@ -37,6 +37,15 @@
 //     has 2 stages, each completed by an mbarrier's transaction count; the
 //     second warpgroup done with a stage refills it (a named barrier per
 //     warpgroup and a shared count), so the two warpgroups run decoupled.
+//     Each warpgroup waits for every tile, also one it skips: the count
+//     names the second arrival only while no warpgroup arrives for tile
+//     j + 2 before both have arrived for tile j. A warpgroup that skipped
+//     the wait could run ahead (the first warpgroup skips a causal block's
+//     last tile), take the other's arrival for tile j - 2 as its own second
+//     one, and leave tile j unloaded: the other warpgroup then waited for
+//     it forever, an intermittent hang. `scripts/flash_ring_probe.py`
+//     builds the kernel with FLASH_RING_PROBE, which delays the second
+//     warpgroup and bounds every wait, to show that no wait goes unmet.
 //   * Shared tiles are stored as 64-column atoms of 128-byte rows with the
 //     128-byte swizzle the TMA writes and wgmma reads, free of bank
 //     conflicts.
@@ -138,13 +147,36 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(bar), "r"(bytes) : "memory");
 }
+#ifdef FLASH_RING_PROBE
+// the probe build (scripts/flash_ring_probe.py): a wait gives up after
+// 2^20 tries and counts itself here, where the production kernel would
+// wait on
+__device__ unsigned flash_probe_unmet;
+#endif
+
 // wait for the completion of phase `parity` (0, 1, 0, ...) of the barrier
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+#ifdef FLASH_RING_PROBE
+  for (long long i = 0;; ++i) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+    if (ok) return;
+    if (i == (1ll << 20)) {
+      atomicAdd(&flash_probe_unmet, 1u);
+      return;
+    }
+  }
+#else
   asm volatile(
       "{\n.reg .pred P1;\nWAIT:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
       "@!P1 bra WAIT;\n}\n"
       :: "r"(bar), "r"(parity) : "memory");
+#endif
 }
 // one box of a 4-d tensor map (coordinates innermost first) into shared
 // memory; elements outside the tensor arrive as zeros
@@ -404,10 +436,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   mbar_wait(qbar, 0);
   for (int j = 0; j < ntiles; ++j) {
     const int k0 = (j0 + j) * BK;
+    // tile j is in; waited for also where skipped, so that no warpgroup
+    // arrives for tile j + 2 before both have for tile j (the header)
+    mbar_wait(bars + 8 * (j % NSTAGE), (j / NSTAGE) & 1);
     // else wholly above the warpgroup's rows or below its top row's window
     if ((!causal || k0 <= wq0 + 63) &&
         (!WIN || k0 + BK > wq0 - window + 1)) {
-      mbar_wait(bars + 8 * (j % NSTAGE), (j / NSTAGE) & 1);  // tile j is in
       const uint32_t kst = Ks + (j % NSTAGE) * KBYTES;
       const uint32_t vst = Vs + (j % NSTAGE) * VBYTES;
 
@@ -490,6 +524,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // the second warpgroup done with tile j refills its stage
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + warp / 4) : "memory");
+#ifdef FLASH_RING_PROBE
+    // the second warpgroup arrives late: the first runs as far ahead as
+    // the waits let it
+    if (tid == 128) __nanosleep(20000);
+#endif
     if (tid % 128 == 0) {
       __threadfence_block();
       if ((atomicAdd(done + j % NSTAGE, 1) & 1) && j + NSTAGE < ntiles)
@@ -795,3 +834,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 #undef F32
   return int(cudaErrorInvalidValue);
 }
+
+#ifdef FLASH_RING_PROBE
+// the probe build's count of waits that gave up: read, then set to 0
+extern "C" int flash_probe_unmet_take(unsigned* out) {
+  const unsigned zero = 0;
+  cudaError_t e = cudaMemcpyFromSymbol(out, flash_probe_unmet,
+                                       sizeof(unsigned));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(flash_probe_unmet, &zero, sizeof(unsigned));
+  return int(e);
+}
+#endif

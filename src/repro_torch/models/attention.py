@@ -55,7 +55,7 @@ def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
 
 def gqa_project(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 rope_theta: float, n_heads: int, n_kv: int, head_dim: int,
-                *, kv_gather=None):
+                *, kv_gather=None, x_kv: torch.Tensor | None = None):
     """x (B,S,d) -> q (B,S,H,hd), k, v (B,S,KV,hd) with rope applied to
     q and k.
 
@@ -64,11 +64,13 @@ def gqa_project(params: dict, x: torch.Tensor, positions: torch.Tensor,
     from their widths (H/M and KV/M, or H and KV where a block is whole);
     `kv_gather(t)` (B,S,cols) -> (B,S,KV·hd) gathers k's and v's columns
     whole before they are cut into heads (their blocks may split a
-    head)."""
+    head), and `x_kv` (default `x`) is k's and v's input where it differs
+    from q's (the training split's, whose collectives differ)."""
     B, S, _ = x.shape
+    x_kv = x if x_kv is None else x_kv
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = x_kv @ params["wk"]
+    v = x_kv @ params["wv"]
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.remat import checkpoint
+from repro_torch.sharding.tensor_parallel import to_model
 
 
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
@@ -113,9 +114,70 @@ def head_init(gen: torch.Generator, d: int, vocab: int, dtype: torch.dtype
 # Losses
 # --------------------------------------------------------------------------- #
 
+class _VocabNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] over a vocab split across an axis's
+    ranks, each holding its block of the logits (module function
+    `vocab_split_nll`). Returns (nll, lse), lse carrying no gradient."""
+
+    @staticmethod
+    def forward(logits, labels, axis):
+        vb = logits.shape[-1]
+        # the shift carries no gradient: lse's own backward is softmax
+        m = axis.max(logits.amax(-1))
+        lse = axis.sum((logits - m.unsqueeze(-1)).exp().sum(-1)).log() + m
+        idx = labels.long() - axis.rank * vb
+        mine = (idx >= 0) & (idx < vb)
+        gold = torch.gather(logits, -1, idx.clamp(0, vb - 1).unsqueeze(-1)
+                            ).squeeze(-1)
+        gold = axis.sum(torch.where(mine, gold, torch.zeros_like(gold)))
+        return lse - gold, lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels, ctx.axis = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(logits, labels, output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        logits, labels, lse = ctx.saved_tensors
+        vb = logits.shape[-1]
+        g = g.unsqueeze(-1)
+        # softmax minus the one-hot, times the cotangent: g·p, and -g added
+        # at the label where this rank's block holds it
+        grad = g * (logits - lse.unsqueeze(-1)).exp()
+        hit = (torch.arange(vb, device=logits.device)
+               == (labels.long() - ctx.axis.rank * vb).unsqueeze(-1))
+        return torch.where(hit, grad - g, grad), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, logits, labels, axis):
+        # the forward takes any leading dims: the batch dim goes first
+        def first(x, d):
+            return (x.movedim(d, 0) if d is not None
+                    else x.expand((info.batch_size,) + tuple(x.shape)))
+        out = _VocabNLL.forward(first(logits, in_dims[0]),
+                                first(labels, in_dims[1]), axis)
+        return out, (0, 0)
+
+
+def vocab_split_nll(logits: torch.Tensor, labels: torch.Tensor, axis
+                    ) -> torch.Tensor:
+    """Each position's -log softmax(logits)[label] (f32) where `logits`
+    (..., V/M) f32 is this rank's vocab block of the logits on `axis` (an
+    object with `rank`, `size`, `sum` and `max` over its ranks, as
+    `sharding.tensor_parallel.ModelAxis`): the row max through a max
+    all-reduce (no gradient), the sum of the exp through a sum all-reduce,
+    the gold logit from the rank whose block holds the label, sum-reduced;
+    backward, on the rank's block, softmax minus the one-hot. On an axis of
+    one rank it is `logsumexp - gather` as the unsplit losses take it, bit
+    for bit."""
+    return _VocabNLL.apply(logits, labels, axis)[0]
+
+
 def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor | None = None,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, axis=None) -> torch.Tensor:
     """Cross-entropy without materializing the full (B,S,V) logits at once.
 
     Loops over sequence chunks of the reference's size (`chunk`, at most S,
@@ -124,7 +186,9 @@ def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
     `remat.checkpoint`, as the reference's chunk body goes through
     `jax.checkpoint`: the backward pass keeps the chunk's h and the head
     and recomputes its (B, chunk, V) f32 logits, so at most one chunk's
-    logits are alive.
+    logits are alive. With `axis` (`sharding.tensor_parallel.ModelAxis`)
+    `lm_head` is this rank's vocab block: h enters it through
+    `tensor_parallel.to_model` and each chunk takes `vocab_split_nll`.
     """
     B, S, _ = h.shape
     cs = min(chunk, S)
@@ -133,6 +197,8 @@ def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     w = lm_head.to(h.dtype)
+    if axis is not None:
+        h = to_model(h, axis)
     for c0 in range(0, S, cs):
         mm = (torch.ones((B, cs), device=h.device) if mask is None
               else mask[:, c0:c0 + cs].float())
@@ -140,6 +206,9 @@ def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
 
         def chunk_nll(hh, w, ll, mm):
             logits = (hh @ w).float()
+            if axis is not None:
+                return (vocab_split_nll(logits, ll.squeeze(-1), axis)
+                        * mm).sum()
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, ll).squeeze(-1)
             return ((lse - gold) * mm).sum()
@@ -150,12 +219,19 @@ def chunked_lm_loss(h: torch.Tensor, lm_head: torch.Tensor,
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean CE over masked positions. logits (..., V) any float dtype; f32 math."""
+                          mask: torch.Tensor | None = None, axis=None
+                          ) -> torch.Tensor:
+    """Mean CE over masked positions. logits (..., V) any float dtype; f32
+    math. With `axis`, `logits` is this rank's vocab block
+    (`vocab_split_nll`)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
-    nll = lse - gold
+    if axis is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.long().unsqueeze(-1)).squeeze(-1)
+        nll = lse - gold
+    else:
+        nll = vocab_split_nll(logits, labels, axis)
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -31,6 +31,7 @@ from repro_torch.models.layers import (_dense_init, _device_init,
                                        chunked_lm_loss, embed_init,
                                        head_init, rmsnorm, rmsnorm_init,
                                        softmax_cross_entropy)
+from repro_torch.sharding.tensor_parallel import gather_model, to_model
 from repro_torch.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -100,33 +101,41 @@ class Model:
     # ------------------------------------------------------------------ #
     # training loss
     # ------------------------------------------------------------------ #
-    def loss_fn(self, params: dict, batch: dict):
+    def loss_fn(self, params: dict, batch: dict, split=None):
         """(loss, {"loss", "ce", "aux"}): the reference's contract. Text
         models take the shifted-token CE, vision_text models the same over
         the positions after the patches, audio models the CE of every
         position against `labels` (chunked when `cfg.ce_chunk` > 0);
-        tabular models take {'x', 'y'}."""
+        tabular models take {'x', 'y'}. Under `split`
+        (`sharding.tensor_parallel.train_split`) params are this rank's
+        blocks and the loss is replicated on the model axis: the layers run
+        on the rank's blocks and a vocab-split head takes the cross-entropy
+        over the split vocab (`layers.vocab_split_nll`)."""
         cfg = self.cfg
         if cfg.family == "tabular":
             logits = self._tabular_logits(params, batch["x"])
             ce = softmax_cross_entropy(logits, batch["y"])
             return ce, {"loss": ce, "ce": ce, "aux": torch.zeros_like(ce)}
-        x = self._embed_inputs(params, batch)
+        x = self._embed_inputs(params, batch, split)
         positions = torch.arange(x.shape[1], device=x.device)
-        h, aux = transformer.forward(params, x, positions, cfg)
+        h, aux = transformer.forward(params, x, positions, cfg, split)
         h = rmsnorm(params["final_norm"], h)
+        axis = split.axis if split is not None and split.head else None
         if cfg.ce_chunk:
             labels, mask = self._labels_mask(batch)
             ce = chunked_lm_loss(h, params["lm_head"], labels, mask,
-                                 chunk=cfg.ce_chunk)
+                                 chunk=cfg.ce_chunk, axis=axis)
         else:
+            if axis is not None:
+                h = to_model(h, axis)
             logits = h @ params["lm_head"].to(h.dtype)
             if cfg.modality == "audio":
                 ce = softmax_cross_entropy(logits, batch["labels"])
             else:
                 P = cfg.n_patches if cfg.modality == "vision_text" else 0
                 ce = softmax_cross_entropy(logits[:, P:-1],
-                                           batch["tokens"][:, 1:])
+                                           batch["tokens"][:, 1:],
+                                           axis=axis)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -168,17 +177,20 @@ class Model:
     def _embed(self, params: dict, tokens: torch.Tensor, split=None
                ) -> torch.Tensor:
         """Token embeddings (B,S,d) in the compute dtype; under `split`
-        from this rank's d_model block of `embed`, gathered along d."""
+        from this rank's d_model block of `embed`, gathered along d
+        (`tensor_parallel.gather_model`: the rank's slice of the cotangent
+        in training)."""
         x = params["embed"][tokens.long()].to(self.compute_dtype)
         if split is not None and split.embed:
-            x = split.axis.gather(x, -1)
+            x = gather_model(x, -1, split.axis)
         return x
 
     def _embed_inputs(self, params: dict, batch: dict, split=None
                       ) -> torch.Tensor:
         """The model's input (B,S,d) in the compute dtype: token
-        embeddings, after the patches for vision_text; the frames through
-        `frontend_proj` for audio."""
+        embeddings, after the patches for vision_text (which come in
+        replicated under `split`); the frames through `frontend_proj` for
+        audio."""
         cdt = self.compute_dtype
         if self.cfg.modality == "audio":
             return batch["frames"].to(cdt) @ params["frontend_proj"].to(cdt)

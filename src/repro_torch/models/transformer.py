@@ -39,7 +39,9 @@ tree they are given and return it; `prefill` goes through the kernels.
 Split products (`sharding.tensor_parallel`): `prefill` and `decode` take
 a `ServeSplit`, and each GQA layer then runs on this rank's blocks of its
 params and cache (`_gqa_prefill_split`, `_gqa_decode_split`, `_ffn`),
-the activations whole between layers; without one they are unchanged.
+the activations whole between layers; `forward` takes a `TrainSplit`, and
+each layer runs on the rank's blocks through collectives that
+differentiate (`_gqa_train_split`); without one they are unchanged.
 
 Head padding (`cfg.pad_q_heads`, `cfg.pad_kv_heads`, which
 `launch.specs.plan(pad_heads=True)` sets): the training forward and the
@@ -271,8 +273,11 @@ def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig,
     `split` (a `tensor_parallel.GQASplit`) the MLP runs on the rank's
     w1/w3 column and w2 row blocks, its partial output summed."""
     if spec.kind == "shared_attn" or spec.ffn == "mlp":
-        y = mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x))
-        return _radd(x, y if split is None else split.mlp_out(y)), None
+        h = rmsnorm(lp["ln2"], x)
+        if split is None:
+            return _radd(x, mlp_apply(lp["mlp"], h)), None
+        return _radd(x, split.mlp_out(mlp_apply(lp["mlp"],
+                                                split.mlp_in(h)))), None
     if spec.ffn == "moe":
         y, aux = moe_lib.moe_apply(lp["moe"], rmsnorm(lp["ln2"], x),
                                    top_k=cfg.top_k,
@@ -360,6 +365,46 @@ def _gqa_decode_split(p: dict, h: torch.Tensor, pos: int, entry: dict,
     return split.out(_attn_out(ctx[:, :, a:b], p["wo"]))
 
 
+def _gqa_train_split(p: dict, h: torch.Tensor, positions: torch.Tensor,
+                     spec: SegmentSpec, cfg: ArchConfig, split
+                     ) -> torch.Tensor:
+    """A GQA layer's attention output in the training forward on this
+    rank's blocks (`tensor_parallel.GQASplit` of a `TrainSplit`): q of
+    its query heads from `to_model(h)`; k and v of its kv heads where M
+    divides KV, else gathered whole and passed on through `to_model` (the
+    rank's heads read part of them), or, where their columns are whole, k
+    and v of every head from h itself, then through `to_model`; attention
+    of its heads over the kv heads they group on (`kv_for_heads`),
+    `blockwise_attention` as without a split, and the `wo` product summed
+    by `from_model`. Where wq's columns are whole every rank computes the
+    whole layer and nothing is summed."""
+    from repro_torch.sharding.tensor_parallel import gather_model, to_model
+    if not split.heads:
+        q, k, v = _gqa(p, h, positions, cfg)
+        ctx = attn_lib.blockwise_attention(q, k, v, causal=cfg.causal,
+                                           window=spec.window)
+        return _attn_out(ctx, p["attn"]["wo"])
+    ax = split.axis
+    if split.kv_gathered:
+        def kv(t):
+            return to_model(gather_model(t, -1, ax), ax)
+    elif not split.kv_cols:
+        def kv(t):
+            return to_model(t, ax)
+    else:
+        kv = None
+    q, k, v = attn_lib.gqa_project(p["attn"], to_model(h, ax), positions,
+                                   cfg.rope_theta, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim,
+                                   kv_gather=kv,
+                                   x_kv=None if split.kv_cols else h)
+    if kv is not None:
+        k, v = split.kv_for_heads(k, v)
+    ctx = attn_lib.blockwise_attention(q, k, v, causal=cfg.causal,
+                                       window=spec.window)
+    return split.out(_attn_out(ctx, p["attn"]["wo"]))
+
+
 def _layer_prefill(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                    entry: dict, spec: SegmentSpec, cfg: ArchConfig,
                    split=None):
@@ -440,17 +485,19 @@ def _layer_decode(lp: dict, x: torch.Tensor, pos: int, entry: dict,
 
 
 def _checkpointed(layer_fn, lp: dict, x: torch.Tensor, step,
-                  spec: SegmentSpec, cfg: ArchConfig):
-    """layer_fn(lp, x, step, None, spec, cfg) through `remat.checkpoint`:
-    x, `step` (the positions) and lp's leaves are its inputs; `spec` and
-    `cfg` are closed over. Returns (x, aux), aux a 0-d zero without MoE."""
+                  spec: SegmentSpec, cfg: ArchConfig, **kw):
+    """layer_fn(lp, x, step, None, spec, cfg, **kw) through
+    `remat.checkpoint`: x, `step` (the positions) and lp's leaves are its
+    inputs; `spec`, `cfg` and `kw` (a `split=`, which holds no tensor) are
+    closed over, so a split layer's backward issues its collectives again
+    as it recomputes. Returns (x, aux), aux a 0-d zero without MoE."""
     leaves: list = []
     tree_map(leaves.append, lp)
 
     def body(x, step, *leaves):
         it = iter(leaves)
         return layer_fn(tree_map(lambda _: next(it), lp), x, step, None,
-                        spec, cfg)
+                        spec, cfg, **kw)
 
     return checkpoint(body, x, step, *leaves)
 
@@ -461,8 +508,8 @@ def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
     """Every layer in order: layer_fn(lp, x, step, entry, spec, cfg) ->
     (x, aux or None), with `entry` this layer's cache (None without a
     cache); with `remat` (no cache) each layer through `_checkpointed`;
-    under `split` (a `tensor_parallel.ServeSplit`) each layer also takes
-    its segment's `GQASplit` as `split=`. Each layer's params are taken
+    under `split` (a `tensor_parallel.ServeSplit` or `TrainSplit`) each
+    layer also takes its segment's `GQASplit` as `split=`. Each layer's params are taken
     as `tree_index(seg_params, i)`, outside any checkpoint. Returns (x,
     the summed aux, f32)."""
     aux = torch.zeros((), device=x.device)
@@ -478,7 +525,7 @@ def _run(layer_fn, params: dict, x: torch.Tensor, step, cache,
                       for i in range(seg.n_layers)]
         for lp, e in layers:
             if remat:
-                x, a = _checkpointed(layer_fn, lp, x, step, seg, cfg)
+                x, a = _checkpointed(layer_fn, lp, x, step, seg, cfg, **kw)
             else:
                 x, a = layer_fn(lp, x, step, e, seg, cfg, **kw)
             if a is not None:
@@ -506,10 +553,14 @@ def decode(params: dict, x: torch.Tensor, pos: int, cache: dict,
 
 
 def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-               entry: None, spec: SegmentSpec, cfg: ArchConfig):
+               entry: None, spec: SegmentSpec, cfg: ArchConfig, split=None):
     """One layer of the training forward (no cache). Returns (x, aux or
-    None)."""
+    None). Under `split` (a `tensor_parallel.GQASplit`) the layer runs on
+    this rank's blocks."""
     h = rmsnorm(lp["ln1"], x)
+    if split is not None:
+        x = _radd(x, _gqa_train_split(lp, h, positions, spec, cfg, split))
+        return _ffn(lp, x, spec, cfg, split)
     if spec.kind in _GQA_KINDS:
         q, k, v = _gqa(lp, h, positions, cfg)
         ctx = attn_lib.blockwise_attention(q, k, v, causal=cfg.causal,
@@ -531,9 +582,11 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
-            cfg: ArchConfig):
+            cfg: ArchConfig, split=None):
     """The training forward: x (B,S,d) through every segment -> (x, aux),
     aux the MoE layers' summed load-balance loss (0 without MoE). Under
-    `cfg.remat` every layer is rematerialized on the backward pass."""
+    `cfg.remat` every layer is rematerialized on the backward pass. Under
+    `split` (a `tensor_parallel.TrainSplit`) params are this rank's blocks
+    and x is whole."""
     return _run(_layer_fwd, params, x, positions, None, cfg,
-                remat=cfg.remat)
+                remat=cfg.remat, split=split)

@@ -22,11 +22,14 @@ both directions are the identity: the same tensor object comes back and no
 collective is issued, so the kernels see the tensors they see without a
 mesh. At extent > 1 an abstract mesh raises ValueError (it places
 nothing), as `sharding.clients.client_shard` does, and CUDA tensors raise
-NotImplementedError (ROADMAP entry 12b: the training step, `StepPlacement`,
-the scan carry, banks and fleets compute on whole params), except where a
-caller of the serving steps passes `serving=True` on a DeviceMesh of CUDA
-ranks (`sharding.tensor_parallel`: gloo carries the CUDA tensors of a
-world of ranks on one card).
+NotImplementedError, except where a split step (the serving steps and the
+train step of `sharding.tensor_parallel`) passes `split=True` on a
+DeviceMesh of CUDA ranks (gloo carries the CUDA tensors of a world of
+ranks on one card). The message names the entry that will take the
+caller: ROADMAP entry 12h at data extent 1 (`StepPlacement`, the scan
+carry, banks and fleets compute on whole params), entry 12g beyond (the
+data axis on the card, fsdp params, the sequential step at data extent
+> 1).
 
 `carry_state_specs` gives the scan carry's algorithm state its specs
 (client-indexed leaves of the params' shape split over the data axes and,
@@ -41,8 +44,9 @@ from typing import Any
 import torch
 
 from repro_torch.sharding.rules import (P, _entry_axes, axis_names,
-                                        client_state_specs, mesh_shape,
-                                        param_specs, scan_carry_specs)
+                                        client_state_specs, data_axis_size,
+                                        mesh_shape, param_specs,
+                                        scan_carry_specs)
 from repro_torch.tree import tree_map
 
 
@@ -59,15 +63,19 @@ def split_dims(spec, mesh) -> list:
 
 
 def _check(device: torch.device, mesh, what: str,
-           serving: bool = False) -> None:
+           split: bool = False) -> None:
     if device.type == "cuda" and not (
-            serving and getattr(mesh, "device_type", None) == "cuda"):
+            split and getattr(mesh, "device_type", None) == "cuda"):
+        later = ("the data axis on the card, fsdp params and the sequential "
+                 "train step at data extent > 1 are ROADMAP entry 12g"
+                 if data_axis_size(mesh) > 1 else
+                 "StepPlacement, the scan carry, banks and fleets under "
+                 "split products are ROADMAP entry 12h")
         raise NotImplementedError(
             f"{what} split over mesh axes of extent > 1 on CUDA tensors: "
-            "only the serving steps compute on blocks on the card; "
-            "training, StepPlacement, the scan carry, banks and fleets "
-            "under split products are ROADMAP entry 12b, and run on CPU "
-            "ranks (gloo)")
+            "only the split steps compute on blocks on the card (the "
+            "serving steps and the train step, sharding.tensor_parallel); "
+            f"{later}, and run on CPU ranks (gloo)")
     if not hasattr(mesh, "get_group"):
         raise ValueError(
             f"{what}: a mesh of extent > 1 must be a DeviceMesh over a world "
@@ -94,12 +102,12 @@ def block_slices(spec, shape: tuple, mesh, coord=None) -> tuple:
 
 
 def block_shape(shape: tuple, spec, mesh, device: torch.device,
-                what: str = "a leaf", serving: bool = False) -> tuple:
+                what: str = "a leaf", split: bool = False) -> tuple:
     """The shape of this rank's block of a whole tensor of `shape` on
     `device` (raising where `block` would)."""
     dims = split_dims(spec, mesh)
     if dims:
-        _check(torch.device(device), mesh, what, serving)
+        _check(torch.device(device), mesh, what, split)
     mshape, out = mesh_shape(mesh), list(shape)
     for d, axes in dims:
         for a in axes:
@@ -118,29 +126,29 @@ def whole_shape(shape: tuple, spec, mesh) -> tuple:
 
 
 def block(x: torch.Tensor, spec, mesh, what: str = "a leaf",
-          serving: bool = False):
+          split: bool = False):
     """This rank's block of the whole `x` under `spec`: `x` itself where
-    nothing is split, else a view of it. `serving`: the caller is the
-    serving steps' (module docstring)."""
+    nothing is split, else a view of it. `split`: the caller is a split
+    step's (module docstring)."""
     if not isinstance(x, torch.Tensor) or not split_dims(spec, mesh):
         return x
-    _check(x.device, mesh, what, serving)
+    _check(x.device, mesh, what, split)
     return x[block_slices(spec, tuple(x.shape), mesh)]
 
 
-def take(x, spec, mesh, what: str = "a leaf", serving: bool = False):
+def take(x, spec, mesh, what: str = "a leaf", split: bool = False):
     """`block` as a tensor of its own (the whole's storage is not kept)."""
-    b = block(x, spec, mesh, what, serving)
+    b = block(x, spec, mesh, what, split)
     return b if b is x else b.clone()
 
 
-def whole(x, spec, mesh, what: str = "a leaf", serving: bool = False):
+def whole(x, spec, mesh, what: str = "a leaf", split: bool = False):
     """The whole tensor from every rank's block `x` under `spec` (`x`
     itself where nothing is split)."""
     dims = split_dims(spec, mesh) if isinstance(x, torch.Tensor) else []
     if not dims:
         return x
-    _check(x.device, mesh, what, serving)
+    _check(x.device, mesh, what, split)
     import torch.distributed as dist
     for d, axes in dims:
         for a in reversed(axes):
@@ -172,16 +180,16 @@ def amax_(x: torch.Tensor, axes, mesh) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 def take_tree(tree: Any, specs: Any, mesh, what: str = "a leaf",
-              serving: bool = False) -> Any:
+              split: bool = False) -> Any:
     """`take` leaf by leaf against a PartitionSpec tree of `tree`'s
     structure."""
-    return tree_map(lambda x, s: take(x, s, mesh, what, serving), tree,
+    return tree_map(lambda x, s: take(x, s, mesh, what, split), tree,
                     specs)
 
 
 def whole_tree(tree: Any, specs: Any, mesh, what: str = "a leaf",
-               serving: bool = False) -> Any:
-    return tree_map(lambda x, s: whole(x, s, mesh, what, serving), tree,
+               split: bool = False) -> Any:
+    return tree_map(lambda x, s: whole(x, s, mesh, what, split), tree,
                     specs)
 
 

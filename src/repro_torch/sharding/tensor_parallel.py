@@ -1,16 +1,16 @@
-"""Split matrix products on the serving path: each rank of a mesh's `model`
-axis runs prefill and decode on its blocks of the params and caches, as the
-reference's compiled SPMD program computes on the blocks its specs give
-(`sharding.rules.param_specs`, `cache_specs`), with only the collectives
-the split needs.
+"""Split matrix products: each rank of a mesh's `model` axis runs the
+serving steps (prefill and decode) and the MIFA train step on its blocks of
+the params (and caches), as the reference's compiled SPMD program computes
+on the blocks its specs give (`sharding.rules.param_specs`, `cache_specs`,
+`client_state_specs`), with only the collectives the split needs.
 
 Scope: the dense GQA stack (`attn` and `local_attn` layers with a dense
 MLP, the embedding and the head: granite-3-8b, qwen1.5-110b, gemma3-4b and
 llava-next-34b's language stack). Everything else raises
-NotImplementedError naming its ROADMAP entry (`unsupported`): training
-(12b), MoE experts (12c), MLA (12d), Mamba2 and the shared attention block
-(12e), padded heads and the encoder (12f), and params or caches split over
-the data axis (12g).
+NotImplementedError naming its ROADMAP entry (`unsupported`): MoE experts
+(12c), MLA (12d), Mamba2 and the shared attention block (12e), padded
+heads and the encoder (12f), and params, caches or the sequential step
+split over the data axis, or the data axis on the card (12g).
 
 Layout, read from the spec `rules.sanitize` left on each leaf (never from
 the config), per GQA segment (`GQASplit`):
@@ -26,27 +26,52 @@ the config), per GQA segment (`GQASplit`):
     flash-decode layout: k and v are gathered whole along their columns,
     which may split inside a head, each rank writes its block of slots,
     and decode combines every rank's partial softmax); else whole on every
-    rank ("whole": k and v gathered, every rank writes all of it).
+    rank ("whole": k and v gathered, every rank writes all of it). The
+    training forward has no cache: its k and v are the rank's kv heads
+    where M divides KV ("heads"), else gathered whole ("whole").
   * `w1`/`w3` column blocks and `w2` row blocks (summed), or whole.
   * the embedding's d_model block (the looked-up rows gathered along d)
     and `lm_head`'s vocab block (each rank keeps its block of the logits,
-    the plan's `(batch, MODEL)` logits spec), or whole.
+    the plan's `(batch, MODEL)` logits spec; training takes a
+    cross-entropy over the split vocab, `models.layers.vocab_split_nll`),
+    or whole.
+
+Collectives that differentiate (`to_model`, `from_model`, `gather_model`):
+`torch.autograd.Function`s with `setup_context` and an explicit `vmap`
+rule, so `torch.func.grad`, `vmap(grad)` (the vmap train step) and
+`remat.checkpoint`'s recompute pass through them, as Megatron's copy and
+reduce regions do. A replicated value entering partitioned compute goes
+through `to_model` (identity forward, the cotangent summed over `model`
+backward); partial sums leave it through `from_model` (the f32 sum forward,
+identity backward); a block gathered whole goes through `gather_model`
+(all-gather forward, the rank's slice of the cotangent backward). Each
+backward calls the other Function, never `dist`, so a backward that runs
+under `vmap` or inside a checkpoint's recompute reaches a vmap rule too.
+A vmap rule runs the collective once on the physical tensor, its batch dim
+in it: every rank vmaps the same clients in the same order. Every rank
+must issue the same collectives in the same order, which the autograd
+graph of one program guarantees; a mismatch deadlocks, and the worlds'
+timeouts catch that.
 
 Transport: gloo on the tensors themselves, CUDA tensors included (gloo
 stages them through the host). A probe on an H100 (`scripts/
 gloo_cuda_probe.py`, PERF.md) found all_reduce (SUM and MAX) and
 all_gather working on CUDA f32 and bf16 tensors in a world of two ranks on
-one card, and no all_to_all in gloo (the split needs none); NCCL cannot
-hold two ranks on one device. There is one route, with no switch at run
-time: a collective that fails, fails the step. Sums are reduced in f32 and
-cast back to the tensor's dtype, whatever it is, so the rounding stays
-close to an unsplit product's (which sums its K dim in f32); max and
-gather move the tensor's own dtype, exactly.
+one card, and no all_to_all in gloo: the train step's move of each update
+from the params' blocks into the update array's is an all-to-all built of
+M - 1 all-gathers of one piece each where both layouts split one dim over
+`model`, else an all-gather of the leaf, cut at once (`TrainSplit.move`).
+NCCL cannot hold two ranks on one
+device. There is one route, with no switch at run time: a collective that
+fails, fails the step. Sums are reduced in f32 and cast back to the
+tensor's dtype, whatever it is, so the rounding stays close to an unsplit
+product's (which sums its K dim in f32); max and gather move the tensor's
+own dtype, exactly.
 
-No autograd: the split steps run under `torch.inference_mode()`
-(`launch.steps`). Every mesh whose `model` axis has extent 1 (every mesh
-of a world of one) gives no split (`model_axis` is None), so its steps are
-today's, bit for bit.
+The serving steps run under `torch.inference_mode()` (`launch.steps`).
+Every mesh whose `model` axis has extent 1 (every mesh of a world of one)
+gives no split (`model_axis` is None), so its steps are today's, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -54,24 +79,27 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.sharding.params import block_shape
-from repro_torch.sharding.rules import (MODEL, _entry_axes, axis_names,
-                                        cache_specs, data_axis_size,
-                                        mesh_shape, param_specs)
+from repro_torch.sharding.params import (block_shape, split_dims, take,
+                                         whole)
+from repro_torch.sharding.rules import (MODEL, P, _entry_axes, axis_names,
+                                        cache_specs, client_state_specs,
+                                        data_axis_size, mesh_shape,
+                                        param_specs)
 from repro_torch.tree import tree_map
 
 
 class ModelAxis:
     """This rank's view of a DeviceMesh's `model` axis: its group, its
     coordinate on it and its extent M; `moved` counts the bytes this rank
-    put into each kind of collective."""
+    put into each kind of collective (the train step's moves into the
+    update array's blocks apart, as "relayout")."""
 
     def __init__(self, mesh):
         names = axis_names(mesh)
         self.size = mesh_shape(mesh)[MODEL]
         self.rank = mesh.get_coordinate()[names.index(MODEL)]
         self.group = mesh.get_group(MODEL)
-        self.moved = {"all_reduce": 0, "all_gather": 0}
+        self.moved = {"all_reduce": 0, "all_gather": 0, "relayout": 0}
 
     def _count(self, kind: str, x: torch.Tensor) -> None:
         self.moved[kind] += x.numel() * x.element_size()
@@ -113,14 +141,111 @@ def model_axis(mesh) -> ModelAxis | None:
     return ModelAxis(mesh)
 
 
+# --------------------------------------------------------------------------- #
+# collectives that differentiate (module docstring)
+# --------------------------------------------------------------------------- #
+
+class _ToModel(torch.autograd.Function):
+    """Identity forward; the cotangent summed over `model` backward."""
+
+    @staticmethod
+    def forward(x, axis):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _FromModel.apply(g, ctx.axis), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return x.view_as(x), in_dims[0]
+
+
+class _FromModel(torch.autograd.Function):
+    """The f32 sum over `model` forward (`ModelAxis.sum`); identity
+    backward."""
+
+    @staticmethod
+    def forward(x, axis):
+        return axis.sum(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ToModel.apply(g, ctx.axis), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        # elementwise over ranks: the batch dim stays where it is
+        return axis.sum(x), in_dims[0]
+
+
+class _GatherModel(torch.autograd.Function):
+    """Every rank's block concatenated along `dim` forward; this rank's
+    slice of the cotangent backward (the gathered value is replicated, so
+    its cotangent is too)."""
+
+    @staticmethod
+    def forward(x, axis, dim):
+        return axis.gather(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.axis, ctx.dim = inputs
+        ctx.width = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.width, ctx.width), \
+            None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, dim):
+        if in_dims[0] is None:
+            return axis.gather(x, dim), None
+        # the batch dim first: a logical dim d >= 0 is physical d + 1
+        x = x.movedim(in_dims[0], 0)
+        return axis.gather(x, dim + 1 if dim >= 0 else dim), 0
+
+
+def to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """`x` (replicated on the axis) into partitioned compute: identity,
+    and Σ over the axis of the cotangent in the backward pass."""
+    return _ToModel.apply(x, axis)
+
+
+def from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """Σ over the axis of every rank's partial `x` (f32, cast back), with
+    the identity backward."""
+    return _FromModel.apply(x, axis)
+
+
+def gather_model(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """Every rank's block `x` concatenated along `dim`, with this rank's
+    slice of the cotangent backward. A gathered value that feeds
+    partitioned compute (k and v read by the rank's query heads) goes on
+    through `to_model`, so its cotangent is summed before it is sliced."""
+    return _GatherModel.apply(x, axis, dim)
+
+
 def _splits(entry, mesh, axis: str = MODEL) -> bool:
     return axis in _entry_axes(entry) and mesh_shape(mesh)[axis] > 1
 
 
-def unsupported(cfg, mesh, batch: int) -> str | None:
-    """Why the serving steps of `cfg` at a batch of `batch` cannot run on
-    `mesh`'s blocks (naming the ROADMAP entry that will take it), or None
-    where they can."""
+def unsupported(cfg, mesh, batch: int, *, train: bool = False
+                ) -> str | None:
+    """Why the steps of `cfg` cannot run on `mesh`'s blocks (naming the
+    ROADMAP entry that will take it), or None where they can: the serving
+    steps at a batch of `batch` sequences, or with `train` the MIFA train
+    step of `batch` clients (the vmap mode's client axis over data, the
+    sequential mode at data extent 1 only)."""
     from repro_torch.models.transformer import build_segments
     if cfg.encoder_only or cfg.modality == "audio":
         return (f"{cfg.name}: the encoder's frontend_proj under split "
@@ -144,10 +269,19 @@ def unsupported(cfg, mesh, batch: int) -> str | None:
                 f"of {m} split wq's columns inside a head; the reference "
                 "pads the heads for that (ROADMAP entry 12f)")
     d = data_axis_size(mesh)
+    what = "clients" if train else "batch"
     if d > 1 and (cfg.fsdp or batch % d or batch < d):
         return (f"{cfg.name}: params or caches split over the data axis "
-                f"(fsdp {cfg.fsdp}, batch {batch} over {d} data ranks) "
+                f"(fsdp {cfg.fsdp}, {what} {batch} over {d} data ranks) "
                 "under split products (ROADMAP entry 12g)")
+    if train and d > 1 and cfg.sequential_clients:
+        return (f"{cfg.name}: the sequential train step over {d} data "
+                "ranks, each client's batch split over data (the "
+                "reference's batch_specs), under split products (ROADMAP "
+                "entry 12g)")
+    if train and d > 1 and getattr(mesh, "device_type", None) == "cuda":
+        return (f"{cfg.name}: the train step's client axis over {d} data "
+                "ranks on the card (ROADMAP entry 12g)")
     return None
 
 
@@ -158,8 +292,8 @@ class GQASplit:
     axis: ModelAxis
     heads: bool       # wq/bq columns and wo rows split, whole heads
     kv_cols: bool     # wk/wv/bk/bv columns split
-    cache: str        # "heads" | "seq" | "whole"
-    slots: int        # the whole cache's slots
+    cache: str        # "heads" | "seq" | "whole" (training: "heads" | "whole")
+    slots: int        # the whole cache's slots (training: 0)
     mlp: bool         # w1/w3 columns and w2 rows split
     n_heads: int      # the whole model's query heads
 
@@ -187,11 +321,15 @@ class GQASplit:
 
     def out(self, partial: torch.Tensor) -> torch.Tensor:
         """The attention's output from this rank's `wo` product."""
-        return self.axis.sum(partial) if self.heads else partial
+        return from_model(partial, self.axis) if self.heads else partial
+
+    def mlp_in(self, h: torch.Tensor) -> torch.Tensor:
+        """The MLP's (replicated) input to this rank's w1/w3 blocks."""
+        return to_model(h, self.axis) if self.mlp else h
 
     def mlp_out(self, partial: torch.Tensor) -> torch.Tensor:
         """The MLP's output from this rank's `w2` product."""
-        return self.axis.sum(partial) if self.mlp else partial
+        return from_model(partial, self.axis) if self.mlp else partial
 
     def kv_for_heads(self, k: torch.Tensor, v: torch.Tensor):
         """From whole k, v (B,T,KV,hd), the kv heads this rank's query
@@ -233,7 +371,7 @@ class ServeSplit:
         device, meta too) under `specs`, on `device`."""
         return tree_map(lambda t, s: torch.zeros(
             block_shape(tuple(t.shape), s, self.mesh, device,
-                        serving=True), dtype=t.dtype, device=device),
+                        split=True), dtype=t.dtype, device=device),
             tree, specs)
 
 
@@ -273,5 +411,133 @@ def serve_split(cfg, mesh, batch: int | None, cache_len: int | None
             axis, heads=_splits(lp["attn"]["wq"][-1], mesh),
             kv_cols=_splits(lp["attn"]["wk"][-1], mesh), cache=cache_kind,
             slots=cache[str(seg.index)]["k"].shape[-3],
+            mlp=_splits(lp["mlp"]["w1"][-1], mesh), n_heads=cfg.n_heads)
+    return out
+
+
+@dataclass
+class TrainSplit:
+    """The split of a config's MIFA train step on a mesh (a `ServeSplit`
+    without caches): the model axis, the embedding's and the head's
+    layouts, each GQA segment's `GQASplit`, the specs of the params and of
+    the update array G (`client_state_specs` of the step's mode) they were
+    read from, and the moves between the two."""
+
+    mesh: object
+    axis: ModelAxis
+    embed: bool              # embed's d_model split
+    head: bool               # lm_head's vocab split
+    param_specs: object
+    state_specs: object      # G's, (N, *param_shape) leaves
+    segments: dict = field(default_factory=dict)
+
+    def segment(self, index: int) -> GQASplit:
+        return self.segments[index]
+
+    def move(self, x: torch.Tensor, src, dst) -> torch.Tensor:
+        """This rank's block under `dst` from its block `x` under `src`
+        (specs of one whole tensor): `x` itself where both split it alike;
+        where each splits one dim over `model` alone, an all-to-all
+        (`_exchange`); else the leaf gathered whole over the axes `src`
+        splits and cut at once. The bytes this rank puts in count as
+        "relayout"."""
+        s, d = split_dims(src, self.mesh), split_dims(dst, self.mesh)
+        if s == d:
+            return x
+        if (len(s) == len(d) == 1 and s[0][1] == d[0][1] == (MODEL,)
+                and x.shape[d[0][0]] % self.axis.size == 0):
+            return self._exchange(x, s[0][0], d[0][0])
+        if s:
+            self.axis.moved["relayout"] += x.numel() * x.element_size()
+        out = take(whole(x, src, self.mesh, split=True), dst, self.mesh,
+                   split=True)
+        return out.contiguous()
+
+    def _exchange(self, x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+        """`x`, split on dim `a` over `model` and whole on `b`, as this
+        rank's block of dim `b` whole on `a`. Gloo has no all_to_all, so
+        it runs as M - 1 all-gathers of one (a, b) piece each: in gather
+        k every rank puts in the piece that the rank k places after it
+        needs, and keeps the one from the rank k places before it. A rank
+        puts in (M - 1) / M of `x` where a whole gather takes all of it,
+        and holds one more piece at a time, not the whole leaf."""
+        import torch.distributed as dist
+        m, r = self.axis.size, self.axis.rank
+        w = x.shape[b] // m
+        pieces = [None] * m
+        pieces[r] = x.narrow(b, r * w, w)
+        for k in range(1, m):
+            send = x.narrow(b, (r + k) % m * w, w).contiguous()
+            parts = [torch.empty_like(send) for _ in range(m)]
+            self.axis.moved["relayout"] += send.numel() * send.element_size()
+            dist.all_gather(parts, send, group=self.axis.group)
+            pieces[(r - k) % m] = parts[(r - k) % m]
+        return torch.cat(pieces, dim=a)
+
+    def move_tree(self, tree, src, dst, via=None) -> object:
+        """`move` leaf by leaf against spec trees of `tree`'s structure,
+        each leaf of `tree` replaced in place as it moves, so one whole
+        leaf is alive at a time. With `via` (a tree of tensors of the same
+        structure) each leaf moves in its `via` leaf's dtype and comes back
+        in its own: an update moves in the update array's dtype, to which
+        the server step rounds it anyway. Returns `tree`."""
+        def walk(t, s, d, v):
+            for k in (t if isinstance(t, dict) else range(len(t))):
+                if isinstance(t[k], (dict, list)):
+                    walk(t[k], s[k], d[k], None if v is None else v[k])
+                elif v is None:
+                    t[k] = self.move(t[k], s[k], d[k])
+                else:
+                    t[k] = self.move(t[k].to(v[k].dtype), s[k], d[k]).to(
+                        t[k].dtype)
+        walk(tree, src, dst, via)
+        return tree
+
+    @property
+    def update_specs(self):
+        """An update tree's layout as the local update leaves it: the
+        rank's rows of the client axis, the param dims of `param_specs`."""
+        return tree_map(lambda s: P(None, *s), self.param_specs)
+
+    @property
+    def row_specs(self):
+        """G's layout with its client axis taken as this rank's rows."""
+        return tree_map(lambda s: P(None, *s[1:]), self.state_specs)
+
+    @property
+    def step_specs(self):
+        """The server step's layout of the params, and of one row of G:
+        G's param dims."""
+        return tree_map(lambda s: P(*s[1:]), self.state_specs)
+
+
+def train_split(cfg, mesh, n_clients: int) -> TrainSplit | None:
+    """The split of `cfg`'s MIFA train step for `n_clients` clients on
+    `mesh` (its mode from `cfg.sequential_clients`), or None where
+    `model_axis` gives none. Raises NotImplementedError for what the split
+    does not take yet (`unsupported`)."""
+    axis = model_axis(mesh)
+    if axis is None:
+        return None
+    why = unsupported(cfg, mesh, n_clients, train=True)
+    if why is not None:
+        raise NotImplementedError(why)
+    from repro_torch.launch.specs import param_shapes
+    from repro_torch.models import transformer
+    shapes = param_shapes(cfg)
+    pspecs = param_specs(shapes, cfg, mesh)
+    gspecs = client_state_specs(shapes, cfg, mesh,
+                                sequential_clients=cfg.sequential_clients,
+                                n_clients=n_clients)
+    out = TrainSplit(mesh, axis, embed=_splits(pspecs["embed"][1], mesh),
+                     head=_splits(pspecs["lm_head"][1], mesh),
+                     param_specs=pspecs, state_specs=gspecs)
+    for seg in transformer.build_segments(cfg):
+        lp = pspecs["segments"][str(seg.index)]
+        kv_cols = _splits(lp["attn"]["wk"][-1], mesh)
+        local = kv_cols and cfg.n_kv_heads % axis.size == 0
+        out.segments[seg.index] = GQASplit(
+            axis, heads=_splits(lp["attn"]["wq"][-1], mesh), kv_cols=kv_cols,
+            cache="heads" if local else "whole", slots=0,
             mlp=_splits(lp["mlp"]["w1"][-1], mesh), n_heads=cfg.n_heads)
     return out

@@ -14,7 +14,10 @@ rounds in scan chunks of 2:
 
   (a) qwen's sequential `make_train_step` under its fsdp update
       constraint on 2x2 (`launch.specs.run_placed`);
-  (b) granite's vmap step on 2x2, `model` splitting its leaves;
+  (b) granite's vmap step on 2x2, `model` splitting its leaves: the step
+      computes on the blocks (split products, `sharding.tensor_parallel`),
+      so its sums are taken in another order than the unsplit step's, as
+      the reference's meshed program differs from its unmeshed one;
   (c) `run_fl(engine="scan", mesh=2x2, cfg=granite)`, MIFA(array);
   (d) BankedMIFA(DenseBank(mesh=, cfg=)) on 2x2, and the bank alone;
   (e) a K = 4 fleet with `cfg` on 4x1 and on 2x2;
@@ -26,7 +29,9 @@ rounds in scan chunks of 2:
 
 Tolerance: bit-equal where the compute is whole (every placement but a
 data-split sum); where the client axis' sums are all-reduced over data,
-rtol 2e-5 / atol 1e-6, the bounds of `tests/test_torch_sharded_scan.py`.
+rtol 2e-5 / atol 1e-6, the bounds of `tests/test_torch_sharded_scan.py`;
+case (b), whose products are split, the f32 training bound (rtol 2e-4,
+atol 2e-5 of each leaf's largest magnitude).
 int8 gathers its rows for the mean, so it is bit-equal split over data.
 Integers (rounds, n_active, a snapshot's integer members) are exact, and
 each case's specs split a leaf over the axes it is about.
@@ -65,7 +70,7 @@ DM = {"data", "model"}
 # case -> (bit-equal or within the bounds, the axes its specs split)
 CASES = {
     "a_sequential_update_spec": ("exact", DM),
-    "b_vmap_step": ("exact", {"model"}),
+    "b_vmap_step": ("bounds", {"model"}),
     "c_scan_mifa_array": ("bounds", DM),
     "d_dense_bank": ("bounds", DM),
     "d_bank_round_trip": ("exact", DM),

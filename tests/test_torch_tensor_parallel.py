@@ -274,10 +274,12 @@ def _meta_params(cfg):
 
 
 def test_training_paths_on_cuda_blocks_raise_naming_12b():
-    """A CUDA tensor at model extent > 1 outside the serving steps raises
-    NotImplementedError naming ROADMAP entry 12b (fake CUDA tensors and a
-    fake mesh: no card and no process group); the serving steps' blocks
-    are taken."""
+    """A CUDA tensor at model extent > 1 outside the split steps raises
+    NotImplementedError naming ROADMAP entry 12h, the entry that took over
+    these callers from 12b once the train step split (fake CUDA tensors
+    and a fake mesh: no card and no process group): `StepPlacement`, the
+    unsplit sequential step handed an update constraint, a bare `take`;
+    the split steps' blocks are taken."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
     params = _meta_params(cfg)
@@ -285,7 +287,7 @@ def test_training_paths_on_cuda_blocks_raise_naming_12b():
     with FakeTensorMode():
         cuda = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device="cuda"), params)
-        with pytest.raises(NotImplementedError, match="entry 12b"):
+        with pytest.raises(NotImplementedError, match="entry 12h"):
             StepPlacement(cuda, cfg, mesh, 4).place(cuda)
         step = make_train_step(build_model(cfg), cfg.replace(
             sequential_clients=True), 2, 1,
@@ -293,18 +295,18 @@ def test_training_paths_on_cuda_blocks_raise_naming_12b():
         G = tree_map(lambda t: t.new_empty((2,) + tuple(t.shape)), cuda)
         batch = {"tokens": torch.zeros((2, 1, 1, 8), dtype=torch.int32,
                                        device="cuda")}
-        with pytest.raises(NotImplementedError, match="entry 12b"):
+        with pytest.raises(NotImplementedError, match="entry 12h"):
             step(cuda, G, batch, torch.ones(2, dtype=torch.bool,
                                             device="cuda"), 0.1)
         wq = cuda["segments"]["0"]["attn"]["wq"]
         spec = specs["segments"]["0"]["attn"]["wq"]
-        with pytest.raises(NotImplementedError, match="entry 12b"):
+        with pytest.raises(NotImplementedError, match="entry 12h"):
             take(wq, spec, mesh)
         assert block_shape(tuple(wq.shape), spec, mesh, wq.device,
-                           serving=True)[-1] == wq.shape[-1] // 2
+                           split=True)[-1] == wq.shape[-1] // 2
         # a mesh of CPU ranks does not carry CUDA blocks, serving or not
-        with pytest.raises(NotImplementedError, match="entry 12b"):
-            take(wq, spec, _FakeMesh(1, 2, "cpu"), serving=True)
+        with pytest.raises(NotImplementedError, match="entry 12h"):
+            take(wq, spec, _FakeMesh(1, 2, "cpu"), split=True)
 
 
 @pytest.mark.parametrize("arch,change,mesh,entry", [
@@ -333,8 +335,9 @@ def test_what_the_split_leaves_for_later_raises(arch, change, mesh, entry):
 def test_plans_split_only_the_serving_steps_on_a_model_axis():
     """On a mesh whose model axis splits, granite's prefill and decode
     plans carry split steps (`launch.specs.run_placed` passes them the
-    blocks); its train plan and every plan on an abstract mesh or at
-    model extent 1 keep the unsplit step."""
+    blocks), and so does its train plan since the train step splits
+    (`tests/test_torch_split_train.py`); every plan on an abstract mesh or
+    at model extent 1 keeps the unsplit step."""
     cfg = smoke("granite_3_8b")
     fake = _FakeMesh(1, 2)
     for shape in ("prefill_32k", "decode_32k"):
@@ -344,8 +347,12 @@ def test_plans_split_only_the_serving_steps_on_a_model_axis():
                      _FakeMesh(2, 1)):
             assert getattr(plan_config(cfg, shape, mesh).fn, "split",
                            None) is None
-    assert getattr(plan_config(cfg, "train_4k", fake).fn, "split",
-                   None) is None
+    train = plan_config(cfg, "train_4k", fake).fn.split
+    assert train.head and train.segment(0).heads and train.embed
+    for mesh in (make_abstract_mesh((1, 2), ("data", "model")),
+                 _FakeMesh(2, 1)):
+        assert getattr(plan_config(cfg, "train_4k", mesh).fn, "split",
+                       None) is None
     assert tensor_parallel.model_axis(None) is None
     step = make_prefill_step(build_model(cfg),
                              make_abstract_mesh((1, 4), ("data", "model")))

@@ -4,6 +4,7 @@
     python tests/torch_world.py --world 1|4 --out DIR
     python tests/torch_world.py --world 4 --cases params --out DIR
     python tests/torch_world.py --world 2|4 --cases serve --out DIR
+    python tests/torch_world.py --world 2|4 --cases train --out DIR
 
 `torch.multiprocessing.spawn` starts the ranks. They meet on a `FileStore`
 under DIR (no TCP rendezvous) and talk gloo over the loopback device, with
@@ -31,6 +32,14 @@ serves the smoke configs of SERVE_CASES through the split prefill and decode
 steps (`sharding.tensor_parallel`) on the params the test writes into DIR
 (`params_<case>.npz`): each rank compares its blocks with its blocks of the
 unsplit run, and rank 0 writes the split run gathered whole into
+`results.npz` for the test's comparison with the JAX package.
+
+`--cases train` (`tests/test_torch_split_train.py`, worlds of 2 and 4)
+runs the MIFA train step of the smoke configs of TRAIN_CASES on each
+rank's blocks (`make_train_step(mesh=)`, split products) for TR rounds, on
+the params the test writes into DIR (`params_<case>.npz`): each rank
+compares its blocks of the params, G and the loss with its blocks of the
+unsplit step's, and rank 0 writes the split run gathered whole into
 `results.npz` for the test's comparison with the JAX package.
 
 `--cases params` (`tests/test_torch_param_placement_world.py`) places the
@@ -310,11 +319,15 @@ def gap(got, want) -> tuple:
     return eq, worst
 
 
-def verdict(info: dict, case: str, got, want, ints=None, axes=()) -> None:
+def verdict(info: dict, case: str, got, want, ints=None, axes=(),
+            train_bound: bool = False) -> None:
     """Every rank's (bit-equal, worst gap, integers equal, split axes)
-    for `case`, gathered into `info`."""
+    for `case`, gathered into `info`; with `train_bound` the gap is over
+    the f32 training bound (`train_gap`) instead of PRTOL / PATOL."""
     import torch.distributed as dist
     eq, worst = gap(got, want)
+    if train_bound:
+        worst = train_gap(got, want)[1]
     same = True if ints is None else all(
         np.array_equal(np.asarray(a), np.asarray(b)) for a, b in ints)
     parts = [None] * dist.get_world_size()
@@ -358,12 +371,16 @@ def step_args(cfg, n: int, seed: int):
     return params, G, batch, active, 0.05
 
 
-def placed_step_case(info: dict, case: str, cfg, mesh, **plan_kw) -> None:
+def placed_step_case(info: dict, case: str, cfg, mesh,
+                     train_bound: bool = False, **plan_kw) -> None:
     """A train_4k plan's step through `launch.specs.run_placed` on this
-    rank's blocks of small arguments, against the plan's step on the
-    whole arguments."""
+    rank's blocks of small arguments, against the same config's unsplit
+    step on the whole arguments (the plan's own where it does not split);
+    `train_bound` as in `verdict`."""
     import dataclasses
     from repro_torch.launch.specs import plan_config, run_placed
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
     from repro_torch.sharding import rules
     from repro_torch.sharding.params import place
     from repro_torch.tree import tree_leaves, tree_map
@@ -374,12 +391,16 @@ def placed_step_case(info: dict, case: str, cfg, mesh, **plan_kw) -> None:
         args[2], mesh, sequential_clients=p.meta["sequential"]))
     p = dataclasses.replace(p, in_shardings=(
         p.in_shardings[:2] + (bspec,) + p.in_shardings[3:]))
-    want = p.fn(*tree_map(lambda a: a.clone(), list(args[:4])), args[4])
+    whole_fn = p.fn
+    if getattr(p.fn, "split", None) is not None:
+        whole_fn = make_train_step(build_model(cfg), cfg, n,
+                                   p.meta["k_steps"])
+    want = whole_fn(*tree_map(lambda a: a.clone(), list(args[:4])), args[4])
     got = run_placed(p, *place(args, p.in_shardings))
     axes = rules.sharded_axes([s.spec for s in tree_leaves(
         p.in_shardings[0])], mesh)
     verdict(info, case, list(got), list(place(want, p.out_shardings)),
-            axes=axes)
+            axes=axes, train_bound=train_bound)
     info[case + "_n_clients"] = n
 
 
@@ -409,7 +430,7 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
     # granite's vmap step, each on the 2x2 mesh
     placed_step_case(info, "a_sequential_update_spec", qwen, m22,
                      inner_update_constraint=True)
-    placed_step_case(info, "b_vmap_step", granite, m22)
+    placed_step_case(info, "b_vmap_step", granite, m22, train_bound=True)
 
     params = build_model(granite).init(0, device="cpu")
     pspecs = rules.param_specs(params, granite, m22)
@@ -666,21 +687,21 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
                                     (SB, cfg.vocab_size), mesh))
 
     def blk(x, spec):
-        return take(x, spec, mesh, serving=True)
+        return take(x, spec, mesh, split=True)
 
     def whole_logits(x):
-        return whole(x, lspec, mesh, serving=True)
+        return whole(x, lspec, mesh, split=True)
 
     got = serve_greedy(
-        model, take_tree(params, split.param_specs, mesh, serving=True),
+        model, take_tree(params, split.param_specs, mesh, split=True),
         model.init_cache(SB, C, device="cpu", split=split),
         blk(toks, bspec), step_p, step_d,
         lambda x: blk(whole_logits(x), bspec))
     cspecs = split.cache_specs
     # the rank's blocks of the unsplit run
     ref = [blk(want[0], lspec), [blk(x, lspec) for x in want[1]],
-           take_tree(want[3], cspecs, mesh, serving=True),
-           take_tree(want[4], cspecs, mesh, serving=True)]
+           take_tree(want[3], cspecs, mesh, split=True),
+           take_tree(want[4], cspecs, mesh, split=True)]
     eq, worst = serve_gap([got[0], got[1], got[3], got[4]], ref)
     greedy_eq = torch.equal(got[2], blk(want[2], bspec))
     # replicated values: every leaf and output the model axis leaves
@@ -691,7 +712,7 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
         return rules.MODEL not in rules.sharded_axes([spec], mesh)
     repl = [x for x, s in zip(
         tree_leaves(take_tree(params, split.param_specs, mesh,
-                              serving=True)),
+                              split=True)),
         tree_leaves(split.param_specs)) if whole_on_model(s)]
     repl += [x for x, s in zip(tree_leaves(got[4]), tree_leaves(cspecs))
              if whole_on_model(s)]
@@ -713,8 +734,8 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
     info[case] = parts
     # the split run gathered whole, for the comparison with the reference
     wl = [whole_logits(got[0])] + [whole_logits(x) for x in got[1]]
-    greedy = whole_tree(got[2], bspec, mesh, serving=True)
-    cache = whole_tree(got[4], cspecs, mesh, serving=True)
+    greedy = whole_tree(got[2], bspec, mesh, split=True)
+    cache = whole_tree(got[4], cspecs, mesh, split=True)
     out[f"{case}/tokens"] = toks.numpy()
     out[f"{case}/greedy"] = greedy.numpy()
     for i, x in enumerate(wl):
@@ -751,11 +772,11 @@ def placed_decode_case(info: dict, out_dir: str) -> None:
     p = plan_config(cfg, "decode_32k", mesh)
     pspecs, cspecs, tspec, _ = [tree_map(lambda s: s.spec, sh)
                                 for sh in p.in_shardings]
-    got = run_placed(p, take_tree(params, pspecs, mesh, serving=True),
-                     take_tree(before, cspecs, mesh, serving=True),
-                     take(tok, tspec, mesh, serving=True), SS)
-    ref = [take(want[0], p.out_shardings[0].spec, mesh, serving=True),
-           take_tree(want[1], cspecs, mesh, serving=True)]
+    got = run_placed(p, take_tree(params, pspecs, mesh, split=True),
+                     take_tree(before, cspecs, mesh, split=True),
+                     take(tok, tspec, mesh, split=True), SS)
+    ref = [take(want[0], p.out_shardings[0].spec, mesh, split=True),
+           take_tree(want[1], cspecs, mesh, split=True)]
     shapes, worst = serve_gap(list(got), ref)
     parts = [None] * torch.distributed.get_world_size()
     torch.distributed.all_gather_object(parts, {
@@ -772,6 +793,225 @@ def world_of_serve(out: dict, info: dict, out_dir: str) -> None:
             serve_case(out, info, case, out_dir)
     if world == 2:
         placed_decode_case(info, out_dir)
+    dist.barrier()
+
+
+# --------------------------------------------------------------------------- #
+# --cases train: split products in the MIFA train step
+# --------------------------------------------------------------------------- #
+
+# clients, local steps, minibatch, sequence length and rounds of every
+# train case
+TN, TK, TMB, TS, TR = 4, 2, 2, 24, 2
+# case -> (arch, config change, mesh (data, model), through a plan): the
+# vmap step of granite on 1x2 (its vocab over `model`; again at vocab 511,
+# the head whole), on 1x4 (KV 2 % 4 != 0: k and v gathered) and on 2x2
+# (clients over data); gemma's local and global layers on 1x2; qwen's
+# sequential step under its fsdp update constraint through `plan_config`
+# and `run_placed` (qkv bias); llava's sequential step (patches
+# replicated); granite with remat and the chunked cross-entropy; and one
+# kv head of width 6 on 1x4 (k's and v's columns whole, every rank
+# computing them, while the query heads split)
+TRAIN_CASES = {
+    "a_granite_1x2": ("granite_3_8b", {}, (1, 2), False),
+    "a_granite_vocab511_1x2": ("granite_3_8b", {"vocab_size": 511}, (1, 2),
+                               False),
+    "b_granite_1x4": ("granite_3_8b", {}, (1, 4), False),
+    "c_gemma_1x2": ("gemma3_4b", {}, (1, 2), False),
+    "d_granite_2x2": ("granite_3_8b", {}, (2, 2), False),
+    "e_qwen_sequential_1x2": ("qwen1_5_110b", {}, (1, 2), True),
+    "f_llava_sequential_1x2": ("llava_next_34b", {}, (1, 2), False),
+    "g_granite_remat_1x2": ("granite_3_8b", {"remat": True, "ce_chunk": 8},
+                            (1, 2), False),
+    "h_granite_mqa_1x4": ("granite_3_8b", {"n_kv_heads": 1, "head_dim": 6},
+                          (1, 4), False),
+}
+# the f32 training bound: |got - want| <= TRTOL·|want| + TATOL·max|want|
+TRTOL, TATOL = 2e-4, 2e-5
+
+
+def train_cfg(case: str):
+    """The case's smoke config (f32) with TN clients of TK local steps."""
+    arch, change, _, _ = TRAIN_CASES[case]
+    return smoke(arch, fl_clients=TN, fl_local_steps=TK, **change)
+
+
+def train_inputs(cfg, params_np: dict) -> tuple:
+    """G before round 0 (numpy, params' structure with a leading TN) and
+    each round's (batch of numpy arrays, active mask, eta), drawn from
+    seeds: TokenBatcher streams, a vision_text model's patches from a
+    normal draw."""
+    from repro_torch.data import TokenBatcher
+
+    def tree(t, fn):
+        return ({k: tree(v, fn) for k, v in t.items()} if isinstance(t, dict)
+                else fn(t))
+    rng = np.random.default_rng(11)
+    G0 = tree(params_np, lambda a: (0.01 * rng.standard_normal(
+        (TN,) + a.shape)).astype(np.float32))
+    S = TS - cfg.n_patches if cfg.modality == "vision_text" else TS
+    tb = TokenBatcher(n_clients=TN, vocab=cfg.vocab_size, seq_len=S,
+                      batch_size=TMB, k_steps=TK, stream_len=4096, seed=0)
+    masks = ([True, False, True, True], [False, True, True, False])
+    rounds = []
+    for t in range(TR):
+        batch = tb.sample_round(t)
+        if cfg.modality == "vision_text":
+            batch["patches"] = rng.standard_normal(
+                (TN, TK, TMB, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        rounds.append((batch, np.asarray(masks[t]), 0.05 / (1 + t)))
+    return G0, rounds
+
+
+def train_gap(got, want) -> tuple:
+    """(shapes equal, worst |got - want| over the f32 training bound of
+    each leaf) over two trees of tensors."""
+    from repro_torch.tree import tree_leaves
+    shapes, worst = True, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        a, b = a.detach().double(), b.detach().double()
+        shapes = shapes and a.shape == b.shape
+        if shapes and b.numel():
+            bound = TRTOL * b.abs() + TATOL * b.abs().max()
+            worst = max(worst, float(((a - b).abs() / bound.clamp(
+                min=1e-30)).max()))
+    return shapes, worst
+
+
+def digests(tensors) -> list:
+    import torch
+    return [hashlib.sha256(t.detach().reshape(-1).view(torch.uint8).numpy()
+                           .tobytes()).hexdigest() for t in tensors]
+
+
+def train_case(out: dict, info: dict, case: str, out_dir: str) -> None:
+    """One train case on this world: the unsplit step on whole arguments
+    and the split step (`make_train_step(model, cfg, n, k, mesh=)`, or a
+    `train_4k` plan's through `run_placed`) on this rank's blocks, TR
+    rounds each; every rank compares its blocks of the params, G and the
+    loss after each round with its blocks of the unsplit run's, and rank 0
+    records the split run gathered whole for the test's comparison with
+    the JAX package."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import plan_config, run_placed
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.params import take, take_tree, whole_tree
+    from repro_torch.tree import tree_leaves, tree_map
+    _, _, shape, planned = TRAIN_CASES[case]
+    cfg = train_cfg(case)
+    model = build_model(cfg)
+    mesh = make_host_mesh(*shape, device="cpu")
+    with np.load(serve_params_path(out_dir, case)) as z:
+        params_np = unflat_tree(dict(z))
+    params = params_from_jax(params_np, "cpu")
+    G0, rounds = train_inputs(cfg, params_np)
+    G0 = params_from_jax(G0, "cpu")
+
+    def clone(t):
+        return tree_map(lambda x: x.clone(), t)
+
+    def batch_of(b):
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+
+    # the unsplit step, round by round
+    step0 = make_train_step(model, cfg, TN, TK)
+    want, p, G = [], clone(params), clone(G0)
+    for b, act, eta in rounds:
+        p, G, m = step0(p, G, batch_of(b), torch.from_numpy(act), eta)
+        want.append((clone(p), clone(G), m["loss"].clone()))
+
+    if planned:
+        plan = plan_config(cfg, "train_4k", mesh,
+                           inner_update_constraint=True)
+        step = plan.fn
+        ins, outs = ([tree_map(lambda s: s.spec, sh) for sh in shs[:2]]
+                     for shs in (plan.in_shardings, plan.out_shardings))
+    else:
+        step = make_train_step(model, cfg, TN, TK, mesh=mesh)
+    split = step.split
+    pspecs, gspecs = split.param_specs, split.state_specs
+    check = not planned or (ins == [pspecs, gspecs] and outs == ins)
+    p = take_tree(params, pspecs, mesh)
+    G = take_tree(G0, gspecs, mesh)
+    errs, shapes_ok, same = [], True, []
+    model_group = mesh.get_group(rules.MODEL)
+
+    def on_model(spec) -> bool:
+        return rules.MODEL in rules.sharded_axes([spec], mesh)
+    for r, (b, act, eta) in enumerate(rounds):
+        batch = batch_of(b)
+        bspecs = rules.batch_specs(batch, mesh,
+                                   sequential_clients=cfg.sequential_clients)
+        args = (p, G, take_tree(batch, bspecs, mesh), torch.from_numpy(act),
+                eta)
+        p, G, m = run_placed(plan, *args) if planned else step(*args)
+        wp, wG, wl = want[r]
+        ok, err = train_gap([p, G, m["loss"]],
+                            [take_tree(wp, pspecs, mesh),
+                             take_tree(wG, gspecs, mesh), wl])
+        shapes_ok = shapes_ok and ok
+        errs.append(err)
+        # replicated values bit-equal: the loss and the params the model
+        # axis leaves whole over the world, G's such leaves over the rank's
+        # model group (data ranks hold other clients)
+        repl = [m["loss"]] + [x for x, s in zip(tree_leaves(p),
+                                                tree_leaves(pspecs))
+                              if not on_model(s)]
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, digests(repl))
+        g_repl = [x for x, s in zip(tree_leaves(G), tree_leaves(gspecs))
+                  if not on_model(s)]
+        g_parts = [None] * dist.get_world_size(model_group)
+        dist.all_gather_object(g_parts, digests(g_repl), group=model_group)
+        same.append(all(x == parts[0] for x in parts)
+                    and all(x == g_parts[0] for x in g_parts))
+        whole_p = whole_tree(p, pspecs, mesh)
+        whole_G = whole_tree(G, gspecs, mesh)
+        # copies: the sequential step writes G's rows in place next round
+        for k, v in flat_tree({"params": whole_p, "G": whole_G}).items():
+            out[f"{case}/r{r}/{k}"] = v.numpy().copy()
+        out[f"{case}/r{r}/loss"] = m["loss"].numpy().copy()
+    layouts = {str(i): (g.cache, g.heads, g.kv_cols, g.mlp)
+               for i, g in split.segments.items()}
+    # `TrainSplit.move` between two dims split over model (the all-to-all)
+    # and back, against the tensor taken whole and cut; a rank puts in
+    # (M - 1) / M of its block
+    msize = split.axis.size
+    x = torch.randn(3, 4 * msize, 6 * msize,
+                    generator=torch.Generator().manual_seed(5))
+    src, dst = rules.P(None, rules.MODEL, None), rules.P(None, None,
+                                                          rules.MODEL)
+    blk = take(x, src, mesh)
+    before = split.axis.moved["relayout"]
+    there = split.move(blk, src, dst)
+    put_in = split.axis.moved["relayout"] - before
+    back = split.move(there, dst, src)
+    exchange = (torch.equal(there, take(x, dst, mesh))
+                and torch.equal(back, blk)
+                and put_in * msize == blk.numel() * 4 * (msize - 1))
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, {
+        "exchange": exchange,
+        "shapes": shapes_ok and check, "err": errs, "replicated": same,
+        "layouts": layouts, "embed": split.embed, "head": split.head,
+        "sequential": cfg.sequential_clients,
+        "moved": dict(split.axis.moved),
+        "relayout_axes": sorted(rules.sharded_axes(
+            [gspecs], mesh))})
+    info[case] = parts
+
+
+def world_of_train(out: dict, info: dict, out_dir: str) -> None:
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    for case, (_, _, shape, _) in TRAIN_CASES.items():
+        if shape[0] * shape[1] == world:
+            train_case(out, info, case, out_dir)
     dist.barrier()
 
 
@@ -792,6 +1032,8 @@ def rank_main(rank: int, world: int, out_dir: str,
             world_of_params(out, info, out_dir)
         elif cases == "serve":
             world_of_serve(out, info, out_dir)
+        elif cases == "train":
+            world_of_train(out, info, out_dir)
         elif world == 1:
             world_of_one(out, info)
         else:
@@ -808,13 +1050,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, choices=(1, 2, 4), required=True)
     ap.add_argument("--out", required=True)
-    ap.add_argument("--cases", choices=("paper", "params", "serve"),
+    ap.add_argument("--cases", choices=("paper", "params", "serve", "train"),
                     default="paper")
     args = ap.parse_args()
     if args.cases == "params" and args.world != 4:
         ap.error("--cases params runs in a world of 4")
-    if args.cases != "serve" and args.world == 2:
-        ap.error("a world of 2 runs --cases serve")
+    if args.cases not in ("serve", "train") and args.world == 2:
+        ap.error("a world of 2 runs --cases serve or train")
     import torch.multiprocessing as mp
     mp.spawn(rank_main, args=(args.world, args.out, args.cases),
              nprocs=args.world, join=True)
