@@ -246,7 +246,7 @@ Run from the root of a checkout on a machine with a CUDA card. It
      granite-3-8b's `train_4k` vmap step (2 layers, full width) through
      `run_placed` bit-equal to the plain step with one `mifa_aggregate`
      launch (`placed_train_step`);
- 24. drives split products on the serving path (`split_phase`, lines
+ 24. drives split products (`split_phase`, lines
      starting `split `): `flash_attention` against its plain version and
      timed beside sdpa at each rank's heads, then a gloo world of two
      processes on this card (`split_rank`, a 1x2 mesh) serving
@@ -270,7 +270,22 @@ Run from the root of a checkout on a machine with a CUDA card. It
      seeded updates) held against `mifa_aggregate_ref` on the same blocks;
      each rank's peak
      allocation, the bytes it moved a round by kind (all-reduce,
-     all-gather, relayout) and its host-staged ms a round.
+     all-gather, relayout) and its host-staged ms a round; then, in the
+     same world, the federated round on each rank's blocks
+     (`run_fl(engine="scan", mesh=1x2, cfg=)`, lines `split fl `; K=2,
+     2 x 128 tokens, inv_t(0.02)): granite-3-8b MIFA(array) (1 layer f32,
+     N=2, 3 rounds in scan chunks of 2, Bernoulli availability),
+     BankedMIFA(DenseBank(mesh=, cfg=)) (2 layers bf16, N=4, C=2, 3
+     rounds), gemma3-4b MIFA(array) (2 layers bf16, vocab split, 2 rounds)
+     and BankedMIFA(PagedDeviceBank) (1 layer bf16, held whole, 2 rounds),
+     each against the unsplit run by rank 0 alone after (params, G or the
+     bank's rows and G_sum and the losses within the bounds, n_active
+     exact); every round eager (none replayed: gloo cannot be captured),
+     `mifa_aggregate`, `bank_scatter` or `paged_bank_scatter` exactly once
+     a round on each rank, the MIFA runs' one more server step on G's
+     blocks against `mifa_aggregate_ref`, each rank's peak below the
+     unsplit run's (but the paged bank's, whole on every rank), the bytes
+     moved by kind and the host-staged ms a round.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX. Its
 rows are line-buffered, each phase prints its start time (`start <phase>
@@ -280,6 +295,7 @@ prints every thread's stack to stderr and exits with code 1.
 from __future__ import annotations
 
 import faulthandler
+import gc
 import json
 import math
 import os
@@ -3306,21 +3322,25 @@ def sim_phase(params0, problem, problem_cpu) -> tuple[dict, list]:
 # the recorded trace the phase replays: Gilbert–Elliott availability at rate
 # 0.5 with off-bursts of 6 rounds and 10% of the devices departing for
 # good, 64 rounds of N_CLIENTS devices, carried DUR_WINDOW rounds at a time
+# (the trace runs re-point it once, at round 12; the kill/resume runs'
+# chunks of DUR_KILL_CHUNK fit in it)
 DUR_TRACE = {"n": N_CLIENTS, "horizon": 64, "seed": 7, "rate": 0.5,
              "burst": 6.0, "churn_frac": 0.1}
-DUR_WINDOW = 16
+DUR_WINDOW = 12
 # the trace and elastic-fleet runs take DUR_ROUNDS rounds on the scan in
 # chunks of DUR_CHUNK (its timing reads the middle two of four chunks); the
 # kill/resume runs DUR_KILL_ROUNDS in chunks of DUR_KILL_CHUNK; the
 # million-client bank is snapshotted after DUR_MILLION_ROUNDS rounds (its
-# pool of 2048 rows fills in 4, so pages spill)
-DUR_ROUNDS, DUR_CHUNK, DUR_KILL_ROUNDS, DUR_MILLION_ROUNDS = 20, 5, 30, 6
+# pool of 2048 rows fills in 4, so pages spill). Cut from 20 rounds in
+# chunks of 5 (window 16, departures at 16) and 6 million-client rounds,
+# every check kept, to make room for the split federated rounds
+DUR_ROUNDS, DUR_CHUNK, DUR_KILL_ROUNDS, DUR_MILLION_ROUNDS = 16, 4, 30, 5
 DUR_KILL_CHUNK = 10
 # the elastic fleets over the trace: half the capacity at round 0, the rest
-# arriving every 4 rounds, 10% departing at round 16 (|A| <= 55 <=
+# arriving every 4 rounds, 10% departing at round 12 (|A| <= 55 <=
 # FLEET_CAP)
 DUR_ELASTIC = {"n_initial": 50, "arrive_every": 4, "depart_frac": 0.1,
-               "depart_at": 16}
+               "depart_at": 12}
 # kill and resume: snapshots every DUR_EVERY rounds, the killed run stops
 # after DUR_KILL rounds and resumes from its round-20 snapshot to round
 # DUR_KILL_ROUNDS. Round 0 of the trace is all-active, so a paged bank must
@@ -5794,6 +5814,44 @@ SPLIT_SHAPES = {"granite-3-8b": (SERVE_B, SERVE_PROMPT, 16, 4, 128),
                 "qwen1.5-110b": (SERVE_B, SERVE_PROMPT, 32, 4, 128)}
 SPLIT_TIMEOUT_S = 420
 SPLIT_DIR = ROOT / "build" / "split"
+# the split world's queue (`split_phase`): a rank's CUDA blocks reach rank 0
+# through it as CUDA IPC handles (`whole_on_rank0`); None outside the world
+SPLIT_QUEUE = None
+
+
+def whole_on_rank0(tree, specs, mesh):
+    """On rank 0, the whole tree from every rank's blocks under `specs`
+    (a tree of PartitionSpecs), assembled on the card; None on the other
+    ranks. The other ranks send their blocks through SPLIT_QUEUE as CUDA
+    IPC handles (both processes on one card: rank 0 reads them where they
+    lie, where a gloo gather stages them through the host at about 0.4
+    GB/s) and keep them until rank 0 has copied them (the barrier). For
+    the checks only: no run computes with it."""
+    import torch.distributed as dist
+    from repro_torch.sharding.params import block_slices, whole_shape
+    from repro_torch.tree import tree_map
+    # in `tree_map` order, which rebuilds the tree below
+    pairs = []
+    tree_map(lambda b, s: pairs.append((b, s)), tree, specs)
+    blocks, spec_list = [b for b, _ in pairs], [s for _, s in pairs]
+    if dist.get_rank() != 0:
+        SPLIT_QUEUE.put((mesh.get_coordinate(), blocks))
+        dist.barrier()
+        return None
+    wholes = [torch.empty(whole_shape(tuple(b.shape), s, mesh),
+                          dtype=b.dtype, device=b.device)
+              for b, s in zip(blocks, spec_list)]
+    parts = [(mesh.get_coordinate(), blocks)] + [
+        SPLIT_QUEUE.get(timeout=SPLIT_TIMEOUT_S)
+        for _ in range(dist.get_world_size() - 1)]
+    for coord, bs in parts:
+        for w, b, s in zip(wholes, bs, spec_list):
+            w[block_slices(s, tuple(w.shape), mesh, coord)] = b
+    torch.cuda.synchronize()
+    del parts
+    dist.barrier()
+    it = iter(wholes)
+    return tree_map(lambda _: next(it), tree)
 
 
 def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
@@ -5950,8 +6008,10 @@ def split_reference(model, batch, toks, outs, got_cache, dtype, C) -> dict:
 # configs' default): granite-3-8b's vmap step in bf16 (its head whole:
 # vocab 49155 is odd) and in f32 at 1 layer; gemma3-4b's (vocab 262144
 # split: the vocab-split cross-entropy at hd 256); granite's sequential
-# step under its update constraint through the planner (K = 1)
-SPLIT_TRAIN_N, SPLIT_TRAIN_K, SPLIT_TRAIN_ROUNDS = 2, 2, 2
+# step under its update constraint through the planner (K = 1). One round
+# (two until the split federated runs below took its place: they chain
+# three rounds on the blocks), client 1 inactive in it
+SPLIT_TRAIN_N, SPLIT_TRAIN_K, SPLIT_TRAIN_ROUNDS = 2, 2, 1
 SPLIT_TRAIN_MASKS = ((True, False), (True, True))
 SPLIT_TRAIN_RUNS = (
     ("granite-3-8b", "granite_3_8b", 1, "float32", False),
@@ -5983,7 +6043,8 @@ def split_train_inputs(cfg) -> list:
         inv_t(TRAIN_ETA0)(t + 1)) for t in range(SPLIT_TRAIN_ROUNDS)]
 
 
-def split_train_zeros(cfg, specs, mesh) -> dict:
+def split_train_zeros(cfg, specs, mesh, n_clients: int = SPLIT_TRAIN_N
+                      ) -> dict:
     """Zeros of G in the memory dtype: this rank's blocks under `specs`
     (whole where `mesh` is None)."""
     from repro_torch.launch.specs import param_shapes
@@ -5992,7 +6053,7 @@ def split_train_zeros(cfg, specs, mesh) -> dict:
     from repro_torch.tree import tree_map
 
     def zeros(t, s=None):
-        shape = (SPLIT_TRAIN_N,) + tuple(t.shape)
+        shape = (n_clients,) + tuple(t.shape)
         if mesh is not None:
             shape = block_shape(shape, s, mesh, "cuda", split=True)
         return torch.zeros(shape, dtype=DTYPES[cfg.memory_dtype],
@@ -6042,7 +6103,7 @@ def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
     from repro_torch.launch.specs import plan_config
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
-    from repro_torch.sharding.params import take_tree, whole_tree
+    from repro_torch.sharding.params import take_tree
     from repro_torch.tree import tree_leaves, tree_map
     t_run = time.perf_counter()
     rank = dist.get_rank()
@@ -6087,11 +6148,9 @@ def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
             tree_map(torch.clone, G), active, eta)
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
-    got_p = whole_tree(params, split.param_specs, mesh, split=True)
-    got_G = whole_tree(G, split.state_specs, mesh, split=True)
+    got_p = whole_on_rank0(params, split.param_specs, mesh)
+    got_G = whole_on_rank0(G, split.state_specs, mesh)
     del params, G
-    if rank != 0:
-        del got_p, got_G
     torch.cuda.empty_cache()
     dist.barrier()
     out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
@@ -6109,18 +6168,19 @@ def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
     return out
 
 
-def unsplit_train_rounds(cfg, model, inputs) -> dict:
+def unsplit_train_rounds(cfg, model, inputs,
+                         n_clients: int = SPLIT_TRAIN_N) -> dict:
     """The unsplit train step of `cfg` over `inputs` from the split run's
     start (params from seed 0, G zeros): its params, G, losses, counts
     and ms a round, and its peak above what was allocated before it."""
     from repro_torch.launch.steps import make_train_step
-    step = make_train_step(model, cfg, SPLIT_TRAIN_N, cfg.fl_local_steps)
+    step = make_train_step(model, cfg, n_clients, cfg.fl_local_steps)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     params = model.init(0, device="cuda")
-    G = split_train_zeros(cfg, None, None)
+    G = split_train_zeros(cfg, None, None, n_clients)
     counts, ms, losses = [], [], []
     for batch, active, eta in inputs:
         reset_counts()
@@ -6182,16 +6242,330 @@ def split_train_reference(cfg, model, inputs, got_p, got_G, losses,
     return out
 
 
-def split_rank(rank: int, out_dir: str) -> None:
+# split products in the federated round: `run_fl(engine="scan", mesh=1x2,
+# cfg=)` at full width, each client's local update on the rank's blocks and
+# the server step on G's or the bank rows' blocks, every round run eagerly
+# (gloo cannot be captured); K = 2 local steps of 2 x 128 tokens, scan
+# chunks of 2. (label, arch, layers, dtype, algorithm, N, cohort capacity,
+# rounds): (i) granite-3-8b MIFA(array) in f32 under Bernoulli
+# availability (a round with an inactive client); (ii) its BankedMIFA(
+# DenseBank(mesh=, cfg=)) in bf16 and (iv) BankedMIFA(PagedDeviceBank), held
+# whole on every rank, under SPLIT_FL_COHORTS; (iii) gemma3-4b MIFA(array)
+# in bf16, the vocab split across the head
+SPLIT_FL_K, SPLIT_FL_CHUNK, SPLIT_FL_ETA0 = 2, 2, 0.02
+SPLIT_FL_RUNS = (
+    ("(i) granite-3-8b MIFA(array)", "granite_3_8b", 1, "float32",
+     "mifa_array", 2, None, 3),
+    ("(ii) granite-3-8b BankedMIFA(DenseBank)", "granite_3_8b", 2,
+     "bfloat16", "banked_dense", 4, 2, 3),
+    ("(iii) gemma3-4b MIFA(array)", "gemma3_4b", 2, "bfloat16",
+     "mifa_array", 2, None, 2),
+    ("(iv) granite-3-8b BankedMIFA(PagedDeviceBank)", "granite_3_8b", 1,
+     "bfloat16", "banked_paged", 4, 2, 2))
+# the kernel each algorithm's server step launches, once a round a rank
+SPLIT_FL_KERNEL = {"mifa_array": "mifa_aggregate",
+                   "banked_dense": "bank_scatter",
+                   "banked_paged": "paged_bank_scatter"}
+# the dense runs' availability: Bernoulli (1.0, 0.6) of seed 1, which
+# leaves client 1 out of rounds 1 and 2; the cohort runs' two of four
+SPLIT_FL_PROBS, SPLIT_FL_SEED = (1.0, 0.6), 1
+SPLIT_FL_COHORTS = ((True, False, True, False), (False, True, True, False),
+                    (True, False, False, True))
+
+
+class FixedMasks:
+    """Availability of fixed masks, one a round (`.sample(t)`)."""
+
+    def __init__(self, masks):
+        self.masks = [np.asarray(m, bool) for m in masks]
+
+    def sample(self, t: int) -> np.ndarray:
+        return self.masks[t].copy()
+
+
+def split_fl_setup(arch: str, n_layers: int, dtype: str, algo: str, n: int,
+                   cap, rounds: int, mesh=None) -> tuple:
+    """(cfg, model, run_fl's keywords but params, a fresh algorithm placed
+    on `mesh`) of a split fl run."""
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.configs import get_config
+    from repro_torch.core import MIFA, BernoulliParticipation
+    from repro_torch.data import TokenBatcher
+    from repro_torch.models import build_model
+    from repro_torch.optim import inv_t
+    cfg = get_config(arch).replace(
+        n_layers=n_layers, param_dtype=dtype, compute_dtype=dtype,
+        memory_dtype=dtype, fl_clients=n, fl_local_steps=SPLIT_FL_K)
+    part = (FixedMasks(SPLIT_FL_COHORTS) if cap else BernoulliParticipation(
+        np.asarray(SPLIT_FL_PROBS), seed=SPLIT_FL_SEED))
+    kw = dict(batcher=TokenBatcher(n_clients=n, vocab=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ, batch_size=TRAIN_MB,
+                                   k_steps=SPLIT_FL_K, seed=0),
+              participation=part, schedule=inv_t(SPLIT_FL_ETA0),
+              n_rounds=rounds, engine="scan", scan_chunk=SPLIT_FL_CHUNK,
+              cohort_capacity=cap, device="cuda")
+    make = {"mifa_array": lambda: MIFA(memory="array", memory_dtype=dtype),
+            "banked_dense": lambda: BankedMIFA(DenseBank(
+                dtype=dtype, mesh=mesh, cfg=None if mesh is None else cfg,
+                device="cuda")),
+            "banked_paged": lambda: BankedMIFA(PagedDeviceBank(
+                page_size=1, n_slots=n, dtype=dtype, device="cuda"))}[algo]
+    return cfg, build_model(cfg), kw, make()
+
+
+class DriverLog:
+    """While active, records every `ScanDriver` that `run_fl` builds."""
+
+    def __enter__(self):
+        from repro_torch.core import scan_engine
+        self.drivers, self._base = [], scan_engine.ScanDriver
+        log = self
+
+        class Recorded(self._base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                log.drivers.append(self)
+        scan_engine.ScanDriver = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import scan_engine
+        scan_engine.ScanDriver = self._base
+
+
+def split_fl_view(algo: str, bank, state, n: int) -> dict:
+    """What a run compares besides its params, whole: MIFA's G, or a
+    bank's first N rows (a paged bank's read back in f32) and G_sum."""
+    from repro_torch.tree import tree_map
+    if algo == "mifa_array":
+        return {"G": state["G"]}
+    if algo == "banked_paged":
+        rows = bank.gather(state["bank"], np.arange(n))
+    else:
+        rows = tree_map(lambda r: r[:n], state["bank"]["rows"])
+    return {"rows": rows, "g_sum": state["bank"]["g_sum"]}
+
+
+def split_fl_whole(drv, algo, mesh) -> tuple:
+    """(params, state) of a split run whole on rank 0 (`whole_on_rank0`;
+    a paged bank is whole on every rank already), (None, None) on the
+    other ranks: what `ScanDriver.whole_carry` gives, without gloo."""
+    import torch.distributed as dist
+    from repro_torch.bank.dense import DenseBank
+    r = drv.r
+    params = whole_on_rank0(r.params, drv.placement.param_specs, mesh)
+    bank = getattr(algo, "bank", None)
+    if bank is None:
+        state = {"G": whole_on_rank0(r.state["G"], drv._state_specs["G"],
+                                     mesh)}
+    elif isinstance(bank, DenseBank):
+        state = {"bank": {
+            "rows": whole_on_rank0(r.state["bank"]["rows"], bank.row_specs,
+                                   mesh),
+            "g_sum": whole_on_rank0(r.state["bank"]["g_sum"],
+                                    bank.sum_specs, mesh)}}
+    else:
+        state = r.state
+    if dist.get_rank() != 0:
+        return None, None
+    return params, state
+
+
+def split_fl_run(label: str, arch: str, n_layers: int, dtype: str,
+                 algo: str, n: int, cap, rounds: int, mesh) -> dict:
+    """One rank's part of a split federated run: `run_fl(engine="scan",
+    mesh=, cfg=)` from params of seed 0, every count set to 0 just before
+    it and read just after (its kernel once a round on each rank's blocks,
+    nothing else), the rounds run eagerly and none replayed; for
+    MIFA(array) one more server step on a copy of G's blocks against its
+    plain version (`split_server_check`). Then the run is gathered whole
+    onto rank 0, every other rank frees its memory, and rank 0 runs the
+    unsplit run alone (`split_fl_reference`)."""
+    import torch.distributed as dist
+    from repro_torch.core import run_fl
+    from repro_torch.tree import tree_leaves, tree_map
+    t_run = time.perf_counter()
+    rank = dist.get_rank()
+    cfg, model, kw, fresh = split_fl_setup(arch, n_layers, dtype, algo, n,
+                                           cap, rounds, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with DriverLog() as log:
+        reset_counts()
+        t0 = time.perf_counter()
+        params, hist = run_fl(model=model, algo=fresh,
+                              params=model.init(0, device="cuda"),
+                              mesh=mesh, cfg=cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    drv = log.drivers[-1]
+    split = drv.placement.split
+    check(split is not None and drv.eager,
+          f"split fl {label}: the round is not split and eager")
+    mine = {"peak": peak, "counts": counts, "ms": wall / rounds * 1e3,
+            "moved": dict(split.axis.moved), "losses": hist.train_loss,
+            "n_active": hist.n_active, "eager_rounds": drv.eager_rounds,
+            "replays": drv.replays,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(drv.r.state)
+                               if isinstance(t, torch.Tensor))}
+    if algo == "mifa_array":
+        active = torch.as_tensor(kw["participation"].sample(rounds - 1),
+                                 device="cuda")
+        mine["server_check"] = split_server_check(
+            f"split fl {label} server step", split, params,
+            tree_map(torch.clone, drv.r.state["G"]), active,
+            kw["schedule"](rounds))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    t0 = time.perf_counter()
+    got_p, state = split_fl_whole(drv, fresh, mesh)
+    got = split_fl_view(algo, fresh.bank if algo != "mifa_array" else None,
+                        state, n) if rank == 0 else None
+    gather_s = time.perf_counter() - t0
+    del params, state, drv, log
+    # a ScanDriver's closures hold the run's carry in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
+                    f" {dtype}", "ranks": ranks, "algo": algo,
+           "rounds": rounds, "head_split": split.head,
+           "gather_s": gather_s}
+    if rank == 0:
+        out.update(split_fl_reference(
+            label, (arch, n_layers, dtype, algo, n, cap, rounds), got_p, got,
+            hist))
+        del got_p, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["wall_s"] = time.perf_counter() - t_run
+    return out
+
+
+def split_fl_reference(label: str, run: tuple, got_p, got, hist) -> dict:
+    """Rank 0's unsplit `run_fl(engine="scan")` of the same run (params of
+    seed 0, the same batches and masks) against the split run gathered
+    whole, leaf by leaf (params, then G or the bank's rows and G_sum) and
+    the losses: f32 within the f32 training bound (`model_gap`); bf16
+    within SPLIT_TOL's bf16 bound or, for a leaf where the unsplit MIFA
+    train step's sequential mode (the same rounds summed in another order)
+    is itself beyond it, within twice that mode's gap (the rule of
+    `split_train_reference`). n_active exact. Its peak counts its own
+    params and state, not the split run's it holds."""
+    from repro_torch.core import run_fl
+    from repro_torch.tree import tree_leaves
+    t_ref = time.perf_counter()
+    arch, n_layers, dtype, algo, n, cap, rounds = run
+    cfg, model, kw, fresh = split_fl_setup(*run)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with DriverLog() as log:
+        reset_counts()
+        t0 = time.perf_counter()
+        ref_p, ref_h = run_fl(model=model, algo=fresh,
+                              params=model.init(0, device="cuda"), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    drv = log.drivers[-1]
+    ref = split_fl_view(algo, fresh.bank if algo != "mifa_array" else None,
+                        drv.r.state, n)
+    out = {"unsplit_peak": torch.cuda.max_memory_allocated() - base,
+           "unsplit_counts": counts, "unsplit_replays": drv.replays,
+           "unsplit_eager_rounds": drv.eager_rounds,
+           "unsplit_ms": wall / rounds * 1e3,
+           "unsplit_losses": ref_h.train_loss}
+    # the captured round's memory pool, before the leaves are compared
+    del drv, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(hist.n_active == ref_h.n_active and min(hist.n_active) < n,
+          f"split fl {label}: n_active {hist.n_active}, unsplit "
+          f"{ref_h.n_active}")
+    check(all(np.isfinite(hist.train_loss)),
+          f"split fl {label}: losses {hist.train_loss}")
+    rtol, atol = SPLIT_TOL[dtype]
+
+    def gap(a, b) -> float:
+        if dtype == "float32":
+            return model_gap(a, b)
+        # in runs of 2^26 elements: a leaf of G is gigabytes in f32
+        a, b, worst = a.reshape(-1), b.to(a.device).reshape(-1), 0.0
+        for i in range(0, a.numel(), 1 << 26):
+            x, y = a[i:i + (1 << 26)].float(), b[i:i + (1 << 26)].float()
+            worst = max(worst, float(((x - y).abs() / (
+                atol + rtol * y.abs())).max()))
+        return worst
+
+    def gaps(p, view, losses) -> list:
+        return [gap(a, b) for a, b in zip(
+            tree_leaves(p) + tree_leaves(view),
+            tree_leaves(ref_p) + tree_leaves(ref))] + [
+            gap(torch.tensor(losses), torch.tensor(ref_h.train_loss))]
+    got_gaps = gaps(got_p, got, hist.train_loss)
+    out.update(leaf_gap=max(got_gaps[:-1]), loss_gap=got_gaps[-1])
+    over = [j for j, g in enumerate(got_gaps) if g > 1]
+    if over and dtype != "float32":
+        noise = gaps(*split_fl_sequential(cfg, model, kw, algo, n, rounds))
+        out["noise_gap"] = max(noise)
+        out["over"] = [(j, got_gaps[j], noise[j]) for j in over]
+        over = [j for j in over if got_gaps[j] > 2 * noise[j]]
+    check(not over, f"split fl {label} vs unsplit: loss {got_gaps[-1]:.3e}, "
+                    f"leaves {[f'{x:.3e}' for x in got_gaps[:-1]]} of the "
+                    f"bound; beyond it {out.get('over', over)}")
+    del ref_p, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reference_s"] = time.perf_counter() - t_ref
+    return out
+
+
+def split_fl_sequential(cfg, model, kw, algo: str, n: int,
+                        rounds: int) -> tuple:
+    """The same rounds through the unsplit MIFA train step in sequential
+    mode (`make_train_step`, one client's update at a time), from params
+    of seed 0 and G = 0: (params, the view a run of `algo` compares, the
+    losses of the active clients)."""
+    from repro_torch.tree import tree_map
+    other = cfg.replace(sequential_clients=True)
+    batcher, part = kw["batcher"], kw["participation"]
+    inputs = []
+    for t in range(rounds):
+        active = part.sample(t)
+        inputs.append(({"tokens": torch.from_numpy(
+            batcher.sample_round(t)["tokens"]).cuda()},
+            torch.as_tensor(active, device="cuda"), kw["schedule"](t + 1)))
+    seq = unsplit_train_rounds(other, model.__class__(other), inputs,
+                               n_clients=n)
+    G = seq["G"]
+    view = ({"G": G} if algo == "mifa_array" else
+            {"rows": G, "g_sum": tree_map(lambda g: g.float().sum(0), G)})
+    return seq["params"], view, seq["losses"]
+
+
+def split_rank(rank: int, out_dir: str, queue) -> None:
     """A rank of the split phase's world: two processes on cuda:0 that
     meet on a FileStore and talk gloo (which carries CUDA tensors through
-    the host), a 1x2 `make_host_mesh(device="cuda")`, every SPLIT_RUNS
-    run; rank 0 writes the results as JSON into `out_dir`. The rank ends
-    when the phase's process does (PR_SET_PDEATHSIG), so the watchdog's
-    exit ends it too."""
+    the host), a 1x2 `make_host_mesh(device="cuda")`, every SPLIT_RUNS,
+    SPLIT_TRAIN_RUNS and SPLIT_FL_RUNS run; `queue` carries the checks'
+    blocks to rank 0 (`whole_on_rank0`); rank 0 writes the results as
+    JSON into `out_dir`. The rank ends when the phase's process does
+    (PR_SET_PDEATHSIG), so the watchdog's exit ends it too."""
     import ctypes
     import signal
     from datetime import timedelta
+    global SPLIT_QUEUE
+    SPLIT_QUEUE = queue
     ctypes.CDLL(None).prctl(1, signal.SIGKILL)
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
@@ -6209,7 +6583,8 @@ def split_rank(rank: int, out_dir: str) -> None:
         mesh = make_host_mesh(1, SPLIT_RANKS, device="cuda")
         runs = {"serve": [split_run(*run, mesh) for run in SPLIT_RUNS],
                 "train": [split_train_run(*run, mesh)
-                          for run in SPLIT_TRAIN_RUNS]}
+                          for run in SPLIT_TRAIN_RUNS],
+                "fl": [split_fl_run(*run, mesh) for run in SPLIT_FL_RUNS]}
         if rank == 0:
             with open(os.path.join(out_dir, "split.json"), "w") as f:
                 json.dump(runs, f)
@@ -6277,14 +6652,89 @@ def split_train_rows(runs: list, smi: str) -> tuple[dict, list, float]:
     return launches, rows, err
 
 
+def split_fl_rows(runs: list, smi: str) -> tuple[dict, list, float]:
+    """The split federated runs' checks and rows: on every rank its
+    kernel exactly once a round and nothing else, every round eager and
+    none replayed; the unsplit run's kernel once a replay plus once in
+    the warm-up before its capture. Returns (each kernel's launches a rank
+    over each run's rounds, rows, the server step check's max |dw|)."""
+    launches, rows, err = {}, [], 0.0
+    for run, spec in zip(runs, SPLIT_FL_RUNS):
+        label, rounds = run["label"], run["rounds"]
+        kernel = SPLIT_FL_KERNEL[run["algo"]]
+        for r in run["ranks"]:
+            others = {k: v for k, v in r["counts"].items() if k != kernel}
+            check(r["counts"][kernel] == rounds
+                  and not any(others.values()),
+                  f"split fl {label}: launches {r['counts']}, expected "
+                  f"{kernel} {rounds} and nothing else")
+            check(r["eager_rounds"] == rounds and r["replays"] == 0,
+                  f"split fl {label}: eager rounds {r['eager_rounds']}, "
+                  f"replays {r['replays']}")
+        uc = run["unsplit_counts"]
+        check(uc[kernel] == rounds + 1
+              and not any(v for k, v in uc.items() if k != kernel)
+              and run["unsplit_replays"] == rounds
+              and run["unsplit_eager_rounds"] == 0,
+              f"split fl {label}: unsplit launches {uc}, replays "
+              f"{run['unsplit_replays']}")
+        launches.setdefault(kernel, {})[label] = [
+            r["counts"][kernel] for r in run["ranks"]]
+        r0 = run["ranks"][0]
+        peaks = ", ".join(f"rank {i} {r['peak']} B (params "
+                          f"{r['param_bytes']} B, state {r['state_bytes']} "
+                          f"B)" for i, r in enumerate(run["ranks"]))
+        # a paged bank is whole on every rank, so only the split products'
+        # runs must peak below the unsplit run
+        check(run["algo"] == "banked_paged" or all(
+            r["peak"] < run["unsplit_peak"] for r in run["ranks"]),
+              f"split fl {label}: a rank's peak is not below the unsplit "
+              f"run's: {peaks}; unsplit {run['unsplit_peak']} B")
+        what = "G" if run["algo"] == "mifa_array" else "bank rows and G_sum"
+        rows += [
+            f"fl {label} on 1x{SPLIT_RANKS} (run_fl engine=scan, "
+            f"mesh=, cfg=; head "
+            f"{'vocab-split' if run['head_split'] else 'whole'}; "
+            f"{spec[5]} clients, K={SPLIT_FL_K}, {rounds} rounds in chunks "
+            f"of {SPLIT_FL_CHUNK}, n_active {r0['n_active']}): losses "
+            f"{[round(x, 6) for x in r0['losses']]}, unsplit "
+            f"{[round(x, 6) for x in run['unsplit_losses']]}; params and "
+            f"{what} vs unsplit {run['leaf_gap']:.3f} of the bound, loss "
+            f"{run['loss_gap']:.3f}{split_noise_note(run)}; {kernel} "
+            f"launches per rank {launches[kernel][label]}; eager rounds "
+            f"per rank {[r['eager_rounds'] for r in run['ranks']]}, replays "
+            f"{[r['replays'] for r in run['ranks']]} (unsplit run: replays "
+            f"{run['unsplit_replays']}, {kernel} {uc[kernel]} with its "
+            f"warm-up)",
+            f"fl {label} peak allocation: split {peaks}; unsplit "
+            f"{run['unsplit_peak']} B; {smi}",
+            f"fl {label} bytes rank 0 moved over {rounds} rounds: "
+            f"{r0['moved']}",
+            f"fl {label} host-staged through gloo (not a speed figure): ms "
+            f"a round {r0['ms']:.3f} (the run's wall clock over its rounds),"
+            f" unsplit {run['unsplit_ms']:.3f}; the run with its checks "
+            f"{run['wall_s']:.1f} s (host clock), of which the gather onto "
+            f"rank 0 {run['gather_s']:.1f} s and the unsplit run with the "
+            f"comparison {run['reference_s']:.1f} s; {smi}"]
+        if "server_check" in r0:
+            worst, elements = r0["server_check"]
+            err = max(err, worst)
+            rows.append(f"fl {label} server step on each rank's blocks of G:"
+                        f" mifa_aggregate against mifa_aggregate_ref, "
+                        f"{elements} elements of G bit-equal on rank 0, max "
+                        f"|dw| {worst:.3e}")
+    return launches, rows, err
+
+
 def split_phase(gen, smi: str) -> tuple[dict, list]:
-    """Split products on the serving path (`sharding.tensor_parallel`):
-    flash_attention against its plain version and timed beside sdpa at
-    each rank's heads (SPLIT_SHAPES), then a world of SPLIT_RANKS
-    processes on this card (`split_rank`, the kernels already built)
-    serving every SPLIT_RUNS run on its blocks, each held against the
-    unsplit run. Returns the check's |err|, the timing and each run's
-    per-rank launches; every row starts with "split "."""
+    """Split products (`sharding.tensor_parallel`): flash_attention
+    against its plain version and timed beside sdpa at each rank's heads
+    (SPLIT_SHAPES), then a world of SPLIT_RANKS processes on this card
+    (`split_rank`, the kernels already built) serving every SPLIT_RUNS run
+    on its blocks, training every SPLIT_TRAIN_RUNS step and running every
+    SPLIT_FL_RUNS federated run, each held against the unsplit run.
+    Returns the check's |err|, the timing and each run's per-rank
+    launches; every row starts with "split "."""
     import torch.multiprocessing as mp
     t_start = time.perf_counter()
     bf, f32 = torch.bfloat16, torch.float32
@@ -6304,7 +6754,8 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
     torch.cuda.empty_cache()
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
     SPLIT_DIR.mkdir(parents=True)
-    ctx = mp.start_processes(split_rank, args=(str(SPLIT_DIR),),
+    queue = mp.get_context("spawn").Queue()
+    ctx = mp.start_processes(split_rank, args=(str(SPLIT_DIR), queue),
                              nprocs=SPLIT_RANKS, join=False,
                              start_method="spawn")
     deadline = time.perf_counter() + SPLIT_TIMEOUT_S
@@ -6316,10 +6767,13 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
+        queue.close()
     runs = json.loads((SPLIT_DIR / "split.json").read_text())
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
     train_launches, train_rows, server_err = split_train_rows(
         runs["train"], smi)
+    fl_launches, fl_rows, fl_err = split_fl_rows(runs["fl"], smi)
+    server_err = max(server_err, fl_err)
     runs = runs["serve"]
     launches = {}
     for run, (_, _, n_layers, _) in zip(runs, SPLIT_RUNS):
@@ -6360,10 +6814,11 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
             f"{run['unsplit_prefill_ms']:.3f} ms, decode "
             f"{run['unsplit_decode_ms']:.3f} ms/step; the run with its "
             f"checks {run['wall_s']:.1f} s (host clock); {smi}"]
-    rows += train_rows
+    rows += train_rows + fl_rows
     rows.append(f"phase {time.perf_counter() - t_start:.1f} s")
     return ({"err": err, "timing": timing, "launches": launches,
-             "train_launches": train_launches, "server_err": server_err},
+             "train_launches": train_launches, "fl_launches": fl_launches,
+             "server_err": server_err},
             [f"split {r}" for r in rows])
 
 
@@ -6730,6 +7185,16 @@ def main() -> int:
                     f"N={SPLIT_TRAIN_N}, {SPLIT_TRAIN_ROUNDS} rounds, the "
                     "server step on each rank's blocks of G, one launch a "
                     "round in vmap mode and none in sequential mode"))
+        if name in split["fl_launches"]:
+            # the split phase's federated runs on a 1x2 mesh, each counted
+            # from 0 just before it on each rank
+            scan.update(
+                split_fl_launches=split["fl_launches"][name],
+                split_fl_launches_from=(
+                    f"split run_fl(engine='scan', mesh=1x{SPLIT_RANKS}, "
+                    "cfg=) on each rank, the server step on the rank's "
+                    "blocks (G's or the bank rows'; a paged bank whole on "
+                    "every rank), one launch a round, every round eager"))
         if name in scen_launches:
             scan.update(scenario_launches=scen_launches[name],
                         scenario_launches_from=scen_from[name])

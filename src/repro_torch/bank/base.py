@@ -53,6 +53,20 @@ class MemoryBank:
     round_rng = "cpu"
     on_device = True
     device: torch.device
+    # the column layout `scatter_staged` takes its updates in (a tree of
+    # PartitionSpecs; None: whole columns)
+    update_specs = None
+
+    def cols(self, updates: Any) -> Any:
+        """Whole-column updates in the layout `scatter_staged` takes (the
+        identity for a bank that holds its rows' columns whole)."""
+        return updates
+
+    def update_dtypes(self, state: dict) -> Any:
+        """A tree of tensors whose dtypes an update may move in before
+        `scatter_staged` without changing what it stores, or None (f32:
+        the int8 pages quantize from it)."""
+        return None
 
     def init(self, params: Any, n_clients: int) -> dict:
         """Zero-filled bank state for `n_clients` rows shaped like `params`."""

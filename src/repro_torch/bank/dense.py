@@ -19,19 +19,26 @@ launch for every leaf and all K trials, per trial bit-equal to
 With `mesh` (and `cfg`) the bank is placed over the mesh's axes
 (`sharding.params`): the rows by `sharding.rules.bank_row_specs` (the
 client axis over the data (and pod) axes, as the dense MIFA update array,
-and the param dims by the model rules), G_sum by `param_specs` (`cfg`; a
-bank without one keeps G_sum whole). The row count pads to
+and the param dims by the model rules), G_sum by the rows' param dims
+(`cfg`, `sum_specs`: the layout the scatter's delta sums come out in, so a
+round adds them where they are and the round body moves the mean to the
+params' placement; a bank without `cfg` keeps G_sum whole, as the
+reference's is unplaced). The row count pads to
 `sharding.rules.padded_bank_rows(N, mesh)` so the client axis divides the
 data extent, and at data extent D > 1 each rank holds its block of R / D
-rows (`shard`, a `sharding.clients.ClientShard`). A scatter takes the
-column block of the cohort's updates (whole columns, as the local update
-gives them) and the slots whose rows this rank owns (the others' are left
-out of its call); the delta sums are all-reduced over the data group and
-taken to G_sum's placement. `gather` returns the rank's column block of
-the rows it reads, all-reduced over the data group. `gather_state` and
-`place_state` turn the rank's blocks into the whole state of an unsplit
-bank (N + 1 rows) and back, for a run snapshot. At extent 1 the bank is
-the mesh-less one.
+rows (`shard`, a `sharding.clients.ClientShard`). `scatter_staged` takes
+the cohort's updates already in the rows' column blocks (`update_specs`:
+the round moves them there from the params' blocks under split products,
+`sharding.params.StepPlacement`, or cuts whole columns with `cols`;
+`scatter` takes whole columns and cuts them) and the slots whose rows
+this rank owns (the others' are left out of its call); the delta sums are
+all-reduced over the data group and taken to G_sum's placement. On a
+DeviceMesh of CUDA ranks (model extent > 1, data extent 1) the rows are
+CUDA blocks and `bank_scatter` runs on each rank's blocks. `gather`
+returns the rank's column block of the rows it reads, all-reduced over
+the data group. `gather_state` and `place_state` turn the rank's blocks
+into the whole state of an unsplit bank (N + 1 rows) and back, for a run
+snapshot. At extent 1 the bank is the mesh-less one.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from repro_torch.sharding.clients import client_shard
 from repro_torch.sharding.params import (block, block_shape, relayout,
                                          take_tree, whole_tree)
 from repro_torch.sharding.rules import (P, bank_row_specs, padded_bank_rows,
-                                        param_specs, sharded_axes)
+                                        sharded_axes)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -59,7 +66,7 @@ class DenseBank(MemoryBank):
         self.mesh = mesh
         self.cfg = cfg
         self.shard = None
-        self.row_specs = self.sum_specs = None
+        self.row_specs = self.sum_specs = self.update_specs = None
         self.n = 0
         self.n_rows = 0
 
@@ -80,14 +87,17 @@ class DenseBank(MemoryBank):
             self.row_specs = bank_row_specs(params, self.cfg, self.mesh,
                                             self.n_rows)
             if self.cfg is not None:
-                self.sum_specs = param_specs(params, self.cfg, self.mesh)
+                self.sum_specs = tree_map(lambda s: P(*s[1:]),
+                                          self.row_specs)
             self.shard = client_shard(self.mesh, self.n_rows, self.device,
                                       what="DenseBank rows")
+            self.update_specs = tree_map(lambda s: P(None, *s[1:]),
+                                         self.row_specs)
 
         def zeros(shape, spec, dtype, what):
             if self.mesh is not None:
                 shape = block_shape(shape, spec, self.mesh, self.device,
-                                    f"DenseBank {what}")
+                                    f"DenseBank {what}", split=True)
             return torch.zeros(shape, dtype=dtype, device=self.device)
         return {"rows": tree_map(lambda p, s: zeros(
                     (self.n_rows,) + tuple(p.shape), s, self.dtype, "rows"),
@@ -105,9 +115,9 @@ class DenseBank(MemoryBank):
         rows = tree_map(lambda r: torch.cat([r, r.new_zeros(
             (pad,) + tuple(r.shape[1:]))]) if pad else r, state["rows"])
         return {"rows": take_tree(rows, self.row_specs, self.mesh,
-                                  "DenseBank rows"),
+                                  "DenseBank rows", split=True),
                 "g_sum": take_tree(state["g_sum"], self.sum_specs,
-                                   self.mesh, "DenseBank G_sum")}
+                                   self.mesh, "DenseBank G_sum", split=True)}
 
     def gather_state(self, state: dict) -> dict:
         """The whole state of an unsplit bank (N + 1 rows: the padding
@@ -116,25 +126,40 @@ class DenseBank(MemoryBank):
         if self.mesh is None:
             return state
         rows = whole_tree(state["rows"], self.row_specs, self.mesh,
-                          "DenseBank rows")
+                          "DenseBank rows", split=True)
         return {**state,
                 "rows": tree_map(lambda r: r[:self.n + 1], rows),
                 "g_sum": whole_tree(state["g_sum"], self.sum_specs,
-                                    self.mesh, "DenseBank G_sum")}
+                                    self.mesh, "DenseBank G_sum",
+                                    split=True)}
 
-    def _cols(self, updates):
-        """The rows' column block of whole-column updates (C, ...)."""
+    def cols(self, updates):
+        """The rows' column block (`update_specs`) of whole-column updates
+        (C, ...)."""
         if self.mesh is None:
             return updates
-        return tree_map(lambda u, s: block(u, P(None, *s[1:]), self.mesh,
+        return tree_map(lambda u, s: block(u, s, self.mesh,
                                            "DenseBank updates").contiguous(),
-                        updates, self.row_specs)
+                        updates, self.update_specs)
+
+    def update_dtypes(self, state: dict):
+        """The rows: an update moves to its rows' blocks in their dtype,
+        to which the scatter rounds it first anyway."""
+        return state["rows"]
+
+    def _scatter_rows(self, state: dict, ids, updates, *, valid,
+                      rng=None) -> dict:
+        """`scatter`'s body: whole-column updates cut to the rows' column
+        blocks, then staged."""
+        return super()._scatter_rows(state, ids, self.cols(updates),
+                                     valid=valid, rng=rng)
 
     def _to_sum(self, dsum):
         """Delta sums in the rows' column layout -> G_sum's placement."""
         if self.mesh is None:
             return dsum
-        return tree_map(lambda d, s, g: relayout(d, P(*s[1:]), g, self.mesh),
+        return tree_map(lambda d, s, g: relayout(d, P(*s[1:]), g, self.mesh,
+                                                 split=True),
                         dsum, self.row_specs, self.sum_specs)
 
     def gather(self, state: dict, ids):
@@ -157,7 +182,6 @@ class DenseBank(MemoryBank):
 
     def scatter_staged(self, state: dict, rows: torch.Tensor,
                        valid: torch.Tensor, updates, *, rng=None) -> dict:
-        updates = self._cols(updates)
         if self.shard is None:
             new_rows, dsum = bank_update_tree(state["rows"], updates, rows,
                                               valid)

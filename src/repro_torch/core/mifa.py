@@ -28,7 +28,10 @@ the state holds the rank's block of the client axis and, where the params
 are placed over `model`, of the param dims (`params` and `updates` are
 then the same column blocks): each rank writes its active rows and takes
 its f32 partial column sum, the sums are all-reduced over the data group,
-then w moves. Such worlds run on the CPU (the plain versions). The int8
+then w moves (worlds of CPU ranks). At data extent 1 the rows are whole
+and the array layout is `mifa_aggregate_tree` on the rank's column
+blocks: the kernel on the card, in a world of ranks whose `model` axis
+splits (`run_fl(mesh=, cfg=)`, `sharding.params.StepPlacement`). The int8
 layout draws its rounding over the whole array and keeps the rank's block
 (`quantized_memory.quantize_leaf`), and gathers the int8 rows, scales and
 losses for the mean, so a split run is the unsplit run bit for bit.

@@ -62,7 +62,8 @@ def quantize_leaf(gen: torch.Generator, x: torch.Tensor, clients=None,
     else:
         u = placed.block(torch.rand(
             placed.whole_shape(tuple(x.shape), spec, clients.mesh),
-            generator=gen, device=x.device), spec, clients.mesh)
+            generator=gen, device=x.device), spec, clients.mesh,
+            split=True)
     q = lo + (u < (y - lo)).float()
     return q.clamp(-127, 127).to(torch.int8), scale
 

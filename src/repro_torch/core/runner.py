@@ -235,15 +235,25 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
     rank computes the same params and metrics.
 
     With `placement` (a `sharding.params.StepPlacement`: params placed
-    over mesh axes) `params` is this rank's blocks: the body gathers whole
-    params for the local update; the dense server step runs on the
-    client state's column blocks (the updates and params cut to them) and
-    its new params go back to their placement; the cohort server step's
-    mean (the bank's G_sum) is taken to the params' placement.
+    over mesh axes) `params` is this rank's blocks. Where the placement
+    holds a split (`placement.split`, `model` of extent > 1 and a config
+    of the dense GQA stack) the local update runs on those blocks
+    (`model.loss_fn(split=)`, split products) and the updates move from
+    the params' blocks straight into the server step's: the update
+    array's column blocks in its dtype (dense), or the bank's rows' column
+    blocks, or whole for a bank held whole on every rank (cohort);
+    otherwise the body gathers whole params for the local update (CPU
+    ranks only) and cuts the updates. The dense server step runs on the
+    client state's column blocks (the params moved to them) and its new
+    params go back to their placement; the cohort server step's mean (the
+    bank's G_sum) is taken to the params' placement.
     """
     _, local_ph, server_ph = ROUND_PHASES
     host_draw = hasattr(algo, "host_draw")
     sharded = {} if clients is None else {"clients": clients}
+    split = None if placement is None else placement.split
+    loss_fn = model.loss_fn if split is None else (
+        lambda p, b: model.loss_fn(p, b, split))
 
     def updates_of(params, x):
         with record_function(local_ph):
@@ -252,7 +262,7 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                 return (tree_map(lambda p: p.new_zeros(
                             (0,) + tuple(p.shape), dtype=torch.float32),
                             params), x["eta_loc"].new_zeros(0))
-            return client_updates(model.loss_fn, params, x["batch"],
+            return client_updates(loss_fn, params, x["batch"],
                                   x["eta_loc"], K=k_steps,
                                   weight_decay=weight_decay)
 
@@ -264,6 +274,12 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                 x["draw"] = clients.block(x["draw"])
         if placement is None:
             updates, losses = updates_of(params, x)
+        elif split is not None:
+            updates, losses = updates_of(params, x)
+            # an update moves in the update array's dtype, to which the
+            # server step rounds it anyway
+            updates = placement.updates(updates, via=state.get("G"))
+            params = placement.to_step(params)
         else:
             whole = placement.whole(params)
             updates, losses = updates_of(whole, x)
@@ -285,8 +301,17 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
                                  & (rows < clients.hi)).flatten()
             x = {**x, "batch": tree_map(lambda v: v[mine], x["batch"]),
                  "rows": rows[mine], "valid": x["valid"][mine]}
-        updates, losses = updates_of(
-            params if placement is None else placement.whole(params), x)
+        bank = algo.bank
+        if split is None:
+            updates, losses = updates_of(
+                params if placement is None else placement.whole(params), x)
+            updates = bank.cols(updates)
+        else:
+            updates, losses = updates_of(params, x)
+            if len(x["valid"]):
+                updates = placement.updates(
+                    updates, bank.update_specs or placement.whole_specs,
+                    via=bank.update_dtypes(state["bank"]))
         with record_function(server_ph):
             state, mean_g, metrics = algo.round_step_cohort(
                 state, x["rows"], x["valid"], updates, losses, rng=rng,

@@ -86,20 +86,32 @@ is placed over the mesh's axes (`sharding.params`):
     G_sum, as the reference holds it): every rank runs the whole round,
     so the banks stay equal across ranks. A host bank raises, as the
     reference's does; any other bank raises naming itself.
-A round gathers whole params for the local update; every rank stages the
-same batches and trains only the clients it owns; the server step runs on
-the rank's blocks (`params.StepPlacement`: the updates cut to the state's
-column blocks, the new params taken back to their placement), with the
-client axis' reductions (the update sums, loss, n_active) all-reduced
-over the data group, so every rank holds its blocks of the same params
-and the same history. Between rounds each rank holds only its blocks.
-`run_fl` returns each rank's blocks of the params. A checkpoint gathers
-the blocks and rank 0 writes the snapshot an unsplit run writes; a run
-resumed on any mesh takes its blocks from it (`restore`). Evaluation sees
-whole params. At extent 1 (every mesh on the card) nothing is split and
-no collective is issued: the run is the mesh-less run, bit for bit, with
-the same kernels and the same captured round. CUDA tensors under an axis
-of extent > 1 raise.
+Every rank stages the same batches and trains only the clients it owns.
+Where `model` splits and the config is the dense GQA stack
+(`params.StepPlacement.split`, `sharding.tensor_parallel`) a round's
+local update runs on the rank's blocks of the params (split products)
+and its updates move from those blocks straight into the server step's
+(the update array's or the bank rows' column blocks); for any other
+config the round gathers whole params for the local update, on CPU ranks
+only. The server step runs on the rank's blocks (the new params taken
+back to their placement), with the client axis' reductions (the update
+sums, loss, n_active) all-reduced over the data group, so every rank
+holds its blocks of the same params and the same history. Between rounds
+each rank holds only its blocks. `run_fl` returns each rank's blocks of
+the params. A checkpoint gathers the blocks and rank 0 writes the
+snapshot an unsplit run writes; a run resumed on any mesh takes its
+blocks from it (`restore`). Evaluation sees whole params. At extent 1
+nothing is split and no collective is issued: the run is the mesh-less
+run, bit for bit, with the same kernels and the same captured round.
+
+On the card a split run is a world of ranks on one card, gloo carrying
+the CUDA tensors through the host, and gloo's collectives cannot be
+captured in a CUDA graph: `ScanDriver` decides once, from the placement
+(`ScanDriver.eager`: CUDA params placed over an axis of extent > 1),
+that every round runs the body itself (`ChunkRunner(eager=True)`,
+counted in `eager_rounds`, none in `replays`). CUDA tensors under an
+axis of extent > 1 raise for everything else (`sharding.params._check`,
+the ROADMAP entry named).
 """
 from __future__ import annotations
 
@@ -373,13 +385,20 @@ def _signature(x) -> tuple:
 class ChunkRunner:
     """Runs a chunk's rounds: replays of a captured round on the card (one
     graph per input shape, captured at first use), the body itself on the
-    CPU. Shared by `ScanDriver` and the fleet's `FleetScanDriver`."""
+    CPU. Shared by `ScanDriver` and the fleet's `FleetScanDriver`.
+
+    `eager` (`ScanDriver`'s rule, decided once: the body issues collectives,
+    which a CUDA graph cannot capture) runs the body itself on the card
+    too; `eager_rounds` counts those rounds, as `replays` counts the
+    captured ones."""
 
     def __init__(self, body: Callable, device: torch.device, *,
-                 generators=()):
+                 generators=(), eager: bool = False):
         self.body = body
         self.device = device
         self.generators = tuple(generators)
+        self.eager = eager
+        self.eager_rounds = 0
         self.graphs: dict[tuple, CapturedRound] = {}
         self.staged_bytes = 0
         self.chunks = 0
@@ -402,7 +421,7 @@ class ChunkRunner:
         ys = None
         for j in range(n_rounds):
             x = tree_map(lambda v: v[j], xs)
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and not self.eager:
                 key = _signature(x)
                 if key not in self.graphs:
                     self.graphs[key] = CapturedRound(
@@ -413,11 +432,23 @@ class ChunkRunner:
             else:
                 state, params, metrics = self.body(state, params, x)
                 m, self.keys = pack_metrics(metrics)
+                self.eager_rounds += self.device.type == "cuda"
             if ys is None:
                 ys = torch.empty((n_rounds,) + tuple(m.shape),
                                  dtype=torch.float64, device=m.device)
             ys[j].copy_(m)
         return state, params, ys
+
+
+def runs_eager(device: torch.device, placement) -> bool:
+    """The scan engine's rule for a placed carry: every round runs the body
+    itself, uncaptured, where the round computes on CUDA blocks of a split
+    (`params.StepPlacement.split`): its rounds issue gloo collectives,
+    which a CUDA graph cannot capture. Not on the CPU (nothing is
+    captured there), and not where no axis of extent > 1 places the
+    params (`placement` None: the captured round of the mesh-less run)."""
+    return (device.type == "cuda" and placement is not None
+            and placement.split is not None)
 
 
 class ScanDriver:
@@ -427,12 +458,14 @@ class ScanDriver:
     Uses the runner's params, state and generators, so the trajectory is
     the loop engine's; the runner's state, params, history and τ
     statistics are current after `run`, and `runner.finalize()` works
-    unchanged. `replays` and `staged_bytes` count the captured rounds run
-    and the bytes staged. A runner with a scenario and a dense algorithm
-    runs in scenario mode (module docstring). `mesh` (and `cfg`) place the
-    carry (module docstring, "Meshes"); `clients` is then this rank's
-    block of the client axis (None where nothing is split) and
-    `placement` the params' (None where they are whole).
+    unchanged. `replays`, `eager_rounds` and `staged_bytes` count the
+    captured rounds run, the rounds run eagerly on the card and the bytes
+    staged. A runner with a scenario and a dense algorithm runs in
+    scenario mode (module docstring). `mesh` (and `cfg`) place the carry
+    (module docstring, "Meshes"); `clients` is then this rank's block of
+    the client axis (None where nothing is split), `placement` the
+    params' (None where they are whole) and `eager` the rule that runs
+    every round uncaptured on the card.
     """
 
     def __init__(self, runner: RoundRunner, *, scan_chunk: int = 64,
@@ -477,12 +510,23 @@ class ScanDriver:
         # the body draws from the device generator only if the algorithm
         # names it; then the graph must own it
         gens = (r.device_rng,) if r.round_rng is r.device_rng else ()
-        self.chunks = ChunkRunner(body, r.device, generators=gens)
+        self.chunks = ChunkRunner(body, r.device, generators=gens,
+                                  eager=self.eager)
         self._union = None
+
+    @property
+    def eager(self) -> bool:
+        """Does every round run the body itself on the card
+        (`runs_eager`)?"""
+        return runs_eager(self.r.device, self.placement)
 
     @property
     def replays(self) -> int:
         return self.chunks.replays
+
+    @property
+    def eager_rounds(self) -> int:
+        return self.chunks.eager_rounds
 
     @property
     def staged_bytes(self) -> int:
@@ -557,7 +601,7 @@ class ScanDriver:
                          "bank": r.algo.bank.place_state(state["bank"])}
         elif self.clients is not None:
             state = take_tree(state, self._state_specs, self.mesh,
-                              "the client state")
+                              "the client state", self.eager)
         if self.placement is not None:
             params = self.placement.place(params)
         r.state, r.params = state, params
@@ -572,7 +616,7 @@ class ScanDriver:
                          "bank": r.algo.bank.gather_state(state["bank"])}
         elif self.clients is not None:
             state = whole_tree(state, self._state_specs, self.mesh,
-                               "the client state")
+                               "the client state", self.eager)
         if self.placement is not None:
             params = self.placement.whole(params)
         return state, params

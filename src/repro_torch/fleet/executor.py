@@ -55,7 +55,9 @@ param dims are placed by `fleet_trial_specs` (the zoo's tensor
 parallelism over `model`, `sharding.params`): between rounds each rank
 holds its column blocks, and a round gathers them whole for the local
 update and the per-trial server step (the algorithm state keeps its
-trial-axis placement, `fleet_axis_specs`). `finalize` gathers the params'
+trial-axis placement, `fleet_axis_specs`), on CPU ranks only: CUDA trial
+params split over an axis raise, naming ROADMAP entry 12i (the trials'
+local update on each rank's blocks). `finalize` gathers the params'
 columns, then the params, the per-trial state and the history over the
 data group, so every rank returns all K, whole. A K that D does not
 divide is replicated (`sanitize`): every rank runs every trial. At extent
@@ -90,6 +92,19 @@ from repro_torch.sharding.clients import client_shard
 from repro_torch.sharding.params import take_tree, whole_tree
 from repro_torch.sharding.rules import P, fleet_trial_specs, sharded_axes
 from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
+
+
+def check_trial_cols(cols, device: torch.device) -> None:
+    """Raise for trial params split over mesh axes (`cols` not None) on
+    CUDA tensors: a fleet's rounds gather them whole for the local update,
+    on CPU ranks only; the trials' local update on each rank's blocks
+    under vmap over trials is ROADMAP entry 12i."""
+    if cols is not None and device.type == "cuda":
+        raise NotImplementedError(
+            "a fleet's trial params split over mesh axes on CUDA tensors: "
+            "its rounds gather them whole for the local update, which runs "
+            "on CPU ranks only; the trials' local update on each rank's "
+            "blocks under vmap over trials is ROADMAP entry 12i")
 
 
 @dataclass
@@ -324,6 +339,7 @@ class FleetRunner:
                             fleet_trial_specs(self.params, cfg, mesh))
             if sharded_axes(cols, mesh):
                 self.param_cols = cols
+        check_trial_cols(self.param_cols, self.device)
         # each trial's state as RoundRunner builds it, stacked leaf by leaf
         # (a paged bank resets its host mirror at each init, so the fleet
         # ends with one fresh mirror and K equal device tables)

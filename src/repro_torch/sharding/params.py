@@ -22,20 +22,23 @@ both directions are the identity: the same tensor object comes back and no
 collective is issued, so the kernels see the tensors they see without a
 mesh. At extent > 1 an abstract mesh raises ValueError (it places
 nothing), as `sharding.clients.client_shard` does, and CUDA tensors raise
-NotImplementedError, except where a split step (the serving steps and the
-train step of `sharding.tensor_parallel`) passes `split=True` on a
-DeviceMesh of CUDA ranks (gloo carries the CUDA tensors of a world of
-ranks on one card). The message names the entry that will take the
-caller: ROADMAP entry 12h at data extent 1 (`StepPlacement`, the scan
-carry, banks and fleets compute on whole params), entry 12g beyond (the
-data axis on the card, fsdp params, the sequential step at data extent
-> 1).
+NotImplementedError, except where a caller that computes on blocks (the
+split steps of `sharding.tensor_parallel`, a `StepPlacement` that holds a
+split, a `DenseBank(mesh=)`'s rows) passes `split=True` on a DeviceMesh of
+CUDA ranks (gloo carries the CUDA tensors of a world of ranks on one
+card). The message names the entries that will take the rest: ROADMAP
+entry 12i (a fleet's trials under the split) and 12c–12f (the
+architectures the split does not take, `tensor_parallel.unsupported`) at
+data extent 1, entry 12g beyond (the data axis on the card, fsdp params,
+the sequential step at data extent > 1).
 
 `carry_state_specs` gives the scan carry's algorithm state its specs
 (client-indexed leaves of the params' shape split over the data axes and,
 by `client_state_specs`, over `model`); `StepPlacement` converts between
-the carry's placed params and what a round computes on (whole params for
-the local update, the state's column blocks for the server step).
+the carry's placed params and what a round computes on: the params' own
+blocks for the local update where `model` splits and the config is one
+the split takes (`tensor_parallel.train_split`), else whole params (CPU
+ranks only); the state's column blocks for the server step.
 """
 from __future__ import annotations
 
@@ -69,13 +72,15 @@ def _check(device: torch.device, mesh, what: str,
         later = ("the data axis on the card, fsdp params and the sequential "
                  "train step at data extent > 1 are ROADMAP entry 12g"
                  if data_axis_size(mesh) > 1 else
-                 "StepPlacement, the scan carry, banks and fleets under "
-                 "split products are ROADMAP entry 12h")
+                 "a fleet's trials under split products are ROADMAP entry "
+                 "12i, and MoE, MLA, Mamba2, padded heads and the encoder "
+                 "entries 12c-12f")
         raise NotImplementedError(
             f"{what} split over mesh axes of extent > 1 on CUDA tensors: "
-            "only the split steps compute on blocks on the card (the "
-            "serving steps and the train step, sharding.tensor_parallel); "
-            f"{later}, and run on CPU ranks (gloo)")
+            "only what computes on blocks takes them on the card (the "
+            "serving steps, the train step and the federated round of the "
+            "dense GQA stack, sharding.tensor_parallel, on a DeviceMesh of "
+            f"CUDA ranks); {later}, and run on CPU ranks (gloo)")
     if not hasattr(mesh, "get_group"):
         raise ValueError(
             f"{what}: a mesh of extent > 1 must be a DeviceMesh over a world "
@@ -160,11 +165,12 @@ def whole(x, spec, mesh, what: str = "a leaf", split: bool = False):
     return x
 
 
-def relayout(x, src, dst, mesh, what: str = "a leaf"):
+def relayout(x, src, dst, mesh, what: str = "a leaf",
+             split: bool = False):
     """This rank's block under `dst` from its block `x` under `src`."""
     if tuple(src) == tuple(dst):
         return x
-    return take(whole(x, src, mesh, what), dst, mesh, what)
+    return take(whole(x, src, mesh, what, split), dst, mesh, what, split)
 
 
 def amax_(x: torch.Tensor, axes, mesh) -> torch.Tensor:
@@ -267,35 +273,81 @@ def carry_state_specs(state: Any, params: Any, cfg, mesh,
 class StepPlacement:
     """The params of a placed carry and the layouts a round computes in.
 
-    `param_specs` place the params between rounds; the local update runs
-    on whole params (`whole`); the server step runs on the client state's
-    column blocks: an update leaf (the rank's clients, whole columns) is
-    cut by `update_specs` (None on the client axis, then the param dims of
-    `client_state_specs`), and the params by `step_specs` (those param
-    dims alone). `from_step` takes the server step's new params back to
-    their placement."""
+    `param_specs` place the params between rounds; the server step runs on
+    the client state's column blocks: an update leaf is taken to
+    `update_specs` (None on the client axis, then the param dims of
+    `client_state_specs`, vmap mode) and the params to `step_specs` (those
+    param dims alone); `from_step` takes the server step's new params back
+    to their placement.
+
+    Where `model` splits (extent > 1 on a DeviceMesh) and
+    `tensor_parallel.unsupported` takes the config, `split` is the
+    round's `TrainSplit`, built from these specs: the local update runs on
+    the params' own blocks (`loss_fn(split=)`), and every move is
+    `TrainSplit.move_tree` (an all-to-all where both layouts split one dim
+    over `model`), so no leaf is gathered whole; on the card this is the
+    only way in (`split=True` on a DeviceMesh of CUDA ranks). Else `split`
+    is None and the local update runs on whole params (`whole`), gathered
+    and cut on CPU ranks; CUDA params at model extent > 1 raise at
+    construction, naming the ROADMAP entry that will take the config."""
 
     def __init__(self, params: Any, cfg, mesh, n_clients: int):
+        from repro_torch.sharding import tensor_parallel as tp
+        from repro_torch.tree import tree_leaves
         self.mesh = mesh
         self.param_specs = param_specs(params, cfg, mesh)
         cs = client_state_specs(params, cfg, mesh, n_clients=n_clients)
         self.state_specs = cs
         self.update_specs = tree_map(lambda s: P(None, *s[1:]), cs)
         self.step_specs = tree_map(lambda s: P(*s[1:]), cs)
+        self.whole_specs = tree_map(lambda s: P(), cs)
+        self.split = None
+        if tp.model_axis(mesh) is not None:
+            why = tp.unsupported(cfg, mesh, n_clients, train=True,
+                                 fl_round=True)
+            if why is None:
+                self.split = tp.train_split(
+                    cfg, mesh, n_clients, specs=(self.param_specs, cs))
+            elif tree_leaves(params)[0].device.type == "cuda":
+                raise NotImplementedError(
+                    f"the federated round's local update on each rank's "
+                    f"blocks: {why}")
+
+    @property
+    def _cuda(self) -> bool:
+        """Blocks may be CUDA tensors: the round computes on them."""
+        return self.split is not None
 
     def place(self, params: Any) -> Any:
-        return take_tree(params, self.param_specs, self.mesh, "params")
+        return take_tree(params, self.param_specs, self.mesh, "params",
+                         self._cuda)
 
     def whole(self, params: Any) -> Any:
-        return whole_tree(params, self.param_specs, self.mesh, "params")
+        """The whole params (evaluation, snapshots, the unsplit round)."""
+        return whole_tree(params, self.param_specs, self.mesh, "params",
+                          self._cuda)
 
-    def updates(self, updates: Any) -> Any:
+    def updates(self, updates: Any, dst: Any = None, via: Any = None
+                ) -> Any:
+        """The local update's updates in `dst` (default `update_specs`;
+        `whole_specs` for a bank held whole): from the params' blocks
+        under the split (each leaf moved in `via`'s leaf's dtype where
+        given, `TrainSplit.move_tree`), else cut from whole columns."""
+        dst = self.update_specs if dst is None else dst
+        if self.split is not None:
+            return self.split.move_tree(updates, self.split.update_specs,
+                                        dst, via=via)
         return tree_map(lambda u, s: block(u, s, self.mesh).contiguous(),
-                        updates, self.update_specs)
+                        updates, dst)
 
-    def to_step(self, whole_params: Any) -> Any:
+    def to_step(self, params: Any) -> Any:
+        """The server step's params from the carry's blocks (the split) or
+        from whole params."""
+        if self.split is not None:
+            return self.split.move_tree(tree_map(lambda x: x, params),
+                                        self.param_specs, self.step_specs)
         return tree_map(lambda w, s: block(w, s, self.mesh).contiguous(),
-                        whole_params, self.step_specs)
+                        params, self.step_specs)
 
     def from_step(self, params: Any) -> Any:
         return self.to_params(params, self.step_specs)
@@ -304,6 +356,9 @@ class StepPlacement:
         """The params' placement of a param-shaped tree placed by `specs`
         (None: whole on every rank)."""
         if specs is None:
-            return take_tree(tree, self.param_specs, self.mesh)
+            specs = tree_map(lambda s: P(), self.param_specs)
+        if self.split is not None:
+            return self.split.move_tree(tree_map(lambda x: x, tree), specs,
+                                        self.param_specs)
         return tree_map(lambda x, s, p: relayout(x, s, p, self.mesh),
                         tree, specs, self.param_specs)

@@ -1,8 +1,10 @@
 """Split matrix products: each rank of a mesh's `model` axis runs the
-serving steps (prefill and decode) and the MIFA train step on its blocks of
-the params (and caches), as the reference's compiled SPMD program computes
-on the blocks its specs give (`sharding.rules.param_specs`, `cache_specs`,
-`client_state_specs`), with only the collectives the split needs.
+serving steps (prefill and decode), the MIFA train step and the federated
+round's local update (`run_fl(engine="scan", mesh=, cfg=)`, through
+`sharding.params.StepPlacement`) on its blocks of the params (and caches),
+as the reference's compiled SPMD program computes on the blocks its specs
+give (`sharding.rules.param_specs`, `cache_specs`, `client_state_specs`),
+with only the collectives the split needs.
 
 Scope: the dense GQA stack (`attn` and `local_attn` layers with a dense
 MLP, the embedding and the head: granite-3-8b, qwen1.5-110b, gemma3-4b and
@@ -10,7 +12,8 @@ llava-next-34b's language stack). Everything else raises
 NotImplementedError naming its ROADMAP entry (`unsupported`): MoE experts
 (12c), MLA (12d), Mamba2 and the shared attention block (12e), padded
 heads and the encoder (12f), and params, caches or the sequential step
-split over the data axis, or the data axis on the card (12g).
+split over the data axis, or the data axis on the card (12g). A fleet's
+trials under the split are entry 12i (`fleet.executor`).
 
 Layout, read from the spec `rules.sanitize` left on each leaf (never from
 the config), per GQA segment (`GQASplit`):
@@ -239,13 +242,16 @@ def _splits(entry, mesh, axis: str = MODEL) -> bool:
     return axis in _entry_axes(entry) and mesh_shape(mesh)[axis] > 1
 
 
-def unsupported(cfg, mesh, batch: int, *, train: bool = False
-                ) -> str | None:
+def unsupported(cfg, mesh, batch: int, *, train: bool = False,
+                fl_round: bool = False) -> str | None:
     """Why the steps of `cfg` cannot run on `mesh`'s blocks (naming the
     ROADMAP entry that will take it), or None where they can: the serving
     steps at a batch of `batch` sequences, or with `train` the MIFA train
     step of `batch` clients (the vmap mode's client axis over data, the
-    sequential mode at data extent 1 only)."""
+    sequential mode at data extent 1 only). With `fl_round` (and `train`)
+    the federated round's local update: it always vmaps its clients
+    (`core.local_update`), over data where the data extent divides them
+    and whole on every rank where it does not (`sharding.clients`)."""
     from repro_torch.models.transformer import build_segments
     if cfg.encoder_only or cfg.modality == "audio":
         return (f"{cfg.name}: the encoder's frontend_proj under split "
@@ -270,11 +276,12 @@ def unsupported(cfg, mesh, batch: int, *, train: bool = False
                 "pads the heads for that (ROADMAP entry 12f)")
     d = data_axis_size(mesh)
     what = "clients" if train else "batch"
-    if d > 1 and (cfg.fsdp or batch % d or batch < d):
+    if d > 1 and (cfg.fsdp or (not fl_round and (batch % d
+                                                  or batch < d))):
         return (f"{cfg.name}: params or caches split over the data axis "
                 f"(fsdp {cfg.fsdp}, {what} {batch} over {d} data ranks) "
                 "under split products (ROADMAP entry 12g)")
-    if train and d > 1 and cfg.sequential_clients:
+    if train and d > 1 and cfg.sequential_clients and not fl_round:
         return (f"{cfg.name}: the sequential train step over {d} data "
                 "ranks, each client's batch split over data (the "
                 "reference's batch_specs), under split products (ROADMAP "
@@ -511,24 +518,36 @@ class TrainSplit:
         return tree_map(lambda s: P(*s[1:]), self.state_specs)
 
 
-def train_split(cfg, mesh, n_clients: int) -> TrainSplit | None:
+def train_split(cfg, mesh, n_clients: int, *, specs=None
+                ) -> TrainSplit | None:
     """The split of `cfg`'s MIFA train step for `n_clients` clients on
     `mesh` (its mode from `cfg.sequential_clients`), or None where
     `model_axis` gives none. Raises NotImplementedError for what the split
-    does not take yet (`unsupported`)."""
+    does not take yet (`unsupported`).
+
+    `specs`: the (param specs, update array specs) a caller has already
+    placed its carry by, for the federated round (`sharding.params.
+    StepPlacement`): its clients are always vmapped, so its update array
+    takes the vmap mode's `client_state_specs` whatever
+    `cfg.sequential_clients` says (qwen1.5-110b and llava-next-34b train
+    sequentially in the launch driver, not in `run_fl`)."""
     axis = model_axis(mesh)
     if axis is None:
         return None
-    why = unsupported(cfg, mesh, n_clients, train=True)
+    why = unsupported(cfg, mesh, n_clients, train=True,
+                      fl_round=specs is not None)
     if why is not None:
         raise NotImplementedError(why)
     from repro_torch.launch.specs import param_shapes
     from repro_torch.models import transformer
-    shapes = param_shapes(cfg)
-    pspecs = param_specs(shapes, cfg, mesh)
-    gspecs = client_state_specs(shapes, cfg, mesh,
-                                sequential_clients=cfg.sequential_clients,
-                                n_clients=n_clients)
+    if specs is None:
+        shapes = param_shapes(cfg)
+        pspecs = param_specs(shapes, cfg, mesh)
+        gspecs = client_state_specs(
+            shapes, cfg, mesh, sequential_clients=cfg.sequential_clients,
+            n_clients=n_clients)
+    else:
+        pspecs, gspecs = specs
     out = TrainSplit(mesh, axis, embed=_splits(pspecs["embed"][1], mesh),
                      head=_splits(pspecs["lm_head"][1], mesh),
                      param_specs=pspecs, state_specs=gspecs)

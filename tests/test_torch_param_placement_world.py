@@ -22,19 +22,29 @@ rounds in scan chunks of 2:
   (d) BankedMIFA(DenseBank(mesh=, cfg=)) on 2x2, and the bank alone;
   (e) a K = 4 fleet with `cfg` on 4x1 and on 2x2;
   (f) `checkpoint=` after round 2 on 2x2, resumed on 4 ranks and on 1:
-      N = 3 (the data extent does not divide it: only `model` splits, the
-      compute is whole and the snapshot holds the unsplit run's bytes,
-      member for member) and N = 4 (data splits too);
+      N = 3 (the data extent does not divide it: only `model` splits, each
+      data rank computing every client on its model blocks) and N = 4
+      (data splits too); the snapshot has the unsplit run's members, each
+      of its dtype and shape;
   (g) MIFA(memory="int8") on 4x1 and on 2x2.
 
-Tolerance: bit-equal where the compute is whole (every placement but a
-data-split sum); where the client axis' sums are all-reduced over data,
-rtol 2e-5 / atol 1e-6, the bounds of `tests/test_torch_sharded_scan.py`;
-case (b), whose products are split, the f32 training bound (rtol 2e-4,
-atol 2e-5 of each leaf's largest magnitude).
-int8 gathers its rows for the mean, so it is bit-equal split over data.
-Integers (rounds, n_active, a snapshot's integer members) are exact, and
-each case's specs split a leaf over the axes it is about.
+Tolerance: bit-equal where the compute is whole (the fleets and the bank
+alone, whose params are gathered whole; the 4x1 cases, which split no
+product) and for a run resumed on 4 ranks against the uninterrupted split
+run; where the client axis' sums are all-reduced over data and no product
+is split, rtol 2e-5 / atol 1e-6, the bounds of
+`tests/test_torch_sharded_scan.py`. Every round on the 2x2 mesh computes
+its local update on the rank's blocks (split products,
+`sharding.tensor_parallel`), so its sums are taken in another order than
+the unsplit run's, as the reference's meshed program differs from its
+unmeshed one: (b), (c), (d), (f)'s snapshots and the runs resumed on one
+rank are held at the f32 training bound (rtol 2e-4, atol 2e-5 of each
+leaf's largest magnitude), and int8 memory on 2x2 at rtol 2e-2 and atol
+2e-2 of each leaf's largest magnitude (a stochastic rounding whose input
+moved by f32 rounding may land a quantum away). int8 gathers its rows for
+the mean, so it is bit-equal split over data alone (4x1). Integers
+(rounds, n_active, a snapshot's integer members) are exact, and each
+case's specs split a leaf over the axes it is about.
 """
 import json
 import os
@@ -76,14 +86,14 @@ CASES = {
     "d_bank_round_trip": ("exact", DM),
     "e_fleet_4x1": ("exact", {"data"}),
     "e_fleet_2x2": ("exact", DM),
-    "f_checkpoint_model_snapshot": ("exact", {"model"}),
+    "f_checkpoint_model_snapshot": ("bounds", {"model"}),
     "f_checkpoint_model_resumed_on_4": ("exact", {"model"}),
-    "f_checkpoint_model_resumed_on_1": ("exact", set()),
+    "f_checkpoint_model_resumed_on_1": ("bounds", set()),
     "f_checkpoint_data_snapshot": ("bounds", DM),
-    "f_checkpoint_data_resumed_on_4": ("bounds", DM),
+    "f_checkpoint_data_resumed_on_4": ("exact", DM),
     "f_checkpoint_data_resumed_on_1": ("bounds", set()),
     "g_int8_4x1": ("exact", {"data"}),
-    "g_int8_2x2": ("exact", DM),
+    "g_int8_2x2": ("bounds", DM),
 }
 
 
@@ -119,13 +129,14 @@ def test_each_rank_holds_the_blocks_of_the_unsplit_run(world, case):
 
 
 def test_snapshots_and_step_cases(world):
-    """The N = 3 snapshot has the unsplit run's members byte for byte, the
-    N = 4 one its members (their values in the case above); (a) runs the
-    plan's two sequential clients, (b) the data extent's two vmap
-    clients."""
+    """The N = 3 and N = 4 snapshots have the unsplit run's members, each
+    of its dtype and shape (their values in the cases above: the split
+    products round in another order); (a) runs the plan's two sequential
+    clients, (b) the data extent's two vmap clients."""
     assert world["f_checkpoint_model_keys_equal"]
-    assert world["f_checkpoint_model_bytes_equal"]
+    assert world["f_checkpoint_model_layout_equal"]
     assert world["f_checkpoint_data_keys_equal"]
+    assert world["f_checkpoint_data_layout_equal"]
     assert world["a_sequential_update_spec_n_clients"] == 2
     assert world["b_vmap_step_n_clients"] == 2
 

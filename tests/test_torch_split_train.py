@@ -333,23 +333,26 @@ def _meta_params(cfg):
 
 def test_paths_left_for_12h_and_12g_raise_on_cuda():
     """On fake CUDA tensors and a fake mesh (no card, no process group):
-    `StepPlacement`'s params and the scan carry's client state at model
-    extent > 1 raise naming ROADMAP entry 12h; the sequential train step
-    at data extent > 1 raises naming 12g, both built with the mesh and
-    planned (the plan keeps the gathering step, whose update constraint
-    raises on CUDA blocks)."""
+    `StepPlacement` at model extent > 1, which entry 12h took, holds the
+    round's split (its G layout the carry's), and a bare take of the scan
+    carry's client state, outside a split, raises naming the entries that
+    remain (12i, the fleets); the sequential train step at data extent > 1
+    raises naming 12g, both built with the mesh and planned (the plan
+    keeps the gathering step, whose update constraint raises on CUDA
+    blocks)."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
     params = _meta_params(cfg)
     with FakeTensorMode():
         cuda = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device="cuda"), params)
-        with pytest.raises(NotImplementedError, match="entry 12h"):
-            StepPlacement(cuda, cfg, mesh, 4).place(cuda)
+        placement = StepPlacement(cuda, cfg, mesh, 4)
+        assert placement.split is not None
         state = {"G": tree_map(lambda t: t.new_empty((4,) + tuple(t.shape)),
                                cuda)}
         specs = carry_state_specs(state, cuda, cfg, mesh, 4)
-        with pytest.raises(NotImplementedError, match="entry 12h"):
+        assert specs["G"] == placement.split.state_specs
+        with pytest.raises(NotImplementedError, match="entry 12i"):
             take_tree(state, specs, mesh, "the client state")
         qwen = smoke("qwen1_5_110b", fl_clients=2)
         assert qwen.sequential_clients

@@ -274,38 +274,45 @@ def _meta_params(cfg):
 
 
 def test_training_paths_on_cuda_blocks_raise_naming_12b():
-    """A CUDA tensor at model extent > 1 outside the split steps raises
-    NotImplementedError naming ROADMAP entry 12h, the entry that took over
-    these callers from 12b once the train step split (fake CUDA tensors
-    and a fake mesh: no card and no process group): `StepPlacement`, the
-    unsplit sequential step handed an update constraint, a bare `take`;
-    the split steps' blocks are taken."""
+    """A CUDA tensor at model extent > 1 outside what computes on blocks
+    raises NotImplementedError naming the ROADMAP entries that remain
+    (fake CUDA tensors and a fake mesh: no card and no process group):
+    12b took the train step and 12h the federated round, so
+    `StepPlacement` of granite holds a split while one of olmoe raises
+    naming 12c, and the unsplit sequential step handed an update
+    constraint and a bare `take` name 12i (the fleets) with 12c-12f; the
+    split steps' blocks are taken."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
     params = _meta_params(cfg)
     specs = rules.param_specs(params, cfg, mesh)
+    olmoe = smoke("olmoe_1b_7b")
     with FakeTensorMode():
         cuda = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device="cuda"), params)
-        with pytest.raises(NotImplementedError, match="entry 12h"):
-            StepPlacement(cuda, cfg, mesh, 4).place(cuda)
+        assert StepPlacement(cuda, cfg, mesh, 4).split is not None
+        moe = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                             device="cuda"),
+                       _meta_params(olmoe))
+        with pytest.raises(NotImplementedError, match="entry 12c"):
+            StepPlacement(moe, olmoe, mesh, 4)
         step = make_train_step(build_model(cfg), cfg.replace(
             sequential_clients=True), 2, 1,
             update_spec=rules.named(mesh, specs))
         G = tree_map(lambda t: t.new_empty((2,) + tuple(t.shape)), cuda)
         batch = {"tokens": torch.zeros((2, 1, 1, 8), dtype=torch.int32,
                                        device="cuda")}
-        with pytest.raises(NotImplementedError, match="entry 12h"):
+        with pytest.raises(NotImplementedError, match="entry 12i"):
             step(cuda, G, batch, torch.ones(2, dtype=torch.bool,
                                             device="cuda"), 0.1)
         wq = cuda["segments"]["0"]["attn"]["wq"]
         spec = specs["segments"]["0"]["attn"]["wq"]
-        with pytest.raises(NotImplementedError, match="entry 12h"):
+        with pytest.raises(NotImplementedError, match="entry 12i"):
             take(wq, spec, mesh)
         assert block_shape(tuple(wq.shape), spec, mesh, wq.device,
                            split=True)[-1] == wq.shape[-1] // 2
         # a mesh of CPU ranks does not carry CUDA blocks, serving or not
-        with pytest.raises(NotImplementedError, match="entry 12h"):
+        with pytest.raises(NotImplementedError, match="entry 12i"):
             take(wq, spec, _FakeMesh(1, 2, "cpu"), split=True)
 
 

@@ -5,6 +5,7 @@
     python tests/torch_world.py --world 4 --cases params --out DIR
     python tests/torch_world.py --world 2|4 --cases serve --out DIR
     python tests/torch_world.py --world 2|4 --cases train --out DIR
+    python tests/torch_world.py --world 2|4 --cases fl --out DIR
 
 `torch.multiprocessing.spawn` starts the ranks. They meet on a `FileStore`
 under DIR (no TCP rendezvous) and talk gloo over the loopback device, with
@@ -41,6 +42,14 @@ the params the test writes into DIR (`params_<case>.npz`): each rank
 compares its blocks of the params, G and the loss with its blocks of the
 unsplit step's, and rank 0 writes the split run gathered whole into
 `results.npz` for the test's comparison with the JAX package.
+
+`--cases fl` (`tests/test_torch_split_fl.py`, worlds of 2 and 4) runs
+`run_fl(engine="scan", mesh=, cfg=)` for the smoke configs of FL_CASES, the
+local update on each rank's blocks (split products in the federated
+round): each rank compares its blocks of the params, and the whole state,
+with the unsplit run's, counts the params gathered whole inside the
+rounds, and rank 0 writes the split run gathered whole into `results.npz`
+for the test's comparison with the JAX package.
 
 `--cases params` (`tests/test_torch_param_placement_world.py`) places the
 params of granite-3-8b's and qwen1.5-110b's smoke configs (f32) over the
@@ -320,14 +329,17 @@ def gap(got, want) -> tuple:
 
 
 def verdict(info: dict, case: str, got, want, ints=None, axes=(),
-            train_bound: bool = False) -> None:
+            train_bound: bool = False, int8_bound: bool = False) -> None:
     """Every rank's (bit-equal, worst gap, integers equal, split axes)
     for `case`, gathered into `info`; with `train_bound` the gap is over
-    the f32 training bound (`train_gap`) instead of PRTOL / PATOL."""
+    the f32 training bound (`train_gap`) instead of PRTOL / PATOL, with
+    `int8_bound` over int8 memory's (`INT8_TOL`)."""
     import torch.distributed as dist
     eq, worst = gap(got, want)
     if train_bound:
         worst = train_gap(got, want)[1]
+    if int8_bound:
+        worst = train_gap(got, want, *INT8_TOL)[1]
     same = True if ints is None else all(
         np.array_equal(np.asarray(a), np.asarray(b)) for a, b in ints)
     parts = [None] * dist.get_world_size()
@@ -447,7 +459,8 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
             [blocks(want[0]), want[1].train_loss],
             ints=zip(hist_ints(got[1]), hist_ints(want[1])),
             axes=rules.sharded_axes([pspecs, rules.client_state_specs(
-                params, granite, m22, n_clients=PN)], m22))
+                params, granite, m22, n_clients=PN)], m22),
+            train_bound=True)
 
     # (d) BankedMIFA(DenseBank(mesh=, cfg=)): rows over data and model
     want = fl_run(granite, params, BankedMIFA(DenseBank(device="cpu")), PN,
@@ -459,7 +472,8 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
             [blocks(want[0]), want[1].train_loss],
             ints=zip(hist_ints(got[1]), hist_ints(want[1])),
             axes=rules.sharded_axes([algo.bank.row_specs,
-                                     algo.bank.sum_specs], m22))
+                                     algo.bank.sum_specs], m22),
+            train_bound=True)
     # the bank alone: a scatter, every row read back as this rank's
     # column block, G_sum as its block of the whole sum
     bank = DenseBank(mesh=m22, cfg=granite, device="cpu")
@@ -501,12 +515,15 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
                     want[0], granite, meshes[key]), meshes[key]))
 
     # (f) checkpoint= after round 2 of 3 on 2x2: N = 3 (the data extent
-    # does not divide it: the rows are whole and the compute is whole, so
-    # the snapshot is the unsplit run's, member for member) and N = 4 (the
-    # rows over data too: within the fp32 bounds); resumed on 4 ranks and
-    # on 1
+    # does not divide it: the rows are whole, the products split over
+    # model) and N = 4 (the rows over data too); the snapshot has the
+    # unsplit run's members, within the f32 training bound; resumed on 4
+    # ranks (bit-equal to the uninterrupted split run) and on 1 (within
+    # the bound of the unsplit run)
     for n, case in ((3, "f_checkpoint_model"), (PN, "f_checkpoint_data")):
         full = fl_run(granite, params, MIFA(memory="array"), n)
+        full_split = fl_run(granite, params, MIFA(memory="array"), n,
+                            mesh=m22, cfg=granite)
         split_dir = os.path.join(out_dir, f"ckpt_{n}_split")
         whole_dir = os.path.join(out_dir, f"ckpt_{n}_whole_{rank}")
         fl_run(granite, params, MIFA(memory="array"), n, rounds=2,
@@ -520,16 +537,17 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
             keys = (a.files, b.files)
             snap = ([a[k] for k in a.files], [b[k] for k in b.files])
         info[case + "_keys_equal"] = keys[0] == keys[1]
-        info[case + "_bytes_equal"] = all(
+        info[case + "_layout_equal"] = all(
             x.dtype == y.dtype and x.shape == y.shape
-            and x.tobytes() == y.tobytes() for x, y in zip(*snap))
+            for x, y in zip(*snap))
         floats = [(x, y) for x, y in zip(*snap) if x.dtype.kind == "f"]
         verdict(info, case + "_snapshot", [x for x, _ in floats],
                 [y for _, y in floats],
                 ints=[(x, y) for x, y in zip(*snap)
                       if x.dtype.kind not in "fU"],
                 axes=rules.sharded_axes([pspecs, rules.client_state_specs(
-                    params, granite, m22, n_clients=n)], m22))
+                    params, granite, m22, n_clients=n)], m22),
+                train_bound=True)
         one_dir = os.path.join(out_dir, f"ckpt_{n}_one_{rank}")
         shutil.copytree(split_dir, one_dir)
         dist.barrier()
@@ -539,13 +557,13 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
             ck = CheckpointSpec(every=2, dir=kw.pop("dir"), resume=True)
             got = fl_run(granite, params, MIFA(memory="array"), n,
                          checkpoint=ck, **kw)
-            ref = blocks(full[0]) if key == "4" else full[0]
+            ref = full_split if key == "4" else full
             verdict(info, f"{case}_resumed_on_{key}",
-                    [got[0], got[1].train_loss], [ref, full[1].train_loss],
-                    ints=zip(hist_ints(got[1]), hist_ints(full[1])),
+                    [got[0], got[1].train_loss], [ref[0], ref[1].train_loss],
+                    ints=zip(hist_ints(got[1]), hist_ints(ref[1])),
                     axes=rules.sharded_axes([pspecs, rules.client_state_specs(
                         params, granite, m22, n_clients=n)], m22)
-                    if key == "4" else ())
+                    if key == "4" else (), train_bound=key == "1")
         dist.barrier()
 
     # (g) MIFA(memory="int8"): the rows over 4x1, and over 2x2 with the
@@ -560,7 +578,8 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
                 ints=zip(hist_ints(got[1]), hist_ints(want[1])),
                 axes=rules.sharded_axes([rules.param_specs(
                     params, granite, mesh), rules.client_state_specs(
-                    params, granite, mesh, n_clients=PN)], mesh))
+                    params, granite, mesh, n_clients=PN)], mesh),
+                int8_bound=key == "2x2")
     dist.barrier()
 
 
@@ -828,6 +847,11 @@ TRAIN_CASES = {
 }
 # the f32 training bound: |got - want| <= TRTOL·|want| + TATOL·max|want|
 TRTOL, TATOL = 2e-4, 2e-5
+# int8 memory of a run on split products against the unsplit run: a
+# stochastic rounding whose input moved by f32 rounding may land one
+# quantum (absmax / 127 of a row) away; the rtol of the int8 losses in
+# tests/test_torch_quantized_memory.py
+INT8_TOL = (2e-2, 2e-2)
 
 
 def train_cfg(case: str):
@@ -863,16 +887,20 @@ def train_inputs(cfg, params_np: dict) -> tuple:
     return G0, rounds
 
 
-def train_gap(got, want) -> tuple:
+def train_gap(got, want, rtol: float = TRTOL, atol: float = TATOL
+              ) -> tuple:
     """(shapes equal, worst |got - want| over the f32 training bound of
-    each leaf) over two trees of tensors."""
+    each leaf, or the bound |got - want| <= rtol·|want| + atol·max|want|)
+    over two trees of tensors, arrays or lists of floats."""
+    import torch
     from repro_torch.tree import tree_leaves
     shapes, worst = True, 0.0
     for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
-        a, b = a.detach().double(), b.detach().double()
+        a = torch.as_tensor(a).detach().double()
+        b = torch.as_tensor(b).detach().double()
         shapes = shapes and a.shape == b.shape
         if shapes and b.numel():
-            bound = TRTOL * b.abs() + TATOL * b.abs().max()
+            bound = rtol * b.abs() + atol * b.abs().max()
             worst = max(worst, float(((a - b).abs() / bound.clamp(
                 min=1e-30)).max()))
     return shapes, worst
@@ -1015,6 +1043,210 @@ def world_of_train(out: dict, info: dict, out_dir: str) -> None:
     dist.barrier()
 
 
+# --------------------------------------------------------------------------- #
+# --cases fl: split products in the federated round
+# --------------------------------------------------------------------------- #
+
+# clients, rounds, scan chunk, sequence length, minibatch and local steps of
+# every fl case
+FN, FT, FCHUNK, FS, FMB, FK = 4, 3, 2, 16, 2, 2
+# an fl case's arch names a smoke config, or one changed as FL_CHANGES says
+# (a vocab of 511: the head whole, as granite's 49155 on the card)
+FL_CHANGES = {"granite_3_8b_vocab511": ("granite_3_8b", {"vocab_size": 511})}
+
+
+def fl_cfg(arch: str):
+    """The smoke config (f32) an fl case's arch names."""
+    base, change = FL_CHANGES.get(arch, (arch, {}))
+    return smoke(base, **change)
+# case -> (arch, algorithm, mesh (data, model)): granite's smoke config
+# with MIFA(array) on 1x2 and 2x2 (clients over data), DenseBank(mesh=,
+# cfg=) on both, PagedDeviceBank (whole on every rank), int8 memory, FedAR
+# (a dense baseline whose per-client memory is placed as the update
+# array), gemma3-4b's (local attention, vocab-split head); and checkpoint=
+# after round 2 on 1x2, resumed on 1x2 and on one rank
+FL_CASES = {
+    "a_mifa_1x2": ("granite_3_8b", "mifa_array", (1, 2)),
+    "a_mifa_vocab511_1x2": ("granite_3_8b_vocab511", "mifa_array", (1, 2)),
+    "b_mifa_2x2": ("granite_3_8b", "mifa_array", (2, 2)),
+    "c_dense_bank_1x2": ("granite_3_8b", "banked_dense", (1, 2)),
+    "c_dense_bank_2x2": ("granite_3_8b", "banked_dense", (2, 2)),
+    "d_paged_bank_1x2": ("granite_3_8b", "banked_paged", (1, 2)),
+    "e_int8_1x2": ("granite_3_8b", "mifa_int8", (1, 2)),
+    "f_resumed_on_1x2": ("granite_3_8b", "mifa_array", (1, 2)),
+    "f_resumed_on_1": ("granite_3_8b", "mifa_array", (1, 2)),
+    "g_gemma_1x2": ("gemma3_4b", "mifa_array", (1, 2)),
+    "h_fedar_1x2": ("granite_3_8b", "fedar", (1, 2)),
+}
+
+
+def fl_algo(name: str, mesh=None, cfg=None):
+    from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
+    from repro_torch.core import MIFA, FedAR
+    return {"mifa_array": lambda: MIFA(memory="array"),
+            "mifa_int8": lambda: MIFA(memory="int8"),
+            "fedar": FedAR,
+            "banked_dense": lambda: BankedMIFA(DenseBank(
+                mesh=mesh, cfg=None if mesh is None else cfg, device="cpu")),
+            "banked_paged": lambda: BankedMIFA(PagedDeviceBank(
+                page_size=2, n_slots=2, device="cpu"))}[name]()
+
+
+def fl_batcher(cfg):
+    from repro_torch.data import TokenBatcher
+    return TokenBatcher(n_clients=FN, vocab=cfg.vocab_size, seq_len=FS,
+                        batch_size=FMB, k_steps=FK, stream_len=4096, seed=0)
+
+
+class DriverLog:
+    """Records every `ScanDriver` that `run_fl` builds and counts calls
+    of `StepPlacement.whole` (params gathered whole)."""
+
+    def __init__(self):
+        from repro_torch.core import scan_engine
+        from repro_torch.sharding import params as placed
+        self.drivers, self.wholes = [], 0
+        log, base = self, scan_engine.ScanDriver
+        whole = placed.StepPlacement.whole
+
+        class Recorded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                log.drivers.append(self)
+
+        def counted(placement, params):
+            log.wholes += 1
+            return whole(placement, params)
+        scan_engine.ScanDriver = Recorded
+        placed.StepPlacement.whole = counted
+
+
+def fl_run_fl(log, cfg, params, algo, mesh=None, rounds: int = FT, **kw):
+    """`run_fl(engine="scan")` of an fl case; returns (params, history,
+    its ScanDriver, the calls of StepPlacement.whole it made)."""
+    from repro_torch.core import run_fl
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    before = log.wholes
+    params, hist = run_fl(
+        model=build_model(cfg), algo=algo, batcher=fl_batcher(cfg),
+        participation=bernoulli(FN), schedule=lambda t: 0.05 / (1 + t),
+        n_rounds=rounds, params=tree_map(torch_clone, params),
+        cohort_capacity=FN, engine="scan", scan_chunk=FCHUNK, device="cpu",
+        mesh=mesh, cfg=None if mesh is None else cfg, **kw)
+    return params, hist, log.drivers[-1], log.wholes - before
+
+
+def torch_clone(t):
+    return t.clone()
+
+
+def fl_state_view(name: str, algo, state) -> dict:
+    """The float state a case compares, whole: MIFA's G (int8 memory
+    dequantized), FedAR's U, a bank's first N rows and G_sum."""
+    from repro_torch.core import quantized_memory as qm
+    from repro_torch.tree import tree_map
+    if name == "mifa_array":
+        return {"G": state["G"]}
+    if name == "mifa_int8":
+        return {"G": qm.dequantize_tree(state["G_q"], state["G_scale"])}
+    if name == "fedar":
+        return {"U": state["U"]}
+    if name == "banked_paged":
+        rows = algo.bank.gather(state["bank"], np.arange(FN))
+    else:
+        rows = tree_map(lambda r: r[:FN].float(), state["bank"]["rows"])
+    return {"rows": rows, "g_sum": state["bank"]["g_sum"]}
+
+
+def fl_case(out: dict, info: dict, case: str, log, out_dir: str,
+            split_runs: dict) -> None:
+    """One fl case on this world: the unsplit run and the split run
+    (`run_fl(engine="scan", mesh=, cfg=)`), each rank's blocks of the
+    params and its whole state against the unsplit run's; rank 0 records
+    the split run gathered whole for the test's comparison with the JAX
+    package."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.params import take_tree
+    from repro_torch.tree import tree_leaves
+    arch, name, shape = FL_CASES[case]
+    cfg = fl_cfg(arch)
+    params = build_model(cfg).init(0, device="cpu")
+    mesh = make_host_mesh(*shape, device="cpu")
+    want_p, want_h, want_d, _ = fl_run_fl(log, cfg, params, fl_algo(name))
+    want_s = fl_state_view(name, want_d.r.algo, want_d.r.state)
+    algo = fl_algo(name, mesh, cfg)
+    ck = {}
+    if case.startswith("f_"):
+        # snapshot after round 2 on 1x2 (rank 0 writes it), then resumed
+        ck_dir = os.path.join(out_dir, f"{case}_ckpt")
+        fl_run_fl(log, cfg, params, fl_algo(name, mesh, cfg), mesh, rounds=2,
+                  checkpoint=CheckpointSpec(every=2, dir=ck_dir))
+        dist.barrier()
+        if case == "f_resumed_on_1":
+            mine = os.path.join(out_dir, f"{case}_ckpt_{dist.get_rank()}")
+            shutil.copytree(ck_dir, mine)
+            ck_dir, mesh = mine, None
+        ck = {"checkpoint": CheckpointSpec(every=2, dir=ck_dir, resume=True)}
+    got_p, got_h, drv, wholes = fl_run_fl(log, cfg, params, algo, mesh, **ck)
+    if case == "a_mifa_1x2":
+        split_runs["a"] = (got_p, got_h)
+    placement = drv.placement
+    split = None if placement is None else placement.split
+    whole_s, whole_p = drv.whole_carry()
+    got_s = fl_state_view(name, algo, whole_s)
+    bound = INT8_TOL if name == "mifa_int8" else (TRTOL, TATOL)
+    if mesh is None:
+        # resumed on one rank: rounds 0-1 split, round 2 unsplit
+        _, err = train_gap([got_p, got_s, got_h.train_loss],
+                           [want_p, want_s, want_h.train_loss], *bound)
+        exact = None
+    else:
+        ref_p = take_tree(want_p, placement.param_specs, mesh)
+        _, err = train_gap([got_p, got_s, got_h.train_loss],
+                           [ref_p, want_s, want_h.train_loss], *bound)
+        exact = None
+        if case == "f_resumed_on_1x2":
+            sp, sh = split_runs["a"]
+            exact = gap([got_p, got_h.train_loss], [sp, sh.train_loss])[0]
+    ints = all(np.array_equal(a, b) for a, b in zip(hist_ints(got_h),
+                                                    hist_ints(want_h)))
+    verdicts = {"err": err, "ints": ints, "exact": exact,
+                "wholes": wholes, "eager": drv.eager,
+                "replays": drv.replays, "eager_rounds": drv.eager_rounds}
+    if split is not None:
+        verdicts.update(
+            moved=dict(split.axis.moved),
+            g_differs=any(rules.P(*s[1:]) != p for s, p in zip(
+                tree_leaves(placement.state_specs),
+                tree_leaves(placement.param_specs))),
+            axes=sorted(rules.sharded_axes([placement.param_specs], mesh)))
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, verdicts)
+    info[case] = parts
+    for k, v in flat_tree({"params": whole_p, **got_s}).items():
+        out[f"{case}/{k}"] = v.detach().numpy().copy()
+    out[f"{case}/loss"] = np.asarray(got_h.train_loss, np.float64)
+    out[f"{case}/n_active"] = np.asarray(got_h.n_active, np.float64)
+    dist.barrier()
+
+
+def world_of_fl(out: dict, info: dict, out_dir: str) -> None:
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    log, split_runs = DriverLog(), {}
+    for case, (_, _, shape) in FL_CASES.items():
+        if shape[0] * shape[1] == world:
+            fl_case(out, info, case, log, out_dir, split_runs)
+    dist.barrier()
+
+
 def rank_main(rank: int, world: int, out_dir: str,
               cases: str = "paper") -> None:
     import torch
@@ -1034,6 +1266,8 @@ def rank_main(rank: int, world: int, out_dir: str,
             world_of_serve(out, info, out_dir)
         elif cases == "train":
             world_of_train(out, info, out_dir)
+        elif cases == "fl":
+            world_of_fl(out, info, out_dir)
         elif world == 1:
             world_of_one(out, info)
         else:
@@ -1050,13 +1284,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, choices=(1, 2, 4), required=True)
     ap.add_argument("--out", required=True)
-    ap.add_argument("--cases", choices=("paper", "params", "serve", "train"),
-                    default="paper")
+    ap.add_argument("--cases", choices=("paper", "params", "serve", "train",
+                                        "fl"), default="paper")
     args = ap.parse_args()
     if args.cases == "params" and args.world != 4:
         ap.error("--cases params runs in a world of 4")
-    if args.cases not in ("serve", "train") and args.world == 2:
-        ap.error("a world of 2 runs --cases serve or train")
+    if args.cases not in ("serve", "train", "fl") and args.world == 2:
+        ap.error("a world of 2 runs --cases serve, train or fl")
     import torch.multiprocessing as mp
     mp.spawn(rank_main, args=(args.world, args.out, args.cases),
              nprocs=args.world, join=True)
