@@ -3333,25 +3333,28 @@ DUR_WINDOW = 12
 # million-client bank is snapshotted after DUR_MILLION_ROUNDS rounds (its
 # pool of 2048 rows fills in 4, so pages spill). Cut from 20 rounds in
 # chunks of 5 (window 16, departures at 16) and 6 million-client rounds,
-# every check kept, to make room for the split federated rounds
-DUR_ROUNDS, DUR_CHUNK, DUR_KILL_ROUNDS, DUR_MILLION_ROUNDS = 16, 4, 30, 5
-DUR_KILL_CHUNK = 10
+# every check kept, to make room for the split federated rounds; the
+# kill/resume runs cut from 30 rounds in chunks of 10 (snapshots every 10,
+# killed after 21) to make room for the split fleets, every check kept
+DUR_ROUNDS, DUR_CHUNK, DUR_KILL_ROUNDS, DUR_MILLION_ROUNDS = 16, 4, 15, 5
+DUR_KILL_CHUNK = 5
 # the elastic fleets over the trace: half the capacity at round 0, the rest
 # arriving every 4 rounds, 10% departing at round 12 (|A| <= 55 <=
 # FLEET_CAP)
 DUR_ELASTIC = {"n_initial": 50, "arrive_every": 4, "depart_frac": 0.1,
                "depart_at": 12}
 # kill and resume: snapshots every DUR_EVERY rounds, the killed run stops
-# after DUR_KILL rounds and resumes from its round-20 snapshot to round
+# after DUR_KILL rounds and resumes from its round-10 snapshot to round
 # DUR_KILL_ROUNDS. Round 0 of the trace is all-active, so a paged bank must
 # hold every client then and never evicts under it; the paged run takes
-# elastic availability over the trace instead (30% of the capacity departing
-# at round 20) through pages of one row: 67 slots hold the largest chunk's
-# union, 70 clients have come by the round-20 snapshot, so pages spill
+# elastic availability over the trace instead (the rest of the capacity
+# arriving every 3 rounds, 30% departing at round 10) through pages of one
+# row: 67 slots hold the largest chunk's union (66 clients), 79 clients
+# have come by the round-10 snapshot and 90 by round 15, so pages spill
 # before it and after it
-DUR_EVERY, DUR_KILL = 10, 21
-KILL_ELASTIC = {"n_initial": 50, "arrive_every": 8, "depart_frac": 0.3,
-                "depart_at": 20}
+DUR_EVERY, DUR_KILL = 5, 11
+KILL_ELASTIC = {"n_initial": 50, "arrive_every": 3, "depart_frac": 0.3,
+                "depart_at": 10}
 KILL_PAGE, KILL_SLOTS = 1, 67
 DUR_DIR = ROOT / "build" / "durability"
 
@@ -3565,11 +3568,10 @@ def gsum_gap(state, rows) -> float:
 def kill_resume_phase(params0, problem) -> tuple[dict, list]:
     """Each algorithm for DUR_KILL_ROUNDS rounds on the scan (chunks of
     DUR_KILL_CHUNK, a snapshot every DUR_EVERY rounds, evals every
-    DUR_EVERY), once
-    uninterrupted, once killed after DUR_KILL rounds and resumed from its
-    round-20 snapshot: params, history and τ bit-equal. The paged bank's
-    final snapshots of both runs are restored into fresh banks and every
-    row read back through the gather kernel."""
+    DUR_EVERY), once uninterrupted, once killed after DUR_KILL rounds and
+    resumed from its second snapshot: params, history and τ bit-equal. The
+    paged bank's final snapshots of both runs are restored into fresh
+    banks and every row read back through the gather kernel."""
     from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
     from repro_torch.checkpoint import CheckpointSpec, run_state
     from repro_torch.core import MIFA, run_fl
@@ -6553,14 +6555,280 @@ def split_fl_sequential(cfg, model, kw, algo: str, n: int,
     return seq["params"], view, seq["losses"]
 
 
+# the split fleets (`run_fleet(engine="scan", mesh=1x2, cfg=)`, every
+# trial's local update on each rank's blocks under vmap over trials): (label,
+# arch, layers, dtype, algorithm, clients, cohort capacity, rounds), all at
+# full width with granite's depth cut to 1 layer, two trials of seeds
+# SPLIT_FLEET_SEEDS: (i) MIFA(array) under Bernoulli availability (each
+# trial's of seed SPLIT_FL_SEED + s: a round with an inactive client);
+# (ii) BankedMIFA(DenseBank) and (iii) BankedMIFA(PagedDeviceBank), their
+# rows whole on every rank, trial k taking SPLIT_FLEET_COHORTS from k on.
+# The state is whole on every rank (`fleet_axis_specs`), in bf16 (G, the
+# rows, the pages; G_sum f32): (i)'s G is 2 trials x 2 clients x 0.60e9 x 2
+# B = 4.8 GB a rank. Two ranks of (ii) at N = 4 did not fit the card beside
+# each other: at C = 2 one rank held 30.7 GiB in the local update (about
+# 4.2 GB a client on a rank's blocks, the head whole: granite's vocab is
+# odd), at C = 1 36.2 GiB in the scatter (the rows 12.0 GB, G_sum, the
+# delta sums and the new G_sum 4.8 GB each), so the cohort fleets take
+# N = 2 (rows 7.2 GB), one client a round. A chunk's first state stays
+# held (the runner's, until the chunk is written back) while its later
+# rounds make new G_sums: at N = 2 a chunk of two rounds peaked at 32.96
+# GiB a rank, 38.29 GiB reserved, 0.99 GiB of the card free; the fleets
+# take chunks of SPLIT_FLEET_CHUNK rounds
+SPLIT_FLEET_SEEDS, SPLIT_FLEET_CHUNK = (0, 1), 1
+SPLIT_FLEET_RUNS = (
+    ("(i) granite-3-8b MIFA(array)", "granite_3_8b", 1, "bfloat16",
+     "mifa_array", 2, None, 2),
+    ("(ii) granite-3-8b BankedMIFA(DenseBank)", "granite_3_8b", 1,
+     "bfloat16", "banked_dense", 2, 1, 2),
+    ("(iii) granite-3-8b BankedMIFA(PagedDeviceBank)", "granite_3_8b", 1,
+     "bfloat16", "banked_paged", 2, 1, 2))
+SPLIT_FLEET_COHORTS = ((True, False), (False, True), (True, False))
+# the kernel each fleet's server step launches on every rank, and how many
+# times a round: mifa_aggregate once a trial, a batched scatter once for all
+SPLIT_FLEET_KERNEL = {
+    "mifa_array": ("mifa_aggregate", len(SPLIT_FLEET_SEEDS)),
+    "banked_dense": ("bank_scatter_batched", 1),
+    "banked_paged": ("paged_bank_scatter_batched", 1)}
+
+
+class FleetLog:
+    """While active, records every `FleetRunner` and `FleetScanDriver`
+    that `run_fleet` builds (the runner's placement kept as `placed_as`:
+    `finalize` drops it once the params are whole)."""
+
+    def __enter__(self):
+        from repro_torch.fleet import executor
+        self._base = executor.FleetRunner, executor.FleetScanDriver
+        self.runners, self.drivers = [], []
+        log = self
+
+        class Runner(self._base[0]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.placed_as = self.placement
+                log.runners.append(self)
+
+        class Driver(self._base[1]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                log.drivers.append(self)
+        executor.FleetRunner, executor.FleetScanDriver = Runner, Driver
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fleet import executor
+        executor.FleetRunner, executor.FleetScanDriver = self._base
+
+
+def split_fleet_setup(arch: str, n_layers: int, dtype: str, algo: str,
+                      n: int, cap, rounds: int) -> tuple:
+    """(cfg, model, run_fleet's keywords but the algorithm, a fresh
+    algorithm) of a split fleet: SPLIT_FLEET_SEEDS' trials, split_fl's
+    batches and schedule."""
+    from repro_torch.core import BernoulliParticipation
+    from repro_torch.fleet import Trial
+    cfg, model, kw, fresh = split_fl_setup(arch, n_layers, dtype, algo, n,
+                                           cap, rounds)
+    trials = [Trial(seed=s, participation=(
+        FixedMasks(SPLIT_FLEET_COHORTS[k:k + rounds]) if cap else
+        BernoulliParticipation(np.asarray(SPLIT_FL_PROBS),
+                               seed=SPLIT_FL_SEED + s)))
+        for k, s in enumerate(SPLIT_FLEET_SEEDS)]
+    del kw["participation"]
+    return cfg, model, {**kw, "trials": trials,
+                        "scan_chunk": SPLIT_FLEET_CHUNK}, fresh
+
+
+def split_fleet_view(algo: str, bank, state, n: int) -> dict:
+    """What a fleet compares besides its params, whole, (K, ...) leaves:
+    G, or a bank's first N rows of every trial (a paged bank's read back)
+    and G_sum."""
+    from repro_torch.tree import tree_map
+    if algo == "mifa_array":
+        return {"G": state["G"]}
+    if algo == "banked_paged":
+        rows = bank.gather_fleet(state["bank"], np.tile(
+            np.arange(n), (len(SPLIT_FLEET_SEEDS), 1)))
+    else:
+        rows = tree_map(lambda r: r[:, :n], state["bank"]["rows"])
+    return {"rows": rows, "g_sum": state["bank"]["g_sum"]}
+
+
+def split_fleet_run(label: str, arch: str, n_layers: int, dtype: str,
+                    algo: str, n: int, cap, rounds: int, mesh) -> dict:
+    """One rank's part of a split fleet: `run_fleet(engine="scan", mesh=,
+    cfg=)`, every count set to 0 just before it and read just after (its
+    kernel SPLIT_FLEET_KERNEL's times a round on the whole state, nothing
+    else), the rounds run eagerly and none replayed; every rank returns the
+    whole fleet and holds the whole state. For MIFA(array) one more server
+    step of trial 0 on the whole G against its plain version. Then every
+    rank but 0 frees its memory, and rank 0 runs the unsplit fleet alone
+    (`split_fleet_reference`)."""
+    import torch.distributed as dist
+    from repro_torch.fleet import run_fleet
+    from repro_torch.kernels.ops import mifa_aggregate_tree
+    from repro_torch.tree import tree_index, tree_leaves, tree_map
+    t_run = time.perf_counter()
+    rank = dist.get_rank()
+    cfg, model, kw, fresh = split_fleet_setup(arch, n_layers, dtype, algo,
+                                              n, cap, rounds)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FleetLog() as log:
+        reset_counts()
+        t0 = time.perf_counter()
+        params, hist = run_fleet(model=model, algo=fresh, mesh=mesh,
+                                 cfg=cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runner, drv = log.runners[-1], log.drivers[-1]
+    split = runner.placed_as.split
+    check(split is not None and drv.eager,
+          f"split fleet {label}: the rounds are not split and eager")
+    stacked = hist.stacked()
+    mine = {"peak": peak, "held": held, "counts": counts,
+            "ms": wall / rounds * 1e3, "moved": dict(split.axis.moved),
+            "losses": stacked["train_loss"].tolist(),
+            "n_active": stacked["n_active"].tolist(),
+            "eager_rounds": drv.eager_rounds, "replays": drv.replays,
+            "block_bytes": sum(t.numel() * t.element_size() for t in
+                               tree_leaves(runner.placed_as.place(params))),
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(runner.state)
+                               if isinstance(t, torch.Tensor))}
+    if algo == "mifa_array":
+        # trial 0's next server step as the fleet takes it: whole params
+        # and the whole G, updates drawn from a seed
+        G = tree_map(torch.clone, tree_index(runner.state["G"], 0))
+        active = torch.as_tensor(
+            kw["trials"][0].participation.sample(rounds - 1), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(rank + 11)
+        updates = tree_map(lambda g: torch.randn(
+            g.shape, generator=gen, device="cuda").to(g.dtype).float(), G)
+        w = tree_index(params, 0)
+        before: list = []
+        tree_map(lambda g: before.append(g.clone()), G)
+        G, w_new = mifa_aggregate_tree(G, updates, active, w,
+                                       kw["schedule"](rounds))
+        torch.cuda.synchronize()
+        mine["server_check"] = check_server_step(
+            f"split fleet {label} server step", lambda j, _: before[j], G,
+            updates, active, w, w_new, kw["schedule"](rounds))
+        del G, updates, before, w, w_new
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    got = None
+    if rank == 0:
+        got = split_fleet_view(algo, getattr(fresh, "bank", None),
+                               runner.state, n)
+    del runner, drv, log, fresh
+    if rank != 0:
+        del params
+    # a driver's closures hold the run's carry in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
+                    f" {dtype}", "ranks": ranks, "algo": algo,
+           "rounds": rounds, "head_split": split.head}
+    if rank == 0:
+        out.update(split_fleet_reference(
+            label, (arch, n_layers, dtype, algo, n, cap, rounds), params,
+            got, stacked))
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["wall_s"] = time.perf_counter() - t_run
+    return out
+
+
+def split_fleet_reference(label: str, run: tuple, got_p, got,
+                          stacked) -> dict:
+    """Rank 0's unsplit `run_fleet(engine="scan")` of the same fleet
+    against the split fleet, leaf by leaf (params, then G or the bank's
+    rows and G_sum, every trial) and the losses within SPLIT_TOL's bound
+    of the run's dtype, n_active exact (a round with an inactive client in
+    the dense fleet). Its peak counts its own params and state, not the
+    split fleet's it holds."""
+    from repro_torch.fleet import run_fleet
+    from repro_torch.tree import tree_leaves
+    t_ref = time.perf_counter()
+    arch, n_layers, dtype, algo, n, cap, rounds = run
+    cfg, model, kw, fresh = split_fleet_setup(*run)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FleetLog() as log:
+        reset_counts()
+        t0 = time.perf_counter()
+        ref_p, ref_h = run_fleet(model=model, algo=fresh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    runner, drv = log.runners[-1], log.drivers[-1]
+    ref = split_fleet_view(algo, getattr(fresh, "bank", None), runner.state,
+                           n)
+    want = ref_h.stacked()
+    out = {"unsplit_peak": torch.cuda.max_memory_allocated() - base,
+           "unsplit_counts": counts, "unsplit_replays": drv.replays,
+           "unsplit_eager_rounds": drv.eager_rounds,
+           "unsplit_ms": wall / rounds * 1e3,
+           "unsplit_losses": want["train_loss"].tolist()}
+    # the captured round's memory pool, before the leaves are compared
+    del runner, drv, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(np.array_equal(stacked["n_active"], want["n_active"])
+          and (cap or stacked["n_active"].min() < n),
+          f"split fleet {label}: n_active {stacked['n_active'].tolist()}, "
+          f"unsplit {want['n_active'].tolist()}")
+    check(np.isfinite(stacked["train_loss"]).all(),
+          f"split fleet {label}: losses {stacked['train_loss'].tolist()}")
+    rtol, atol = SPLIT_TOL[dtype]
+
+    def gap(a, b) -> float:
+        # in runs of 2^26 elements: a leaf of G is gigabytes in f32
+        a, b, worst = a.reshape(-1), b.to(a.device).reshape(-1), 0.0
+        for i in range(0, a.numel(), 1 << 26):
+            x, y = a[i:i + (1 << 26)].float(), b[i:i + (1 << 26)].float()
+            worst = max(worst, float(((x - y).abs() / (
+                atol + rtol * y.abs())).max()))
+        return worst
+
+    gaps = [gap(a, b) for a, b in zip(
+        tree_leaves(got_p) + tree_leaves(got),
+        tree_leaves(ref_p) + tree_leaves(ref))]
+    loss_gap = gap(torch.as_tensor(stacked["train_loss"]),
+                   torch.as_tensor(want["train_loss"]))
+    out.update(leaf_gap=max(gaps), loss_gap=loss_gap)
+    check(max(gaps) <= 1 and loss_gap <= 1,
+          f"split fleet {label} vs unsplit: loss {loss_gap:.3e}, leaves "
+          f"{[f'{x:.3e}' for x in gaps]} of the bound")
+    del ref_p, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reference_s"] = time.perf_counter() - t_ref
+    return out
+
+
 def split_rank(rank: int, out_dir: str, queue) -> None:
     """A rank of the split phase's world: two processes on cuda:0 that
     meet on a FileStore and talk gloo (which carries CUDA tensors through
     the host), a 1x2 `make_host_mesh(device="cuda")`, every SPLIT_RUNS,
-    SPLIT_TRAIN_RUNS and SPLIT_FL_RUNS run; `queue` carries the checks'
-    blocks to rank 0 (`whole_on_rank0`); rank 0 writes the results as
-    JSON into `out_dir`. The rank ends when the phase's process does
-    (PR_SET_PDEATHSIG), so the watchdog's exit ends it too."""
+    SPLIT_TRAIN_RUNS, SPLIT_FL_RUNS and SPLIT_FLEET_RUNS run; `queue`
+    carries the checks' blocks to rank 0 (`whole_on_rank0`); rank 0 writes
+    the results as JSON into `out_dir`. The rank ends when the phase's
+    process does (PR_SET_PDEATHSIG), so the watchdog's exit ends it
+    too."""
     import ctypes
     import signal
     from datetime import timedelta
@@ -6584,7 +6852,9 @@ def split_rank(rank: int, out_dir: str, queue) -> None:
         runs = {"serve": [split_run(*run, mesh) for run in SPLIT_RUNS],
                 "train": [split_train_run(*run, mesh)
                           for run in SPLIT_TRAIN_RUNS],
-                "fl": [split_fl_run(*run, mesh) for run in SPLIT_FL_RUNS]}
+                "fl": [split_fl_run(*run, mesh) for run in SPLIT_FL_RUNS],
+                "fleet": [split_fleet_run(*run, mesh)
+                          for run in SPLIT_FLEET_RUNS]}
         if rank == 0:
             with open(os.path.join(out_dir, "split.json"), "w") as f:
                 json.dump(runs, f)
@@ -6726,15 +6996,90 @@ def split_fl_rows(runs: list, smi: str) -> tuple[dict, list, float]:
     return launches, rows, err
 
 
+def split_fleet_rows(runs: list, smi: str) -> tuple[dict, list, float]:
+    """The split fleets' checks and rows: on every rank its kernel exactly
+    SPLIT_FLEET_KERNEL's times a round and nothing else, every round eager
+    and none replayed, each rank's peak below the unsplit fleet's; the
+    unsplit fleet's kernel as often a replay plus once more in the warm-up
+    before its capture. Returns (each kernel's launches a rank over each
+    fleet's rounds, rows, the server step check's max |dw|)."""
+    launches, rows, err = {}, [], 0.0
+    for run, spec in zip(runs, SPLIT_FLEET_RUNS):
+        label, rounds = run["label"], run["rounds"]
+        kernel, per_round = SPLIT_FLEET_KERNEL[run["algo"]]
+        for r in run["ranks"]:
+            others = {k: v for k, v in r["counts"].items() if k != kernel}
+            check(r["counts"][kernel] == per_round * rounds
+                  and not any(others.values()),
+                  f"split fleet {label}: launches {r['counts']}, expected "
+                  f"{kernel} {per_round * rounds} and nothing else")
+            check(r["eager_rounds"] == rounds and r["replays"] == 0,
+                  f"split fleet {label}: eager rounds {r['eager_rounds']}, "
+                  f"replays {r['replays']}")
+        uc = run["unsplit_counts"]
+        check(uc[kernel] == per_round * (rounds + 1)
+              and not any(v for k, v in uc.items() if k != kernel)
+              and run["unsplit_replays"] == rounds
+              and run["unsplit_eager_rounds"] == 0,
+              f"split fleet {label}: unsplit launches {uc}, replays "
+              f"{run['unsplit_replays']}")
+        launches.setdefault(kernel, {})[label] = [
+            r["counts"][kernel] for r in run["ranks"]]
+        r0 = run["ranks"][0]
+        peaks = ", ".join(f"rank {i} {r['peak']} B (params' blocks "
+                          f"{r['block_bytes']} B, state {r['state_bytes']} "
+                          f"B, {r['held']} B held before the fleet)"
+                          for i, r in enumerate(run["ranks"]))
+        check(all(r["peak"] < run["unsplit_peak"] for r in run["ranks"]),
+              f"split fleet {label}: a rank's peak is not below the unsplit "
+              f"fleet's: {peaks}; unsplit {run['unsplit_peak']} B")
+        what = ("G" if run["algo"] == "mifa_array"
+                else "bank rows and G_sum")
+        rows += [
+            f"fleet {label} on 1x{SPLIT_RANKS} (run_fleet engine=scan, "
+            f"mesh=, cfg=; {len(SPLIT_FLEET_SEEDS)} trials of seeds "
+            f"{list(SPLIT_FLEET_SEEDS)} under vmap; head "
+            f"{'vocab-split' if run['head_split'] else 'whole'}; {spec[5]} "
+            f"clients, K={SPLIT_FL_K}, {rounds} rounds in chunks of "
+            f"{SPLIT_FLEET_CHUNK}, n_active {r0['n_active']}): losses "
+            f"{[[round(x, 6) for x in t] for t in r0['losses']]}, unsplit "
+            f"{[[round(x, 6) for x in t] for t in run['unsplit_losses']]}; "
+            f"params and {what} vs unsplit {run['leaf_gap']:.3f} of the "
+            f"bound, loss {run['loss_gap']:.3f}; {kernel} launches per rank "
+            f"{launches[kernel][label]} on the whole state; eager rounds "
+            f"per rank {[r['eager_rounds'] for r in run['ranks']]}, replays "
+            f"{[r['replays'] for r in run['ranks']]} (unsplit fleet: "
+            f"replays {run['unsplit_replays']}, {kernel} {uc[kernel]} with "
+            f"its warm-up)",
+            f"fleet {label} peak allocation: split {peaks}; unsplit "
+            f"{run['unsplit_peak']} B; {smi}",
+            f"fleet {label} bytes rank 0 moved over {rounds} rounds: "
+            f"{r0['moved']}",
+            f"fleet {label} host-staged through gloo (not a speed figure): "
+            f"ms a round {r0['ms']:.3f} (the run's wall clock over its "
+            f"rounds, the final gather of the params included), unsplit "
+            f"{run['unsplit_ms']:.3f}; the fleet with its checks "
+            f"{run['wall_s']:.1f} s (host clock), of which the unsplit "
+            f"fleet with the comparison {run['reference_s']:.1f} s; {smi}"]
+        if "server_check" in r0:
+            worst, elements = r0["server_check"]
+            err = max(err, worst)
+            rows.append(f"fleet {label} server step of trial 0 on the whole "
+                        f"G: mifa_aggregate against mifa_aggregate_ref, "
+                        f"{elements} elements of G bit-equal on rank 0, max "
+                        f"|dw| {worst:.3e}")
+    return launches, rows, err
+
+
 def split_phase(gen, smi: str) -> tuple[dict, list]:
     """Split products (`sharding.tensor_parallel`): flash_attention
     against its plain version and timed beside sdpa at each rank's heads
     (SPLIT_SHAPES), then a world of SPLIT_RANKS processes on this card
     (`split_rank`, the kernels already built) serving every SPLIT_RUNS run
     on its blocks, training every SPLIT_TRAIN_RUNS step and running every
-    SPLIT_FL_RUNS federated run, each held against the unsplit run.
-    Returns the check's |err|, the timing and each run's per-rank
-    launches; every row starts with "split "."""
+    SPLIT_FL_RUNS federated run and every SPLIT_FLEET_RUNS fleet, each
+    held against the unsplit run. Returns the check's |err|, the timing
+    and each run's per-rank launches; every row starts with "split "."""
     import torch.multiprocessing as mp
     t_start = time.perf_counter()
     bf, f32 = torch.bfloat16, torch.float32
@@ -6752,6 +7097,10 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
             f" us, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); "
             f"{smi}")
     torch.cuda.empty_cache()
+    # what this process keeps on the card beside the world's two ranks
+    rows.append(f"this process holds {torch.cuda.memory_allocated()} B "
+                f"allocated, {torch.cuda.memory_reserved()} B reserved "
+                f"while the world runs; {smi}")
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
     SPLIT_DIR.mkdir(parents=True)
     queue = mp.get_context("spawn").Queue()
@@ -6773,7 +7122,9 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
     train_launches, train_rows, server_err = split_train_rows(
         runs["train"], smi)
     fl_launches, fl_rows, fl_err = split_fl_rows(runs["fl"], smi)
-    server_err = max(server_err, fl_err)
+    fleet_launches, fleet_rows, fleet_err = split_fleet_rows(runs["fleet"],
+                                                            smi)
+    server_err = max(server_err, fl_err, fleet_err)
     runs = runs["serve"]
     launches = {}
     for run, (_, _, n_layers, _) in zip(runs, SPLIT_RUNS):
@@ -6814,11 +7165,11 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
             f"{run['unsplit_prefill_ms']:.3f} ms, decode "
             f"{run['unsplit_decode_ms']:.3f} ms/step; the run with its "
             f"checks {run['wall_s']:.1f} s (host clock); {smi}"]
-    rows += train_rows + fl_rows
+    rows += train_rows + fl_rows + fleet_rows
     rows.append(f"phase {time.perf_counter() - t_start:.1f} s")
     return ({"err": err, "timing": timing, "launches": launches,
              "train_launches": train_launches, "fl_launches": fl_launches,
-             "server_err": server_err},
+             "fleet_launches": fleet_launches, "server_err": server_err},
             [f"split {r}" for r in rows])
 
 
@@ -7195,6 +7546,17 @@ def main() -> int:
                     "cfg=) on each rank, the server step on the rank's "
                     "blocks (G's or the bank rows'; a paged bank whole on "
                     "every rank), one launch a round, every round eager"))
+        if name in split["fleet_launches"]:
+            # the split phase's fleets on a 1x2 mesh, each counted from 0
+            # just before it on each rank
+            scan.update(
+                split_fleet_launches=split["fleet_launches"][name],
+                split_fleet_launches_from=(
+                    f"split run_fleet(engine='scan', mesh=1x{SPLIT_RANKS}, "
+                    f"cfg=) on each rank, {len(SPLIT_FLEET_SEEDS)} trials "
+                    "under vmap, the server step on the whole state: "
+                    "mifa_aggregate once a trial a round, a batched scatter "
+                    "once a round for every trial, every round eager"))
         if name in scen_launches:
             scan.update(scenario_launches=scen_launches[name],
                         scenario_launches_from=scen_from[name])

@@ -443,7 +443,8 @@ class ChunkRunner:
 def runs_eager(device: torch.device, placement) -> bool:
     """The scan engine's rule for a placed carry: every round runs the body
     itself, uncaptured, where the round computes on CUDA blocks of a split
-    (`params.StepPlacement.split`): its rounds issue gloo collectives,
+    (`params.StepPlacement.split`, a fleet's `params.FleetPlacement.split`,
+    `fleet.executor.FleetScanDriver`): its rounds issue gloo collectives,
     which a CUDA graph cannot capture. Not on the CPU (nothing is
     captured there), and not where no axis of extent > 1 places the
     params (`placement` None: the captured round of the mesh-less run)."""

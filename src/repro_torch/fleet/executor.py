@@ -52,16 +52,25 @@ D > 1 (a world of CPU ranks, `sharding.clients`) each rank builds and runs
 only its block of K / D trials, on either engine; masks are drawn for all
 K trials and each rank keeps its rows. With `cfg` the trial params'
 param dims are placed by `fleet_trial_specs` (the zoo's tensor
-parallelism over `model`, `sharding.params`): between rounds each rank
-holds its column blocks, and a round gathers them whole for the local
-update and the per-trial server step (the algorithm state keeps its
-trial-axis placement, `fleet_axis_specs`), on CPU ranks only: CUDA trial
-params split over an axis raise, naming ROADMAP entry 12i (the trials'
-local update on each rank's blocks). `finalize` gathers the params'
-columns, then the params, the per-trial state and the history over the
-data group, so every rank returns all K, whole. A K that D does not
-divide is replicated (`sanitize`): every rank runs every trial. At extent
-1 nothing changes.
+parallelism over `model`, `sharding.params.FleetPlacement`): between
+rounds each rank holds its column blocks, and the algorithm state keeps
+its trial-axis placement (`fleet_axis_specs`: whole beyond the trial
+axis). Where `model` splits and the config is the dense GQA stack
+(`FleetPlacement.split`, `sharding.tensor_parallel`) every trial's local
+update runs on the rank's blocks under vmap over trials (split products:
+each collective issued once for all trials and clients) and its updates
+move whole, in the state's dtype; a dense round's per-trial server step
+runs on whole params and the whole state, its new params cut back to the
+blocks, and a cohort round's batched scatter takes the whole updates,
+its whole mean cut to the blocks before the rate is applied. This is the
+way in on the card (a DeviceMesh of CUDA ranks), where every round runs
+uncaptured (`FleetScanDriver.eager`: gloo cannot be captured). For any
+other config a round gathers the blocks whole for the local update and
+the server step, on CPU ranks only: CUDA trial params raise, naming the
+config's ROADMAP entry. `finalize` gathers the params' columns, then the
+params, the per-trial state and the history over the data group, so
+every rank returns all K, whole. A K that D does not divide is replicated
+(`sanitize`): every rank runs every trial. At extent 1 nothing changes.
 """
 from __future__ import annotations
 
@@ -83,28 +92,14 @@ from repro_torch.core.runner import (ENGINES, ROUND_PHASES, FLHistory,
                                      warn_engine_fallback)
 from repro_torch.core.scan_engine import (ChunkRunner, _eval_rounds,
                                           chunk_bounds, pad_cohort,
-                                          run_pipelined_chunks)
+                                          run_pipelined_chunks, runs_eager)
 from repro_torch.fleet.spec import FleetSpec, Trial
 from repro_torch.scenarios.base import as_process
 from repro_torch.kernels.backend import (DEFAULT_DEVICE, resolve_device,
                                          set_numerics)
 from repro_torch.sharding.clients import client_shard
-from repro_torch.sharding.params import take_tree, whole_tree
-from repro_torch.sharding.rules import P, fleet_trial_specs, sharded_axes
+from repro_torch.sharding.params import FleetPlacement
 from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
-
-
-def check_trial_cols(cols, device: torch.device) -> None:
-    """Raise for trial params split over mesh axes (`cols` not None) on
-    CUDA tensors: a fleet's rounds gather them whole for the local update,
-    on CPU ranks only; the trials' local update on each rank's blocks
-    under vmap over trials is ROADMAP entry 12i."""
-    if cols is not None and device.type == "cuda":
-        raise NotImplementedError(
-            "a fleet's trial params split over mesh axes on CUDA tensors: "
-            "its rounds gather them whole for the local update, which runs "
-            "on CPU ranks only; the trials' local update on each rank's "
-            "blocks under vmap over trials is ROADMAP entry 12i")
 
 
 @dataclass
@@ -201,7 +196,7 @@ def _write_trial(stacked, k: int, new) -> None:
 
 
 def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
-                    cohort: bool, rngs, scen_fn=None):
+                    cohort: bool, rngs, scen_fn=None, placement=None):
     """One fleet round as a function of device tensors only,
     ``body(state, params, x) -> (state, params, metrics with (K,)
     leaves)``, the counterpart of `core.runner.make_round_body`.
@@ -215,15 +210,25 @@ def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
     carries ``t`` (K,) int64 in place of ``active``, the masks are drawn
     in the body over the stacked trials, and the state is ``{"algo",
     "scen_state", "scen_key"}``, as `core.runner.make_round_body`'s.
+
+    With `placement` (a `sharding.params.FleetPlacement`) holding a split
+    `params` is this rank's blocks: every trial's local update runs on
+    them (`model.loss_fn(split=)`) and its updates move whole in the
+    state's dtype; the dense server step gets whole params and its new
+    params are cut back to the blocks, the cohort round's whole mean is
+    cut to them before the rate is applied.
     """
     _, local_ph, server_ph = ROUND_PHASES
     host_draw = hasattr(algo, "host_draw")
+    split = None if placement is None else placement.split
+    loss_fn = model.loss_fn if split is None else (
+        lambda p, b: model.loss_fn(p, b, split))
 
     def local(params, batch, eta_loc, batch_dim):
         """Local training of every trial, vmapped over the trial axis:
         `batch_dim` None shares one batch, 0 gives each trial its own."""
         def one(p, b, eta):
-            return client_updates(model.loss_fn, p, b, eta, K=k_steps,
+            return client_updates(loss_fn, p, b, eta, K=k_steps,
                                   weight_decay=weight_decay)
         with record_function(local_ph):
             return vmap(one, in_dims=(0, batch_dim, 0))(params, batch,
@@ -231,6 +236,11 @@ def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
 
     def dense(state, params, x):
         updates, losses = local(params, x["batch"], x["eta_loc"], None)
+        if split is not None:
+            # an update moves in the update array's dtype, to which the
+            # server step rounds it anyway
+            updates = placement.updates(updates, via=state.get("G"))
+            params = placement.to_step(params)
         with record_function(server_ph):
             per_trial = []
             for k in range(len(rngs)):
@@ -242,6 +252,8 @@ def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
                 _write_trial(state, k, st)
                 _write_trial(params, k, p)
                 per_trial.append(metrics)
+            if split is not None:
+                params = placement.from_step(params)
             return state, params, {key: torch.stack([m[key]
                                                      for m in per_trial])
                                    for key in per_trial[0]}
@@ -249,9 +261,14 @@ def make_fleet_body(model, algo, k_steps: int, weight_decay: float, *,
     def cohort_round(state, params, x):
         batch = {key: v[x["idx"]] for key, v in x["ubatch"].items()}
         updates, losses = local(params, batch, x["eta_loc"], 0)
+        if split is not None:
+            updates = placement.updates(
+                updates, via=algo.bank.update_dtypes(state["bank"]))
         with record_function(server_ph):
             state, mean_g, metrics = algo.round_step_cohort_fleet(
                 state, x["rows"], x["valid"], updates, losses, rng=rngs)
+            if split is not None:
+                mean_g = placement.from_step(mean_g)
             eta = x["eta_srv"]
             params = tree_map(
                 lambda w, g: (w - eta.reshape((-1,) + (1,) * (w.ndim - 1))
@@ -277,8 +294,9 @@ class FleetRunner:
     The driver feeds `step(t, masks)` a (K, N) availability matrix, one row
     per trial, drawn by that trial's own participation process. `params`
     (optional) is a tree of stacked (K, ...) tensors; without it trial k is
-    initialised from `torch.Generator().manual_seed(seeds[k])`, exactly as
-    `RoundRunner(seed=seeds[k])`. Each trial keeps its own round
+    initialised as `model.init(seeds[k])` (on the CPU exactly as
+    `RoundRunner(seed=seeds[k])`; a text model draws from a generator on
+    the card there). Each trial keeps its own round
     generators (`rngs` on the CPU, `device_rngs` on the device), seeded
     with its seed. `scenarios` (one per trial, all of one type) replace
     the masks: `step_scenario` draws them on the device for a dense
@@ -287,8 +305,8 @@ class FleetRunner:
     the runner holds its rank's block of the trials (`trial_shard`,
     None where nothing is split): `n_trials` counts the block, `step`
     takes the masks of all K trials, and `finalize` gathers. With `cfg`
-    the trial params are this rank's column blocks (`param_cols`, None
-    where they are whole).
+    the trial params are this rank's column blocks (`placement`, a
+    `sharding.params.FleetPlacement`, None where they are whole).
     """
 
     def __init__(self, *, model, algo, batcher, schedule: Callable,
@@ -322,9 +340,10 @@ class FleetRunner:
         self.n_trials = len(seeds)
         self.n_clients = batcher.n_clients
         if params is None:
-            self.params = tree_stack([
-                model.init(torch.Generator().manual_seed(int(s)),
-                           device=self.device) for s in seeds])
+            # a seed: tabular models draw on the CPU, as RoundRunner's
+            # generator does; text models on the params' device
+            self.params = tree_stack([model.init(int(s), device=self.device)
+                                      for s in seeds])
         else:
             self.params = tree_map(lambda p: torch.as_tensor(p).to(
                 self.device, copy=True), params)
@@ -333,13 +352,12 @@ class FleetRunner:
                     raise ValueError(f"params= leaves must be stacked "
                                      f"(K={self.n_trials}, ...), got "
                                      f"{tuple(p.shape)}")
-        self.mesh, self.param_cols = mesh, None
+        self.mesh, self.placement = mesh, None
         if mesh is not None and cfg is not None:
-            cols = tree_map(lambda s: P(None, *s[1:]),
-                            fleet_trial_specs(self.params, cfg, mesh))
-            if sharded_axes(cols, mesh):
-                self.param_cols = cols
-        check_trial_cols(self.param_cols, self.device)
+            placement = FleetPlacement(self.params, cfg, mesh,
+                                       self.n_clients)
+            if placement.placed:
+                self.placement = placement
         # each trial's state as RoundRunner builds it, stacked leaf by leaf
         # (a paged bank resets its host mirror at each init, so the fleet
         # ends with one fresh mirror and K equal device tables)
@@ -355,31 +373,30 @@ class FleetRunner:
                            zip(self.rngs, self.device_rngs)]
         self._scen_fn = self._scen_samplers = None
         self._init_scenarios(scenarios)
-        self.body = make_fleet_body(model, algo, batcher.k_steps,
-                                    weight_decay, cohort=self.cohort_mode,
-                                    rngs=self.round_rngs,
-                                    scen_fn=self._scen_fn)
-        if self.param_cols is not None:
+        placement = self.placement
+        self.body = make_fleet_body(
+            model, algo, batcher.k_steps, weight_decay,
+            cohort=self.cohort_mode, rngs=self.round_rngs,
+            scen_fn=self._scen_fn, placement=placement)
+        if placement is not None:
             # the state was built from whole params; the carry holds blocks
-            self.params = take_tree(self.params, self.param_cols, mesh,
-                                    "the trial params")
+            self.params = placement.place(self.params)
+        if placement is not None and placement.split is None:
             inner = self.body
 
             def body(state, params, x):
                 state, params, metrics = inner(state,
-                                               self.whole_params(params), x)
-                return (state, take_tree(params, self.param_cols, mesh,
-                                         "the trial params"), metrics)
+                                               placement.whole(params), x)
+                return state, placement.place(params), metrics
             self.body = body
 
     def whole_params(self, params=None):
         """The stacked trial params (default: the runner's) with whole
         param dims."""
         params = self.params if params is None else params
-        if self.param_cols is None:
+        if self.placement is None:
             return params
-        return whole_tree(params, self.param_cols, self.mesh,
-                          "the trial params")
+        return self.placement.whole(params)
 
     def _init_scenarios(self, scenarios) -> None:
         """Wire one scenario per trial in: a dense fleet stacks their states
@@ -578,7 +595,7 @@ class FleetRunner:
         """Returns (stacked (K, ...) params, fleet history). Under a mesh
         that splits the trials it first gathers the params, the state and
         the history of all K trials from the data group (once)."""
-        self.params, self.param_cols = self.whole_params(), None
+        self.params, self.placement = self.whole_params(), None
         sh = self.trial_shard
         if sh is not None:
             self.params = tree_map(sh.gather, self.params)
@@ -631,7 +648,10 @@ class FleetScanDriver:
     `core.scan_engine.ScanDriver`'s do; τ statistics are not tracked, as
     on the fleet's loop. A cohort fleet's shared batch is padded to one
     width for the whole run (the union's power-of-two bucket at most
-    K·cap clients), so one graph serves every round."""
+    K·cap clients), so one graph serves every round. A split fleet on the
+    card (`eager`, `core.scan_engine.runs_eager`: its rounds issue gloo
+    collectives, which a CUDA graph cannot capture) runs every round
+    uncaptured, counted in `eager_rounds`."""
 
     def __init__(self, runner: FleetRunner, *, scan_chunk: int = 64):
         if scan_chunk < 1:
@@ -654,12 +674,20 @@ class FleetScanDriver:
             self.width = _pow2_bucket(min(r.n_clients, r.n_trials * self.cap))
         gens = (r.device_rngs if r.round_rngs[0] is r.device_rngs[0]
                 else ())
-        self.chunks = ChunkRunner(r.body, r.device, generators=gens)
+        # decided once (`runs_eager`): does every round run the body itself
+        # on the card?
+        self.eager = runs_eager(r.device, r.placement)
+        self.chunks = ChunkRunner(r.body, r.device, generators=gens,
+                                  eager=self.eager)
         self._union = None
 
     @property
     def replays(self) -> int:
         return self.chunks.replays
+
+    @property
+    def eager_rounds(self) -> int:
+        return self.chunks.eager_rounds
 
     def _build_xs(self, t0: int, t1: int, parts):
         r = self.r
@@ -736,10 +764,11 @@ class FleetScanDriver:
                 print(f"  round {t:5d} loss={np.asarray(el).mean():.4f} "
                       f"acc={np.asarray(ea).mean():.4f}")
 
-        carry = ((r.scenario_carry() if self.scenario_mode else r.state),
-                 r.params)
+        # the first carry is not kept here: a state that the rounds replace
+        # (G_sum, params) is freed once the next chunk's is written back
         run_pipelined_chunks(
-            carry,
+            ((r.scenario_carry() if self.scenario_mode else r.state),
+             r.params),
             chunk_bounds(n_rounds, self.scan_chunk, evals),
             chunk_fn=self._chunk_fn,
             build_xs=lambda t0, t1: self._build_xs(t0, t1, parts),

@@ -152,12 +152,14 @@ class _VocabNLL(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, logits, labels, axis):
-        # the forward takes any leading dims: the batch dim goes first
+        # the forward takes any leading dims: the batch dim goes first; the
+        # Function is re-entered, so under a vmap around this one (a
+        # fleet's trials) the collectives see a tensor of their own
         def first(x, d):
             return (x.movedim(d, 0) if d is not None
                     else x.expand((info.batch_size,) + tuple(x.shape)))
-        out = _VocabNLL.forward(first(logits, in_dims[0]),
-                                first(labels, in_dims[1]), axis)
+        out = _VocabNLL.apply(first(logits, in_dims[0]),
+                              first(labels, in_dims[1]), axis)
         return out, (0, 0)
 
 

@@ -27,10 +27,10 @@ split steps of `sharding.tensor_parallel`, a `StepPlacement` that holds a
 split, a `DenseBank(mesh=)`'s rows) passes `split=True` on a DeviceMesh of
 CUDA ranks (gloo carries the CUDA tensors of a world of ranks on one
 card). The message names the entries that will take the rest: ROADMAP
-entry 12i (a fleet's trials under the split) and 12c–12f (the
-architectures the split does not take, `tensor_parallel.unsupported`) at
-data extent 1, entry 12g beyond (the data axis on the card, fsdp params,
-the sequential step at data extent > 1).
+entries 12c–12f (the architectures the split does not take,
+`tensor_parallel.unsupported`) at data extent 1, entry 12g beyond (the
+data axis on the card, fsdp params, the sequential step at data extent
+> 1).
 
 `carry_state_specs` gives the scan carry's algorithm state its specs
 (client-indexed leaves of the params' shape split over the data axes and,
@@ -39,6 +39,10 @@ the carry's placed params and what a round computes on: the params' own
 blocks for the local update where `model` splits and the config is one
 the split takes (`tensor_parallel.train_split`), else whole params (CPU
 ranks only); the state's column blocks for the server step.
+`FleetPlacement` does the same for a fleet's stacked trial params: the
+local update of every trial on the params' blocks, the server step on
+whole params and the whole state (`fleet_axis_specs`: whole beyond the
+trial axis).
 """
 from __future__ import annotations
 
@@ -48,8 +52,9 @@ import torch
 
 from repro_torch.sharding.rules import (P, _entry_axes, axis_names,
                                         client_state_specs, data_axis_size,
-                                        mesh_shape, param_specs,
-                                        scan_carry_specs)
+                                        fleet_trial_specs, mesh_shape,
+                                        param_specs, scan_carry_specs,
+                                        sharded_axes)
 from repro_torch.tree import tree_map
 
 
@@ -72,15 +77,15 @@ def _check(device: torch.device, mesh, what: str,
         later = ("the data axis on the card, fsdp params and the sequential "
                  "train step at data extent > 1 are ROADMAP entry 12g"
                  if data_axis_size(mesh) > 1 else
-                 "a fleet's trials under split products are ROADMAP entry "
-                 "12i, and MoE, MLA, Mamba2, padded heads and the encoder "
-                 "entries 12c-12f")
+                 "MoE, MLA, Mamba2, padded heads and the encoder under split "
+                 "products are ROADMAP entries 12c-12f")
         raise NotImplementedError(
             f"{what} split over mesh axes of extent > 1 on CUDA tensors: "
             "only what computes on blocks takes them on the card (the "
-            "serving steps, the train step and the federated round of the "
-            "dense GQA stack, sharding.tensor_parallel, on a DeviceMesh of "
-            f"CUDA ranks); {later}, and run on CPU ranks (gloo)")
+            "serving steps, the train step, the federated round and the "
+            "fleets of the dense GQA stack, sharding.tensor_parallel, on a "
+            f"DeviceMesh of CUDA ranks); {later}, and run on CPU ranks "
+            "(gloo)")
     if not hasattr(mesh, "get_group"):
         raise ValueError(
             f"{what}: a mesh of extent > 1 must be a DeviceMesh over a world "
@@ -362,3 +367,80 @@ class StepPlacement:
                                         self.param_specs)
         return tree_map(lambda x, s, p: relayout(x, s, p, self.mesh),
                         tree, specs, self.param_specs)
+
+
+class FleetPlacement:
+    """A fleet's stacked trial params placed by `fleet_trial_specs` and the
+    layouts its round computes in (`fleet.executor`).
+
+    `param_specs` place the (K, ...) params between rounds: the trial axis
+    is this rank's block of trials (`FleetRunner.trial_shard` has cut it
+    already), the param dims by the model rules. The algorithm state is
+    whole beyond the trial axis on every rank (`fleet_axis_specs`), so the
+    server step runs on whole params and whole updates (`whole_specs`).
+
+    Where `model` splits (extent > 1 on a DeviceMesh) and
+    `tensor_parallel.unsupported` takes the config, `split` is the
+    `TrainSplit` of one trial (`fleet_trial_specs` without the trial axis;
+    the whole state's specs as its state specs): every trial's local update
+    runs on the params' blocks under vmap over trials (`loss_fn(split=)`),
+    `updates` moves its (K, N, ...) updates to whole in the state's dtype,
+    `to_step` gives the server step whole params, and `from_step` cuts the
+    step's new params (or a cohort round's mean) back to the blocks with
+    no collective: every rank computed the same whole values. All are
+    `TrainSplit.move_tree`; on the card this is the only way in
+    (`split=True` on a DeviceMesh of CUDA ranks). Else `split` is None and
+    the round gathers whole params for the local update and cuts the new
+    ones (CPU ranks only); CUDA params at model extent > 1 raise at
+    construction, naming the ROADMAP entry that will take the config.
+    `placed` is False where no param dim splits (nothing to move)."""
+
+    def __init__(self, stacked: Any, cfg, mesh, n_clients: int):
+        from repro_torch.sharding import tensor_parallel as tp
+        from repro_torch.tree import tree_leaves
+        self.mesh = mesh
+        trial = tree_map(lambda s: P(*s[1:]),
+                         fleet_trial_specs(stacked, cfg, mesh))
+        self.param_specs = tree_map(lambda s: P(None, *s), trial)
+        self.whole_specs = tree_map(lambda s: P(), trial)
+        self.placed = bool(sharded_axes(self.param_specs, mesh))
+        self.split = None
+        if self.placed and tp.model_axis(mesh) is not None:
+            why = tp.unsupported(cfg, mesh, n_clients, train=True,
+                                 fl_round=True, fleet=True)
+            if why is None:
+                self.split = tp.train_split(
+                    cfg, mesh, n_clients, specs=(trial, self.whole_specs))
+            elif tree_leaves(stacked)[0].device.type == "cuda":
+                raise NotImplementedError(
+                    f"a fleet's local update on each rank's blocks: {why}")
+        # the (K, N, ...) updates as every trial's local update leaves them
+        self._update_src = tree_map(lambda s: P(None, None, *s), trial)
+
+    def place(self, params: Any) -> Any:
+        return take_tree(params, self.param_specs, self.mesh,
+                         "the trial params", self.split is not None)
+
+    def whole(self, params: Any) -> Any:
+        """The whole stacked params (evaluation, `finalize`, the unsplit
+        round)."""
+        return whole_tree(params, self.param_specs, self.mesh,
+                          "the trial params", self.split is not None)
+
+    def updates(self, updates: Any, via: Any = None) -> Any:
+        """The split local update's (K, N, ...) updates whole, each leaf
+        moved in `via`'s leaf's dtype where given."""
+        return self.split.move_tree(updates, self._update_src,
+                                    self.whole_specs, via=via)
+
+    def to_step(self, params: Any) -> Any:
+        """Whole stacked params for the server step, from the blocks."""
+        return self.split.move_tree(tree_map(lambda x: x, params),
+                                    self.param_specs, self.whole_specs)
+
+    def from_step(self, tree: Any) -> Any:
+        """This rank's blocks of a whole (K, ...) param-shaped tree that
+        every rank computed alike: a cut, no collective. The tree is cut in
+        place, leaf by leaf, so one whole leaf is alive at a time."""
+        return self.split.move_tree(tree, self.whole_specs,
+                                    self.param_specs)

@@ -1,10 +1,12 @@
 """Split matrix products: each rank of a mesh's `model` axis runs the
-serving steps (prefill and decode), the MIFA train step and the federated
+serving steps (prefill and decode), the MIFA train step, the federated
 round's local update (`run_fl(engine="scan", mesh=, cfg=)`, through
-`sharding.params.StepPlacement`) on its blocks of the params (and caches),
-as the reference's compiled SPMD program computes on the blocks its specs
-give (`sharding.rules.param_specs`, `cache_specs`, `client_state_specs`),
-with only the collectives the split needs.
+`sharding.params.StepPlacement`) and a fleet's (`run_fleet(mesh=, cfg=)`,
+every trial under vmap over trials, through `sharding.params.
+FleetPlacement`) on its blocks of the params (and caches), as the
+reference's compiled SPMD program computes on the blocks its specs give
+(`sharding.rules.param_specs`, `cache_specs`, `client_state_specs`,
+`fleet_trial_specs`), with only the collectives the split needs.
 
 Scope: the dense GQA stack (`attn` and `local_attn` layers with a dense
 MLP, the embedding and the head: granite-3-8b, qwen1.5-110b, gemma3-4b and
@@ -12,8 +14,8 @@ llava-next-34b's language stack). Everything else raises
 NotImplementedError naming its ROADMAP entry (`unsupported`): MoE experts
 (12c), MLA (12d), Mamba2 and the shared attention block (12e), padded
 heads and the encoder (12f), and params, caches or the sequential step
-split over the data axis, or the data axis on the card (12g). A fleet's
-trials under the split are entry 12i (`fleet.executor`).
+split over the data axis, or the data axis on the card (12g: a client or
+trial axis over data ranks).
 
 Layout, read from the spec `rules.sanitize` left on each leaf (never from
 the config), per GQA segment (`GQASplit`):
@@ -50,11 +52,15 @@ identity backward); a block gathered whole goes through `gather_model`
 (all-gather forward, the rank's slice of the cotangent backward). Each
 backward calls the other Function, never `dist`, so a backward that runs
 under `vmap` or inside a checkpoint's recompute reaches a vmap rule too.
-A vmap rule runs the collective once on the physical tensor, its batch dim
-in it: every rank vmaps the same clients in the same order. Every rank
-must issue the same collectives in the same order, which the autograd
-graph of one program guarantees; a mismatch deadlocks, and the worlds'
-timeouts catch that.
+A vmap rule re-enters its Function on the physical tensor, its batch dim
+in it, so the collective runs once, on a plain tensor with every batch dim
+in it, however many vmaps are stacked (a fleet's vmap over trials around
+the vmap over clients, `fleet.executor`): a rule that called the
+collective itself would hand it a tensor still batched at an outer level,
+which has no storage. Every rank vmaps the same trials and clients in the
+same order, and must issue the same collectives in the same order, which
+the autograd graph of one program guarantees; a mismatch deadlocks, and
+the worlds' timeouts catch that.
 
 Transport: gloo on the tensors themselves, CUDA tensors included (gloo
 stages them through the host). A probe on an H100 (`scripts/
@@ -165,7 +171,7 @@ class _ToModel(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, axis):
-        return x.view_as(x), in_dims[0]
+        return _ToModel.apply(x, axis), in_dims[0]
 
 
 class _FromModel(torch.autograd.Function):
@@ -187,7 +193,7 @@ class _FromModel(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, axis):
         # elementwise over ranks: the batch dim stays where it is
-        return axis.sum(x), in_dims[0]
+        return _FromModel.apply(x, axis), in_dims[0]
 
 
 class _GatherModel(torch.autograd.Function):
@@ -212,10 +218,10 @@ class _GatherModel(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, axis, dim):
         if in_dims[0] is None:
-            return axis.gather(x, dim), None
+            return _GatherModel.apply(x, axis, dim), None
         # the batch dim first: a logical dim d >= 0 is physical d + 1
         x = x.movedim(in_dims[0], 0)
-        return axis.gather(x, dim + 1 if dim >= 0 else dim), 0
+        return _GatherModel.apply(x, axis, dim + 1 if dim >= 0 else dim), 0
 
 
 def to_model(x: torch.Tensor, axis) -> torch.Tensor:
@@ -243,7 +249,7 @@ def _splits(entry, mesh, axis: str = MODEL) -> bool:
 
 
 def unsupported(cfg, mesh, batch: int, *, train: bool = False,
-                fl_round: bool = False) -> str | None:
+                fl_round: bool = False, fleet: bool = False) -> str | None:
     """Why the steps of `cfg` cannot run on `mesh`'s blocks (naming the
     ROADMAP entry that will take it), or None where they can: the serving
     steps at a batch of `batch` sequences, or with `train` the MIFA train
@@ -251,7 +257,9 @@ def unsupported(cfg, mesh, batch: int, *, train: bool = False,
     sequential mode at data extent 1 only). With `fl_round` (and `train`)
     the federated round's local update: it always vmaps its clients
     (`core.local_update`), over data where the data extent divides them
-    and whole on every rank where it does not (`sharding.clients`)."""
+    and whole on every rank where it does not (`sharding.clients`). With
+    `fleet` (and both) a fleet's, which vmaps its trials around that, the
+    trial axis over data and each trial's clients whole on every rank."""
     from repro_torch.models.transformer import build_segments
     if cfg.encoder_only or cfg.modality == "audio":
         return (f"{cfg.name}: the encoder's frontend_proj under split "
@@ -287,8 +295,10 @@ def unsupported(cfg, mesh, batch: int, *, train: bool = False,
                 "reference's batch_specs), under split products (ROADMAP "
                 "entry 12g)")
     if train and d > 1 and getattr(mesh, "device_type", None) == "cuda":
-        return (f"{cfg.name}: the train step's client axis over {d} data "
-                "ranks on the card (ROADMAP entry 12g)")
+        what = ("a fleet's trial axis" if fleet
+                else "the train step's client axis")
+        return (f"{cfg.name}: {what} over {d} data ranks on the card "
+                "(ROADMAP entry 12g)")
     return None
 
 

@@ -71,10 +71,10 @@ from repro_torch.convert import params_to_numpy
 from repro_torch.core import MIFA, BernoulliParticipation, run_fl
 from repro_torch.core.scan_engine import runs_eager
 from repro_torch.data import TokenBatcher
-from repro_torch.fleet.executor import check_trial_cols
 from repro_torch.models import build_model
 from repro_torch.sharding import rules
-from repro_torch.sharding.params import StepPlacement, take_tree
+from repro_torch.sharding.params import (FleetPlacement, StepPlacement,
+                                         block_shape, take_tree)
 from repro_torch.tree import tree_leaves, tree_map
 from torch_world import (FCHUNK, FK, FL_CASES, FL_CHANGES, FMB, FN, FS, FT,
                          fl_cfg, flat_tree, smoke)
@@ -313,19 +313,28 @@ def test_cuda_rounds_the_split_leaves_for_later_raise(arch, change, mesh,
 
 
 def test_fleets_on_cuda_blocks_raise_naming_12i():
-    """A fleet's trial params split over `model` on CUDA tensors raise
-    naming ROADMAP entry 12i, from the fleet's own check and from a bare
-    `take` of its column blocks."""
+    """A fleet's trial params split over `model` on CUDA tensors, which
+    raised naming ROADMAP entry 12i until fleets computed on blocks, now
+    build the fleet's split (`FleetPlacement`: one trial's blocks, the
+    whole state), whose column blocks are cut on the card; a bare `take`
+    of the same blocks, outside a split, names the entries that remain
+    (12c-12f)."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
     with FakeTensorMode():
         stacked = tree_map(lambda t: t.new_empty((2,) + tuple(t.shape)),
                            _fake_cuda(cfg))
+        placement = FleetPlacement(stacked, cfg, mesh, FN)
+        assert placement.split is not None
         cols = tree_map(lambda s: rules.P(None, *s[1:]),
                         rules.fleet_trial_specs(stacked, cfg, mesh))
-        with pytest.raises(NotImplementedError, match="entry 12i"):
-            check_trial_cols(cols, torch.device("cuda"))
-        with pytest.raises(NotImplementedError, match="entry 12i"):
+        assert placement.param_specs == cols
+        # a FakeTensor on cuda cannot be sliced on a CPU build: the block's
+        # shape as `take` cuts it under the split
+        wq = stacked["segments"]["0"]["attn"]["wq"]
+        assert block_shape(
+            tuple(wq.shape), cols["segments"]["0"]["attn"]["wq"], mesh,
+            wq.device, split=placement.split is not None)[-1] \
+            == wq.shape[-1] // 2
+        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
             take_tree(stacked, cols, mesh, "the trial params")
-    check_trial_cols(cols, torch.device("cpu"))
-    check_trial_cols(None, torch.device("cuda"))

@@ -336,7 +336,8 @@ def test_paths_left_for_12h_and_12g_raise_on_cuda():
     `StepPlacement` at model extent > 1, which entry 12h took, holds the
     round's split (its G layout the carry's), and a bare take of the scan
     carry's client state, outside a split, raises naming the entries that
-    remain (12i, the fleets); the sequential train step at data extent > 1
+    remain (12c-12f; 12i, the fleets, computes on blocks since it was
+    taken); the sequential train step at data extent > 1
     raises naming 12g, both built with the mesh and planned (the plan
     keeps the gathering step, whose update constraint raises on CUDA
     blocks)."""
@@ -352,7 +353,7 @@ def test_paths_left_for_12h_and_12g_raise_on_cuda():
                                cuda)}
         specs = carry_state_specs(state, cuda, cfg, mesh, 4)
         assert specs["G"] == placement.split.state_specs
-        with pytest.raises(NotImplementedError, match="entry 12i"):
+        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
             take_tree(state, specs, mesh, "the client state")
         qwen = smoke("qwen1_5_110b", fl_clients=2)
         assert qwen.sequential_clients

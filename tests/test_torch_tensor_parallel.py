@@ -280,8 +280,8 @@ def test_training_paths_on_cuda_blocks_raise_naming_12b():
     12b took the train step and 12h the federated round, so
     `StepPlacement` of granite holds a split while one of olmoe raises
     naming 12c, and the unsplit sequential step handed an update
-    constraint and a bare `take` name 12i (the fleets) with 12c-12f; the
-    split steps' blocks are taken."""
+    constraint and a bare `take` name 12c-12f (12i, the fleets, computes
+    on blocks since it was taken); the split steps' blocks are taken."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
     params = _meta_params(cfg)
@@ -302,17 +302,17 @@ def test_training_paths_on_cuda_blocks_raise_naming_12b():
         G = tree_map(lambda t: t.new_empty((2,) + tuple(t.shape)), cuda)
         batch = {"tokens": torch.zeros((2, 1, 1, 8), dtype=torch.int32,
                                        device="cuda")}
-        with pytest.raises(NotImplementedError, match="entry 12i"):
+        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
             step(cuda, G, batch, torch.ones(2, dtype=torch.bool,
                                             device="cuda"), 0.1)
         wq = cuda["segments"]["0"]["attn"]["wq"]
         spec = specs["segments"]["0"]["attn"]["wq"]
-        with pytest.raises(NotImplementedError, match="entry 12i"):
+        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
             take(wq, spec, mesh)
         assert block_shape(tuple(wq.shape), spec, mesh, wq.device,
                            split=True)[-1] == wq.shape[-1] // 2
         # a mesh of CPU ranks does not carry CUDA blocks, serving or not
-        with pytest.raises(NotImplementedError, match="entry 12i"):
+        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
             take(wq, spec, _FakeMesh(1, 2, "cpu"), split=True)
 
 

@@ -6,6 +6,7 @@
     python tests/torch_world.py --world 2|4 --cases serve --out DIR
     python tests/torch_world.py --world 2|4 --cases train --out DIR
     python tests/torch_world.py --world 2|4 --cases fl --out DIR
+    python tests/torch_world.py --world 2|4 --cases fleet --out DIR
 
 `torch.multiprocessing.spawn` starts the ranks. They meet on a `FileStore`
 under DIR (no TCP rendezvous) and talk gloo over the loopback device, with
@@ -50,6 +51,14 @@ round): each rank compares its blocks of the params, and the whole state,
 with the unsplit run's, counts the params gathered whole inside the
 rounds, and rank 0 writes the split run gathered whole into `results.npz`
 for the test's comparison with the JAX package.
+
+`--cases fleet` (`tests/test_torch_split_fleet.py`, worlds of 2 and 4)
+runs `run_fleet(mesh=, cfg=)` for the smoke configs of FLEET_CASES, every
+trial's local update on each rank's blocks under vmap over trials: each
+rank compares the fleet it returns (whole, all K) and its whole state with
+the unsplit fleet's, counts the params gathered whole inside the local
+updates, and rank 0 writes the split fleet into `results.npz` for the
+test's comparison with the JAX package's sequential runs.
 
 `--cases params` (`tests/test_torch_param_placement_world.py`) places the
 params of granite-3-8b's and qwen1.5-110b's smoke configs (f32) over the
@@ -494,7 +503,8 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
             axes=rules.sharded_axes(bank.row_specs, m22))
 
     # (e) a K=4 fleet with cfg: the trial axis over 4x1, and over 2x2
-    # with the param dims over model
+    # with the param dims over model (every trial's local update on the
+    # rank's blocks, split products: the f32 training bound)
     def fleet(mesh=None):
         trials = [Trial(seed=s, scenario=GilbertElliott.from_rate_and_burst(
             0.5, 2.0, n=PN, seed=100 + s)) for s in range(FLEET_K)]
@@ -512,7 +522,8 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
                 ints=[(got[1].stacked()["n_active"],
                        want[1].stacked()["n_active"])],
                 axes=rules.sharded_axes(rules.fleet_trial_specs(
-                    want[0], granite, meshes[key]), meshes[key]))
+                    want[0], granite, meshes[key]), meshes[key]),
+                train_bound=key == "2x2")
 
     # (f) checkpoint= after round 2 of 3 on 2x2: N = 3 (the data extent
     # does not divide it: the rows are whole, the products split over
@@ -1052,7 +1063,9 @@ def world_of_train(out: dict, info: dict, out_dir: str) -> None:
 FN, FT, FCHUNK, FS, FMB, FK = 4, 3, 2, 16, 2, 2
 # an fl case's arch names a smoke config, or one changed as FL_CHANGES says
 # (a vocab of 511: the head whole, as granite's 49155 on the card)
-FL_CHANGES = {"granite_3_8b_vocab511": ("granite_3_8b", {"vocab_size": 511})}
+FL_CHANGES = {"granite_3_8b_vocab511": ("granite_3_8b", {"vocab_size": 511}),
+              "granite_3_8b_padded": ("granite_3_8b", {"pad_q_heads": 16,
+                                                       "pad_kv_heads": 16})}
 
 
 def fl_cfg(arch: str):
@@ -1247,6 +1260,211 @@ def world_of_fl(out: dict, info: dict, out_dir: str) -> None:
     dist.barrier()
 
 
+# --------------------------------------------------------------------------- #
+# --cases fleet: split products in fleets
+# --------------------------------------------------------------------------- #
+
+# the trials' seeds (params, generators, participation seeds 100 + s)
+FLEET_SEEDS = (0, 1)
+# case -> (arch, algorithm, mesh (data, model), engine, scenario): granite's
+# smoke config with MIFA(array) on 1x2 on both engines and at vocab 511 (the
+# head whole), on 2x2 (trials over data, products over model);
+# BankedMIFA(DenseBank) and BankedMIFA(PagedDeviceBank), their rows whole on
+# every rank; a Gilbert-Elliott scenario fleet; gemma3-4b's (local
+# attention, vocab-split head); granite with padded heads, which the split
+# leaves for later (ROADMAP entry 12f): its rounds gather the blocks whole
+FLEET_CASES = {
+    "a_mifa_1x2": ("granite_3_8b", "mifa_array", (1, 2), "scan", False),
+    "a_mifa_loop_1x2": ("granite_3_8b", "mifa_array", (1, 2), "loop",
+                        False),
+    "a_mifa_vocab511_1x2": ("granite_3_8b_vocab511", "mifa_array", (1, 2),
+                            "scan", False),
+    "b_mifa_2x2": ("granite_3_8b", "mifa_array", (2, 2), "scan", False),
+    "c_dense_bank_1x2": ("granite_3_8b", "banked_dense", (1, 2), "scan",
+                         False),
+    "d_paged_bank_1x2": ("granite_3_8b", "banked_paged", (1, 2), "scan",
+                         False),
+    "e_scenario_1x2": ("granite_3_8b", "mifa_array", (1, 2), "scan", True),
+    "f_gemma_1x2": ("gemma3_4b", "mifa_array", (1, 2), "scan", False),
+    "g_gathered_padded_1x2": ("granite_3_8b_padded", "mifa_array", (1, 2),
+                              "scan", False),
+}
+
+
+def fleet_trials(scenario: bool) -> list:
+    """The fleet's trials: Bernoulli availability of seed 100 + s (as
+    `bernoulli`'s probabilities), or a Gilbert-Elliott scenario of it."""
+    from repro_torch.core.participation import BernoulliParticipation
+    from repro_torch.fleet import Trial
+    from repro_torch.scenarios import GilbertElliott
+    if scenario:
+        return [Trial(seed=s, scenario=GilbertElliott.from_rate_and_burst(
+            0.5, 2.0, n=FN, seed=100 + s)) for s in FLEET_SEEDS]
+    return [Trial(seed=s, participation=BernoulliParticipation(
+        np.linspace(0.4, 1.0, FN), seed=100 + s)) for s in FLEET_SEEDS]
+
+
+def fleet_params(cfg):
+    """The trials' params stacked (K, ...): each trial's `init(seed)`."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_stack
+    return tree_stack([build_model(cfg).init(s, device="cpu")
+                       for s in FLEET_SEEDS])
+
+
+class FleetLog:
+    """Records every `FleetRunner` and `FleetScanDriver` that `run_fleet`
+    builds, and counts the params gathered whole while a local update runs
+    (`sharding.params.whole` and `TrainSplit.move` inside
+    `client_updates`)."""
+
+    def __init__(self):
+        from repro_torch.fleet import executor
+        from repro_torch.sharding import params as placed
+        from repro_torch.sharding import tensor_parallel as tp
+        self.runners, self.drivers, self.in_local, self.calls = [], [], 0, 0
+        self._local = False
+        log = self
+
+        class Runner(executor.FleetRunner):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                # `finalize` drops the placement once the params are whole
+                self.placed_as = self.placement
+                log.runners.append(self)
+
+        class Driver(executor.FleetScanDriver):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                log.drivers.append(self)
+
+        def local(*a, **kw):
+            log._local = True
+            try:
+                return updates(*a, **kw)
+            finally:
+                log._local = False
+
+        def counted(fn):
+            def wrapped(*a, **kw):
+                log.calls += 1
+                log.in_local += log._local
+                return fn(*a, **kw)
+            return wrapped
+        updates = executor.client_updates
+        executor.client_updates = local
+        executor.FleetRunner, executor.FleetScanDriver = Runner, Driver
+        placed.whole = tp.whole = counted(placed.whole)
+        tp.TrainSplit.move = counted(tp.TrainSplit.move)
+
+
+def fleet_state_view(name: str, algo, state) -> dict:
+    """The float state a fleet case compares, whole, (K, ...) leaves: G, or
+    a bank's first N rows of every trial and G_sum."""
+    from repro_torch.tree import tree_map
+    if name == "mifa_array":
+        return {"G": state["G"]}
+    if name == "banked_paged":
+        ids = np.tile(np.arange(FN), (len(FLEET_SEEDS), 1))
+        rows = algo.bank.gather_fleet(state["bank"], ids)
+    else:
+        rows = tree_map(lambda r: r[:, :FN].float(), state["bank"]["rows"])
+    return {"rows": rows, "g_sum": state["bank"]["g_sum"]}
+
+
+def fleet_run(log, cfg, params, name: str, engine: str, scenario: bool,
+              mesh=None) -> tuple:
+    """`run_fleet` of a fleet case; returns (params, history, its runner,
+    its scan driver or None, (params gathered whole or moved inside its
+    local updates, and in all))."""
+    from repro_torch.fleet import run_fleet
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    before, calls, n_drivers = log.in_local, log.calls, len(log.drivers)
+    params, hist = run_fleet(
+        model=build_model(cfg), batcher=fl_batcher(cfg),
+        schedule=lambda t: 0.05 / (1 + t), n_rounds=FT,
+        algo=fl_algo(name), trials=fleet_trials(scenario),
+        params=tree_map(torch_clone, params), cohort_capacity=FN,
+        engine=engine, scan_chunk=FCHUNK, device="cpu", mesh=mesh,
+        cfg=None if mesh is None else cfg)
+    drv = log.drivers[-1] if len(log.drivers) > n_drivers else None
+    return (params, hist, log.runners[-1], drv,
+            (log.in_local - before, log.calls - calls))
+
+
+def fleet_case(out: dict, info: dict, case: str, log,
+               split_runs: dict) -> None:
+    """One fleet case on this world: the unsplit fleet and the split one
+    (`run_fleet(mesh=, cfg=)`), the split run's whole params, state and
+    history (every rank returns all K) against the unsplit run's, and the
+    loop engine's split run against the scan engine's, bit for bit; rank
+    0 records the split run for the test's comparison with the JAX
+    package's sequential runs."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+    arch, name, shape, engine, scenario = FLEET_CASES[case]
+    cfg = fl_cfg(arch)
+    params = fleet_params(cfg)
+    want_p, want_h, want_r, _, _ = fleet_run(log, cfg, params, name, engine,
+                                             scenario)
+    want_s = fleet_state_view(name, want_r.algo, want_r.state)
+    mesh = make_host_mesh(*shape, device="cpu")
+    got_p, got_h, runner, drv, (in_local, calls) = fleet_run(
+        log, cfg, params, name, engine, scenario, mesh)
+    if case == "a_mifa_1x2":
+        split_runs["a"] = (got_p, got_h)
+    exact = None
+    if case == "a_mifa_loop_1x2":
+        sp, sh = split_runs["a"]
+        exact = gap([got_p, got_h.stacked()["train_loss"]],
+                    [sp, sh.stacked()["train_loss"]])[0]
+    got_s = fleet_state_view(name, runner.algo, runner.state)
+    split = runner.placed_as.split
+    sg, sw = got_h.stacked(), want_h.stacked()
+    _, err = train_gap([got_p, got_s, sg["train_loss"]],
+                       [want_p, want_s, sw["train_loss"]])
+    if split is None:
+        # the gathering round computes on whole params: bit-equal
+        exact = gap([got_p, got_s, sg["train_loss"]],
+                    [want_p, want_s, sw["train_loss"]])[0]
+    verdicts = {
+        "err": err, "ints": bool(np.array_equal(sg["n_active"],
+                                                sw["n_active"])
+                                 and np.array_equal(sg["rounds"],
+                                                    sw["rounds"])),
+        "in_local": in_local, "calls": calls, "exact": exact,
+        "split": split is not None,
+        "moved": None if split is None else dict(split.axis.moved),
+        "axes": sorted(rules.sharded_axes(
+            [runner.placed_as.param_specs], mesh)),
+        "trials": sorted(rules.sharded_axes([rules.fleet_trial_specs(
+            params, cfg, mesh)], mesh)),
+        "head_split": None if split is None else split.head,
+        "eager": None if drv is None else drv.eager,
+        "replays": None if drv is None else drv.replays,
+        "eager_rounds": None if drv is None else drv.eager_rounds}
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, verdicts)
+    info[case] = parts
+    for k, v in flat_tree({"params": got_p, **got_s}).items():
+        out[f"{case}/{k}"] = v.detach().numpy().copy()
+    out[f"{case}/loss"] = sg["train_loss"]
+    out[f"{case}/n_active"] = sg["n_active"]
+    dist.barrier()
+
+
+def world_of_fleet(out: dict, info: dict, out_dir: str) -> None:
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    log, split_runs = FleetLog(), {}
+    for case, (_, _, shape, _, _) in FLEET_CASES.items():
+        if shape[0] * shape[1] == world:
+            fleet_case(out, info, case, log, split_runs)
+    dist.barrier()
+
+
 def rank_main(rank: int, world: int, out_dir: str,
               cases: str = "paper") -> None:
     import torch
@@ -1268,6 +1486,8 @@ def rank_main(rank: int, world: int, out_dir: str,
             world_of_train(out, info, out_dir)
         elif cases == "fl":
             world_of_fl(out, info, out_dir)
+        elif cases == "fleet":
+            world_of_fleet(out, info, out_dir)
         elif world == 1:
             world_of_one(out, info)
         else:
@@ -1285,12 +1505,13 @@ def main() -> None:
     ap.add_argument("--world", type=int, choices=(1, 2, 4), required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--cases", choices=("paper", "params", "serve", "train",
-                                        "fl"), default="paper")
+                                        "fl", "fleet"), default="paper")
     args = ap.parse_args()
     if args.cases == "params" and args.world != 4:
         ap.error("--cases params runs in a world of 4")
-    if args.cases not in ("serve", "train", "fl") and args.world == 2:
-        ap.error("a world of 2 runs --cases serve, train or fl")
+    if args.cases not in ("serve", "train", "fl", "fleet") and \
+            args.world == 2:
+        ap.error("a world of 2 runs --cases serve, train, fl or fleet")
     import torch.multiprocessing as mp
     mp.spawn(rank_main, args=(args.world, args.out, args.cases),
              nprocs=args.world, join=True)
