@@ -232,12 +232,13 @@ Run from the root of a checkout on a machine with a CUDA card. It
      (non-causal, encoder-only) scored through `make_encoder_step` at
      full width and depth, its score and one client's f32 gradients card
      vs CPU at 2 layers, and two rounds of the vmap `make_train_step` at
-     full depth, N=2 (one `mifa_aggregate` launch a round), with
+     HUBERT_TRAIN_LAYERS layers, N=2 (one `mifa_aggregate` launch a
+     round), with
      `cfg.remat` on as its config says; in each training run the client
      inactive in round 1 keeps its stored update; then one hubert round
-     from the same state with remat on and with it off
-     (`remat_round_pair`): ms and peak allocation of each, params and G
-     bit-equal;
+     at HUBERT_TRAIN_LAYERS layers from the same state with remat on and
+     with it off (`remat_round_pair`): ms and peak allocation of each,
+     params and G bit-equal;
  23. drives the dry-run planner (`dryrun_phase`, lines starting
      `dryrun `) in a gloo world of one on a 1x1 mesh: every plan,
      qwen1.5-110b's 2-layer `decode_32k` plan made on the card, its
@@ -250,17 +251,23 @@ Run from the root of a checkout on a machine with a CUDA card. It
      starting `split `): `flash_attention` against its plain version and
      timed beside sdpa at each rank's heads, then a gloo world of two
      processes on this card (`split_rank`, a 1x2 mesh) serving
-     granite-3-8b (4 layers, bf16; 2 layers, f32) and qwen1.5-110b (2
-     layers, bf16, unpadded) at full width through
+     granite-3-8b (4 layers, bf16; 2 layers, f32), olmoe-1b-7b (its
+     experts over `model`; 4 layers bf16, 2 layers f32) and qwen1.5-110b
+     (2 layers, bf16, unpadded) at full width through
      `launch.steps.make_prefill_step(model, mesh)` and
      `make_decode_step`, each rank on its blocks, against the unsplit run
      on rank 0: logits and caches within the bounds, greedy tokens equal
      but at near-ties, one `flash_attention` launch a layer a rank, each
      rank's peak allocation, the bytes its collectives moved and its
-     host-staged ms; then, in the same world, the MIFA train step on each
+     host-staged ms; olmoe's routing recorded on both sides, every rank's
+     (E, C) tables bit-equal to rank 0's and every flip of a clean token
+     at a near-tie (`routing_agreement`; in bf16 against the noise floor
+     of the unsplit run in f32), the outputs held where the routing
+     agreed; then, in the same world, the MIFA train step on each
      rank's blocks (`launch.steps.make_train_step(model, cfg, n, k,
-     mesh=)`, split products in training; N=2, 2 rounds, 2 x 128 tokens,
-     remat on): granite-3-8b's vmap step (2 layers bf16, 1 layer f32),
+     mesh=)`, split products in training; N=2, 1 round, 2 x 128 tokens,
+     remat on): olmoe-1b-7b's vmap step (1 layer f32), granite-3-8b's
+     (2 layers bf16),
      gemma3-4b's (2 layers bf16, the vocab-split cross-entropy) and
      granite's sequential step through the planner (2 layers bf16, K=1,
      its update constraint), each against the unsplit step run by rank 0
@@ -273,11 +280,12 @@ Run from the root of a checkout on a machine with a CUDA card. It
      all-gather, relayout) and its host-staged ms a round; then, in the
      same world, the federated round on each rank's blocks
      (`run_fl(engine="scan", mesh=1x2, cfg=)`, lines `split fl `; K=2,
-     2 x 128 tokens, inv_t(0.02)): granite-3-8b MIFA(array) (1 layer f32,
-     N=2, 3 rounds in scan chunks of 2, Bernoulli availability),
-     BankedMIFA(DenseBank(mesh=, cfg=)) (2 layers bf16, N=4, C=2, 3
-     rounds), gemma3-4b MIFA(array) (2 layers bf16, vocab split, 2 rounds)
-     and BankedMIFA(PagedDeviceBank) (1 layer bf16, held whole, 2 rounds),
+     2 x 128 tokens, inv_t(0.02)): olmoe-1b-7b MIFA(array) (1 layer f32,
+     N=2, 2 rounds in a scan chunk of 2, Bernoulli availability),
+     granite-3-8b BankedMIFA(DenseBank(mesh=, cfg=)) (2 layers bf16, N=4,
+     C=2, 3 rounds: a chunk of 2, then a partial one), gemma3-4b
+     MIFA(array) (2 layers bf16, vocab split, 2 rounds) and
+     BankedMIFA(PagedDeviceBank) (1 layer bf16, held whole, 2 rounds),
      each against the unsplit run by rank 0 alone after (params, G or the
      bank's rows and G_sum and the losses within the bounds, n_active
      exact); every round eager (none replayed: gloo cannot be captured),
@@ -285,7 +293,16 @@ Run from the root of a checkout on a machine with a CUDA card. It
      a round on each rank, the MIFA runs' one more server step on G's
      blocks against `mifa_aggregate_ref`, each rank's peak below the
      unsplit run's (but the paged bank's, whole on every rank), the bytes
-     moved by kind and the host-staged ms a round.
+     moved by kind and the host-staged ms a round; then the fleets on
+     each rank's blocks (`run_fleet(engine="scan", mesh=1x2, cfg=)`,
+     lines `split fleet `; 1 layer bf16, 2 trials under vmap, N=2, 2
+     rounds): olmoe-1b-7b MIFA(array), granite-3-8b BankedMIFA(DenseBank)
+     and BankedMIFA(PagedDeviceBank), the state whole on every rank, each
+     against the unsplit fleet on rank 0; the bf16 MoE fleet's forward
+     routing held as the serving runs' is (`split_forward_routing`; the
+     f32 MoE runs are held by their f32 parity); a bf16 leaf beyond the
+     bound only within twice the same rounds' own gap through the unsplit
+     train step's other mode, on masks drawn anew and checked equal.
 It exits non-zero on any failure. Its last two lines are one JSON object per
 kernel list, then {"ok": true, "device": {...}}. It imports no JAX. Its
 rows are line-buffered, each phase prints its start time (`start <phase>
@@ -431,13 +448,20 @@ LLAVA_TRAIN_LAYERS, LLAVA_TRAIN_N, LLAVA_TRAIN_TEXT = 2, 2, 128
 # make_encoder_step at full width and depth on HUBERT_SCORE_B x
 # HUBERT_SCORE_S frames; card vs CPU (the score, and one client's f32
 # loss and gradients) at HUBERT_CHECK_LAYERS layers; STUB_TRAIN_ROUNDS
-# rounds of make_train_step's vmap mode at full depth with HUBERT_TRAIN_N
-# clients (cut from its 16: the f32 update array G and the clients' f32
-# update sums take 5.06 GB a client each, and every client's bf16 weights
+# rounds of make_train_step's vmap mode at HUBERT_TRAIN_LAYERS with
+# HUBERT_TRAIN_N clients (cut from its 16: at full depth the f32 update
+# array G and the clients' f32 update sums take 5.06 GB a client each, and
+# every client's bf16 weights
 # and gradients and activations come on top), K = 2 local steps (its
 # fl_local_steps) of HUBERT_TRAIN_MB x HUBERT_TRAIN_S frames
 HUBERT_SCORE_B, HUBERT_SCORE_S, HUBERT_CHECK_LAYERS = 4, 1024, 2
 HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S = 2, 2, 512
+# the training rounds' and the remat pair's depth: half of hubert's 48
+# layers, so the remat round's params and G stay
+# on the card beside the round without remat (at full depth they waited on
+# the host, 75.40 GB the round without remat) and a client's G row goes to
+# the host in half the time
+HUBERT_TRAIN_LAYERS = 24
 # the stub-frontend training rounds: every client active in round 0, only
 # client 0 in round 1 (client 1's stored update must stay as round 0 left
 # it)
@@ -4134,9 +4158,9 @@ def zoo_f32_config(n_layers: int, arch: str = "zamba2_7b"):
 class RoutingLog:
     """While active, records every call of `models.moe.route` (as
     `moe_apply` makes it): per call the expert ids (T,k), the routing
-    table (E,C), whose slots below T hold the kept assignments, and the
-    gap between each token's k-th and (k+1)-th router probability (T,),
-    left on their device. Recording adds no device work."""
+    table (E,C), whose slots below T hold the kept assignments, the gap
+    between each token's k-th and (k+1)-th router probability (T,), and
+    the call's whole `Routing`, left on their device."""
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -4145,7 +4169,7 @@ class RoutingLog:
         def recording(probs, top_k, capacity_factor):
             r = self.route(probs, top_k, capacity_factor)
             self.calls.append((r.expert_ids, r.table, r.top[:, top_k - 1]
-                               - r.top[:, -1]))
+                               - r.top[:, -1], r))
             return r
         moe.route = recording
         return self
@@ -4792,7 +4816,7 @@ def gemma_phase(gen, smi) -> tuple[dict, list]:
 def drop_share(calls, n_tokens: int) -> tuple[float, int]:
     """The share of assignments that found no slot, over the routing calls
     of `n_tokens` tokens, and the number of such calls."""
-    ours = [(ids, table) for ids, table, _ in calls
+    ours = [(ids, table) for ids, table, *_ in calls
             if ids.shape[0] == n_tokens]
     total = sum(ids.numel() for ids, _ in ours)
     kept = sum(int((table < n_tokens).sum()) for _, table in ours)
@@ -4927,7 +4951,7 @@ def moe_decode_vs_prefill(arch: str = "olmoe_1b_7b", tag: str = "moe",
           f"{tag} decode vs prefill: {len(full)} / {len(split)} routing "
           "calls")
     check(all(int((table < ids.shape[0]).sum()) == ids.numel()
-              for ids, table, _ in full + split),
+              for ids, table, *_ in full + split),
           f"{tag} decode vs prefill: an assignment dropped at C = T")
     pairs = [(f"prompt layer {moe_l[i]}", split[i][0], full[i][0][:P],
               full[i][2][:P]) for i in range(M)]
@@ -5304,9 +5328,8 @@ def remat_round_pair(label: str, cfg, n: int, mb: int, s: int, smi: str
     off: each round's ms (host clock to a sync) and peak allocation, and
     the two rounds' params and G bit-equal (no MoE: nothing in the round
     sums by index, so the card repeats it bit for bit). The remat
-    round's params and G wait on the host while the other round runs
-    (both at full depth would not fit the card), and come back leaf by
-    leaf for the comparison."""
+    round's params and G stay on the card while the other round runs
+    (`cfg` at HUBERT_TRAIN_LAYERS: both fit)."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
     from repro_torch.optim import inv_t
@@ -5326,6 +5349,7 @@ def remat_round_pair(label: str, cfg, n: int, mb: int, s: int, smi: str
         active = torch.tensor(STUB_MASKS[0], device="cuda")
         step = make_train_step(model, c, n, k)
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params, G, metrics = step(params, G, batch, active,
@@ -5339,17 +5363,15 @@ def remat_round_pair(label: str, cfg, n: int, mb: int, s: int, smi: str
                     f"params of seed 0 and G = 0 (batch of seed 0, mask "
                     f"{list(map(int, STUB_MASKS[0]))}), {c.n_layers} "
                     f"layers, loss {loss:.6f}, {ms:.3f} ms (host clock to "
-                    f"a sync), peak device allocation {peak} B [{smi}]")
-        if remat:
-            res[remat] = tree_map(lambda t: t.cpu(), [params, G])
-        else:
-            res[remat] = [params, G]
+                    f"a sync), peak device allocation {peak} B, of which "
+                    f"{held} B held before the round [{smi}]")
+        res[remat] = [params, G]
         del params, G
-    on_card = tree_map(lambda t: t.cuda(), res[True])
-    check(trees_equal(on_card, res[False]),
+    check(trees_equal(res[True], res[False]),
           f"train {label}: the remat round's params and G differ from the "
-          f"round without remat ({trees_gap(on_card, res[False]):.3e} of "
+          f"round without remat ({trees_gap(res[True], res[False]):.3e} of "
           "the training bound)")
+    del res
     return ([f"train {label} remat on vs off (`remat_round_pair`), N={n} "
              f"K={k} mb={mb} S={s}:"] + rows
             + ["  params and G bit-equal"])
@@ -5359,9 +5381,10 @@ def hubert_phase(smi: str) -> tuple[dict, list]:
     """hubert-xlarge on the card: scored through `make_encoder_step` at
     full width and depth (48 layers; the training forward, no kernel),
     card against CPU at HUBERT_CHECK_LAYERS layers in f32, and
-    STUB_TRAIN_ROUNDS rounds of the vmap make_train_step at full depth
-    (one `mifa_aggregate` launch a round), then one more round's server
-    step against the plain version leaf by leaf. Returns the training
+    STUB_TRAIN_ROUNDS rounds of the vmap make_train_step at
+    HUBERT_TRAIN_LAYERS layers (one `mifa_aggregate` launch a round), then
+    one more round's server step against the plain version leaf by leaf,
+    and the remat pair (`remat_round_pair`). Returns the training
     launches; every row starts with "hubert "."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_encoder_step
@@ -5399,19 +5422,21 @@ def hubert_phase(smi: str) -> tuple[dict, list]:
             f"{torch.cuda.max_memory_allocated()} B [{smi}]"]
     del params, batch
     rows.append(hubert_card_vs_cpu())
+    train_cfg = cfg.replace(fl_clients=HUBERT_TRAIN_N,
+                            n_layers=HUBERT_TRAIN_LAYERS)
     train_counts, more = stub_train(
-        "hubert-xlarge", cfg.replace(fl_clients=HUBERT_TRAIN_N),
-        HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S, smi)
+        "hubert-xlarge", train_cfg, HUBERT_TRAIN_N, HUBERT_TRAIN_MB,
+        HUBERT_TRAIN_S, smi)
     rows += more
-    rows += remat_round_pair("hubert-xlarge",
-                             cfg.replace(fl_clients=HUBERT_TRAIN_N),
+    rows += remat_round_pair("hubert-xlarge", train_cfg,
                              HUBERT_TRAIN_N, HUBERT_TRAIN_MB, HUBERT_TRAIN_S,
                              smi)
     rows.append(f"phase {time.perf_counter() - t0:.1f} s")
     return ({"train_launches": train_counts["mifa_aggregate"],
              "train_launches_from": (
-                 f"make_train_step (vmap) hubert-xlarge, {cfg.n_layers} "
-                 f"layers at full width, N={HUBERT_TRAIN_N}, "
+                 f"make_train_step (vmap) hubert-xlarge, "
+                 f"{HUBERT_TRAIN_LAYERS} layers at full width, "
+                 f"N={HUBERT_TRAIN_N}, "
                  f"{STUB_TRAIN_ROUNDS} rounds of MIFA(array)")},
             [f"hubert {r}" for r in rows])
 
@@ -5805,15 +5830,41 @@ def dryrun_phase(gen, smi: str) -> tuple[dict, list]:
 SPLIT_RANKS = 2
 # (label, arch, layers, dtype), each at full width on a 1x2 mesh: granite's
 # cache over its kv heads (KV 8 over 2 ranks) and its head whole (vocab
-# 49155 is odd); qwen unpadded, with qkv bias and its vocab split
+# 49155 is odd); olmoe's experts over `model` (32 of 64 a rank), its cache
+# over its kv heads (16) and its vocab split, in bf16 and f32; qwen
+# unpadded, with qkv bias and its vocab split
 SPLIT_RUNS = (("granite-3-8b", "granite_3_8b", GRANITE_LAYERS, "bfloat16"),
               ("granite-3-8b", "granite_3_8b", 2, "float32"),
+              ("olmoe-1b-7b", "olmoe_1b_7b", 4, "bfloat16"),
+              ("olmoe-1b-7b", "olmoe_1b_7b", 2, "float32"),
               ("qwen1.5-110b", "qwen1_5_110b", QWEN_LAYERS, "bfloat16"))
 # split against unsplit: tests/test_torch_models.py's bounds
 SPLIT_TOL = {"bfloat16": (3e-2, 0.1), "float32": (2e-4, 2e-5)}
+# routing under the split: every rank routes every token, so a rank's
+# (E, C) tables are rank 0's bit for bit, but the router's input is the
+# residual after split products summed in f32, so a token may route
+# otherwise than in the unsplit run. A token is clean in a layer where
+# nothing upstream of it diverged (`routing_agreement`): only rounding
+# separates its router input in the two runs. In f32 a clean token may
+# flip only where the unsplit run's gap between its k-th and (k+1)-th
+# router probability is below MOE_TIE_GAP. In bf16 the rounding is the
+# bf16 noise floor: the unsplit bf16 run against the same run in f32
+# arithmetic (the bf16 weights upcast) moves a clean token's router
+# probabilities by up to some fraction of each; the split may move them by
+# at most SPLIT_FLOOR_X times that, and a clean token may flip only at a
+# gap (of its k-th) below SPLIT_FLOOR_X times it. A router logit sums
+# d_model products of bf16-rounded inputs and its rounding grows layer by
+# layer, so no fixed fraction holds: 2^-7 of the k-th failed at olmoe's
+# full width, layer 0 flipping at gaps up to 1.07e-2 (PERF.md).
+# Logits and caches are held at the positions whose routing agreed in
+# every layer, to SPLIT_TOL, or in bf16, where the unsplit run against f32
+# is itself beyond it, to SPLIT_FLOOR_X times that gap (the rule of
+# `split_train_reference`)
+SPLIT_FLOOR_X = 2.0
 # flash_attention at each rank's heads: (B, S, H, KV, hd), half the model's
 SPLIT_SHAPES = {"granite-3-8b": (SERVE_B, SERVE_PROMPT, 16, 4, 128),
-                "qwen1.5-110b": (SERVE_B, SERVE_PROMPT, 32, 4, 128)}
+                "qwen1.5-110b": (SERVE_B, SERVE_PROMPT, 32, 4, 128),
+                "olmoe-1b-7b": (SERVE_B, SERVE_PROMPT, 8, 8, 128)}
 SPLIT_TIMEOUT_S = 420
 SPLIT_DIR = ROOT / "build" / "split"
 # the split world's queue (`split_phase`): a rank's CUDA blocks reach rank 0
@@ -5856,6 +5907,170 @@ def whole_on_rank0(tree, specs, mesh):
     return tree_map(lambda _: next(it), tree)
 
 
+def table_digests(calls) -> list:
+    """A digest of each routing call's (E, C) table, for the every-rank
+    comparison."""
+    import hashlib
+    return [hashlib.sha256(c[1].cpu().numpy().tobytes()).hexdigest()
+            for c in calls]
+
+
+def routing_view(call) -> tuple:
+    """A `RoutingLog` call as `routing_agreement` reads it: each token's
+    expert ids sorted (T,k), whether each of those assignments holds a
+    slot (T,k), its k-th router probability and the gap to the (k+1)-th
+    (T,), and the router probabilities (T,E)."""
+    ids, _, gap, r = call
+    ids, perm = torch.sort(ids, dim=-1)
+    return (ids, torch.gather(r.kept(), 1, perm), r.top[:, ids.shape[1] - 1],
+            gap, r.probs)
+
+
+def routing_agreement(what: str, got: list, want: list, dtype: str,
+                      forwards: list, floor: float | None = None,
+                      hold: bool = True) -> tuple[dict, list]:
+    """The split run's routing calls `got` against the unsplit run's
+    `want` (`RoutingLog`, read through `routing_view`), call by call.
+    `forwards`: (MoE layers, B, S) of each forward in order, its calls'
+    tokens laid out (B, S); a decode step is a forward of S = 1 that
+    follows its sequences' earlier ones.
+
+    A token flips where its experts differ, and diverges where it flips
+    or gains or loses a slot. A token is clean in a layer where no
+    position of its sequence up to it diverged in an earlier layer (or an
+    earlier forward): causal attention is all that carries a divergence
+    to another token, and only rounding separates a clean token's router
+    input in the two runs. With `hold`, a clean token's flip must be a
+    near-tie of the unsplit run: in f32 a gap below MOE_TIE_GAP; in bf16
+    a gap (of its k-th) below SPLIT_FLOOR_X times `floor`, the largest
+    relative move of a clean token's router probabilities in the bf16
+    noise floor (`bf16_floor`), which the split's own moves must stay
+    under too. A flip of a token that is not clean follows from a
+    divergence ("followed"). A token whose experts agree may gain or lose
+    a slot only in a call with a flip. Returns (clean flips, followed
+    flips, token-layers, share of the clean flips, their largest gap,
+    tokens that moved slots, the largest relative move of a clean token's
+    router probabilities, per layer (clean tokens, clean flips, largest
+    gap, largest move), positions clean and agreed after every layer; and
+    per forward (clean (B,S), agreed (B,S)) on the host)."""
+    check(len(got) == len(want) == sum(f[0] for f in forwards),
+          f"{what}: {len(got)} routing calls, the unsplit run "
+          f"{len(want)}, expected {sum(f[0] for f in forwards)}")
+    rel = dtype != "float32"
+    limit = (None if not hold else SPLIT_FLOOR_X * floor if rel
+             else MOE_TIE_GAP)
+    flips = followed = moved = tokens = n_clean = n_agreed = 0
+    worst = move = 0.0
+    calls, masks, seq_dirty = iter(zip(got, want)), [], None
+    per_layer: dict = {}
+    for n_layers, B, S in forwards:
+        if seq_dirty is None:
+            seq_dirty = torch.zeros(B, dtype=torch.bool)
+        div = torch.zeros((B, S), dtype=torch.bool)
+        agreed = torch.ones((B, S), dtype=torch.bool)
+        for layer in range(n_layers):
+            (ids, kept, _, _, probs), (ids_r, kept_r, kth_r, gap_r,
+                                       probs_r) = map(routing_view,
+                                                      next(calls))
+            dirty = (torch.cummax(div.int(), 1).values.bool()
+                     | seq_dirty[:, None]).reshape(-1).to(ids.device)
+            same = (ids == ids_r).all(-1)
+            slots = (kept == kept_r).all(-1)
+            first = ~same & ~dirty
+            n = int(first.sum())
+            gaps = (gap_r / kth_r if rel else gap_r)[first]
+            moves = ((probs - probs_r).abs() / probs_r).amax(-1)[~dirty]
+            g = float(gaps.max()) if n else 0.0
+            mv = float(moves.max()) if moves.numel() else 0.0
+            check(limit is None or (g < limit and (not rel or mv < limit)),
+                  f"{what}: layer {layer}: {n} clean tokens flip, gaps "
+                  f"{gaps.tolist()[:8]} (largest {g:.3e}), a clean token's "
+                  f"router probabilities moved by up to {mv:.3e}: not all "
+                  f"under the limit {limit}")
+            m = int((same & ~slots).sum())
+            check(m == 0 or not bool(same.all()),
+                  f"{what}: layer {layer}: {m} tokens moved slots without a "
+                  "flip")
+            c, f, w, v = per_layer.get(layer, (0, 0, 0.0, 0.0))
+            per_layer[layer] = (c + int(moves.numel()), f + n, max(w, g),
+                                max(v, mv))
+            worst, move = max(worst, g), max(move, mv)
+            flips, moved = flips + n, moved + m
+            followed += int((~same & dirty).sum())
+            tokens += same.numel()
+            ok = (same & slots).reshape(B, S).cpu()
+            div |= ~ok
+            agreed &= ok
+        clean = ~(torch.cummax(div.int(), 1).values.bool()
+                  | seq_dirty[:, None])
+        seq_dirty = seq_dirty | div.any(1)
+        masks.append((clean, agreed))
+        n_clean += int(clean.sum())
+        n_agreed += int(agreed.sum())
+    return ({"flips": flips, "followed": followed, "tokens": tokens,
+             "share": flips / tokens, "largest_gap": worst,
+             "moved_slots": moved, "largest_move": move,
+             "per_layer": [per_layer[k] for k in sorted(per_layer)],
+             "clean": n_clean, "agreed": n_agreed, "limit": limit}, masks)
+
+
+def bf16_floor(what: str, unsplit: list, f32: list, forwards: list
+               ) -> tuple[dict, list]:
+    """The bf16 noise floor of a run's routing: the unsplit bf16 run's
+    routing calls `unsplit` against the same run's in f32 arithmetic
+    (`f32`), measured by `routing_agreement` and not held. Its
+    "largest_move" is the floor."""
+    return routing_agreement(what, unsplit, f32, "bfloat16", forwards,
+                             hold=False)
+
+
+def split_forward_routing(what: str, model, split, mesh, batch,
+                          dtype: str) -> dict:
+    """Each rank's training forward (`loss_fn(split=)`) of one client's
+    minibatch `batch` on its blocks of the params of seed 0, routing
+    recorded: every rank's (E, C) tables must be rank 0's, and on rank 0
+    the routing is held against the unsplit forward's
+    (`routing_agreement`; in bf16 at the noise floor of the same forward
+    in f32, `bf16_floor`). Returns rank 0's verdict ({} on the
+    others)."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import take_tree
+    from repro_torch.tree import tree_map
+    params = model.init(0, device="cuda")
+    with torch.no_grad():
+        blocks = take_tree(params, split.param_specs, mesh, split=True)
+        with RoutingLog() as got:
+            model.loss_fn(blocks, batch, split=split)
+        del blocks
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, table_digests(got.calls))
+        check(all(p == parts[0] for p in parts) and parts[0],
+              f"{what}: a rank's routing tables differ from rank 0's")
+        out = {}
+        if dist.get_rank() == 0:
+            with RoutingLog() as want:
+                model.loss_fn(params, batch)
+            B, S = batch["tokens"].shape
+            forwards = [(len(moe_layers(model.cfg)), B, S)]
+            floor = None
+            if dtype != "float32":
+                f32 = build_model(model.cfg.replace(
+                    param_dtype="float32", compute_dtype="float32"))
+                with RoutingLog() as ref32:
+                    f32.loss_fn(tree_map(lambda t: t.float(), params), batch)
+                floor = bf16_floor(f"{what} (bf16 noise floor)", want.calls,
+                                   ref32.calls, forwards)[0]
+                del ref32
+            out = routing_agreement(
+                what, got.calls, want.calls, dtype, forwards,
+                floor and floor["largest_move"])[0]
+            out.update(calls=len(got.calls), floor=floor)
+    del params, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
               ) -> dict:
     """One rank's part of a split run: `launch.steps.make_prefill_step`
@@ -5864,10 +6079,12 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     prefill of SERVE_B x SERVE_PROMPT tokens and SERVE_NEW greedy tokens
     from the logits gathered whole; then rank 0 runs the unsplit prefill
     and decode of the same params on the same tokens (the split run's
-    greedy tokens fed back) and holds logits and caches to SPLIT_TOL.
-    Every count is set to 0 just before the split prefill and read just
-    after it; decode launches none. Returns this run's numbers (rank 0:
-    every rank's)."""
+    greedy tokens fed back) and holds logits and caches to SPLIT_TOL. An
+    MoE run records its routing on both sides (`RoutingLog`): every
+    rank's tables must be rank 0's, and the outputs are held where the
+    routing agreed (`split_reference`). Every count is set to 0 just
+    before the split prefill and read just after it; decode launches
+    none. Returns this run's numbers (rank 0: every rank's)."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prompt_batch
@@ -5895,24 +6112,28 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cache = model.init_cache(SERVE_B, C, device="cuda", split=split)
-    reset_counts()
-    t0 = time.perf_counter()
-    logits, cache = step_p(params, cache, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_counts = read_counts()
-    reset_counts()
-    outs, toks, decode_s = [whole(logits, lspec, mesh, split=True)], [], 0.0
-    for i in range(SERVE_NEW):
-        toks.append(outs[-1].argmax(-1, keepdim=True).to(torch.int32))
+    routes = RoutingLog()
+    with routes:
+        reset_counts()
         t0 = time.perf_counter()
-        logits, cache = step_d(params, cache, toks[-1], SERVE_PROMPT + i)
+        logits, cache = step_p(params, cache, batch)
         torch.cuda.synchronize()
-        decode_s += time.perf_counter() - t0
-        outs.append(whole(logits, lspec, mesh, split=True))
-    decode_counts = read_counts()
+        prefill_s = time.perf_counter() - t0
+        prefill_counts = read_counts()
+        reset_counts()
+        outs = [whole(logits, lspec, mesh, split=True)]
+        toks, decode_s = [], 0.0
+        for i in range(SERVE_NEW):
+            toks.append(outs[-1].argmax(-1, keepdim=True).to(torch.int32))
+            t0 = time.perf_counter()
+            logits, cache = step_d(params, cache, toks[-1], SERVE_PROMPT + i)
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            outs.append(whole(logits, lspec, mesh, split=True))
+        decode_counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     mine = {"peak": peak, "prefill_counts": prefill_counts,
+            "tables": table_digests(routes.calls),
             "decode_counts": decode_counts,
             "prefill_moved": dict(split.axis.moved),
             "decode_moved": {k: v / SERVE_NEW
@@ -5923,6 +6144,8 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
                                for t in tree_leaves(params))}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
+    check(all(r["tables"] == ranks[0]["tables"] for r in ranks),
+          f"split {label}: a rank's routing tables differ from rank 0's")
     got_cache = [t.cpu() for t in tree_leaves(
         whole_tree(cache, split.cache_specs, mesh, split=True))]
     layout = {i: (g.cache, g.heads, g.kv_cols, g.mlp)
@@ -5931,20 +6154,50 @@ def split_run(label: str, arch: str, n_layers: int, dtype: str, mesh
     torch.cuda.empty_cache()
     out = {"label": f"{label} {n_layers} layers {dtype}", "ranks": ranks,
            "layout": layout, "head_split": split.head,
-           "embed_split": split.embed}
+           "embed_split": split.embed,
+           "experts": sorted({g.experts for g in split.segments.values()})}
     if rank == 0:
         out.update(split_reference(model, batch, toks, outs, got_cache,
-                                   dtype, C))
+                                   dtype, C, routes.calls))
+    del routes
     dist.barrier()
     out["wall_s"] = time.perf_counter() - t_run
     return out
 
 
-def split_reference(model, batch, toks, outs, got_cache, dtype, C) -> dict:
+def split_f32_run(model, params, batch, toks, C) -> tuple:
+    """The unsplit prefill and decode of `params` (bf16) upcast to f32, in
+    f32 arithmetic, on the split run's prompt and greedy tokens, routing
+    recorded (`RoutingLog`): (its routing calls, its logits, its cache
+    leaves on the host), the reference of the bf16 noise floor."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    f32 = build_model(model.cfg.replace(param_dtype="float32",
+                                        compute_dtype="float32"))
+    p32 = tree_map(lambda t: t.float(), params)
+    cache = f32.init_cache(SERVE_B, C, device="cuda")
+    with RoutingLog() as routes:
+        logits, cache = f32.prefill(p32, batch, cache)
+        outs = [logits]
+        for i, tok in enumerate(toks):
+            logits, cache = f32.decode_step(p32, tok, SERVE_PROMPT + i,
+                                            cache)
+            outs.append(logits)
+    leaves = [t.cpu() for t in tree_leaves(cache)]
+    del p32, cache
+    torch.cuda.empty_cache()
+    return routes.calls, outs, leaves
+
+
+def split_reference(model, batch, toks, outs, got_cache, dtype, C,
+                    got_routes) -> dict:
     """Rank 0's unsplit prefill and decode of the split run's params and
     tokens (module docstring of `split_run`): the largest gaps over the
     bound, the greedy tokens that differ and whether each is a near-tie
-    (the split's token within the bound of the unsplit top logit)."""
+    (the split's token within the bound of the unsplit top logit). An MoE
+    run's routing is held against the unsplit run's (`routing_agreement`),
+    and logits, caches and greedy tokens are compared at the positions
+    whose routing agreed in every layer."""
     from repro_torch.tree import tree_leaves
     rtol, atol = SPLIT_TOL[dtype]
     params = model.init(0, device="cuda")
@@ -5952,51 +6205,97 @@ def split_reference(model, batch, toks, outs, got_cache, dtype, C) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cache = model.init_cache(SERVE_B, C, device="cuda")
-    reset_counts()
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(params, batch, cache)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    counts = read_counts()
-    ref, decode_s = [logits], 0.0
-    for i, tok in enumerate(toks):
+    with RoutingLog() as want:
+        reset_counts()
         t0 = time.perf_counter()
-        logits, cache = model.decode_step(params, tok, SERVE_PROMPT + i,
-                                          cache)
+        logits, cache = model.prefill(params, batch, cache)
         torch.cuda.synchronize()
-        decode_s += time.perf_counter() - t0
-        ref.append(logits)
+        prefill_s = time.perf_counter() - t0
+        counts = read_counts()
+        ref, decode_s = [logits], 0.0
+        for i, tok in enumerate(toks):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok, SERVE_PROMPT + i,
+                                              cache)
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            ref.append(logits)
     peak = torch.cuda.max_memory_allocated()
+    # the positions (B, C) and the logits rows held: those whose routing
+    # agreed in every layer (`routing_agreement`), the prefill's calls
+    # first, then each decode step's; in bf16 the same gaps of the noise
+    # floor (the unsplit bf16 run against it in f32) at its own
+    B, S = SERVE_B, SERVE_PROMPT
 
-    def worst(a, b) -> tuple[float, float]:
-        a, b = a.float(), b.float()
-        gap = (a - b).abs()
+    def held(masks) -> tuple:
+        pos = torch.ones((B, C), dtype=torch.bool)
+        rows = [torch.ones(B, dtype=torch.bool) for _ in outs]
+        for i, (_, agreed) in enumerate(masks):
+            pos[:, slice(0, S) if i == 0 else slice(S + i - 1, S + i)] = \
+                agreed
+            rows[i] = agreed[:, -1]
+        return rows, pos
+
+    def worst(a, b, keep) -> tuple[float, float]:
+        a, b = a.float(), b.float().to(a.device)
+        gap = torch.where(keep.to(a.device), (a - b).abs(),
+                          torch.zeros((), device=a.device))
         return (float((gap / (atol + rtol * b.abs())).max()),
                 float(gap.max()))
 
-    logit_gap = max(worst(a, b) for a, b in zip(outs, ref))
-    cache_gap = max(worst(a, b.cpu()) for a, b in zip(got_cache,
-                                                      tree_leaves(cache)))
+    def gaps(logits_a, logits_b, cache_a, cache_b, rows, pos) -> tuple:
+        return (max(worst(a, b, k[:, None])
+                    for a, b, k in zip(logits_a, logits_b, rows)),
+                max(worst(a, b, pos[None, :, :, None, None])
+                    for a, b in zip(cache_a, cache_b)))
+
+    ref_cache = [t.cpu() for t in tree_leaves(cache)]
+    rows_ok, pos_ok = held([])
+    routing, allowed = None, (1.0, 1.0)
+    if got_routes:
+        n = len(moe_layers(model.cfg))
+        forwards = [(n, B, S)] + [(n, B, 1)] * len(toks)
+        floor = None
+        if dtype != "float32":
+            calls32, outs32, cache32 = split_f32_run(model, params, batch,
+                                                     toks, C)
+            floor, fmasks = bf16_floor(
+                f"split {model.cfg.name} (bf16 noise floor)", want.calls,
+                calls32, forwards)
+            floor["gaps"] = gaps(ref, outs32, ref_cache, cache32,
+                                 *held(fmasks))
+            allowed = tuple(max(1.0, SPLIT_FLOOR_X * g[0])
+                            for g in floor["gaps"])
+            del outs32, cache32
+        routing, masks = routing_agreement(
+            f"split {model.cfg.name} {dtype}", got_routes, want.calls, dtype,
+            forwards, floor and floor["largest_move"])
+        routing.update(calls=len(got_routes), positions=B * (S + len(toks)),
+                       floor=floor, allowed=allowed)
+        rows_ok, pos_ok = held(masks)
+    logit_gap, cache_gap = gaps(outs, ref, got_cache, ref_cache, rows_ok,
+                                pos_ok)
     differ, ties = 0, 0
     for i, tok in enumerate(toks):
         r = ref[i].float()
         top = r.max(-1).values
         pick = r.gather(-1, tok.long()).squeeze(-1)
         for b in range(r.shape[0]):
-            if int(tok[b]) != int(r[b].argmax()):
+            if int(tok[b]) != int(r[b].argmax()) and rows_ok[i][b]:
                 differ += 1
                 ties += bool(top[b] - pick[b] <= atol + rtol * top[b].abs())
     check(bool(all(torch.isfinite(x.float()).all() for x in outs)),
           "split: logits not finite")
-    check(logit_gap[0] <= 1 and cache_gap[0] <= 1,
+    check(logit_gap[0] <= allowed[0] and cache_gap[0] <= allowed[1],
           f"split vs unsplit: logits {logit_gap}, cache {cache_gap} "
-          f"(|gap| / bound, max |gap|; rtol {rtol}, atol {atol})")
+          f"(|gap| / bound, max |gap|; rtol {rtol}, atol {atol}; allowed "
+          f"{allowed} of the bound)")
     check(differ == ties, f"split: {differ - ties} greedy tokens differ "
                           "from the unsplit run's beyond a near-tie")
     del params, cache
     torch.cuda.empty_cache()
     return {"logit_gap": logit_gap, "cache_gap": cache_gap,
-            "tokens_differ": differ, "near_ties": ties,
+            "tokens_differ": differ, "near_ties": ties, "routing": routing,
             "unsplit_peak": peak, "unsplit_counts": counts,
             "unsplit_prefill_ms": prefill_s * 1e3,
             "unsplit_decode_ms": decode_s / len(toks) * 1e3,
@@ -6007,16 +6306,19 @@ def split_reference(model, batch, toks, outs, got_cache, dtype, C) -> dict:
 # the same world, SPLIT_TRAIN_N clients of TRAIN_MB x TRAIN_SEQ tokens,
 # SPLIT_TRAIN_ROUNDS rounds under SPLIT_TRAIN_MASKS. (label, arch, layers,
 # dtype, sequential), each at full width on the 1x2 mesh with remat on (the
-# configs' default): granite-3-8b's vmap step in bf16 (its head whole:
-# vocab 49155 is odd) and in f32 at 1 layer; gemma3-4b's (vocab 262144
-# split: the vocab-split cross-entropy at hd 256); granite's sequential
-# step under its update constraint through the planner (K = 1). One round
-# (two until the split federated runs below took its place: they chain
-# three rounds on the blocks), client 1 inactive in it
+# configs' default): olmoe-1b-7b's vmap step in f32 at 1 layer, its experts
+# over `model` (granite-3-8b's f32 step until olmoe's took its place: the
+# f32 bound of the vmap step on the blocks is held by this one, granite's
+# head whole by the bf16 one); granite-3-8b's vmap step in bf16 (its head
+# whole: vocab 49155 is odd); gemma3-4b's (vocab 262144 split: the
+# vocab-split cross-entropy at hd 256); granite's sequential step under its
+# update constraint through the planner (K = 1). One round (two until the
+# split federated runs below took its place: they chain rounds on the
+# blocks, (ii) three across a chunk boundary), client 1 inactive in it
 SPLIT_TRAIN_N, SPLIT_TRAIN_K, SPLIT_TRAIN_ROUNDS = 2, 2, 1
 SPLIT_TRAIN_MASKS = ((True, False), (True, True))
 SPLIT_TRAIN_RUNS = (
-    ("granite-3-8b", "granite_3_8b", 1, "float32", False),
+    ("olmoe-1b-7b", "olmoe_1b_7b", 1, "float32", False),
     ("granite-3-8b", "granite_3_8b", 2, "bfloat16", False),
     ("gemma3-4b", "gemma3_4b", 2, "bfloat16", False),
     ("granite-3-8b sequential", "granite_3_8b", 2, "bfloat16", True))
@@ -6119,6 +6421,11 @@ def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
     split = getattr(step, "split", None)
     check(split is not None, f"split train {label}: the step is not split")
     inputs = split_train_inputs(cfg)
+    routing = {}
+    if cfg.n_experts and dtype != "float32":
+        routing = split_forward_routing(
+            f"split train {label}", model, split, mesh,
+            {"tokens": inputs[0][0]["tokens"][0, 0]}, dtype)
     params = take_tree(model.init(0, device="cuda"), split.param_specs,
                        mesh, split=True)
     G = split_train_zeros(cfg, split.state_specs, mesh)
@@ -6156,7 +6463,7 @@ def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
     torch.cuda.empty_cache()
     dist.barrier()
     out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
-                    f" {dtype}", "ranks": ranks,
+                    f" {dtype}", "ranks": ranks, "routing": routing,
            "kv": {i: g.cache for i, g in split.segments.items()},
            "head_split": split.head, "embed_split": split.embed,
            "sequential": sequential}
@@ -6170,10 +6477,20 @@ def split_train_run(label: str, arch: str, n_layers: int, dtype: str,
     return out
 
 
+def split_noise(got: list, noise: list, over: list) -> dict:
+    """What a bf16 run's rows print of its noise floor: every leaf's gap
+    and the noise floor's on it, the largest noise gap, and the leaves
+    beyond the bound with their margin (2 x noise / gap: above 1 passes)."""
+    return {"noise_gap": max(noise), "gaps": got, "noise": noise,
+            "over": [(j, got[j], noise[j]) for j in over],
+            "margin": min(2 * noise[j] / got[j] for j in over)}
+
+
 def unsplit_train_rounds(cfg, model, inputs,
-                         n_clients: int = SPLIT_TRAIN_N) -> dict:
+                         n_clients: int = SPLIT_TRAIN_N,
+                         seed: int = 0) -> dict:
     """The unsplit train step of `cfg` over `inputs` from the split run's
-    start (params from seed 0, G zeros): its params, G, losses, counts
+    start (params from `seed`, G zeros): its params, G, losses, counts
     and ms a round, and its peak above what was allocated before it."""
     from repro_torch.launch.steps import make_train_step
     step = make_train_step(model, cfg, n_clients, cfg.fl_local_steps)
@@ -6181,7 +6498,7 @@ def unsplit_train_rounds(cfg, model, inputs,
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    params = model.init(0, device="cuda")
+    params = model.init(seed, device="cuda")
     G = split_train_zeros(cfg, None, None, n_clients)
     counts, ms, losses = [], [], []
     for batch, active, eta in inputs:
@@ -6200,12 +6517,12 @@ def split_train_reference(cfg, model, inputs, got_p, got_G, losses,
     """Rank 0's unsplit train step on the split run's inputs, from the
     same params and G, against the split run gathered whole, leaf by leaf
     and the losses: f32 runs within the f32 training bound (`model_gap`);
-    bf16 runs within SPLIT_TOL's bf16 bound, or, for a leaf where the
-    unsplit step's other mode (vmap against sequential: the same round
-    summed in another order) is itself beyond that bound, within twice
-    that mode's gap (the bf16 noise floor, printed). Its peak counts its
-    own params and G but not the split run's outputs it holds (nor the
-    init's generator state)."""
+    bf16 runs within SPLIT_TOL's bf16 bound, or, for a leaf beyond it,
+    within twice the gap of the unsplit step's other mode on that leaf
+    (vmap against sequential: the same round summed in another order; the
+    bf16 noise floor, every leaf's printed with the margin). Its peak
+    counts its own params and G but not the split run's outputs it holds
+    (nor the init's generator state)."""
     from repro_torch.tree import tree_leaves
     ref = unsplit_train_rounds(cfg, model, inputs)
     rtol, atol = SPLIT_TOL[dtype]
@@ -6233,8 +6550,7 @@ def split_train_reference(cfg, model, inputs, got_p, got_G, losses,
         o = unsplit_train_rounds(other, model.__class__(other), inputs)
         noise = gaps(o["params"], o["G"], o["losses"])
         del o
-        out["noise_gap"] = max(noise)
-        out["over"] = [(j, got[j], noise[j]) for j in over]
+        out.update(split_noise(got, noise, over))
         over = [j for j in over if got[j] > 2 * noise[j]]
     check(not over, f"split train vs unsplit: loss {got[-1]:.3e}, params "
                     f"and G leaves {[f'{x:.3e}' for x in got[:-1]]} of the "
@@ -6249,15 +6565,19 @@ def split_train_reference(cfg, model, inputs, got_p, got_G, losses,
 # the server step on G's or the bank rows' blocks, every round run eagerly
 # (gloo cannot be captured); K = 2 local steps of 2 x 128 tokens, scan
 # chunks of 2. (label, arch, layers, dtype, algorithm, N, cohort capacity,
-# rounds): (i) granite-3-8b MIFA(array) in f32 under Bernoulli
-# availability (a round with an inactive client); (ii) its BankedMIFA(
-# DenseBank(mesh=, cfg=)) in bf16 and (iv) BankedMIFA(PagedDeviceBank), held
-# whole on every rank, under SPLIT_FL_COHORTS; (iii) gemma3-4b MIFA(array)
-# in bf16, the vocab split across the head
+# rounds): (i) olmoe-1b-7b MIFA(array) in f32 under Bernoulli availability
+# (a round with an inactive client), its experts over `model` (granite-3-8b's
+# until olmoe's took its place: the f32 bound of the round on the blocks is
+# held by this one, granite's head whole by (ii) and (iv)); (ii)
+# granite-3-8b BankedMIFA(DenseBank(mesh=, cfg=)) in bf16 and (iv)
+# BankedMIFA(PagedDeviceBank), held whole on every rank, under
+# SPLIT_FL_COHORTS; (iii) gemma3-4b MIFA(array) in bf16, the vocab split
+# across the head. (ii) takes three rounds, so one run carries its state on
+# the blocks across a chunk boundary and ends on a partial chunk
 SPLIT_FL_K, SPLIT_FL_CHUNK, SPLIT_FL_ETA0 = 2, 2, 0.02
 SPLIT_FL_RUNS = (
-    ("(i) granite-3-8b MIFA(array)", "granite_3_8b", 1, "float32",
-     "mifa_array", 2, None, 3),
+    ("(i) olmoe-1b-7b MIFA(array)", "olmoe_1b_7b", 1, "float32",
+     "mifa_array", 2, None, 2),
     ("(ii) granite-3-8b BankedMIFA(DenseBank)", "granite_3_8b", 2,
      "bfloat16", "banked_dense", 4, 2, 3),
     ("(iii) gemma3-4b MIFA(array)", "gemma3_4b", 2, "bfloat16",
@@ -6291,19 +6611,18 @@ def split_fl_setup(arch: str, n_layers: int, dtype: str, algo: str, n: int,
     on `mesh`) of a split fl run."""
     from repro_torch.bank import BankedMIFA, DenseBank, PagedDeviceBank
     from repro_torch.configs import get_config
-    from repro_torch.core import MIFA, BernoulliParticipation
+    from repro_torch.core import MIFA
     from repro_torch.data import TokenBatcher
     from repro_torch.models import build_model
     from repro_torch.optim import inv_t
     cfg = get_config(arch).replace(
         n_layers=n_layers, param_dtype=dtype, compute_dtype=dtype,
         memory_dtype=dtype, fl_clients=n, fl_local_steps=SPLIT_FL_K)
-    part = (FixedMasks(SPLIT_FL_COHORTS) if cap else BernoulliParticipation(
-        np.asarray(SPLIT_FL_PROBS), seed=SPLIT_FL_SEED))
     kw = dict(batcher=TokenBatcher(n_clients=n, vocab=cfg.vocab_size,
                                    seq_len=TRAIN_SEQ, batch_size=TRAIN_MB,
                                    k_steps=SPLIT_FL_K, seed=0),
-              participation=part, schedule=inv_t(SPLIT_FL_ETA0),
+              participation=split_fl_part(cap),
+              schedule=inv_t(SPLIT_FL_ETA0),
               n_rounds=rounds, engine="scan", scan_chunk=SPLIT_FL_CHUNK,
               cohort_capacity=cap, device="cuda")
     make = {"mifa_array": lambda: MIFA(memory="array", memory_dtype=dtype),
@@ -6313,6 +6632,20 @@ def split_fl_setup(arch: str, n_layers: int, dtype: str, algo: str, n: int,
             "banked_paged": lambda: BankedMIFA(PagedDeviceBank(
                 page_size=1, n_slots=n, dtype=dtype, device="cuda"))}[algo]
     return cfg, build_model(cfg), kw, make()
+
+
+def split_fl_part(cap, s: int = 0, k: int = 0, rounds: int = 0):
+    """A fresh availability process of a split fl run (`cap` None:
+    Bernoulli SPLIT_FL_PROBS of seed SPLIT_FL_SEED + `s`; else
+    SPLIT_FL_COHORTS, or for trial `k` of a fleet SPLIT_FLEET_COHORTS from
+    k on). Bernoulli draws each round's mask from its own RNG, so every
+    run of the same masks takes a process of its own."""
+    from repro_torch.core import BernoulliParticipation
+    if cap is None:
+        return BernoulliParticipation(np.asarray(SPLIT_FL_PROBS),
+                                      seed=SPLIT_FL_SEED + s)
+    return FixedMasks(SPLIT_FLEET_COHORTS[k:k + rounds] if rounds
+                      else SPLIT_FL_COHORTS)
 
 
 class DriverLog:
@@ -6390,6 +6723,8 @@ def split_fl_run(label: str, arch: str, n_layers: int, dtype: str,
     rank = dist.get_rank()
     cfg, model, kw, fresh = split_fl_setup(arch, n_layers, dtype, algo, n,
                                            cap, rounds, mesh)
+    routing = split_train_routing(f"split fl {label}", cfg, model, kw,
+                                  mesh, dtype)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6438,7 +6773,7 @@ def split_fl_run(label: str, arch: str, n_layers: int, dtype: str,
     out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
                     f" {dtype}", "ranks": ranks, "algo": algo,
            "rounds": rounds, "head_split": split.head,
-           "gather_s": gather_s}
+           "gather_s": gather_s, "routing": routing}
     if rank == 0:
         out.update(split_fl_reference(
             label, (arch, n_layers, dtype, algo, n, cap, rounds), got_p, got,
@@ -6451,16 +6786,33 @@ def split_fl_run(label: str, arch: str, n_layers: int, dtype: str,
     return out
 
 
+def split_train_routing(what: str, cfg, model, kw, mesh, dtype: str
+                        ) -> dict:
+    """`split_forward_routing` of a bf16 federated run or fleet of an MoE
+    config: round 0's minibatch of client 0 (its batcher's), on the blocks
+    of the train step's split of `mesh`; {} without MoE or in f32, where
+    the run's parity at the f32 bound already holds the routing (a flip
+    beyond a near-tie moves an expert's update far past it)."""
+    from repro_torch.sharding.tensor_parallel import train_split
+    if not cfg.n_experts or dtype == "float32":
+        return {}
+    tokens = kw["batcher"].sample_round(0)["tokens"][0, 0]
+    return split_forward_routing(
+        what, model, train_split(cfg, mesh, cfg.fl_clients), mesh,
+        {"tokens": torch.from_numpy(tokens).cuda()}, dtype)
+
+
 def split_fl_reference(label: str, run: tuple, got_p, got, hist) -> dict:
     """Rank 0's unsplit `run_fl(engine="scan")` of the same run (params of
     seed 0, the same batches and masks) against the split run gathered
     whole, leaf by leaf (params, then G or the bank's rows and G_sum) and
     the losses: f32 within the f32 training bound (`model_gap`); bf16
-    within SPLIT_TOL's bf16 bound or, for a leaf where the unsplit MIFA
-    train step's sequential mode (the same rounds summed in another order)
-    is itself beyond it, within twice that mode's gap (the rule of
-    `split_train_reference`). n_active exact. Its peak counts its own
-    params and state, not the split run's it holds."""
+    within SPLIT_TOL's bf16 bound or, for a leaf beyond it, within twice
+    the gap of the unsplit MIFA train step's sequential mode on that leaf
+    (the same rounds summed in another order, on masks drawn anew and
+    checked equal to the run's; the rule of `split_train_reference`).
+    n_active exact. Its peak counts its own params and state, not the
+    split run's it holds."""
     from repro_torch.core import run_fl
     from repro_torch.tree import tree_leaves
     t_ref = time.perf_counter()
@@ -6518,9 +6870,14 @@ def split_fl_reference(label: str, run: tuple, got_p, got, hist) -> dict:
     out.update(leaf_gap=max(got_gaps[:-1]), loss_gap=got_gaps[-1])
     over = [j for j, g in enumerate(got_gaps) if g > 1]
     if over and dtype != "float32":
-        noise = gaps(*split_fl_sequential(cfg, model, kw, algo, n, rounds))
-        out["noise_gap"] = max(noise)
-        out["over"] = [(j, got_gaps[j], noise[j]) for j in over]
+        *seq, n_active = split_fl_sequential(cfg, model, kw, algo, n, rounds,
+                                             split_fl_part(cap))
+        check(n_active == hist.n_active,
+              f"split fl {label}: the noise floor's n_active {n_active}, "
+              f"the run's {hist.n_active}")
+        noise = gaps(*seq)
+        del seq
+        out.update(split_noise(got_gaps, noise, over))
         over = [j for j in over if got_gaps[j] > 2 * noise[j]]
     check(not over, f"split fl {label} vs unsplit: loss {got_gaps[-1]:.3e}, "
                     f"leaves {[f'{x:.3e}' for x in got_gaps[:-1]]} of the "
@@ -6533,14 +6890,16 @@ def split_fl_reference(label: str, run: tuple, got_p, got, hist) -> dict:
 
 
 def split_fl_sequential(cfg, model, kw, algo: str, n: int,
-                        rounds: int) -> tuple:
+                        rounds: int, part, seed: int = 0) -> tuple:
     """The same rounds through the unsplit MIFA train step in sequential
     mode (`make_train_step`, one client's update at a time), from params
-    of seed 0 and G = 0: (params, the view a run of `algo` compares, the
-    losses of the active clients)."""
+    of `seed` and G = 0, the masks drawn from `part` (a process of its
+    own, `split_fl_part`: one that a run has drawn from gives other
+    masks): (params, the view a run of `algo` compares, the losses of the
+    active clients, n_active a round)."""
     from repro_torch.tree import tree_map
     other = cfg.replace(sequential_clients=True)
-    batcher, part = kw["batcher"], kw["participation"]
+    batcher = kw["batcher"]
     inputs = []
     for t in range(rounds):
         active = part.sample(t)
@@ -6548,21 +6907,26 @@ def split_fl_sequential(cfg, model, kw, algo: str, n: int,
             batcher.sample_round(t)["tokens"]).cuda()},
             torch.as_tensor(active, device="cuda"), kw["schedule"](t + 1)))
     seq = unsplit_train_rounds(other, model.__class__(other), inputs,
-                               n_clients=n)
+                               n_clients=n, seed=seed)
     G = seq["G"]
     view = ({"G": G} if algo == "mifa_array" else
             {"rows": G, "g_sum": tree_map(lambda g: g.float().sum(0), G)})
-    return seq["params"], view, seq["losses"]
+    return (seq["params"], view, seq["losses"],
+            [float(a.sum()) for _, a, _ in inputs])
 
 
 # the split fleets (`run_fleet(engine="scan", mesh=1x2, cfg=)`, every
 # trial's local update on each rank's blocks under vmap over trials): (label,
 # arch, layers, dtype, algorithm, clients, cohort capacity, rounds), all at
-# full width with granite's depth cut to 1 layer, two trials of seeds
-# SPLIT_FLEET_SEEDS: (i) MIFA(array) under Bernoulli availability (each
-# trial's of seed SPLIT_FL_SEED + s: a round with an inactive client);
-# (ii) BankedMIFA(DenseBank) and (iii) BankedMIFA(PagedDeviceBank), their
-# rows whole on every rank, trial k taking SPLIT_FLEET_COHORTS from k on.
+# full width with the depth cut to 1 layer, two trials of seeds
+# SPLIT_FLEET_SEEDS: (i) olmoe-1b-7b MIFA(array) under Bernoulli
+# availability (each trial's of seed SPLIT_FL_SEED + s: a round with an
+# inactive client), its experts over `model` (granite-3-8b's until olmoe's
+# took its place: granite's head whole is held by (ii) and (iii)); (ii)
+# granite-3-8b BankedMIFA(DenseBank) and (iii) BankedMIFA(PagedDeviceBank),
+# their rows whole on every rank, trial k taking SPLIT_FLEET_COHORTS from k
+# on. A full-width olmoe fleet in f32 would not fit two ranks beside each
+# other (about 35 GB a rank), so (i) is bf16.
 # The state is whole on every rank (`fleet_axis_specs`), in bf16 (G, the
 # rows, the pages; G_sum f32): (i)'s G is 2 trials x 2 clients x 0.60e9 x 2
 # B = 4.8 GB a rank. Two ranks of (ii) at N = 4 did not fit the card beside
@@ -6577,7 +6941,7 @@ def split_fl_sequential(cfg, model, kw, algo: str, n: int,
 # take chunks of SPLIT_FLEET_CHUNK rounds
 SPLIT_FLEET_SEEDS, SPLIT_FLEET_CHUNK = (0, 1), 1
 SPLIT_FLEET_RUNS = (
-    ("(i) granite-3-8b MIFA(array)", "granite_3_8b", 1, "bfloat16",
+    ("(i) olmoe-1b-7b MIFA(array)", "olmoe_1b_7b", 1, "bfloat16",
      "mifa_array", 2, None, 2),
     ("(ii) granite-3-8b BankedMIFA(DenseBank)", "granite_3_8b", 1,
      "bfloat16", "banked_dense", 2, 1, 2),
@@ -6626,18 +6990,19 @@ def split_fleet_setup(arch: str, n_layers: int, dtype: str, algo: str,
     """(cfg, model, run_fleet's keywords but the algorithm, a fresh
     algorithm) of a split fleet: SPLIT_FLEET_SEEDS' trials, split_fl's
     batches and schedule."""
-    from repro_torch.core import BernoulliParticipation
-    from repro_torch.fleet import Trial
     cfg, model, kw, fresh = split_fl_setup(arch, n_layers, dtype, algo, n,
                                            cap, rounds)
-    trials = [Trial(seed=s, participation=(
-        FixedMasks(SPLIT_FLEET_COHORTS[k:k + rounds]) if cap else
-        BernoulliParticipation(np.asarray(SPLIT_FL_PROBS),
-                               seed=SPLIT_FL_SEED + s)))
-        for k, s in enumerate(SPLIT_FLEET_SEEDS)]
     del kw["participation"]
-    return cfg, model, {**kw, "trials": trials,
+    return cfg, model, {**kw, "trials": split_fleet_trials(cap, rounds),
                         "scan_chunk": SPLIT_FLEET_CHUNK}, fresh
+
+
+def split_fleet_trials(cap, rounds: int) -> list:
+    """A split fleet's trials, each of a SPLIT_FLEET_SEEDS seed with a
+    fresh availability process of its own (`split_fl_part`)."""
+    from repro_torch.fleet import Trial
+    return [Trial(seed=s, participation=split_fl_part(cap, s, k, rounds))
+            for k, s in enumerate(SPLIT_FLEET_SEEDS)]
 
 
 def split_fleet_view(algo: str, bank, state, n: int) -> dict:
@@ -6673,6 +7038,8 @@ def split_fleet_run(label: str, arch: str, n_layers: int, dtype: str,
     rank = dist.get_rank()
     cfg, model, kw, fresh = split_fleet_setup(arch, n_layers, dtype, algo,
                                               n, cap, rounds)
+    routing = split_train_routing(f"split fleet {label}", cfg, model, kw,
+                                  mesh, dtype)
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6736,7 +7103,7 @@ def split_fleet_run(label: str, arch: str, n_layers: int, dtype: str,
     dist.barrier()
     out = {"label": f"{label} {n_layers} layer{'s' if n_layers > 1 else ''}"
                     f" {dtype}", "ranks": ranks, "algo": algo,
-           "rounds": rounds, "head_split": split.head}
+           "rounds": rounds, "head_split": split.head, "routing": routing}
     if rank == 0:
         out.update(split_fleet_reference(
             label, (arch, n_layers, dtype, algo, n, cap, rounds), params,
@@ -6755,8 +7122,11 @@ def split_fleet_reference(label: str, run: tuple, got_p, got,
     against the split fleet, leaf by leaf (params, then G or the bank's
     rows and G_sum, every trial) and the losses within SPLIT_TOL's bound
     of the run's dtype, n_active exact (a round with an inactive client in
-    the dense fleet). Its peak counts its own params and state, not the
-    split fleet's it holds."""
+    the dense fleet); in bf16 MIFA(array) a leaf beyond the bound within
+    twice the gap of each trial's rounds through the unsplit train step's
+    sequential mode (the rule of `split_fl_reference`, on masks drawn anew
+    and checked equal to the trial's). Its peak counts its own params and
+    state, not the split fleet's it holds."""
     from repro_torch.fleet import run_fleet
     from repro_torch.tree import tree_leaves
     t_ref = time.perf_counter()
@@ -6810,9 +7180,28 @@ def split_fleet_reference(label: str, run: tuple, got_p, got,
     loss_gap = gap(torch.as_tensor(stacked["train_loss"]),
                    torch.as_tensor(want["train_loss"]))
     out.update(leaf_gap=max(gaps), loss_gap=loss_gap)
-    check(max(gaps) <= 1 and loss_gap <= 1,
+    over = [j for j, g in enumerate(gaps) if g > 1]
+    if over and dtype != "float32" and algo == "mifa_array":
+        # the bf16 noise floor of `split_fl_reference`: each trial's rounds
+        # through the unsplit train step's sequential mode, its masks drawn
+        # anew (the fleet above has drawn from `kw`'s)
+        seqs = [split_fl_sequential(cfg, model, kw, algo, n, rounds,
+                                    tr.participation, seed=tr.seed)
+                for tr in split_fleet_trials(cap, rounds)]
+        n_active = [s[3] for s in seqs]
+        check(n_active == want["n_active"].tolist(),
+              f"split fleet {label}: the noise floor's n_active {n_active}, "
+              f"the fleet's {want['n_active'].tolist()}")
+        noise = [gap(torch.stack(list(a)), b) for a, b in zip(
+            zip(*[tree_leaves(s[0]) + tree_leaves(s[1]) for s in seqs]),
+            tree_leaves(ref_p) + tree_leaves(ref))]
+        del seqs
+        out.update(split_noise(gaps, noise, over))
+        over = [j for j in over if gaps[j] > 2 * noise[j]]
+    check(not over and loss_gap <= 1,
           f"split fleet {label} vs unsplit: loss {loss_gap:.3e}, leaves "
-          f"{[f'{x:.3e}' for x in gaps]} of the bound")
+          f"{[f'{x:.3e}' for x in gaps]} of the bound; beyond it "
+          f"{out.get('over', over)}")
     del ref_p, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -6862,15 +7251,51 @@ def split_rank(rank: int, out_dir: str, queue) -> None:
         dist.destroy_process_group()
 
 
+def split_routing_text(route: dict, dtype: str) -> str:
+    """The routing verdict of `routing_agreement`, as row text."""
+    layers = "; ".join(f"layer {i}: {c} clean, {f} flipping, largest gap "
+                       f"{g:.3e}, move {m:.3e}"
+                       for i, (c, f, g, m) in enumerate(route["per_layer"]))
+    if dtype == "float32":
+        limit = f"absolute gaps under {MOE_TIE_GAP}"
+    else:
+        fl = route["floor"]
+        limit = (f"gaps of the k-th and moves under {route['limit']:.3e}, "
+                 f"{SPLIT_FLOOR_X:g}x the bf16 noise floor: the unsplit bf16 "
+                 f"run against itself in f32 moves a clean token's router "
+                 f"probabilities by up to {fl['largest_move']:.3e} and flips "
+                 f"{fl['flips']} clean token-layers at gaps up to "
+                 f"{fl['largest_gap']:.3e}")
+    return (f"{route['calls']} calls, every rank's (E, C) tables bit-equal "
+            f"to rank 0's; clean tokens routed otherwise than in the "
+            f"unsplit run {route['flips']} of {route['tokens']} token-layers "
+            f"({route['share']:.3e}), largest gap {route['largest_gap']:.3e},"
+            f" a clean token's router probabilities moved by up to "
+            f"{route['largest_move']:.3e} ({limit}); by layer: {layers}; "
+            f"flips downstream of a divergence {route['followed']}; tokens "
+            f"that gained or lost a slot beside them {route['moved_slots']}")
+
+
+def split_routing_row(what: str, route: dict, dtype: str) -> str:
+    """The row of a training forward's routing check
+    (`split_forward_routing`)."""
+    return (f"{what} routing of one client's minibatch on the blocks of "
+            f"the params of seed 0: {split_routing_text(route, dtype)}")
+
+
 def split_noise_note(run: dict) -> str:
     """The leaves beyond the bf16 bound and the unsplit step's own other
-    mode's gap on each (`split_train_reference`), or nothing."""
+    mode's gap on each, the smallest margin, and every leaf's pair
+    (`split_noise`), or nothing."""
     if "over" not in run:
         return ""
     return (" (beyond it, (leaf, split, the unsplit step's other mode "
             "against it): " + ", ".join(
                 f"({j}, {g:.3f}, {n:.3f})" for j, g, n in run["over"])
-            + ")")
+            + f"; margin {run['margin']:.3f} (2 x noise / split, the least "
+            "of them); every leaf (split, noise): " + ", ".join(
+                f"({g:.3f}, {n:.3f})" for g, n in zip(run["gaps"],
+                                                      run["noise"])) + ")")
 
 
 def split_train_rows(runs: list, smi: str) -> tuple[dict, list, float]:
@@ -6879,7 +7304,8 @@ def split_train_rows(runs: list, smi: str) -> tuple[dict, list, float]:
     kernel in sequential mode. Returns (each run's launches a rank over
     its rounds, rows, the server step check's max |dw|)."""
     launches, rows, err = {}, [], 0.0
-    for run, (_, _, _, _, sequential) in zip(runs, SPLIT_TRAIN_RUNS):
+    for run, spec in zip(runs, SPLIT_TRAIN_RUNS):
+        sequential = spec[4]
         label = run["label"]
         want = 0 if sequential else 1
         for c in [c for r in run["ranks"] for c in r["counts"]] + run[
@@ -6912,6 +7338,9 @@ def split_train_rows(runs: list, smi: str) -> tuple[dict, list, float]:
             f"ms a round {[round(x, 3) for x in r0['ms']]}, unsplit "
             f"{[round(x, 3) for x in run['unsplit_ms']]}; the run with its "
             f"checks {run['wall_s']:.1f} s (host clock); {smi}"]
+        if run["routing"]:
+            rows.append(split_routing_row(f"train {label}", run["routing"],
+                                          spec[3]))
         if "server_check" in r0:
             worst, elements = r0["server_check"]
             err = max(err, worst)
@@ -6986,6 +7415,9 @@ def split_fl_rows(runs: list, smi: str) -> tuple[dict, list, float]:
             f"{run['wall_s']:.1f} s (host clock), of which the gather onto "
             f"rank 0 {run['gather_s']:.1f} s and the unsplit run with the "
             f"comparison {run['reference_s']:.1f} s; {smi}"]
+        if run["routing"]:
+            rows.append(split_routing_row(f"fl {label}", run["routing"],
+                                          spec[3]))
         if "server_check" in r0:
             worst, elements = r0["server_check"]
             err = max(err, worst)
@@ -7045,7 +7477,8 @@ def split_fleet_rows(runs: list, smi: str) -> tuple[dict, list, float]:
             f"{[[round(x, 6) for x in t] for t in r0['losses']]}, unsplit "
             f"{[[round(x, 6) for x in t] for t in run['unsplit_losses']]}; "
             f"params and {what} vs unsplit {run['leaf_gap']:.3f} of the "
-            f"bound, loss {run['loss_gap']:.3f}; {kernel} launches per rank "
+            f"bound, loss {run['loss_gap']:.3f}{split_noise_note(run)}; "
+            f"{kernel} launches per rank "
             f"{launches[kernel][label]} on the whole state; eager rounds "
             f"per rank {[r['eager_rounds'] for r in run['ranks']]}, replays "
             f"{[r['replays'] for r in run['ranks']]} (unsplit fleet: "
@@ -7061,6 +7494,9 @@ def split_fleet_rows(runs: list, smi: str) -> tuple[dict, list, float]:
             f"{run['unsplit_ms']:.3f}; the fleet with its checks "
             f"{run['wall_s']:.1f} s (host clock), of which the unsplit "
             f"fleet with the comparison {run['reference_s']:.1f} s; {smi}"]
+        if run["routing"]:
+            rows.append(split_routing_row(f"fleet {label}", run["routing"],
+                                          spec[3]))
         if "server_check" in r0:
             worst, elements = r0["server_check"]
             err = max(err, worst)
@@ -7127,7 +7563,8 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
     server_err = max(server_err, fl_err, fleet_err)
     runs = runs["serve"]
     launches = {}
-    for run, (_, _, n_layers, _) in zip(runs, SPLIT_RUNS):
+    for run, spec in zip(runs, SPLIT_RUNS):
+        n_layers = spec[2]
         label = run["label"]
         want = {k: 0 for k in run["ranks"][0]["prefill_counts"]}
         for r in run["ranks"]:
@@ -7144,9 +7581,24 @@ def split_phase(gen, smi: str) -> tuple[dict, list]:
                           f"{r['param_bytes']} B)"
                           for i, r in enumerate(run["ranks"]))
         r0 = run["ranks"][0]
+        route = run["routing"]
+        if route:
+            floor = ""
+            if route["floor"]:
+                (fl, _), (fc, _) = route["floor"]["gaps"]
+                floor = (f"; the noise floor's logits {fl:.3f} and caches "
+                         f"{fc:.3f} of the bound at its own agreed "
+                         f"positions, so allowed {route['allowed'][0]:.3f} "
+                         f"and {route['allowed'][1]:.3f}")
+            rows.append(
+                f"{label} routing: {split_routing_text(route, spec[3])}; "
+                f"logits and caches held at the {route['agreed']} of "
+                f"{route['positions']} positions whose routing agreed in "
+                f"every layer{floor}")
         rows += [
             f"{label} on 1x{SPLIT_RANKS} (cache layouts "
-            f"{sorted(set(v[0] for v in run['layout'].values()))}, head "
+            f"{sorted(set(v[0] for v in run['layout'].values()))}, "
+            f"experts split {run['experts']}, head "
             f"{'vocab-split' if run['head_split'] else 'whole'}): logits "
             f"vs unsplit max |gap| {run['logit_gap'][1]:.3e} "
             f"({run['logit_gap'][0]:.3f} of the bound), cache "
@@ -7408,8 +7860,9 @@ def main() -> int:
         print(row)
     zoo_errs["flash_attention"] = max(zoo_errs["flash_attention"],
                                       dry["err"])
-    # split products: granite-3-8b and qwen1.5-110b served on each rank's
-    # blocks in a world of two ranks on this card
+    # split products: granite-3-8b, olmoe-1b-7b (experts over `model`) and
+    # qwen1.5-110b served, trained, run in federated rounds and fleets on
+    # each rank's blocks in a world of two ranks on this card
     torch.cuda.empty_cache()
     phase_start("split phase")
     split, rows = split_phase(gen, smi)

@@ -237,7 +237,7 @@ def make_round_body(model, algo, k_steps: int, weight_decay: float, *,
     With `placement` (a `sharding.params.StepPlacement`: params placed
     over mesh axes) `params` is this rank's blocks. Where the placement
     holds a split (`placement.split`, `model` of extent > 1 and a config
-    of the dense GQA stack) the local update runs on those blocks
+    of the GQA stack, dense or MoE) the local update runs on those blocks
     (`model.loss_fn(split=)`, split products) and the updates move from
     the params' blocks straight into the server step's: the update
     array's column blocks in its dtype (dense), or the bank's rows' column

@@ -87,7 +87,7 @@ is placed over the mesh's axes (`sharding.params`):
     so the banks stay equal across ranks. A host bank raises, as the
     reference's does; any other bank raises naming itself.
 Every rank stages the same batches and trains only the clients it owns.
-Where `model` splits and the config is the dense GQA stack
+Where `model` splits and the config is the GQA stack (dense or MoE)
 (`params.StepPlacement.split`, `sharding.tensor_parallel`) a round's
 local update runs on the rank's blocks of the params (split products)
 and its updates move from those blocks straight into the server step's

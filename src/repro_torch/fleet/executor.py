@@ -55,7 +55,7 @@ param dims are placed by `fleet_trial_specs` (the zoo's tensor
 parallelism over `model`, `sharding.params.FleetPlacement`): between
 rounds each rank holds its column blocks, and the algorithm state keeps
 its trial-axis placement (`fleet_axis_specs`: whole beyond the trial
-axis). Where `model` splits and the config is the dense GQA stack
+axis). Where `model` splits and the config is the GQA stack (dense or MoE)
 (`FleetPlacement.split`, `sharding.tensor_parallel`) every trial's local
 update runs on the rank's blocks under vmap over trials (split products:
 each collective issued once for all trials and clients) and its updates

@@ -19,7 +19,7 @@ reference's entry point, `get_config` and the overrides before it.
 `run_placed` runs a plan's step on each rank's blocks of its arguments
 (`sharding.params`) and returns the rank's blocks of the outputs, as the
 reference's jitted step with its in and out shardings does; the prefill,
-decode and train plans of the dense GQA stack on a DeviceMesh whose
+decode and train plans of the GQA stack (dense or MoE) on a DeviceMesh whose
 `model` axis splits compute on the blocks (`sharding.tensor_parallel`).
 """
 from __future__ import annotations
@@ -64,12 +64,12 @@ def run_placed(p: DryrunPlan, *args) -> Any:
     """`p.fn` on this rank's blocks of its arguments under
     `p.in_shardings`, returning this rank's blocks of the outputs under
     `p.out_shardings`. A prefill, decode or train plan whose step is
-    split (the dense GQA stack on a DeviceMesh whose `model` axis splits:
-    the step's `split`, `sharding.tensor_parallel`) passes the blocks
-    straight to it, and it computes on them. Every other plan gathers each
-    argument whole, runs the whole step (the sequential step at data
-    extent > 1 holds its accumulator in blocks under its own update spec)
-    and cuts the outputs. On a mesh of extent 1 every block is the
+    split (the GQA stack, dense or MoE, on a DeviceMesh whose `model`
+    axis splits: the step's `split`, `sharding.tensor_parallel`) passes
+    the blocks straight to it, and it computes on them. Every other plan
+    gathers each argument whole, runs the whole step (the sequential step
+    at data extent > 1 holds its accumulator in blocks under its own
+    update spec) and cuts the outputs. On a mesh of extent 1 every block is the
     whole tensor and this is `p.fn(*args)`."""
     if getattr(p.fn, "split", None) is not None:
         return p.fn(*args)
@@ -233,8 +233,8 @@ def plan_config(cfg: ArchConfig, shape_name: str, mesh, *,
         if seq and inner_update_constraint:
             update_spec = named(mesh, rules.param_specs(
                 params, cfg.replace(fsdp=True), mesh))
-        # split products: the train step of the dense GQA stack runs on
-        # each rank's blocks where the mesh's model axis splits (a
+        # split products: the train step of the GQA stack (dense or MoE)
+        # runs on each rank's blocks where the mesh's model axis splits (a
         # DeviceMesh) and `unsupported` allows it
         train_mesh = (mesh if tensor_parallel.model_axis(mesh) is not None
                       and tensor_parallel.unsupported(
@@ -256,9 +256,9 @@ def plan_config(cfg: ArchConfig, shape_name: str, mesh, *,
     B, S = shape.global_batch, shape.seq_len
     batch_sharded = B % n_data == 0 and B >= n_data
     bax = dax if batch_sharded else None
-    # split products: the serving steps of the dense GQA stack run on each
-    # rank's blocks where the mesh's model axis splits (a DeviceMesh); the
-    # dry run's abstract meshes trace the whole step
+    # split products: the serving steps of the GQA stack (dense or MoE)
+    # run on each rank's blocks where the mesh's model axis splits (a
+    # DeviceMesh); the dry run's abstract meshes trace the whole step
     serve_mesh = (mesh if tensor_parallel.model_axis(mesh) is not None
                   and tensor_parallel.unsupported(cfg, mesh, B) is None
                   else None)

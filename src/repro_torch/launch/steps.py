@@ -23,7 +23,7 @@ serve steps:
   * encoder score (hubert-xlarge): (params, batch) -> per-batch CE
 Built with a DeviceMesh whose `model` axis has extent > 1, decode,
 prefill and the train step run on each rank's blocks
-(`sharding.tensor_parallel`: split products, the dense GQA stack).
+(`sharding.tensor_parallel`: split products, the GQA stack (dense or MoE)).
 
 `batch` holds the model's modality (`models.model`): tokens; tokens and
 patches (vision_text); frames and labels (audio). Both train modes run

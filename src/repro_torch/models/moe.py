@@ -25,6 +25,21 @@ deterministic on both devices and runs under `torch.func.vmap` and `grad`
   expert id in the experts' output dtype, the order and rounding of the
   reference's scatter-add, where an atomic `index_add_` would not be
   reproducible.
+
+Experts over `model` (the reference's `(MODEL, None, None)` expert leaves;
+`moe_apply(split=)` with a segment's `sharding.tensor_parallel.GQASplit`):
+the router is whole and the tokens are replicated over the axis, so every
+rank routes every token and builds the same (E, C) table. A rank computes
+only its experts [lo, hi): rows lo..hi-1 of the table, gathered from the
+whole tokens (no all-to-all), through its w1/w3/w2 blocks. Each token's
+kept slots on those experts are combined as above, the others masked, and
+the partial (T, d) is summed over `model` in f32. The tokens and the
+gates enter the partitioned compute through `to_model`, so their
+cotangents (and, through the gates, the router's) are summed over the
+axis in the backward pass; the load-balance loss is replicated compute.
+Where M does not divide E the experts are whole and every rank computes
+them all. A shared SwiGLU's 2-D leaves take the dense MLP's rule
+(`GQASplit.mlp_in`, `mlp_out`).
 """
 from __future__ import annotations
 
@@ -126,10 +141,12 @@ def route(probs: torch.Tensor, top_k: int, capacity_factor: float
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, aux_coef: float = 0.01
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25, aux_coef: float = 0.01,
+              split=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (y (B,S,d), aux scalar f32), the reference's
-    `moe_apply`."""
+    `moe_apply`. Under `split` (a `tensor_parallel.GQASplit` of an MoE
+    segment) `params` are this rank's blocks, x is whole, and y is summed
+    over `model` (module docstring)."""
     B, S, d = x.shape
     E = params["router"].shape[-1]
     T = B * S
@@ -140,11 +157,14 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     top1 = (r.expert_ids[:, :1] == torch.arange(E, device=x.device)).float()
     aux = aux_coef * E * (r.probs.mean(0) * top1.mean(0)).sum()
 
-    # the experts on their (E, C) slots; slot T of xpad is a zero pad row
-    xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    xe = xpad[r.table]                                             # (E,C,d)
+    # the experts on their (E, C) slots (the rank's rows of them under a
+    # split); slot T of xpad is a zero pad row
+    lo, hi = (0, E) if split is None else split.expert_block(E)
+    xe_in = xt if split is None else split.experts_in(xt)
+    xpad = torch.cat([xe_in, xe_in.new_zeros((1, d))], dim=0)
+    xe = xpad[r.table[lo:hi]]                                      # (e,C,d)
     h = F.silu(torch.bmm(xe, params["w1"])) * torch.bmm(xe, params["w3"])
-    ye = torch.bmm(h, params["w2"])                                # (E,C,d)
+    ye = torch.bmm(h, params["w2"])                                # (e,C,d)
 
     # combine: each token's kept slots, in ascending expert id, summed in
     # ye's dtype as the reference's scatter-add rounds
@@ -152,6 +172,12 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     rows = torch.gather(r.row, 1, perm)
     kept = torch.gather(r.kept(), 1, perm)
     gates = r.table_gates.reshape(-1)[rows].to(ye.dtype)
+    if split is not None and split.experts:
+        # the rank's slots: rows lo·C .. hi·C - 1, read at local rows
+        C = r.table.shape[1]
+        kept = kept & (rows >= lo * C) & (rows < hi * C)
+        rows = (rows - lo * C).clamp(0, (hi - lo) * C - 1)
+        gates = split.experts_in(gates)
     yflat = ye.reshape(-1, d)
     y = None
     for j in range(top_k):
@@ -160,6 +186,18 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
                                                          device=c.device))
         y = c if y is None else y + c
 
-    if "shared" in params:
-        y = y + mlp_apply(params["shared"], xt)
+    if split is None:
+        if "shared" in params:
+            y = y + mlp_apply(params["shared"], xt)
+        return y.reshape(B, S, d), aux
+    if "shared" not in params:
+        return split.experts_out(y).reshape(B, S, d), aux
+    # the shared SwiGLU on its column and row blocks (the dense MLP's
+    # rule); one sum where both outputs are partial
+    xs = xe_in if split.mlp == split.experts else split.mlp_in(xt)
+    s = mlp_apply(params["shared"], xs)
+    if split.mlp and split.experts:
+        y = split.experts_out(y + s)
+    else:
+        y = split.experts_out(y) + split.mlp_out(s)
     return y.reshape(B, S, d), aux

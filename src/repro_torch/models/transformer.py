@@ -271,7 +271,8 @@ def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig,
          split=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The layer's FFN -> (x, the MoE load-balance loss or None); under
     `split` (a `tensor_parallel.GQASplit`) the MLP runs on the rank's
-    w1/w3 column and w2 row blocks, its partial output summed."""
+    w1/w3 column and w2 row blocks, its partial output summed, and an MoE
+    block on the rank's experts (`moe.moe_apply(split=)`)."""
     if spec.kind == "shared_attn" or spec.ffn == "mlp":
         h = rmsnorm(lp["ln2"], x)
         if split is None:
@@ -282,7 +283,8 @@ def _ffn(lp: dict, x: torch.Tensor, spec: SegmentSpec, cfg: ArchConfig,
         y, aux = moe_lib.moe_apply(lp["moe"], rmsnorm(lp["ln2"], x),
                                    top_k=cfg.top_k,
                                    capacity_factor=cfg.moe_capacity_factor,
-                                   aux_coef=cfg.router_aux_coef)
+                                   aux_coef=cfg.router_aux_coef,
+                                   split=split)
         return _radd(x, y), aux
     return x, None
 

@@ -27,7 +27,7 @@ split steps of `sharding.tensor_parallel`, a `StepPlacement` that holds a
 split, a `DenseBank(mesh=)`'s rows) passes `split=True` on a DeviceMesh of
 CUDA ranks (gloo carries the CUDA tensors of a world of ranks on one
 card). The message names the entries that will take the rest: ROADMAP
-entries 12c–12f (the architectures the split does not take,
+entries 12d–12f (the architectures the split does not take,
 `tensor_parallel.unsupported`) at data extent 1, entry 12g beyond (the
 data axis on the card, fsdp params, the sequential step at data extent
 > 1).
@@ -77,13 +77,14 @@ def _check(device: torch.device, mesh, what: str,
         later = ("the data axis on the card, fsdp params and the sequential "
                  "train step at data extent > 1 are ROADMAP entry 12g"
                  if data_axis_size(mesh) > 1 else
-                 "MoE, MLA, Mamba2, padded heads and the encoder under split "
-                 "products are ROADMAP entries 12c-12f")
+                 "MLA, Mamba2, padded heads and the encoder under split "
+                 "products are ROADMAP entries 12d-12f")
         raise NotImplementedError(
             f"{what} split over mesh axes of extent > 1 on CUDA tensors: "
             "only what computes on blocks takes them on the card (the "
             "serving steps, the train step, the federated round and the "
-            "fleets of the dense GQA stack, sharding.tensor_parallel, on a "
+            "fleets of the GQA stack with a dense MLP or MoE experts, "
+            "sharding.tensor_parallel, on a "
             f"DeviceMesh of CUDA ranks); {later}, and run on CPU ranks "
             "(gloo)")
     if not hasattr(mesh, "get_group"):

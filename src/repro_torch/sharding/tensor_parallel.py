@@ -8,14 +8,16 @@ reference's compiled SPMD program computes on the blocks its specs give
 (`sharding.rules.param_specs`, `cache_specs`, `client_state_specs`,
 `fleet_trial_specs`), with only the collectives the split needs.
 
-Scope: the dense GQA stack (`attn` and `local_attn` layers with a dense
-MLP, the embedding and the head: granite-3-8b, qwen1.5-110b, gemma3-4b and
-llava-next-34b's language stack). Everything else raises
-NotImplementedError naming its ROADMAP entry (`unsupported`): MoE experts
-(12c), MLA (12d), Mamba2 and the shared attention block (12e), padded
-heads and the encoder (12f), and params, caches or the sequential step
-split over the data axis, or the data axis on the card (12g: a client or
-trial axis over data ranks).
+Scope: the GQA stack (`attn` and `local_attn` layers, the embedding and
+the head) with a dense MLP (granite-3-8b, qwen1.5-110b, gemma3-4b and
+llava-next-34b's language stack) or an MoE block whose experts split over
+`model` (olmoe-1b-7b, moonshot-v1-16b-a3b; `models.moe.moe_apply(split=)`).
+Everything else raises NotImplementedError naming its ROADMAP entry
+(`unsupported`): MLA (12d; deepseek-v2-lite-16b, whose MoE layers take
+this split once its attention does), Mamba2 and the shared attention
+block (12e), padded heads and the encoder (12f), and params, caches or the
+sequential step split over the data axis, or the data axis on the card
+(12g: a client or trial axis over data ranks).
 
 Layout, read from the spec `rules.sanitize` left on each leaf (never from
 the config), per GQA segment (`GQASplit`):
@@ -34,7 +36,11 @@ the config), per GQA segment (`GQASplit`):
     rank ("whole": k and v gathered, every rank writes all of it). The
     training forward has no cache: its k and v are the rank's kv heads
     where M divides KV ("heads"), else gathered whole ("whole").
-  * `w1`/`w3` column blocks and `w2` row blocks (summed), or whole.
+  * `w1`/`w3` column blocks and `w2` row blocks (summed), or whole; an
+    MoE segment's shared SwiGLU alike.
+  * an MoE segment's experts: E/M of them a rank (`w1`/`w3`/`w2` blocks
+    of their E dim), every token routed on every rank by the whole router
+    and the partial outputs summed; or whole where M does not divide E.
   * the embedding's d_model block (the looked-up rows gathered along d)
     and `lm_head`'s vocab block (each rank keeps its block of the logits,
     the plan's `(batch, MODEL)` logits spec; training takes a
@@ -265,9 +271,6 @@ def unsupported(cfg, mesh, batch: int, *, train: bool = False,
         return (f"{cfg.name}: the encoder's frontend_proj under split "
                 "products (ROADMAP entry 12f)")
     for seg in build_segments(cfg):
-        if seg.ffn == "moe":
-            return (f"{cfg.name}: MoE experts over `model` (ROADMAP entry "
-                    "12c)")
         if seg.kind == "mla":
             return f"{cfg.name}: MLA under split products (ROADMAP entry 12d)"
         if seg.kind not in ("attn", "local_attn"):
@@ -311,8 +314,9 @@ class GQASplit:
     kv_cols: bool     # wk/wv/bk/bv columns split
     cache: str        # "heads" | "seq" | "whole" (training: "heads" | "whole")
     slots: int        # the whole cache's slots (training: 0)
-    mlp: bool         # w1/w3 columns and w2 rows split
+    mlp: bool         # w1/w3 columns and w2 rows split (MoE: the shared's)
     n_heads: int      # the whole model's query heads
+    experts: bool = False   # an MoE segment's experts split over their E
 
     @property
     def kv_gathered(self) -> bool:
@@ -339,6 +343,23 @@ class GQASplit:
     def out(self, partial: torch.Tensor) -> torch.Tensor:
         """The attention's output from this rank's `wo` product."""
         return from_model(partial, self.axis) if self.heads else partial
+
+    def expert_block(self, n_experts: int) -> tuple[int, int]:
+        """The experts [lo, hi) of the whole model's `n_experts` that this
+        rank computes."""
+        if not self.experts:
+            return 0, n_experts
+        n = n_experts // self.axis.size
+        return self.axis.rank * n, (self.axis.rank + 1) * n
+
+    def experts_in(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated value (the tokens, the gates) into this rank's
+        experts."""
+        return to_model(t, self.axis) if self.experts else t
+
+    def experts_out(self, partial: torch.Tensor) -> torch.Tensor:
+        """The MoE block's output from this rank's experts."""
+        return from_model(partial, self.axis) if self.experts else partial
 
     def mlp_in(self, h: torch.Tensor) -> torch.Tensor:
         """The MLP's (replicated) input to this rank's w1/w3 blocks."""
@@ -392,6 +413,18 @@ class ServeSplit:
             tree, specs)
 
 
+def _ffn_layout(lp, mesh) -> dict:
+    """A segment's FFN layout from its param specs `lp`: the dense MLP's
+    (or an MoE segment's shared SwiGLU's) split, and the experts' split
+    over their E dim."""
+    if "moe" not in lp:
+        return {"mlp": _splits(lp["mlp"]["w1"][-1], mesh)}
+    moe = lp["moe"]
+    return {"mlp": "shared" in moe and _splits(moe["shared"]["w1"][-1],
+                                               mesh),
+            "experts": _splits(moe["w1"][-3], mesh)}
+
+
 def serve_split(cfg, mesh, batch: int | None, cache_len: int | None
                 ) -> ServeSplit | None:
     """The split of `cfg`'s prefill and decode steps at `batch` sequences
@@ -428,7 +461,7 @@ def serve_split(cfg, mesh, batch: int | None, cache_len: int | None
             axis, heads=_splits(lp["attn"]["wq"][-1], mesh),
             kv_cols=_splits(lp["attn"]["wk"][-1], mesh), cache=cache_kind,
             slots=cache[str(seg.index)]["k"].shape[-3],
-            mlp=_splits(lp["mlp"]["w1"][-1], mesh), n_heads=cfg.n_heads)
+            n_heads=cfg.n_heads, **_ffn_layout(lp, mesh))
     return out
 
 
@@ -568,5 +601,5 @@ def train_split(cfg, mesh, n_clients: int, *, specs=None
         out.segments[seg.index] = GQASplit(
             axis, heads=_splits(lp["attn"]["wq"][-1], mesh), kv_cols=kv_cols,
             cache="heads" if local else "whole", slots=0,
-            mlp=_splits(lp["mlp"]["w1"][-1], mesh), n_heads=cfg.n_heads)
+            n_heads=cfg.n_heads, **_ffn_layout(lp, mesh))
     return out

@@ -25,7 +25,14 @@ scan chunks of 2:
   (g) gemma3-4b's smoke config on 1x2 (a local and a global layer, the
       vocab split across the head);
   (h) FedAR, a dense baseline with `clients=` whose per-client memory is
-      placed as the update array, on 1x2.
+      placed as the update array, on 1x2;
+  (i) olmoe-1b-7b's experts over `model` (two of E = 4 a rank) with
+      MIFA(array) and with BankedMIFA(DenseBank(mesh=, cfg=)) on 1x2: the
+      expert leaves' updates move from the params' E blocks into G's
+      layout (whole or split over the layer axis, as the reference
+      places them), and each rank's training forward routes as the
+      unsplit forward does ((E, C) tables and drops bit-equal, the same
+      on every rank).
 
 Each rank holds its blocks of the params, and the whole state (G, the bank
 rows and G_sum, FedAR's memory), against the port's unsplit run at the f32
@@ -175,6 +182,13 @@ def test_each_rank_holds_the_blocks_of_the_unsplit_run(worlds, case):
             continue
         assert r["axes"] == ["model"] and r["g_differs"], r
         assert all(v > 0 for v in r["moved"].values()), r
+        if case.startswith("i_olmoe"):
+            route = r["routing"]
+            assert route["tables"] and route["same"], r
+            assert route["calls"] == fl_cfg("olmoe_1b_7b").n_layers, r
+            assert set(map(tuple, r["experts"].values())) == {(2, True)}, r
+        else:
+            assert "routing" not in r, r
     if case == "f_resumed_on_1x2":
         assert all(r["exact"] for r in ranks), ranks
 
@@ -286,7 +300,7 @@ def test_eager_rule():
 
 
 @pytest.mark.parametrize("arch,change,mesh,entry", [
-    ("olmoe_1b_7b", {}, (1, 2), "12c"),
+    ("olmoe_1b_7b", {"fsdp": True}, (2, 2), "12g"),
     ("deepseek_v2_lite_16b", {}, (1, 2), "12d"),
     ("zamba2_7b", {}, (1, 2), "12e"),
     ("hubert_xlarge", {}, (1, 2), "12f"),
@@ -318,7 +332,7 @@ def test_fleets_on_cuda_blocks_raise_naming_12i():
     build the fleet's split (`FleetPlacement`: one trial's blocks, the
     whole state), whose column blocks are cut on the card; a bare `take`
     of the same blocks, outside a split, names the entries that remain
-    (12c-12f)."""
+    (12d-12f)."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
     with FakeTensorMode():
@@ -336,5 +350,5 @@ def test_fleets_on_cuda_blocks_raise_naming_12i():
             tuple(wq.shape), cols["segments"]["0"]["attn"]["wq"], mesh,
             wq.device, split=placement.split is not None)[-1] \
             == wq.shape[-1] // 2
-        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
+        with pytest.raises(NotImplementedError, match="entries 12d-12f"):
             take_tree(stacked, cols, mesh, "the trial params")

@@ -27,7 +27,10 @@ tokens), 3 rounds in scan chunks of 2:
       vocab split across the head);
   (g) granite with padded heads on 1x2, which the split leaves for later
       (ROADMAP entry 12f): its rounds gather the blocks whole, bit-equal
-      to the unsplit fleet.
+      to the unsplit fleet;
+  (h) olmoe-1b-7b's experts over `model` (two of E = 4 a rank) on 1x2,
+      each rank's training forward routing as the unsplit forward does
+      ((E, C) tables and drops bit-equal, the same on every rank).
 
 Every rank returns the whole fleet (all K trials), and holds the whole
 state (G, the bank's rows and G_sum): both are held to the port's unsplit
@@ -189,6 +192,11 @@ def test_each_rank_returns_the_unsplit_fleet(worlds, case):
             assert r["exact"] is True, r
         if not gathered:
             assert all(v > 0 for v in r["moved"].values()), r
+        if case.startswith("h_olmoe"):
+            route = r["routing"]
+            assert route["tables"] and route["same"], r
+            assert route["calls"] == fl_cfg("olmoe_1b_7b").n_layers, r
+            assert set(map(tuple, r["experts"].values())) == {(2, True)}, r
     assert ranks[0]["head_split"] == (
         None if gathered else case != "a_mifa_vocab511_1x2")
 
@@ -322,7 +330,7 @@ def test_fleet_eager_rule_and_layouts():
 
 
 @pytest.mark.parametrize("arch,change,mesh,entry", [
-    ("olmoe_1b_7b", {}, (1, 2), "12c"),
+    ("olmoe_1b_7b", {}, (2, 2), "12g"),
     ("deepseek_v2_lite_16b", {}, (1, 2), "12d"),
     ("zamba2_7b", {}, (1, 2), "12e"),
     ("granite_3_8b", {"pad_q_heads": 16, "pad_kv_heads": 16}, (1, 2),

@@ -29,13 +29,20 @@ of 2 x 24 tokens, G drawn from a seeded normal, and 2 rounds:
       again in the backward pass;
   (h) granite with one kv head of width 6 on 1x4: k's and v's columns
       (6) do not split over 4 ranks, so every rank computes them whole
-      while its 2 query heads read them.
+      while its 2 query heads read them;
+  (i) olmoe-1b-7b's experts over `model` (two of E = 4 a rank) on 1x2
+      with remat on: each layer's recompute issues the MoE collectives
+      again;
+  (j) olmoe on 2x2.
 
 Each rank compares its blocks of the params, G and the loss after each
 round with its blocks of the port's unsplit step, and rank 0's split run
 gathered whole is held to the JAX package's step, both at the f32 training
 bound (rtol 2e-4, atol 2e-5 of each leaf's largest magnitude); every leaf
-the model axis leaves whole, and the loss, bit-equal across ranks.
+the model axis leaves whole, and the loss, bit-equal across ranks. In the
+MoE cases each rank's training forward of one client's minibatch routes
+as the unsplit forward does: its (E, C) tables and drops bit-equal, the
+same on every rank, its expert blocks E/M experts.
 In-process, with no process group: the vocab-split cross-entropy on an
 axis of one rank is the unsplit losses bit for bit; the collectives pass
 `vmap(grad)` and remat; a mesh of model extent 1 gives today's step; and
@@ -90,7 +97,9 @@ LAYOUTS = {"a_granite_1x2": (["heads"], True),
            "e_qwen_sequential_1x2": (["heads"], True),
            "f_llava_sequential_1x2": (["heads"], True),
            "g_granite_remat_1x2": (["heads"], True),
-           "h_granite_mqa_1x4": (["whole"], True)}
+           "h_granite_mqa_1x4": (["whole"], True),
+           "i_olmoe_remat_1x2": (["heads"], True),
+           "j_olmoe_2x2": (["heads"], True)}
 
 
 def _jax_params(case: str):
@@ -168,9 +177,18 @@ def test_each_rank_holds_the_blocks_of_the_unsplit_step(worlds, case):
         assert max(r["err"]) <= 1.0, r
         assert all(r["replicated"]), r
         assert [v[0] for _, v in sorted(r["layouts"].items())] == kv, r
-        # wq, w1 and w3 split everywhere; k's and v's columns but in (h)
-        assert all(v[1] and v[3] and v[2] == (not case.startswith("h_"))
+        # wq, and w1 and w3 or the experts, split everywhere; k's and v's
+        # columns but in (h)
+        assert all(v[1] and (v[3] or v[4])
+                   and v[2] == (not case.startswith("h_"))
                    for v in r["layouts"].values()), r
+        moe = case.startswith(("i_", "j_"))
+        assert all(v[4] == moe for v in r["layouts"].values()), r
+        if moe:
+            route = r["routing"]
+            assert route["tables"] and route["same"], r
+            assert route["calls"] == train_cfg(case).n_layers, r
+            assert set(map(tuple, r["experts"].values())) == {(2, True)}, r
         assert r["head"] == head and r["embed"], r
         assert r["sequential"] == case.startswith(("e_", "f_")), r
         # products over model: sums and gathers in the forward and backward
@@ -336,7 +354,7 @@ def test_paths_left_for_12h_and_12g_raise_on_cuda():
     `StepPlacement` at model extent > 1, which entry 12h took, holds the
     round's split (its G layout the carry's), and a bare take of the scan
     carry's client state, outside a split, raises naming the entries that
-    remain (12c-12f; 12i, the fleets, computes on blocks since it was
+    remain (12d-12f; 12i, the fleets, computes on blocks since it was
     taken); the sequential train step at data extent > 1
     raises naming 12g, both built with the mesh and planned (the plan
     keeps the gathering step, whose update constraint raises on CUDA
@@ -353,7 +371,7 @@ def test_paths_left_for_12h_and_12g_raise_on_cuda():
                                cuda)}
         specs = carry_state_specs(state, cuda, cfg, mesh, 4)
         assert specs["G"] == placement.split.state_specs
-        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
+        with pytest.raises(NotImplementedError, match="entries 12d-12f"):
             take_tree(state, specs, mesh, "the client state")
         qwen = smoke("qwen1_5_110b", fl_clients=2)
         assert qwen.sequential_clients
@@ -374,7 +392,7 @@ def test_paths_left_for_12h_and_12g_raise_on_cuda():
 
 
 @pytest.mark.parametrize("arch,change,mesh,n,entry", [
-    ("olmoe_1b_7b", {}, (1, 2), 4, "12c"),
+    ("olmoe_1b_7b", {"fsdp": True}, (2, 2), 4, "12g"),
     ("deepseek_v2_lite_16b", {}, (1, 2), 4, "12d"),
     ("zamba2_7b", {}, (1, 2), 4, "12e"),
     ("hubert_xlarge", {}, (1, 2), 4, "12f"),

@@ -18,15 +18,28 @@ step's logits and the final cache with its blocks of the unsplit run:
       v split inside a head (the flash-decode path);
   (d) gemma3-4b on 1x4: its ring of 16 slots split 4 a rank, its global
       layer's 30 slots whole on every rank;
-  (e) granite on 2x2: data and model together.
+  (e) granite on 2x2: data and model together;
+  (f) olmoe-1b-7b's experts over `model` on 1x2 (E = 4: two a rank) and
+      on 1x4 (one a rank) at a capacity factor of 1.0, which drops
+      assignments in prefill and decode;
+  (g) olmoe with a shared SwiGLU (its columns split as a dense MLP's);
+  (h) olmoe with 6 experts on 1x4: M does not divide E, so every rank
+      computes every expert;
+  (i) moonshot-v1-16b-a3b on 1x2.
+
+Every MoE case routes every token on every rank: each routing call's
+(E, C) table and drops are bit-equal to the unsplit run's and the same on
+every rank, and each rank's expert blocks hold E/M experts (E where M
+does not divide E).
 
 Tolerance: rtol 2e-4 / atol 2e-5, `tests/test_torch_models.py`'s f32
 bound, against the unsplit run and against the JAX package's unmeshed
 `prefill` and `decode_step` (run here, teacher-forced with the world's
 greedy tokens); greedy tokens equal; every leaf and output the model axis
 leaves whole bit-equal over each model group. The partial decode and its
-combine are checked in-process against `decode_attend`, and the paths the
-split does not take yet raise, naming their ROADMAP entry.
+combine are checked in-process against `decode_attend`, the MoE block
+form over simulated ranks against `moe_apply`, and the paths the split
+does not take yet raise, naming their ROADMAP entry.
 """
 import json
 import os
@@ -41,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.func import grad, vmap
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build_model as jax_build
@@ -51,7 +65,7 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
 from repro_torch.models import attention, build_model
 from repro_torch.sharding import rules, tensor_parallel
 from repro_torch.sharding.params import StepPlacement, block_shape, take
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from torch_world import (SB, SERVE_CASES, SS, ST, flat_tree,
                          serve_params_path, serve_tokens, smoke)
 
@@ -66,7 +80,17 @@ LAYOUTS = {"a_granite_1x2": (["heads"], True),
            "b_qwen_1x2": (["heads"], True),
            "c_granite_1x4": (["seq"], True),
            "d_gemma_1x4": (["seq", "whole"], True),
-           "e_granite_2x2": (["heads"], True)}
+           "e_granite_2x2": (["heads"], True),
+           "f_olmoe_1x2": (["heads"], True),
+           "f_olmoe_drops_1x4": (["heads"], True),
+           "g_olmoe_shared_1x2": (["heads"], True),
+           "h_olmoe_whole_experts_1x4": (["heads"], True),
+           "i_moonshot_1x2": (["heads"], True)}
+# MoE case -> (experts in a rank's block, split over `model`)
+EXPERTS = {"f_olmoe_1x2": (2, True), "f_olmoe_drops_1x4": (1, True),
+           "g_olmoe_shared_1x2": (2, True),
+           "h_olmoe_whole_experts_1x4": (6, False),
+           "i_moonshot_1x2": (2, True)}
 
 
 def _jax_params(case: str):
@@ -127,6 +151,32 @@ def test_each_rank_holds_the_blocks_of_the_unsplit_run(worlds, case):
         assert [v[0] for _, v in sorted(r["layouts"].items())] == caches, r
         assert r["head"] == head and r["embed"], r
         assert r["moved"]["all_reduce"] > 0 and r["moved"]["all_gather"] > 0
+        if case not in EXPERTS:
+            assert r["experts"] == {} and r["routing"]["calls"] == 0, r
+
+
+@pytest.mark.parametrize("case", list(EXPERTS))
+def test_each_rank_routes_every_token_and_computes_its_experts(worlds,
+                                                               case):
+    """An MoE case: every rank's routing calls (one a layer in the
+    prefill and in each decode step) give the unsplit run's (E, C) tables
+    and drops bit for bit, the same on every rank; its expert blocks hold
+    E/M experts (all E where M does not divide E), and a shared SwiGLU's
+    columns split."""
+    info, _ = worlds
+    arch, change, _, _ = SERVE_CASES[case]
+    n_moe = smoke(arch, **change).n_layers
+    for r in info[case]:
+        route = r["routing"]
+        assert route["tables"] and route["same"], r
+        assert route["calls"] == n_moe * (1 + ST), r
+        assert set(map(tuple, r["experts"].values())) == {EXPERTS[case]}, r
+        assert [v[3] for v in r["layouts"].values()] == [
+            "n_shared_experts" in change], r
+        if case == "f_olmoe_drops_1x4":
+            assert sum(route["drops"]) > 0, r
+        else:
+            assert sum(route["drops"]) == 0, r
 
 
 def test_a_split_plan_runs_its_blocks_through_run_placed(worlds):
@@ -250,6 +300,125 @@ def test_each_rank_s_query_heads_read_their_kv_heads(heads, kv, m):
                                    atol=ATOL)
 
 
+class _RankAxis(_Coordinate):
+    """Rank `rank` of a model axis of `size` ranks whose sum leaves the
+    rank's partial as it is (the test sums the ranks' partials itself)."""
+
+    def sum(self, x):
+        return x.to(torch.float32, copy=True).to(x.dtype)
+
+
+def _moe_block(p: dict, split) -> dict:
+    """Rank `split.axis.rank`'s blocks of the MoE params `p`: its experts
+    where they split, the shared SwiGLU's w1/w3 columns and w2 rows where
+    it does."""
+    lo, hi = split.expert_block(p["router"].shape[-1])
+    out = {"router": p["router"], **{k: p[k][lo:hi] for k in
+                                     ("w1", "w3", "w2")}}
+    if "shared" in p:
+        sh, m, r = p["shared"], split.axis.size, split.axis.rank
+        n = sh["w1"].shape[1] // m if split.mlp else sh["w1"].shape[1]
+        a = r * n if split.mlp else 0
+        out["shared"] = {"w1": sh["w1"][:, a:a + n],
+                         "w3": sh["w3"][:, a:a + n],
+                         "w2": sh["w2"][a:a + n]}
+    return out
+
+
+@pytest.mark.parametrize("m,n_experts,n_shared", [(2, 4, 0), (4, 4, 0),
+                                                  (2, 8, 1), (4, 6, 0)])
+def test_moe_block_form_sums_to_moe_apply(m, n_experts, n_shared):
+    """`moe_apply(split=)` on M simulated ranks' blocks (experts E/M a
+    rank, the shared SwiGLU's columns; or, where M does not divide E, every
+    expert on every rank): the ranks' partial outputs summed are
+    `moe_apply`'s output, and their gradients of (y·r).sum() + aux (the
+    load-balance loss counted once) summed over the ranks, with each
+    rank's expert blocks in place, are its gradients of the router, the
+    tokens and every expert, under vmap over a client axis, at a capacity
+    that drops assignments; each rank routes every token as the whole
+    call does."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(m + n_experts)
+    N, B, S, d, f, k = 3, 2, 8, 16, 12, 2
+    kw = dict(top_k=k, capacity_factor=1.0, aux_coef=0.01)
+    p = {"router": 0.3 * rng.standard_normal((d, n_experts)),
+         "w1": rng.standard_normal((n_experts, d, f)) / 4,
+         "w3": rng.standard_normal((n_experts, d, f)) / 4,
+         "w2": rng.standard_normal((n_experts, f, d)) / 3}
+    if n_shared:
+        p["shared"] = {"w1": rng.standard_normal((d, f * n_shared)) / 4,
+                       "w3": rng.standard_normal((d, f * n_shared)) / 4,
+                       "w2": rng.standard_normal((f * n_shared, d)) / 5}
+    p = tree_map(lambda a: torch.from_numpy(a).float(), p)
+    xs = torch.from_numpy(rng.standard_normal((N, B, S, d))).float()
+    cots = torch.from_numpy(rng.standard_normal((N, B, S, d))).float()
+    split_experts = n_experts % m == 0
+
+    def loss(params, x, cot, split=None, with_aux=True):
+        y, aux = moe.moe_apply(params, x, split=split, **kw)
+        return (y * cot).sum() + (aux if with_aux else 0.0)
+
+    def table(x, split=None):
+        tables = []
+        route = moe.route
+
+        def recording(*a):
+            r = route(*a)
+            tables.append(r.table)
+            return r
+        moe.route = recording
+        try:
+            moe.moe_apply(p if split is None else _moe_block(p, split),
+                          x, split=split, **kw)
+        finally:
+            moe.route = route
+        return tables[0]
+
+    want_y = vmap(lambda x: moe.moe_apply(p, x, **kw)[0])(xs)
+    want_g = vmap(grad(loss, argnums=(0, 1)), in_dims=(None, 0, 0))(
+        p, xs, cots)
+    want_table = table(xs[0])
+    assert (want_table == S * B).any(), "no slot left empty: no drop"
+    ys, grads = [], []
+    for r in range(m):
+        split = tensor_parallel.GQASplit(
+            _RankAxis(m, r), heads=False, kv_cols=False, cache="whole",
+            slots=0, mlp=bool(n_shared), n_heads=1, experts=split_experts)
+        blk = _moe_block(p, split)
+        assert blk["w1"].shape[0] == (n_experts // m if split_experts
+                                      else n_experts)
+        assert torch.equal(table(xs[0], split), want_table)
+        ys.append(vmap(lambda x: moe.moe_apply(blk, x, split=split,
+                                               **kw)[0])(xs))
+        grads.append(vmap(grad(
+            lambda q, x, c: loss(q, x, c, split, r == 0 or
+                                 not split_experts), argnums=(0, 1)),
+            in_dims=(None, 0, 0))(blk, xs, cots))
+    if not split_experts:
+        # whole experts: every rank computes the whole block
+        for y, (gp, gx) in zip(ys, grads):
+            torch.testing.assert_close(y, want_y, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(gx, want_g[1], rtol=RTOL, atol=ATOL)
+            for a, b in zip(tree_leaves(gp), tree_leaves(want_g[0])):
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        return
+    torch.testing.assert_close(sum(ys), want_y, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(sum(g[1] for g in grads), want_g[1],
+                               rtol=RTOL, atol=ATOL)
+    gp = [g[0] for g in grads]
+    torch.testing.assert_close(sum(g["router"] for g in gp),
+                               want_g[0]["router"], rtol=RTOL, atol=ATOL)
+    for key in ("w1", "w3", "w2"):
+        torch.testing.assert_close(torch.cat([g[key] for g in gp], 1),
+                                   want_g[0][key], rtol=RTOL, atol=ATOL)
+    if n_shared:
+        sh = [g["shared"] for g in gp]
+        for key, dim in (("w1", 2), ("w3", 2), ("w2", 1)):
+            torch.testing.assert_close(torch.cat([g[key] for g in sh], dim),
+                                       want_g[0]["shared"][key], rtol=RTOL,
+                                       atol=ATOL)
+
+
 class _FakeMesh:
     """A DeviceMesh's surface without a process group: its shape, names,
     this rank's coordinate and a group of None."""
@@ -278,9 +447,9 @@ def test_training_paths_on_cuda_blocks_raise_naming_12b():
     raises NotImplementedError naming the ROADMAP entries that remain
     (fake CUDA tensors and a fake mesh: no card and no process group):
     12b took the train step and 12h the federated round, so
-    `StepPlacement` of granite holds a split while one of olmoe raises
-    naming 12c, and the unsplit sequential step handed an update
-    constraint and a bare `take` name 12c-12f (12i, the fleets, computes
+    `StepPlacement` of granite, and of olmoe since 12c split its experts,
+    holds a split, and the unsplit sequential step handed an update
+    constraint and a bare `take` name 12d-12f (12i, the fleets, computes
     on blocks since it was taken); the split steps' blocks are taken."""
     cfg = smoke("granite_3_8b")
     mesh = _FakeMesh(1, 2)
@@ -294,30 +463,30 @@ def test_training_paths_on_cuda_blocks_raise_naming_12b():
         moe = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                              device="cuda"),
                        _meta_params(olmoe))
-        with pytest.raises(NotImplementedError, match="entry 12c"):
-            StepPlacement(moe, olmoe, mesh, 4)
+        assert StepPlacement(moe, olmoe, mesh, 4).split.segment(
+            0).experts
         step = make_train_step(build_model(cfg), cfg.replace(
             sequential_clients=True), 2, 1,
             update_spec=rules.named(mesh, specs))
         G = tree_map(lambda t: t.new_empty((2,) + tuple(t.shape)), cuda)
         batch = {"tokens": torch.zeros((2, 1, 1, 8), dtype=torch.int32,
                                        device="cuda")}
-        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
+        with pytest.raises(NotImplementedError, match="entries 12d-12f"):
             step(cuda, G, batch, torch.ones(2, dtype=torch.bool,
                                             device="cuda"), 0.1)
         wq = cuda["segments"]["0"]["attn"]["wq"]
         spec = specs["segments"]["0"]["attn"]["wq"]
-        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
+        with pytest.raises(NotImplementedError, match="entries 12d-12f"):
             take(wq, spec, mesh)
         assert block_shape(tuple(wq.shape), spec, mesh, wq.device,
                            split=True)[-1] == wq.shape[-1] // 2
         # a mesh of CPU ranks does not carry CUDA blocks, serving or not
-        with pytest.raises(NotImplementedError, match="entries 12c-12f"):
+        with pytest.raises(NotImplementedError, match="entries 12d-12f"):
             take(wq, spec, _FakeMesh(1, 2, "cpu"), split=True)
 
 
 @pytest.mark.parametrize("arch,change,mesh,entry", [
-    ("olmoe_1b_7b", {}, (1, 2), "12c"),
+    ("olmoe_1b_7b", {"fsdp": True}, (2, 2), "12g"),
     ("deepseek_v2_lite_16b", {}, (1, 2), "12d"),
     ("zamba2_7b", {}, (1, 2), "12e"),
     ("granite_3_8b", {"pad_q_heads": 16, "pad_kv_heads": 16}, (1, 2),
@@ -343,8 +512,9 @@ def test_plans_split_only_the_serving_steps_on_a_model_axis():
     """On a mesh whose model axis splits, granite's prefill and decode
     plans carry split steps (`launch.specs.run_placed` passes them the
     blocks), and so does its train plan since the train step splits
-    (`tests/test_torch_split_train.py`); every plan on an abstract mesh or
-    at model extent 1 keeps the unsplit step."""
+    (`tests/test_torch_split_train.py`), as do olmoe-1b-7b's and
+    moonshot-v1-16b-a3b's, their experts split; every plan on an abstract
+    mesh or at model extent 1 keeps the unsplit step."""
     cfg = smoke("granite_3_8b")
     fake = _FakeMesh(1, 2)
     for shape in ("prefill_32k", "decode_32k"):
@@ -360,6 +530,11 @@ def test_plans_split_only_the_serving_steps_on_a_model_axis():
                  _FakeMesh(2, 1)):
         assert getattr(plan_config(cfg, "train_4k", mesh).fn, "split",
                        None) is None
+    for arch in ("olmoe_1b_7b", "moonshot_v1_16b_a3b"):
+        moe = smoke(arch)
+        for shape in ("prefill_32k", "decode_32k", "train_4k"):
+            split = plan_config(moe, shape, fake).fn.split
+            assert split.segment(0).experts and split.segment(0).heads
     assert tensor_parallel.model_axis(None) is None
     step = make_prefill_step(build_model(cfg),
                              make_abstract_mesh((1, 4), ("data", "model")))

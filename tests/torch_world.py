@@ -598,6 +598,68 @@ def world_of_params(out: dict, info: dict, out_dir: str) -> None:
 # --cases serve: split products on the serving path
 # --------------------------------------------------------------------------- #
 
+class RouteLog:
+    """While active, records every `models.moe.route` call's (E, C)
+    table (cloned) and the count of assignments it dropped."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.calls = moe, moe.route, []
+
+        def recording(*a):
+            r = self.route(*a)
+            self.calls.append((r.table.clone(), int((~r.kept()).sum())))
+            return r
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def routing_verdict(want: RouteLog, got: RouteLog) -> dict:
+    """Whether the split run's routing calls (`got`) gave the unsplit
+    run's (E, C) tables and drops bit for bit, and the same on every rank
+    of the world; with the count of calls and their drops."""
+    import torch
+    import torch.distributed as dist
+    eq = len(want.calls) == len(got.calls) and all(
+        torch.equal(a, b) and m == n
+        for (a, m), (b, n) in zip(want.calls, got.calls))
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, [digests([t])[0] + f"/{n}"
+                                   for t, n in got.calls])
+    return {"tables": eq, "same": all(x == parts[0] for x in parts),
+            "calls": len(got.calls), "drops": [n for _, n in got.calls]}
+
+
+def expert_blocks(params, split) -> dict:
+    """The experts in this rank's block of each MoE segment (its w1's E
+    dim), and each segment's split, by segment."""
+    return {i: (params["segments"][i]["moe"]["w1"].shape[-3],
+                split.segment(int(i)).experts)
+            for i in params["segments"] if "moe" in params["segments"][i]}
+
+
+def train_routing(model, params, split, mesh, batch) -> dict:
+    """For an MoE config: the training forward (`loss_fn`) of one
+    client's minibatch `batch`, unsplit on the whole `params` and on this
+    rank's blocks of them under `split` (a `TrainSplit`), its routing
+    compared (`routing_verdict`); {} without MoE."""
+    import torch
+    from repro_torch.sharding.params import take_tree
+    if not model.cfg.n_experts:
+        return {}
+    with torch.no_grad():
+        with RouteLog() as want:
+            model.loss_fn(params, batch)
+        blocks = take_tree(params, split.param_specs, mesh)
+        with RouteLog() as got:
+            model.loss_fn(blocks, batch, split=split)
+    return {"routing": routing_verdict(want, got),
+            "experts": expert_blocks(blocks, split)}
+
+
 # batch, prompt length and greedy decode steps of every serve case
 SB, SS, ST = 2, 24, 3
 # case -> (arch, config change, mesh (data, model), cache length): granite
@@ -605,7 +667,11 @@ SB, SS, ST = 2, 24, 3
 # it, and with a vocab of 511 (the head whole, as granite's 49155 on the
 # card); qwen (qkv bias); granite and gemma on 4 model ranks (KV 2 % 4 != 0:
 # the caches split over their slots; gemma's ring of 16 over 4 ranks, its
-# global layer's 30 slots whole); granite on data and model
+# global layer's 30 slots whole); granite on data and model; olmoe's
+# experts over `model` (E = 4: two a rank on 1x2, one on 1x4 at a capacity
+# factor of 1.0, which drops assignments in prefill and decode), with a
+# shared SwiGLU, with 6 experts on 1x4 (whole on every rank), and
+# moonshot's
 SERVE_CASES = {
     "a_granite_1x2": ("granite_3_8b", {}, (1, 2), 28),
     "a_granite_vocab511_1x2": ("granite_3_8b", {"vocab_size": 511}, (1, 2),
@@ -614,6 +680,14 @@ SERVE_CASES = {
     "c_granite_1x4": ("granite_3_8b", {}, (1, 4), 28),
     "d_gemma_1x4": ("gemma3_4b", {}, (1, 4), 30),
     "e_granite_2x2": ("granite_3_8b", {}, (2, 2), 28),
+    "f_olmoe_1x2": ("olmoe_1b_7b", {}, (1, 2), 28),
+    "f_olmoe_drops_1x4": ("olmoe_1b_7b", {"moe_capacity_factor": 1.0},
+                          (1, 4), 28),
+    "g_olmoe_shared_1x2": ("olmoe_1b_7b", {"n_shared_experts": 1}, (1, 2),
+                           28),
+    "h_olmoe_whole_experts_1x4": ("olmoe_1b_7b", {"n_experts": 6}, (1, 4),
+                                  28),
+    "i_moonshot_1x2": ("moonshot_v1_16b_a3b", {}, (1, 2), 28),
 }
 # the f32 bound of tests/test_torch_models.py
 SRTOL, SATOL = 2e-4, 2e-5
@@ -706,8 +780,9 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
     with np.load(serve_params_path(out_dir, case)) as z:
         params = params_from_jax(unflat_tree(dict(z)), "cpu")
     toks = torch.from_numpy(serve_tokens(cfg))
-    want = serve_greedy(model, params, model.init_cache(SB, C, device="cpu"),
-                        toks)
+    with RouteLog() as want_routes:
+        want = serve_greedy(model, params,
+                            model.init_cache(SB, C, device="cpu"), toks)
 
     step_p = make_prefill_step(model, mesh, batch=SB, cache_len=C)
     step_d = make_decode_step(model, mesh, batch=SB, cache_len=C)
@@ -722,11 +797,12 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
     def whole_logits(x):
         return whole(x, lspec, mesh, split=True)
 
-    got = serve_greedy(
-        model, take_tree(params, split.param_specs, mesh, split=True),
-        model.init_cache(SB, C, device="cpu", split=split),
-        blk(toks, bspec), step_p, step_d,
-        lambda x: blk(whole_logits(x), bspec))
+    blocks = take_tree(params, split.param_specs, mesh, split=True)
+    with RouteLog() as got_routes:
+        got = serve_greedy(
+            model, blocks, model.init_cache(SB, C, device="cpu", split=split),
+            blk(toks, bspec), step_p, step_d,
+            lambda x: blk(whole_logits(x), bspec))
     cspecs = split.cache_specs
     # the rank's blocks of the unsplit run
     ref = [blk(want[0], lspec), [blk(x, lspec) for x in want[1]],
@@ -740,10 +816,9 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
 
     def whole_on_model(spec) -> bool:
         return rules.MODEL not in rules.sharded_axes([spec], mesh)
-    repl = [x for x, s in zip(
-        tree_leaves(take_tree(params, split.param_specs, mesh,
-                              split=True)),
-        tree_leaves(split.param_specs)) if whole_on_model(s)]
+    repl = [x for x, s in zip(tree_leaves(blocks),
+                              tree_leaves(split.param_specs))
+            if whole_on_model(s)]
     repl += [x for x, s in zip(tree_leaves(got[4]), tree_leaves(cspecs))
              if whole_on_model(s)]
     if whole_on_model(lspec):
@@ -753,10 +828,12 @@ def serve_case(out: dict, info: dict, case: str, out_dir: str) -> None:
     parts = [None] * dist.get_world_size(model_group)
     dist.all_gather_object(parts, digest, group=model_group)
     repl_eq = all(p == parts[0] for p in parts)
-    layouts = {str(i): (g.cache, g.heads, g.kv_cols, g.mlp)
+    layouts = {str(i): (g.cache, g.heads, g.kv_cols, g.mlp, g.experts)
                for i, g in split.segments.items()}
+    routing = routing_verdict(want_routes, got_routes)
     parts = [None] * dist.get_world_size()
     dist.all_gather_object(parts, {
+        "routing": routing, "experts": expert_blocks(blocks, split),
         "shapes": eq, "err": worst, "greedy": greedy_eq,
         "replicated": repl_eq, "n_replicated": len(repl),
         "layouts": layouts, "embed": split.embed, "head": split.head,
@@ -841,7 +918,9 @@ TN, TK, TMB, TS, TR = 4, 2, 2, 24, 2
 # and `run_placed` (qkv bias); llava's sequential step (patches
 # replicated); granite with remat and the chunked cross-entropy; and one
 # kv head of width 6 on 1x4 (k's and v's columns whole, every rank
-# computing them, while the query heads split)
+# computing them, while the query heads split); olmoe's experts over
+# `model` with remat on (each layer's recompute issues the MoE
+# collectives again) and on 2x2
 TRAIN_CASES = {
     "a_granite_1x2": ("granite_3_8b", {}, (1, 2), False),
     "a_granite_vocab511_1x2": ("granite_3_8b", {"vocab_size": 511}, (1, 2),
@@ -855,6 +934,8 @@ TRAIN_CASES = {
                             (1, 2), False),
     "h_granite_mqa_1x4": ("granite_3_8b", {"n_kv_heads": 1, "head_dim": 6},
                           (1, 4), False),
+    "i_olmoe_remat_1x2": ("olmoe_1b_7b", {"remat": True}, (1, 2), False),
+    "j_olmoe_2x2": ("olmoe_1b_7b", {}, (2, 2), False),
 }
 # the f32 training bound: |got - want| <= TRTOL·|want| + TATOL·max|want|
 TRTOL, TATOL = 2e-4, 2e-5
@@ -1015,8 +1096,11 @@ def train_case(out: dict, info: dict, case: str, out_dir: str) -> None:
         for k, v in flat_tree({"params": whole_p, "G": whole_G}).items():
             out[f"{case}/r{r}/{k}"] = v.numpy().copy()
         out[f"{case}/r{r}/loss"] = m["loss"].numpy().copy()
-    layouts = {str(i): (g.cache, g.heads, g.kv_cols, g.mlp)
+    layouts = {str(i): (g.cache, g.heads, g.kv_cols, g.mlp, g.experts)
                for i, g in split.segments.items()}
+    b0, _, _ = rounds[0]
+    moe = train_routing(model, params, split, mesh,
+                        {k: torch.from_numpy(v[0, 0]) for k, v in b0.items()})
     # `TrainSplit.move` between two dims split over model (the all-to-all)
     # and back, against the tensor taken whole and cut; a rank puts in
     # (M - 1) / M of its block
@@ -1035,7 +1119,7 @@ def train_case(out: dict, info: dict, case: str, out_dir: str) -> None:
                 and put_in * msize == blk.numel() * 4 * (msize - 1))
     parts = [None] * dist.get_world_size()
     dist.all_gather_object(parts, {
-        "exchange": exchange,
+        **moe, "exchange": exchange,
         "shapes": shapes_ok and check, "err": errs, "replicated": same,
         "layouts": layouts, "embed": split.embed, "head": split.head,
         "sequential": cfg.sequential_clients,
@@ -1076,8 +1160,9 @@ def fl_cfg(arch: str):
 # with MIFA(array) on 1x2 and 2x2 (clients over data), DenseBank(mesh=,
 # cfg=) on both, PagedDeviceBank (whole on every rank), int8 memory, FedAR
 # (a dense baseline whose per-client memory is placed as the update
-# array), gemma3-4b's (local attention, vocab-split head); and checkpoint=
-# after round 2 on 1x2, resumed on 1x2 and on one rank
+# array), gemma3-4b's (local attention, vocab-split head); checkpoint=
+# after round 2 on 1x2, resumed on 1x2 and on one rank; olmoe's experts over
+# `model` with MIFA(array) and DenseBank(mesh=, cfg=)
 FL_CASES = {
     "a_mifa_1x2": ("granite_3_8b", "mifa_array", (1, 2)),
     "a_mifa_vocab511_1x2": ("granite_3_8b_vocab511", "mifa_array", (1, 2)),
@@ -1090,6 +1175,8 @@ FL_CASES = {
     "f_resumed_on_1": ("granite_3_8b", "mifa_array", (1, 2)),
     "g_gemma_1x2": ("gemma3_4b", "mifa_array", (1, 2)),
     "h_fedar_1x2": ("granite_3_8b", "fedar", (1, 2)),
+    "i_olmoe_mifa_1x2": ("olmoe_1b_7b", "mifa_array", (1, 2)),
+    "i_olmoe_dense_bank_1x2": ("olmoe_1b_7b", "banked_dense", (1, 2)),
 }
 
 
@@ -1181,6 +1268,7 @@ def fl_case(out: dict, info: dict, case: str, log, out_dir: str,
     package."""
     import shutil
 
+    import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import CheckpointSpec
     from repro_torch.launch.mesh import make_host_mesh
@@ -1234,6 +1322,10 @@ def fl_case(out: dict, info: dict, case: str, log, out_dir: str,
                 "wholes": wholes, "eager": drv.eager,
                 "replays": drv.replays, "eager_rounds": drv.eager_rounds}
     if split is not None:
+        verdicts.update(train_routing(
+            build_model(cfg), params, split, mesh,
+            {k: torch.from_numpy(v[0, 0])
+             for k, v in fl_batcher(cfg).sample_round(0).items()}))
         verdicts.update(
             moved=dict(split.axis.moved),
             g_differs=any(rules.P(*s[1:]) != p for s, p in zip(
@@ -1272,7 +1364,8 @@ FLEET_SEEDS = (0, 1)
 # BankedMIFA(DenseBank) and BankedMIFA(PagedDeviceBank), their rows whole on
 # every rank; a Gilbert-Elliott scenario fleet; gemma3-4b's (local
 # attention, vocab-split head); granite with padded heads, which the split
-# leaves for later (ROADMAP entry 12f): its rounds gather the blocks whole
+# leaves for later (ROADMAP entry 12f): its rounds gather the blocks whole;
+# olmoe's experts over `model`
 FLEET_CASES = {
     "a_mifa_1x2": ("granite_3_8b", "mifa_array", (1, 2), "scan", False),
     "a_mifa_loop_1x2": ("granite_3_8b", "mifa_array", (1, 2), "loop",
@@ -1288,6 +1381,7 @@ FLEET_CASES = {
     "f_gemma_1x2": ("gemma3_4b", "mifa_array", (1, 2), "scan", False),
     "g_gathered_padded_1x2": ("granite_3_8b_padded", "mifa_array", (1, 2),
                               "scan", False),
+    "h_olmoe_1x2": ("olmoe_1b_7b", "mifa_array", (1, 2), "scan", False),
 }
 
 
@@ -1401,9 +1495,12 @@ def fleet_case(out: dict, info: dict, case: str, log,
     loop engine's split run against the scan engine's, bit for bit; rank
     0 records the split run for the test's comparison with the JAX
     package's sequential runs."""
+    import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
     from repro_torch.sharding import rules
+    from repro_torch.tree import tree_map
     arch, name, shape, engine, scenario = FLEET_CASES[case]
     cfg = fl_cfg(arch)
     params = fleet_params(cfg)
@@ -1445,6 +1542,11 @@ def fleet_case(out: dict, info: dict, case: str, log,
         "eager": None if drv is None else drv.eager,
         "replays": None if drv is None else drv.replays,
         "eager_rounds": None if drv is None else drv.eager_rounds}
+    if split is not None:
+        verdicts.update(train_routing(
+            build_model(cfg), tree_map(lambda t: t[0], params), split, mesh,
+            {k: torch.from_numpy(v[0, 0])
+             for k, v in fl_batcher(cfg).sample_round(0).items()}))
     parts = [None] * dist.get_world_size()
     dist.all_gather_object(parts, verdicts)
     info[case] = parts
